@@ -1,0 +1,16 @@
+"""Physical operators of the port (see each module for its JAX
+counterpart)."""
+
+from spark_rapids_tpu_torch.ops.aggregate import (
+    AggSpec, Average, Count, CountStar, HashAggregateExec, Sum)
+from spark_rapids_tpu_torch.ops.base import (
+    Exec, ExecContext, InMemorySourceExec)
+from spark_rapids_tpu_torch.ops.basic import (
+    CoalescePartitionsExec, FilterExec, ProjectExec)
+from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
+
+__all__ = [
+    "AggSpec", "Average", "CoalescePartitionsExec", "Count", "CountStar",
+    "Exec", "ExecContext", "FilterExec", "HashAggregateExec",
+    "InMemorySourceExec", "ProjectExec", "SortExec", "SortOrder", "Sum",
+]

@@ -1,0 +1,162 @@
+"""Physical operator base (port of the JAX package's ``ops/base.py``).
+
+A plan is a tree of ``Exec`` nodes; each node, per partition, produces an
+iterator of ``DeviceBatch``es whose kernels are eager torch calls.
+``Exec.collect`` runs every partition, then downloads all result batches
+in one batched pass.
+
+This slice keeps the core only: no pipeline, watchdog, scheduler, spill or
+fault layers (later slices add them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+from spark_rapids_tpu_torch import DeviceLike
+from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, download_batches, host_to_device)
+from spark_rapids_tpu_torch.config import TpuConf
+
+Schema = Tuple[Tuple[str, DataType], ...]
+
+
+class Metrics:
+    """Per-operator metric registry (host-clock nanoseconds, counts)."""
+
+    def __init__(self, owner: str = ""):
+        self.owner = owner
+        self.values: Dict[str, float] = {}
+
+    def add(self, name: str, amount: float):
+        self.values[name] = self.values.get(name, 0) + amount
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return f"Metrics({self.values})"
+
+
+def record_batch(m: Metrics, batch: DeviceBatch) -> None:
+    """Count one output batch, and its rows where they are known on the
+    host (never forces a device sync)."""
+    m.add("numOutputBatches", 1)
+    if batch.rows_hint is not None:
+        m.add("numOutputRows", int(batch.rows_hint))
+
+
+@dataclasses.dataclass
+class ExecContext:
+    """Per-query execution context: conf + per-operator metrics."""
+
+    conf: TpuConf = dataclasses.field(default_factory=TpuConf)
+    metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
+
+    def metrics_for(self, op: "Exec") -> Metrics:
+        key = f"{op.name}@{id(op):x}"
+        m = self.metrics.get(key)
+        if m is None:
+            m = self.metrics[key] = Metrics(owner=op.name)
+        return m
+
+
+class timed:
+    """Context manager adding elapsed host-clock ns to a metric. Kernels
+    are asynchronous on the card, so on CUDA this measures dispatch, not
+    device time."""
+
+    def __init__(self, metrics: Metrics, name: str = "totalTime"):
+        self.metrics = metrics
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.metrics.add(self.name, time.perf_counter_ns() - self.t0)
+        return False
+
+
+class Exec:
+    """A physical operator. ``schema`` is the output schema."""
+
+    def __init__(self, *children: "Exec"):
+        self.children: Tuple["Exec", ...] = tuple(children)
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def num_partitions(self, ctx: ExecContext) -> int:
+        return self.children[0].num_partitions(ctx)
+
+    def execute_device(self, ctx: ExecContext,
+                       partition: int) -> Iterator[DeviceBatch]:
+        raise NotImplementedError
+
+    def plan_device(self):
+        """The device this plan's source uploads to."""
+        dev = getattr(self, "device", None)
+        if dev is not None:
+            return dev
+        for c in self.children:
+            dev = c.plan_device()
+            if dev is not None:
+                return dev
+        return None
+
+    def collect(self, ctx: Optional[ExecContext] = None) -> List[tuple]:
+        """Run all partitions, then download every result batch in one
+        batched pass and return the rows."""
+        ctx = ctx or ExecContext()
+        batches: List[DeviceBatch] = []
+        for p in range(self.num_partitions(ctx)):
+            batches.extend(self.execute_device(ctx, p))
+        names = tuple(n for n, _ in self.schema)
+        rows: List[tuple] = []
+        for hb in download_batches(batches, names):
+            rows.extend(hb.to_pylist())
+        return rows
+
+
+class LeafExec(Exec):
+    """Base for source nodes."""
+
+    def num_partitions(self, ctx: ExecContext) -> int:
+        raise NotImplementedError
+
+
+class InMemorySourceExec(LeafExec):
+    """In-memory host-batch source, pre-partitioned; uploads each batch to
+    ``device`` (``None`` = the CUDA card, raising when there is none)."""
+
+    def __init__(self, schema: Schema,
+                 partitions: Sequence[Sequence[HostBatch]],
+                 device: DeviceLike = None):
+        super().__init__()
+        from spark_rapids_tpu_torch import resolve_device
+        self._schema = tuple(schema)
+        self._partitions = [list(p) for p in partitions]
+        self.device = resolve_device(device)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def num_partitions(self, ctx: ExecContext) -> int:
+        return len(self._partitions)
+
+    def execute_device(self, ctx, partition):
+        m = ctx.metrics_for(self)
+        for hb in self._partitions[partition]:
+            with timed(m, "uploadTime"):
+                out = host_to_device(hb, device=self.device)
+            record_batch(m, out)
+            yield out

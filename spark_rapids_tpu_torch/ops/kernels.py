@@ -1,0 +1,215 @@
+"""Shared device kernels: key normalization, lexicographic sort, grouping.
+
+Port of the JAX package's ``ops/kernels.py`` (``_orderable_u32_words``,
+``sort_key_passes``, ``_radix_perm``, ``lex_sort_perm``,
+``key_fingerprint``, ``group_ids``).
+
+- ``sort_key_passes`` turns a key column into u32 radix words, most
+  significant first, adjusted for asc/desc and null ordering. A u32 word is
+  an int64 tensor holding a value in [0, 2^32) (torch's uint32 lacks the
+  arithmetic these need).
+- ``_radix_perm`` is the stable LSD radix over those words; every pass is
+  ``native.stable_argsort_u32`` (kernel K1 on the card).
+- ``group_ids`` sorts rows by a 64-bit key fingerprint (two murmur3
+  streams + the null pattern) so equal keys become adjacent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, DeviceColumn
+from spark_rapids_tpu_torch.exprs import hash as mh
+from spark_rapids_tpu_torch.ops import native
+
+M32 = 0xFFFFFFFF
+_SIGN32 = 0x80000000
+_INT64_MIN = -(1 << 63)
+_NAN_F64_BITS = 0x7FF8000000000000
+
+
+def _full(like: torch.Tensor, value: int) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.int64, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Orderable key normalization
+# ---------------------------------------------------------------------------
+
+def _orderable_u32_words(col: DeviceColumn) -> List[torch.Tensor]:
+    """Column -> u32 words (int64 carried), most-significant first, whose
+    lexicographic unsigned order is SQL ascending order (nulls handled
+    separately)."""
+    t = col.dtype
+    if t.is_string:
+        # Big-endian 4-byte words: zero padding sorts shorter strings first.
+        data = col.data
+        w = data.shape[1]
+        if w % 4:
+            data = torch.cat([data, data.new_zeros((data.shape[0],
+                                                    4 - w % 4))], dim=1)
+        d = data.to(torch.int64)
+        return [(d[:, i] << 24) | (d[:, i + 1] << 16) | (d[:, i + 2] << 8)
+                | d[:, i + 3] for i in range(0, w, 4)]
+    if t.is_floating:
+        if t.name == "float32":
+            bits = col.data.to(torch.float32).view(torch.int32) \
+                .to(torch.int64) & M32
+            # IEEE total order: flip all bits if negative else flip sign.
+            neg = (bits >> 31) == 1
+            return [torch.where(neg, bits ^ M32, bits | _SIGN32)]
+        # float64: the JAX package keeps these passes in the float domain
+        # ([nan tier, value with NaNs zeroed, -0/+0 tiebreak]) because the
+        # TPU cannot bitcast f64. A 64-bit bitcast is legal here; the IEEE
+        # total-order transform with NaN canonicalized orders rows
+        # identically (NaN greatest, -0.0 before +0.0, ties stable), so
+        # the stable permutation is the same.
+        x = col.data.to(torch.float64)
+        b = torch.where(torch.isnan(x), _full(x, _NAN_F64_BITS),
+                        x.view(torch.int64))
+        u = torch.where(b < 0, ~b, b | _INT64_MIN)
+        return [(u >> 32) & M32, u & M32]
+    if t.name in ("int64", "timestamp"):
+        u = col.data.to(torch.int64) ^ _INT64_MIN
+        return [(u >> 32) & M32, u & M32]
+    # bool/int8/16/32/date -> one word, sign-bias flip.
+    return [(col.data.to(torch.int64) & M32) ^ _SIGN32]
+
+
+def sort_key_passes(col: DeviceColumn, ascending: bool,
+                    nulls_first: bool) -> List[torch.Tensor]:
+    """Radix word passes for one sort key, MSW first, including the null
+    ordering word. Descending keys get bit-flipped words."""
+    words = _orderable_u32_words(col)
+    if not ascending:
+        words = [w ^ M32 for w in words]
+    one, zero = _full(col.validity, 1), _full(col.validity, 0)
+    if nulls_first:
+        null_word = torch.where(col.validity, one, zero)
+    else:
+        null_word = torch.where(col.validity, zero, one)
+    # Zero data words for nulls so null ordering is decided by null_word.
+    words = [torch.where(col.validity, w, zero) for w in words]
+    return [null_word] + words
+
+
+def _radix_perm(passes: List[torch.Tensor], capacity: int,
+                unstable_first: bool = False) -> torch.Tensor:
+    """Stable LSD radix argsort over u32 word passes (most significant
+    first); returns the int64 row permutation ordering rows by the
+    lexicographic pass tuple.
+
+    Every pass is ``native.stable_argsort_u32``. ``unstable_first``
+    (stableSort.enabled off) allows any tie order on the least
+    significant pass; the stable kernel is one such order, so it runs
+    there too."""
+    del unstable_first
+    dev = passes[0].device
+    perm = torch.arange(capacity, dtype=torch.int64, device=dev)
+    for words in reversed(passes):
+        keyed = words.index_select(0, perm)
+        order = native.stable_argsort_u32(keyed)
+        perm = perm.index_select(0, order)
+    return perm
+
+
+def lex_sort_perm(passes: List[torch.Tensor], live,
+                  capacity: int, stable: bool = True) -> torch.Tensor:
+    """Permutation sorting rows by the MSW-first word passes; dead rows
+    always sort last. ``live`` is a (capacity,) bool mask or a row count
+    (int or 0-d tensor)."""
+    if not isinstance(live, torch.Tensor) or live.dim() == 0:
+        dev = passes[0].device if passes else \
+            (live.device if isinstance(live, torch.Tensor) else None)
+        live = torch.arange(capacity, dtype=torch.int32, device=dev) < live
+    pad_last = torch.where(live, _full(live, 0), _full(live, M32))
+    return _radix_perm([pad_last] + list(passes), capacity,
+                       unstable_first=not stable)
+
+
+# ---------------------------------------------------------------------------
+# Grouping
+# ---------------------------------------------------------------------------
+
+_SEED_A = 42
+_SEED_B = 0x5EED
+
+
+def key_fingerprint(cols: Sequence[DeviceColumn], capacity: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two independent 32-bit fingerprints of the key tuple per row.
+
+    Null cells are normalized so all NULLs fingerprint identically, and
+    the null pattern is mixed into the second stream explicitly (murmur3
+    passes the seed through on null)."""
+    dev = cols[0].validity.device if cols else None
+    ha = torch.full((capacity,), _SEED_A, dtype=torch.int64, device=dev)
+    hb = torch.full((capacity,), _SEED_B, dtype=torch.int64, device=dev)
+    for i, c in enumerate(cols):
+        if c.dtype.is_string:
+            data = torch.where(c.validity[:, None], c.data,
+                               torch.zeros_like(c.data))
+            lens = torch.where(c.validity, c.lengths,
+                               torch.zeros_like(c.lengths))
+            c = DeviceColumn(c.dtype, data, c.validity, lens)
+        elif c.dtype.is_floating:
+            # Grouping equality: -0.0 == 0.0 and NaN == NaN (Spark's
+            # NormalizeNaNAndZero, folded in here). Subnormals count as
+            # zero too: the JAX device path compares with denormals as
+            # zero, and its fingerprints are the reference.
+            tiny = 2.0 ** -1022 if c.dtype.name == "float64" else 2.0 ** -126
+            data = torch.where(c.data.abs() < tiny, torch.zeros_like(c.data),
+                               c.data)
+            data = torch.where(c.validity, data, torch.zeros_like(data))
+            c = DeviceColumn(c.dtype, data, c.validity)
+        else:
+            data = torch.where(c.validity, c.data, torch.zeros_like(c.data))
+            c = DeviceColumn(c.dtype, data, c.validity)
+        ha = mh.hash_column(c, c.dtype, ha)
+        hb = mh.hash_column(c, c.dtype, hb)
+        nullbit = torch.where(c.validity, _full(ha, 0),
+                              _full(ha, (0x9E3779B9 + i) & M32))
+        hb = mh.fmix(hb ^ nullbit, 4)
+    return ha, hb
+
+
+@dataclasses.dataclass
+class Grouping:
+    """Result of group_ids: rows sorted so equal keys are adjacent."""
+
+    perm: torch.Tensor             # (cap,) int64 row permutation
+    group_of_sorted: torch.Tensor  # (cap,) int64 dense group id per row
+    num_groups: torch.Tensor       # 0-d int32
+    group_leader: torch.Tensor     # (cap,) int64 original row index of
+    #                                each group's first sorted row
+
+
+def group_ids(batch: DeviceBatch, key_ordinals: Sequence[int]) -> Grouping:
+    """Assign dense group ids over the key columns."""
+    cap = batch.capacity
+    cols = [batch.columns[i] for i in key_ordinals]
+    ha, hb = key_fingerprint(cols, cap)
+    live = batch.row_mask()
+    # Sort rows by (live first, ha, hb): padding last.
+    passes = [torch.where(live, _full(ha, 0), _full(ha, M32)), ha, hb]
+    perm = _radix_perm(passes, cap)
+    sa = ha.index_select(0, perm)
+    sb = hb.index_select(0, perm)
+    slive = live.index_select(0, perm)
+    prev_a = torch.cat([sa[:1] ^ 1, sa[:-1]])
+    prev_b = torch.cat([sb[:1], sb[:-1]])
+    new_seg = ((sa != prev_a) | (sb != prev_b)) & slive
+    idx = torch.arange(cap, dtype=torch.int64, device=perm.device)
+    first_live = torch.argmax(slive.to(torch.int32))
+    new_seg = new_seg | ((idx == first_live) & slive)
+    gid = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+    gid = torch.where(slive, gid, _full(gid, max(cap - 1, 0)))
+    num_groups = new_seg.sum(dtype=torch.int32)
+    # Leader: original row index of each group's first sorted row
+    # (``.at[].set(mode="drop")`` into a buffer one slot longer).
+    leader = torch.zeros(cap + 1, dtype=torch.int64, device=perm.device)
+    leader[torch.where(new_seg, gid, _full(gid, cap))] = perm
+    return Grouping(perm, gid, num_groups, leader[:cap])

@@ -1,0 +1,260 @@
+"""Hand-written GPU kernels of the port and their plain-PyTorch versions.
+
+Port of the JAX package's ``ops/native.py`` (its Pallas kernel layer). This
+slice carries kernel K1, the stable u32 radix rank behind every stable
+sort pass (``ops/kernels.py`` ``_radix_perm``), as the CUDA source
+``csrc/radix_rank.cu`` built for Hopper by ``ops/cuda_build.py``.
+
+Routing is by the tensor's device and nothing else: a CUDA tensor launches
+the kernel (or the call raises), a CPU tensor takes the plain version. No
+env variable or conf key sends a CUDA tensor to the plain version; the
+JAX package's ``spark.rapids.sql.native.*`` gates come in a later slice.
+
+Every launch adds one to its kernel's counter (:func:`counters`), so a run
+can show that the main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Tuple
+
+import torch
+
+KERNELS = ("radixSort",)
+
+RADIX = 256
+TILE_ROWS = 4096        # rows per histogram/scatter tile (kTile in the .cu)
+_M32 = 0xFFFFFFFF
+
+_LOCK = threading.Lock()
+_COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0}
+
+
+def _count(name: str) -> None:
+    with _LOCK:
+        _COUNTERS[name] += 1
+
+
+def counters() -> Dict[str, int]:
+    """Launches per CUDA kernel since the last reset."""
+    with _LOCK:
+        return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    with _LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
+
+
+def _ntiles(n: int) -> int:
+    return max(-(-n // TILE_ROWS), 1)
+
+
+# ---------------------------------------------------------------------------
+# Plain-PyTorch version: the same steps as the kernel, in torch ops
+# ---------------------------------------------------------------------------
+
+def digit_hist_plain(dig: torch.Tensor, tile: int = TILE_ROWS
+                     ) -> torch.Tensor:
+    """Per-tile 256-bin histogram of ``dig`` (int64 digits), digit-major:
+    ``out[d * ntiles + t]`` counts rows of tile ``t`` with digit ``d``."""
+    n = dig.numel()
+    ntiles = max(-(-n // tile), 1)
+    tile_idx = torch.arange(n, dtype=torch.int64, device=dig.device) // tile
+    return torch.bincount(dig * ntiles + tile_idx, minlength=RADIX * ntiles)
+
+
+def tile_rank_plain(dig: torch.Tensor, tile: int = TILE_ROWS
+                    ) -> torch.Tensor:
+    """Stable rank of each row within its tile: the number of earlier
+    rows of the same tile with the same digit (exclusive one-hot
+    prefix, in chunks of tiles to bound memory)."""
+    n = dig.numel()
+    ntiles = max(-(-n // tile), 1)
+    padded = torch.zeros(ntiles * tile, dtype=torch.int64, device=dig.device)
+    padded[:n] = dig
+    d2 = padded.view(ntiles, tile)
+    out = torch.empty((ntiles, tile), dtype=torch.int64, device=dig.device)
+    buckets = torch.arange(RADIX, dtype=torch.int64, device=dig.device)
+    step = max(1, (1 << 24) // (tile * RADIX))
+    for t0 in range(0, ntiles, step):
+        d = d2[t0:t0 + step]
+        onehot = (d[:, :, None] == buckets).to(torch.int32)
+        prefix = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+        out[t0:t0 + step] = prefix.gather(2, d[:, :, None])[:, :, 0]
+    return out.view(-1)[:n]
+
+
+def digit_scatter_plain(keys: torch.Tensor, vals: torch.Tensor, shift: int,
+                        offsets: torch.Tensor, tile: int = TILE_ROWS
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out[offsets[digit, tile] + rank] = (key, val)`` for every row."""
+    n = keys.numel()
+    ntiles = max(-(-n // tile), 1)
+    dig = (keys >> shift) & 0xFF
+    tile_idx = torch.arange(n, dtype=torch.int64, device=keys.device) // tile
+    pos = offsets[dig * ntiles + tile_idx] + tile_rank_plain(dig, tile)
+    keys_out = torch.empty_like(keys)
+    vals_out = torch.empty_like(vals)
+    keys_out[pos] = keys
+    vals_out[pos] = vals
+    return keys_out, vals_out
+
+
+def stable_argsort_u32_plain(keys: torch.Tensor, tile: int = TILE_ROWS
+                             ) -> torch.Tensor:
+    """The stable permutation sorting u32 ``keys`` (int64 values in
+    [0, 2^32), or int32 bit patterns), as 4 LSD passes of 8 bits: per-tile
+    histogram, scanned bases, stable within-tile rank, scatter. Returns
+    int32 row indices."""
+    k = keys.to(torch.int64) & _M32
+    v = torch.arange(k.numel(), dtype=torch.int64, device=k.device)
+    for shift in (0, 8, 16, 24):
+        hist = digit_hist_plain((k >> shift) & 0xFF, tile)
+        offsets = torch.cumsum(hist, 0) - hist
+        k, v = digit_scatter_plain(k, v, shift, offsets, tile)
+    return v.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel K1 (csrc/radix_rank.cu)
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        lib = cuda_build.load("radix_rank")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.srt_digit_hist.argtypes = [vp, ci, ci, ci, vp, vp]
+        lib.srt_digit_hist.restype = ci
+        lib.srt_digit_scatter.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
+        lib.srt_digit_scatter.restype = ci
+        lib.srt_cuda_error_string.argtypes = [ci]
+        lib.srt_cuda_error_string.restype = ctypes.c_char_p
+        lib.srt_radix_tile_rows.restype = ci
+        if lib.srt_radix_tile_rows() != TILE_ROWS:
+            raise RuntimeError("radix_rank.cu tile size differs from "
+                               "native.TILE_ROWS")
+        _LIB = lib
+    return _LIB
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        msg = _lib().srt_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def _check_u32(t: torch.Tensor, name: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor "
+                         f"(u32 bit patterns), got {t.dtype} {tuple(t.shape)}")
+
+
+def digit_hist(keys32: torch.Tensor, shift: int,
+               hist: torch.Tensor) -> torch.Tensor:
+    """Launch ``digit_hist`` on the current stream: per-tile histogram of
+    digit ``shift`` of int32-bit-pattern keys into ``hist``
+    (``(256 * ntiles,)`` int32, digit-major)."""
+    _check_u32(keys32, "keys")
+    n = keys32.numel()
+    ntiles = _ntiles(n)
+    if hist.dtype != torch.int32 or hist.numel() != RADIX * ntiles \
+            or not hist.is_contiguous() or hist.device != keys32.device:
+        raise ValueError("hist must be a contiguous (256 * ntiles,) int32 "
+                         "tensor on the keys' device")
+    stream = torch.cuda.current_stream(keys32.device).cuda_stream
+    _raise_on(_lib().srt_digit_hist(keys32.data_ptr(), n, shift, ntiles,
+                                    hist.data_ptr(), stream), "digit_hist")
+    _count("digit_hist")
+    return hist
+
+
+def digit_scatter(keys32: torch.Tensor, vals: torch.Tensor, shift: int,
+                  offsets: torch.Tensor, keys_out: torch.Tensor,
+                  vals_out: torch.Tensor) -> None:
+    """Launch ``digit_scatter`` on the current stream: stable within-tile
+    rank of digit ``shift``, each (key, val) written to
+    ``offsets[digit * ntiles + tile] + rank``."""
+    _check_u32(keys32, "keys")
+    _check_u32(vals, "vals")
+    _check_u32(offsets, "offsets")
+    _check_u32(keys_out, "keys_out")
+    _check_u32(vals_out, "vals_out")
+    n = keys32.numel()
+    ntiles = _ntiles(n)
+    if vals.numel() != n or keys_out.numel() != n or vals_out.numel() != n \
+            or offsets.numel() != RADIX * ntiles:
+        raise ValueError("digit_scatter: mismatched lengths")
+    stream = torch.cuda.current_stream(keys32.device).cuda_stream
+    _raise_on(_lib().srt_digit_scatter(
+        keys32.data_ptr(), vals.data_ptr(), n, shift, ntiles,
+        offsets.data_ptr(), keys_out.data_ptr(), vals_out.data_ptr(),
+        stream), "digit_scatter")
+    _count("digit_scatter")
+
+
+def to_u32_bits(keys: torch.Tensor) -> torch.Tensor:
+    """int64-carried u32 words -> contiguous int32 bit patterns (the low
+    32 bits of each value)."""
+    if keys.dtype == torch.int32:
+        return keys.contiguous()
+    k = keys.to(torch.int64) & _M32
+    return torch.where(k >= (1 << 31), k - (1 << 32), k) \
+        .to(torch.int32).contiguous()
+
+
+def _stable_argsort_u32_cuda(keys: torch.Tensor) -> torch.Tensor:
+    n = keys.numel()
+    if n >= (1 << 31):
+        raise ValueError(f"stable_argsort_u32: {n} rows exceed int32 indices")
+    with torch.cuda.device(keys.device):
+        k_src = to_u32_bits(keys)
+        if k_src.data_ptr() == keys.data_ptr():
+            k_src = k_src.clone()        # the passes overwrite their input
+        k_dst = torch.empty_like(k_src)
+        v_src = torch.arange(n, dtype=torch.int32, device=keys.device)
+        v_dst = torch.empty_like(v_src)
+        hist = torch.empty(RADIX * _ntiles(n), dtype=torch.int32,
+                           device=keys.device)
+        for shift in (0, 8, 16, 24):
+            digit_hist(k_src, shift, hist)
+            offsets = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+            digit_scatter(k_src, v_src, shift, offsets, k_dst, v_dst)
+            k_src, k_dst = k_dst, k_src
+            v_src, v_dst = v_dst, v_src
+        return v_src
+
+
+def stable_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of (cap,) u32 keys, as int32 row indices: the
+    unique stable permutation, so bit-identical to
+    ``torch.sort(stable=True).indices`` and to the JAX package's
+    ``native.stable_argsort_u32``.
+
+    ``keys`` are int64 tensors holding values in [0, 2^32) (the port's u32
+    carrier) or int32 bit patterns. A CUDA tensor runs kernel K1; a CPU
+    tensor runs :func:`stable_argsort_u32_plain`."""
+    if keys.dim() != 1:
+        raise ValueError(f"stable_argsort_u32 takes 1-D keys, got "
+                         f"{tuple(keys.shape)}")
+    if keys.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"stable_argsort_u32 takes int64-carried u32 or "
+                         f"int32 keys, got {keys.dtype}")
+    if not keys.is_contiguous():
+        raise ValueError("stable_argsort_u32 takes contiguous keys")
+    if keys.device.type == "cpu":
+        return stable_argsort_u32_plain(keys)
+    if keys.device.type != "cuda":
+        raise ValueError(f"stable_argsort_u32: unsupported device "
+                         f"{keys.device}")
+    return _stable_argsort_u32_cuda(keys)

@@ -1,0 +1,130 @@
+"""Where the time of TPC-H Q1 goes on the card.
+
+    python3 -m spark_rapids_tpu_torch.profile_q1 [--scale 1.0]
+        [--partitions 8] [--trace chiprun_out/q1_trace.json]
+
+Runs ``tpch_q1_plan(...).collect()`` on the CUDA card: one warm-up run,
+then host-clock times of the upload alone and of whole warm runs, then
+one run under ``torch.profiler`` (CPU + CUDA activity). Prints the host
+time per operator (the plan's own ``timed`` metrics), the top ops by
+self device time and by self host time, and the device busy share (sum
+of kernel time over the profiled wall time). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+
+def _dev_time(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.columnar.host import host_to_device
+    from spark_rapids_tpu_torch.ops import ExecContext, native
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--partitions", type=int, default=8)
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--trace", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_q1 needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    parts = entry.tpch_q1_host_batches(args.scale, args.partitions, seed=0)
+    n_rows = sum(p[0].num_rows for p in parts)
+    plan = entry.tpch_q1_plan(parts, device="cuda")
+    plan.collect()                                   # warm-up (builds K1)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for p in parts:
+        host_to_device(p[0], device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+
+    walls = []
+    ctx = None
+    for _ in range(args.runs):
+        ctx = ExecContext()
+        t0 = time.perf_counter()
+        plan.collect(ctx)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"q1 scale={args.scale} rows={n_rows} partitions="
+          f"{args.partitions}: warm wall s {walls}; upload alone "
+          f"{upload_s:.4f} s")
+    print("host time per operator (last warm run, ms):")
+    for key, m in ctx.metrics.items():
+        vals = {k: round(v / 1e6, 3) for k, v in m.values.items()
+                if k.endswith("Time")}
+        print(f"  {m.owner}: {vals}")
+
+    # The group-sum scan's layout, both ways in this one call: (cap, k)
+    # scanned over dim 0 (the outer dimension) vs (k, cap) over dim 1.
+    cap, k = 786_432, 8
+    m = torch.rand((cap, k), dtype=torch.float64, device="cuda")
+    mt = m.T.contiguous()
+    for label, fn in (("outer dim of (cap, k)", lambda: m.cumsum(0)),
+                      ("inner dim of (k, cap)", lambda: mt.cumsum(1))):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            fn()
+        end.record()
+        end.synchronize()
+        print(f"f64 cumsum over the {label}, cap={cap} k={k}: "
+              f"{start.elapsed_time(end) / 5:.4f} ms")
+
+    native.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plan.collect()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernel_us = sum(_dev_time(e) for e in events
+                    if getattr(e, "device_type", None) is not None
+                    and "CUDA" in str(e.device_type))
+    print(f"profiled run: wall {prof_wall:.4f} s; device kernel time "
+          f"{kernel_us / 1e3:.3f} ms; device busy share "
+          f"{kernel_us / 1e6 / prof_wall:.4f}; K1 launches "
+          f"{native.counters()}")
+    print("top ops by self device time:")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
+                       max_name_column_width=60))
+    print("top ops by self host time:")
+    print(events.table(sort_by="self_cpu_time_total", row_limit=20,
+                       max_name_column_width=60))
+    if args.trace:
+        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps({"rows": n_rows, "warm_wall_s": walls,
+                      "upload_s": upload_s, "profiled_wall_s": prof_wall,
+                      "device_kernel_ms": kernel_us / 1e3}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,141 @@
+"""Port parity: the expressions of the q1 path (``<=`` on DATE; ``-``,
+``*``, ``+`` on f64 with literals and nulls) and the rest of the ported
+predicate family evaluate exactly as the JAX package's ``eval``.
+
+Both engines get the same numpy columns; results compare buffer for
+buffer (data under dead rows zeroed, validity).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spark_rapids_tpu import exprs as JE
+from spark_rapids_tpu.columnar import batch as jbatch
+from spark_rapids_tpu.columnar import dtypes as jdt
+from spark_rapids_tpu.exprs import base as jbase
+
+from spark_rapids_tpu_torch import exprs as TE
+from spark_rapids_tpu_torch.columnar import batch as tbatch
+from spark_rapids_tpu_torch.columnar import dtypes as tdt
+from spark_rapids_tpu_torch.exprs import base as tbase
+
+CAP = 64
+LIVE = 53
+
+
+def _batches(seed=0):
+    """[date, f64, f64, i64, i32, string, bool] with nulls and a dead
+    tail, for both engines."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    date = rng.integers(10_400, 10_500, CAP).astype(np.int32)
+    f1 = rng.choice(np.array([0.0, -0.0, 0.05, 0.1, np.nan, np.inf, 17.25,
+                              -3.5]), CAP)
+    f2 = np.round(rng.uniform(900.0, 105_000.0, CAP), 2)
+    i64 = rng.integers(-2 ** 62, 2 ** 62, CAP)
+    i64[:3] = [2 ** 63 - 1, -2 ** 63, 45]
+    i32 = rng.integers(-50, 50, CAP).astype(np.int32)
+    lens = rng.integers(0, 4, CAP).astype(np.int32)
+    s = rng.choice(np.frombuffer(b"ANRab", np.uint8), (CAP, 8)) \
+        .astype(np.uint8)
+    s[np.arange(8)[None, :] >= lens[:, None]] = 0
+    b = rng.random(CAP) < 0.5
+    for name, data, lengths in [("date", date, None), ("float64", f1, None),
+                                ("float64", f2, None), ("int64", i64, None),
+                                ("int32", i32, None), ("string", s, lens),
+                                ("bool", b, None)]:
+        valid = (rng.random(CAP) < 0.8) & (np.arange(CAP) < LIVE)
+        data = np.where(valid if data.ndim == 1 else valid[:, None], data,
+                        np.zeros(1, data.dtype))
+        if lengths is not None:
+            lengths = np.where(valid, lengths, 0).astype(np.int32)
+        cols.append((name, data, valid, lengths))
+    jb = jbatch.DeviceBatch(tuple(
+        jbatch.DeviceColumn(jdt.type_named(n), jnp.asarray(d),
+                            jnp.asarray(v),
+                            None if l is None else jnp.asarray(l))
+        for n, d, v, l in cols), jnp.asarray(LIVE, jnp.int32))
+    tb = tbatch.DeviceBatch(tuple(
+        tbatch.DeviceColumn(tdt.type_named(n), torch.from_numpy(d.copy()),
+                            torch.from_numpy(v.copy()),
+                            None if l is None else torch.from_numpy(l.copy()))
+        for n, d, v, l in cols), torch.tensor(LIVE, dtype=torch.int32))
+    return jb, tb
+
+
+def _tree(M, which):
+    """The same expression tree over module namespace ``M`` (the JAX
+    package's exprs or the port's)."""
+    D = jdt if M is JE else tdt
+    R = M.BoundReference
+    date, f1, f2 = R(0, D.DATE), R(1, D.FLOAT64), R(2, D.FLOAT64)
+    i64, i32, s, b = (R(3, D.INT64), R(4, D.INT32), R(5, D.STRING),
+                      R(6, D.BOOL))
+    one = M.lit(1.0)
+    trees = {
+        # q1's filter and projections
+        "shipdate_le": M.LessThanOrEqual(date, M.Literal(D.DATE, 10_450)),
+        "one_minus_disc": M.Subtract(one, f1),
+        "disc_price": M.Multiply(f2, M.Subtract(one, f1)),
+        "charge": M.Multiply(M.Multiply(f2, M.Subtract(one, f1)),
+                             M.Add(one, f1)),
+        "null_literal": M.Add(f1, M.Literal(D.FLOAT64, None)),
+        # entry()'s filter: widening int64 <= int32 literal
+        "qty_le_45": M.LessThanOrEqual(i64, M.lit(45)),
+        "int_wrap": M.Add(M.Multiply(i64, i64), i32),
+        "int_widen": M.Subtract(i32, i64),
+        "f_lt_nan": M.LessThan(f1, f2),
+        "f_eq": M.EqualTo(f1, M.lit(0.0)),
+        "f_gt": M.GreaterThan(f1, M.lit(0.05)),
+        "f_ge": M.GreaterThanOrEqual(f1, f1),
+        "str_eq": M.EqualTo(s, M.lit("N")),
+        "str_lt": M.LessThan(s, M.lit("NA")),
+        "null_safe": M.EqualNullSafe(f1, f1),
+        "and": M.And(M.LessThan(i32, M.lit(0)), b),
+        "or": M.Or(M.LessThan(i32, M.lit(0)), b),
+        "not": M.Not(b),
+        "is_null": M.IsNull(f1),
+        "is_not_null": M.IsNotNull(s),
+    }
+    return trees[which]
+
+
+EXPRS = ["shipdate_le", "one_minus_disc", "disc_price", "charge",
+         "null_literal", "qty_le_45", "int_wrap", "int_widen", "f_lt_nan",
+         "f_eq", "f_gt", "f_ge", "str_eq", "str_lt", "null_safe", "and",
+         "or", "not", "is_null", "is_not_null"]
+
+
+@pytest.mark.parametrize("which", EXPRS)
+def test_eval_matches_reference(which):
+    jb, tb = _batches()
+    jc = jbase.as_device_column(_tree(JE, which).eval(jb), jb)
+    tc = tbase.as_device_column(_tree(TE, which).eval(tb), tb)
+    assert jc.dtype.name == tc.dtype.name
+    want = np.asarray(jc.data)
+    got = tc.data.numpy()
+    assert want.dtype == got.dtype
+    np.testing.assert_array_equal(want.view(np.uint8) if want.dtype != bool
+                                  else want,
+                                  got.view(np.uint8) if got.dtype != bool
+                                  else got)
+    np.testing.assert_array_equal(np.asarray(jc.validity),
+                                  tc.validity.numpy())
+
+
+@pytest.mark.parametrize("value", [45, 1.0, "RA", None])
+def test_scalar_expansion_matches_reference(value):
+    jb, tb = _batches(1)
+    jt = jbase.lit(value, jdt.INT32 if value is None else None)
+    tt = tbase.lit(value, tdt.INT32 if value is None else None)
+    jc = jbase.as_device_column(jt.eval(jb), jb)
+    tc = tbase.as_device_column(tt.eval(tb), tb)
+    np.testing.assert_array_equal(np.asarray(jc.data), tc.data.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.validity),
+                                  tc.validity.numpy())
+    if jc.lengths is not None:
+        np.testing.assert_array_equal(np.asarray(jc.lengths),
+                                      tc.lengths.numpy())
