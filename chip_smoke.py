@@ -10,7 +10,8 @@ Phases (each raises on failure; any failure exits non-zero):
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
 2. Build: the hand-written kernels compile from ``csrc/`` into the
-   package's ignored ``build/`` directory (one nvcc per source).
+   package's ignored ``build/`` directory (one nvcc per source, all
+   started together): ``radix_rank.cu`` (K1) and ``join_probe.cu`` (K3).
 3. Kernel: ``stable_argsort_u32`` (kernel K1) on random and
    duplicate-heavy u32 keys at capacities 512, 786 432 and 4 194 304 must
    equal its plain-PyTorch version and ``torch.sort(stable=True)`` bit for
@@ -20,9 +21,22 @@ Phases (each raises on failure; any failure exits non-zero):
    ``tpch_q1_plan(...).collect()`` on the card, checked against a numpy
    oracle in this file (group keys and counts exact, sums and averages to
    rtol 1e-9); K1's launch counters must rise during the run.
-5. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
-   path, its error against the plain version, its time, the plain
-   version's, its bound.
+5. Kernel: ``searchsorted_u64_pair`` (kernel K3) on full-range u64
+   fingerprints with runs and a sentinel tail at (build x probe) 512 x 512
+   and 4 194 304 x 4 194 304 must equal its plain version bit for bit;
+   kernel, plain and two-``torch.searchsorted`` times beside the bound.
+6. Paths: TPC-H Q3 and Q4 at scale factor 1 (seed 0; ORDERS and LINEITEM
+   in 8 partitions, CUSTOMER in 4) through ``tpch_q3_plan`` /
+   ``tpch_q4_plan``, checked against numpy oracles in this file (keys,
+   counts and the top-10 order exact, revenue to rtol 1e-9). K3 must
+   launch during Q4 (its semi join probes a build with runs of 7); Q3's
+   joins take the dense table and its K3 launches are printed (0
+   expected). K3 is then checked and timed again on the exact
+   fingerprints of Q4's first probe.
+7. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+   paths (q1 + q3 + q4), its error against the plain version, its time,
+   the plain version's, its bound, and one PyTorch call's time for the
+   same function.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,11 +168,18 @@ def per_launch_phase(native, cap: int) -> dict:
         (v_out.to(torch.int64) - pv).abs().max().item(),
         (native.to_u32_bits(pk).to(torch.int64)
          - k_out.to(torch.int64)).abs().max().item())
+    # One PyTorch call per function: the tile histogram as a bincount
+    # over precomputed (digit, tile) bins, the pass's stable reorder as a
+    # stable sort of the digits.
+    dig = k64 & 0xFF
+    bins = dig * ntiles + torch.arange(cap, device="cuda") // native.TILE_ROWS
     out = {
         "digit_hist": dict(
             ms=cuda_ms(lambda: native.digit_hist(k32, 0, hist), 50),
             plain_ms=cuda_ms(lambda: native.digit_hist_plain(k64 & 0xFF),
                              10),
+            library_ms=cuda_ms(lambda: torch.bincount(bins, minlength=table),
+                               50),
             max_abs_err=float(hist_err),
             # keys read once, the (256 x ntiles) table written once
             bound_ms=bytes_ms(4.0 * cap + 4.0 * table)),
@@ -167,6 +188,7 @@ def per_launch_phase(native, cap: int) -> dict:
                 k32, vals, 0, offsets, k_out, v_out), 50),
             plain_ms=cuda_ms(lambda: native.digit_scatter_plain(
                 k64, vals.to(torch.int64), 0, offsets.to(torch.int64)), 5),
+            library_ms=cuda_ms(lambda: torch.sort(dig, stable=True), 50),
             max_abs_err=float(scatter_err),
             # keys, row indices and offsets read once; keys and row
             # indices written once
@@ -176,7 +198,8 @@ def per_launch_phase(native, cap: int) -> dict:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
         log(f"{name} one pass at cap={cap}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms")
     return out
 
 
@@ -243,7 +266,7 @@ def path_phase(entry, native) -> dict:
     first_s = time.perf_counter() - t0
     launches = native.counters()
     check_q1(rows, want)
-    if min(launches.values()) <= 0:
+    if min(launches["digit_hist"], launches["digit_scatter"]) <= 0:
         raise AssertionError(f"q1 did not launch every K1 kernel: {launches}")
     t0 = time.perf_counter()
     rows = plan.collect()
@@ -258,6 +281,225 @@ def path_phase(entry, native) -> dict:
         f"K1 launches {launches}")
     return dict(launches=launches, first_s=first_s, warm_s=warm_s,
                 rows=n_rows)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: kernel K3 (the join probe) against its plain version
+# ---------------------------------------------------------------------------
+
+PROBE_SHAPES = ((512, 512), (4_194_304, 4_194_304))
+U64_MAX = 0xFFFFFFFFFFFFFFFF
+INT64_MIN = -(1 << 63)
+# H100 SXM float32 rate outside the tensor cores, taken as its 32-bit
+# integer ALU rate.
+ALU_OPS_PER_S = 67e12
+
+
+def probe_inputs(cap_b: int, cap_p: int, seed: int):
+    """Sorted full-range u64 build fingerprints with runs of 1-7 and a
+    sentinel tail (about 40% of the build); probes half hits, half
+    random, with 0, 2^64-1 and 2^63 among them. int64 bit patterns on
+    the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    n_live = int(cap_b * 0.6)
+    distinct = rng.integers(0, U64_MAX, max(n_live, 1), dtype=np.uint64,
+                            endpoint=True)
+    live = np.repeat(distinct, rng.integers(1, 8, len(distinct)))[:n_live]
+    build = np.concatenate([np.sort(live), np.full(cap_b - len(live),
+                                                   U64_MAX, np.uint64)])
+    probe = np.where(rng.random(cap_p) < 0.5, rng.choice(build, cap_p),
+                     rng.integers(0, U64_MAX, cap_p, dtype=np.uint64,
+                                  endpoint=True))
+    probe[:3] = [0, U64_MAX, 1 << 63]
+    return (torch.from_numpy(build.view(np.int64)).cuda(),
+            torch.from_numpy(probe.view(np.int64)).cuda())
+
+
+def probe_bound(cap_b: int, cap_p: int) -> tuple:
+    """(bound_ms, bound_by). Bytes: probe fingerprints in and lo/hi out
+    (16 B a row), plus the distinct 32-byte build sectors the searches
+    read. The lo and hi searches read the same sectors until their last
+    step, and the top floor(log2 cap_p) levels of the search tree, about
+    cap_p sectors in all, are shared by every probe; each deeper level
+    reads at most one sector a probe, and no search reads more than the
+    whole build (cap_b / 4 sectors). Operations: 2 ceil(log2 cap_b)
+    search steps a row at 4 32-bit ALU operations each."""
+    steps = max((cap_b - 1).bit_length(), 1)        # ceil(log2 cap_b)
+    shared = max(cap_p.bit_length() - 1, 0)         # floor(log2 cap_p)
+    sectors = min(cap_b / 4.0, cap_p * max(steps - shared + 1, 1))
+    nbytes = 16.0 * cap_p + 32.0 * sectors
+    ops_ms = 2.0 * steps * 4.0 * cap_p / ALU_OPS_PER_S * 1e3
+    b_ms = bytes_ms(nbytes)
+    return (b_ms, "bytes") if b_ms >= ops_ms else (ops_ms, "operations")
+
+
+def probe_check(native, build, probe, label: str) -> dict:
+    """K3 against its plain version (bit for bit), then kernel, plain and
+    two-``torch.searchsorted`` times on the same inputs."""
+    import torch
+    cap_b, cap_p = build.numel(), probe.numel()
+    lo, hi = native.searchsorted_u64_pair(build, probe)
+    torch.cuda.synchronize()
+    plo, phi = native.searchsorted_u64_pair_plain(build, probe)
+    err = max((lo.to(torch.int64) - plo.to(torch.int64)).abs().max().item(),
+              (hi.to(torch.int64) - phi.to(torch.int64)).abs().max().item())
+    if err != 0 or not (torch.equal(lo, plo) and torch.equal(hi, phi)):
+        raise AssertionError(f"K3 != plain at {label} ({cap_b} x {cap_p})")
+    iters = 20 if cap_p >= 1_000_000 else 50
+    bf, qf = build ^ INT64_MIN, probe ^ INT64_MIN
+    r = dict(
+        ms=cuda_ms(lambda: native.searchsorted_u64_pair(build, probe),
+                   iters),
+        plain_ms=cuda_ms(lambda: native.searchsorted_u64_pair_plain(
+            build, probe), iters),
+        library_ms=cuda_ms(lambda: (
+            torch.searchsorted(bf, qf, side="left"),
+            torch.searchsorted(bf, qf, side="right")), iters),
+        max_abs_err=float(err), cap_b=cap_b, cap_p=cap_p)
+    r["bound_ms"], r["bound_by"] = probe_bound(cap_b, cap_p)
+    log(f"K3 searchsorted_u64_pair {label} build={cap_b} probe={cap_p}: "
+        f"bit-identical to plain; kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, two torch.searchsorted "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return r
+
+
+def probe_phase(native) -> dict:
+    return {shape: probe_check(native, *probe_inputs(*shape, seed=shape[0]),
+                               label="synthetic")
+            for shape in PROBE_SHAPES}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: TPC-H Q3 and Q4 at SF1 against numpy oracles
+# ---------------------------------------------------------------------------
+
+def _semi_hit(sorted_keys, keys):
+    """keys found in sorted_keys (a searchsorted membership test)."""
+    if not len(sorted_keys):
+        return np.zeros(len(keys), bool)
+    pos = np.clip(np.searchsorted(sorted_keys, keys), 0, len(sorted_keys) - 1)
+    return sorted_keys[pos] == keys
+
+
+def q3_oracle(cols: dict, E) -> list:
+    """TPC-H Q3 in plain numpy: (l_orderkey, o_orderdate,
+    o_shippriority, revenue), top 10 by revenue desc, o_orderdate asc."""
+    c, o, li = cols["customer"], cols["orders"], cols["lineitem"]
+    seg = E.SEGMENTS.index(E.Q3_SEGMENT)
+    cust = np.unique(c["c_custkey"][c["c_mktsegment"] == seg])
+    om = o["o_orderdate"] < E.Q3_DATE
+    om[om] = _semi_hit(cust, o["o_custkey"][om])
+    okey = o["o_orderkey"][om]
+    odate = o["o_orderdate"][om]
+    oprio = o["o_shippriority"][om]
+    order = np.argsort(okey, kind="stable")
+    okey_s = okey[order]
+    lm = li["l_shipdate"] > E.Q3_DATE
+    lkey = li["l_orderkey"][lm]
+    rev = li["l_extendedprice"][lm] * (1.0 - li["l_discount"][lm])
+    hit = _semi_hit(okey_s, lkey)
+    at = order[np.searchsorted(okey_s, lkey[hit])]
+    keys, inv = np.unique(lkey[hit], return_inverse=True)
+    revenue = np.bincount(inv, weights=rev[hit])
+    gdate = np.zeros(len(keys), np.int64)
+    gprio = np.zeros(len(keys), np.int64)
+    gdate[inv] = odate[at]
+    gprio[inv] = oprio[at]
+    top = np.lexsort((gdate, -revenue))[:E.Q3_LIMIT]
+    return [(int(keys[i]), int(gdate[i]), int(gprio[i]), float(revenue[i]))
+            for i in top]
+
+
+def check_q3(rows: list, want: list) -> None:
+    if len(rows) != len(want):
+        raise AssertionError(f"q3: {len(rows)} rows, oracle {len(want)}")
+    for got, exp in zip(rows, want):
+        if tuple(got[:3]) != exp[:3]:
+            raise AssertionError(f"q3 keys/order differ: {got} vs {exp}")
+        if not np.isfinite(got[3]) or not np.isclose(
+                got[3], exp[3], rtol=ORACLE_RTOL, atol=0.0):
+            raise AssertionError(f"q3 revenue differs: {got} vs {exp}")
+
+
+def q4_oracle(cols: dict, E) -> list:
+    """TPC-H Q4 in plain numpy: (o_orderpriority, order_count) by
+    priority."""
+    o, li = cols["orders"], cols["lineitem"]
+    late = np.unique(li["l_orderkey"][li["l_commitdate"]
+                                      < li["l_receiptdate"]])
+    om = (o["o_orderdate"] >= E.Q4_DATE_LO) & (o["o_orderdate"]
+                                               < E.Q4_DATE_HI)
+    prio = o["o_orderpriority"][om][_semi_hit(late, o["o_orderkey"][om])]
+    counts = np.bincount(prio, minlength=len(E.PRIORITIES))
+    return [(E.PRIORITIES[i], int(n)) for i, n in enumerate(counts) if n]
+
+
+def check_q4(rows: list, want: list) -> None:
+    if [tuple(r) for r in rows] != want:
+        raise AssertionError(f"q4 differs: {rows} vs oracle {want}")
+
+
+def run_path(name: str, plan, native, check, want) -> dict:
+    """First and warm runs of one plan on the card, each checked; the
+    launch counters are read around the first run alone."""
+    import torch
+    native.reset_counters()
+    t0 = time.perf_counter()
+    rows = plan.collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = native.counters()
+    check(rows, want)
+    t0 = time.perf_counter()
+    rows = plan.collect()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(rows, want)
+    for r in rows:
+        log(f"  {r}")
+    log(f"{name} SF1 matches the numpy oracle; first run {first_s:.3f} s, "
+        f"warm run {warm_s:.3f} s; launches {launches}")
+    return dict(launches=launches, first_s=first_s, warm_s=warm_s)
+
+
+def join_paths_phase(entry, native) -> dict:
+    t0 = time.perf_counter()
+    cols = entry.tpch_columns(1.0, seed=0)
+    want3 = q3_oracle(cols, entry)
+    want4 = q4_oracle(cols, entry)
+    q3 = entry.tpch_q3_plan(entry.tpch_q3_tables(cols), device="cuda")
+    q4 = entry.tpch_q4_plan(entry.tpch_q4_tables(cols), device="cuda")
+    log(f"q3/q4 SF1: {len(cols['lineitem']['l_orderkey'])} LINEITEM, "
+        f"{len(cols['orders']['o_orderkey'])} ORDERS, "
+        f"{len(cols['customer']['c_custkey'])} CUSTOMER rows (generated + "
+        f"oracles in {time.perf_counter() - t0:.2f} s)")
+    out = {"q3": run_path("q3", q3, native, check_q3, want3)}
+    log(f"q3 K3 launches: {out['q3']['launches']['join_probe']} (its joins "
+        f"take the dense table)")
+    # Keep the inputs of every K3 launch of q4's first run: the kernel is
+    # then checked and timed on the main path's own fingerprints.
+    seen = []
+    launch = native.join_probe
+
+    def recording(built_fp, probe_fp, lo, hi):
+        seen.append((built_fp, probe_fp))
+        return launch(built_fp, probe_fp, lo, hi)
+
+    native.join_probe = recording
+    try:
+        out["q4"] = run_path("q4", q4, native, check_q4, want4)
+    finally:
+        native.join_probe = launch
+    n = out["q4"]["launches"]["join_probe"]
+    if n <= 0:
+        raise AssertionError("q4 did not launch K3 (join_probe)")
+    shapes = sorted({(b.numel(), p.numel()) for b, p in seen})
+    log(f"q4 K3 launches {n} over (build x probe) shapes {shapes}")
+    out["q4_probe"] = probe_check(native, *seen[0], label="q4 first probe")
+    return out
 
 
 def main() -> int:
@@ -281,7 +523,7 @@ def main() -> int:
 
     # Phase 2: build
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["radix_rank"])
+    libs = cuda_build.build_all(["radix_rank", "join_probe"])
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, path in libs.items():
         ptxas = path.with_suffix(".log")
@@ -290,27 +532,41 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
-    # Phase 3: kernels
+    # Phase 3: kernel K1
     kernel_phase(native)
     per_launch = per_launch_phase(native, PATH_CAP)
 
-    # Phase 4: the main path
+    # Phase 4: TPC-H q1
     path = path_phase(entry, native)
 
-    # Phase 5: the kernels line
+    # Phase 5: kernel K3
+    probe_phase(native)
+
+    # Phase 6: TPC-H q3 and q4
+    joins = join_paths_phase(entry, native)
+
+    # Phase 7: the kernels line
+    runs = (path["launches"], joins["q3"]["launches"],
+            joins["q4"]["launches"])
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"digit_hist": "spark_rapids_tpu/ops/native.py:251",
-                "digit_scatter": "spark_rapids_tpu/ops/native.py:259"}
+                "digit_scatter": "spark_rapids_tpu/ops/native.py:259",
+                "join_probe": "spark_rapids_tpu/ops/native.py:315"}
+    sources = {"digit_hist": "radix_rank.cu", "digit_scatter": "radix_rank.cu",
+               "join_probe": "join_probe.cu"}
+    timed = dict(per_launch, join_probe=joins["q4_probe"])
     kernels = []
-    for name in ("digit_hist", "digit_scatter"):
-        r = per_launch[name]
+    for name in ("digit_hist", "digit_scatter", "join_probe"):
+        r = timed[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "spark_rapids_tpu_torch/csrc/radix_rank.cu",
-            "replaces": replaces[name],
-            "launches": int(path["launches"][name]),
+            "source": f"spark_rapids_tpu_torch/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": int(launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r["library_ms"]})
+    log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -56,6 +56,18 @@ def zero_dead(data: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
                                                device=data.device))
 
 
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats as a zero of their sign (NaN and the rest as is).
+
+    The JAX package's device path compares floats with denormals as zero
+    (XLA:CPU, like the TPU, flushes them), so its comparisons, join-key
+    equality, grouping fingerprints and f64 sort order all see 1e-310 as
+    +0.0 and -1e-310 as -0.0. Every float comparison of the port goes
+    through here first to give the same answers."""
+    tiny = torch.finfo(x.dtype).tiny
+    return torch.where(x.abs() < tiny, x * 0, x)
+
+
 @dataclasses.dataclass
 class DeviceColumn:
     """One column of a device batch."""
@@ -73,6 +85,28 @@ class DeviceColumn:
     def string_width(self) -> int:
         assert self.dtype.is_string
         return int(self.data.shape[1])
+
+    @classmethod
+    def full_null(cls, dtype: DataType, capacity: int, string_width: int = 8,
+                  device=None) -> "DeviceColumn":
+        """An all-NULL column (zeroed data)."""
+        validity = torch.zeros(capacity, dtype=torch.bool, device=device)
+        if dtype.is_string:
+            return cls(dtype, torch.zeros((capacity, string_width),
+                                          dtype=torch.uint8, device=device),
+                       validity, torch.zeros(capacity, dtype=torch.int32,
+                                             device=device))
+        return cls(dtype, torch.zeros(capacity, dtype=torch_dtype(dtype),
+                                      device=device), validity)
+
+    def with_validity(self, validity: torch.Tensor) -> "DeviceColumn":
+        """The same column under ``validity``, data of new nulls zeroed."""
+        lengths = None
+        if self.dtype.is_string:
+            lengths = torch.where(validity, self.lengths,
+                                  torch.zeros_like(self.lengths))
+        return DeviceColumn(self.dtype, zero_dead(self.data, validity),
+                            validity, lengths)
 
 
 @dataclasses.dataclass
@@ -135,6 +169,12 @@ class DeviceBatch:
         packed prefix at the same capacity."""
         from spark_rapids_tpu_torch.columnar.rowmove import compact_batch
         return compact_batch(self, keep)
+
+    def head(self, n: int) -> "DeviceBatch":
+        """The first min(n, live) live rows, by selection vector only."""
+        live = self.row_mask()
+        keep = torch.cumsum(live.to(torch.int32), 0) <= n
+        return self.with_sel(keep & live)
 
     def select(self, indices: Sequence[int]) -> "DeviceBatch":
         return DeviceBatch(tuple(self.columns[i] for i in indices),

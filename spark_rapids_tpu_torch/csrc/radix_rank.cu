@@ -134,6 +134,8 @@ int srt_digit_scatter(const void* keys_in, const void* vals_in, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The message of a CUDA error code, for every kernel of the port
+// (ops/native.py _raise_on).
 const char* srt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from spark_rapids_tpu_torch.columnar.batch import flush_subnormal
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
 DEFAULT_SEED = 42
@@ -29,7 +30,6 @@ DEFAULT_SEED = 42
 M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
-_INT64_MIN = -(1 << 63)
 _NAN_F64_BITS = 0x7FF8000000000000
 
 
@@ -91,9 +91,7 @@ def _double_bits(data: torch.Tensor) -> torch.Tensor:
     arithmetically and flushes subnormals to zero), subnormals keep only
     their sign bit: they hash as +0.0 or -0.0."""
     x = data.to(torch.float64)
-    bits = x.view(torch.int64)
-    sub = x.abs() < 2.0 ** -1022
-    bits = torch.where(sub, bits & _INT64_MIN, bits)
+    bits = flush_subnormal(x).view(torch.int64)
     return torch.where(torch.isnan(x),
                        torch.full((), _NAN_F64_BITS, dtype=torch.int64,
                                   device=x.device), bits)

@@ -4,6 +4,8 @@
 
 Spark semantics:
 - NaN equals NaN and is greater than every other float value.
+- A subnormal float compares as a zero of its sign, as the JAX package's
+  device path does (it flushes denormals).
 - And/Or use Kleene three-valued logic (false AND null = false,
   true OR null = true).
 - EqualNullSafe (``<=>``) never returns NULL.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.columnar.batch import flush_subnormal
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.exprs.base import (
     BinaryExpression, UnaryExpression, as_device_column, make_column)
@@ -55,6 +58,10 @@ class _Comparison(BinaryExpression):
             return _string_cmp(l_col.data, l_col.lengths,
                                r_col.data, r_col.lengths)
         a, b = l_col.data, r_col.data
+        if a.is_floating_point():
+            a = flush_subnormal(a)      # as the reference compares
+        if b.is_floating_point():
+            b = flush_subnormal(b)
         if a.dtype != b.dtype:
             common = torch.promote_types(a.dtype, b.dtype)
             a, b = a.to(common), b.to(common)

@@ -6,11 +6,14 @@ from spark_rapids_tpu_torch.ops.aggregate import (
 from spark_rapids_tpu_torch.ops.base import (
     Exec, ExecContext, InMemorySourceExec)
 from spark_rapids_tpu_torch.ops.basic import (
-    CoalescePartitionsExec, FilterExec, ProjectExec)
+    CoalescePartitionsExec, FilterExec, GlobalLimitExec, LocalLimitExec,
+    ProjectExec)
+from spark_rapids_tpu_torch.ops.join import BroadcastHashJoinExec
 from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
 
 __all__ = [
-    "AggSpec", "Average", "CoalescePartitionsExec", "Count", "CountStar",
-    "Exec", "ExecContext", "FilterExec", "HashAggregateExec",
-    "InMemorySourceExec", "ProjectExec", "SortExec", "SortOrder", "Sum",
+    "AggSpec", "Average", "BroadcastHashJoinExec", "CoalescePartitionsExec",
+    "Count", "CountStar", "Exec", "ExecContext", "FilterExec",
+    "GlobalLimitExec", "HashAggregateExec", "InMemorySourceExec",
+    "LocalLimitExec", "ProjectExec", "SortExec", "SortOrder", "Sum",
 ]

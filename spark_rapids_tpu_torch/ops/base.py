@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import DeviceLike
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
@@ -49,10 +49,13 @@ def record_batch(m: Metrics, batch: DeviceBatch) -> None:
 
 @dataclasses.dataclass
 class ExecContext:
-    """Per-query execution context: conf + per-operator metrics."""
+    """Per-query execution context: conf, per-operator metrics, and a
+    per-query cache (a broadcast join's built side, shared across its
+    probe partitions)."""
 
     conf: TpuConf = dataclasses.field(default_factory=TpuConf)
     metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
+    cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def metrics_for(self, op: "Exec") -> Metrics:
         key = f"{op.name}@{id(op):x}"

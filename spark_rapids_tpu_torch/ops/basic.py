@@ -1,5 +1,6 @@
 """Basic physical operators (port of the JAX package's ``ops/basic.py``:
-``ProjectExec``, ``FilterExec``, ``CoalescePartitionsExec``)."""
+``ProjectExec``, ``FilterExec``, ``CoalescePartitionsExec``,
+``LocalLimitExec``, ``GlobalLimitExec``)."""
 
 from __future__ import annotations
 
@@ -80,3 +81,47 @@ class CoalescePartitionsExec(Exec):
     def execute_device(self, ctx, partition):
         for p in self._sources(ctx, partition):
             yield from self.children[0].execute_device(ctx, p)
+
+
+class LocalLimitExec(Exec):
+    """Per-partition head(n): the first ``limit`` live rows, by selection
+    vector."""
+
+    def __init__(self, child: Exec, limit: int):
+        super().__init__(child)
+        self.limit = int(limit)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute_device(self, ctx, partition):
+        remaining = self.limit
+        for batch in self.children[0].execute_device(ctx, partition):
+            if remaining <= 0:
+                break
+            out = batch.head(remaining)
+            # A host-known live count spares the device row-count pull.
+            if batch.rows_hint is not None:
+                taken = min(batch.rows_hint, remaining)
+                out.rows_hint = taken
+            else:
+                taken = int(out.live_count())
+            remaining -= taken
+            yield out
+
+
+class GlobalLimitExec(Exec):
+    """Global limit over a single-partition child."""
+
+    def __init__(self, child: Exec, limit: int):
+        super().__init__(child)
+        self.limit = int(limit)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute_device(self, ctx, partition):
+        inner = LocalLimitExec(self.children[0], self.limit)
+        yield from inner.execute_device(ctx, partition)

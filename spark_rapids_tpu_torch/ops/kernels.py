@@ -21,7 +21,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, DeviceColumn
+from spark_rapids_tpu_torch.columnar.batch import (
+    DeviceBatch, DeviceColumn, flush_subnormal)
 from spark_rapids_tpu_torch.exprs import hash as mh
 from spark_rapids_tpu_torch.ops import native
 
@@ -66,8 +67,10 @@ def _orderable_u32_words(col: DeviceColumn) -> List[torch.Tensor]:
         # TPU cannot bitcast f64. A 64-bit bitcast is legal here; the IEEE
         # total-order transform with NaN canonicalized orders rows
         # identically (NaN greatest, -0.0 before +0.0, ties stable), so
-        # the stable permutation is the same.
-        x = col.data.to(torch.float64)
+        # the stable permutation is the same. Its float-domain compare
+        # sees a subnormal as a zero of its sign, so they flush first.
+        # (Its float32 words are bit patterns, which keep subnormals.)
+        x = flush_subnormal(col.data.to(torch.float64))
         b = torch.where(torch.isnan(x), _full(x, _NAN_F64_BITS),
                         x.view(torch.int64))
         u = torch.where(b < 0, ~b, b | _INT64_MIN)
@@ -160,9 +163,8 @@ def key_fingerprint(cols: Sequence[DeviceColumn], capacity: int
             # NormalizeNaNAndZero, folded in here). Subnormals count as
             # zero too: the JAX device path compares with denormals as
             # zero, and its fingerprints are the reference.
-            tiny = 2.0 ** -1022 if c.dtype.name == "float64" else 2.0 ** -126
-            data = torch.where(c.data.abs() < tiny, torch.zeros_like(c.data),
-                               c.data)
+            data = flush_subnormal(c.data)
+            data = torch.where(data == 0, torch.zeros_like(data), data)
             data = torch.where(c.validity, data, torch.zeros_like(data))
             c = DeviceColumn(c.dtype, data, c.validity)
         else:

@@ -1,9 +1,12 @@
 """Hand-written GPU kernels of the port and their plain-PyTorch versions.
 
-Port of the JAX package's ``ops/native.py`` (its Pallas kernel layer). This
-slice carries kernel K1, the stable u32 radix rank behind every stable
-sort pass (``ops/kernels.py`` ``_radix_perm``), as the CUDA source
-``csrc/radix_rank.cu`` built for Hopper by ``ops/cuda_build.py``.
+Port of the JAX package's ``ops/native.py`` (its Pallas kernel layer), as
+CUDA sources built for Hopper by ``ops/cuda_build.py``:
+
+- K1, the stable u32 radix rank behind every stable sort pass
+  (``ops/kernels.py`` ``_radix_perm``): ``csrc/radix_rank.cu``.
+- K3, the hash-join probe (``ops/join.py`` ``probe_ranges``): left and
+  right insertion points of u64 fingerprints, ``csrc/join_probe.cu``.
 
 Routing is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version. No
@@ -22,14 +25,14 @@ from typing import Dict, Tuple
 
 import torch
 
-KERNELS = ("radixSort",)
-
 RADIX = 256
 TILE_ROWS = 4096        # rows per histogram/scatter tile (kTile in the .cu)
 _M32 = 0xFFFFFFFF
+_INT64_MIN = -(1 << 63)
 
 _LOCK = threading.Lock()
-_COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0}
+_COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0,
+                             "join_probe": 0}
 
 
 def _count(name: str) -> None:
@@ -147,6 +150,9 @@ def _lib():
 
 
 def _raise_on(code: int, what: str) -> None:
+    """Raise on a non-zero CUDA error code returned by any kernel's C
+    entry; the message comes from the one error-string entry, in
+    ``radix_rank.cu``."""
     if code != 0:
         msg = _lib().srt_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
@@ -258,3 +264,102 @@ def stable_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"stable_argsort_u32: unsupported device "
                          f"{keys.device}")
     return _stable_argsort_u32_cuda(keys)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3: the hash-join probe (csrc/join_probe.cu)
+# ---------------------------------------------------------------------------
+#
+# A u64 fingerprint travels as the int64 tensor of its bit pattern. The
+# build side is sorted in UNSIGNED order (``ops/join.py`` ``build_side``),
+# its unmatchable rows carry the sentinel 0xFFFF_FFFF_FFFF_FFFF (int64 -1)
+# and sort last.
+
+def searchsorted_u64_pair_plain(built_fp: torch.Tensor,
+                                probe_fp: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lo, hi)``: the left and right insertion points of each probe
+    fingerprint in the sorted build fingerprints, as int32. Flipping the
+    top bit maps unsigned order onto int64's signed order, where
+    ``torch.searchsorted`` works."""
+    b = built_fp ^ _INT64_MIN
+    q = probe_fp ^ _INT64_MIN
+    lo = torch.searchsorted(b, q, side="left").to(torch.int32)
+    hi = torch.searchsorted(b, q, side="right").to(torch.int32)
+    return lo, hi
+
+
+_PROBE_LIB = None
+
+
+def _probe_lib():
+    global _PROBE_LIB
+    if _PROBE_LIB is None:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        lib = cuda_build.load("join_probe")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.srt_join_probe.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+        lib.srt_join_probe.restype = ci
+        _PROBE_LIB = lib
+    return _PROBE_LIB
+
+
+def join_probe(built_fp: torch.Tensor, probe_fp: torch.Tensor,
+               lo: torch.Tensor, hi: torch.Tensor) -> None:
+    """Launch ``join_probe`` on the current stream: ``lo``/``hi`` (int32,
+    one per probe row) get the insertion points of ``probe_fp`` in the
+    sorted ``built_fp``. The one place K3's inputs are checked."""
+    fps = ((built_fp, "built_fp"), (probe_fp, "probe_fp"))
+    for t, name in fps:
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int64 tensor "
+                             f"(u64 bit patterns), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.numel() >= (1 << 31):
+            raise ValueError(f"{name}: {t.numel()} rows exceed int32 "
+                             f"positions")
+    for t, name in fps:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+    cap_p = probe_fp.numel()
+    for t, name in ((lo, "lo"), (hi, "hi")):
+        if t.dtype != torch.int32 or t.numel() != cap_p \
+                or not t.is_contiguous() or t.device != probe_fp.device:
+            raise ValueError(f"{name} must be a contiguous (cap_p,) int32 "
+                             f"tensor on the probe's device")
+    if built_fp.device != probe_fp.device:
+        raise ValueError("built_fp and probe_fp lie on different devices")
+    if cap_p == 0:
+        return
+    stream = torch.cuda.current_stream(probe_fp.device).cuda_stream
+    _raise_on(_probe_lib().srt_join_probe(
+        built_fp.data_ptr(), built_fp.numel(), probe_fp.data_ptr(), cap_p,
+        lo.data_ptr(), hi.data_ptr(), stream), "join_probe")
+    _count("join_probe")
+
+
+def searchsorted_u64_pair(built_fp: torch.Tensor, probe_fp: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The join probe's two searches: ``(lo, hi)`` int32 insertion points
+    (left, right) of every probe fingerprint in the build fingerprints,
+    which are sorted in unsigned order. Bit-identical to the JAX package's
+    ``native.searchsorted_u64_pair``: insertion points are unique.
+
+    Both arguments are 1-D int64 tensors of u64 bit patterns. Routes by
+    device only: CPU tensors run :func:`searchsorted_u64_pair_plain`,
+    any other tensor goes to kernel K3, whose entry :func:`join_probe`
+    checks the inputs and raises on what it cannot launch."""
+    if probe_fp.device.type == "cpu":
+        return searchsorted_u64_pair_plain(built_fp, probe_fp)
+    return _searchsorted_u64_pair_cuda(built_fp, probe_fp)
+
+
+def _searchsorted_u64_pair_cuda(built_fp: torch.Tensor,
+                                probe_fp: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    with torch.cuda.device(probe_fp.device):
+        lo = torch.empty(probe_fp.numel(), dtype=torch.int32,
+                         device=probe_fp.device)
+        hi = torch.empty_like(lo)
+        join_probe(built_fp, probe_fp, lo, hi)
+        return lo, hi

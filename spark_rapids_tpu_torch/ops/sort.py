@@ -1,5 +1,5 @@
 """Sort operator (port of the JAX package's ``ops/sort.py``: ``SortOrder``,
-``sort_batch`` and an in-core ``SortExec``).
+``coalesce_to_single_batch``, ``sort_batch`` and an in-core ``SortExec``).
 
 The device sort is the LSD radix over orderable u32 words
 (``kernels.lex_sort_perm``), every pass of which is kernel K1 on the card.
@@ -28,6 +28,15 @@ class SortOrder:
     child: Expression
     ascending: bool = True
     nulls_first: bool = True
+
+
+def coalesce_to_single_batch(batches: Sequence[DeviceBatch]) -> DeviceBatch:
+    """Concatenate a partition's batches into one (the RequireSingleBatch
+    goal): capacity is the bucket of the members' summed capacities."""
+    if len(batches) == 1:
+        return batches[0]
+    return concat_batches(batches,
+                          bucket_capacity(sum(b.capacity for b in batches)))
 
 
 def sort_batch(batch: DeviceBatch, orders: Sequence[SortOrder],
@@ -65,8 +74,7 @@ class SortExec(Exec):
             return
         stable = bool(ctx.conf.get(C.STABLE_SORT))
         with timed(m):
-            single = batches[0] if len(batches) == 1 else concat_batches(
-                batches, bucket_capacity(sum(b.capacity for b in batches)))
-            out = sort_batch(single, self.orders, stable=stable)
+            out = sort_batch(coalesce_to_single_batch(batches), self.orders,
+                             stable=stable)
         record_batch(m, out)
         yield out

@@ -1,14 +1,16 @@
-"""Where the time of TPC-H Q1 goes on the card.
+"""Where the time of a TPC-H query goes on the card.
 
-    python3 -m spark_rapids_tpu_torch.profile_q1 [--scale 1.0]
-        [--partitions 8] [--trace chiprun_out/q1_trace.json]
+    python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q3|q4]
+        [--scale 1.0] [--partitions 8] [--trace q1_trace.json]
 
-Runs ``tpch_q1_plan(...).collect()`` on the CUDA card: one warm-up run,
-then host-clock times of the upload alone and of whole warm runs, then
-one run under ``torch.profiler`` (CPU + CUDA activity). Prints the host
-time per operator (the plan's own ``timed`` metrics), the top ops by
+Runs ``tpch_q1_plan`` (or ``tpch_q3_plan`` / ``tpch_q4_plan``, over the
+generator's partitions) ``.collect()`` on the CUDA card: one warm-up
+run, then host-clock times of the upload alone and of whole warm runs,
+then one run under ``torch.profiler`` (CPU + CUDA activity). Prints the
+host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
-of kernel time over the profiled wall time). Needs a CUDA device.
+of kernel time over the profiled wall time). ``--partitions`` applies to
+q1. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,26 +39,35 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import ExecContext, native
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--query", choices=("q1", "q3", "q4"), default="q1")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        raise RuntimeError("profile_q1 needs a CUDA device")
+        raise RuntimeError("profile_query needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    parts = entry.tpch_q1_host_batches(args.scale, args.partitions, seed=0)
-    n_rows = sum(p[0].num_rows for p in parts)
-    plan = entry.tpch_q1_plan(parts, device="cuda")
-    plan.collect()                                   # warm-up (builds K1)
+    if args.query == "q1":
+        tables = {"lineitem": entry.tpch_q1_host_batches(
+            args.scale, args.partitions, seed=0)}
+        plan = entry.tpch_q1_plan(tables["lineitem"], device="cuda")
+    else:
+        cols = entry.tpch_columns(args.scale, seed=0)
+        tables = getattr(entry, f"tpch_{args.query}_tables")(cols)
+        plan = getattr(entry, f"tpch_{args.query}_plan")(tables,
+                                                          device="cuda")
+    batches = [hb for parts in tables.values() for p in parts for hb in p]
+    n_rows = sum(hb.num_rows for hb in batches)
+    plan.collect()                                   # warm-up (builds)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    for p in parts:
-        host_to_device(p[0], device="cuda")
+    for hb in batches:
+        host_to_device(hb, device="cuda")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
 
@@ -68,33 +79,33 @@ def main() -> int:
         plan.collect(ctx)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"q1 scale={args.scale} rows={n_rows} partitions="
-          f"{args.partitions}: warm wall s {walls}; upload alone "
-          f"{upload_s:.4f} s")
+    print(f"{args.query} scale={args.scale} input rows={n_rows}: warm wall "
+          f"s {walls}; upload alone {upload_s:.4f} s")
     print("host time per operator (last warm run, ms):")
     for key, m in ctx.metrics.items():
         vals = {k: round(v / 1e6, 3) for k, v in m.values.items()
                 if k.endswith("Time")}
         print(f"  {m.owner}: {vals}")
 
-    # The group-sum scan's layout, both ways in this one call: (cap, k)
-    # scanned over dim 0 (the outer dimension) vs (k, cap) over dim 1.
-    cap, k = 786_432, 8
-    m = torch.rand((cap, k), dtype=torch.float64, device="cuda")
-    mt = m.T.contiguous()
-    for label, fn in (("outer dim of (cap, k)", lambda: m.cumsum(0)),
-                      ("inner dim of (k, cap)", lambda: mt.cumsum(1))):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
+    if args.query == "q1":
+        # The group-sum scan's layout, both ways in this one call: (cap, k)
+        # scanned over dim 0 (the outer dimension) vs (k, cap) over dim 1.
+        cap, k = 786_432, 8
+        m = torch.rand((cap, k), dtype=torch.float64, device="cuda")
+        mt = m.T.contiguous()
+        for label, fn in (("outer dim of (cap, k)", lambda: m.cumsum(0)),
+                          ("inner dim of (k, cap)", lambda: mt.cumsum(1))):
             fn()
-        end.record()
-        end.synchronize()
-        print(f"f64 cumsum over the {label}, cap={cap} k={k}: "
-              f"{start.elapsed_time(end) / 5:.4f} ms")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                fn()
+            end.record()
+            end.synchronize()
+            print(f"f64 cumsum over the {label}, cap={cap} k={k}: "
+                  f"{start.elapsed_time(end) / 5:.4f} ms")
 
     native.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
@@ -109,7 +120,7 @@ def main() -> int:
                     and "CUDA" in str(e.device_type))
     print(f"profiled run: wall {prof_wall:.4f} s; device kernel time "
           f"{kernel_us / 1e3:.3f} ms; device busy share "
-          f"{kernel_us / 1e6 / prof_wall:.4f}; K1 launches "
+          f"{kernel_us / 1e6 / prof_wall:.4f}; kernel launches "
           f"{native.counters()}")
     print("top ops by self device time:")
     print(events.table(sort_by="self_cuda_time_total", row_limit=15,
@@ -120,7 +131,8 @@ def main() -> int:
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
-    print(json.dumps({"rows": n_rows, "warm_wall_s": walls,
+    print(json.dumps({"query": args.query, "rows": n_rows,
+                      "warm_wall_s": walls,
                       "upload_s": upload_s, "profiled_wall_s": prof_wall,
                       "device_kernel_ms": kernel_us / 1e3}))
     return 0

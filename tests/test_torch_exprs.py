@@ -139,3 +139,58 @@ def test_scalar_expansion_matches_reference(value):
     if jc.lengths is not None:
         np.testing.assert_array_equal(np.asarray(jc.lengths),
                                       tc.lengths.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Subnormal doubles: the reference (XLA:CPU) flushes them to a zero of
+# their sign in its comparisons and its f64 sort order.
+# ---------------------------------------------------------------------------
+
+SUBNORMALS = [1e-310, -0.0, -1e-310, 0.0, 5e-324]
+
+
+def _subnormal_batches():
+    n = len(SUBNORMALS)
+    data = np.array(SUBNORMALS, np.float64)
+    rows = np.arange(n, dtype=np.int64)
+    ones = np.ones(n, bool)
+    jb = jbatch.DeviceBatch(
+        (jbatch.DeviceColumn(jdt.FLOAT64, jnp.asarray(data),
+                             jnp.asarray(ones)),
+         jbatch.DeviceColumn(jdt.INT64, jnp.asarray(rows),
+                             jnp.asarray(ones))), jnp.asarray(n, jnp.int32))
+    tb = tbatch.DeviceBatch(
+        (tbatch.DeviceColumn(tdt.FLOAT64, torch.from_numpy(data.copy()),
+                             torch.from_numpy(ones.copy())),
+         tbatch.DeviceColumn(tdt.INT64, torch.from_numpy(rows.copy()),
+                             torch.from_numpy(ones.copy()))),
+        torch.tensor(n, dtype=torch.int32))
+    return jb, tb
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_subnormal_double_sort_matches_reference(ascending):
+    from spark_rapids_tpu.ops import sort as jsort
+    from spark_rapids_tpu_torch.ops import sort as tsort
+    jb, tb = _subnormal_batches()
+    jo = jsort.sort_batch(jb, [jsort.SortOrder(
+        JE.BoundReference(0, jdt.FLOAT64), ascending)])
+    to = tsort.sort_batch(tb, [tsort.SortOrder(
+        TE.BoundReference(0, tdt.FLOAT64), ascending)])
+    want = np.asarray(jo.columns[1].data)
+    np.testing.assert_array_equal(want, to.columns[1].data.numpy())
+    # Measured on the reference: a subnormal sorts as the zero of its sign
+    # and ties keep their order.
+    assert want.tolist() == ([1, 2, 0, 3, 4] if ascending
+                             else [0, 3, 4, 1, 2])
+
+
+@pytest.mark.parametrize("cmp", ["LessThan", "EqualTo",
+                                 "GreaterThanOrEqual"])
+def test_subnormal_double_comparisons_match_reference(cmp):
+    jb, tb = _subnormal_batches()
+    je = getattr(JE, cmp)(JE.BoundReference(0, jdt.FLOAT64), JE.lit(0.0))
+    te = getattr(TE, cmp)(TE.BoundReference(0, tdt.FLOAT64), TE.lit(0.0))
+    want = np.asarray(jbase.as_device_column(je.eval(jb), jb).data)
+    got = tbase.as_device_column(te.eval(tb), tb).data.numpy()
+    np.testing.assert_array_equal(want, got)

@@ -134,7 +134,8 @@ def test_cpu_tensors_never_take_the_cuda_branch(monkeypatch):
         rng.integers(0, 2 ** 32, 300, dtype=np.int64)))
     batch = _pair(["int32"], 40, 1)[1]
     tkernels.group_ids(batch, [0])
-    assert tnative.counters() == {"digit_hist": 0, "digit_scatter": 0}
+    assert tnative.counters() == {"digit_hist": 0, "digit_scatter": 0,
+                                  "join_probe": 0}
 
 
 def test_cuda_kernel_entry_points_refuse_cpu_tensors():
@@ -266,20 +267,25 @@ def test_group_ids_parity(names, live):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter importing the port and every one of its
-    modules loads neither jax nor the JAX package."""
+    """A fresh interpreter importing the port, every one of its modules
+    and chip_smoke.py loads neither jax nor the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import spark_rapids_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_rapids_tpu' or m.startswith('spark_rapids_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules"
-        " if m.startswith('spark_rapids_tpu_torch')]))\n")
+        "print(' '.join(sorted(m for m in sys.modules"
+        " if m.startswith('spark_rapids_tpu_torch'))))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 18
+    for m in ("ops.join", "ops.native", "ops.basic", "ops.sort", "entry",
+              "profile_query"):
+        assert f"spark_rapids_tpu_torch.{m}" in loaded, m
