@@ -11,7 +11,8 @@ Phases (each raises on failure; any failure exits non-zero):
    reports them.
 2. Build: the hand-written kernels compile from ``csrc/`` into the
    package's ignored ``build/`` directory (one nvcc per source, all
-   started together): ``radix_rank.cu`` (K1) and ``join_probe.cu`` (K3).
+   started together): ``radix_rank.cu`` (K1), ``join_probe.cu`` (K3) and
+   ``seg_scan.cu`` (K2).
 3. Kernel: ``stable_argsort_u32`` (kernel K1) on random and
    duplicate-heavy u32 keys at capacities 512, 786 432 and 4 194 304 must
    equal its plain-PyTorch version and ``torch.sort(stable=True)`` bit for
@@ -33,10 +34,24 @@ Phases (each raises on failure; any failure exits non-zero):
    joins take the dense table and its K3 launches are printed (0
    expected). K3 is then checked and timed again on the exact
    fingerprints of Q4's first probe.
-7. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
-   paths (q1 + q3 + q4), its error against the plain version, its time,
-   the plain version's, its bound, and one PyTorch call's time for the
-   same function.
+7. Kernel: ``segscan`` (kernel K2) for every kind (sum, min and max over
+   u32 and over u64 keys) at 512, 786 432 and 4 194 304 rows, in segments
+   of 1-64 rows and segments spanning many tiles, must equal its plain
+   version bit for bit, also with the whole column one segment; K2 plus
+   the finish must equal one ``scatter_reduce_`` into an identity-filled
+   output bit for bit. Times of K2, the plain version, K2 + finish and
+   the scatter_reduce beside the byte bound.
+8. Path: TPC-H Q2 at scale factor 1 (PART and PARTSUPP in 4 partitions,
+   SUPPLIER, NATION and REGION in 1) through ``tpch_q2_plan``, checked
+   against a numpy oracle in this file: rows and their order exact. K2
+   must launch during Q2 (its min aggregate); K3's launches (the fast
+   probe path) and K1's are printed. K2 is then checked and timed again on
+   Q2's largest launch.
+9. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+   paths (q1 + q3 + q4 + q2), its error against the plain version, its
+   time, the plain version's, its bound, and one PyTorch call's time for
+   the same function (for K2, the scatter_reduce of the per-group
+   function, which K2 + the finish computes).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -442,9 +457,61 @@ def check_q4(rows: list, want: list) -> None:
         raise AssertionError(f"q4 differs: {rows} vs oracle {want}")
 
 
-def run_path(name: str, plan, native, check, want) -> dict:
+def _strings(m: np.ndarray) -> list:
+    """Rows of a zero-padded (n, w) uint8 matrix as str."""
+    return [bytes(r).rstrip(b"\0").decode() for r in m]
+
+
+def q2_oracle(cols: dict, E) -> list:
+    """TPC-H Q2 in plain numpy: for BRASS parts of size 15, the EUROPE
+    suppliers at the part's minimum EUROPE supply cost, as (s_acctbal,
+    s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment),
+    top 100 by s_acctbal desc, n_name, s_name, p_partkey."""
+    p, ps, s, n = (cols["part"], cols["partsupp"], cols["supplier"],
+                   cols["nation"])
+    europe = E.REGIONS.index(E.Q2_REGION_NAME)
+    supp_ok = (n["n_regionkey"] == europe)[s["s_nationkey"]]
+    ps_ok = supp_ok[ps["ps_suppkey"] - 1]
+    pk, cost = ps["ps_partkey"], ps["ps_supplycost"]
+    minc = np.full(len(p["p_partkey"]) + 1, np.inf)
+    np.minimum.at(minc, pk[ps_ok], cost[ps_ok])
+    ptype = p["p_type"]
+    plen = (ptype != 0).sum(axis=1)
+    suffix = np.frombuffer(E.Q2_TYPE_SUFFIX.encode(), np.uint8)
+    at = plen[:, None] - len(suffix) + np.arange(len(suffix))[None, :]
+    ends = (plen >= len(suffix)) & np.all(
+        np.take_along_axis(ptype, np.clip(at, 0, ptype.shape[1] - 1), 1)
+        == suffix, axis=1)
+    part_ok = (p["p_size"] == E.Q2_SIZE) & ends
+    hit = np.flatnonzero(ps_ok & part_ok[pk - 1] & (cost == minc[pk]))
+    si = ps["ps_suppkey"][hit] - 1
+    pi = pk[hit] - 1
+    nations = [nm for nm, _ in E.NATIONS]
+    comments = E.S_COMMENTS
+    names, phones = _strings(s["s_name"][si]), _strings(s["s_phone"][si])
+    mfgrs = _strings(p["p_mfgr"][pi])
+    rows = [(float(s["s_acctbal"][a]), names[i],
+             nations[int(s["s_nationkey"][a])], int(p["p_partkey"][b]),
+             mfgrs[i], comments[int(s["s_address"][a])], phones[i],
+             comments[int(s["s_comment"][a])])
+            for i, (a, b) in enumerate(zip(si, pi))]
+    rows.sort(key=lambda r: (-r[0], r[2], r[1], r[3]))
+    return rows[:E.Q2_LIMIT]
+
+
+def check_q2(rows: list, want: list) -> None:
+    if not want:
+        raise AssertionError("q2 oracle is empty: nothing would be checked")
+    if [tuple(r) for r in rows] != want:
+        raise AssertionError(f"q2 differs: {len(rows)} rows, oracle "
+                             f"{len(want)}; first rows {rows[:3]} vs "
+                             f"{want[:3]}")
+
+
+def run_path(name: str, plan, native, check, want, show: int = 10) -> dict:
     """First and warm runs of one plan on the card, each checked; the
-    launch counters are read around the first run alone."""
+    launch counters are read around the first run alone. Prints the first
+    ``show`` rows."""
     import torch
     native.reset_counters()
     t0 = time.perf_counter()
@@ -458,16 +525,15 @@ def run_path(name: str, plan, native, check, want) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     check(rows, want)
-    for r in rows:
+    for r in rows[:show]:
         log(f"  {r}")
-    log(f"{name} SF1 matches the numpy oracle; first run {first_s:.3f} s, "
-        f"warm run {warm_s:.3f} s; launches {launches}")
+    log(f"{name} SF1 matches the numpy oracle ({len(rows)} rows); first run "
+        f"{first_s:.3f} s, warm run {warm_s:.3f} s; launches {launches}")
     return dict(launches=launches, first_s=first_s, warm_s=warm_s)
 
 
-def join_paths_phase(entry, native) -> dict:
+def join_paths_phase(entry, native, cols: dict) -> dict:
     t0 = time.perf_counter()
-    cols = entry.tpch_columns(1.0, seed=0)
     want3 = q3_oracle(cols, entry)
     want4 = q4_oracle(cols, entry)
     q3 = entry.tpch_q3_plan(entry.tpch_q3_tables(cols), device="cuda")
@@ -502,6 +568,154 @@ def join_paths_phase(entry, native) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: kernel K2 (the sorted-segment scan) against its plain version
+# ---------------------------------------------------------------------------
+
+SEG_KINDS = (("sum", 32), ("sum", 64), ("min", 32), ("max", 32),
+             ("min", 64), ("max", 64))
+SEG_NEUTRAL = {"sum": 0, "min": -1, "max": 0}
+
+
+def seg_inputs(cap: int, bits: int, seed: int):
+    """Nondecreasing int64 group ids, three quarters of the rows in
+    segments of 1-64 rows and the last quarter in segments of 20,000 to
+    60,000 rows (many 2,048-row tiles each), and full-range u32 or u64
+    keys with 0 and the maximum salted in, as int32 / int64 bit patterns
+    on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    head = cap - cap // 4
+    lens = rng.integers(1, 65, head // 16 + 1)
+    gid = np.repeat(np.arange(len(lens)), lens)[:head]
+    tail = cap - len(gid)
+    long_lens = rng.integers(20_000, 60_001, tail // 20_000 + 1)
+    gid = np.concatenate([gid, len(lens) + np.repeat(
+        np.arange(len(long_lens)), long_lens)[:tail]]).astype(np.int64)
+    hi = (1 << bits) - 1
+    k = rng.integers(0, hi, cap, dtype=np.uint64, endpoint=True)
+    k[rng.random(cap) < 0.05] = hi
+    k[rng.random(cap) < 0.05] = 0
+    keys = k.astype(np.uint32).view(np.int32) if bits == 32 \
+        else k.view(np.int64)
+    return (torch.from_numpy(gid).cuda(),
+            torch.from_numpy(np.ascontiguousarray(keys)).cuda())
+
+
+def seg_bound(n: int, key_bytes: int) -> tuple:
+    """(bound_ms, bound_by): each row's gid (8 B) and key read once and its
+    running value written once, at 3.35 TB/s; one add or compare a row at
+    the 32-bit ALU rate is far below it."""
+    b_ms = bytes_ms(n * (8.0 + 2.0 * key_bytes))
+    ops_ms = n / ALU_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= ops_ms else (ops_ms, "operations")
+
+
+def seg_check(native, gid, keys, kind: str, label: str) -> dict:
+    """K2 against its plain version (bit for bit, and again with the whole
+    column one segment), then K2 + the finish against one
+    ``scatter_reduce_`` into an identity-filled output (the per-group
+    function, bit for bit), and the times of K2, the plain version, K2 +
+    the finish and the scatter_reduce."""
+    import torch
+    n = keys.numel()
+    sign = -(1 << 31) if keys.dtype == torch.int32 else INT64_MIN
+    got = native.segscan(gid, keys, kind)
+    torch.cuda.synchronize()
+    plain = native.segscan_plain(gid, keys, kind)
+    wrong = int((got != plain).sum())
+    if wrong:
+        raise AssertionError(f"K2 != plain at {label} {kind} n={n}: {wrong} "
+                             f"rows differ")
+    zero = torch.zeros_like(gid)
+    if not torch.equal(native.segscan(zero, keys, kind),
+                       native.segscan_plain(zero, keys, kind)):
+        raise AssertionError(f"K2 != plain over one segment at {label}")
+    neutral = SEG_NEUTRAL[kind]
+    lib_in = keys if kind == "sum" else keys ^ sign
+    reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+    fill = 0 if kind == "sum" else neutral ^ sign
+
+    def finished():
+        return native._segment_finish(native.segscan(gid, keys, kind), gid,
+                                      n, neutral)
+
+    def library():
+        return torch.full((n,), fill, dtype=keys.dtype,
+                          device=keys.device).scatter_reduce_(
+                              0, gid, lib_in, reduce)
+
+    lib = library() if kind == "sum" else library() ^ sign
+    if not torch.equal(finished(), lib):
+        raise AssertionError(f"K2 + finish != scatter_reduce at {label}")
+    iters = 20 if n >= 1_000_000 else 50
+    r = dict(ms=cuda_ms(lambda: native.segscan(gid, keys, kind), iters),
+             plain_ms=cuda_ms(lambda: native.segscan_plain(gid, keys, kind),
+                              3, warmup=1),
+             finish_ms=cuda_ms(finished, iters),
+             library_ms=cuda_ms(library, iters),
+             max_abs_err=0.0, n=n, kind=kind, key_bits=8 * keys.element_size())
+    r["bound_ms"], r["bound_by"] = seg_bound(n, keys.element_size())
+    log(f"K2 seg_scan {label} {kind}{r['key_bits']} n={n}: bit-identical to "
+        f"plain; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"kernel + finish {r['finish_ms']:.4f} ms, scatter_reduce "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return r
+
+
+def segscan_phase(native) -> dict:
+    out = {}
+    for cap in CAPS:
+        for kind, bits in SEG_KINDS:
+            gid, keys = seg_inputs(cap, bits, seed=cap + bits)
+            out[(cap, kind, bits)] = seg_check(native, gid, keys, kind,
+                                               "synthetic")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: TPC-H Q2 at SF1 against a numpy oracle
+# ---------------------------------------------------------------------------
+
+def q2_phase(entry, native, cols: dict) -> dict:
+    t0 = time.perf_counter()
+    want = q2_oracle(cols, entry)
+    plan = entry.tpch_q2_plan(entry.tpch_q2_tables(cols), device="cuda")
+    log(f"q2 SF1: {len(cols['partsupp']['ps_partkey'])} PARTSUPP, "
+        f"{len(cols['part']['p_partkey'])} PART, "
+        f"{len(cols['supplier']['s_suppkey'])} SUPPLIER rows (oracle and "
+        f"scans in {time.perf_counter() - t0:.2f} s)")
+    # Keep the inputs of every K2 launch: the kernel is then checked and
+    # timed on the main path's own largest launch.
+    seen = []
+    launch = native.seg_scan
+
+    def recording(gid, keys, kind, out):
+        seen.append((gid, keys, kind))
+        return launch(gid, keys, kind, out)
+
+    native.seg_scan = recording
+    try:
+        r = run_path("q2", plan, native, check_q2, want, show=5)
+    finally:
+        native.seg_scan = launch
+    c = r["launches"]
+    if c["seg_scan"] <= 0:
+        raise AssertionError("q2 did not launch K2 (seg_scan)")
+    first = seen[:c["seg_scan"]]
+    shapes = sorted({(g.numel(), str(k.dtype).replace("torch.", ""), kind)
+                     for g, k, kind in first})
+    log(f"q2 K2 launches {c['seg_scan']} over (rows, key type, kind) "
+        f"{shapes}; K3 launches {c['join_probe']} (the fast path, about 4 "
+        f"expected); K1 launches digit_hist {c['digit_hist']}, "
+        f"digit_scatter {c['digit_scatter']}")
+    gid, keys, kind = max(first, key=lambda s: (s[1].numel(),
+                                                 s[1].element_size()))
+    r["k2"] = seg_check(native, gid, keys, kind, "q2 largest launch")
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -523,7 +737,7 @@ def main() -> int:
 
     # Phase 2: build
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["radix_rank", "join_probe"])
+    libs = cuda_build.build_all(["radix_rank", "join_probe", "seg_scan"])
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, path in libs.items():
         ptxas = path.with_suffix(".log")
@@ -543,20 +757,30 @@ def main() -> int:
     probe_phase(native)
 
     # Phase 6: TPC-H q3 and q4
-    joins = join_paths_phase(entry, native)
+    t0 = time.perf_counter()
+    cols = entry.tpch_columns(1.0, seed=0)
+    log(f"TPC-H SF1 columns generated in {time.perf_counter() - t0:.2f} s")
+    joins = join_paths_phase(entry, native, cols)
 
-    # Phase 7: the kernels line
+    # Phase 7: kernel K2
+    segscan_phase(native)
+
+    # Phase 8: TPC-H q2
+    q2 = q2_phase(entry, native, cols)
+
+    # Phase 9: the kernels line
     runs = (path["launches"], joins["q3"]["launches"],
-            joins["q4"]["launches"])
+            joins["q4"]["launches"], q2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"digit_hist": "spark_rapids_tpu/ops/native.py:251",
                 "digit_scatter": "spark_rapids_tpu/ops/native.py:259",
-                "join_probe": "spark_rapids_tpu/ops/native.py:315"}
+                "join_probe": "spark_rapids_tpu/ops/native.py:315",
+                "seg_scan": "spark_rapids_tpu/ops/native.py:489"}
     sources = {"digit_hist": "radix_rank.cu", "digit_scatter": "radix_rank.cu",
-               "join_probe": "join_probe.cu"}
-    timed = dict(per_launch, join_probe=joins["q4_probe"])
+               "join_probe": "join_probe.cu", "seg_scan": "seg_scan.cu"}
+    timed = dict(per_launch, join_probe=joins["q4_probe"], seg_scan=q2["k2"])
     kernels = []
-    for name in ("digit_hist", "digit_scatter", "join_probe"):
+    for name in ("digit_hist", "digit_scatter", "join_probe", "seg_scan"):
         r = timed[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -566,7 +790,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"]})
-    log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}")
+    log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}, "
+        f"q2 {runs[3]}")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

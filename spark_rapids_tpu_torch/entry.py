@@ -1,5 +1,5 @@
-"""Entry points of the port: the flagship q1-shaped step and TPC-H q1, q3
-and q4.
+"""Entry points of the port: the flagship q1-shaped step and TPC-H q1, q2,
+q3 and q4.
 
 - ``entry(device=None)`` mirrors the JAX package's
   ``__graft_entry__.entry()``: a q1-shaped forward step (filter -> hash
@@ -18,6 +18,11 @@ and q4.
   the exec trees the JAX package's planner builds for ``tpch.q3`` and
   ``tpch.q4`` at SF1 with default conf; ``tpch_q3_tables`` and
   ``tpch_q4_tables`` split ``tpch_columns`` into their scans' partitions.
+- ``tpch_q2_plan(tables, device=None)`` (minimum-cost supplier: a min
+  aggregate over partsupp joined back to the BRASS parts of size 15,
+  top 100) builds the exec tree the JAX package's planner builds for
+  ``tpch.q2`` at SF1 with default conf; ``tpch_q2_tables`` makes its
+  scans, the column-pruned ones included.
 
 ``device=None`` means the CUDA card and raises when there is none; pass
 ``device="cpu"`` for the plain-PyTorch path.
@@ -35,15 +40,15 @@ from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.host import (
     HostBatch, HostColumn, host_to_device)
 from spark_rapids_tpu_torch.exprs import (
-    Add, And, BoundReference as Ref, EqualTo, GreaterThan,
+    Add, And, BoundReference as Ref, EndsWith, EqualTo, GreaterThan,
     GreaterThanOrEqual, LessThan, LessThanOrEqual, Literal, Multiply,
     Subtract, lit)
 from spark_rapids_tpu_torch.exprs.base import as_device_column
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, CoalescePartitionsExec,
     CountStar, FilterExec, GlobalLimitExec, HashAggregateExec,
-    InMemorySourceExec, LocalLimitExec, ProjectExec, SortExec, SortOrder,
-    Sum)
+    InMemorySourceExec, LocalLimitExec, Min, ProjectExec, SortExec,
+    SortOrder, Sum)
 
 # ---------------------------------------------------------------------------
 # The flagship q1-shaped step
@@ -115,26 +120,83 @@ Q1_SHIPDATE_CUTOFF = days("1998-09-02")
 
 
 # The generator's string pools that the ported queries read, in its order
-# (the JAX package's ``benchmarks/tpch.py`` PRIORITIES and SEGMENTS).
+# (the JAX package's ``benchmarks/tpch.py`` PRIORITIES, SEGMENTS,
+# P_TYPE_1..3, S_COMMENTS, NATIONS and REGIONS).
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+P_TYPE_1 = ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO")
+P_TYPE_2 = ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+P_TYPE_3 = ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")
+S_COMMENTS = (
+    "blithely regular packages boost", "carefully silent foxes detect",
+    "quickly final deposits about the ideas", "furiously even pearls wake",
+    "pending pains sleep slyly", "express dolphins above the packages",
+    "regular warhorses cajole daringly", "ironic courts haggle quietly",
+    "Customer recounts wake Complaints",
+    "Customer accounts nag slyly Complaints")
+NATIONS = (
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1))
+REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
 # Sizes of its other ``pick`` pools: only how many values a draw may take
 # matters to the random stream.
 _N_O_COMMENTS, _N_SHIPMODES, _N_SHIPINSTRUCT = 14, 7, 4
-_N_P_WORDS, _N_P_TYPES, _N_P_CONTAINERS = 92, (6, 5, 5), (5, 8)
+_N_P_WORDS, _N_P_CONTAINERS = 92, (5, 8)
+
+
+def _pool_matrix(pool) -> tuple:
+    w = max(len(v) for v in pool)
+    m = np.zeros((len(pool), w), np.uint8)
+    for i, v in enumerate(pool):
+        m[i, :len(v)] = np.frombuffer(v.encode(), np.uint8)
+    return m, np.array([len(v) for v in pool], np.int32)
+
+
+def _digits(v: np.ndarray, width: int) -> np.ndarray:
+    """(n, width) uint8: ``v`` in decimal, zero-padded to ``width``."""
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return (48 + (v.astype(np.int64)[:, None] // p) % 10).astype(np.uint8)
+
+
+def _concat_strings(*pieces) -> np.ndarray:
+    """Row-wise concatenation of string pieces, each a zero-padded (n, w)
+    uint8 matrix or a bytes literal, into one zero-padded matrix (a built
+    string column such as ``s_phone`` or ``p_type``, which has no pool)."""
+    n = next(len(p) for p in pieces if isinstance(p, np.ndarray))
+    mats = [np.broadcast_to(np.frombuffer(p, np.uint8), (n, len(p)))
+            if isinstance(p, bytes) else p for p in pieces]
+    out = np.zeros((n, sum(m.shape[1] for m in mats)), np.uint8)
+    off = np.zeros(n, np.int64)
+    rows = np.arange(n)
+    for m in mats:
+        lens = (m != 0).sum(axis=1)
+        for j in range(m.shape[1]):
+            keep = j < lens
+            out[rows[keep], off[keep] + j] = m[keep, j]
+        off += lens
+    return out[:, :max(int(off.max()), 1)]
 
 
 def tpch_columns(scale: float, seed: int = 0) -> dict:
-    """The columns TPC-H q1, q3 and q4 read, as numpy arrays per table
-    (``{"lineitem": {...}, "orders": {...}, "customer": {...}}``): the
-    JAX package's TPC-H generator (``benchmarks/tpch.py`` ``generate``),
-    drawing its whole random stream in its order, so ``seed`` and
-    ``scale`` give its rows. String columns are codes: ``l_returnflag`` and
-    ``l_linestatus`` are uint8 character codes, ``o_orderpriority`` and
-    ``c_mktsegment`` index ``PRIORITIES`` and ``SEGMENTS``."""
+    """The columns TPC-H q1, q2, q3 and q4 read, as numpy arrays per table
+    (``{"lineitem": {...}, "orders": {...}, "customer": {...}, "part":
+    {...}, "partsupp": {...}, "supplier": {...}, "nation": {...},
+    "region": {...}}``): the JAX package's TPC-H generator
+    (``benchmarks/tpch.py`` ``generate``), drawing its whole random stream
+    in its order, so ``seed`` and ``scale`` give its rows. String columns
+    are one of three forms: ``l_returnflag`` and ``l_linestatus`` are
+    (n,) uint8 character codes; the columns of ``_STRING_POOLS`` are codes
+    into a pool; built strings (``p_mfgr``, ``p_brand``, ``p_type``,
+    ``s_name``, ``s_phone``) are zero-padded (n, w) uint8 matrices."""
     rng = np.random.default_rng(seed)
     n_ord = max(int(1_500_000 * scale), 10)
     n_cust = max(int(150_000 * scale), 5)
+    n_supp = max(int(10_000 * scale), 3)
     n_part = max(int(200_000 * scale), 8)
     # ORDERS: custkey, orderdate, status coin, totalprice, priority, comment.
     o_orderkey = np.arange(1, n_ord + 1, dtype=np.int64)
@@ -171,21 +233,49 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     rng.integers(0, _N_SHIPMODES, n_li)
     rng.integers(0, _N_SHIPINSTRUCT, n_li)
     # PART: name words, type, container, brand, size, retail price.
-    for n in (_N_P_WORDS,) * 3 + _N_P_TYPES + _N_P_CONTAINERS:
+    for _ in range(3):
+        rng.integers(0, _N_P_WORDS, n_part)
+    t1, t2, t3 = (rng.integers(0, len(pool), n_part)
+                  for pool in (P_TYPE_1, P_TYPE_2, P_TYPE_3))
+    p_type = _concat_strings(_pool_matrix(P_TYPE_1)[0][t1], b" ",
+                             _pool_matrix(P_TYPE_2)[0][t2], b" ",
+                             _pool_matrix(P_TYPE_3)[0][t3])
+    for n in _N_P_CONTAINERS:
         rng.integers(0, n, n_part)
-    rng.integers(1, 6, n_part)
-    rng.integers(1, 6, n_part)
-    rng.integers(1, 51, n_part)
-    rng.uniform(900.0, 2000.0, n_part)
-    # PARTSUPP: 4 suppliers a part; availqty, supplycost.
-    rng.integers(1, 10_000, 4 * n_part)
-    rng.uniform(1.0, 1000.0, 4 * n_part)
-    # CUSTOMER: nationkey, phone parts, then the market segment.
-    rng.integers(0, 25, n_cust, dtype=np.int64)
+    brand_m = rng.integers(1, 6, n_part)
+    brand_n = rng.integers(1, 6, n_part)
+    p_size = rng.integers(1, 51, n_part).astype(np.int32)
+    p_retailprice = np.round(rng.uniform(900.0, 2000.0, n_part), 2)
+    # PARTSUPP: 4 suppliers a part (the generator's formula); availqty,
+    # supplycost.
+    p_partkey = np.arange(1, n_part + 1, dtype=np.int64)
+    ps_partkey = np.repeat(p_partkey, 4)
+    ps_i = np.tile(np.arange(4), n_part)
+    ps_suppkey = ((ps_partkey + ps_i * (n_supp // 4 + 1)) % n_supp) + 1
+    ps_availqty = rng.integers(1, 10_000, 4 * n_part).astype(np.int32)
+    ps_supplycost = np.round(rng.uniform(1.0, 1000.0, 4 * n_part), 2)
+    # CUSTOMER: nationkey, phone parts, market segment, account balance,
+    # address, comment.
+    c_nationkey = rng.integers(0, 25, n_cust, dtype=np.int64)
     rng.integers(100, 1000, n_cust)
     rng.integers(100, 1000, n_cust)
     rng.integers(1000, 10000, n_cust)
     c_mktsegment = rng.integers(0, len(SEGMENTS), n_cust)
+    c_acctbal = np.round(rng.uniform(-999.99, 9999.99, n_cust), 2)
+    rng.integers(0, _N_O_COMMENTS, n_cust)
+    rng.integers(0, _N_O_COMMENTS, n_cust)
+    # SUPPLIER: nationkey, phone parts (country code 10 + nationkey),
+    # account balance, address, comment.
+    s_nationkey = rng.integers(0, 25, n_supp, dtype=np.int64)
+    a, b, c = (rng.integers(lo, hi, n_supp) for lo, hi in
+               ((100, 1000), (100, 1000), (1000, 10000)))
+    s_phone = _concat_strings(_digits(10 + s_nationkey, 2), b"-",
+                              _digits(a, 3), b"-", _digits(b, 3), b"-",
+                              _digits(c, 4))
+    s_acctbal = np.round(rng.uniform(-999.99, 9999.99, n_supp), 2)
+    s_address = rng.integers(0, len(S_COMMENTS), n_supp)
+    s_comment = rng.integers(0, len(S_COMMENTS), n_supp)
+    s_suppkey = np.arange(1, n_supp + 1, dtype=np.int64)
     return {
         "lineitem": {
             "l_orderkey": l_orderkey, "l_quantity": l_quantity,
@@ -201,7 +291,31 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
             "o_orderpriority": o_orderpriority},
         "customer": {
             "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
-            "c_mktsegment": c_mktsegment},
+            "c_nationkey": c_nationkey, "c_mktsegment": c_mktsegment,
+            "c_acctbal": c_acctbal},
+        "part": {
+            "p_partkey": p_partkey,
+            "p_mfgr": _concat_strings(b"Manufacturer#", _digits(brand_m, 1)),
+            "p_brand": _concat_strings(b"Brand#", _digits(brand_m, 1),
+                                       _digits(brand_n, 1)),
+            "p_type": p_type, "p_size": p_size,
+            "p_retailprice": p_retailprice},
+        "partsupp": {
+            "ps_partkey": ps_partkey, "ps_suppkey": ps_suppkey,
+            "ps_availqty": ps_availqty, "ps_supplycost": ps_supplycost},
+        "supplier": {
+            "s_suppkey": s_suppkey,
+            "s_name": _concat_strings(b"Supplier#", _digits(s_suppkey, 9)),
+            "s_nationkey": s_nationkey, "s_phone": s_phone,
+            "s_acctbal": s_acctbal, "s_address": s_address,
+            "s_comment": s_comment},
+        "nation": {
+            "n_nationkey": np.arange(25, dtype=np.int64),
+            "n_name": np.arange(25),
+            "n_regionkey": np.array([r for _, r in NATIONS], np.int64)},
+        "region": {
+            "r_regionkey": np.arange(5, dtype=np.int64),
+            "r_name": np.arange(5)},
     }
 
 
@@ -212,17 +326,11 @@ def tpch_q1_columns(scale: float, seed: int = 0) -> dict:
     return {name: li[name] for name, _ in Q1_SCHEMA}
 
 
-# String columns held as codes into a pool; the others are uint8
-# character codes (one-byte strings).
-_STRING_POOLS = {"o_orderpriority": PRIORITIES, "c_mktsegment": SEGMENTS}
-
-
-def _pool_matrix(pool) -> tuple:
-    w = max(len(v) for v in pool)
-    m = np.zeros((len(pool), w), np.uint8)
-    for i, v in enumerate(pool):
-        m[i, :len(v)] = np.frombuffer(v.encode(), np.uint8)
-    return m, np.array([len(v) for v in pool], np.int32)
+# String columns held as codes into a pool; the others are built (n, w)
+# matrices or uint8 character codes (one-byte strings).
+_STRING_POOLS = {"o_orderpriority": PRIORITIES, "c_mktsegment": SEGMENTS,
+                 "s_address": S_COMMENTS, "s_comment": S_COMMENTS,
+                 "n_name": tuple(n for n, _ in NATIONS), "r_name": REGIONS}
 
 
 def _host_batch(schema, cols: dict, lo: int, hi: int) -> HostBatch:
@@ -236,6 +344,10 @@ def _host_batch(schema, cols: dict, lo: int, hi: int) -> HostBatch:
                 m, lens = _pool_matrix(_STRING_POOLS[name])
                 out.append(HostColumn(t, None, valid, str_matrix=m[v],
                                       str_lengths=lens[v]))
+            elif v.ndim == 2:
+                out.append(HostColumn(
+                    t, None, valid, str_matrix=v.copy(),
+                    str_lengths=(v != 0).sum(axis=1).astype(np.int32)))
             else:
                 out.append(HostColumn(t, None, valid,
                                       str_matrix=v.reshape(n, 1).copy(),
@@ -317,8 +429,10 @@ def tpch_q1_plan(partitions: Sequence[Sequence[HostBatch]],
 # ---------------------------------------------------------------------------
 
 # Partitions per table: the generator's files_per_table (8), halved for
-# CUSTOMER.
-TABLE_PARTITIONS = {"lineitem": 8, "orders": 8, "customer": 4}
+# CUSTOMER, PART and PARTSUPP; one file each for SUPPLIER, NATION and
+# REGION.
+TABLE_PARTITIONS = {"lineitem": 8, "orders": 8, "customer": 4, "part": 4,
+                    "partsupp": 4, "supplier": 1, "nation": 1, "region": 1}
 
 Q3_CUSTOMER = (("c_custkey", dt.INT64), ("c_mktsegment", dt.STRING))
 Q3_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
@@ -419,3 +533,133 @@ def tpch_q4_plan(tables: dict, device: DeviceLike = None) -> SortExec:
     final = HashAggregateExec(CoalescePartitionsExec(partial, 1),
                               _final_keys(keys), aggs, mode="final")
     return SortExec(final, [SortOrder(Ref(0, dt.STRING))])
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q2
+# ---------------------------------------------------------------------------
+
+# Q2's scans, with the columns the JAX planner prunes each one to: the
+# supplier and nation scans under the min aggregate read their keys only.
+Q2_PART = (("p_partkey", dt.INT64), ("p_mfgr", dt.STRING),
+           ("p_type", dt.STRING), ("p_size", dt.INT32))
+Q2_PARTSUPP = (("ps_partkey", dt.INT64), ("ps_suppkey", dt.INT64),
+               ("ps_supplycost", dt.FLOAT64))
+Q2_SUPPLIER = (("s_suppkey", dt.INT64), ("s_name", dt.STRING),
+               ("s_nationkey", dt.INT64), ("s_phone", dt.STRING),
+               ("s_acctbal", dt.FLOAT64), ("s_address", dt.STRING),
+               ("s_comment", dt.STRING))
+Q2_NATION = (("n_nationkey", dt.INT64), ("n_name", dt.STRING),
+             ("n_regionkey", dt.INT64))
+Q2_REGION = (("r_regionkey", dt.INT64), ("r_name", dt.STRING))
+Q2_SUPPLIER_KEYS = (("s_suppkey", dt.INT64), ("s_nationkey", dt.INT64))
+Q2_NATION_KEYS = (("n_nationkey", dt.INT64), ("n_regionkey", dt.INT64))
+Q2_SCANS = {"part": ("part", Q2_PART),
+            "partsupp": ("partsupp", Q2_PARTSUPP),
+            "supplier": ("supplier", Q2_SUPPLIER),
+            "nation": ("nation", Q2_NATION),
+            "region": ("region", Q2_REGION),
+            "supplier_keys": ("supplier", Q2_SUPPLIER_KEYS),
+            "nation_keys": ("nation", Q2_NATION_KEYS)}
+Q2_SIZE = 15
+Q2_TYPE_SUFFIX = "BRASS"
+Q2_REGION_NAME = "EUROPE"
+Q2_LIMIT = 100
+# The output columns, in order.
+Q2_COLUMNS = ("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+              "s_address", "s_phone", "s_comment")
+
+
+def tpch_q2_tables(cols: dict) -> dict:
+    """Q2's scans over ``tpch_columns`` output: scan -> partitions (keys
+    of ``Q2_SCANS``)."""
+    return {scan: table_partitions(cols[table], schema,
+                                   TABLE_PARTITIONS[table])
+            for scan, (table, schema) in Q2_SCANS.items()}
+
+
+def _q2_europe_suppliers(tables: dict, dev, keys_only: bool) -> ProjectExec:
+    """Suppliers of the EUROPE nations: region filter, nation join,
+    supplier join (both broadcast, the dense table). With ``keys_only``
+    the pruned scans of the min branch and just ``s_suppkey`` out; else
+    [s_suppkey, s_name, s_address, s_phone, s_acctbal, s_comment,
+    n_name]."""
+    i64, s = dt.INT64, dt.STRING
+    region = FilterExec(InMemorySourceExec(Q2_REGION, tables["region"], dev),
+                        EqualTo(Ref(1, s), lit(Q2_REGION_NAME)))
+    if keys_only:
+        nation = InMemorySourceExec(Q2_NATION_KEYS, tables["nation_keys"],
+                                    dev)
+        nat = ProjectExec(BroadcastHashJoinExec(
+            nation, region, [Ref(1, i64)], [Ref(0, i64)], "inner"),
+            [("n_nationkey", Ref(0, i64))])
+        supp = InMemorySourceExec(Q2_SUPPLIER_KEYS, tables["supplier_keys"],
+                                  dev)
+        return ProjectExec(BroadcastHashJoinExec(
+            supp, nat, [Ref(1, i64)], [Ref(0, i64)], "inner"),
+            [("s_suppkey", Ref(0, i64))])
+    nation = InMemorySourceExec(Q2_NATION, tables["nation"], dev)
+    nat = ProjectExec(BroadcastHashJoinExec(
+        nation, region, [Ref(2, i64)], [Ref(0, i64)], "inner"),
+        [("n_nationkey", Ref(0, i64)), ("n_name", Ref(1, s))])
+    supp = InMemorySourceExec(Q2_SUPPLIER, tables["supplier"], dev)
+    # [s_suppkey, s_name, s_nationkey, s_phone, s_acctbal, s_address,
+    #  s_comment, n_nationkey, n_name]
+    joined = BroadcastHashJoinExec(supp, nat, [Ref(2, i64)], [Ref(0, i64)],
+                                   "inner")
+    return ProjectExec(joined, [
+        ("s_suppkey", Ref(0, i64)), ("s_name", Ref(1, s)),
+        ("s_address", Ref(5, s)), ("s_phone", Ref(3, s)),
+        ("s_acctbal", Ref(4, dt.FLOAT64)), ("s_comment", Ref(6, s)),
+        ("n_name", Ref(8, s))])
+
+
+def tpch_q2_plan(tables: dict, device: DeviceLike = None) -> GlobalLimitExec:
+    """TPC-H Q2: for the BRASS parts of size 15, the EUROPE suppliers that
+    offer them at the minimum EUROPE supply cost, top 100 by s_acctbal
+    desc, n_name, s_name, p_partkey. The correlated minimum is a partial
+    and final ``min(ps_supplycost)`` by ``ps_partkey`` (kernel K2) joined
+    back on the part key; part joins partsupp-with-supplier on the fast
+    probe path (kernel K3: up to 4 suppliers a part)."""
+    dev = resolve_device(device)
+    i64, f, s = dt.INT64, dt.FLOAT64, dt.STRING
+    # [ps_partkey, ps_suppkey, ps_supplycost, s_suppkey, s_name, s_address,
+    #  s_phone, s_acctbal, s_comment, n_name]
+    ps = BroadcastHashJoinExec(
+        InMemorySourceExec(Q2_PARTSUPP, tables["partsupp"], dev),
+        _q2_europe_suppliers(tables, dev, keys_only=False),
+        [Ref(1, i64)], [Ref(0, i64)], "inner")
+    # [ps_partkey, ps_suppkey, ps_supplycost, s_suppkey]
+    ps_keys = BroadcastHashJoinExec(
+        InMemorySourceExec(Q2_PARTSUPP, tables["partsupp"], dev),
+        _q2_europe_suppliers(tables, dev, keys_only=True),
+        [Ref(1, i64)], [Ref(0, i64)], "inner")
+    keys = [("ps_partkey", Ref(0, i64))]
+    aggs = [AggSpec("min_cost", Min(Ref(2, f)))]
+    partial = HashAggregateExec(ps_keys, keys, aggs, mode="partial")
+    final = HashAggregateExec(CoalescePartitionsExec(partial, 1),
+                              _final_keys(keys), aggs, mode="final")
+    minc = ProjectExec(final, [("m_partkey", Ref(0, i64)),
+                               ("min_cost", Ref(1, f))])
+    part = ProjectExec(
+        FilterExec(InMemorySourceExec(Q2_PART, tables["part"], dev),
+                   And(EqualTo(Ref(3, dt.INT32), lit(Q2_SIZE)),
+                       EndsWith(Ref(2, s), lit(Q2_TYPE_SUFFIX)))),
+        [("p_partkey", Ref(0, i64)), ("p_mfgr", Ref(1, s))])
+    # [p_partkey, p_mfgr, ps_partkey, ps_suppkey, ps_supplycost, s_suppkey,
+    #  s_name, s_address, s_phone, s_acctbal, s_comment, n_name]
+    j = BroadcastHashJoinExec(part, ps, [Ref(0, i64)], [Ref(0, i64)],
+                              "inner")
+    # ... + [m_partkey, min_cost]
+    j = BroadcastHashJoinExec(j, minc, [Ref(0, i64)], [Ref(0, i64)],
+                              "inner")
+    cheapest = FilterExec(j, EqualTo(Ref(4, f), Ref(13, f)))
+    out = ProjectExec(cheapest, [
+        ("s_acctbal", Ref(9, f)), ("s_name", Ref(6, s)),
+        ("n_name", Ref(11, s)), ("p_partkey", Ref(0, i64)),
+        ("p_mfgr", Ref(1, s)), ("s_address", Ref(7, s)),
+        ("s_phone", Ref(8, s)), ("s_comment", Ref(10, s))])
+    top = SortExec(CoalescePartitionsExec(out, 1), [
+        SortOrder(Ref(0, f), ascending=False, nulls_first=False),
+        SortOrder(Ref(2, s)), SortOrder(Ref(1, s)), SortOrder(Ref(3, i64))])
+    return GlobalLimitExec(LocalLimitExec(top, Q2_LIMIT), Q2_LIMIT)

@@ -6,10 +6,12 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.exprs.predicates import (
     And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, IsNotNull,
     IsNull, LessThan, LessThanOrEqual, Not, Or)
+from spark_rapids_tpu_torch.exprs.strings import (
+    Contains, EndsWith, StartsWith)
 
 __all__ = [
-    "Add", "And", "BoundReference", "EqualNullSafe", "EqualTo", "Expression",
-    "GreaterThan", "GreaterThanOrEqual", "IsNotNull", "IsNull", "LessThan",
-    "LessThanOrEqual", "Literal", "Multiply", "Not", "Or", "Scalar",
-    "Subtract", "lit",
+    "Add", "And", "BoundReference", "Contains", "EndsWith", "EqualNullSafe",
+    "EqualTo", "Expression", "GreaterThan", "GreaterThanOrEqual",
+    "IsNotNull", "IsNull", "LessThan", "LessThanOrEqual", "Literal",
+    "Multiply", "Not", "Or", "Scalar", "StartsWith", "Subtract", "lit",
 ]

@@ -2,7 +2,7 @@
 counterpart)."""
 
 from spark_rapids_tpu_torch.ops.aggregate import (
-    AggSpec, Average, Count, CountStar, HashAggregateExec, Sum)
+    AggSpec, Average, Count, CountStar, HashAggregateExec, Max, Min, Sum)
 from spark_rapids_tpu_torch.ops.base import (
     Exec, ExecContext, InMemorySourceExec)
 from spark_rapids_tpu_torch.ops.basic import (
@@ -15,5 +15,6 @@ __all__ = [
     "AggSpec", "Average", "BroadcastHashJoinExec", "CoalescePartitionsExec",
     "Count", "CountStar", "Exec", "ExecContext", "FilterExec",
     "GlobalLimitExec", "HashAggregateExec", "InMemorySourceExec",
-    "LocalLimitExec", "ProjectExec", "SortExec", "SortOrder", "Sum",
+    "LocalLimitExec", "Max", "Min", "ProjectExec", "SortExec", "SortOrder",
+    "Sum",
 ]

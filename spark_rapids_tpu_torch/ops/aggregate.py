@@ -1,18 +1,24 @@
 """Hash aggregate (port of the JAX package's ``ops/aggregate.py``, cut to
-Count, CountStar, Sum and Average in modes partial, final and complete).
+Count, CountStar, Sum, Average, Min and Max in modes partial, final and
+complete).
 
 Device algorithm per batch, as in the JAX package:
 
   project grouping keys + aggregate inputs
   group_ids (fingerprint radix sort) + one gather to group-sorted order
-  every sum-decomposable aggregate exposes masked value streams; the
-  streams of all specs stack per dtype class and ALL group sums come from
-  one cumsum + boundary difference per class (``_segment_sums``)
+  every sum-decomposable aggregate (Count, Sum, Average) exposes masked
+  value streams; the streams of all specs stack per dtype class and ALL
+  group sums come from one cumsum + boundary difference per class
+  (``_segment_sums``)
+  Min/Max reduce on their own ("raw" specs): ``kernels.segment_reduce``,
+  whose min/max and integer sums are the sorted-segment scan (kernel K2
+  on the card), or, over strings, ``kernels.segment_minmax_string``
   -> buffer batch [keys..., buffers...] at the group leaders
 
 Zero-key aggregates skip the sort: whole-batch masked reductions
-(``_global_stage``). Min/Max/First/Last (the segmented-scan path) come
-in a later slice.
+(``_global_stage``), except a string Min/Max, which groups its single
+group through the sorted path. First/Last and the partial-skip decision
+come in a later slice.
 """
 
 from __future__ import annotations
@@ -58,8 +64,9 @@ def _ones(capacity: int, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class AggFunction:
-    """One aggregate: an input expression plus its buffer layout and the
-    masked value streams the cumsum path sums per group."""
+    """One aggregate: an input expression plus its buffer layout, and
+    either the masked value streams the cumsum path sums per group or its
+    own segmented update/merge."""
 
     def __init__(self, child: Optional[Expression]):
         self.child = child
@@ -72,20 +79,29 @@ class AggFunction:
     def result_type(self) -> dt.DataType:
         raise NotImplementedError
 
+    def update(self, col: SortedCol, gid: torch.Tensor,
+               capacity: int) -> List[Buf]:
+        raise NotImplementedError
+
+    def merge(self, bufs: List[SortedCol], gid: torch.Tensor,
+              capacity: int) -> List[Buf]:
+        raise NotImplementedError
+
     def finalize(self, bufs: List[SortedCol]) -> Buf:
         raise NotImplementedError
 
     # -- segmented-sum plan (cumsum path) --------------------------------
     # Streams are (dtype class, (cap,) tensor) pairs; ``has_nans`` mirrors
     # spark.rapids.sql.hasNans (float sums carry NaN/inf occurrence counts
-    # out of band unless the user asserts finite data).
+    # out of band unless the user asserts finite data). None: not
+    # sum-decomposable, the spec runs its own update/merge.
     def sum_terms_update(self, col: SortedCol,
-                         has_nans: bool = True) -> List[Tuple]:
-        raise NotImplementedError
+                         has_nans: bool = True) -> Optional[List[Tuple]]:
+        return None
 
     def sum_terms_merge(self, bufs: List[SortedCol],
-                        has_nans: bool = True) -> List[Tuple]:
-        raise NotImplementedError
+                        has_nans: bool = True) -> Optional[List[Tuple]]:
+        return None
 
     def bufs_from_sums(self, sums: List[torch.Tensor], capacity: int,
                        has_nans: bool = True) -> List[Buf]:
@@ -280,6 +296,64 @@ class Average(AggFunction):
         return [(s, c > 0, None), (c, True, None)]
 
 
+class Min(AggFunction):
+    """min(x); Max below is its mirror. Numeric buffers reduce through
+    ``kernels.segment_reduce`` (NaN greatest, -0.0 below 0.0, subnormals
+    kept), strings through ``kernels.segment_minmax_string``."""
+
+    kind = "min"
+
+    @property
+    def buffer_types(self):
+        return (self.child.data_type(),)
+
+    @property
+    def result_type(self):
+        return self.child.data_type()
+
+    def update(self, col, gid, capacity):
+        if col.lengths is not None:
+            return [kernels.segment_minmax_string(
+                col.data, col.lengths, col.validity, gid, capacity,
+                want_max=self.kind == "max")]
+        agg, counts = kernels.segment_reduce(col.data, col.validity, gid,
+                                             capacity, self.kind)
+        return [(agg, counts > 0, None)]
+
+    def merge(self, bufs, gid, capacity):
+        return self.update(bufs[0], gid, capacity)
+
+    def finalize(self, bufs):
+        b, = bufs
+        return b.data, b.validity, b.lengths
+
+    def _global(self, col: SortedCol) -> List[Tuple]:
+        """Whole-batch min/max in ``_seg_minmax``'s order, with Spark's NaN
+        rules as in ``kernels.segment_reduce``."""
+        v, val = col.data, col.validity
+        isnan = torch.isnan(v) if v.is_floating_point() else None
+        real = val if isnan is None else val & ~isnan
+        m = kernels.global_minmax(
+            torch.where(real, v, kernels._identity_for(v, self.kind)),
+            self.kind)
+        if isnan is not None:
+            nanv = torch.full((), float("nan"), dtype=v.dtype,
+                              device=v.device)
+            m = torch.where(real.any(), m, nanv) if self.kind == "min" \
+                else torch.where((val & isnan).any(), nanv, m)
+        return [(m, val.any(), None)]
+
+    def update_global(self, col):
+        return self._global(col)
+
+    def merge_global(self, bufs):
+        return self._global(bufs[0])
+
+
+class Max(Min):
+    kind = "max"
+
+
 @dataclasses.dataclass
 class AggSpec:
     """A named aggregate in the output (result column)."""
@@ -358,8 +432,14 @@ class HashAggregateExec(Exec):
     @staticmethod
     def _buf_column(buf: Buf, bt: dt.DataType,
                     gmask: torch.Tensor) -> DeviceColumn:
-        data, valid, _ = buf
+        data, valid, lens = buf
         valid = valid & gmask
+        if bt.is_string:
+            data = torch.where(valid[:, None], data.to(torch.uint8),
+                               torch.zeros((), dtype=torch.uint8,
+                                           device=valid.device))
+            lens = torch.where(valid, lens, torch.zeros_like(lens))
+            return DeviceColumn(bt, data, valid, lens)
         t = torch_dtype(bt)
         data = torch.where(valid, data.to(t),
                            torch.zeros((), dtype=t, device=valid.device))
@@ -412,25 +492,33 @@ class HashAggregateExec(Exec):
 
     def _run_specs(self, spec_inputs, gid, slive, capacity,
                    has_nans: bool = True) -> List[List[Buf]]:
-        """Every spec's streams stack per dtype class, one cumsum each;
-        returns the buffer list per spec."""
+        """``spec_inputs`` holds per spec ("update", SortedCol) or
+        ("merge", [SortedCol...]). Sum-decomposable specs stack their
+        streams per dtype class, one cumsum each; the rest ("raw") run
+        their own segmented update/merge. Returns the buffer list per
+        spec."""
         stacks: Dict[str, List[torch.Tensor]] = {}
-        plans = []
+        plans = []      # per spec: ("sum", [(cls, pos)...]) | ("raw", bufs)
         for spec, (kind, arg) in zip(self.aggs, spec_inputs):
             terms = spec.fn.sum_terms_update(arg, has_nans) \
                 if kind == "update" \
                 else spec.fn.sum_terms_merge(arg, has_nans)
+            if terms is None:
+                bufs = spec.fn.update(arg, gid, capacity) \
+                    if kind == "update" else spec.fn.merge(arg, gid, capacity)
+                plans.append(("raw", bufs))
+                continue
             slots = []
             for cls, values in terms:
                 stacks.setdefault(cls, []).append(values)
                 slots.append((cls, len(stacks[cls]) - 1))
-            plans.append(slots)
+            plans.append(("sum", slots))
         sums = self._segment_sums(stacks, gid, slive, capacity) \
             if stacks else {}
-        return [spec.fn.bufs_from_sums([sums[cls][pos]
-                                        for cls, pos in slots],
+        return [spec.fn.bufs_from_sums([sums[cls][pos] for cls, pos in plan],
                                        capacity, has_nans)
-                for spec, slots in zip(self.aggs, plans)]
+                if how == "sum" else plan
+                for spec, (how, plan) in zip(self.aggs, plans)]
 
     def _assemble(self, work: DeviceBatch, g, all_bufs) -> DeviceBatch:
         """Key columns at the group leaders + buffer columns."""
@@ -493,7 +581,11 @@ class HashAggregateExec(Exec):
     # -- zero-key path --------------------------------------------------------
     @property
     def _global_ok(self) -> bool:
-        return self._nkeys == 0
+        """Zero grouping keys and every function reduces a whole batch
+        with masked reductions; a string Min/Max takes the sorted path."""
+        return self._nkeys == 0 and not any(
+            isinstance(s.fn, Min) and s.fn.child.data_type().is_string
+            for s in self.aggs)
 
     def _global_stage(self, work: DeviceBatch, ords,
                       update: bool) -> DeviceBatch:
@@ -543,7 +635,8 @@ class HashAggregateExec(Exec):
         for spec in self.aggs:
             nbuf = len(spec.fn.buffer_types)
             bufs = [SortedCol(batch.columns[ci + b].data,
-                              batch.columns[ci + b].validity)
+                              batch.columns[ci + b].validity,
+                              batch.columns[ci + b].lengths)
                     for b in range(nbuf)]
             out_cols.append(self._buf_column(spec.fn.finalize(bufs),
                                              spec.fn.result_type, gmask))
@@ -555,12 +648,11 @@ class HashAggregateExec(Exec):
         cap = 8
         cols = []
         for spec in self.aggs:
-            t = spec.fn.result_type
-            data = torch.zeros(cap, dtype=torch_dtype(t), device=device)
-            valid = torch.zeros(cap, dtype=torch.bool, device=device)
+            col = DeviceColumn.full_null(spec.fn.result_type, cap,
+                                         device=device)
             if isinstance(spec.fn, Count):
-                valid[0] = True
-            cols.append(DeviceColumn(t, data, valid))
+                col.validity[0] = True
+            cols.append(col)
         return DeviceBatch(tuple(cols),
                            torch.ones((), dtype=torch.int32, device=device))
 

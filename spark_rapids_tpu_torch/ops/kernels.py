@@ -1,8 +1,10 @@
-"""Shared device kernels: key normalization, lexicographic sort, grouping.
+"""Shared device kernels: key normalization, lexicographic sort, grouping,
+segmented reductions.
 
 Port of the JAX package's ``ops/kernels.py`` (``_orderable_u32_words``,
 ``sort_key_passes``, ``_radix_perm``, ``lex_sort_perm``,
-``key_fingerprint``, ``group_ids``).
+``key_fingerprint``, ``group_ids``, ``_seg_sum``, ``_seg_minmax``,
+``segment_reduce``, ``segment_minmax_string``, ``_identity_for``).
 
 - ``sort_key_passes`` turns a key column into u32 radix words, most
   significant first, adjusted for asc/desc and null ordering. A u32 word is
@@ -12,6 +14,11 @@ Port of the JAX package's ``ops/kernels.py`` (``_orderable_u32_words``,
   ``native.stable_argsort_u32`` (kernel K1 on the card).
 - ``group_ids`` sorts rows by a 64-bit key fingerprint (two murmur3
   streams + the null pattern) so equal keys become adjacent.
+- ``segment_reduce`` reduces each group of group-sorted rows with Spark's
+  null and NaN rules; its integer sums and every min/max are
+  ``native.segment_sum_sorted`` / ``segment_minmax_sorted`` (kernel K2 on
+  the card). Float sums take a scatter-add (``index_add_``), as the JAX
+  package's take ``jax.ops.segment_sum``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, flush_subnormal)
 from spark_rapids_tpu_torch.exprs import hash as mh
@@ -141,14 +149,15 @@ _SEED_A = 42
 _SEED_B = 0x5EED
 
 
-def key_fingerprint(cols: Sequence[DeviceColumn], capacity: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def key_fingerprint(cols: Sequence[DeviceColumn], capacity: int,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two independent 32-bit fingerprints of the key tuple per row.
 
     Null cells are normalized so all NULLs fingerprint identically, and
     the null pattern is mixed into the second stream explicitly (murmur3
-    passes the seed through on null)."""
-    dev = cols[0].validity.device if cols else None
+    passes the seed through on null). ``device`` places the fingerprints
+    of a key tuple with no columns."""
+    dev = cols[0].validity.device if cols else device
     ha = torch.full((capacity,), _SEED_A, dtype=torch.int64, device=dev)
     hb = torch.full((capacity,), _SEED_B, dtype=torch.int64, device=dev)
     for i, c in enumerate(cols):
@@ -193,7 +202,7 @@ def group_ids(batch: DeviceBatch, key_ordinals: Sequence[int]) -> Grouping:
     """Assign dense group ids over the key columns."""
     cap = batch.capacity
     cols = [batch.columns[i] for i in key_ordinals]
-    ha, hb = key_fingerprint(cols, cap)
+    ha, hb = key_fingerprint(cols, cap, batch.device)
     live = batch.row_mask()
     # Sort rows by (live first, ha, hb): padding last.
     passes = [torch.where(live, _full(ha, 0), _full(ha, M32)), ha, hb]
@@ -215,3 +224,143 @@ def group_ids(batch: DeviceBatch, key_ordinals: Sequence[int]) -> Grouping:
     leader = torch.zeros(cap + 1, dtype=torch.int64, device=perm.device)
     leader[torch.where(new_seg, gid, _full(gid, cap))] = perm
     return Grouping(perm, gid, num_groups, leader[:cap])
+
+
+# ---------------------------------------------------------------------------
+# Segmented reductions over group-sorted rows
+# ---------------------------------------------------------------------------
+
+def _scatter_sum(values: torch.Tensor, gid: torch.Tensor,
+                 capacity: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: an ``index_add_`` into ``capacity`` slots
+    (ids at or past ``capacity`` land in one extra slot, sliced off)."""
+    out = torch.zeros(capacity + 1, dtype=values.dtype, device=values.device)
+    out.index_add_(0, gid.clamp(max=capacity), values)
+    return out[:capacity]
+
+
+def _seg_sum(values: torch.Tensor, gid: torch.Tensor,
+             capacity: int) -> torch.Tensor:
+    """Per-group sums for nondecreasing ``gid``. Integers take the exact
+    segmented scan (K2 on the card); floats a scatter-add, whose order of
+    addition is not the JAX package's (float sums are compared within a
+    tolerance)."""
+    out = native.segment_sum_sorted(values, gid, capacity)
+    return _scatter_sum(values, gid, capacity) if out is None else out
+
+
+def _seg_minmax(values: torch.Tensor, gid: torch.Tensor, capacity: int,
+                kind: str) -> torch.Tensor:
+    """Per-group min or max in the total-order bit domain (K2 on the
+    card): -0.0 below 0.0, subnormals kept, as the JAX package's Pallas
+    kernel orders them."""
+    return native.segment_minmax_sorted(values, gid, capacity, kind)
+
+
+def _full_like0(v: torch.Tensor, value) -> torch.Tensor:
+    return torch.full((), value, dtype=v.dtype, device=v.device)
+
+
+def segment_reduce(values: torch.Tensor, validity: torch.Tensor,
+                   gid: torch.Tensor, capacity: int, kind: str):
+    """Segmented aggregate with Spark null discipline.
+
+    ``values``/``validity`` are in group-sorted order and ``gid`` is the
+    group of each sorted row (nondecreasing). Returns (agg (capacity,),
+    non-null count (capacity,) int64). ``kind``: sum | min | max. Floats
+    follow Spark's NaN order (NaN greatest): min ignores NaN unless the
+    group is all NaN, max is NaN whenever the group holds a valid NaN."""
+    if kind == "sum":
+        agg = _seg_sum(torch.where(validity, values, _full_like0(values, 0)),
+                       gid, capacity)
+    elif kind in ("min", "max"):
+        if values.is_floating_point():
+            isnan = torch.isnan(values)
+            real = validity & ~isnan
+            nanv = _full_like0(values, float("nan"))
+            if kind == "min":
+                masked = torch.where(real, values,
+                                     _full_like0(values, float("inf")))
+                m = _seg_minmax(masked, gid, capacity, "min")
+                has_real = _seg_sum(real.to(torch.int32), gid, capacity) > 0
+                agg = torch.where(has_real, m, nanv)
+            else:
+                masked = torch.where(real, values,
+                                     _full_like0(values, float("-inf")))
+                m = _seg_minmax(masked, gid, capacity, "max")
+                has_nan = _seg_sum((validity & isnan).to(torch.int32), gid,
+                                   capacity) > 0
+                agg = torch.where(has_nan, nanv, m)
+        else:
+            masked = torch.where(validity, values,
+                                 _identity_for(values, kind))
+            agg = _seg_minmax(masked, gid, capacity, kind)
+    else:
+        raise ValueError(kind)
+    counts = _seg_sum(validity.to(torch.int64), gid, capacity)
+    return agg, counts
+
+
+def segment_minmax_string(data: torch.Tensor, lengths: torch.Tensor,
+                          validity: torch.Tensor, gid: torch.Tensor,
+                          capacity: int, want_max: bool):
+    """Per-group lexicographic min/max of a string column in group-sorted
+    order: one more stable radix sort keyed by [gid, null-loses, value
+    words, length] (K1 on the card), after which the first row of each gid
+    run is the winner. Returns the (data, validity, lengths) buffer triple
+    indexed by group id."""
+    col = DeviceColumn(dt.STRING, data, validity, lengths)
+    words = _orderable_u32_words(col)
+    lens = lengths.to(torch.int64)
+    if want_max:
+        # Max also prefers the longer of two strings equal on a prefix:
+        # flipping the words flips prefix order, not the implicit length
+        # order, so the length word is flipped explicitly.
+        words = [w ^ M32 for w in words]
+        lenword = lens ^ M32
+    else:
+        lenword = lens
+    zero = _full(validity, 0)
+    loser = torch.where(validity, zero, _full(validity, M32))
+    words = [torch.where(validity, w, zero) for w in words]
+    lenword = torch.where(validity, lenword, zero)
+    perm = _radix_perm([gid & M32, loser] + words + [lenword], capacity)
+    sorted_gid = gid.index_select(0, perm)
+    new_seg = torch.ones(capacity, dtype=torch.bool, device=gid.device)
+    new_seg[1:] = sorted_gid[1:] != sorted_gid[:-1]
+    winner = torch.zeros(capacity + 1, dtype=torch.int64, device=gid.device)
+    winner[torch.where(new_seg, sorted_gid, _full(gid, capacity))
+           .clamp(max=capacity)] = perm
+    winner = winner[:capacity]
+    has_valid = _scatter_sum(validity.to(torch.int32), gid, capacity) > 0
+    out_data = torch.where(has_valid[:, None], data.index_select(0, winner),
+                           torch.zeros((), dtype=data.dtype,
+                                       device=data.device))
+    out_lens = torch.where(has_valid, lengths.index_select(0, winner),
+                           torch.zeros((), dtype=lengths.dtype,
+                                       device=lengths.device))
+    return out_data, has_valid, out_lens
+
+
+def _identity_for(like: torch.Tensor, kind: str) -> torch.Tensor:
+    """0-d identity of min/max for ``like``'s dtype: +/-inf, the bool
+    extreme, or the integer type's max/min."""
+    if like.is_floating_point():
+        return _full_like0(like, float("inf") if kind == "min"
+                           else float("-inf"))
+    if like.dtype == torch.bool:
+        return _full_like0(like, kind == "min")
+    info = torch.iinfo(like.dtype)
+    return _full_like0(like, info.max if kind == "min" else info.min)
+
+
+def global_minmax(values: torch.Tensor, kind: str) -> torch.Tensor:
+    """0-d min or max of a whole (masked) column in the total-order bit
+    domain, the order ``_seg_minmax`` uses: -0.0 below 0.0 and subnormals
+    kept. Unsigned order is signed order with the top bit flipped."""
+    keys, dec = native._minmax_encode(values)
+    sign = native._INT32_MIN if keys.dtype == torch.int32 \
+        else native._INT64_MIN
+    flipped = keys ^ sign
+    m = flipped.min() if kind == "min" else flipped.max()
+    return dec((m ^ sign).reshape(1))[0]

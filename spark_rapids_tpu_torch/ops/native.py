@@ -5,6 +5,9 @@ CUDA sources built for Hopper by ``ops/cuda_build.py``:
 
 - K1, the stable u32 radix rank behind every stable sort pass
   (``ops/kernels.py`` ``_radix_perm``): ``csrc/radix_rank.cu``.
+- K2, the sorted-segment scan behind ``segment_sum_sorted`` and
+  ``segment_minmax_sorted`` (``ops/kernels.py`` ``_seg_sum`` /
+  ``_seg_minmax``, so every keyed Min/Max): ``csrc/seg_scan.cu``.
 - K3, the hash-join probe (``ops/join.py`` ``probe_ranges``): left and
   right insertion points of u64 fingerprints, ``csrc/join_probe.cu``.
 
@@ -21,18 +24,20 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 RADIX = 256
 TILE_ROWS = 4096        # rows per histogram/scatter tile (kTile in the .cu)
 _M32 = 0xFFFFFFFF
+_INT32_MIN = -(1 << 31)
 _INT64_MIN = -(1 << 63)
 
 _LOCK = threading.Lock()
 _COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0,
-                             "join_probe": 0}
+                             "join_probe": 0, "seg_scan": 0}
 
 
 def _count(name: str) -> None:
@@ -363,3 +368,244 @@ def _searchsorted_u64_pair_cuda(built_fp: torch.Tensor,
         hi = torch.empty_like(lo)
         join_probe(built_fp, probe_fp, lo, hi)
         return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2: the sorted-segment scan (csrc/seg_scan.cu)
+# ---------------------------------------------------------------------------
+#
+# ``segment_reduce``'s group ids are nondecreasing, so one segmented scan
+# gives every row the running reduction of its group so far, and each
+# group's last row holds the group's result (``_segment_finish`` scatters
+# it to the group's slot). Keys are exact: integer sums wrap around as
+# two's complement, min/max compare in the total-order bit domain
+# (``_minmax_encode``). A u32 key travels as an int32 bit pattern, a u64
+# key as an int64 one; there are no (hi, lo) planes. Float SUMS never come
+# here: their reduction order changes rounding.
+
+SEG_TILE_ROWS = 2048    # rows per tile_scan block (kTile in the .cu)
+_SEG_KIND_CODES = {"sum": 0, "min": 1, "max": 2}
+# Neutral element per kind, as a bit pattern: 0 for sums and unsigned max,
+# all ones for unsigned min.
+_SEG_NEUTRAL = {"sum": 0, "min": -1, "max": 0}
+
+_NP_DTYPES = {torch.bool: np.bool_, torch.int8: np.int8,
+              torch.int16: np.int16, torch.int32: np.int32,
+              torch.int64: np.int64, torch.float32: np.float32,
+              torch.float64: np.float64}
+
+
+def _flags_of(gid: torch.Tensor) -> torch.Tensor:
+    """(cap,) bool: True where a segment starts (row 0 and every change of
+    group id)."""
+    flags = torch.ones(gid.numel(), dtype=torch.bool, device=gid.device)
+    flags[1:] = gid[1:] != gid[:-1]
+    return flags
+
+
+def _seg_combine(kind: str, a: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """combine(a, b), ``a`` preceding ``b``, on int32 (u32) or int64 (u64)
+    bit patterns. Unsigned order is the signed order of the values with
+    their top bit flipped (torch has no unsigned 64-bit compare)."""
+    if kind == "sum":
+        if a.dtype == torch.int32:
+            return to_u32_bits(a.to(torch.int64) + b.to(torch.int64))
+        return a + b
+    sign = _INT32_MIN if a.dtype == torch.int32 else _INT64_MIN
+    au, bu = a ^ sign, b ^ sign
+    pick_b = bu < au if kind == "min" else bu > au
+    return torch.where(pick_b, b, a)
+
+
+def segscan_plain(gid: torch.Tensor, keys: torch.Tensor,
+                  kind: str) -> torch.Tensor:
+    """Per-row running segmented reduction of ``keys`` (int32 u32 or int64
+    u64 bit patterns) over the segments of ``gid``: a Hillis-Steele scan
+    over the (flag, value) monoid, O(n log n), as the JAX package's
+    ``_segscan`` block body runs it. Exact for every kind: wrap-around
+    sums and unsigned min/max are associative."""
+    n = keys.numel()
+    g = _flags_of(gid)
+    v = keys.clone()
+    d = 1
+    while d < n:
+        g_sh = torch.cat([torch.zeros(d, dtype=torch.bool, device=g.device),
+                          g[:-d]])
+        v_sh = torch.cat([torch.full((d,), _SEG_NEUTRAL[kind],
+                                     dtype=v.dtype, device=v.device), v[:-d]])
+        v = torch.where(g, v, _seg_combine(kind, v_sh, v))
+        g = g | g_sh
+        d *= 2
+    return v
+
+
+_SEG_LIB = None
+
+
+def _seg_lib():
+    global _SEG_LIB
+    if _SEG_LIB is None:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        lib = cuda_build.load("seg_scan")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.srt_seg_scan.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
+        lib.srt_seg_scan.restype = ci
+        lib.srt_seg_scan_tile_rows.restype = ci
+        if lib.srt_seg_scan_tile_rows() != SEG_TILE_ROWS:
+            raise RuntimeError("seg_scan.cu tile size differs from "
+                               "native.SEG_TILE_ROWS")
+        _SEG_LIB = lib
+    return _SEG_LIB
+
+
+def seg_scan(gid: torch.Tensor, keys: torch.Tensor, kind: str,
+             out: torch.Tensor) -> None:
+    """Launch ``seg_scan`` (K2) on the current stream: ``out`` gets the
+    running segmented ``kind`` reduction of ``keys`` over the segments of
+    the nondecreasing int64 ``gid``. The one place K2's inputs are
+    checked; the tile scratch is allocated here."""
+    if kind not in _SEG_KIND_CODES:
+        raise ValueError(f"seg_scan: unknown kind {kind!r}")
+    for t, name in ((gid, "gid"), (keys, "keys"), (out, "out")):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor, got "
+                             f"{tuple(t.shape)}")
+    if gid.dtype != torch.int64:
+        raise ValueError(f"gid must be int64, got {gid.dtype}")
+    if keys.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"keys must be int32 (u32) or int64 (u64) bit "
+                         f"patterns, got {keys.dtype}")
+    n = keys.numel()
+    if gid.numel() != n or out.numel() != n or out.dtype != keys.dtype:
+        raise ValueError("seg_scan: gid, keys and out differ in length or "
+                         "out in type")
+    if gid.device != keys.device or out.device != keys.device:
+        raise ValueError("seg_scan: tensors lie on different devices")
+    if n >= (1 << 31):
+        raise ValueError(f"seg_scan: {n} rows exceed int32 positions")
+    if n == 0:
+        return
+    ntiles = -(-n // SEG_TILE_ROWS)
+    agg_v = torch.empty(ntiles, dtype=torch.int64, device=keys.device)
+    agg_meta = torch.empty(2 * ntiles, dtype=torch.int32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    _raise_on(_seg_lib().srt_seg_scan(
+        gid.data_ptr(), keys.data_ptr(), n, keys.element_size(),
+        _SEG_KIND_CODES[kind], out.data_ptr(), agg_v.data_ptr(),
+        agg_meta.data_ptr(), stream), "seg_scan")
+    _count("seg_scan")
+
+
+def segscan(gid: torch.Tensor, keys: torch.Tensor, kind: str
+            ) -> torch.Tensor:
+    """The running segmented reduction (``segscan_plain``'s function).
+    Routes by device only: CPU tensors run :func:`segscan_plain`, any
+    other tensor goes to kernel K2, whose entry :func:`seg_scan` checks
+    the inputs and raises on what it cannot launch."""
+    if keys.device.type == "cpu":
+        return segscan_plain(gid, keys, kind)
+    with torch.cuda.device(keys.device):
+        out = torch.empty_like(keys)
+        seg_scan(gid, keys, kind, out)
+        return out
+
+
+def _signed(u: int, bits: int) -> int:
+    return u - (1 << bits) if u >> (bits - 1) else u
+
+
+def _encoded_identity(dtype: torch.dtype, kind: str) -> int:
+    """The encoded key of the fill an empty group gets, as the key
+    tensor's signed bit pattern. It decodes to the JAX package's
+    ``jax.ops.segment_min``/``segment_max`` fill (the dtype's max/min,
+    +/-inf for floats), and no encoded value beats it: it encodes the
+    dtype's extreme (NaN is masked out before the reduction)."""
+    np_dtype = np.dtype(_NP_DTYPES[dtype])
+    if np.issubdtype(np_dtype, np.floating):
+        ext = np.asarray(np.inf if kind == "min" else -np.inf, np_dtype)
+        nbits = 8 * np_dtype.itemsize
+        bits = int(ext.view(np.uint32 if nbits == 32 else np.uint64))
+        top = 1 << (nbits - 1)
+        enc = (~bits & ((1 << nbits) - 1)) if bits & top else bits | top
+        return _signed(enc, nbits)
+    if np_dtype == np.dtype(np.bool_):
+        return _signed((1 if kind == "min" else 0) ^ 0x80000000, 32)
+    info = np.iinfo(np_dtype)
+    v = int(info.max if kind == "min" else info.min)
+    if np_dtype.itemsize <= 4:
+        return _signed((v & _M32) ^ 0x80000000, 32)
+    return _signed((v & ((1 << 64) - 1)) ^ (1 << 63), 64)
+
+
+def _minmax_encode(values: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Callable[[torch.Tensor],
+                                                     torch.Tensor]]:
+    """Exact total-order encode: (keys, decode). Unsigned order of the keys
+    is the values' order, with -0.0 below 0.0 and subnormals kept: bool
+    and ints of 4 bytes or fewer take the 32-bit sign-bias flip, int64 the
+    64-bit one, f32 and f64 the IEEE total-order transform (flip every bit
+    of a negative, the sign bit of the rest)."""
+    dt_ = values.dtype
+    if dt_ in (torch.float32, torch.float64):
+        it = torch.int32 if dt_ == torch.float32 else torch.int64
+        sign = _INT32_MIN if dt_ == torch.float32 else _INT64_MIN
+        bits = values.contiguous().view(it)
+        keys = torch.where(bits < 0, ~bits, bits | sign)
+
+        def dec(k):
+            return torch.where(k < 0, k ^ sign, ~k).view(dt_)
+        return keys, dec
+    if dt_ == torch.int64:
+        return values ^ _INT64_MIN, lambda k: k ^ _INT64_MIN
+    keys = values.to(torch.int32) ^ _INT32_MIN
+
+    def dec_small(k):
+        v = k ^ _INT32_MIN
+        return v != 0 if dt_ == torch.bool else v.to(dt_)
+    return keys, dec_small
+
+
+def _segment_finish(running: torch.Tensor, gid: torch.Tensor,
+                    capacity: int, identity: int) -> torch.Tensor:
+    """Each segment's last running value scattered to its group's slot;
+    empty slots keep the (encoded) identity. Slots are unique (gid is
+    nondecreasing); the rest go to one extra slot that is sliced off."""
+    is_last = torch.ones(gid.numel(), dtype=torch.bool, device=gid.device)
+    is_last[:-1] = gid[1:] != gid[:-1]
+    slots = torch.where(is_last, gid, capacity).clamp(max=capacity)
+    out = torch.full((capacity + 1,), identity, dtype=running.dtype,
+                     device=running.device)
+    out[slots] = running
+    return out[:capacity]
+
+
+def segment_sum_sorted(values: torch.Tensor, gid: torch.Tensor,
+                       capacity: int) -> Optional[torch.Tensor]:
+    """Per-group wrap-around sums of integer ``values`` for nondecreasing
+    ``gid`` (``jax.ops.segment_sum``'s function), through the segmented
+    scan. None for floats and bools: their sums stay off the exact path."""
+    if values.is_floating_point() or values.dtype == torch.bool:
+        return None
+    if values.element_size() <= 4:
+        keys = values.to(torch.int32).contiguous()
+        running = segscan(gid, keys, "sum")
+        return _segment_finish(running, gid, capacity, 0).to(values.dtype)
+    running = segscan(gid, values.contiguous(), "sum")
+    return _segment_finish(running, gid, capacity, 0)
+
+
+def segment_minmax_sorted(values: torch.Tensor, gid: torch.Tensor,
+                          capacity: int, kind: str) -> torch.Tensor:
+    """Per-group min or max of ``values`` for nondecreasing ``gid``
+    (``jax.ops.segment_min``/``segment_max``'s function, empty groups
+    filled with the dtype's extreme), in the total-order bit domain. Every
+    numeric dtype encodes, f64 included."""
+    if kind not in ("min", "max"):
+        raise ValueError(f"segment_minmax_sorted: unknown kind {kind!r}")
+    keys, dec = _minmax_encode(values)
+    identity = _encoded_identity(values.dtype, kind)
+    running = segscan(gid, keys.contiguous(), kind)
+    return dec(_segment_finish(running, gid, capacity, identity))

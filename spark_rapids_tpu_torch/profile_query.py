@@ -1,12 +1,13 @@
 """Where the time of a TPC-H query goes on the card.
 
-    python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q3|q4]
+    python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|q3|q4]
         [--scale 1.0] [--partitions 8] [--trace q1_trace.json]
 
-Runs ``tpch_q1_plan`` (or ``tpch_q3_plan`` / ``tpch_q4_plan``, over the
-generator's partitions) ``.collect()`` on the CUDA card: one warm-up
-run, then host-clock times of the upload alone and of whole warm runs,
-then one run under ``torch.profiler`` (CPU + CUDA activity). Prints the
+Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
+``tpch_q4_plan``, over the generator's partitions) ``.collect()`` on the
+CUDA card: one warm-up run, then host-clock times of the upload alone and
+of whole warm runs, then one run under ``torch.profiler`` (CPU + CUDA
+activity). Prints the
 host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
 of kernel time over the profiled wall time). ``--partitions`` applies to
@@ -39,7 +40,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import ExecContext, native
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q1", "q3", "q4"), default="q1")
+    ap.add_argument("--query", choices=("q1", "q2", "q3", "q4"),
+                    default="q1")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)

@@ -194,3 +194,54 @@ def test_subnormal_double_comparisons_match_reference(cmp):
     want = np.asarray(jbase.as_device_column(je.eval(jb), jb).data)
     got = tbase.as_device_column(te.eval(tb), tb).data.numpy()
     np.testing.assert_array_equal(want, got)
+
+
+# ---------------------------------------------------------------------------
+# String needle ops (Contains, StartsWith, EndsWith)
+# ---------------------------------------------------------------------------
+
+NEEDLE_WORDS = ["", "a", "ab", "abab", "BRASS", "LARGE BRASS", "é", "日本",
+                "xé日", "aé"]
+
+
+def _string_batches(seed):
+    """One string column (width 12, UTF-8 with multibyte characters, empty
+    strings, nulls and a dead tail) for both engines."""
+    rng = np.random.default_rng(seed)
+    words = [w.encode() for w in NEEDLE_WORDS] + [b"abab\xc3\xa9", b"BRASS"]
+    picked = [words[i] for i in rng.integers(0, len(words), CAP)]
+    lens = np.array([len(w) for w in picked], np.int32)
+    data = np.zeros((CAP, 12), np.uint8)
+    for i, w in enumerate(picked):
+        data[i, :len(w)] = np.frombuffer(w, np.uint8)
+    valid = (rng.random(CAP) < 0.85) & (np.arange(CAP) < LIVE)
+    data = np.where(valid[:, None], data, 0).astype(np.uint8)
+    lens = np.where(valid, lens, 0).astype(np.int32)
+    jb = jbatch.DeviceBatch((jbatch.DeviceColumn(
+        jdt.STRING, jnp.asarray(data), jnp.asarray(valid),
+        jnp.asarray(lens)),), jnp.asarray(LIVE, jnp.int32))
+    tb = tbatch.DeviceBatch((tbatch.DeviceColumn(
+        tdt.STRING, torch.from_numpy(data.copy()),
+        torch.from_numpy(valid.copy()), torch.from_numpy(lens.copy())),),
+        torch.tensor(LIVE, dtype=torch.int32))
+    return jb, tb
+
+
+@pytest.mark.parametrize("op", ["Contains", "StartsWith", "EndsWith"])
+@pytest.mark.parametrize("needle", [
+    "", "a", "ab", "BRASS", "é", "日本", "abé", "wider than the matrix",
+    None])
+def test_needle_ops_match_reference(op, needle):
+    """Empty needle, a needle wider than the byte matrix, a NULL literal
+    and multibyte UTF-8, through the JAX package's ``eval`` and the
+    port's."""
+    jb, tb = _string_batches(len(needle or "") + len(op))
+    jnl = jbase.Literal(jdt.STRING, needle)
+    tnl = tbase.Literal(tdt.STRING, needle)
+    jc = getattr(JE, op)(JE.BoundReference(0, jdt.STRING), jnl).eval(jb)
+    tc = getattr(TE, op)(TE.BoundReference(0, tdt.STRING), tnl).eval(tb)
+    np.testing.assert_array_equal(np.asarray(jc.data), tc.data.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.validity),
+                                  tc.validity.numpy())
+    if needle == "ab":      # the inputs do hit: the check is not vacuous
+        assert tc.data.any() and not tc.data.all()
