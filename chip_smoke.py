@@ -11,8 +11,8 @@ Phases (each raises on failure; any failure exits non-zero):
    reports them.
 2. Build: the hand-written kernels compile from ``csrc/`` into the
    package's ignored ``build/`` directory (one nvcc per source, all
-   started together): ``radix_rank.cu`` (K1), ``join_probe.cu`` (K3) and
-   ``seg_scan.cu`` (K2).
+   started together): ``radix_rank.cu`` (K1), ``join_probe.cu`` (K3),
+   ``seg_scan.cu`` (K2) and ``rle_decode.cu`` (K4).
 3. Kernel: ``stable_argsort_u32`` (kernel K1) on random and
    duplicate-heavy u32 keys at capacities 512, 786 432 and 4 194 304 must
    equal its plain-PyTorch version and ``torch.sort(stable=True)`` bit for
@@ -47,13 +47,32 @@ Phases (each raises on failure; any failure exits non-zero):
    must launch during Q2 (its min aggregate); K3's launches (the fast
    probe path) and K1's are printed. K2 is then checked and timed again on
    Q2's largest launch.
-9. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+9. Kernel: ``rle_decode`` (kernel K4, the wire codec's RLE expansion) at
+   capacities 512, 786 432 and 4 194 304 for int8, int16, int32, int64,
+   float32 and float64 run tables (-0.0 and NaN-payload runs among the
+   values) with 1, 8, 4 096 and rows/4 runs and ``num_rows < cap``, full
+   tables included, and a table of one run per row, must equal its plain
+   version bit for bit; kernel, plain and one ``torch.repeat_interleave``
+   times beside the byte bound.
+10. Codec: the walls of q1, q3, q4 and q2 under the default ``v2`` wire
+   codec and under ``plain`` (``ExecContext(conf)``): plain's first run
+   (the sources pack their batches once per codec and keep them), then
+   warm runs in turns (v2, plain, plain, v2), and the host encode time
+   of one q1 partition split by column (its pack must equal the one q1's
+   source kept). Each path above prints, for its first run, its
+   ``codecCols.*`` counts and its encoded vs raw bytes; q3 must launch K4
+   (its ``o_shippriority``
+   ships as a run table: 8 launches expected), and K4 is checked and
+   timed again on the exact inputs of q3's first launch.
+11. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2), its error against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (for K2, the scatter_reduce of the per-group
    function, which K2 + the finish computes).
 
-The last line of standard output is
+Every query runs under the default ``v2`` wire codec unless a phase says
+otherwise. The total time of the script is printed before the last line,
+which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports nothing of JAX and nothing of the JAX package.
 """
@@ -273,13 +292,16 @@ def path_phase(entry, native) -> dict:
     want = q1_oracle(cols, entry.Q1_SHIPDATE_CUTOFF)
     log(f"q1 SF1: {n_rows} LINEITEM rows in {len(parts)} partitions "
         f"(generated + oracle in {time.perf_counter() - t0:.2f} s)")
+    from spark_rapids_tpu_torch.columnar import wire
     plan = entry.tpch_q1_plan(parts, device="cuda")
     native.reset_counters()
+    wire.reset_counters()
     t0 = time.perf_counter()
     rows = plan.collect()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = native.counters()
+    codec = codec_summary("q1", wire.counters())
     check_q1(rows, want)
     if min(launches["digit_hist"], launches["digit_scatter"]) <= 0:
         raise AssertionError(f"q1 did not launch every K1 kernel: {launches}")
@@ -295,7 +317,7 @@ def path_phase(entry, native) -> dict:
         f"{warm_s:.3f} s, {n_rows / warm_s:.0f} input rows/s (warm); "
         f"K1 launches {launches}")
     return dict(launches=launches, first_s=first_s, warm_s=warm_s,
-                rows=n_rows)
+                rows=n_rows, codec=codec, plan=plan, parts=parts)
 
 
 # ---------------------------------------------------------------------------
@@ -513,12 +535,15 @@ def run_path(name: str, plan, native, check, want, show: int = 10) -> dict:
     launch counters are read around the first run alone. Prints the first
     ``show`` rows."""
     import torch
+    from spark_rapids_tpu_torch.columnar import wire
     native.reset_counters()
+    wire.reset_counters()
     t0 = time.perf_counter()
     rows = plan.collect()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = native.counters()
+    codec = codec_summary(name, wire.counters())
     check(rows, want)
     t0 = time.perf_counter()
     rows = plan.collect()
@@ -529,7 +554,21 @@ def run_path(name: str, plan, native, check, want, show: int = 10) -> dict:
         log(f"  {r}")
     log(f"{name} SF1 matches the numpy oracle ({len(rows)} rows); first run "
         f"{first_s:.3f} s, warm run {warm_s:.3f} s; launches {launches}")
-    return dict(launches=launches, first_s=first_s, warm_s=warm_s)
+    return dict(launches=launches, first_s=first_s, warm_s=warm_s,
+                codec=codec)
+
+
+def codec_summary(name: str, counters: dict) -> dict:
+    """The wire codec's per-kind column counts and encoded vs raw bytes
+    of one run, printed."""
+    cols = {k.split(".", 1)[1]: int(v) for k, v in sorted(counters.items())
+            if k.startswith("codecCols.")}
+    raw, enc = counters.get("rawBytes", 0), counters.get("encodedBytes", 0)
+    log(f"{name} wire codec: columns {cols}; encoded {int(enc)} B vs raw "
+        f"{int(raw)} B (ratio {raw / max(enc, 1):.3f}); staging "
+        f"{int(counters.get('stagingBytes', 0))} B in "
+        f"{int(counters.get('uploadTransfers', 0))} transfers")
+    return dict(cols=cols, raw_bytes=raw, encoded_bytes=enc)
 
 
 def join_paths_phase(entry, native, cols: dict) -> dict:
@@ -542,9 +581,34 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
         f"{len(cols['orders']['o_orderkey'])} ORDERS, "
         f"{len(cols['customer']['c_custkey'])} CUSTOMER rows (generated + "
         f"oracles in {time.perf_counter() - t0:.2f} s)")
-    out = {"q3": run_path("q3", q3, native, check_q3, want3)}
+    # Keep the inputs of every K4 launch of q3 (its o_shippriority ships
+    # as a run table): the kernel is then checked and timed on them.
+    rle_seen = []
+    rle_launch = native.rle_expand
+
+    def rle_recording(run_vals, run_ends, num_rows, out_t):
+        rle_seen.append((run_vals, run_ends, num_rows, out_t.numel()))
+        return rle_launch(run_vals, run_ends, num_rows, out_t)
+
+    native.rle_expand = rle_recording
+    try:
+        out = {"q3": run_path("q3", q3, native, check_q3, want3)}
+    finally:
+        native.rle_expand = rle_launch
     log(f"q3 K3 launches: {out['q3']['launches']['join_probe']} (its joins "
         f"take the dense table)")
+    n_rle = out["q3"]["launches"]["rle_decode"]
+    if n_rle <= 0:
+        raise AssertionError("q3 did not launch K4 (rle_decode) under the "
+                             "default wire codec")
+    first = rle_seen[:n_rle]
+    shapes = sorted({(v.numel(), str(v.dtype).replace("torch.", ""), cap)
+                     for v, _e, _n, cap in first})
+    log(f"q3 K4 launches {n_rle} (8 expected: one per ORDERS partition) "
+        f"over (run_cap, value type, cap) {shapes}")
+    vals, ends, nrows, cap = first[0]
+    out["q3_rle"] = rle_check(native, vals, ends, cap, nrows,
+                              "q3 first launch", timed=True)
     # Keep the inputs of every K3 launch of q4's first run: the kernel is
     # then checked and timed on the main path's own fingerprints.
     seen = []
@@ -565,6 +629,7 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
     shapes = sorted({(b.numel(), p.numel()) for b, p in seen})
     log(f"q4 K3 launches {n} over (build x probe) shapes {shapes}")
     out["q4_probe"] = probe_check(native, *seen[0], label="q4 first probe")
+    out["plans"] = {"q3": q3, "q4": q4}
     return out
 
 
@@ -624,9 +689,10 @@ def seg_check(native, gid, keys, kind: str, label: str) -> dict:
     torch.cuda.synchronize()
     plain = native.segscan_plain(gid, keys, kind)
     wrong = int((got != plain).sum())
-    if wrong:
+    err = max_abs_err(got, plain, unsigned=True)
+    if wrong or err != 0:
         raise AssertionError(f"K2 != plain at {label} {kind} n={n}: {wrong} "
-                             f"rows differ")
+                             f"rows differ, max abs err {err}")
     zero = torch.zeros_like(gid)
     if not torch.equal(native.segscan(zero, keys, kind),
                        native.segscan_plain(zero, keys, kind)):
@@ -654,7 +720,7 @@ def seg_check(native, gid, keys, kind: str, label: str) -> dict:
                               3, warmup=1),
              finish_ms=cuda_ms(finished, iters),
              library_ms=cuda_ms(library, iters),
-             max_abs_err=0.0, n=n, kind=kind, key_bits=8 * keys.element_size())
+             max_abs_err=err, n=n, kind=kind, key_bits=8 * keys.element_size())
     r["bound_ms"], r["bound_by"] = seg_bound(n, keys.element_size())
     log(f"K2 seg_scan {label} {kind}{r['key_bits']} n={n}: bit-identical to "
         f"plain; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -713,7 +779,225 @@ def q2_phase(entry, native, cols: dict) -> dict:
     gid, keys, kind = max(first, key=lambda s: (s[1].numel(),
                                                  s[1].element_size()))
     r["k2"] = seg_check(native, gid, keys, kind, "q2 largest launch")
+    r["plan"] = plan
     return r
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: kernel K4 (the wire codec's RLE decode) against its plain version
+# ---------------------------------------------------------------------------
+
+# Run values per wire type, as tests/test_native.py RLE_POOLS, with a NaN
+# of a non-default payload among the floats (bit patterns, so -0.0 and the
+# payload must survive the expansion).
+RLE_POOLS = {
+    "int8": (np.int8, [1, 2, -3]),
+    "int16": (np.int16, [100, -2000]),
+    "int32": (np.int32, [7, -9, 2 ** 30]),
+    "int64": (np.int64, [2 ** 40, -5, 0]),
+    "float32": (np.float32, [1.5, -0.0, np.nan, 0.0,
+                             np.array(0x7FC00123, np.uint32)
+                             .view(np.float32)]),
+    "float64": (np.float64, [np.nan, -0.0, 0.0, 3.25, np.inf,
+                             np.array(0x7FF8000000000123, np.uint64)
+                             .view(np.float64)]),
+}
+RLE_RUNS = (1, 8, 4096, "n/4", "n")
+_INT_OF = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def rle_inputs(cap: int, name: str, runs, seed: int):
+    """A run table as the wire encoder builds it (``_try_rle``): ``runs``
+    runs of random lengths over ``n`` rows (``n`` = cap - cap/8, or cap
+    for one run per row), values drawn from the type's pool, zero-valued
+    padding runs ending at cap. Returns (run_vals, run_ends, num_rows) on
+    the card."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    rng = np.random.default_rng(seed)
+    n = cap if runs == "n" else cap - cap // 8
+    runs = {"n": n, "n/4": n // 4}.get(runs, runs)
+    runs = max(1, min(runs, n))
+    np_t, pool = RLE_POOLS[name]
+    pool = np.asarray(pool, np_t)
+    run_cap = bucket_capacity(runs)
+    cuts = np.sort(rng.choice(np.arange(1, n), runs - 1, replace=False)) \
+        if runs > 1 else np.zeros(0, np.int64)
+    vals = np.zeros(run_cap, np_t)
+    vals[:runs] = pool[rng.integers(0, len(pool), runs)]
+    ends = np.full(run_cap, cap, np.int32)
+    ends[:runs - 1] = cuts
+    ends[runs - 1] = n
+    return (torch.from_numpy(vals).cuda(), torch.from_numpy(ends).cuda(),
+            n)
+
+
+def _as_bits(t):
+    import torch
+    return t.view(getattr(torch, _INT_OF[t.element_size()]))
+
+
+def _as_f64(t, unsigned: bool):
+    """Values as float64; integer bit patterns read as unsigned when
+    ``unsigned`` (a u64 as hi * 2^32 + lo)."""
+    import torch
+    if t.is_floating_point() or not unsigned:
+        return t.to(torch.float64)
+    if t.element_size() < 8:
+        return (t.to(torch.int64) & ((1 << 8 * t.element_size()) - 1)).to(
+            torch.float64)
+    hi = ((t >> 32) & 0xFFFFFFFF).to(torch.float64)
+    return hi * 4294967296.0 + (t & 0xFFFFFFFF).to(torch.float64)
+
+
+def max_abs_err(got, plain, unsigned: bool = False) -> float:
+    """Largest |got - plain| over the elements: 0 where the bit patterns
+    agree, inf where they differ but the values compare equal or NaN
+    (-0.0, NaN payloads)."""
+    import torch
+    same = _as_bits(got) == _as_bits(plain)
+    d = (_as_f64(got, unsigned) - _as_f64(plain, unsigned)).abs()
+    d = torch.where(same, torch.zeros_like(d),
+                    torch.where(torch.isnan(d) | (d == 0),
+                                torch.full_like(d, float("inf")), d))
+    return float(d.max()) if d.numel() else 0.0
+
+
+def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
+              timed: bool) -> dict:
+    """K4 against its plain version, bit for bit; with ``timed``, kernel,
+    plain and one ``torch.repeat_interleave`` times beside the bound."""
+    import torch
+    got = native.rle_decode(vals, ends, cap, nrows)
+    torch.cuda.synchronize()
+    plain = native.rle_decode_plain(vals, ends, cap, nrows)
+    if got.dtype != plain.dtype or got.shape != plain.shape:
+        raise AssertionError(f"K4 {label}: {got.dtype}{tuple(got.shape)} vs "
+                             f"plain {plain.dtype}{tuple(plain.shape)}")
+    wrong = int((_as_bits(got) != _as_bits(plain)).sum())
+    err = max_abs_err(got, plain)
+    if wrong or err != 0:
+        raise AssertionError(f"K4 != plain at {label} ({vals.dtype}, "
+                             f"run_cap={vals.numel()}, cap={cap}): {wrong} "
+                             f"rows differ, max abs err {err}")
+    r = dict(max_abs_err=err, cap=cap, run_cap=vals.numel(),
+             dtype=str(vals.dtype).replace("torch.", ""))
+    if not timed:
+        return r
+    # Bound: the output written once and the run table read once.
+    esize = vals.element_size()
+    r["bound_ms"] = bytes_ms(cap * esize + vals.numel() * (esize + 4.0))
+    r["bound_by"] = "bytes"
+    iters = 20 if cap >= 1_000_000 else 50
+    r["ms"] = cuda_ms(lambda: native.rle_decode(vals, ends, cap, nrows),
+                      iters)
+    r["plain_ms"] = cuda_ms(
+        lambda: native.rle_decode_plain(vals, ends, cap, nrows), iters)
+    # One PyTorch call for the expansion: repeat each run by its length.
+    # The padding runs cover [num_rows, cap) with zeros, so the counts sum
+    # to cap unless the table is full.
+    prev = torch.cat([ends.new_zeros(1), ends[:-1]])
+    counts = (ends - prev).clamp(min=0)
+    if int(counts.sum()) == cap:
+        lib = torch.repeat_interleave(vals, counts, output_size=cap)
+        if not torch.equal(_as_bits(lib), _as_bits(got)):
+            raise AssertionError(f"repeat_interleave != K4 at {label}")
+        r["library_ms"] = cuda_ms(lambda: torch.repeat_interleave(
+            vals, counts, output_size=cap), iters)
+    else:
+        r["library_ms"] = None
+    lib_ms = "n/a (full table)" if r["library_ms"] is None \
+        else f"{r['library_ms']:.4f} ms"
+    log(f"K4 rle_decode {label} {r['dtype']} run_cap={r['run_cap']} "
+        f"cap={cap} num_rows={nrows}: bit-identical to plain; kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, repeat_interleave "
+        f"{lib_ms}, bound {r['bound_ms']:.4f} ms (bytes)")
+    return r
+
+
+def rle_phase(native) -> dict:
+    out = {}
+    checked = 0
+    for cap in CAPS:
+        for name in RLE_POOLS:
+            for runs in RLE_RUNS:
+                vals, ends, nrows = rle_inputs(cap, name, runs,
+                                               seed=cap + len(name))
+                timed = cap != CAPS[0] and name in ("int8", "float64") \
+                    and runs in (1, "n/4")
+                out[(cap, name, runs)] = rle_check(
+                    native, vals, ends, cap, nrows, f"runs={runs}", timed)
+                checked += 1
+    log(f"K4 rle_decode: {checked} tables bit-identical to the plain version "
+        f"(caps {CAPS}, six types, runs {RLE_RUNS})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the wire codec, v2 against plain
+# ---------------------------------------------------------------------------
+
+def codec_walls(plans: dict) -> dict:
+    """Each plan's first wall under plain (its sources pack their batches
+    for plain; the default v2 packed in the path's first run), then its
+    warm walls under v2 and plain in turns (v2, plain, plain, v2), in this
+    one process."""
+    import torch
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.ops import ExecContext
+    out = {}
+    for name, plan in plans.items():
+        walls = {"v2": [], "plain": []}
+        for i, mode in enumerate(("plain", "v2", "plain", "plain", "v2")):
+            ctx = ExecContext(TpuConf({"spark.rapids.sql.wire.codec": mode}))
+            t0 = time.perf_counter()
+            plan.collect(ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 0:
+                first_plain = wall
+            else:
+                walls[mode].append(wall)
+        out[name] = dict(walls, first_plain=first_plain)
+        log(f"{name} walls by codec: plain first {first_plain:.4f} s; warm "
+            f"v2 {walls['v2']} s, plain {walls['plain']} s (mean v2 "
+            f"{np.mean(walls['v2']):.4f}, plain "
+            f"{np.mean(walls['plain']):.4f})")
+    return out
+
+
+def encode_split(plan, parts) -> dict:
+    """Host encode time of one q1 partition, by column, and of the whole
+    pack (columns on the encode pool), under v2; the pack must equal the
+    one the plan's source kept, byte for byte."""
+    from spark_rapids_tpu_torch.columnar import wire
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.ops import InMemorySourceExec
+    wire.maybe_configure(TpuConf({"spark.rapids.sql.wire.codec": "v2"}))
+    source = plan
+    while not isinstance(source, InMemorySourceExec):
+        source = source.children[0]
+    path_packed = source.packed(0)[0]
+    hb = parts[0][0]
+    n = hb.num_rows
+    cap = bucket_capacity(n)
+    per = {}
+    for name, hc in zip(hb.names, hb.columns):
+        t0 = time.perf_counter()
+        _arrs, spec = wire.encode_column(hc, name, n, cap, None)
+        per[name] = (time.perf_counter() - t0, spec)
+    t0 = time.perf_counter()
+    enc = wire.pack_batch(hb)
+    pack_s = time.perf_counter() - t0
+    if enc.staging.tobytes() != path_packed.staging.tobytes():
+        raise AssertionError("q1 partition 0 packs to other bytes than its "
+                             "source kept")
+    log(f"q1 partition 0 ({n} rows, cap {cap}) host encode by column: "
+        + ", ".join(f"{k} {v[0] * 1e3:.2f} ms {v[1]}" for k, v in per.items())
+        + f"; whole pack {pack_s * 1e3:.2f} ms ({enc.nbytes} B staging)")
+    return dict(per_column_s={k: v[0] for k, v in per.items()},
+                pack_s=pack_s, staging_bytes=enc.nbytes)
 
 
 def main() -> int:
@@ -725,6 +1009,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (the "
               "spark_rapids_tpu_torch package is missing)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.ops import cuda_build, native
@@ -737,7 +1022,8 @@ def main() -> int:
 
     # Phase 2: build
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["radix_rank", "join_probe", "seg_scan"])
+    libs = cuda_build.build_all(["radix_rank", "join_probe", "seg_scan",
+                                 "rle_decode"])
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, path in libs.items():
         ptxas = path.with_suffix(".log")
@@ -768,19 +1054,31 @@ def main() -> int:
     # Phase 8: TPC-H q2
     q2 = q2_phase(entry, native, cols)
 
-    # Phase 9: the kernels line
+    # Phase 9: kernel K4
+    rle_phase(native)
+
+    # Phase 10: the wire codec, v2 against plain
+    codec_walls({"q1": path["plan"], "q3": joins["plans"]["q3"],
+                 "q4": joins["plans"]["q4"], "q2": q2["plan"]})
+    encode_split(path["plan"], path["parts"])
+
+    # Phase 11: the kernels line
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"digit_hist": "spark_rapids_tpu/ops/native.py:251",
                 "digit_scatter": "spark_rapids_tpu/ops/native.py:259",
                 "join_probe": "spark_rapids_tpu/ops/native.py:315",
-                "seg_scan": "spark_rapids_tpu/ops/native.py:489"}
+                "seg_scan": "spark_rapids_tpu/ops/native.py:489",
+                "rle_decode": "spark_rapids_tpu/ops/native.py:386"}
     sources = {"digit_hist": "radix_rank.cu", "digit_scatter": "radix_rank.cu",
-               "join_probe": "join_probe.cu", "seg_scan": "seg_scan.cu"}
-    timed = dict(per_launch, join_probe=joins["q4_probe"], seg_scan=q2["k2"])
+               "join_probe": "join_probe.cu", "seg_scan": "seg_scan.cu",
+               "rle_decode": "rle_decode.cu"}
+    timed = dict(per_launch, join_probe=joins["q4_probe"], seg_scan=q2["k2"],
+                 rle_decode=joins["q3_rle"])
     kernels = []
-    for name in ("digit_hist", "digit_scatter", "join_probe", "seg_scan"):
+    for name in ("digit_hist", "digit_scatter", "join_probe", "seg_scan",
+                 "rle_decode"):
         r = timed[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -793,6 +1091,7 @@ def main() -> int:
     log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}, "
         f"q2 {runs[3]}")
     log(f"nvidia-smi: {smi}")
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

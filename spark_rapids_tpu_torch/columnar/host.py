@@ -5,10 +5,9 @@ slice needs. Host data is numpy (fixed width) or, for strings, either a
 numpy object array of ``bytes`` or the dense device layout (``str_matrix``
 (n, w) uint8 + ``str_lengths`` int32).
 
-The upload is the plain codec (the JAX package's ``SRT_WIRE_CODEC=plain``
-mode): each column is padded to the capacity bucket on the host and copied
-to the device once per array. The v1/v2 wire codecs come in a later slice.
-The download pulls every batch's buffers with one batched copy.
+The upload goes through the wire codec (``columnar/wire.py``, default
+``v2``, as in the reference). The download pulls every batch's buffers
+with one batched copy.
 """
 
 from __future__ import annotations
@@ -22,8 +21,7 @@ import torch
 from spark_rapids_tpu_torch import DeviceLike, resolve_device
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (
-    MIN_SHRINK_BYTES, DeviceBatch, DeviceColumn, bucket_capacity,
-    shrink_all)
+    MIN_SHRINK_BYTES, DeviceBatch, DeviceColumn, shrink_all)
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
 
@@ -135,49 +133,18 @@ def matrix_to_strings(data: np.ndarray, lengths: np.ndarray,
 # Transitions (host -> device -> host)
 # ---------------------------------------------------------------------------
 
-def _host_arrays(hc: HostColumn, n: int, cap: int,
-                 string_width: Optional[int]) -> List[np.ndarray]:
-    """One column padded to ``cap`` rows in the device layout: data under
-    nulls and padding zeroed, strings widened to their width bucket."""
-    validity = np.zeros(cap, dtype=np.bool_)
-    validity[:n] = hc.validity
-    if hc.dtype.is_string:
-        m, lens = strings_to_matrix(hc)
-        lens = np.where(hc.validity, lens, 0).astype(np.int32)
-        want = dt.string_width_bucket(int(lens.max()) if n else 0)
-        if string_width is not None:
-            want = max(want, string_width)
-        data = np.zeros((cap, want), dtype=np.uint8)
-        w = min(want, m.shape[1])
-        data[:n, :w] = np.where(hc.validity[:, None], m, 0)[:, :w]
-        lengths = np.zeros(cap, dtype=np.int32)
-        lengths[:n] = lens
-        return [data, validity, lengths]
-    data = np.zeros(cap, dtype=hc.dtype.np_dtype)
-    data[:n] = np.where(hc.validity, hc.data,
-                        np.zeros(1, hc.dtype.np_dtype))
-    return [data, validity]
-
-
 def host_to_device(batch: HostBatch, capacity: Optional[int] = None,
                    string_widths: Optional[dict] = None,
                    device: DeviceLike = None) -> DeviceBatch:
-    """Upload a host batch into a fresh fixed-capacity device batch
-    (plain codec: one host->device copy per array)."""
-    dev = resolve_device(device)
-    n = batch.num_rows
-    cap = capacity if capacity is not None else bucket_capacity(n)
-    assert cap >= n, f"capacity {cap} < rows {n}"
-    cols = []
-    for name, hc in zip(batch.names, batch.columns):
-        width = (string_widths or {}).get(name)
-        arrs = [torch.from_numpy(a).to(dev)
-                for a in _host_arrays(hc, n, cap, width)]
-        cols.append(DeviceColumn(hc.dtype, *arrs))
-    out = DeviceBatch(tuple(cols),
-                      torch.tensor(n, dtype=torch.int32, device=dev))
-    out.rows_hint = n
-    return out
+    """Upload a host batch into a fresh fixed-capacity device batch on
+    ``device`` (``None`` = the CUDA card, raising when there is none).
+
+    The upload goes through the wire codec (``columnar/wire.py``): narrow
+    lossless wire dtypes and packed or absent validity in one staging
+    buffer, one host->device copy, and an on-device widen back to the
+    logical layout, as the JAX package's ``host_to_device`` does."""
+    from spark_rapids_tpu_torch.columnar import wire
+    return wire.upload(batch, capacity, string_widths, device)
 
 
 def download_batches(batches: Sequence[DeviceBatch],

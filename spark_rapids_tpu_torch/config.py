@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Optional
 class ConfEntry:
     key: str
     doc: str
-    value_type: str            # "boolean" | "long"
+    value_type: str            # "boolean" | "long" | "string"
     default: Any
     converter: Callable[[str], Any]
 
@@ -30,6 +30,8 @@ class ConfEntry:
             if not isinstance(raw, bool):
                 raise ValueError(f"{self.key} expects a boolean, got {raw!r}")
             return raw
+        if self.value_type == "string":
+            return str(raw)
         return int(raw)
 
 
@@ -46,7 +48,7 @@ _REGISTRY: Dict[str, ConfEntry] = {}
 
 
 def _entry(key: str, doc: str, value_type: str, default: Any) -> ConfEntry:
-    conv = _parse_bool if value_type == "boolean" else int
+    conv = {"boolean": _parse_bool, "long": int, "string": str}[value_type]
     e = ConfEntry(key, doc, value_type, default, conv)
     _REGISTRY[key] = e
     return e
@@ -66,6 +68,25 @@ HAS_NANS = _entry(
     "Assume floating point data may contain NaN/Infinity: sum/avg carry "
     "out-of-band non-finite occurrence streams through the cumsum path.",
     "boolean", True)
+
+WIRE_CODEC = _entry(
+    "spark.rapids.sql.wire.codec",
+    "Host->device wire codec (columnar/wire.py): 'v2' (default: "
+    "dictionary, narrow-int, RLE, delta and frame-of-reference encodings "
+    "chosen per column by smallest wire size), 'v1' (dictionary + "
+    "narrow-int only) or 'plain' (logical dtypes ship untransformed). "
+    "Every codec is lossless, so all three give bit-identical results. "
+    "The SRT_WIRE_CODEC env seeds the process default; the conf key "
+    "overrides it. Process-global, adopted per collect.", "string", "v2")
+
+WIRE_MIN_UPLOAD_BYTES = _entry(
+    "spark.rapids.sql.wire.minUploadBytes",
+    "Upload transfer coalescing threshold: consecutive packed batches of "
+    "one source partition whose staging buffers are each below this many "
+    "bytes share one host->device copy (InMemorySourceExec through "
+    "wire.plan_upload_groups / wire.upload_packed_group; each member "
+    "decodes off its own slice, so results are bit-identical). 0 disables "
+    "grouping.", "long", 1 << 20)
 
 STABLE_SORT = _entry(
     "spark.rapids.sql.stableSort.enabled",

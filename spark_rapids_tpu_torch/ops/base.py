@@ -18,8 +18,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 from spark_rapids_tpu_torch import DeviceLike
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
-from spark_rapids_tpu_torch.columnar.host import (
-    HostBatch, download_batches, host_to_device)
+from spark_rapids_tpu_torch.columnar.host import HostBatch, download_batches
 from spark_rapids_tpu_torch.config import TpuConf
 
 Schema = Tuple[Tuple[str, DataType], ...]
@@ -119,6 +118,10 @@ class Exec:
         """Run all partitions, then download every result batch in one
         batched pass and return the rows."""
         ctx = ctx or ExecContext()
+        # Adopt this query's wire codec (process-global,
+        # spark.rapids.sql.wire.codec) before any upload happens.
+        from spark_rapids_tpu_torch.columnar import wire
+        wire.maybe_configure(ctx.conf)
         batches: List[DeviceBatch] = []
         for p in range(self.num_partitions(ctx)):
             batches.extend(self.execute_device(ctx, p))
@@ -138,7 +141,14 @@ class LeafExec(Exec):
 
 class InMemorySourceExec(LeafExec):
     """In-memory host-batch source, pre-partitioned; uploads each batch to
-    ``device`` (``None`` = the CUDA card, raising when there is none)."""
+    ``device`` (``None`` = the CUDA card, raising when there is none)
+    through the wire codec.
+
+    The host batches never change and their staging bytes are a pure
+    function of batch and codec mode, so each partition is encoded and
+    packed once per mode and kept; every collect then only copies and
+    decodes. Consecutive packed batches below
+    ``spark.rapids.sql.wire.minUploadBytes`` share one copy."""
 
     def __init__(self, schema: Schema,
                  partitions: Sequence[Sequence[HostBatch]],
@@ -147,6 +157,7 @@ class InMemorySourceExec(LeafExec):
         from spark_rapids_tpu_torch import resolve_device
         self._schema = tuple(schema)
         self._partitions = [list(p) for p in partitions]
+        self._packed: Dict[Tuple[str, int], list] = {}
         self.device = resolve_device(device)
 
     @property
@@ -156,10 +167,30 @@ class InMemorySourceExec(LeafExec):
     def num_partitions(self, ctx: ExecContext) -> int:
         return len(self._partitions)
 
+    def packed(self, partition: int) -> list:
+        """The partition's ``EncodedBatch``es under the current codec
+        mode, packed on first use."""
+        from spark_rapids_tpu_torch.columnar import wire
+        key = (wire.codec_mode(), partition)
+        encs = self._packed.get(key)
+        if encs is None:
+            encs = self._packed[key] = [
+                wire.pack_batch(hb) for hb in self._partitions[partition]]
+        return encs
+
     def execute_device(self, ctx, partition):
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.columnar import wire
         m = ctx.metrics_for(self)
-        for hb in self._partitions[partition]:
+        with timed(m, "packTime"):
+            encs = self.packed(partition)
+        groups = wire.plan_upload_groups(
+            [e.nbytes for e in encs],
+            int(ctx.conf.get(C.WIRE_MIN_UPLOAD_BYTES)))
+        for g in groups:
             with timed(m, "uploadTime"):
-                out = host_to_device(hb, device=self.device)
-            record_batch(m, out)
-            yield out
+                outs = wire.upload_packed_group([encs[i] for i in g],
+                                                self.device)
+            for out in outs:
+                record_batch(m, out)
+                yield out

@@ -10,6 +10,8 @@ CUDA sources built for Hopper by ``ops/cuda_build.py``:
   ``_seg_minmax``, so every keyed Min/Max): ``csrc/seg_scan.cu``.
 - K3, the hash-join probe (``ops/join.py`` ``probe_ranges``): left and
   right insertion points of u64 fingerprints, ``csrc/join_probe.cu``.
+- K4, the wire codec's RLE decode (``columnar/wire.py``): a run table
+  expanded to the batch's rows, ``csrc/rle_decode.cu``.
 
 Routing is by the tensor's device and nothing else: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version. No
@@ -37,7 +39,8 @@ _INT64_MIN = -(1 << 63)
 
 _LOCK = threading.Lock()
 _COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0,
-                             "join_probe": 0, "seg_scan": 0}
+                             "join_probe": 0, "seg_scan": 0,
+                             "rle_decode": 0}
 
 
 def _count(name: str) -> None:
@@ -609,3 +612,97 @@ def segment_minmax_sorted(values: torch.Tensor, gid: torch.Tensor,
     identity = _encoded_identity(values.dtype, kind)
     running = segscan(gid, keys.contiguous(), kind)
     return dec(_segment_finish(running, gid, capacity, identity))
+
+
+# ---------------------------------------------------------------------------
+# Kernel K4: the wire codec's RLE decode (csrc/rle_decode.cu)
+# ---------------------------------------------------------------------------
+#
+# A run table is ``run_vals`` (run_cap,) in the wire dtype and ``run_ends``
+# (run_cap,) int32, the nondecreasing exclusive end row of each run; the
+# encoder (``columnar/wire.py`` ``_try_rle``) pads it with value 0 and end
+# ``cap``. Row r takes the value of the first run whose end is above r
+# (the last run where none is), and rows at or past ``num_rows`` are 0.
+# Values move as raw bytes, so -0.0 and NaN payloads survive.
+
+def rle_decode_plain(run_vals: torch.Tensor, run_ends: torch.Tensor,
+                     cap: int, num_rows: int) -> torch.Tensor:
+    """(cap,) expanded values in the wire dtype: ``searchsorted`` of each
+    row over the run ends, a clipped gather, and padding rows zeroed (the
+    JAX package's non-native branch, ``columnar/wire.py:638-648``)."""
+    rows = torch.arange(cap, dtype=run_ends.dtype, device=run_ends.device)
+    ridx = torch.searchsorted(run_ends, rows, right=True)
+    data = run_vals[ridx.clamp(max=run_vals.numel() - 1)]
+    return torch.where(rows < num_rows, data, torch.zeros_like(data))
+
+
+_RLE_LIB = None
+
+
+def _rle_lib():
+    global _RLE_LIB
+    if _RLE_LIB is None:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        lib = cuda_build.load("rle_decode")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.srt_rle_decode.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp]
+        lib.srt_rle_decode.restype = ci
+        _RLE_LIB = lib
+    return _RLE_LIB
+
+
+def rle_expand(run_vals: torch.Tensor, run_ends: torch.Tensor,
+               num_rows: int, out: torch.Tensor) -> None:
+    """Launch ``rle_decode`` (K4) on the current stream: ``out`` (cap,)
+    gets the run table expanded, rows at or past ``num_rows`` zeroed. The
+    one place K4's inputs are checked."""
+    for t, name in ((run_vals, "run_vals"), (run_ends, "run_ends"),
+                    (out, "out")):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor, got "
+                             f"{tuple(t.shape)}")
+    if run_ends.dtype != torch.int32:
+        raise ValueError(f"run_ends must be int32, got {run_ends.dtype}")
+    if run_vals.element_size() not in (1, 2, 4, 8) \
+            or out.dtype != run_vals.dtype:
+        raise ValueError(f"rle_decode: run_vals {run_vals.dtype} and out "
+                         f"{out.dtype} must be one 1, 2, 4 or 8-byte type")
+    run_cap, cap = run_vals.numel(), out.numel()
+    if run_ends.numel() != run_cap or run_cap == 0:
+        raise ValueError("rle_decode: run_vals and run_ends differ in "
+                         "length or are empty")
+    if run_ends.device != run_vals.device or out.device != run_vals.device:
+        raise ValueError("rle_decode: tensors lie on different devices")
+    if cap >= (1 << 30) or not 0 <= num_rows <= cap:
+        raise ValueError(f"rle_decode: {cap} rows or num_rows={num_rows} "
+                         f"out of range")
+    if cap == 0:
+        return
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _raise_on(_rle_lib().srt_rle_decode(
+        run_vals.data_ptr(), run_ends.data_ptr(), run_cap,
+        run_vals.element_size(), cap, int(num_rows), out.data_ptr(),
+        stream), "rle_decode")
+    _count("rle_decode")
+
+
+def rle_decode(run_vals: torch.Tensor, run_ends: torch.Tensor, cap: int,
+               num_rows: int) -> torch.Tensor:
+    """Expand a run table to (cap,) values in the wire dtype, padding rows
+    zeroed: bit-identical to the JAX package's ``native.rle_decode`` and
+    to its searchsorted + gather branch, at any run count. ``num_rows`` is
+    a host int. Routes by device only: CPU tensors run
+    :func:`rle_decode_plain`, any other tensor goes to kernel K4, whose
+    entry :func:`rle_expand` checks the inputs and raises on what it
+    cannot launch."""
+    if run_vals.device.type == "cpu":
+        return rle_decode_plain(run_vals, run_ends, cap, num_rows)
+    with torch.cuda.device(run_vals.device):
+        # Bytes are bytes: bool moves as uint8.
+        vals = run_vals.view(torch.uint8) if run_vals.dtype == torch.bool \
+            else run_vals
+        out = torch.empty(cap, dtype=vals.dtype, device=vals.device)
+        rle_expand(vals, run_ends, num_rows, out)
+        return out.view(torch.bool) if run_vals.dtype == torch.bool else out

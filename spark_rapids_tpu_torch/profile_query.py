@@ -1,13 +1,17 @@
 """Where the time of a TPC-H query goes on the card.
 
     python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|q3|q4]
-        [--scale 1.0] [--partitions 8] [--trace q1_trace.json]
+        [--codec v2|v1|plain] [--scale 1.0] [--partitions 8]
+        [--trace q1_trace.json]
 
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
 ``tpch_q4_plan``, over the generator's partitions) ``.collect()`` on the
-CUDA card: one warm-up run, then host-clock times of the upload alone and
-of whole warm runs, then one run under ``torch.profiler`` (CPU + CUDA
-activity). Prints the
+CUDA card under the wire codec ``--codec`` (default v2): one warm-up run
+(the sources pack their batches there and keep them), then host-clock
+times of the upload alone (split into a fresh host encode + pack of every
+scan batch, and the host->device copies + device decode), and of whole
+warm runs, then one run under ``torch.profiler`` (CPU + CUDA activity).
+Prints the
 host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
 of kernel time over the profiled wall time). ``--partitions`` applies to
@@ -36,12 +40,14 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from spark_rapids_tpu_torch import entry
-    from spark_rapids_tpu_torch.columnar.host import host_to_device
+    from spark_rapids_tpu_torch.columnar import wire
+    from spark_rapids_tpu_torch.config import TpuConf
     from spark_rapids_tpu_torch.ops import ExecContext, native
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--query", choices=("q1", "q2", "q3", "q4"),
                     default="q1")
+    ap.add_argument("--codec", choices=wire.CODEC_MODES, default="v2")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)
@@ -64,25 +70,35 @@ def main() -> int:
                                                           device="cuda")
     batches = [hb for parts in tables.values() for p in parts for hb in p]
     n_rows = sum(hb.num_rows for hb in batches)
-    plan.collect()                                   # warm-up (builds)
+    conf = TpuConf({"spark.rapids.sql.wire.codec": args.codec})
+    plan.collect(ExecContext(conf))                  # warm-up (builds)
     torch.cuda.synchronize()
 
+    wire.reset_counters()
     t0 = time.perf_counter()
-    for hb in batches:
-        host_to_device(hb, device="cuda")
+    encs = [wire.pack_batch(hb) for hb in batches]
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for enc in encs:
+        wire.upload_packed(enc, device="cuda")
     torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
+    put_s = time.perf_counter() - t0
+    codec = wire.counters()
 
     walls = []
     ctx = None
     for _ in range(args.runs):
-        ctx = ExecContext()
+        ctx = ExecContext(conf)
         t0 = time.perf_counter()
         plan.collect(ctx)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"{args.query} scale={args.scale} input rows={n_rows}: warm wall "
-          f"s {walls}; upload alone {upload_s:.4f} s")
+    print(f"{args.query} scale={args.scale} input rows={n_rows} codec="
+          f"{args.codec}: warm wall s {walls}; upload alone "
+          f"{pack_s + put_s:.4f} s = host encode + pack {pack_s:.4f} s + "
+          f"copy + decode {put_s:.4f} s; staging "
+          f"{int(codec.get('stagingBytes', 0))} B (raw "
+          f"{int(codec.get('rawBytes', 0))} B)")
     print("host time per operator (last warm run, ms):")
     for key, m in ctx.metrics.items():
         vals = {k: round(v / 1e6, 3) for k, v in m.values.items()
@@ -113,7 +129,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.collect()
+        plan.collect(ExecContext(conf))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -133,9 +149,13 @@ def main() -> int:
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
-    print(json.dumps({"query": args.query, "rows": n_rows,
-                      "warm_wall_s": walls,
-                      "upload_s": upload_s, "profiled_wall_s": prof_wall,
+    print(json.dumps({"query": args.query, "codec": args.codec,
+                      "rows": n_rows, "warm_wall_s": walls,
+                      "upload_s": pack_s + put_s, "encode_pack_s": pack_s,
+                      "copy_decode_s": put_s,
+                      "staging_bytes": codec.get("stagingBytes", 0),
+                      "raw_bytes": codec.get("rawBytes", 0),
+                      "profiled_wall_s": prof_wall,
                       "device_kernel_ms": kernel_us / 1e3}))
     return 0
 

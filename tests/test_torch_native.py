@@ -135,7 +135,8 @@ def test_cpu_tensors_never_take_the_cuda_branch(monkeypatch):
     batch = _pair(["int32"], 40, 1)[1]
     tkernels.group_ids(batch, [0])
     assert tnative.counters() == {"digit_hist": 0, "digit_scatter": 0,
-                                  "join_probe": 0, "seg_scan": 0}
+                                  "join_probe": 0, "seg_scan": 0,
+                                  "rle_decode": 0}
 
 
 def test_cuda_kernel_entry_points_refuse_cpu_tensors():
