@@ -13,15 +13,19 @@ Phases (each raises on failure; any failure exits non-zero):
    package's ignored ``build/`` directory (one nvcc per source, all
    started together): ``radix_rank.cu`` (K1), ``join_probe.cu`` (K3),
    ``seg_scan.cu`` (K2) and ``rle_decode.cu`` (K4).
-3. Kernel: ``stable_argsort_u32`` (kernel K1) on random and
-   duplicate-heavy u32 keys at capacities 512, 786 432 and 4 194 304 must
-   equal its plain-PyTorch version and ``torch.sort(stable=True)`` bit for
-   bit; kernel, plain and torch.sort times (CUDA events) beside the byte
-   bound.
+3. Kernel: ``stable_argsort_u32`` (kernel K1, one C call a sort) on
+   random, duplicate-heavy and 0/1 (three digits of one bucket) u32 keys,
+   and on random keys through a row permutation, at capacities 512,
+   786 432 and 4 194 304 must equal its plain-PyTorch version and
+   ``torch.sort(stable=True)`` (gather, sort, gather with the
+   permutation) bit for bit; kernel, plain and torch.sort times (CUDA
+   events) beside the function's byte bound and the passes' byte bound.
+   The profiler's device time of one 786 432-row sort is printed beside
+   its CUDA-event time.
 4. Path: TPC-H Q1 at scale factor 1 (8 partitions, seed 0) through
    ``tpch_q1_plan(...).collect()`` on the card, checked against a numpy
    oracle in this file (group keys and counts exact, sums and averages to
-   rtol 1e-9); K1's launch counters must rise during the run.
+   rtol 1e-9); K1's launch counter must rise during the run.
 5. Kernel: ``searchsorted_u64_pair`` (kernel K3) on full-range u64
    fingerprints with runs and a sentinel tail at (build x probe) 512 x 512
    and 4 194 304 x 4 194 304 must equal its plain version bit for bit;
@@ -34,19 +38,21 @@ Phases (each raises on failure; any failure exits non-zero):
    joins take the dense table and its K3 launches are printed (0
    expected). K3 is then checked and timed again on the exact
    fingerprints of Q4's first probe.
-7. Kernel: ``segscan`` (kernel K2) for every kind (sum, min and max over
-   u32 and over u64 keys) at 512, 786 432 and 4 194 304 rows, in segments
-   of 1-64 rows and segments spanning many tiles, must equal its plain
-   version bit for bit, also with the whole column one segment; K2 plus
-   the finish must equal one ``scatter_reduce_`` into an identity-filled
-   output bit for bit. Times of K2, the plain version, K2 + finish and
-   the scatter_reduce beside the byte bound.
+7. Kernel: ``seg_reduce`` (kernel K2, the per-group function in one C
+   call) for every kind (sum, min and max over u32 and over u64 keys) at
+   512, 786 432 and 4 194 304 rows, in segments of 1-64 rows and segments
+   spanning many tiles, must equal its plain version (running scan +
+   finish) bit for bit, 20 launches in a row at the largest size, also
+   with the whole column one segment and with a capacity below the
+   largest id; and one ``scatter_reduce_`` into an identity-filled output
+   bit for bit. Times of K2, the plain version and the scatter_reduce
+   beside the byte bound.
 8. Path: TPC-H Q2 at scale factor 1 (PART and PARTSUPP in 4 partitions,
    SUPPLIER, NATION and REGION in 1) through ``tpch_q2_plan``, checked
    against a numpy oracle in this file: rows and their order exact. K2
    must launch during Q2 (its min aggregate); K3's launches (the fast
-   probe path) and K1's are printed. K2 is then checked and timed again on
-   Q2's largest launch.
+   probe path) and K1's are printed. K2 is then checked (20 launches) and
+   timed again on Q2's largest launch.
 9. Kernel: ``rle_decode`` (kernel K4, the wire codec's RLE expansion) at
    capacities 512, 786 432 and 4 194 304 for int8, int16, int32, int64,
    float32 and float64 run tables (-0.0 and NaN-payload runs among the
@@ -67,8 +73,9 @@ Phases (each raises on failure; any failure exits non-zero):
 11. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2), its error against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
-   the same function (for K2, the scatter_reduce of the per-group
-   function, which K2 + the finish computes).
+   the same function (K1: the whole sort at 786 432 rows against
+   ``torch.sort``; K2: the per-group function on q2's largest launch
+   against the scatter_reduce).
 
 Every query runs under the default ``v2`` wire codec unless a phase says
 otherwise. The total time of the script is printed before the last line,
@@ -133,108 +140,132 @@ def bytes_ms(nbytes: float) -> float:
 # Phase 3: kernel K1 against its plain version and torch.sort
 # ---------------------------------------------------------------------------
 
+SORT_KINDS = ("random", "dups", "zero_one", "random+perm")
+
+
 def make_keys(kind: str, cap: int, seed: int):
+    """int64-carried u32 keys on the card: full-range random, five values
+    with the extremes, or a 0/1 word (three digits of one bucket)."""
     import torch
     rng = np.random.default_rng(seed)
-    if kind == "random":
+    if kind.startswith("random"):
         k = rng.integers(0, 2 ** 32, cap, dtype=np.int64)
-    else:       # duplicate-heavy: 5 distinct values, extremes included
+    elif kind == "dups":
         k = rng.choice(np.array([0, 1, 0x00FF00FF, 0x7FFFFFFF, 0xFFFFFFFF],
                                 np.int64), cap)
+    else:
+        k = rng.integers(0, 2, cap, dtype=np.int64)
     return torch.from_numpy(k).cuda()
 
 
+def sort_bound(cap: int, key_bytes: int, perm: bool) -> dict:
+    """The function's byte bound (keys, and perm, read once; the order
+    written once) and the byte bound of the kernel's passes: the
+    histogram and pass 1 read the keys (and perm), passes 1-3 write and
+    passes 2-4 read a u32 key and an int32 index, pass 4 writes the
+    index (or gathers and writes perm[index], 8 B each)."""
+    p = 8.0 if perm else 0.0
+    fn = key_bytes + p + (8.0 if perm else 4.0)
+    passes = (key_bytes + p) * 2 + 8.0 + 16.0 * 2 + 8.0 + \
+        (16.0 if perm else 4.0)
+    return dict(bound_ms=bytes_ms(fn * cap), fn_bytes_per_row=fn,
+                pass_bound_ms=bytes_ms(passes * cap),
+                pass_bytes_per_row=passes)
+
+
 def kernel_phase(native) -> dict:
+    """K1 bit for bit against its plain version and
+    ``torch.sort(stable=True)`` at every capacity and key kind, then the
+    kernel, plain and torch.sort times beside the bounds."""
     import torch
     results = {}
     for cap in CAPS:
-        for kind in ("random", "dups"):
+        for kind in SORT_KINDS:
             keys = make_keys(kind, cap, seed=cap + len(kind))
+            perm = None
+            if kind.endswith("perm"):
+                perm = torch.from_numpy(np.random.default_rng(cap).permutation(
+                    cap).astype(np.int64)).cuda()
             native.reset_counters()
-            got = native.stable_argsort_u32(keys)
+            got = native.stable_argsort_u32(keys, perm)
             torch.cuda.synchronize()
-            launches = native.counters()
-            plain = native.stable_argsort_u32_plain(keys)
-            lib = torch.sort(keys, stable=True).indices.to(torch.int32)
-            if not torch.equal(got, plain):
+            launches = native.counters()["radix_sort"]
+            plain = native.stable_argsort_u32_plain(keys, perm)
+            if perm is None:
+                lib = torch.sort(keys, stable=True).indices.to(torch.int32)
+            else:
+                lib = perm[torch.sort(keys[perm], stable=True).indices]
+            if launches != 1:
+                raise AssertionError(f"K1 made {launches} C calls for one "
+                                     f"sort at cap={cap} {kind}")
+            err = max(max_abs_err(got, plain), max_abs_err(got, lib))
+            if not torch.equal(got, plain) or err != 0:
                 raise AssertionError(f"K1 != plain at cap={cap} {kind}")
             if not torch.equal(got, lib):
                 raise AssertionError(f"K1 != torch.sort at cap={cap} {kind}")
             iters = 20 if cap < 4_000_000 else 10
-            k_ms = cuda_ms(lambda: native.stable_argsort_u32(keys), iters)
-            p_ms = cuda_ms(lambda: native.stable_argsort_u32_plain(keys), 3,
-                           warmup=1)
-            l_ms = cuda_ms(lambda: torch.sort(keys, stable=True), iters)
-            # Function bound: read the u32 keys once, write the int32
-            # permutation once.
-            b_ms = bytes_ms(8.0 * cap)
-            results[(cap, kind)] = dict(kernel_ms=k_ms, plain_ms=p_ms,
-                                        torch_sort_ms=l_ms, bound_ms=b_ms)
+            r = dict(sort_bound(cap, keys.element_size(), perm is not None),
+                     max_abs_err=err, cap=cap, kind=kind)
+            r["ms"] = cuda_ms(lambda: native.stable_argsort_u32(keys, perm),
+                              iters)
+            r["plain_ms"] = cuda_ms(
+                lambda: native.stable_argsort_u32_plain(keys, perm), 3,
+                warmup=1)
+            if perm is None:
+                r["library_ms"] = cuda_ms(
+                    lambda: torch.sort(keys, stable=True), iters)
+            else:
+                r["library_ms"] = cuda_ms(lambda: perm.index_select(
+                    0, torch.sort(keys.index_select(0, perm),
+                                  stable=True).indices), iters)
+            results[(cap, kind)] = r
+            lib_name = "torch.sort" if perm is None \
+                else "gather + torch.sort + gather"
             log(f"K1 stable_argsort_u32 cap={cap} keys={kind}: bit-identical"
-                f" to plain and torch.sort; kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms, torch.sort {l_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms (8 B/row at 3.35 TB/s); launches per sort "
-                f"{launches}")
+                f" to plain and torch.sort, one C call; kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {lib_name} "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['fn_bytes_per_row']:.0f} B/row), passes' bound "
+                f"{r['pass_bound_ms']:.4f} ms ({r['pass_bytes_per_row']:.0f} "
+                f"B/row)")
     return results
 
 
-def per_launch_phase(native, cap: int) -> dict:
-    """One digit pass of each CUDA kernel at ``cap`` (random keys): time,
-    plain version's time, error against the plain version, bound."""
+def device_ms(fn, iters: int):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
+    sum of the CUDA kernel and memset events over ``iters`` calls, or None
+    when the profiler records no device time."""
     import torch
-    keys = make_keys("random", cap, seed=1)
-    k32 = native.to_u32_bits(keys)
-    k64 = keys.clone()
-    ntiles = -(-cap // native.TILE_ROWS)
-    table = 256 * ntiles
-    hist = torch.empty(table, dtype=torch.int32, device="cuda")
-    native.digit_hist(k32, 0, hist)
-    plain_hist = native.digit_hist_plain(k64 & 0xFF)
-    hist_err = (hist.to(torch.int64) - plain_hist).abs().max().item()
-    offsets = torch.cumsum(hist, 0, dtype=torch.int32) - hist
-    vals = torch.arange(cap, dtype=torch.int32, device="cuda")
-    k_out = torch.empty_like(k32)
-    v_out = torch.empty_like(vals)
-    native.digit_scatter(k32, vals, 0, offsets, k_out, v_out)
-    pk, pv = native.digit_scatter_plain(k64, vals.to(torch.int64), 0,
-                                        offsets.to(torch.int64))
-    scatter_err = max(
-        (v_out.to(torch.int64) - pv).abs().max().item(),
-        (native.to_u32_bits(pk).to(torch.int64)
-         - k_out.to(torch.int64)).abs().max().item())
-    # One PyTorch call per function: the tile histogram as a bincount
-    # over precomputed (digit, tile) bins, the pass's stable reorder as a
-    # stable sort of the digits.
-    dig = k64 & 0xFF
-    bins = dig * ntiles + torch.arange(cap, device="cuda") // native.TILE_ROWS
-    out = {
-        "digit_hist": dict(
-            ms=cuda_ms(lambda: native.digit_hist(k32, 0, hist), 50),
-            plain_ms=cuda_ms(lambda: native.digit_hist_plain(k64 & 0xFF),
-                             10),
-            library_ms=cuda_ms(lambda: torch.bincount(bins, minlength=table),
-                               50),
-            max_abs_err=float(hist_err),
-            # keys read once, the (256 x ntiles) table written once
-            bound_ms=bytes_ms(4.0 * cap + 4.0 * table)),
-        "digit_scatter": dict(
-            ms=cuda_ms(lambda: native.digit_scatter(
-                k32, vals, 0, offsets, k_out, v_out), 50),
-            plain_ms=cuda_ms(lambda: native.digit_scatter_plain(
-                k64, vals.to(torch.int64), 0, offsets.to(torch.int64)), 5),
-            library_ms=cuda_ms(lambda: torch.sort(dig, stable=True), 50),
-            max_abs_err=float(scatter_err),
-            # keys, row indices and offsets read once; keys and row
-            # indices written once
-            bound_ms=bytes_ms(16.0 * cap + 4.0 * table)),
-    }
-    for name, r in out.items():
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        log(f"{name} one pass at cap={cap}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms")
-    return out
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3 / iters if total > 0 else None
+
+
+def sort_profile_phase(native, k1: dict) -> dict:
+    """One 786,432-row sort (random keys): the CUDA-event time of the
+    whole call beside the profiler's device time of its memset and five
+    kernels, so host and device time stand apart."""
+    keys = make_keys("random", PATH_CAP, seed=1)
+    dev = device_ms(lambda: native.stable_argsort_u32(keys), 20)
+    event = k1[(PATH_CAP, "random")]["ms"]
+    shown = "not measured (no device events)" if dev is None \
+        else f"{dev:.4f} ms"
+    log(f"K1 one sort at {PATH_CAP} rows: {event:.4f} ms a call (CUDA "
+        f"events, back to back), device time {shown} (torch.profiler: "
+        f"memset, histogram and four onesweep passes)")
+    return dict(event_ms=event, device_ms=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +334,8 @@ def path_phase(entry, native) -> dict:
     launches = native.counters()
     codec = codec_summary("q1", wire.counters())
     check_q1(rows, want)
-    if min(launches["digit_hist"], launches["digit_scatter"]) <= 0:
-        raise AssertionError(f"q1 did not launch every K1 kernel: {launches}")
+    if launches["radix_sort"] <= 0:
+        raise AssertionError(f"q1 did not launch K1: {launches}")
     t0 = time.perf_counter()
     rows = plan.collect()
     torch.cuda.synchronize()
@@ -634,12 +665,13 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: kernel K2 (the sorted-segment scan) against its plain version
+# Phase 7: kernel K2 (the sorted-segment reduce) against its plain version
 # ---------------------------------------------------------------------------
 
 SEG_KINDS = (("sum", 32), ("sum", 64), ("min", 32), ("max", 32),
              ("min", 64), ("max", 64))
 SEG_NEUTRAL = {"sum": 0, "min": -1, "max": 0}
+SEG_REPEATS = 20       # launches compared at the largest size
 
 
 def seg_inputs(cap: int, bits: int, seed: int):
@@ -667,76 +699,93 @@ def seg_inputs(cap: int, bits: int, seed: int):
             torch.from_numpy(np.ascontiguousarray(keys)).cuda())
 
 
-def seg_bound(n: int, key_bytes: int) -> tuple:
-    """(bound_ms, bound_by): each row's gid (8 B) and key read once and its
-    running value written once, at 3.35 TB/s; one add or compare a row at
-    the 32-bit ALU rate is far below it."""
-    b_ms = bytes_ms(n * (8.0 + 2.0 * key_bytes))
+def seg_bound(n: int, key_bytes: int, capacity: int) -> tuple:
+    """(bound_ms, bound_by): each row's gid (8 B) and key read once and
+    each of the ``capacity`` per-group slots written once, at 3.35 TB/s;
+    one add or compare a row at the 32-bit ALU rate is far below it."""
+    b_ms = bytes_ms(n * (8.0 + key_bytes) + capacity * key_bytes)
     ops_ms = n / ALU_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= ops_ms else (ops_ms, "operations")
 
 
-def seg_check(native, gid, keys, kind: str, label: str) -> dict:
-    """K2 against its plain version (bit for bit, and again with the whole
-    column one segment), then K2 + the finish against one
-    ``scatter_reduce_`` into an identity-filled output (the per-group
-    function, bit for bit), and the times of K2, the plain version, K2 +
-    the finish and the scatter_reduce."""
+def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
+              label: str, repeats: int = 1, timed: bool = True) -> dict:
+    """K2 (the per-group function, one C call) against its plain version
+    (running scan + finish) bit for bit over ``repeats`` launches, and
+    again with the whole column one segment and with a capacity below the
+    largest id; against one ``scatter_reduce_`` into an identity-filled
+    output bit for bit where every id fits; with ``timed``, the times of
+    K2, the plain version and the scatter_reduce beside the bound."""
     import torch
     n = keys.numel()
     sign = -(1 << 31) if keys.dtype == torch.int32 else INT64_MIN
-    got = native.segscan(gid, keys, kind)
-    torch.cuda.synchronize()
-    plain = native.segscan_plain(gid, keys, kind)
-    wrong = int((got != plain).sum())
-    err = max_abs_err(got, plain, unsigned=True)
-    if wrong or err != 0:
-        raise AssertionError(f"K2 != plain at {label} {kind} n={n}: {wrong} "
-                             f"rows differ, max abs err {err}")
+    plain = native.seg_reduce_plain(gid, keys, kind, capacity, identity)
+    native.reset_counters()
+    for i in range(repeats):
+        got = native.seg_reduce(gid, keys, kind, capacity, identity)
+        torch.cuda.synchronize()
+        wrong = int((got != plain).sum())
+        err = max_abs_err(got, plain, unsigned=True)
+        if wrong or err != 0:
+            raise AssertionError(f"K2 != plain at {label} {kind} n={n} "
+                                 f"capacity={capacity}, launch {i}: {wrong} "
+                                 f"slots differ, max abs err {err}")
+    if native.counters()["seg_reduce"] != repeats:
+        raise AssertionError(f"K2 made {native.counters()['seg_reduce']} C "
+                             f"calls for {repeats} reductions")
+    top = int(gid[-1])
     zero = torch.zeros_like(gid)
-    if not torch.equal(native.segscan(zero, keys, kind),
-                       native.segscan_plain(zero, keys, kind)):
-        raise AssertionError(f"K2 != plain over one segment at {label}")
-    neutral = SEG_NEUTRAL[kind]
+    for g, cap_ in ((zero, capacity), (gid, max(top // 2, 1))):
+        if not torch.equal(native.seg_reduce(g, keys, kind, cap_, identity),
+                           native.seg_reduce_plain(g, keys, kind, cap_,
+                                                   identity)):
+            raise AssertionError(f"K2 != plain at {label} {kind} (one "
+                                 f"segment, or capacity {cap_} < max id)")
     lib_in = keys if kind == "sum" else keys ^ sign
     reduce = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
-    fill = 0 if kind == "sum" else neutral ^ sign
-
-    def finished():
-        return native._segment_finish(native.segscan(gid, keys, kind), gid,
-                                      n, neutral)
+    fill = identity if kind == "sum" else identity ^ sign
 
     def library():
-        return torch.full((n,), fill, dtype=keys.dtype,
+        return torch.full((capacity,), fill, dtype=keys.dtype,
                           device=keys.device).scatter_reduce_(
                               0, gid, lib_in, reduce)
 
-    lib = library() if kind == "sum" else library() ^ sign
-    if not torch.equal(finished(), lib):
-        raise AssertionError(f"K2 + finish != scatter_reduce at {label}")
+    r = dict(max_abs_err=err, n=n, capacity=capacity, kind=kind,
+             key_bits=8 * keys.element_size(), library_ms=None)
+    if top < capacity:
+        lib = library() if kind == "sum" else library() ^ sign
+        if not torch.equal(got, lib):
+            raise AssertionError(f"K2 != scatter_reduce at {label} {kind}")
+    if not timed:
+        return r
     iters = 20 if n >= 1_000_000 else 50
-    r = dict(ms=cuda_ms(lambda: native.segscan(gid, keys, kind), iters),
-             plain_ms=cuda_ms(lambda: native.segscan_plain(gid, keys, kind),
-                              3, warmup=1),
-             finish_ms=cuda_ms(finished, iters),
-             library_ms=cuda_ms(library, iters),
-             max_abs_err=err, n=n, kind=kind, key_bits=8 * keys.element_size())
-    r["bound_ms"], r["bound_by"] = seg_bound(n, keys.element_size())
-    log(f"K2 seg_scan {label} {kind}{r['key_bits']} n={n}: bit-identical to "
-        f"plain; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"kernel + finish {r['finish_ms']:.4f} ms, scatter_reduce "
-        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+    r["ms"] = cuda_ms(lambda: native.seg_reduce(gid, keys, kind, capacity,
+                                                identity), iters)
+    r["plain_ms"] = cuda_ms(lambda: native.seg_reduce_plain(
+        gid, keys, kind, capacity, identity), 3, warmup=1)
+    if top < capacity:
+        r["library_ms"] = cuda_ms(library, iters)
+    r["bound_ms"], r["bound_by"] = seg_bound(n, keys.element_size(),
+                                             capacity)
+    lib_ms = "n/a (ids past capacity)" if r["library_ms"] is None \
+        else f"{r['library_ms']:.4f} ms"
+    log(f"K2 seg_reduce {label} {kind}{r['key_bits']} n={n} "
+        f"capacity={capacity}: bit-identical to plain over {repeats} "
+        f"launch(es); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"scatter_reduce {lib_ms}, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']})")
     return r
 
 
-def segscan_phase(native) -> dict:
+def seg_phase(native) -> dict:
     out = {}
     for cap in CAPS:
         for kind, bits in SEG_KINDS:
             gid, keys = seg_inputs(cap, bits, seed=cap + bits)
-            out[(cap, kind, bits)] = seg_check(native, gid, keys, kind,
-                                               "synthetic")
+            repeats = SEG_REPEATS if cap == CAPS[-1] else 2
+            out[(cap, kind, bits)] = seg_check(
+                native, gid, keys, kind, cap, SEG_NEUTRAL[kind], "synthetic",
+                repeats=repeats)
     return out
 
 
@@ -755,30 +804,30 @@ def q2_phase(entry, native, cols: dict) -> dict:
     # Keep the inputs of every K2 launch: the kernel is then checked and
     # timed on the main path's own largest launch.
     seen = []
-    launch = native.seg_scan
+    launch = native.seg_reduce
 
-    def recording(gid, keys, kind, out):
-        seen.append((gid, keys, kind))
-        return launch(gid, keys, kind, out)
+    def recording(gid, keys, kind, capacity, identity):
+        seen.append((gid, keys, kind, capacity, identity))
+        return launch(gid, keys, kind, capacity, identity)
 
-    native.seg_scan = recording
+    native.seg_reduce = recording
     try:
         r = run_path("q2", plan, native, check_q2, want, show=5)
     finally:
-        native.seg_scan = launch
+        native.seg_reduce = launch
     c = r["launches"]
-    if c["seg_scan"] <= 0:
-        raise AssertionError("q2 did not launch K2 (seg_scan)")
-    first = seen[:c["seg_scan"]]
-    shapes = sorted({(g.numel(), str(k.dtype).replace("torch.", ""), kind)
-                     for g, k, kind in first})
-    log(f"q2 K2 launches {c['seg_scan']} over (rows, key type, kind) "
-        f"{shapes}; K3 launches {c['join_probe']} (the fast path, about 4 "
-        f"expected); K1 launches digit_hist {c['digit_hist']}, "
-        f"digit_scatter {c['digit_scatter']}")
-    gid, keys, kind = max(first, key=lambda s: (s[1].numel(),
-                                                 s[1].element_size()))
-    r["k2"] = seg_check(native, gid, keys, kind, "q2 largest launch")
+    if c["seg_reduce"] <= 0:
+        raise AssertionError("q2 did not launch K2 (seg_reduce)")
+    first = seen[:c["seg_reduce"]]
+    shapes = sorted({(g.numel(), str(k.dtype).replace("torch.", ""), kind,
+                      cap_) for g, k, kind, cap_, _i in first})
+    log(f"q2 K2 launches {c['seg_reduce']} over (rows, key type, kind, "
+        f"capacity) {shapes}; K3 launches {c['join_probe']} (the fast path, "
+        f"about 4 expected); K1 sorts {c['radix_sort']}")
+    gid, keys, kind, capacity, identity = max(
+        first, key=lambda s: (s[1].numel(), s[1].element_size()))
+    r["k2"] = seg_check(native, gid, keys, kind, capacity, identity,
+                        "q2 largest launch", repeats=SEG_REPEATS)
     r["plan"] = plan
     return r
 
@@ -1033,8 +1082,8 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
 
     # Phase 3: kernel K1
-    kernel_phase(native)
-    per_launch = per_launch_phase(native, PATH_CAP)
+    k1 = kernel_phase(native)
+    sort_profile_phase(native, k1)
 
     # Phase 4: TPC-H q1
     path = path_phase(entry, native)
@@ -1049,7 +1098,7 @@ def main() -> int:
     joins = join_paths_phase(entry, native, cols)
 
     # Phase 7: kernel K2
-    segscan_phase(native)
+    seg_phase(native)
 
     # Phase 8: TPC-H q2
     q2 = q2_phase(entry, native, cols)
@@ -1066,19 +1115,20 @@ def main() -> int:
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"])
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
-    replaces = {"digit_hist": "spark_rapids_tpu/ops/native.py:251",
-                "digit_scatter": "spark_rapids_tpu/ops/native.py:259",
+    replaces = {"radix_sort": "spark_rapids_tpu/ops/native.py:297",
                 "join_probe": "spark_rapids_tpu/ops/native.py:315",
-                "seg_scan": "spark_rapids_tpu/ops/native.py:489",
+                "seg_reduce": "spark_rapids_tpu/ops/native.py:489",
                 "rle_decode": "spark_rapids_tpu/ops/native.py:386"}
-    sources = {"digit_hist": "radix_rank.cu", "digit_scatter": "radix_rank.cu",
-               "join_probe": "join_probe.cu", "seg_scan": "seg_scan.cu",
-               "rle_decode": "rle_decode.cu"}
-    timed = dict(per_launch, join_probe=joins["q4_probe"], seg_scan=q2["k2"],
+    sources = {"radix_sort": "radix_rank.cu", "join_probe": "join_probe.cu",
+               "seg_reduce": "seg_scan.cu", "rle_decode": "rle_decode.cu"}
+    # K1: the whole sort at the main path's size against torch.sort; K2:
+    # the per-group function on q2's largest launch against one
+    # identity-filled scatter_reduce_.
+    timed = dict(radix_sort=k1[(PATH_CAP, "random")],
+                 join_probe=joins["q4_probe"], seg_reduce=q2["k2"],
                  rle_decode=joins["q3_rle"])
     kernels = []
-    for name in ("digit_hist", "digit_scatter", "join_probe", "seg_scan",
-                 "rle_decode"):
+    for name in ("radix_sort", "join_probe", "seg_reduce", "rle_decode"):
         r = timed[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -11,7 +11,7 @@ Device algorithm per batch, as in the JAX package:
   group sums come from one cumsum + boundary difference per class
   (``_segment_sums``)
   Min/Max reduce on their own ("raw" specs): ``kernels.segment_reduce``,
-  whose min/max and integer sums are the sorted-segment scan (kernel K2
+  whose min/max and integer sums are the sorted-segment reduce (kernel K2
   on the card), or, over strings, ``kernels.segment_minmax_string``
   -> buffer batch [keys..., buffers...] at the group leaders
 

@@ -10,8 +10,8 @@ Port of the JAX package's ``ops/kernels.py`` (``_orderable_u32_words``,
   significant first, adjusted for asc/desc and null ordering. A u32 word is
   an int64 tensor holding a value in [0, 2^32) (torch's uint32 lacks the
   arithmetic these need).
-- ``_radix_perm`` is the stable LSD radix over those words; every pass is
-  ``native.stable_argsort_u32`` (kernel K1 on the card).
+- ``_radix_perm`` is the stable LSD radix over those words; every word is
+  one ``native.stable_argsort_u32`` call (kernel K1 on the card).
 - ``group_ids`` sorts rows by a 64-bit key fingerprint (two murmur3
   streams + the null pattern) so equal keys become adjacent.
 - ``segment_reduce`` reduces each group of group-sorted rows with Spark's
@@ -113,17 +113,17 @@ def _radix_perm(passes: List[torch.Tensor], capacity: int,
     first); returns the int64 row permutation ordering rows by the
     lexicographic pass tuple.
 
-    Every pass is ``native.stable_argsort_u32``. ``unstable_first``
-    (stableSort.enabled off) allows any tie order on the least
-    significant pass; the stable kernel is one such order, so it runs
-    there too."""
-    del unstable_first
-    dev = passes[0].device
-    perm = torch.arange(capacity, dtype=torch.int64, device=dev)
-    for words in reversed(passes):
-        keyed = words.index_select(0, perm)
-        order = native.stable_argsort_u32(keyed)
-        perm = perm.index_select(0, order)
+    Every word is one ``native.stable_argsort_u32`` call: the least
+    significant word sorts alone, every later one through the
+    permutation so far (its gather, sort and gather in one call).
+    ``unstable_first`` (stableSort.enabled off) allows any tie order on
+    the least significant pass; the stable kernel is one such order, so
+    it runs there too."""
+    del unstable_first, capacity
+    words = [w.contiguous() for w in reversed(passes)]
+    perm = native.stable_argsort_u32(words[0]).to(torch.int64)
+    for w in words[1:]:
+        perm = native.stable_argsort_u32(w, perm)
     return perm
 
 
@@ -242,7 +242,7 @@ def _scatter_sum(values: torch.Tensor, gid: torch.Tensor,
 def _seg_sum(values: torch.Tensor, gid: torch.Tensor,
              capacity: int) -> torch.Tensor:
     """Per-group sums for nondecreasing ``gid``. Integers take the exact
-    segmented scan (K2 on the card); floats a scatter-add, whose order of
+    segment reduce (K2 on the card); floats a scatter-add, whose order of
     addition is not the JAX package's (float sums are compared within a
     tolerance)."""
     out = native.segment_sum_sorted(values, gid, capacity)

@@ -3,11 +3,13 @@
 Port of the JAX package's ``ops/native.py`` (its Pallas kernel layer), as
 CUDA sources built for Hopper by ``ops/cuda_build.py``:
 
-- K1, the stable u32 radix rank behind every stable sort pass
-  (``ops/kernels.py`` ``_radix_perm``): ``csrc/radix_rank.cu``.
-- K2, the sorted-segment scan behind ``segment_sum_sorted`` and
+- K1, the stable u32 radix sort behind every sort word
+  (``ops/kernels.py`` ``_radix_perm``): ``csrc/radix_rank.cu``, one C call
+  a sort (a histogram kernel and four onesweep passes).
+- K2, the sorted-segment reduce behind ``segment_sum_sorted`` and
   ``segment_minmax_sorted`` (``ops/kernels.py`` ``_seg_sum`` /
-  ``_seg_minmax``, so every keyed Min/Max): ``csrc/seg_scan.cu``.
+  ``_seg_minmax``, so every keyed Min/Max): ``csrc/seg_scan.cu``, one C
+  call a reduction (a fill and one single-pass kernel).
 - K3, the hash-join probe (``ops/join.py`` ``probe_ranges``): left and
   right insertion points of u64 fingerprints, ``csrc/join_probe.cu``.
 - K4, the wire codec's RLE decode (``columnar/wire.py``): a run table
@@ -18,29 +20,33 @@ the kernel (or the call raises), a CPU tensor takes the plain version. No
 env variable or conf key sends a CUDA tensor to the plain version; the
 JAX package's ``spark.rapids.sql.native.*`` gates come in a later slice.
 
-Every launch adds one to its kernel's counter (:func:`counters`), so a run
-can show that the main path went through the kernel.
+Every call into a kernel's C entry adds one to its counter
+(:func:`counters`), so a run can show that the main path went through the
+kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 RADIX = 256
-TILE_ROWS = 4096        # rows per histogram/scatter tile (kTile in the .cu)
+RADIX_PASSES = 4
+TILE_ROWS = 4096        # rows per onesweep tile (kTile in radix_rank.cu)
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 _INT32_MIN = -(1 << 31)
 _INT64_MIN = -(1 << 63)
 
 _LOCK = threading.Lock()
-_COUNTERS: Dict[str, int] = {"digit_hist": 0, "digit_scatter": 0,
-                             "join_probe": 0, "seg_scan": 0,
-                             "rle_decode": 0}
+_COUNTERS: Dict[str, int] = {"radix_sort": 0, "join_probe": 0,
+                             "seg_reduce": 0, "rle_decode": 0}
 
 
 def _count(name: str) -> None:
@@ -60,20 +66,37 @@ def reset_counters() -> None:
             _COUNTERS[k] = 0
 
 
-def _ntiles(n: int) -> int:
-    return max(-(-n // TILE_ROWS), 1)
+def _ntiles(n: int, tile: int = TILE_ROWS) -> int:
+    return max(-(-n // tile), 1)
+
+
+def _on_device(t: torch.Tensor):
+    """``torch.cuda.device(t.device)`` unless it is the current device
+    already (the C entries launch on the current device)."""
+    if t.device.type != "cuda" \
+            or t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def _current_stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, without
+    building a ``torch.cuda.Stream`` object (which costs several
+    microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
-# Plain-PyTorch version: the same steps as the kernel, in torch ops
+# Plain-PyTorch version of K1: the same steps as the kernel, in torch ops
 # ---------------------------------------------------------------------------
 
 def digit_hist_plain(dig: torch.Tensor, tile: int = TILE_ROWS
                      ) -> torch.Tensor:
     """Per-tile 256-bin histogram of ``dig`` (int64 digits), digit-major:
-    ``out[d * ntiles + t]`` counts rows of tile ``t`` with digit ``d``."""
+    ``out[d * ntiles + t]`` counts rows of tile ``t`` with digit ``d``
+    (each tile's published aggregate)."""
     n = dig.numel()
-    ntiles = max(-(-n // tile), 1)
+    ntiles = _ntiles(n, tile)
     tile_idx = torch.arange(n, dtype=torch.int64, device=dig.device) // tile
     return torch.bincount(dig * ntiles + tile_idx, minlength=RADIX * ntiles)
 
@@ -84,7 +107,7 @@ def tile_rank_plain(dig: torch.Tensor, tile: int = TILE_ROWS
     rows of the same tile with the same digit (exclusive one-hot
     prefix, in chunks of tiles to bound memory)."""
     n = dig.numel()
-    ntiles = max(-(-n // tile), 1)
+    ntiles = _ntiles(n, tile)
     padded = torch.zeros(ntiles * tile, dtype=torch.int64, device=dig.device)
     padded[:n] = dig
     d2 = padded.view(ntiles, tile)
@@ -99,15 +122,31 @@ def tile_rank_plain(dig: torch.Tensor, tile: int = TILE_ROWS
     return out.view(-1)[:n]
 
 
-def digit_scatter_plain(keys: torch.Tensor, vals: torch.Tensor, shift: int,
-                        offsets: torch.Tensor, tile: int = TILE_ROWS
+def digit_bases_plain(keys: torch.Tensor) -> List[torch.Tensor]:
+    """The histogram kernel's result, scanned: for each of the 4 digits,
+    the exclusive prefix of its 256-bin histogram over all rows (the
+    digit's first output position). A pass only reorders rows, so the
+    bases hold for every pass."""
+    out = []
+    for p in range(RADIX_PASSES):
+        hist = torch.bincount((keys >> (8 * p)) & 0xFF, minlength=RADIX)
+        out.append(torch.cumsum(hist, 0) - hist)
+    return out
+
+
+def onesweep_pass_plain(keys: torch.Tensor, vals: torch.Tensor, shift: int,
+                        base: torch.Tensor, tile: int = TILE_ROWS
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``out[offsets[digit, tile] + rank] = (key, val)`` for every row."""
+    """One digit pass: every row goes to its digit's base, plus the
+    counts of its digit in earlier tiles (what the look-back sums), plus
+    its stable rank within its tile."""
     n = keys.numel()
-    ntiles = max(-(-n // tile), 1)
+    ntiles = _ntiles(n, tile)
     dig = (keys >> shift) & 0xFF
+    counts = digit_hist_plain(dig, tile).view(RADIX, ntiles)
+    prefix = torch.cumsum(counts, 1) - counts + base[:, None]
     tile_idx = torch.arange(n, dtype=torch.int64, device=keys.device) // tile
-    pos = offsets[dig * ntiles + tile_idx] + tile_rank_plain(dig, tile)
+    pos = prefix[dig, tile_idx] + tile_rank_plain(dig, tile)
     keys_out = torch.empty_like(keys)
     vals_out = torch.empty_like(vals)
     keys_out[pos] = keys
@@ -115,19 +154,21 @@ def digit_scatter_plain(keys: torch.Tensor, vals: torch.Tensor, shift: int,
     return keys_out, vals_out
 
 
-def stable_argsort_u32_plain(keys: torch.Tensor, tile: int = TILE_ROWS
-                             ) -> torch.Tensor:
-    """The stable permutation sorting u32 ``keys`` (int64 values in
-    [0, 2^32), or int32 bit patterns), as 4 LSD passes of 8 bits: per-tile
-    histogram, scanned bases, stable within-tile rank, scatter. Returns
-    int32 row indices."""
-    k = keys.to(torch.int64) & _M32
+def stable_argsort_u32_plain(keys: torch.Tensor,
+                             perm: Optional[torch.Tensor] = None,
+                             tile: int = TILE_ROWS) -> torch.Tensor:
+    """The stable permutation sorting u32 ``keys`` (int64 values whose low
+    32 bits are the key, or int32 bit patterns) as the kernel computes
+    it: the four digit histograms, scanned into bases, then 4 LSD passes
+    of 8 bits. Returns int32 row indices; with an int64 row permutation
+    ``perm`` it sorts ``keys[perm]`` and returns ``perm[order]`` (int64)."""
+    src = keys if perm is None else keys.index_select(0, perm)
+    k = src.to(torch.int64) & _M32
     v = torch.arange(k.numel(), dtype=torch.int64, device=k.device)
-    for shift in (0, 8, 16, 24):
-        hist = digit_hist_plain((k >> shift) & 0xFF, tile)
-        offsets = torch.cumsum(hist, 0) - hist
-        k, v = digit_scatter_plain(k, v, shift, offsets, tile)
-    return v.to(torch.int32)
+    bases = digit_bases_plain(k)
+    for p in range(RADIX_PASSES):
+        k, v = onesweep_pass_plain(k, v, 8 * p, bases[p], tile)
+    return v.to(torch.int32) if perm is None else perm.index_select(0, v)
 
 
 # ---------------------------------------------------------------------------
@@ -137,22 +178,34 @@ def stable_argsort_u32_plain(keys: torch.Tensor, tile: int = TILE_ROWS
 _LIB = None
 
 
+def _radix_work_words(n: int) -> int:
+    """u32 words of K1's workspace for ``n`` rows: 4 digit histograms, 4
+    tile counters, 4 passes of per-tile status words, and two ping-pong
+    (key, index) arrays (``srt_radix_sort_work_words``)."""
+    return (RADIX_PASSES * RADIX + RADIX_PASSES
+            + RADIX_PASSES * _ntiles(n) * RADIX + 4 * n)
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from spark_rapids_tpu_torch.ops import cuda_build
         lib = cuda_build.load("radix_rank")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.srt_digit_hist.argtypes = [vp, ci, ci, ci, vp, vp]
-        lib.srt_digit_hist.restype = ci
-        lib.srt_digit_scatter.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
-        lib.srt_digit_scatter.restype = ci
+        lib.srt_radix_sort.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+        lib.srt_radix_sort.restype = ci
+        lib.srt_radix_sort_work_words.argtypes = [ci]
+        lib.srt_radix_sort_work_words.restype = ctypes.c_longlong
         lib.srt_cuda_error_string.argtypes = [ci]
         lib.srt_cuda_error_string.restype = ctypes.c_char_p
         lib.srt_radix_tile_rows.restype = ci
         if lib.srt_radix_tile_rows() != TILE_ROWS:
             raise RuntimeError("radix_rank.cu tile size differs from "
                                "native.TILE_ROWS")
+        for n in (1, TILE_ROWS, TILE_ROWS + 1, 786_432):
+            if lib.srt_radix_sort_work_words(n) != _radix_work_words(n):
+                raise RuntimeError("radix_rank.cu workspace size differs "
+                                   "from native._radix_work_words")
         _LIB = lib
     return _LIB
 
@@ -166,98 +219,8 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _check_u32(t: torch.Tensor, name: str) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor "
-                         f"(u32 bit patterns), got {t.dtype} {tuple(t.shape)}")
-
-
-def digit_hist(keys32: torch.Tensor, shift: int,
-               hist: torch.Tensor) -> torch.Tensor:
-    """Launch ``digit_hist`` on the current stream: per-tile histogram of
-    digit ``shift`` of int32-bit-pattern keys into ``hist``
-    (``(256 * ntiles,)`` int32, digit-major)."""
-    _check_u32(keys32, "keys")
-    n = keys32.numel()
-    ntiles = _ntiles(n)
-    if hist.dtype != torch.int32 or hist.numel() != RADIX * ntiles \
-            or not hist.is_contiguous() or hist.device != keys32.device:
-        raise ValueError("hist must be a contiguous (256 * ntiles,) int32 "
-                         "tensor on the keys' device")
-    stream = torch.cuda.current_stream(keys32.device).cuda_stream
-    _raise_on(_lib().srt_digit_hist(keys32.data_ptr(), n, shift, ntiles,
-                                    hist.data_ptr(), stream), "digit_hist")
-    _count("digit_hist")
-    return hist
-
-
-def digit_scatter(keys32: torch.Tensor, vals: torch.Tensor, shift: int,
-                  offsets: torch.Tensor, keys_out: torch.Tensor,
-                  vals_out: torch.Tensor) -> None:
-    """Launch ``digit_scatter`` on the current stream: stable within-tile
-    rank of digit ``shift``, each (key, val) written to
-    ``offsets[digit * ntiles + tile] + rank``."""
-    _check_u32(keys32, "keys")
-    _check_u32(vals, "vals")
-    _check_u32(offsets, "offsets")
-    _check_u32(keys_out, "keys_out")
-    _check_u32(vals_out, "vals_out")
-    n = keys32.numel()
-    ntiles = _ntiles(n)
-    if vals.numel() != n or keys_out.numel() != n or vals_out.numel() != n \
-            or offsets.numel() != RADIX * ntiles:
-        raise ValueError("digit_scatter: mismatched lengths")
-    stream = torch.cuda.current_stream(keys32.device).cuda_stream
-    _raise_on(_lib().srt_digit_scatter(
-        keys32.data_ptr(), vals.data_ptr(), n, shift, ntiles,
-        offsets.data_ptr(), keys_out.data_ptr(), vals_out.data_ptr(),
-        stream), "digit_scatter")
-    _count("digit_scatter")
-
-
-def to_u32_bits(keys: torch.Tensor) -> torch.Tensor:
-    """int64-carried u32 words -> contiguous int32 bit patterns (the low
-    32 bits of each value)."""
-    if keys.dtype == torch.int32:
-        return keys.contiguous()
-    k = keys.to(torch.int64) & _M32
-    return torch.where(k >= (1 << 31), k - (1 << 32), k) \
-        .to(torch.int32).contiguous()
-
-
-def _stable_argsort_u32_cuda(keys: torch.Tensor) -> torch.Tensor:
-    n = keys.numel()
-    if n >= (1 << 31):
-        raise ValueError(f"stable_argsort_u32: {n} rows exceed int32 indices")
-    with torch.cuda.device(keys.device):
-        k_src = to_u32_bits(keys)
-        if k_src.data_ptr() == keys.data_ptr():
-            k_src = k_src.clone()        # the passes overwrite their input
-        k_dst = torch.empty_like(k_src)
-        v_src = torch.arange(n, dtype=torch.int32, device=keys.device)
-        v_dst = torch.empty_like(v_src)
-        hist = torch.empty(RADIX * _ntiles(n), dtype=torch.int32,
-                           device=keys.device)
-        for shift in (0, 8, 16, 24):
-            digit_hist(k_src, shift, hist)
-            offsets = torch.cumsum(hist, 0, dtype=torch.int32) - hist
-            digit_scatter(k_src, v_src, shift, offsets, k_dst, v_dst)
-            k_src, k_dst = k_dst, k_src
-            v_src, v_dst = v_dst, v_src
-        return v_src
-
-
-def stable_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
-    """Stable argsort of (cap,) u32 keys, as int32 row indices: the
-    unique stable permutation, so bit-identical to
-    ``torch.sort(stable=True).indices`` and to the JAX package's
-    ``native.stable_argsort_u32``.
-
-    ``keys`` are int64 tensors holding values in [0, 2^32) (the port's u32
-    carrier) or int32 bit patterns. A CUDA tensor runs kernel K1; a CPU
-    tensor runs :func:`stable_argsort_u32_plain`."""
+def _check_sort_args(keys: torch.Tensor,
+                     perm: Optional[torch.Tensor]) -> None:
     if keys.dim() != 1:
         raise ValueError(f"stable_argsort_u32 takes 1-D keys, got "
                          f"{tuple(keys.shape)}")
@@ -266,12 +229,73 @@ def stable_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
                          f"int32 keys, got {keys.dtype}")
     if not keys.is_contiguous():
         raise ValueError("stable_argsort_u32 takes contiguous keys")
+    if perm is not None and (perm.dtype != torch.int64 or perm.dim() != 1
+                             or perm.numel() != keys.numel()
+                             or not perm.is_contiguous()):
+        raise ValueError("perm must be a contiguous 1-D int64 row "
+                         "permutation as long as the keys")
+
+
+def radix_sort(keys: torch.Tensor, perm: Optional[torch.Tensor],
+               out: torch.Tensor) -> None:
+    """Launch K1 on the current stream, one C call for the whole sort:
+    ``out`` gets the stable order of the u32 ``keys`` (int32), or with
+    ``perm`` the stable order of ``keys[perm]`` mapped through ``perm``
+    (int64). The one place K1's inputs are checked; the workspace is
+    allocated here."""
+    _check_sort_args(keys, perm)
+    n = keys.numel()
+    want = torch.int32 if perm is None else torch.int64
+    if not keys.is_cuda:
+        raise ValueError("keys must be a CUDA tensor")
+    if out.dtype != want or out.dim() != 1 or out.numel() != n \
+            or not out.is_contiguous() or out.device != keys.device:
+        raise ValueError(f"out must be a contiguous ({n},) {want} tensor on "
+                         f"the keys' device")
+    if perm is not None and perm.device != keys.device:
+        raise ValueError("perm and keys lie on different devices")
+    if n >= (1 << 30):
+        raise ValueError(f"stable_argsort_u32: {n} rows exceed the 30-bit "
+                         f"counts of the look-back")
+    if n == 0:
+        return
+    work = torch.empty(_radix_work_words(n), dtype=torch.int32,
+                       device=keys.device)
+    stream = _current_stream(keys.device)
+    _raise_on(_lib().srt_radix_sort(
+        keys.data_ptr(), keys.element_size(),
+        None if perm is None else perm.data_ptr(), n, out.data_ptr(),
+        work.data_ptr(), stream), "radix_sort")
+    _count("radix_sort")
+
+
+def _stable_argsort_u32_cuda(keys: torch.Tensor,
+                             perm: Optional[torch.Tensor]) -> torch.Tensor:
+    with _on_device(keys):
+        out = torch.empty(keys.numel(), device=keys.device,
+                          dtype=torch.int32 if perm is None else torch.int64)
+        radix_sort(keys, perm, out)
+        return out
+
+
+def stable_argsort_u32(keys: torch.Tensor,
+                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable argsort of (cap,) u32 keys, as int32 row indices: the
+    unique stable permutation, so bit-identical to
+    ``torch.sort(stable=True).indices`` and to the JAX package's
+    ``native.stable_argsort_u32``. With an int64 row permutation
+    ``perm``, the stable order of ``keys[perm]`` mapped through ``perm``
+    (int64): ``_radix_perm``'s gather, sort and gather in one call.
+
+    ``keys`` are int64 tensors whose low 32 bits are the key (the port's
+    u32 carrier) or int32 bit patterns. Routes by device only: a CPU
+    tensor runs :func:`stable_argsort_u32_plain`, any other goes to kernel
+    K1, whose entry :func:`radix_sort` checks the inputs and raises on
+    what it cannot launch."""
     if keys.device.type == "cpu":
-        return stable_argsort_u32_plain(keys)
-    if keys.device.type != "cuda":
-        raise ValueError(f"stable_argsort_u32: unsupported device "
-                         f"{keys.device}")
-    return _stable_argsort_u32_cuda(keys)
+        _check_sort_args(keys, perm)
+        return stable_argsort_u32_plain(keys, perm)
+    return _stable_argsort_u32_cuda(keys, perm)
 
 
 # ---------------------------------------------------------------------------
@@ -374,19 +398,21 @@ def _searchsorted_u64_pair_cuda(built_fp: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel K2: the sorted-segment scan (csrc/seg_scan.cu)
+# Kernel K2: the sorted-segment reduce (csrc/seg_scan.cu)
 # ---------------------------------------------------------------------------
 #
-# ``segment_reduce``'s group ids are nondecreasing, so one segmented scan
-# gives every row the running reduction of its group so far, and each
-# group's last row holds the group's result (``_segment_finish`` scatters
-# it to the group's slot). Keys are exact: integer sums wrap around as
-# two's complement, min/max compare in the total-order bit domain
-# (``_minmax_encode``). A u32 key travels as an int32 bit pattern, a u64
-# key as an int64 one; there are no (hi, lo) planes. Float SUMS never come
-# here: their reduction order changes rounding.
+# ``segment_reduce``'s group ids are nondecreasing, so each group is one
+# run of rows. The plain version scans every row's running reduction of
+# its group so far (``segscan_plain``) and scatters each group's last row
+# to the group's slot (``_segment_finish``); the kernel does both in one
+# single pass and writes only the slots. Keys are exact: integer sums wrap
+# around as two's complement, min/max compare in the total-order bit
+# domain (``_minmax_encode``). A u32 key travels as an int32 bit pattern,
+# a u64 key as an int64 one; there are no (hi, lo) planes. Float SUMS
+# never come here: their reduction order changes rounding.
 
-SEG_TILE_ROWS = 2048    # rows per tile_scan block (kTile in the .cu)
+SEG_TILE_ROWS = 2048    # rows per seg_reduce tile (kTile in seg_scan.cu)
+SEG_CHUNK_SLOTS = 8192  # output slots per fill block (kChunk)
 _SEG_KIND_CODES = {"sum": 0, "min": 1, "max": 2}
 # Neutral element per kind, as a bit pattern: 0 for sums and unsigned max,
 # all ones for unsigned min.
@@ -413,7 +439,9 @@ def _seg_combine(kind: str, a: torch.Tensor, b: torch.Tensor
     their top bit flipped (torch has no unsigned 64-bit compare)."""
     if kind == "sum":
         if a.dtype == torch.int32:
-            return to_u32_bits(a.to(torch.int64) + b.to(torch.int64))
+            s = (a.to(torch.int64) + b.to(torch.int64)) & _M32
+            return torch.where(s >= (1 << 31), s - (1 << 32), s) \
+                .to(torch.int32)
         return a + b
     sign = _INT32_MIN if a.dtype == torch.int32 else _INT64_MIN
     au, bu = a ^ sign, b ^ sign
@@ -443,7 +471,40 @@ def segscan_plain(gid: torch.Tensor, keys: torch.Tensor,
     return v
 
 
+def _segment_finish(running: torch.Tensor, gid: torch.Tensor,
+                    capacity: int, identity: int) -> torch.Tensor:
+    """Each segment's last running value scattered to its group's slot;
+    empty slots keep the (encoded) identity. Slots are unique (gid is
+    nondecreasing); ids at or past ``capacity`` go to one extra slot that
+    is sliced off (the JAX package's ``mode="drop"``)."""
+    is_last = torch.ones(gid.numel(), dtype=torch.bool, device=gid.device)
+    is_last[:-1] = gid[1:] != gid[:-1]
+    slots = torch.where(is_last, gid, capacity).clamp(max=capacity)
+    out = torch.full((capacity + 1,), identity, dtype=running.dtype,
+                     device=running.device)
+    out[slots] = running
+    return out[:capacity]
+
+
+def seg_reduce_plain(gid: torch.Tensor, keys: torch.Tensor, kind: str,
+                     capacity: int, identity: int) -> torch.Tensor:
+    """(capacity,) per-group ``kind`` reductions of ``keys`` for the
+    nondecreasing int64 ``gid``, empty slots ``identity``: the running
+    scan, then the finish, as the JAX package's ``_segscan`` and
+    ``_segment_finish``."""
+    return _segment_finish(segscan_plain(gid, keys, kind), gid, capacity,
+                           identity)
+
+
 _SEG_LIB = None
+# Look-back scratch per (device, stream): zeroed when allocated, and every
+# call leaves it zero again (seg_scan.cu), so no call resets it. Calls on
+# one stream run one after another, so no two kernels share a scratch;
+# PyTorch's pooled streams are never destroyed, so a handle is not taken
+# over by another stream. K1's policy, a workspace a call cleared by
+# cudaMemsetAsync, cost K2 about 0.01 ms a call at q2's largest launch
+# on an H100 (PERF.md, section 6).
+_SEG_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
 
 
 def _seg_lib():
@@ -451,26 +512,48 @@ def _seg_lib():
     if _SEG_LIB is None:
         from spark_rapids_tpu_torch.ops import cuda_build
         lib = cuda_build.load("seg_scan")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.srt_seg_scan.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp]
-        lib.srt_seg_scan.restype = ci
-        lib.srt_seg_scan_tile_rows.restype = ci
-        if lib.srt_seg_scan_tile_rows() != SEG_TILE_ROWS:
-            raise RuntimeError("seg_scan.cu tile size differs from "
-                               "native.SEG_TILE_ROWS")
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.srt_seg_reduce.argtypes = [vp, vp, ci, ci, ci, ll, vp,
+                                       ctypes.c_ulonglong, vp, ll, vp]
+        lib.srt_seg_reduce.restype = ci
+        lib.srt_seg_reduce_scratch_words.argtypes = [ll]
+        lib.srt_seg_reduce_scratch_words.restype = ll
+        lib.srt_seg_reduce_tile_rows.restype = ci
+        lib.srt_seg_reduce_chunk_slots.restype = ci
+        if lib.srt_seg_reduce_tile_rows() != SEG_TILE_ROWS \
+                or lib.srt_seg_reduce_chunk_slots() != SEG_CHUNK_SLOTS:
+            raise RuntimeError("seg_scan.cu tile or chunk size differs "
+                               "from native.SEG_TILE_ROWS / SEG_CHUNK_SLOTS")
         _SEG_LIB = lib
     return _SEG_LIB
 
 
-def seg_scan(gid: torch.Tensor, keys: torch.Tensor, kind: str,
-             out: torch.Tensor) -> None:
-    """Launch ``seg_scan`` (K2) on the current stream: ``out`` gets the
-    running segmented ``kind`` reduction of ``keys`` over the segments of
-    the nondecreasing int64 ``gid``. The one place K2's inputs are
-    checked; the tile scratch is allocated here."""
+def _seg_scratch(device: torch.device, stream: int,
+                 blocks: int) -> Tuple[torch.Tensor, int]:
+    """(scratch, max_blocks) for K2 calls on ``stream``: grown to the next
+    power of two of blocks (fill chunks + tiles), zeroed once on that
+    stream."""
+    key = (device.index, stream)
+    hit = _SEG_SCRATCH.get(key)
+    if hit is None or hit[1] < blocks:
+        most = 1 << max(blocks - 1, 63).bit_length()
+        words = _seg_lib().srt_seg_reduce_scratch_words(most)
+        hit = (torch.zeros(words, dtype=torch.int32, device=device), most)
+        _SEG_SCRATCH[key] = hit
+    return hit
+
+
+def seg_reduce(gid: torch.Tensor, keys: torch.Tensor, kind: str,
+               capacity: int, identity: int) -> torch.Tensor:
+    """Launch K2 on the current stream, one C call: the (capacity,)
+    per-group ``kind`` reductions of ``keys`` over the nondecreasing int64
+    ``gid``, empty slots ``identity`` (a bit pattern of the keys' type),
+    ids outside [0, capacity) dropped. The one place K2's inputs are
+    checked; the output is allocated here, the look-back scratch is the
+    stream's."""
     if kind not in _SEG_KIND_CODES:
-        raise ValueError(f"seg_scan: unknown kind {kind!r}")
-    for t, name in ((gid, "gid"), (keys, "keys"), (out, "out")):
+        raise ValueError(f"seg_reduce: unknown kind {kind!r}")
+    for t, name in ((gid, "gid"), (keys, "keys")):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if t.dim() != 1 or not t.is_contiguous():
@@ -482,50 +565,52 @@ def seg_scan(gid: torch.Tensor, keys: torch.Tensor, kind: str,
         raise ValueError(f"keys must be int32 (u32) or int64 (u64) bit "
                          f"patterns, got {keys.dtype}")
     n = keys.numel()
-    if gid.numel() != n or out.numel() != n or out.dtype != keys.dtype:
-        raise ValueError("seg_scan: gid, keys and out differ in length or "
-                         "out in type")
-    if gid.device != keys.device or out.device != keys.device:
-        raise ValueError("seg_scan: tensors lie on different devices")
-    if n >= (1 << 31):
-        raise ValueError(f"seg_scan: {n} rows exceed int32 positions")
+    if gid.numel() != n:
+        raise ValueError("seg_reduce: gid and keys differ in length")
+    if gid.device != keys.device:
+        raise ValueError("seg_reduce: tensors lie on different devices")
+    if n >= (1 << 31) or not 0 <= capacity < (1 << 31):
+        raise ValueError(f"seg_reduce: {n} rows or capacity {capacity} out "
+                         f"of range")
+    out = torch.empty(capacity, dtype=keys.dtype, device=keys.device)
     if n == 0:
-        return
-    ntiles = -(-n // SEG_TILE_ROWS)
-    agg_v = torch.empty(ntiles, dtype=torch.int64, device=keys.device)
-    agg_meta = torch.empty(2 * ntiles, dtype=torch.int32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    _raise_on(_seg_lib().srt_seg_scan(
+        return out.fill_(identity)
+    stream = _current_stream(keys.device)
+    scratch, max_blocks = _seg_scratch(
+        keys.device, stream,
+        -(-n // SEG_TILE_ROWS) + -(-capacity // SEG_CHUNK_SLOTS))
+    _raise_on(_seg_lib().srt_seg_reduce(
         gid.data_ptr(), keys.data_ptr(), n, keys.element_size(),
-        _SEG_KIND_CODES[kind], out.data_ptr(), agg_v.data_ptr(),
-        agg_meta.data_ptr(), stream), "seg_scan")
-    _count("seg_scan")
+        _SEG_KIND_CODES[kind], capacity, out.data_ptr(), identity & _M64,
+        scratch.data_ptr(), max_blocks, stream), "seg_reduce")
+    _count("seg_reduce")
+    return out
 
 
-def segscan(gid: torch.Tensor, keys: torch.Tensor, kind: str
-            ) -> torch.Tensor:
-    """The running segmented reduction (``segscan_plain``'s function).
-    Routes by device only: CPU tensors run :func:`segscan_plain`, any
-    other tensor goes to kernel K2, whose entry :func:`seg_scan` checks
-    the inputs and raises on what it cannot launch."""
+def _segment_reduce(gid: torch.Tensor, keys: torch.Tensor, kind: str,
+                    capacity: int, identity: int) -> torch.Tensor:
+    """The per-group function. Routes by device only: CPU tensors run
+    :func:`seg_reduce_plain`, any other goes to kernel K2, whose entry
+    :func:`seg_reduce` checks the inputs and raises on what it cannot
+    launch."""
     if keys.device.type == "cpu":
-        return segscan_plain(gid, keys, kind)
-    with torch.cuda.device(keys.device):
-        out = torch.empty_like(keys)
-        seg_scan(gid, keys, kind, out)
-        return out
+        return seg_reduce_plain(gid, keys, kind, capacity, identity)
+    with _on_device(keys):
+        return seg_reduce(gid, keys, kind, capacity, identity)
 
 
 def _signed(u: int, bits: int) -> int:
     return u - (1 << bits) if u >> (bits - 1) else u
 
 
+@functools.lru_cache(maxsize=None)
 def _encoded_identity(dtype: torch.dtype, kind: str) -> int:
     """The encoded key of the fill an empty group gets, as the key
     tensor's signed bit pattern. It decodes to the JAX package's
     ``jax.ops.segment_min``/``segment_max`` fill (the dtype's max/min,
     +/-inf for floats), and no encoded value beats it: it encodes the
-    dtype's extreme (NaN is masked out before the reduction)."""
+    dtype's extreme (NaN is masked out before the reduction). A pure
+    function of its arguments, so cached."""
     np_dtype = np.dtype(_NP_DTYPES[dtype])
     if np.issubdtype(np_dtype, np.floating):
         ext = np.asarray(np.inf if kind == "min" else -np.inf, np_dtype)
@@ -540,7 +625,7 @@ def _encoded_identity(dtype: torch.dtype, kind: str) -> int:
     v = int(info.max if kind == "min" else info.min)
     if np_dtype.itemsize <= 4:
         return _signed((v & _M32) ^ 0x80000000, 32)
-    return _signed((v & ((1 << 64) - 1)) ^ (1 << 63), 64)
+    return _signed((v & _M64) ^ (1 << 63), 64)
 
 
 def _minmax_encode(values: torch.Tensor
@@ -571,33 +656,19 @@ def _minmax_encode(values: torch.Tensor
     return keys, dec_small
 
 
-def _segment_finish(running: torch.Tensor, gid: torch.Tensor,
-                    capacity: int, identity: int) -> torch.Tensor:
-    """Each segment's last running value scattered to its group's slot;
-    empty slots keep the (encoded) identity. Slots are unique (gid is
-    nondecreasing); the rest go to one extra slot that is sliced off."""
-    is_last = torch.ones(gid.numel(), dtype=torch.bool, device=gid.device)
-    is_last[:-1] = gid[1:] != gid[:-1]
-    slots = torch.where(is_last, gid, capacity).clamp(max=capacity)
-    out = torch.full((capacity + 1,), identity, dtype=running.dtype,
-                     device=running.device)
-    out[slots] = running
-    return out[:capacity]
-
-
 def segment_sum_sorted(values: torch.Tensor, gid: torch.Tensor,
                        capacity: int) -> Optional[torch.Tensor]:
     """Per-group wrap-around sums of integer ``values`` for nondecreasing
-    ``gid`` (``jax.ops.segment_sum``'s function), through the segmented
-    scan. None for floats and bools: their sums stay off the exact path."""
+    ``gid`` (``jax.ops.segment_sum``'s function), through the segment
+    reduce. None for floats and bools: their sums stay off the exact
+    path."""
     if values.is_floating_point() or values.dtype == torch.bool:
         return None
     if values.element_size() <= 4:
         keys = values.to(torch.int32).contiguous()
-        running = segscan(gid, keys, "sum")
-        return _segment_finish(running, gid, capacity, 0).to(values.dtype)
-    running = segscan(gid, values.contiguous(), "sum")
-    return _segment_finish(running, gid, capacity, 0)
+        return _segment_reduce(gid, keys, "sum", capacity, 0) \
+            .to(values.dtype)
+    return _segment_reduce(gid, values.contiguous(), "sum", capacity, 0)
 
 
 def segment_minmax_sorted(values: torch.Tensor, gid: torch.Tensor,
@@ -610,8 +681,8 @@ def segment_minmax_sorted(values: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"segment_minmax_sorted: unknown kind {kind!r}")
     keys, dec = _minmax_encode(values)
     identity = _encoded_identity(values.dtype, kind)
-    running = segscan(gid, keys.contiguous(), kind)
-    return dec(_segment_finish(running, gid, capacity, identity))
+    return dec(_segment_reduce(gid, keys.contiguous(), kind, capacity,
+                               identity))
 
 
 # ---------------------------------------------------------------------------

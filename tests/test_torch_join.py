@@ -114,9 +114,8 @@ def test_cpu_tensors_never_take_the_cuda_branch(monkeypatch):
     tnative.reset_counters()
     rows = _run_port(*_join_case("synced", 3), "inner", None)
     assert rows
-    assert tnative.counters() == {"digit_hist": 0, "digit_scatter": 0,
-                                  "join_probe": 0, "seg_scan": 0,
-                                  "rle_decode": 0}
+    assert tnative.counters() == {"radix_sort": 0, "join_probe": 0,
+                                  "seg_reduce": 0, "rle_decode": 0}
 
 
 def test_cuda_kernel_entry_refuses_cpu_tensors():

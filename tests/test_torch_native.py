@@ -2,12 +2,16 @@
 kernels built on it.
 
 On this CPU the port's ``native.stable_argsort_u32`` runs its plain
-version (the same tile histogram -> scanned offsets -> stable within-tile
-rank -> scatter steps as the CUDA kernel). It must be bit-identical to the
-JAX package's ``native.stable_argsort_u32`` run through the Pallas
-interpreter (``native.forced()``) and to ``jnp.argsort(stable=True)``: a
-stable permutation is unique. ``_radix_perm``, ``lex_sort_perm`` and
-``group_ids`` must match the JAX package's too.
+version (the same digit histograms -> scanned bases -> per-tile counts
+summed over earlier tiles -> stable within-tile rank -> scatter steps as
+the CUDA kernel). It must be bit-identical to the JAX package's
+``native.stable_argsort_u32`` run through the Pallas interpreter
+(``native.forced()``) and to ``jnp.argsort(stable=True)``: a stable
+permutation is unique. ``_radix_perm``, ``lex_sort_perm`` and
+``group_ids`` must match the JAX package's too. The CUDA kernel cannot
+run here; its onesweep design (warp match ranks, per-digit status words
+published and looked back over in a random interleaving of tiles) is
+checked by an emulation in Python against ``torch.sort(stable=True)``.
 """
 
 import os
@@ -59,7 +63,7 @@ def _mixed_keys(cap, rng):
 
 def _port_sort(keys_u64, tile=tnative.TILE_ROWS):
     return tnative.stable_argsort_u32_plain(
-        torch.from_numpy(keys_u64.astype(np.int64)), tile).numpy()
+        torch.from_numpy(keys_u64.astype(np.int64)), tile=tile).numpy()
 
 
 @pytest.mark.parametrize("cap", CAPS)
@@ -125,7 +129,7 @@ def test_wrapper_rejects_bad_input():
 
 
 def test_cpu_tensors_never_take_the_cuda_branch(monkeypatch):
-    def boom(keys):
+    def boom(keys, perm):
         raise AssertionError("CUDA branch taken for a CPU tensor")
     monkeypatch.setattr(tnative, "_stable_argsort_u32_cuda", boom)
     tnative.reset_counters()
@@ -134,15 +138,140 @@ def test_cpu_tensors_never_take_the_cuda_branch(monkeypatch):
         rng.integers(0, 2 ** 32, 300, dtype=np.int64)))
     batch = _pair(["int32"], 40, 1)[1]
     tkernels.group_ids(batch, [0])
-    assert tnative.counters() == {"digit_hist": 0, "digit_scatter": 0,
-                                  "join_probe": 0, "seg_scan": 0,
-                                  "rle_decode": 0}
+    assert tnative.counters() == {"radix_sort": 0, "join_probe": 0,
+                                  "seg_reduce": 0, "rle_decode": 0}
 
 
 def test_cuda_kernel_entry_points_refuse_cpu_tensors():
     k = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        tnative.digit_hist(k, 0, torch.zeros(256, dtype=torch.int32))
+        tnative.radix_sort(k, None, torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="perm"):
+        tnative.radix_sort(k, torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("cap", [1, 96, 384, 768])
+def test_plain_with_perm_is_gather_sort_gather(cap):
+    """``perm`` sorts ``keys[perm]`` and maps the order through ``perm``:
+    the JAX package's ``_radix_perm`` step (take, stable argsort, take)."""
+    rng = np.random.default_rng(cap + 3)
+    keys = _mixed_keys(cap, rng)
+    perm = rng.permutation(cap).astype(np.int64)
+    order = np.asarray(jnp.argsort(jnp.asarray(keys.astype(np.uint32)[perm]),
+                                   stable=True))
+    want = perm[order]
+    for tile in (tnative.TILE_ROWS, 96):
+        got = tnative.stable_argsort_u32_plain(
+            torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(perm),
+            tile=tile)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(want, got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's onesweep design, emulated
+# ---------------------------------------------------------------------------
+
+_AGG, _INCL, _COUNT = 1 << 30, 2 << 30, (1 << 30) - 1
+
+
+def _emulate_pass(keys, vals, shift, base, warps, lanes, items, lookback,
+                  rng):
+    """One onesweep_pass launch: tiles of warps x lanes x items rows take
+    ids in start order; each (tile, digit) thread publishes its
+    aggregate, then looks back, in a seeded random interleaving: a step
+    reads ``lookback`` status words at once and sums them up to the first
+    one not yet published or through the first inclusive one (the
+    kernel's kLookBack window), so a thread whose predecessor has
+    published nothing yet waits; then it publishes its inclusive
+    prefix."""
+    n = len(keys)
+    tile = warps * lanes * items
+    ntiles = -(-n // tile)
+    status = [[0] * 256 for _ in range(ntiles)]
+    slots, counts = [], []
+    for t in range(ntiles):
+        cnt = [[0] * 256 for _ in range(warps)]
+        slot = {}
+        for w in range(warps):
+            for j in range(items):           # round j: lanes in row order
+                rows = [t * tile + w * lanes * items + j * lanes + lane
+                        for lane in range(lanes)]
+                digs = [(keys[r] >> shift) & 0xFF if r < n else None
+                        for r in rows]
+                seen = {}
+                for r, d in zip(rows, digs):
+                    if d is None:
+                        continue
+                    slot[r] = (w, d, cnt[w][d] + seen.get(d, 0))
+                    seen[d] = seen.get(d, 0) + 1
+                for d, c in seen.items():
+                    cnt[w][d] += c
+        slots.append(slot)
+        counts.append(cnt)
+    # Actors: one per (tile, digit); tiles start in id order.
+    actors, started, done = [], 0, {}
+    while len(done) < ntiles * 256:
+        if started < ntiles and (not actors or rng.random() < 0.3):
+            actors += [[started, d, "agg", started - 1, 0]
+                       for d in range(256)]
+            started += 1
+            continue
+        a = actors[rng.integers(len(actors))]
+        t, d, phase, p, excl = a
+        count = sum(counts[t][w][d] for w in range(warps))
+        if phase == "agg":
+            if t == 0:
+                status[0][d] = _INCL | (base[d] + count)
+                done[(t, d)] = base[d]
+                actors.remove(a)
+            else:
+                status[t][d] = _AGG | count
+                a[2] = "look"
+            continue
+        # Tile 0 is always inclusive, so no window reads past it.
+        window = [status[q][d] if q >= 0 else _INCL
+                  for q in range(p, p - lookback, -1)]
+        for s in window:
+            if s == 0:
+                break                         # spin from here
+            excl += s & _COUNT
+            p -= 1
+            if s & _INCL:
+                status[t][d] = _INCL | (excl + count)
+                done[(t, d)] = excl
+                actors.remove(a)
+                break
+        a[3], a[4] = p, excl
+    out_k, out_v = [None] * n, [None] * n
+    for t in range(ntiles):
+        for r, (w, d, rank) in slots[t].items():
+            pos = done[(t, d)] + sum(counts[t][x][d] for x in range(w)) + rank
+            out_k[pos], out_v[pos] = keys[r], vals[r]
+    return out_k, out_v
+
+
+@pytest.mark.parametrize("kind", ["random", "heavy_dups", "zero_one"])
+def test_onesweep_design_matches_stable_sort(kind):
+    """Tiles of 24 rows (2 warps x 4 lanes x 3 rows), look-back windows of
+    3 status words, row counts around tile edges; a 0/1 word has three
+    digits of one bucket."""
+    rng = np.random.default_rng(len(kind))
+    for n in (1, 23, 24, 25, 97, 250):
+        if kind == "zero_one":
+            keys = rng.integers(0, 2, n, dtype=np.uint64)
+        else:
+            keys = _keys(kind, n, rng)
+        k = [int(x) for x in keys]
+        base_keys = torch.from_numpy(keys.astype(np.int64))
+        bases = [b.tolist() for b in tnative.digit_bases_plain(base_keys)]
+        v = list(range(n))
+        for p in range(4):
+            k, v = _emulate_pass(k, v, 8 * p, bases[p], warps=2, lanes=4,
+                                 items=3, lookback=3, rng=rng)
+        want = torch.sort(base_keys, stable=True).indices.numpy()
+        np.testing.assert_array_equal(want, np.array(v), err_msg=f"n={n}")
 
 
 # ---------------------------------------------------------------------------
@@ -237,17 +366,22 @@ def test_radix_perm_words_wrap_around():
     np.testing.assert_array_equal(order, np.sort(vals))
 
 
-def test_radix_perm_matches_pallas_path():
+@pytest.mark.parametrize("pallas", [True, False])
+def test_radix_perm_matches_pallas_path(pallas):
+    """``_radix_perm`` (one ``stable_argsort_u32`` call a word, the later
+    ones through ``perm``) against the JAX package's (take, argsort,
+    take), with its passes on the Pallas kernel or on ``jnp.argsort``."""
     rng = np.random.default_rng(11)
     cap = 384
     passes = [rng.integers(0, 4, cap, dtype=np.uint64),
               _mixed_keys(cap, rng), rng.integers(0, 2 ** 32, cap,
                                                   dtype=np.uint64)]
-    with jnative.forced():
+    with jnative.forced(master=pallas):
         want = np.asarray(jkernels._radix_perm(
             [jnp.asarray(p.astype(np.uint32)) for p in passes], cap))
     got = tkernels._radix_perm(
         [torch.from_numpy(p.astype(np.int64)) for p in passes], cap)
+    assert got.dtype == torch.int64
     np.testing.assert_array_equal(want, got.numpy())
 
 
