@@ -26,10 +26,16 @@ Phases (each raises on failure; any failure exits non-zero):
    ``tpch_q1_plan(...).collect()`` on the card, checked against a numpy
    oracle in this file (group keys and counts exact, sums and averages to
    rtol 1e-9); K1's launch counter must rise during the run.
-5. Kernel: ``searchsorted_u64_pair`` (kernel K3) on full-range u64
-   fingerprints with runs and a sentinel tail at (build x probe) 512 x 512
-   and 4 194 304 x 4 194 304 must equal its plain version bit for bit;
-   kernel, plain and two-``torch.searchsorted`` times beside the bound.
+5. Kernel: ``searchsorted_u64_pair`` (kernel K3) must equal its plain
+   version bit for bit on edge cases (empty, 1- and 3-entry and
+   all-sentinel builds, a run of equal keys longer than a pivot spacing,
+   at every lane count the wrapper takes: 32, 16, 8 and 1), then on
+   full-range u64 fingerprints with runs and a sentinel tail at (build x
+   probe) 512 x 512 (32 lanes), 3 145 728 x 6 000 / 12 000 / 20 000 /
+   150 000 (16, 8, 1 and 1 lanes) and 4 194 304 x 4 194 304 (1 lane);
+   kernel and two-``torch.searchsorted`` times in turns (medians of 5),
+   the plain version's time and the bound, with the lane count and
+   search steps of each launch.
 6. Paths: TPC-H Q3 and Q4 at scale factor 1 (seed 0; ORDERS and LINEITEM
    in 8 partitions, CUSTOMER in 4) through ``tpch_q3_plan`` /
    ``tpch_q4_plan``, checked against numpy oracles in this file (keys,
@@ -37,7 +43,9 @@ Phases (each raises on failure; any failure exits non-zero):
    launch during Q4 (its semi join probes a build with runs of 7); Q3's
    joins take the dense table and its K3 launches are printed (0
    expected). K3 is then checked and timed again on the exact
-   fingerprints of Q4's first probe.
+   fingerprints of Q4's first probe, warm, by its profiled device time,
+   and with a cold L2 (64 MiB written before each call, per-call CUDA
+   events).
 7. Kernel: ``seg_reduce`` (kernel K2, the per-group function in one C
    call) for every kind (sum, min and max over u32 and over u64 keys) at
    512, 786 432 and 4 194 304 rows, in segments of 1-64 rows and segments
@@ -50,16 +58,22 @@ Phases (each raises on failure; any failure exits non-zero):
 8. Path: TPC-H Q2 at scale factor 1 (PART and PARTSUPP in 4 partitions,
    SUPPLIER, NATION and REGION in 1) through ``tpch_q2_plan``, checked
    against a numpy oracle in this file: rows and their order exact. K2
-   must launch during Q2 (its min aggregate); K3's launches (the fast
-   probe path) and K1's are printed. K2 is then checked (20 launches) and
-   timed again on Q2's largest launch.
+   must launch during Q2 (its min aggregate) and K3 (the fast probe path);
+   K1's launches and K2's and K3's shapes are printed. K2 is then checked
+   (20 launches) and timed again on Q2's largest launch, and K3 on Q2's
+   first probe.
 9. Kernel: ``rle_decode`` (kernel K4, the wire codec's RLE expansion) at
    capacities 512, 786 432 and 4 194 304 for int8, int16, int32, int64,
    float32 and float64 run tables (-0.0 and NaN-payload runs among the
-   values) with 1, 8, 4 096 and rows/4 runs and ``num_rows < cap``, full
-   tables included, and a table of one run per row, must equal its plain
-   version bit for bit; kernel, plain and one ``torch.repeat_interleave``
-   times beside the byte bound.
+   values) with 1, 8, 2 048, 2 049, 4 096 and rows/4 runs and
+   ``num_rows < cap``, full tables included, and a table of one run per
+   row, must equal its plain version bit for bit; kernel and one
+   ``torch.repeat_interleave`` times in turns (medians of 5), the plain
+   version's time and the byte bound, and at 4 194 304 rows with rows/4
+   runs the kernel's profiled device time. A table of at
+   most ``native.RLE_SMEM_RUNS`` entries is staged whole by every block,
+   a larger one is cut into block windows by searches; each log line
+   names which.
 10. Codec: the walls of q1, q3, q4 and q2 under the default ``v2`` wire
    codec and under ``plain`` (``ExecContext(conf)``): plain's first run
    (the sources pack their batches once per codec and keep them), then
@@ -130,6 +144,18 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def turns_ms(fns: dict, iters: int, rounds: int = 5) -> dict:
+    """Median over ``rounds`` of each function's :func:`cuda_ms`, the
+    functions timed in turns (a, b, b, a, a, b, ...), so drift of the
+    host or the card falls on all of them alike."""
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(cuda_ms(fns[k], iters))
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -355,7 +381,12 @@ def path_phase(entry, native) -> dict:
 # Phase 5: kernel K3 (the join probe) against its plain version
 # ---------------------------------------------------------------------------
 
-PROBE_SHAPES = ((512, 512), (4_194_304, 4_194_304))
+# (build, probe): a tiny launch (32 lanes a probe), a 3 * 2^20 build rung
+# probed at 16, 8 and 1 lanes (probe_lanes on 132 SMs; 1 just past the
+# k-ary cut and further on), and 4M x 4M at 1 lane.
+PROBE_SHAPES = ((512, 512), (3_145_728, 6_000), (3_145_728, 12_000),
+                (3_145_728, 20_000), (3_145_728, 150_000),
+                (4_194_304, 4_194_304))
 U64_MAX = 0xFFFFFFFFFFFFFFFF
 INT64_MIN = -(1 << 63)
 # H100 SXM float32 rate outside the tensor cores, taken as its 32-bit
@@ -402,9 +433,46 @@ def probe_bound(cap_b: int, cap_p: int) -> tuple:
     return (b_ms, "bytes") if b_ms >= ops_ms else (ops_ms, "operations")
 
 
-def probe_check(native, build, probe, label: str) -> dict:
-    """K3 against its plain version (bit for bit), then kernel, plain and
-    two-``torch.searchsorted`` times on the same inputs."""
+def cold_ms(fn, iters: int, flush_bytes: int = 64 << 20) -> float:
+    """Mean device milliseconds of one call with a cold L2: a write of
+    ``flush_bytes`` (more than the H100's 50 MB L2) before each call, and
+    CUDA events around each call alone."""
+    import torch
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        scratch.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def probe_design(native, cap_b: int, cap_p: int, device) -> str:
+    """The lane count K3 takes for this launch, and its dependent steps:
+    k-ary steps at G >= 2 lanes, halvings of the binary walk at 1."""
+    lanes = native.probe_lanes(cap_p, native.sm_count(device))
+    if lanes == 1:
+        return (f"1 lane a probe, binary walk of "
+                f"{max(cap_b - 1, 0).bit_length()} halvings")
+    steps, t = 0, cap_b + 1
+    while t > 1:
+        t = (t + lanes) // (lanes + 1)
+        steps += 1
+    return f"{lanes} lanes a probe, {steps} k-ary steps"
+
+
+def probe_check(native, build, probe, label: str, profiled: bool = False,
+                cold: bool = False) -> dict:
+    """K3 against its plain version (bit for bit), then kernel and
+    two-``torch.searchsorted`` times on the same inputs, in turns, and the
+    plain version's; with ``profiled``, the kernel's device time; with
+    ``cold``, also its time with a cold L2."""
     import torch
     cap_b, cap_p = build.numel(), probe.numel()
     lo, hi = native.searchsorted_u64_pair(build, probe)
@@ -416,25 +484,80 @@ def probe_check(native, build, probe, label: str) -> dict:
         raise AssertionError(f"K3 != plain at {label} ({cap_b} x {cap_p})")
     iters = 20 if cap_p >= 1_000_000 else 50
     bf, qf = build ^ INT64_MIN, probe ^ INT64_MIN
-    r = dict(
-        ms=cuda_ms(lambda: native.searchsorted_u64_pair(build, probe),
-                   iters),
-        plain_ms=cuda_ms(lambda: native.searchsorted_u64_pair_plain(
-            build, probe), iters),
-        library_ms=cuda_ms(lambda: (
-            torch.searchsorted(bf, qf, side="left"),
-            torch.searchsorted(bf, qf, side="right")), iters),
-        max_abs_err=float(err), cap_b=cap_b, cap_p=cap_p)
+
+    def kernel():
+        native.searchsorted_u64_pair(build, probe)
+
+    def library():
+        torch.searchsorted(bf, qf, side="left")
+        torch.searchsorted(bf, qf, side="right")
+    t = turns_ms({"ms": kernel, "library_ms": library}, iters)
+    r = dict(t, plain_ms=cuda_ms(lambda: native.searchsorted_u64_pair_plain(
+        build, probe), iters), max_abs_err=float(err), cap_b=cap_b,
+        cap_p=cap_p, design=probe_design(native, cap_b, cap_p, probe.device))
     r["bound_ms"], r["bound_by"] = probe_bound(cap_b, cap_p)
-    log(f"K3 searchsorted_u64_pair {label} build={cap_b} probe={cap_p}: "
-        f"bit-identical to plain; kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, two torch.searchsorted "
-        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})")
+    note = ""
+    if profiled:
+        dev = device_ms(kernel, 20)
+        r["device_ms"] = dev
+        note = "; device time " + (
+            "not measured (no device events)" if dev is None
+            else f"{dev:.4f} ms (torch.profiler)")
+    if cold:
+        r["cold_ms"] = cold_ms(kernel, 20)
+        r["cold_library_ms"] = cold_ms(library, 20)
+        note += (f"; cold L2 (64 MiB written before each call): kernel "
+                 f"{r['cold_ms']:.4f} ms, two torch.searchsorted "
+                 f"{r['cold_library_ms']:.4f} ms")
+    log(f"K3 searchsorted_u64_pair {label} build={cap_b} probe={cap_p} "
+        f"({r['design']}): bit-identical to plain; kernel {r['ms']:.4f} ms, "
+        f"two torch.searchsorted {r['library_ms']:.4f} ms (medians of 5 "
+        f"turns), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']}){note}")
     return r
 
 
+def probe_edges(native) -> int:
+    """K3 bit for bit against its plain version, untimed, at the edges of
+    its design: an empty build, builds of 1 and 3 entries, all-sentinel
+    builds, and a run of equal keys longer than a pivot spacing, each
+    probed at every lane count ``probe_lanes`` gives on 132 SMs: 32
+    (2,048 probes), 16 (8,192), 8 (12,000) and 1 (300,000)."""
+    import torch
+    sentinel = U64_MAX - (1 << 64)        # 2^64 - 1 as an int64 pattern
+    cases = 0
+    for cap_p in (2_048, 8_192, 12_000, 300_000):
+        _b, probe = probe_inputs(1_000, cap_p, seed=cap_p)
+        run_b, run_p = probe_inputs(3_145_728, cap_p, seed=cap_p + 1)
+        run_b = run_b.clone()
+        run_b[1_000_000:1_400_000] = run_b[1_000_000]   # a 400,000-key run
+        run_p[:100] = run_b[1_000_000]
+        builds = [torch.empty(0, dtype=torch.int64, device="cuda"),
+                  probe[:1].sort().values, probe[:3].sort().values,
+                  torch.full((1,), sentinel, dtype=torch.int64,
+                             device="cuda"),
+                  torch.full((6_291_456,), sentinel, dtype=torch.int64,
+                             device="cuda"),
+                  run_b]
+        for build in builds:
+            bu = build ^ INT64_MIN
+            build = (bu.sort().values ^ INT64_MIN).contiguous()
+            p = run_p if build.numel() == run_b.numel() else probe
+            lo, hi = native.searchsorted_u64_pair(build, p)
+            plo, phi = native.searchsorted_u64_pair_plain(build, p)
+            torch.cuda.synchronize()
+            if not (torch.equal(lo, plo) and torch.equal(hi, phi)):
+                raise AssertionError(f"K3 != plain at build={build.numel()} "
+                                     f"probe={p.numel()} (edge case)")
+            cases += 1
+    log(f"K3 edge cases: {cases} launches bit-identical to plain (empty, "
+        f"1- and 3-entry, all-sentinel builds, a 400,000-key run; 32, 16, 8 "
+        f"and 1 lanes)")
+    return cases
+
+
 def probe_phase(native) -> dict:
+    probe_edges(native)
     return {shape: probe_check(native, *probe_inputs(*shape, seed=shape[0]),
                                label="synthetic")
             for shape in PROBE_SHAPES}
@@ -639,7 +762,7 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
         f"over (run_cap, value type, cap) {shapes}")
     vals, ends, nrows, cap = first[0]
     out["q3_rle"] = rle_check(native, vals, ends, cap, nrows,
-                              "q3 first launch", timed=True)
+                              "q3 first launch", timed=True, profiled=True)
     # Keep the inputs of every K3 launch of q4's first run: the kernel is
     # then checked and timed on the main path's own fingerprints.
     seen = []
@@ -659,7 +782,8 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
         raise AssertionError("q4 did not launch K3 (join_probe)")
     shapes = sorted({(b.numel(), p.numel()) for b, p in seen})
     log(f"q4 K3 launches {n} over (build x probe) shapes {shapes}")
-    out["q4_probe"] = probe_check(native, *seen[0], label="q4 first probe")
+    out["q4_probe"] = probe_check(native, *seen[0], label="q4 first probe",
+                                  profiled=True, cold=True)
     out["plans"] = {"q3": q3, "q4": q4}
     return out
 
@@ -801,33 +925,47 @@ def q2_phase(entry, native, cols: dict) -> dict:
         f"{len(cols['part']['p_partkey'])} PART, "
         f"{len(cols['supplier']['s_suppkey'])} SUPPLIER rows (oracle and "
         f"scans in {time.perf_counter() - t0:.2f} s)")
-    # Keep the inputs of every K2 launch: the kernel is then checked and
-    # timed on the main path's own largest launch.
-    seen = []
-    launch = native.seg_reduce
+    # Keep the inputs of every K2 and K3 launch: each kernel is then
+    # checked and timed on the main path's own launches (K2's largest,
+    # K3's first).
+    seen, probes = [], []
+    launch, probe_launch = native.seg_reduce, native.join_probe
 
     def recording(gid, keys, kind, capacity, identity):
         seen.append((gid, keys, kind, capacity, identity))
         return launch(gid, keys, kind, capacity, identity)
 
+    def probe_recording(built_fp, probe_fp, lo, hi):
+        probes.append((built_fp, probe_fp))
+        return probe_launch(built_fp, probe_fp, lo, hi)
+
     native.seg_reduce = recording
+    native.join_probe = probe_recording
     try:
         r = run_path("q2", plan, native, check_q2, want, show=5)
     finally:
         native.seg_reduce = launch
+        native.join_probe = probe_launch
     c = r["launches"]
     if c["seg_reduce"] <= 0:
         raise AssertionError("q2 did not launch K2 (seg_reduce)")
     first = seen[:c["seg_reduce"]]
     shapes = sorted({(g.numel(), str(k.dtype).replace("torch.", ""), kind,
                       cap_) for g, k, kind, cap_, _i in first})
+    if c["join_probe"] <= 0:
+        raise AssertionError("q2 did not launch K3 (join_probe)")
+    probe_shapes = sorted({(b.numel(), p.numel())
+                           for b, p in probes[:c["join_probe"]]})
     log(f"q2 K2 launches {c['seg_reduce']} over (rows, key type, kind, "
         f"capacity) {shapes}; K3 launches {c['join_probe']} (the fast path, "
-        f"about 4 expected); K1 sorts {c['radix_sort']}")
+        f"about 4 expected) over (build x probe) {probe_shapes}; K1 sorts "
+        f"{c['radix_sort']}")
     gid, keys, kind, capacity, identity = max(
         first, key=lambda s: (s[1].numel(), s[1].element_size()))
     r["k2"] = seg_check(native, gid, keys, kind, capacity, identity,
                         "q2 largest launch", repeats=SEG_REPEATS)
+    r["k3"] = probe_check(native, *probes[0], label="q2 first probe",
+                          profiled=True)
     r["plan"] = plan
     return r
 
@@ -851,7 +989,7 @@ RLE_POOLS = {
                              np.array(0x7FF8000000000123, np.uint64)
                              .view(np.float64)]),
 }
-RLE_RUNS = (1, 8, 4096, "n/4", "n")
+RLE_RUNS = (1, 8, 2048, 2049, 4096, "n/4", "n")
 _INT_OF = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
 
 
@@ -913,9 +1051,10 @@ def max_abs_err(got, plain, unsigned: bool = False) -> float:
 
 
 def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
-              timed: bool) -> dict:
+              timed: bool, profiled: bool = False) -> dict:
     """K4 against its plain version, bit for bit; with ``timed``, kernel,
-    plain and one ``torch.repeat_interleave`` times beside the bound."""
+    plain and one ``torch.repeat_interleave`` times beside the bound; with
+    ``profiled``, also the kernel's device time."""
     import torch
     got = native.rle_decode(vals, ends, cap, nrows)
     torch.cuda.synchronize()
@@ -929,8 +1068,10 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
         raise AssertionError(f"K4 != plain at {label} ({vals.dtype}, "
                              f"run_cap={vals.numel()}, cap={cap}): {wrong} "
                              f"rows differ, max abs err {err}")
+    staging = "whole table staged" \
+        if vals.numel() <= native.RLE_SMEM_RUNS else "window search"
     r = dict(max_abs_err=err, cap=cap, run_cap=vals.numel(),
-             dtype=str(vals.dtype).replace("torch.", ""))
+             dtype=str(vals.dtype).replace("torch.", ""), staging=staging)
     if not timed:
         return r
     # Bound: the output written once and the run table read once.
@@ -938,10 +1079,9 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
     r["bound_ms"] = bytes_ms(cap * esize + vals.numel() * (esize + 4.0))
     r["bound_by"] = "bytes"
     iters = 20 if cap >= 1_000_000 else 50
-    r["ms"] = cuda_ms(lambda: native.rle_decode(vals, ends, cap, nrows),
-                      iters)
     r["plain_ms"] = cuda_ms(
         lambda: native.rle_decode_plain(vals, ends, cap, nrows), iters)
+    fns = {"ms": lambda: native.rle_decode(vals, ends, cap, nrows)}
     # One PyTorch call for the expansion: repeat each run by its length.
     # The padding runs cover [num_rows, cap) with zeros, so the counts sum
     # to cap unless the table is full.
@@ -951,16 +1091,24 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
         lib = torch.repeat_interleave(vals, counts, output_size=cap)
         if not torch.equal(_as_bits(lib), _as_bits(got)):
             raise AssertionError(f"repeat_interleave != K4 at {label}")
-        r["library_ms"] = cuda_ms(lambda: torch.repeat_interleave(
-            vals, counts, output_size=cap), iters)
-    else:
-        r["library_ms"] = None
+        fns["library_ms"] = lambda: torch.repeat_interleave(
+            vals, counts, output_size=cap)
+    r["library_ms"] = None
+    r.update(turns_ms(fns, iters))
     lib_ms = "n/a (full table)" if r["library_ms"] is None \
         else f"{r['library_ms']:.4f} ms"
+    dev_note = ""
+    if profiled:
+        r["device_ms"] = device_ms(
+            lambda: native.rle_decode(vals, ends, cap, nrows), 20)
+        dev_note = "; device time " + (
+            "not measured (no device events)" if r["device_ms"] is None
+            else f"{r['device_ms']:.4f} ms (torch.profiler)")
     log(f"K4 rle_decode {label} {r['dtype']} run_cap={r['run_cap']} "
-        f"cap={cap} num_rows={nrows}: bit-identical to plain; kernel "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, repeat_interleave "
-        f"{lib_ms}, bound {r['bound_ms']:.4f} ms (bytes)")
+        f"cap={cap} num_rows={nrows} ({staging}): bit-identical to plain; "
+        f"kernel {r['ms']:.4f} ms, repeat_interleave {lib_ms} (medians of "
+        f"5 turns), plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms (bytes){dev_note}")
     return r
 
 
@@ -975,7 +1123,8 @@ def rle_phase(native) -> dict:
                 timed = cap != CAPS[0] and name in ("int8", "float64") \
                     and runs in (1, "n/4")
                 out[(cap, name, runs)] = rle_check(
-                    native, vals, ends, cap, nrows, f"runs={runs}", timed)
+                    native, vals, ends, cap, nrows, f"runs={runs}", timed,
+                    profiled=timed and cap == CAPS[-1] and runs == "n/4")
                 checked += 1
     log(f"K4 rle_decode: {checked} tables bit-identical to the plain version "
         f"(caps {CAPS}, six types, runs {RLE_RUNS})")

@@ -20,15 +20,25 @@
 // NaN payloads are exact without bit planes; the cast to the logical type
 // stays a torch op.
 //
-// Design. One thread owns 16 bytes of output: 16 / sizeof(T) consecutive
-// rows, stored with one 16-byte write (coalesced across the warp). A block
-// of 256 threads covers 4,096 bytes of output. Two warps find the window
-// of runs the block's rows fall in (one binary search of run_ends in
-// device memory each, for the block's first and last row); when the
-// window holds at most kSmemRuns runs the block stages it in shared
-// memory, else the searches read device memory through L1/L2. Each thread then does one upper-bound binary search for
-// its first row over the window and walks forward for the rest: ends
-// ascend, so the walk is a few compares.
+// Design. A block of 256 threads covers 4,096 rows whatever the element
+// size, so its fixed cost (finding and staging its runs, two barriers) is
+// paid once per 4,096 rows: at 512 rows a block, f64 ran 8 blocks a row
+// range where int8 ran 1 and took twice as long (PERF.md, section 6). Output
+// moves in 16-byte chunks of 16 / sizeof(T) consecutive rows; a thread
+// writes sizeof(T) chunks, chunk c of thread t at chunk c * 256 + t of the
+// block, so each store instruction is coalesced across the warp. The block
+// stages the runs its rows fall in into shared memory, then for each chunk
+// a thread does one upper-bound binary search there for its first row and
+// walks forward for the rest: ends ascend, so the walk is a few compares.
+// - A table of at most kSmemRuns runs (q3's o_shippriority: 8 runs, 72
+//   bytes) is staged whole by every block with one coalesced read: no
+//   block searches device memory.
+// - A larger table: two warps find the block's window of runs, the first
+//   and the last row's run, each by a 32-lane cooperative search of
+//   run_ends in device memory (search.cuh `kary_count`): 4 dependent steps
+//   at 917,504 runs instead of 20 for a binary search. A window of at most
+//   kSmemRuns runs is staged; a longer one is read from device memory
+//   through L1/L2.
 //
 // Bound. Bytes: the output written once (cap * sizeof(T)) plus the run
 // table read once (run_cap * (sizeof(T) + 4)), at 3.35 TB/s; the compares
@@ -41,11 +51,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "search.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlockBytes = kThreads * 16;   // output bytes per block
+constexpr int kBlockRows = 4096;             // rows per block, any type
 constexpr int kSmemRuns = 2048;              // runs staged per block
+// Lanes of each block-window search. search_sweep.py builds the source
+// with -DSRT_RLE_WINDOW_LANES=1 (a binary search, one load a step) to time
+// the cooperative search against it.
+#ifndef SRT_RLE_WINDOW_LANES
+#define SRT_RLE_WINDOW_LANES 32
+#endif
+constexpr int kWindowLanes = SRT_RLE_WINDOW_LANES;
 
 // min(#{j : e[j] <= r}, n - 1) over nondecreasing e[0, n), n >= 1: the
 // run of row r, clamped to the last run.
@@ -62,26 +81,47 @@ __device__ __forceinline__ int run_of(const int* e, int n, int r) {
   return lo < n - 1 ? lo : n - 1;
 }
 
+struct EndsAtMost {
+  int r;
+  __device__ __forceinline__ bool operator()(int e) const { return e <= r; }
+};
+
+// Values staged before ends in shared memory: the ends start at this
+// 16-byte aligned offset for `slots` runs.
+template <typename T>
+__host__ __device__ __forceinline__ size_t ends_offset(int slots) {
+  return (static_cast<size_t>(slots) * sizeof(T) + 15) & ~size_t{15};
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rle_decode(const T* __restrict__ vals, const int* __restrict__ ends,
            int run_cap, int cap, int num_rows, T* __restrict__ out,
-           int vec_ok) {
-  constexpr int G = 16 / sizeof(T);          // rows per thread
-  constexpr int kBlockRows = kThreads * G;
+           int slots, int vec_ok) {
+  constexpr int G = 16 / sizeof(T);          // rows per 16-byte chunk
+  constexpr int kChunks = kBlockRows / (kThreads * G);   // per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* vals_s = reinterpret_cast<T*>(smem);
-  int* ends_s = reinterpret_cast<int*>(smem + kSmemRuns * sizeof(T));
+  int* ends_s = reinterpret_cast<int*>(smem + ends_offset<T>(slots));
   __shared__ int window[2];
 
   const int r0 = blockIdx.x * kBlockRows;
   const int r1 = min(r0 + kBlockRows, cap);
-  // The window's two searches run in two warps, side by side.
-  if (threadIdx.x == 0) window[0] = run_of(ends, run_cap, r0);
-  if (threadIdx.x == 32) window[1] = run_of(ends, run_cap, r1 - 1);
-  __syncthreads();
-  const int i0 = window[0];
-  const int w = window[1] - i0 + 1;
+  int i0 = 0, w = run_cap;                   // the whole table
+  if (run_cap > kSmemRuns) {
+    // Warp 0 finds the run of the block's first row, warp 1 its last's.
+    if (threadIdx.x < 64) {
+      const int r = threadIdx.x < 32 ? r0 : r1 - 1;
+      const int c = srt::kary_count<kWindowLanes>(ends, run_cap,
+                                                  EndsAtMost{r});
+      if ((threadIdx.x & 31) == 0) {
+        window[threadIdx.x >> 5] = c < run_cap - 1 ? c : run_cap - 1;
+      }
+    }
+    __syncthreads();
+    i0 = window[0];
+    w = window[1] - i0 + 1;
+  }
   const bool staged = w <= kSmemRuns;
   if (staged) {
     for (int j = threadIdx.x; j < w; j += kThreads) {
@@ -93,40 +133,45 @@ rle_decode(const T* __restrict__ vals, const int* __restrict__ ends,
   const T* v = staged ? vals_s : vals + i0;
   const int* e = staged ? ends_s : ends + i0;
 
-  const int row = r0 + threadIdx.x * G;
-  if (row >= cap) return;
-  int i = run_of(e, w, row);
-  union {
-    T v[G];
-    uint4 q;
-  } buf;
+  for (int c = 0; c < kChunks; ++c) {
+    const int row = r0 + (c * kThreads + threadIdx.x) * G;
+    if (row >= cap) return;                  // rows ascend with c
+    int i = run_of(e, w, row);
+    union {
+      T v[G];
+      uint4 q;
+    } buf;
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
-    const int r = row + k;
-    while (i < w - 1 && e[i] <= r) ++i;
-    buf.v[k] = r < num_rows ? v[i] : T(0);
-  }
-  if (vec_ok && row + G <= cap) {
-    *reinterpret_cast<uint4*>(out + row) = buf.q;
-  } else {
-    for (int k = 0; k < G && row + k < cap; ++k) out[row + k] = buf.v[k];
+    for (int k = 0; k < G; ++k) {
+      const int r = row + k;
+      while (i < w - 1 && e[i] <= r) ++i;
+      buf.v[k] = r < num_rows ? v[i] : T(0);
+    }
+    if (vec_ok && row + G <= cap) {
+      *reinterpret_cast<uint4*>(out + row) = buf.q;
+    } else {
+      for (int k = 0; k < G && row + k < cap; ++k) out[row + k] = buf.v[k];
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* vals, const void* ends, int run_cap, int cap,
                    int num_rows, void* out, cudaStream_t stream) {
-  const int blocks = (cap + kThreads * (16 / (int)sizeof(T)) - 1) /
-                     (kThreads * (16 / (int)sizeof(T)));
-  const size_t smem = kSmemRuns * (sizeof(T) + sizeof(int));
+  const int blocks = (cap + kBlockRows - 1) / kBlockRows;
+  // Shared memory for the runs a block stages: the whole table, or a
+  // window of at most kSmemRuns.
+  const int slots = run_cap < kSmemRuns ? run_cap : kSmemRuns;
+  const size_t smem = ends_offset<T>(slots) + slots * sizeof(int);
   const int vec_ok = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   rle_decode<T><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(vals), static_cast<const int*>(ends), run_cap,
-      cap, num_rows, static_cast<T*>(out), vec_ok);
+      cap, num_rows, static_cast<T*>(out), slots, vec_ok);
   return cudaGetLastError();
 }
 
-static_assert(kBlockBytes == 4096, "one block writes 4 KiB of output");
+static_assert(kBlockRows % (kThreads * 16) == 0,
+              "a block's rows are whole chunks for every element size");
 
 }  // namespace
 
@@ -159,5 +204,8 @@ int srt_rle_decode(const void* vals, const void* ends, int run_cap,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// Runs a table may hold to be staged whole (native.RLE_SMEM_RUNS).
+int srt_rle_smem_runs() { return kSmemRuns; }
 
 }  // extern "C"

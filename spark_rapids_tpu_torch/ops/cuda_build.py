@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<digest>.so`` under
 this package at first use, and loaded with ``ctypes``. The digest covers
-the source and the flags, so an edited source rebuilds. Nothing is
+the source, every ``csrc/*.cuh`` header it includes (``#include
+"name.cuh"``, followed into headers), and the flags, so an edited source
+or header rebuilds. Nothing is
 prebuilt and nothing falls back: a missing ``nvcc`` or a failed build
 raises.
 """
@@ -14,11 +16,12 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -48,10 +51,27 @@ def nvcc_path() -> str:
                        "the port's kernels (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes with
+    quotes, directly or through another header, each once."""
+    out = [CSRC_DIR / f"{name}.cu"]
+    for path in out:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC_DIR / inc.decode()
+            if dep not in out:
+                out.append(dep)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -11,7 +11,8 @@ CUDA sources built for Hopper by ``ops/cuda_build.py``:
   ``_seg_minmax``, so every keyed Min/Max): ``csrc/seg_scan.cu``, one C
   call a reduction (a fill and one single-pass kernel).
 - K3, the hash-join probe (``ops/join.py`` ``probe_ranges``): left and
-  right insertion points of u64 fingerprints, ``csrc/join_probe.cu``.
+  right insertion points of u64 fingerprints, ``csrc/join_probe.cu``, one
+  cooperative k-ary walk for both (``csrc/search.cuh``).
 - K4, the wire codec's RLE decode (``columnar/wire.py``): a run table
   expanded to the batch's rows, ``csrc/rle_decode.cu``.
 
@@ -72,9 +73,12 @@ def _ntiles(n: int, tile: int = TILE_ROWS) -> int:
 
 def _on_device(t: torch.Tensor):
     """``torch.cuda.device(t.device)`` unless it is the current device
-    already (the C entries launch on the current device)."""
-    if t.device.type != "cuda" \
-            or t.device.index == torch.cuda.current_device():
+    already (the C entries launch on the current device). Reads the
+    current device with ``torch._C._cuda_getDevice``, as
+    ``torch.cuda.current_device`` does after its lazy-init check (a CUDA
+    tensor implies CUDA is initialized), for a fraction of its host
+    cost."""
+    if not t.is_cuda or t.get_device() == torch._C._cuda_getDevice():
         return contextlib.nullcontext()
     return torch.cuda.device(t.device)
 
@@ -321,7 +325,36 @@ def searchsorted_u64_pair_plain(built_fp: torch.Tensor,
     return lo, hi
 
 
+# Resident threads an SM holds on Hopper (compute capability 9.0: 2,048,
+# CUDA's occupancy tables); K3 sizes its lane count to them.
+RESIDENT_THREADS_PER_SM = 2048
+# Fewest lanes a probe for which K3's k-ary walk beat its one-lane binary
+# walk on an H100 (search_sweep.py, PERF.md section 6).
+MIN_KARY_LANES = 8
+
 _PROBE_LIB = None
+_SM_COUNT: Dict[int, int] = {}
+
+
+def probe_lanes(cap_p: int, sm_count: int) -> int:
+    """Lanes K3 gives each probe: the largest power of two G in [1, 32]
+    with ``cap_p * G`` at most half a wave of resident threads
+    (``sm_count * RESIDENT_THREADS_PER_SM / 2``), or 1 (the binary walk)
+    where that G is below ``MIN_KARY_LANES``. On 132 SMs: 32 lanes up to
+    4,224 probes, 16 at q4's 8,192, 8 up to 16,896, then 1; the fastest
+    at every probe count measured (PERF.md, section 6)."""
+    fit = sm_count * RESIDENT_THREADS_PER_SM // 2 // max(cap_p, 1)
+    lanes = 1 << min(fit.bit_length() - 1, 5) if fit else 1
+    return lanes if lanes >= MIN_KARY_LANES else 1
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, read once per device."""
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
 
 
 def _probe_lib():
@@ -330,7 +363,7 @@ def _probe_lib():
         from spark_rapids_tpu_torch.ops import cuda_build
         lib = cuda_build.load("join_probe")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.srt_join_probe.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+        lib.srt_join_probe.argtypes = [vp, ci, vp, ci, vp, vp, ci, vp]
         lib.srt_join_probe.restype = ci
         _PROBE_LIB = lib
     return _PROBE_LIB
@@ -340,9 +373,9 @@ def join_probe(built_fp: torch.Tensor, probe_fp: torch.Tensor,
                lo: torch.Tensor, hi: torch.Tensor) -> None:
     """Launch ``join_probe`` on the current stream: ``lo``/``hi`` (int32,
     one per probe row) get the insertion points of ``probe_fp`` in the
-    sorted ``built_fp``. The one place K3's inputs are checked."""
-    fps = ((built_fp, "built_fp"), (probe_fp, "probe_fp"))
-    for t, name in fps:
+    sorted ``built_fp``, with :func:`probe_lanes` lanes a probe. The one
+    place K3's inputs are checked."""
+    for t, name in ((built_fp, "built_fp"), (probe_fp, "probe_fp")):
         if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int64 tensor "
                              f"(u64 bit patterns), got {t.dtype} "
@@ -350,23 +383,25 @@ def join_probe(built_fp: torch.Tensor, probe_fp: torch.Tensor,
         if t.numel() >= (1 << 31):
             raise ValueError(f"{name}: {t.numel()} rows exceed int32 "
                              f"positions")
-    for t, name in fps:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor")
+    if not (built_fp.is_cuda and probe_fp.is_cuda):
+        name = "probe_fp" if built_fp.is_cuda else "built_fp"
+        raise ValueError(f"{name} must be a CUDA tensor")
     cap_p = probe_fp.numel()
+    dev = probe_fp.get_device()
     for t, name in ((lo, "lo"), (hi, "hi")):
         if t.dtype != torch.int32 or t.numel() != cap_p \
-                or not t.is_contiguous() or t.device != probe_fp.device:
+                or not t.is_contiguous() or t.get_device() != dev:
             raise ValueError(f"{name} must be a contiguous (cap_p,) int32 "
                              f"tensor on the probe's device")
-    if built_fp.device != probe_fp.device:
+    if built_fp.get_device() != dev:
         raise ValueError("built_fp and probe_fp lie on different devices")
     if cap_p == 0:
         return
-    stream = torch.cuda.current_stream(probe_fp.device).cuda_stream
+    device = probe_fp.device
     _raise_on(_probe_lib().srt_join_probe(
         built_fp.data_ptr(), built_fp.numel(), probe_fp.data_ptr(), cap_p,
-        lo.data_ptr(), hi.data_ptr(), stream), "join_probe")
+        lo.data_ptr(), hi.data_ptr(), probe_lanes(cap_p, sm_count(device)),
+        _current_stream(device)), "join_probe")
     _count("join_probe")
 
 
@@ -381,7 +416,7 @@ def searchsorted_u64_pair(built_fp: torch.Tensor, probe_fp: torch.Tensor
     device only: CPU tensors run :func:`searchsorted_u64_pair_plain`,
     any other tensor goes to kernel K3, whose entry :func:`join_probe`
     checks the inputs and raises on what it cannot launch."""
-    if probe_fp.device.type == "cpu":
+    if probe_fp.is_cpu:
         return searchsorted_u64_pair_plain(built_fp, probe_fp)
     return _searchsorted_u64_pair_cuda(built_fp, probe_fp)
 
@@ -389,10 +424,13 @@ def searchsorted_u64_pair(built_fp: torch.Tensor, probe_fp: torch.Tensor
 def _searchsorted_u64_pair_cuda(built_fp: torch.Tensor,
                                 probe_fp: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    with torch.cuda.device(probe_fp.device):
-        lo = torch.empty(probe_fp.numel(), dtype=torch.int32,
-                         device=probe_fp.device)
-        hi = torch.empty_like(lo)
+    """``lo`` and ``hi`` are two ``torch.empty`` calls: on an H100's host
+    that cost less than one (2, cap_p) allocation cut into its rows, or
+    two ``new_empty`` (PERF.md, section 6)."""
+    with _on_device(probe_fp):
+        n, device = probe_fp.numel(), probe_fp.device
+        lo = torch.empty(n, dtype=torch.int32, device=device)
+        hi = torch.empty(n, dtype=torch.int32, device=device)
         join_probe(built_fp, probe_fp, lo, hi)
         return lo, hi
 
@@ -707,6 +745,10 @@ def rle_decode_plain(run_vals: torch.Tensor, run_ends: torch.Tensor,
     return torch.where(rows < num_rows, data, torch.zeros_like(data))
 
 
+# Runs a table may hold for every K4 block to stage it whole (kSmemRuns in
+# rle_decode.cu); a larger table is cut into block windows by searches.
+RLE_SMEM_RUNS = 2048
+
 _RLE_LIB = None
 
 
@@ -718,6 +760,10 @@ def _rle_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.srt_rle_decode.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp]
         lib.srt_rle_decode.restype = ci
+        lib.srt_rle_smem_runs.restype = ci
+        if lib.srt_rle_smem_runs() != RLE_SMEM_RUNS:
+            raise RuntimeError("rle_decode.cu staging size differs from "
+                               "native.RLE_SMEM_RUNS")
         _RLE_LIB = lib
     return _RLE_LIB
 
@@ -744,18 +790,18 @@ def rle_expand(run_vals: torch.Tensor, run_ends: torch.Tensor,
     if run_ends.numel() != run_cap or run_cap == 0:
         raise ValueError("rle_decode: run_vals and run_ends differ in "
                          "length or are empty")
-    if run_ends.device != run_vals.device or out.device != run_vals.device:
+    dev = run_vals.get_device()
+    if run_ends.get_device() != dev or out.get_device() != dev:
         raise ValueError("rle_decode: tensors lie on different devices")
     if cap >= (1 << 30) or not 0 <= num_rows <= cap:
         raise ValueError(f"rle_decode: {cap} rows or num_rows={num_rows} "
                          f"out of range")
     if cap == 0:
         return
-    stream = torch.cuda.current_stream(out.device).cuda_stream
     _raise_on(_rle_lib().srt_rle_decode(
         run_vals.data_ptr(), run_ends.data_ptr(), run_cap,
         run_vals.element_size(), cap, int(num_rows), out.data_ptr(),
-        stream), "rle_decode")
+        _current_stream(out.device)), "rle_decode")
     _count("rle_decode")
 
 
@@ -768,9 +814,9 @@ def rle_decode(run_vals: torch.Tensor, run_ends: torch.Tensor, cap: int,
     :func:`rle_decode_plain`, any other tensor goes to kernel K4, whose
     entry :func:`rle_expand` checks the inputs and raises on what it
     cannot launch."""
-    if run_vals.device.type == "cpu":
+    if run_vals.is_cpu:
         return rle_decode_plain(run_vals, run_ends, cap, num_rows)
-    with torch.cuda.device(run_vals.device):
+    with _on_device(run_vals):
         # Bytes are bytes: bool moves as uint8.
         vals = run_vals.view(torch.uint8) if run_vals.dtype == torch.bool \
             else run_vals

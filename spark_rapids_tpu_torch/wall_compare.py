@@ -15,12 +15,22 @@ ended by a device sync; the rows of every codec's first collect must be
 equal. A tree without the codec ignores the conf key and uploads its own
 way. Prints one JSON line per query, then the card's name and power limit.
 
-With ``--kernels`` it times K1 and K2 instead, through the functions the
-operators call, so any tree is measured alike: ``stable_argsort_u32`` of
-786,432 random u32 keys (a q1 partition's capacity) and
-``segment_minmax_sorted`` min of 131,072 int64 values over nondecreasing
-ids into 131,072 slots (q2's largest K2 launch). ``--runs`` rounds of
-CUDA-event means over 200 back-to-back calls each; one JSON line.
+With ``--kernels`` it times the kernels instead, through the functions
+the operators call, so any tree is measured alike:
+- K1: ``stable_argsort_u32`` of 786,432 random u32 keys (a q1
+  partition's capacity);
+- K2: ``segment_minmax_sorted`` min of 131,072 int64 values over
+  nondecreasing ids into 131,072 slots (q2's largest K2 launch);
+- K3: ``searchsorted_u64_pair`` of 8,192 probe fingerprints in 6,291,456
+  sorted build fingerprints with runs of 1-7 and a sentinel tail (q4's
+  shape);
+- K4: ``rle_decode`` of q3's ``o_shippriority`` table (one run of 0 over
+  187,500 rows, 8 table entries, 196,608-row capacity, int8) and of
+  917,504 runs over 3,670,016 of 4,194,304 rows in int8 and float64.
+Each result is first checked against the tree's plain version (K1
+against ``torch.sort``, K2 against ``scatter_reduce_``). ``--runs``
+rounds of CUDA-event means over 200 back-to-back calls each; one JSON
+line.
 """
 
 from __future__ import annotations
@@ -60,6 +70,39 @@ def _source_times(ctx) -> dict:
     return out
 
 
+def _probe_inputs(rng, cap_b: int, cap_p: int):
+    """q4-like fingerprints: a sorted build with runs of 1-7 and a sentinel
+    tail (40%), probes half hits, half random; int64 bit patterns."""
+    import numpy as np
+    u64_max = np.iinfo(np.uint64).max
+    n_live = cap_b * 3 // 5
+    distinct = rng.integers(0, u64_max, n_live, dtype=np.uint64,
+                            endpoint=True)
+    live = np.sort(np.repeat(distinct, rng.integers(1, 8, n_live))[:n_live])
+    build = np.concatenate([live, np.full(cap_b - n_live, u64_max,
+                                          np.uint64)])
+    probe = np.where(rng.random(cap_p) < 0.5, rng.choice(build, cap_p),
+                     rng.integers(0, u64_max, cap_p, dtype=np.uint64,
+                                  endpoint=True))
+    return build.view(np.int64), probe.view(np.int64)
+
+
+def _rle_inputs(rng, cap: int, n: int, runs: int, np_type):
+    """A run table as the wire encoder builds it: ``runs`` runs over ``n``
+    rows, padding runs of value 0 ending at ``cap``, in a table of the
+    next power of two of ``runs`` (at least 8) entries."""
+    import numpy as np
+    run_cap = max(8, 1 << (runs - 1).bit_length())
+    vals = np.zeros(run_cap, np_type)
+    if runs > 1:
+        vals[:runs] = rng.integers(-100, 100, runs).astype(np_type)
+    ends = np.full(run_cap, cap, np.int32)
+    ends[:runs - 1] = np.sort(rng.choice(np.arange(1, n), runs - 1,
+                                         replace=False))
+    ends[runs - 1] = n
+    return vals, ends
+
+
 def _kernel_times(label: str, runs: int) -> None:
     import numpy as np
     import torch
@@ -79,9 +122,34 @@ def _kernel_times(label: str, runs: int) -> None:
     if not torch.equal(native.segment_minmax_sorted(vals, gid, cap, "min"),
                        want):
         raise AssertionError(f"{label}: K2 differs from scatter_reduce_")
+    build, probe = (torch.from_numpy(a).cuda()
+                    for a in _probe_inputs(rng, 6_291_456, 8_192))
+    got = native.searchsorted_u64_pair(build, probe)
+    plain = native.searchsorted_u64_pair_plain(build, probe)
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        raise AssertionError(f"{label}: K3 differs from its plain version")
+    tables = {"q3_196608_int8": (196_608, 187_500, 1, np.int8),
+              "4194304_runs917504_int8": (4_194_304, 3_670_016, 917_504,
+                                          np.int8),
+              "4194304_runs917504_f64": (4_194_304, 3_670_016, 917_504,
+                                         np.float64)}
     calls = {"radix_sort_786432_ms": lambda: native.stable_argsort_u32(keys),
              "segment_min_131072_ms": lambda: native.segment_minmax_sorted(
-                 vals, gid, cap, "min")}
+                 vals, gid, cap, "min"),
+             "join_probe_6291456x8192_ms": lambda:
+                 native.searchsorted_u64_pair(build, probe)}
+    for name, (rows, n, nruns, np_type) in tables.items():
+        rv, re = (torch.from_numpy(a).cuda()
+                  for a in _rle_inputs(rng, rows, n, nruns, np_type))
+        got = native.rle_decode(rv, re, rows, n)
+        if not torch.equal(got.view(torch.uint8),
+                           native.rle_decode_plain(rv, re, rows, n)
+                           .view(torch.uint8)):
+            raise AssertionError(f"{label}: K4 differs from its plain "
+                                 f"version at {name}")
+        calls[f"rle_decode_{name}_ms"] = (
+            lambda rv=rv, re=re, rows=rows, n=n:
+                native.rle_decode(rv, re, rows, n))
     out = {name: [] for name in calls}
     for _ in range(runs):
         for name, fn in calls.items():

@@ -42,6 +42,7 @@ from spark_rapids_tpu_torch.ops import native as tnative
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from data_gen import ALL_GENS, gen_batch  # noqa: E402
+from test_torch_probe import kary_count  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -447,10 +448,11 @@ RLE_POOLS = [
 ]
 
 
-def _run_table(dtype, pool, n, cap, runs, rng):
+def _run_table(dtype, pool, n, cap, runs, rng, run_cap=None):
     """A run table as ``_try_rle`` builds it: ``runs`` runs of random
-    lengths over n rows, padding runs of value 0 ending at cap."""
-    run_cap = tbatch.bucket_capacity(max(runs, 1))
+    lengths over n rows, padding runs of value 0 ending at cap, in a
+    table of ``run_cap`` entries (default the capacity rung of ``runs``)."""
+    run_cap = run_cap or tbatch.bucket_capacity(max(runs, 1))
     cuts = np.sort(rng.choice(np.arange(1, n), runs - 1, replace=False)) \
         if runs > 1 else np.zeros(0, np.int64)
     vals = np.zeros(run_cap, dtype)
@@ -496,32 +498,44 @@ def _run_of(e, n, r):
 
 
 def _emulate_k4(vals, ends, cap, num_rows, threads, smem_runs):
-    """csrc/rle_decode.cu step by step: blocks of ``threads`` threads of
-    16 bytes of output each, the block's window of runs from two
-    searches (staged when it holds at most ``smem_runs`` runs), one search
-    per thread for its first row, then the walk."""
+    """csrc/rle_decode.cu step by step: blocks of ``threads`` threads over
+    ``threads`` * 16 rows whatever the element size, in 16-byte chunks,
+    chunk c of thread t at chunk c * threads + t. A table of at most
+    ``smem_runs`` runs is staged whole by every block, with no search; a
+    larger one gives each block its window of runs from two 32-lane
+    cooperative searches (search.cuh ``kary_count``, emulated in
+    test_torch_probe.py), staged when the window holds at most
+    ``smem_runs`` runs. Then one search per chunk for its first row, and
+    the walk."""
     g = 16 // vals.itemsize
-    block_rows = threads * g
+    block_rows = threads * 16
     out = np.zeros(cap, vals.dtype)
     run_cap = len(vals)
+    ends_list = ends.tolist()
     for r0 in range(0, cap, block_rows):
         r1 = min(r0 + block_rows, cap)
-        i0 = _run_of(ends, run_cap, r0)
-        w = _run_of(ends, run_cap, r1 - 1) - i0 + 1
+        i0, w = 0, run_cap
+        if run_cap > smem_runs:
+            first, last = (min(kary_count(ends_list, run_cap,
+                                          lambda e, r=r: e <= r),
+                               run_cap - 1) for r in (r0, r1 - 1))
+            assert first == _run_of(ends, run_cap, r0)
+            i0, w = first, last - first + 1
         e, v = ends[i0:i0 + w], vals[i0:i0 + w]
         if w > smem_runs:           # device memory: the same arrays
             e, v = ends[i0:], vals[i0:]
         for t in range(threads):
-            row = r0 + t * g
-            if row >= cap:
-                break
-            i = _run_of(e, w, row)
-            for k in range(g):
-                r = row + k
-                while i < w - 1 and e[i] <= r:
-                    i += 1
-                if r < cap:
-                    out[r] = v[i] if r < num_rows else 0
+            for c in range(16 // g):
+                row = r0 + (c * threads + t) * g
+                if row >= cap:
+                    break
+                i = _run_of(e, w, row)
+                for k in range(g):
+                    r = row + k
+                    while i < w - 1 and e[i] <= r:
+                        i += 1
+                    if r < cap:
+                        out[r] = v[i] if r < num_rows else 0
     return out
 
 
@@ -529,12 +543,20 @@ def _emulate_k4(vals, ends, cap, num_rows, threads, smem_runs):
 @pytest.mark.parametrize("name,dtype,pool", RLE_POOLS[::2] + RLE_POOLS[5:],
                          ids=lambda p: p if isinstance(p, str) else "")
 def test_k4_design_matches_plain(name, dtype, pool, threads, smem_runs):
-    """The kernel's window, clamp and walk give the plain version's rows,
-    staged or not, across block edges, for every element size."""
+    """The kernel's staging, window searches, clamp and walk give the
+    plain version's rows, whole table or window, staged or not, across
+    block edges, for every element size; and at tables of ``smem_runs``
+    - 1, ``smem_runs`` and ``smem_runs`` + 1 runs, full or padded."""
     rng = np.random.default_rng(threads * 7 + smem_runs)
-    for cap, n, runs in ((96, 90, 1), (96, 90, 40), (96, 96, 96),
-                         (200, 150, 8), (384, 383, 96)):
-        vals, ends = _run_table(dtype, pool, n, cap, runs, rng)
+    cases = [(96, 90, 1, None), (96, 90, 40, None), (96, 96, 96, None),
+             (200, 150, 8, None), (384, 383, 96, None)]
+    for run_cap in (smem_runs - 1, smem_runs, smem_runs + 1):
+        if run_cap >= 1:
+            cap = max(96, run_cap + 40)
+            cases += [(cap, run_cap + 20, run_cap, run_cap),
+                      (cap, cap - 7, max(run_cap - 1, 1), run_cap)]
+    for cap, n, runs, run_cap in cases:
+        vals, ends = _run_table(dtype, pool, n, cap, runs, rng, run_cap)
         want = tnative.rle_decode_plain(torch.from_numpy(vals),
                                         torch.from_numpy(ends), cap,
                                         n).numpy()
