@@ -32,7 +32,8 @@ Phases (each raises on failure; any failure exits non-zero):
    at every lane count the wrapper takes: 32, 16, 8 and 1), then on
    full-range u64 fingerprints with runs and a sentinel tail at (build x
    probe) 512 x 512 (32 lanes), 3 145 728 x 6 000 / 12 000 / 20 000 /
-   150 000 (16, 8, 1 and 1 lanes) and 4 194 304 x 4 194 304 (1 lane);
+   150 000 (16, 8, 1 and 1 lanes) and 4 194 304 x 4 194 304 (1 lane, with
+   its profiled device time);
    kernel and two-``torch.searchsorted`` times in turns (medians of 5),
    the plain version's time and the bound, with the lane count and
    search steps of each launch.
@@ -60,8 +61,8 @@ Phases (each raises on failure; any failure exits non-zero):
    against a numpy oracle in this file: rows and their order exact. K2
    must launch during Q2 (its min aggregate) and K3 (the fast probe path);
    K1's launches and K2's and K3's shapes are printed. K2 is then checked
-   (20 launches) and timed again on Q2's largest launch, and K3 on Q2's
-   first probe.
+   (20 launches), timed and profiled again on Q2's largest launch, and K3
+   on Q2's first probe.
 9. Kernel: ``rle_decode`` (kernel K4, the wire codec's RLE expansion) at
    capacities 512, 786 432 and 4 194 304 for int8, int16, int32, int64,
    float32 and float64 run tables (-0.0 and NaN-payload runs among the
@@ -84,8 +85,22 @@ Phases (each raises on failure; any failure exits non-zero):
    (its ``o_shippriority``
    ships as a run table: 8 launches expected), and K4 is checked and
    timed again on the exact inputs of q3's first launch.
-11. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
-   paths (q1 + q3 + q4 + q2), its error against the plain version, its
+11. DataFrame: TPC-H q1-q6 through ``TpuSession`` (``variableFloatAgg``
+   on) and the port's ``benchmarks/tpch.py``, the reference's query text,
+   over in-memory scans of the same SF1 columns: each query's planning
+   time (host ms) and exec tree, its first run (launch counters around it
+   alone) and warm runs, every run checked against its numpy oracle (q5
+   and q6 have theirs here); q1-q4's rows must equal the hand-built
+   trees' (floats to rtol 1e-9) in this process. K1 must launch in every
+   query but q6, K2 in q2, K3 in q4 and q2, K4 in q3. The inputs of
+   every K2, K3 and K4 launch of each first run are recorded; each launch
+   of a shape no hand-built path gave (q4's one probe of its whole
+   coalesced ORDERS side) must equal the kernel's plain version bit for
+   bit, and the largest such launch of a query is timed against its
+   plain version and library call, with its device time.
+12. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+   paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
+   front end), its error against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -100,6 +115,7 @@ The script imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -468,11 +484,11 @@ def probe_design(native, cap_b: int, cap_p: int, device) -> str:
 
 
 def probe_check(native, build, probe, label: str, profiled: bool = False,
-                cold: bool = False) -> dict:
-    """K3 against its plain version (bit for bit), then kernel and
-    two-``torch.searchsorted`` times on the same inputs, in turns, and the
-    plain version's; with ``profiled``, the kernel's device time; with
-    ``cold``, also its time with a cold L2."""
+                cold: bool = False, timed: bool = True) -> dict:
+    """K3 against its plain version (bit for bit); with ``timed``, then
+    kernel and two-``torch.searchsorted`` times on the same inputs, in
+    turns, and the plain version's; with ``profiled``, the kernel's device
+    time; with ``cold``, also its time with a cold L2."""
     import torch
     cap_b, cap_p = build.numel(), probe.numel()
     lo, hi = native.searchsorted_u64_pair(build, probe)
@@ -482,6 +498,8 @@ def probe_check(native, build, probe, label: str, profiled: bool = False,
               (hi.to(torch.int64) - phi.to(torch.int64)).abs().max().item())
     if err != 0 or not (torch.equal(lo, plo) and torch.equal(hi, phi)):
         raise AssertionError(f"K3 != plain at {label} ({cap_b} x {cap_p})")
+    if not timed:
+        return dict(max_abs_err=float(err), cap_b=cap_b, cap_p=cap_p)
     iters = 20 if cap_p >= 1_000_000 else 50
     bf, qf = build ^ INT64_MIN, probe ^ INT64_MIN
 
@@ -559,7 +577,8 @@ def probe_edges(native) -> int:
 def probe_phase(native) -> dict:
     probe_edges(native)
     return {shape: probe_check(native, *probe_inputs(*shape, seed=shape[0]),
-                               label="synthetic")
+                               label="synthetic",
+                               profiled=shape == PROBE_SHAPES[-1])
             for shape in PROBE_SHAPES}
 
 
@@ -725,6 +744,50 @@ def codec_summary(name: str, counters: dict) -> dict:
     return dict(cols=cols, raw_bytes=raw, encoded_bytes=enc)
 
 
+# The launch functions of K3, K2 and K4 (each wrapper's one launch site),
+# the counter each adds to, and the shape of one launch's arguments.
+LAUNCHES = {
+    "join_probe": ("join_probe", lambda b, p, _lo, _hi: (
+        b.numel(), p.numel())),
+    "seg_reduce": ("seg_reduce", lambda g, k, kind, cap, _i: (
+        g.numel(), str(k.dtype).replace("torch.", ""), kind, cap)),
+    "rle_expand": ("rle_decode", lambda v, _e, n, out: (
+        v.numel(), str(v.dtype).replace("torch.", ""), n, out.numel())),
+}
+
+
+@contextlib.contextmanager
+def recording(native, seen: dict):
+    """While the block runs, keep the arguments of every K3, K2 and K4
+    launch in ``seen`` (launch function -> list of argument tuples); the
+    launches themselves, and their counts, are unchanged."""
+    saved = {fn: getattr(native, fn) for fn in LAUNCHES}
+
+    def keeper(fn, launch):
+        def recorder(*args):
+            seen.setdefault(fn, []).append(args)
+            return launch(*args)
+        return recorder
+    for fn, launch in saved.items():
+        setattr(native, fn, keeper(fn, launch))
+    try:
+        yield seen
+    finally:
+        for fn, launch in saved.items():
+            setattr(native, fn, launch)
+
+
+def first_run(seen: dict, launches: dict) -> dict:
+    """The recorded launches of a path's first run (``launches``: its
+    counters), which come before its warm runs'."""
+    return {fn: seen.get(fn, [])[:launches[counter]]
+            for fn, (counter, _shape) in LAUNCHES.items()}
+
+
+def launch_shapes(fn: str, calls: list) -> list:
+    return sorted({LAUNCHES[fn][1](*args) for args in calls})
+
+
 def join_paths_phase(entry, native, cols: dict) -> dict:
     t0 = time.perf_counter()
     want3 = q3_oracle(cols, entry)
@@ -736,54 +799,35 @@ def join_paths_phase(entry, native, cols: dict) -> dict:
         f"{len(cols['customer']['c_custkey'])} CUSTOMER rows (generated + "
         f"oracles in {time.perf_counter() - t0:.2f} s)")
     # Keep the inputs of every K4 launch of q3 (its o_shippriority ships
-    # as a run table): the kernel is then checked and timed on them.
-    rle_seen = []
-    rle_launch = native.rle_expand
-
-    def rle_recording(run_vals, run_ends, num_rows, out_t):
-        rle_seen.append((run_vals, run_ends, num_rows, out_t.numel()))
-        return rle_launch(run_vals, run_ends, num_rows, out_t)
-
-    native.rle_expand = rle_recording
-    try:
+    # as a run table) and every K3 launch of q4: each kernel is then
+    # checked and timed on the main path's own inputs.
+    seen3, seen4 = {}, {}
+    with recording(native, seen3):
         out = {"q3": run_path("q3", q3, native, check_q3, want3)}
-    finally:
-        native.rle_expand = rle_launch
     log(f"q3 K3 launches: {out['q3']['launches']['join_probe']} (its joins "
         f"take the dense table)")
-    n_rle = out["q3"]["launches"]["rle_decode"]
-    if n_rle <= 0:
+    first = first_run(seen3, out["q3"]["launches"])["rle_expand"]
+    if not first:
         raise AssertionError("q3 did not launch K4 (rle_decode) under the "
                              "default wire codec")
-    first = rle_seen[:n_rle]
-    shapes = sorted({(v.numel(), str(v.dtype).replace("torch.", ""), cap)
-                     for v, _e, _n, cap in first})
-    log(f"q3 K4 launches {n_rle} (8 expected: one per ORDERS partition) "
-        f"over (run_cap, value type, cap) {shapes}")
-    vals, ends, nrows, cap = first[0]
-    out["q3_rle"] = rle_check(native, vals, ends, cap, nrows,
+    log(f"q3 K4 launches {len(first)} (8 expected: one per ORDERS "
+        f"partition) over (run_cap, value type, num_rows, cap) "
+        f"{launch_shapes('rle_expand', first)}")
+    vals, ends, nrows, out_t = first[0]
+    out["q3_rle"] = rle_check(native, vals, ends, out_t.numel(), nrows,
                               "q3 first launch", timed=True, profiled=True)
-    # Keep the inputs of every K3 launch of q4's first run: the kernel is
-    # then checked and timed on the main path's own fingerprints.
-    seen = []
-    launch = native.join_probe
-
-    def recording(built_fp, probe_fp, lo, hi):
-        seen.append((built_fp, probe_fp))
-        return launch(built_fp, probe_fp, lo, hi)
-
-    native.join_probe = recording
-    try:
+    with recording(native, seen4):
         out["q4"] = run_path("q4", q4, native, check_q4, want4)
-    finally:
-        native.join_probe = launch
-    n = out["q4"]["launches"]["join_probe"]
-    if n <= 0:
+    probes = first_run(seen4, out["q4"]["launches"])["join_probe"]
+    if not probes:
         raise AssertionError("q4 did not launch K3 (join_probe)")
-    shapes = sorted({(b.numel(), p.numel()) for b, p in seen})
-    log(f"q4 K3 launches {n} over (build x probe) shapes {shapes}")
-    out["q4_probe"] = probe_check(native, *seen[0], label="q4 first probe",
-                                  profiled=True, cold=True)
+    log(f"q4 K3 launches {len(probes)} over (build x probe) shapes "
+        f"{launch_shapes('join_probe', probes)}")
+    out["q4_probe"] = probe_check(native, *probes[0][:2],
+                                  label="q4 first probe", profiled=True,
+                                  cold=True)
+    out["seen"] = [first_run(seen3, out["q3"]["launches"]),
+                   first_run(seen4, out["q4"]["launches"])]
     out["plans"] = {"q3": q3, "q4": q4}
     return out
 
@@ -833,13 +877,15 @@ def seg_bound(n: int, key_bytes: int, capacity: int) -> tuple:
 
 
 def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
-              label: str, repeats: int = 1, timed: bool = True) -> dict:
+              label: str, repeats: int = 1, timed: bool = True,
+              profiled: bool = False) -> dict:
     """K2 (the per-group function, one C call) against its plain version
     (running scan + finish) bit for bit over ``repeats`` launches, and
     again with the whole column one segment and with a capacity below the
     largest id; against one ``scatter_reduce_`` into an identity-filled
     output bit for bit where every id fits; with ``timed``, the times of
-    K2, the plain version and the scatter_reduce beside the bound."""
+    K2, the plain version and the scatter_reduce beside the bound; with
+    ``profiled``, also K2's device time."""
     import torch
     n = keys.numel()
     sign = -(1 << 31) if keys.dtype == torch.int32 else INT64_MIN
@@ -893,11 +939,18 @@ def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
                                              capacity)
     lib_ms = "n/a (ids past capacity)" if r["library_ms"] is None \
         else f"{r['library_ms']:.4f} ms"
+    note = ""
+    if profiled:
+        r["device_ms"] = device_ms(lambda: native.seg_reduce(
+            gid, keys, kind, capacity, identity), 20)
+        note = "; device time " + (
+            "not measured (no device events)" if r["device_ms"] is None
+            else f"{r['device_ms']:.4f} ms (torch.profiler)")
     log(f"K2 seg_reduce {label} {kind}{r['key_bits']} n={n} "
         f"capacity={capacity}: bit-identical to plain over {repeats} "
         f"launch(es); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"scatter_reduce {lib_ms}, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})")
+        f"({r['bound_by']}){note}")
     return r
 
 
@@ -928,46 +981,256 @@ def q2_phase(entry, native, cols: dict) -> dict:
     # Keep the inputs of every K2 and K3 launch: each kernel is then
     # checked and timed on the main path's own launches (K2's largest,
     # K3's first).
-    seen, probes = [], []
-    launch, probe_launch = native.seg_reduce, native.join_probe
-
-    def recording(gid, keys, kind, capacity, identity):
-        seen.append((gid, keys, kind, capacity, identity))
-        return launch(gid, keys, kind, capacity, identity)
-
-    def probe_recording(built_fp, probe_fp, lo, hi):
-        probes.append((built_fp, probe_fp))
-        return probe_launch(built_fp, probe_fp, lo, hi)
-
-    native.seg_reduce = recording
-    native.join_probe = probe_recording
-    try:
+    seen = {}
+    with recording(native, seen):
         r = run_path("q2", plan, native, check_q2, want, show=5)
-    finally:
-        native.seg_reduce = launch
-        native.join_probe = probe_launch
     c = r["launches"]
-    if c["seg_reduce"] <= 0:
+    r["seen"] = first_run(seen, c)
+    first, probes = r["seen"]["seg_reduce"], r["seen"]["join_probe"]
+    if not first:
         raise AssertionError("q2 did not launch K2 (seg_reduce)")
-    first = seen[:c["seg_reduce"]]
-    shapes = sorted({(g.numel(), str(k.dtype).replace("torch.", ""), kind,
-                      cap_) for g, k, kind, cap_, _i in first})
-    if c["join_probe"] <= 0:
+    if not probes:
         raise AssertionError("q2 did not launch K3 (join_probe)")
-    probe_shapes = sorted({(b.numel(), p.numel())
-                           for b, p in probes[:c["join_probe"]]})
     log(f"q2 K2 launches {c['seg_reduce']} over (rows, key type, kind, "
-        f"capacity) {shapes}; K3 launches {c['join_probe']} (the fast path, "
-        f"about 4 expected) over (build x probe) {probe_shapes}; K1 sorts "
+        f"capacity) {launch_shapes('seg_reduce', first)}; K3 launches "
+        f"{c['join_probe']} (the fast path, about 4 expected) over (build x "
+        f"probe) {launch_shapes('join_probe', probes)}; K1 sorts "
         f"{c['radix_sort']}")
     gid, keys, kind, capacity, identity = max(
         first, key=lambda s: (s[1].numel(), s[1].element_size()))
     r["k2"] = seg_check(native, gid, keys, kind, capacity, identity,
-                        "q2 largest launch", repeats=SEG_REPEATS)
-    r["k3"] = probe_check(native, *probes[0], label="q2 first probe",
+                        "q2 largest launch", repeats=SEG_REPEATS,
+                        profiled=True)
+    r["k3"] = probe_check(native, *probes[0][:2], label="q2 first probe",
                           profiled=True)
     r["plan"] = plan
     return r
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: TPC-H q1-q6 through the DataFrame front end
+# ---------------------------------------------------------------------------
+
+def q5_oracle(cols: dict, E) -> list:
+    """TPC-H Q5 in plain numpy: (n_name, revenue) of the ASIA customers'
+    1994 orders whose line's supplier shares the customer's nation, by
+    revenue desc. Keys are positions: o_orderkey, c_custkey and
+    s_suppkey count from 1, n_nationkey from 0."""
+    n, c, o, li, s = (cols["nation"], cols["customer"], cols["orders"],
+                      cols["lineitem"], cols["supplier"])
+    asia = (n["n_regionkey"] == E.REGIONS.index(E.Q5_REGION_NAME))
+    cust_nat = c["c_nationkey"]
+    om = (o["o_orderdate"] >= E.Q5_DATE_LO) & (o["o_orderdate"]
+                                               < E.Q5_DATE_HI)
+    om &= asia[cust_nat[o["o_custkey"] - 1]]
+    order_nat = np.full(len(o["o_orderkey"]) + 1, -1, np.int64)
+    order_nat[o["o_orderkey"][om]] = cust_nat[o["o_custkey"][om] - 1]
+    line_nat = order_nat[li["l_orderkey"]]
+    hit = (line_nat >= 0) & (s["s_nationkey"][li["l_suppkey"] - 1]
+                             == line_nat)
+    rev = li["l_extendedprice"][hit] * (1.0 - li["l_discount"][hit])
+    sums = np.bincount(line_nat[hit], weights=rev, minlength=25)
+    present = np.bincount(line_nat[hit], minlength=25) > 0
+    rows = [(E.NATIONS[k][0], float(sums[k])) for k in range(25)
+            if present[k]]
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def check_q5(rows: list, want: list) -> None:
+    if not want:
+        raise AssertionError("q5 oracle is empty: nothing would be checked")
+    if [r[0] for r in rows] != [w[0] for w in want]:
+        raise AssertionError(f"q5 nations/order differ: {rows} vs {want}")
+    for got, exp in zip(rows, want):
+        if not np.isfinite(got[1]) or not np.isclose(
+                got[1], exp[1], rtol=ORACLE_RTOL, atol=0.0):
+            raise AssertionError(f"q5 revenue differs: {got} vs {exp}")
+
+
+def q6_oracle(cols: dict, E) -> list:
+    """TPC-H Q6 in plain numpy: one row, the 1994 revenue of lines with a
+    discount of 0.05-0.07 and a quantity below 24 (NULL when none)."""
+    li = cols["lineitem"]
+    m = ((li["l_shipdate"] >= E.Q6_DATE_LO)
+         & (li["l_shipdate"] < E.Q6_DATE_HI)
+         & (li["l_discount"] >= E.Q6_DISCOUNT_LO)
+         & (li["l_discount"] <= E.Q6_DISCOUNT_HI)
+         & (li["l_quantity"] < E.Q6_QUANTITY_BELOW))
+    if not m.any():
+        return [(None,)]
+    return [(float(np.sum(li["l_extendedprice"][m] * li["l_discount"][m])),)]
+
+
+def check_q6(rows: list, want: list) -> None:
+    if len(rows) != 1 or len(rows[0]) != 1:
+        raise AssertionError(f"q6: expected one value, got {rows}")
+    got, exp = rows[0][0], want[0][0]
+    if exp is None or got is None:
+        if got != exp:
+            raise AssertionError(f"q6 differs: {rows} vs {want}")
+    elif not np.isfinite(got) or not np.isclose(got, exp, rtol=ORACLE_RTOL,
+                                                atol=0.0):
+        raise AssertionError(f"q6 revenue differs: {rows} vs {want}")
+
+
+def rows_close(a: list, b: list) -> bool:
+    """Same rows in the same order: floats within ORACLE_RTOL, every other
+    value exact."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            return False
+        for x, y in zip(ra, rb):
+            if isinstance(x, float) and isinstance(y, float):
+                if not np.isclose(x, y, rtol=ORACLE_RTOL, atol=0.0):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+# Each query's numpy oracle and check; the kernels each must launch on the
+# DataFrame path.
+DF_QUERIES = ("q1", "q6", "q3", "q5", "q2", "q4")
+DF_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
+    "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
+    "radix_sort", "seg_reduce", "join_probe"), "q4": (
+    "radix_sort", "join_probe")}
+DF_WARM_RUNS = 3
+
+
+def df_oracles(cols: dict, E) -> dict:
+    return {
+        "q1": (check_q1, q1_oracle(cols["lineitem"], E.Q1_SHIPDATE_CUTOFF)),
+        "q6": (check_q6, q6_oracle(cols, E)),
+        "q3": (check_q3, q3_oracle(cols, E)),
+        "q5": (check_q5, q5_oracle(cols, E)),
+        "q2": (check_q2, q2_oracle(cols, E)),
+        "q4": (check_q4, q4_oracle(cols, E))}
+
+
+def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
+    """q1-q6 through ``TpuSession`` and the port's ``benchmarks/tpch.py``
+    (the reference's query text) on the card: each query planned (host
+    ms), run once (launch counters around that run alone, K2-K4's inputs
+    recorded) and ``DF_WARM_RUNS`` times warm, every run checked against
+    its numpy oracle; q1-q4's rows against the hand-built trees'
+    (``hand``: query -> (plan, launches of its first run)) in this
+    process. Then every K2, K3 and K4 launch whose shape no hand-built
+    path gave (``hand_seen``: their recorded first runs) is held to the
+    kernel's plain version: see :func:`df_kernel_checks`."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import wire
+    t0 = time.perf_counter()
+    session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
+    tables = tpch.tpch_tables(session, cols)
+    oracles = df_oracles(cols, E)
+    log(f"DataFrame phase: tables and oracles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for q in DF_QUERIES:
+        check, want = oracles[q]
+        t0 = time.perf_counter()
+        df = tpch.QUERIES[q](session, tables[q])
+        phys = df._physical()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        log(f"{q} DataFrame plan ({plan_ms:.2f} ms host, query text to "
+            f"exec tree):")
+        for line in phys.tree().splitlines():
+            log(f"  {line}")
+        for line in phys.explain().splitlines():
+            if "join strategy" in line:
+                log(f"  note: {line.strip()}")
+        native.reset_counters()
+        wire.reset_counters()
+        seen = {}
+        with recording(native, seen):
+            t0 = time.perf_counter()
+            rows = df.collect()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        launches = native.counters()
+        check(rows, want)
+        missing = [k for k in DF_MUST_LAUNCH[q] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{q} on the DataFrame path launched no "
+                                 f"{missing}: {launches}")
+        warm = []
+        for _ in range(DF_WARM_RUNS):
+            t0 = time.perf_counter()
+            rows = df.collect()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            check(rows, want)
+        note = ""
+        if q in hand:
+            plan, hand_launches = hand[q]
+            hand_rows = plan.collect()
+            check(hand_rows, want)
+            if not rows_close(rows, hand_rows):
+                raise AssertionError(f"{q}: DataFrame rows differ from the "
+                                     f"hand-built tree's: {rows[:3]} vs "
+                                     f"{hand_rows[:3]}")
+            same = "identical" if rows == hand_rows else \
+                "equal within the oracle's tolerance"
+            note = (f"; rows {same} to the hand-built tree's, whose first "
+                    f"run launched {hand_launches}")
+        log(f"{q} DataFrame path matches the numpy oracle ({len(rows)} "
+            f"rows): plan {plan_ms:.2f} ms, first run {first_s:.3f} s, warm "
+            f"{[round(w, 4) for w in warm]} s; launches {launches}{note}")
+        out[q] = dict(plan_ms=plan_ms, first_s=first_s, warm_s=warm,
+                      launches=launches, seen=first_run(seen, launches))
+    out["kernel_checks"] = df_kernel_checks(
+        native, {q: out[q]["seen"] for q in DF_QUERIES}, hand_seen)
+    return out
+
+
+def df_kernel_checks(native, df_seen: dict, hand_seen: list) -> list:
+    """Each K2, K3 and K4 launch of the DataFrame path (``df_seen``: query
+    -> recorded first run) whose shape no hand-built path launched
+    (``hand_seen``) held to the kernel's plain version bit for bit; the
+    largest such launch of a query and kernel also timed against its
+    plain version and library call, with its device time. Shapes the
+    hand-built paths gave were checked there."""
+    known = {fn: set() for fn in LAUNCHES}
+    for seen in hand_seen:
+        for fn, calls in seen.items():
+            known[fn].update(launch_shapes(fn, calls))
+    out = []
+    for q, seen in df_seen.items():
+        for fn, calls in seen.items():
+            if not calls:
+                continue
+            new = {}
+            for args in calls:
+                shape = LAUNCHES[fn][1](*args)
+                if shape not in known[fn]:
+                    new.setdefault(shape, args)
+            log(f"{q} DataFrame {fn}: {len(calls)} launches, shapes "
+                f"{launch_shapes(fn, calls)}; not launched by a hand-built "
+                f"path: {sorted(new) or 'none'}")
+            largest = max(new, default=None, key=lambda sh: [
+                x for x in sh if isinstance(x, int)])
+            for shape, args in sorted(new.items()):
+                timed = shape == largest
+                label = f"DataFrame {q} {'largest new' if timed else 'new'}"
+                if fn == "join_probe":
+                    r = probe_check(native, *args[:2], label=label,
+                                    profiled=timed, timed=timed)
+                elif fn == "seg_reduce":
+                    r = seg_check(native, *args, label, timed=timed,
+                                  profiled=timed)
+                else:
+                    vals, ends, nrows, out_t = args
+                    r = rle_check(native, vals, ends, out_t.numel(), nrows,
+                                  label, timed=timed, profiled=timed)
+                out.append(dict(r, query=q, kernel=fn, shape=shape))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1260,9 +1523,17 @@ def main() -> int:
                  "q4": joins["plans"]["q4"], "q2": q2["plan"]})
     encode_split(path["plan"], path["parts"])
 
-    # Phase 11: the kernels line
+    # Phase 11: TPC-H q1-q6 through the DataFrame front end
+    df = dataframe_phase(native, cols, {
+        "q1": (path["plan"], path["launches"]),
+        "q3": (joins["plans"]["q3"], joins["q3"]["launches"]),
+        "q4": (joins["plans"]["q4"], joins["q4"]["launches"]),
+        "q2": (q2["plan"], q2["launches"])}, joins["seen"] + [q2["seen"]])
+
+    # Phase 12: the kernels line
     runs = (path["launches"], joins["q3"]["launches"],
-            joins["q4"]["launches"], q2["launches"])
+            joins["q4"]["launches"], q2["launches"]) + tuple(
+                df[q]["launches"] for q in DF_QUERIES)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"radix_sort": "spark_rapids_tpu/ops/native.py:297",
                 "join_probe": "spark_rapids_tpu/ops/native.py:315",
@@ -1288,7 +1559,8 @@ def main() -> int:
             "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"]})
     log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}, "
-        f"q2 {runs[3]}")
+        f"q2 {runs[3]}; DataFrame path "
+        + ", ".join(f"{q} {df[q]['launches']}" for q in DF_QUERIES))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,237 @@
+"""DataFrame API front end (port of the JAX package's ``api/dataframe.py``;
+shapes mirror pyspark.sql).
+
+``TpuSession`` is the SparkSession analog: it holds the conf and the
+device, builds DataFrames from memory, and plans queries through the
+tag -> convert rewrite (plan/planner.py). ``DataFrame.collect`` runs the
+plan on the session's device; ``DataFrame.explain`` prints the
+will/will-not-run report. A query the port cannot run whole is refused
+when it is planned (``NotImplementedError``); there is no host engine yet.
+
+``TpuSession(device=None)`` runs on the CUDA card and raises when there is
+none; ``device="cpu"`` runs the plain-PyTorch path. ``read`` (file scans)
+is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.logical import Column, col
+from spark_rapids_tpu_torch.plan.planner import Planner
+
+
+class TpuSession:
+    """Session: conf + device + DataFrame builders (SparkSession
+    analog)."""
+
+    def __init__(self, conf: Optional[Dict] = None,
+                 device: DeviceLike = None):
+        self.conf = C.TpuConf(conf)
+        self.device = resolve_device(device)
+
+    # -- conf ----------------------------------------------------------------
+    def set(self, key: str, value) -> "TpuSession":
+        self.conf.set(key, value)
+        return self
+
+    # -- builders ------------------------------------------------------------
+    def create_dataframe(self, data: Union[Dict, List[tuple]],
+                         schema: Sequence[Tuple[str, dt.DataType]],
+                         num_partitions: int = 1) -> "DataFrame":
+        """A DataFrame over ``data`` split into ``num_partitions`` row
+        ranges: a dict of column -> values or a list of rows, as in the
+        reference, or a dict of column -> numpy array, built straight
+        into host batches (fixed-width columns only; no nulls)."""
+        schema = tuple(schema)
+        if isinstance(data, dict) and data and all(
+                isinstance(data[n], np.ndarray) for n, _ in schema):
+            return DataFrame(self, L.InMemoryScan(
+                schema, _numpy_partitions(data, schema, num_partitions)))
+        if isinstance(data, dict):
+            rows = list(zip(*[data[n] for n, _ in schema])) \
+                if data else []
+        else:
+            rows = list(data)
+        per = max(1, -(-len(rows) // num_partitions)) if rows else 1
+        parts = []
+        for i in range(num_partitions):
+            chunk = rows[i * per:(i + 1) * per]
+            cols = {n: [r[ci] for r in chunk]
+                    for ci, (n, _) in enumerate(schema)}
+            parts.append([HostBatch.from_pydict(schema, cols)])
+        return DataFrame(self, L.InMemoryScan(schema, parts))
+
+
+def _numpy_partitions(data: Dict[str, np.ndarray], schema,
+                      num_partitions: int) -> List[List[HostBatch]]:
+    n = len(data[schema[0][0]])
+    per = max(1, -(-n // num_partitions)) if n else 1
+    parts = []
+    for i in range(num_partitions):
+        lo, hi = min(i * per, n), min((i + 1) * per, n)
+        cols = []
+        for name, t in schema:
+            if t.is_string:
+                raise TypeError(f"column {name!r}: numpy input takes "
+                                "fixed-width columns; pass strings as "
+                                "python values")
+            v = np.ascontiguousarray(data[name][lo:hi], dtype=t.np_dtype)
+            cols.append(HostColumn(t, v, np.ones(hi - lo, np.bool_)))
+        parts.append([HostBatch(tuple(n for n, _ in schema), cols)])
+    return parts
+
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys: Sequence[Union[str, Column]],
+                 grouping: Optional[str] = None):
+        self._df = df
+        self._keys = [(k, col(k)) if isinstance(k, str)
+                      else (k.name_hint, k) for k in keys]
+        self._grouping = grouping
+
+    def agg(self, *aggs: Column, **named: Column) -> "DataFrame":
+        specs = []
+        for a in aggs:
+            specs.append((self._agg_name(a), a))
+        for name, a in named.items():
+            specs.append((name, a))
+        plan = L.LogicalAggregate(self._df._plan, self._keys, specs,
+                                  grouping=self._grouping)
+        return DataFrame(self._df._session, plan)
+
+    @staticmethod
+    def _agg_name(a: Column) -> str:
+        node = a.node
+        if node[0] == "alias":
+            return node[2]
+        if node[0] == "agg":
+            kind = node[1]
+            child = node[2]
+            base = child.name_hint if child is not None else "1"
+            return f"{kind}({base})"
+        return node[0]
+
+    def count(self) -> "DataFrame":
+        return self.agg(L.agg_count().alias("count"))
+
+
+class DataFrame:
+    """A logical plan bound to a session. ``DataFrame(session,
+    L.InMemoryScan(schema, partitions))`` serves a table already split
+    into partitions of host batches."""
+
+    def __init__(self, session: TpuSession, plan: L.LogicalPlan):
+        self._session = session
+        self._plan = plan
+
+    # -- schema ---------------------------------------------------------------
+    @property
+    def schema(self):
+        return self._plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return [n for n, _ in self.schema]
+
+    # -- transformations ------------------------------------------------------
+    def filter(self, condition: Column) -> "DataFrame":
+        return DataFrame(self._session,
+                         L.LogicalFilter(self._plan, condition))
+
+    where = filter
+
+    def _project(self, projections) -> "DataFrame":
+        return DataFrame(self._session,
+                         L.LogicalProject(self._plan, projections))
+
+    def select(self, *cols_: Union[str, Column]) -> "DataFrame":
+        projections = []
+        for c in cols_:
+            if isinstance(c, str):
+                projections.append((c, col(c)))
+            else:
+                projections.append((c.name_hint, c))
+        return self._project(projections)
+
+    def with_column(self, name: str, c: Column) -> "DataFrame":
+        # Replace in place like pyspark's withColumn; append when new.
+        if name in self.columns:
+            projections = [(n, c if n == name else col(n))
+                           for n in self.columns]
+        else:
+            projections = [(n, col(n)) for n in self.columns]
+            projections.append((name, c))
+        return self._project(projections)
+
+    withColumn = with_column
+
+    def group_by(self, *keys: Union[str, Column]) -> GroupedData:
+        return GroupedData(self, keys)
+
+    groupBy = group_by
+
+    def agg(self, *aggs: Column, **named: Column) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs, **named)
+
+    def order_by(self, *orders: Union[str, Column]) -> "DataFrame":
+        os_ = [col(o) if isinstance(o, str) else o for o in orders]
+        return DataFrame(self._session, L.LogicalSort(self._plan, os_))
+
+    orderBy = order_by
+    sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self._session, L.LogicalLimit(self._plan, n))
+
+    def join(self, other: "DataFrame", on: Union[str, Sequence[str], tuple],
+             how: str = "inner", condition: Optional[Column] = None,
+             strategy: str = "auto") -> "DataFrame":
+        if isinstance(on, str):
+            on = [on]
+        lkeys = [col(k) if isinstance(k, str) else k for k in on]
+        rkeys = list(lkeys)
+        plan = L.LogicalJoin(self._plan, other._plan, lkeys, rkeys,
+                             how, condition, strategy)
+        return DataFrame(self._session, plan)
+
+    def join_on(self, other: "DataFrame",
+                left_on: Sequence[Union[str, Column]],
+                right_on: Sequence[Union[str, Column]],
+                how: str = "inner", condition: Optional[Column] = None,
+                strategy: str = "auto") -> "DataFrame":
+        lkeys = [col(k) if isinstance(k, str) else k for k in left_on]
+        rkeys = [col(k) if isinstance(k, str) else k for k in right_on]
+        plan = L.LogicalJoin(self._plan, other._plan, lkeys, rkeys,
+                             how, condition, strategy)
+        return DataFrame(self._session, plan)
+
+    # -- actions --------------------------------------------------------------
+    def _physical(self):
+        """Plan once per conf version (no plan cache: the reference's
+        parameterized plan cache is not ported)."""
+        key = self._session.conf.version
+        cached = getattr(self, "_phys_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        phys = Planner(self._session.conf, self._session.device).plan(
+            self._plan)
+        self._phys_cache = (key, phys)
+        return phys
+
+    def collect(self) -> List[tuple]:
+        return self._physical().collect()
+
+    def count_rows(self) -> int:
+        return len(self.collect())
+
+    def explain(self, mode: str = "ALL") -> str:
+        report = self._physical().explain(mode)
+        print(report)
+        return report

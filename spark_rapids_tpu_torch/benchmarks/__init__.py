@@ -1,0 +1,1 @@
+"""Benchmarks of the port (see each module for its JAX counterpart)."""

@@ -2,8 +2,11 @@
 ``config.py`` registry, under the same key names and defaults).
 
 ``TpuConf`` resolves values from a plain dict, the stand-in for Spark SQL
-conf. Only the keys this slice consults are registered; later slices add
-theirs here.
+conf. Only the keys the port consults are registered; later slices add
+theirs here. The per-operator kill switches
+(``spark.rapids.sql.exec.<Node>`` / ``spark.rapids.sql.expression.<kind>``)
+are not registered: ``TpuConf.is_op_enabled`` reads them from the raw dict,
+default on, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -54,6 +57,64 @@ def _entry(key: str, doc: str, value_type: str, default: Any) -> ConfEntry:
     return e
 
 
+SQL_ENABLED = _entry(
+    "spark.rapids.sql.enabled",
+    "Enable or disable running SQL operators on the device.", "boolean",
+    True)
+
+EXPLAIN = _entry(
+    "spark.rapids.sql.explain",
+    "Explain why parts of a query were or were not placed on the device: "
+    "NONE, ALL, or NOT_ON_GPU (only print replacement failures).",
+    "string", "NONE")
+
+AUTO_BROADCAST_THRESHOLD = _entry(
+    "spark.rapids.sql.autoBroadcastJoinThreshold",
+    "Joins with strategy 'auto' broadcast the build side when its "
+    "estimated size (plan/pruning.py estimate_bytes) is at most this many "
+    "bytes, else hash-shuffle both sides (Spark "
+    "autoBroadcastJoinThreshold semantics: -1 disables auto-broadcast "
+    "entirely).", "long", 64 * 1024 * 1024)
+
+INCOMPATIBLE_OPS = _entry(
+    "spark.rapids.sql.incompatibleOps.enabled",
+    "Enable operators that produce results that differ from Spark CPU in "
+    "corner cases (float aggregation order, locale-sensitive strings...).",
+    "boolean", False)
+
+VARIABLE_FLOAT_AGG = _entry(
+    "spark.rapids.sql.variableFloatAgg.enabled",
+    "Allow float/double aggregations whose result can vary with "
+    "evaluation order (parallel reductions on the device).", "boolean",
+    False)
+
+IMPROVED_FLOAT_OPS = _entry(
+    "spark.rapids.sql.improvedFloatOps.enabled",
+    "Use fused float paths that can round differently from the JVM.",
+    "boolean", False)
+
+TEST_ENABLED = _entry(
+    "spark.rapids.sql.test.enabled",
+    "Test mode: fail any query that would execute a non-allowlisted "
+    "operator on the host (ref: GpuTransitionOverrides.assertIsOnTheGpu).",
+    "boolean", False)
+
+TEST_ALLOWED_NONTPU = _entry(
+    "spark.rapids.sql.test.allowedNonTpu",
+    "Comma-separated exec class names tolerated on host in test mode.",
+    "string", "")
+
+REPLACE_SORT_MERGE_JOIN = _entry(
+    "spark.rapids.sql.replaceSortMergeJoin.enabled",
+    "Replace sort-merge joins with device hash joins, dropping the sorts "
+    "(ref: GpuSortMergeJoinExec meta).", "boolean", True)
+
+SHUFFLE_PARTITIONS = _entry(
+    "spark.rapids.sql.shuffle.partitions",
+    "Number of shuffle output partitions for exchanges (analog of "
+    "spark.sql.shuffle.partitions). Unset on one device, the planner "
+    "plans one partition.", "long", 8)
+
 BATCH_SIZE_BYTES = _entry(
     "spark.rapids.sql.batchSizeBytes",
     "Target size in bytes for coalesced device batches.", "long",
@@ -98,6 +159,41 @@ class TpuConf:
 
     def __init__(self, raw: Optional[Dict[str, Any]] = None):
         self.raw = dict(raw or {})
+        self._version = 0
+
+    @property
+    def version(self) -> int:
+        """Bumped on every set(); DataFrames plan once per version."""
+        return self._version
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self)
+
+    def set(self, key: str, value: Any) -> "TpuConf":
+        self.raw[key] = value
+        self._version += 1
+        return self
+
+    def is_op_enabled(self, conf_key: str) -> bool:
+        """Per-rule kill switch lookup; default True (ref: RapidsMeta
+        confKey)."""
+        raw = self.raw.get(conf_key)
+        if raw is None:
+            return True
+        return raw if isinstance(raw, bool) else _parse_bool(str(raw))
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
+
+    @property
+    def incompatible_ops(self) -> bool:
+        return self.get(INCOMPATIBLE_OPS)
+
+    @property
+    def test_enabled(self) -> bool:
+        return self.get(TEST_ENABLED)

@@ -23,6 +23,11 @@ q3 and q4.
   top 100) builds the exec tree the JAX package's planner builds for
   ``tpch.q2`` at SF1 with default conf; ``tpch_q2_tables`` makes its
   scans, the column-pruned ones included.
+- ``tpch_columns`` holds every column TPC-H q1-q6 read; ``Q5_*`` and
+  ``Q6_*`` name q5's and q6's scans and constants. The DataFrame front
+  end runs all six from the reference's query text
+  (``benchmarks/tpch.py``); the hand-built trees above are its
+  comparison.
 
 ``device=None`` means the CUDA card and raises when there is none; pass
 ``device="cpu"`` for the plain-PyTorch path.
@@ -183,7 +188,7 @@ def _concat_strings(*pieces) -> np.ndarray:
 
 
 def tpch_columns(scale: float, seed: int = 0) -> dict:
-    """The columns TPC-H q1, q2, q3 and q4 read, as numpy arrays per table
+    """The columns TPC-H q1-q6 read, as numpy arrays per table
     (``{"lineitem": {...}, "orders": {...}, "customer": {...}, "part":
     {...}, "partsupp": {...}, "supplier": {...}, "nation": {...},
     "region": {...}}``): the JAX package's TPC-H generator
@@ -228,8 +233,11 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     returnflag = np.where(l_receiptdate <= cutoff,
                           np.where(ra == 0, ord("A"), ord("R")), ord("N"))
     linestatus = np.where(l_shipdate > cutoff, ord("O"), ord("F"))
-    rng.integers(1, n_part + 1, n_li, dtype=np.int64)      # partkey
-    rng.integers(0, 4, n_li)                                # suppkey offset
+    # Each line's supplier is one of its part's 4 (the generator's
+    # formula).
+    l_partkey = rng.integers(1, n_part + 1, n_li, dtype=np.int64)
+    l_suppkey = ((l_partkey + rng.integers(0, 4, n_li) * (n_supp // 4 + 1))
+                 % n_supp) + 1
     rng.integers(0, _N_SHIPMODES, n_li)
     rng.integers(0, _N_SHIPINSTRUCT, n_li)
     # PART: name words, type, container, brand, size, retail price.
@@ -278,7 +286,8 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     s_suppkey = np.arange(1, n_supp + 1, dtype=np.int64)
     return {
         "lineitem": {
-            "l_orderkey": l_orderkey, "l_quantity": l_quantity,
+            "l_orderkey": l_orderkey, "l_suppkey": l_suppkey,
+            "l_quantity": l_quantity,
             "l_extendedprice": l_extendedprice, "l_discount": l_discount,
             "l_tax": l_tax, "l_returnflag": returnflag.astype(np.uint8),
             "l_linestatus": linestatus.astype(np.uint8),
@@ -449,6 +458,28 @@ Q4_LINEITEM = (("l_orderkey", dt.INT64), ("l_commitdate", dt.DATE),
                ("l_receiptdate", dt.DATE))
 Q4_DATE_LO = days("1993-07-01")
 Q4_DATE_HI = days("1993-10-01")
+
+# The scans of TPC-H q5 (local supplier volume) and q6 (forecasting
+# revenue change): the columns each query reads.
+Q5_REGION = (("r_regionkey", dt.INT64), ("r_name", dt.STRING))
+Q5_NATION = (("n_nationkey", dt.INT64), ("n_name", dt.STRING),
+             ("n_regionkey", dt.INT64))
+Q5_CUSTOMER = (("c_custkey", dt.INT64), ("c_nationkey", dt.INT64))
+Q5_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
+             ("o_orderdate", dt.DATE))
+Q5_LINEITEM = (("l_orderkey", dt.INT64), ("l_suppkey", dt.INT64),
+               ("l_extendedprice", dt.FLOAT64), ("l_discount", dt.FLOAT64))
+Q5_SUPPLIER = (("s_suppkey", dt.INT64), ("s_nationkey", dt.INT64))
+Q5_REGION_NAME = "ASIA"
+Q5_DATE_LO = days("1994-01-01")
+Q5_DATE_HI = days("1995-01-01")
+
+Q6_LINEITEM = (("l_quantity", dt.FLOAT64), ("l_extendedprice", dt.FLOAT64),
+               ("l_discount", dt.FLOAT64), ("l_shipdate", dt.DATE))
+Q6_DATE_LO = days("1994-01-01")
+Q6_DATE_HI = days("1995-01-01")
+Q6_DISCOUNT_LO, Q6_DISCOUNT_HI = 0.05, 0.07
+Q6_QUANTITY_BELOW = 24.0
 
 
 def _tables(cols: dict, schemas: dict) -> dict:

@@ -1,0 +1,391 @@
+"""Logical plans and the untyped column DSL (port of the JAX package's
+``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q6 use).
+
+The DataFrame API (api/dataframe.py) builds this logical plan with
+unresolved, name-based expressions. ``resolve`` binds names to ordinals
+and picks the port's typed expression classes (exprs/*), the analog of
+Catalyst analysis feeding GpuOverrides.
+
+``resolve`` maps the kinds the port has an expression for; any other kind
+raises ``NotPortedError`` (a ``ResolutionError``) naming it. The reference's
+other DSL functions and nodes (windows, generate, union, range,
+repartition, file scans, pandas) come with the slices that port their
+operators.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+from spark_rapids_tpu_torch import exprs as E
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.exprs.base import BoundReference, Expression
+
+Schema = Tuple[Tuple[str, DataType], ...]
+
+
+# ---------------------------------------------------------------------------
+# Untyped column AST (the DataFrame DSL)
+# ---------------------------------------------------------------------------
+
+class Column:
+    """Unresolved expression node; operators build the AST lazily."""
+
+    def __init__(self, node: Tuple):
+        self.node = node
+
+    # -- operators -----------------------------------------------------------
+    def _bin(self, op: str, other) -> "Column":
+        return Column((op, self, _as_col(other)))
+
+    def __add__(self, o):
+        return self._bin("add", o)
+
+    def __radd__(self, o):
+        return _as_col(o)._bin("add", self)
+
+    def __sub__(self, o):
+        return self._bin("sub", o)
+
+    def __rsub__(self, o):
+        return _as_col(o)._bin("sub", self)
+
+    def __mul__(self, o):
+        return self._bin("mul", o)
+
+    def __rmul__(self, o):
+        return _as_col(o)._bin("mul", self)
+
+    def __truediv__(self, o):
+        return self._bin("div", o)
+
+    def __mod__(self, o):
+        return self._bin("mod", o)
+
+    def __neg__(self):
+        return Column(("neg", self))
+
+    def __eq__(self, o):  # type: ignore[override]
+        return self._bin("eq", o)
+
+    def __ne__(self, o):  # type: ignore[override]
+        return Column(("not", self._bin("eq", o)))
+
+    def __lt__(self, o):
+        return self._bin("lt", o)
+
+    def __le__(self, o):
+        return self._bin("le", o)
+
+    def __gt__(self, o):
+        return self._bin("gt", o)
+
+    def __ge__(self, o):
+        return self._bin("ge", o)
+
+    def __and__(self, o):
+        return self._bin("and", o)
+
+    def __or__(self, o):
+        return self._bin("or", o)
+
+    def __invert__(self):
+        return Column(("not", self))
+
+    def __hash__(self):
+        return id(self)
+
+    # -- named helpers --------------------------------------------------------
+    def alias(self, name: str) -> "Column":
+        return Column(("alias", self, name))
+
+    def cast(self, to: Union[str, DataType]) -> "Column":
+        t = dt.type_named(to) if isinstance(to, str) else to
+        return Column(("cast", self, t))
+
+    def isNull(self) -> "Column":
+        return Column(("isnull", self))
+
+    def isNotNull(self) -> "Column":
+        return Column(("isnotnull", self))
+
+    def startswith(self, s: str) -> "Column":
+        return Column(("startswith", self, s))
+
+    def endswith(self, s: str) -> "Column":
+        return Column(("endswith", self, s))
+
+    def contains(self, s: str) -> "Column":
+        return Column(("contains", self, s))
+
+    def asc(self) -> "Column":
+        return Column(("sortorder", self, True, True))
+
+    def desc(self) -> "Column":
+        return Column(("sortorder", self, False, False))
+
+    @property
+    def name_hint(self) -> str:
+        n = self.node
+        if n[0] == "ref":
+            return n[1]
+        if n[0] == "alias":
+            return n[2]
+        return n[0]
+
+
+def col(name: str) -> Column:
+    return Column(("ref", name))
+
+
+def lit_col(value) -> Column:
+    return Column(("lit", value))
+
+
+def _as_col(v) -> Column:
+    if isinstance(v, Column):
+        return v
+    return lit_col(v)
+
+
+# Aggregate builders.
+def agg_sum(c) -> Column:
+    return Column(("agg", "sum", _as_col(c)))
+
+
+def agg_count(c=None) -> Column:
+    return Column(("agg", "count", None if c is None else _as_col(c)))
+
+
+def agg_min(c) -> Column:
+    return Column(("agg", "min", _as_col(c)))
+
+
+def agg_max(c) -> Column:
+    return Column(("agg", "max", _as_col(c)))
+
+
+def agg_avg(c) -> Column:
+    return Column(("agg", "avg", _as_col(c)))
+
+
+# ---------------------------------------------------------------------------
+# Expression resolution (name -> ordinal, untyped -> typed)
+# ---------------------------------------------------------------------------
+
+class ResolutionError(ValueError):
+    pass
+
+
+class NotPortedError(ResolutionError):
+    """A kind the reference resolves and the port has no expression for
+    yet. The planner's tagging turns it into an "is not ported" reason."""
+
+
+_BINARY = {
+    "add": E.Add, "sub": E.Subtract, "mul": E.Multiply, "eq": E.EqualTo,
+    "lt": E.LessThan, "le": E.LessThanOrEqual, "gt": E.GreaterThan,
+    "ge": E.GreaterThanOrEqual, "and": E.And, "or": E.Or,
+}
+_UNARY = {"not": E.Not, "isnull": E.IsNull, "isnotnull": E.IsNotNull}
+_NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
+           "contains": E.Contains}
+# Every kind ``resolve`` maps onto a port expression.
+PORTED_KINDS = frozenset({"ref", "lit", "alias"} | set(_BINARY)
+                         | set(_UNARY) | set(_NEEDLE))
+
+
+def resolve(c: Column, schema: Schema) -> Expression:
+    """Bind an untyped Column AST against a schema."""
+    node = c.node
+    kind = node[0]
+    names = [n for n, _ in schema]
+
+    def rec(x):
+        return resolve(x, schema)
+
+    if kind == "ref":
+        name = node[1]
+        if name not in names:
+            raise ResolutionError(
+                f"column {name!r} not in {names}")
+        i = names.index(name)
+        return BoundReference(i, schema[i][1], name)
+    if kind == "lit":
+        v = node[1]
+        if v is None:
+            raise ResolutionError("untyped NULL literal; use typed lit")
+        return E.lit(v)
+    if kind == "alias":
+        return rec(node[1])
+    if kind in _UNARY:
+        return _UNARY[kind](rec(node[1]))
+    if kind in _BINARY:
+        l, r = rec(node[1]), rec(node[2])
+        l, r = _coerce_pair(l, r)
+        return _BINARY[kind](l, r)
+    if kind in _NEEDLE:
+        return _NEEDLE[kind](rec(node[1]), E.lit(node[2]))
+    if kind == "sortorder":
+        raise ResolutionError("sort order only valid in orderBy")
+    raise NotPortedError(f"expression {kind} is not ported")
+
+
+def _coerce_pair(l: Expression, r: Expression):
+    """Numeric literal widening so col(int32) == lit(5) type-checks."""
+    lt, rt = l.data_type(), r.data_type()
+    if lt == rt:
+        return l, r
+    if lt.is_numeric and rt.is_numeric:
+        return l, r   # binary templates widen internally
+    if lt.is_datetime and rt.is_integral:
+        return l, r
+    if rt.is_datetime and lt.is_integral:
+        return l, r
+    if lt.is_string != rt.is_string:
+        # Spark casts literals; keep strict here: casts must be explicit.
+        raise ResolutionError(f"type mismatch: {lt} vs {rt}")
+    return l, r
+
+
+# ---------------------------------------------------------------------------
+# Logical plan nodes
+# ---------------------------------------------------------------------------
+
+class LogicalPlan:
+    children: Tuple["LogicalPlan", ...] = ()
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+
+def _cached_schema(fn):
+    """Memoize a node's schema keyed on the IDENTITY of its children
+    tuple. Plan rewrites (pruning) never mutate a node in place: they
+    build new nodes with a NEW children tuple, so tuple identity is a
+    sound validity token, and holding the tuple in the memo keeps it
+    alive (no id-reuse hazard)."""
+    def get(self):
+        memo = self.__dict__.get("_schema_memo")
+        if memo is not None and memo[0] is self.children:
+            return memo[1]
+        s = fn(self)
+        self.__dict__["_schema_memo"] = (self.children, s)
+        return s
+    return property(get)
+
+
+@dataclasses.dataclass
+class InMemoryScan(LogicalPlan):
+    source_schema: Schema
+    partitions: list            # List[List[HostBatch]]
+    children = ()
+
+    @property
+    def schema(self) -> Schema:
+        return self.source_schema
+
+
+class _Unary(LogicalPlan):
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+
+class LogicalFilter(_Unary):
+    def __init__(self, child, condition: Column):
+        super().__init__(child)
+        self.condition = condition
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalProject(_Unary):
+    def __init__(self, child, projections: Sequence[Tuple[str, Column]]):
+        super().__init__(child)
+        self.projections = list(projections)
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        out = []
+        for name, c in self.projections:
+            e = resolve(c, self.child.schema)
+            out.append((name, e.data_type()))
+        return tuple(out)
+
+
+class LogicalAggregate(_Unary):
+    def __init__(self, child, group_by: Sequence[Tuple[str, Column]],
+                 aggregates: Sequence[Tuple[str, Column]],
+                 grouping: Optional[str] = None):
+        super().__init__(child)
+        self.group_by = list(group_by)
+        self.aggregates = list(aggregates)
+        # None = plain GROUP BY; "rollup"/"cube" are grouping sets, which
+        # the port's planner refuses (ExpandExec is not ported).
+        assert grouping in (None, "rollup", "cube")
+        self.grouping = grouping
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.plan.planner import resolve_agg
+        out = []
+        for name, c in self.group_by:
+            out.append((name, resolve(c, self.child.schema).data_type()))
+        for name, c in self.aggregates:
+            fn = resolve_agg(c, self.child.schema)
+            out.append((name, fn.result_type))
+        return tuple(out)
+
+
+class LogicalSort(_Unary):
+    def __init__(self, child, orders: Sequence[Column]):
+        super().__init__(child)
+        self.orders = list(orders)
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalLimit(_Unary):
+    def __init__(self, child, n: int):
+        super().__init__(child)
+        self.n = n
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalJoin(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Column], right_keys: Sequence[Column],
+                 join_type: str = "inner",
+                 condition: Optional[Column] = None,
+                 strategy: str = "auto"):
+        self.children = (left, right)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.join_type = join_type
+        self.condition = condition
+        self.strategy = strategy    # auto | broadcast | shuffle
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        if self.join_type in ("semi", "anti"):
+            return self.children[0].schema
+        return tuple(self.children[0].schema) + \
+            tuple(self.children[1].schema)

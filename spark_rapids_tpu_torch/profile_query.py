@@ -2,10 +2,12 @@
 
     python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|q3|q4]
         [--codec v2|v1|plain] [--scale 1.0] [--partitions 8]
-        [--trace q1_trace.json]
+        [--dataframe] [--trace q1_trace.json]
 
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
-``tpch_q4_plan``, over the generator's partitions) ``.collect()`` on the
+``tpch_q4_plan``, over the generator's partitions) ``.collect()``, or with
+``--dataframe`` the exec tree the planner builds from ``benchmarks/tpch.py``
+(q1-q6, ``variableFloatAgg`` on, over ``tpch_tables``), on the
 CUDA card under the wire codec ``--codec`` (default v2): one warm-up run
 (the sources pack their batches there and keep them), then host-clock
 times of the upload alone (split into a fresh host encode + pack of every
@@ -15,7 +17,7 @@ Prints the
 host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
 of kernel time over the profiled wall time). ``--partitions`` applies to
-q1. Needs a CUDA device.
+the hand-built q1. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,21 +47,37 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import ExecContext, native
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q1", "q2", "q3", "q4"),
+    ap.add_argument("--query", choices=("q1", "q2", "q3", "q4", "q5", "q6"),
                     default="q1")
     ap.add_argument("--codec", choices=wire.CODEC_MODES, default="v2")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--dataframe", action="store_true")
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
+    if args.query in ("q5", "q6") and not args.dataframe:
+        ap.error(f"{args.query} has no hand-built tree: add --dataframe")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_query needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    if args.query == "q1":
+    if args.dataframe:
+        from spark_rapids_tpu_torch.api import TpuSession
+        from spark_rapids_tpu_torch.benchmarks import tpch
+        from spark_rapids_tpu_torch.plan import logical as L
+        session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled":
+                              True})
+        cols = entry.tpch_columns(args.scale, seed=0)
+        dfs = tpch.tpch_tables(session, cols)[args.query]
+        tables = {t: df._plan.partitions for t, df in dfs.items()
+                  if isinstance(df._plan, L.InMemoryScan)}
+        phys = tpch.QUERIES[args.query](session, dfs)._physical()
+        print(phys.tree())
+        plan = phys.root
+    elif args.query == "q1":
         tables = {"lineitem": entry.tpch_q1_host_batches(
             args.scale, args.partitions, seed=0)}
         plan = entry.tpch_q1_plan(tables["lineitem"], device="cuda")
@@ -149,7 +167,8 @@ def main() -> int:
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
-    print(json.dumps({"query": args.query, "codec": args.codec,
+    print(json.dumps({"query": args.query, "dataframe": args.dataframe,
+                      "codec": args.codec,
                       "rows": n_rows, "warm_wall_s": walls,
                       "upload_s": pack_s + put_s, "encode_pack_s": pack_s,
                       "copy_decode_s": put_s,

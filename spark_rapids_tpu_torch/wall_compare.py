@@ -2,7 +2,8 @@
 for the port in any source tree.
 
     python3 spark_rapids_tpu_torch/wall_compare.py [--tree DIR]
-        [--codecs v2,plain] [--runs 3] [--label NAME] [--kernels]
+        [--codecs v2,plain] [--runs 3] [--label NAME]
+        [--kernels | --dataframe]
 
 Run it by its path, not with ``-m``: it imports ``spark_rapids_tpu_torch``
 from ``--tree`` (the root of a checkout; default the checkout holding this
@@ -31,6 +32,15 @@ Each result is first checked against the tree's plain version (K1
 against ``torch.sort``, K2 against ``scatter_reduce_``). ``--runs``
 rounds of CUDA-event means over 200 back-to-back calls each; one JSON
 line.
+
+With ``--dataframe`` it times TPC-H q1-q6 through the DataFrame front end
+(``TpuSession`` with ``variableFloatAgg`` on, ``benchmarks/tpch.py`` over
+``tpch_tables``) beside the hand-built trees of q1-q4 (``entry``), under
+the default codec, in this one process: for each query the planning time
+of a fresh DataFrame (host ms), the first collect of the hand-built tree
+and of the DataFrame's plan, then ``--runs`` rounds of one warm collect of
+each in turns (hand-built, DataFrame, DataFrame, hand-built, ...). The
+rows of both paths must be equal. One JSON line a query. A tree without the front end cannot run this mode.
 """
 
 from __future__ import annotations
@@ -173,7 +183,9 @@ def main() -> int:
     ap.add_argument("--codecs", default="v2,plain")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernels", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--kernels", action="store_true")
+    mode.add_argument("--dataframe", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     _import_tree(tree)
@@ -199,6 +211,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cols = entry.tpch_columns(1.0, seed=0)
+    if args.dataframe:
+        print(f"{label}: kernels built in {build_s:.2f} s, SF1 data in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        _dataframe_walls(label, entry, cols, args.runs)
+        _print_device()
+        return 0
     plans = {"q1": entry.tpch_q1_plan(
         entry.tpch_q1_host_batches(1.0, partitions=8, seed=0),
         device="cuda")}
@@ -235,6 +253,48 @@ def main() -> int:
               flush=True)
     _print_device()
     return 0
+
+
+def _dataframe_walls(label: str, entry, cols: dict, runs: int) -> None:
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
+    tables = tpch.tpch_tables(session, cols)
+    hand = {"q1": lambda: entry.tpch_q1_plan(entry.table_partitions(
+        cols["lineitem"], entry.Q1_SCHEMA, entry.TABLE_PARTITIONS[
+            "lineitem"]), device="cuda")}
+    for q in QUERIES[1:]:
+        hand[q] = (lambda q=q: getattr(entry, f"tpch_{q}_plan")(
+            getattr(entry, f"tpch_{q}_tables")(cols), device="cuda"))
+
+    def run(collect):
+        t0 = time.perf_counter()
+        rows = collect()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, rows
+
+    for q in ("q1", "q6", "q3", "q5", "q2", "q4"):
+        t0 = time.perf_counter()
+        df = tpch.QUERIES[q](session, tables[q])
+        df._physical()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        paths = {"dataframe": df.collect}
+        if q in hand:
+            paths = {"hand": hand[q]().collect, **paths}
+        first, warm, want = {}, {p: [] for p in paths}, None
+        for p, collect in paths.items():
+            first[p], rows = run(collect)
+            if want is None:
+                want = rows
+            elif rows != want:
+                raise AssertionError(f"{q}: {p} rows differ")
+        order = list(paths)
+        for r in range(runs):
+            for p in (order if r % 2 == 0 else order[::-1]):
+                warm[p].append(run(paths[p])[0])
+        print(json.dumps({"tree": label, "query": q, "plan_ms": plan_ms,
+                          "first_s": first, "warm_s": warm}), flush=True)
 
 
 def _print_device() -> None:

@@ -403,15 +403,16 @@ def test_group_ids_parity(names, live):
 
 def test_port_imports_no_jax():
     """A fresh interpreter importing the port, every one of its modules
-    and chip_smoke.py loads neither jax nor the JAX package."""
+    and chip_smoke.py loads neither jax nor the JAX package, nor pyarrow
+    or pandas (the card's machine has neither)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import spark_rapids_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'spark_rapids_tpu' or m.startswith('spark_rapids_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax',"
+        " 'spark_rapids_tpu', 'pyarrow', 'pandas')]\n"
         "assert not bad, bad\n"
         "print(' '.join(sorted(m for m in sys.modules"
         " if m.startswith('spark_rapids_tpu_torch'))))\n")
@@ -422,5 +423,6 @@ def test_port_imports_no_jax():
     loaded = set(out.stdout.split())
     assert len(loaded) >= 18
     for m in ("ops.join", "ops.native", "ops.basic", "ops.sort", "entry",
-              "profile_query"):
+              "profile_query", "plan.logical", "plan.pruning",
+              "plan.planner", "api.dataframe", "benchmarks.tpch"):
         assert f"spark_rapids_tpu_torch.{m}" in loaded, m
