@@ -98,9 +98,24 @@ Phases (each raises on failure; any failure exits non-zero):
    coalesced ORDERS side) must equal the kernel's plain version bit for
    bit, and the largest such launch of a query is timed against its
    plain version and library call, with its device time.
-12. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+12. Default conf: q1-q6 through ``TpuSession()`` with no conf, whose
+   float Sum/Avg aggregates the planner places on the host engine (numpy)
+   between device subtrees, bridged by ``DeviceToHostExec`` and
+   ``HostToDeviceExec``. Each query's host-tagged nodes must be the
+   Aggregate in q1, q3, q5 and q6 and none in q2 and q4; its bridges and
+   the rows and bytes each download moves are printed. Its first run
+   (counters around it alone, every K1-K4 launch recorded) must match the
+   numpy oracle and launch K1 in q1, q3, q5, q2 and q4, K2 in q2, K3 in
+   q2 and q4, K4 in q3; each launch of a shape no earlier phase checked
+   must equal the kernel's plain version bit for bit. Warm walls in turns
+   beside the same query with ``variableFloatAgg`` on (phase 11's
+   all-device tree), each run checked, with the host engine's share of
+   each default-conf wall (host clock inside the host subtrees less the
+   device subtrees and downloads below them).
+13. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
-   front end), its error against the plain version, its
+   front end, then q1-q6 under the default conf), its error against the
+   plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -1234,6 +1249,190 @@ def df_kernel_checks(native, df_seen: dict, hand_seen: list) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: TPC-H q1-q6 under the default conf (mixed device/host plans)
+# ---------------------------------------------------------------------------
+
+# The logical nodes the default conf places on the host (its float Sum/Avg
+# aggregates), and the kernels each query must launch in this phase.
+DEFAULT_HOST_NODES = {"q1": ["LogicalAggregate"], "q6": ["LogicalAggregate"],
+                      "q3": ["LogicalAggregate"], "q5": ["LogicalAggregate"],
+                      "q2": [], "q4": []}
+DEFAULT_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
+    "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
+    "radix_sort", "seg_reduce", "join_probe"), "q4": (
+    "radix_sort", "join_probe")}
+DEFAULT_TURNS = 3
+# Phase 3's K1 shapes: (rows, key dtype, with a permutation).
+K1_CHECKED = {(cap, "int64", perm) for cap in CAPS for perm in (False, True)}
+
+
+@contextlib.contextmanager
+def recording_k1(native, seen: list):
+    """While the block runs, keep the (keys, perm) of every K1 launch in
+    ``seen``; the launches and their counts are unchanged."""
+    launch = native.radix_sort
+
+    def recorder(keys, perm, out):
+        seen.append((keys, perm))
+        return launch(keys, perm, out)
+    native.radix_sort = recorder
+    try:
+        yield seen
+    finally:
+        native.radix_sort = launch
+
+
+def k1_shape(keys, perm) -> tuple:
+    return (keys.numel(), str(keys.dtype).replace("torch.", ""),
+            perm is not None)
+
+
+def k1_checks(native, q: str, calls: list) -> list:
+    """Each K1 launch of a shape phase 3 did not check, again through the
+    wrapper, bit for bit against the plain version."""
+    import torch
+    out = []
+    for shape in sorted({k1_shape(*a) for a in calls} - K1_CHECKED):
+        keys, perm = next(a for a in calls if k1_shape(*a) == shape)
+        got = native.stable_argsort_u32(keys, perm)
+        plain = native.stable_argsort_u32_plain(keys, perm)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{q} default conf: K1 != plain at "
+                                 f"{shape}")
+        out.append(dict(query=q, kernel="radix_sort", shape=shape,
+                        max_abs_err=err))
+    if out:
+        log(f"{q} default conf K1: {len(calls)} launches; new shapes "
+            f"(rows, key type, perm) {[r['shape'] for r in out]} "
+            f"bit-identical to the plain version")
+    return out
+
+
+def _bridges(e, parent=None, out=None) -> list:
+    """(transition exec, its parent, its child) of every bridge."""
+    out = [] if out is None else out
+    name = type(e).__name__
+    if name in ("DeviceToHostExec", "HostToDeviceExec"):
+        out.append((e, parent, type(e.children[0]).__name__))
+    for c in e.children:
+        _bridges(c, name, out)
+    return out
+
+
+def host_engine_ms(ctx, wall_ms: float, root_on_device: bool) -> float:
+    """The host engine's share of one run: the host clock inside the
+    host subtrees (each HostToDeviceExec's pulls, or the whole wall when
+    the root is on the host) less the device subtrees and downloads
+    below them (each DeviceToHostExec's)."""
+    h2d = d2h = 0.0
+    for m in ctx.metrics.values():
+        if m.owner == "HostToDeviceExec":
+            h2d += m.values.get("hostTime", 0) / 1e6
+        elif m.owner == "DeviceToHostExec":
+            d2h += (m.values.get("deviceTime", 0)
+                    + m.values.get("downloadTime", 0)) / 1e6
+    return max((h2d if root_on_device else wall_ms) - d2h, 0.0)
+
+
+def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
+    """q1-q6 through ``TpuSession()`` with no conf: float Sum/Avg
+    aggregates run on the host engine between device subtrees. Each
+    query's placement (host-tagged nodes, bridges, rows and bytes each
+    download moves) is printed and checked; its first run is checked
+    against the numpy oracle, with the launch counters around it alone
+    and every K1-K4 launch recorded; new launch shapes are held to the
+    plain versions. Then warm walls in turns beside the same query with
+    ``variableFloatAgg`` on (the all-device tree), with the host
+    engine's share of each default-conf wall."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    t0 = time.perf_counter()
+    session = TpuSession()
+    tables = tpch.tpch_tables(session, cols)
+    vsession = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
+    vtables = tpch.tpch_tables(vsession, cols)
+    oracles = df_oracles(cols, E)
+    log(f"default-conf phase: tables and oracles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"kernel_checks": []}
+    for q in DF_QUERIES:
+        check, want = oracles[q]
+        phys = tpch.QUERIES[q](session, tables[q])._physical()
+        vphys = tpch.QUERIES[q](vsession, vtables[q])._physical()
+        hosted = phys.host_fallback_nodes()
+        if hosted != DEFAULT_HOST_NODES[q]:
+            raise AssertionError(f"{q} default conf placed {hosted} on the "
+                                 f"host, expected {DEFAULT_HOST_NODES[q]}")
+        bridges = _bridges(phys.root)
+        if bool(hosted) != bool(bridges):
+            raise AssertionError(f"{q} default conf: host nodes {hosted} "
+                                 f"but bridges {bridges}")
+        log(f"{q} default conf: host nodes {hosted}; root on the "
+            f"{'device' if phys.root_on_device else 'host'}; bridges "
+            + (", ".join(f"{type(b).__name__} under {p} over {c}"
+                         for b, p, c in bridges) or "none"))
+        native.reset_counters()
+        seen, seen_k1 = {}, []
+        ctx = ExecContext(phys.conf)
+        with recording(native, seen), recording_k1(native, seen_k1):
+            t0 = time.perf_counter()
+            rows = phys.collect(ctx)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        launches = native.counters()
+        check(rows, want)
+        missing = [k for k in DEFAULT_MUST_LAUNCH[q] if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{q} under the default conf launched no "
+                                 f"{missing}: {launches}")
+        moved = [(ctx.metrics_for(b).values.get("downloadRows", 0),
+                  ctx.metrics_for(b).values.get("downloadBytes", 0))
+                 for b, _p, _c in bridges
+                 if type(b).__name__ == "DeviceToHostExec"]
+        for r, nb in moved:
+            log(f"  {q} DeviceToHostExec downloaded {int(r)} rows, "
+                f"{int(nb)} B")
+        out["kernel_checks"] += df_kernel_checks(
+            native, {q: first_run(seen, launches)}, known_seen)
+        out["kernel_checks"] += k1_checks(native, q, seen_k1)
+        check(vphys.collect(), want)             # warms the all-device tree
+        walls = {"default": [], "vfa": []}
+        host = []
+        for turn in range(DEFAULT_TURNS):
+            for which in (("default", "vfa") if turn % 2 == 0
+                          else ("vfa", "default")):
+                p = phys if which == "default" else vphys
+                c = ExecContext(p.conf)
+                t0 = time.perf_counter()
+                rows = p.collect(c)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                check(rows, want)
+                walls[which].append(wall)
+                if which == "default":
+                    host.append(host_engine_ms(c, wall, p.root_on_device))
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        shown = {k: [round(w, 2) for w in v] for k, v in walls.items()}
+        share = float(np.median([h / w for h, w in zip(
+            host, walls["default"])]))
+        log(f"{q} default conf matches the numpy oracle ({len(rows)} rows):"
+            f" first run {first_s:.3f} s, warm {med['default']:.2f} ms "
+            f"(median of {DEFAULT_TURNS}; {shown['default']}), host engine "
+            f"{share * 100:.1f}% of it; all-device warm {med['vfa']:.2f} ms "
+            f"({shown['vfa']}); "
+            f"launches {launches}")
+        out[q] = dict(first_s=first_s, warm_ms=med["default"],
+                      vfa_warm_ms=med["vfa"], host_share=share,
+                      launches=launches, moved=moved, hosted=hosted)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: kernel K4 (the wire codec's RLE decode) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1530,10 +1729,15 @@ def main() -> int:
         "q4": (joins["plans"]["q4"], joins["q4"]["launches"]),
         "q2": (q2["plan"], q2["launches"])}, joins["seen"] + [q2["seen"]])
 
-    # Phase 12: the kernels line
+    # Phase 12: TPC-H q1-q6 under the default conf
+    mixed = default_conf_phase(native, cols, joins["seen"] + [q2["seen"]]
+                               + [df[q]["seen"] for q in DF_QUERIES])
+
+    # Phase 13: the kernels line
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
-                df[q]["launches"] for q in DF_QUERIES)
+                df[q]["launches"] for q in DF_QUERIES) + tuple(
+                mixed[q]["launches"] for q in DF_QUERIES)
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"radix_sort": "spark_rapids_tpu/ops/native.py:297",
                 "join_probe": "spark_rapids_tpu/ops/native.py:315",
@@ -1560,7 +1764,9 @@ def main() -> int:
             "library_ms": r["library_ms"]})
     log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}, "
         f"q2 {runs[3]}; DataFrame path "
-        + ", ".join(f"{q} {df[q]['launches']}" for q in DF_QUERIES))
+        + ", ".join(f"{q} {df[q]['launches']}" for q in DF_QUERIES)
+        + "; default conf "
+        + ", ".join(f"{q} {mixed[q]['launches']}" for q in DF_QUERIES))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

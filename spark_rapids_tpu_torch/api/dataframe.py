@@ -4,9 +4,12 @@ shapes mirror pyspark.sql).
 ``TpuSession`` is the SparkSession analog: it holds the conf and the
 device, builds DataFrames from memory, and plans queries through the
 tag -> convert rewrite (plan/planner.py). ``DataFrame.collect`` runs the
-plan on the session's device; ``DataFrame.explain`` prints the
-will/will-not-run report. A query the port cannot run whole is refused
-when it is planned (``NotImplementedError``); there is no host engine yet.
+plan, each node on the engine its tags give it (the session's device, or
+the numpy host engine for a node the reference would keep on the host);
+``DataFrame.collect_host`` runs the whole plan on the host engine, the
+CPU oracle; ``DataFrame.explain`` prints the will/will-not-run report. A
+query holding something the port has not ported is refused when it is
+planned (``NotImplementedError``).
 
 ``TpuSession(device=None)`` runs on the CUDA card and raises when there is
 none; ``device="cpu"`` runs the plain-PyTorch path. ``read`` (file scans)
@@ -227,6 +230,15 @@ class DataFrame:
 
     def collect(self) -> List[tuple]:
         return self._physical().collect()
+
+    def collect_host(self) -> List[tuple]:
+        """Run entirely on the host engine (the CPU oracle): the plan
+        re-planned with ``spark.rapids.sql.enabled`` false, so every node
+        is on the host and there is no bridge."""
+        host_conf = C.TpuConf(dict(self._session.conf.raw))
+        host_conf.set("spark.rapids.sql.enabled", False)
+        return Planner(host_conf, self._session.device).plan(
+            self._plan).collect()
 
     def count_rows(self) -> int:
         return len(self.collect())

@@ -10,14 +10,15 @@ for draw) as in-memory scans, one per table a query reads, holding exactly
 the columns the query reads (the columns the reference's scan pruning
 keeps), in ``entry.TABLE_PARTITIONS`` partitions.
 
-    session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled":
-                          True})
+    session = TpuSession()
     tables = tpch_tables(session, entry.tpch_columns(1.0))
     rows = q1(session, tables["q1"]).collect()
 
-The default ``variableFloatAgg.enabled=false`` tags every float Sum/Avg
-for the host, which the port refuses; TPC-H runs set it true, as the
-reference's bench does.
+Under the default conf (``variableFloatAgg.enabled=false``) every float
+Sum/Avg aggregate is tagged for the host and runs on the host engine
+between device subtrees, as in the reference; with
+``{"spark.rapids.sql.variableFloatAgg.enabled": True}``, as the
+reference's bench sets it, the whole query stays on the card.
 """
 
 from __future__ import annotations

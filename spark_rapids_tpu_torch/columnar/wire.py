@@ -372,13 +372,15 @@ def _try_for(wire: np.ndarray, n: int, cap: int):
 
 
 def encode_column(hc, name: str, n: int, cap: int,
-                  string_widths: Optional[dict]) -> Tuple[List[np.ndarray],
-                                                          tuple]:
+                  string_widths: Optional[dict],
+                  mode: Optional[str] = None) -> Tuple[List[np.ndarray],
+                                                       tuple]:
     """Host-side encode of one column -> (wire arrays, static spec),
-    under the active codec mode. Counters record the decoded (raw)
-    footprint vs the wire bytes and the chosen codec kind."""
+    under ``mode`` (None: the active codec mode). Counters record the
+    decoded (raw) footprint vs the wire bytes and the chosen codec
+    kind."""
     arrs, spec = _encode_column_impl(hc, name, n, cap, string_widths,
-                                     codec_mode())
+                                     mode or codec_mode())
     raw = cap * (hc.dtype.itemsize + 1)
     if hc.dtype.is_string:
         raw = cap * (spec[1] + 4 + 1)      # matrix + lengths + validity
@@ -602,7 +604,8 @@ def _pool() -> concurrent.futures.ThreadPoolExecutor:
 
 
 def encode_batch(batch, capacity: Optional[int] = None,
-                 string_widths: Optional[dict] = None):
+                 string_widths: Optional[dict] = None,
+                 mode: Optional[str] = None):
     """Host-side half of the upload: analyze + narrow + pad. Returns
     (arrays, specs, n, cap). The columns of a large batch encode
     concurrently; their arrays keep column order."""
@@ -612,10 +615,10 @@ def encode_batch(batch, capacity: Optional[int] = None,
     cols = list(zip(batch.names, batch.columns))
     if n >= _POOL_MIN_ROWS and len(cols) > 1:
         futs = [_pool().submit(encode_column, hc, name, n, cap,
-                               string_widths) for name, hc in cols]
+                               string_widths, mode) for name, hc in cols]
         encoded = [f.result() for f in futs]
     else:
-        encoded = [encode_column(hc, name, n, cap, string_widths)
+        encoded = [encode_column(hc, name, n, cap, string_widths, mode)
                    for name, hc in cols]
     arrays: List[np.ndarray] = []
     specs = []
@@ -727,9 +730,11 @@ def pack_encoded(arrays, specs, n: int, cap: int) -> EncodedBatch:
 
 
 def pack_batch(batch, capacity: Optional[int] = None,
-               string_widths: Optional[dict] = None) -> EncodedBatch:
+               string_widths: Optional[dict] = None,
+               mode: Optional[str] = None) -> EncodedBatch:
     """encode + pack: the complete host half of an upload."""
-    return pack_encoded(*encode_batch(batch, capacity, string_widths))
+    return pack_encoded(*encode_batch(batch, capacity, string_widths,
+                                      mode))
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +923,9 @@ def plan_upload_groups(sizes: Sequence[int],
 
 def upload(batch, capacity: Optional[int] = None,
            string_widths: Optional[dict] = None,
-           device: DeviceLike = None) -> DeviceBatch:
-    """Encode + pack + one host->device copy + the on-device widen."""
-    return upload_packed(pack_batch(batch, capacity, string_widths), device)
+           device: DeviceLike = None,
+           mode: Optional[str] = None) -> DeviceBatch:
+    """Encode + pack + one host->device copy + the on-device widen, under
+    ``mode`` (None: the active codec mode)."""
+    return upload_packed(pack_batch(batch, capacity, string_widths, mode),
+                         device)

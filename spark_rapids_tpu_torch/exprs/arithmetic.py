@@ -2,7 +2,8 @@
 ``exprs/arithmetic.py``: ``Add``, ``Subtract``, ``Multiply``).
 
 Spark semantics: operands widen to the common numeric type; integer
-overflow wraps (ANSI off); a null operand gives a null result.
+overflow wraps (ANSI off); a null operand gives a null result. The device
+half runs torch, the host half numpy (whose arrays wrap on overflow too).
 """
 
 from __future__ import annotations
@@ -24,10 +25,18 @@ class _Arith(BinaryExpression):
         t = torch_dtype(self.data_type())
         return l_data.to(t), r_data.to(t)
 
+    def _prep_host(self, l_data, r_data):
+        t = self.data_type().np_dtype
+        return l_data.astype(t), r_data.astype(t)
+
 
 class Add(_Arith):
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
         a, b = self._prep(l_data, r_data)
+        return a + b, l_valid & r_valid
+
+    def do_host(self, l_data, l_valid, r_data, r_valid):
+        a, b = self._prep_host(l_data, r_data)
         return a + b, l_valid & r_valid
 
 
@@ -36,8 +45,16 @@ class Subtract(_Arith):
         a, b = self._prep(l_data, r_data)
         return a - b, l_valid & r_valid
 
+    def do_host(self, l_data, l_valid, r_data, r_valid):
+        a, b = self._prep_host(l_data, r_data)
+        return a - b, l_valid & r_valid
+
 
 class Multiply(_Arith):
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
         a, b = self._prep(l_data, r_data)
+        return a * b, l_valid & r_valid
+
+    def do_host(self, l_data, l_valid, r_data, r_valid):
+        a, b = self._prep_host(l_data, r_data)
         return a * b, l_valid & r_valid

@@ -4,8 +4,9 @@
 
 Spark semantics:
 - NaN equals NaN and is greater than every other float value.
-- A subnormal float compares as a zero of its sign, as the JAX package's
-  device path does (it flushes denormals).
+- On the device a subnormal float compares as a zero of its sign, as the
+  JAX package's device path does (it flushes denormals). The host half
+  (``eval_host``, numpy) never flushes, as the reference's host engine.
 - And/Or use Kleene three-valued logic (false AND null = false,
   true OR null = true).
 - EqualNullSafe (``<=>``) never returns NULL.
@@ -13,13 +14,16 @@ Spark semantics:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import flush_subnormal
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.columnar.host import StringMatrixView, all_valid
 from spark_rapids_tpu_torch.exprs.base import (
-    BinaryExpression, UnaryExpression, as_device_column, make_column)
+    BinaryExpression, UnaryExpression, as_device_column, as_host_column,
+    make_column, make_host_column)
 
 
 def _string_cmp(l_data, l_len, r_data, r_len):
@@ -44,6 +48,27 @@ def _string_cmp(l_data, l_len, r_data, r_len):
     bytes_eq = first == w
     eq = bytes_eq & (l_len == r_len)
     lt = torch.where(bytes_eq, l_len < r_len, d < 0)
+    return lt, eq
+
+
+def _string_cmp_host(l_data, l_len, r_data, r_len):
+    """:func:`_string_cmp` in numpy, over host byte matrices."""
+    wl, wr = l_data.shape[1], r_data.shape[1]
+    w = max(wl, wr)
+    if wl < w:
+        l_data = np.concatenate(
+            [l_data, np.zeros((l_data.shape[0], w - wl), np.uint8)], axis=1)
+    if wr < w:
+        r_data = np.concatenate(
+            [r_data, np.zeros((r_data.shape[0], w - wr), np.uint8)], axis=1)
+    diff = l_data.astype(np.int16) - r_data.astype(np.int16)
+    nz = diff != 0
+    first = np.where(nz.any(axis=1), np.argmax(nz, axis=1), w)
+    idx = np.minimum(first, w - 1)
+    d = np.take_along_axis(diff, idx[:, None], axis=1)[:, 0]
+    bytes_eq = first == w
+    eq = bytes_eq & (l_len == r_len)
+    lt = np.where(bytes_eq, l_len < r_len, d < 0)
     return lt, eq
 
 
@@ -72,6 +97,20 @@ class _Comparison(BinaryExpression):
             return lt, eq
         return a < b, a == b
 
+    def _lt_eq_host(self, l_col, r_col):
+        """(lt, eq) over host columns: numpy's promotion, no flush."""
+        if self.left.data_type().is_string:
+            lm, rm = StringMatrixView.of(l_col), StringMatrixView.of(r_col)
+            return _string_cmp_host(lm.data, lm.lengths, rm.data,
+                                    rm.lengths)
+        a, b = l_col.data, r_col.data
+        if self.left.data_type().is_floating:
+            na, nb = np.isnan(a), np.isnan(b)
+            eq = (a == b) | (na & nb)
+            lt = (~na & nb) | ((a < b) & ~na & ~nb)
+            return lt, eq
+        return a < b, a == b
+
     def _pick(self, lt, eq):
         raise NotImplementedError
 
@@ -81,6 +120,13 @@ class _Comparison(BinaryExpression):
         lt, eq = self._lt_eq(lc, rc)
         return make_column(dt.BOOL, self._pick(lt, eq),
                            lc.validity & rc.validity)
+
+    def eval_host(self, batch):
+        lc = as_host_column(self.left.eval_host(batch), batch)
+        rc = as_host_column(self.right.eval_host(batch), batch)
+        lt, eq = self._lt_eq_host(lc, rc)
+        return make_host_column(dt.BOOL, self._pick(lt, eq),
+                                lc.validity & rc.validity)
 
 
 class EqualTo(_Comparison):
@@ -120,6 +166,14 @@ class EqualNullSafe(_Comparison):
         # Padding rows must still be invalid.
         return make_column(dt.BOOL, data, batch.row_mask())
 
+    def eval_host(self, batch):
+        lc = as_host_column(self.left.eval_host(batch), batch)
+        rc = as_host_column(self.right.eval_host(batch), batch)
+        _, eq = self._lt_eq_host(lc, rc)
+        lv, rv = lc.validity, rc.validity
+        return make_host_column(dt.BOOL, (lv & rv & eq) | (~lv & ~rv),
+                                all_valid(batch.num_rows))
+
 
 class Not(UnaryExpression):
     def data_type(self) -> DataType:
@@ -127,6 +181,9 @@ class Not(UnaryExpression):
 
     def do_columnar(self, data, validity, col):
         return ~data, validity
+
+    # The same boolean operators on numpy arrays.
+    do_host = do_columnar
 
 
 class And(BinaryExpression):
@@ -142,6 +199,8 @@ class And(BinaryExpression):
         validity = (l_valid & r_valid) | l_false | r_false
         return data & l_valid & r_valid, validity
 
+    do_host = do_columnar
+
 
 class Or(BinaryExpression):
     """Kleene: T OR x = T even when x is NULL."""
@@ -156,6 +215,8 @@ class Or(BinaryExpression):
         validity = (l_valid & r_valid) | l_true | r_true
         return data, validity
 
+    do_host = do_columnar
+
 
 class IsNull(UnaryExpression):
     def data_type(self) -> DataType:
@@ -165,6 +226,11 @@ class IsNull(UnaryExpression):
         col = as_device_column(self.child.eval(batch), batch)
         return make_column(dt.BOOL, ~col.validity, batch.row_mask())
 
+    def eval_host(self, batch):
+        col = as_host_column(self.child.eval_host(batch), batch)
+        return make_host_column(dt.BOOL, ~col.validity,
+                                all_valid(batch.num_rows))
+
 
 class IsNotNull(UnaryExpression):
     def data_type(self) -> DataType:
@@ -173,3 +239,8 @@ class IsNotNull(UnaryExpression):
     def eval(self, batch):
         col = as_device_column(self.child.eval(batch), batch)
         return make_column(dt.BOOL, col.validity, batch.row_mask())
+
+    def eval_host(self, batch):
+        col = as_host_column(self.child.eval_host(batch), batch)
+        return make_host_column(dt.BOOL, col.validity,
+                                all_valid(batch.num_rows))

@@ -4,7 +4,9 @@
 
 A string column is a dense ``(N, W)`` uint8 matrix plus int32 lengths
 (``columnar/batch.py``). A needle match is a sliding-window equality over
-the width axis: ``O(W * |needle|)`` elementwise work and no per-row loop.
+the width axis: ``O(W * |needle|)`` elementwise work and no per-row loop,
+in torch on the device and in numpy over the host byte matrix
+(``eval_host``, either host string layout).
 Bytes are compared, so multibyte UTF-8 needles match as the reference
 matches them. The rest of the module (case, length, substring, locate,
 like, replace) comes in a later slice.
@@ -14,12 +16,15 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.columnar.host import strings_to_matrix
 from spark_rapids_tpu_torch.exprs.base import (
-    Expression, Scalar, as_device_column, make_column)
+    Expression, Scalar, as_device_column, as_host_column, make_column,
+    make_host_column)
 
 
 def byte_mask(width: int, lengths: torch.Tensor) -> torch.Tensor:
@@ -49,6 +54,24 @@ def _sliding_match(data: torch.Tensor, lengths: torch.Tensor,
     return acc & fits
 
 
+def _sliding_match_host(data: np.ndarray, lengths: np.ndarray,
+                        needle: bytes) -> np.ndarray:
+    """:func:`_sliding_match` in numpy, over a host byte matrix."""
+    n, w = data.shape
+    m = len(needle)
+    if m == 0:
+        return np.arange(w, dtype=np.int32)[None, :] < (lengths + 1)[:, None]
+    if m > w:
+        return np.zeros((n, w), dtype=np.bool_)
+    acc = np.ones((n, w), dtype=np.bool_)
+    for j, byte in enumerate(needle):
+        shifted = np.concatenate([data[:, j:], np.zeros((n, j), np.uint8)],
+                                 axis=1)
+        acc = acc & (shifted == byte)
+    fits = np.arange(w, dtype=np.int32)[None, :] <= (lengths - m)[:, None]
+    return acc & fits
+
+
 class _NeedleOp(Expression):
     """Binary string predicate whose right side must be a literal (the
     restriction the reference places on StartsWith/EndsWith/Contains
@@ -65,8 +88,9 @@ class _NeedleOp(Expression):
     def data_type(self) -> DataType:
         return dt.BOOL
 
-    def _needle_bytes(self, batch) -> Tuple[bytes, bool]:
-        v = self.needle.eval(batch)
+    def _needle_bytes(self, batch, device: bool = True) -> Tuple[bytes, bool]:
+        v = self.needle.eval(batch) if device else \
+            self.needle.eval_host(batch)
         if not isinstance(v, Scalar):
             raise TypeError(f"{type(self).__name__} needle must be a literal")
         if v.is_null:
@@ -75,6 +99,10 @@ class _NeedleOp(Expression):
 
     def _match(self, data: torch.Tensor, lengths: torch.Tensor,
                needle: bytes) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _match_host(self, data: np.ndarray, lengths: np.ndarray,
+                    needle: bytes) -> np.ndarray:
         raise NotImplementedError
 
     def eval(self, batch):
@@ -87,15 +115,33 @@ class _NeedleOp(Expression):
         return make_column(dt.BOOL, self._match(col.data, col.lengths,
                                                 needle), col.validity)
 
+    def eval_host(self, batch):
+        col = as_host_column(self.child.eval_host(batch), batch)
+        needle, null = self._needle_bytes(batch, device=False)
+        if null:
+            z = np.zeros(batch.num_rows, np.bool_)
+            return make_host_column(dt.BOOL, z, z.copy())
+        m, lens = strings_to_matrix(col)
+        return make_host_column(dt.BOOL, self._match_host(m, lens, needle),
+                                col.validity)
+
 
 class Contains(_NeedleOp):
     def _match(self, data, lengths, needle):
         return _sliding_match(data, lengths, needle).any(dim=1)
 
+    def _match_host(self, data, lengths, needle):
+        return _sliding_match_host(data, lengths, needle).any(axis=1)
+
 
 class StartsWith(_NeedleOp):
     def _match(self, data, lengths, needle):
         return _sliding_match(data, lengths, needle)[:, 0]
+
+    def _match_host(self, data, lengths, needle):
+        hits = _sliding_match_host(data, lengths, needle)
+        return hits[:, 0] if hits.shape[1] > 0 else \
+            np.zeros(data.shape[0], np.bool_)
 
 
 class EndsWith(_NeedleOp):
@@ -104,4 +150,12 @@ class EndsWith(_NeedleOp):
         m = len(needle)
         pos = (lengths - m).clamp(0, data.shape[1] - 1)
         at_end = hits.gather(1, pos[:, None].long())[:, 0]
+        return at_end & (lengths >= m)
+
+    def _match_host(self, data, lengths, needle):
+        hits = _sliding_match_host(data, lengths, needle)
+        m = len(needle)
+        pos = np.clip(lengths - m, 0, max(data.shape[1] - 1, 0))
+        at_end = np.take_along_axis(hits, pos[:, None].astype(np.int32),
+                                    axis=1)[:, 0]
         return at_end & (lengths >= m)

@@ -4,7 +4,8 @@ counterpart)."""
 from spark_rapids_tpu_torch.ops.aggregate import (
     AggSpec, Average, Count, CountStar, HashAggregateExec, Max, Min, Sum)
 from spark_rapids_tpu_torch.ops.base import (
-    Exec, ExecContext, InMemorySourceExec)
+    DeviceToHostExec, Exec, ExecContext, HostToDeviceExec,
+    InMemorySourceExec)
 from spark_rapids_tpu_torch.ops.basic import (
     CoalescePartitionsExec, FilterExec, GlobalLimitExec, LocalLimitExec,
     ProjectExec)
@@ -13,8 +14,9 @@ from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
 
 __all__ = [
     "AggSpec", "Average", "BroadcastHashJoinExec", "CoalescePartitionsExec",
-    "Count", "CountStar", "Exec", "ExecContext", "FilterExec",
-    "GlobalLimitExec", "HashAggregateExec", "InMemorySourceExec",
+    "Count", "CountStar", "DeviceToHostExec", "Exec", "ExecContext",
+    "FilterExec", "GlobalLimitExec", "HashAggregateExec",
+    "HostToDeviceExec", "InMemorySourceExec",
     "LocalLimitExec", "Max", "Min", "ProjectExec", "SortExec", "SortOrder",
     "Sum",
 ]

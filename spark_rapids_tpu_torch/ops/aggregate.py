@@ -19,6 +19,16 @@ Zero-key aggregates skip the sort: whole-batch masked reductions
 (``_global_stage``), except a string Min/Max, which groups its single
 group through the sorted path. First/Last and the partial-skip decision
 come in a later slice.
+
+Host algorithm (``execute_host``, numpy over the partition's host
+batches, as in the JAX package's host engine): one stable lexsort over
+each key's ``encode_key_concat`` codes segments the groups, and every
+aggregate reduces its segments with one ``reduceat``
+(``_host_seg_agg``); groups come out in first-seen order. A string
+Min/Max or an empty input takes the python-row path instead
+(``host_update`` / ``host_merge`` / ``host_finalize`` per group), as the
+reference does; its integer sums wrap as int64, its float sums are
+``np.sum``'s.
 """
 
 from __future__ import annotations
@@ -26,15 +36,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, coalesce_iter,
     concat_batches, shrink_all, torch_dtype)
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, HostColumn, concat_host_batches, encode_key_concat,
+    stable_code_argsort)
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
-    Expression, as_device_column, project_batch)
+    Expression, as_device_column, as_host_column, project_batch)
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
@@ -115,6 +129,20 @@ class AggFunction:
     def merge_global(self, bufs: List[SortedCol]) -> List[Tuple]:
         raise NotImplementedError
 
+    # -- host python-row path ---------------------------------------------
+    def host_update(self, values: list) -> tuple:
+        """A group's python values (None = null) -> buffer value tuple."""
+        raise NotImplementedError
+
+    def host_merge(self, buf_tuples: List[tuple]) -> tuple:
+        raise NotImplementedError
+
+    def host_finalize(self, buf: tuple):
+        raise NotImplementedError
+
+    def host_agg(self, values: list):
+        return self.host_finalize(self.host_merge([self.host_update(values)]))
+
 
 class Count(AggFunction):
     """count(x): non-null count; see CountStar for count(*)."""
@@ -151,9 +179,19 @@ class Count(AggFunction):
         return [(torch.where(b.validity, b.data,
                              torch.zeros_like(b.data)).sum(), True, None)]
 
+    def host_update(self, values):
+        return (sum(1 for v in values if v is not None),)
+
+    def host_merge(self, buf_tuples):
+        return (sum(b[0] for b in buf_tuples if b[0] is not None),)
+
+    def host_finalize(self, buf):
+        return buf[0]
+
 
 class CountStar(Count):
-    pass
+    def host_update(self, values):
+        return (len(values),)
 
 
 def _sum_result_type(t: dt.DataType) -> dt.DataType:
@@ -235,6 +273,24 @@ class Sum(AggFunction):
     def merge_global(self, bufs):
         return self._global(bufs[0].data, bufs[0].validity)
 
+    def host_update(self, values):
+        vs = [v for v in values if v is not None]
+        if not vs:
+            return (None,)
+        if self.result_type.is_floating:
+            return (float(np.sum(np.asarray(vs, np.float64))),)
+        acc = np.int64(0)
+        with np.errstate(over="ignore"):
+            for v in vs:
+                acc = np.int64(acc + np.int64(v))   # JVM wrap
+        return (int(acc),)
+
+    def host_merge(self, buf_tuples):
+        return self.host_update([b[0] for b in buf_tuples])
+
+    def host_finalize(self, buf):
+        return buf[0]
+
 
 class Average(AggFunction):
     """avg: partial buffer = (sum double, count long); result double."""
@@ -295,6 +351,21 @@ class Average(AggFunction):
         c = torch.where(cb.validity, cb.data, torch.zeros_like(cb.data)).sum()
         return [(s, c > 0, None), (c, True, None)]
 
+    def host_update(self, values):
+        vs = [v for v in values if v is not None]
+        if not vs:
+            return (None, 0)
+        return (float(np.sum(np.asarray(vs, np.float64))), len(vs))
+
+    def host_merge(self, buf_tuples):
+        s = [b[0] for b in buf_tuples if b[0] is not None]
+        c = sum(b[1] for b in buf_tuples)
+        return (float(np.sum(s)) if s else None, c)
+
+    def host_finalize(self, buf):
+        s, c = buf
+        return None if c == 0 else s / c
+
 
 class Min(AggFunction):
     """min(x); Max below is its mirror. Numeric buffers reduce through
@@ -348,6 +419,24 @@ class Min(AggFunction):
 
     def merge_global(self, bufs):
         return self._global(bufs[0])
+
+    def host_update(self, values):
+        vs = [v for v in values if v is not None]
+        if not vs:
+            return (None,)
+        if self.child.data_type().is_floating:
+            non_nan = [v for v in vs if not np.isnan(v)]
+            if self.kind == "min":
+                return (min(non_nan) if non_nan else float("nan"),)
+            return (float("nan") if len(non_nan) < len(vs)
+                    else max(vs),)
+        return (min(vs) if self.kind == "min" else max(vs),)
+
+    def host_merge(self, buf_tuples):
+        return self.host_update([b[0] for b in buf_tuples])
+
+    def host_finalize(self, buf):
+        return buf[0]
 
 
 class Max(Min):
@@ -724,3 +813,470 @@ class HashAggregateExec(Exec):
             acc = self._consolidate(pending, final_stage=True)
         record_batch(m, acc)
         yield acc
+
+    # -- host engine ---------------------------------------------------------
+    def execute_host(self, ctx, partition):
+        hbs = list(self.children[0].execute_host(ctx, partition))
+        out = self._host_exec_vectorized(hbs)
+        if out is None:
+            out = self._execute_host_final(hbs) if self.mode == "final" \
+                else self._execute_host_rows(hbs)
+        yield out
+
+    def _execute_host_rows(self, hbs) -> HostBatch:
+        """The python-row path of the partial and complete modes: group
+        the input rows, then ``host_update`` (partial) or ``host_agg``
+        (complete) each group's python values."""
+        key_evaluator = []
+        input_lists = []
+        for hb in hbs:
+            key_evaluator.append([as_host_column(e.eval_host(hb), hb)
+                                  for e in self.group_exprs])
+            inlists = []
+            for spec in self.aggs:
+                if spec.fn.child is None:
+                    inlists.append(None)
+                else:
+                    inlists.append(as_host_column(
+                        spec.fn.child.eval_host(hb), hb).to_list())
+            input_lists.append(inlists)
+        order, key_values, groups = self._host_groups(hbs, key_evaluator,
+                                                      input_lists)
+        rows: List[tuple] = []
+        for key in order:
+            vals = list(key_values[key])
+            for ai, spec in enumerate(self.aggs):
+                if self.mode == "partial":
+                    vals.extend(spec.fn.host_update(groups[key][ai]))
+                else:
+                    vals.append(spec.fn.host_agg(groups[key][ai]))
+            rows.append(tuple(vals))
+        if not rows and self._nkeys == 0:
+            vals = []
+            for spec in self.aggs:
+                if self.mode == "partial":
+                    vals.extend(spec.fn.host_update([]))
+                else:
+                    vals.append(spec.fn.host_agg([]))
+            rows = [tuple(vals)]
+        return _rows_to_host_batch(rows, self.schema)
+
+    def _execute_host_final(self, hbs) -> HostBatch:
+        """The python-row path of the final mode: group buffer rows by
+        key, ``host_merge`` the buffer tuples, ``host_finalize``."""
+        key_evaluator = []
+        buf_lists = []
+        for hb in hbs:
+            key_evaluator.append(list(hb.columns[:self._nkeys]))
+            # One pseudo-input per aggregate: its buffer values' tuple.
+            ci = self._nkeys
+            per_agg = []
+            for spec in self.aggs:
+                nbuf = len(spec.fn.buffer_types)
+                cols = [hb.columns[ci + b].to_list() for b in range(nbuf)]
+                per_agg.append(list(zip(*cols)) if cols else [])
+                ci += nbuf
+            buf_lists.append(per_agg)
+        order, key_values, groups = self._host_groups(hbs, key_evaluator,
+                                                      buf_lists)
+        rows = []
+        for key in order:
+            vals = list(key_values[key])
+            for ai, spec in enumerate(self.aggs):
+                vals.append(spec.fn.host_finalize(
+                    spec.fn.host_merge(groups[key][ai])))
+            rows.append(tuple(vals))
+        return _rows_to_host_batch(rows, self.schema)
+
+    def _host_groups(self, hbs, key_evaluator, input_lists):
+        """Host grouping of the python-row path: (order, key_values,
+        groups), ``groups[key][ai]`` the python values of aggregate
+        ``ai``. Groups come in first-seen order and keep their rows'
+        order; NaN == NaN and -0.0 == 0.0 group together, and so do null
+        keys. Fixed-width keys group in numpy; string keys by a dict."""
+        fast = self._host_groups_vectorized(hbs, key_evaluator,
+                                            input_lists)
+        if fast is not None:
+            return fast
+        groups = {}
+        key_values = {}
+        order = []
+        for hb, keycols, inlists in zip(hbs, key_evaluator, input_lists):
+            for i in range(hb.num_rows):
+                triples = [self._host_key(kc, i) for kc in keycols]
+                # The canonical key only: raw floats break NaN equality.
+                key = tuple((t[0], t[1]) for t in triples)
+                if key not in groups:
+                    groups[key] = [[] for _ in self.aggs]
+                    key_values[key] = [t[2] if t[0] else None
+                                       for t in triples]
+                    order.append(key)
+                for ai, vals in enumerate(inlists):
+                    groups[key][ai].append(vals[i] if vals is not None
+                                           else 1)
+        return order, key_values, groups
+
+    def _host_groups_vectorized(self, hbs, key_evaluator, input_lists):
+        """The numpy path of :meth:`_host_groups`, or None for string
+        keys."""
+        nrows = [hb.num_rows for hb in hbs]
+        total = sum(nrows)
+        if total == 0:
+            return [], {}, {}
+        keycols0 = key_evaluator[0] if key_evaluator else []
+        if any(kc.dtype.is_string for kc in keycols0):
+            return None
+        nkeys = len(keycols0)
+        nags = len(self.aggs)
+
+        def group_lists(idx_groups):
+            out_per_agg = []
+            for ai in range(nags):
+                parts = [il[ai] for il in input_lists]
+                if any(p is None for p in parts):
+                    out_per_agg.append([[1] * len(idx)
+                                        for idx in idx_groups])
+                    continue
+                merged = parts[0] if len(parts) == 1 else \
+                    [v for p in parts for v in p]
+                arr = np.empty(len(merged), dtype=object)
+                try:
+                    arr[:] = merged          # scalars: one C-level copy
+                    ok = True
+                except (ValueError, TypeError):
+                    ok = False               # tuple rows (merge buffers)
+                if ok:
+                    out_per_agg.append([arr[idx].tolist()
+                                        for idx in idx_groups])
+                else:
+                    out_per_agg.append([[merged[i] for i in idx.tolist()]
+                                        for idx in idx_groups])
+            return out_per_agg
+
+        if nkeys == 0:
+            per_agg = group_lists([np.arange(total, dtype=np.int64)])
+            key = ()
+            return [key], {key: []}, {key: [per_agg[ai][0]
+                                            for ai in range(nags)]}
+
+        # Canonical key views across batches: NaNs share one bit pattern,
+        # -0.0 == 0.0, and null rows compare equal whatever their data.
+        views = []
+        valids = []
+        raws = []
+        for ki in range(nkeys):
+            cols = [ke[ki] for ke in key_evaluator]
+            data = np.concatenate([np.asarray(c.data) for c in cols]) \
+                if len(cols) > 1 else np.asarray(cols[0].data)
+            valid = np.concatenate([np.asarray(c.validity)
+                                    for c in cols]) \
+                if len(cols) > 1 else np.asarray(cols[0].validity)
+            dtype = cols[0].dtype
+            if dtype.is_floating:
+                d = data.astype(np.float64) + 0.0     # -0.0 -> +0.0
+                nanmask = np.isnan(d)
+                if nanmask.any():
+                    d = d.copy()
+                    d[nanmask] = np.nan               # canonical NaN bits
+                view = d.view(np.uint64).astype(np.int64, copy=False)
+            elif dtype.is_boolean:
+                view = data.astype(np.int64)
+            else:
+                view = data.astype(np.int64, copy=False)
+            view = np.where(valid, view, np.int64(0))
+            views.append(view)
+            valids.append(valid.astype(np.int8))
+            raws.append((dtype, data, valid))
+        order_idx = np.lexsort(tuple(
+            a for ki in range(nkeys - 1, -1, -1)
+            for a in (views[ki], valids[ki])))
+        new_flags = np.zeros(total, dtype=bool)
+        new_flags[0] = True
+        for ki in range(nkeys):
+            sv = views[ki][order_idx]
+            sa = valids[ki][order_idx]
+            new_flags[1:] |= (sv[1:] != sv[:-1]) | (sa[1:] != sa[:-1])
+        starts = np.flatnonzero(new_flags)
+        ends = np.append(starts[1:], total)
+        # First-seen order: lexsort is stable, so order_idx at a group's
+        # start is its first row, and a group's rows stay in input order.
+        emit = np.argsort(order_idx[starts], kind="stable")
+        idx_groups = [order_idx[starts[g]:ends[g]] for g in emit]
+        per_agg = group_lists(idx_groups)
+        order = []
+        key_values = {}
+        groups = {}
+        for gi, g in enumerate(emit):
+            rep = int(order_idx[starts[g]])
+            key = []
+            vals = []
+            for ki in range(nkeys):
+                v_ok = bool(valids[ki][rep])
+                key.append((v_ok, int(views[ki][rep])))
+                if not v_ok:
+                    vals.append(None)
+                    continue
+                dtype, data, _ = raws[ki]
+                if dtype.is_floating:
+                    f = float(data[rep])
+                    vals.append(0.0 if f == 0.0 else f)
+                elif dtype.is_boolean:
+                    vals.append(bool(data[rep]))
+                else:
+                    vals.append(int(data[rep]))
+            key = tuple(key)
+            order.append(key)
+            key_values[key] = vals
+            groups[key] = [per_agg[ai][gi] for ai in range(nags)]
+        return order, key_values, groups
+
+    def _host_segments(self, key_pieces, total):
+        """Group segmentation over per-batch key column pieces: one stable
+        lexsort over packed (validity, code) planes. Returns
+        ``(order_idx, starts, ends, emit, rep_idx, key_enc)``: starts and
+        ends ascending (reduceat's currency), ``emit`` permuting sorted
+        group order into first-seen order, ``rep_idx`` each group's first
+        row in emission order, ``key_enc`` each key's (codes, space)."""
+        nkeys = len(key_pieces)
+        if nkeys == 0:
+            order_idx = np.arange(total, dtype=np.int64)
+            one = np.zeros(1, np.int64)
+            return (order_idx, one, np.asarray([total], np.int64), one,
+                    one.copy(), [])
+        codes, valids, spaces = [], [], []
+        for pieces in key_pieces:
+            c, v, space = encode_key_concat(pieces)
+            codes.append(c)
+            valids.append(v.view(np.int8))
+            spaces.append(space)
+        # Pack (valid, code) pairs into as few int64 planes as their
+        # ranges allow. Packing is injective per key, so the segments and
+        # the stable within-group order are those of the unpacked sort.
+        planes: list = []
+        acc = None
+        acc_range = 1
+        cap = 1 << 62
+        for ki in range(nkeys):
+            c, v = codes[ki], valids[ki].astype(np.int64)
+            cmin = int(c.min())
+            crange = int(c.max()) - cmin + 1
+            r = 2 * crange
+            if r > cap:
+                if acc is not None:
+                    planes.append(acc)
+                    acc, acc_range = None, 1
+                planes.append(v)        # valid outranks code (null group)
+                planes.append(c)
+                continue
+            local = v * crange + (c - cmin)
+            if acc is None:
+                acc, acc_range = local, r
+            elif acc_range * r <= cap:
+                acc = acc * r + local
+                acc_range *= r
+            else:
+                planes.append(acc)
+                acc, acc_range = local, r
+        if acc is not None:
+            planes.append(acc)
+        order_idx = stable_code_argsort(planes[0]) if len(planes) == 1 \
+            else np.lexsort(tuple(planes[::-1]))
+        new_flags = np.zeros(total, dtype=bool)
+        new_flags[0] = True
+        for p in planes:
+            sp = p[order_idx]
+            new_flags[1:] |= sp[1:] != sp[:-1]
+        starts = np.flatnonzero(new_flags).astype(np.int64)
+        ends = np.append(starts[1:], total)
+        emit = np.argsort(order_idx[starts], kind="stable").astype(np.int64)
+        rep_idx = order_idx[starts][emit]
+        return (order_idx, starts, ends, emit, rep_idx,
+                list(zip(codes, spaces)))
+
+    def _host_exec_vectorized(self, hbs) -> Optional[HostBatch]:
+        """One vectorized pass for every mode (update or complete over
+        inputs, final over buffers), or None when the shape does not
+        qualify (empty input, a string Min/Max): the python-row path then
+        runs."""
+        total = sum(hb.num_rows for hb in hbs)
+        if total == 0:
+            return None
+        if any(isinstance(spec.fn, Min)
+               and spec.fn.child.data_type().is_string
+               for spec in self.aggs):
+            return None
+
+        def concat_col(cols):
+            if len(cols) == 1:
+                return cols[0]
+            return concat_host_batches(
+                [HostBatch(("c",), [c]) for c in cols]).columns[0]
+
+        agg_inputs = []
+        if self.mode in ("partial", "complete"):
+            kind = "update" if self.mode == "partial" else "agg"
+            keysrc = [[as_host_column(e.eval_host(hb), hb)
+                       for e in self.group_exprs] for hb in hbs]
+            for spec in self.aggs:
+                if spec.fn.child is None:
+                    agg_inputs.append((kind, [None]))
+                else:
+                    agg_inputs.append((kind, [concat_col(
+                        [as_host_column(spec.fn.child.eval_host(hb), hb)
+                         for hb in hbs])]))
+        else:
+            keysrc = [list(hb.columns[:self._nkeys]) for hb in hbs]
+            ci = self._nkeys
+            for spec in self.aggs:
+                nbuf = len(spec.fn.buffer_types)
+                agg_inputs.append(("final", [
+                    concat_col([hb.columns[ci + b] for hb in hbs])
+                    for b in range(nbuf)]))
+                ci += nbuf
+        key_cols = [concat_col([ks[ki] for ks in keysrc])
+                    for ki in range(self._nkeys)]
+        (order_idx, starts, ends, emit, rep_idx,
+         key_enc) = self._host_segments(
+            [[ks[ki] for ks in keysrc] for ki in range(self._nkeys)],
+            total)
+        for kc, (codes, space) in zip(key_cols, key_enc):
+            # The concat rows are the rows these codes were computed for;
+            # stamping them lets take(rep_idx) below carry them on.
+            if kc._key_codes is None:
+                kc._key_codes = codes
+                kc._key_uniq = space
+        out_cols = []
+        for kc in key_cols:
+            oc = kc.take(rep_idx)
+            if oc.dtype.is_floating:
+                # Canonical zero: a -0.0 group representative emits 0.0.
+                oc = HostColumn(oc.dtype,
+                                oc.data + oc.dtype.np_dtype.type(0),
+                                oc.validity)
+            out_cols.append(oc)
+        for (kind, cols), spec in zip(agg_inputs, self.aggs):
+            res = _host_seg_agg(spec.fn, kind, cols, order_idx, starts,
+                                ends)
+            out_cols.extend(rc.take(emit) for rc in res)
+        return HostBatch(tuple(n for n, _ in self.schema), out_cols)
+
+    @staticmethod
+    def _host_key(col: HostColumn, i: int):
+        """(valid, canonical group key, output value) of one key cell."""
+        if not col.validity[i]:
+            return (False, None, None)
+        v = col.data[i]
+        if col.dtype.is_string:
+            s = bytes(v).decode("utf-8", "replace")
+            return (True, s, s)
+        if col.dtype.is_floating:
+            f = float(v)
+            if np.isnan(f):
+                return (True, "NaN", f)   # NaN == NaN for grouping
+            if f == 0.0:
+                return (True, 0.0, 0.0)   # -0.0 == 0.0 for grouping
+            return (True, f, f)
+        if col.dtype.is_boolean:
+            return (True, bool(v), bool(v))
+        return (True, int(v), int(v))
+
+
+def _rows_to_host_batch(rows: List[tuple], schema: Schema) -> HostBatch:
+    names = tuple(n for n, _ in schema)
+    cols = [HostColumn.from_values(t, [r[ci] for r in rows])
+            for ci, (_, t) in enumerate(schema)]
+    return HostBatch(names, cols)
+
+
+def _host_seg_agg(fn: AggFunction, kind: str, cols, order_idx, starts,
+                  ends) -> List[HostColumn]:
+    """Every group of one aggregate over sorted segments, one reduceat
+    per buffer: the numpy mirror of the function's python-row path.
+    ``kind``: 'agg' (complete result), 'update' (partial buffers) or
+    'final' (merge + finalize). ``cols`` holds the concatenated input
+    column (None for count(*)) or the buffer columns. Results come in
+    sorted-group order (the caller permutes them into emission order).
+    String Min/Max never gets here."""
+    ngroups = len(starts)
+
+    def v_of(c):
+        return np.asarray(c.validity, np.bool_)[order_idx]
+
+    def d_of(c):
+        return np.asarray(c.data)[order_idx]
+
+    def cnt_of(v):
+        return np.add.reduceat(v.astype(np.int64), starts)
+
+    def masked_sum(c, out_float):
+        v = v_of(c)
+        if out_float:
+            return np.add.reduceat(
+                np.where(v, d_of(c).astype(np.float64), 0.0), starts), v
+        with np.errstate(over="ignore"):
+            s = np.add.reduceat(
+                np.where(v, d_of(c).astype(np.int64), np.int64(0)), starts)
+        return s, v
+
+    if isinstance(fn, CountStar) and kind in ("agg", "update"):
+        return [HostColumn(dt.INT64, (ends - starts).astype(np.int64),
+                           np.ones(ngroups, np.bool_))]
+    if isinstance(fn, Count):           # Count + CountStar final
+        if kind in ("agg", "update"):
+            data = cnt_of(v_of(cols[0]))
+        else:
+            data, _ = masked_sum(cols[0], out_float=False)
+        return [HostColumn(dt.INT64, data, np.ones(ngroups, np.bool_))]
+
+    if isinstance(fn, Sum):
+        t = fn.result_type
+        s, v = masked_sum(cols[0], out_float=t.is_floating)
+        ok = cnt_of(v) > 0
+        data = np.where(ok, s, 0).astype(t.np_dtype)
+        return [HostColumn(t, data, ok)]
+
+    if isinstance(fn, Average):
+        if kind in ("agg", "update"):
+            s, v = masked_sum(cols[0], out_float=True)
+            n = cnt_of(v)
+            sv = n > 0
+        else:
+            s, v0 = masked_sum(cols[0], out_float=True)
+            n, _ = masked_sum(cols[1], out_float=False)
+            sv = cnt_of(v0) > 0
+        if kind in ("agg", "final"):
+            ok = n > 0
+            data = np.where(ok, s / np.where(ok, n, 1), 0.0)
+            return [HostColumn(dt.FLOAT64, data, ok)]
+        return [HostColumn(dt.FLOAT64, np.where(sv, s, 0.0), sv),
+                HostColumn(dt.INT64, n, np.ones(ngroups, np.bool_))]
+
+    # Min + Max, numeric.
+    c = cols[0]
+    t = c.dtype
+    v = v_of(c)
+    ok = cnt_of(v) > 0
+    is_max = fn.kind == "max"
+    if t.is_floating:
+        f = d_of(c).astype(np.float64)
+        nanm = v & np.isnan(f)
+        nonnan = v & ~np.isnan(f)
+        if is_max:
+            # Spark max: NaN is greatest, so any NaN wins the group.
+            m = np.maximum.reduceat(np.where(nonnan, f, -np.inf), starts)
+            data = np.where(cnt_of(nanm) > 0, np.nan, m)
+        else:
+            # Spark min: NaN only when the group is all NaN.
+            m = np.minimum.reduceat(np.where(nonnan, f, np.inf), starts)
+            data = np.where(cnt_of(nonnan) > 0, m, np.nan)
+        data = np.where(ok, data, 0.0).astype(t.np_dtype)
+    else:
+        x = d_of(c).astype(np.int64)
+        if is_max:
+            m = np.maximum.reduceat(
+                np.where(v, x, np.iinfo(np.int64).min), starts)
+        else:
+            m = np.minimum.reduceat(
+                np.where(v, x, np.iinfo(np.int64).max), starts)
+        data = np.where(ok, m, 0).astype(t.np_dtype)
+    return [HostColumn(t, data, ok)]

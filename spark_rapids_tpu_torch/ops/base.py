@@ -1,9 +1,12 @@
 """Physical operator base (port of the JAX package's ``ops/base.py``).
 
 A plan is a tree of ``Exec`` nodes; each node, per partition, produces an
-iterator of ``DeviceBatch``es whose kernels are eager torch calls.
-``Exec.collect`` runs every partition, then downloads all result batches
-in one batched pass.
+iterator of ``DeviceBatch``es whose kernels are eager torch calls
+(``execute_device``) or of ``HostBatch``es computed in numpy
+(``execute_host``, the host engine). The planner picks one engine per
+node and joins them with ``DeviceToHostExec`` / ``HostToDeviceExec``.
+``Exec.collect`` runs every partition on the root's engine; on the device
+it then downloads all result batches in one batched pass.
 
 This slice keeps the core only: no pipeline, watchdog, scheduler, spill or
 fault layers (later slices add them).
@@ -15,10 +18,11 @@ import dataclasses
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-from spark_rapids_tpu_torch import DeviceLike
+from spark_rapids_tpu_torch import DeviceLike, resolve_device
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
-from spark_rapids_tpu_torch.columnar.host import HostBatch, download_batches
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, download_batches, host_to_device)
 from spark_rapids_tpu_torch.config import TpuConf
 
 Schema = Tuple[Tuple[str, DataType], ...]
@@ -103,6 +107,10 @@ class Exec:
                        partition: int) -> Iterator[DeviceBatch]:
         raise NotImplementedError
 
+    def execute_host(self, ctx: ExecContext,
+                     partition: int) -> Iterator[HostBatch]:
+        raise NotImplementedError
+
     def plan_device(self):
         """The device this plan's source uploads to."""
         dev = getattr(self, "device", None)
@@ -114,19 +122,26 @@ class Exec:
                 return dev
         return None
 
-    def collect(self, ctx: Optional[ExecContext] = None) -> List[tuple]:
-        """Run all partitions, then download every result batch in one
-        batched pass and return the rows."""
+    def collect(self, ctx: Optional[ExecContext] = None,
+                device: bool = True) -> List[tuple]:
+        """Run all partitions on the device engine, then download every
+        result batch in one batched pass and return the rows; with
+        ``device=False`` run them on the host engine."""
         ctx = ctx or ExecContext()
         # Adopt this query's wire codec (process-global,
         # spark.rapids.sql.wire.codec) before any upload happens.
         from spark_rapids_tpu_torch.columnar import wire
         wire.maybe_configure(ctx.conf)
+        rows: List[tuple] = []
+        if not device:
+            for p in range(self.num_partitions(ctx)):
+                for hb in self.execute_host(ctx, p):
+                    rows.extend(hb.to_pylist())
+            return rows
         batches: List[DeviceBatch] = []
         for p in range(self.num_partitions(ctx)):
             batches.extend(self.execute_device(ctx, p))
         names = tuple(n for n, _ in self.schema)
-        rows: List[tuple] = []
         for hb in download_batches(batches, names):
             rows.extend(hb.to_pylist())
         return rows
@@ -148,13 +163,13 @@ class InMemorySourceExec(LeafExec):
     function of batch and codec mode, so each partition is encoded and
     packed once per mode and kept; every collect then only copies and
     decodes. Consecutive packed batches below
-    ``spark.rapids.sql.wire.minUploadBytes`` share one copy."""
+    ``spark.rapids.sql.wire.minUploadBytes`` share one copy. On the host
+    engine it yields its host batches as they are."""
 
     def __init__(self, schema: Schema,
                  partitions: Sequence[Sequence[HostBatch]],
                  device: DeviceLike = None):
         super().__init__()
-        from spark_rapids_tpu_torch import resolve_device
         self._schema = tuple(schema)
         self._partitions = [list(p) for p in partitions]
         self._packed: Dict[Tuple[str, int], list] = {}
@@ -194,3 +209,70 @@ class InMemorySourceExec(LeafExec):
             for out in outs:
                 record_batch(m, out)
                 yield out
+
+    def execute_host(self, ctx, partition):
+        yield from iter(self._partitions[partition])
+
+
+class DeviceToHostExec(Exec):
+    """Device -> host transition (GpuColumnarToRowExec analog): runs the
+    child on the device engine and downloads each partition's batches
+    with one batched copy. Its metrics: ``deviceTime`` (the device
+    subtree's dispatch), ``downloadTime`` (the copy, which waits for the
+    device work), ``downloadRows`` and ``downloadBytes``."""
+
+    def __init__(self, child: Exec):
+        super().__init__(child)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute_host(self, ctx, partition):
+        m = ctx.metrics_for(self)
+        with timed(m, "deviceTime"):
+            batches = list(self.children[0].execute_device(ctx, partition))
+        moved: Dict[str, int] = {}
+        with timed(m, "downloadTime"):
+            hbs = download_batches(batches, tuple(n for n, _ in self.schema),
+                                   moved)
+        m.add("downloadRows", moved.get("rows", 0))
+        m.add("downloadBytes", moved.get("bytes", 0))
+        yield from hbs
+
+    def execute_device(self, ctx, partition):  # pragma: no cover
+        raise AssertionError("DeviceToHostExec is a host-side node")
+
+
+class HostToDeviceExec(Exec):
+    """Host -> device transition (GpuRowToColumnarExec analog): runs the
+    child on the host engine and uploads each batch to ``device`` (None:
+    the plan's source device) with the plain wire layout. ``hostTime``
+    is the host clock spent pulling from the child: the host subtree,
+    and any device subtree below it, whose share its
+    ``DeviceToHostExec``s record."""
+
+    def __init__(self, child: Exec, device: DeviceLike = None):
+        super().__init__(child)
+        self.device = None if device is None else resolve_device(device)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute_device(self, ctx, partition):
+        m = ctx.metrics_for(self)
+        dev = self.plan_device()
+        it = self.children[0].execute_host(ctx, partition)
+        while True:
+            with timed(m, "hostTime"):
+                hb = next(it, None)
+            if hb is None:
+                return
+            with timed(m, "uploadTime"):
+                out = host_to_device(hb, device=dev, mode="plain")
+            record_batch(m, out)
+            yield out
+
+    def execute_host(self, ctx, partition):  # pragma: no cover
+        raise AssertionError("HostToDeviceExec is a device-side node")

@@ -1,13 +1,19 @@
 """Basic physical operators (port of the JAX package's ``ops/basic.py``:
 ``ProjectExec``, ``FilterExec``, ``CoalescePartitionsExec``,
-``LocalLimitExec``, ``GlobalLimitExec``)."""
+``LocalLimitExec``, ``GlobalLimitExec``), each with its device half and
+its numpy host half. The reference's host closure cache is not ported:
+the host halves evaluate their expressions directly on every batch."""
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
+from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
 from spark_rapids_tpu_torch.exprs.base import (
-    Expression, as_device_column, eval_exprs)
+    Expression, as_device_column, as_host_column, eval_exprs,
+    eval_exprs_host)
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
 
@@ -35,6 +41,10 @@ class ProjectExec(Exec):
             record_batch(m, out)
             yield out
 
+    def execute_host(self, ctx, partition):
+        for hb in self.children[0].execute_host(ctx, partition):
+            yield eval_exprs_host(self.exprs, hb, self.names)
+
 
 class FilterExec(Exec):
     """Row filter via selection vector: the condition mask ANDs into the
@@ -57,6 +67,17 @@ class FilterExec(Exec):
                 out = batch.with_sel(cond.data & cond.validity)
             record_batch(m, out)
             yield out
+
+    def _host_kernel(self, hb: HostBatch) -> HostBatch:
+        """Evaluate the condition once and gather every column through
+        the matrix-preserving ``HostColumn.take``."""
+        cond = as_host_column(self.condition.eval_host(hb), hb)
+        return hb.filter(np.asarray(cond.data, np.bool_)
+                         & np.asarray(cond.validity, np.bool_))
+
+    def execute_host(self, ctx, partition):
+        for hb in self.children[0].execute_host(ctx, partition):
+            yield self._host_kernel(hb)
 
 
 class CoalescePartitionsExec(Exec):
@@ -81,6 +102,10 @@ class CoalescePartitionsExec(Exec):
     def execute_device(self, ctx, partition):
         for p in self._sources(ctx, partition):
             yield from self.children[0].execute_device(ctx, p)
+
+    def execute_host(self, ctx, partition):
+        for p in self._sources(ctx, partition):
+            yield from self.children[0].execute_host(ctx, p)
 
 
 class LocalLimitExec(Exec):
@@ -110,6 +135,17 @@ class LocalLimitExec(Exec):
             remaining -= taken
             yield out
 
+    def execute_host(self, ctx, partition):
+        remaining = self.limit
+        for hb in self.children[0].execute_host(ctx, partition):
+            if remaining <= 0:
+                break
+            n = min(remaining, hb.num_rows)
+            cols = [HostColumn(c.dtype, c.data[:n], c.validity[:n])
+                    for c in hb.columns]
+            remaining -= n
+            yield HostBatch(hb.names, cols)
+
 
 class GlobalLimitExec(Exec):
     """Global limit over a single-partition child."""
@@ -125,3 +161,7 @@ class GlobalLimitExec(Exec):
     def execute_device(self, ctx, partition):
         inner = LocalLimitExec(self.children[0], self.limit)
         yield from inner.execute_device(ctx, partition)
+
+    def execute_host(self, ctx, partition):
+        inner = LocalLimitExec(self.children[0], self.limit)
+        yield from inner.execute_host(ctx, partition)

@@ -31,6 +31,12 @@ out-of-memory retry and its jit/eager split have no counterpart here. Join
 types: inner, left, right, semi (left semi) and anti (left anti), each with
 an optional residual condition. Full outer and cross joins, the shuffled
 and nested-loop execs and grace partitioning come in later slices.
+
+The host half (``_host_join``, numpy, as in the reference's host engine)
+encodes each key tuple to one int64 code per row in a code space shared
+by both sides (``encode_key_pair``: NaN == NaN, -0.0 == 0.0, no
+subnormal flush), sorts the build codes once per query, and probes every
+probe row through a lookup table or one binary search.
 """
 
 from __future__ import annotations
@@ -38,15 +44,19 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, coalesce_iter,
     concat_batches, flush_subnormal, string_repad)
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, HostColumn, concat_host_batches, encode_key_pair,
+    stable_code_argsort)
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
-    BoundReference, Expression, as_device_column)
+    BoundReference, Expression, as_device_column, as_host_column)
 from spark_rapids_tpu_torch.ops import kernels, native
 from spark_rapids_tpu_torch.ops.base import (
     Exec, Schema, record_batch, timed)
@@ -510,3 +520,176 @@ class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
                                             probe_keys, build_right):
             record_batch(m, out)
             yield out
+
+    def execute_host(self, ctx, partition):
+        yield from _host_join(self, ctx, partition)
+
+
+def _empty_host_batch(schema: Schema) -> HostBatch:
+    cols = []
+    for _, t in schema:
+        if t.is_string:
+            cols.append(HostColumn(t, None, np.zeros(0, np.bool_),
+                                   str_matrix=np.zeros((0, 1), np.uint8),
+                                   str_lengths=np.zeros(0, np.int32)))
+        else:
+            cols.append(HostColumn(t, np.zeros(0, t.np_dtype),
+                                   np.zeros(0, np.bool_)))
+    return HostBatch(tuple(n for n, _ in schema), cols)
+
+
+def _host_join(op: BroadcastHashJoinExec, ctx, partition):
+    """Vectorized host equi-join with SQL null semantics (a null key
+    never matches). Each key tuple becomes one int64 code per row in a
+    code space shared by both sides; the build side sorts by code once
+    per query; each probe row finds its [lo, hi) run of build rows by a
+    lookup table (dense codes) or one binary search over the unique
+    codes. Pairs expand by one repeat and gather, the condition
+    evaluates once over the gathered pairs, and every join type emits by
+    an index gather (a negative index is a null extension). Emission
+    order: pairs in left-row order with their build rows in code order,
+    then, for a right join, the unmatched right rows."""
+
+    def collect(child, parts, cache_tag=None):
+        # The broadcast side spans every child partition and is collected
+        # once per query (the device path's broadcast collection).
+        key = None
+        if cache_tag is not None:
+            key = f"bcast-host:{id(op):x}:{cache_tag}"
+            hit = ctx.cache.get(key)
+            if hit is not None:
+                return hit
+        hbs = []
+        for cp in parts:
+            hbs.extend(child.execute_host(ctx, cp))
+        out = (concat_host_batches(hbs) if hbs
+               else _empty_host_batch(child.schema))
+        if key is not None:
+            ctx.cache[key] = out
+        return out
+
+    lchild, rchild = op.children
+    if op.join_type != "right":
+        lb = collect(lchild, [partition])
+        rb = collect(rchild, range(rchild.num_partitions(ctx)), "build")
+    else:
+        lb = collect(lchild, range(lchild.num_partitions(ctx)), "build")
+        rb = collect(rchild, [partition])
+    nl, nr = lb.num_rows, rb.num_rows
+    lschema, rschema = lchild.schema, rchild.schema
+    jt = op.join_type
+    cond = op.condition
+
+    def eval_cond(li_p, ri_p):
+        if cond is None:
+            return np.ones(len(li_p), np.bool_)
+        if not len(li_p):
+            return np.zeros(0, np.bool_)
+        hb = HostBatch(
+            tuple(n for n, _ in tuple(lschema) + tuple(rschema)),
+            [c.take(li_p) for c in lb.columns]
+            + [c.take(ri_p) for c in rb.columns])
+        c = as_host_column(cond.eval_host(hb), hb)
+        return np.asarray(c.data, np.bool_) & np.asarray(c.validity,
+                                                         np.bool_)
+
+    lval = np.ones(nl, np.bool_)
+    rval = np.ones(nr, np.bool_)
+    cl_parts, cr_parts = [], []
+    for lk, rk in zip(op.left_keys, op.right_keys):
+        a, b = lb.columns[lk.ordinal], rb.columns[rk.ordinal]
+        ca, cb = encode_key_pair(a, b)
+        cl_parts.append(ca)
+        cr_parts.append(cb)
+        lval &= np.asarray(a.validity, np.bool_)
+        rval &= np.asarray(b.validity, np.bool_)
+    if len(cl_parts) == 1:
+        cl, cr = cl_parts[0], cr_parts[0]
+    else:
+        allc = np.ascontiguousarray(np.concatenate(
+            [np.stack(cl_parts, 1), np.stack(cr_parts, 1)]))
+        v = allc.view(np.dtype((np.void, allc.shape[1] * 8))).ravel()
+        _, inv = np.unique(v, return_inverse=True)
+        inv = inv.astype(np.int64)
+        cl, cr = inv[:nl], inv[nl:]
+    # The build side's sort order and run boundaries are the same for
+    # every probe partition (the encodings are order-preserving and
+    # equality-exact over the same build rows): cached per build batch.
+    skey = f"hjoin-order:{id(op):x}"
+    cached = ctx.cache.get(skey)
+    if cached is not None and cached[0] is rb:
+        rs_order, rstart, rend = cached[1], cached[2], cached[3]
+    else:
+        rsel = np.flatnonzero(rval)
+        rs_order = rsel[stable_code_argsort(cr[rsel])]
+        cr_sorted = cr[rs_order]
+        if len(cr_sorted):
+            rstart = np.flatnonzero(np.concatenate(
+                [np.ones(1, np.bool_), cr_sorted[1:] != cr_sorted[:-1]]))
+            rend = np.concatenate(
+                [rstart[1:], np.array([len(cr_sorted)], np.int64)])
+        else:
+            rstart = rend = np.zeros(0, np.int64)
+        ctx.cache[skey] = (rb, rs_order, rstart, rend)
+    # One lookup per probe row into the unique build codes.
+    if len(rs_order):
+        uniq = cr[rs_order[rstart]]
+        base = int(uniq[0])
+        spread = int(uniq[-1]) - base + 1
+        if spread <= max(1 << 20, 8 * len(uniq)):
+            # Dense codes (string ranks always, integer keys usually): a
+            # direct [lo, hi) table, one gather per probe row.
+            lut_lo = np.zeros(spread, np.int64)
+            lut_hi = np.zeros(spread, np.int64)
+            lut_lo[uniq - base] = rstart
+            lut_hi[uniq - base] = rend
+            idx = cl - base
+            inb = (idx >= 0) & (idx < spread) & lval
+            idx = np.where(inb, idx, 0)
+            plo = np.where(inb, lut_lo[idx], 0)
+            phi = np.where(inb, lut_hi[idx], 0)
+        else:
+            pos = np.minimum(np.searchsorted(uniq, cl, "left"),
+                             len(uniq) - 1)
+            hit = (uniq[pos] == cl) & lval
+            plo = np.where(hit, rstart[pos], 0)
+            phi = np.where(hit, rend[pos], 0)
+    else:
+        plo = phi = np.zeros(nl, np.int64)
+    if len(rstart) == len(rs_order):
+        # Unique build keys: 0 or 1 match a probe row, a masked gather.
+        li_p = np.flatnonzero(phi > plo)
+        ri_p = rs_order[plo[li_p]]
+    else:
+        cnt = (phi - plo).astype(np.int64)
+        tot = int(cnt.sum())
+        li_p = np.repeat(np.arange(nl, dtype=np.int64), cnt)
+        offs = np.arange(tot, dtype=np.int64) \
+            - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        ri_p = rs_order[np.repeat(plo, cnt) + offs]
+    ok = eval_cond(li_p, ri_p)
+    li_f, ri_f = li_p[ok], ri_p[ok]
+
+    names = tuple(n for n, _ in op.schema)
+    lmatch = np.bincount(li_f, minlength=nl)
+    if jt in ("semi", "anti"):
+        keep = lmatch > 0 if jt == "semi" else lmatch == 0
+        yield HostBatch(names, [c.filter(keep) for c in lb.columns])
+        return
+    if jt == "left":
+        unm = np.flatnonzero(lmatch == 0)
+        li_all = np.concatenate([li_f, unm])
+        ri_all = np.concatenate([ri_f, np.full(len(unm), -1, np.int64)])
+        order = np.argsort(li_all, kind="stable")
+        li_all, ri_all = li_all[order], ri_all[order]
+    else:                                    # inner / right pairs
+        li_all, ri_all = li_f, ri_f
+    if jt == "right":
+        rmatched = np.zeros(nr, np.bool_)
+        rmatched[ri_f] = True
+        runm = np.flatnonzero(~rmatched)
+        li_all = np.concatenate([li_all, np.full(len(runm), -1, np.int64)])
+        ri_all = np.concatenate([ri_all, runm])
+    cols = [c.take(li_all, null_on_negative=True) for c in lb.columns] \
+        + [c.take(ri_all, null_on_negative=True) for c in rb.columns]
+    yield HostBatch(names, cols)

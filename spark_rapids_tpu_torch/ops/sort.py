@@ -3,7 +3,9 @@
 
 The device sort is the LSD radix over orderable u32 words
 (``kernels.lex_sort_perm``), every pass of which is kernel K1 on the card.
-The JAX package's out-of-core range split comes in a later slice; this
+The host sort (``host_sort_indices``) is one ``np.lexsort`` over each
+key's null-rank plane and its ``encode_sort_key`` codes. The JAX
+package's out-of-core range split comes in a later slice; this
 ``SortExec`` sorts each partition as one batch.
 """
 
@@ -12,10 +14,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence
 
+import numpy as np
+
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, bucket_capacity, concat_batches)
-from spark_rapids_tpu_torch.exprs.base import Expression, as_device_column
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, concat_host_batches, encode_sort_key)
+from spark_rapids_tpu_torch.exprs.base import (
+    Expression, as_device_column, as_host_column)
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
@@ -78,3 +85,39 @@ class SortExec(Exec):
                              stable=stable)
         record_batch(m, out)
         yield out
+
+    def execute_host(self, ctx, partition):
+        hbs = list(self.children[0].execute_host(ctx, partition))
+        if not hbs:
+            return
+        yield sort_host_batch(concat_host_batches(hbs), self.orders)
+
+
+def host_sort_indices(hb: HostBatch,
+                      orders: Sequence[SortOrder]) -> np.ndarray:
+    """Stable row permutation sorting ``hb`` under Spark semantics (every
+    NaN canonical and greatest, -0.0 < 0.0, per-key null placement).
+    Each key gives two ``np.lexsort`` planes: the null rank (ascending
+    whatever the key's direction) and the ``encode_sort_key`` code,
+    bit-inverted for descending (``~x`` reverses int64 order with no
+    overflow)."""
+    planes = []
+    for o in orders:
+        col = as_host_column(o.child.eval_host(hb), hb)
+        valid = np.asarray(col.validity, np.bool_)
+        null_rank = (valid if o.nulls_first else ~valid).astype(np.int8)
+        code = encode_sort_key(col)
+        if not o.ascending:
+            code = np.where(valid, ~code, np.int64(0))
+        planes.append((null_rank, code))
+    # np.lexsort keys run last to first: least significant first.
+    lex = []
+    for null_rank, code in reversed(planes):
+        lex.append(code)
+        lex.append(null_rank)
+    return np.lexsort(lex)
+
+
+def sort_host_batch(hb: HostBatch, orders: Sequence[SortOrder]) -> HostBatch:
+    """Host sort with Spark semantics (NaN greatest, null ordering)."""
+    return hb.take(host_sort_indices(hb, orders))

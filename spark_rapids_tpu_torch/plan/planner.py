@@ -4,42 +4,48 @@
 - Every logical node and expression is wrapped in a ``NodeMeta`` carrying
   fallback ``reasons`` (RapidsMeta.willNotWorkOnGpu analog). The
   per-node kill switches (``spark.rapids.sql.exec.<Node>`` /
-  ``spark.rapids.sql.expression.<kind>``), the order-dependent float
-  aggregation gate and the incompat-expression gates give the
-  reference's reasons; a kind or node the port has no class for adds
-  "... is not ported".
-- The port has no host engine yet. A node the reference would run on the
-  host is refused: ``Planner.plan`` raises ``NotImplementedError`` listing
-  every such node with its reasons. So are the plans the port cannot
-  shape yet: an exchange into more than one partition
-  (``spark.rapids.sql.shuffle.partitions`` > 1), a full outer join, a
-  join without keys, DISTINCT and grouping-set aggregates, join keys that
-  are not column references. Nothing falls back quietly.
-- Conversion emits the port's execs at one partition: every exchange the
-  reference plans (SinglePartitioning under a limit or a zero-key
-  aggregate, HashPartitioning between partial and final aggregates,
-  RangePartitioning under a sort) becomes ``CoalescePartitionsExec(child,
-  1)``. A join whose auto strategy comes out ``shuffle`` becomes a
-  ``BroadcastHashJoinExec`` over both sides coalesced to one partition: a
-  shuffled hash join of one partition a side is a hash join of the two
-  whole sides.
+  ``spark.rapids.sql.expression.<kind>``), ``spark.rapids.sql.enabled``,
+  the order-dependent float aggregation gate and the incompat-expression
+  gates give the reference's reasons: they place the node on the host
+  engine, as the reference does.
+- The port's own reasons (``NodeMeta.port_reasons``, also listed among
+  the reasons) name what it cannot run on either engine: a kind or node
+  it has no class for ("... is not ported"), an exchange into more than
+  one partition (``spark.rapids.sql.shuffle.partitions`` > 1), a full
+  outer join, a join without keys, DISTINCT and grouping-set aggregates,
+  join keys that are not column references. ``Planner.plan`` refuses such
+  a plan with ``NotImplementedError`` listing every such node.
+- Conversion emits the port's execs at one partition, each on its node's
+  engine, with ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a
+  child on the other engine where the reference bridges (``_bridge``).
+  Every exchange the reference plans (SinglePartitioning under a limit or
+  a zero-key aggregate, HashPartitioning between partial and final
+  aggregates, RangePartitioning under a sort) becomes
+  ``CoalescePartitionsExec(child, 1)`` above the bridge, so it runs on
+  its parent's engine. A join whose auto strategy comes out ``shuffle``
+  becomes a ``BroadcastHashJoinExec`` over both sides coalesced to one
+  partition: a shuffled hash join of one partition a side is a hash join
+  of the two whole sides.
+- The host engine runs only the nodes tagged for the reference's
+  reasons: a failing device operator raises, and is never rerun there.
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
-  (RapidsMeta.explain:291); ``collect`` runs the root and downloads (the
+  (RapidsMeta.explain:291); ``collect`` runs the root on its engine (the
   reference's scheduler, QoS, retry and fault layers are not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
 from spark_rapids_tpu_torch.exprs.base import BoundReference
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, CoalescePartitionsExec, Count,
-    CountStar, Exec, ExecContext, FilterExec, GlobalLimitExec,
-    HashAggregateExec, InMemorySourceExec, LocalLimitExec, Max, Min,
-    ProjectExec, SortExec, SortOrder, Sum)
+    CountStar, DeviceToHostExec, Exec, ExecContext, FilterExec,
+    GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
+    InMemorySourceExec, LocalLimitExec, Max, Min, ProjectExec, SortExec,
+    SortOrder, Sum)
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import (
@@ -79,11 +85,12 @@ def _exec_conf_key(name: str) -> str:
     return f"spark.rapids.sql.exec.{name}"
 
 
-def tag_column(c: Column, conf: C.TpuConf, reasons: List[str]):
-    """Walk an untyped Column AST, collecting fallback reasons. The
-    reference's type-directed cast gates and host-roundtrip notes serve
-    kinds the port has not ported; their "not ported" reason refuses
-    them here."""
+def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
+               port_reasons: List[str]):
+    """Walk an untyped Column AST, collecting fallback reasons (the port's
+    own also into ``port_reasons``). The reference's type-directed cast
+    gates and host-roundtrip notes serve kinds the port has not ported;
+    their "not ported" reason refuses them here."""
     kind = c.node[0]
     if not conf.is_op_enabled(_expr_conf_key(kind)):
         reasons.append(f"expression {kind} disabled by "
@@ -98,18 +105,26 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str]):
             f"expression {kind} can round differently from java.lang.Math "
             "on TPU; enable spark.rapids.sql.improvedFloatOps.enabled")
     if kind not in L.PORTED_KINDS and kind != "sortorder":
-        reasons.append(f"expression {kind} is not ported")
+        _port_reason(reasons, port_reasons,
+                     f"expression {kind} is not ported")
     for x in c.node[1:]:
         if isinstance(x, Column):
-            tag_column(x, conf, reasons)
+            tag_column(x, conf, reasons, port_reasons)
         elif isinstance(x, tuple):
             for y in x:
                 if isinstance(y, Column):
-                    tag_column(y, conf, reasons)
+                    tag_column(y, conf, reasons, port_reasons)
                 elif isinstance(y, tuple):
                     for z in y:
                         if isinstance(z, Column):
-                            tag_column(z, conf, reasons)
+                            tag_column(z, conf, reasons, port_reasons)
+
+
+def _port_reason(reasons: List[str], port_reasons: List[str], why: str):
+    """A reason of the port's own: it tags the node as the reference's
+    reasons do and also refuses the plan."""
+    reasons.append(why)
+    port_reasons.append(why)
 
 
 def _float_agg_reasons(agg_col: Column, schema, conf: C.TpuConf,
@@ -144,10 +159,15 @@ def _schema_or_none(plan: LogicalPlan):
 
 @dataclasses.dataclass
 class NodeMeta:
+    """A tagged logical node. ``reasons`` are all of its fallback
+    reasons, the reference's and the port's own; ``port_reasons`` are
+    the port's own, which refuse the plan."""
+
     plan: LogicalPlan
     children: List["NodeMeta"]
     reasons: List[str] = dataclasses.field(default_factory=list)
     notes: List[str] = dataclasses.field(default_factory=list)
+    port_reasons: List[str] = dataclasses.field(default_factory=list)
 
     @property
     def on_device(self) -> bool:
@@ -173,42 +193,43 @@ _NODES = (L.InMemoryScan, L.LogicalFilter, L.LogicalProject,
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
     meta = NodeMeta(plan, [wrap_and_tag(c, conf) for c in plan.children])
-    reasons = meta.reasons
+    reasons, ours = meta.reasons, meta.port_reasons
     if not conf.sql_enabled:
         reasons.append("spark.rapids.sql.enabled is false")
     if not conf.is_op_enabled(_exec_conf_key(plan.name)):
         reasons.append(f"disabled by {_exec_conf_key(plan.name)}")
     if not isinstance(plan, _NODES):
-        reasons.append(f"{plan.name} is not ported")
+        _port_reason(reasons, ours, f"{plan.name} is not ported")
 
     if isinstance(plan, L.LogicalFilter):
-        tag_column(plan.condition, conf, reasons)
+        tag_column(plan.condition, conf, reasons, ours)
     elif isinstance(plan, L.LogicalProject):
         for _, c in plan.projections:
-            tag_column(c, conf, reasons)
+            tag_column(c, conf, reasons, ours)
     elif isinstance(plan, L.LogicalAggregate):
         schema = _schema_or_none(plan.child)
         for _, c in plan.group_by:
-            tag_column(c, conf, reasons)
+            tag_column(c, conf, reasons, ours)
         for _, c in plan.aggregates:
             ac = _unalias(c)
             if ac.node[0] not in ("agg", "aggd"):
                 continue
             if ac.node[2] is not None:
-                tag_column(ac.node[2], conf, reasons)
+                tag_column(ac.node[2], conf, reasons, ours)
             _float_agg_reasons(ac, schema, conf, reasons)
             if ac.node[0] == "aggd":
-                reasons.append(f"DISTINCT aggregate {ac.node[1]} is not "
-                               "ported")
+                _port_reason(reasons, ours, f"DISTINCT aggregate "
+                             f"{ac.node[1]} is not ported")
             elif ac.node[1] not in _AGGS:
-                reasons.append(f"aggregate {ac.node[1]} is not ported")
+                _port_reason(reasons, ours,
+                             f"aggregate {ac.node[1]} is not ported")
         if plan.grouping is not None:
-            reasons.append(f"grouping sets ({plan.grouping}) are not "
-                           "ported")
+            _port_reason(reasons, ours, f"grouping sets ({plan.grouping}) "
+                         "are not ported")
     elif isinstance(plan, L.LogicalSort):
         for o in plan.orders:
             tag_column(o.node[1] if o.node[0] == "sortorder" else o, conf,
-                       reasons)
+                       reasons, ours)
     elif isinstance(plan, L.LogicalJoin):
         if plan.strategy == "shuffle" and plan.left_keys and \
                 not conf.get(C.REPLACE_SORT_MERGE_JOIN):
@@ -216,21 +237,22 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
                 "co-partitioned (sort-merge-shaped) join replacement "
                 "disabled by spark.rapids.sql.replaceSortMergeJoin.enabled")
         for k in plan.left_keys + plan.right_keys:
-            tag_column(k, conf, reasons)
+            tag_column(k, conf, reasons, ours)
         if plan.condition is not None:
-            tag_column(plan.condition, conf, reasons)
+            tag_column(plan.condition, conf, reasons, ours)
         if plan.join_type == "full":
-            reasons.append("full outer join is not ported (it needs a "
-                           "shuffled, co-partitioned plan)")
+            _port_reason(reasons, ours, "full outer join is not ported (it "
+                         "needs a shuffled, co-partitioned plan)")
         elif plan.join_type not in JOIN_TYPES:
-            reasons.append(f"join type {plan.join_type} is not ported")
+            _port_reason(reasons, ours,
+                         f"join type {plan.join_type} is not ported")
         if not plan.left_keys:
-            reasons.append("join without keys (nested loop join) is not "
-                           "ported")
+            _port_reason(reasons, ours, "join without keys (nested loop "
+                         "join) is not ported")
         if any(_unalias(k).node[0] != "ref"
                for k in plan.left_keys + plan.right_keys):
-            reasons.append("join keys that are not column references are "
-                           "not ported")
+            _port_reason(reasons, ours, "join keys that are not column "
+                         "references are not ported")
     return meta
 
 
@@ -266,11 +288,12 @@ def resolve_agg(c: Column, schema):
 
 @dataclasses.dataclass
 class PhysicalPlan:
-    """Planner output: the root exec, the tagged meta tree for explain,
-    and the conf the query was planned with (runtime-read configs see the
-    same values)."""
+    """Planner output: the root exec, which engine the root runs on, the
+    tagged meta tree for explain and test mode, and the conf the query
+    was planned with (runtime-read configs see the same values)."""
 
     root: Exec
+    root_on_device: bool
     meta: NodeMeta
     conf: C.TpuConf = dataclasses.field(default_factory=C.TpuConf)
 
@@ -279,9 +302,14 @@ class PhysicalPlan:
             not_on_device_only=(mode.upper() == "NOT_ON_GPU")))
 
     def collect(self, ctx: Optional[ExecContext] = None) -> List[tuple]:
-        """Run the root's partitions on the plan's device and download
-        the rows."""
-        return self.root.collect(ctx or ExecContext(self.conf))
+        """Run the root's partitions on the root's engine and return the
+        rows (downloaded once, when the root is on the device)."""
+        return self.root.collect(ctx or ExecContext(self.conf),
+                                 device=self.root_on_device)
+
+    def host_fallback_nodes(self) -> List[str]:
+        """The logical nodes tagged for the host engine, in tree order."""
+        return [m.plan.name for m in _walk(self.meta) if not m.on_device]
 
     def tree(self) -> str:
         """The exec tree, one operator a line, with its join type,
@@ -306,16 +334,16 @@ def _exec_lines(e: Exec, depth: int) -> List[str]:
 
 
 def _refusal(refused: List[NodeMeta]) -> str:
-    lines = ["the port cannot plan this query (it has no host engine "
-             "yet); refused nodes:"]
+    lines = ["the port cannot plan this query; refused nodes:"]
     for m in refused:
         lines.append(f"  {m.plan.name}: " + "; ".join(m.reasons))
     return "\n".join(lines)
 
 
 class Planner:
-    """Converts a tagged logical plan into the port's exec tree, with
-    every source uploading to ``device`` (``None`` = the CUDA card)."""
+    """Converts a tagged logical plan into the port's exec tree, each node
+    on its engine, with every source uploading to ``device`` (``None`` =
+    the CUDA card)."""
 
     def __init__(self, conf: Optional[C.TpuConf] = None,
                  device: DeviceLike = None):
@@ -335,21 +363,31 @@ class Planner:
         if self.conf.explain in ("ALL", "NOT_ON_GPU"):
             print("\n".join(meta.explain_lines(
                 not_on_device_only=self.conf.explain == "NOT_ON_GPU")))
-        refused = [m for m in _walk(meta) if m.reasons]
+        refused = [m for m in _walk(meta) if m.port_reasons]
         if refused:
-            if self.conf.test_enabled:
-                allowed = {s for s in str(self.conf.get(
-                    C.TEST_ALLOWED_NONTPU)).split(",") if s}
-                bad = [m.plan.name for m in refused
-                       if m.plan.name not in allowed]
-                if bad:
-                    raise AssertionError(
-                        f"Query would execute on host: {bad} "
-                        "(spark.rapids.sql.test.enabled)")
             raise NotImplementedError(_refusal(refused))
-        return PhysicalPlan(self._convert(meta), meta, self.conf)
+        root, on_device = self._convert(meta)
+        phys = PhysicalPlan(root, on_device, meta, self.conf)
+        if self.conf.test_enabled:
+            allowed = {s for s in str(self.conf.get(
+                C.TEST_ALLOWED_NONTPU)).split(",") if s}
+            bad = [n for n in phys.host_fallback_nodes()
+                   if n not in allowed]
+            if bad:
+                raise AssertionError(
+                    f"Query would execute on host: {bad} "
+                    "(spark.rapids.sql.test.enabled)")
+        return phys
 
     # -- helpers -------------------------------------------------------------
+    def _bridge(self, child: Exec, child_dev: bool, want_dev: bool) -> Exec:
+        """``child`` as its parent's engine reads it: a transition where
+        the two engines differ."""
+        if child_dev == want_dev:
+            return child
+        return HostToDeviceExec(child, self.device) if want_dev \
+            else DeviceToHostExec(child)
+
     def _shuffle_partitions(self) -> int:
         """One partition on one device unless the conf asks for more (the
         reference's single-device rule)."""
@@ -368,9 +406,10 @@ class Planner:
                         or isinstance(plan, L.LogicalSort) or \
                         (isinstance(plan, L.LogicalJoin) and plan.left_keys
                          and self._join_strategy(plan)[0] == "shuffle"):
-                    m.reasons.append(
-                        f"an exchange into {n} partitions "
-                        f"({C.SHUFFLE_PARTITIONS.key}) is not ported")
+                    _port_reason(m.reasons, m.port_reasons,
+                                 f"an exchange into {n} partitions "
+                                 f"({C.SHUFFLE_PARTITIONS.key}) is not "
+                                 "ported")
 
     def _join_strategy(self, plan: L.LogicalJoin):
         """(strategy, build estimate, threshold); the estimate and
@@ -389,31 +428,36 @@ class Planner:
             and est <= threshold else "shuffle"
         return strategy, est, threshold
 
-    def _convert(self, meta: NodeMeta) -> Exec:
+    def _convert(self, meta: NodeMeta) -> Tuple[Exec, bool]:
+        """(exec, runs on the device) for one tagged node; each child is
+        bridged to this node's engine where the reference bridges."""
         plan = meta.plan
+        want_dev = meta.on_device
         kids = [self._convert(c) for c in meta.children]
         if isinstance(plan, L.InMemoryScan):
             return InMemorySourceExec(plan.schema, plan.partitions,
-                                      device=self.device)
+                                      device=self.device), want_dev
+        if isinstance(plan, L.LogicalJoin):
+            return self._convert_join(plan, meta, kids, want_dev), want_dev
+        child = self._bridge(*kids[0], want_dev)
         if isinstance(plan, L.LogicalFilter):
-            return FilterExec(kids[0], resolve(plan.condition,
-                                               plan.child.schema))
+            return FilterExec(child, resolve(plan.condition,
+                                             plan.child.schema)), want_dev
         if isinstance(plan, L.LogicalProject):
-            return ProjectExec(kids[0], [
+            return ProjectExec(child, [
                 (n, resolve(c, plan.child.schema))
-                for n, c in plan.projections])
+                for n, c in plan.projections]), want_dev
         if isinstance(plan, L.LogicalLimit):
-            local = LocalLimitExec(kids[0], plan.n)
-            return GlobalLimitExec(CoalescePartitionsExec(local, 1), plan.n)
+            local = LocalLimitExec(child, plan.n)
+            return GlobalLimitExec(CoalescePartitionsExec(local, 1),
+                                   plan.n), want_dev
         if isinstance(plan, L.LogicalSort):
             # The reference's range exchange under a global sort, at one
             # partition.
-            return SortExec(CoalescePartitionsExec(kids[0], 1),
-                            self._sort_orders(plan))
+            return SortExec(CoalescePartitionsExec(child, 1),
+                            self._sort_orders(plan)), want_dev
         if isinstance(plan, L.LogicalAggregate):
-            return self._convert_aggregate(plan, kids[0])
-        if isinstance(plan, L.LogicalJoin):
-            return self._convert_join(plan, meta, kids)
+            return self._convert_aggregate(plan, child), want_dev
         raise NotImplementedError(f"cannot convert {plan.name}")
 
     def _sort_orders(self, plan: L.LogicalSort) -> List[SortOrder]:
@@ -446,9 +490,9 @@ class Planner:
         return HashAggregateExec(CoalescePartitionsExec(partial, 1),
                                  final_groups, aggs, mode="final")
 
-    def _convert_join(self, plan: L.LogicalJoin, meta: NodeMeta,
-                      kids) -> Exec:
-        lch, rch = kids
+    def _convert_join(self, plan: L.LogicalJoin, meta: NodeMeta, kids,
+                      want_dev: bool) -> Exec:
+        lch, rch = (self._bridge(k, kdev, want_dev) for k, kdev in kids)
         ls, rs = plan.children[0].schema, plan.children[1].schema
         lkeys = [resolve(k, ls) for k in plan.left_keys]
         rkeys = [resolve(k, rs) for k in plan.right_keys]

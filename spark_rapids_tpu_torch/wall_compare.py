@@ -3,7 +3,7 @@ for the port in any source tree.
 
     python3 spark_rapids_tpu_torch/wall_compare.py [--tree DIR]
         [--codecs v2,plain] [--runs 3] [--label NAME]
-        [--kernels | --dataframe]
+        [--kernels | --dataframe [--default-conf]]
 
 Run it by its path, not with ``-m``: it imports ``spark_rapids_tpu_torch``
 from ``--tree`` (the root of a checkout; default the checkout holding this
@@ -40,7 +40,16 @@ the default codec, in this one process: for each query the planning time
 of a fresh DataFrame (host ms), the first collect of the hand-built tree
 and of the DataFrame's plan, then ``--runs`` rounds of one warm collect of
 each in turns (hand-built, DataFrame, DataFrame, hand-built, ...). The
-rows of both paths must be equal. One JSON line a query. A tree without the front end cannot run this mode.
+rows of both paths must be equal. One JSON line a query. A tree without
+the front end cannot run this mode.
+
+With ``--dataframe --default-conf`` the two paths are q1-q6 through a
+``TpuSession()`` with no conf (``variableFloatAgg`` false: float Sum/Avg
+aggregates run on the host engine between device subtrees) and through
+one with ``variableFloatAgg`` on (every node on the card), timed the
+same way in turns in this one process; their rows must agree, floats to
+rtol 1e-9 (the host engine sums in another order). A tree without the
+host engine refuses the default conf and cannot run this mode.
 """
 
 from __future__ import annotations
@@ -186,7 +195,12 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--kernels", action="store_true")
     mode.add_argument("--dataframe", action="store_true")
+    ap.add_argument("--default-conf", action="store_true",
+                    help="with --dataframe: the default conf against "
+                    "variableFloatAgg on, instead of the hand-built trees")
     args = ap.parse_args()
+    if args.default_conf and not args.dataframe:
+        ap.error("--default-conf goes with --dataframe")
     tree = os.path.abspath(args.tree)
     _import_tree(tree)
 
@@ -214,7 +228,7 @@ def main() -> int:
     if args.dataframe:
         print(f"{label}: kernels built in {build_s:.2f} s, SF1 data in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        _dataframe_walls(label, entry, cols, args.runs)
+        _dataframe_walls(label, entry, cols, args.runs, args.default_conf)
         _print_device()
         return 0
     plans = {"q1": entry.tpch_q1_plan(
@@ -255,12 +269,28 @@ def main() -> int:
     return 0
 
 
-def _dataframe_walls(label: str, entry, cols: dict, runs: int) -> None:
+def _rows_close(a: list, b: list) -> bool:
+    """Same rows in the same order: floats within rtol 1e-9, the rest
+    exact."""
+    import math
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(
+            math.isclose(x, y, rel_tol=1e-9)
+            if isinstance(x, float) and isinstance(y, float) else x == y
+            for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+def _dataframe_walls(label: str, entry, cols: dict, runs: int,
+                     default_conf: bool = False) -> None:
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks import tpch
     session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
     tables = tpch.tpch_tables(session, cols)
+    if default_conf:
+        dsession = TpuSession()
+        dtables = tpch.tpch_tables(dsession, cols)
     hand = {"q1": lambda: entry.tpch_q1_plan(entry.table_partitions(
         cols["lineitem"], entry.Q1_SCHEMA, entry.TABLE_PARTITIONS[
             "lineitem"]), device="cuda")}
@@ -280,14 +310,19 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int) -> None:
         df._physical()
         plan_ms = (time.perf_counter() - t0) * 1e3
         paths = {"dataframe": df.collect}
-        if q in hand:
+        if default_conf:
+            ddf = tpch.QUERIES[q](dsession, dtables[q])
+            ddf._physical()
+            paths = {"default_conf": ddf.collect, **paths}
+        elif q in hand:
             paths = {"hand": hand[q]().collect, **paths}
         first, warm, want = {}, {p: [] for p in paths}, None
         for p, collect in paths.items():
             first[p], rows = run(collect)
             if want is None:
                 want = rows
-            elif rows != want:
+            elif not (_rows_close(rows, want) if default_conf
+                      else rows == want):
                 raise AssertionError(f"{q}: {p} rows differ")
         order = list(paths)
         for r in range(runs):

@@ -424,5 +424,8 @@ def test_port_imports_no_jax():
     assert len(loaded) >= 18
     for m in ("ops.join", "ops.native", "ops.basic", "ops.sort", "entry",
               "profile_query", "plan.logical", "plan.pruning",
-              "plan.planner", "api.dataframe", "benchmarks.tpch"):
+              "plan.planner", "api.dataframe", "benchmarks.tpch",
+              "ops.base", "ops.aggregate", "columnar.host",
+              "columnar.wire", "exprs.base", "exprs.arithmetic",
+              "exprs.predicates", "exprs.strings", "wall_compare"):
         assert f"spark_rapids_tpu_torch.{m}" in loaded, m

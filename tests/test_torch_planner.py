@@ -10,16 +10,22 @@ api.dataframe against the JAX package's, on the CPU.
   refuses a plan, its lines equal the reference's once its extra
   "not ported" reasons are set aside.
 - ``Planner.plan`` refuses with ``NotImplementedError`` naming every
-  refused node and its reasons: host-tagged nodes, exchanges into more
-  than one partition, full outer and keyless joins, DISTINCT and
-  grouping-set aggregates, join keys that are not columns.
+  node the port cannot run on either engine, with its reasons: kinds it
+  has not ported, exchanges into more than one partition, full outer and
+  keyless joins, DISTINCT and grouping-set aggregates, join keys that are
+  not columns. A node tagged only for the reference's reasons (a float
+  aggregate under the default conf, a disabled exec) runs on the host
+  engine instead and gives the reference's rows; test mode asserts on it
+  unless ``spark.rapids.sql.test.allowedNonTpu`` names it, as the
+  reference does.
 - The one-partition lowering: q4 with the broadcast threshold under its
   build estimate plans ``shuffle`` in both planners (the same note), the
   port's join reads both sides coalesced to one partition, and the rows
   equal the reference's shuffled hash join's.
 - The DataFrame API: builders (python rows, dicts, numpy columns),
   ``with_column``, ``group_by().count()``, ``limit``, re-planning on a
-  conf change, and a session with no card raising.
+  conf change (a filter disabled by its kill switch moves to the host),
+  and a session with no card raising.
 """
 
 import copy
@@ -47,11 +53,17 @@ from test_torch_logical import (  # noqa: F401  (small_tables: a fixture)
 VFA = "spark.rapids.sql.variableFloatAgg.enabled"
 
 
+# The reference's layers the port has not ported: cost-based placement,
+# and the stage pipeline (which would prematerialize a host-side
+# exchange of a mixed plan on the device).
+REF_OFF = {"spark.rapids.sql.cost.enabled": False,
+           "spark.rapids.sql.pipeline.enabled": False}
+
+
 def _confs(raw: dict):
-    """The same raw conf for both planners; the reference's cost-based
-    placement (not ported) off."""
-    return C.TpuConf(raw), JC.TpuConf(
-        {**raw, "spark.rapids.sql.cost.enabled": False})
+    """The same raw conf for both planners; the reference's unported
+    layers off."""
+    return C.TpuConf(raw), JC.TpuConf({**raw, **REF_OFF})
 
 
 def _tags(meta):
@@ -165,6 +177,24 @@ def test_explain_matches_reference(q, small_tables, monkeypatch):
 # Refusal
 # ---------------------------------------------------------------------------
 
+def _host_cases(M, session):
+    """The cases tagged only for the reference's reasons, in either
+    package's DSL: case -> (DataFrame, conf updates, [(node, reason)])."""
+    df = _scan_df(session)
+    c = M.col
+    return {
+        "host_tagged_float_sum": (
+            df.group_by("s").agg(M.agg_sum(c("f"))), {VFA: False},
+            [("LogicalAggregate", "sum over float64 can vary with "
+              "evaluation order")]),
+        "disabled_exec": (
+            df.filter(c("a") > 1), {"spark.rapids.sql.exec.LogicalFilter":
+                                    False},
+            [("LogicalFilter", "disabled by spark.rapids.sql.exec."
+              "LogicalFilter")]),
+    }
+
+
 def _refusals(session):
     df = _scan_df(session)
     other = _scan_df(session).select(L.col("a").alias("b"),
@@ -172,18 +202,10 @@ def _refusals(session):
     c = L.col
     return {
         # case -> (DataFrame, conf updates, [(node, reason), ...])
-        "host_tagged_float_sum": (
-            df.group_by("s").agg(L.agg_sum(c("f"))), {VFA: False},
-            [("LogicalAggregate", "sum over float64 can vary with "
-              "evaluation order")]),
+        **_host_cases(L, session),
         "unported_expression": (
             df.select((c("f") / 2.0).alias("r"), "a").filter(c("r") > 1.0),
             {}, [("LogicalProject", "expression div is not ported")]),
-        "disabled_exec": (
-            df.filter(c("a") > 1), {"spark.rapids.sql.exec.LogicalFilter":
-                                    False},
-            [("LogicalFilter", "disabled by spark.rapids.sql.exec."
-              "LogicalFilter")]),
         "multi_partition_exchange": (
             df.group_by("s").count().order_by("s"),
             {"spark.rapids.sql.shuffle.partitions": 4},
@@ -215,25 +237,45 @@ def _refusals(session):
             df.join_on(other, [c("a") + 1], ["b"]), {},
             [("LogicalJoin", "join keys that are not column references are "
               "not ported")]),
+        # The disabled filter alone would run on the host; the unported
+        # mod refuses the plan, naming its node only.
         "two_nodes": (
             df.filter(c("a") > 1).select((c("f") % 2.0).alias("m"), "s")
             .group_by("s").agg(L.agg_avg(c("m"))),
             {"spark.rapids.sql.expression.gt": False},
-            [("LogicalProject", "expression mod is not ported"),
-             ("LogicalFilter", "disabled by spark.rapids.sql.expression.gt")
-             ]),
+            [("LogicalProject", "expression mod is not ported")]),
     }
 
 
 REFUSALS = sorted(_refusals(TpuSession(device="cpu")))
+HOST_CASES = sorted(_host_cases(L, TpuSession(device="cpu")))
+
+
+def _reference_rows(case, conf):
+    """The reference's rows of a host case under ``conf``."""
+    from spark_rapids_tpu.api import TpuSession as JSession
+    jsession = JSession({**conf, **REF_OFF})
+    return _host_cases(JL, jsession)[case][0].collect()
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_planner_refuses_naming_nodes_and_reasons(case):
+    """Port reasons refuse, naming each refused node; the reference's
+    reasons alone put the node on the host, whose rows equal the
+    reference's."""
     session = TpuSession(device="cpu")
     df, conf, expected = _refusals(session)[case]
     for k, v in conf.items():
         session.set(k, v)
+    if case in HOST_CASES:
+        phys = df._physical()
+        assert phys.host_fallback_nodes() == [n for n, _ in expected]
+        for node, reason in expected:
+            assert any(line.strip().startswith(f"!Exec <{node}>")
+                       and reason in line
+                       for line in phys.explain().splitlines())
+        assert sorted(df.collect()) == sorted(_reference_rows(case, conf))
+        return
     with pytest.raises(NotImplementedError) as err:
         df.collect()
     msg = str(err.value)
@@ -241,6 +283,8 @@ def test_planner_refuses_naming_nodes_and_reasons(case):
     for node, reason in expected:
         assert any(line.strip().startswith(f"{node}:") and reason in line
                    for line in msg.splitlines()), (node, reason, msg)
+    refused = {line.strip().split(":")[0] for line in msg.splitlines()[1:]}
+    assert refused == {node for node, _ in expected}
 
 
 def test_test_mode_asserts_as_the_reference_does():
@@ -251,8 +295,13 @@ def test_test_mode_asserts_as_the_reference_does():
                        r"\['LogicalAggregate'\]"):
         df.collect()
     session.set("spark.rapids.sql.test.allowedNonTpu", "LogicalAggregate")
-    with pytest.raises(NotImplementedError, match="LogicalAggregate: sum"):
-        df.collect()
+    from spark_rapids_tpu.api import TpuSession as JSession
+    jsession = JSession({"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.sql.test.allowedNonTpu":
+                         "LogicalAggregate", **REF_OFF})
+    want = _scan_df(jsession).group_by("s").agg(
+        JL.agg_sum(JL.col("f"))).collect()
+    assert df.collect() == want and len(want) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +394,8 @@ def test_conf_change_replans():
     first = df._physical()
     assert df._physical() is first
     session.set("spark.rapids.sql.exec.LogicalFilter", False)
-    with pytest.raises(NotImplementedError, match="LogicalFilter"):
-        df.collect()
+    assert df._physical().host_fallback_nodes() == ["LogicalFilter"]
+    assert df.count_rows() == 3
     session.set("spark.rapids.sql.exec.LogicalFilter", True)
     assert df._physical() is not first
     assert df.count_rows() == 3
