@@ -112,10 +112,27 @@ Phases (each raises on failure; any failure exits non-zero):
    all-device tree), each run checked, with the host engine's share of
    each default-conf wall (host clock inside the host subtrees less the
    device subtrees and downloads below them).
-13. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+13. Conditionals, IN lists, Divide and date parts: TPCxBB q5 (scale 1:
+   4,000,000 clickstream rows, 100,000 customers, 20,000 demographics,
+   18,000 items; the reference generator's stream replayed by
+   ``benchmarks/suites.py``) and TPC-H q7, q8, q9, q12, q14 and q19
+   (SF1) through ``TpuSession`` and the
+   reference's query text, each once with ``variableFloatAgg`` on (every
+   node on the card) and once under the default conf (the float Sum
+   aggregates of q7, q8, q9, q14 and q19 on the host engine; q12's and
+   xbb_q5's integer sums on the card). For each run: the plan's host
+   nodes and bridges (checked), the rows and bytes each
+   ``DeviceToHostExec`` downloads, the first run (counters around it
+   alone, every K1-K4 launch recorded) and two warm runs, each checked
+   against a numpy oracle in this file (keys, counts and order exact,
+   floats to rtol 1e-9; xbb_q5 as a multiset, the query has no order).
+   K1 must launch in xbb_q5, q7, q8, q9 and q12 under both confs. Each
+   K1-K4 launch of a shape no earlier phase checked must equal the
+   kernel's plain version bit for bit. The phase's time is printed.
+14. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
-   front end, then q1-q6 under the default conf), its error against the
-   plain version, its
+   front end, then q1-q6 under the default conf, then phase 13's
+   fourteen runs), its error against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -1287,24 +1304,23 @@ def k1_shape(keys, perm) -> tuple:
             perm is not None)
 
 
-def k1_checks(native, q: str, calls: list) -> list:
-    """Each K1 launch of a shape phase 3 did not check, again through the
-    wrapper, bit for bit against the plain version."""
+def k1_checks(native, q: str, calls: list, known=K1_CHECKED) -> list:
+    """Each K1 launch of a shape not in ``known`` (default: phase 3's),
+    again through the wrapper, bit for bit against the plain version."""
     import torch
     out = []
-    for shape in sorted({k1_shape(*a) for a in calls} - K1_CHECKED):
+    for shape in sorted({k1_shape(*a) for a in calls} - set(known)):
         keys, perm = next(a for a in calls if k1_shape(*a) == shape)
         got = native.stable_argsort_u32(keys, perm)
         plain = native.stable_argsort_u32_plain(keys, perm)
         torch.cuda.synchronize()
         err = max_abs_err(got, plain)
         if not torch.equal(got, plain):
-            raise AssertionError(f"{q} default conf: K1 != plain at "
-                                 f"{shape}")
+            raise AssertionError(f"{q}: K1 != plain at {shape}")
         out.append(dict(query=q, kernel="radix_sort", shape=shape,
                         max_abs_err=err))
     if out:
-        log(f"{q} default conf K1: {len(calls)} launches; new shapes "
+        log(f"{q} K1: {len(calls)} launches; new shapes "
             f"(rows, key type, perm) {[r['shape'] for r in out]} "
             f"bit-identical to the plain version")
     return out
@@ -1336,6 +1352,58 @@ def host_engine_ms(ctx, wall_ms: float, root_on_device: bool) -> float:
     return max((h2d if root_on_device else wall_ms) - d2h, 0.0)
 
 
+def run_checked(native, label: str, phys, check, want, expect_hosted: list,
+                must_launch, known_seen: list, known_k1=K1_CHECKED) -> dict:
+    """One query's checked first run on the card: the plan's host nodes
+    against ``expect_hosted`` and its bridges (printed), the launch
+    counters around the run alone with every K1-K4 launch recorded, the
+    rows against the oracle, the kernels of ``must_launch`` launched, the
+    rows and bytes each ``DeviceToHostExec`` downloads (printed), and
+    every launch of a shape not in ``known_seen`` / ``known_k1`` held to
+    its plain version bit for bit. Returns the rows, ``first_s``,
+    ``launches``, ``moved``, ``hosted``, ``seen`` (the recorded run) and
+    ``checks`` (the kernel checks made)."""
+    import torch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    hosted = phys.host_fallback_nodes()
+    if hosted != expect_hosted:
+        raise AssertionError(f"{label} placed {hosted} on the host, "
+                             f"expected {expect_hosted}")
+    bridges = _bridges(phys.root)
+    if bool(hosted) != bool(bridges):
+        raise AssertionError(f"{label}: host nodes {hosted} but bridges "
+                             f"{bridges}")
+    log(f"{label}: host nodes {hosted}; root on the "
+        f"{'device' if phys.root_on_device else 'host'}; bridges "
+        + (", ".join(f"{type(b).__name__} under {p} over {c}"
+                     for b, p, c in bridges) or "none"))
+    native.reset_counters()
+    seen, seen_k1 = {}, []
+    ctx = ExecContext(phys.conf)
+    with recording(native, seen), recording_k1(native, seen_k1):
+        t0 = time.perf_counter()
+        rows = phys.collect(ctx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = native.counters()
+    check(rows, want)
+    missing = [k for k in must_launch if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}: {launches}")
+    moved = [(ctx.metrics_for(b).values.get("downloadRows", 0),
+              ctx.metrics_for(b).values.get("downloadBytes", 0))
+             for b, _p, _c in bridges
+             if type(b).__name__ == "DeviceToHostExec"]
+    for r, nb in moved:
+        log(f"  {label} DeviceToHostExec downloaded {int(r)} rows, "
+            f"{int(nb)} B")
+    first = first_run(seen, launches)
+    checks = df_kernel_checks(native, {label: first}, known_seen) \
+        + k1_checks(native, label, seen_k1, known_k1)
+    return dict(rows=rows, first_s=first_s, launches=launches, moved=moved,
+                hosted=hosted, seen=first, checks=checks)
+
+
 def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
     """q1-q6 through ``TpuSession()`` with no conf: float Sum/Avg
     aggregates run on the host engine between device subtrees. Each
@@ -1364,42 +1432,11 @@ def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
         check, want = oracles[q]
         phys = tpch.QUERIES[q](session, tables[q])._physical()
         vphys = tpch.QUERIES[q](vsession, vtables[q])._physical()
-        hosted = phys.host_fallback_nodes()
-        if hosted != DEFAULT_HOST_NODES[q]:
-            raise AssertionError(f"{q} default conf placed {hosted} on the "
-                                 f"host, expected {DEFAULT_HOST_NODES[q]}")
-        bridges = _bridges(phys.root)
-        if bool(hosted) != bool(bridges):
-            raise AssertionError(f"{q} default conf: host nodes {hosted} "
-                                 f"but bridges {bridges}")
-        log(f"{q} default conf: host nodes {hosted}; root on the "
-            f"{'device' if phys.root_on_device else 'host'}; bridges "
-            + (", ".join(f"{type(b).__name__} under {p} over {c}"
-                         for b, p, c in bridges) or "none"))
-        native.reset_counters()
-        seen, seen_k1 = {}, []
-        ctx = ExecContext(phys.conf)
-        with recording(native, seen), recording_k1(native, seen_k1):
-            t0 = time.perf_counter()
-            rows = phys.collect(ctx)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-        launches = native.counters()
-        check(rows, want)
-        missing = [k for k in DEFAULT_MUST_LAUNCH[q] if launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"{q} under the default conf launched no "
-                                 f"{missing}: {launches}")
-        moved = [(ctx.metrics_for(b).values.get("downloadRows", 0),
-                  ctx.metrics_for(b).values.get("downloadBytes", 0))
-                 for b, _p, _c in bridges
-                 if type(b).__name__ == "DeviceToHostExec"]
-        for r, nb in moved:
-            log(f"  {q} DeviceToHostExec downloaded {int(r)} rows, "
-                f"{int(nb)} B")
-        out["kernel_checks"] += df_kernel_checks(
-            native, {q: first_run(seen, launches)}, known_seen)
-        out["kernel_checks"] += k1_checks(native, q, seen_k1)
+        r = run_checked(native, f"{q} default conf", phys, check, want,
+                        DEFAULT_HOST_NODES[q], DEFAULT_MUST_LAUNCH[q],
+                        known_seen)
+        first_s, launches = r["first_s"], r["launches"]
+        out["kernel_checks"] += r["checks"]
         check(vphys.collect(), want)             # warms the all-device tree
         walls = {"default": [], "vfa": []}
         host = []
@@ -1428,7 +1465,329 @@ def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
             f"launches {launches}")
         out[q] = dict(first_s=first_s, warm_ms=med["default"],
                       vfa_warm_ms=med["vfa"], host_share=share,
-                      launches=launches, moved=moved, hosted=hosted)
+                      launches=launches, moved=r["moved"],
+                      hosted=r["hosted"], seen=r["seen"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: TPCxBB q5 and TPC-H q7, q8, q9, q12, q14 and q19 (conditionals,
+# IN lists, Divide and date parts) under both confs
+# ---------------------------------------------------------------------------
+
+def _years(days: np.ndarray) -> np.ndarray:
+    """Calendar year of each day count (numpy's datetime64, not the
+    port's arithmetic)."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+
+
+def _matrix_rows(m: np.ndarray, value: str) -> np.ndarray:
+    """Rows of a zero-padded (n, w) uint8 string matrix equal to
+    ``value``."""
+    b = np.frombuffer(value.encode(), np.uint8)
+    if len(b) > m.shape[1]:
+        return np.zeros(len(m), bool)
+    rest = m[:, len(b):]
+    return np.all(m[:, :len(b)] == b, axis=1) & ~np.any(rest != 0, axis=1)
+
+
+def _matrix_contains(m: np.ndarray, value: str) -> np.ndarray:
+    b = np.frombuffer(value.encode(), np.uint8)
+    hit = np.zeros(len(m), bool)
+    for j in range(m.shape[1] - len(b) + 1):
+        hit |= np.all(m[:, j:j + len(b)] == b, axis=1)
+    return hit
+
+
+def _group_sums(keys: list, *values) -> tuple:
+    """(unique key rows, the sum of each value per key row): ``keys`` is a
+    list of int arrays grouped together."""
+    uniq, inv = np.unique(np.stack(keys, axis=1), axis=0,
+                          return_inverse=True)
+    inv = inv.reshape(-1)
+    return uniq, [np.bincount(inv, weights=v, minlength=len(uniq))
+                  for v in values]
+
+
+def q7_oracle(cols: dict, E) -> list:
+    """TPC-H Q7 in plain numpy: (supp_nation, cust_nation, l_year,
+    revenue) of 1995-1996 lines shipped between FRANCE and GERMANY."""
+    li, o, c, s = (cols["lineitem"], cols["orders"], cols["customer"],
+                   cols["supplier"])
+    names = [n for n, _ in E.NATIONS]
+    fr, de = names.index("FRANCE"), names.index("GERMANY")
+    m = (li["l_shipdate"] >= E.days("1995-01-01")) & (
+        li["l_shipdate"] <= E.days("1996-12-31"))
+    sn = s["s_nationkey"][li["l_suppkey"][m] - 1]
+    cn = c["c_nationkey"][o["o_custkey"][li["l_orderkey"][m] - 1] - 1]
+    keep = ((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))
+    vol = (li["l_extendedprice"][m] * (1.0 - li["l_discount"][m]))[keep]
+    yr = _years(li["l_shipdate"][m][keep])
+    uniq, (rev,) = _group_sums([sn[keep], cn[keep], yr], vol)
+    rows = [(names[a], names[b], int(y), float(r))
+            for (a, b, y), r in zip(uniq, rev)]
+    rows.sort(key=lambda r: r[:3])
+    return rows
+
+
+def q8_oracle(cols: dict, E) -> list:
+    """TPC-H Q8 in plain numpy: (o_year, BRAZIL's share of the AMERICA
+    customers' 1995-1996 volume of ECONOMY ANODIZED STEEL parts)."""
+    li, o, c, s, p, n = (cols["lineitem"], cols["orders"],
+                         cols["customer"], cols["supplier"], cols["part"],
+                         cols["nation"])
+    america = E.REGIONS.index("AMERICA")
+    brazil = [nm for nm, _ in E.NATIONS].index("BRAZIL")
+    part_ok = _matrix_rows(p["p_type"], "ECONOMY ANODIZED STEEL")
+    cust_ok = n["n_regionkey"][c["c_nationkey"]] == america
+    od = o["o_orderdate"]
+    order_ok = (od >= E.days("1995-01-01")) & (od <= E.days("1996-12-31")) \
+        & cust_ok[o["o_custkey"] - 1]
+    oi = li["l_orderkey"] - 1
+    m = part_ok[li["l_partkey"] - 1] & order_ok[oi]
+    vol = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+    is_br = s["s_nationkey"][li["l_suppkey"][m] - 1] == brazil
+    uniq, (br, tot) = _group_sums([_years(od[oi[m]])],
+                                  np.where(is_br, vol, 0.0), vol)
+    return [(int(y), float(b / t)) for (y,), b, t in zip(uniq, br, tot)]
+
+
+def q9_oracle(cols: dict, E) -> list:
+    """TPC-H Q9 in plain numpy: (nation, o_year, sum_profit) of the lines
+    of '%green%' parts, by nation asc and year desc."""
+    li, o, s, p, ps = (cols["lineitem"], cols["orders"], cols["supplier"],
+                       cols["part"], cols["partsupp"])
+    names = [nm for nm, _ in E.NATIONS]
+    m = _matrix_contains(p["p_name"], "green")[li["l_partkey"] - 1]
+    pk, sk = li["l_partkey"][m], li["l_suppkey"][m]
+    # Each line's supplier is one of its part's four partsupp rows.
+    cand = (pk - 1)[:, None] * 4 + np.arange(4)[None, :]
+    which = np.argmax(ps["ps_suppkey"][cand] == sk[:, None], axis=1)
+    row = cand[np.arange(len(pk)), which]
+    if not np.all(ps["ps_suppkey"][row] == sk):
+        raise AssertionError("q9 oracle: a line's supplier is not one of "
+                             "its part's")
+    amount = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m]) \
+        - ps["ps_supplycost"][row] * li["l_quantity"][m]
+    nat = s["s_nationkey"][sk - 1]
+    yr = _years(o["o_orderdate"][li["l_orderkey"][m] - 1])
+    uniq, (prof,) = _group_sums([nat, yr], amount)
+    rows = [(names[a], int(y), float(v)) for (a, y), v in zip(uniq, prof)]
+    rows.sort(key=lambda r: (r[0], -r[1]))
+    return rows
+
+
+def q12_oracle(cols: dict, E) -> list:
+    """TPC-H Q12 in plain numpy: (l_shipmode, high_line_count,
+    low_line_count) of the MAIL and SHIP lines received in 1994 late."""
+    li, o = cols["lineitem"], cols["orders"]
+    modes = [E.SHIPMODES.index(x) for x in ("MAIL", "SHIP")]
+    r = li["l_receiptdate"]
+    m = np.isin(li["l_shipmode"], modes) \
+        & (li["l_commitdate"] < r) & (li["l_shipdate"] < li["l_commitdate"]) \
+        & (r >= E.days("1994-01-01")) & (r < E.days("1995-01-01"))
+    prio = o["o_orderpriority"][li["l_orderkey"][m] - 1]
+    high = np.isin(prio, [E.PRIORITIES.index("1-URGENT"),
+                          E.PRIORITIES.index("2-HIGH")])
+    mode = li["l_shipmode"][m]
+    rows = [(E.SHIPMODES[k], int(np.sum(high[mode == k])),
+             int(np.sum(~high[mode == k]))) for k in np.unique(mode)]
+    rows.sort()
+    return rows
+
+
+def q14_oracle(cols: dict, E) -> list:
+    """TPC-H Q14 in plain numpy: one row, 100 x the PROMO parts' share of
+    September 1995's revenue (NULL when no line shipped)."""
+    li, p = cols["lineitem"], cols["part"]
+    m = (li["l_shipdate"] >= E.days("1995-09-01")) & (
+        li["l_shipdate"] < E.days("1995-10-01"))
+    if not m.any():
+        return [(None,)]
+    rev = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+    promo = _matrix_rows(p["p_type"][:, :5], "PROMO")[li["l_partkey"][m]
+                                                      - 1]
+    return [(float(np.sum(np.where(promo, rev, 0.0)) * 100.0
+                   / np.sum(rev)),)]
+
+
+Q19_BRANCHES = (("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"),
+                 1.0, 11.0, 5),
+                ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"),
+                 10.0, 20.0, 10),
+                ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"),
+                 20.0, 30.0, 15))
+
+
+def q19_oracle(cols: dict, E) -> list:
+    """TPC-H Q19 in plain numpy: one row, the revenue of AIR / REG AIR
+    lines delivered in person whose part meets one of three brand,
+    container, quantity and size branches (NULL when none does)."""
+    li, p = cols["lineitem"], cols["part"]
+    m = np.isin(li["l_shipmode"], [E.SHIPMODES.index("AIR"),
+                                   E.SHIPMODES.index("REG AIR")]) \
+        & (li["l_shipinstruct"] == E.SHIPINSTRUCT.index("DELIVER IN PERSON"))
+    pi = li["l_partkey"][m] - 1
+    qty = li["l_quantity"][m]
+    hit = np.zeros(len(pi), bool)
+    for brand, conts, lo, hi, size in Q19_BRANCHES:
+        cont = np.zeros(len(p["p_partkey"]), bool)
+        for x in conts:
+            cont |= _matrix_rows(p["p_container"], x)
+        part_ok = _matrix_rows(p["p_brand"], brand) & cont & (
+            p["p_size"] >= 1) & (p["p_size"] <= size)
+        hit |= part_ok[pi] & (qty >= lo) & (qty <= hi)
+    if not hit.any():
+        return [(None,)]
+    rev = li["l_extendedprice"][m][hit] * (1.0 - li["l_discount"][m][hit])
+    return [(float(np.sum(rev)),)]
+
+
+def xbb_q5_oracle(cols: dict, S) -> list:
+    """TPCxBB q5 in plain numpy: per user with a click, (wcs_user_sk,
+    clicks in Books, college education, male, clicks in category ids
+    1-7); a multiset (the query has no order)."""
+    w, it, c, cd = (cols["web_clickstreams"], cols["item"], cols["customer"],
+                    cols["customer_demographics"])
+    user = w["wcs_user_sk"]
+    ok = ~np.ma.getmaskarray(user)
+    u = np.ma.getdata(user)[ok]
+    item = w["wcs_item_sk"][ok] - 1
+    users, inv = np.unique(u, return_inverse=True)
+    n = len(users)
+    books = np.bincount(inv, weights=(it["i_category"][item]
+                                      == S.CATEGORIES.index("Books")),
+                        minlength=n)
+    ids = [np.bincount(inv, weights=(it["i_category_id"][item] == i),
+                       minlength=n) for i in range(1, 8)]
+    demo = c["c_current_cdemo_sk"][users - 1] - 1
+    college = np.isin(cd["cd_education_status"][demo],
+                      [S.EDU.index(x) for x in (
+                          "Advanced Degree", "College", "4 yr Degree",
+                          "2 yr Degree")])
+    male = cd["cd_gender"][demo] == S.GENDERS.index("M")
+    cols_out = [users, books, college, male] + ids
+    return [tuple(int(v[i]) for v in cols_out) for i in range(n)]
+
+
+def check_rows(name: str, rows: list, want: list,
+               multiset: bool = False) -> None:
+    """Rows against an oracle: same count, keys, counts and order exact
+    (``multiset``: the same rows in any order), floats within
+    ORACLE_RTOL and finite; a NULL only where the oracle has one."""
+    if not want:
+        raise AssertionError(f"{name} oracle is empty: nothing would be "
+                             "checked")
+    rows = [tuple(r) for r in rows]
+    if multiset:
+        rows, want = sorted(rows), sorted(want)
+    if len(rows) != len(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, oracle "
+                             f"{len(want)}; first {rows[:3]} vs {want[:3]}")
+    for got, exp in zip(rows, want):
+        if len(got) != len(exp):
+            raise AssertionError(f"{name} row width differs: {got} vs {exp}")
+        for a, b in zip(got, exp):
+            if isinstance(b, float):
+                if not isinstance(a, float) or not np.isfinite(a) or \
+                        not np.isclose(a, b, rtol=ORACLE_RTOL, atol=0.0):
+                    raise AssertionError(f"{name} differs: {got} vs {exp}")
+            elif a != b or type(a) is not type(b):
+                raise AssertionError(f"{name} differs: {got} vs {exp}")
+
+
+MORE_TPCH = ("q7", "q8", "q9", "q12", "q14", "q19")
+MORE_QUERIES = ("xbb_q5",) + MORE_TPCH
+# The logical nodes the default conf places on the host (the float Sum
+# aggregates), and the kernels each query must launch under both confs.
+MORE_DEFAULT_HOST = {"xbb_q5": [], "q7": ["LogicalAggregate"],
+                       "q8": ["LogicalAggregate"],
+                       "q9": ["LogicalAggregate"], "q12": [],
+                       "q14": ["LogicalAggregate"],
+                       "q19": ["LogicalAggregate"]}
+MORE_MUST_LAUNCH = {q: ("radix_sort",) for q in (
+    "xbb_q5", "q7", "q8", "q9", "q12")}
+MORE_WARM_RUNS = 2
+
+
+def more_oracles(cols: dict, xcols: dict, E, S) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-13 query."""
+    def check(name, multiset=False):
+        return lambda rows, want: check_rows(name, rows, want, multiset)
+    out = {"xbb_q5": (check("xbb_q5", multiset=True),
+                      xbb_q5_oracle(xcols, S))}
+    for q, oracle in (("q7", q7_oracle), ("q8", q8_oracle),
+                      ("q9", q9_oracle), ("q12", q12_oracle),
+                      ("q14", q14_oracle), ("q19", q19_oracle)):
+        out[q] = (check(q), oracle(cols, E))
+    return out
+
+
+def more_queries_phase(native, cols: dict, known_seen: list,
+                       known_k1: set) -> dict:
+    """TPCxBB q5 (scale 1) and TPC-H q7, q8, q9, q12, q14 and q19 (SF1)
+    through ``TpuSession()`` on the card, once with ``variableFloatAgg``
+    on and once under the default conf. For each run: the plan's host
+    nodes and bridges (checked against the reference's placement), the
+    rows and bytes each ``DeviceToHostExec`` downloads, the first run
+    (launch counters around it alone, every K1-K4 launch recorded) and
+    ``MORE_WARM_RUNS`` warm runs, each checked against its numpy
+    oracle. Every K1-K4 launch of a shape no earlier phase checked
+    (``known_seen``: recorded K2-K4 first runs; ``known_k1``: K1 shapes)
+    is held to the kernel's plain version bit for bit."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import suites as S
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    t_phase = time.perf_counter()
+    xcols = S.suite_columns(1.0, seed=0)
+    oracles = more_oracles(cols, xcols, E, S)
+    log(f"phase 13: TPCxBB scale 1 "
+        f"({len(xcols['web_clickstreams']['wcs_item_sk'])} clickstream "
+        f"rows) and oracles in {time.perf_counter() - t_phase:.2f} s")
+    known_seen = list(known_seen)
+    out = {"kernel_checks": []}
+    for conf_name, conf in (("vfa", {
+            "spark.rapids.sql.variableFloatAgg.enabled": True}),
+            ("default", {})):
+        session = TpuSession(conf)
+        tables = dict(tpch.tpch_tables(session, cols, MORE_TPCH),
+                      **S.suite_tables(session, xcols))
+        for q in MORE_QUERIES:
+            check, want = oracles[q]
+            run = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
+            t0 = time.perf_counter()
+            phys = run(session, tables[q])._physical()
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            label = f"{q} ({conf_name})"
+            r = run_checked(native, label, phys, check, want,
+                            MORE_DEFAULT_HOST[q] if conf_name == "default"
+                            else [], MORE_MUST_LAUNCH.get(q, ()),
+                            known_seen, known_k1)
+            known_seen.append(r["seen"])
+            known_k1 |= {c["shape"] for c in r["checks"]
+                         if c["kernel"] == "radix_sort"}
+            out["kernel_checks"] += r["checks"]
+            warm = []
+            for _ in range(MORE_WARM_RUNS):
+                t0 = time.perf_counter()
+                rows = phys.collect(ExecContext(phys.conf))
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+                check(rows, want)
+            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
+                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
+                f"warm {[round(w, 4) for w in warm]} s; launches "
+                f"{r['launches']}")
+            out[(q, conf_name)] = dict(
+                plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
+                launches=r["launches"], moved=r["moved"],
+                hosted=r["hosted"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {out['seconds']:.1f} s")
     return out
 
 
@@ -1733,11 +2092,20 @@ def main() -> int:
     mixed = default_conf_phase(native, cols, joins["seen"] + [q2["seen"]]
                                + [df[q]["seen"] for q in DF_QUERIES])
 
-    # Phase 13: the kernels line
+    # Phase 13: TPCxBB q5 and TPC-H q7, q8, q9, q12, q14, q19, both confs
+    known_k1 = set(K1_CHECKED) | {r["shape"] for r in mixed["kernel_checks"]
+                                  if r["kernel"] == "radix_sort"}
+    more = more_queries_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1)
+
+    # Phase 14: the kernels line
+    more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
+                      for q in MORE_QUERIES)
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
-                mixed[q]["launches"] for q in DF_QUERIES)
+                mixed[q]["launches"] for q in DF_QUERIES) + more_runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     replaces = {"radix_sort": "spark_rapids_tpu/ops/native.py:297",
                 "join_probe": "spark_rapids_tpu/ops/native.py:315",
@@ -1766,7 +2134,10 @@ def main() -> int:
         f"q2 {runs[3]}; DataFrame path "
         + ", ".join(f"{q} {df[q]['launches']}" for q in DF_QUERIES)
         + "; default conf "
-        + ", ".join(f"{q} {mixed[q]['launches']}" for q in DF_QUERIES))
+        + ", ".join(f"{q} {mixed[q]['launches']}" for q in DF_QUERIES)
+        + "; phase 13 "
+        + ", ".join(f"{q} ({c}) {more[(q, c)]['launches']}"
+                    for c in ("vfa", "default") for q in MORE_QUERIES))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

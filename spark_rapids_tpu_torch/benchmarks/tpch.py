@@ -1,8 +1,9 @@
-"""TPC-H q1-q6 through the port's DataFrame API (port of the JAX
-package's ``benchmarks/tpch.py`` query bodies).
+"""TPC-H q1-q9, q12, q14 and q19 through the port's DataFrame API (port
+of the JAX package's ``benchmarks/tpch.py`` query bodies).
 
-The query bodies ``q1``, ``q6``, ``q3``, ``q5``, ``q2`` and ``q4`` are the
-reference's, line for line. Only ``_read`` differs: the reference reads
+The query bodies ``q1``, ``q6``, ``q3``, ``q5``, ``q2``, ``q4``, ``q7``,
+``q8``, ``q9``, ``q12``, ``q14`` and ``q19`` are the reference's, line for
+line. Only ``_read`` differs: the reference reads
 parquet (through pyarrow, which the port does not use); here a query reads
 its tables from a ``tables`` dict of DataFrames. ``tpch_tables`` builds
 those from ``entry.tpch_columns`` (the reference generator's rows, draw
@@ -15,8 +16,9 @@ keeps), in ``entry.TABLE_PARTITIONS`` partitions.
     rows = q1(session, tables["q1"]).collect()
 
 Under the default conf (``variableFloatAgg.enabled=false``) every float
-Sum/Avg aggregate is tagged for the host and runs on the host engine
-between device subtrees, as in the reference; with
+Sum/Avg aggregate (in q1, q3, q5, q6, q7, q8, q9, q14 and q19) is tagged
+for the host and runs on the host engine between device subtrees, as in
+the reference; with
 ``{"spark.rapids.sql.variableFloatAgg.enabled": True}``, as the
 reference's bench sets it, the whole query stays on the card.
 """
@@ -42,15 +44,29 @@ SCANS = {
            "supplier": E.Q2_SUPPLIER, "partsupp": E.Q2_PARTSUPP,
            "part": E.Q2_PART},
     "q4": {"lineitem": E.Q4_LINEITEM, "orders": E.Q4_ORDERS},
+    "q7": {"nation": E.Q7_NATION, "supplier": E.Q7_SUPPLIER,
+           "customer": E.Q7_CUSTOMER, "orders": E.Q7_ORDERS,
+           "lineitem": E.Q7_LINEITEM},
+    "q8": {"region": E.Q8_REGION, "nation": E.Q8_NATION,
+           "customer": E.Q8_CUSTOMER, "supplier": E.Q8_SUPPLIER,
+           "part": E.Q8_PART, "orders": E.Q8_ORDERS,
+           "lineitem": E.Q8_LINEITEM},
+    "q9": {"part": E.Q9_PART, "supplier": E.Q9_SUPPLIER,
+           "nation": E.Q9_NATION, "partsupp": E.Q9_PARTSUPP,
+           "orders": E.Q9_ORDERS, "lineitem": E.Q9_LINEITEM},
+    "q12": {"lineitem": E.Q12_LINEITEM, "orders": E.Q12_ORDERS},
+    "q14": {"lineitem": E.Q14_LINEITEM, "part": E.Q14_PART},
+    "q19": {"lineitem": E.Q19_LINEITEM, "part": E.Q19_PART},
 }
 
 
-def tpch_tables(session, cols: dict) -> dict:
+def tpch_tables(session, cols: dict, queries=None) -> dict:
     """query -> table -> DataFrame: each query's in-memory scans over
-    ``cols`` (``entry.tpch_columns`` output)."""
+    ``cols`` (``entry.tpch_columns`` output), for ``queries`` (default:
+    every query of ``SCANS``)."""
     return {q: {t: DataFrame(session, L.InMemoryScan(
         schema, E.table_partitions(cols[t], schema, E.TABLE_PARTITIONS[t])))
-        for t, schema in scans.items()} for q, scans in SCANS.items()}
+        for t, schema in SCANS[q].items()} for q in (queries or SCANS)}
 
 
 def _read(session, tables: dict, table: str):
@@ -58,7 +74,7 @@ def _read(session, tables: dict, table: str):
 
 
 # ---------------------------------------------------------------------------
-# Queries (TpchLikeSpark.scala Q1/Q6/Q3/Q5 analogs)
+# Queries (TpchLikeSpark.scala analogs)
 # ---------------------------------------------------------------------------
 
 def q1(session, tables: dict):
@@ -194,4 +210,188 @@ def q4(session, tables: dict):
         .order_by("o_orderpriority")
 
 
-QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6}
+def q7(session, tables: dict):
+    """Volume shipping between FRANCE and GERMANY by year."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        col, lit_col, agg_sum, year)
+    n1 = _read(session, tables, "nation") \
+        .select(col("n_nationkey").alias("s_nkey"),
+                col("n_name").alias("supp_nation"))
+    n2 = _read(session, tables, "nation") \
+        .select(col("n_nationkey").alias("c_nkey"),
+                col("n_name").alias("cust_nation"))
+    supp = _read(session, tables, "supplier") \
+        .join_on(n1, ["s_nationkey"], ["s_nkey"]) \
+        .select("s_suppkey", "supp_nation")
+    cust = _read(session, tables, "customer") \
+        .join_on(n2, ["c_nationkey"], ["c_nkey"]) \
+        .select("c_custkey", "cust_nation")
+    orders = _read(session, tables, "orders") \
+        .select("o_orderkey", "o_custkey") \
+        .join_on(cust, ["o_custkey"], ["c_custkey"])
+    li = _read(session, tables, "lineitem") \
+        .filter((col("l_shipdate") >= lit_col(days("1995-01-01")))
+                & (col("l_shipdate") <= lit_col(days("1996-12-31")))) \
+        .select("l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
+                "l_shipdate")
+    j = li.join_on(supp, ["l_suppkey"], ["s_suppkey"]) \
+        .join_on(orders, ["l_orderkey"], ["o_orderkey"]) \
+        .filter(((col("supp_nation") == lit_col("FRANCE"))
+                 & (col("cust_nation") == lit_col("GERMANY")))
+                | ((col("supp_nation") == lit_col("GERMANY"))
+                   & (col("cust_nation") == lit_col("FRANCE"))))
+    return j.with_column("l_year", year(col("l_shipdate"))) \
+        .with_column("volume",
+                     col("l_extendedprice") * (1.0 - col("l_discount"))) \
+        .group_by("supp_nation", "cust_nation", "l_year") \
+        .agg(agg_sum(col("volume")).alias("revenue")) \
+        .order_by("supp_nation", "cust_nation", "l_year")
+
+
+def q8(session, tables: dict):
+    """National market share of BRAZIL in AMERICA for a part type."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_sum, col, lit_col, when, year)
+    region = _read(session, tables, "region") \
+        .filter(col("r_name") == lit_col("AMERICA"))
+    n1 = _read(session, tables, "nation") \
+        .join_on(region, ["n_regionkey"], ["r_regionkey"]) \
+        .select(col("n_nationkey").alias("c_nkey"))
+    n2 = _read(session, tables, "nation") \
+        .select(col("n_nationkey").alias("s_nkey"),
+                col("n_name").alias("nation"))
+    cust = _read(session, tables, "customer") \
+        .join_on(n1, ["c_nationkey"], ["c_nkey"]).select("c_custkey")
+    supp = _read(session, tables, "supplier") \
+        .join_on(n2, ["s_nationkey"], ["s_nkey"]) \
+        .select("s_suppkey", "nation")
+    part = _read(session, tables, "part") \
+        .filter(col("p_type") == lit_col("ECONOMY ANODIZED STEEL")) \
+        .select("p_partkey")
+    orders = _read(session, tables, "orders") \
+        .filter((col("o_orderdate") >= lit_col(days("1995-01-01")))
+                & (col("o_orderdate") <= lit_col(days("1996-12-31")))) \
+        .join_on(cust, ["o_custkey"], ["c_custkey"]) \
+        .select("o_orderkey", "o_orderdate")
+    li = _read(session, tables, "lineitem") \
+        .select("l_orderkey", "l_partkey", "l_suppkey", "l_extendedprice",
+                "l_discount")
+    j = li.join_on(part, ["l_partkey"], ["p_partkey"]) \
+        .join_on(supp, ["l_suppkey"], ["s_suppkey"]) \
+        .join_on(orders, ["l_orderkey"], ["o_orderkey"]) \
+        .with_column("o_year", year(col("o_orderdate"))) \
+        .with_column("volume",
+                     col("l_extendedprice") * (1.0 - col("l_discount")))
+    return j.group_by("o_year").agg(
+        (agg_sum(when(col("nation") == lit_col("BRAZIL"),
+                      col("volume")).otherwise(0.0))).alias("brazil"),
+        agg_sum(col("volume")).alias("total"),
+    ).with_column("mkt_share", col("brazil") / col("total")) \
+        .select("o_year", "mkt_share").order_by("o_year")
+
+
+def q9(session, tables: dict):
+    """Product-type profit by nation and year (p_name like '%green%')."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col, year
+    part = _read(session, tables, "part") \
+        .filter(col("p_name").contains("green")).select("p_partkey")
+    supp = _read(session, tables, "supplier") \
+        .select("s_suppkey", "s_nationkey")
+    nat = _read(session, tables, "nation") \
+        .select(col("n_nationkey"), col("n_name").alias("nation"))
+    ps = _read(session, tables, "partsupp") \
+        .select(col("ps_partkey"), col("ps_suppkey"), col("ps_supplycost"))
+    orders = _read(session, tables, "orders") \
+        .select("o_orderkey", "o_orderdate")
+    li = _read(session, tables, "lineitem") \
+        .select("l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                "l_extendedprice", "l_discount")
+    j = li.join_on(part, ["l_partkey"], ["p_partkey"]) \
+        .join_on(supp, ["l_suppkey"], ["s_suppkey"]) \
+        .join_on(ps, ["l_partkey", "l_suppkey"],
+                 ["ps_partkey", "ps_suppkey"]) \
+        .join_on(orders, ["l_orderkey"], ["o_orderkey"]) \
+        .join_on(nat, ["s_nationkey"], ["n_nationkey"]) \
+        .with_column("o_year", year(col("o_orderdate"))) \
+        .with_column("amount",
+                     col("l_extendedprice") * (1.0 - col("l_discount"))
+                     - col("ps_supplycost") * col("l_quantity"))
+    return j.group_by("nation", "o_year") \
+        .agg(agg_sum(col("amount")).alias("sum_profit")) \
+        .order_by(col("nation").asc(), col("o_year").desc())
+
+
+def q12(session, tables: dict):
+    """Shipping modes and order priority (two conditional sums)."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_sum, col, lit_col, when)
+    li = _read(session, tables, "lineitem") \
+        .filter(col("l_shipmode").isin("MAIL", "SHIP")
+                & (col("l_commitdate") < col("l_receiptdate"))
+                & (col("l_shipdate") < col("l_commitdate"))
+                & (col("l_receiptdate") >= lit_col(days("1994-01-01")))
+                & (col("l_receiptdate") < lit_col(days("1995-01-01")))) \
+        .select("l_orderkey", "l_shipmode")
+    o = _read(session, tables, "orders") \
+        .select("o_orderkey", "o_orderpriority")
+    j = li.join_on(o, ["l_orderkey"], ["o_orderkey"])
+    high = col("o_orderpriority").isin("1-URGENT", "2-HIGH")
+    return j.group_by("l_shipmode").agg(
+        agg_sum(when(high, 1).otherwise(0)).alias("high_line_count"),
+        agg_sum(when(high, 0).otherwise(1)).alias("low_line_count"),
+    ).order_by("l_shipmode")
+
+
+def q14(session, tables: dict):
+    """Promotion effect: conditional revenue share of PROMO parts."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_sum, col, lit_col, when)
+    li = _read(session, tables, "lineitem") \
+        .filter((col("l_shipdate") >= lit_col(days("1995-09-01")))
+                & (col("l_shipdate") < lit_col(days("1995-10-01")))) \
+        .select("l_partkey", "l_extendedprice", "l_discount")
+    p = _read(session, tables, "part").select("p_partkey", "p_type")
+    j = li.join_on(p, ["l_partkey"], ["p_partkey"]) \
+        .with_column("revenue",
+                     col("l_extendedprice") * (1.0 - col("l_discount")))
+    promo = when(col("p_type").startswith("PROMO"),
+                 col("revenue")).otherwise(0.0)
+    return j.agg(agg_sum(promo).alias("promo"),
+                 agg_sum(col("revenue")).alias("total")) \
+        .select((col("promo") * 100.0 / col("total"))
+                .alias("promo_revenue"))
+
+
+def q19(session, tables: dict):
+    """Discounted revenue: three-way disjunctive predicate over li x part."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col, lit_col
+    li = _read(session, tables, "lineitem") \
+        .filter(col("l_shipmode").isin("AIR", "REG AIR")
+                & (col("l_shipinstruct") == lit_col("DELIVER IN PERSON"))) \
+        .select("l_partkey", "l_quantity", "l_extendedprice", "l_discount")
+    p = _read(session, tables, "part") \
+        .select("p_partkey", "p_brand", "p_container", "p_size")
+    j = li.join_on(p, ["l_partkey"], ["p_partkey"])
+    c1 = ((col("p_brand") == lit_col("Brand#12"))
+          & col("p_container").isin("SM CASE", "SM BOX", "SM PACK",
+                                    "SM PKG")
+          & (col("l_quantity") >= 1.0) & (col("l_quantity") <= 11.0)
+          & (col("p_size") >= 1) & (col("p_size") <= 5))
+    c2 = ((col("p_brand") == lit_col("Brand#23"))
+          & col("p_container").isin("MED BAG", "MED BOX", "MED PKG",
+                                    "MED PACK")
+          & (col("l_quantity") >= 10.0) & (col("l_quantity") <= 20.0)
+          & (col("p_size") >= 1) & (col("p_size") <= 10))
+    c3 = ((col("p_brand") == lit_col("Brand#34"))
+          & col("p_container").isin("LG CASE", "LG BOX", "LG PACK",
+                                    "LG PKG")
+          & (col("l_quantity") >= 20.0) & (col("l_quantity") <= 30.0)
+          & (col("p_size") >= 1) & (col("p_size") <= 15))
+    return j.filter(c1 | c2 | c3).agg(
+        agg_sum(col("l_extendedprice") * (1.0 - col("l_discount")))
+        .alias("revenue"))
+
+
+QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
+           "q7": q7, "q8": q8, "q9": q9, "q12": q12, "q14": q14,
+           "q19": q19}

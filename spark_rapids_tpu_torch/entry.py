@@ -1,5 +1,6 @@
-"""Entry points of the port: the flagship q1-shaped step and TPC-H q1, q2,
-q3 and q4.
+"""Entry points of the port: the flagship q1-shaped step, the hand-built
+TPC-H q1, q2, q3 and q4 trees, and the TPC-H columns every query of the
+front end reads.
 
 - ``entry(device=None)`` mirrors the JAX package's
   ``__graft_entry__.entry()``: a q1-shaped forward step (filter -> hash
@@ -23,11 +24,11 @@ q3 and q4.
   top 100) builds the exec tree the JAX package's planner builds for
   ``tpch.q2`` at SF1 with default conf; ``tpch_q2_tables`` makes its
   scans, the column-pruned ones included.
-- ``tpch_columns`` holds every column TPC-H q1-q6 read; ``Q5_*`` and
-  ``Q6_*`` name q5's and q6's scans and constants. The DataFrame front
-  end runs all six from the reference's query text
-  (``benchmarks/tpch.py``); the hand-built trees above are its
-  comparison.
+- ``tpch_columns`` holds every column TPC-H q1-q9, q12, q14 and q19
+  read; ``Q5_*`` ... ``Q19_*`` name those queries' scans (and q5's and
+  q6's constants). The DataFrame front end runs all twelve from the
+  reference's query text (``benchmarks/tpch.py``); the hand-built trees
+  above are the comparison for q1-q4.
 
 ``device=None`` means the CUDA card and raises when there is none; pass
 ``device="cpu"`` for the plain-PyTorch path.
@@ -36,7 +37,7 @@ q3 and q4.
 from __future__ import annotations
 
 import datetime
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -126,12 +127,32 @@ Q1_SHIPDATE_CUTOFF = days("1998-09-02")
 
 # The generator's string pools that the ported queries read, in its order
 # (the JAX package's ``benchmarks/tpch.py`` PRIORITIES, SEGMENTS,
-# P_TYPE_1..3, S_COMMENTS, NATIONS and REGIONS).
+# SHIPMODES, SHIPINSTRUCT, P_WORDS, P_TYPE_1..3, P_CONTAINER_1..2,
+# S_COMMENTS, NATIONS and REGIONS).
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+SHIPINSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                "TAKE BACK RETURN")
+P_WORDS = (
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+    "chartreuse", "chiffon", "chocolate", "coral", "cornflower",
+    "cornsilk", "cream", "cyan", "dark", "deep", "dim", "dodger", "drab",
+    "firebrick", "floral", "forest", "frosted", "gainsboro", "ghost",
+    "goldenrod", "green", "grey", "honeydew", "hot", "indian", "ivory",
+    "khaki", "lace", "lavender", "lawn", "lemon", "light", "lime", "linen",
+    "magenta", "maroon", "medium", "metallic", "midnight", "mint", "misty",
+    "moccasin", "navajo", "navy", "olive", "orange", "orchid", "pale",
+    "papaya", "peach", "peru", "pink", "plum", "powder", "puff", "purple",
+    "red", "rose", "rosy", "royal", "saddle", "salmon", "sandy", "seashell",
+    "sienna", "sky", "slate", "smoke", "snow", "spring", "steel", "tan",
+    "thistle", "tomato", "turquoise", "violet", "wheat", "white", "yellow")
 P_TYPE_1 = ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO")
 P_TYPE_2 = ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
 P_TYPE_3 = ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")
+P_CONTAINER_1 = ("SM", "LG", "MED", "JUMBO", "WRAP")
+P_CONTAINER_2 = ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM")
 S_COMMENTS = (
     "blithely regular packages boost", "carefully silent foxes detect",
     "quickly final deposits about the ideas", "furiously even pearls wake",
@@ -148,10 +169,9 @@ NATIONS = (
     ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
     ("UNITED KINGDOM", 3), ("UNITED STATES", 1))
 REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
-# Sizes of its other ``pick`` pools: only how many values a draw may take
+# Size of its other ``pick`` pool: only how many values a draw may take
 # matters to the random stream.
-_N_O_COMMENTS, _N_SHIPMODES, _N_SHIPINSTRUCT = 14, 7, 4
-_N_P_WORDS, _N_P_CONTAINERS = 92, (5, 8)
+_N_O_COMMENTS = 14
 
 
 def _pool_matrix(pool) -> tuple:
@@ -188,7 +208,8 @@ def _concat_strings(*pieces) -> np.ndarray:
 
 
 def tpch_columns(scale: float, seed: int = 0) -> dict:
-    """The columns TPC-H q1-q6 read, as numpy arrays per table
+    """The columns TPC-H q1-q9, q12, q14 and q19 read, as numpy arrays
+    per table
     (``{"lineitem": {...}, "orders": {...}, "customer": {...}, "part":
     {...}, "partsupp": {...}, "supplier": {...}, "nation": {...},
     "region": {...}}``): the JAX package's TPC-H generator
@@ -196,8 +217,9 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     in its order, so ``seed`` and ``scale`` give its rows. String columns
     are one of three forms: ``l_returnflag`` and ``l_linestatus`` are
     (n,) uint8 character codes; the columns of ``_STRING_POOLS`` are codes
-    into a pool; built strings (``p_mfgr``, ``p_brand``, ``p_type``,
-    ``s_name``, ``s_phone``) are zero-padded (n, w) uint8 matrices."""
+    into a pool; built strings (``p_name``, ``p_mfgr``, ``p_brand``,
+    ``p_type``, ``p_container``, ``s_name``, ``s_phone``) are zero-padded
+    (n, w) uint8 matrices."""
     rng = np.random.default_rng(seed)
     n_ord = max(int(1_500_000 * scale), 10)
     n_cust = max(int(150_000 * scale), 5)
@@ -238,18 +260,21 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     l_partkey = rng.integers(1, n_part + 1, n_li, dtype=np.int64)
     l_suppkey = ((l_partkey + rng.integers(0, 4, n_li) * (n_supp // 4 + 1))
                  % n_supp) + 1
-    rng.integers(0, _N_SHIPMODES, n_li)
-    rng.integers(0, _N_SHIPINSTRUCT, n_li)
+    l_shipmode = rng.integers(0, len(SHIPMODES), n_li)
+    l_shipinstruct = rng.integers(0, len(SHIPINSTRUCT), n_li)
     # PART: name words, type, container, brand, size, retail price.
-    for _ in range(3):
-        rng.integers(0, _N_P_WORDS, n_part)
+    words = _pool_matrix(P_WORDS)[0]
+    w1, w2, w3 = (rng.integers(0, len(P_WORDS), n_part) for _ in range(3))
+    p_name = _concat_strings(words[w1], b" ", words[w2], b" ", words[w3])
     t1, t2, t3 = (rng.integers(0, len(pool), n_part)
                   for pool in (P_TYPE_1, P_TYPE_2, P_TYPE_3))
     p_type = _concat_strings(_pool_matrix(P_TYPE_1)[0][t1], b" ",
                              _pool_matrix(P_TYPE_2)[0][t2], b" ",
                              _pool_matrix(P_TYPE_3)[0][t3])
-    for n in _N_P_CONTAINERS:
-        rng.integers(0, n, n_part)
+    c1, c2 = (rng.integers(0, len(pool), n_part)
+              for pool in (P_CONTAINER_1, P_CONTAINER_2))
+    p_container = _concat_strings(_pool_matrix(P_CONTAINER_1)[0][c1], b" ",
+                                  _pool_matrix(P_CONTAINER_2)[0][c2])
     brand_m = rng.integers(1, 6, n_part)
     brand_n = rng.integers(1, 6, n_part)
     p_size = rng.integers(1, 51, n_part).astype(np.int32)
@@ -286,13 +311,14 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     s_suppkey = np.arange(1, n_supp + 1, dtype=np.int64)
     return {
         "lineitem": {
-            "l_orderkey": l_orderkey, "l_suppkey": l_suppkey,
-            "l_quantity": l_quantity,
+            "l_orderkey": l_orderkey, "l_partkey": l_partkey,
+            "l_suppkey": l_suppkey, "l_quantity": l_quantity,
             "l_extendedprice": l_extendedprice, "l_discount": l_discount,
             "l_tax": l_tax, "l_returnflag": returnflag.astype(np.uint8),
             "l_linestatus": linestatus.astype(np.uint8),
             "l_shipdate": l_shipdate, "l_commitdate": l_commitdate,
-            "l_receiptdate": l_receiptdate},
+            "l_receiptdate": l_receiptdate, "l_shipmode": l_shipmode,
+            "l_shipinstruct": l_shipinstruct},
         "orders": {
             "o_orderkey": o_orderkey, "o_custkey": o_custkey,
             "o_orderdate": o_orderdate,
@@ -303,12 +329,12 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
             "c_nationkey": c_nationkey, "c_mktsegment": c_mktsegment,
             "c_acctbal": c_acctbal},
         "part": {
-            "p_partkey": p_partkey,
+            "p_partkey": p_partkey, "p_name": p_name,
             "p_mfgr": _concat_strings(b"Manufacturer#", _digits(brand_m, 1)),
             "p_brand": _concat_strings(b"Brand#", _digits(brand_m, 1),
                                        _digits(brand_n, 1)),
             "p_type": p_type, "p_size": p_size,
-            "p_retailprice": p_retailprice},
+            "p_container": p_container, "p_retailprice": p_retailprice},
         "partsupp": {
             "ps_partkey": ps_partkey, "ps_suppkey": ps_suppkey,
             "ps_availqty": ps_availqty, "ps_supplycost": ps_supplycost},
@@ -338,19 +364,26 @@ def tpch_q1_columns(scale: float, seed: int = 0) -> dict:
 # String columns held as codes into a pool; the others are built (n, w)
 # matrices or uint8 character codes (one-byte strings).
 _STRING_POOLS = {"o_orderpriority": PRIORITIES, "c_mktsegment": SEGMENTS,
+                 "l_shipmode": SHIPMODES, "l_shipinstruct": SHIPINSTRUCT,
                  "s_address": S_COMMENTS, "s_comment": S_COMMENTS,
                  "n_name": tuple(n for n, _ in NATIONS), "r_name": REGIONS}
 
 
-def _host_batch(schema, cols: dict, lo: int, hi: int) -> HostBatch:
+def _host_batch(schema, cols: dict, lo: int, hi: int,
+                pools: dict) -> HostBatch:
+    """Rows ``lo:hi`` of ``cols`` as one host batch. A numpy masked array
+    is a nullable column (masked rows are NULL, their data zero)."""
     n = hi - lo
     out = []
     for name, t in schema:
         v = cols[name][lo:hi]
         valid = np.ones(n, np.bool_)
+        if isinstance(v, np.ma.MaskedArray):
+            valid = ~np.ma.getmaskarray(v)
+            v = v.filled(0)
         if t.is_string:
-            if name in _STRING_POOLS:
-                m, lens = _pool_matrix(_STRING_POOLS[name])
+            if name in pools:
+                m, lens = _pool_matrix(pools[name])
                 out.append(HostColumn(t, None, valid, str_matrix=m[v],
                                       str_lengths=lens[v]))
             elif v.ndim == 2:
@@ -366,10 +399,13 @@ def _host_batch(schema, cols: dict, lo: int, hi: int) -> HostBatch:
     return HostBatch(tuple(n for n, _ in schema), out)
 
 
-def table_partitions(cols: dict, schema,
-                     partitions: int) -> List[List[HostBatch]]:
+def table_partitions(cols: dict, schema, partitions: int,
+                     pools: Optional[dict] = None) -> List[List[HostBatch]]:
     """A table's ``schema`` columns split into ``partitions`` row ranges,
-    one host batch each (the generator's ``files_per_table`` split)."""
+    one host batch each (the generator's ``files_per_table`` split).
+    ``pools`` names the string columns held as codes into a pool (default:
+    the TPC-H ones)."""
+    pools = _STRING_POOLS if pools is None else pools
     n = len(cols[schema[0][0]])
     per = max(1, -(-n // partitions))
     parts = []
@@ -377,7 +413,7 @@ def table_partitions(cols: dict, schema,
         lo, hi = min(i * per, n), min((i + 1) * per, n)
         if hi == lo and i > 0:
             break
-        parts.append([_host_batch(schema, cols, lo, hi)])
+        parts.append([_host_batch(schema, cols, lo, hi, pools)])
     return parts
 
 
@@ -480,6 +516,51 @@ Q6_DATE_LO = days("1994-01-01")
 Q6_DATE_HI = days("1995-01-01")
 Q6_DISCOUNT_LO, Q6_DISCOUNT_HI = 0.05, 0.07
 Q6_QUANTITY_BELOW = 24.0
+
+# The scans of q7, q8, q9, q12, q14 and q19: per table the columns the
+# reference's scan pruning keeps of its parquet, in the generator's order.
+_NATION_NAMES = (("n_nationkey", dt.INT64), ("n_name", dt.STRING))
+_SUPPLIER_KEYS = (("s_suppkey", dt.INT64), ("s_nationkey", dt.INT64))
+_CUSTOMER_KEYS = (("c_custkey", dt.INT64), ("c_nationkey", dt.INT64))
+_PART_TYPE = (("p_partkey", dt.INT64), ("p_type", dt.STRING))
+Q7_NATION = _NATION_NAMES
+Q7_SUPPLIER = _SUPPLIER_KEYS
+Q7_CUSTOMER = _CUSTOMER_KEYS
+Q7_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64))
+Q7_LINEITEM = (("l_orderkey", dt.INT64), ("l_suppkey", dt.INT64),
+               ("l_extendedprice", dt.FLOAT64), ("l_discount", dt.FLOAT64),
+               ("l_shipdate", dt.DATE))
+Q8_REGION = Q5_REGION
+Q8_NATION = Q5_NATION
+Q8_CUSTOMER = _CUSTOMER_KEYS
+Q8_SUPPLIER = _SUPPLIER_KEYS
+Q8_PART = _PART_TYPE
+Q8_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
+             ("o_orderdate", dt.DATE))
+Q8_LINEITEM = (("l_orderkey", dt.INT64), ("l_partkey", dt.INT64),
+               ("l_suppkey", dt.INT64), ("l_extendedprice", dt.FLOAT64),
+               ("l_discount", dt.FLOAT64))
+Q9_PART = (("p_partkey", dt.INT64), ("p_name", dt.STRING))
+Q9_SUPPLIER = _SUPPLIER_KEYS
+Q9_NATION = _NATION_NAMES
+Q9_PARTSUPP = (("ps_partkey", dt.INT64), ("ps_suppkey", dt.INT64),
+               ("ps_supplycost", dt.FLOAT64))
+Q9_ORDERS = (("o_orderkey", dt.INT64), ("o_orderdate", dt.DATE))
+Q9_LINEITEM = (("l_orderkey", dt.INT64), ("l_partkey", dt.INT64),
+               ("l_suppkey", dt.INT64), ("l_quantity", dt.FLOAT64),
+               ("l_extendedprice", dt.FLOAT64), ("l_discount", dt.FLOAT64))
+Q12_LINEITEM = (("l_orderkey", dt.INT64), ("l_shipdate", dt.DATE),
+                ("l_commitdate", dt.DATE), ("l_receiptdate", dt.DATE),
+                ("l_shipmode", dt.STRING))
+Q12_ORDERS = (("o_orderkey", dt.INT64), ("o_orderpriority", dt.STRING))
+Q14_LINEITEM = (("l_partkey", dt.INT64), ("l_extendedprice", dt.FLOAT64),
+                ("l_discount", dt.FLOAT64), ("l_shipdate", dt.DATE))
+Q14_PART = _PART_TYPE
+Q19_LINEITEM = (("l_partkey", dt.INT64), ("l_quantity", dt.FLOAT64),
+                ("l_extendedprice", dt.FLOAT64), ("l_discount", dt.FLOAT64),
+                ("l_shipmode", dt.STRING), ("l_shipinstruct", dt.STRING))
+Q19_PART = (("p_partkey", dt.INT64), ("p_brand", dt.STRING),
+            ("p_size", dt.INT32), ("p_container", dt.STRING))
 
 
 def _tables(cols: dict, schemas: dict) -> dict:

@@ -1,17 +1,24 @@
 """Expressions of the port (see each module for its JAX counterpart)."""
 
-from spark_rapids_tpu_torch.exprs.arithmetic import Add, Multiply, Subtract
+from spark_rapids_tpu_torch.exprs.arithmetic import (
+    Add, Divide, Multiply, Subtract)
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference, Expression, Literal, Scalar, lit)
+from spark_rapids_tpu_torch.exprs.conditional import (
+    CaseWhen, Coalesce, If, Nvl)
+from spark_rapids_tpu_torch.exprs.datetime import (
+    DayOfMonth, Month, Quarter, Year)
 from spark_rapids_tpu_torch.exprs.predicates import (
-    And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, IsNotNull,
-    IsNull, LessThan, LessThanOrEqual, Not, Or)
+    And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, InSet,
+    IsNotNull, IsNull, LessThan, LessThanOrEqual, Not, Or)
 from spark_rapids_tpu_torch.exprs.strings import (
     Contains, EndsWith, StartsWith)
 
 __all__ = [
-    "Add", "And", "BoundReference", "Contains", "EndsWith", "EqualNullSafe",
-    "EqualTo", "Expression", "GreaterThan", "GreaterThanOrEqual",
-    "IsNotNull", "IsNull", "LessThan", "LessThanOrEqual", "Literal",
-    "Multiply", "Not", "Or", "Scalar", "StartsWith", "Subtract", "lit",
+    "Add", "And", "BoundReference", "CaseWhen", "Coalesce", "Contains",
+    "DayOfMonth", "Divide", "EndsWith", "EqualNullSafe",
+    "EqualTo", "Expression", "GreaterThan", "GreaterThanOrEqual", "If",
+    "InSet", "IsNotNull", "IsNull", "LessThan", "LessThanOrEqual",
+    "Literal", "Month", "Multiply", "Not", "Nvl", "Or", "Quarter", "Scalar",
+    "StartsWith", "Subtract", "Year", "lit",
 ]

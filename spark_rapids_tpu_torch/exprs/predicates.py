@@ -1,6 +1,6 @@
 """Predicates and comparisons (port of the JAX package's
 ``exprs/predicates.py``: the ``_Comparison`` family, ``And``/``Or``/``Not``,
-``IsNull``/``IsNotNull``).
+``IsNull``/``IsNotNull``, ``InSet``).
 
 Spark semantics:
 - NaN equals NaN and is greater than every other float value.
@@ -10,6 +10,9 @@ Spark semantics:
 - And/Or use Kleene three-valued logic (false AND null = false,
   true OR null = true).
 - EqualNullSafe (``<=>``) never returns NULL.
+- InSet (``IN (v1, ...)``): a NULL value gives NULL, and so does a value
+  that matches nothing when the list holds a NULL; a NaN in the list
+  matches NaN.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from spark_rapids_tpu_torch.columnar.batch import flush_subnormal
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import StringMatrixView, all_valid
 from spark_rapids_tpu_torch.exprs.base import (
-    BinaryExpression, UnaryExpression, as_device_column, as_host_column,
-    make_column, make_host_column)
+    BinaryExpression, Expression, UnaryExpression, as_device_column,
+    as_host_column, make_column, make_host_column)
 
 
 def _string_cmp(l_data, l_len, r_data, r_len):
@@ -244,3 +247,86 @@ class IsNotNull(UnaryExpression):
         col = as_host_column(self.child.eval_host(batch), batch)
         return make_host_column(dt.BOOL, col.validity,
                                 all_valid(batch.num_rows))
+
+
+def _host_strings_to_matrix(col):
+    return StringMatrixView.of(col)
+
+
+def _in_list_target(v, width: int):
+    """A string list value as the (width,) zero-padded byte row it is held
+    to, and its length: a value wider than the column's matrix is cut to
+    the width and then fails on its length."""
+    b = v.encode("utf-8") if isinstance(v, str) else bytes(v)
+    target = np.zeros(width, dtype=np.uint8)
+    target[:min(len(b), width)] = np.frombuffer(b[:width], dtype=np.uint8)
+    return target, len(b)
+
+
+class InSet(Expression):
+    """value IN (literals). A NULL value gives NULL; no match against a
+    list that holds a NULL gives NULL. Strings match by bytes and length
+    against the padded matrix; numbers after the cast to the column's
+    numpy type. On the device a subnormal float compares as a zero of its
+    sign (as the JAX package's device engine does), on the host as
+    itself."""
+
+    def __init__(self, child: Expression, values):
+        self.child = child
+        self.values = tuple(values)
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def data_type(self) -> DataType:
+        return dt.BOOL
+
+    def _split(self):
+        has_null = any(v is None for v in self.values)
+        return has_null, [v for v in self.values if v is not None]
+
+    def eval(self, batch):
+        col = as_device_column(self.child.eval(batch), batch)
+        t = self.child.data_type()
+        has_null, present = self._split()
+        dev = col.data.device
+        acc = torch.zeros(col.data.shape[0], dtype=torch.bool, device=dev)
+        if t.is_string:
+            for v in present:
+                target, n = _in_list_target(v, col.data.shape[1])
+                row = torch.from_numpy(target).to(dev)
+                acc = acc | ((col.data == row[None, :]).all(dim=1)
+                             & (col.lengths == n))
+        else:
+            data = col.data
+            if data.is_floating_point():
+                data = flush_subnormal(data)
+            for v in present:
+                if t.is_floating and isinstance(v, float) and np.isnan(v):
+                    acc = acc | torch.isnan(data)
+                    continue
+                x = t.np_dtype.type(v)
+                if t.is_floating and abs(x) < np.finfo(x.dtype).tiny:
+                    x = x * 0           # a zero of its sign, as above
+                acc = acc | (data == x.item())
+        return make_column(dt.BOOL, acc, col.validity & (acc | (not has_null)))
+
+    def eval_host(self, batch):
+        col = as_host_column(self.child.eval_host(batch), batch)
+        t = self.child.data_type()
+        has_null, present = self._split()
+        if t.is_string:
+            col = _host_strings_to_matrix(col)
+        acc = np.zeros(col.data.shape[0], dtype=np.bool_)
+        for v in present:
+            if t.is_string:
+                target, n = _in_list_target(v, col.data.shape[1])
+                acc = acc | ((col.data == target[None, :]).all(axis=1)
+                             & (col.lengths == n))
+            elif t.is_floating and isinstance(v, float) and np.isnan(v):
+                acc = acc | np.isnan(col.data)
+            else:
+                acc = acc | (col.data == t.np_dtype.type(v))
+        return make_host_column(dt.BOOL, acc,
+                                col.validity & (acc | (not has_null)))

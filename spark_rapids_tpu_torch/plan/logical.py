@@ -1,5 +1,6 @@
 """Logical plans and the untyped column DSL (port of the JAX package's
-``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q6 use).
+``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q9, q12, q14 and
+q19 and TPCxBB q5 use).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -111,6 +112,11 @@ class Column:
     def isNotNull(self) -> "Column":
         return Column(("isnotnull", self))
 
+    def isin(self, *values) -> "Column":
+        vals = values[0] if len(values) == 1 and \
+            isinstance(values[0], (list, tuple)) else values
+        return Column(("isin", self, tuple(vals)))
+
     def startswith(self, s: str) -> "Column":
         return Column(("startswith", self, s))
 
@@ -150,6 +156,38 @@ def _as_col(v) -> Column:
     return lit_col(v)
 
 
+def coalesce_cols(*cs) -> Column:
+    return Column(("coalesce", tuple(_as_col(c) for c in cs)))
+
+
+def when(cond: Column, value) -> "WhenBuilder":
+    return WhenBuilder([(cond, _as_col(value))])
+
+
+class WhenBuilder(Column):
+    def __init__(self, branches):
+        self.branches = branches
+        super().__init__(("when", tuple(branches), None))
+
+    def when(self, cond: Column, value) -> "WhenBuilder":
+        return WhenBuilder(self.branches + [(cond, _as_col(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(("when", tuple(self.branches), _as_col(value)))
+
+
+def year(c):
+    return Column(("year", _as_col(c)))
+
+
+def month(c):
+    return Column(("month", _as_col(c)))
+
+
+def dayofmonth(c):
+    return Column(("dayofmonth", _as_col(c)))
+
+
 # Aggregate builders.
 def agg_sum(c) -> Column:
     return Column(("agg", "sum", _as_col(c)))
@@ -185,16 +223,19 @@ class NotPortedError(ResolutionError):
 
 
 _BINARY = {
-    "add": E.Add, "sub": E.Subtract, "mul": E.Multiply, "eq": E.EqualTo,
-    "lt": E.LessThan, "le": E.LessThanOrEqual, "gt": E.GreaterThan,
-    "ge": E.GreaterThanOrEqual, "and": E.And, "or": E.Or,
+    "add": E.Add, "sub": E.Subtract, "mul": E.Multiply, "div": E.Divide,
+    "eq": E.EqualTo, "lt": E.LessThan, "le": E.LessThanOrEqual,
+    "gt": E.GreaterThan, "ge": E.GreaterThanOrEqual, "and": E.And,
+    "or": E.Or,
 }
 _UNARY = {"not": E.Not, "isnull": E.IsNull, "isnotnull": E.IsNotNull}
 _NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
            "contains": E.Contains}
+_DATE_PART = {"year": E.Year, "month": E.Month, "dayofmonth": E.DayOfMonth}
 # Every kind ``resolve`` maps onto a port expression.
-PORTED_KINDS = frozenset({"ref", "lit", "alias"} | set(_BINARY)
-                         | set(_UNARY) | set(_NEEDLE))
+PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce"}
+                         | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
+                         | set(_DATE_PART))
 
 
 def resolve(c: Column, schema: Schema) -> Expression:
@@ -228,6 +269,16 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return _BINARY[kind](l, r)
     if kind in _NEEDLE:
         return _NEEDLE[kind](rec(node[1]), E.lit(node[2]))
+    if kind == "isin":
+        return E.InSet(rec(node[1]), node[2])
+    if kind == "coalesce":
+        return E.Coalesce(*[rec(x) for x in node[1]])
+    if kind == "when":
+        branches = [(rec(cond), rec(val)) for cond, val in node[1]]
+        else_e = rec(node[2]) if node[2] is not None else None
+        return E.CaseWhen(branches, else_e)
+    if kind in _DATE_PART:
+        return _DATE_PART[kind](rec(node[1]))
     if kind == "sortorder":
         raise ResolutionError("sort order only valid in orderBy")
     raise NotPortedError(f"expression {kind} is not ported")

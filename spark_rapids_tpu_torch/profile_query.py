@@ -1,13 +1,14 @@
 """Where the time of a TPC-H query goes on the card.
 
-    python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|q3|q4]
+    python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|...]
         [--codec v2|v1|plain] [--scale 1.0] [--partitions 8]
         [--dataframe] [--trace q1_trace.json]
 
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
 ``tpch_q4_plan``, over the generator's partitions) ``.collect()``, or with
 ``--dataframe`` the exec tree the planner builds from ``benchmarks/tpch.py``
-(q1-q6, ``variableFloatAgg`` on, over ``tpch_tables``), on the
+(q1-q9, q12, q14, q19, ``variableFloatAgg`` on, over ``tpch_tables``) or
+``benchmarks/suites.py`` (``xbb_q5`` over ``suite_tables``), on the
 CUDA card under the wire codec ``--codec`` (default v2): one warm-up run
 (the sources pack their batches there and keep them), then host-clock
 times of the upload alone (split into a fresh host encode + pack of every
@@ -29,6 +30,9 @@ import subprocess
 import time
 
 
+HAND_BUILT = ("q1", "q2", "q3", "q4")
+
+
 def _dev_time(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -42,12 +46,15 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from spark_rapids_tpu_torch import entry
+    from spark_rapids_tpu_torch.benchmarks import suites, tpch
     from spark_rapids_tpu_torch.columnar import wire
     from spark_rapids_tpu_torch.config import TpuConf
     from spark_rapids_tpu_torch.ops import ExecContext, native
 
+    dataframe_only = tuple(q for q in (*tpch.QUERIES, *suites.QUERIES)
+                           if q not in HAND_BUILT)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--query", choices=("q1", "q2", "q3", "q4", "q5", "q6"),
+    ap.add_argument("--query", choices=HAND_BUILT + dataframe_only,
                     default="q1")
     ap.add_argument("--codec", choices=wire.CODEC_MODES, default="v2")
     ap.add_argument("--scale", type=float, default=1.0)
@@ -56,7 +63,7 @@ def main() -> int:
     ap.add_argument("--dataframe", action="store_true")
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
-    if args.query in ("q5", "q6") and not args.dataframe:
+    if args.query in dataframe_only and not args.dataframe:
         ap.error(f"{args.query} has no hand-built tree: add --dataframe")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_query needs a CUDA device")
@@ -66,15 +73,20 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     if args.dataframe:
         from spark_rapids_tpu_torch.api import TpuSession
-        from spark_rapids_tpu_torch.benchmarks import tpch
         from spark_rapids_tpu_torch.plan import logical as L
         session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled":
                               True})
-        cols = entry.tpch_columns(args.scale, seed=0)
-        dfs = tpch.tpch_tables(session, cols)[args.query]
+        if args.query in suites.QUERIES:
+            dfs = suites.suite_tables(session, suites.suite_columns(
+                args.scale))[args.query]
+            query = suites.QUERIES[args.query]
+        else:
+            cols = entry.tpch_columns(args.scale, seed=0)
+            dfs = tpch.tpch_tables(session, cols, (args.query,))[args.query]
+            query = tpch.QUERIES[args.query]
         tables = {t: df._plan.partitions for t, df in dfs.items()
                   if isinstance(df._plan, L.InMemoryScan)}
-        phys = tpch.QUERIES[args.query](session, dfs)._physical()
+        phys = query(session, dfs)._physical()
         print(phys.tree())
         plan = phys.root
     elif args.query == "q1":

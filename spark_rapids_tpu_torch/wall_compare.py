@@ -3,7 +3,7 @@ for the port in any source tree.
 
     python3 spark_rapids_tpu_torch/wall_compare.py [--tree DIR]
         [--codecs v2,plain] [--runs 3] [--label NAME]
-        [--kernels | --dataframe [--default-conf]]
+        [--kernels | --dataframe [--default-conf] [--queries q1,q7,...]]
 
 Run it by its path, not with ``-m``: it imports ``spark_rapids_tpu_torch``
 from ``--tree`` (the root of a checkout; default the checkout holding this
@@ -33,7 +33,9 @@ against ``torch.sort``, K2 against ``scatter_reduce_``). ``--runs``
 rounds of CUDA-event means over 200 back-to-back calls each; one JSON
 line.
 
-With ``--dataframe`` it times TPC-H q1-q6 through the DataFrame front end
+With ``--dataframe`` it times TPC-H q1-q6 (or the ``--queries`` named:
+any of q1-q9, q12, q14, q19 and TPCxBB ``xbb_q5`` at scale 1) through the
+DataFrame front end
 (``TpuSession`` with ``variableFloatAgg`` on, ``benchmarks/tpch.py`` over
 ``tpch_tables``) beside the hand-built trees of q1-q4 (``entry``), under
 the default codec, in this one process: for each query the planning time
@@ -48,8 +50,9 @@ With ``--dataframe --default-conf`` the two paths are q1-q6 through a
 aggregates run on the host engine between device subtrees) and through
 one with ``variableFloatAgg`` on (every node on the card), timed the
 same way in turns in this one process; their rows must agree, floats to
-rtol 1e-9 (the host engine sums in another order). A tree without the
-host engine refuses the default conf and cannot run this mode.
+rtol 1e-9 (the host engine sums in another order; a query whose root,
+below any limit, is not a sort, as sorted rows). A tree without the host engine refuses the
+default conf and cannot run this mode.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 QUERIES = ("q1", "q3", "q4", "q2")
+DATAFRAME_QUERIES = ("q1", "q6", "q3", "q5", "q2", "q4")
 
 
 def _import_tree(tree: str):
@@ -198,9 +202,14 @@ def main() -> int:
     ap.add_argument("--default-conf", action="store_true",
                     help="with --dataframe: the default conf against "
                     "variableFloatAgg on, instead of the hand-built trees")
+    ap.add_argument("--queries", default=",".join(DATAFRAME_QUERIES),
+                    help="with --dataframe: the queries to time")
     args = ap.parse_args()
     if args.default_conf and not args.dataframe:
         ap.error("--default-conf goes with --dataframe")
+    queries = tuple(args.queries.split(","))
+    if queries != DATAFRAME_QUERIES and not args.dataframe:
+        ap.error("--queries goes with --dataframe")
     tree = os.path.abspath(args.tree)
     _import_tree(tree)
 
@@ -228,7 +237,8 @@ def main() -> int:
     if args.dataframe:
         print(f"{label}: kernels built in {build_s:.2f} s, SF1 data in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        _dataframe_walls(label, entry, cols, args.runs, args.default_conf)
+        _dataframe_walls(label, entry, cols, args.runs, args.default_conf,
+                         queries)
         _print_device()
         return 0
     plans = {"q1": entry.tpch_q1_plan(
@@ -281,16 +291,42 @@ def _rows_close(a: list, b: list) -> bool:
         for ra, rb in zip(a, b))
 
 
+def _query_tables(session, cols: dict, queries) -> tuple:
+    """(query -> function, query -> table -> DataFrame) of ``queries``:
+    TPC-H ones over ``cols``, TPCxBB ones over the scale-1 suite."""
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    tq = tuple(q for q in queries if q in tpch.QUERIES)
+    # A tree older than the ``queries`` argument builds every query.
+    tables = tpch.tpch_tables(session, cols) if tq == DATAFRAME_QUERIES \
+        else tpch.tpch_tables(session, cols, tq)
+    funcs = dict(tpch.QUERIES)
+    if len(tq) < len(queries):
+        from spark_rapids_tpu_torch.benchmarks import suites
+        tables.update(suites.suite_tables(session, suites.suite_columns(1.0)))
+        funcs.update(suites.QUERIES)
+    return funcs, tables
+
+
+def _ordered(df) -> bool:
+    """Whether ``df``'s rows come in a defined order: its root, below any
+    limit, is a sort. Other results compare as multisets."""
+    from spark_rapids_tpu_torch.plan import logical as L
+    plan = df._plan
+    while isinstance(plan, L.LogicalLimit):
+        plan = plan.child
+    return isinstance(plan, L.LogicalSort)
+
+
 def _dataframe_walls(label: str, entry, cols: dict, runs: int,
-                     default_conf: bool = False) -> None:
+                     default_conf: bool = False,
+                     queries=DATAFRAME_QUERIES) -> None:
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
-    from spark_rapids_tpu_torch.benchmarks import tpch
     session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
-    tables = tpch.tpch_tables(session, cols)
+    funcs, tables = _query_tables(session, cols, queries)
     if default_conf:
         dsession = TpuSession()
-        dtables = tpch.tpch_tables(dsession, cols)
+        _f, dtables = _query_tables(dsession, cols, queries)
     hand = {"q1": lambda: entry.tpch_q1_plan(entry.table_partitions(
         cols["lineitem"], entry.Q1_SCHEMA, entry.TABLE_PARTITIONS[
             "lineitem"]), device="cuda")}
@@ -304,14 +340,15 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
         torch.cuda.synchronize()
         return time.perf_counter() - t0, rows
 
-    for q in ("q1", "q6", "q3", "q5", "q2", "q4"):
+    for q in queries:
         t0 = time.perf_counter()
-        df = tpch.QUERIES[q](session, tables[q])
+        df = funcs[q](session, tables[q])
         df._physical()
         plan_ms = (time.perf_counter() - t0) * 1e3
         paths = {"dataframe": df.collect}
+        ordered = _ordered(df)
         if default_conf:
-            ddf = tpch.QUERIES[q](dsession, dtables[q])
+            ddf = funcs[q](dsession, dtables[q])
             ddf._physical()
             paths = {"default_conf": ddf.collect, **paths}
         elif q in hand:
@@ -319,6 +356,8 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
         first, warm, want = {}, {p: [] for p in paths}, None
         for p, collect in paths.items():
             first[p], rows = run(collect)
+            if not ordered:
+                rows = sorted(rows)
             if want is None:
                 want = rows
             elif not (_rows_close(rows, want) if default_conf

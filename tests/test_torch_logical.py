@@ -133,6 +133,13 @@ ASTS = {
     "q6_filter": lambda M: (M.col("d") >= M.lit_col(8766))
     & (M.col("d") < M.lit_col(9131)) & (M.col("f64") >= 0.05)
     & (M.col("f64") <= 0.07) & (M.col("f64") < 24.0),
+    "div": lambda M: M.col("f64") / 2.0,
+    "isin": lambda M: M.col("s").isin("MAIL", "SHIP"),
+    "when": lambda M: M.when(M.col("b"), 1).otherwise(0),
+    "coalesce": lambda M: M.coalesce_cols(M.col("f64"), 0.0),
+    "year": lambda M: M.year(M.col("d")),
+    "month": lambda M: M.month(M.col("d")),
+    "dayofmonth": lambda M: M.dayofmonth(M.col("d")),
 }
 
 
@@ -176,7 +183,7 @@ def test_resolution_errors_match_reference(name):
 
 
 UNPORTED = {
-    "div": lambda M: M.col("f64") / 2.0,
+    "abs": lambda M: M.Column(("abs", M.col("f64"))),
     "mod": lambda M: M.col("i64") % 3,
     "neg": lambda M: -M.col("i32"),
     "cast": lambda M: M.col("i32").cast("long"),

@@ -427,5 +427,6 @@ def test_port_imports_no_jax():
               "plan.planner", "api.dataframe", "benchmarks.tpch",
               "ops.base", "ops.aggregate", "columnar.host",
               "columnar.wire", "exprs.base", "exprs.arithmetic",
-              "exprs.predicates", "exprs.strings", "wall_compare"):
+              "exprs.predicates", "exprs.strings", "exprs.conditional",
+              "exprs.datetime", "benchmarks.suites", "wall_compare"):
         assert f"spark_rapids_tpu_torch.{m}" in loaded, m

@@ -128,7 +128,7 @@ def _gated_plans(M, df_scan):
                                     ("y", M.agg_sum(c("a"))),
                                     ("z", M.agg_avg(c("a")))]),
         "unported_under_filter": M.LogicalFilter(M.LogicalProject(
-            scan, [("r", c("f") / 2.0), ("a", c("a"))]), c("r") > 1.0),
+            scan, [("r", c("f") % 2.0), ("a", c("a"))]), c("r") > 1.0),
         "shuffle_join": M.LogicalJoin(scan, scan, [c("a")], [c("a")],
                                       "inner", strategy="shuffle"),
     }
@@ -139,7 +139,7 @@ def _gated_plans(M, df_scan):
 @pytest.mark.parametrize("raw", [
     {}, {VFA: True},
     {"spark.rapids.sql.replaceSortMergeJoin.enabled": False, VFA: True},
-    {"spark.rapids.sql.expression.div": False}])
+    {"spark.rapids.sql.expression.mod": False}])
 def test_gates_match_reference_apart_from_not_ported(plan, raw):
     from spark_rapids_tpu.api import TpuSession as JSession
     pconf, jconf = _confs(raw)
@@ -150,7 +150,7 @@ def test_gates_match_reference_apart_from_not_ported(plan, raw):
     assert _tags(_without_not_ported(got)) == _tags(want)
     extra = [r for _n, reasons, _ in _tags(got) for r in reasons
              if "is not ported" in r]
-    assert extra == (["expression div is not ported"]
+    assert extra == (["expression mod is not ported"]
                      if plan == "unported_under_filter" else [])
 
 
@@ -204,8 +204,8 @@ def _refusals(session):
         # case -> (DataFrame, conf updates, [(node, reason), ...])
         **_host_cases(L, session),
         "unported_expression": (
-            df.select((c("f") / 2.0).alias("r"), "a").filter(c("r") > 1.0),
-            {}, [("LogicalProject", "expression div is not ported")]),
+            df.select((c("f") % 2.0).alias("r"), "a").filter(c("r") > 1.0),
+            {}, [("LogicalProject", "expression mod is not ported")]),
         "multi_partition_exchange": (
             df.group_by("s").count().order_by("s"),
             {"spark.rapids.sql.shuffle.partitions": 4},
