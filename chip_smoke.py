@@ -129,10 +129,29 @@ Phases (each raises on failure; any failure exits non-zero):
    K1 must launch in xbb_q5, q7, q8, q9 and q12 under both confs. Each
    K1-K4 launch of a shape no earlier phase checked must equal the
    kernel's plain version bit for bit. The phase's time is printed.
-14. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+14. Grouping sets and windows: TPC-DS q67, ds_q3, ds_q42, ds_q55, ds_q89
+   and ds_q98 (scale 1: 2,880,000 store_sales rows, 18,000 items, 12
+   stores, 731 dates; the reference generator's stream replayed by
+   ``benchmarks/suites.py``) through ``TpuSession`` and the reference's
+   query text, once with ``variableFloatAgg`` on and once under the
+   default conf (each float Sum aggregate on the host engine, q67's
+   ROLLUP ``ExpandExec`` with it; the windows and sorts on the card).
+   For each run: host nodes and bridges (checked), rows and bytes
+   downloaded, the first run (counters around it alone, every K1-K4
+   launch recorded) and warm runs (one for q67 under the default conf,
+   two for the rest), each checked against a numpy oracle in this file
+   (q67, ds_q3, ds_q42 and ds_q55 exactly, their sums being of whole
+   numbers; ds_q89's averages and ds_q98's ratios to rtol 1e-9), and the
+   peak device memory of the warm runs. K1 must launch in every run, K2
+   in ds_q89 and ds_q98 (the window's valid-row counts). Each K1-K4 launch
+   of a shape no earlier phase checked must equal the kernel's plain
+   version bit for bit; the largest new K1 shape is timed against its
+   plain version and ``torch.sort``. The phase's time is printed.
+15. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
-   fourteen runs), its error against the plain version, its
+   fourteen runs and phase 14's twelve), its error against the plain
+   version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -1672,10 +1691,11 @@ def xbb_q5_oracle(cols: dict, S) -> list:
 
 
 def check_rows(name: str, rows: list, want: list,
-               multiset: bool = False) -> None:
+               multiset: bool = False, exact: bool = False) -> None:
     """Rows against an oracle: same count, keys, counts and order exact
     (``multiset``: the same rows in any order), floats within
-    ORACLE_RTOL and finite; a NULL only where the oracle has one."""
+    ORACLE_RTOL (``exact``: equal) and finite; a NULL only where the
+    oracle has one."""
     if not want:
         raise AssertionError(f"{name} oracle is empty: nothing would be "
                              "checked")
@@ -1691,7 +1711,8 @@ def check_rows(name: str, rows: list, want: list,
         for a, b in zip(got, exp):
             if isinstance(b, float):
                 if not isinstance(a, float) or not np.isfinite(a) or \
-                        not np.isclose(a, b, rtol=ORACLE_RTOL, atol=0.0):
+                        not (a == b if exact else np.isclose(
+                            a, b, rtol=ORACLE_RTOL, atol=0.0)):
                     raise AssertionError(f"{name} differs: {got} vs {exp}")
             elif a != b or type(a) is not type(b):
                 raise AssertionError(f"{name} differs: {got} vs {exp}")
@@ -1755,7 +1776,7 @@ def more_queries_phase(native, cols: dict, known_seen: list,
             ("default", {})):
         session = TpuSession(conf)
         tables = dict(tpch.tpch_tables(session, cols, MORE_TPCH),
-                      **S.suite_tables(session, xcols))
+                      **S.suite_tables(session, xcols, ("xbb_q5",)))
         for q in MORE_QUERIES:
             check, want = oracles[q]
             run = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
@@ -1788,6 +1809,312 @@ def more_queries_phase(native, cols: dict, known_seen: list,
                 hosted=r["hosted"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: TPC-DS q67, ds_q3, ds_q42, ds_q55, ds_q89 and ds_q98 (grouping
+# sets and windows) under both confs
+# ---------------------------------------------------------------------------
+
+def _ds_joined(cols: dict, date_ok: np.ndarray, item_ok=None) -> tuple:
+    """The store_sales rows whose date passes ``date_ok`` (and item
+    ``item_ok``), as (date index, item index, row mask)."""
+    ss = cols["store_sales"]
+    d = ss["ss_sold_date_sk"] - 1
+    i = ss["ss_item_sk"] - 1
+    m = date_ok[d]
+    if item_ok is not None:
+        m &= item_ok[i]
+    return d[m], i[m], m
+
+
+def _mixed_key(parts: list, n: int) -> np.ndarray:
+    """One int64 key for each of ``n`` rows from (small non-negative int
+    column, its radix) pairs: 0 for every row when there are none."""
+    key = np.zeros(n, np.int64)
+    for v, radix in parts:
+        key = key * radix + v
+    return key
+
+
+def _decode_key(key: np.ndarray, radixes: list) -> list:
+    out = []
+    for radix in reversed(radixes):
+        out.append(key % radix)
+        key = key // radix
+    return out[::-1]
+
+
+def q67_oracle(cols: dict, S) -> list:
+    """TPC-DS q67 in plain numpy: the ROLLUP of sum(price * qty) over the
+    eight keys (nine levels), rank() of sumsales descending within
+    i_category (the grand total alone in the NULL partition), rk <= 100,
+    the eight keys ascending nulls first, then sumsales and rk, first
+    100 rows. Sums of whole numbers: exact."""
+    dd, it, st = cols["date_dim"], cols["item"], cols["store"]
+    ss = cols["store_sales"]
+    ms = dd["d_month_seq"]
+    d, i, m = _ds_joined(cols, (ms >= 1178) & (ms <= 1189))
+    sales = ss["ss_sales_price"][m] * ss["ss_quantity"][m]
+    store = ss["ss_store_sk"][m] - 1
+    keys = [(it["i_category"][i], len(S.CATEGORIES)),
+            (it["i_class"][i], len(S.CLASSES)),
+            (it["i_brand"][i], len(S.BRANDS)),
+            (it["i_product_name"][i], len(S.PRODUCTS)),
+            (dd["d_year"][d] - 1998, 3), (dd["d_qoy"][d] - 1, 4),
+            (dd["d_moy"][d] - 1, 12), (st["s_store_id"][store],
+                                       len(st["s_store_id"]))]
+    radixes = [r for _, r in keys]
+    levels = []           # (level, decoded key columns, sums)
+    for lvl in range(len(keys), -1, -1):
+        key = _mixed_key(keys[:lvl], len(sales))
+        uniq, inv = np.unique(key, return_inverse=True)
+        sums = np.bincount(inv.reshape(-1), weights=sales,
+                           minlength=len(uniq))
+        levels.append((lvl, _decode_key(uniq, radixes[:lvl]), sums))
+    n = sum(len(s) for _, _, s in levels)
+    # Per output row: each key's value, or -1 for a rolled-up NULL.
+    kv = np.full((len(keys), n), -1, np.int64)
+    sumsales = np.empty(n)
+    at = 0
+    for lvl, dec, sums in levels:
+        for k in range(lvl):
+            kv[k, at:at + len(sums)] = dec[k]
+        sumsales[at:at + len(sums)] = sums
+        at += len(sums)
+    # rank() over (partition by i_category order by sumsales desc).
+    cat = kv[0]
+    order = np.lexsort((-sumsales, cat))
+    sc, sv = cat[order], sumsales[order]
+    idx = np.arange(n)
+    new_part = np.r_[True, sc[1:] != sc[:-1]]
+    new_peer = new_part | np.r_[True, sv[1:] != sv[:-1]]
+    rank_sorted = np.maximum.accumulate(np.where(new_peer, idx, 0)) - \
+        np.maximum.accumulate(np.where(new_part, idx, 0)) + 1
+    rk = np.empty(n, np.int64)
+    rk[order] = rank_sorted
+    keep = np.flatnonzero(rk <= 100)
+    # ORDER BY the keys ascending, nulls first (a category by its name;
+    # the other pools are in name order), then sumsales and rk.
+    cat_rank = np.argsort(np.argsort(np.array(S.CATEGORIES)))
+    sort_cols = [np.where(kv[0] < 0, -1, cat_rank[np.maximum(kv[0], 0)])] \
+        + [kv[k] for k in range(1, len(keys))]
+    sel = keep[np.lexsort(tuple([rk[keep], sumsales[keep]]
+                                + [c[keep] for c in sort_cols[::-1]]))][:100]
+    pools = (S.CATEGORIES, S.CLASSES, S.BRANDS, S.PRODUCTS)
+    rows = []
+    for r in sel.tolist():
+        v = kv[:, r].tolist()
+        row = [None if v[k] < 0 else pools[k][v[k]] for k in range(4)]
+        row += [None if v[4] < 0 else v[4] + 1998,
+                None if v[5] < 0 else v[5] + 1,
+                None if v[6] < 0 else v[6] + 1,
+                None if v[7] < 0 else S.STORE_IDS[v[7]]]
+        rows.append(tuple(row) + (float(sumsales[r]), int(rk[r])))
+    return rows
+
+
+def _ds_group(keys: list, values: np.ndarray) -> tuple:
+    """(unique key rows as columns, the sum of ``values`` per key row)."""
+    uniq, sums = _group_sums(keys, values)
+    return [uniq[:, k] for k in range(uniq.shape[1])], sums[0]
+
+
+def ds_q3_oracle(cols: dict, S) -> list:
+    """(d_year, i_brand, sum_agg) of November sales of category id 1,
+    by year ascending, sum descending, brand ascending; first 100."""
+    dd, it, ss = cols["date_dim"], cols["item"], cols["store_sales"]
+    d, i, m = _ds_joined(cols, dd["d_moy"] == 11,
+                         it["i_category_id"] == 1)
+    (year, brand), s = _ds_group([dd["d_year"][d], it["i_brand"][i]],
+                                 ss["ss_sales_price"][m])
+    o = np.lexsort((brand, -s, year))[:100]
+    return [(int(year[j]), S.BRANDS[brand[j]], float(s[j])) for j in o]
+
+
+def ds_q42_oracle(cols: dict, S) -> list:
+    """(d_year, d_qoy, i_category, revenue) of 1999, by revenue
+    descending, then year, quarter and category name; first 100."""
+    dd, it, ss = cols["date_dim"], cols["item"], cols["store_sales"]
+    d, i, m = _ds_joined(cols, dd["d_year"] == 1999)
+    (year, qoy, cat), s = _ds_group(
+        [dd["d_year"][d], dd["d_qoy"][d], it["i_category"][i]],
+        ss["ss_sales_price"][m])
+    name = np.array(S.CATEGORIES)[cat]
+    o = np.lexsort((name, qoy, year, -s))[:100]
+    return [(int(year[j]), int(qoy[j]), str(name[j]), float(s[j]))
+            for j in o]
+
+
+def ds_q55_oracle(cols: dict, S) -> list:
+    """(i_brand, ext_price) of December 1998, by revenue descending, then
+    brand; first 100."""
+    dd, it, ss = cols["date_dim"], cols["item"], cols["store_sales"]
+    d, i, m = _ds_joined(cols, (dd["d_moy"] == 12) & (dd["d_year"] == 1998))
+    (brand,), s = _ds_group([it["i_brand"][i]], ss["ss_sales_price"][m])
+    o = np.lexsort((brand, -s))[:100]
+    return [(S.BRANDS[brand[j]], float(s[j])) for j in o]
+
+
+def ds_q89_oracle(cols: dict, S) -> list:
+    """(i_category, i_class, d_moy, sum_sales, avg_monthly_sales) of
+    1999: monthly class sales above 110% of the class's average month,
+    by category name, class and month."""
+    dd, it, ss = cols["date_dim"], cols["item"], cols["store_sales"]
+    d, i, m = _ds_joined(cols, dd["d_year"] == 1999)
+    (cat, cls, moy), s = _ds_group(
+        [it["i_category"][i], it["i_class"][i], dd["d_moy"][d]],
+        ss["ss_sales_price"][m])
+    cc, inv = np.unique(np.stack([cat, cls], axis=1), axis=0,
+                        return_inverse=True)
+    inv = inv.reshape(-1)
+    avg = (np.bincount(inv, weights=s) / np.bincount(inv))[inv]
+    keep = (s - avg) / avg > 0.1
+    name = np.array(S.CATEGORIES)[cat]
+    o = [j for j in np.lexsort((moy, cls, name)) if keep[j]]
+    return [(str(name[j]), S.CLASSES[cls[j]], int(moy[j]), float(s[j]),
+             float(avg[j])) for j in o]
+
+
+def ds_q98_oracle(cols: dict, S) -> list:
+    """(i_category, i_class, itemrevenue, revenueratio) of 1999 for
+    Books, Home and Sports: class revenue and its percent of the
+    category's, by category name and class."""
+    dd, it, ss = cols["date_dim"], cols["item"], cols["store_sales"]
+    picked = np.isin(it["i_category"], [S.CATEGORIES.index(c) for c in (
+        "Books", "Home", "Sports")])
+    d, i, m = _ds_joined(cols, dd["d_year"] == 1999, picked)
+    (cat, cls), s = _ds_group([it["i_category"][i], it["i_class"][i]],
+                              ss["ss_sales_price"][m])
+    total = np.bincount(cat, weights=s, minlength=len(S.CATEGORIES))[cat]
+    ratio = s * 100.0 / total
+    name = np.array(S.CATEGORIES)[cat]
+    o = np.lexsort((cls, name))
+    return [(str(name[j]), S.CLASSES[cls[j]], float(s[j]), float(ratio[j]))
+            for j in o]
+
+
+DS_QUERIES = ("q67", "ds_q3", "ds_q42", "ds_q55", "ds_q89", "ds_q98")
+# Queries whose every number is a sum of whole numbers (exact on both
+# engines); ds_q89's average and ds_q98's ratio are divisions.
+DS_EXACT = ("q67", "ds_q3", "ds_q42", "ds_q55")
+# Under the default conf the float Sum aggregate of each runs on the host
+# engine (q67's ExpandExec with it); the window and the sort stay on the
+# card.
+DS_DEFAULT_HOST = {q: ["LogicalAggregate"] for q in DS_QUERIES}
+DS_MUST_LAUNCH = dict({q: ("radix_sort",) for q in DS_QUERIES},
+                      ds_q89=("radix_sort", "seg_reduce"),
+                      ds_q98=("radix_sort", "seg_reduce"))
+DS_WARM_RUNS = {("q67", "default"): 1}
+
+
+def ds_oracles(cols: dict, S) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-14 query."""
+    out = {}
+    for q in DS_QUERIES:
+        oracle = globals()[f"{q}_oracle"]
+        out[q] = ((lambda q: lambda rows, want: check_rows(
+            q, rows, want, exact=q in DS_EXACT))(q), oracle(cols, S))
+    return out
+
+
+def k1_time(native, keys, perm, label: str) -> dict:
+    """One K1 launch shape timed: kernel, plain version and one PyTorch
+    call for the same function (``torch.sort``, gathered through
+    ``perm`` when there is one) in turns, beside the byte bound."""
+    import torch
+    r = dict(sort_bound(keys.numel(), keys.element_size(), perm is not None))
+    fns = {"ms": lambda: native.stable_argsort_u32(keys, perm)}
+    if perm is None:
+        fns["library_ms"] = lambda: torch.sort(keys, stable=True)
+    else:
+        fns["library_ms"] = lambda: perm.index_select(0, torch.sort(
+            keys.index_select(0, perm), stable=True).indices)
+    r.update(turns_ms(fns, 10))
+    r["plain_ms"] = cuda_ms(
+        lambda: native.stable_argsort_u32_plain(keys, perm), 3, warmup=1)
+    r["device_ms"] = device_ms(fns["ms"], 5)
+    log(f"{label} K1 {k1_shape(keys, perm)}: kernel {r['ms']:.4f} ms "
+        f"(device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    return r
+
+
+def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
+    """TPC-DS q67, ds_q3, ds_q42, ds_q55, ds_q89 and ds_q98 (scale 1)
+    through ``TpuSession()`` on the card, once with ``variableFloatAgg``
+    on and once under the default conf. For each run: the plan's host
+    nodes and bridges, the rows and bytes each ``DeviceToHostExec``
+    downloads, the first run (launch counters around it alone, every
+    K1-K4 launch recorded) checked against its numpy oracle and the
+    kernels it must launch, warm runs, and the peak device memory. Every
+    K1-K4 launch of a shape no earlier phase checked is held to the
+    kernel's plain version bit for bit; the largest new K1 shape (q67's
+    window sort) is timed against its plain version and ``torch.sort``."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import suites as S
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    t_phase = time.perf_counter()
+    cols = S.suite_columns(1.0, seed=0)
+    oracles = ds_oracles(cols, S)
+    log(f"phase 14: TPC-DS scale 1 "
+        f"({len(cols['store_sales']['ss_item_sk'])} store_sales rows) and "
+        f"oracles in {time.perf_counter() - t_phase:.2f} s")
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": []}
+    new_k1 = {}
+    for conf_name, conf in (("vfa", {
+            "spark.rapids.sql.variableFloatAgg.enabled": True}),
+            ("default", {})):
+        session = TpuSession(conf)
+        tables = S.suite_tables(session, cols, DS_QUERIES)
+        for q in DS_QUERIES:
+            check, want = oracles[q]
+            t0 = time.perf_counter()
+            phys = S.QUERIES[q](session, tables[q])._physical()
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            label = f"{q} ({conf_name})"
+            k1_calls = []
+            with recording_k1(native, k1_calls):
+                r = run_checked(native, label, phys, check, want,
+                                DS_DEFAULT_HOST[q] if conf_name == "default"
+                                else [], DS_MUST_LAUNCH[q], known_seen,
+                                known_k1)
+            for a in k1_calls:
+                if k1_shape(*a) not in known_k1:
+                    new_k1.setdefault(k1_shape(*a), a)
+            del k1_calls
+            known_seen.append(r["seen"])
+            known_k1 |= {c["shape"] for c in r["checks"]
+                         if c["kernel"] == "radix_sort"}
+            out["kernel_checks"] += r["checks"]
+            warm = []
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for _ in range(DS_WARM_RUNS.get((q, conf_name), 2)):
+                t0 = time.perf_counter()
+                rows = phys.collect(ExecContext(phys.conf))
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+                check(rows, want)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
+                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
+                f"warm {[round(w, 4) for w in warm]} s, peak device memory "
+                f"in the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f}"
+                f" GiB held before them); launches {r['launches']}")
+            out[(q, conf_name)] = dict(
+                plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
+                launches=r["launches"], moved=r["moved"],
+                hosted=r["hosted"], peak_bytes=peak, held_bytes=held)
+    if new_k1:
+        keys, perm = new_k1[max(new_k1)]
+        out["k1"] = k1_time(native, keys, perm, "phase 14 largest new")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {out['seconds']:.1f} s")
     return out
 
 
@@ -2099,9 +2426,17 @@ def main() -> int:
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
 
-    # Phase 14: the kernels line
+    # Phase 14: TPC-DS q67, ds_q3, ds_q42, ds_q55, ds_q89, ds_q98, both
+    # confs
+    ds = ds_queries_phase(native, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1)
+
+    # Phase 15: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
-                      for q in MORE_QUERIES)
+                      for q in MORE_QUERIES) + tuple(
+        ds[(q, c)]["launches"] for c in ("vfa", "default")
+        for q in DS_QUERIES)
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -2137,7 +2472,10 @@ def main() -> int:
         + ", ".join(f"{q} {mixed[q]['launches']}" for q in DF_QUERIES)
         + "; phase 13 "
         + ", ".join(f"{q} ({c}) {more[(q, c)]['launches']}"
-                    for c in ("vfa", "default") for q in MORE_QUERIES))
+                    for c in ("vfa", "default") for q in MORE_QUERIES)
+        + "; phase 14 "
+        + ", ".join(f"{q} ({c}) {ds[(q, c)]['launches']}"
+                    for c in ("vfa", "default") for q in DS_QUERIES))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

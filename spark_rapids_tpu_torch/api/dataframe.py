@@ -151,8 +151,22 @@ class DataFrame:
     where = filter
 
     def _project(self, projections) -> "DataFrame":
-        return DataFrame(self._session,
-                         L.LogicalProject(self._plan, projections))
+        """Build a projection, extracting window expressions into a chain
+        of LogicalWindow nodes first (Spark's ExtractWindowExpressions)."""
+        plan = self._plan
+        out = []
+        for i, (name, c) in enumerate(projections):
+            if L.is_window_column(c):
+                node = c.node
+                while node[0] == "alias":
+                    node = node[1].node
+                _, fn_col, windef = node
+                tmp = f"__window_{i}_{name}"
+                plan = L.LogicalWindow(plan, [(tmp, fn_col)], windef)
+                out.append((name, col(tmp)))
+            else:
+                out.append((name, c))
+        return DataFrame(self._session, L.LogicalProject(plan, out))
 
     def select(self, *cols_: Union[str, Column]) -> "DataFrame":
         projections = []
@@ -179,6 +193,14 @@ class DataFrame:
         return GroupedData(self, keys)
 
     groupBy = group_by
+
+    def rollup(self, *keys: Union[str, Column]) -> GroupedData:
+        """GROUP BY ROLLUP: hierarchical subtotals via ExpandExec."""
+        return GroupedData(self, keys, grouping="rollup")
+
+    def cube(self, *keys: Union[str, Column]) -> GroupedData:
+        """GROUP BY CUBE: all key-subset subtotals via ExpandExec."""
+        return GroupedData(self, keys, grouping="cube")
 
     def agg(self, *aggs: Column, **named: Column) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs, **named)

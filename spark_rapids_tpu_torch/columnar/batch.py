@@ -99,6 +99,19 @@ class DeviceColumn:
         return cls(dtype, torch.zeros(capacity, dtype=torch_dtype(dtype),
                                       device=device), validity)
 
+    def gather(self, indices: torch.Tensor,
+               valid_dst: torch.Tensor) -> "DeviceColumn":
+        """Take rows at ``indices`` (clipped); ``valid_dst`` masks live
+        destination rows."""
+        idx = indices.long().clamp(0, max(self.capacity - 1, 0))
+        validity = self.validity.index_select(0, idx) & valid_dst
+        data = zero_dead(self.data.index_select(0, idx), validity)
+        if self.dtype.is_string:
+            lengths = torch.where(validity, self.lengths.index_select(0, idx),
+                                  torch.zeros_like(self.lengths))
+            return DeviceColumn(self.dtype, data, validity, lengths)
+        return DeviceColumn(self.dtype, data, validity)
+
     def with_validity(self, validity: torch.Tensor) -> "DeviceColumn":
         """The same column under ``validity``, data of new nulls zeroed."""
         lengths = None

@@ -7,16 +7,17 @@ from spark_rapids_tpu_torch.ops.base import (
     DeviceToHostExec, Exec, ExecContext, HostToDeviceExec,
     InMemorySourceExec)
 from spark_rapids_tpu_torch.ops.basic import (
-    CoalescePartitionsExec, FilterExec, GlobalLimitExec, LocalLimitExec,
-    ProjectExec)
+    CoalescePartitionsExec, ExpandExec, FilterExec, GlobalLimitExec,
+    LocalLimitExec, ProjectExec)
 from spark_rapids_tpu_torch.ops.join import BroadcastHashJoinExec
 from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
+from spark_rapids_tpu_torch.ops.window import WindowExec
 
 __all__ = [
     "AggSpec", "Average", "BroadcastHashJoinExec", "CoalescePartitionsExec",
     "Count", "CountStar", "DeviceToHostExec", "Exec", "ExecContext",
-    "FilterExec", "GlobalLimitExec", "HashAggregateExec",
+    "ExpandExec", "FilterExec", "GlobalLimitExec", "HashAggregateExec",
     "HostToDeviceExec", "InMemorySourceExec",
     "LocalLimitExec", "Max", "Min", "ProjectExec", "SortExec", "SortOrder",
-    "Sum",
+    "Sum", "WindowExec",
 ]

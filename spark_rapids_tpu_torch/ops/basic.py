@@ -1,8 +1,9 @@
 """Basic physical operators (port of the JAX package's ``ops/basic.py``:
 ``ProjectExec``, ``FilterExec``, ``CoalescePartitionsExec``,
-``LocalLimitExec``, ``GlobalLimitExec``), each with its device half and
-its numpy host half. The reference's host closure cache is not ported:
-the host halves evaluate their expressions directly on every batch."""
+``LocalLimitExec``, ``GlobalLimitExec``, ``ExpandExec``), each with its
+device half and its numpy host half. The reference's host closure cache
+is not ported: the host halves evaluate their expressions directly on
+every batch."""
 
 from __future__ import annotations
 
@@ -165,3 +166,37 @@ class GlobalLimitExec(Exec):
     def execute_host(self, ctx, partition):
         inner = LocalLimitExec(self.children[0], self.limit)
         yield from inner.execute_host(ctx, partition)
+
+
+class ExpandExec(Exec):
+    """GROUPING SETS expansion (GpuExpandExec.scala): each input batch is
+    emitted once per projection list. An aggregated-out key is a typed
+    NULL ``Literal``, which broadcasts to an all-NULL column (strings
+    included)."""
+
+    def __init__(self, child: Exec,
+                 projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str]):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        self.names = tuple(names)
+
+    @property
+    def schema(self) -> Schema:
+        return tuple((n, e.data_type())
+                     for n, e in zip(self.names, self.projections[0]))
+
+    def execute_device(self, ctx, partition):
+        m = ctx.metrics_for(self)
+        for batch in self.children[0].execute_device(ctx, partition):
+            for proj in self.projections:
+                with timed(m):
+                    out = eval_exprs(proj, batch)
+                out.rows_hint = batch.rows_hint
+                record_batch(m, out)
+                yield out
+
+    def execute_host(self, ctx, partition):
+        for hb in self.children[0].execute_host(ctx, partition):
+            for proj in self.projections:
+                yield eval_exprs_host(proj, hb, self.names)

@@ -1,6 +1,6 @@
 """Logical plans and the untyped column DSL (port of the JAX package's
 ``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q9, q12, q14 and
-q19 and TPCxBB q5 use).
+q19, TPCxBB q5 and the TPC-DS-like q67, q3, q42, q55, q89 and q98 use).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -8,10 +8,12 @@ and picks the port's typed expression classes (exprs/*), the analog of
 Catalyst analysis feeding GpuOverrides.
 
 ``resolve`` maps the kinds the port has an expression for; any other kind
-raises ``NotPortedError`` (a ``ResolutionError``) naming it. The reference's
-other DSL functions and nodes (windows, generate, union, range,
-repartition, file scans, pandas) come with the slices that port their
-operators.
+raises ``NotPortedError`` (a ``ResolutionError``) naming it. Window
+expressions (``Column.over`` a ``Window`` spec) never resolve: the
+DataFrame layer extracts them into ``LogicalWindow`` nodes, as the
+reference does. The reference's other DSL functions and nodes (generate,
+union, range, repartition, file scans, pandas) come with the slices that
+port their operators.
 """
 
 from __future__ import annotations
@@ -132,6 +134,12 @@ class Column:
     def desc(self) -> "Column":
         return Column(("sortorder", self, False, False))
 
+    def over(self, window: "WindowDef") -> "Column":
+        """Evaluate this aggregate or window function over a window
+        (pyspark ``Column.over``)."""
+        assert isinstance(window, WindowDef), "over() takes a Window spec"
+        return Column(("window", self, window))
+
     @property
     def name_hint(self) -> str:
         n = self.node
@@ -148,6 +156,19 @@ def col(name: str) -> Column:
 
 def lit_col(value) -> Column:
     return Column(("lit", value))
+
+
+def canonical_node(c):
+    """Hashable structural key for a Column AST (every non-child
+    constructor argument kept), for deciding whether two unresolved
+    expressions are the same expression."""
+    if isinstance(c, Column):
+        return ("col",) + tuple(canonical_node(p) for p in c.node)
+    if isinstance(c, tuple):
+        return tuple(canonical_node(p) for p in c)
+    if isinstance(c, (list, dict, set)):
+        return repr(c)
+    return c
 
 
 def _as_col(v) -> Column:
@@ -210,6 +231,99 @@ def agg_avg(c) -> Column:
 
 
 # ---------------------------------------------------------------------------
+# Window DSL (the pyspark Window analog)
+# ---------------------------------------------------------------------------
+
+class WindowDef:
+    """A window specification: partitioning, ordering, and an optional
+    ROWS frame. Built via the ``Window`` builder, consumed by
+    ``Column.over``."""
+
+    def __init__(self, partition_cols=(), order_cols=(), frame=None):
+        self.partition_cols = tuple(partition_cols)
+        self.order_cols = tuple(order_cols)
+        self.frame = frame          # None | ("rows", start, end)
+
+    def partition_by(self, *cols) -> "WindowDef":
+        return WindowDef(tuple(_name_or_col(c) for c in cols),
+                         self.order_cols, self.frame)
+
+    partitionBy = partition_by
+
+    def order_by(self, *cols) -> "WindowDef":
+        return WindowDef(self.partition_cols,
+                         tuple(_name_or_col(c) for c in cols), self.frame)
+
+    orderBy = order_by
+
+    def rows_between(self, start, end) -> "WindowDef":
+        """ROWS frame: ``start``/``end`` are row offsets relative to the
+        current row (negative = preceding); ``Window.unboundedPreceding``
+        / ``unboundedFollowing`` for unbounded ends."""
+        return WindowDef(self.partition_cols, self.order_cols,
+                         ("rows", start, end))
+
+    rowsBetween = rows_between
+
+
+def _name_or_col(c) -> Column:
+    """Strings name COLUMNS here (pyspark Window semantics), unlike the
+    value-literal convention of expression operands."""
+    return col(c) if isinstance(c, str) else c
+
+
+class _WindowBuilder:
+    """Entry point mirroring ``pyspark.sql.Window``."""
+
+    unboundedPreceding = None
+    unboundedFollowing = None
+    currentRow = 0
+
+    @staticmethod
+    def partition_by(*cols) -> WindowDef:
+        return WindowDef().partition_by(*cols)
+
+    partitionBy = partition_by
+
+    @staticmethod
+    def order_by(*cols) -> WindowDef:
+        return WindowDef().order_by(*cols)
+
+    orderBy = order_by
+
+
+Window = _WindowBuilder
+
+
+def row_number() -> Column:
+    return Column(("winfn", "row_number", None, 0))
+
+
+def rank() -> Column:
+    return Column(("winfn", "rank", None, 0))
+
+
+def dense_rank() -> Column:
+    return Column(("winfn", "dense_rank", None, 0))
+
+
+def lead(c, offset: int = 1) -> Column:
+    return Column(("winfn", "lead", _as_col(c), offset))
+
+
+def lag(c, offset: int = 1) -> Column:
+    return Column(("winfn", "lag", _as_col(c), offset))
+
+
+def is_window_column(c: Column) -> bool:
+    """True when ``c`` is a window expression (possibly aliased)."""
+    node = c.node
+    while node[0] == "alias":
+        node = node[1].node
+    return node[0] == "window"
+
+
+# ---------------------------------------------------------------------------
 # Expression resolution (name -> ordinal, untyped -> typed)
 # ---------------------------------------------------------------------------
 
@@ -236,6 +350,9 @@ _DATE_PART = {"year": E.Year, "month": E.Month, "dayofmonth": E.DayOfMonth}
 PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
                          | set(_DATE_PART))
+# The window kinds: ported, but never resolved as expressions (the
+# DataFrame layer extracts them into ``LogicalWindow`` nodes).
+WINDOW_KINDS = frozenset({"window", "winfn"})
 
 
 def resolve(c: Column, schema: Schema) -> Expression:
@@ -281,6 +398,9 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return _DATE_PART[kind](rec(node[1]))
     if kind == "sortorder":
         raise ResolutionError("sort order only valid in orderBy")
+    if kind in WINDOW_KINDS:
+        raise ResolutionError("window functions are only valid in "
+                              "select/with_column")
     raise NotPortedError(f"expression {kind} is not ported")
 
 
@@ -384,8 +504,8 @@ class LogicalAggregate(_Unary):
         super().__init__(child)
         self.group_by = list(group_by)
         self.aggregates = list(aggregates)
-        # None = plain GROUP BY; "rollup"/"cube" are grouping sets, which
-        # the port's planner refuses (ExpandExec is not ported).
+        # None = plain GROUP BY; "rollup"/"cube" lower through ExpandExec
+        # (GROUPING SETS).
         assert grouping in (None, "rollup", "cube")
         self.grouping = grouping
 
@@ -399,6 +519,50 @@ class LogicalAggregate(_Unary):
             fn = resolve_agg(c, self.child.schema)
             out.append((name, fn.result_type))
         return tuple(out)
+
+
+class LogicalWindow(_Unary):
+    """Appends window-expression columns sharing ONE window spec: the
+    DataFrame layer extracts window columns out of select/with_column into
+    a chain of these nodes; the planner merges adjacent nodes with the
+    same spec and puts the co-locating exchange underneath."""
+
+    def __init__(self, child, exprs, window: WindowDef):
+        super().__init__(child)
+        self.exprs = list(exprs)        # [(out_name, fn_col Column)]
+        self.window = window
+
+    def spec_key(self):
+        """Hashable structural identity of the window spec, for merging
+        adjacent nodes that partition and sort identically."""
+        return (tuple(canonical_node(c) for c in self.window.partition_cols),
+                tuple(canonical_node(c) for c in self.window.order_cols),
+                self.window.frame)
+
+    def result_type(self, fn_col: Column) -> DataType:
+        node = fn_col.node
+        if node[0] == "winfn":
+            kind = node[1]
+            if kind in ("row_number", "rank", "dense_rank"):
+                return dt.INT32
+            return resolve(node[2], self.child.schema).data_type()
+        if node[0] == "agg":
+            kind = node[1]
+            if kind == "count":
+                return dt.INT64
+            if kind == "avg":
+                return dt.FLOAT64
+            t = resolve(node[2], self.child.schema).data_type()
+            if kind == "sum":
+                return dt.FLOAT64 if t.is_floating else dt.INT64
+            return t
+        raise ResolutionError(
+            f"unsupported window function {node[0]!r}")
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return tuple(self.child.schema) + tuple(
+            (n, self.result_type(c)) for n, c in self.exprs)
 
 
 class LogicalSort(_Unary):

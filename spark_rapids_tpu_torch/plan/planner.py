@@ -12,20 +12,24 @@
   the reasons) name what it cannot run on either engine: a kind or node
   it has no class for ("... is not ported"), an exchange into more than
   one partition (``spark.rapids.sql.shuffle.partitions`` > 1), a full
-  outer join, a join without keys, DISTINCT and grouping-set aggregates,
-  join keys that are not column references. ``Planner.plan`` refuses such
-  a plan with ``NotImplementedError`` listing every such node.
+  outer join, a join without keys, DISTINCT aggregates, a window
+  function it has no class for, join keys that are not column
+  references. ``Planner.plan`` refuses such a plan with
+  ``NotImplementedError`` listing every such node.
 - Conversion emits the port's execs at one partition, each on its node's
   engine, with ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a
   child on the other engine where the reference bridges (``_bridge``).
   Every exchange the reference plans (SinglePartitioning under a limit or
-  a zero-key aggregate, HashPartitioning between partial and final
-  aggregates, RangePartitioning under a sort) becomes
-  ``CoalescePartitionsExec(child, 1)`` above the bridge, so it runs on
-  its parent's engine. A join whose auto strategy comes out ``shuffle``
-  becomes a ``BroadcastHashJoinExec`` over both sides coalesced to one
-  partition: a shuffled hash join of one partition a side is a hash join
-  of the two whole sides.
+  a zero-key aggregate or an unpartitioned window, HashPartitioning
+  between partial and final aggregates and under a partitioned window,
+  RangePartitioning under a sort) becomes ``CoalescePartitionsExec(child,
+  1)`` above the bridge, so it runs on its parent's engine. A join whose
+  auto strategy comes out ``shuffle`` becomes a ``BroadcastHashJoinExec``
+  over both sides coalesced to one partition: a shuffled hash join of one
+  partition a side is a hash join of the two whole sides.
+- ROLLUP and CUBE lower to ``ExpandExec`` under the two-stage aggregate
+  keyed by the grouping id; adjacent windows of one spec merge before
+  conversion (``merge_windows``).
 - The host engine runs only the nodes tagged for the reference's
   reasons: a failing device operator raises, and is never rerun there.
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
@@ -35,23 +39,26 @@
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
-from spark_rapids_tpu_torch.exprs.base import BoundReference
+from spark_rapids_tpu_torch.columnar import dtypes as dt
+from spark_rapids_tpu_torch.exprs.base import BoundReference, Literal
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, CoalescePartitionsExec, Count,
-    CountStar, DeviceToHostExec, Exec, ExecContext, FilterExec,
+    CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec, FilterExec,
     GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
     InMemorySourceExec, LocalLimitExec, Max, Min, ProjectExec, SortExec,
-    SortOrder, Sum)
+    SortOrder, Sum, WindowExec)
+from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import (
     Column, LogicalPlan, NotPortedError, ResolutionError, resolve)
 from spark_rapids_tpu_torch.plan.pruning import (
-    estimate_bytes, prune_columns, pushdown_filters)
+    estimate_bytes, prune_columns, pushdown_filters, refs_of)
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +82,8 @@ _IMPROVED_FLOAT_EXPRS = {
 # (count of no column is CountStar).
 _AGGS = {"count": Count, "sum": Sum, "min": Min, "max": Max,
          "avg": Average}
+# The window functions ``_convert_window`` maps onto ops/window.py.
+_WINDOW_FNS = {"row_number", "rank", "dense_rank", "lead", "lag"}
 
 
 def _expr_conf_key(kind: str) -> str:
@@ -104,7 +113,8 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
         reasons.append(
             f"expression {kind} can round differently from java.lang.Math "
             "on TPU; enable spark.rapids.sql.improvedFloatOps.enabled")
-    if kind not in L.PORTED_KINDS and kind != "sortorder":
+    if kind not in L.PORTED_KINDS and kind not in L.WINDOW_KINDS and \
+            kind != "sortorder":
         _port_reason(reasons, port_reasons,
                      f"expression {kind} is not ported")
     for x in c.node[1:]:
@@ -188,7 +198,8 @@ class NodeMeta:
 
 
 _NODES = (L.InMemoryScan, L.LogicalFilter, L.LogicalProject,
-          L.LogicalAggregate, L.LogicalSort, L.LogicalLimit, L.LogicalJoin)
+          L.LogicalAggregate, L.LogicalSort, L.LogicalLimit, L.LogicalJoin,
+          L.LogicalWindow)
 
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
@@ -223,9 +234,6 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
             elif ac.node[1] not in _AGGS:
                 _port_reason(reasons, ours,
                              f"aggregate {ac.node[1]} is not ported")
-        if plan.grouping is not None:
-            _port_reason(reasons, ours, f"grouping sets ({plan.grouping}) "
-                         "are not ported")
     elif isinstance(plan, L.LogicalSort):
         for o in plan.orders:
             tag_column(o.node[1] if o.node[0] == "sortorder" else o, conf,
@@ -253,7 +261,49 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
                for k in plan.left_keys + plan.right_keys):
             _port_reason(reasons, ours, "join keys that are not column "
                          "references are not ported")
+    elif isinstance(plan, L.LogicalWindow):
+        for c in plan.window.partition_cols:
+            tag_column(c, conf, reasons, ours)
+        for o in plan.window.order_cols:
+            inner = o.node[1] if o.node[0] == "sortorder" else o
+            tag_column(inner, conf, reasons, ours)
+        for _, fn_col in plan.exprs:
+            node = fn_col.node
+            if len(node) > 2 and isinstance(node[2], Column):
+                tag_column(node[2], conf, reasons, ours)
+            known = _WINDOW_FNS if node[0] == "winfn" else \
+                set(_AGGS) if node[0] == "agg" else set()
+            if node[1] not in known:
+                _port_reason(reasons, ours, f"window function {node[0]} "
+                             f"{node[1]} is not ported")
     return meta
+
+
+def merge_windows(plan: LogicalPlan) -> LogicalPlan:
+    """Collapse chains of LogicalWindow nodes with the SAME window spec
+    into one multi-expression node: each node plans an exchange and a
+    partition sort, so N window columns over one spec would otherwise
+    sort N times (Spark's ExtractWindowExpressions groups the same way
+    before planning one Window operator)."""
+    kids = [merge_windows(c) for c in plan.children]
+    if not all(a is b for a, b in zip(kids, plan.children)):
+        plan = copy.copy(plan)
+        plan.children = tuple(kids)
+    if isinstance(plan, L.LogicalWindow) and \
+            isinstance(plan.child, L.LogicalWindow) and \
+            plan.spec_key() == plan.child.spec_key():
+        inner = plan.child
+        # Only merge when the outer expressions don't read the inner
+        # node's outputs (a window fn over another window's result must
+        # stay a separate pass).
+        refs: set = set()
+        for _, fn_col in plan.exprs:
+            refs_of(fn_col, refs)
+        if not refs & {n for n, _ in inner.exprs}:
+            return merge_windows(L.LogicalWindow(
+                inner.child, list(inner.exprs) + list(plan.exprs),
+                inner.window))
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +403,7 @@ class Planner:
     # -- public --------------------------------------------------------------
     def plan(self, logical: LogicalPlan) -> PhysicalPlan:
         try:
-            logical = pushdown_filters(prune_columns(logical))
+            logical = pushdown_filters(prune_columns(merge_windows(logical)))
         except NotPortedError:
             # Pruning reads join sides' schemas; a plan holding a kind the
             # port cannot resolve is refused by the tagging below.
@@ -397,13 +447,16 @@ class Planner:
 
     def _tag_exchanges(self, meta: NodeMeta):
         """Refuse every node that would plan an exchange into more than
-        one partition: keyed aggregates, sorts and shuffled joins."""
+        one partition: keyed aggregates, sorts, partitioned windows and
+        shuffled joins."""
         n = self._shuffle_partitions()
         if n > 1:
             for m in _walk(meta):
                 plan = m.plan
                 if (isinstance(plan, L.LogicalAggregate) and plan.group_by) \
                         or isinstance(plan, L.LogicalSort) or \
+                        (isinstance(plan, L.LogicalWindow)
+                         and plan.window.partition_cols) or \
                         (isinstance(plan, L.LogicalJoin) and plan.left_keys
                          and self._join_strategy(plan)[0] == "shuffle"):
                     _port_reason(m.reasons, m.port_reasons,
@@ -455,21 +508,62 @@ class Planner:
             # The reference's range exchange under a global sort, at one
             # partition.
             return SortExec(CoalescePartitionsExec(child, 1),
-                            self._sort_orders(plan)), want_dev
+                            _orders(plan.orders, plan.child.schema)), want_dev
         if isinstance(plan, L.LogicalAggregate):
             return self._convert_aggregate(plan, child), want_dev
+        if isinstance(plan, L.LogicalWindow):
+            return self._convert_window(plan, child), want_dev
         raise NotImplementedError(f"cannot convert {plan.name}")
 
-    def _sort_orders(self, plan: L.LogicalSort) -> List[SortOrder]:
-        orders = []
-        for o in plan.orders:
-            if o.node[0] == "sortorder":
-                inner, asc, nf = o.node[1], o.node[2], o.node[3]
-            else:
-                inner, asc, nf = o, True, True
-            orders.append(SortOrder(resolve(inner, plan.child.schema),
-                                    asc, nf))
-        return orders
+    def _convert_window(self, plan: L.LogicalWindow, child: Exec) -> Exec:
+        """``WindowExec`` over its required distribution (the reference's
+        hash exchange on the PARTITION BY keys, or a single partition for
+        none), which is one partition here; ordering happens inside the
+        window's frame sort."""
+        schema = plan.child.schema
+        win = plan.window
+        pcols = [resolve(c, schema) for c in win.partition_cols]
+        orders = _orders(win.order_cols, schema)
+        spec = W.WindowSpec(pcols, orders)
+        wx_specs = []
+        for out_name, fn_col in plan.exprs:
+            node = fn_col.node
+            if node[0] == "winfn":
+                kind, child_col, offset = node[1], node[2], node[3]
+                if kind in ("rank", "dense_rank", "row_number") \
+                        and not orders:
+                    raise ResolutionError(f"{kind}() requires ORDER BY")
+                if kind == "row_number":
+                    fn = W.RowNumber()
+                elif kind == "rank":
+                    fn = W.Rank()
+                elif kind == "dense_rank":
+                    fn = W.DenseRank()
+                elif kind == "lead":
+                    fn = W.Lead(resolve(child_col, schema), offset)
+                else:
+                    fn = W.Lag(resolve(child_col, schema), offset)
+            else:   # ("agg", kind, child)
+                kind, child_col = node[1], node[2]
+                agg_child = None if child_col is None \
+                    else resolve(child_col, schema)
+                if win.frame is not None:
+                    _, start, end = win.frame
+                    if (start is not None and start > 0) or \
+                            (end is not None and end < 0):
+                        raise ResolutionError(
+                            "rows_between bounds must straddle the "
+                            "current row")
+                    frame = W.WindowFrame(
+                        None if start is None else -start, end)
+                elif orders:
+                    # Spark's default: RANGE UNBOUNDED..CURRENT ROW.
+                    frame = W.WindowFrame(None, 0, running_with_peers=True)
+                else:
+                    frame = W.WindowFrame(None, None)   # whole partition
+                fn = W.WindowAgg(kind, agg_child, frame)
+            wx_specs.append(W.WindowExprSpec(out_name, fn, spec))
+        return WindowExec(CoalescePartitionsExec(child, 1), wx_specs)
 
     def _convert_aggregate(self, plan: L.LogicalAggregate,
                            child: Exec) -> Exec:
@@ -477,7 +571,60 @@ class Planner:
         group_by = [(n, resolve(c, schema)) for n, c in plan.group_by]
         aggs = [AggSpec(n, resolve_agg(c, schema))
                 for n, c in plan.aggregates]
+        if plan.grouping is not None:
+            return self._convert_grouping_sets(plan.grouping, group_by,
+                                               aggs, child)
         return self._two_stage(group_by, aggs, child)
+
+    def _convert_grouping_sets(self, kind: str, group_by, aggs,
+                               child: Exec) -> Exec:
+        """ROLLUP/CUBE via ExpandExec (Spark lowers grouping sets to
+        Expand + Aggregate keyed by (keys..., grouping id)): each input
+        row is emitted once per grouping set, with aggregated-out keys
+        NULLed and a grouping-id literal so a data NULL never merges with
+        a subtotal NULL. A final projection drops the grouping id."""
+        nk = len(group_by)
+        if kind == "rollup":
+            # Set i keeps the first nk-i keys; gid bit per dropped key.
+            masks = [(1 << i) - 1 for i in range(nk + 1)]
+        else:
+            masks = list(range(1 << nk))
+        agg_children = [s.fn.child for s in aggs]
+        names = [n for n, _ in group_by] + \
+            [f"__agg_in{i}" for i in range(len(agg_children))] + \
+            ["__grouping_id"]
+        projections = []
+        for mask in masks:
+            proj = []
+            for i, (_, e) in enumerate(group_by):
+                dropped = mask & (1 << (nk - 1 - i)) if kind == "cube" \
+                    else (i >= nk - bin(mask).count("1"))
+                proj.append(Literal(e.data_type(), None) if dropped else e)
+            for ce in agg_children:
+                proj.append(ce if ce is not None
+                            else Literal(dt.INT32, 1))
+            proj.append(Literal(dt.INT64, mask))
+            projections.append(proj)
+        expand = ExpandExec(child, projections, names)
+        # Re-key everything by ordinal over the expand output.
+        ex_group = [(n, BoundReference(i, e.data_type()))
+                    for i, (n, e) in enumerate(group_by)]
+        ex_group.append(("__grouping_id", BoundReference(
+            nk + len(agg_children), dt.INT64)))
+        ex_aggs = []
+        for i, s in enumerate(aggs):
+            if s.fn.child is None:
+                ex_aggs.append(s)
+                continue
+            ref = BoundReference(nk + i, s.fn.child.data_type())
+            ex_aggs.append(AggSpec(s.name, type(s.fn)(ref)))
+        final = self._two_stage(ex_group, ex_aggs, expand)
+        # Drop the grouping id from the output.
+        out = [(n, BoundReference(i, e.data_type()))
+               for i, (n, e) in enumerate(ex_group[:nk])]
+        out += [(s.name, BoundReference(nk + 1 + i, s.fn.result_type))
+                for i, s in enumerate(ex_aggs)]
+        return ProjectExec(final, out)
 
     def _two_stage(self, group_by, aggs, child: Exec) -> Exec:
         """partial -> exchange -> final; the exchange (hash on the keys,
@@ -511,6 +658,19 @@ class Planner:
             rch = CoalescePartitionsExec(rch, 1)
         return BroadcastHashJoinExec(lch, rch, lkeys, rkeys, plan.join_type,
                                      cond)
+
+
+def _orders(orders, schema) -> List[SortOrder]:
+    """Resolved sort orders of ``sortorder`` (or bare, ascending nulls
+    first) Columns."""
+    out = []
+    for o in orders:
+        if o.node[0] == "sortorder":
+            inner, asc, nf = o.node[1], o.node[2], o.node[3]
+        else:
+            inner, asc, nf = o, True, True
+        out.append(SortOrder(resolve(inner, schema), asc, nf))
+    return out
 
 
 def _walk(meta: NodeMeta):

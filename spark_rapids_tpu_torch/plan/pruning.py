@@ -77,7 +77,8 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
                         total += c.num_rows * max(c.dtype.itemsize, 8)
         return total
     if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit,
-                         L.LogicalAggregate, L.LogicalProject)):
+                         L.LogicalAggregate, L.LogicalProject,
+                         L.LogicalWindow)):
         return estimate_bytes(plan.child)
     if isinstance(plan, L.LogicalJoin):
         sizes = [estimate_bytes(c) for c in plan.children]
@@ -119,6 +120,21 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]]) -> LogicalPlan:
         return L.LogicalAggregate(_prune(plan.child, child_req),
                                   plan.group_by, plan.aggregates,
                                   grouping=plan.grouping)
+    if isinstance(plan, L.LogicalWindow):
+        child_req = None
+        if required is not None:
+            child_req = set(required) - {n for n, _ in plan.exprs}
+            for c in plan.window.partition_cols:
+                refs_of(c, child_req)
+            for o in plan.window.order_cols:
+                inner = o.node[1] if o.node[0] == "sortorder" else o
+                refs_of(inner, child_req)
+            for _, fn_col in plan.exprs:
+                node = fn_col.node
+                if len(node) > 2 and isinstance(node[2], Column):
+                    refs_of(node[2], child_req)
+        return L.LogicalWindow(_prune(plan.child, child_req),
+                               plan.exprs, plan.window)
     if isinstance(plan, L.LogicalSort):
         child_req = None
         if required is not None:

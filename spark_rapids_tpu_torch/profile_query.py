@@ -1,4 +1,4 @@
-"""Where the time of a TPC-H query goes on the card.
+"""Where the time of a TPC-H or suite query goes on the card.
 
     python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|...]
         [--codec v2|v1|plain] [--scale 1.0] [--partitions 8]
@@ -8,7 +8,8 @@ Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
 ``tpch_q4_plan``, over the generator's partitions) ``.collect()``, or with
 ``--dataframe`` the exec tree the planner builds from ``benchmarks/tpch.py``
 (q1-q9, q12, q14, q19, ``variableFloatAgg`` on, over ``tpch_tables``) or
-``benchmarks/suites.py`` (``xbb_q5`` over ``suite_tables``), on the
+``benchmarks/suites.py`` (xbb_q5, q67, ds_q3, ds_q42, ds_q55, ds_q89 and
+ds_q98 over ``suite_tables``), on the
 CUDA card under the wire codec ``--codec`` (default v2): one warm-up run
 (the sources pack their batches there and keep them), then host-clock
 times of the upload alone (split into a fresh host encode + pack of every
@@ -78,7 +79,7 @@ def main() -> int:
                               True})
         if args.query in suites.QUERIES:
             dfs = suites.suite_tables(session, suites.suite_columns(
-                args.scale))[args.query]
+                args.scale), (args.query,))[args.query]
             query = suites.QUERIES[args.query]
         else:
             cols = entry.tpch_columns(args.scale, seed=0)

@@ -34,8 +34,9 @@ rounds of CUDA-event means over 200 back-to-back calls each; one JSON
 line.
 
 With ``--dataframe`` it times TPC-H q1-q6 (or the ``--queries`` named:
-any of q1-q9, q12, q14, q19 and TPCxBB ``xbb_q5`` at scale 1) through the
-DataFrame front end
+any query of the tree's ``benchmarks/tpch.py`` ``QUERIES`` at SF1 or of
+its ``benchmarks/suites.py`` ``QUERIES`` at scale 1, such as
+``xbb_q5,q67,ds_q89``) through the DataFrame front end
 (``TpuSession`` with ``variableFloatAgg`` on, ``benchmarks/tpch.py`` over
 ``tpch_tables``) beside the hand-built trees of q1-q4 (``entry``), under
 the default codec, in this one process: for each query the planning time
@@ -217,6 +218,10 @@ def main() -> int:
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.config import TpuConf
     from spark_rapids_tpu_torch.ops import ExecContext, cuda_build
+    unknown = [q for q in queries if q not in _known_queries()]
+    if unknown:
+        ap.error(f"--queries: {unknown} not in this tree's tpch.QUERIES or "
+                 f"suites.QUERIES ({sorted(_known_queries())})")
     if not torch.cuda.is_available():
         raise RuntimeError("wall_compare needs a CUDA device")
     label = args.label or tree
@@ -291,18 +296,35 @@ def _rows_close(a: list, b: list) -> bool:
         for ra, rb in zip(a, b))
 
 
+def _known_queries() -> set:
+    """The query names of the imported tree's TPC-H and suite modules."""
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    known = set(tpch.QUERIES)
+    try:
+        from spark_rapids_tpu_torch.benchmarks import suites
+    except ImportError:         # a tree older than the suites
+        return known
+    return known | set(suites.QUERIES)
+
+
 def _query_tables(session, cols: dict, queries) -> tuple:
     """(query -> function, query -> table -> DataFrame) of ``queries``:
-    TPC-H ones over ``cols``, TPCxBB ones over the scale-1 suite."""
+    TPC-H ones over ``cols``, the suites' ones over their scale-1
+    data."""
+    import inspect
     from spark_rapids_tpu_torch.benchmarks import tpch
     tq = tuple(q for q in queries if q in tpch.QUERIES)
     # A tree older than the ``queries`` argument builds every query.
     tables = tpch.tpch_tables(session, cols) if tq == DATAFRAME_QUERIES \
         else tpch.tpch_tables(session, cols, tq)
     funcs = dict(tpch.QUERIES)
-    if len(tq) < len(queries):
+    sq = tuple(q for q in queries if q not in tpch.QUERIES)
+    if sq:
         from spark_rapids_tpu_torch.benchmarks import suites
-        tables.update(suites.suite_tables(session, suites.suite_columns(1.0)))
+        args = (session, suites.suite_columns(1.0))
+        if "queries" in inspect.signature(suites.suite_tables).parameters:
+            args += (sq,)
+        tables.update(suites.suite_tables(*args))
         funcs.update(suites.QUERIES)
     return funcs, tables
 

@@ -11,8 +11,9 @@ api.dataframe against the JAX package's, on the CPU.
   "not ported" reasons are set aside.
 - ``Planner.plan`` refuses with ``NotImplementedError`` naming every
   node the port cannot run on either engine, with its reasons: kinds it
-  has not ported, exchanges into more than one partition, full outer and
-  keyless joins, DISTINCT and grouping-set aggregates, join keys that are
+  has not ported, exchanges into more than one partition (a partitioned
+  window's too), full outer and keyless joins, DISTINCT aggregates (under
+  a ROLLUP too), window functions it has not ported, join keys that are
   not columns. A node tagged only for the reference's reasons (a float
   aggregate under the default conf, a disabled exec) runs on the host
   engine instead and gives the reference's rows; test mode asserts on it
@@ -228,11 +229,23 @@ def _refusals(session):
                 df._plan, [("s", c("s"))],
                 [("n", L.Column(("aggd", "count", c("a"))))])), {},
             [("LogicalAggregate", "DISTINCT aggregate count is not ported")]),
+        # Grouping sets are planned (ExpandExec); a DISTINCT aggregate
+        # under one is still refused.
         "grouping_sets": (
             DataFrame(session, L.LogicalAggregate(
-                df._plan, [("s", c("s"))], [("n", L.agg_count())],
+                df._plan, [("s", c("s"))],
+                [("n", L.Column(("aggd", "count", c("a"))))],
                 grouping="rollup")), {},
-            [("LogicalAggregate", "grouping sets (rollup) are not ported")]),
+            [("LogicalAggregate", "DISTINCT aggregate count is not ported")]),
+        "unported_window_function": (
+            df.with_column("x", L.Column(("agg", "first", c("a"), True))
+                           .over(L.Window.partition_by("s"))), {},
+            [("LogicalWindow", "window function agg first is not ported")]),
+        "multi_partition_window": (
+            df.with_column("r", L.rank().over(
+                L.Window.partition_by("s").order_by("a"))),
+            {"spark.rapids.sql.shuffle.partitions": 4},
+            [("LogicalWindow", "an exchange into 4 partitions")]),
         "computed_join_key": (
             df.join_on(other, [c("a") + 1], ["b"]), {},
             [("LogicalJoin", "join keys that are not column references are "
