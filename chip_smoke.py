@@ -147,11 +147,28 @@ Phases (each raises on failure; any failure exits non-zero):
    of a shape no earlier phase checked must equal the kernel's plain
    version bit for bit; the largest new K1 shape is timed against its
    plain version and ``torch.sort``. The phase's time is printed.
-15. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+15. COUNT DISTINCT and LIKE: TPCxBB xbb_q12 (scale 1: distinct
+   non-NULL users per category over the 4,000,000 clickstream rows) and
+   TPC-H q10, q13, q16, q17, q18 and q21 (SF1) through ``TpuSession`` and
+   the reference's query text, once with ``variableFloatAgg`` on and once
+   under the default conf (the float Sum/Avg aggregates of q10, q17 and
+   q18 on the host engine; COUNT, COUNT DISTINCT and the joins on the
+   card). For each run: host nodes and bridges (checked), rows and bytes
+   downloaded, the first run (counters around it alone, every K1-K4
+   launch recorded) and two warm runs, each checked against a numpy
+   oracle in this file (keys, counts and order exact, floats to rtol
+   1e-9; q10 as a set, as the reference compares it; the LIKE patterns
+   of q13 and q16 evaluated by Python's ``re`` over the comment pools),
+   and the peak device memory of the warm runs. K1 must launch in every
+   run but q17 under the default conf, K3 in q13's left join and q21's
+   self-joins, whose builds repeat keys. Each K1-K4 launch of a shape no
+   earlier phase checked must equal the kernel's plain version bit for
+   bit. The phase's time is printed.
+16. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
-   fourteen runs and phase 14's twelve), its error against the plain
-   version, its
+   fourteen runs, phase 14's twelve and phase 15's fourteen), its error
+   against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -2119,6 +2136,265 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: COUNT DISTINCT and LIKE (TPCxBB xbb_q12; TPC-H q10, q13, q16,
+# q17, q18 and q21) under both confs
+# ---------------------------------------------------------------------------
+
+def _like_pool(pool, pattern: str) -> np.ndarray:
+    """Which entries of a string pool match a LIKE pattern of ``%`` and
+    ``_`` (no escapes), by Python's ``re``."""
+    import re
+    rx = re.compile("(?s)^" + "".join(
+        ".*" if ch == "%" else "." if ch == "_" else re.escape(ch)
+        for ch in pattern) + "$")
+    return np.array([rx.match(v) is not None for v in pool])
+
+
+def q10_oracle(cols: dict, E) -> list:
+    """TPC-H Q10 in plain numpy: returned-item revenue per customer of
+    the orders of 1993Q4, the top 20 as (c_custkey, c_name, revenue,
+    c_acctbal, n_name, c_address, c_phone, c_comment); a set (near-equal
+    revenues may swap, as the reference's ``_SET_COMPARE`` allows)."""
+    o, li, c = cols["orders"], cols["lineitem"], cols["customer"]
+    om = (o["o_orderdate"] >= E.days("1993-10-01")) & \
+        (o["o_orderdate"] < E.days("1994-01-01"))
+    lm = (li["l_returnflag"] == ord("R")) & om[li["l_orderkey"] - 1]
+    cust = o["o_custkey"][li["l_orderkey"][lm] - 1]
+    rev = li["l_extendedprice"][lm] * (1.0 - li["l_discount"][lm])
+    keys, inv = np.unique(cust, return_inverse=True)
+    revenue = np.bincount(inv.reshape(-1), weights=rev)
+    top = np.argsort(-revenue, kind="stable")[:20]
+    ci = keys[top] - 1
+    names, phones = _strings(c["c_name"][ci]), _strings(c["c_phone"][ci])
+    nations = [nm for nm, _ in E.NATIONS]
+    return [(int(keys[t]), names[i], float(revenue[t]),
+             float(c["c_acctbal"][ci[i]]),
+             nations[int(c["c_nationkey"][ci[i]])],
+             E.O_COMMENTS[int(c["c_address"][ci[i]])], phones[i],
+             E.O_COMMENTS[int(c["c_comment"][ci[i]])])
+            for i, t in enumerate(top)]
+
+
+def q13_oracle(cols: dict, E) -> list:
+    """TPC-H Q13 in plain numpy: for each count of non-'special requests'
+    orders a customer has (0 for a customer with none: the left join's
+    NULL is not counted), how many customers have it; by custdist desc,
+    c_count desc."""
+    o, c = cols["orders"], cols["customer"]
+    keep = ~_like_pool(E.O_COMMENTS, "%special%requests%")[o["o_comment"]]
+    n_cust = len(c["c_custkey"])
+    c_count = np.bincount(o["o_custkey"][keep], minlength=n_cust + 1)[
+        c["c_custkey"]]
+    counts, custdist = np.unique(c_count, return_counts=True)
+    order = np.lexsort((-counts, -custdist))
+    return [(int(counts[i]), int(custdist[i])) for i in order]
+
+
+def q16_oracle(cols: dict, E) -> list:
+    """TPC-H Q16 in plain numpy: distinct suppliers without complaints
+    per (p_brand, p_type, p_size) of the chosen parts; by supplier_cnt
+    desc, then brand, type and size."""
+    p, ps, s = cols["part"], cols["partsupp"], cols["supplier"]
+    bad = _like_pool(E.S_COMMENTS, "%Customer%Complaints%")[s["s_comment"]]
+    brands, types = _strings(p["p_brand"]), _strings(p["p_type"])
+    sizes = {49, 14, 23, 45, 19, 3, 36, 9}
+    ok = np.array([b != "Brand#45" and not t.startswith("MEDIUM POLISHED")
+                   and int(z) in sizes
+                   for b, t, z in zip(brands, types, p["p_size"])])
+    psm = ok[ps["ps_partkey"] - 1] & ~bad[ps["ps_suppkey"] - 1]
+    groups: dict = {}
+    for pk, sk in zip(ps["ps_partkey"][psm].tolist(),
+                      ps["ps_suppkey"][psm].tolist()):
+        i = pk - 1
+        groups.setdefault((brands[i], types[i], int(p["p_size"][i])),
+                          set()).add(sk)
+    rows = [k + (len(v),) for k, v in groups.items()]
+    rows.sort(key=lambda r: (-r[3], r[0], r[1], r[2]))
+    return rows
+
+
+def q17_oracle(cols: dict, E) -> list:
+    """TPC-H Q17 in plain numpy: the yearly loss of the Brand#23 / MED BOX
+    lines below a fifth of their part's average quantity (NULL when no
+    line is)."""
+    p, li = cols["part"], cols["lineitem"]
+    pm = _matrix_rows(p["p_brand"], "Brand#23") & \
+        _matrix_rows(p["p_container"], "MED BOX")
+    lm = pm[li["l_partkey"] - 1]
+    pk, qty = li["l_partkey"][lm], li["l_quantity"][lm]
+    keys, inv = np.unique(pk, return_inverse=True)
+    inv = inv.reshape(-1)
+    avg = np.bincount(inv, weights=qty) / np.bincount(inv)
+    small = qty < avg[inv] * 0.2
+    if not small.any():
+        return [(None,)]            # SUM of no rows is NULL
+    return [(float(li["l_extendedprice"][lm][small].sum()) / 7.0,)]
+
+
+def q18_oracle(cols: dict, E) -> list:
+    """TPC-H Q18 in plain numpy: the orders whose lines hold more than 300
+    units, as (c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+    sum_qty), by o_totalprice desc, o_orderdate, top 100."""
+    o, li, c = cols["orders"], cols["lineitem"], cols["customer"]
+    qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"])
+    big = np.flatnonzero(qty > 300.0)
+    oi = big - 1
+    order = np.lexsort((o["o_orderdate"][oi], -o["o_totalprice"][oi]))
+    oi = oi[order][:100]
+    ci = o["o_custkey"][oi] - 1
+    names = _strings(c["c_name"][ci])
+    return [(names[i], int(c["c_custkey"][ci[i]]),
+             int(o["o_orderkey"][k]), int(o["o_orderdate"][k]),
+             float(o["o_totalprice"][k]), float(qty[o["o_orderkey"][k]]))
+            for i, k in enumerate(oi)]
+
+
+def q21_oracle(cols: dict, E) -> list:
+    """TPC-H Q21 in plain numpy: late lines of SAUDI ARABIA suppliers in
+    fulfilled orders where another supplier shipped too and none of the
+    others was late, counted per supplier; by numwait desc, s_name."""
+    o, li, s = cols["orders"], cols["lineitem"], cols["supplier"]
+    saudi = [nm for nm, _ in E.NATIONS].index("SAUDI ARABIA")
+    key, supp = li["l_orderkey"], li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    # Lines are contiguous per order: one segment each.
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    seg = np.cumsum(np.r_[True, key[1:] != key[:-1]]) - 1
+    big = np.iinfo(np.int64).max
+    lo = np.minimum.reduceat(supp, starts)[seg]
+    hi = np.maximum.reduceat(supp, starts)[seg]
+    late_lo = np.minimum.reduceat(np.where(late, supp, big), starts)[seg]
+    late_hi = np.maximum.reduceat(np.where(late, supp, -1), starts)[seg]
+    other = (lo != supp) | (hi != supp)
+    other_late = (late_lo != supp) | (late_hi != supp)
+    ok = late & (o["o_orderstatus"][key - 1] == ord("F")) & other & \
+        ~other_late & (s["s_nationkey"][supp - 1] == saudi)
+    counts = np.bincount(supp[ok], minlength=len(s["s_suppkey"]) + 1)
+    names = _strings(s["s_name"])
+    rows = [(names[k - 1], int(counts[k])) for k in np.flatnonzero(counts)]
+    rows.sort(key=lambda r: (-r[1], r[0]))
+    return rows[:100]
+
+
+def xbb_q12_oracle(cols: dict, S) -> list:
+    """TPCxBB q12 in plain numpy: distinct non-NULL users per item
+    category, by category."""
+    w, it = cols["web_clickstreams"], cols["item"]
+    user = w["wcs_user_sk"]
+    ok = ~np.ma.getmaskarray(user)
+    cat = it["i_category"][w["wcs_item_sk"][ok] - 1]
+    pairs = np.unique(np.stack([cat, np.ma.getdata(user)[ok]], axis=1),
+                      axis=0)
+    counts = np.bincount(pairs[:, 0], minlength=len(S.CATEGORIES))
+    return sorted((S.CATEGORIES[i], int(n)) for i, n in enumerate(counts)
+                  if n)
+
+
+DISTINCT_TPCH = ("q10", "q13", "q16", "q17", "q18", "q21")
+DISTINCT_QUERIES = ("xbb_q12",) + DISTINCT_TPCH
+# Under the default conf the float Sum/Avg aggregates run on the host
+# engine: q10's revenue sum, q17's average and sum, q18's two quantity
+# sums. COUNT and COUNT DISTINCT stay on the card.
+DISTINCT_DEFAULT_HOST = {"xbb_q12": [], "q10": ["LogicalAggregate"],
+                         "q13": [], "q16": [],
+                         "q17": ["LogicalAggregate", "LogicalAggregate"],
+                         "q18": ["LogicalAggregate", "LogicalAggregate"],
+                         "q21": []}
+# Each query's group-by or sort on the card launches K1 under both confs,
+# except q17 under the default conf, whose two aggregates are on the host
+# and which has no sort; q13's left join and q21's self-joins probe builds
+# with repeated keys (K3).
+DISTINCT_MUST_LAUNCH = {
+    (q, c): () if (q, c) == ("q17", "default") else
+    ("radix_sort", "join_probe") if q in ("q13", "q21") else ("radix_sort",)
+    for q in DISTINCT_QUERIES for c in ("vfa", "default")}
+DISTINCT_WARM_RUNS = 2
+
+
+def distinct_oracles(cols: dict, xcols: dict, E, S) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-15 query; q10
+    as a set of rows."""
+    out = {"xbb_q12": ((lambda rows, want: check_rows(
+        "xbb_q12", rows, want)), xbb_q12_oracle(xcols, S))}
+    for q in DISTINCT_TPCH:
+        out[q] = ((lambda q: lambda rows, want: check_rows(
+            q, rows, want, multiset=q == "q10"))(q),
+            globals()[f"{q}_oracle"](cols, E))
+    return out
+
+
+def distinct_queries_phase(native, cols: dict, known_seen: list,
+                           known_k1: set) -> dict:
+    """TPCxBB xbb_q12 (scale 1) and TPC-H q10, q13, q16, q17, q18 and q21
+    (SF1) through ``TpuSession()`` on the card, once with
+    ``variableFloatAgg`` on and once under the default conf. For each
+    run: the plan's host nodes and bridges, the rows and bytes each
+    ``DeviceToHostExec`` downloads, the first run (launch counters around
+    it alone, every K1-K4 launch recorded) checked against its numpy
+    oracle and the kernels it must launch, ``DISTINCT_WARM_RUNS`` warm
+    runs, each checked, and the peak device memory of the warm runs.
+    Every K1-K4 launch of a shape no earlier phase checked is held to the
+    kernel's plain version bit for bit."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import suites as S
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    t_phase = time.perf_counter()
+    xcols = S.suite_columns(1.0, seed=0)
+    oracles = distinct_oracles(cols, xcols, E, S)
+    log(f"phase 15: oracles in {time.perf_counter() - t_phase:.2f} s")
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": []}
+    for conf_name, conf in (("vfa", {
+            "spark.rapids.sql.variableFloatAgg.enabled": True}),
+            ("default", {})):
+        session = TpuSession(conf)
+        tables = dict(tpch.tpch_tables(session, cols, DISTINCT_TPCH),
+                      **S.suite_tables(session, xcols, ("xbb_q12",)))
+        for q in DISTINCT_QUERIES:
+            check, want = oracles[q]
+            run = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
+            t0 = time.perf_counter()
+            phys = run(session, tables[q])._physical()
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            label = f"{q} ({conf_name})"
+            r = run_checked(native, label, phys, check, want,
+                            DISTINCT_DEFAULT_HOST[q]
+                            if conf_name == "default" else [],
+                            DISTINCT_MUST_LAUNCH[q, conf_name], known_seen,
+                            known_k1)
+            known_seen.append(r["seen"])
+            known_k1 |= {c["shape"] for c in r["checks"]
+                         if c["kernel"] == "radix_sort"}
+            out["kernel_checks"] += r["checks"]
+            warm = []
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for _ in range(DISTINCT_WARM_RUNS):
+                t0 = time.perf_counter()
+                rows = phys.collect(ExecContext(phys.conf))
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+                check(rows, want)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
+                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
+                f"warm {[round(w, 4) for w in warm]} s, peak device memory "
+                f"in the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f}"
+                f" GiB held before them); launches {r['launches']}")
+            out[(q, conf_name)] = dict(
+                plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
+                launches=r["launches"], moved=r["moved"],
+                hosted=r["hosted"], peak_bytes=peak, held_bytes=held)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: kernel K4 (the wire codec's RLE decode) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2432,11 +2708,19 @@ def main() -> int:
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
 
-    # Phase 15: the kernels line
+    # Phase 15: TPCxBB xbb_q12 and TPC-H q10, q13, q16, q17, q18, q21,
+    # both confs
+    dq = distinct_queries_phase(native, cols, joins["seen"] + [q2["seen"]]
+                                + [df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1)
+
+    # Phase 16: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
         ds[(q, c)]["launches"] for c in ("vfa", "default")
-        for q in DS_QUERIES)
+        for q in DS_QUERIES) + tuple(
+        dq[(q, c)]["launches"] for c in ("vfa", "default")
+        for q in DISTINCT_QUERIES)
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -2475,7 +2759,10 @@ def main() -> int:
                     for c in ("vfa", "default") for q in MORE_QUERIES)
         + "; phase 14 "
         + ", ".join(f"{q} ({c}) {ds[(q, c)]['launches']}"
-                    for c in ("vfa", "default") for q in DS_QUERIES))
+                    for c in ("vfa", "default") for q in DS_QUERIES)
+        + "; phase 15 "
+        + ", ".join(f"{q} ({c}) {dq[(q, c)]['launches']}"
+                    for c in ("vfa", "default") for q in DISTINCT_QUERIES))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """The TPC-DS-like and TPCxBB-like queries through the port's DataFrame
 API (port of the JAX package's ``benchmarks/suites.py``: its generator's
-stream and the query bodies of q67, xbb_q5, ds_q3, ds_q42, ds_q89, ds_q55
-and ds_q98).
+stream and the query bodies of q67, xbb_q5, ds_q3, ds_q42, ds_q89, ds_q55,
+ds_q98 and xbb_q12).
 
 ``suite_columns(scale, seed)`` replays the reference generator
 (``suites.generate``) draw for draw, numpy over one ``default_rng(seed)``
@@ -21,9 +21,10 @@ the reference's scan pruning keeps, each table in the reference's files
     tables = suite_tables(session, suite_columns(1.0))
     rows = q67(session, tables["q67"]).collect()
 
-xbb_q5's sums are integer (Sum of an INT32 CASE), so it stays on the card
-under every conf; the TPC-DS queries sum float prices, so under the
-default conf their aggregates run on the host engine. The prices and
+xbb_q5's sums are integer (Sum of an INT32 CASE) and xbb_q12 counts
+distinct users, so both stay on the card under every conf; the TPC-DS
+queries sum float prices, so under the default conf their aggregates run
+on the host engine. The prices and
 quantities are whole numbers, so every sum is exact on both engines.
 """
 
@@ -180,6 +181,11 @@ SCANS = {
         "customer_demographics": (("cd_demo_sk", dt.INT64),
                                   ("cd_gender", dt.STRING),
                                   ("cd_education_status", dt.STRING)),
+    },
+    "xbb_q12": {
+        "web_clickstreams": (("wcs_user_sk", dt.INT64),
+                             ("wcs_item_sk", dt.INT64)),
+        "item": (_ITEM_SK, ("i_category", dt.STRING)),
     },
 }
 
@@ -363,7 +369,21 @@ def ds_q98(session, tables: dict):
         .order_by(col("i_category").asc(), col("i_class").asc())
 
 
-# The reference's suite minus ``repart`` (the exchange) and ``xbb_q12``
-# (COUNT DISTINCT), which are not ported.
+def xbb_q12(session, tables: dict):
+    """TPCxBB q12-like: distinct browsing users per category (COUNT
+    DISTINCT through the partial/merge distinct pipeline)."""
+    from spark_rapids_tpu_torch.plan.logical import agg_count_distinct, col
+    wcs = _read(session, tables, "web_clickstreams") \
+        .filter(col("wcs_user_sk").isNotNull())
+    it = _read(session, tables, "item")
+    return wcs.join_on(it, ["wcs_item_sk"], ["i_item_sk"]) \
+        .group_by("i_category") \
+        .agg(agg_count_distinct(col("wcs_user_sk")).alias("users")) \
+        .order_by(col("i_category").asc())
+
+
+# The reference's suite minus ``repart`` (the exchange), which is not
+# ported.
 QUERIES = {"q67": q67, "xbb_q5": xbb_q5, "ds_q3": ds_q3, "ds_q42": ds_q42,
-           "ds_q89": ds_q89, "ds_q55": ds_q55, "ds_q98": ds_q98}
+           "ds_q89": ds_q89, "ds_q55": ds_q55, "ds_q98": ds_q98,
+           "xbb_q12": xbb_q12}

@@ -1,11 +1,12 @@
-"""TPC-H q1-q9, q12, q14 and q19 through the port's DataFrame API (port
-of the JAX package's ``benchmarks/tpch.py`` query bodies).
+"""TPC-H q1-q10, q12-q14, q16-q19 and q21 through the port's DataFrame
+API (port of the JAX package's ``benchmarks/tpch.py`` query bodies).
 
 The query bodies ``q1``, ``q6``, ``q3``, ``q5``, ``q2``, ``q4``, ``q7``,
-``q8``, ``q9``, ``q12``, ``q14`` and ``q19`` are the reference's, line for
-line. Only ``_read`` differs: the reference reads
-parquet (through pyarrow, which the port does not use); here a query reads
-its tables from a ``tables`` dict of DataFrames. ``tpch_tables`` builds
+``q8``, ``q9``, ``q10``, ``q12``, ``q13``, ``q14``, ``q16``, ``q17``,
+``q18``, ``q19`` and ``q21`` are the reference's, line for line. Only
+``_read`` differs: the reference reads parquet (through pyarrow, which
+the port does not use); here a query reads its tables from a ``tables``
+dict of DataFrames. ``tpch_tables`` builds
 those from ``entry.tpch_columns`` (the reference generator's rows, draw
 for draw) as in-memory scans, one per table a query reads, holding exactly
 the columns the query reads (the columns the reference's scan pruning
@@ -16,7 +17,7 @@ keeps), in ``entry.TABLE_PARTITIONS`` partitions.
     rows = q1(session, tables["q1"]).collect()
 
 Under the default conf (``variableFloatAgg.enabled=false``) every float
-Sum/Avg aggregate (in q1, q3, q5, q6, q7, q8, q9, q14 and q19) is tagged
+Sum/Avg aggregate (in q1, q3, q5-q10, q14 and q17-q19) is tagged
 for the host and runs on the host engine between device subtrees, as in
 the reference; with
 ``{"spark.rapids.sql.variableFloatAgg.enabled": True}``, as the
@@ -57,6 +58,16 @@ SCANS = {
     "q12": {"lineitem": E.Q12_LINEITEM, "orders": E.Q12_ORDERS},
     "q14": {"lineitem": E.Q14_LINEITEM, "part": E.Q14_PART},
     "q19": {"lineitem": E.Q19_LINEITEM, "part": E.Q19_PART},
+    "q10": {"lineitem": E.Q10_LINEITEM, "orders": E.Q10_ORDERS,
+            "customer": E.Q10_CUSTOMER, "nation": E.Q10_NATION},
+    "q13": {"customer": E.Q13_CUSTOMER, "orders": E.Q13_ORDERS},
+    "q16": {"partsupp": E.Q16_PARTSUPP, "supplier": E.Q16_SUPPLIER,
+            "part": E.Q16_PART},
+    "q17": {"lineitem": E.Q17_LINEITEM, "part": E.Q17_PART},
+    "q18": {"lineitem": E.Q18_LINEITEM, "orders": E.Q18_ORDERS,
+            "customer": E.Q18_CUSTOMER},
+    "q21": {"lineitem": E.Q21_LINEITEM, "orders": E.Q21_ORDERS,
+            "supplier": E.Q21_SUPPLIER, "nation": E.Q21_NATION},
 }
 
 
@@ -392,6 +403,144 @@ def q19(session, tables: dict):
         .alias("revenue"))
 
 
+def q10(session, tables: dict):
+    """Returned-item reporting: top 20 customers by lost revenue."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col, lit_col
+    orders = _read(session, tables, "orders") \
+        .filter((col("o_orderdate") >= lit_col(days("1993-10-01")))
+                & (col("o_orderdate") < lit_col(days("1994-01-01")))) \
+        .select("o_orderkey", "o_custkey")
+    li = _read(session, tables, "lineitem") \
+        .filter(col("l_returnflag") == lit_col("R")) \
+        .select("l_orderkey", "l_extendedprice", "l_discount")
+    nat = _read(session, tables, "nation") \
+        .select("n_nationkey", "n_name")
+    cust = _read(session, tables, "customer") \
+        .join_on(nat, ["c_nationkey"], ["n_nationkey"]) \
+        .select("c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+                "c_address", "c_comment")
+    j = li.join_on(orders, ["l_orderkey"], ["o_orderkey"]) \
+        .join_on(cust, ["o_custkey"], ["c_custkey"]) \
+        .with_column("revenue",
+                     col("l_extendedprice") * (1.0 - col("l_discount")))
+    return j.group_by("c_custkey", "c_name", "c_acctbal", "c_phone",
+                      "n_name", "c_address", "c_comment") \
+        .agg(agg_sum(col("revenue")).alias("revenue")) \
+        .select("c_custkey", "c_name", "revenue", "c_acctbal", "n_name",
+                "c_address", "c_phone", "c_comment") \
+        .order_by(col("revenue").desc()).limit(20)
+
+def q13(session, tables: dict):
+    """Customer order-count distribution: filtered LEFT join + count(col)
+    (the filter only touches the right side, so it pre-applies)."""
+    from spark_rapids_tpu_torch.plan.logical import agg_count, col
+    o = _read(session, tables, "orders") \
+        .filter(~col("o_comment").like("%special%requests%")) \
+        .select("o_orderkey", "o_custkey")
+    c = _read(session, tables, "customer").select("c_custkey")
+    j = c.join_on(o, ["c_custkey"], ["o_custkey"], how="left")
+    counts = j.group_by("c_custkey").agg(
+        agg_count(col("o_orderkey")).alias("c_count"))
+    return counts.group_by("c_count").agg(
+        agg_count().alias("custdist")) \
+        .order_by(col("custdist").desc(), col("c_count").desc())
+
+def q16(session, tables: dict):
+    """Parts/supplier relationship: anti join on complaint suppliers +
+    count distinct."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_count_distinct, col, lit_col)
+    bad = _read(session, tables, "supplier") \
+        .filter(col("s_comment").like("%Customer%Complaints%")) \
+        .select("s_suppkey")
+    p = _read(session, tables, "part") \
+        .filter((col("p_brand") != lit_col("Brand#45"))
+                & ~col("p_type").startswith("MEDIUM POLISHED")
+                & col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9)) \
+        .select("p_partkey", "p_brand", "p_type", "p_size")
+    ps = _read(session, tables, "partsupp") \
+        .select("ps_partkey", "ps_suppkey") \
+        .join_on(bad, ["ps_suppkey"], ["s_suppkey"], how="anti")
+    j = ps.join_on(p, ["ps_partkey"], ["p_partkey"])
+    return j.group_by("p_brand", "p_type", "p_size").agg(
+        agg_count_distinct(col("ps_suppkey")).alias("supplier_cnt")) \
+        .order_by(col("supplier_cnt").desc(), col("p_brand").asc(),
+                  col("p_type").asc(), col("p_size").asc())
+
+def q17(session, tables: dict):
+    """Small-quantity-order revenue: correlated AVG as a grouped re-join."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_avg, agg_sum, col, lit_col)
+    p = _read(session, tables, "part") \
+        .filter((col("p_brand") == lit_col("Brand#23"))
+                & (col("p_container") == lit_col("MED BOX"))) \
+        .select("p_partkey")
+    li = _read(session, tables, "lineitem") \
+        .select("l_partkey", "l_quantity", "l_extendedprice")
+    lp = li.join_on(p, ["l_partkey"], ["p_partkey"])
+    lim = lp.group_by("l_partkey").agg(
+        agg_avg(col("l_quantity")).alias("avg_qty")) \
+        .select(col("l_partkey").alias("a_partkey"),
+                (col("avg_qty") * 0.2).alias("qty_limit"))
+    j = lp.join_on(lim, ["l_partkey"], ["a_partkey"]) \
+        .filter(col("l_quantity") < col("qty_limit"))
+    return j.agg(agg_sum(col("l_extendedprice")).alias("s")) \
+        .select((col("s") / 7.0).alias("avg_yearly"))
+
+def q18(session, tables: dict):
+    """Large-volume customers: HAVING sum(qty) > 300 as a semi join."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col
+    li = _read(session, tables, "lineitem") \
+        .select("l_orderkey", "l_quantity")
+    big = li.group_by("l_orderkey").agg(
+        agg_sum(col("l_quantity")).alias("sum_qty")) \
+        .filter(col("sum_qty") > 300.0) \
+        .select(col("l_orderkey").alias("b_orderkey"))
+    o = _read(session, tables, "orders") \
+        .select("o_orderkey", "o_custkey", "o_orderdate", "o_totalprice") \
+        .join_on(big, ["o_orderkey"], ["b_orderkey"], how="semi")
+    c = _read(session, tables, "customer").select("c_custkey", "c_name")
+    j = li.join_on(o, ["l_orderkey"], ["o_orderkey"]) \
+        .join_on(c, ["o_custkey"], ["c_custkey"])
+    return j.group_by("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                      "o_totalprice") \
+        .agg(agg_sum(col("l_quantity")).alias("sum_qty")) \
+        .order_by(col("o_totalprice").desc(), col("o_orderdate").asc()) \
+        .limit(100)
+
+def q21(session, tables: dict):
+    """Suppliers who kept orders waiting: EXISTS/NOT-EXISTS self joins
+    with a different-supplier condition."""
+    from spark_rapids_tpu_torch.plan.logical import agg_count, col, lit_col
+    nat = _read(session, tables, "nation") \
+        .filter(col("n_name") == lit_col("SAUDI ARABIA")) \
+        .select("n_nationkey")
+    supp = _read(session, tables, "supplier") \
+        .join_on(nat, ["s_nationkey"], ["n_nationkey"]) \
+        .select("s_suppkey", "s_name")
+    o = _read(session, tables, "orders") \
+        .filter(col("o_orderstatus") == lit_col("F")).select("o_orderkey")
+    l1 = _read(session, tables, "lineitem") \
+        .filter(col("l_receiptdate") > col("l_commitdate")) \
+        .select("l_orderkey", "l_suppkey") \
+        .join_on(o, ["l_orderkey"], ["o_orderkey"], how="semi")
+    l2 = _read(session, tables, "lineitem") \
+        .select(col("l_orderkey").alias("l2_orderkey"),
+                col("l_suppkey").alias("l2_suppkey"))
+    l3 = _read(session, tables, "lineitem") \
+        .filter(col("l_receiptdate") > col("l_commitdate")) \
+        .select(col("l_orderkey").alias("l3_orderkey"),
+                col("l_suppkey").alias("l3_suppkey"))
+    j = l1.join_on(l2, ["l_orderkey"], ["l2_orderkey"], how="semi",
+                   condition=col("l2_suppkey") != col("l_suppkey")) \
+        .join_on(l3, ["l_orderkey"], ["l3_orderkey"], how="anti",
+                 condition=col("l3_suppkey") != col("l_suppkey")) \
+        .join_on(supp, ["l_suppkey"], ["s_suppkey"])
+    return j.group_by("s_name").agg(agg_count().alias("numwait")) \
+        .order_by(col("numwait").desc(), col("s_name").asc()).limit(100)
+
+
 QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
-           "q7": q7, "q8": q8, "q9": q9, "q12": q12, "q14": q14,
-           "q19": q19}
+           "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q12": q12,
+           "q13": q13, "q14": q14, "q16": q16, "q17": q17, "q18": q18,
+           "q19": q19, "q21": q21}

@@ -128,7 +128,7 @@ Q1_SHIPDATE_CUTOFF = days("1998-09-02")
 # The generator's string pools that the ported queries read, in its order
 # (the JAX package's ``benchmarks/tpch.py`` PRIORITIES, SEGMENTS,
 # SHIPMODES, SHIPINSTRUCT, P_WORDS, P_TYPE_1..3, P_CONTAINER_1..2,
-# S_COMMENTS, NATIONS and REGIONS).
+# O_COMMENTS, S_COMMENTS, NATIONS and REGIONS).
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
 SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
@@ -153,6 +153,17 @@ P_TYPE_2 = ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
 P_TYPE_3 = ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")
 P_CONTAINER_1 = ("SM", "LG", "MED", "JUMBO", "WRAP")
 P_CONTAINER_2 = ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM")
+# A few match q13's NOT LIKE '%special%requests%' and q16's
+# '%Customer%Complaints%'.
+O_COMMENTS = (
+    "carefully final deposits haggle", "quickly ironic packages wake",
+    "furiously regular accounts sleep", "pending theodolites nag idly",
+    "slyly even instructions boost", "blithely bold pinto beans detect",
+    "ironic foxes above the accounts", "express waters cajole carefully",
+    "silent requests along the pains", "unusual deposits engage daringly",
+    "regular ideas use furiously", "enticing platelets among the ideas",
+    "special packages wake slyly requests",
+    "special pinto beans use quickly regular requests")
 S_COMMENTS = (
     "blithely regular packages boost", "carefully silent foxes detect",
     "quickly final deposits about the ideas", "furiously even pearls wake",
@@ -169,9 +180,6 @@ NATIONS = (
     ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
     ("UNITED KINGDOM", 3), ("UNITED STATES", 1))
 REGIONS = ("AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST")
-# Size of its other ``pick`` pool: only how many values a draw may take
-# matters to the random stream.
-_N_O_COMMENTS = 14
 
 
 def _pool_matrix(pool) -> tuple:
@@ -208,33 +216,39 @@ def _concat_strings(*pieces) -> np.ndarray:
 
 
 def tpch_columns(scale: float, seed: int = 0) -> dict:
-    """The columns TPC-H q1-q9, q12, q14 and q19 read, as numpy arrays
-    per table
+    """The columns TPC-H q1-q10, q12-q14, q16-q19 and q21 read, as numpy
+    arrays per table
     (``{"lineitem": {...}, "orders": {...}, "customer": {...}, "part":
     {...}, "partsupp": {...}, "supplier": {...}, "nation": {...},
     "region": {...}}``): the JAX package's TPC-H generator
     (``benchmarks/tpch.py`` ``generate``), drawing its whole random stream
     in its order, so ``seed`` and ``scale`` give its rows. String columns
-    are one of three forms: ``l_returnflag`` and ``l_linestatus`` are
-    (n,) uint8 character codes; the columns of ``_STRING_POOLS`` are codes
-    into a pool; built strings (``p_name``, ``p_mfgr``, ``p_brand``,
-    ``p_type``, ``p_container``, ``s_name``, ``s_phone``) are zero-padded
-    (n, w) uint8 matrices."""
+    are one of three forms: ``l_returnflag``, ``l_linestatus`` and
+    ``o_orderstatus`` are (n,) uint8 character codes; the columns of
+    ``_STRING_POOLS`` are codes into a pool; built strings (``p_name``,
+    ``p_mfgr``, ``p_brand``, ``p_type``, ``p_container``, ``s_name``,
+    ``s_phone``, ``c_name``, ``c_phone``) are zero-padded (n, w) uint8
+    matrices."""
     rng = np.random.default_rng(seed)
     n_ord = max(int(1_500_000 * scale), 10)
     n_cust = max(int(150_000 * scale), 5)
     n_supp = max(int(10_000 * scale), 3)
     n_part = max(int(200_000 * scale), 8)
+    # Orders before it are fulfilled ("F"), lines received by it returned
+    # or accepted, lines shipped after it open.
+    cutoff = days("1995-06-17")
     # ORDERS: custkey, orderdate, status coin, totalprice, priority, comment.
     o_orderkey = np.arange(1, n_ord + 1, dtype=np.int64)
     o_custkey = rng.integers(1, max(n_cust * 2 // 3, 2), n_ord,
                              dtype=np.int64)
     o_orderdate = rng.integers(days("1992-01-01"), days("1998-08-02"),
                                n_ord, dtype=np.int64).astype(np.int32)
-    rng.integers(0, 2, n_ord)
-    rng.uniform(900.0, 500_000.0, n_ord)
+    coin = rng.integers(0, 2, n_ord)
+    o_orderstatus = np.where(o_orderdate < cutoff, ord("F"),
+                             np.where(coin == 0, ord("O"), ord("P")))
+    o_totalprice = np.round(rng.uniform(900.0, 500_000.0, n_ord), 2)
     o_orderpriority = rng.integers(0, len(PRIORITIES), n_ord)
-    rng.integers(0, _N_O_COMMENTS, n_ord)
+    o_comment = rng.integers(0, len(O_COMMENTS), n_ord)
     # LINEITEM: 1..7 lines per order.
     per_order = rng.integers(1, 8, n_ord)
     l_orderkey = np.repeat(o_orderkey, per_order)
@@ -250,7 +264,6 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
                     + rng.integers(30, 91, n_li)).astype(np.int32)
     l_receiptdate = (l_shipdate.astype(np.int64)
                      + rng.integers(1, 31, n_li)).astype(np.int32)
-    cutoff = days("1995-06-17")
     ra = rng.integers(0, 2, n_li)
     returnflag = np.where(l_receiptdate <= cutoff,
                           np.where(ra == 0, ord("A"), ord("R")), ord("N"))
@@ -287,16 +300,19 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
     ps_suppkey = ((ps_partkey + ps_i * (n_supp // 4 + 1)) % n_supp) + 1
     ps_availqty = rng.integers(1, 10_000, 4 * n_part).astype(np.int32)
     ps_supplycost = np.round(rng.uniform(1.0, 1000.0, 4 * n_part), 2)
-    # CUSTOMER: nationkey, phone parts, market segment, account balance,
-    # address, comment.
+    # CUSTOMER: nationkey, phone parts (country code 10 + nationkey),
+    # market segment, account balance, address, comment.
     c_nationkey = rng.integers(0, 25, n_cust, dtype=np.int64)
-    rng.integers(100, 1000, n_cust)
-    rng.integers(100, 1000, n_cust)
-    rng.integers(1000, 10000, n_cust)
+    a, b, c = (rng.integers(lo, hi, n_cust) for lo, hi in
+               ((100, 1000), (100, 1000), (1000, 10000)))
+    c_phone = _concat_strings(_digits(10 + c_nationkey, 2), b"-",
+                              _digits(a, 3), b"-", _digits(b, 3), b"-",
+                              _digits(c, 4))
     c_mktsegment = rng.integers(0, len(SEGMENTS), n_cust)
     c_acctbal = np.round(rng.uniform(-999.99, 9999.99, n_cust), 2)
-    rng.integers(0, _N_O_COMMENTS, n_cust)
-    rng.integers(0, _N_O_COMMENTS, n_cust)
+    c_address = rng.integers(0, len(O_COMMENTS), n_cust)
+    c_comment = rng.integers(0, len(O_COMMENTS), n_cust)
+    c_custkey = np.arange(1, n_cust + 1, dtype=np.int64)
     # SUPPLIER: nationkey, phone parts (country code 10 + nationkey),
     # account balance, address, comment.
     s_nationkey = rng.integers(0, 25, n_supp, dtype=np.int64)
@@ -323,11 +339,15 @@ def tpch_columns(scale: float, seed: int = 0) -> dict:
             "o_orderkey": o_orderkey, "o_custkey": o_custkey,
             "o_orderdate": o_orderdate,
             "o_shippriority": np.zeros(n_ord, np.int32),
-            "o_orderpriority": o_orderpriority},
+            "o_totalprice": o_totalprice,
+            "o_orderstatus": o_orderstatus.astype(np.uint8),
+            "o_orderpriority": o_orderpriority, "o_comment": o_comment},
         "customer": {
-            "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+            "c_custkey": c_custkey,
+            "c_name": _concat_strings(b"Customer#", _digits(c_custkey, 9)),
             "c_nationkey": c_nationkey, "c_mktsegment": c_mktsegment,
-            "c_acctbal": c_acctbal},
+            "c_phone": c_phone, "c_acctbal": c_acctbal,
+            "c_address": c_address, "c_comment": c_comment},
         "part": {
             "p_partkey": p_partkey, "p_name": p_name,
             "p_mfgr": _concat_strings(b"Manufacturer#", _digits(brand_m, 1)),
@@ -363,7 +383,9 @@ def tpch_q1_columns(scale: float, seed: int = 0) -> dict:
 
 # String columns held as codes into a pool; the others are built (n, w)
 # matrices or uint8 character codes (one-byte strings).
-_STRING_POOLS = {"o_orderpriority": PRIORITIES, "c_mktsegment": SEGMENTS,
+_STRING_POOLS = {"o_orderpriority": PRIORITIES, "o_comment": O_COMMENTS,
+                 "c_address": O_COMMENTS, "c_comment": O_COMMENTS,
+                 "c_mktsegment": SEGMENTS,
                  "l_shipmode": SHIPMODES, "l_shipinstruct": SHIPINSTRUCT,
                  "s_address": S_COMMENTS, "s_comment": S_COMMENTS,
                  "n_name": tuple(n for n, _ in NATIONS), "r_name": REGIONS}
@@ -561,6 +583,38 @@ Q19_LINEITEM = (("l_partkey", dt.INT64), ("l_quantity", dt.FLOAT64),
                 ("l_shipmode", dt.STRING), ("l_shipinstruct", dt.STRING))
 Q19_PART = (("p_partkey", dt.INT64), ("p_brand", dt.STRING),
             ("p_size", dt.INT32), ("p_container", dt.STRING))
+
+# The scans of q10, q13, q16, q17, q18 and q21, chosen as those above.
+Q10_LINEITEM = (("l_orderkey", dt.INT64), ("l_extendedprice", dt.FLOAT64),
+                ("l_discount", dt.FLOAT64), ("l_returnflag", dt.STRING))
+Q10_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
+              ("o_orderdate", dt.DATE))
+Q10_CUSTOMER = (("c_custkey", dt.INT64), ("c_name", dt.STRING),
+                ("c_nationkey", dt.INT64), ("c_phone", dt.STRING),
+                ("c_acctbal", dt.FLOAT64), ("c_address", dt.STRING),
+                ("c_comment", dt.STRING))
+Q10_NATION = _NATION_NAMES
+Q13_CUSTOMER = (("c_custkey", dt.INT64),)
+Q13_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
+              ("o_comment", dt.STRING))
+Q16_PARTSUPP = (("ps_partkey", dt.INT64), ("ps_suppkey", dt.INT64))
+Q16_SUPPLIER = (("s_suppkey", dt.INT64), ("s_comment", dt.STRING))
+Q16_PART = (("p_partkey", dt.INT64), ("p_brand", dt.STRING),
+            ("p_type", dt.STRING), ("p_size", dt.INT32))
+Q17_LINEITEM = (("l_partkey", dt.INT64), ("l_quantity", dt.FLOAT64),
+                ("l_extendedprice", dt.FLOAT64))
+Q17_PART = (("p_partkey", dt.INT64), ("p_brand", dt.STRING),
+            ("p_container", dt.STRING))
+Q18_LINEITEM = (("l_orderkey", dt.INT64), ("l_quantity", dt.FLOAT64))
+Q18_ORDERS = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64),
+              ("o_orderdate", dt.DATE), ("o_totalprice", dt.FLOAT64))
+Q18_CUSTOMER = (("c_custkey", dt.INT64), ("c_name", dt.STRING))
+Q21_LINEITEM = (("l_orderkey", dt.INT64), ("l_suppkey", dt.INT64),
+                ("l_commitdate", dt.DATE), ("l_receiptdate", dt.DATE))
+Q21_ORDERS = (("o_orderkey", dt.INT64), ("o_orderstatus", dt.STRING))
+Q21_SUPPLIER = (("s_suppkey", dt.INT64), ("s_name", dt.STRING),
+                ("s_nationkey", dt.INT64))
+Q21_NATION = _NATION_NAMES
 
 
 def _tables(cols: dict, schemas: dict) -> dict:

@@ -12,13 +12,13 @@ from spark_rapids_tpu_torch.exprs.predicates import (
     And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, InSet,
     IsNotNull, IsNull, LessThan, LessThanOrEqual, Not, Or)
 from spark_rapids_tpu_torch.exprs.strings import (
-    Contains, EndsWith, StartsWith)
+    Contains, EndsWith, Like, StartsWith)
 
 __all__ = [
     "Add", "And", "BoundReference", "CaseWhen", "Coalesce", "Contains",
     "DayOfMonth", "Divide", "EndsWith", "EqualNullSafe",
     "EqualTo", "Expression", "GreaterThan", "GreaterThanOrEqual", "If",
     "InSet", "IsNotNull", "IsNull", "LessThan", "LessThanOrEqual",
-    "Literal", "Month", "Multiply", "Not", "Nvl", "Or", "Quarter", "Scalar",
+    "Like", "Literal", "Month", "Multiply", "Not", "Nvl", "Or", "Quarter", "Scalar",
     "StartsWith", "Subtract", "Year", "lit",
 ]

@@ -1,6 +1,6 @@
 """Hash aggregate (port of the JAX package's ``ops/aggregate.py``, cut to
-Count, CountStar, Sum, Average, Min and Max in modes partial, final and
-complete).
+Count, CountStar, Sum, Average, Min and Max in modes partial, final,
+complete, merge and mixed_final).
 
 Device algorithm per batch, as in the JAX package:
 
@@ -16,9 +16,19 @@ Device algorithm per batch, as in the JAX package:
   -> buffer batch [keys..., buffers...] at the group leaders
 
 Zero-key aggregates skip the sort: whole-batch masked reductions
-(``_global_stage``), except a string Min/Max, which groups its single
-group through the sorted path. First/Last and the partial-skip decision
-come in a later slice.
+(``_global_stage``), except a string Min/Max and the mixed_final stage,
+which group their single group through the sorted path. First/Last and
+the partial-skip decision come in a later slice.
+
+DISTINCT aggregates run as three execs (the planner's
+``_convert_distinct_aggregate``): a partial keyed by (keys..., x), a
+'merge' keyed by (keys..., x), which is 'final' without the result
+projection and leaves (keys, x) unique, and a 'mixed_final' keyed by the
+keys over the layout [keys..., x, other buffers...], whose DISTINCT
+specs (``AggSpec.distinct``) UPDATE over x while the others MERGE their
+buffers (``_mixed_batch``). The mixed stage reads the raw x column, which
+its own output no longer has, so it runs once, as the first stage of the
+consolidation; later levels are plain merges.
 
 Host algorithm (``execute_host``, numpy over the partition's host
 batches, as in the JAX package's host engine): one stable lexsort over
@@ -80,7 +90,12 @@ def _ones(capacity: int, like: torch.Tensor) -> torch.Tensor:
 class AggFunction:
     """One aggregate: an input expression plus its buffer layout, and
     either the masked value streams the cumsum path sums per group or its
-    own segmented update/merge."""
+    own segmented update/merge. The planner marks a DISTINCT one
+    (``is_distinct``, with ``distinct_key`` the structural key of its
+    unresolved input)."""
+
+    is_distinct = False
+    distinct_key = None
 
     def __init__(self, child: Optional[Expression]):
         self.child = child
@@ -445,10 +460,13 @@ class Max(Min):
 
 @dataclasses.dataclass
 class AggSpec:
-    """A named aggregate in the output (result column)."""
+    """A named aggregate in the output (result column). ``distinct`` is
+    read by the mixed_final mode: the function runs UPDATE over the
+    deduplicated distinct input instead of MERGE over partial buffers."""
 
     name: str
     fn: AggFunction
+    distinct: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +478,9 @@ class HashAggregateExec(Exec):
     - 'partial': emits [keys..., buffers...] for a downstream exchange
     - 'final': consumes partial buffers, emits finalized results
     - 'complete': update+merge+finalize in one node
+    - 'merge': 'final' without the result projection (emits buffers)
+    - 'mixed_final': the DISTINCT stage over [keys..., x, buffers...]:
+      distinct specs update over x, the others merge their buffers
     """
 
     _has_nans = True      # set from conf.hasNans in execute_device
@@ -472,7 +493,8 @@ class HashAggregateExec(Exec):
                  aggregates: Sequence[AggSpec],
                  mode: str = "complete"):
         super().__init__(child)
-        assert mode in ("partial", "final", "complete"), mode
+        assert mode in ("partial", "final", "complete", "merge",
+                        "mixed_final"), mode
         self.group_names = tuple(n for n, _ in group_by)
         self.group_exprs = [e for _, e in group_by]
         self.aggs = list(aggregates)
@@ -491,7 +513,7 @@ class HashAggregateExec(Exec):
 
     @property
     def schema(self) -> Schema:
-        if self.mode == "partial":
+        if self.mode in ("partial", "merge"):
             return self.buffer_schema
         cols = [(n, e.data_type())
                 for n, e in zip(self.group_names, self.group_exprs)]
@@ -667,12 +689,34 @@ class HashAggregateExec(Exec):
                                self._has_nans)
         return self._assemble(batch, g, bufs)
 
+    def _mixed_batch(self, batch: DeviceBatch) -> DeviceBatch:
+        """The DISTINCT stage: input [keys..., x, other buffers...] with
+        (keys, x) already unique, grouped by the keys only; distinct specs
+        update over x, the others merge their buffers. Emits the standard
+        buffer layout [keys..., all buffers...]."""
+        cap = batch.capacity
+        g, sorted_b, slive = self._group_sorted(batch)
+        x_ord = self._nkeys
+        ci = self._nkeys + 1            # the other buffers follow x
+        inputs = []
+        for spec in self.aggs:
+            if spec.distinct:
+                inputs.append(("update", self._sorted_view(sorted_b, x_ord)))
+            else:
+                nbuf = len(spec.fn.buffer_types)
+                inputs.append(("merge", [self._sorted_view(sorted_b, ci + b)
+                                         for b in range(nbuf)]))
+                ci += nbuf
+        bufs = self._run_specs(inputs, g.group_of_sorted, slive, cap)
+        return self._assemble(batch, g, bufs)
+
     # -- zero-key path --------------------------------------------------------
     @property
     def _global_ok(self) -> bool:
         """Zero grouping keys and every function reduces a whole batch
-        with masked reductions; a string Min/Max takes the sorted path."""
-        return self._nkeys == 0 and not any(
+        with masked reductions; a string Min/Max and the mixed_final
+        stage take the sorted path."""
+        return self._nkeys == 0 and self.mode != "mixed_final" and not any(
             isinstance(s.fn, Min) and s.fn.child.data_type().is_string
             for s in self.aggs)
 
@@ -748,8 +792,14 @@ class HashAggregateExec(Exec):
     def _consolidate(self, pending: List[DeviceBatch],
                      final_stage: bool = False) -> DeviceBatch:
         """Chunked tree of shrink + concat + merge over the pending list;
-        one batched row-count pull per level."""
-        first_stage = self._merge_batch if self.mode == "final" else None
+        one batched row-count pull per level. The first level of the
+        final, merge and mixed_final modes runs their stage over the
+        input; every later level merges. The mixed stage is safe over
+        chunks: its x values are unique rows, so chunk updates followed
+        by merges count each value once."""
+        first_stage = {"final": self._merge_batch,
+                       "merge": self._merge_batch,
+                       "mixed_final": self._mixed_batch}.get(self.mode)
         level = 0
         batches = pending
         while True:
@@ -774,7 +824,8 @@ class HashAggregateExec(Exec):
             if len(batches) == 1:
                 single = batches[0]
                 break
-        if final_stage and self.mode in ("final", "complete"):
+        if final_stage and self.mode in ("final", "complete",
+                                         "mixed_final"):
             single = self._finalize_batch(single)
         return single
 
@@ -805,8 +856,14 @@ class HashAggregateExec(Exec):
                 pending.append(batch)
         if self.mode == "partial":
             return
+        if self.mode == "mixed_final" and self._nkeys == 0 and pending:
+            # The reference's exchange serves no empty piece, so a zero-key
+            # mixed stage whose every input batch is empty has seen none.
+            pending, counts = shrink_all(pending)
+            pending = [b for b, c in zip(pending, counts) if c]
         if not pending:
-            if self._nkeys == 0:
+            if self._nkeys == 0 and self.mode in ("final", "complete",
+                                                  "mixed_final"):
                 yield self._empty_result(self.plan_device())
             return
         with timed(m):
@@ -819,8 +876,13 @@ class HashAggregateExec(Exec):
         hbs = list(self.children[0].execute_host(ctx, partition))
         out = self._host_exec_vectorized(hbs)
         if out is None:
-            out = self._execute_host_final(hbs) if self.mode == "final" \
-                else self._execute_host_rows(hbs)
+            if self.mode in ("final", "merge"):
+                out = self._execute_host_final(
+                    hbs, do_finalize=self.mode == "final")
+            elif self.mode == "mixed_final":
+                out = self._execute_host_mixed(hbs)
+            else:
+                out = self._execute_host_rows(hbs)
         yield out
 
     def _execute_host_rows(self, hbs) -> HostBatch:
@@ -861,9 +923,11 @@ class HashAggregateExec(Exec):
             rows = [tuple(vals)]
         return _rows_to_host_batch(rows, self.schema)
 
-    def _execute_host_final(self, hbs) -> HostBatch:
-        """The python-row path of the final mode: group buffer rows by
-        key, ``host_merge`` the buffer tuples, ``host_finalize``."""
+    def _execute_host_final(self, hbs, do_finalize: bool = True
+                            ) -> HostBatch:
+        """The python-row path of the final and merge modes: group buffer
+        rows by key, ``host_merge`` the buffer tuples, then
+        ``host_finalize`` them (final) or emit them (merge)."""
         key_evaluator = []
         buf_lists = []
         for hb in hbs:
@@ -883,9 +947,49 @@ class HashAggregateExec(Exec):
         for key in order:
             vals = list(key_values[key])
             for ai, spec in enumerate(self.aggs):
-                vals.append(spec.fn.host_finalize(
-                    spec.fn.host_merge(groups[key][ai])))
+                merged = spec.fn.host_merge(groups[key][ai])
+                if do_finalize:
+                    vals.append(spec.fn.host_finalize(merged))
+                else:
+                    vals.extend(merged)
             rows.append(tuple(vals))
+        return _rows_to_host_batch(rows, self.schema)
+
+    def _execute_host_mixed(self, hbs) -> HostBatch:
+        """The python-row path of the mixed_final mode: input rows are
+        unique by (keys, x); distinct specs aggregate the x values, the
+        others merge and finalize their buffers. A zero-key stage over no
+        rows gives one row (COUNT(DISTINCT) of nothing is 0)."""
+        key_evaluator = []
+        input_lists = []
+        x_ord = self._nkeys
+        for hb in hbs:
+            key_evaluator.append(list(hb.columns[:self._nkeys]))
+            xvals = hb.columns[x_ord].to_list()
+            ci = self._nkeys + 1
+            per_agg = []
+            for spec in self.aggs:
+                if spec.distinct:
+                    per_agg.append(xvals)
+                else:
+                    nbuf = len(spec.fn.buffer_types)
+                    cols = [hb.columns[ci + b].to_list()
+                            for b in range(nbuf)]
+                    per_agg.append(list(zip(*cols)) if cols else [])
+                    ci += nbuf
+            input_lists.append(per_agg)
+        order, key_values, groups = self._host_groups(hbs, key_evaluator,
+                                                      input_lists)
+
+        def result(spec, values):
+            if spec.distinct:
+                return spec.fn.host_agg(values)
+            return spec.fn.host_finalize(spec.fn.host_merge(values))
+        rows = [tuple(key_values[key]) + tuple(
+            result(spec, groups[key][ai])
+            for ai, spec in enumerate(self.aggs)) for key in order]
+        if not rows and self._nkeys == 0:
+            rows = [tuple(result(spec, []) for spec in self.aggs)]
         return _rows_to_host_batch(rows, self.schema)
 
     def _host_groups(self, hbs, key_evaluator, input_lists):
@@ -1095,9 +1199,9 @@ class HashAggregateExec(Exec):
 
     def _host_exec_vectorized(self, hbs) -> Optional[HostBatch]:
         """One vectorized pass for every mode (update or complete over
-        inputs, final over buffers), or None when the shape does not
-        qualify (empty input, a string Min/Max): the python-row path then
-        runs."""
+        inputs, merge or final over buffers, mixed_final over x and
+        buffers), or None when the shape does not qualify (empty input, a
+        string Min/Max): the python-row path then runs."""
         total = sum(hb.num_rows for hb in hbs)
         if total == 0:
             return None
@@ -1124,10 +1228,23 @@ class HashAggregateExec(Exec):
                     agg_inputs.append((kind, [concat_col(
                         [as_host_column(spec.fn.child.eval_host(hb), hb)
                          for hb in hbs])]))
-        else:
+        elif self.mode in ("final", "merge"):
             keysrc = [list(hb.columns[:self._nkeys]) for hb in hbs]
             ci = self._nkeys
             for spec in self.aggs:
+                nbuf = len(spec.fn.buffer_types)
+                agg_inputs.append((self.mode, [
+                    concat_col([hb.columns[ci + b] for hb in hbs])
+                    for b in range(nbuf)]))
+                ci += nbuf
+        else:                                   # mixed_final
+            keysrc = [list(hb.columns[:self._nkeys]) for hb in hbs]
+            xcol = concat_col([hb.columns[self._nkeys] for hb in hbs])
+            ci = self._nkeys + 1
+            for spec in self.aggs:
+                if spec.distinct:
+                    agg_inputs.append(("agg", [xcol]))
+                    continue
                 nbuf = len(spec.fn.buffer_types)
                 agg_inputs.append(("final", [
                     concat_col([hb.columns[ci + b] for hb in hbs])
@@ -1192,9 +1309,10 @@ def _host_seg_agg(fn: AggFunction, kind: str, cols, order_idx, starts,
                   ends) -> List[HostColumn]:
     """Every group of one aggregate over sorted segments, one reduceat
     per buffer: the numpy mirror of the function's python-row path.
-    ``kind``: 'agg' (complete result), 'update' (partial buffers) or
-    'final' (merge + finalize). ``cols`` holds the concatenated input
-    column (None for count(*)) or the buffer columns. Results come in
+    ``kind``: 'agg' (complete result), 'update' (partial buffers), 'merge'
+    (merged buffers, not finalized) or 'final' (merge + finalize).
+    ``cols`` holds the concatenated input column (None for count(*)) or
+    the buffer columns. Results come in
     sorted-group order (the caller permutes them into emission order).
     String Min/Max never gets here."""
     ngroups = len(starts)
@@ -1221,7 +1339,7 @@ def _host_seg_agg(fn: AggFunction, kind: str, cols, order_idx, starts,
     if isinstance(fn, CountStar) and kind in ("agg", "update"):
         return [HostColumn(dt.INT64, (ends - starts).astype(np.int64),
                            np.ones(ngroups, np.bool_))]
-    if isinstance(fn, Count):           # Count + CountStar final
+    if isinstance(fn, Count):           # Count + CountStar merge/final
         if kind in ("agg", "update"):
             data = cnt_of(v_of(cols[0]))
         else:

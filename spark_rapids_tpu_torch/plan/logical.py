@@ -1,6 +1,7 @@
 """Logical plans and the untyped column DSL (port of the JAX package's
-``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q9, q12, q14 and
-q19, TPCxBB q5 and the TPC-DS-like q67, q3, q42, q55, q89 and q98 use).
+``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q10, q12-q14,
+q16-q19 and q21, TPCxBB q5 and q12 and the TPC-DS-like q67, q3, q42, q55,
+q89 and q98 use).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -128,6 +129,9 @@ class Column:
     def contains(self, s: str) -> "Column":
         return Column(("contains", self, s))
 
+    def like(self, pattern: str) -> "Column":
+        return Column(("like", self, pattern))
+
     def asc(self) -> "Column":
         return Column(("sortorder", self, True, True))
 
@@ -228,6 +232,20 @@ def agg_max(c) -> Column:
 
 def agg_avg(c) -> Column:
     return Column(("agg", "avg", _as_col(c)))
+
+
+def agg_count_distinct(c) -> Column:
+    """count(DISTINCT c): the planner lowers it through the partial /
+    merge / mixed_final pipeline (dedup by (keys, c), then count)."""
+    return Column(("aggd", "count", _as_col(c)))
+
+
+def agg_sum_distinct(c) -> Column:
+    return Column(("aggd", "sum", _as_col(c)))
+
+
+def agg_avg_distinct(c) -> Column:
+    return Column(("aggd", "avg", _as_col(c)))
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +365,8 @@ _NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
            "contains": E.Contains}
 _DATE_PART = {"year": E.Year, "month": E.Month, "dayofmonth": E.DayOfMonth}
 # Every kind ``resolve`` maps onto a port expression.
-PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce"}
+PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
+                          "like"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
                          | set(_DATE_PART))
 # The window kinds: ported, but never resolved as expressions (the
@@ -388,6 +407,8 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return _NEEDLE[kind](rec(node[1]), E.lit(node[2]))
     if kind == "isin":
         return E.InSet(rec(node[1]), node[2])
+    if kind == "like":
+        return E.Like(rec(node[1]), node[2])
     if kind == "coalesce":
         return E.Coalesce(*[rec(x) for x in node[1]])
     if kind == "when":

@@ -12,10 +12,10 @@
   the reasons) name what it cannot run on either engine: a kind or node
   it has no class for ("... is not ported"), an exchange into more than
   one partition (``spark.rapids.sql.shuffle.partitions`` > 1), a full
-  outer join, a join without keys, DISTINCT aggregates, a window
-  function it has no class for, join keys that are not column
-  references. ``Planner.plan`` refuses such a plan with
-  ``NotImplementedError`` listing every such node.
+  outer join, a join without keys, a window function it has no class
+  for, join keys that are not column references. ``Planner.plan``
+  refuses such a plan with ``NotImplementedError`` listing every such
+  node.
 - Conversion emits the port's execs at one partition, each on its node's
   engine, with ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a
   child on the other engine where the reference bridges (``_bridge``).
@@ -28,8 +28,10 @@
   over both sides coalesced to one partition: a shuffled hash join of one
   partition a side is a hash join of the two whole sides.
 - ROLLUP and CUBE lower to ``ExpandExec`` under the two-stage aggregate
-  keyed by the grouping id; adjacent windows of one spec merge before
-  conversion (``merge_windows``).
+  keyed by the grouping id; DISTINCT aggregates lower to the partial /
+  merge / mixed_final pipeline (``_convert_distinct_aggregate``);
+  adjacent windows of one spec merge before conversion
+  (``merge_windows``).
 - The host engine runs only the nodes tagged for the reference's
   reasons: a failing device operator raises, and is never rerun there.
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
@@ -228,10 +230,11 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
             if ac.node[2] is not None:
                 tag_column(ac.node[2], conf, reasons, ours)
             _float_agg_reasons(ac, schema, conf, reasons)
-            if ac.node[0] == "aggd":
-                _port_reason(reasons, ours, f"DISTINCT aggregate "
-                             f"{ac.node[1]} is not ported")
-            elif ac.node[1] not in _AGGS:
+            if ac.node[0] == "aggd" and ac.node[1] in ("first", "last"):
+                # The reference's conversion error, before any refusal.
+                raise ResolutionError(
+                    f"{ac.node[1]}(DISTINCT) is not meaningful")
+            if ac.node[1] not in _AGGS:
                 _port_reason(reasons, ours,
                              f"aggregate {ac.node[1]} is not ported")
     elif isinstance(plan, L.LogicalSort):
@@ -318,18 +321,28 @@ def _unalias(c: Column) -> Column:
 
 def resolve_agg(c: Column, schema):
     """The port's aggregate function for an ``agg`` (or ``aggd``) Column.
-    DISTINCT types as its plain function: the planner refuses it."""
+    A DISTINCT one carries ``is_distinct`` and ``distinct_key`` (the
+    structural key of its unresolved input, for the single-distinct-input
+    check); min/max DISTINCT are plain min/max."""
     c = _unalias(c)
     if c.node[0] not in ("agg", "aggd"):
         raise ResolutionError(f"not an aggregate: {c.node[0]}")
+    distinct = c.node[0] == "aggd"
     kind = c.node[1]
     child_col = c.node[2]
     child = None if child_col is None else resolve(child_col, schema)
+    if distinct and kind in ("first", "last"):
+        raise ResolutionError(f"{kind}(DISTINCT) is not meaningful")
     if kind == "count" and child is None:
-        return CountStar(None)
-    if kind in _AGGS:
-        return _AGGS[kind](child)
-    raise NotPortedError(f"aggregate {kind} is not ported")
+        fn = CountStar(None)
+    elif kind in _AGGS:
+        fn = _AGGS[kind](child)
+    else:
+        raise NotPortedError(f"aggregate {kind} is not ported")
+    fn.is_distinct = distinct and kind not in ("min", "max")
+    if fn.is_distinct:
+        fn.distinct_key = L.canonical_node(child_col)
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -569,11 +582,17 @@ class Planner:
                            child: Exec) -> Exec:
         schema = plan.child.schema
         group_by = [(n, resolve(c, schema)) for n, c in plan.group_by]
-        aggs = [AggSpec(n, resolve_agg(c, schema))
-                for n, c in plan.aggregates]
+        aggs = [AggSpec(n, fn, distinct=fn.is_distinct)
+                for n, fn in ((n, resolve_agg(c, schema))
+                              for n, c in plan.aggregates)]
         if plan.grouping is not None:
+            if any(s.distinct for s in aggs):
+                raise ResolutionError(
+                    "DISTINCT aggregates under rollup/cube are unsupported")
             return self._convert_grouping_sets(plan.grouping, group_by,
                                                aggs, child)
+        if any(s.distinct for s in aggs):
+            return self._convert_distinct_aggregate(group_by, aggs, child)
         return self._two_stage(group_by, aggs, child)
 
     def _convert_grouping_sets(self, kind: str, group_by, aggs,
@@ -636,6 +655,46 @@ class Planner:
             for i, (n, e) in enumerate(group_by)]
         return HashAggregateExec(CoalescePartitionsExec(partial, 1),
                                  final_groups, aggs, mode="final")
+
+    def _convert_distinct_aggregate(self, group_by, aggs,
+                                    child: Exec) -> Exec:
+        """DISTINCT aggregates through the partial-merge mode combos
+        (aggregate.scala:305 distinct handling):
+
+          partial keyed by (keys..., x), with the partial non-distinct
+          aggregates
+          -> the exchange on the keys (one partition here; a zero-key
+             aggregate goes to a single partition)
+          -> merge keyed by (keys..., x): deduplicated, buffers merged
+          -> mixed_final keyed by the keys: the distinct aggregates
+             UPDATE over the now unique x, the others MERGE their buffers
+
+        Every distinct aggregate must share one input expression (Spark's
+        planner has the same single-distinct-column restriction)."""
+        d_specs = [s for s in aggs if s.distinct]
+        nd_specs = [s for s in aggs if not s.distinct]
+        x_exprs = {s.fn.distinct_key for s in d_specs}
+        if len(x_exprs) > 1:
+            raise ResolutionError(
+                "multiple DISTINCT aggregates must share the same input "
+                f"expression; got {len(x_exprs)} different ones")
+        x = d_specs[0].fn.child
+        xt = x.data_type()
+        nkeys = len(group_by)
+        stage_a = HashAggregateExec(
+            child, list(group_by) + [("__distinct_x", x)], nd_specs,
+            mode="partial")
+        gb_b = [(n, BoundReference(i, e.data_type()))
+                for i, (n, e) in enumerate(group_by)]
+        gb_b.append(("__distinct_x", BoundReference(nkeys, xt)))
+        stage_b = HashAggregateExec(CoalescePartitionsExec(stage_a, 1),
+                                    gb_b, nd_specs, mode="merge")
+        final_groups = gb_b[:nkeys]
+        specs_c = [AggSpec(s.name, type(s.fn)(BoundReference(nkeys, xt)),
+                           distinct=True) if s.distinct else s
+                   for s in aggs]
+        return HashAggregateExec(stage_b, final_groups, specs_c,
+                                 mode="mixed_final")
 
     def _convert_join(self, plan: L.LogicalJoin, meta: NodeMeta, kids,
                       want_dev: bool) -> Exec:

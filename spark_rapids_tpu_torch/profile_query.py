@@ -7,9 +7,9 @@
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
 ``tpch_q4_plan``, over the generator's partitions) ``.collect()``, or with
 ``--dataframe`` the exec tree the planner builds from ``benchmarks/tpch.py``
-(q1-q9, q12, q14, q19, ``variableFloatAgg`` on, over ``tpch_tables``) or
-``benchmarks/suites.py`` (xbb_q5, q67, ds_q3, ds_q42, ds_q55, ds_q89 and
-ds_q98 over ``suite_tables``), on the
+(q1-q10, q12-q14, q16-q19, q21, ``variableFloatAgg`` on, over
+``tpch_tables``) or ``benchmarks/suites.py`` (xbb_q5, xbb_q12, q67, ds_q3,
+ds_q42, ds_q55, ds_q89 and ds_q98 over ``suite_tables``), on the
 CUDA card under the wire codec ``--codec`` (default v2): one warm-up run
 (the sources pack their batches there and keep them), then host-clock
 times of the upload alone (split into a fresh host encode + pack of every

@@ -36,7 +36,8 @@ line.
 With ``--dataframe`` it times TPC-H q1-q6 (or the ``--queries`` named:
 any query of the tree's ``benchmarks/tpch.py`` ``QUERIES`` at SF1 or of
 its ``benchmarks/suites.py`` ``QUERIES`` at scale 1, such as
-``xbb_q5,q67,ds_q89``) through the DataFrame front end
+``xbb_q5,q67,ds_q89`` or ``xbb_q12,q10,q13,q16,q17,q18,q21``) through the
+DataFrame front end
 (``TpuSession`` with ``variableFloatAgg`` on, ``benchmarks/tpch.py`` over
 ``tpch_tables``) beside the hand-built trees of q1-q4 (``entry``), under
 the default codec, in this one process: for each query the planning time

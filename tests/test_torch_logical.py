@@ -140,6 +140,7 @@ ASTS = {
     "year": lambda M: M.year(M.col("d")),
     "month": lambda M: M.month(M.col("d")),
     "dayofmonth": lambda M: M.dayofmonth(M.col("d")),
+    "like": lambda M: ~M.col("s").like("%special%requests%"),
 }
 
 

@@ -12,10 +12,11 @@ api.dataframe against the JAX package's, on the CPU.
 - ``Planner.plan`` refuses with ``NotImplementedError`` naming every
   node the port cannot run on either engine, with its reasons: kinds it
   has not ported, exchanges into more than one partition (a partitioned
-  window's too), full outer and keyless joins, DISTINCT aggregates (under
-  a ROLLUP too), window functions it has not ported, join keys that are
-  not columns. A node tagged only for the reference's reasons (a float
-  aggregate under the default conf, a disabled exec) runs on the host
+  window's too), full outer and keyless joins, aggregates it has no
+  class for (under a ROLLUP too), window functions it has not ported,
+  join keys that are not columns. A node tagged only for the reference's
+  reasons (a float aggregate under the default conf, a float
+  sum(DISTINCT) there too, a disabled exec) runs on the host
   engine instead and gives the reference's rows; test mode asserts on it
   unless ``spark.rapids.sql.test.allowedNonTpu`` names it, as the
   reference does.
@@ -193,6 +194,16 @@ def _host_cases(M, session):
                                     False},
             [("LogicalFilter", "disabled by spark.rapids.sql.exec."
               "LogicalFilter")]),
+        # DISTINCT aggregates are planned (partial / merge / mixed_final);
+        # a float sum(DISTINCT) under the default conf takes the float
+        # gate to the host engine, as the reference's does.
+        "distinct_aggregate": (
+            df.group_by("s").agg(M.agg_sum_distinct(c("f")),
+                                 M.agg_count_distinct(c("f")),
+                                 M.agg_count()),
+            {VFA: False},
+            [("LogicalAggregate", "sum over float64 can vary with "
+              "evaluation order")]),
     }
 
 
@@ -224,19 +235,14 @@ def _refusals(session):
             df.join_on(other, [], []), {},
             [("LogicalJoin", "join without keys (nested loop join) is not "
               "ported")]),
-        "distinct_aggregate": (
-            DataFrame(session, L.LogicalAggregate(
-                df._plan, [("s", c("s"))],
-                [("n", L.Column(("aggd", "count", c("a"))))])), {},
-            [("LogicalAggregate", "DISTINCT aggregate count is not ported")]),
-        # Grouping sets are planned (ExpandExec); a DISTINCT aggregate
-        # under one is still refused.
+        # Grouping sets are planned (ExpandExec); an aggregate the port
+        # has no class for under one is still refused.
         "grouping_sets": (
             DataFrame(session, L.LogicalAggregate(
                 df._plan, [("s", c("s"))],
-                [("n", L.Column(("aggd", "count", c("a"))))],
+                [("n", L.Column(("agg", "first", c("a"), True)))],
                 grouping="rollup")), {},
-            [("LogicalAggregate", "DISTINCT aggregate count is not ported")]),
+            [("LogicalAggregate", "aggregate first is not ported")]),
         "unported_window_function": (
             df.with_column("x", L.Column(("agg", "first", c("a"), True))
                            .over(L.Window.partition_by("s"))), {},

@@ -60,7 +60,7 @@ def test_columns_match_reference_generator(tmp_path):
                 got = np.array([bytes(r).rstrip(b"\0").decode()
                                 for r in got], object)
                 want = want.to_numpy(object)
-            elif name in ("l_returnflag", "l_linestatus"):
+            elif name in ("l_returnflag", "l_linestatus", "o_orderstatus"):
                 want = np.array([ord(x) for x in want], np.uint8)
             elif name.endswith("date"):
                 want = (want.astype("datetime64[ns]")

@@ -475,3 +475,67 @@ def test_rollup_nulls_match_reference_on_both_engines():
     # subtotal (291.0) are two rows.
     assert sorted(r[3] for r in want if r[:3] == ("x", None, None)) == \
         [2.0, 291.0]
+
+
+# ---------------------------------------------------------------------------
+# Windowed float sums over NaN and +inf: the port keeps the reference's
+# prefix-difference behaviour on each engine
+# ---------------------------------------------------------------------------
+
+# One shuffle partition: on the tests' eight virtual devices the
+# reference would hash k=1 and k=2 into different partitions.
+_REF_WINDOW_CONF = {"spark.rapids.sql.variableFloatAgg.enabled": True,
+                    "spark.rapids.sql.cost.enabled": False,
+                    "spark.rapids.sql.pipeline.enabled": False,
+                    "spark.rapids.sql.stageFusion.enabled": False,
+                    "spark.rapids.sql.shuffle.partitions": 1}
+
+
+def _nonfinite_window_query(L, session, D, bad: float):
+    """Partition k=1 holds (o=0, v=bad) and (o=1, v=1.0), partition k=2
+    holds v = 2.0, 3.0, 4.0: the running sum and the current-row sum."""
+    data = {"k": [1, 1, 2, 2, 2], "o": [0, 1, 0, 1, 2],
+            "v": [bad, 1.0, 2.0, 3.0, 4.0]}
+    df = session.create_dataframe(
+        data, [("k", D.INT32), ("o", D.INT32), ("v", D.FLOAT64)],
+        num_partitions=1)
+    w = L.Window.partition_by("k").order_by("o")
+    return df.with_column("run", L.agg_sum(L.col("v")).over(w)) \
+        .with_column("cur",
+                     L.agg_sum(L.col("v")).over(w.rows_between(0, 0))) \
+        .order_by(L.col("k").asc(), L.col("o").asc())
+
+
+@pytest.mark.parametrize("bad", ["inf", "nan"])
+def test_nonfinite_window_sums_match_reference_on_both_engines(bad):
+    """Both window halves take a frame's float sum as a difference of one
+    prefix sum over the sorted batch, so a NaN or +inf reaches frames
+    that do not hold it. Each engine of the port gives its reference
+    engine's rows, bit for bit (repr). Spark gives the current-row sum
+    1.0 at (k=1, o=1) and 2, 5, 9 / 2, 3, 4 in partition k=2."""
+    value = float(bad)
+    jdf = _nonfinite_window_query(JL, JSession(_REF_WINDOW_CONF), jdt,
+                                  value)
+    want_dev, want_host = jdf.collect(), jdf.collect_host()
+    df = _nonfinite_window_query(TL, TpuSession(
+        {"spark.rapids.sql.variableFloatAgg.enabled": True}, device="cpu"),
+        tdt, value)
+    assert repr(df.collect()) == repr(want_dev)
+    assert repr(df.collect_host()) == repr(want_host)
+    spark_k2 = [(2, 0, 2.0, 2.0, 2.0), (2, 1, 3.0, 5.0, 3.0),
+                (2, 2, 4.0, 9.0, 4.0)]
+    # The device halves scan the batch in partition-fingerprint order, in
+    # which k=2 comes before k=1: its frames stay clean.
+    assert want_dev[2:] == spark_k2
+    # The row after the bad value: its current-row frame holds only 1.0.
+    assert np.isnan(want_dev[1][4])
+    if bad == "inf":
+        # The host halves scan k=1 first: +inf - +inf poisons the next
+        # row's frame and every frame of k=2.
+        assert np.isnan(want_host[1][4])
+        assert all(np.isnan(r[3]) and np.isnan(r[4])
+                   for r in want_host[2:])
+    else:
+        # With a NaN the host halves drop to their per-frame oracle and
+        # give Spark's answer.
+        assert want_host[1][4] == 1.0 and want_host[2:] == spark_k2
