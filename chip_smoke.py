@@ -164,11 +164,35 @@ Phases (each raises on failure; any failure exits non-zero):
    self-joins, whose builds repeat keys. Each K1-K4 launch of a shape no
    earlier phase checked must equal the kernel's plain version bit for
    bit. The phase's time is printed.
-16. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
+16. The exchange: (a) ``repart`` (scale 1: all 4,000,000 clickstream
+   rows through a 16-way hash exchange, then counted per bucket) under
+   both confs, its bucket counts against a numpy murmur3 oracle in this
+   file (they must sum to 4,000,000), and the repartition's
+   ``ShuffleExchangeExec`` run alone: every row of output partition p
+   must hash to p; (b) TPC-H q11, q15, q20 and q22 (SF1: cross joins for
+   the scalar subqueries, a fixed-width cast, ``substr``) under both
+   confs against numpy oracles (q11 as a set); (c) with
+   ``spark.rapids.sql.shuffle.partitions=8``: q1 (hash and range
+   exchanges), q4 (a shuffled semi join), q13 (a shuffled left join),
+   q18, q21 (shuffled semi and anti joins with a residual), xbb_q12 (the
+   distinct pipeline) and ds_q89 (a partitioned window), each against its
+   oracle and its own one-partition run in this process (floats to rtol
+   1e-9); (d) a full outer join of CUSTOMER (c_acctbal > 0) and ORDERS on
+   the customer key at 1 and 8 partitions, its matched, left-only and
+   right-only row counts against numpy. For each run: host nodes and
+   bridges, rows downloaded, the first run (counters around it alone,
+   every K1-K4 launch recorded), two warm walls and the peak device
+   memory of the warm runs. K1 must launch in every run, K3 in the
+   shuffled joins of (c) (q4, q13, q21) and (d), whose builds repeat keys,
+   K2 in ds_q89. Each K1-K4 launch of a shape no earlier phase checked
+   must equal the kernel's plain version bit for bit; the largest new
+   K3 shape of each run is timed against two ``torch.searchsorted``
+   calls, with its bound. The phase's time is printed.
+17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
-   fourteen runs, phase 14's twelve and phase 15's fourteen), its error
-   against the plain version, its
+   fourteen runs, phase 14's twelve, phase 15's fourteen and phase 16's
+   nineteen), its error against the plain version, its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -2395,6 +2419,374 @@ def distinct_queries_phase(native, cols: dict, known_seen: list,
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the shuffle exchange, the shuffled and nested-loop joins,
+# Substring and the fixed-width Cast
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix_k1(k1):
+    k1 = (k1 * 0xCC9E2D51) & _M32
+    k1 = ((k1 << 15) | (k1 >> 17)) & _M32
+    return (k1 * 0x1B873593) & _M32
+
+
+def _mix_h1(h1, k1):
+    h1 ^= k1
+    h1 = ((h1 << 13) | (h1 >> 19)) & _M32
+    return (h1 * 5 + 0xE6546B64) & _M32
+
+
+def murmur3_long(v: np.ndarray, seed: int = 42) -> np.ndarray:
+    """Spark's murmur3 (Murmur3_x86_32.hashLong) of int64 values with
+    ``seed``, as int32, in numpy uint64 lanes masked to 32 bits."""
+    u = v.astype(np.int64).view(np.uint64)
+    h = np.full(len(u), seed, np.uint64)
+    h = _mix_h1(h, _mix_k1(u & np.uint64(_M32)))
+    h = _mix_h1(h, _mix_k1(u >> np.uint64(32)))
+    h ^= np.uint64(8)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & np.uint64(_M32)
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & np.uint64(_M32)
+    h ^= h >> np.uint64(16)
+    return h.astype(np.uint32).view(np.int32)
+
+
+def repart_buckets(keys: np.ndarray, n: int) -> np.ndarray:
+    """pmod(murmur3(key), n) of each key."""
+    return np.mod(murmur3_long(keys).astype(np.int64), n)
+
+
+def repart_oracle(cols: dict, S) -> list:
+    """repart in plain numpy: rows per hash bucket of wcs_item_sk."""
+    key = np.ma.getdata(cols["web_clickstreams"]["wcs_item_sk"])
+    counts = np.bincount(repart_buckets(key, S.REPART_N),
+                         minlength=S.REPART_N)
+    return [(b, int(c)) for b, c in enumerate(counts) if c]
+
+
+def _nation(E, name: str) -> int:
+    return [nm for nm, _ in E.NATIONS].index(name)
+
+
+def q11_oracle(cols: dict, E) -> list:
+    """TPC-H Q11 in plain numpy: the stock value of each part held by
+    GERMANY's suppliers above 0.0001 of the total, by value desc (a set:
+    near-equal values may swap, as the reference's ``_SET_COMPARE``
+    allows)."""
+    ps, s = cols["partsupp"], cols["supplier"]
+    ger = s["s_nationkey"] == _nation(E, "GERMANY")
+    keep = ger[ps["ps_suppkey"] - 1]
+    value = ps["ps_supplycost"][keep] * ps["ps_availqty"][keep]
+    total = value.sum()
+    keys, inv = np.unique(ps["ps_partkey"][keep], return_inverse=True)
+    sums = np.bincount(inv.reshape(-1), weights=value)
+    hit = sums > total * 0.0001
+    order = np.argsort(-sums[hit], kind="stable")
+    return [(int(k), float(v)) for k, v in
+            zip(keys[hit][order], sums[hit][order])]
+
+
+def q15_oracle(cols: dict, E) -> list:
+    """TPC-H Q15 in plain numpy: the supplier(s) of the largest revenue
+    shipped in 1996Q1, by s_suppkey."""
+    li, s = cols["lineitem"], cols["supplier"]
+    m = (li["l_shipdate"] >= E.days("1996-01-01")) & \
+        (li["l_shipdate"] < E.days("1996-04-01"))
+    rev = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+    keys, inv = np.unique(li["l_suppkey"][m], return_inverse=True)
+    sums = np.bincount(inv.reshape(-1), weights=rev)
+    top = np.flatnonzero(sums == sums.max())
+    si = keys[top] - 1
+    names, phones = _strings(s["s_name"][si]), _strings(s["s_phone"][si])
+    return [(int(keys[t]), names[i], E.S_COMMENTS[int(s["s_address"][
+        si[i]])], phones[i], float(sums[t])) for i, t in enumerate(top)]
+
+
+def q20_oracle(cols: dict, E) -> list:
+    """TPC-H Q20 in plain numpy: CANADA's suppliers of 'forest' parts
+    whose stock exceeds half the quantity they shipped in 1994, by
+    s_name."""
+    p, li, ps, s = (cols["part"], cols["lineitem"], cols["partsupp"],
+                    cols["supplier"])
+    b = np.frombuffer(b"forest", np.uint8)
+    forest = np.all(p["p_name"][:, :len(b)] == b, axis=1)
+    m = (li["l_shipdate"] >= E.days("1994-01-01")) & \
+        (li["l_shipdate"] < E.days("1995-01-01"))
+    pair, sums = _group_sums([li["l_partkey"][m], li["l_suppkey"][m]],
+                             li["l_quantity"][m])
+    sums = sums[0]
+    code = pair[:, 0] * (1 << 32) + pair[:, 1]
+    order = np.argsort(code)
+    ps_code = ps["ps_partkey"] * (1 << 32) + ps["ps_suppkey"]
+    pos = np.clip(np.searchsorted(code[order], ps_code), 0,
+                  max(len(code) - 1, 0))
+    found = code[order][pos] == ps_code
+    qty = sums[order][pos]
+    ok = forest[ps["ps_partkey"] - 1] & found & \
+        (ps["ps_availqty"].astype(np.float64) > qty * 0.5)
+    supp = np.unique(ps["ps_suppkey"][ok])
+    canada = s["s_nationkey"][supp - 1] == _nation(E, "CANADA")
+    names = _strings(s["s_name"][supp[canada] - 1])
+    return sorted((nm, E.S_COMMENTS[int(s["s_address"][k - 1])])
+                  for nm, k in zip(names, supp[canada]))
+
+
+def q22_oracle(cols: dict, E) -> list:
+    """TPC-H Q22 in plain numpy: customers of seven phone country codes
+    with an above-average positive balance and no orders, counted and
+    summed per code, by code."""
+    c, o = cols["customer"], cols["orders"]
+    cc = (c["c_phone"][:, 0].astype(np.int64) - 48) * 10 + \
+        (c["c_phone"][:, 1].astype(np.int64) - 48)
+    sel = np.isin(cc, [13, 31, 23, 29, 30, 18, 17])
+    bal = c["c_acctbal"]
+    avg = bal[sel & (bal > 0.0)].mean()
+    has_order = np.zeros(len(bal) + 1, bool)
+    has_order[o["o_custkey"]] = True
+    ok = sel & (bal > avg) & ~has_order[c["c_custkey"]]
+    codes, inv = np.unique(cc[ok], return_inverse=True)
+    inv = inv.reshape(-1)
+    counts = np.bincount(inv, minlength=len(codes))
+    sums = np.bincount(inv, weights=bal[ok], minlength=len(codes))
+    return [(f"{int(k):02d}", int(n), float(t))
+            for k, n, t in zip(codes, counts, sums)]
+
+
+LAST_TPCH = ("q11", "q15", "q20", "q22")
+LAST_QUERIES = ("repart",) + LAST_TPCH
+# Under the default conf the float Sum/Avg aggregates run on the host
+# engine: q11's total and per-part sums, q15's revenue sum (twice: the
+# plan reads it on both sides of the cross join), q20's quantity sum,
+# q22's average and its final sum. repart counts, on the card.
+LAST_DEFAULT_HOST = {
+    "repart": [], "q11": ["LogicalAggregate", "LogicalAggregate"],
+    "q15": ["LogicalAggregate", "LogicalAggregate"],
+    "q20": ["LogicalAggregate"],
+    "q22": ["LogicalAggregate", "LogicalAggregate"]}
+# repart's 16-way exchange sorts by partition id (K1) under both confs;
+# each other query sorts its output on the card.
+LAST_MUST_LAUNCH = {(q, c): ("radix_sort",) for q in LAST_QUERIES
+                    for c in ("vfa", "default")}
+# The 8-partition runs, each held to its oracle and to its one-partition
+# run; the shuffled joins of q4, q13 and q21 probe builds with repeated
+# keys, so K3 launches there.
+SHUFFLED = ("q1", "q4", "q13", "q18", "q21", "xbb_q12", "ds_q89")
+SHUFFLED_MUST_LAUNCH = dict(
+    {q: ("radix_sort",) for q in SHUFFLED},
+    q4=("radix_sort", "join_probe"), q13=("radix_sort", "join_probe"),
+    q21=("radix_sort", "join_probe"), ds_q89=("radix_sort", "seg_reduce"))
+SHUFFLE_PARTITIONS = 8
+LAST_WARM_RUNS = 2
+
+
+def last_oracles(cols: dict, xcols: dict, E, S) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-16 query;
+    q11 as a set of rows."""
+    out = {"repart": ((lambda rows, want: check_rows(
+        "repart", rows, want)), repart_oracle(xcols, S))}
+    for q in LAST_TPCH:
+        out[q] = ((lambda q: lambda rows, want: check_rows(
+            q, rows, want, multiset=q == "q11"))(q),
+            globals()[f"{q}_oracle"](cols, E))
+    return out
+
+
+def full_join_frames(session, cols: dict, E, L):
+    """CUSTOMER (with c_acctbal > 0) full outer join ORDERS on the
+    customer key, as the count of its matched, left-only and right-only
+    rows (kind 0, 1 and 2)."""
+    from spark_rapids_tpu_torch.api import DataFrame
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    cschema = (("c_custkey", dt.INT64), ("c_acctbal", dt.FLOAT64))
+    oschema = (("o_orderkey", dt.INT64), ("o_custkey", dt.INT64))
+    cust = DataFrame(session, L.InMemoryScan(cschema, E.table_partitions(
+        cols["customer"], cschema, E.TABLE_PARTITIONS["customer"])))
+    orders = DataFrame(session, L.InMemoryScan(oschema, E.table_partitions(
+        cols["orders"], oschema, E.TABLE_PARTITIONS["orders"])))
+    j = cust.filter(L.col("c_acctbal") > 0.0).join_on(
+        orders, ["c_custkey"], ["o_custkey"], how="full")
+    kind = L.when(L.col("c_custkey").isNull(), 2) \
+        .when(L.col("o_orderkey").isNull(), 1).otherwise(0)
+    return j.group_by(kind.alias("kind")).agg(
+        L.agg_count().alias("n")).order_by("kind")
+
+
+def full_join_oracle(cols: dict) -> list:
+    c, o = cols["customer"], cols["orders"]
+    keep = np.zeros(len(c["c_custkey"]) + 1, bool)
+    keep[c["c_custkey"][c["c_acctbal"] > 0.0]] = True
+    matched = int(keep[o["o_custkey"]].sum())
+    has_order = np.zeros_like(keep)
+    has_order[o["o_custkey"]] = True
+    left_only = int((keep & ~has_order).sum())
+    right_only = len(o["o_custkey"]) - matched
+    return [(k, n) for k, n in enumerate((matched, left_only, right_only))
+            if n]
+
+
+def _warm(phys, check, want, runs: int) -> tuple:
+    """Warm walls of ``runs`` checked runs and their peak device memory
+    (bytes, and bytes held before them)."""
+    import torch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        rows = phys.collect(ExecContext(phys.conf))
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(rows, want)
+    return warm, torch.cuda.max_memory_allocated(), held
+
+
+def _exchanges(e, out=None) -> list:
+    out = [] if out is None else out
+    if type(e).__name__ == "ShuffleExchangeExec":
+        out.append(e)
+    for c in e.children:
+        _exchanges(c, out)
+    return out
+
+
+def repart_direct(phys, S) -> int:
+    """Run repart's repartition exchange alone: every row of output
+    partition p must hash to p, and every row must arrive once."""
+    from spark_rapids_tpu_torch.columnar.host import download_batches
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    ex = next(e for e in _exchanges(phys.root)
+              if e.partitioning.num_partitions == S.REPART_N)
+    ctx = ExecContext(phys.conf)
+    ctx.cache["engine"] = "device"
+    total = 0
+    for p in range(ex.num_partitions(ctx)):
+        hbs = download_batches(list(ex.execute_device(ctx, p)))
+        keys = np.concatenate([hb.columns[0].data for hb in hbs]) if hbs \
+            else np.zeros(0, np.int64)
+        bad = int((repart_buckets(keys, S.REPART_N) != p).sum())
+        if bad:
+            raise AssertionError(f"repart partition {p}: {bad} rows hash "
+                                 "to another partition")
+        total += len(keys)
+    log(f"repart exchange alone: {ex.num_partitions(ctx)} partitions, "
+        f"{total} rows, every row in the partition its key hashes to")
+    return total
+
+
+def exchange_phase(native, cols: dict, known_seen: list,
+                   known_k1: set) -> dict:
+    """(a) repart and (b) TPC-H q11, q15, q20 and q22 through
+    ``TpuSession`` on the card under ``variableFloatAgg`` and under the
+    default conf, against numpy oracles; (c) q1, q4, q13, q18, q21,
+    xbb_q12 and ds_q89 at ``shuffle.partitions=8`` against their oracles
+    and their one-partition runs; (d) a full outer join of CUSTOMER and
+    ORDERS at one and eight partitions against numpy counts. For each
+    run: host nodes and bridges, rows downloaded, the first run with
+    every K1-K4 launch recorded (new shapes against the plain versions),
+    two warm walls and the peak device memory of the warm runs."""
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import suites as S
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    xcols = S.suite_columns(1.0, seed=0)
+    n_clicks = len(xcols["web_clickstreams"]["wcs_item_sk"])
+    oracles = last_oracles(cols, xcols, E, S)
+    oracles.update({q: v for q, v in df_oracles(cols, E).items()
+                    if q in SHUFFLED})
+    oracles.update({q: v for q, v in distinct_oracles(
+        cols, xcols, E, S).items() if q in SHUFFLED})
+    oracles["ds_q89"] = ds_oracles(xcols, S)["ds_q89"]
+    fj_want = full_join_oracle(cols)
+    oracles["full_join"] = ((lambda rows, want: check_rows(
+        "full_join", rows, want)), fj_want)
+    log(f"phase 16: oracles in {time.perf_counter() - t_phase:.2f} s")
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": []}
+
+    def run(label, phys, q, hosted, must, warm_runs=LAST_WARM_RUNS):
+        check, want = oracles[q]
+        r = run_checked(native, label, phys, check, want, hosted, must,
+                        known_seen, known_k1)
+        known_seen.append(r["seen"])
+        known_k1.update(c["shape"] for c in r["checks"]
+                        if c["kernel"] == "radix_sort")
+        out["kernel_checks"] += r["checks"]
+        warm, peak, held = _warm(phys, check, want, warm_runs)
+        log(f"{label} matches the numpy oracle ({len(r['rows'])} rows): "
+            f"first run {r['first_s']:.3f} s, warm "
+            f"{[round(w, 4) for w in warm]} s, peak device memory in the "
+            f"warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+            f"held before them); launches {r['launches']}")
+        out[label] = dict(first_s=r["first_s"], warm_s=warm,
+                          launches=r["launches"], moved=r["moved"],
+                          hosted=r["hosted"], peak_bytes=peak,
+                          held_bytes=held)
+        return r["rows"]
+
+    # (a) and (b): repart and q11, q15, q20, q22 under both confs.
+    for conf_name, conf in (("vfa", {
+            "spark.rapids.sql.variableFloatAgg.enabled": True}),
+            ("default", {})):
+        session = TpuSession(conf)
+        tables = dict(tpch.tpch_tables(session, cols, LAST_TPCH),
+                      **S.suite_tables(session, xcols, ("repart",)))
+        for q in LAST_QUERIES:
+            fn = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
+            phys = fn(session, tables[q])._physical()
+            rows = run(f"{q} ({conf_name})", phys, q,
+                       LAST_DEFAULT_HOST[q] if conf_name == "default"
+                       else [], LAST_MUST_LAUNCH[q, conf_name])
+            if q == "repart":
+                if sum(n for _b, n in rows) != n_clicks:
+                    raise AssertionError(f"repart counted {rows}, not "
+                                         f"{n_clicks} rows")
+                if repart_direct(phys, S) != n_clicks:
+                    raise AssertionError("repart's exchange lost rows")
+
+    # (c): the 8-partition runs against their one-partition runs.
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    by_n = {}
+    for n in (1, SHUFFLE_PARTITIONS):
+        session = TpuSession(dict(
+            vfa, **{"spark.rapids.sql.shuffle.partitions": n}))
+        tables = dict(tpch.tpch_tables(session, cols, [
+            q for q in SHUFFLED if q in tpch.QUERIES]),
+            **S.suite_tables(session, xcols, ("xbb_q12", "ds_q89")))
+        for q in SHUFFLED:
+            fn = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
+            phys = fn(session, tables[q])._physical()
+            if n == 1:
+                by_n[q] = phys.collect()
+                continue
+            rows = run(f"{q} ({n} partitions)", phys, q, [],
+                       SHUFFLED_MUST_LAUNCH[q])
+            if not rows_close(rows, by_n[q]):
+                raise AssertionError(f"{q} at {n} partitions differs from "
+                                     "its one-partition run")
+        if n != 1:
+            log(f"{', '.join(SHUFFLED)} at {n} partitions equal their "
+                "one-partition runs")
+
+    # (d): a full outer join at one and eight partitions.
+    for n in (1, SHUFFLE_PARTITIONS):
+        session = TpuSession(dict(
+            vfa, **{"spark.rapids.sql.shuffle.partitions": n}))
+        phys = full_join_frames(session, cols, E, L)._physical()
+        run(f"full outer join ({n} partitions)", phys, "full_join", [],
+            ("radix_sort", "join_probe"))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: kernel K4 (the wire codec's RLE decode) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2714,13 +3106,21 @@ def main() -> int:
                                 + [df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
 
-    # Phase 16: the kernels line
+    # Phase 16: the exchange, the shuffled and nested-loop joins, repart,
+    # q11, q15, q20 and q22, and every query at 8 partitions
+    ex = exchange_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1)
+    ex_runs = [k for k in ex if k not in ("kernel_checks", "seconds")]
+
+    # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
         ds[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DS_QUERIES) + tuple(
         dq[(q, c)]["launches"] for c in ("vfa", "default")
-        for q in DISTINCT_QUERIES)
+        for q in DISTINCT_QUERIES) + tuple(
+        ex[k]["launches"] for k in ex_runs)
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -2762,7 +3162,9 @@ def main() -> int:
                     for c in ("vfa", "default") for q in DS_QUERIES)
         + "; phase 15 "
         + ", ".join(f"{q} ({c}) {dq[(q, c)]['launches']}"
-                    for c in ("vfa", "default") for q in DISTINCT_QUERIES))
+                    for c in ("vfa", "default") for q in DISTINCT_QUERIES)
+        + "; phase 16 "
+        + ", ".join(f"{k} {ex[k]['launches']}" for k in ex_runs))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -215,6 +215,13 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.LogicalLimit(self._plan, n))
 
+    def repartition(self, n: int, *keys: Union[str, Column]) -> "DataFrame":
+        """Hash-repartition into ``n`` partitions on ``keys``, or
+        round-robin without keys."""
+        ks = [col(k) if isinstance(k, str) else k for k in keys] or None
+        return DataFrame(self._session,
+                         L.LogicalRepartition(self._plan, n, ks))
+
     def join(self, other: "DataFrame", on: Union[str, Sequence[str], tuple],
              how: str = "inner", condition: Optional[Column] = None,
              strategy: str = "auto") -> "DataFrame":
@@ -238,6 +245,12 @@ class DataFrame:
         return DataFrame(self._session, plan)
 
     # -- actions --------------------------------------------------------------
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        plan = L.LogicalJoin(self._plan, other._plan, [], [], "cross")
+        return DataFrame(self._session, plan)
+
+    crossJoin = cross_join
+
     def _physical(self):
         """Plan once per conf version (no plan cache: the reference's
         parameterized plan cache is not ported)."""

@@ -1,7 +1,7 @@
 """The TPC-DS-like and TPCxBB-like queries through the port's DataFrame
 API (port of the JAX package's ``benchmarks/suites.py``: its generator's
-stream and the query bodies of q67, xbb_q5, ds_q3, ds_q42, ds_q89, ds_q55,
-ds_q98 and xbb_q12).
+stream and the query bodies of q67, xbb_q5, repart, ds_q3, ds_q42, ds_q89,
+ds_q55, ds_q98 and xbb_q12: the reference's whole suite).
 
 ``suite_columns(scale, seed)`` replays the reference generator
 (``suites.generate``) draw for draw, numpy over one ``default_rng(seed)``
@@ -21,8 +21,9 @@ the reference's scan pruning keeps, each table in the reference's files
     tables = suite_tables(session, suite_columns(1.0))
     rows = q67(session, tables["q67"]).collect()
 
-xbb_q5's sums are integer (Sum of an INT32 CASE) and xbb_q12 counts
-distinct users, so both stay on the card under every conf; the TPC-DS
+xbb_q5's sums are integer (Sum of an INT32 CASE), xbb_q12 counts
+distinct users and ``repart`` counts rows per bucket of its 16-way hash
+repartition, so these stay on the card under every conf; the TPC-DS
 queries sum float prices, so under the default conf their aggregates run
 on the host engine. The prices and
 quantities are whole numbers, so every sum is exact on both engines.
@@ -187,6 +188,7 @@ SCANS = {
                              ("wcs_item_sk", dt.INT64)),
         "item": (_ITEM_SK, ("i_category", dt.STRING)),
     },
+    "repart": {"web_clickstreams": (("wcs_item_sk", dt.INT64),)},
 }
 
 
@@ -382,8 +384,24 @@ def xbb_q12(session, tables: dict):
         .order_by(col("i_category").asc())
 
 
-# The reference's suite minus ``repart`` (the exchange), which is not
-# ported.
-QUERIES = {"q67": q67, "xbb_q5": xbb_q5, "ds_q3": ds_q3, "ds_q42": ds_q42,
-           "ds_q89": ds_q89, "ds_q55": ds_q55, "ds_q98": ds_q98,
-           "xbb_q12": xbb_q12}
+REPART_N = 16
+
+
+def repart(session, tables: dict):
+    """Repartition-heavy: full hash shuffle of the clickstream fact table,
+    then per-bucket row counts (validates every row moved exactly once).
+    The bucket expression is exactly the exchange's partition id
+    (pmod(murmur3(key), n) — GpuHashPartitioning parity)."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_count, col, lit_col, murmur3_hash)
+    wcs = _read(session, tables, "web_clickstreams")
+    shuffled = wcs.repartition(REPART_N, col("wcs_item_sk"))
+    n = lit_col(REPART_N)
+    bucket = ((murmur3_hash(col("wcs_item_sk")) % n) + n) % n
+    return shuffled.group_by(bucket.alias("bucket")) \
+        .agg(agg_count().alias("n")).order_by("bucket")
+
+
+QUERIES = {"q67": q67, "xbb_q5": xbb_q5, "repart": repart, "ds_q3": ds_q3,
+           "ds_q42": ds_q42, "ds_q89": ds_q89, "ds_q55": ds_q55,
+           "ds_q98": ds_q98, "xbb_q12": xbb_q12}

@@ -1,9 +1,9 @@
-"""TPC-H q1-q10, q12-q14, q16-q19 and q21 through the port's DataFrame
-API (port of the JAX package's ``benchmarks/tpch.py`` query bodies).
+"""The 22 TPC-H queries through the port's DataFrame API (port of the JAX
+package's ``benchmarks/tpch.py`` query bodies).
 
-The query bodies ``q1``, ``q6``, ``q3``, ``q5``, ``q2``, ``q4``, ``q7``,
-``q8``, ``q9``, ``q10``, ``q12``, ``q13``, ``q14``, ``q16``, ``q17``,
-``q18``, ``q19`` and ``q21`` are the reference's, line for line. Only
+The query bodies ``q1`` to ``q22`` are the reference's, line for line
+(q11, q15 and q22 take their scalar subqueries as cross joins, q20 casts
+``ps_availqty`` to double, q22 slices ``c_phone`` with ``substr``). Only
 ``_read`` differs: the reference reads parquet (through pyarrow, which
 the port does not use); here a query reads its tables from a ``tables``
 dict of DataFrames. ``tpch_tables`` builds
@@ -17,7 +17,8 @@ keeps), in ``entry.TABLE_PARTITIONS`` partitions.
     rows = q1(session, tables["q1"]).collect()
 
 Under the default conf (``variableFloatAgg.enabled=false``) every float
-Sum/Avg aggregate (in q1, q3, q5-q10, q14 and q17-q19) is tagged
+Sum/Avg aggregate (in q1, q3, q5-q11, q14, q15, q17-q19 and q22) is
+tagged
 for the host and runs on the host engine between device subtrees, as in
 the reference; with
 ``{"spark.rapids.sql.variableFloatAgg.enabled": True}``, as the
@@ -68,6 +69,13 @@ SCANS = {
             "customer": E.Q18_CUSTOMER},
     "q21": {"lineitem": E.Q21_LINEITEM, "orders": E.Q21_ORDERS,
             "supplier": E.Q21_SUPPLIER, "nation": E.Q21_NATION},
+    "q11": {"nation": E.Q11_NATION, "supplier": E.Q11_SUPPLIER,
+            "partsupp": E.Q11_PARTSUPP},
+    "q15": {"lineitem": E.Q15_LINEITEM, "supplier": E.Q15_SUPPLIER},
+    "q20": {"part": E.Q20_PART, "lineitem": E.Q20_LINEITEM,
+            "partsupp": E.Q20_PARTSUPP, "nation": E.Q20_NATION,
+            "supplier": E.Q20_SUPPLIER},
+    "q22": {"customer": E.Q22_CUSTOMER, "orders": E.Q22_ORDERS},
 }
 
 
@@ -540,7 +548,95 @@ def q21(session, tables: dict):
         .order_by(col("numwait").desc(), col("s_name").asc()).limit(100)
 
 
+def q11(session, tables: dict):
+    """Important stock identification: HAVING over a scalar subquery as a
+    cross join against the global total."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col, lit_col
+    nat = _read(session, tables, "nation") \
+        .filter(col("n_name") == lit_col("GERMANY")).select("n_nationkey")
+    supp = _read(session, tables, "supplier") \
+        .join_on(nat, ["s_nationkey"], ["n_nationkey"]).select("s_suppkey")
+    ps = _read(session, tables, "partsupp") \
+        .join_on(supp, ["ps_suppkey"], ["s_suppkey"]) \
+        .with_column("value", col("ps_supplycost") * col("ps_availqty"))
+    total = ps.agg(agg_sum(col("value")).alias("total"))
+    g = ps.group_by("ps_partkey").agg(agg_sum(col("value")).alias("value"))
+    return g.cross_join(total) \
+        .filter(col("value") > col("total") * 0.0001) \
+        .select("ps_partkey", "value") \
+        .order_by(col("value").desc())
+
+
+def q15(session, tables: dict):
+    """Top supplier: scalar MAX subquery as a cross join + filter."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_max, agg_sum, col, lit_col)
+    li = _read(session, tables, "lineitem") \
+        .filter((col("l_shipdate") >= lit_col(days("1996-01-01")))
+                & (col("l_shipdate") < lit_col(days("1996-04-01"))))
+    rev = li.with_column(
+        "r", col("l_extendedprice") * (1.0 - col("l_discount"))) \
+        .group_by("l_suppkey").agg(agg_sum(col("r")).alias("total_revenue"))
+    mx = rev.agg(agg_max(col("total_revenue")).alias("mx"))
+    top = rev.cross_join(mx).filter(col("total_revenue") == col("mx"))
+    supp = _read(session, tables, "supplier") \
+        .select("s_suppkey", "s_name", "s_address", "s_phone")
+    return supp.join_on(top, ["s_suppkey"], ["l_suppkey"]) \
+        .select("s_suppkey", "s_name", "s_address", "s_phone",
+                "total_revenue") \
+        .order_by("s_suppkey")
+
+
+def q20(session, tables: dict):
+    """Potential part promotion: nested IN subqueries as semi joins +
+    a grouped sum re-join with a non-equi filter."""
+    from spark_rapids_tpu_torch.plan.logical import agg_sum, col, lit_col
+    pf = _read(session, tables, "part") \
+        .filter(col("p_name").startswith("forest")).select("p_partkey")
+    liq = _read(session, tables, "lineitem") \
+        .filter((col("l_shipdate") >= lit_col(days("1994-01-01")))
+                & (col("l_shipdate") < lit_col(days("1995-01-01")))) \
+        .group_by("l_partkey", "l_suppkey") \
+        .agg(agg_sum(col("l_quantity")).alias("sum_qty"))
+    ps = _read(session, tables, "partsupp") \
+        .join_on(pf, ["ps_partkey"], ["p_partkey"], how="semi") \
+        .join_on(liq, ["ps_partkey", "ps_suppkey"],
+                 ["l_partkey", "l_suppkey"]) \
+        .filter(col("ps_availqty").cast("double")
+                > col("sum_qty") * 0.5) \
+        .select("ps_suppkey")
+    nat = _read(session, tables, "nation") \
+        .filter(col("n_name") == lit_col("CANADA")).select("n_nationkey")
+    supp = _read(session, tables, "supplier") \
+        .join_on(nat, ["s_nationkey"], ["n_nationkey"]) \
+        .join_on(ps, ["s_suppkey"], ["ps_suppkey"], how="semi")
+    return supp.select("s_name", "s_address").order_by("s_name")
+
+
+def q22(session, tables: dict):
+    """Global sales opportunity: phone-prefix slice, scalar AVG subquery,
+    NOT EXISTS as an anti join."""
+    from spark_rapids_tpu_torch.plan.logical import (
+        agg_avg, agg_count, agg_sum, col)
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cust = _read(session, tables, "customer") \
+        .with_column("cntrycode", col("c_phone").substr(1, 2)) \
+        .filter(col("cntrycode").isin(*codes)) \
+        .select("c_custkey", "c_acctbal", "cntrycode")
+    avg_bal = cust.filter(col("c_acctbal") > 0.0) \
+        .agg(agg_avg(col("c_acctbal")).alias("avg_bal"))
+    o = _read(session, tables, "orders").select("o_custkey")
+    j = cust.cross_join(avg_bal) \
+        .filter(col("c_acctbal") > col("avg_bal")) \
+        .join_on(o, ["c_custkey"], ["o_custkey"], how="anti")
+    return j.group_by("cntrycode").agg(
+        agg_count().alias("numcust"),
+        agg_sum(col("c_acctbal")).alias("totacctbal")) \
+        .order_by("cntrycode")
+
+
 QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
-           "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q12": q12,
-           "q13": q13, "q14": q14, "q16": q16, "q17": q17, "q18": q18,
-           "q19": q19, "q21": q21}
+           "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q11": q11,
+           "q12": q12, "q13": q13, "q14": q14, "q15": q15, "q16": q16,
+           "q17": q17, "q18": q18, "q19": q19, "q20": q20, "q21": q21,
+           "q22": q22}

@@ -297,6 +297,20 @@ def coalesce_iter(batches: Iterator[DeviceBatch], target_rows: int,
         yield flush()
 
 
+def sample_rows(batch: DeviceBatch, k: int) -> DeviceBatch:
+    """Up to ``k`` evenly spaced live rows as a k-capacity batch: the
+    device half of range-bounds sampling, so a bounds probe downloads k
+    rows, not the batch. With at most k live rows it takes them all."""
+    if batch.sel is not None:
+        batch = batch.compact()
+    n = torch.clamp(batch.num_rows.to(torch.int64), min=1)
+    slots = torch.arange(k, dtype=torch.int64, device=batch.device)
+    strided = (slots * (n - 1)) // max(k - 1, 1)
+    idx = torch.where(n > k, strided, torch.minimum(slots, n - 1))
+    take = torch.clamp(batch.num_rows, max=k)
+    return batch.gather(idx, take)
+
+
 def string_repad(col: DeviceColumn, width: int) -> DeviceColumn:
     """Widen a string column's byte matrix to ``width`` bytes."""
     assert col.dtype.is_string

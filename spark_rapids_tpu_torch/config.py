@@ -113,7 +113,26 @@ SHUFFLE_PARTITIONS = _entry(
     "spark.rapids.sql.shuffle.partitions",
     "Number of shuffle output partitions for exchanges (analog of "
     "spark.sql.shuffle.partitions). Unset on one device, the planner "
-    "plans one partition.", "long", 8)
+    "plans one partition; set, every hash and range exchange plans this "
+    "many.", "long", 8)
+
+AQE_COALESCE_PARTITIONS = _entry(
+    "spark.rapids.sql.aqe.coalescePartitions.enabled",
+    "After a shuffle materializes, merge undersized reduce partitions "
+    "using their now-exact row counts (GpuCustomShuffleReaderExec.scala:"
+    "132 coalesced-partition reader analog).", "boolean", True)
+
+AQE_COALESCE_TARGET_ROWS = _entry(
+    "spark.rapids.sql.aqe.coalescePartitions.targetRows",
+    "Row target per post-shuffle partition when coalescing.", "long",
+    1 << 20)
+
+AQE_COALESCE_TARGET_BYTES = _entry(
+    "spark.rapids.sql.aqe.coalescePartitions.targetBytes",
+    "Byte target per post-shuffle partition when coalescing, from the "
+    "device bytes of the pieces the map side kept. Partitions merge "
+    "while both the row and the byte target hold.", "long",
+    64 * 1024 * 1024)
 
 BATCH_SIZE_BYTES = _entry(
     "spark.rapids.sql.batchSizeBytes",

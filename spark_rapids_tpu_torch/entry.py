@@ -216,8 +216,7 @@ def _concat_strings(*pieces) -> np.ndarray:
 
 
 def tpch_columns(scale: float, seed: int = 0) -> dict:
-    """The columns TPC-H q1-q10, q12-q14, q16-q19 and q21 read, as numpy
-    arrays per table
+    """The columns the 22 TPC-H queries read, as numpy arrays per table
     (``{"lineitem": {...}, "orders": {...}, "customer": {...}, "part":
     {...}, "partsupp": {...}, "supplier": {...}, "nation": {...},
     "region": {...}}``): the JAX package's TPC-H generator
@@ -615,6 +614,27 @@ Q21_ORDERS = (("o_orderkey", dt.INT64), ("o_orderstatus", dt.STRING))
 Q21_SUPPLIER = (("s_suppkey", dt.INT64), ("s_name", dt.STRING),
                 ("s_nationkey", dt.INT64))
 Q21_NATION = _NATION_NAMES
+
+# The scans of q11, q15, q20 and q22, chosen as those above.
+Q11_NATION = _NATION_NAMES
+Q11_SUPPLIER = _SUPPLIER_KEYS
+Q11_PARTSUPP = (("ps_partkey", dt.INT64), ("ps_suppkey", dt.INT64),
+                ("ps_availqty", dt.INT32), ("ps_supplycost", dt.FLOAT64))
+Q15_LINEITEM = (("l_suppkey", dt.INT64), ("l_extendedprice", dt.FLOAT64),
+                ("l_discount", dt.FLOAT64), ("l_shipdate", dt.DATE))
+Q15_SUPPLIER = (("s_suppkey", dt.INT64), ("s_name", dt.STRING),
+                ("s_phone", dt.STRING), ("s_address", dt.STRING))
+Q20_PART = (("p_partkey", dt.INT64), ("p_name", dt.STRING))
+Q20_LINEITEM = (("l_partkey", dt.INT64), ("l_suppkey", dt.INT64),
+                ("l_quantity", dt.FLOAT64), ("l_shipdate", dt.DATE))
+Q20_PARTSUPP = (("ps_partkey", dt.INT64), ("ps_suppkey", dt.INT64),
+                ("ps_availqty", dt.INT32))
+Q20_NATION = _NATION_NAMES
+Q20_SUPPLIER = (("s_suppkey", dt.INT64), ("s_name", dt.STRING),
+                ("s_nationkey", dt.INT64), ("s_address", dt.STRING))
+Q22_CUSTOMER = (("c_custkey", dt.INT64), ("c_phone", dt.STRING),
+                ("c_acctbal", dt.FLOAT64))
+Q22_ORDERS = (("o_custkey", dt.INT64),)
 
 
 def _tables(cols: dict, schemas: dict) -> dict:

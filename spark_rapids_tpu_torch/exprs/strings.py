@@ -1,6 +1,7 @@
-"""String predicates with a literal needle or pattern (port of the JAX
-package's ``exprs/strings.py``, cut to ``byte_mask``, ``_sliding_match``,
-``_NeedleOp``, ``Contains``, ``StartsWith``, ``EndsWith`` and ``Like``).
+"""String expressions (port of the JAX package's ``exprs/strings.py``,
+cut to ``byte_mask``, ``char_starts``, ``pack_left``, ``Substring``,
+``_sliding_match``, ``_NeedleOp``, ``Contains``, ``StartsWith``,
+``EndsWith`` and ``Like``).
 
 A string column is a dense ``(N, W)`` uint8 matrix plus int32 lengths
 (``columnar/batch.py``). A needle match is a sliding-window equality over
@@ -11,8 +12,11 @@ Bytes are compared, so multibyte UTF-8 needles match as the reference
 matches them. ``Like`` splits its pattern on ``%``: literal segments
 match on the device as an exact match, a prefix, a suffix and ordered
 containment; a pattern with ``_`` takes the reference's host roundtrip
-(an anchored ``re`` match). The rest of the module (case, length,
-substring, locate, replace) comes in a later slice.
+(an anchored ``re`` match). ``Substring`` selects the bytes of the
+characters it keeps (UTF-8 lead bytes mark characters) and packs them
+left, on the device matrix in torch and on the host matrix in numpy. The
+rest of the module (case, length, locate, replace) comes in a later
+slice.
 """
 
 from __future__ import annotations
@@ -38,6 +42,105 @@ def byte_mask(width: int, lengths: torch.Tensor) -> torch.Tensor:
     """(N, W) bool: True for bytes inside the string."""
     return torch.arange(width, dtype=torch.int32,
                         device=lengths.device)[None, :] < lengths[:, None]
+
+
+def char_starts(data, lengths, xp=torch):
+    """(N, W) bool: True at the first byte of each UTF-8 codepoint."""
+    if xp is torch:
+        inside = byte_mask(data.shape[1], lengths)
+    else:
+        inside = np.arange(data.shape[1], dtype=np.int32)[None, :] \
+            < lengths[:, None]
+    return ((data & 0xC0) != 0x80) & inside
+
+
+def pack_left(data, keep, xp=torch):
+    """Compact each row's kept bytes to its left: (data, lengths)."""
+    w = data.shape[1]
+    if xp is torch:
+        order = torch.sort((~keep).to(torch.int8), dim=1,
+                           stable=True).indices
+        packed = torch.gather(data, 1, order)
+        counts = keep.sum(dim=1, dtype=torch.int32)
+        live = torch.arange(w, dtype=torch.int32,
+                            device=data.device)[None, :] < counts[:, None]
+        return torch.where(live, packed, torch.zeros_like(packed)), counts
+    order = np.argsort((~keep).astype(np.int8), axis=1, kind="stable")
+    packed = np.take_along_axis(data, order, axis=1)
+    counts = keep.sum(axis=1).astype(np.int32)
+    live = np.arange(w, dtype=np.int32)[None, :] < counts[:, None]
+    return np.where(live, packed, 0).astype(np.uint8), counts
+
+
+class Substring(Expression):
+    """substring(str, pos, len): 1-based and character-addressed; a
+    negative ``pos`` counts from the end and ``pos == 0`` means 1 (Spark
+    semantics; ref GpuSubstring). Positions and lengths are int64
+    throughout, so ``start + len`` cannot wrap (``substr(s, pos)`` is
+    ``len = Int.MaxValue``)."""
+
+    def __init__(self, child: Expression, pos: Expression,
+                 length: Expression):
+        self.child = child
+        self.pos = pos
+        self.length = length
+
+    @property
+    def children(self):
+        return (self.child, self.pos, self.length)
+
+    def data_type(self) -> DataType:
+        return dt.STRING
+
+    @staticmethod
+    def _keep(data, lengths, pos, slen, xp):
+        """(N, W) bool: the bytes of the kept characters."""
+        starts = char_starts(data, lengths, xp)
+        if xp is torch:
+            nchars = starts.sum(dim=1, dtype=torch.int64)
+            cidx = torch.cumsum(starts.to(torch.int64), dim=1) - 1
+            pos, slen = pos.to(torch.int64), slen.to(torch.int64)
+            zero = torch.zeros_like(pos)
+            inside = byte_mask(data.shape[1], lengths)
+        else:
+            nchars = starts.sum(axis=1).astype(np.int64)
+            cidx = np.cumsum(starts.astype(np.int64), axis=1) - 1
+            pos, slen = pos.astype(np.int64), slen.astype(np.int64)
+            zero = np.zeros_like(pos)
+            inside = np.arange(data.shape[1], dtype=np.int32)[None, :] \
+                < lengths[:, None]
+        slen = xp.maximum(slen, zero)
+        # pos > 0: 1-based from the start; pos < 0: from the end; 0 -> 1.
+        start = xp.where(pos > 0, pos - 1, xp.where(pos < 0, nchars + pos,
+                                                     zero))
+        start0 = xp.maximum(start, zero)
+        end = start0 + xp.where(start < 0, xp.maximum(slen + start, zero),
+                                slen)
+        return inside & (cidx >= start0[:, None]) & (cidx < end[:, None])
+
+    def eval(self, batch):
+        col = as_device_column(self.child.eval(batch), batch)
+        p = as_device_column(self.pos.eval(batch), batch)
+        n = as_device_column(self.length.eval(batch), batch)
+        keep = self._keep(col.data, col.lengths, p.data, n.data, torch)
+        data, lengths = pack_left(col.data, keep)
+        return make_column(dt.STRING, data,
+                           col.validity & p.validity & n.validity, lengths)
+
+    def eval_host(self, batch):
+        col = as_host_column(self.child.eval_host(batch), batch)
+        p = as_host_column(self.pos.eval_host(batch), batch)
+        n = as_host_column(self.length.eval_host(batch), batch)
+        m, lens = strings_to_matrix(col)
+        keep = self._keep(m, lens, np.asarray(p.data), np.asarray(n.data),
+                          np)
+        data, lengths = pack_left(m, keep, np)
+        validity = np.asarray(col.validity, np.bool_) \
+            & np.asarray(p.validity, np.bool_) \
+            & np.asarray(n.validity, np.bool_)
+        return HostColumn(dt.STRING, None, validity, str_matrix=data,
+                          str_lengths=np.where(validity, lengths, 0)
+                          .astype(np.int32))
 
 
 def _sliding_match(data: torch.Tensor, lengths: torch.Tensor,

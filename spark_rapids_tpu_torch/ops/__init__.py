@@ -9,15 +9,17 @@ from spark_rapids_tpu_torch.ops.base import (
 from spark_rapids_tpu_torch.ops.basic import (
     CoalescePartitionsExec, ExpandExec, FilterExec, GlobalLimitExec,
     LocalLimitExec, ProjectExec)
-from spark_rapids_tpu_torch.ops.join import BroadcastHashJoinExec
+from spark_rapids_tpu_torch.ops.join import (
+    BroadcastHashJoinExec, BroadcastNestedLoopJoinExec, ShuffledHashJoinExec)
 from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.ops.window import WindowExec
 
 __all__ = [
-    "AggSpec", "Average", "BroadcastHashJoinExec", "CoalescePartitionsExec",
+    "AggSpec", "Average", "BroadcastHashJoinExec",
+    "BroadcastNestedLoopJoinExec", "CoalescePartitionsExec",
     "Count", "CountStar", "DeviceToHostExec", "Exec", "ExecContext",
     "ExpandExec", "FilterExec", "GlobalLimitExec", "HashAggregateExec",
     "HostToDeviceExec", "InMemorySourceExec",
-    "LocalLimitExec", "Max", "Min", "ProjectExec", "SortExec", "SortOrder",
-    "Sum", "WindowExec",
+    "LocalLimitExec", "Max", "Min", "ProjectExec", "ShuffledHashJoinExec",
+    "SortExec", "SortOrder", "Sum", "WindowExec",
 ]

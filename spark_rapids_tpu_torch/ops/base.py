@@ -54,7 +54,7 @@ def record_batch(m: Metrics, batch: DeviceBatch) -> None:
 class ExecContext:
     """Per-query execution context: conf, per-operator metrics, and a
     per-query cache (a broadcast join's built side, shared across its
-    probe partitions)."""
+    probe partitions; an exchange's map-side pieces)."""
 
     conf: TpuConf = dataclasses.field(default_factory=TpuConf)
     metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
@@ -128,6 +128,9 @@ class Exec:
         result batch in one batched pass and return the rows; with
         ``device=False`` run them on the host engine."""
         ctx = ctx or ExecContext()
+        # The engine the query's root runs on: exchanges coalesce their
+        # partitions only under the device engine.
+        ctx.cache.setdefault("engine", "device" if device else "host")
         # Adopt this query's wire codec (process-global,
         # spark.rapids.sql.wire.codec) before any upload happens.
         from spark_rapids_tpu_torch.columnar import wire

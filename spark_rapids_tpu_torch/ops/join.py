@@ -1,7 +1,8 @@
-"""Broadcast hash join (port of the JAX package's ``ops/join.py``:
+"""Hash and nested-loop joins (port of the JAX package's ``ops/join.py``:
 ``BuiltSide``, ``build_side``, the dense direct-address table,
 ``_pair_keys_equal``, ``probe_ranges``, ``expand_pairs``, the join kernel
-mixin and ``BroadcastHashJoinExec``).
+mixin, ``ShuffledHashJoinExec``, ``BroadcastHashJoinExec`` and
+``BroadcastNestedLoopJoinExec``).
 
 A sort-probe join over key fingerprints, as in the reference:
 
@@ -13,7 +14,8 @@ A sort-probe join over key fingerprints, as in the reference:
       fingerprints and, for integral keys, their range.
   probe side, one of three paths per build:
       dense  - unique integral keys spanning under 2^24 values: a direct
-               table maps key -> build row, one gather per probe batch;
+               table maps key -> build row, one gather per probe batch
+               (not for a full outer join, which tracks build coverage);
       fast   - runs of at most 4: the two binary searches (kernel K3 on
                the card), then pair expansion into probe_cap * max_run
                slots with no host sync;
@@ -21,22 +23,37 @@ A sort-probe join over key fingerprints, as in the reference:
                count, then the expansion.
   Expanded pairs are checked key against key (a fingerprint range is a
   candidate only), then a residual condition, then the join type's
-  emission.
+  emission. A full outer join ORs each probe batch's matched build rows
+  into a coverage mask and, after the probe stream, emits the build rows
+  nothing matched with a NULL probe side (``_null_extend_build``).
 
 A u64 fingerprint is carried as the int64 tensor of its bit pattern; it is
 sorted as ``fp ^ (1 << 63)`` so signed order is unsigned order.
 
+``ShuffledHashJoinExec`` joins co-partitioned sides partition by
+partition: each partition's build side is coalesced to one batch
+(RequireSingleBatch) and probed, so K3 launches once per partition whose
+build is not dense. ``BroadcastHashJoinExec`` is its subclass whose build
+side is collected once from every partition of its child and shared by
+every probe partition (a full outer join there needs one probe
+partition). ``BroadcastNestedLoopJoinExec`` pairs every probe (left) row
+with every build (right) row, for cross joins and conditional joins of
+every type; a right or full one needs a single probe partition. Its
+output capacity is probe rows times build rows a batch: a product that
+cannot be allocated raises.
+
 The port runs every step eagerly: the JAX package's kernel cache, its
-out-of-memory retry and its jit/eager split have no counterpart here. Join
-types: inner, left, right, semi (left semi) and anti (left anti), each with
-an optional residual condition. Full outer and cross joins, the shuffled
-and nested-loop execs and grace partitioning come in later slices.
+out-of-memory retry, grace partitioning, runtime re-plan and jit/eager
+split have no counterpart here. Join types: inner, left, right, full,
+semi (left semi), anti (left anti) and cross, each with an optional
+residual condition.
 
 The host half (``_host_join``, numpy, as in the reference's host engine)
 encodes each key tuple to one int64 code per row in a code space shared
 by both sides (``encode_key_pair``: NaN == NaN, -0.0 == 0.0, no
 subnormal flush), sorts the build codes once per query, and probes every
-probe row through a lookup table or one binary search.
+probe row through a lookup table or one binary search; a nested-loop join
+expands the cross product in bounded chunks.
 """
 
 from __future__ import annotations
@@ -62,7 +79,7 @@ from spark_rapids_tpu_torch.ops.base import (
     Exec, Schema, record_batch, timed)
 from spark_rapids_tpu_torch.ops.sort import coalesce_to_single_batch
 
-JOIN_TYPES = ("inner", "left", "right", "semi", "anti")
+JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
 _INT64_MIN = -(1 << 63)
 _SENTINEL = -1                  # 0xFFFF_FFFF_FFFF_FFFF as an int64 pattern
@@ -93,6 +110,7 @@ class BuiltSide:
     batch: DeviceBatch              # rows in fingerprint-sorted order
     fp: torch.Tensor                # (cap,) int64: sorted u64 fingerprints
     matchable: torch.Tensor         # (cap,) bool: live with non-null keys
+    row_live: torch.Tensor          # (cap,) bool: live, null keys included
     key_ordinals: List[int]
     stats: Optional[torch.Tensor] = None
     table: Optional[torch.Tensor] = None       # (size,) int32, -1 = none
@@ -118,7 +136,7 @@ def _fingerprint64(batch: DeviceBatch, key_ordinals) -> torch.Tensor:
 def build_side(batch: DeviceBatch, key_ordinals: Sequence[int]) -> BuiltSide:
     """Sort build rows by fingerprint. Rows with a null key never match
     (SQL equi-join) and sort last with the sentinel, after them the dead
-    rows."""
+    rows; they stay live for a full outer join's emission."""
     fp = _fingerprint64(batch, key_ordinals)
     row_live = batch.row_mask()
     matchable = row_live
@@ -162,7 +180,8 @@ def build_side(batch: DeviceBatch, key_ordinals: Sequence[int]) -> BuiltSide:
         stats = torch.stack([max_run, torch.tensor(int(int_ok),
                                                    device=fp.device)]
                             + mins + maxs)
-    return BuiltSide(sorted_batch, s_fp, s_match, list(key_ordinals), stats)
+    return BuiltSide(sorted_batch, s_fp, s_match, s_live, list(key_ordinals),
+                     stats)
 
 
 def _maybe_build_dense(built: BuiltSide) -> None:
@@ -355,6 +374,12 @@ class _JoinKernelMixin:
 
     def _device_join_stream(self, ctx, built: BuiltSide, probe_iter,
                             probe_keys, build_is_right: bool):
+        jt = self.join_type
+        # Full outer: build coverage accumulates over the whole probe
+        # stream; the build rows nothing matched are emitted at its end.
+        covered_acc = torch.zeros(built.batch.capacity, dtype=torch.bool,
+                                  device=built.fp.device) \
+            if jt == "full" else None
         # Coalesce the probe stream (compacting sparse members first): a
         # probe batch costs launches whatever its size.
         probe_iter = coalesce_iter(probe_iter,
@@ -363,7 +388,7 @@ class _JoinKernelMixin:
         # One sync per build: the stats sized the fast path and decide the
         # dense table.
         mr = built.stats_host()[0] if built.stats is not None else None
-        if mr is not None:
+        if mr is not None and jt != "full":
             _maybe_build_dense(built)
         if built.table is not None:
             for pbatch in probe_iter:
@@ -380,13 +405,23 @@ class _JoinKernelMixin:
             else:
                 total = int(counts.sum())
                 out_cap = bucket_capacity(max(total, 1))
-            yield self._emit_expanded(built, pbatch, lo, counts, out_cap,
-                                      build_is_right, probe_keys)
+            out, covered = self._emit_expanded(
+                built, pbatch, lo, counts, out_cap, build_is_right,
+                probe_keys)
+            if covered_acc is not None:
+                covered_acc = covered_acc | covered
+            yield out
+        if covered_acc is not None:
+            yield self._null_extend_build(
+                built.batch, built.row_live, ~covered_acc,
+                self._probe_schema(), build_is_right)
 
     def _emit_expanded(self, built: BuiltSide, pbatch: DeviceBatch, lo,
                        counts, out_cap: int, build_is_right: bool,
-                       probe_keys) -> DeviceBatch:
-        """Expand the matches of one probe batch and emit by join type."""
+                       probe_keys):
+        """Expand the matches of one probe batch and emit by join type.
+        Returns (batch, the build rows a pair matched or None); only a
+        full outer join reads the latter."""
         jt = self.join_type
         cond = self.condition
         probe_cap = pbatch.capacity
@@ -404,20 +439,27 @@ class _JoinKernelMixin:
             c = as_device_column(cond.eval(pairs), pairs)
             cond_keep = c.data & c.validity & valid
         if jt == "inner":
-            return pairs.with_sel(cond_keep)
+            return pairs.with_sel(cond_keep), None
         # Per probe row: did any pair survive? (segment max over p)
-        hit = torch.zeros(probe_cap, dtype=torch.int32, device=p.device) \
-            .scatter_reduce(0, p, cond_keep.to(torch.int32), "amax") > 0
+        hit = _segment_any(cond_keep, p, probe_cap)
         if jt in ("semi", "anti"):
             keep = (hit if jt == "semi" else ~hit) & pbatch.row_mask()
-            return pbatch.with_sel(keep)
+            return pbatch.with_sel(keep), None
         # Outer joins: surviving pairs, then unmatched probe rows with a
         # NULL build side.
         survivors = pairs.with_sel(cond_keep)
         extra = self._null_extend(pbatch, ~hit & pbatch.row_mask(),
                                   built.batch, build_is_right)
-        return concat_batches([survivors, extra], bucket_capacity(
+        out = concat_batches([survivors, extra], bucket_capacity(
             survivors.capacity + extra.capacity))
+        if jt == "full":
+            bcap = built.batch.capacity
+            return out, _segment_any(cond_keep, b.clamp(0, bcap - 1), bcap)
+        return out, None
+
+    def _probe_schema(self) -> Schema:
+        build_right = self.join_type != "right"
+        return self.children[0 if build_right else 1].schema
 
     @staticmethod
     def _null_extend(pbatch: DeviceBatch, keep, build_batch: DeviceBatch,
@@ -434,17 +476,49 @@ class _JoinKernelMixin:
             cols = nulls + tuple(kept.columns)
         return DeviceBatch(cols, kept.num_rows, sel=kept.sel)
 
+    @staticmethod
+    def _null_extend_build(b: DeviceBatch, row_live, keep,
+                           probe_schema: Schema,
+                           build_is_right: bool) -> DeviceBatch:
+        """Build rows that are live and under ``keep``, with a NULL probe
+        side. A built batch's live rows are not a prefix
+        (fingerprint-sorted, null keys last), so ``num_rows`` is the
+        capacity and the selection vector alone marks them."""
+        dev = row_live.device
+        kept = DeviceBatch(b.columns, torch.tensor(
+            b.capacity, dtype=torch.int32, device=dev),
+            sel=keep & row_live)
+        nulls = tuple(DeviceColumn.full_null(t, b.capacity, device=dev)
+                      for _, t in probe_schema)
+        if build_is_right:
+            cols = nulls + tuple(kept.columns)
+        else:
+            cols = tuple(kept.columns) + nulls
+        return DeviceBatch(cols, kept.num_rows, sel=kept.sel)
+
+
+def _segment_any(flags: torch.Tensor, seg: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """(num_segments,) bool: whether any flag of each segment is set."""
+    return torch.zeros(num_segments, dtype=torch.int32,
+                       device=flags.device).scatter_reduce(
+        0, seg, flags.to(torch.int32), "amax") > 0
+
 
 # ---------------------------------------------------------------------------
-# The exec
+# The execs
 # ---------------------------------------------------------------------------
 
-class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
-    """Hash join whose build side is collected once, from every partition
-    of its child, and shared by every probe partition
-    (GpuBroadcastHashJoinExec). The build side is the right child, or the
-    left one for a right outer join; the probe side streams its
-    partitions. Keys are bound references into each side."""
+def _key_ordinals(keys: Sequence[Expression]) -> List[int]:
+    return [k.ordinal for k in keys]
+
+
+class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
+    """Both sides co-partitioned by key (GpuShuffledHashJoinExec). The
+    build side (right, or left for a right outer join) of each partition
+    is coalesced to one batch (RequireSingleBatch, as in the reference)
+    and its probe side streams. Keys are bound references into each
+    side."""
 
     def __init__(self, left: Exec, right: Exec,
                  left_keys: Sequence[Expression],
@@ -452,12 +526,6 @@ class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
                  join_type: str = "inner",
                  condition: Optional[Expression] = None):
         super().__init__(left, right)
-        if join_type == "full":
-            # Build-unmatched rows would be emitted once per probe
-            # partition; full outer needs a shuffled (co-partitioned)
-            # plan, which the port does not have yet.
-            raise NotImplementedError(
-                "full outer join requires a shuffled (co-partitioned) plan")
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unsupported join type {join_type!r}")
         for k in list(left_keys) + list(right_keys):
@@ -478,10 +546,54 @@ class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
         """(build_is_right, build child, probe child, build key ordinals,
         probe key ordinals)."""
         build_right = self.join_type != "right"
-        left = (self.children[0], [k.ordinal for k in self.left_keys])
-        right = (self.children[1], [k.ordinal for k in self.right_keys])
+        left = (self.children[0], _key_ordinals(self.left_keys))
+        right = (self.children[1], _key_ordinals(self.right_keys))
         build, probe = (right, left) if build_right else (left, right)
         return build_right, build[0], probe[0], build[1], probe[1]
+
+    def num_partitions(self, ctx) -> int:
+        return self.children[0].num_partitions(ctx)
+
+    def _empty_build(self, probe_iter, build_schema, build_right: bool):
+        """Every probe row is unmatched: anti keeps it, an outer join
+        null-extends it, the rest emit nothing."""
+        for pbatch in probe_iter:
+            if self.join_type == "anti":
+                yield pbatch
+            elif self.join_type in ("left", "right", "full"):
+                yield self._null_extend(
+                    pbatch, pbatch.row_mask(),
+                    _empty_like(build_schema, pbatch.device), build_right)
+
+    def execute_device(self, ctx, partition):
+        build_right, build_child, probe_child, build_keys, probe_keys = \
+            self._sides()
+        m = ctx.metrics_for(self)
+        bbatches = list(build_child.execute_device(ctx, partition))
+        if not bbatches:
+            if self.join_type not in ("inner", "semi", "cross"):
+                yield from self._empty_build(
+                    probe_child.execute_device(ctx, partition),
+                    build_child.schema, build_right)
+            return
+        with timed(m, "buildTime"):
+            built = build_side(coalesce_to_single_batch(bbatches),
+                               build_keys)
+        m.add("buildSideBuilds", 1)
+        for out in self._device_join_stream(
+                ctx, built, probe_child.execute_device(ctx, partition),
+                probe_keys, build_right):
+            record_batch(m, out)
+            yield out
+
+    def execute_host(self, ctx, partition):
+        yield from _host_join(self, ctx, partition)
+
+
+class BroadcastHashJoinExec(ShuffledHashJoinExec):
+    """Hash join whose build side is collected once, from every partition
+    of its child, and shared by every probe partition
+    (GpuBroadcastHashJoinExec); the probe side streams its partitions."""
 
     def num_partitions(self, ctx) -> int:
         return self._sides()[2].num_partitions(ctx)
@@ -489,6 +601,11 @@ class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
     def execute_device(self, ctx, partition):
         build_right, build_child, probe_child, build_keys, probe_keys = \
             self._sides()
+        # Full outer over a broadcast build would emit build-unmatched
+        # rows once per probe partition; Spark never plans that shape.
+        if self.join_type == "full" and probe_child.num_partitions(ctx) != 1:
+            raise NotImplementedError(
+                "full outer join requires a shuffled (co-partitioned) plan")
         m = ctx.metrics_for(self)
         probe_iter = probe_child.execute_device(ctx, partition)
         # The built side (collection + fingerprint sort of the broadcast
@@ -507,22 +624,124 @@ class BroadcastHashJoinExec(Exec, _JoinKernelMixin):
             ctx.cache[cache_key] = built
             m.add("buildSideBuilds", 1)
         if built is None:
-            for pbatch in probe_iter:
-                if self.join_type == "anti":
-                    yield pbatch
-                elif self.join_type in ("left", "right"):
-                    yield self._null_extend(
-                        pbatch, pbatch.row_mask(),
-                        _empty_like(build_child.schema, pbatch.device),
-                        build_right)
+            yield from self._empty_build(probe_iter, build_child.schema,
+                                         build_right)
             return
         for out in self._device_join_stream(ctx, built, probe_iter,
                                             probe_keys, build_right):
             record_batch(m, out)
             yield out
 
+
+class BroadcastNestedLoopJoinExec(Exec, _JoinKernelMixin):
+    """Cross and conditional nested-loop join: every probe (left) row
+    pairs with every build (right, collected from all its partitions)
+    row (GpuBroadcastNestedLoopJoinExec.scala). A batch's output capacity
+    is probe rows times build rows. 'right' preserves the build side;
+    right and full need a single probe partition (build-unmatched rows
+    are emitted once)."""
+
+    def __init__(self, left: Exec, right: Exec, join_type: str = "cross",
+                 condition: Optional[Expression] = None):
+        super().__init__(left, right)
+        if join_type not in JOIN_TYPES:
+            raise ValueError(f"unsupported join type {join_type!r}")
+        self.join_type = join_type
+        self.condition = condition
+
+    @property
+    def schema(self) -> Schema:
+        return _join_schema(self.children[0].schema,
+                            self.children[1].schema, self.join_type)
+
+    def num_partitions(self, ctx) -> int:
+        return self.children[0].num_partitions(ctx)
+
+    def execute_device(self, ctx, partition):
+        jt = self.join_type
+        if jt in ("right", "full") and self.num_partitions(ctx) != 1:
+            raise NotImplementedError(
+                f"nested-loop {jt} join needs a single probe partition")
+        m = ctx.metrics_for(self)
+        bbatches = []
+        for cp in range(self.children[1].num_partitions(ctx)):
+            bbatches.extend(self.children[1].execute_device(ctx, cp))
+        probe_iter = self.children[0].execute_device(ctx, partition)
+        if not bbatches:
+            # Empty build side: left/full keep probes null-extended, anti
+            # keeps every probe, inner/cross/semi/right emit nothing.
+            empty = _empty_like(self.children[1].schema,
+                                self.plan_device())
+            for pbatch in probe_iter:
+                if jt == "anti":
+                    yield pbatch
+                elif jt in ("left", "full"):
+                    yield self._null_extend(pbatch, pbatch.row_mask(),
+                                            empty, True)
+            return
+        build = coalesce_to_single_batch(bbatches)
+        if build.sel is not None:
+            # Probe rows pair with build positions 0..num_rows-1, so a
+            # selection vector compacts first.
+            build = build.compact()
+        live = build.row_mask()
+        bcap = build.capacity
+        nbuild = int(build.num_rows)
+        covered_acc = torch.zeros(bcap, dtype=torch.bool,
+                                  device=live.device) \
+            if jt in ("right", "full") else None
+        for pbatch in probe_iter:
+            pcap = pbatch.capacity
+            lo = torch.zeros(pcap, dtype=torch.int32, device=live.device)
+            counts = torch.where(pbatch.row_mask(), nbuild, 0)
+            out_cap = bucket_capacity(max(int(pbatch.num_rows) * nbuild, 1))
+            with timed(m):
+                out, covered = self._nlj_emit(build, pbatch, lo, counts,
+                                              out_cap)
+            if covered_acc is not None:
+                covered_acc = covered_acc | covered
+            record_batch(m, out)
+            yield out
+        if covered_acc is not None:
+            yield self._null_extend_build(build, live, ~covered_acc,
+                                          self.children[0].schema, True)
+
+    def _nlj_emit(self, build: DeviceBatch, pbatch: DeviceBatch, lo, counts,
+                  out_cap: int):
+        """``_emit_expanded`` with nested-loop semantics: the probe is
+        always the left side, and 'right' preserves the build."""
+        jt = self.join_type
+        cond = self.condition
+        probe_cap = pbatch.capacity
+        bcap = build.capacity
+        p, b, valid, total = expand_pairs(lo, counts, out_cap, probe_cap)
+        left = gather_rows(pbatch, p, total, valid_dst=valid)
+        right = gather_rows(build, b, total, valid_dst=valid)
+        pairs = DeviceBatch(tuple(left.columns) + tuple(right.columns),
+                            total)
+        cond_keep = valid
+        if cond is not None:
+            c = as_device_column(cond.eval(pairs), pairs)
+            cond_keep = c.data & c.validity & valid
+        covered = _segment_any(cond_keep, b.clamp(0, bcap - 1), bcap) \
+            if jt in ("right", "full") else None
+        if jt in ("inner", "cross", "right"):
+            # A right join emits its matched pairs here and the build
+            # rows nothing matched at the end.
+            return pairs.with_sel(cond_keep), covered
+        hit = _segment_any(cond_keep, p, probe_cap)
+        if jt in ("semi", "anti"):
+            keep = (hit if jt == "semi" else ~hit) & pbatch.row_mask()
+            return pbatch.with_sel(keep), covered
+        # left / full: survivors, then the unmatched probe rows.
+        survivors = pairs.with_sel(cond_keep)
+        extra = self._null_extend(pbatch, ~hit & pbatch.row_mask(), build,
+                                  True)
+        return concat_batches([survivors, extra], bucket_capacity(
+            survivors.capacity + extra.capacity)), covered
+
     def execute_host(self, ctx, partition):
-        yield from _host_join(self, ctx, partition)
+        yield from _host_join(self, ctx, partition, nested_loop=True)
 
 
 def _empty_host_batch(schema: Schema) -> HostBatch:
@@ -538,17 +757,21 @@ def _empty_host_batch(schema: Schema) -> HostBatch:
     return HostBatch(tuple(n for n, _ in schema), cols)
 
 
-def _host_join(op: BroadcastHashJoinExec, ctx, partition):
-    """Vectorized host equi-join with SQL null semantics (a null key
-    never matches). Each key tuple becomes one int64 code per row in a
-    code space shared by both sides; the build side sorts by code once
-    per query; each probe row finds its [lo, hi) run of build rows by a
+def _host_join(op, ctx, partition, nested_loop: bool = False):
+    """Vectorized host join with SQL null semantics (a null key never
+    matches). Each key tuple becomes one int64 code per row in a code
+    space shared by both sides; the build side sorts by code once per
+    query; each probe row finds its [lo, hi) run of build rows by a
     lookup table (dense codes) or one binary search over the unique
-    codes. Pairs expand by one repeat and gather, the condition
-    evaluates once over the gathered pairs, and every join type emits by
-    an index gather (a negative index is a null extension). Emission
-    order: pairs in left-row order with their build rows in code order,
-    then, for a right join, the unmatched right rows."""
+    codes. Pairs expand by one repeat and gather; a nested-loop join
+    expands the cross product in chunks of about 2^20 pairs. The
+    condition evaluates once over the gathered pairs, and every join
+    type emits by an index gather (a negative index is a null
+    extension). Emission order: pairs in left-row order with their build
+    rows in code order, then, for a right or full join, the unmatched
+    right rows. A shuffled join joins this partition of both sides; a
+    broadcast one this partition of its probe side with its whole build
+    side."""
 
     def collect(child, parts, cache_tag=None):
         # The broadcast side spans every child partition and is collected
@@ -569,7 +792,11 @@ def _host_join(op: BroadcastHashJoinExec, ctx, partition):
         return out
 
     lchild, rchild = op.children
-    if op.join_type != "right":
+    if isinstance(op, ShuffledHashJoinExec) and \
+            not isinstance(op, BroadcastHashJoinExec):
+        lb = collect(lchild, [partition])
+        rb = collect(rchild, [partition])
+    elif op.join_type != "right" or nested_loop:
         lb = collect(lchild, [partition])
         rb = collect(rchild, range(rchild.num_partitions(ctx)), "build")
     else:
@@ -593,82 +820,98 @@ def _host_join(op: BroadcastHashJoinExec, ctx, partition):
         return np.asarray(c.data, np.bool_) & np.asarray(c.validity,
                                                          np.bool_)
 
-    lval = np.ones(nl, np.bool_)
-    rval = np.ones(nr, np.bool_)
-    cl_parts, cr_parts = [], []
-    for lk, rk in zip(op.left_keys, op.right_keys):
-        a, b = lb.columns[lk.ordinal], rb.columns[rk.ordinal]
-        ca, cb = encode_key_pair(a, b)
-        cl_parts.append(ca)
-        cr_parts.append(cb)
-        lval &= np.asarray(a.validity, np.bool_)
-        rval &= np.asarray(b.validity, np.bool_)
-    if len(cl_parts) == 1:
-        cl, cr = cl_parts[0], cr_parts[0]
+    if nested_loop:
+        li_parts, ri_parts = [], []
+        step = max(1, (1 << 20) // max(1, nr))
+        ridx = np.arange(nr, dtype=np.int64)
+        for blo in range(0, nl, step):
+            bhi = min(nl, blo + step)
+            li_p = np.repeat(np.arange(blo, bhi, dtype=np.int64), nr)
+            ri_p = np.tile(ridx, bhi - blo)
+            ok = eval_cond(li_p, ri_p)
+            li_parts.append(li_p[ok])
+            ri_parts.append(ri_p[ok])
+        li_f = np.concatenate(li_parts) if li_parts \
+            else np.zeros(0, np.int64)
+        ri_f = np.concatenate(ri_parts) if ri_parts \
+            else np.zeros(0, np.int64)
     else:
-        allc = np.ascontiguousarray(np.concatenate(
-            [np.stack(cl_parts, 1), np.stack(cr_parts, 1)]))
-        v = allc.view(np.dtype((np.void, allc.shape[1] * 8))).ravel()
-        _, inv = np.unique(v, return_inverse=True)
-        inv = inv.astype(np.int64)
-        cl, cr = inv[:nl], inv[nl:]
-    # The build side's sort order and run boundaries are the same for
-    # every probe partition (the encodings are order-preserving and
-    # equality-exact over the same build rows): cached per build batch.
-    skey = f"hjoin-order:{id(op):x}"
-    cached = ctx.cache.get(skey)
-    if cached is not None and cached[0] is rb:
-        rs_order, rstart, rend = cached[1], cached[2], cached[3]
-    else:
-        rsel = np.flatnonzero(rval)
-        rs_order = rsel[stable_code_argsort(cr[rsel])]
-        cr_sorted = cr[rs_order]
-        if len(cr_sorted):
-            rstart = np.flatnonzero(np.concatenate(
-                [np.ones(1, np.bool_), cr_sorted[1:] != cr_sorted[:-1]]))
-            rend = np.concatenate(
-                [rstart[1:], np.array([len(cr_sorted)], np.int64)])
+        lval = np.ones(nl, np.bool_)
+        rval = np.ones(nr, np.bool_)
+        cl_parts, cr_parts = [], []
+        for lk, rk in zip(op.left_keys, op.right_keys):
+            a, b = lb.columns[lk.ordinal], rb.columns[rk.ordinal]
+            ca, cb = encode_key_pair(a, b)
+            cl_parts.append(ca)
+            cr_parts.append(cb)
+            lval &= np.asarray(a.validity, np.bool_)
+            rval &= np.asarray(b.validity, np.bool_)
+        if len(cl_parts) == 1:
+            cl, cr = cl_parts[0], cr_parts[0]
         else:
-            rstart = rend = np.zeros(0, np.int64)
-        ctx.cache[skey] = (rb, rs_order, rstart, rend)
-    # One lookup per probe row into the unique build codes.
-    if len(rs_order):
-        uniq = cr[rs_order[rstart]]
-        base = int(uniq[0])
-        spread = int(uniq[-1]) - base + 1
-        if spread <= max(1 << 20, 8 * len(uniq)):
-            # Dense codes (string ranks always, integer keys usually): a
-            # direct [lo, hi) table, one gather per probe row.
-            lut_lo = np.zeros(spread, np.int64)
-            lut_hi = np.zeros(spread, np.int64)
-            lut_lo[uniq - base] = rstart
-            lut_hi[uniq - base] = rend
-            idx = cl - base
-            inb = (idx >= 0) & (idx < spread) & lval
-            idx = np.where(inb, idx, 0)
-            plo = np.where(inb, lut_lo[idx], 0)
-            phi = np.where(inb, lut_hi[idx], 0)
+            allc = np.ascontiguousarray(np.concatenate(
+                [np.stack(cl_parts, 1), np.stack(cr_parts, 1)]))
+            v = allc.view(np.dtype((np.void, allc.shape[1] * 8))).ravel()
+            _, inv = np.unique(v, return_inverse=True)
+            inv = inv.astype(np.int64)
+            cl, cr = inv[:nl], inv[nl:]
+        # The build side's sort order and run boundaries are the same for
+        # every probe partition (the encodings are order-preserving and
+        # equality-exact over the same build rows): cached per build batch.
+        skey = f"hjoin-order:{id(op):x}"
+        cached = ctx.cache.get(skey)
+        if cached is not None and cached[0] is rb:
+            rs_order, rstart, rend = cached[1], cached[2], cached[3]
         else:
-            pos = np.minimum(np.searchsorted(uniq, cl, "left"),
-                             len(uniq) - 1)
-            hit = (uniq[pos] == cl) & lval
-            plo = np.where(hit, rstart[pos], 0)
-            phi = np.where(hit, rend[pos], 0)
-    else:
-        plo = phi = np.zeros(nl, np.int64)
-    if len(rstart) == len(rs_order):
-        # Unique build keys: 0 or 1 match a probe row, a masked gather.
-        li_p = np.flatnonzero(phi > plo)
-        ri_p = rs_order[plo[li_p]]
-    else:
-        cnt = (phi - plo).astype(np.int64)
-        tot = int(cnt.sum())
-        li_p = np.repeat(np.arange(nl, dtype=np.int64), cnt)
-        offs = np.arange(tot, dtype=np.int64) \
-            - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        ri_p = rs_order[np.repeat(plo, cnt) + offs]
-    ok = eval_cond(li_p, ri_p)
-    li_f, ri_f = li_p[ok], ri_p[ok]
+            rsel = np.flatnonzero(rval)
+            rs_order = rsel[stable_code_argsort(cr[rsel])]
+            cr_sorted = cr[rs_order]
+            if len(cr_sorted):
+                rstart = np.flatnonzero(np.concatenate(
+                    [np.ones(1, np.bool_), cr_sorted[1:] != cr_sorted[:-1]]))
+                rend = np.concatenate(
+                    [rstart[1:], np.array([len(cr_sorted)], np.int64)])
+            else:
+                rstart = rend = np.zeros(0, np.int64)
+            ctx.cache[skey] = (rb, rs_order, rstart, rend)
+        # One lookup per probe row into the unique build codes.
+        if len(rs_order):
+            uniq = cr[rs_order[rstart]]
+            base = int(uniq[0])
+            spread = int(uniq[-1]) - base + 1
+            if spread <= max(1 << 20, 8 * len(uniq)):
+                # Dense codes (string ranks always, integer keys usually): a
+                # direct [lo, hi) table, one gather per probe row.
+                lut_lo = np.zeros(spread, np.int64)
+                lut_hi = np.zeros(spread, np.int64)
+                lut_lo[uniq - base] = rstart
+                lut_hi[uniq - base] = rend
+                idx = cl - base
+                inb = (idx >= 0) & (idx < spread) & lval
+                idx = np.where(inb, idx, 0)
+                plo = np.where(inb, lut_lo[idx], 0)
+                phi = np.where(inb, lut_hi[idx], 0)
+            else:
+                pos = np.minimum(np.searchsorted(uniq, cl, "left"),
+                                 len(uniq) - 1)
+                hit = (uniq[pos] == cl) & lval
+                plo = np.where(hit, rstart[pos], 0)
+                phi = np.where(hit, rend[pos], 0)
+        else:
+            plo = phi = np.zeros(nl, np.int64)
+        if len(rstart) == len(rs_order):
+            # Unique build keys: 0 or 1 match a probe row, a masked gather.
+            li_p = np.flatnonzero(phi > plo)
+            ri_p = rs_order[plo[li_p]]
+        else:
+            cnt = (phi - plo).astype(np.int64)
+            tot = int(cnt.sum())
+            li_p = np.repeat(np.arange(nl, dtype=np.int64), cnt)
+            offs = np.arange(tot, dtype=np.int64) \
+                - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            ri_p = rs_order[np.repeat(plo, cnt) + offs]
+        ok = eval_cond(li_p, ri_p)
+        li_f, ri_f = li_p[ok], ri_p[ok]
 
     names = tuple(n for n, _ in op.schema)
     lmatch = np.bincount(li_f, minlength=nl)
@@ -676,15 +919,15 @@ def _host_join(op: BroadcastHashJoinExec, ctx, partition):
         keep = lmatch > 0 if jt == "semi" else lmatch == 0
         yield HostBatch(names, [c.filter(keep) for c in lb.columns])
         return
-    if jt == "left":
+    if jt in ("left", "full"):
         unm = np.flatnonzero(lmatch == 0)
         li_all = np.concatenate([li_f, unm])
         ri_all = np.concatenate([ri_f, np.full(len(unm), -1, np.int64)])
         order = np.argsort(li_all, kind="stable")
         li_all, ri_all = li_all[order], ri_all[order]
-    else:                                    # inner / right pairs
+    else:                                    # inner / cross / right pairs
         li_all, ri_all = li_f, ri_f
-    if jt == "right":
+    if jt in ("right", "full"):
         rmatched = np.zeros(nr, np.bool_)
         rmatched[ri_f] = True
         runm = np.flatnonzero(~rmatched)

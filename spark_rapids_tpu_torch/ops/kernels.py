@@ -48,10 +48,12 @@ def _full(like: torch.Tensor, value: int) -> torch.Tensor:
 # Orderable key normalization
 # ---------------------------------------------------------------------------
 
-def _orderable_u32_words(col: DeviceColumn) -> List[torch.Tensor]:
+def _orderable_u32_words(col: DeviceColumn,
+                         flush: bool = True) -> List[torch.Tensor]:
     """Column -> u32 words (int64 carried), most-significant first, whose
     lexicographic unsigned order is SQL ascending order (nulls handled
-    separately)."""
+    separately). ``flush`` orders f64 subnormals as zeros of their sign,
+    as the reference's device half compares them."""
     t = col.dtype
     if t.is_string:
         # Big-endian 4-byte words: zero padding sorts shorter strings first.
@@ -78,7 +80,9 @@ def _orderable_u32_words(col: DeviceColumn) -> List[torch.Tensor]:
         # the stable permutation is the same. Its float-domain compare
         # sees a subnormal as a zero of its sign, so they flush first.
         # (Its float32 words are bit patterns, which keep subnormals.)
-        x = flush_subnormal(col.data.to(torch.float64))
+        x = col.data.to(torch.float64)
+        if flush:
+            x = flush_subnormal(x)
         b = torch.where(torch.isnan(x), _full(x, _NAN_F64_BITS),
                         x.view(torch.int64))
         u = torch.where(b < 0, ~b, b | _INT64_MIN)
@@ -91,10 +95,11 @@ def _orderable_u32_words(col: DeviceColumn) -> List[torch.Tensor]:
 
 
 def sort_key_passes(col: DeviceColumn, ascending: bool,
-                    nulls_first: bool) -> List[torch.Tensor]:
+                    nulls_first: bool, flush: bool = True
+                    ) -> List[torch.Tensor]:
     """Radix word passes for one sort key, MSW first, including the null
     ordering word. Descending keys get bit-flipped words."""
-    words = _orderable_u32_words(col)
+    words = _orderable_u32_words(col, flush)
     if not ascending:
         words = [w ^ M32 for w in words]
     one, zero = _full(col.validity, 1), _full(col.validity, 0)

@@ -1,0 +1,326 @@
+"""The single-process shuffle exchange (port of the JAX package's
+``parallel/exchange.py`` ``ShuffleExchangeExec``; ref
+GpuShuffleExchangeExec.scala, ShuffledBatchRDD.scala).
+
+The exchange materializes its child once per query context (the map
+side), bucketing every batch by partition id, and keeps the pieces in the
+query's ``ExecContext`` cache, as the reference's ``inprocess`` transport
+keeps them (the transport SPI, spill catalog, cluster and mesh exchange
+are not ported). Reduce tasks then stream their bucket.
+
+Map side, per window of child batches (two-phase sizes-then-data):
+
+- one destination: no ids, no sort, no slices; each batch shrinks to its
+  live bucket (one batched row-count pull a window) and is kept whole;
+- otherwise each batch's partition ids and per-partition counts are
+  computed, the counts of the whole window pulled in one sync, a
+  mostly-dead batch shrinks to its live bucket first, and then one
+  pid-stable sort (``native.stable_argsort_u32``, kernel K1 on the card),
+  one packed ``gather_rows`` and one slice a piece move every row once.
+  A piece is a view of the sorted batch: its rows past its count are the
+  next partition's and lie outside its ``num_rows``.
+
+A range exchange samples up to 64 rows of the first batch of each child
+partition, downloads and merges them and picks its bounds on the host
+(``RangePartitioning.compute_bounds``); the child runs once for the
+sample and again for the data, as the reference's does. One partition
+needs no bounds, so it samples nothing.
+
+Reduce side: a partition's pieces concatenate into batches of up to
+``batchSizeRows`` capacity, carrying the summed ``rows_hint``. With
+``allow_coalesce`` (aggregate, window and sort exchanges; never a join's
+co-partitioned inputs) adjacent undersized partitions merge under the
+``spark.rapids.sql.aqe.coalescePartitions.*`` row and byte targets (the
+AQE-lite reader, GpuCustomShuffleReaderExec.scala:132). The reference
+compares the shard bytes its transport observed; here the kept pieces'
+device bytes stand in for them.
+
+The host half (``execute_host``) splits each host batch with
+``split_host_batch`` and serves a partition's pieces as they are.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch.columnar.batch import (
+    DeviceBatch, DeviceColumn, bucket_capacity, concat_batches, sample_rows,
+    shrink_all, shrink_to_capacity)
+from spark_rapids_tpu_torch.columnar.host import (
+    HostBatch, HostColumn, device_to_host)
+from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
+from spark_rapids_tpu_torch.exprs.base import BoundReference, as_host_column
+from spark_rapids_tpu_torch.ops import native
+from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
+from spark_rapids_tpu_torch.ops.sort import SortOrder
+from spark_rapids_tpu_torch.parallel.partitioning import (
+    Partitioning, RangePartitioning, split_host_batch)
+
+# Map-side window: at most this many child batches, or a quarter of the
+# device batch target in bytes, wait for one batched counts pull.
+_WINDOW = 32
+_SAMPLE_ROWS = 64
+
+
+def _slice_rows(batch: DeviceBatch, start: int, size: int,
+                num_rows: int) -> DeviceBatch:
+    """Rows [start, start + size) of a dense batch, as a batch of
+    ``num_rows`` live rows (views, no copy)."""
+    cols = []
+    for c in batch.columns:
+        lengths = c.lengths[start:start + size] if c.dtype.is_string \
+            else None
+        cols.append(DeviceColumn(c.dtype, c.data[start:start + size],
+                                 c.validity[start:start + size], lengths))
+    out = DeviceBatch(tuple(cols), torch.tensor(
+        num_rows, dtype=torch.int32, device=batch.device))
+    out.rows_hint = num_rows
+    return out
+
+
+class ShuffleExchangeExec(Exec):
+    """Repartition the child by a Partitioning strategy.
+
+    ``allow_coalesce`` opts this exchange into AQE-lite partition
+    coalescing: once the map side materializes, the exact per-bucket row
+    counts are known, and undersized adjacent reduce partitions merge up
+    to the target. The planner enables it where partition identity is
+    not load-bearing (aggregate, window and sort exchanges) and keeps it
+    off for co-partitioned join inputs."""
+
+    def __init__(self, child: Exec, partitioning: Partitioning,
+                 allow_coalesce: bool = False):
+        super().__init__(child)
+        self.partitioning = partitioning
+        self.allow_coalesce = allow_coalesce
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def _groups(self, ctx) -> Optional[List[List[int]]]:
+        """Coalesced bucket groups (device engine only), or None."""
+        n = self.partitioning.num_partitions
+        if not self.allow_coalesce or n <= 1 or \
+                ctx.cache.get("engine") != "device" or \
+                not bool(ctx.conf.get(C.AQE_COALESCE_PARTITIONS)):
+            return None
+        gkey = f"shuffle-groups:{id(self):x}"
+        groups = ctx.cache.get(gkey)
+        if groups is None:
+            buckets = self._materialize_device(ctx)
+            target = int(ctx.conf.get(C.AQE_COALESCE_TARGET_ROWS))
+            tbytes = int(ctx.conf.get(C.AQE_COALESCE_TARGET_BYTES))
+            groups = []
+            cur: List[int] = []
+            cur_rows = cur_bytes = 0
+            for b in range(n):
+                b_rows = sum(p.rows_hint for p in buckets[b])
+                b_bytes = sum(p.device_size_bytes() for p in buckets[b])
+                if cur and (cur_rows + b_rows > target or
+                            cur_bytes + b_bytes > tbytes):
+                    groups.append(cur)
+                    cur, cur_rows, cur_bytes = [], 0, 0
+                cur.append(b)
+                cur_rows += b_rows
+                cur_bytes += b_bytes
+            if cur:
+                groups.append(cur)
+            ctx.metrics_for(self).add("coalescedPartitions", n - len(groups))
+            ctx.cache[gkey] = groups
+        return groups
+
+    def num_partitions(self, ctx) -> int:
+        groups = self._groups(ctx)
+        if groups is not None:
+            return len(groups)
+        return self.partitioning.num_partitions
+
+    # -- the map side ---------------------------------------------------------
+    def _cache_key(self, device: bool) -> str:
+        return f"shuffle:{id(self):x}:{'dev' if device else 'host'}"
+
+    def _ensure_bounds(self, ctx, device: bool):
+        """A range partitioning picks its bounds from a host sample of up
+        to 64 rows of each child partition's first batch."""
+        p = self.partitioning
+        if not isinstance(p, RangePartitioning) or p.bounds is not None:
+            return
+        if p.num_partitions == 1:
+            p.bounds = HostBatch((), [])
+            return
+        child = self.children[0]
+        samples: List[HostBatch] = []
+        for cp in range(child.num_partitions(ctx)):
+            it = (child.execute_device(ctx, cp) if device
+                  else child.execute_host(ctx, cp))
+            for b in it:
+                hb = device_to_host(sample_rows(b, _SAMPLE_ROWS)) \
+                    if device else b
+                keycols = [as_host_column(o.child.eval_host(hb), hb)
+                           for o in p.orders]
+                n = min(_SAMPLE_ROWS, hb.num_rows)
+                idx = np.linspace(0, max(hb.num_rows - 1, 0), n,
+                                  dtype=np.int64) if n else \
+                    np.zeros(0, np.int64)
+                cols = [HostColumn(c.dtype, c.data[idx], c.validity[idx])
+                        for c in keycols]
+                samples.append(HostBatch(
+                    tuple(f"k{i}" for i in range(len(cols))), cols))
+                break       # one batch a partition is enough for bounds
+        if not samples:
+            p.bounds = HostBatch((), [])
+            return
+        merged_cols = []
+        for ci in range(samples[0].num_columns):
+            merged_cols.append(HostColumn(
+                samples[0].columns[ci].dtype,
+                np.concatenate([s.columns[ci].data for s in samples]),
+                np.concatenate([s.columns[ci].validity for s in samples])))
+        merged = HostBatch(samples[0].names, merged_cols)
+        # The bounds batch holds the key columns positionally, so the sort
+        # orders reference them by ordinal.
+        bound_orders = [SortOrder(BoundReference(i, o.child.data_type()),
+                                  o.ascending, o.nulls_first)
+                        for i, o in enumerate(p.orders)]
+        p.bounds = RangePartitioning.compute_bounds(merged, bound_orders,
+                                                    p.num_partitions)
+
+    def _pids_counts(self, b: DeviceBatch):
+        """(partition ids, per-partition live counts) of one batch."""
+        n = self.partitioning.num_partitions
+        pids = self.partitioning.partition_ids(b)
+        key = torch.where(b.row_mask(), pids.to(torch.int64),
+                          torch.full((), n, dtype=torch.int64,
+                                     device=b.device))
+        return pids, torch.bincount(key, minlength=n + 1)[:n]
+
+    def _split(self, b: DeviceBatch, pids: torch.Tensor, counts: List[int],
+               piece_cap: int) -> List[DeviceBatch]:
+        """One pid-stable sort (K1) and one packed gather, then a slice a
+        piece. The gather is padded by ``piece_cap`` rows so a slice near
+        the end never runs past it."""
+        n = self.partitioning.num_partitions
+        skey = torch.where(b.row_mask(), pids.to(torch.int64),
+                           torch.full((), n, dtype=torch.int64,
+                                      device=b.device))
+        perm = native.stable_argsort_u32(skey)
+        idx = torch.cat([perm.to(torch.int64), torch.zeros(
+            piece_cap, dtype=torch.int64, device=b.device)])
+        sorted_b = gather_rows(b, idx, b.live_count())
+        offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+        return [_slice_rows(sorted_b, int(offsets[p]), piece_cap, counts[p])
+                for p in range(n)]
+
+    def _materialize_device(self, ctx) -> List[List[DeviceBatch]]:
+        key = self._cache_key(True)
+        if key in ctx.cache:
+            return ctx.cache[key]
+        m = ctx.metrics_for(self)
+        self._ensure_bounds(ctx, device=True)
+        n = self.partitioning.num_partitions
+        buckets: List[List[DeviceBatch]] = [[] for _ in range(n)]
+
+        def flush_window(window: List[DeviceBatch]):
+            if n == 1:
+                pieces, counts1 = shrink_all(window)
+                for piece, cnt in zip(pieces, counts1):
+                    if cnt:
+                        piece.rows_hint = cnt
+                        buckets[0].append(piece)
+                return
+            metas = [(b,) + self._pids_counts(b) for b in window]
+            pulled = torch.stack([c for _, _, c in metas]).cpu().tolist()
+            for (batch, pids, _), counts in zip(metas, pulled):
+                total = sum(counts)
+                if total == 0:
+                    continue
+                # Mostly-dead batches shrink to their live bucket first,
+                # so the split moves live rows, not capacity.
+                small = bucket_capacity(total)
+                if small < batch.capacity:
+                    batch = shrink_to_capacity(batch, small)
+                    pids, _ = self._pids_counts(batch)
+                piece_cap = bucket_capacity(max(counts))
+                for p, piece in enumerate(self._split(batch, pids, counts,
+                                                      piece_cap)):
+                    if counts[p]:
+                        buckets[p].append(piece)
+
+        child = self.children[0]
+        max_window_bytes = max(int(ctx.conf.get(C.BATCH_SIZE_BYTES)) // 4,
+                               1 << 20)
+        window: List[DeviceBatch] = []
+        window_bytes = 0
+        with timed(m, "materializeTime"):
+            for cp in range(child.num_partitions(ctx)):
+                for b in child.execute_device(ctx, cp):
+                    window.append(b)
+                    window_bytes += b.device_size_bytes()
+                    if len(window) >= _WINDOW or \
+                            window_bytes >= max_window_bytes:
+                        flush_window(window)
+                        window, window_bytes = [], 0
+            if window:
+                flush_window(window)
+        ctx.cache[key] = buckets
+        return buckets
+
+    def _materialize_host(self, ctx) -> List[List[HostBatch]]:
+        key = self._cache_key(False)
+        if key in ctx.cache:
+            return ctx.cache[key]
+        self._ensure_bounds(ctx, device=False)
+        n = self.partitioning.num_partitions
+        buckets: List[List[HostBatch]] = [[] for _ in range(n)]
+        child = self.children[0]
+        for cp in range(child.num_partitions(ctx)):
+            for hb in child.execute_host(ctx, cp):
+                pids = self.partitioning.partition_ids_host(hb)
+                for p, piece in enumerate(split_host_batch(hb, pids, n)):
+                    buckets[p].append(piece)
+        ctx.cache[key] = buckets
+        return buckets
+
+    # -- the reduce side ------------------------------------------------------
+    def execute_device(self, ctx, partition):
+        """The partition's pieces (its group's, when coalesced),
+        concatenated up to ``batchSizeRows`` of capacity; the pieces'
+        exact counts make each output's ``rows_hint``."""
+        buckets = self._materialize_device(ctx)
+        m = ctx.metrics_for(self)
+        target = int(ctx.conf.get(C.BATCH_SIZE_ROWS))
+        groups = self._groups(ctx)
+        mine = groups[partition] if groups is not None else [partition]
+
+        def serve(group):
+            if len(group) == 1:
+                return group[0]
+            with timed(m, "concatTime"):
+                out = concat_batches(group, bucket_capacity(
+                    sum(b.capacity for b in group)))
+            out.rows_hint = sum(b.rows_hint for b in group)
+            return out
+
+        group: List[DeviceBatch] = []
+        group_cap = 0
+        for b in mine:
+            for piece in buckets[b]:
+                if group and group_cap + piece.capacity > target:
+                    out = serve(group)
+                    record_batch(m, out)
+                    yield out
+                    group, group_cap = [], 0
+                group.append(piece)
+                group_cap += piece.capacity
+        if group:
+            out = serve(group)
+            record_batch(m, out)
+            yield out
+
+    def execute_host(self, ctx, partition):
+        yield from iter(self._materialize_host(ctx)[partition])

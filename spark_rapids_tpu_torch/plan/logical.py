@@ -1,7 +1,7 @@
 """Logical plans and the untyped column DSL (port of the JAX package's
-``plan/logical.py``, cut to the DSL and nodes TPC-H q1-q10, q12-q14,
-q16-q19 and q21, TPCxBB q5 and q12 and the TPC-DS-like q67, q3, q42, q55,
-q89 and q98 use).
+``plan/logical.py``, cut to the DSL and nodes the 22 TPC-H queries,
+TPCxBB q5 and q12, ``repart`` and the TPC-DS-like q67, q3, q42, q55, q89
+and q98 use).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -12,9 +12,9 @@ Catalyst analysis feeding GpuOverrides.
 raises ``NotPortedError`` (a ``ResolutionError``) naming it. Window
 expressions (``Column.over`` a ``Window`` spec) never resolve: the
 DataFrame layer extracts them into ``LogicalWindow`` nodes, as the
-reference does. The reference's other DSL functions and nodes (generate,
-union, range, repartition, file scans, pandas) come with the slices that
-port their operators.
+reference does. A cast to or from a string raises ``NotPortedError`` too.
+The reference's other DSL functions and nodes (generate, union, range,
+file scans, pandas) come with the slices that port their operators.
 """
 
 from __future__ import annotations
@@ -132,6 +132,9 @@ class Column:
     def like(self, pattern: str) -> "Column":
         return Column(("like", self, pattern))
 
+    def substr(self, pos, length) -> "Column":
+        return Column(("substr", self, _as_col(pos), _as_col(length)))
+
     def asc(self) -> "Column":
         return Column(("sortorder", self, True, True))
 
@@ -199,6 +202,14 @@ class WhenBuilder(Column):
 
     def otherwise(self, value) -> Column:
         return Column(("when", tuple(self.branches), _as_col(value)))
+
+
+def murmur3_hash(*cs):
+    return Column(("hash", tuple(_as_col(c) for c in cs)))
+
+
+def pmod(c, d) -> Column:
+    return Column(("pmod", _as_col(c), _as_col(d)))
 
 
 def year(c):
@@ -356,9 +367,9 @@ class NotPortedError(ResolutionError):
 
 _BINARY = {
     "add": E.Add, "sub": E.Subtract, "mul": E.Multiply, "div": E.Divide,
-    "eq": E.EqualTo, "lt": E.LessThan, "le": E.LessThanOrEqual,
-    "gt": E.GreaterThan, "ge": E.GreaterThanOrEqual, "and": E.And,
-    "or": E.Or,
+    "mod": E.Remainder, "eq": E.EqualTo, "lt": E.LessThan,
+    "le": E.LessThanOrEqual, "gt": E.GreaterThan,
+    "ge": E.GreaterThanOrEqual, "and": E.And, "or": E.Or,
 }
 _UNARY = {"not": E.Not, "isnull": E.IsNull, "isnotnull": E.IsNotNull}
 _NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
@@ -366,7 +377,7 @@ _NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
 _DATE_PART = {"year": E.Year, "month": E.Month, "dayofmonth": E.DayOfMonth}
 # Every kind ``resolve`` maps onto a port expression.
 PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
-                          "like"}
+                          "like", "cast", "substr", "hash", "pmod"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
                          | set(_DATE_PART))
 # The window kinds: ported, but never resolved as expressions (the
@@ -397,6 +408,13 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return E.lit(v)
     if kind == "alias":
         return rec(node[1])
+    if kind == "cast":
+        child = rec(node[1])
+        src, to = child.data_type(), node[2]
+        if src != to and (src.is_string or to.is_string):
+            side = "to" if to.is_string else "from"
+            raise NotPortedError(f"cast {side} string is not ported")
+        return E.Cast(child, to)
     if kind in _UNARY:
         return _UNARY[kind](rec(node[1]))
     if kind in _BINARY:
@@ -409,6 +427,12 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return E.InSet(rec(node[1]), node[2])
     if kind == "like":
         return E.Like(rec(node[1]), node[2])
+    if kind == "substr":
+        return E.Substring(rec(node[1]), rec(node[2]), rec(node[3]))
+    if kind == "hash":
+        return E.Murmur3Hash([rec(x) for x in node[1]])
+    if kind == "pmod":
+        return E.Pmod(rec(node[1]), rec(node[2]))
     if kind == "coalesce":
         return E.Coalesce(*[rec(x) for x in node[1]])
     if kind == "when":
@@ -600,6 +624,18 @@ class LogicalLimit(_Unary):
     def __init__(self, child, n: int):
         super().__init__(child)
         self.n = n
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class LogicalRepartition(_Unary):
+    def __init__(self, child, num_partitions: int,
+                 keys: Optional[Sequence[Column]] = None):
+        super().__init__(child)
+        self.num_partitions = num_partitions
+        self.keys = list(keys) if keys else None
 
     @_cached_schema
     def schema(self) -> Schema:

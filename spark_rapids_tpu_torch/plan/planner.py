@@ -10,23 +10,26 @@
   engine, as the reference does.
 - The port's own reasons (``NodeMeta.port_reasons``, also listed among
   the reasons) name what it cannot run on either engine: a kind or node
-  it has no class for ("... is not ported"), an exchange into more than
-  one partition (``spark.rapids.sql.shuffle.partitions`` > 1), a full
-  outer join, a join without keys, a window function it has no class
-  for, join keys that are not column references. ``Planner.plan``
-  refuses such a plan with ``NotImplementedError`` listing every such
-  node.
-- Conversion emits the port's execs at one partition, each on its node's
-  engine, with ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a
-  child on the other engine where the reference bridges (``_bridge``).
-  Every exchange the reference plans (SinglePartitioning under a limit or
-  a zero-key aggregate or an unpartitioned window, HashPartitioning
-  between partial and final aggregates and under a partitioned window,
-  RangePartitioning under a sort) becomes ``CoalescePartitionsExec(child,
-  1)`` above the bridge, so it runs on its parent's engine. A join whose
-  auto strategy comes out ``shuffle`` becomes a ``BroadcastHashJoinExec``
-  over both sides coalesced to one partition: a shuffled hash join of one
-  partition a side is a hash join of the two whole sides.
+  it has no class for ("... is not ported"), a cast to or from a string,
+  a window function it has no class for, join keys that are not column
+  references. ``Planner.plan`` refuses such a plan with
+  ``NotImplementedError`` listing every such node.
+- Conversion emits the port's execs, each on its node's engine, with
+  ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a child on the
+  other engine where the reference bridges (``_bridge``). Every exchange
+  the reference plans is a ``ShuffleExchangeExec`` above the bridge, on
+  its parent's engine: ``SinglePartitioning`` under a limit, a zero-key
+  aggregate and an unpartitioned window; ``HashPartitioning`` between
+  partial and final aggregates, under a partitioned window and under each
+  side of a shuffled join; ``RangePartitioning`` under a sort; hash or
+  round robin for ``repartition``. Each plans
+  ``spark.rapids.sql.shuffle.partitions`` partitions when the conf sets
+  it and one otherwise (the reference's rule on one device); aggregate,
+  window and sort exchanges on the device may coalesce their partitions
+  once materialized (AQE-lite). A keyed join whose strategy comes out
+  ``shuffle`` is a ``ShuffledHashJoinExec`` over two hash exchanges, a
+  ``broadcast`` one a ``BroadcastHashJoinExec``, and a join without keys
+  a ``BroadcastNestedLoopJoinExec``.
 - ROLLUP and CUBE lower to ``ExpandExec`` under the two-stage aggregate
   keyed by the grouping id; DISTINCT aggregates lower to the partial /
   merge / mixed_final pipeline (``_convert_distinct_aggregate``);
@@ -36,7 +39,8 @@
   reasons: a failing device operator raises, and is never rerun there.
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
   (RapidsMeta.explain:291); ``collect`` runs the root on its engine (the
-  reference's scheduler, QoS, retry and fault layers are not ported).
+  reference's scheduler, QoS, retry, re-plan and fault layers are not
+  ported).
 """
 
 from __future__ import annotations
@@ -49,13 +53,17 @@ from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.exprs.base import BoundReference, Literal
 from spark_rapids_tpu_torch.ops import (
-    AggSpec, Average, BroadcastHashJoinExec, CoalescePartitionsExec, Count,
-    CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec, FilterExec,
-    GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
-    InMemorySourceExec, LocalLimitExec, Max, Min, ProjectExec, SortExec,
-    SortOrder, Sum, WindowExec)
+    AggSpec, Average, BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
+    Count, CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec,
+    FilterExec, GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
+    InMemorySourceExec, LocalLimitExec, Max, Min, ProjectExec,
+    ShuffledHashJoinExec, SortExec, SortOrder, Sum, WindowExec)
 from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
+from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
+from spark_rapids_tpu_torch.parallel.partitioning import (
+    HashPartitioning, RangePartitioning, RoundRobinPartitioning,
+    SinglePartitioning)
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import (
     Column, LogicalPlan, NotPortedError, ResolutionError, resolve)
@@ -97,12 +105,27 @@ def _exec_conf_key(name: str) -> str:
 
 
 def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
-               port_reasons: List[str]):
+               port_reasons: List[str], schema=None):
     """Walk an untyped Column AST, collecting fallback reasons (the port's
-    own also into ``port_reasons``). The reference's type-directed cast
-    gates and host-roundtrip notes serve kinds the port has not ported;
+    own also into ``port_reasons``). ``schema`` (when known) types a
+    cast's input: a cast to or from a string is not ported (the
+    reference's float/string cast gates serve those casts only). The
+    reference's host-roundtrip notes serve kinds the port has not ported;
     their "not ported" reason refuses them here."""
     kind = c.node[0]
+    if kind == "cast":
+        src = None
+        if schema is not None:
+            try:
+                src = resolve(c.node[1], schema).data_type()
+            except Exception:
+                pass
+        if c.node[2].is_string and src != c.node[2]:
+            _port_reason(reasons, port_reasons,
+                         "cast to string is not ported")
+        elif src is not None and src.is_string and src != c.node[2]:
+            _port_reason(reasons, port_reasons,
+                         "cast from string is not ported")
     if not conf.is_op_enabled(_expr_conf_key(kind)):
         reasons.append(f"expression {kind} disabled by "
                        f"{_expr_conf_key(kind)}")
@@ -121,15 +144,16 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
                      f"expression {kind} is not ported")
     for x in c.node[1:]:
         if isinstance(x, Column):
-            tag_column(x, conf, reasons, port_reasons)
+            tag_column(x, conf, reasons, port_reasons, schema)
         elif isinstance(x, tuple):
             for y in x:
                 if isinstance(y, Column):
-                    tag_column(y, conf, reasons, port_reasons)
+                    tag_column(y, conf, reasons, port_reasons, schema)
                 elif isinstance(y, tuple):
                     for z in y:
                         if isinstance(z, Column):
-                            tag_column(z, conf, reasons, port_reasons)
+                            tag_column(z, conf, reasons, port_reasons,
+                                       schema)
 
 
 def _port_reason(reasons: List[str], port_reasons: List[str], why: str):
@@ -201,7 +225,7 @@ class NodeMeta:
 
 _NODES = (L.InMemoryScan, L.LogicalFilter, L.LogicalProject,
           L.LogicalAggregate, L.LogicalSort, L.LogicalLimit, L.LogicalJoin,
-          L.LogicalWindow)
+          L.LogicalWindow, L.LogicalRepartition)
 
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
@@ -214,22 +238,23 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
     if not isinstance(plan, _NODES):
         _port_reason(reasons, ours, f"{plan.name} is not ported")
 
+    child_schema = _schema_or_none(plan.children[0]) \
+        if plan.children else None
     if isinstance(plan, L.LogicalFilter):
-        tag_column(plan.condition, conf, reasons, ours)
+        tag_column(plan.condition, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalProject):
         for _, c in plan.projections:
-            tag_column(c, conf, reasons, ours)
+            tag_column(c, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalAggregate):
-        schema = _schema_or_none(plan.child)
         for _, c in plan.group_by:
-            tag_column(c, conf, reasons, ours)
+            tag_column(c, conf, reasons, ours, child_schema)
         for _, c in plan.aggregates:
             ac = _unalias(c)
             if ac.node[0] not in ("agg", "aggd"):
                 continue
             if ac.node[2] is not None:
-                tag_column(ac.node[2], conf, reasons, ours)
-            _float_agg_reasons(ac, schema, conf, reasons)
+                tag_column(ac.node[2], conf, reasons, ours, child_schema)
+            _float_agg_reasons(ac, child_schema, conf, reasons)
             if ac.node[0] == "aggd" and ac.node[1] in ("first", "last"):
                 # The reference's conversion error, before any refusal.
                 raise ResolutionError(
@@ -240,40 +265,43 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
     elif isinstance(plan, L.LogicalSort):
         for o in plan.orders:
             tag_column(o.node[1] if o.node[0] == "sortorder" else o, conf,
-                       reasons, ours)
+                       reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalJoin):
         if plan.strategy == "shuffle" and plan.left_keys and \
                 not conf.get(C.REPLACE_SORT_MERGE_JOIN):
             reasons.append(
                 "co-partitioned (sort-merge-shaped) join replacement "
                 "disabled by spark.rapids.sql.replaceSortMergeJoin.enabled")
-        for k in plan.left_keys + plan.right_keys:
-            tag_column(k, conf, reasons, ours)
+        ls = child_schema
+        rs = _schema_or_none(plan.children[1])
+        for k in plan.left_keys:
+            tag_column(k, conf, reasons, ours, ls)
+        for k in plan.right_keys:
+            tag_column(k, conf, reasons, ours, rs)
         if plan.condition is not None:
-            tag_column(plan.condition, conf, reasons, ours)
-        if plan.join_type == "full":
-            _port_reason(reasons, ours, "full outer join is not ported (it "
-                         "needs a shuffled, co-partitioned plan)")
-        elif plan.join_type not in JOIN_TYPES:
+            tag_column(plan.condition, conf, reasons, ours,
+                       None if ls is None or rs is None
+                       else tuple(ls) + tuple(rs))
+        if plan.join_type not in JOIN_TYPES:
             _port_reason(reasons, ours,
                          f"join type {plan.join_type} is not ported")
-        if not plan.left_keys:
-            _port_reason(reasons, ours, "join without keys (nested loop "
-                         "join) is not ported")
         if any(_unalias(k).node[0] != "ref"
                for k in plan.left_keys + plan.right_keys):
             _port_reason(reasons, ours, "join keys that are not column "
                          "references are not ported")
+    elif isinstance(plan, L.LogicalRepartition):
+        for k in (plan.keys or []):
+            tag_column(k, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalWindow):
         for c in plan.window.partition_cols:
-            tag_column(c, conf, reasons, ours)
+            tag_column(c, conf, reasons, ours, child_schema)
         for o in plan.window.order_cols:
             inner = o.node[1] if o.node[0] == "sortorder" else o
-            tag_column(inner, conf, reasons, ours)
+            tag_column(inner, conf, reasons, ours, child_schema)
         for _, fn_col in plan.exprs:
             node = fn_col.node
             if len(node) > 2 and isinstance(node[2], Column):
-                tag_column(node[2], conf, reasons, ours)
+                tag_column(node[2], conf, reasons, ours, child_schema)
             known = _WINDOW_FNS if node[0] == "winfn" else \
                 set(_AGGS) if node[0] == "agg" else set()
             if node[1] not in known:
@@ -382,8 +410,11 @@ class PhysicalPlan:
 
 def _exec_lines(e: Exec, depth: int) -> List[str]:
     detail = ""
-    if isinstance(e, BroadcastHashJoinExec):
+    if isinstance(e, (ShuffledHashJoinExec, BroadcastNestedLoopJoinExec)):
         detail = f" {e.join_type}"
+    elif isinstance(e, ShuffleExchangeExec):
+        part = e.partitioning
+        detail = f" {type(part).__name__}({part.num_partitions})"
     elif isinstance(e, HashAggregateExec):
         detail = f" {e.mode} by {list(e.group_names)}"
     elif isinstance(e, InMemorySourceExec):
@@ -422,7 +453,6 @@ class Planner:
             # port cannot resolve is refused by the tagging below.
             pass
         meta = wrap_and_tag(logical, self.conf)
-        self._tag_exchanges(meta)
         if self.conf.explain in ("ALL", "NOT_ON_GPU"):
             print("\n".join(meta.explain_lines(
                 not_on_device_only=self.conf.explain == "NOT_ON_GPU")))
@@ -452,30 +482,19 @@ class Planner:
             else DeviceToHostExec(child)
 
     def _shuffle_partitions(self) -> int:
-        """One partition on one device unless the conf asks for more (the
-        reference's single-device rule)."""
+        """One partition on one device unless the conf sets the count (the
+        reference's single-device rule; its mesh is not ported)."""
         if self.conf.raw.get(C.SHUFFLE_PARTITIONS.key) is None:
             return 1
         return int(self.conf.get(C.SHUFFLE_PARTITIONS))
 
-    def _tag_exchanges(self, meta: NodeMeta):
-        """Refuse every node that would plan an exchange into more than
-        one partition: keyed aggregates, sorts, partitioned windows and
-        shuffled joins."""
-        n = self._shuffle_partitions()
-        if n > 1:
-            for m in _walk(meta):
-                plan = m.plan
-                if (isinstance(plan, L.LogicalAggregate) and plan.group_by) \
-                        or isinstance(plan, L.LogicalSort) or \
-                        (isinstance(plan, L.LogicalWindow)
-                         and plan.window.partition_cols) or \
-                        (isinstance(plan, L.LogicalJoin) and plan.left_keys
-                         and self._join_strategy(plan)[0] == "shuffle"):
-                    _port_reason(m.reasons, m.port_reasons,
-                                 f"an exchange into {n} partitions "
-                                 f"({C.SHUFFLE_PARTITIONS.key}) is not "
-                                 "ported")
+    def _hash_exchange(self, child: Exec, keys, n: int,
+                       allow_coalesce: bool = False) -> Exec:
+        """A hash shuffle; ``allow_coalesce`` opts into AQE-lite partition
+        merging, safe for aggregate and window exchanges, never for
+        co-partitioned join inputs."""
+        return ShuffleExchangeExec(child, HashPartitioning(keys, n),
+                                   allow_coalesce=allow_coalesce)
 
     def _join_strategy(self, plan: L.LogicalJoin):
         """(strategy, build estimate, threshold); the estimate and
@@ -515,24 +534,35 @@ class Planner:
                 for n, c in plan.projections]), want_dev
         if isinstance(plan, L.LogicalLimit):
             local = LocalLimitExec(child, plan.n)
-            return GlobalLimitExec(CoalescePartitionsExec(local, 1),
-                                   plan.n), want_dev
+            single = ShuffleExchangeExec(local, SinglePartitioning())
+            return GlobalLimitExec(single, plan.n), want_dev
+        if isinstance(plan, L.LogicalRepartition):
+            if plan.keys:
+                part = HashPartitioning(
+                    [resolve(k, plan.child.schema) for k in plan.keys],
+                    plan.num_partitions)
+            else:
+                part = RoundRobinPartitioning(plan.num_partitions)
+            return ShuffleExchangeExec(child, part), want_dev
         if isinstance(plan, L.LogicalSort):
-            # The reference's range exchange under a global sort, at one
-            # partition.
-            return SortExec(CoalescePartitionsExec(child, 1),
-                            _orders(plan.orders, plan.child.schema)), want_dev
+            # Global order: range-exchange into sorted partition ranges
+            # first (Spark's requiredChildDistribution for a global sort).
+            orders = _orders(plan.orders, plan.child.schema)
+            ex = ShuffleExchangeExec(
+                child, RangePartitioning(orders, self._shuffle_partitions()),
+                allow_coalesce=want_dev)
+            return SortExec(ex, orders), want_dev
         if isinstance(plan, L.LogicalAggregate):
-            return self._convert_aggregate(plan, child), want_dev
+            return self._convert_aggregate(plan, child, want_dev), want_dev
         if isinstance(plan, L.LogicalWindow):
-            return self._convert_window(plan, child), want_dev
+            return self._convert_window(plan, child, want_dev), want_dev
         raise NotImplementedError(f"cannot convert {plan.name}")
 
-    def _convert_window(self, plan: L.LogicalWindow, child: Exec) -> Exec:
-        """``WindowExec`` over its required distribution (the reference's
-        hash exchange on the PARTITION BY keys, or a single partition for
-        none), which is one partition here; ordering happens inside the
-        window's frame sort."""
+    def _convert_window(self, plan: L.LogicalWindow, child: Exec,
+                        want_dev: bool) -> Exec:
+        """``WindowExec`` over its required distribution (GpuWindowExec:
+        a hash exchange on the PARTITION BY keys, or a single partition
+        for none); ordering happens inside the window's frame sort."""
         schema = plan.child.schema
         win = plan.window
         pcols = [resolve(c, schema) for c in win.partition_cols]
@@ -576,10 +606,28 @@ class Planner:
                     frame = W.WindowFrame(None, None)   # whole partition
                 fn = W.WindowAgg(kind, agg_child, frame)
             wx_specs.append(W.WindowExprSpec(out_name, fn, spec))
-        return WindowExec(CoalescePartitionsExec(child, 1), wx_specs)
+        if pcols:
+            ex = self._hash_exchange(child, pcols,
+                                     self._shuffle_partitions(),
+                                     allow_coalesce=want_dev)
+        else:
+            ex = ShuffleExchangeExec(child, SinglePartitioning())
+        return WindowExec(ex, wx_specs)
 
-    def _convert_aggregate(self, plan: L.LogicalAggregate,
-                           child: Exec) -> Exec:
+    def _exchange_on_keys(self, child: Exec, group_by,
+                          want_dev: bool) -> Exec:
+        """The exchange between two aggregate stages: hash on the group
+        keys (the leading columns of the stage below), or a single
+        partition for a zero-key aggregate."""
+        if not group_by:
+            return ShuffleExchangeExec(child, SinglePartitioning())
+        keys = [BoundReference(i, e.data_type())
+                for i, (_, e) in enumerate(group_by)]
+        return self._hash_exchange(child, keys, self._shuffle_partitions(),
+                                   allow_coalesce=want_dev)
+
+    def _convert_aggregate(self, plan: L.LogicalAggregate, child: Exec,
+                           want_dev: bool) -> Exec:
         schema = plan.child.schema
         group_by = [(n, resolve(c, schema)) for n, c in plan.group_by]
         aggs = [AggSpec(n, fn, distinct=fn.is_distinct)
@@ -590,13 +638,14 @@ class Planner:
                 raise ResolutionError(
                     "DISTINCT aggregates under rollup/cube are unsupported")
             return self._convert_grouping_sets(plan.grouping, group_by,
-                                               aggs, child)
+                                               aggs, child, want_dev)
         if any(s.distinct for s in aggs):
-            return self._convert_distinct_aggregate(group_by, aggs, child)
-        return self._two_stage(group_by, aggs, child)
+            return self._convert_distinct_aggregate(group_by, aggs, child,
+                                                    want_dev)
+        return self._two_stage(group_by, aggs, child, want_dev)
 
     def _convert_grouping_sets(self, kind: str, group_by, aggs,
-                               child: Exec) -> Exec:
+                               child: Exec, want_dev: bool) -> Exec:
         """ROLLUP/CUBE via ExpandExec (Spark lowers grouping sets to
         Expand + Aggregate keyed by (keys..., grouping id)): each input
         row is emitted once per grouping set, with aggregated-out keys
@@ -637,7 +686,7 @@ class Planner:
                 continue
             ref = BoundReference(nk + i, s.fn.child.data_type())
             ex_aggs.append(AggSpec(s.name, type(s.fn)(ref)))
-        final = self._two_stage(ex_group, ex_aggs, expand)
+        final = self._two_stage(ex_group, ex_aggs, expand, want_dev)
         # Drop the grouping id from the output.
         out = [(n, BoundReference(i, e.data_type()))
                for i, (n, e) in enumerate(ex_group[:nk])]
@@ -645,25 +694,27 @@ class Planner:
                 for i, s in enumerate(ex_aggs)]
         return ProjectExec(final, out)
 
-    def _two_stage(self, group_by, aggs, child: Exec) -> Exec:
-        """partial -> exchange -> final; the exchange (hash on the keys,
-        or a single partition for a zero-key aggregate) is one partition
-        here."""
+    def _two_stage(self, group_by, aggs, child: Exec,
+                   want_dev: bool) -> Exec:
+        """partial -> exchange (hash on the keys, or a single partition
+        for a zero-key aggregate) -> final."""
         partial = HashAggregateExec(child, group_by, aggs, mode="partial")
         final_groups = [
             (n, BoundReference(i, e.data_type()))
             for i, (n, e) in enumerate(group_by)]
-        return HashAggregateExec(CoalescePartitionsExec(partial, 1),
-                                 final_groups, aggs, mode="final")
+        return HashAggregateExec(
+            self._exchange_on_keys(partial, group_by, want_dev),
+            final_groups, aggs, mode="final")
 
-    def _convert_distinct_aggregate(self, group_by, aggs,
-                                    child: Exec) -> Exec:
+    def _convert_distinct_aggregate(self, group_by, aggs, child: Exec,
+                                    want_dev: bool) -> Exec:
         """DISTINCT aggregates through the partial-merge mode combos
         (aggregate.scala:305 distinct handling):
 
           partial keyed by (keys..., x), with the partial non-distinct
           aggregates
-          -> the exchange on the keys (one partition here; a zero-key
+          -> the exchange on the keys (x rides along: co-location by the
+             keys suffices, as the merge completes the dedup; a zero-key
              aggregate goes to a single partition)
           -> merge keyed by (keys..., x): deduplicated, buffers merged
           -> mixed_final keyed by the keys: the distinct aggregates
@@ -687,8 +738,9 @@ class Planner:
         gb_b = [(n, BoundReference(i, e.data_type()))
                 for i, (n, e) in enumerate(group_by)]
         gb_b.append(("__distinct_x", BoundReference(nkeys, xt)))
-        stage_b = HashAggregateExec(CoalescePartitionsExec(stage_a, 1),
-                                    gb_b, nd_specs, mode="merge")
+        stage_b = HashAggregateExec(
+            self._exchange_on_keys(stage_a, group_by, want_dev), gb_b,
+            nd_specs, mode="merge")
         final_groups = gb_b[:nkeys]
         specs_c = [AggSpec(s.name, type(s.fn)(BoundReference(nkeys, xt)),
                            distinct=True) if s.distinct else s
@@ -705,18 +757,21 @@ class Planner:
         cond = None
         if plan.condition is not None:
             cond = resolve(plan.condition, tuple(ls) + tuple(rs))
+        if not lkeys:
+            return BroadcastNestedLoopJoinExec(lch, rch, plan.join_type, cond)
         strategy, est, threshold = self._join_strategy(plan)
         if plan.strategy == "auto":
             meta.notes.append(
                 f"auto join strategy -> {strategy} (build side "
                 f"~{est if est is not None else '?'} bytes, "
                 f"threshold {threshold})")
-        if strategy != "broadcast":
-            # A shuffled hash join of one partition a side.
-            lch = CoalescePartitionsExec(lch, 1)
-            rch = CoalescePartitionsExec(rch, 1)
-        return BroadcastHashJoinExec(lch, rch, lkeys, rkeys, plan.join_type,
-                                     cond)
+        if strategy == "broadcast":
+            return BroadcastHashJoinExec(lch, rch, lkeys, rkeys,
+                                         plan.join_type, cond)
+        n = self._shuffle_partitions()
+        return ShuffledHashJoinExec(self._hash_exchange(lch, lkeys, n),
+                                    self._hash_exchange(rch, rkeys, n),
+                                    lkeys, rkeys, plan.join_type, cond)
 
 
 def _orders(orders, schema) -> List[SortOrder]:

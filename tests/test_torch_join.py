@@ -372,7 +372,10 @@ def test_empty_build_side_matches_reference(join_type):
 
 
 def test_full_outer_join_is_refused():
-    src = TO.InMemorySourceExec((("k", tdt.INT64),), [[]], device="cpu")
+    """A full outer join over a broadcast build needs one probe partition
+    (else its unmatched build rows would come out once a partition)."""
+    src = TO.InMemorySourceExec((("k", tdt.INT64),), [[], []], device="cpu")
+    join = tjoin.BroadcastHashJoinExec(src, src, [TE.BoundReference(
+        0, tdt.INT64)], [TE.BoundReference(0, tdt.INT64)], "full")
     with pytest.raises(NotImplementedError, match="shuffled"):
-        tjoin.BroadcastHashJoinExec(src, src, [TE.BoundReference(
-            0, tdt.INT64)], [TE.BoundReference(0, tdt.INT64)], "full")
+        join.collect(TO.ExecContext())

@@ -141,6 +141,12 @@ ASTS = {
     "month": lambda M: M.month(M.col("d")),
     "dayofmonth": lambda M: M.dayofmonth(M.col("d")),
     "like": lambda M: ~M.col("s").like("%special%requests%"),
+    "mod": lambda M: M.col("i64") % 3,
+    "pmod": lambda M: M.pmod(M.col("i32"), 7),
+    "cast": lambda M: M.col("i32").cast("long"),
+    "cast_double": lambda M: M.col("i32").cast("double") > M.col("f64"),
+    "substr": lambda M: M.col("s").substr(1, 2),
+    "hash": lambda M: M.murmur3_hash(M.col("i64"), M.col("s")),
 }
 
 
@@ -183,21 +189,24 @@ def test_resolution_errors_match_reference(name):
     assert str(got.value) == str(want.value)
 
 
+# kind -> (AST, what the port's refusal names): a cast to a string is
+# refused, a fixed-width one resolves (ASTS).
 UNPORTED = {
-    "abs": lambda M: M.Column(("abs", M.col("f64"))),
-    "mod": lambda M: M.col("i64") % 3,
-    "neg": lambda M: -M.col("i32"),
-    "cast": lambda M: M.col("i32").cast("long"),
+    "abs": (lambda M: M.Column(("abs", M.col("f64"))),
+            "expression abs is not ported"),
+    "neg": (lambda M: -M.col("i32"), "expression neg is not ported"),
+    "cast": (lambda M: M.col("i32").cast("string"),
+             "cast to string is not ported"),
 }
 
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED))
 def test_unported_kinds_raise_naming_the_kind(kind):
     # The reference resolves them; the port names what it lacks.
-    JL.resolve(UNPORTED[kind](JL), jschema(SCHEMA))
-    with pytest.raises(L.ResolutionError,
-                       match=f"expression {kind} is not ported"):
-        L.resolve(UNPORTED[kind](L), SCHEMA)
+    build, why = UNPORTED[kind]
+    JL.resolve(build(JL), jschema(SCHEMA))
+    with pytest.raises(L.ResolutionError, match=why):
+        L.resolve(build(L), SCHEMA)
 
 
 def test_ported_kinds_are_the_resolvable_ones():

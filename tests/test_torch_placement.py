@@ -8,9 +8,8 @@ and the queries return the reference's rows, on the CPU.
   ``spark.rapids.sql.exec.LogicalJoin=false`` and
   ``spark.rapids.sql.expression.mul=false``:
   - ``host_fallback_nodes()``, the root's engine and the converted tree
-    with its transitions equal the reference's (its exchanges read as
-    the port's one-partition ``CoalescePartitionsExec``, its shuffled
-    hash join as the port's hash join);
+    with its transitions (exchanges and shuffled joins included) equal
+    the reference's;
   - the rows equal the reference's (its host engine's, the CPU oracle its
     own tests use): floats within ``approx_float``, everything else
     exact; q1's and q6's mixed plans also equal the reference's mixed
@@ -59,12 +58,6 @@ CONFS = {
     "mul_disabled": {"spark.rapids.sql.expression.mul": False},
 }
 
-# The reference's exec names as the port's one-partition lowering names
-# them.
-_AS_PORT = {"ShuffleExchangeExec": "CoalescePartitionsExec",
-            "ShuffledHashJoinExec": "BroadcastHashJoinExec"}
-
-
 def _plans(q, raw, small_tables, monkeypatch):
     """(port PhysicalPlan, reference PhysicalPlan, port DataFrame) of
     query ``q`` under the raw conf."""
@@ -76,12 +69,9 @@ def _plans(q, raw, small_tables, monkeypatch):
     return df._physical(), want, df
 
 
-def _shape(e, names=None):
+def _shape(e):
     """The exec tree as nested (name, children) tuples."""
-    name = type(e).__name__
-    if names:
-        name = names.get(name, name)
-    return (name, tuple(_shape(c, names) for c in e.children))
+    return (type(e).__name__, tuple(_shape(c) for c in e.children))
 
 
 def _transitions(shape, parent=None, out=None):
@@ -110,7 +100,7 @@ def test_placement_matches_reference(q, conf, small_tables, monkeypatch):
     assert got.root_on_device == want.root_on_device
     assert got.meta.explain_lines() == want.meta.explain_lines()
     shape = _shape(got.root)
-    assert shape == _shape(want.root, _AS_PORT)
+    assert shape == _shape(want.root)
     if conf == "sql_disabled":
         assert not _transitions(shape) and not got.root_on_device
     if conf == "join_disabled" and q not in ("q1", "q6"):
@@ -195,7 +185,7 @@ def test_default_conf_places_float_aggregates_on_the_host(q, small_tables,
     if q == "q6":
         assert not got.root_on_device and len(trans) == 1
     else:
-        assert ("HostToDeviceExec", "CoalescePartitionsExec",
+        assert ("HostToDeviceExec", "ShuffleExchangeExec",
                 "HashAggregateExec") in trans
         assert got.root_on_device
 
@@ -204,8 +194,8 @@ def test_q1_tree_under_the_default_conf(small_tables, monkeypatch):
     got, _want, _df = _plans("q1", {}, small_tables, monkeypatch)
     names = [line.strip().split()[0] for line in got.tree().splitlines()]
     assert names[:8] == [
-        "SortExec", "CoalescePartitionsExec", "HostToDeviceExec",
-        "HashAggregateExec", "CoalescePartitionsExec", "HashAggregateExec",
+        "SortExec", "ShuffleExchangeExec", "HostToDeviceExec",
+        "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
         "DeviceToHostExec", "ProjectExec"]
 
 

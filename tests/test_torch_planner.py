@@ -11,19 +11,21 @@ api.dataframe against the JAX package's, on the CPU.
   "not ported" reasons are set aside.
 - ``Planner.plan`` refuses with ``NotImplementedError`` naming every
   node the port cannot run on either engine, with its reasons: kinds it
-  has not ported, exchanges into more than one partition (a partitioned
-  window's too), full outer and keyless joins, aggregates it has no
-  class for (under a ROLLUP too), window functions it has not ported,
-  join keys that are not columns. A node tagged only for the reference's
+  has not ported, aggregates it has no class for (under a ROLLUP too),
+  window functions it has not ported, join keys that are not columns.
+  Exchanges into more than one partition (a partitioned window's too),
+  full outer and keyless joins, which it refused before it had the
+  exchange and the shuffled and nested-loop joins, run and give the
+  reference's rows. A node tagged only for the reference's
   reasons (a float aggregate under the default conf, a float
   sum(DISTINCT) there too, a disabled exec) runs on the host
   engine instead and gives the reference's rows; test mode asserts on it
   unless ``spark.rapids.sql.test.allowedNonTpu`` names it, as the
   reference does.
-- The one-partition lowering: q4 with the broadcast threshold under its
-  build estimate plans ``shuffle`` in both planners (the same note), the
-  port's join reads both sides coalesced to one partition, and the rows
-  equal the reference's shuffled hash join's.
+- The shuffled join: q4 with the broadcast threshold under its build
+  estimate plans ``shuffle`` in both planners (the same note), the
+  port's ``ShuffledHashJoinExec`` reads both sides through hash
+  exchanges, and the rows equal the reference's shuffled hash join's.
 - The DataFrame API: builders (python rows, dicts, numpy columns),
   ``with_column``, ``group_by().count()``, ``limit``, re-planning on a
   conf change (a filter disabled by its kill switch moves to the host),
@@ -44,8 +46,8 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.api import DataFrame, TpuSession
 from spark_rapids_tpu_torch.benchmarks import tpch
 from spark_rapids_tpu_torch.columnar import dtypes as dt
-from spark_rapids_tpu_torch.ops import (
-    BroadcastHashJoinExec, CoalescePartitionsExec)
+from spark_rapids_tpu_torch.ops import ShuffledHashJoinExec
+from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import planner as PL
 
@@ -130,7 +132,8 @@ def _gated_plans(M, df_scan):
                                     ("y", M.agg_sum(c("a"))),
                                     ("z", M.agg_avg(c("a")))]),
         "unported_under_filter": M.LogicalFilter(M.LogicalProject(
-            scan, [("r", c("f") % 2.0), ("a", c("a"))]), c("r") > 1.0),
+            scan, [("r", M.Column(("md5", c("s")))), ("a", c("a"))]),
+            c("a") > 1),
         "shuffle_join": M.LogicalJoin(scan, scan, [c("a")], [c("a")],
                                       "inner", strategy="shuffle"),
     }
@@ -141,7 +144,7 @@ def _gated_plans(M, df_scan):
 @pytest.mark.parametrize("raw", [
     {}, {VFA: True},
     {"spark.rapids.sql.replaceSortMergeJoin.enabled": False, VFA: True},
-    {"spark.rapids.sql.expression.mod": False}])
+    {"spark.rapids.sql.expression.md5": False}])
 def test_gates_match_reference_apart_from_not_ported(plan, raw):
     from spark_rapids_tpu.api import TpuSession as JSession
     pconf, jconf = _confs(raw)
@@ -152,7 +155,7 @@ def test_gates_match_reference_apart_from_not_ported(plan, raw):
     assert _tags(_without_not_ported(got)) == _tags(want)
     extra = [r for _n, reasons, _ in _tags(got) for r in reasons
              if "is not ported" in r]
-    assert extra == (["expression mod is not ported"]
+    assert extra == (["expression md5 is not ported"]
                      if plan == "unported_under_filter" else [])
 
 
@@ -207,34 +210,48 @@ def _host_cases(M, session):
     }
 
 
+def _lifted_cases(M, session):
+    """Plans the port refused before it had the exchange, the shuffled
+    and nested-loop joins and full outer joins, in either package's DSL:
+    case -> (DataFrame, conf updates)."""
+    df = _scan_df(session)
+    other = _scan_df(session).select(M.col("a").alias("b"),
+                                     M.col("s").alias("t"))
+    return {
+        "multi_partition_exchange": (
+            df.group_by("s").count().order_by("s"),
+            {"spark.rapids.sql.shuffle.partitions": 4}),
+        "multi_partition_shuffle_join": (
+            df.join_on(other, ["a"], ["b"]),
+            {"spark.rapids.sql.shuffle.partitions": 2,
+             "spark.rapids.sql.autoBroadcastJoinThreshold": -1}),
+        "full_outer_join": (
+            df.filter(M.col("a") > 1).join_on(
+                other.filter(M.col("b") < 4), ["a"], ["b"], how="full"),
+            {}),
+        "keyless_join": (df.join_on(other, [], []), {}),
+        "multi_partition_window": (
+            df.with_column("r", M.rank().over(
+                M.Window.partition_by("s").order_by("a"))),
+            {"spark.rapids.sql.shuffle.partitions": 4}),
+    }
+
+
 def _refusals(session):
     df = _scan_df(session)
     other = _scan_df(session).select(L.col("a").alias("b"),
                                      L.col("s").alias("t"))
     c = L.col
+    md5 = L.Column(("md5", c("s")))
     return {
-        # case -> (DataFrame, conf updates, [(node, reason), ...])
+        # case -> (DataFrame, conf updates, [(node, reason), ...]); a
+        # lifted case refuses nothing and runs.
         **_host_cases(L, session),
+        **{k: (d, conf, []) for k, (d, conf) in
+           _lifted_cases(L, session).items()},
         "unported_expression": (
-            df.select((c("f") % 2.0).alias("r"), "a").filter(c("r") > 1.0),
-            {}, [("LogicalProject", "expression mod is not ported")]),
-        "multi_partition_exchange": (
-            df.group_by("s").count().order_by("s"),
-            {"spark.rapids.sql.shuffle.partitions": 4},
-            [("LogicalSort", "an exchange into 4 partitions"),
-             ("LogicalAggregate", "an exchange into 4 partitions")]),
-        "multi_partition_shuffle_join": (
-            df.join_on(other, ["a"], ["b"]),
-            {"spark.rapids.sql.shuffle.partitions": 2,
-             "spark.rapids.sql.autoBroadcastJoinThreshold": -1},
-            [("LogicalJoin", "an exchange into 2 partitions")]),
-        "full_outer_join": (
-            df.join_on(other, ["a"], ["b"], how="full"), {},
-            [("LogicalJoin", "full outer join is not ported")]),
-        "keyless_join": (
-            df.join_on(other, [], []), {},
-            [("LogicalJoin", "join without keys (nested loop join) is not "
-              "ported")]),
+            df.select(md5.alias("r"), "a").filter(c("a") > 1),
+            {}, [("LogicalProject", "expression md5 is not ported")]),
         # Grouping sets are planned (ExpandExec); an aggregate the port
         # has no class for under one is still refused.
         "grouping_sets": (
@@ -247,22 +264,17 @@ def _refusals(session):
             df.with_column("x", L.Column(("agg", "first", c("a"), True))
                            .over(L.Window.partition_by("s"))), {},
             [("LogicalWindow", "window function agg first is not ported")]),
-        "multi_partition_window": (
-            df.with_column("r", L.rank().over(
-                L.Window.partition_by("s").order_by("a"))),
-            {"spark.rapids.sql.shuffle.partitions": 4},
-            [("LogicalWindow", "an exchange into 4 partitions")]),
         "computed_join_key": (
             df.join_on(other, [c("a") + 1], ["b"]), {},
             [("LogicalJoin", "join keys that are not column references are "
               "not ported")]),
         # The disabled filter alone would run on the host; the unported
-        # mod refuses the plan, naming its node only.
+        # md5 refuses the plan, naming its node only.
         "two_nodes": (
-            df.filter(c("a") > 1).select((c("f") % 2.0).alias("m"), "s")
-            .group_by("s").agg(L.agg_avg(c("m"))),
+            df.filter(c("a") > 1).select(md5.alias("m"), "s")
+            .group_by("s").agg(L.agg_count(c("m"))),
             {"spark.rapids.sql.expression.gt": False},
-            [("LogicalProject", "expression mod is not ported")]),
+            [("LogicalProject", "expression md5 is not ported")]),
     }
 
 
@@ -277,15 +289,26 @@ def _reference_rows(case, conf):
     return _host_cases(JL, jsession)[case][0].collect()
 
 
+LIFTED = sorted(_lifted_cases(L, TpuSession(device="cpu")))
+
+
 @pytest.mark.parametrize("case", REFUSALS)
 def test_planner_refuses_naming_nodes_and_reasons(case):
     """Port reasons refuse, naming each refused node; the reference's
     reasons alone put the node on the host, whose rows equal the
-    reference's."""
+    reference's; a plan whose refusal the exchange and the new joins
+    lifted runs on the device and gives the reference's rows."""
     session = TpuSession(device="cpu")
     df, conf, expected = _refusals(session)[case]
     for k, v in conf.items():
         session.set(k, v)
+    if case in LIFTED:
+        from spark_rapids_tpu.api import TpuSession as JSession
+        jdf, _ = _lifted_cases(JL, JSession({**conf, **REF_OFF}))[case]
+        assert not df._physical().host_fallback_nodes()
+        want = sorted(jdf.collect(), key=repr)
+        assert want and sorted(df.collect(), key=repr) == want
+        return
     if case in HOST_CASES:
         phys = df._physical()
         assert phys.host_fallback_nodes() == [n for n, _ in expected]
@@ -324,11 +347,11 @@ def test_test_mode_asserts_as_the_reference_does():
 
 
 # ---------------------------------------------------------------------------
-# The one-partition lowering of a shuffled join
+# The shuffled join
 # ---------------------------------------------------------------------------
 
 def _join_execs(e, out):
-    if isinstance(e, BroadcastHashJoinExec):
+    if isinstance(e, ShuffledHashJoinExec):
         out.append(e)
     for c in e.children:
         _join_execs(c, out)
@@ -346,12 +369,12 @@ def test_q4_shuffle_lowering_matches_reference(small_tables, monkeypatch):
     assert got.meta.explain_lines() == want.meta.explain_lines()
     assert "auto join strategy -> shuffle" in got.explain()
     (join,) = _join_execs(got.root, [])
-    assert join.join_type == "semi"
-    assert all(isinstance(c, CoalescePartitionsExec) for c in join.children)
-    from spark_rapids_tpu.ops.join import ShuffledHashJoinExec
+    assert join.join_type == "semi" and type(join) is ShuffledHashJoinExec
+    assert all(isinstance(c, ShuffleExchangeExec) for c in join.children)
+    from spark_rapids_tpu.ops.join import ShuffledHashJoinExec as JSHJ
 
     def find(e):
-        if isinstance(e, ShuffledHashJoinExec):
+        if isinstance(e, JSHJ):
             return e
         return next((f for f in map(find, e.children) if f), None)
     assert find(want.root) is not None

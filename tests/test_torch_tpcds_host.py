@@ -25,7 +25,7 @@ from spark_rapids_tpu_torch.benchmarks import suites
 
 from harness import assert_rows_equal
 from test_torch_logical import jax_tables
-from test_torch_placement import REF_OFF, _AS_PORT, _shape, _transitions
+from test_torch_placement import REF_OFF, _shape, _transitions
 from test_torch_tpcds import EXACT, QUERIES, SEED, VFA
 
 SMALL = 0.003
@@ -82,7 +82,7 @@ def test_placement_and_rows_match_reference(q, kill, in_memory,
     assert got.root_on_device == want.root_on_device
     assert got.meta.explain_lines() == want.meta.explain_lines()
     shape = _shape(got.root)
-    assert shape == _shape(want.root, _AS_PORT)
+    assert shape == _shape(want.root)
     assert _transitions(shape)
     rows = df.collect()
     ref = JDataFrame(JSession(REF_OFF), jdf._plan).collect_host()

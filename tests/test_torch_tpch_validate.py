@@ -53,7 +53,7 @@ from spark_rapids_tpu_torch.benchmarks import tpch
 from harness import assert_rows_equal
 from test_torch_logical import (  # noqa: F401  (small_tables: a fixture)
     jax_query, jax_tables, small_tables)
-from test_torch_placement import REF_OFF, _AS_PORT, _shape, _transitions
+from test_torch_placement import REF_OFF, _shape, _transitions
 from test_torch_tpch_df import _assert_rows_close, _scan_columns
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -193,7 +193,7 @@ def test_placement_matches_reference(q, kill, small_tables, monkeypatch):
     assert got.root_on_device == want.root_on_device
     assert got.meta.explain_lines() == want.meta.explain_lines()
     shape = _shape(got.root)
-    assert shape == _shape(want.root, _AS_PORT)
+    assert shape == _shape(want.root)
     if kill == "default":
         assert bool(got.host_fallback_nodes()) == (q in FLOAT_AGGS)
         return

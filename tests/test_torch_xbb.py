@@ -41,7 +41,7 @@ from spark_rapids_tpu_torch.api import DataFrame, TpuSession
 from spark_rapids_tpu_torch.benchmarks import suites
 
 from test_torch_logical import jax_tables
-from test_torch_placement import REF_OFF, _AS_PORT, _shape, _transitions
+from test_torch_placement import REF_OFF, _shape, _transitions
 from test_torch_tpch_df import _scan_columns
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -178,7 +178,7 @@ def test_placement_and_rows_match_reference(kill, in_memory, monkeypatch):
     assert got.root_on_device == want.root_on_device
     assert got.meta.explain_lines() == want.meta.explain_lines()
     shape = _shape(got.root)
-    assert shape == _shape(want.root, _AS_PORT)
+    assert shape == _shape(want.root)
     assert bool(_transitions(shape)) == bool(KILLED_NODES[kill])
     rows = df.collect()
     assert Counter(rows) == Counter(JDataFrame(
