@@ -188,11 +188,40 @@ Phases (each raises on failure; any failure exits non-zero):
    must equal the kernel's plain version bit for bit; the largest new
    K3 shape of each run is timed against two ``torch.searchsorted``
    calls, with its bound. The phase's time is printed.
+18. The memory tier and out-of-core execution (runs after phase 16),
+   each run under ``variableFloatAgg`` once in core and once under a
+   ``spark.rapids.memory.tpu.budgetBytes`` chosen, and printed, so its
+   mechanism engages: (a) every LINEITEM row (SF1: 5,997,887, with its
+   ``l_linenumber``) ordered by supplier, part, order and line under
+   128 MiB with a 160 MiB host tier (at least four range buckets, entries
+   on disk through the native LZ4 codec), downloaded as numpy and held
+   to ``np.lexsort`` bit for bit; (b) q67 under its window's in-core
+   staged bytes (the window range-splits on ``i_category``), its rows
+   equal to the in-core run's; (c) q21 and q4 at one partition under a
+   third of their smallest LINEITEM build (grace joins of at least two
+   buckets, K3 at least once per non-empty build bucket), against their
+   numpy oracles; (d) q18 at 8 partitions under a quarter of the
+   catalog's in-core high-water mark and a host tier of an eighth
+   (exchange pieces spill device -> host -> disk), equal to its
+   one-partition run; (e) q18 at one partition with the caching
+   allocator capped (``torch.cuda.set_per_process_memory_fraction``) at
+   a share of its in-core peak: a real ``torch.OutOfMemoryError`` inside
+   a retry site must be recovered on the card by the ladder (the rungs
+   printed), rows equal, the fraction restored. For each run: rows
+   checked, first and two warm walls beside the in-core run's, the peak
+   device memory of the warm runs beside the in-core peak,
+   ``outOfCoreBuckets``, ``graceJoinPartitions``, the catalog's spill
+   and restore counts and LZ4 bytes, the ladder, and K1-K4 launches;
+   every K1-K4 launch of a shape no earlier phase checked must equal the
+   plain version bit for bit. Every run's leak report must be empty and
+   no run of phases 4-18 may fall back to the host engine. The phase's
+   time is printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
-   fourteen runs, phase 14's twelve, phase 15's fourteen and phase 16's
-   nineteen), its error against the plain version, its
+   fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
+   nineteen and phase 18's eleven), its error against the plain version,
+   its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
    ``torch.sort``; K2: the per-group function on q2's largest launch
@@ -1413,16 +1442,18 @@ def host_engine_ms(ctx, wall_ms: float, root_on_device: bool) -> float:
 
 
 def run_checked(native, label: str, phys, check, want, expect_hosted: list,
-                must_launch, known_seen: list, known_k1=K1_CHECKED) -> dict:
+                must_launch, known_seen: list, known_k1=K1_CHECKED,
+                collect=None) -> dict:
     """One query's checked first run on the card: the plan's host nodes
     against ``expect_hosted`` and its bridges (printed), the launch
     counters around the run alone with every K1-K4 launch recorded, the
     rows against the oracle, the kernels of ``must_launch`` launched, the
     rows and bytes each ``DeviceToHostExec`` downloads (printed), and
     every launch of a shape not in ``known_seen`` / ``known_k1`` held to
-    its plain version bit for bit. Returns the rows, ``first_s``,
-    ``launches``, ``moved``, ``hosted``, ``seen`` (the recorded run) and
-    ``checks`` (the kernel checks made)."""
+    its plain version bit for bit. ``collect(phys, ctx)`` runs the query
+    (default ``phys.collect``). Returns the rows, ``first_s``,
+    ``launches``, ``moved``, ``hosted``, ``seen`` (the recorded run),
+    ``checks`` (the kernel checks made) and ``ctx``."""
     import torch
     from spark_rapids_tpu_torch.ops.base import ExecContext
     hosted = phys.host_fallback_nodes()
@@ -1442,7 +1473,7 @@ def run_checked(native, label: str, phys, check, want, expect_hosted: list,
     ctx = ExecContext(phys.conf)
     with recording(native, seen), recording_k1(native, seen_k1):
         t0 = time.perf_counter()
-        rows = phys.collect(ctx)
+        rows = (collect or type(phys).collect)(phys, ctx)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
     launches = native.counters()
@@ -1461,7 +1492,7 @@ def run_checked(native, label: str, phys, check, want, expect_hosted: list,
     checks = df_kernel_checks(native, {label: first}, known_seen) \
         + k1_checks(native, label, seen_k1, known_k1)
     return dict(rows=rows, first_s=first_s, launches=launches, moved=moved,
-                hosted=hosted, seen=first, checks=checks)
+                hosted=hosted, seen=first, checks=checks, ctx=ctx)
 
 
 def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
@@ -2787,6 +2818,407 @@ def exchange_phase(native, cols: dict, known_seen: list,
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the memory tier and out-of-core execution
+# ---------------------------------------------------------------------------
+
+OOC_WARM_RUNS = 2
+# (a): a device budget far below the sort's staged bytes (so at least four
+# range buckets) and a host tier below them too (so entries reach disk).
+SORT_BUDGET = 128 << 20
+SORT_HOST_BYTES = 160 << 20
+SORT_KEYS = ("l_suppkey", "l_partkey", "l_orderkey", "l_linenumber")
+# (e): shares of the memory q18's uncapped one-partition run reserves
+# above its start that the process may reserve, tried in turn until one
+# raises a real OOM. Near the peak the overshoot is small, so spilling the
+# catalog's exchange pieces covers it; far below it (0.6 and under, on an
+# H100 80GB HBM3) the ladder can run out, and the run then fails.
+OOM_SHARES = (0.9, 0.8, 0.7)
+_BUDGET_KEY = "spark.rapids.memory.tpu.budgetBytes"
+_HOST_KEY = "spark.rapids.memory.host.spillStorageSize"
+
+
+def lineitem_with_linenumber(cols: dict) -> dict:
+    """Every LINEITEM row's key, part, supplier and price, with its
+    ``l_linenumber`` (the line's position in its order, from 1:
+    (l_orderkey, l_linenumber) is the table's primary key; the generator
+    keeps an order's lines together)."""
+    li = cols["lineitem"]
+    key = li["l_orderkey"]
+    n = len(key)
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    line = (np.arange(n) - np.repeat(starts, np.diff(np.r_[starts, n]))
+            + 1).astype(np.int32)
+    return {"l_orderkey": key, "l_linenumber": line,
+            "l_partkey": li["l_partkey"], "l_suppkey": li["l_suppkey"],
+            "l_extendedprice": li["l_extendedprice"]}
+
+
+def lineitem_sort_frame(session, tcols: dict, E, L):
+    """``tcols`` in LINEITEM's eight partitions, ordered by supplier,
+    part, order and line."""
+    from spark_rapids_tpu_torch.api import DataFrame
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    schema = (("l_orderkey", dt.INT64), ("l_linenumber", dt.INT32),
+              ("l_partkey", dt.INT64), ("l_suppkey", dt.INT64),
+              ("l_extendedprice", dt.FLOAT64))
+    df = DataFrame(session, L.InMemoryScan(schema, E.table_partitions(
+        tcols, schema, E.TABLE_PARTITIONS["lineitem"])))
+    return df.order_by(*SORT_KEYS)
+
+
+def sort_oracle(tcols: dict) -> dict:
+    """The sorted columns by ``np.lexsort``, after a check that the sort
+    key is unique (so the order is fully determined)."""
+    pk = tcols["l_orderkey"] * 8 + tcols["l_linenumber"]
+    if len(np.unique(pk)) != len(pk):
+        raise AssertionError("(l_orderkey, l_linenumber) is not unique")
+    order = np.lexsort(tuple(tcols[k] for k in reversed(SORT_KEYS)))
+    return {k: v[order] for k, v in tcols.items()}
+
+
+def check_sorted(hbs: list, want: dict) -> None:
+    """Downloaded host batches against the numpy sort, column by column,
+    bit for bit, with no NULL."""
+    n = len(want["l_orderkey"])
+    got_n = sum(hb.num_rows for hb in hbs)
+    if got_n != n:
+        raise AssertionError(f"sort returned {got_n} rows, not {n}")
+    for ci, name in enumerate(hbs[0].names):
+        data = np.concatenate([np.asarray(hb.columns[ci].data)
+                               for hb in hbs])
+        valid = np.concatenate([np.asarray(hb.columns[ci].validity)
+                                for hb in hbs])
+        if not valid.all() or data.tobytes() != want[name].tobytes():
+            raise AssertionError(f"sorted column {name} differs from "
+                                 "np.lexsort's")
+
+
+def ooc_counts(ctx) -> dict:
+    """One run's out-of-core and recovery counts: operator metrics summed
+    over operators (the Recovery@query entry apart), the window's staged
+    bytes, each shuffled join's build bytes, and the catalog's counters."""
+    ops, window_staged, builds = {}, 0, []
+    for key, m in ctx.metrics.items():
+        if key == "Recovery@query":
+            continue
+        for k in ("outOfCoreBuckets", "stagedBytes", "graceJoinPartitions",
+                  "graceJoinBuildBuckets"):
+            if k in m.values:
+                ops[k] = ops.get(k, 0) + int(m.values[k])
+        if m.owner == "WindowExec":
+            window_staged += int(m.values.get("stagedBytes", 0))
+        if "buildBytes" in m.values:
+            builds.append(int(m.values["buildBytes"]))
+    rec = ctx.metrics.get("Recovery@query")
+    return dict(ops=ops, window_staged=window_staged, builds=builds,
+                recovery={k: int(v) for k, v in rec.values.items()}
+                if rec is not None else {},
+                catalog=dict(ctx.last_spill_metrics or {}))
+
+
+def check_teardown(label: str, ctx) -> dict:
+    """No leak in one run; its counts."""
+    if ctx.last_leak_report != []:
+        raise AssertionError(f"{label}: leak report {ctx.last_leak_report}")
+    return ooc_counts(ctx)
+
+
+def ooc_runs(native, label: str, phys, check, want, must, known_seen: list,
+             known_k1: set, collect=None) -> dict:
+    """A checked first run (every K1-K4 launch recorded, new shapes held
+    to the plain versions) and ``OOC_WARM_RUNS`` checked warm runs, with
+    the peak device memory of the warm runs and each run's teardown
+    checked."""
+    import torch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    collect = collect or type(phys).collect
+    r = run_checked(native, label, phys, check, want, [], must, known_seen,
+                    known_k1, collect=collect)
+    known_seen.append(r["seen"])
+    known_k1.update(c["shape"] for c in r["checks"]
+                    if c["kernel"] == "radix_sort")
+    counts = check_teardown(label, r["ctx"])
+    recovery = dict(counts["recovery"])
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for _ in range(OOC_WARM_RUNS):
+        ctx = ExecContext(phys.conf)
+        t0 = time.perf_counter()
+        rows = collect(phys, ctx)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(rows, want)
+        add_counts(recovery, check_teardown(label, ctx)["recovery"])
+        del rows
+    peak = torch.cuda.max_memory_allocated()
+    rows = r["rows"]
+    n_rows = sum(hb.num_rows for hb in rows) \
+        if rows and hasattr(rows[0], "num_rows") else len(rows)
+    return dict(rows=rows, n_rows=n_rows, first_s=r["first_s"], warm_s=warm,
+                launches=r["launches"], checks=r["checks"], counts=counts,
+                recovery=recovery, peak_bytes=peak, held_bytes=held)
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def log_pair(label: str, budget: int, inc: dict, ooc: dict, note: str = ""):
+    c = ooc["counts"]
+    cat = c["catalog"]
+    ratio = (cat.get("disk_bytes_raw", 0) /
+             max(cat.get("disk_bytes_stored", 0), 1))
+    log(f"{label} under budgetBytes={budget} ({budget / 2**20:.1f} MiB)"
+        f"{note}: {ooc['n_rows']} rows checked in each run (in core "
+        f"{inc['n_rows']}); first {ooc['first_s']:.3f} s, warm "
+        f"{[round(w, 4) for w in ooc['warm_s']]} s (in core: first "
+        f"{inc['first_s']:.3f} s, warm {[round(w, 4) for w in inc['warm_s']]}"
+        f" s); peak device memory {ooc['peak_bytes'] / 2**30:.3f} GiB (in "
+        f"core {inc['peak_bytes'] / 2**30:.3f} GiB; held before "
+        f"{ooc['held_bytes'] / 2**30:.3f} / {inc['held_bytes'] / 2**30:.3f}"
+        f" GiB); outOfCoreBuckets {c['ops'].get('outOfCoreBuckets', 0)}, "
+        f"graceJoinPartitions {c['ops'].get('graceJoinPartitions', 0)} "
+        f"({c['ops'].get('graceJoinBuildBuckets', 0)} non-empty build "
+        f"buckets); catalog {cat} (LZ4 ratio {ratio:.2f}); ladder "
+        f"{c['recovery'] or 'none'}; launches {ooc['launches']} (in core "
+        f"{inc['launches']})")
+
+
+def out_of_core_phase(native, cols: dict, known_seen: list,
+                      known_k1: set) -> dict:
+    """(a) An out-of-core sort of every LINEITEM row, (b) q67 with its
+    window range-split, (c) q21 and q4 with grace joins, (d) q18 at
+    eight partitions with its exchange pieces spilled, each beside its
+    in-core run, and (e) a real device OOM recovered by the ladder. See
+    the module doc for what each run checks and prints."""
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import suites as S
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.memory import compression, oom
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    if not isinstance(compression.get_codec("lz4"), compression.Lz4Codec):
+        raise AssertionError("the lz4 codec is not the native one")
+    oom.reset_degradation()
+    xcols = S.suite_columns(1.0, seed=0)
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    # Each run's Recovery@query metrics, summed over the phase.
+    out = {"kernel_checks": [], "runs": [], "recovery": {}}
+    log(f"phase 18: TPC-DS scale 1 columns in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    def pair(label, make, check, want, must, budget_of, collect=None,
+             extra=None):
+        """The in-core run, then the run under the budget ``budget_of``
+        picks from the in-core run's counts."""
+        inc = ooc_runs(native, f"{label} in core", make(vfa)._physical(),
+                       check, want, must, known_seen, known_k1, collect)
+        budget, conf, note = budget_of(inc)
+        ooc = ooc_runs(native, f"{label} out of core",
+                       make(dict(vfa, **conf))._physical(), check, want,
+                       must, known_seen, known_k1, collect)
+        out["kernel_checks"] += inc["checks"] + ooc["checks"]
+        out["runs"] += [inc["launches"], ooc["launches"]]
+        add_counts(out["recovery"], inc["recovery"])
+        add_counts(out["recovery"], ooc["recovery"])
+        log_pair(label, budget, inc, ooc, note)
+        if extra is not None:
+            extra(inc, ooc)
+        return inc, ooc
+
+    # (a) The sort.
+    t0 = time.perf_counter()
+    tcols = lineitem_with_linenumber(cols)
+    sort_want = sort_oracle(tcols)
+    log(f"(a) sort oracle ({len(sort_want['l_orderkey'])} rows) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def sort_budget(inc):
+        return SORT_BUDGET, {_BUDGET_KEY: SORT_BUDGET,
+                             _HOST_KEY: SORT_HOST_BYTES}, (
+            f", spillStorageSize {SORT_HOST_BYTES}; the sort staged "
+            f"{inc['counts']['ops'].get('stagedBytes', 0)} B in core")
+
+    def sort_extra(inc, ooc):
+        c = ooc["counts"]
+        if c["ops"].get("outOfCoreBuckets", 0) < 4:
+            raise AssertionError(f"(a) sort made {c['ops']} buckets, not 4+")
+        if not c["catalog"]["spill_to_disk"] or \
+                not c["catalog"]["restore_from_disk"]:
+            raise AssertionError(f"(a) sort never reached disk: {c}")
+        if not 0 < c["catalog"]["disk_bytes_stored"] < \
+                c["catalog"]["disk_bytes_raw"]:
+            raise AssertionError(f"(a) LZ4 did not shrink the spill: {c}")
+
+    pair("(a) LINEITEM sort",
+         lambda conf: lineitem_sort_frame(TpuSession(conf), tcols, E, L),
+         check_sorted, sort_want, ("radix_sort",), sort_budget,
+         collect=lambda phys, ctx: phys.collect_batches(ctx),
+         extra=sort_extra)
+
+    # (b) q67 with its window range-split on i_category.
+    q67_check, q67_want = ds_oracles(xcols, S)["q67"]
+
+    def make_q67(conf):
+        session = TpuSession(conf)
+        return S.QUERIES["q67"](session, S.suite_tables(
+            session, xcols, ("q67",))["q67"])
+
+    def q67_budget(inc):
+        budget = inc["counts"]["window_staged"]
+        return budget, {_BUDGET_KEY: budget}, (
+            " (the window's staged bytes in core)")
+
+    def q67_extra(inc, ooc):
+        if ooc["counts"]["ops"].get("outOfCoreBuckets", 0) < 2:
+            raise AssertionError(f"(b) q67 window did not split: "
+                                 f"{ooc['counts']}")
+        if ooc["rows"] != inc["rows"]:
+            raise AssertionError("(b) q67 under the budget differs from "
+                                 "its in-core run")
+
+    pair("(b) q67", make_q67, q67_check, q67_want, ("radix_sort",),
+         q67_budget, extra=q67_extra)
+
+    # (c) q21 and q4 at one partition with grace joins.
+    oracles = {"q21": ((lambda rows, want: check_rows("q21", rows, want)),
+                       q21_oracle(cols, E)),
+               "q4": df_oracles(cols, E)["q4"]}
+    for q in ("q21", "q4"):
+        check, want = oracles[q]
+
+        def make_q(conf, q=q):
+            session = TpuSession(conf)
+            return tpch.QUERIES[q](session, tpch.tpch_tables(
+                session, cols, (q,))[q])
+
+        def grace_budget(inc, q=q):
+            builds = inc["counts"]["builds"]
+            big = [b for b in builds if b >= max(builds) // 4]
+            budget = min(big) // 3
+            return budget, {_BUDGET_KEY: budget}, (
+                f" (a third of the smallest LINEITEM build of {big})")
+
+        def grace_extra(inc, ooc, q=q):
+            c = ooc["counts"]["ops"]
+            if c.get("graceJoinPartitions", 0) < 2:
+                raise AssertionError(f"(c) {q}: no grace join: {c}")
+            if ooc["launches"]["join_probe"] < c["graceJoinBuildBuckets"]:
+                raise AssertionError(
+                    f"(c) {q}: {ooc['launches']['join_probe']} K3 launches "
+                    f"for {c['graceJoinBuildBuckets']} non-empty buckets")
+
+        pair(f"(c) {q}", make_q, check, want, ("radix_sort", "join_probe"),
+             grace_budget, extra=grace_extra)
+
+    # (d) q18 at eight partitions with its exchange pieces spilled.
+    q18_check, q18_want = ((lambda rows, want: check_rows("q18", rows, want)),
+                           q18_oracle(cols, E))
+
+    def make_q18(conf, n=SHUFFLE_PARTITIONS):
+        session = TpuSession(dict(conf, **{
+            "spark.rapids.sql.shuffle.partitions": n}))
+        return tpch.QUERIES["q18"](session, tpch.tpch_tables(
+            session, cols, ("q18",))["q18"])
+
+    one_phys = make_q18(vfa, 1)._physical()
+    by_one = one_phys.collect()
+    q18_check(by_one, q18_want)
+
+    def q18_budget(inc):
+        peak = inc["counts"]["catalog"]["peak_device_bytes"]
+        budget = peak // 4
+        return budget, {_BUDGET_KEY: budget, _HOST_KEY: budget // 2}, (
+            f", spillStorageSize {budget // 2} (a quarter and an eighth of "
+            f"the {peak} B the catalog held in core)")
+
+    def q18_extra(inc, ooc):
+        cat = ooc["counts"]["catalog"]
+        if not (cat["spill_to_host"] and cat["spill_to_disk"]
+                and cat["restore_from_host"] + cat["restore_from_disk"]):
+            raise AssertionError(f"(d) q18 pieces did not spill to host "
+                                 f"and disk: {cat}")
+        if not rows_close(ooc["rows"], by_one):
+            raise AssertionError("(d) q18 differs from its one-partition "
+                                 "run")
+
+    pair("(d) q18 (8 partitions)", make_q18, q18_check, q18_want,
+         ("radix_sort",), q18_budget, extra=q18_extra)
+
+    # (e) A real OOM: the process may reserve only part of q18's in-core
+    # peak; the ladder must recover on the card.
+    out["oom"] = real_oom(one_phys, q18_check, q18_want)
+    out["runs"].append(out["oom"]["launches"])
+    add_counts(out["recovery"], out["oom"]["recovery"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
+def real_oom(phys, check, want) -> dict:
+    """Measure the reserved memory (the caching allocator's, which its
+    cap counts) of one uncapped run, then cap the allocator
+    (``set_per_process_memory_fraction``) at what it reserves now plus a
+    share of that run's reserved peak above its start, for each share of
+    ``OOM_SHARES`` in turn, until a run raises a real
+    ``torch.OutOfMemoryError`` inside a retry site. That run must recover
+    on the card (a rung fired) and match its oracle.
+    The fraction is restored after every run."""
+    import gc
+    import torch
+    from spark_rapids_tpu_torch.memory import oom
+    from spark_rapids_tpu_torch.ops import native
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def settle() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    base = settle()
+    torch.cuda.reset_peak_memory_stats()
+    check(phys.collect(), want)
+    torch.cuda.synchronize()
+    span = torch.cuda.max_memory_reserved() - base
+    for share in OOM_SHARES:
+        limit = settle() + int(share * span)
+        native.reset_counters()
+        oom.last_ladder[:] = []
+        ctx = ExecContext(phys.conf)
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        try:
+            t0 = time.perf_counter()
+            rows = phys.collect(ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        launches = native.counters()
+        check(rows, want)
+        c = check_teardown("(e) q18 under a memory cap", ctx)
+        rec = c["recovery"]
+        log(f"(e) q18 (1 partition) capped at {limit / 2**30:.3f} GiB "
+            f"({share:.2f} of the {span / 2**30:.3f} GiB its uncapped run "
+            f"reserved above {base / 2**30:.3f} GiB): {wall:.3f} s, rows "
+            f"match; ladder {list(oom.last_ladder)}, recovery {rec}, "
+            f"catalog {c['catalog']}")
+        if rec.get("retriesAttempted", 0) > 0:
+            if not oom.last_ladder:
+                raise AssertionError("(e) a retry with no rung")
+            return dict(share=share, limit=limit, span=span, wall_s=wall,
+                        ladder=list(oom.last_ladder), recovery=rec,
+                        launches=launches)
+    raise AssertionError(f"(e) no share of {OOM_SHARES} raised an OOM")
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: kernel K4 (the wire codec's RLE decode) against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3113,6 +3545,13 @@ def main() -> int:
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
     ex_runs = [k for k in ex if k not in ("kernel_checks", "seconds")]
 
+    # Phase 18: the memory tier and out-of-core execution
+    ooc = out_of_core_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+        c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
+        if c["kernel"] == "radix_sort"})
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -3120,7 +3559,7 @@ def main() -> int:
         for q in DS_QUERIES) + tuple(
         dq[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DISTINCT_QUERIES) + tuple(
-        ex[k]["launches"] for k in ex_runs)
+        ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -3164,7 +3603,9 @@ def main() -> int:
         + ", ".join(f"{q} ({c}) {dq[(q, c)]['launches']}"
                     for c in ("vfa", "default") for q in DISTINCT_QUERIES)
         + "; phase 16 "
-        + ", ".join(f"{k} {ex[k]['launches']}" for k in ex_runs))
+        + ", ".join(f"{k} {ex[k]['launches']}" for k in ex_runs)
+        + "; phase 18 " + ", ".join(str(r) for r in ooc["runs"])
+        + f"; phase 18 recovery {ooc['recovery']}")
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Wire codec for host->device uploads: narrow dtypes + packed validity.
 
-Port of the JAX package's ``columnar/wire.py`` (its upload half; the
-spill-frame CRC framing stays behind until the memory tier is ported).
-Before upload each column is analyzed on the host and, when lossless,
-re-encoded to a narrower wire form:
+Port of the JAX package's ``columnar/wire.py``: its upload half, and the
+CRC frame that guards every blob the spill tier writes to disk
+(``frame_blob`` / ``unframe_blob``). Before upload each column is
+analyzed on the host and, when lossless, re-encoded to a narrower wire
+form:
 
 - integers whose [min, max] fits int8/int16/int32 ship narrow;
 - float64 columns of whole numbers in int32 range ship as ints, and
@@ -44,7 +45,9 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import os
+import struct
 import threading
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +58,49 @@ from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, torch_dtype)
 from spark_rapids_tpu_torch.columnar.host import strings_to_matrix
+
+# ---------------------------------------------------------------------------
+# Integrity framing for serialized batch blobs (the spill tier's disk
+# frames). A 16-byte header: magic | CRC32 | length. Unframing checks all
+# three, so a flipped bit, a truncated write or a foreign blob raises
+# WireCorruptionError instead of decoding into wrong rows.
+# ---------------------------------------------------------------------------
+
+_FRAME_MAGIC = b"SRTW"
+_FRAME_HEADER = struct.Struct("<4sIQ")      # magic, crc32, payload length
+
+
+class WireCorruptionError(ValueError):
+    """A serialized frame failed its integrity check."""
+
+
+def frame_blob(blob: bytes) -> bytes:
+    """Wrap ``blob`` in the checksummed frame."""
+    return _FRAME_HEADER.pack(_FRAME_MAGIC, zlib.crc32(blob) & 0xFFFFFFFF,
+                              len(blob)) + blob
+
+
+def unframe_blob(framed: bytes) -> bytes:
+    """Verify and strip the frame; raises :class:`WireCorruptionError` on
+    any mismatch of magic, length or CRC32."""
+    if len(framed) < _FRAME_HEADER.size:
+        raise WireCorruptionError(
+            f"frame truncated: {len(framed)} bytes < header")
+    magic, crc, length = _FRAME_HEADER.unpack_from(framed)
+    if magic != _FRAME_MAGIC:
+        raise WireCorruptionError(f"bad frame magic {magic!r}")
+    payload = framed[_FRAME_HEADER.size:]
+    if len(payload) != length:
+        raise WireCorruptionError(
+            f"frame length mismatch: header says {length}, "
+            f"payload is {len(payload)}")
+    actual = zlib.crc32(payload) & 0xFFFFFFFF
+    if actual != crc:
+        raise WireCorruptionError(
+            f"frame CRC32 mismatch: header {crc:#010x}, "
+            f"payload {actual:#010x}")
+    return payload
+
 
 # ---------------------------------------------------------------------------
 # Codec mode (spark.rapids.sql.wire.codec / SRT_WIRE_CODEC): process-global,

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Optional
 class ConfEntry:
     key: str
     doc: str
-    value_type: str            # "boolean" | "long" | "string"
+    value_type: str            # "boolean" | "long" | "double" | "string"
     default: Any
     converter: Callable[[str], Any]
 
@@ -35,6 +35,8 @@ class ConfEntry:
             return raw
         if self.value_type == "string":
             return str(raw)
+        if self.value_type == "double":
+            return float(raw)
         return int(raw)
 
 
@@ -51,7 +53,8 @@ _REGISTRY: Dict[str, ConfEntry] = {}
 
 
 def _entry(key: str, doc: str, value_type: str, default: Any) -> ConfEntry:
-    conv = {"boolean": _parse_bool, "long": int, "string": str}[value_type]
+    conv = {"boolean": _parse_bool, "long": int, "double": float,
+            "string": str}[value_type]
     e = ConfEntry(key, doc, value_type, default, conv)
     _REGISTRY[key] = e
     return e
@@ -171,6 +174,75 @@ WIRE_MIN_UPLOAD_BYTES = _entry(
 STABLE_SORT = _entry(
     "spark.rapids.sql.stableSort.enabled",
     "Use stable sorting (matches Spark's sort for ties).", "boolean", True)
+
+
+# -- the memory tier (memory/stores.py, memory/oom.py) ------------------------
+
+DEVICE_BUDGET_BYTES = _entry(
+    "spark.rapids.memory.tpu.budgetBytes",
+    "Explicit device budget for the buffer catalog in bytes; 0 derives it "
+    "from allocFraction of the visible device memory (ref: RMM pool "
+    "sizing, GpuDeviceManager.scala:159-230).", "long", 0)
+
+HBM_POOL_FRACTION = _entry(
+    "spark.rapids.memory.tpu.allocFraction",
+    "Fraction of visible device memory the engine budgets for batch "
+    "storage; the catalog spills above it. A real allocation failure "
+    "spills and retries at the dispatch site (memory/oom.py).", "double",
+    0.9)
+
+MEMORY_DEBUG = _entry(
+    "spark.rapids.memory.tpu.debug",
+    "Log every catalog buffer add and remove with sizes and record "
+    "creation stacks for the leak report made when the query context "
+    "closes (ref: spark.rapids.memory.gpu.debug).", "boolean", False)
+
+MAX_ALLOC_FRACTION = _entry(
+    "spark.rapids.memory.tpu.maxAllocFraction",
+    "Ceiling on the fraction of visible device memory the batch-storage "
+    "budget may claim, whatever allocFraction says.", "double", 0.95)
+
+RESERVE_BYTES = _entry(
+    "spark.rapids.memory.tpu.reserve",
+    "Device bytes held back from the batch-storage budget for compute "
+    "transients and the runtime (spark.rapids.memory.gpu.reserve "
+    "analog).", "long", 512 * 1024 * 1024)
+
+HOST_SPILL_STORAGE_SIZE = _entry(
+    "spark.rapids.memory.host.spillStorageSize",
+    "Bytes of host RAM for spilled device batches before they go to "
+    "disk.", "long", 1024 * 1024 * 1024)
+
+SPILL_DIR = _entry(
+    "spark.rapids.memory.spill.dir",
+    "Directory for the disk spill tier; empty means "
+    "spark_rapids_tpu_spill under the process's temporary directory "
+    "(tempfile.gettempdir(), which honours TMPDIR).", "string", "")
+
+SHUFFLE_COMPRESSION_CODEC = _entry(
+    "spark.rapids.shuffle.compression.codec",
+    "Codec for spilled blobs at the disk tier: lz4 (native LZ4 block "
+    "format, native/compress.cpp), copy (framing only) or none.",
+    "string", "lz4")
+
+JOIN_GRACE_ENABLED = _entry(
+    "spark.rapids.sql.join.grace.enabled",
+    "Out-of-core grace hash joins: when a shuffled hash join's build "
+    "side exceeds join.grace.buildFraction of the device budget, both "
+    "sides hash-partition by key into spillable buckets and the "
+    "co-partitioned bucket pairs join one at a time on the device. Also "
+    "the OOM rung above an exhausted spill ladder.", "boolean", True)
+
+JOIN_GRACE_BUILD_FRACTION = _entry(
+    "spark.rapids.sql.join.grace.buildFraction",
+    "Fraction of the device budget a hash-join build side may occupy as "
+    "one batch before the grace path engages; also the per-bucket byte "
+    "budget the grace partitioner targets.", "double", 0.5)
+
+JOIN_GRACE_MAX_PARTITIONS = _entry(
+    "spark.rapids.sql.join.grace.maxPartitions",
+    "Upper bound on grace-join buckets per partition "
+    "(graceJoinPartitions counts the buckets used).", "long", 64)
 
 
 class TpuConf:

@@ -1,0 +1,190 @@
+"""OOM -> tiered recovery at dispatch boundaries (port of the JAX
+package's ``memory/oom.py``; ref DeviceMemoryEventHandler.scala:42-69).
+
+The reference installs an allocation-failure callback that spills the
+buffer catalog and lets the allocator retry the same allocation. PyTorch's
+caching allocator raises ``torch.OutOfMemoryError`` instead (after freeing
+its own cached blocks and retrying once), so the equivalent lives at the
+dispatch sites: each operator's per-batch device step runs through
+:func:`retry_on_oom`.
+
+Recovery is a bounded escalation ladder; the step is retried after every
+rung that changed something:
+
+1. ``spill-some``: spill the lowest-priority catalog buffers until about
+   half the registered device bytes are freed;
+2. ``spill-all``: spill every spillable device buffer;
+3. ``shrink``: halve the process-wide batch target
+   (:func:`effective_batch_target`), so every later coalesce and exchange
+   serve issues smaller batches, then retry once more.
+
+The JAX package has a cross-query ``evict-neighbors`` rung between 2 and
+3; it needs the multi-query scheduler, which the port does not have yet.
+
+An exhausted ladder raises :class:`OomRetryExhausted`, whose message
+carries no OOM marker, so enclosing ``retry_on_oom`` frames pass it on.
+The operator layer (``ops/base.py`` ``execute_device_recovering``) then
+tries the operator's on-device degraded mode (the grace hash join); where
+that fails too the error reaches the caller. Work never moves to the host.
+
+The wrapped steps are pure batch -> batch, so a retry is safe. The active
+catalog and the query's ``Recovery@query`` metrics are set per collect
+(thread-local), so dispatch sites deep in the operators need no context.
+Every rung counts ``spillEscalations`` and every retry
+``retriesAttempted`` in those metrics.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import traceback
+from typing import Callable, List, TypeVar
+
+import torch
+
+_LOG = logging.getLogger("spark_rapids_tpu_torch.memory")
+
+T = TypeVar("T")
+
+_local = threading.local()
+
+
+def set_active_catalog(catalog, metrics=None) -> None:
+    """The catalog (and the query's recovery ``Metrics``) the dispatch
+    sites of this thread spill into; None clears both."""
+    _local.catalog = catalog
+    _local.metrics = metrics if catalog is not None else None
+
+
+def get_active_catalog():
+    return getattr(_local, "catalog", None)
+
+
+def record(name: str, amount: int = 1) -> None:
+    """Count one recovery event in the active query's ``Recovery@query``
+    metrics (nowhere when no query is active)."""
+    m = getattr(_local, "metrics", None)
+    if m is not None:
+        m.add(name, amount)
+
+
+class OomRetryExhausted(RuntimeError):
+    """Device OOM persisted through the whole escalation ladder. The
+    message carries no OOM marker on purpose: an enclosing retry_on_oom
+    passes this on instead of repeating the rungs that failed."""
+
+    def __init__(self, original: BaseException, rungs: List[str]):
+        super().__init__(
+            f"device memory exhausted after escalation ladder "
+            f"{rungs!r}; original: {type(original).__name__}")
+        self.original = original
+        self.rungs = rungs
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """``torch.OutOfMemoryError`` (the caching allocator), or an error
+    whose message reports a device allocation failure ("out of memory",
+    as a CUDA status string from the port's own kernel wrappers gives
+    it). Deliberately narrow: a false match costs a spill pass and a
+    duplicate dispatch."""
+    if isinstance(e, OomRetryExhausted):
+        return False
+    if isinstance(e, torch.OutOfMemoryError):
+        return True
+    s = f"{type(e).__name__}: {e}"
+    return "out of memory" in s or "Out of memory" in s
+
+
+# -- the degraded batch target (the shrink rung) ------------------------------
+
+_MAX_DEGRADE_FACTOR = 8
+_MIN_TARGET_ROWS = 1 << 12
+_degrade_lock = threading.Lock()
+_degrade_factor = 1
+
+RUNG_SPILL_SOME = "spill-some"
+RUNG_SPILL_ALL = "spill-all"
+RUNG_SHRINK = "shrink"
+
+# Rung names of the last ladder, in firing order.
+last_ladder: List[str] = []
+
+
+def degrade_factor() -> int:
+    return _degrade_factor
+
+
+def effective_batch_target(target_rows: int) -> int:
+    """``batchSizeRows`` after OOM degradation: once the shrink rung has
+    fired, every consumer that coalesces toward the target (the
+    aggregate's input, the exchange's reduce side) issues proportionally
+    smaller batches until :func:`reset_degradation`."""
+    return max(int(target_rows) // _degrade_factor, _MIN_TARGET_ROWS)
+
+
+def shrink_batch_target() -> bool:
+    """Halve the process-wide batch target (bounded). True if it moved."""
+    global _degrade_factor
+    with _degrade_lock:
+        if _degrade_factor >= _MAX_DEGRADE_FACTOR:
+            return False
+        _degrade_factor *= 2
+        _LOG.warning("OOM escalation: batch target degraded to 1/%d",
+                     _degrade_factor)
+        return True
+
+
+def reset_degradation() -> None:
+    global _degrade_factor
+    with _degrade_lock:
+        _degrade_factor = 1
+
+
+# -- the ladder -----------------------------------------------------------------
+
+def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
+    """Run ``fn``; on a device OOM walk the spill-some -> spill-all ->
+    shrink ladder, retrying after each rung that changed something.
+    Anything else propagates; a ladder that changed nothing re-raises the
+    original error."""
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:
+        if not is_oom_error(e):
+            raise
+        first = e
+    # The failed call's frames hold the tensors it had allocated; clear
+    # their locals so the spill and the retry see that memory free.
+    traceback.clear_frames(first.__traceback__)
+    catalog = get_active_catalog()
+    rungs: List[str] = []
+    last: BaseException = first
+    for rung in (RUNG_SPILL_SOME, RUNG_SPILL_ALL, RUNG_SHRINK):
+        if rung == RUNG_SPILL_SOME:
+            acted = catalog is not None and catalog.spill_some() > 0
+        elif rung == RUNG_SPILL_ALL:
+            acted = catalog is not None and catalog.handle_oom() > 0
+        else:
+            acted = shrink_batch_target()
+        if not acted:
+            # Nothing changed at this rung: the same dispatch would fail
+            # the same way, so escalate without a retry.
+            continue
+        rungs.append(rung)
+        last_ladder[:] = rungs
+        record("spillEscalations")
+        _LOG.warning("device OOM: escalation rung %r (of %r), retrying "
+                     "dispatch: %s", rung, rungs, last)
+        try:
+            record("retriesAttempted")
+            return fn(*args, **kwargs)
+        except Exception as e2:
+            if not is_oom_error(e2):
+                raise
+            traceback.clear_frames(e2.__traceback__)
+            last = e2
+    last_ladder[:] = rungs
+    if not rungs:
+        raise last
+    raise OomRetryExhausted(last, rungs)

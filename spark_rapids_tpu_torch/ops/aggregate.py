@@ -17,8 +17,11 @@ Device algorithm per batch, as in the JAX package:
 
 Zero-key aggregates skip the sort: whole-batch masked reductions
 (``_global_stage``), except a string Min/Max and the mixed_final stage,
-which group their single group through the sorted path. First/Last and
-the partial-skip decision come in a later slice.
+which group their single group through the sorted path. Each batch's
+update and the final consolidation are OOM retry sites
+(``memory/oom.py``), and the input coalesces toward
+``effective_batch_target``. First/Last and the partial-skip decision
+come in a later slice.
 
 DISTINCT aggregates run as three execs (the planner's
 ``_convert_distinct_aggregate``): a partial keyed by (keys..., x), a
@@ -59,6 +62,8 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column, project_batch)
+from spark_rapids_tpu_torch.memory.oom import (
+    effective_batch_target, retry_on_oom)
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
@@ -839,14 +844,16 @@ class HashAggregateExec(Exec):
         if update_stage and not self._global_ok:
             # Coalesce (and compact) the input: one sort-based update over
             # a large batch beats several over small ones, and a filtered
-            # batch compacts before the capacity-scaled sort.
+            # batch compacts before the capacity-scaled sort. The target
+            # shrinks after the OOM ladder's shrink rung.
             child_iter = coalesce_iter(
-                child_iter, int(ctx.conf.get(C.BATCH_SIZE_ROWS)),
+                child_iter,
+                effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS))),
                 int(ctx.conf.get(C.BATCH_SIZE_BYTES)))
         for batch in child_iter:
             if update_stage:
                 with timed(m):
-                    partial = self._update_batch(batch)
+                    partial = retry_on_oom(self._update_batch, batch)
                 if self.mode == "partial":
                     record_batch(m, partial)
                     yield partial
@@ -867,7 +874,7 @@ class HashAggregateExec(Exec):
                 yield self._empty_result(self.plan_device())
             return
         with timed(m):
-            acc = self._consolidate(pending, final_stage=True)
+            acc = retry_on_oom(self._consolidate, pending, final_stage=True)
         record_batch(m, acc)
         yield acc
 

@@ -8,13 +8,21 @@ node and joins them with ``DeviceToHostExec`` / ``HostToDeviceExec``.
 ``Exec.collect`` runs every partition on the root's engine; on the device
 it then downloads all result batches in one batched pass.
 
-This slice keeps the core only: no pipeline, watchdog, scheduler, spill or
-fault layers (later slices add them).
+Each query's ``ExecContext`` owns a spill catalog (``memory/stores.py``)
+that holds the exchanges' map-side pieces and the out-of-core operators'
+staged batches; ``collect`` sets it as the active catalog of the OOM
+ladder (``memory/oom.py``) and closes the context when it is done. The
+funnels that pull child streams (``collect`` and the exchange's map side)
+go through ``Exec.execute_device_recovering``: an exhausted ladder there
+tries the operator's on-device degraded mode (``_grace_retry``) and
+otherwise raises; device work never moves to the host engine. The
+pipeline, watchdog, scheduler and fault layers are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -24,8 +32,11 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import (
     HostBatch, download_batches, host_to_device)
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.memory import oom
 
 Schema = Tuple[Tuple[str, DataType], ...]
+
+_LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 class Metrics:
@@ -52,13 +63,24 @@ def record_batch(m: Metrics, batch: DeviceBatch) -> None:
 
 @dataclasses.dataclass
 class ExecContext:
-    """Per-query execution context: conf, per-operator metrics, and a
+    """Per-query execution context: conf, per-operator metrics, a
     per-query cache (a broadcast join's built side, shared across its
-    probe partitions; an exchange's map-side pieces)."""
+    probe partitions; an exchange's map-side pieces, as spillable
+    handles) and the query's spill catalog.
+
+    ``close`` (``collect`` calls it when it is done) runs the
+    ``on_close`` hooks (each exchange closes the pieces it kept), records
+    the catalog's leak report in ``last_leak_report`` (``[]``: the query
+    freed all it registered) and its counters in ``last_spill_metrics``,
+    and empties the cache."""
 
     conf: TpuConf = dataclasses.field(default_factory=TpuConf)
     metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    last_leak_report: Optional[list] = None
+    last_spill_metrics: Optional[Dict[str, int]] = None
+    on_close: List[Any] = dataclasses.field(default_factory=list)
+    _catalog: Optional[Any] = None
 
     def metrics_for(self, op: "Exec") -> Metrics:
         key = f"{op.name}@{id(op):x}"
@@ -66,6 +88,59 @@ class ExecContext:
         if m is None:
             m = self.metrics[key] = Metrics(owner=op.name)
         return m
+
+    @property
+    def catalog(self):
+        """The query's spill catalog, built on first use: its device
+        budget is ``spark.rapids.memory.tpu.budgetBytes`` or, when that
+        is 0, ``allocFraction`` of the visible device memory capped at
+        ``maxAllocFraction`` of it less ``reserve`` (at least 1 MiB)."""
+        if self._catalog is None:
+            from spark_rapids_tpu_torch import config as C
+            from spark_rapids_tpu_torch.memory.stores import BufferCatalog
+            budget = int(self.conf.get(C.DEVICE_BUDGET_BYTES))
+            if budget <= 0:
+                visible = _visible_device_bytes()
+                budget = int(visible * self.conf.get(C.HBM_POOL_FRACTION))
+                ceiling = int(visible * self.conf.get(C.MAX_ALLOC_FRACTION)) \
+                    - int(self.conf.get(C.RESERVE_BYTES))
+                budget = max(min(budget, ceiling), 1 << 20)
+            self._catalog = BufferCatalog(
+                device_budget_bytes=budget,
+                host_budget_bytes=int(
+                    self.conf.get(C.HOST_SPILL_STORAGE_SIZE)),
+                spill_dir=str(self.conf.get(C.SPILL_DIR)),
+                compression_codec=str(
+                    self.conf.get(C.SHUFFLE_COMPRESSION_CODEC)),
+                debug=bool(self.conf.get(C.MEMORY_DEBUG)))
+        return self._catalog
+
+    def close(self):
+        """Query teardown (see the class doc); the metrics stay."""
+        hooks, self.on_close = self.on_close, []
+        for hook in hooks:
+            hook()
+        self.cache.clear()
+        if self._catalog is not None:
+            self.last_leak_report = self._catalog.leak_report()
+            self.last_spill_metrics = dict(self._catalog.metrics)
+            self._catalog.close()
+            self._catalog = None
+
+
+def query_metrics_entry(ctx: ExecContext, owner: str) -> Metrics:
+    """The per-query ``<owner>@query`` metrics entry (``Recovery`` holds
+    retriesAttempted, spillEscalations and the grace join's counts)."""
+    return ctx.metrics.setdefault(f"{owner}@query", Metrics(owner=owner))
+
+
+def _visible_device_bytes() -> int:
+    """Total memory of the current CUDA device; 8 GiB (the JAX package's
+    fallback) where there is none."""
+    import torch
+    if torch.cuda.is_available():
+        return int(torch.cuda.mem_get_info()[1])
+    return 8 << 30
 
 
 class timed:
@@ -111,6 +186,38 @@ class Exec:
                      partition: int) -> Iterator[HostBatch]:
         raise NotImplementedError
 
+    def _grace_retry(self, ctx: ExecContext, partition: int):
+        """The operator's on-device OOM rung above the ladder: a
+        replacement device iterator (the shuffled hash join's grace path)
+        or None."""
+        return None
+
+    def execute_device_recovering(self, ctx: ExecContext,
+                                  partition: int) -> Iterator[DeviceBatch]:
+        """The device stream with the operator's last OOM rung: when the
+        device path dies on an exhausted ladder (``OomRetryExhausted``)
+        before its first batch, offer the operator's on-device degraded
+        mode (``_grace_retry``); where there is none, or it fails too,
+        the error propagates. After the first batch the consumer has seen
+        device output, so a later failure propagates rather than
+        duplicating rows."""
+        it = self.execute_device(ctx, partition)
+        try:
+            first = next(it)
+        except StopIteration:
+            return
+        except oom.OomRetryExhausted as e:
+            grace_it = self._grace_retry(ctx, partition)
+            if grace_it is None:
+                raise
+            _LOG.warning("OOM ladder exhausted in %s partition %d; "
+                         "retrying on the device through the grace path: "
+                         "%s", self.name, partition, e)
+            yield from grace_it
+            return
+        yield first
+        yield from it
+
     def plan_device(self):
         """The device this plan's source uploads to."""
         dev = getattr(self, "device", None)
@@ -127,6 +234,17 @@ class Exec:
         """Run all partitions on the device engine, then download every
         result batch in one batched pass and return the rows; with
         ``device=False`` run them on the host engine."""
+        rows: List[tuple] = []
+        for hb in self.collect_batches(ctx, device):
+            rows.extend(hb.to_pylist())
+        return rows
+
+    def collect_batches(self, ctx: Optional[ExecContext] = None,
+                        device: bool = True) -> List[HostBatch]:
+        """``collect`` as host batches (numpy columns), before the rows
+        are made. The query's catalog is the ladder's active catalog while
+        it runs, and the context is closed when it ends; a batch target
+        degraded by an earlier query's OOM ladder is restored first."""
         ctx = ctx or ExecContext()
         # The engine the query's root runs on: exchanges coalesce their
         # partitions only under the device engine.
@@ -135,19 +253,22 @@ class Exec:
         # spark.rapids.sql.wire.codec) before any upload happens.
         from spark_rapids_tpu_torch.columnar import wire
         wire.maybe_configure(ctx.conf)
-        rows: List[tuple] = []
-        if not device:
+        oom.reset_degradation()
+        # Device subtrees under a host root register into the catalog too.
+        oom.set_active_catalog(ctx.catalog,
+                               query_metrics_entry(ctx, "Recovery"))
+        try:
+            if not device:
+                return [hb for p in range(self.num_partitions(ctx))
+                        for hb in self.execute_host(ctx, p)]
+            batches: List[DeviceBatch] = []
             for p in range(self.num_partitions(ctx)):
-                for hb in self.execute_host(ctx, p):
-                    rows.extend(hb.to_pylist())
-            return rows
-        batches: List[DeviceBatch] = []
-        for p in range(self.num_partitions(ctx)):
-            batches.extend(self.execute_device(ctx, p))
-        names = tuple(n for n, _ in self.schema)
-        for hb in download_batches(batches, names):
-            rows.extend(hb.to_pylist())
-        return rows
+                batches.extend(self.execute_device_recovering(ctx, p))
+            names = tuple(n for n, _ in self.schema)
+            return oom.retry_on_oom(download_batches, batches, names)
+        finally:
+            oom.set_active_catalog(None)
+            ctx.close()
 
 
 class LeafExec(Exec):
@@ -207,8 +328,8 @@ class InMemorySourceExec(LeafExec):
             int(ctx.conf.get(C.WIRE_MIN_UPLOAD_BYTES)))
         for g in groups:
             with timed(m, "uploadTime"):
-                outs = wire.upload_packed_group([encs[i] for i in g],
-                                                self.device)
+                outs = oom.retry_on_oom(wire.upload_packed_group,
+                                        [encs[i] for i in g], self.device)
             for out in outs:
                 record_batch(m, out)
                 yield out
@@ -273,7 +394,8 @@ class HostToDeviceExec(Exec):
             if hb is None:
                 return
             with timed(m, "uploadTime"):
-                out = host_to_device(hb, device=dev, mode="plain")
+                out = oom.retry_on_oom(host_to_device, hb, device=dev,
+                                       mode="plain")
             record_batch(m, out)
             yield out
 

@@ -1,9 +1,10 @@
 """Basic physical operators (port of the JAX package's ``ops/basic.py``:
 ``ProjectExec``, ``FilterExec``, ``CoalescePartitionsExec``,
 ``LocalLimitExec``, ``GlobalLimitExec``, ``ExpandExec``), each with its
-device half and its numpy host half. The reference's host closure cache
-is not ported: the host halves evaluate their expressions directly on
-every batch."""
+device half and its numpy host half. A project's or filter's per-batch
+device step is an OOM retry site (``memory/oom.py``). The reference's
+host closure cache is not ported: the host halves evaluate their
+expressions directly on every batch."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column, eval_exprs,
     eval_exprs_host)
+from spark_rapids_tpu_torch.memory.oom import retry_on_oom
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
 
@@ -36,7 +38,7 @@ class ProjectExec(Exec):
         m = ctx.metrics_for(self)
         for batch in self.children[0].execute_device(ctx, partition):
             with timed(m):
-                out = eval_exprs(self.exprs, batch)
+                out = retry_on_oom(eval_exprs, self.exprs, batch)
             # Projection preserves row count: keep the host-known hint.
             out.rows_hint = batch.rows_hint
             record_batch(m, out)
@@ -64,10 +66,13 @@ class FilterExec(Exec):
         m = ctx.metrics_for(self)
         for batch in self.children[0].execute_device(ctx, partition):
             with timed(m):
-                cond = as_device_column(self.condition.eval(batch), batch)
-                out = batch.with_sel(cond.data & cond.validity)
+                out = retry_on_oom(self._device_kernel, batch)
             record_batch(m, out)
             yield out
+
+    def _device_kernel(self, batch):
+        cond = as_device_column(self.condition.eval(batch), batch)
+        return batch.with_sel(cond.data & cond.validity)
 
     def _host_kernel(self, hb: HostBatch) -> HostBatch:
         """Evaluate the condition once and gather every column through

@@ -42,11 +42,22 @@ every type; a right or full one needs a single probe partition. Its
 output capacity is probe rows times build rows a batch: a product that
 cannot be allocated raises.
 
-The port runs every step eagerly: the JAX package's kernel cache, its
-out-of-memory retry, grace partitioning, runtime re-plan and jit/eager
-split have no counterpart here. Join types: inner, left, right, full,
-semi (left semi), anti (left anti) and cross, each with an optional
-residual condition.
+Out of core (the grace hash join): a shuffled join whose partition's
+build side exceeds ``join.grace.buildFraction`` of the device budget
+stages both sides as spillables and hash-partitions them by the join
+keys through two staged exchanges into ``ceil(build bytes / bucket
+budget)`` buckets (at least 2, at most ``join.grace.maxPartitions``;
+``graceJoinPartitions``), then joins the co-partitioned bucket pairs one
+at a time: a bucket's probe launches K3. An empty build bucket takes the
+empty-build semantics (anti keeps its probe rows, outer joins
+null-extend them). The grace path is also the OOM rung above an
+exhausted spill ladder (``_grace_retry``); a broadcast join has none. Every build and
+probe step is an OOM retry site (``memory/oom.py``).
+
+The port runs every step eagerly: the JAX package's kernel cache,
+runtime re-plan and jit/eager split have no counterpart here. Join types:
+inner, left, right, full, semi (left semi), anti (left anti) and cross,
+each with an optional residual condition.
 
 The host half (``_host_join``, numpy, as in the reference's host engine)
 encodes each key tuple to one int64 code per row in a code space shared
@@ -74,10 +85,12 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference, Expression, as_device_column, as_host_column)
+from spark_rapids_tpu_torch.memory import oom
 from spark_rapids_tpu_torch.ops import kernels, native
 from spark_rapids_tpu_torch.ops.base import (
     Exec, Schema, record_batch, timed)
-from spark_rapids_tpu_torch.ops.sort import coalesce_to_single_batch
+from spark_rapids_tpu_torch.ops.sort import (
+    coalesce_to_single_batch, stage_spillables, staged_exchange)
 
 JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "cross")
 
@@ -392,22 +405,25 @@ class _JoinKernelMixin:
             _maybe_build_dense(built)
         if built.table is not None:
             for pbatch in probe_iter:
-                yield self._dense_step(built, pbatch, probe_keys,
-                                       build_is_right)
+                yield oom.retry_on_oom(self._dense_step, built, pbatch,
+                                       probe_keys, build_is_right)
             return
         fast = mr is not None and 0 < mr <= _FAST_PATH_MAX_RUN
-        for pbatch in probe_iter:
+
+        def probe_step(pbatch):
             # (Semi/anti expand too: candidate ranges must be key-checked
             # before deciding hit or miss.)
-            lo, counts, plive = probe_ranges(built, pbatch, probe_keys)
+            lo, counts, _ = probe_ranges(built, pbatch, probe_keys)
             if fast:
                 out_cap = bucket_capacity(max(pbatch.capacity * mr, 1))
             else:
                 total = int(counts.sum())
                 out_cap = bucket_capacity(max(total, 1))
-            out, covered = self._emit_expanded(
-                built, pbatch, lo, counts, out_cap, build_is_right,
-                probe_keys)
+            return self._emit_expanded(built, pbatch, lo, counts, out_cap,
+                                       build_is_right, probe_keys)
+
+        for pbatch in probe_iter:
+            out, covered = oom.retry_on_oom(probe_step, pbatch)
             if covered_acc is not None:
                 covered_acc = covered_acc | covered
             yield out
@@ -565,6 +581,15 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
                     pbatch, pbatch.row_mask(),
                     _empty_like(build_schema, pbatch.device), build_right)
 
+    def _build(self, ctx, batches, build_keys) -> BuiltSide:
+        m = ctx.metrics_for(self)
+        with timed(m, "buildTime"):
+            built = oom.retry_on_oom(
+                lambda: build_side(coalesce_to_single_batch(batches),
+                                   build_keys))
+        m.add("buildSideBuilds", 1)
+        return built
+
     def execute_device(self, ctx, partition):
         build_right, build_child, probe_child, build_keys, probe_keys = \
             self._sides()
@@ -576,15 +601,105 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
                     probe_child.execute_device(ctx, partition),
                     build_child.schema, build_right)
             return
-        with timed(m, "buildTime"):
-            built = build_side(coalesce_to_single_batch(bbatches),
-                               build_keys)
-        m.add("buildSideBuilds", 1)
-        for out in self._device_join_stream(
-                ctx, built, probe_child.execute_device(ctx, partition),
-                probe_keys, build_right):
+        probe_iter = probe_child.execute_device(ctx, partition)
+        grace_budget = self._grace_bucket_budget(ctx)
+        total_bytes = sum(b.device_size_bytes() for b in bbatches)
+        m.add("buildBytes", total_bytes)
+        if grace_budget is not None and (
+                ctx.cache.get(self._grace_force_key())
+                or total_bytes > grace_budget):
+            stream = self._grace_join(ctx, bbatches, probe_iter,
+                                      total_bytes, grace_budget)
+        else:
+            built = self._build(ctx, bbatches, build_keys)
+            del bbatches
+            stream = self._device_join_stream(ctx, built, probe_iter,
+                                              probe_keys, build_right)
+        for out in stream:
             record_batch(m, out)
             yield out
+
+    # -- out-of-core grace hash join ---------------------------------------
+    def _grace_force_key(self) -> str:
+        return f"grace-join-force:{id(self):x}"
+
+    def _grace_bucket_budget(self, ctx) -> Optional[int]:
+        """The per-bucket byte budget where the grace path is open to this
+        join, else None; a build side above it takes the grace path."""
+        if not bool(ctx.conf.get(C.JOIN_GRACE_ENABLED)):
+            return None
+        if self.join_type == "cross" or not self.left_keys:
+            return None
+        frac = float(ctx.conf.get(C.JOIN_GRACE_BUILD_FRACTION))
+        return max(int(ctx.catalog.device_budget * frac), 1 << 16)
+
+    def _grace_retry(self, ctx, partition):
+        """The OOM rung above the spill ladder: force the grace path for
+        this join and re-run it on the device; None where grace is closed
+        or was already forced (then the error propagates)."""
+        if self._grace_bucket_budget(ctx) is None:
+            return None
+        key = self._grace_force_key()
+        if ctx.cache.get(key):
+            return None
+        ctx.cache[key] = True
+        oom.record("graceJoinEngaged")
+        ctx.metrics_for(self).add("graceJoinEngaged", 1)
+        return self.execute_device(ctx, partition)
+
+    def _grace_join(self, ctx, bbatches: List[DeviceBatch], probe_iter,
+                    total_bytes: int, bucket_budget: int):
+        """Both sides hash-partition by the join keys (the exchange's
+        murmur3, so equal keys share a bucket on both sides) into
+        spillable buckets; the bucket pairs join one at a time. Peak
+        device memory is about one bucket's build side and one probe
+        batch."""
+        from spark_rapids_tpu_torch.parallel.partitioning import \
+            HashPartitioning
+        build_right, build_child, probe_child, bords, pords = self._sides()
+        bexprs = self.right_keys if build_right else self.left_keys
+        pexprs = self.left_keys if build_right else self.right_keys
+        m = ctx.metrics_for(self)
+        nb = max(2, -(-total_bytes // bucket_budget))
+        nb = min(nb, max(int(ctx.conf.get(C.JOIN_GRACE_MAX_PARTITIONS)), 2))
+        m.add("graceJoinPartitions", nb)
+        oom.record("graceJoinPartitions", nb)
+        bspill: list = []
+        pspill: list = []
+        exchanges = []
+        try:
+            # Inside the cleanup: a probe side that fails while it is
+            # staged must not leave the build side's entries behind.
+            bspill, _ = stage_spillables(ctx, iter(bbatches))
+            bbatches.clear()
+            pspill, _ = stage_spillables(ctx, probe_iter)
+            bex = staged_exchange(bspill, build_child.schema,
+                                  HashPartitioning(list(bexprs), nb))
+            pex = staged_exchange(pspill, probe_child.schema,
+                                  HashPartitioning(list(pexprs), nb))
+            exchanges = [bex, pex]
+            for p in range(nb):
+                bucket = list(bex.execute_device(ctx, p))
+                bex.release(ctx, p)
+                probe_bucket = pex.execute_device(ctx, p)
+                if not bucket:
+                    # Each probe row lives in exactly one bucket, so the
+                    # empty-build semantics per bucket are exact.
+                    yield from self._empty_build(
+                        probe_bucket, build_child.schema, build_right)
+                else:
+                    m.add("graceJoinBuildBuckets", 1)
+                    built = self._build(ctx, bucket, bords)
+                    del bucket
+                    yield from self._device_join_stream(
+                        ctx, built, probe_bucket, pords, build_right)
+                    del built
+                pex.release(ctx, p)
+        finally:
+            for ex in exchanges:
+                ex.release(ctx)
+            for sb in bspill + pspill:
+                sb.close()
 
     def execute_host(self, ctx, partition):
         yield from _host_join(self, ctx, partition)
@@ -593,7 +708,12 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
 class BroadcastHashJoinExec(ShuffledHashJoinExec):
     """Hash join whose build side is collected once, from every partition
     of its child, and shared by every probe partition
-    (GpuBroadcastHashJoinExec); the probe side streams its partitions."""
+    (GpuBroadcastHashJoinExec); the probe side streams its partitions.
+    It has no grace rung: its build side is shared by every probe
+    partition, so an exhausted ladder there raises."""
+
+    def _grace_retry(self, ctx, partition):
+        return None
 
     def num_partitions(self, ctx) -> int:
         return self._sides()[2].num_partitions(ctx)

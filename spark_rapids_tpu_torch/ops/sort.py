@@ -4,15 +4,22 @@
 The device sort is the LSD radix over orderable u32 words
 (``kernels.lex_sort_perm``), every pass of which is kernel K1 on the card.
 The host sort (``host_sort_indices``) is one ``np.lexsort`` over each
-key's null-rank plane and its ``encode_sort_key`` codes. The JAX
-package's out-of-core range split comes in a later slice; this
-``SortExec`` sorts each partition as one batch.
+key's null-rank plane and its ``encode_sort_key`` codes.
+
+Out of core (the JAX package's sample-sort, beyond the reference's
+RequireSingleBatch, GpuSortExec.scala:50): ``out_of_core_partition``
+stages a partition's batches as catalog spillables; a partition above a
+third of the device budget range-splits through a staged exchange
+(``RangePartitioning``, whose map side sorts partition ids with K1) into
+bounded spillable buckets, each sorted on its own and streamed in range
+order. Peak device memory is about one bucket; the rest rides the spill
+tiers. The partition-chunked window uses the same scaffold.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Sequence
 
 import numpy as np
 
@@ -24,6 +31,9 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column)
 from spark_rapids_tpu_torch.ops import kernels
+from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+from spark_rapids_tpu_torch.memory.stores import (
+    PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
 
@@ -61,9 +71,123 @@ def sort_batch(batch: DeviceBatch, orders: Sequence[SortOrder],
     return batch.gather(perm, batch.live_count())
 
 
+class _SpillableListSource(Exec):
+    """Leaf serving an already-staged list of catalog spillables, one
+    partition each (so a range exchange's bound sampler reads every
+    staged batch, not only the first)."""
+
+    def __init__(self, schema: Schema, spillables):
+        super().__init__()
+        self._schema = tuple(schema)
+        self._spillables = spillables
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def num_partitions(self, ctx) -> int:
+        return len(self._spillables)
+
+    def execute_device(self, ctx, partition):
+        sb = self._spillables[partition]
+        try:
+            yield sb.get()
+        finally:
+            # The bound sampler abandons this stream after one batch: the
+            # staged entry turns spillable again either way.
+            sb.release(PRIORITY_SHUFFLE_OUTPUT)
+
+    def execute_host(self, ctx, partition):    # pragma: no cover
+        raise AssertionError("device-only staging source")
+
+
+def stage_spillables(ctx, child_iter):
+    """Register a batch stream as catalog spillables (the staging step of
+    out-of-core sorts, windows and grace joins). Returns (spillables,
+    their total device bytes). A stream that fails part way closes what
+    it had registered before the error propagates."""
+    spillables = []
+    total_bytes = 0
+    try:
+        for b in child_iter:
+            total_bytes += b.device_size_bytes()
+            spillables.append(SpillableBatch(ctx.catalog, b,
+                                             PRIORITY_SHUFFLE_OUTPUT))
+    except BaseException:
+        for sb in spillables:
+            sb.close()
+        raise
+    return spillables, total_bytes
+
+
+def staged_exchange(spillables, schema, partitioning):
+    """An exchange over staged spillables: sorts and windows give it a
+    ``RangePartitioning`` (equal keys share a bucket, buckets stream in
+    range order), grace joins a ``HashPartitioning`` over the join keys
+    (both sides bucket alike). It never coalesces: bucket identity
+    matters to every caller."""
+    from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
+    return ShuffleExchangeExec(_SpillableListSource(schema, spillables),
+                               partitioning)
+
+
+def out_of_core_partition(ctx, metrics, child_iter, schema,
+                          split_orders: Sequence[SortOrder], batch_fn):
+    """The out-of-core scaffold of sorts and partition-chunked windows:
+    stage the partition's batches as spillables; a partition within a
+    third of the device budget (or with no ``split_orders``) runs
+    ``batch_fn`` over one coalesced batch, a larger one range-splits by
+    ``split_orders`` into ``ceil(bytes / (budget / 3))`` buckets (at
+    least 2, counted in ``outOfCoreBuckets``) and runs ``batch_fn`` per
+    bucket, in range order. Each ``batch_fn`` call is an OOM retry
+    site."""
+    from spark_rapids_tpu_torch.parallel.partitioning import \
+        RangePartitioning
+    m = metrics
+    spillables, total_bytes = stage_spillables(ctx, child_iter)
+    if not spillables:
+        return
+    m.add("stagedBytes", total_bytes)
+    bucket_budget = max(ctx.catalog.device_budget // 3, 1 << 16)
+    if total_bytes <= bucket_budget or not split_orders:
+        try:
+            single = coalesce_to_single_batch([sb.get() for sb in spillables])
+        finally:
+            for sb in spillables:
+                sb.close()
+        with timed(m):
+            out = retry_on_oom(batch_fn, single)
+        del single
+        record_batch(m, out)
+        yield out
+        return
+    nb = max(2, -(-total_bytes // bucket_budget))
+    m.add("outOfCoreBuckets", nb)
+    ex = staged_exchange(spillables, schema,
+                         RangePartitioning(list(split_orders), nb))
+    try:
+        for p in range(nb):
+            bucket = list(ex.execute_device(ctx, p))
+            if not bucket:
+                continue
+            single = coalesce_to_single_batch(bucket)
+            del bucket
+            ex.release(ctx, p)
+            with timed(m):
+                out = retry_on_oom(batch_fn, single)
+            del single
+            record_batch(m, out)
+            yield out
+    finally:
+        ex.release(ctx)
+        for sb in spillables:
+            sb.close()
+
+
 class SortExec(Exec):
-    """Per-partition full sort, in core: the partition's batches
-    concatenate into one, which sorts as a whole."""
+    """Per-partition full sort (a global order needs a range exchange
+    upstream, as in Spark), out of core past a third of the device
+    budget (see the module doc)."""
 
     def __init__(self, child: Exec, orders: Sequence[SortOrder]):
         super().__init__(child)
@@ -74,17 +198,12 @@ class SortExec(Exec):
         return self.children[0].schema
 
     def execute_device(self, ctx, partition):
-        m = ctx.metrics_for(self)
-        batches: List[DeviceBatch] = list(
-            self.children[0].execute_device(ctx, partition))
-        if not batches:
-            return
         stable = bool(ctx.conf.get(C.STABLE_SORT))
-        with timed(m):
-            out = sort_batch(coalesce_to_single_batch(batches), self.orders,
-                             stable=stable)
-        record_batch(m, out)
-        yield out
+        orders = self.orders
+        yield from out_of_core_partition(
+            ctx, ctx.metrics_for(self),
+            self.children[0].execute_device(ctx, partition), self.schema,
+            orders, lambda b: sort_batch(b, orders, stable=stable))
 
     def execute_host(self, ctx, partition):
         hbs = list(self.children[0].execute_host(ctx, partition))

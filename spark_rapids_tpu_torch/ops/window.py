@@ -1,8 +1,11 @@
 """Window functions (port of the JAX package's ``ops/window.py``: frames,
 specs, the device evaluation, ``WindowExec`` and the numpy host engine).
 
-Device evaluation per batch (a window's partitions must lie in one batch,
-so ``WindowExec`` coalesces its partition's batches into one):
+Device evaluation per batch (a window's partitions must lie in one
+batch, so ``WindowExec`` coalesces its partition's batches into one; past
+a third of the device budget a partitioned window range-splits by its
+PARTITION keys into spillable buckets, equal keys always in one bucket,
+and evaluates bucket by bucket: ``sort.out_of_core_partition``):
 
 1. sort rows by (partition fingerprint, order keys) with
    ``kernels.lex_sort_perm``, one K1 launch a word on the card, so
@@ -26,8 +29,8 @@ The host engine (``_host_window``) is the reference's: one ``np.lexsort``
 over partition and order-key codes with boundary flags, falling back to a
 python oracle for the shapes it does not vectorize.
 
-The reference's jit cache (``kernel_cache``) and its out-of-core split by
-partition keys are not ported: the window runs eagerly over one batch.
+The reference's jit cache (``kernel_cache``) is not ported: each batch
+or bucket is evaluated eagerly.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column)
 from spark_rapids_tpu_torch.ops import kernels
-from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
-from spark_rapids_tpu_torch.ops.sort import SortOrder, coalesce_to_single_batch
+from spark_rapids_tpu_torch.ops.base import Exec, Schema
+from spark_rapids_tpu_torch.ops.sort import SortOrder, out_of_core_partition
 
 UNBOUNDED = None
 
@@ -535,7 +538,9 @@ def _whole_partition(fn: WindowAgg, sdata, svalid, gid, cap):
 class WindowExec(Exec):
     """Appends window expression columns. The device half evaluates over
     the partition's batches coalesced into one (every window partition
-    must lie in one batch); the host half over their concatenation."""
+    must lie in one batch), or, out of core, bucket by bucket of a range
+    split on the window's partition keys (an unpartitioned window stays
+    one batch); the host half over their concatenation."""
 
     def __init__(self, child: Exec, exprs: Sequence[WindowExprSpec]):
         super().__init__(child)
@@ -549,15 +554,16 @@ class WindowExec(Exec):
         return tuple(base)
 
     def execute_device(self, ctx, partition):
-        m = ctx.metrics_for(self)
-        batches = list(self.children[0].execute_device(ctx, partition))
-        if not batches:
-            return
-        with timed(m):
-            out = compute_window(coalesce_to_single_batch(batches),
-                                 self.exprs)
-        record_batch(m, out)
-        yield out
+        # The merged expressions share one spec, so the first one's
+        # partition keys split them all.
+        exprs = self.exprs
+        orders = [SortOrder(c) for c in exprs[0].spec.partition_by] \
+            if exprs else []
+        yield from out_of_core_partition(
+            ctx, ctx.metrics_for(self),
+            self.children[0].execute_device(ctx, partition),
+            self.children[0].schema, orders,
+            lambda b: compute_window(b, exprs))
 
     def execute_host(self, ctx, partition):
         hbs = list(self.children[0].execute_host(ctx, partition))

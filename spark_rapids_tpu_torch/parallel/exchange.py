@@ -4,21 +4,27 @@ GpuShuffleExchangeExec.scala, ShuffledBatchRDD.scala).
 
 The exchange materializes its child once per query context (the map
 side), bucketing every batch by partition id, and keeps the pieces in the
-query's ``ExecContext`` cache, as the reference's ``inprocess`` transport
-keeps them (the transport SPI, spill catalog, cluster and mesh exchange
-are not ported). Reduce tasks then stream their bucket.
+query's ``ExecContext`` cache as ``SpillableBatch`` handles of the query's
+catalog at ``PRIORITY_SHUFFLE_OUTPUT``, as the reference's ``inprocess``
+transport keeps them (the transport SPI, cluster and mesh exchange are
+not ported). Pieces spill first under the device budget, device -> host
+-> disk, and are restored when served. Reduce tasks then stream their
+bucket. The child is pulled through ``execute_device_recovering``.
 
-Map side, per window of child batches (two-phase sizes-then-data):
+Map side, per window of child batches (two-phase sizes-then-data; a
+window holds at most 32 batches and a quarter of ``batchSizeBytes`` or of
+the catalog's device budget, whichever is smaller):
 
-- one destination: no ids, no sort, no slices; each batch shrinks to its
-  live bucket (one batched row-count pull a window) and is kept whole;
+- one destination: no ids, no sort; each batch shrinks to its live bucket
+  (one batched row-count pull a window) and is kept whole;
 - otherwise each batch's partition ids and per-partition counts are
   computed, the counts of the whole window pulled in one sync, a
   mostly-dead batch shrinks to its live bucket first, and then one
-  pid-stable sort (``native.stable_argsort_u32``, kernel K1 on the card),
-  one packed ``gather_rows`` and one slice a piece move every row once.
-  A piece is a view of the sorted batch: its rows past its count are the
-  next partition's and lie outside its ``num_rows``.
+  pid-stable sort (``native.stable_argsort_u32``, kernel K1 on the card)
+  orders the rows by destination and one gather a piece copies each
+  piece's rows out of the batch. A piece owns its tensors (its dead
+  rows zeroed), so spilling it frees its memory; a view of one sorted
+  batch would free nothing.
 
 A range exchange samples up to 64 rows of the first batch of each child
 partition, downloads and merges them and picks its bounds on the host
@@ -27,16 +33,20 @@ sample and again for the data, as the reference's does. One partition
 needs no bounds, so it samples nothing.
 
 Reduce side: a partition's pieces concatenate into batches of up to
-``batchSizeRows`` capacity, carrying the summed ``rows_hint``. With
+``batchSizeRows`` capacity (``effective_batch_target``: smaller after the
+OOM ladder's shrink rung), carrying the summed ``rows_hint``; a served
+piece stays pinned until the consumer asks for the next batch. With
 ``allow_coalesce`` (aggregate, window and sort exchanges; never a join's
 co-partitioned inputs) adjacent undersized partitions merge under the
 ``spark.rapids.sql.aqe.coalescePartitions.*`` row and byte targets (the
 AQE-lite reader, GpuCustomShuffleReaderExec.scala:132). The reference
 compares the shard bytes its transport observed; here the kept pieces'
-device bytes stand in for them.
+registered device bytes stand in for them.
 
 The host half (``execute_host``) splits each host batch with
-``split_host_batch`` and serves a partition's pieces as they are.
+``split_host_batch`` and serves a partition's pieces as they are; under
+the device engine (a host-tagged exchange in a device-rooted plan) a
+coalesced exchange's partition is its group's buckets, as on the device.
 """
 
 from __future__ import annotations
@@ -52,8 +62,11 @@ from spark_rapids_tpu_torch.columnar.batch import (
     shrink_all, shrink_to_capacity)
 from spark_rapids_tpu_torch.columnar.host import (
     HostBatch, HostColumn, device_to_host)
-from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import BoundReference, as_host_column
+from spark_rapids_tpu_torch.memory.oom import (
+    effective_batch_target, retry_on_oom)
+from spark_rapids_tpu_torch.memory.stores import (
+    PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
 from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 from spark_rapids_tpu_torch.ops.sort import SortOrder
@@ -61,25 +74,10 @@ from spark_rapids_tpu_torch.parallel.partitioning import (
     Partitioning, RangePartitioning, split_host_batch)
 
 # Map-side window: at most this many child batches, or a quarter of the
-# device batch target in bytes, wait for one batched counts pull.
+# device batch target or budget in bytes, wait for one batched counts
+# pull.
 _WINDOW = 32
 _SAMPLE_ROWS = 64
-
-
-def _slice_rows(batch: DeviceBatch, start: int, size: int,
-                num_rows: int) -> DeviceBatch:
-    """Rows [start, start + size) of a dense batch, as a batch of
-    ``num_rows`` live rows (views, no copy)."""
-    cols = []
-    for c in batch.columns:
-        lengths = c.lengths[start:start + size] if c.dtype.is_string \
-            else None
-        cols.append(DeviceColumn(c.dtype, c.data[start:start + size],
-                                 c.validity[start:start + size], lengths))
-    out = DeviceBatch(tuple(cols), torch.tensor(
-        num_rows, dtype=torch.int32, device=batch.device))
-    out.rows_hint = num_rows
-    return out
 
 
 class ShuffleExchangeExec(Exec):
@@ -120,7 +118,7 @@ class ShuffleExchangeExec(Exec):
             cur_rows = cur_bytes = 0
             for b in range(n):
                 b_rows = sum(p.rows_hint for p in buckets[b])
-                b_bytes = sum(p.device_size_bytes() for p in buckets[b])
+                b_bytes = sum(p.size_bytes for p in buckets[b])
                 if cur and (cur_rows + b_rows > target or
                             cur_bytes + b_bytes > tbytes):
                     groups.append(cur)
@@ -156,7 +154,7 @@ class ShuffleExchangeExec(Exec):
         child = self.children[0]
         samples: List[HostBatch] = []
         for cp in range(child.num_partitions(ctx)):
-            it = (child.execute_device(ctx, cp) if device
+            it = (child.execute_device_recovering(ctx, cp) if device
                   else child.execute_host(ctx, cp))
             for b in it:
                 hb = device_to_host(sample_rows(b, _SAMPLE_ROWS)) \
@@ -199,39 +197,70 @@ class ShuffleExchangeExec(Exec):
                                      device=b.device))
         return pids, torch.bincount(key, minlength=n + 1)[:n]
 
-    def _split(self, b: DeviceBatch, pids: torch.Tensor, counts: List[int],
-               piece_cap: int) -> List[DeviceBatch]:
-        """One pid-stable sort (K1) and one packed gather, then a slice a
-        piece. The gather is padded by ``piece_cap`` rows so a slice near
-        the end never runs past it."""
+    def _split(self, b: DeviceBatch, pids: torch.Tensor,
+               counts: List[int]) -> List[Optional[DeviceBatch]]:
+        """One pid-stable sort (K1), then each non-empty piece gathered
+        into its own batch of ``bucket_capacity(count)`` rows (None for an
+        empty one) by one ``index_select`` a tensor. A zero row appended
+        to the batch's tensors stands for every slot past a piece's count,
+        so those slots come out zeroed whole, as ``gather_rows`` zeroes
+        them, with one launch a tensor where its mask takes three."""
         n = self.partitioning.num_partitions
         skey = torch.where(b.row_mask(), pids.to(torch.int64),
                            torch.full((), n, dtype=torch.int64,
                                       device=b.device))
-        perm = native.stable_argsort_u32(skey)
-        idx = torch.cat([perm.to(torch.int64), torch.zeros(
-            piece_cap, dtype=torch.int64, device=b.device)])
-        sorted_b = gather_rows(b, idx, b.live_count())
-        offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
-        return [_slice_rows(sorted_b, int(offsets[p]), piece_cap, counts[p])
-                for p in range(n)]
+        perm = native.stable_argsort_u32(skey).to(torch.int64)
+        zero_row = b.capacity
 
-    def _materialize_device(self, ctx) -> List[List[DeviceBatch]]:
+        def padded(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+            if t is None:
+                return None
+            return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+
+        srcs = [(padded(c.data), padded(c.validity), padded(c.lengths))
+                for c in b.columns]
+        rows = torch.tensor(counts, dtype=torch.int32, device=b.device)
+        offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+        out: List[Optional[DeviceBatch]] = []
+        for p in range(n):
+            cnt = counts[p]
+            if not cnt:
+                out.append(None)
+                continue
+            o, cap = int(offsets[p]), bucket_capacity(cnt)
+            idx = perm[o:o + cnt]
+            if cap > cnt:
+                idx = torch.cat([idx, perm.new_full((cap - cnt,), zero_row)])
+            cols = tuple(DeviceColumn(
+                c.dtype, data.index_select(0, idx),
+                valid.index_select(0, idx),
+                None if lengths is None else lengths.index_select(0, idx))
+                for c, (data, valid, lengths) in zip(b.columns, srcs))
+            piece = DeviceBatch(cols, rows[p])
+            piece.rows_hint = cnt
+            out.append(piece)
+        return out
+
+    def _materialize_device(self, ctx) -> List[List[SpillableBatch]]:
         key = self._cache_key(True)
         if key in ctx.cache:
             return ctx.cache[key]
         m = ctx.metrics_for(self)
         self._ensure_bounds(ctx, device=True)
         n = self.partitioning.num_partitions
-        buckets: List[List[DeviceBatch]] = [[] for _ in range(n)]
+        buckets: List[List[SpillableBatch]] = [[] for _ in range(n)]
+
+        def keep(p: int, piece: DeviceBatch):
+            buckets[p].append(SpillableBatch(ctx.catalog, piece,
+                                             PRIORITY_SHUFFLE_OUTPUT))
 
         def flush_window(window: List[DeviceBatch]):
             if n == 1:
-                pieces, counts1 = shrink_all(window)
+                pieces, counts1 = retry_on_oom(shrink_all, window)
                 for piece, cnt in zip(pieces, counts1):
                     if cnt:
                         piece.rows_hint = cnt
-                        buckets[0].append(piece)
+                        keep(0, piece)
                 return
             metas = [(b,) + self._pids_counts(b) for b in window]
             pulled = torch.stack([c for _, _, c in metas]).cpu().tolist()
@@ -245,30 +274,55 @@ class ShuffleExchangeExec(Exec):
                 if small < batch.capacity:
                     batch = shrink_to_capacity(batch, small)
                     pids, _ = self._pids_counts(batch)
-                piece_cap = bucket_capacity(max(counts))
-                for p, piece in enumerate(self._split(batch, pids, counts,
-                                                      piece_cap)):
-                    if counts[p]:
-                        buckets[p].append(piece)
+                with timed(m, "splitTime"):
+                    pieces = retry_on_oom(self._split, batch, pids, counts)
+                for p, piece in enumerate(pieces):
+                    if piece is not None:
+                        keep(p, piece)
 
         child = self.children[0]
-        max_window_bytes = max(int(ctx.conf.get(C.BATCH_SIZE_BYTES)) // 4,
-                               1 << 20)
+        max_window_bytes = max(min(int(ctx.conf.get(C.BATCH_SIZE_BYTES)),
+                                   ctx.catalog.device_budget) // 4, 1 << 20)
         window: List[DeviceBatch] = []
         window_bytes = 0
-        with timed(m, "materializeTime"):
-            for cp in range(child.num_partitions(ctx)):
-                for b in child.execute_device(ctx, cp):
-                    window.append(b)
-                    window_bytes += b.device_size_bytes()
-                    if len(window) >= _WINDOW or \
-                            window_bytes >= max_window_bytes:
-                        flush_window(window)
-                        window, window_bytes = [], 0
-            if window:
-                flush_window(window)
+        try:
+            with timed(m, "materializeTime"):
+                for cp in range(child.num_partitions(ctx)):
+                    for b in child.execute_device_recovering(ctx, cp):
+                        window.append(b)
+                        window_bytes += b.device_size_bytes()
+                        if len(window) >= _WINDOW or \
+                                window_bytes >= max_window_bytes:
+                            flush_window(window)
+                            window, window_bytes = [], 0
+                if window:
+                    flush_window(window)
+        except BaseException:
+            # A partial materialization must not leave catalog entries.
+            for bucket in buckets:
+                for sb in bucket:
+                    sb.close()
+            raise
         ctx.cache[key] = buckets
+        ctx.on_close.append(lambda: self.release(ctx))
         return buckets
+
+    def release(self, ctx, partition: Optional[int] = None):
+        """Close the kept pieces of one reduce partition (all of them
+        when ``partition`` is None, and then forget the materialization):
+        an exchange built for one operator's out-of-core pass frees its
+        buckets as it finishes them."""
+        key = self._cache_key(True)
+        buckets = ctx.cache.get(key)
+        if buckets is None:
+            return
+        for p in (range(len(buckets)) if partition is None else [partition]):
+            for sb in buckets[p]:
+                sb.close()
+            buckets[p] = []
+        if partition is None:
+            del ctx.cache[key]
+            ctx.cache.pop(f"shuffle-groups:{id(self):x}", None)
 
     def _materialize_host(self, ctx) -> List[List[HostBatch]]:
         key = self._cache_key(False)
@@ -289,38 +343,58 @@ class ShuffleExchangeExec(Exec):
     # -- the reduce side ------------------------------------------------------
     def execute_device(self, ctx, partition):
         """The partition's pieces (its group's, when coalesced),
-        concatenated up to ``batchSizeRows`` of capacity; the pieces'
-        exact counts make each output's ``rows_hint``."""
+        concatenated up to the batch target of capacity; the pieces'
+        exact counts make each output's ``rows_hint``. A piece served
+        alone stays pinned (un-spillable) until the consumer resumes."""
         buckets = self._materialize_device(ctx)
         m = ctx.metrics_for(self)
-        target = int(ctx.conf.get(C.BATCH_SIZE_ROWS))
+        target = effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS)))
         groups = self._groups(ctx)
         mine = groups[partition] if groups is not None else [partition]
 
-        def serve(group):
-            if len(group) == 1:
-                return group[0]
-            with timed(m, "concatTime"):
-                out = concat_batches(group, bucket_capacity(
-                    sum(b.capacity for b in group)))
-            out.rows_hint = sum(b.rows_hint for b in group)
+        def concat(group: List[SpillableBatch]) -> DeviceBatch:
+            members = [sb.get() for sb in group]
+            try:
+                out = concat_batches(members, bucket_capacity(
+                    sum(b.capacity for b in members)))
+            finally:
+                for sb in group:
+                    sb.release(PRIORITY_SHUFFLE_OUTPUT)
+            out.rows_hint = sum(sb.rows_hint for sb in group)
             return out
 
-        group: List[DeviceBatch] = []
-        group_cap = 0
-        for b in mine:
-            for piece in buckets[b]:
-                if group and group_cap + piece.capacity > target:
-                    out = serve(group)
+        def serve(group: List[SpillableBatch]):
+            if len(group) == 1:
+                try:
+                    out = group[0].get()
                     record_batch(m, out)
                     yield out
-                    group, group_cap = [], 0
-                group.append(piece)
-                group_cap += piece.capacity
-        if group:
-            out = serve(group)
+                finally:
+                    group[0].release(PRIORITY_SHUFFLE_OUTPUT)
+                return
+            with timed(m, "concatTime"):
+                out = retry_on_oom(concat, group)
             record_batch(m, out)
             yield out
 
+        group: List[SpillableBatch] = []
+        group_cap = 0
+        for b in mine:
+            for sb in buckets[b]:
+                if group and group_cap + sb.capacity > target:
+                    yield from serve(group)
+                    group, group_cap = [], 0
+                group.append(sb)
+                group_cap += sb.capacity
+        if group:
+            yield from serve(group)
+
     def execute_host(self, ctx, partition):
-        yield from iter(self._materialize_host(ctx)[partition])
+        """The partition's host pieces. Under the device engine (a host
+        subtree of a device-rooted plan) a coalesced exchange numbers its
+        partitions by group, so partition p is group p's buckets there
+        too."""
+        buckets = self._materialize_host(ctx)
+        groups = self._groups(ctx)
+        for b in (groups[partition] if groups is not None else [partition]):
+            yield from buckets[b]

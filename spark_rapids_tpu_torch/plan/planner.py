@@ -36,11 +36,13 @@
   adjacent windows of one spec merge before conversion
   (``merge_windows``).
 - The host engine runs only the nodes tagged for the reference's
-  reasons: a failing device operator raises, and is never rerun there.
+  reasons: a failing device operator raises, and is never rerun there
+  (an exhausted OOM ladder tries the grace join on the device first,
+  ``Exec.execute_device_recovering``).
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
   (RapidsMeta.explain:291); ``collect`` runs the root on its engine (the
-  reference's scheduler, QoS, retry, re-plan and fault layers are not
-  ported).
+  reference's scheduler, QoS, transient retry, re-plan and fault layers
+  are not ported).
 """
 
 from __future__ import annotations
@@ -397,6 +399,11 @@ class PhysicalPlan:
         rows (downloaded once, when the root is on the device)."""
         return self.root.collect(ctx or ExecContext(self.conf),
                                  device=self.root_on_device)
+
+    def collect_batches(self, ctx: Optional[ExecContext] = None) -> list:
+        """``collect`` as host batches (numpy columns)."""
+        return self.root.collect_batches(ctx or ExecContext(self.conf),
+                                         device=self.root_on_device)
 
     def host_fallback_nodes(self) -> List[str]:
         """The logical nodes tagged for the host engine, in tree order."""

@@ -1,7 +1,7 @@
 """Where the time of a TPC-H or suite query goes on the card.
 
     python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|...]
-        [--codec v2|v1|plain] [--scale 1.0] [--partitions 8]
+        [--codec v2|v1|plain] [--scale 1.0] [--partitions N]
         [--dataframe] [--trace q1_trace.json]
 
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
@@ -18,8 +18,10 @@ warm runs, then one run under ``torch.profiler`` (CPU + CUDA activity).
 Prints the
 host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
-of kernel time over the profiled wall time). ``--partitions`` applies to
-the hand-built q1. Needs a CUDA device.
+of kernel time over the profiled wall time). ``--partitions`` sets the
+hand-built q1's generator partitions (default 8) and, with
+``--dataframe``, ``spark.rapids.sql.shuffle.partitions`` (default the
+conf's). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def main() -> int:
                     default="q1")
     ap.add_argument("--codec", choices=wire.CODEC_MODES, default="v2")
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--partitions", type=int, default=8)
+    ap.add_argument("--partitions", type=int, default=None)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--dataframe", action="store_true")
     ap.add_argument("--trace", default="")
@@ -75,8 +77,10 @@ def main() -> int:
     if args.dataframe:
         from spark_rapids_tpu_torch.api import TpuSession
         from spark_rapids_tpu_torch.plan import logical as L
-        session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled":
-                              True})
+        conf = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+        if args.partitions is not None:
+            conf["spark.rapids.sql.shuffle.partitions"] = args.partitions
+        session = TpuSession(conf)
         if args.query in suites.QUERIES:
             dfs = suites.suite_tables(session, suites.suite_columns(
                 args.scale), (args.query,))[args.query]
@@ -92,7 +96,7 @@ def main() -> int:
         plan = phys.root
     elif args.query == "q1":
         tables = {"lineitem": entry.tpch_q1_host_batches(
-            args.scale, args.partitions, seed=0)}
+            args.scale, args.partitions or 8, seed=0)}
         plan = entry.tpch_q1_plan(tables["lineitem"], device="cuda")
     else:
         cols = entry.tpch_columns(args.scale, seed=0)

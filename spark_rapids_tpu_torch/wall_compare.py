@@ -3,7 +3,8 @@ for the port in any source tree.
 
     python3 spark_rapids_tpu_torch/wall_compare.py [--tree DIR]
         [--codecs v2,plain] [--runs 3] [--label NAME]
-        [--kernels | --dataframe [--default-conf] [--queries q1,q7,...]]
+        [--kernels | --dataframe [--default-conf] [--queries q1,q7,...]
+                                 [--partitions N]]
 
 Run it by its path, not with ``-m``: it imports ``spark_rapids_tpu_torch``
 from ``--tree`` (the root of a checkout; default the checkout holding this
@@ -55,6 +56,10 @@ same way in turns in this one process; their rows must agree, floats to
 rtol 1e-9 (the host engine sums in another order; a query whose root,
 below any limit, is not a sort, as sorted rows). A tree without the host engine refuses the
 default conf and cannot run this mode.
+
+``--partitions N`` (with ``--dataframe``) plans every DataFrame at
+``spark.rapids.sql.shuffle.partitions=N``; the hand-built trees keep
+their own layout and are left out, so only the DataFrame path is timed.
 """
 
 from __future__ import annotations
@@ -206,9 +211,14 @@ def main() -> int:
                     "variableFloatAgg on, instead of the hand-built trees")
     ap.add_argument("--queries", default=",".join(DATAFRAME_QUERIES),
                     help="with --dataframe: the queries to time")
+    ap.add_argument("--partitions", type=int, default=None,
+                    help="with --dataframe: spark.rapids.sql.shuffle."
+                    "partitions of every DataFrame")
     args = ap.parse_args()
     if args.default_conf and not args.dataframe:
         ap.error("--default-conf goes with --dataframe")
+    if args.partitions is not None and not args.dataframe:
+        ap.error("--partitions goes with --dataframe")
     queries = tuple(args.queries.split(","))
     if queries != DATAFRAME_QUERIES and not args.dataframe:
         ap.error("--queries goes with --dataframe")
@@ -244,7 +254,7 @@ def main() -> int:
         print(f"{label}: kernels built in {build_s:.2f} s, SF1 data in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         _dataframe_walls(label, entry, cols, args.runs, args.default_conf,
-                         queries)
+                         queries, args.partitions)
         _print_device()
         return 0
     plans = {"q1": entry.tpch_q1_plan(
@@ -342,13 +352,17 @@ def _ordered(df) -> bool:
 
 def _dataframe_walls(label: str, entry, cols: dict, runs: int,
                      default_conf: bool = False,
-                     queries=DATAFRAME_QUERIES) -> None:
+                     queries=DATAFRAME_QUERIES,
+                     partitions=None) -> None:
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
-    session = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
+    layout = {} if partitions is None else {
+        "spark.rapids.sql.shuffle.partitions": partitions}
+    session = TpuSession(dict(
+        layout, **{"spark.rapids.sql.variableFloatAgg.enabled": True}))
     funcs, tables = _query_tables(session, cols, queries)
     if default_conf:
-        dsession = TpuSession()
+        dsession = TpuSession(layout)
         _f, dtables = _query_tables(dsession, cols, queries)
     hand = {"q1": lambda: entry.tpch_q1_plan(entry.table_partitions(
         cols["lineitem"], entry.Q1_SCHEMA, entry.TABLE_PARTITIONS[
@@ -374,7 +388,7 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
             ddf = funcs[q](dsession, dtables[q])
             ddf._physical()
             paths = {"default_conf": ddf.collect, **paths}
-        elif q in hand:
+        elif q in hand and partitions is None:
             paths = {"hand": hand[q]().collect, **paths}
         first, warm, want = {}, {p: [] for p in paths}, None
         for p, collect in paths.items():
@@ -391,7 +405,8 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
             for p in (order if r % 2 == 0 else order[::-1]):
                 warm[p].append(run(paths[p])[0])
         print(json.dumps({"tree": label, "query": q, "plan_ms": plan_ms,
-                          "first_s": first, "warm_s": warm}), flush=True)
+                          "partitions": partitions, "first_s": first,
+                          "warm_s": warm}), flush=True)
 
 
 def _print_device() -> None:
