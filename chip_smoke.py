@@ -216,11 +216,45 @@ Phases (each raises on failure; any failure exits non-zero):
    plain version bit for bit. Every run's leak report must be empty and
    no run of phases 4-18 may fall back to the host engine. The phase's
    time is printed.
+19. The numeric, date-time and row-source surface (runs after phase 18),
+   through ``TpuSession`` and ``benchmarks/rowsource.py``, each run once
+   under ``variableFloatAgg`` + ``improvedFloatOps`` (every node on the
+   card) and once under the default conf: (a) ``session.range(0, 2^26,
+   num_partitions=8)`` (16 batches of 4,194,304 built on the card) with
+   ``rand(7)``, ``monotonically_increasing_id()``,
+   ``spark_partition_id()`` and the hour, minute and second of
+   ``from_unixtime(id * 37)``, grouped by ``pmod(id, 4096)`` (count,
+   sums, min / max of rand and of the id), every column bit for bit
+   against a numpy oracle that recomputes the SplitMix64 stream in
+   uint64; (b) LINEITEM at SF1 (5,997,887 rows) through a 25-column
+   projection (datediff, dayofweek, weekday, dayofyear, quarter,
+   last_day, trunc MM, add_months, date_add, round, bround, floor, ceil,
+   log, sqrt, exp, pow, least, greatest, abs, signum, isnan, nanvl,
+   at_least_n_non_nulls), grouped by (month, day of week) with integer
+   sums, min / max of every projected column and first / last of
+   ``l_orderkey`` at one partition (floats to rtol 1e-9, the rest
+   exact), and the projection's first 1,048,576 rows downloaded: dates,
+   integers, round, bround, floor and ceil bit for bit, each
+   transcendental (and sqrt) within 4 ulp of numpy, its largest distance
+   printed (the head query projects those rows only); (c) ship and
+   receipt dates as one column (UNION ALL, 11,995,774
+   rows) by year and quarter, and range(0, 2^25) UNION ALL range(2^25,
+   2^26) at 8 + 8 partitions counted by partition id. Under the default
+   conf the projection (log / exp / pow) and union_dates' float sum run on
+   the host engine. For each run: host nodes and bridges (checked), rows
+   downloaded, the first run (counters around it alone, every K1-K4
+   launch recorded), two warm walls and the peak device memory of the
+   warm runs. K1 must launch in every run, K2 in (a) and (b) (Min/Max and
+   the first / last picks); each K1-K4 launch of a shape no earlier phase
+   checked must equal the kernel's plain version bit for bit, and the
+   largest new K1 shape (the groups' 6,291,456-row sort) is timed against
+   its plain version and ``torch.sort``. The phase's time is printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
-   nineteen and phase 18's eleven), its error against the plain version,
+   nineteen, phase 18's eleven and phase 19's ten), its error against the
+   plain version,
    its
    time, the plain version's, its bound, and one PyTorch call's time for
    the same function (K1: the whole sort at 786 432 rows against
@@ -3380,6 +3414,408 @@ def rle_phase(native) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 19: the numeric, date-time and row-source surface
+# ---------------------------------------------------------------------------
+
+RANGE_N = 1 << 26               # 16 batches of batchSizeRows at 8 partitions
+RANGE_PARTITIONS = 8
+RANGE_UNION_N = 1 << 25         # each side of range_union
+HEAD_ROWS = 1 << 20
+ROWSOURCE_WARM_RUNS = 2
+TRANSCENDENTAL_ULPS = 4
+ALL_DEVICE = {"spark.rapids.sql.variableFloatAgg.enabled": True,
+              "spark.rapids.sql.improvedFloatOps.enabled": True}
+# The logical nodes the default conf places on the host engine, by run:
+# the projection's log / exp / pow and union_dates' float sum. The
+# all-device conf places none.
+ROWSOURCE_DEFAULT_HOST = {"range": [], "groups": ["LogicalProject"],
+                          "head": ["LogicalProject"],
+                          "union_dates": ["LogicalAggregate"],
+                          "range_union": []}
+ROWSOURCE_MUST_LAUNCH = {"range": ("radix_sort", "seg_reduce"),
+                         "groups": ("radix_sort", "seg_reduce"),
+                         "head": ("radix_sort",),
+                         "union_dates": ("radix_sort",),
+                         "range_union": ("radix_sort",)}
+
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
+
+
+def rand_oracle(seed: int, pid: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """rand(seed) of rows (partition, row index) in numpy uint64: the
+    premixed seed plus pid * MIX1 plus idx * GOLDEN through SplitMix64's
+    finalizer, top 53 bits scaled into [0, 1)."""
+    m64 = (1 << 64) - 1
+    x = (seed * _GOLDEN) & m64
+    x = ((x ^ (x >> 30)) * _MIX1) & m64
+    x = ((x ^ (x >> 27)) * _MIX2) & m64
+    premix = x ^ (x >> 31)
+    u = np.uint64
+    with np.errstate(over="ignore"):
+        c = u(premix) + pid.astype(u) * u(_MIX1) + idx.astype(u) * u(_GOLDEN)
+        c = (c ^ (c >> u(30))) * u(_MIX1)
+        c = (c ^ (c >> u(27))) * u(_MIX2)
+        c = c ^ (c >> u(31))
+    return (c >> u(11)).astype(np.float64) * 2.0 ** -53
+
+
+def _by_mod(values: np.ndarray, n: int, groups: int, fill, how):
+    """``how`` (np.sum / np.min / np.max) of ``values`` (one per id
+    0..n-1) by ``id % groups``: padded to whole rows of ``groups`` with
+    ``fill`` and reduced down the columns."""
+    m = -(-n // groups) * groups
+    padded = np.full(m, fill, dtype=values.dtype)
+    padded[:n] = values
+    return how(padded.reshape(-1, groups), axis=0)
+
+
+def range_oracle(n: int, parts: int) -> list:
+    """range_query's rows: ids 0..n-1 in ``parts`` contiguous partitions
+    of ceil(n / parts) rows; rand(7), the monotonic id (pid << 33) + row
+    index, the hour / minute / second of id * 37 seconds, by id % 4096."""
+    from spark_rapids_tpu_torch.benchmarks import rowsource as R
+    g = R.RANGE_GROUPS
+    ids = np.arange(n, dtype=np.int64)
+    per = max(-(-n // parts), 1)
+    pid = ids // per
+    idx = ids - pid * per
+    r = rand_oracle(7, pid, idx)
+    m = (pid << 33) + idx
+    secs = (ids * 37) % 86400
+    h, mi, s = secs // 3600, (secs // 60) % 60, secs % 60
+    cnt = _by_mod(np.ones(n, np.int64), n, g, 0, np.sum)
+    imax, imin = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    cols = [cnt, _by_mod(ids, n, g, 0, np.sum),
+            _by_mod(r, n, g, np.inf, np.min),
+            _by_mod(r, n, g, -np.inf, np.max),
+            _by_mod(m, n, g, imax, np.min), _by_mod(m, n, g, imin, np.max),
+            _by_mod(h, n, g, 0, np.sum), _by_mod(s, n, g, 0, np.sum),
+            _by_mod(pid, n, g, -1, np.max)]
+    return [(k,) + tuple(c[k].item() for c in cols)
+            for k in range(g) if cnt[k] > 0]
+
+
+def check_range_rows(rows: list, n: int, parts: int,
+                     want: list = None) -> None:
+    """range_query's rows bit for bit against ``range_oracle``."""
+    check_rows("range", rows, want or range_oracle(n, parts), exact=True)
+
+
+def _civil(days: np.ndarray):
+    """(datetime64[D], year, month, day) of days since the epoch."""
+    d = days.astype(np.int64).astype("datetime64[D]")
+    y = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    mo = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    day = (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+    return d, y, mo, day
+
+
+def projection_oracle(li: dict, n: int = None) -> dict:
+    """lineitem_projection's columns of LINEITEM's first ``n`` rows in
+    numpy: the calendar through datetime64, the rest by each function's
+    definition (HALF_UP: floor(x*100 + 0.5) / 100 above zero)."""
+    sl = slice(0, n)
+    ship = li["l_shipdate"][sl].astype(np.int64)
+    d, _y, mo, day = _civil(ship)
+    month0 = d.astype("datetime64[M]")
+    ext = li["l_extendedprice"][sl]
+    disc, tax = li["l_discount"][sl], li["l_tax"][sl]
+    price = ext * (1 - disc)
+    scaled = price * 100.0
+    nm = month0 + 1
+    in_nm = ((nm + 1).astype("datetime64[D]")
+             - nm.astype("datetime64[D]")).astype(np.int64)
+    with np.errstate(invalid="ignore"):
+        off = np.sqrt(disc - 0.05)
+    isnan = np.isnan(off)
+    i32 = np.int32
+    return {
+        "l_orderkey": li["l_orderkey"][sl],
+        "datediff": (li["l_receiptdate"][sl].astype(np.int64)
+                     - ship).astype(i32),
+        "dow": ((ship + 4) % 7 + 1).astype(i32),
+        "weekday": ((ship + 3) % 7).astype(i32),
+        "doy": ((d - d.astype("datetime64[Y]")).astype(np.int64)
+                + 1).astype(i32),
+        "quarter": ((mo - 1) // 3 + 1).astype(i32),
+        "last_day": ((month0 + 1).astype("datetime64[D]").astype(np.int64)
+                     - 1).astype(i32),
+        "trunc_mm": month0.astype("datetime64[D]").astype(np.int64)
+        .astype(i32),
+        "add_months": (nm.astype("datetime64[D]").astype(np.int64)
+                       + np.minimum(day, in_nm) - 1).astype(i32),
+        "commit_30": (li["l_commitdate"][sl].astype(np.int64)
+                      + 30).astype(i32),
+        "round2": np.where(scaled >= 0, np.floor(scaled + 0.5),
+                           np.ceil(scaled - 0.5)) / 100.0,
+        "bround2": np.round(scaled) / 100.0,
+        "floor7": np.floor(ext / 7).astype(np.int64),
+        "ceil7": np.ceil(ext / 7).astype(np.int64),
+        "log_price": np.log(ext),
+        "sqrt_price": np.sqrt(ext),
+        "exp_tax": np.exp(-tax),
+        "disc_sq": np.power(disc, 2.0),
+        "least": np.minimum(tax, disc),
+        "greatest": np.maximum(tax, disc),
+        "abs_qty": np.abs(-li["l_quantity"][sl]),
+        "signum": np.sign(disc - 0.05),
+        "isnan": isnan,
+        "nanvl": np.where(isnan, -1.0, off),
+        "nn2": ((tax > 0).astype(np.int64) + (~isnan) + 1) >= 2,
+    }
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in units in the last place between float64 arrays."""
+    def key(x):
+        i = np.asarray(x, np.float64).view(np.int64)
+        return np.where(i < 0, np.int64(-2 ** 63) - i, i)
+    return np.abs(key(a) - key(b))
+
+
+def check_projection(hbs: list, li: dict, n: int, want: dict = None
+                     ) -> dict:
+    """The downloaded head of lineitem_projection (host batches) against
+    ``projection_oracle`` (``want``, or computed here): every column but
+    the transcendentals bit for bit, each transcendental within
+    TRANSCENDENTAL_ULPS of numpy's. Returns each transcendental's largest
+    ulp distance."""
+    from spark_rapids_tpu_torch.benchmarks import rowsource as R
+    if want is None:
+        want = projection_oracle(li, n)
+    else:
+        want = {k: v[:n] for k, v in want.items()}
+    rows = sum(hb.num_rows for hb in hbs)
+    if rows != len(want["l_orderkey"]):
+        raise AssertionError(f"projection head: {rows} rows, oracle "
+                             f"{len(want['l_orderkey'])}")
+    worst = {}
+    for ci, (name, transcendental) in enumerate(R.PROJECTION):
+        got = np.concatenate([np.asarray(hb.columns[ci].data)
+                              for hb in hbs])
+        valid = np.concatenate([np.asarray(hb.columns[ci].validity)
+                                for hb in hbs])
+        if not valid.all():
+            raise AssertionError(f"projection head {name}: NULLs")
+        exp = want[name]
+        if transcendental or name == "sqrt_price":
+            worst[name] = int(ulps(got, exp).max())
+            if worst[name] > TRANSCENDENTAL_ULPS:
+                raise AssertionError(f"projection head {name}: "
+                                     f"{worst[name]} ulp from numpy")
+        elif got.dtype != exp.dtype or \
+                got.tobytes() != np.ascontiguousarray(exp).tobytes():
+            bad = int(np.flatnonzero(got != exp)[0]) if got.shape == \
+                exp.shape else 0
+            raise AssertionError(f"projection head {name} differs "
+                                 f"({got.dtype} vs {exp.dtype}) at row "
+                                 f"{bad}: {got[bad]} vs {exp[bad]}")
+    return worst
+
+
+def _segments(key: np.ndarray):
+    """(order, starts, ends) of the stable sort of ``key``."""
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    return order, starts, np.r_[starts[1:], len(key)]
+
+
+def groups_oracle(li: dict, p: dict = None) -> list:
+    """lineitem_groups' rows from ``projection_oracle`` (``p``, or computed
+    here): by (month, day of week), first / last in scan order (a stable
+    sort keeps it)."""
+    p = p or projection_oracle(li)
+    key = p["trunc_mm"].astype(np.int64) * 8 + p["dow"]
+    order, starts, ends = _segments(key)
+
+    def red(name, fn):
+        return fn.reduceat(np.asarray(p[name])[order], starts)
+
+    def total(name):
+        return np.add.reduceat(np.asarray(p[name]).astype(np.int64)[order],
+                               starts)
+    cols = [ends - starts, total("datediff"), total("floor7"),
+            total("ceil7"), total("weekday"), red("doy", np.minimum),
+            red("quarter", np.maximum), red("last_day", np.minimum),
+            red("add_months", np.maximum), red("commit_30", np.maximum),
+            red("round2", np.minimum), red("bround2", np.maximum),
+            red("log_price", np.minimum), red("sqrt_price", np.maximum),
+            red("exp_tax", np.minimum), red("disc_sq", np.maximum),
+            red("least", np.minimum), red("greatest", np.maximum),
+            red("abs_qty", np.maximum), red("signum", np.minimum),
+            red("nanvl", np.maximum), total("isnan"), total("nn2"),
+            p["l_orderkey"][order[starts]], p["l_orderkey"][order[ends - 1]]]
+    lead = order[starts]
+    return [(p["trunc_mm"][lead[i]].item(), p["dow"][lead[i]].item())
+            + tuple(c[i].item() for c in cols) for i in range(len(starts))]
+
+
+def check_group_rows(rows: list, li: dict, want: list = None) -> None:
+    check_rows("lineitem groups", rows, want or groups_oracle(li))
+
+
+def union_oracle(li: dict) -> list:
+    """union_dates' rows: ship and receipt dates with the quantity, by
+    year and quarter."""
+    days = np.concatenate([li["l_shipdate"], li["l_receiptdate"]])
+    qty = np.concatenate([li["l_quantity"], li["l_quantity"]])
+    _d, y, mo, _day = _civil(days)
+    key = y * 4 + (mo - 1) // 3
+    order, starts, ends = _segments(key)
+    sums = np.add.reduceat(qty[order], starts)
+    return [(int(key[order[s]] // 4), int(key[order[s]] % 4) + 1,
+             int(e - s), float(t)) for s, e, t in zip(starts, ends, sums)]
+
+
+def check_union_rows(rows: list, li: dict, want: list = None) -> None:
+    check_rows("union_dates", rows, want or union_oracle(li))
+
+
+def range_union_oracle(n: int, parts: int) -> list:
+    """range_union's rows: range(0, n) then range(n, 2n), each in
+    ``parts`` partitions; rows and id sums by the union's partition."""
+    per = max(-(-n // parts), 1)
+    out = []
+    for side in range(2):
+        for p in range(parts):
+            lo, hi = min(p * per, n), min((p + 1) * per, n)
+            if hi > lo:
+                a, b = side * n + lo, side * n + hi - 1
+                out.append((side * parts + p, hi - lo,
+                            (a + b) * (hi - lo) // 2))
+    return out
+
+
+def check_range_union_rows(rows: list, n: int, parts: int,
+                           want: list = None) -> None:
+    check_rows("range_union", rows, want or range_union_oracle(n, parts),
+               exact=True)
+
+
+def _warm_batches(phys, check, runs: int) -> tuple:
+    """``_warm`` for a run checked on its host batches."""
+    import torch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        hbs = phys.collect_batches(ExecContext(phys.conf))
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(hbs, None)
+    return warm, torch.cuda.max_memory_allocated(), held
+
+
+def rowsource_phase(native, cols: dict, known_seen: list,
+                    known_k1: set) -> dict:
+    """(a) ``range`` (67,108,864 ids in 8 partitions) with rand,
+    monotonically_increasing_id, spark_partition_id and the time parts of
+    from_unixtime, grouped by id % 4096; (b) LINEITEM at SF1 through the
+    math and date-time projection, grouped by month and day of week with first /
+    last, and the projection's first 1,048,576 rows downloaded; (c) ship
+    and receipt dates as one UNION ALL column by year and quarter, and
+    range UNION ALL range at 8 + 8 partitions by partition id. Each under
+    ``variableFloatAgg`` + ``improvedFloatOps`` (every node on the card)
+    and under the default conf, against numpy oracles; for each run host
+    nodes and bridges, rows downloaded, the first run with every K1-K4
+    launch recorded (new shapes against the plain versions), two warm
+    walls and the peak device memory of the warm runs."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import rowsource as R
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    li = cols["lineitem"]
+    proj = projection_oracle(li)
+    want = {"range": range_oracle(RANGE_N, RANGE_PARTITIONS),
+            "groups": groups_oracle(li, proj),
+            "union_dates": union_oracle(li),
+            "range_union": range_union_oracle(RANGE_UNION_N,
+                                              RANGE_PARTITIONS)}
+    log(f"phase 19: oracles in {time.perf_counter() - t_phase:.2f} s")
+    checks = {
+        "range": lambda rows, w: check_range_rows(rows, RANGE_N,
+                                                  RANGE_PARTITIONS, w),
+        "groups": lambda rows, w: check_group_rows(rows, li, w),
+        "union_dates": lambda rows, w: check_union_rows(rows, li, w),
+        "range_union": lambda rows, w: check_range_union_rows(
+            rows, RANGE_UNION_N, RANGE_PARTITIONS, w)}
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": [], "runs": [], "ulps": {}}
+
+    def run(label, phys, q, conf_name, collect=None, warm=None):
+        hosted = ROWSOURCE_DEFAULT_HOST[q] if conf_name == "default" else []
+        check = checks[q]
+        r = run_checked(native, label, phys, check, want.get(q), hosted,
+                        ROWSOURCE_MUST_LAUNCH[q], known_seen, known_k1,
+                        collect=collect)
+        known_seen.append(r["seen"])
+        known_k1.update(c["shape"] for c in r["checks"]
+                        if c["kernel"] == "radix_sort")
+        out["kernel_checks"] += r["checks"]
+        walls, peak, held = (warm or _warm)(phys, check, want.get(q),
+                                            ROWSOURCE_WARM_RUNS)
+        log(f"{label} matches the numpy oracle: first run "
+            f"{r['first_s']:.3f} s, warm {[round(w, 4) for w in walls]} s, "
+            f"peak device memory in the warm runs {peak / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before them); launches "
+            f"{r['launches']}")
+        out[label] = dict(first_s=r["first_s"], warm_s=walls,
+                          launches=r["launches"], moved=r["moved"],
+                          hosted=r["hosted"], peak_bytes=peak,
+                          held_bytes=held)
+        out["runs"].append(r["launches"])
+        return r["rows"]
+
+    for conf_name, conf in (("device", ALL_DEVICE), ("default", {})):
+        session = TpuSession(conf)
+        ldf = R.lineitem(session, cols)
+        run(f"range ({conf_name})", R.range_query(
+            L, session, RANGE_N, RANGE_PARTITIONS)._physical(), "range",
+            conf_name)
+        seen_k1 = []
+        with recording_k1(native, seen_k1):
+            run(f"lineitem groups ({conf_name})",
+                R.lineitem_groups(L, ldf)._physical(), "groups", conf_name)
+        if conf_name == "device" and seen_k1:
+            # The phase's largest new K1 shape: the groups' fingerprint
+            # sort of the whole LINEITEM batch, through a permutation.
+            keys, perm = max(seen_k1, key=lambda a: a[0].numel())
+            out["k1"] = k1_time(native, keys, perm, "phase 19 largest new")
+            del seen_k1
+        # The head projects the first HEAD_ROWS lines only.
+        head = R.projection_head(L, R.lineitem(session, cols,
+                                               rows=HEAD_ROWS),
+                                 HEAD_ROWS)._physical()
+        worst = {}
+
+        def head_check(hbs, _w, worst=worst):
+            worst.update(check_projection(hbs, li, HEAD_ROWS, proj))
+        checks["head"] = head_check
+        run(f"projection head ({conf_name})", head, "head", conf_name,
+            collect=lambda phys, ctx: phys.collect_batches(ctx),
+            warm=lambda phys, check, _w, runs: _warm_batches(
+                phys, check, runs))
+        out["ulps"][conf_name] = dict(worst)
+        log(f"projection head ({conf_name}): {HEAD_ROWS} rows, dates, "
+            f"integers, round / bround / floor / ceil bit for bit; largest "
+            f"ulp distance from numpy {worst}")
+        run(f"union_dates ({conf_name})", R.union_dates(L, ldf)._physical(),
+            "union_dates", conf_name)
+        run(f"range_union ({conf_name})", R.range_union(
+            L, session, RANGE_UNION_N, RANGE_PARTITIONS)._physical(),
+            "range_union", conf_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the wire codec, v2 against plain
 # ---------------------------------------------------------------------------
 
@@ -3552,6 +3988,13 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
         if c["kernel"] == "radix_sort"})
 
+    # Phase 19: the numeric, date-time and row-source surface
+    rs = rowsource_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+        c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
+        if c["kernel"] == "radix_sort"})
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -3559,7 +4002,8 @@ def main() -> int:
         for q in DS_QUERIES) + tuple(
         dq[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DISTINCT_QUERIES) + tuple(
-        ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"])
+        ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
+        rs["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -3605,7 +4049,8 @@ def main() -> int:
         + "; phase 16 "
         + ", ".join(f"{k} {ex[k]['launches']}" for k in ex_runs)
         + "; phase 18 " + ", ".join(str(r) for r in ooc["runs"])
-        + f"; phase 18 recovery {ooc['recovery']}")
+        + f"; phase 18 recovery {ooc['recovery']}"
+        + "; phase 19 " + ", ".join(str(r) for r in rs["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -2,14 +2,14 @@
 shapes mirror pyspark.sql).
 
 ``TpuSession`` is the SparkSession analog: it holds the conf and the
-device, builds DataFrames from memory, and plans queries through the
-tag -> convert rewrite (plan/planner.py). ``DataFrame.collect`` runs the
-plan, each node on the engine its tags give it (the session's device, or
-the numpy host engine for a node the reference would keep on the host);
-``DataFrame.collect_host`` runs the whole plan on the host engine, the
-CPU oracle; ``DataFrame.explain`` prints the will/will-not-run report. A
-query holding something the port has not ported is refused when it is
-planned (``NotImplementedError``).
+device, builds DataFrames from memory and from ``range``, and plans
+queries through the tag -> convert rewrite (plan/planner.py).
+``DataFrame.collect`` runs the plan, each node on the engine its tags
+give it (the session's device, or the numpy host engine for a node the
+reference would keep on the host); ``DataFrame.collect_host`` runs the
+whole plan on the host engine, the CPU oracle; ``DataFrame.explain``
+prints the will/will-not-run report. A query holding something the port
+has not ported is refused when it is planned (``NotImplementedError``).
 
 ``TpuSession(device=None)`` runs on the CUDA card and raises when there is
 none; ``device="cpu"`` runs the plain-PyTorch path. ``read`` (file scans)
@@ -70,6 +70,16 @@ class TpuSession:
                     for ci, (n, _) in enumerate(schema)}
             parts.append([HostBatch.from_pydict(schema, cols)])
         return DataFrame(self, L.InMemoryScan(schema, parts))
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> "DataFrame":
+        """A DataFrame of one INT64 column ``id``: ``start``, ``start +
+        step``, ... up to ``end`` exclusive (``range(n)`` is ``0 .. n-1``),
+        in ``num_partitions`` contiguous row ranges."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, L.LogicalRange(start, end, step,
+                                              num_partitions))
 
 
 def _numpy_partitions(data: Dict[str, np.ndarray], schema,
@@ -214,6 +224,14 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.LogicalLimit(self._plan, n))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position (Spark's ``union``): the partitions of
+        ``self``, then those of ``other``."""
+        return DataFrame(self._session,
+                         L.LogicalUnion(self._plan, other._plan))
+
+    unionAll = union
 
     def repartition(self, n: int, *keys: Union[str, Column]) -> "DataFrame":
         """Hash-repartition into ``n`` partitions on ``keys``, or

@@ -106,6 +106,14 @@ class _Ops:
         return torch.where(x >= float(info.max),
                            torch.full_like(out, info.max), out)
 
+    def true_div(self, x, d: float):
+        """``x / d`` rounded once: torch's CUDA division by a python
+        scalar multiplies by its reciprocal, so the divisor goes as a 0-d
+        tensor."""
+        if self.lib is torch:
+            return x / torch.full((), d, dtype=x.dtype, device=x.device)
+        return x / d
+
     def full_like(self, x, value):
         if self.lib is torch:
             return torch.full_like(x, value)
@@ -146,7 +154,8 @@ def _cast_fixed(ops: _Ops, data, validity, src: DataType, to: DataType):
         if src.name == "timestamp":
             # timestamp->long = seconds; ->int/short/byte narrows from that.
             if to.is_floating:
-                return ops.astype(ops.f64(data) / 1e6, to), validity
+                return ops.astype(ops.true_div(ops.f64(data), 1e6), to), \
+                    validity
             return ops.astype(ops.floor_divide(data, 1000 * 1000), to), \
                 validity
         return ops.astype(data, to), validity

@@ -1,5 +1,6 @@
 """Conditionals and null expressions (port of the JAX package's
-``exprs/conditional.py``: ``If``, ``CaseWhen``, ``Coalesce``, ``Nvl``).
+``exprs/conditional.py``: ``If``, ``CaseWhen``, ``Coalesce``, ``Nvl``,
+``NaNvl``, ``NormalizeNaNAndZero``, ``KnownFloatingPointNormalized``).
 
 Whole-batch evaluation: every branch is evaluated over all rows and the
 results are blended with ``where``, as in the reference (no divergent
@@ -26,12 +27,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar.batch import flush_subnormal
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import (
     StringMatrixView, matrix_to_strings)
 from spark_rapids_tpu_torch.exprs.base import (
-    Expression, Literal, as_device_column, as_host_column, make_column,
-    make_host_column)
+    BinaryExpression, Expression, Literal, UnaryExpression, as_device_column,
+    as_host_column, make_column, make_host_column)
 
 
 def _repad_matrix(data, w: int):
@@ -217,3 +219,56 @@ class Coalesce(Expression):
 
 def Nvl(a: Expression, b: Expression) -> Coalesce:
     return Coalesce(a, b)
+
+
+class NaNvl(BinaryExpression):
+    """nanvl(a, b): ``b`` (and its validity) where ``a`` is NaN."""
+
+    def data_type(self) -> DataType:
+        return self.left.data_type()
+
+    def _blend(self, xp, l_data, l_valid, r_data, r_valid, r_cast):
+        nan = xp.isnan(l_data)
+        return (xp.where(nan, r_cast, l_data),
+                xp.where(nan, r_valid, l_valid))
+
+    def do_columnar(self, l_data, l_valid, r_data, r_valid):
+        return self._blend(torch, l_data, l_valid, r_data, r_valid,
+                           r_data.to(l_data.dtype))
+
+    def do_host(self, l_data, l_valid, r_data, r_valid):
+        return self._blend(np, l_data, l_valid, r_data, r_valid,
+                           r_data.astype(l_data.dtype))
+
+
+class NormalizeNaNAndZero(UnaryExpression):
+    """One NaN bit pattern and -0.0 as 0.0 (Spark's
+    NormalizeFloatingNumbers, before grouping or joining on floats)."""
+
+    def data_type(self) -> DataType:
+        return self.child.data_type()
+
+    def do_columnar(self, data, validity, col):
+        data = torch.where(torch.isnan(data),
+                           torch.full((), float("nan"), dtype=data.dtype,
+                                      device=data.device), data)
+        # The reference's engine compares a subnormal as a zero.
+        return torch.where(flush_subnormal(data) == 0, data.abs(), data), \
+            validity
+
+    def do_host(self, data, validity, col):
+        data = np.where(np.isnan(data), data.dtype.type(np.nan), data)
+        return np.where(data == 0, np.abs(data), data), validity
+
+
+class KnownFloatingPointNormalized(UnaryExpression):
+    """Marker pass-through."""
+
+    def data_type(self) -> DataType:
+        return self.child.data_type()
+
+    def do_columnar(self, data, validity, col):
+        return data, validity
+
+    def do_host(self, data, validity, col):
+        return data, validity

@@ -1,6 +1,6 @@
 """Predicates and comparisons (port of the JAX package's
 ``exprs/predicates.py``: the ``_Comparison`` family, ``And``/``Or``/``Not``,
-``IsNull``/``IsNotNull``, ``InSet``).
+``IsNull``/``IsNotNull``, ``IsNan``, ``AtLeastNNonNulls``, ``InSet``).
 
 Spark semantics:
 - NaN equals NaN and is greater than every other float value.
@@ -10,6 +10,8 @@ Spark semantics:
 - And/Or use Kleene three-valued logic (false AND null = false,
   true OR null = true).
 - EqualNullSafe (``<=>``) never returns NULL.
+- AtLeastNNonNulls counts NaN in a float child as NULL, and is never
+  NULL itself (the predicate behind ``df.na.drop(thresh=n)``).
 - InSet (``IN (v1, ...)``): a NULL value gives NULL, and so does a value
   that matches nothing when the list holds a NULL; a NaN in the list
   matches NaN.
@@ -246,6 +248,59 @@ class IsNotNull(UnaryExpression):
     def eval_host(self, batch):
         col = as_host_column(self.child.eval_host(batch), batch)
         return make_host_column(dt.BOOL, col.validity,
+                                all_valid(batch.num_rows))
+
+
+class IsNan(UnaryExpression):
+    def data_type(self) -> DataType:
+        return dt.BOOL
+
+    def do_columnar(self, data, validity, col):
+        return torch.isnan(data), validity
+
+    def do_host(self, data, validity, col):
+        return np.isnan(data), validity
+
+
+class AtLeastNNonNulls(Expression):
+    """True where at least ``n`` children are non-null (NaN in a float
+    child counts as NULL); never NULL."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = int(n)
+        self._children = tuple(children)
+
+    @property
+    def children(self):
+        return self._children
+
+    def data_type(self) -> DataType:
+        return dt.BOOL
+
+    def _non_null(self, isnan, cols):
+        """Each child's non-null (and, for floats, non-NaN) mask."""
+        for e, c in zip(self._children, cols):
+            ok = c.validity
+            if e.data_type().is_floating:
+                ok = ok & ~isnan(c.data)
+            yield ok
+
+    def eval(self, batch):
+        cols = [as_device_column(e.eval(batch), batch)
+                for e in self._children]
+        acc = torch.zeros(batch.capacity, dtype=torch.int32,
+                          device=batch.device)
+        for ok in self._non_null(torch.isnan, cols):
+            acc = acc + ok.to(torch.int32)
+        return make_column(dt.BOOL, acc >= self.n, batch.row_mask())
+
+    def eval_host(self, batch):
+        cols = [as_host_column(e.eval_host(batch), batch)
+                for e in self._children]
+        acc = np.zeros(batch.num_rows, np.int32)
+        for ok in self._non_null(np.isnan, cols):
+            acc = acc + ok.astype(np.int32)
+        return make_host_column(dt.BOOL, acc >= self.n,
                                 all_valid(batch.num_rows))
 
 

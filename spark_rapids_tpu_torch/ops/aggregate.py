@@ -1,6 +1,6 @@
 """Hash aggregate (port of the JAX package's ``ops/aggregate.py``, cut to
-Count, CountStar, Sum, Average, Min and Max in modes partial, final,
-complete, merge and mixed_final).
+Count, CountStar, Sum, Average, Min, Max, First and Last in modes partial,
+final, complete, merge and mixed_final).
 
 Device algorithm per batch, as in the JAX package:
 
@@ -20,8 +20,19 @@ Zero-key aggregates skip the sort: whole-batch masked reductions
 which group their single group through the sorted path. Each batch's
 update and the final consolidation are OOM retry sites
 (``memory/oom.py``), and the input coalesces toward
-``effective_batch_target``. First/Last and the partial-skip decision
-come in a later slice.
+``effective_batch_target``. The partial-skip decision is not ported.
+
+First/Last pick by arrival: their buffers are (value, arrival index). The
+update stage numbers each row of a partition's stream (the batch's
+offset, the capacities of the partition's earlier batches, plus its row
+in the batch) and each group keeps the least (First) or greatest (Last)
+eligible index; the stable fingerprint sort keeps arrival order inside a
+group, so that is the group's first (last) sorted position, which one
+``kernels.segment_reduce`` over the positions finds (K2 on the card, as
+for Min/Max). Merging buffers keeps the least (greatest) index, ties to
+the earliest buffer row, two more segment reduces. The picks stay right
+through concatenation, merge and mixed_final because indexes never
+depend on batch boundaries after the update.
 
 DISTINCT aggregates run as three execs (the planner's
 ``_convert_distinct_aggregate``): a partial keyed by (keys..., x), a
@@ -113,8 +124,9 @@ class AggFunction:
     def result_type(self) -> dt.DataType:
         raise NotImplementedError
 
-    def update(self, col: SortedCol, gid: torch.Tensor,
-               capacity: int) -> List[Buf]:
+    def update(self, col: SortedCol, gid: torch.Tensor, capacity: int,
+               row_index: Optional[torch.Tensor] = None) -> List[Buf]:
+        """``row_index``: each sorted row's arrival index (First/Last)."""
         raise NotImplementedError
 
     def merge(self, bufs: List[SortedCol], gid: torch.Tensor,
@@ -142,8 +154,11 @@ class AggFunction:
         raise NotImplementedError
 
     # -- global (zero-key) path ------------------------------------------
-    # One value per buffer as (0-d data, 0-d valid, None).
-    def update_global(self, col: SortedCol) -> List[Tuple]:
+    # One value per buffer as (0-d data, 0-d valid, None). ``row_index``
+    # and ``live`` (each row's arrival index, the batch's live rows) serve
+    # First/Last.
+    def update_global(self, col: SortedCol, row_index=None,
+                      live=None) -> List[Tuple]:
         raise NotImplementedError
 
     def merge_global(self, bufs: List[SortedCol]) -> List[Tuple]:
@@ -191,7 +206,7 @@ class Count(AggFunction):
         s, = sums
         return [(s.to(torch.int64), _ones(capacity, s), None)]
 
-    def update_global(self, col):
+    def update_global(self, col, row_index=None, live=None):
         return [(col.validity.sum(dtype=torch.int64), True, None)]
 
     def merge_global(self, bufs):
@@ -287,7 +302,7 @@ class Sum(AggFunction):
                         torch.zeros((), dtype=t, device=data.device))
         return [(v.sum(), validity.sum(dtype=torch.int32) > 0, None)]
 
-    def update_global(self, col):
+    def update_global(self, col, row_index=None, live=None):
         return self._global(col.data, col.validity)
 
     def merge_global(self, bufs):
@@ -359,7 +374,7 @@ class Average(AggFunction):
         c = c.to(torch.int64)
         return [(s, c > 0, None), (c, _ones(capacity, c), None)]
 
-    def update_global(self, col):
+    def update_global(self, col, row_index=None, live=None):
         s = torch.where(col.validity, col.data.to(torch.float64),
                         _zeros_like_f64(col.data)).sum()
         c = col.validity.sum(dtype=torch.int64)
@@ -402,7 +417,7 @@ class Min(AggFunction):
     def result_type(self):
         return self.child.data_type()
 
-    def update(self, col, gid, capacity):
+    def update(self, col, gid, capacity, row_index=None):
         if col.lengths is not None:
             return [kernels.segment_minmax_string(
                 col.data, col.lengths, col.validity, gid, capacity,
@@ -434,7 +449,7 @@ class Min(AggFunction):
                 else torch.where((val & isnan).any(), nanv, m)
         return [(m, val.any(), None)]
 
-    def update_global(self, col):
+    def update_global(self, col, row_index=None, live=None):
         return self._global(col)
 
     def merge_global(self, bufs):
@@ -461,6 +476,143 @@ class Min(AggFunction):
 
 class Max(Min):
     kind = "max"
+
+
+_NO_FIRST = 2 ** 62     # the index buffer of a First with no pick yet
+
+
+class First(AggFunction):
+    """first(x[, ignoreNulls]): the value of the group's earliest row in
+    arrival order within the partition stream (Last: the latest), NULL
+    rows skipped unless ``ignore_nulls`` is off; after an exchange the
+    order is the order buffers arrive in, as in Spark."""
+
+    pick = "min"
+
+    def __init__(self, child, ignore_nulls: bool = True):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def buffer_types(self):
+        return (self.child.data_type(), dt.INT64)
+
+    @property
+    def result_type(self):
+        return self.child.data_type()
+
+    @property
+    def _bad(self) -> int:
+        return _NO_FIRST if self.pick == "min" else -1
+
+    @staticmethod
+    def _gather(col: SortedCol, pos: torch.Tensor, ok: torch.Tensor) -> Buf:
+        safe = pos.clamp(0, pos.shape[0] - 1)
+        val = col.data.index_select(0, safe)
+        vval = col.validity.index_select(0, safe) & ok
+        if col.lengths is not None:
+            lens = torch.where(vval, col.lengths.index_select(0, safe),
+                               torch.zeros((), dtype=col.lengths.dtype,
+                                           device=ok.device))
+            return torch.where(vval[:, None], val,
+                               torch.zeros((), dtype=val.dtype,
+                                           device=ok.device)), vval, lens
+        return torch.where(vval, val, torch.zeros((), dtype=val.dtype,
+                                                  device=ok.device)), \
+            vval, None
+
+    def update(self, col, gid, capacity, row_index=None):
+        pos = torch.arange(capacity, dtype=torch.int64, device=gid.device)
+        eligible = col.validity if self.ignore_nulls \
+            else torch.ones_like(col.validity)
+        # Arrival order within a group is sorted order (stable sort), so
+        # the least / greatest eligible position carries the pick (K2).
+        picked, counts = kernels.segment_reduce(pos, eligible, gid,
+                                                capacity, self.pick)
+        ok = counts > 0
+        val, vval, lens = self._gather(col, picked, ok)
+        idx = pos if row_index is None else row_index
+        gidx = idx.index_select(0, picked.clamp(0, capacity - 1))
+        bad = torch.full((), self._bad, dtype=torch.int64, device=ok.device)
+        return [(val, vval, lens), (torch.where(ok, gidx, bad), ok, None)]
+
+    def merge(self, bufs, gid, capacity):
+        vcol, icol = bufs
+        bad = torch.full((), self._bad, dtype=torch.int64,
+                         device=gid.device)
+        keyed = torch.where(icol.validity, icol.data, bad)
+        best, _ = kernels.segment_reduce(keyed, icol.validity, gid,
+                                         capacity, self.pick)
+        # The winner holds the best index; ties go to the earliest row.
+        row = torch.arange(capacity, dtype=torch.int64, device=gid.device)
+        winner = icol.validity & (keyed == best.index_select(0, gid))
+        first_row, counts = kernels.segment_reduce(row, winner, gid,
+                                                   capacity, "min")
+        ok = counts > 0
+        val, vval, lens = self._gather(vcol, first_row, ok)
+        iv = icol.data.index_select(0, first_row.clamp(0, capacity - 1))
+        return [(val, vval, lens), (torch.where(ok, iv, bad), ok, None)]
+
+    def finalize(self, bufs):
+        vcol, _ = bufs
+        return vcol.data, vcol.validity, vcol.lengths
+
+    def update_global(self, col, row_index=None, live=None):
+        cap = col.validity.shape[0]
+        pos = torch.arange(cap, dtype=torch.int64, device=col.data.device)
+        # With ignore_nulls off a NULL row still wins; dead rows never do.
+        eligible = col.validity if self.ignore_nulls else \
+            (live if live is not None else torch.ones_like(col.validity))
+        if self.pick == "min":
+            picked = torch.where(eligible, pos, torch.full_like(pos, cap)) \
+                .min()
+            ok = picked < cap
+        else:
+            picked = torch.where(eligible, pos, torch.full_like(pos, -1)) \
+                .max()
+            ok = picked >= 0
+        safe = picked.clamp(0, cap - 1)
+        gidx = picked if row_index is None else row_index[safe]
+        return [(col.data[safe], ok & col.validity[safe], None),
+                (torch.where(ok, gidx, torch.full_like(gidx, self._bad)),
+                 ok, None)]
+
+    def merge_global(self, bufs):
+        vcol, icol = bufs
+        cap = icol.validity.shape[0]
+        bad = torch.full((), self._bad, dtype=torch.int64,
+                         device=icol.data.device)
+        keyed = torch.where(icol.validity, icol.data, bad)
+        best = keyed.min() if self.pick == "min" else keyed.max()
+        pos = torch.arange(cap, dtype=torch.int64, device=keyed.device)
+        row = torch.where(icol.validity & (keyed == best), pos,
+                          torch.full_like(pos, cap)).min()
+        ok = (row < cap) & (best != bad)
+        safe = row.clamp(0, cap - 1)
+        return [(vcol.data[safe], ok & vcol.validity[safe], None),
+                (torch.where(ok, icol.data[safe], bad), ok, None)]
+
+    def host_update(self, values):
+        seq = [(i, v) for i, v in enumerate(values)
+               if not (self.ignore_nulls and v is None)]
+        if not seq:
+            return (None, None)
+        i, v = seq[0] if self.pick == "min" else seq[-1]
+        return (v, i)
+
+    def host_merge(self, buf_tuples):
+        cands = [b for b in buf_tuples if b[1] is not None]
+        if not cands:
+            return (None, None)
+        pickf = min if self.pick == "min" else max
+        return pickf(cands, key=lambda b: b[1])
+
+    def host_finalize(self, buf):
+        return buf[0]
+
+
+class Last(First):
+    pick = "max"
 
 
 @dataclasses.dataclass
@@ -607,11 +759,14 @@ class HashAggregateExec(Exec):
         return out
 
     def _run_specs(self, spec_inputs, gid, slive, capacity,
-                   has_nans: bool = True) -> List[List[Buf]]:
+                   has_nans: bool = True,
+                   row_index: Optional[torch.Tensor] = None
+                   ) -> List[List[Buf]]:
         """``spec_inputs`` holds per spec ("update", SortedCol) or
         ("merge", [SortedCol...]). Sum-decomposable specs stack their
         streams per dtype class, one cumsum each; the rest ("raw") run
-        their own segmented update/merge. Returns the buffer list per
+        their own segmented update/merge (``row_index``, each sorted row's
+        arrival index, orders First/Last). Returns the buffer list per
         spec."""
         stacks: Dict[str, List[torch.Tensor]] = {}
         plans = []      # per spec: ("sum", [(cls, pos)...]) | ("raw", bufs)
@@ -620,7 +775,7 @@ class HashAggregateExec(Exec):
                 if kind == "update" \
                 else spec.fn.sum_terms_merge(arg, has_nans)
             if terms is None:
-                bufs = spec.fn.update(arg, gid, capacity) \
+                bufs = spec.fn.update(arg, gid, capacity, row_index) \
                     if kind == "update" else spec.fn.merge(arg, gid, capacity)
                 plans.append(("raw", bufs))
                 continue
@@ -656,15 +811,18 @@ class HashAggregateExec(Exec):
         c = sorted_b.columns[ord_]
         return SortedCol(c.data, c.validity, c.lengths)
 
-    def _update_batch(self, batch: DeviceBatch, offset=0) -> DeviceBatch:
-        """One input batch -> partial buffer batch. ``offset`` (the
-        arrival index of row 0, which orders First/Last in the JAX
-        package) is unused by the aggregates ported so far."""
+    def _update_batch(self, batch: DeviceBatch, offset: int = 0
+                      ) -> DeviceBatch:
+        """One input batch -> partial buffer batch. ``offset`` is the
+        arrival index of the batch's row 0 in its partition (orders
+        First/Last)."""
         work, ords = self._project_inputs(batch)
         if self._global_ok:
-            return self._global_stage(work, ords, update=True)
+            return self._global_stage(work, ords, update=True,
+                                      offset=offset)
         cap = work.capacity
         g, sorted_b, slive = self._group_sorted(work)
+        row_index = g.perm + offset
         inputs = []
         for ord_ in ords:
             if ord_ is None:
@@ -674,7 +832,7 @@ class HashAggregateExec(Exec):
             else:
                 inputs.append(("update", self._sorted_view(sorted_b, ord_)))
         bufs = self._run_specs(inputs, g.group_of_sorted, slive, cap,
-                               self._has_nans)
+                               self._has_nans, row_index)
         return self._assemble(work, g, bufs)
 
     def _merge_batch(self, batch: DeviceBatch) -> DeviceBatch:
@@ -712,24 +870,27 @@ class HashAggregateExec(Exec):
                 inputs.append(("merge", [self._sorted_view(sorted_b, ci + b)
                                          for b in range(nbuf)]))
                 ci += nbuf
-        bufs = self._run_specs(inputs, g.group_of_sorted, slive, cap)
+        bufs = self._run_specs(inputs, g.group_of_sorted, slive, cap,
+                               row_index=g.perm)
         return self._assemble(batch, g, bufs)
 
     # -- zero-key path --------------------------------------------------------
     @property
     def _global_ok(self) -> bool:
         """Zero grouping keys and every function reduces a whole batch
-        with masked reductions; a string Min/Max and the mixed_final
-        stage take the sorted path."""
+        with masked reductions; a string Min/Max or First/Last and the
+        mixed_final stage take the sorted path."""
         return self._nkeys == 0 and self.mode != "mixed_final" and not any(
-            isinstance(s.fn, Min) and s.fn.child.data_type().is_string
-            for s in self.aggs)
+            isinstance(s.fn, (Min, First))
+            and s.fn.child.data_type().is_string for s in self.aggs)
 
-    def _global_stage(self, work: DeviceBatch, ords,
-                      update: bool) -> DeviceBatch:
+    def _global_stage(self, work: DeviceBatch, ords, update: bool,
+                      offset: int = 0) -> DeviceBatch:
         live = work.row_mask()
         all_bufs = []
         if update:
+            row_index = torch.arange(work.capacity, dtype=torch.int64,
+                                     device=live.device) + offset
             for spec, ord_ in zip(self.aggs, ords):
                 if ord_ is None:
                     col = SortedCol(torch.zeros(work.capacity,
@@ -738,7 +899,8 @@ class HashAggregateExec(Exec):
                 else:
                     c = work.columns[ord_]
                     col = SortedCol(c.data, c.validity & live, c.lengths)
-                all_bufs.append(spec.fn.update_global(col))
+                all_bufs.append(spec.fn.update_global(col, row_index,
+                                                      live))
         else:
             ci = self._nkeys
             for spec in self.aggs:
@@ -850,10 +1012,12 @@ class HashAggregateExec(Exec):
                 child_iter,
                 effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS))),
                 int(ctx.conf.get(C.BATCH_SIZE_BYTES)))
+        offset = 0
         for batch in child_iter:
             if update_stage:
                 with timed(m):
-                    partial = retry_on_oom(self._update_batch, batch)
+                    partial = retry_on_oom(self._update_batch, batch, offset)
+                offset += batch.capacity
                 if self.mode == "partial":
                     record_batch(m, partial)
                     yield partial
@@ -1376,6 +1540,9 @@ def _host_seg_agg(fn: AggFunction, kind: str, cols, order_idx, starts,
         return [HostColumn(dt.FLOAT64, np.where(sv, s, 0.0), sv),
                 HostColumn(dt.INT64, n, np.ones(ngroups, np.bool_))]
 
+    if isinstance(fn, First):           # First + Last
+        return _host_seg_first(fn, kind, cols, order_idx, starts, ends)
+
     # Min + Max, numeric.
     c = cols[0]
     t = c.dtype
@@ -1405,3 +1572,62 @@ def _host_seg_agg(fn: AggFunction, kind: str, cols, order_idx, starts,
                 np.where(v, x, np.iinfo(np.int64).max), starts)
         data = np.where(ok, m, 0).astype(t.np_dtype)
     return [HostColumn(t, data, ok)]
+
+
+def _host_seg_first(fn: "First", kind: str, cols, order_idx, starts,
+                    ends) -> List[HostColumn]:
+    """First/Last over sorted segments. The index buffer is the pick's
+    position inside its group's rows (what the python-row path's
+    ``host_update`` numbers); merging keeps the least (First) or greatest
+    (Last) index, ties to the earliest row, as the python ``min`` /
+    ``max`` over buffer tuples do."""
+    last = fn.pick == "max"
+    total = len(order_idx)
+    ngroups = len(starts)
+    pos = np.arange(total, dtype=np.int64)
+    if kind in ("agg", "update"):
+        c = cols[0]
+        v = np.asarray(c.validity, np.bool_)[order_idx]
+        if fn.ignore_nulls:
+            if last:
+                p = np.maximum.reduceat(np.where(v, pos, np.int64(-1)),
+                                        starts)
+                ok = p >= 0
+            else:
+                p = np.minimum.reduceat(np.where(v, pos, np.int64(total)),
+                                        starts)
+                ok = p < total
+        else:
+            p = (ends - 1 if last else starts).astype(np.int64)
+            ok = np.ones(ngroups, np.bool_)
+        safe = np.where(ok, p, 0)
+        vcol = c.take(np.where(ok, order_idx[safe], np.int64(-1)),
+                      null_on_negative=True)
+        if kind == "agg":
+            return [vcol]
+        return [vcol, HostColumn(dt.INT64, np.where(ok, safe - starts, 0),
+                                 ok)]
+    # merge / final: one reduceat over index * T + a tie-break that makes
+    # the earliest row win.
+    vb, ib = cols
+    iv = np.asarray(ib.validity, np.bool_)[order_idx]
+    ix = np.asarray(ib.data)[order_idx].astype(np.int64)
+    localpos = pos - np.repeat(starts, ends - starts)
+    T = np.int64(total + 1)
+    if last:
+        enc = np.where(iv, ix * T + (T - 1 - localpos), np.int64(-1))
+        best = np.maximum.reduceat(enc, starts)
+        ok = best >= 0
+    else:
+        imax = np.iinfo(np.int64).max
+        enc = np.where(iv, ix * T + localpos, imax)
+        best = np.minimum.reduceat(enc, starts)
+        ok = best < imax
+    safe = np.where(ok, best, 0)
+    lp = (T - 1) - (safe % T) if last else safe % T
+    idx = np.where(ok, order_idx[np.where(ok, starts + lp, 0)],
+                   np.int64(-1))
+    vcol = vb.take(idx, null_on_negative=True)
+    if kind == "final":
+        return [vcol]
+    return [vcol, HostColumn(dt.INT64, np.where(ok, safe // T, 0), ok)]

@@ -1,7 +1,9 @@
 """Logical plans and the untyped column DSL (port of the JAX package's
 ``plan/logical.py``, cut to the DSL and nodes the 22 TPC-H queries,
 TPCxBB q5 and q12, ``repart`` and the TPC-DS-like q67, q3, q42, q55, q89
-and q98 use).
+and q98 use, plus the numeric, date-time and row-source surface: the
+math, date-time and nondeterministic functions, ``least`` / ``greatest``,
+``agg_first`` / ``agg_last``, ``LogicalRange`` and ``LogicalUnion``).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -13,8 +15,9 @@ raises ``NotPortedError`` (a ``ResolutionError``) naming it. Window
 expressions (``Column.over`` a ``Window`` spec) never resolve: the
 DataFrame layer extracts them into ``LogicalWindow`` nodes, as the
 reference does. A cast to or from a string raises ``NotPortedError`` too.
-The reference's other DSL functions and nodes (generate, union, range,
-file scans, pandas) come with the slices that port their operators.
+The reference's other DSL functions and nodes (the string functions,
+generate, file scans, pandas) come with the slices that port their
+operators.
 """
 
 from __future__ import annotations
@@ -224,6 +227,158 @@ def dayofmonth(c):
     return Column(("dayofmonth", _as_col(c)))
 
 
+def sqrt_col(c):
+    return Column(("sqrt", _as_col(c)))
+
+
+def abs_col(c):
+    return Column(("abs", _as_col(c)))
+
+
+def round_col(c, scale=0):
+    return Column(("round", _as_col(c), scale))
+
+
+def bround_col(c, scale: int = 0) -> Column:
+    return Column(("bround", _as_col(c), scale))
+
+
+def floor_col(c) -> Column:
+    return Column(("floor", _as_col(c)))
+
+
+def ceil_col(c) -> Column:
+    return Column(("ceil", _as_col(c)))
+
+
+def exp_col(c) -> Column:
+    return Column(("exp", _as_col(c)))
+
+
+def log_col(c) -> Column:
+    return Column(("log", _as_col(c)))
+
+
+def log10_col(c) -> Column:
+    return Column(("log10", _as_col(c)))
+
+
+def log2_col(c) -> Column:
+    return Column(("log2", _as_col(c)))
+
+
+def logb(base, c) -> Column:
+    """log(base, x), Spark's two-argument log; the base is a column or a
+    literal."""
+    return Column(("logb", _as_col(base), _as_col(c)))
+
+
+def at_least_n_non_nulls(n: int, *cs) -> Column:
+    """True where at least n of the columns are non-null (NaN counts as
+    null for floats): the df.na.drop(thresh=n) predicate."""
+    return Column(("at_least_n_non_nulls", int(n),
+                   tuple(_as_col(c) for c in cs)))
+
+
+def pow_col(c, p) -> Column:
+    return Column(("pow", _as_col(c), _as_col(p)))
+
+
+def signum_col(c) -> Column:
+    return Column(("signum", _as_col(c)))
+
+
+def isnan_col(c) -> Column:
+    return Column(("isnan", _as_col(c)))
+
+
+def nanvl(c, fallback) -> Column:
+    return Column(("nanvl", _as_col(c), _as_col(fallback)))
+
+
+def least(*cs) -> Column:
+    return Column(("least", tuple(_as_col(c) for c in cs)))
+
+
+def greatest(*cs) -> Column:
+    return Column(("greatest", tuple(_as_col(c) for c in cs)))
+
+
+def _unary_fn(kind):
+    def f(c):
+        return Column((kind, _as_col(c)))
+    f.__name__ = kind
+    return f
+
+
+sin_col = _unary_fn("sin")
+cos_col = _unary_fn("cos")
+tan_col = _unary_fn("tan")
+asin_col = _unary_fn("asin")
+acos_col = _unary_fn("acos")
+atan_col = _unary_fn("atan")
+sinh_col = _unary_fn("sinh")
+cosh_col = _unary_fn("cosh")
+tanh_col = _unary_fn("tanh")
+asinh_col = _unary_fn("asinh")
+acosh_col = _unary_fn("acosh")
+atanh_col = _unary_fn("atanh")
+cbrt_col = _unary_fn("cbrt")
+expm1_col = _unary_fn("expm1")
+log1p_col = _unary_fn("log1p")
+degrees_col = _unary_fn("degrees")
+radians_col = _unary_fn("radians")
+rint_col = _unary_fn("rint")
+
+quarter = _unary_fn("quarter")
+dayofweek = _unary_fn("dayofweek")
+weekday = _unary_fn("weekday")
+dayofyear = _unary_fn("dayofyear")
+last_day = _unary_fn("last_day")
+hour = _unary_fn("hour")
+minute = _unary_fn("minute")
+second = _unary_fn("second")
+to_unix_timestamp = _unary_fn("to_unix_timestamp")
+from_unixtime = _unary_fn("from_unixtime")
+
+
+def date_add(c, n) -> Column:
+    return Column(("date_add", _as_col(c), _as_col(n)))
+
+
+def date_sub(c, n) -> Column:
+    return Column(("date_sub", _as_col(c), _as_col(n)))
+
+
+def datediff(end, start) -> Column:
+    return Column(("datediff", _as_col(end), _as_col(start)))
+
+
+def add_months(c, n) -> Column:
+    return Column(("add_months", _as_col(c), _as_col(n)))
+
+
+def trunc(c, fmt: str) -> Column:
+    return Column(("trunc", _as_col(c), fmt))
+
+
+def rand(seed: int = 0) -> Column:
+    """Uniform [0, 1) per row (nondeterministic; seeded per partition)."""
+    return Column(("rand", int(seed)))
+
+
+def spark_partition_id() -> Column:
+    return Column(("spark_partition_id",))
+
+
+def monotonically_increasing_id() -> Column:
+    return Column(("monotonically_increasing_id",))
+
+
+def input_file_name() -> Column:
+    return Column(("input_file_name",))
+
+
 # Aggregate builders.
 def agg_sum(c) -> Column:
     return Column(("agg", "sum", _as_col(c)))
@@ -257,6 +412,14 @@ def agg_sum_distinct(c) -> Column:
 
 def agg_avg_distinct(c) -> Column:
     return Column(("aggd", "avg", _as_col(c)))
+
+
+def agg_first(c, ignore_nulls=True) -> Column:
+    return Column(("agg", "first", _as_col(c), ignore_nulls))
+
+
+def agg_last(c, ignore_nulls=True) -> Column:
+    return Column(("agg", "last", _as_col(c), ignore_nulls))
 
 
 # ---------------------------------------------------------------------------
@@ -375,11 +538,41 @@ _UNARY = {"not": E.Not, "isnull": E.IsNull, "isnotnull": E.IsNotNull}
 _NEEDLE = {"startswith": E.StartsWith, "endswith": E.EndsWith,
            "contains": E.Contains}
 _DATE_PART = {"year": E.Year, "month": E.Month, "dayofmonth": E.DayOfMonth}
+# One-column functions, as the reference's ``_UNARY_TABLE``.
+_UNARY_FNS = {
+    "neg": E.UnaryMinus, "abs": E.Abs, "sqrt": E.Sqrt, "isnan": E.IsNan,
+    "floor": E.Floor, "ceil": E.Ceil, "exp": E.Exp, "log": E.Log,
+    "log10": E.Log10, "log2": E.Log2, "log1p": E.Log1p,
+    "expm1": E.Expm1, "cbrt": E.Cbrt, "sin": E.Sin, "cos": E.Cos,
+    "tan": E.Tan, "asin": E.Asin, "acos": E.Acos, "atan": E.Atan,
+    "sinh": E.Sinh, "cosh": E.Cosh, "tanh": E.Tanh,
+    "asinh": E.Asinh, "acosh": E.Acosh, "atanh": E.Atanh,
+    "degrees": E.ToDegrees, "radians": E.ToRadians, "rint": E.Rint,
+    "signum": E.Signum,
+    "quarter": E.Quarter, "dayofweek": E.DayOfWeek,
+    "weekday": E.WeekDay, "dayofyear": E.DayOfYear,
+    "last_day": E.LastDay, "hour": E.Hour, "minute": E.Minute,
+    "second": E.Second, "to_unix_timestamp": E.ToUnixTimestamp,
+    "from_unixtime": E.FromUnixTime,
+}
+# Two-column functions (no literal coercion, as in the reference).
+_BINARY_FNS = {
+    "nanvl": E.NaNvl, "pow": E.Pow, "logb": E.Logarithm,
+    "date_add": E.DateAdd, "date_sub": E.DateSub, "datediff": E.DateDiff,
+    "add_months": E.AddMonths,
+}
+# Task-context functions of no argument but the seed.
+_CONTEXT_FNS = {"spark_partition_id": E.SparkPartitionID,
+                "monotonically_increasing_id": E.MonotonicallyIncreasingID,
+                "input_file_name": E.InputFileName}
 # Every kind ``resolve`` maps onto a port expression.
 PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
-                          "like", "cast", "substr", "hash", "pmod"}
+                          "like", "cast", "substr", "hash", "pmod", "round",
+                          "bround", "least", "greatest",
+                          "at_least_n_non_nulls", "trunc", "rand"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
-                         | set(_DATE_PART))
+                         | set(_DATE_PART) | set(_UNARY_FNS)
+                         | set(_BINARY_FNS) | set(_CONTEXT_FNS))
 # The window kinds: ported, but never resolved as expressions (the
 # DataFrame layer extracts them into ``LogicalWindow`` nodes).
 WINDOW_KINDS = frozenset({"window", "winfn"})
@@ -441,6 +634,26 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return E.CaseWhen(branches, else_e)
     if kind in _DATE_PART:
         return _DATE_PART[kind](rec(node[1]))
+    if kind in _UNARY_FNS:
+        return _UNARY_FNS[kind](rec(node[1]))
+    if kind in _BINARY_FNS:
+        return _BINARY_FNS[kind](rec(node[1]), rec(node[2]))
+    if kind == "round":
+        return E.Round(rec(node[1]), node[2])
+    if kind == "bround":
+        return E.BRound(rec(node[1]), node[2])
+    if kind == "least":
+        return E.Least(*[rec(x) for x in node[1]])
+    if kind == "greatest":
+        return E.Greatest(*[rec(x) for x in node[1]])
+    if kind == "at_least_n_non_nulls":
+        return E.AtLeastNNonNulls(node[1], *[rec(x) for x in node[2]])
+    if kind == "trunc":
+        return E.TruncDate(rec(node[1]), node[2])
+    if kind == "rand":
+        return E.Rand(node[1])
+    if kind in _CONTEXT_FNS:
+        return _CONTEXT_FNS[kind]()
     if kind == "sortorder":
         raise ResolutionError("sort order only valid in orderBy")
     if kind in WINDOW_KINDS:
@@ -507,6 +720,22 @@ class InMemoryScan(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.source_schema
+
+
+@dataclasses.dataclass
+class LogicalRange(LogicalPlan):
+    """range(start, end, step) in ``num_partitions`` row ranges: one
+    INT64 column ``id``."""
+
+    start: int
+    end: int
+    step: int
+    num_partitions: int
+    children = ()
+
+    @property
+    def schema(self) -> Schema:
+        return (("id", dt.INT64),)
 
 
 class _Unary(LogicalPlan):
@@ -661,3 +890,15 @@ class LogicalJoin(LogicalPlan):
             return self.children[0].schema
         return tuple(self.children[0].schema) + \
             tuple(self.children[1].schema)
+
+
+class LogicalUnion(LogicalPlan):
+    """UNION ALL of children whose schemas line up by position; the first
+    child's names are the result's."""
+
+    def __init__(self, *children: LogicalPlan):
+        self.children = tuple(children)
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        return self.children[0].schema

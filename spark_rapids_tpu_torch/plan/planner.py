@@ -30,6 +30,13 @@
   ``shuffle`` is a ``ShuffledHashJoinExec`` over two hash exchanges, a
   ``broadcast`` one a ``BroadcastHashJoinExec``, and a join without keys
   a ``BroadcastNestedLoopJoinExec``.
+- ``range`` is a ``RangeExec`` source (batches of ``batchSizeRows``
+  built on the card), ``union`` a ``UnionExec`` over its children, each
+  bridged to the union's engine.
+- Task-context expressions (``rand``, ``spark_partition_id``,
+  ``monotonically_increasing_id``, ``input_file_name``) are an analysis
+  error anywhere but in a projection or a filter, whose operators thread
+  the partition and row base (``_forbid_contextual``).
 - ROLLUP and CUBE lower to ``ExpandExec`` under the two-stage aggregate
   keyed by the grouping id; DISTINCT aggregates lower to the partial /
   merge / mixed_final pipeline (``_convert_distinct_aggregate``);
@@ -57,9 +64,10 @@ from spark_rapids_tpu_torch.exprs.base import BoundReference, Literal
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
     Count, CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec,
-    FilterExec, GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
-    InMemorySourceExec, LocalLimitExec, Max, Min, ProjectExec,
-    ShuffledHashJoinExec, SortExec, SortOrder, Sum, WindowExec)
+    FilterExec, First, GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
+    InMemorySourceExec, Last, LocalLimitExec, Max, Min, ProjectExec,
+    RangeExec, ShuffledHashJoinExec, SortExec, SortOrder, Sum, UnionExec,
+    WindowExec)
 from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
@@ -93,7 +101,15 @@ _IMPROVED_FLOAT_EXPRS = {
 # The aggregate kinds ``resolve_agg`` maps onto the port's functions
 # (count of no column is CountStar).
 _AGGS = {"count": Count, "sum": Sum, "min": Min, "max": Max,
-         "avg": Average}
+         "avg": Average, "first": First, "last": Last}
+# The aggregates a window frame computes (ops/window.py).
+_WINDOW_AGGS = {"count", "sum", "min", "max", "avg"}
+# Kinds whose value depends on the task context; only Project and Filter
+# thread an EvalContext, so anywhere else they would evaluate with
+# partition 0 and row base 0 (Spark's CheckAnalysis draws the same line
+# for nondeterministic expressions).
+_CONTEXTUAL_KINDS = {"rand", "spark_partition_id",
+                     "monotonically_increasing_id", "input_file_name"}
 # The window functions ``_convert_window`` maps onto ops/window.py.
 _WINDOW_FNS = {"row_number", "rank", "dense_rank", "lead", "lag"}
 
@@ -156,6 +172,33 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
                         if isinstance(z, Column):
                             tag_column(z, conf, reasons, port_reasons,
                                        schema)
+
+
+def _column_kinds(c: Column, out: set) -> set:
+    out.add(c.node[0])
+    for x in c.node[1:]:
+        if isinstance(x, Column):
+            _column_kinds(x, out)
+        elif isinstance(x, tuple):
+            for y in x:
+                if isinstance(y, Column):
+                    _column_kinds(y, out)
+                elif isinstance(y, tuple):
+                    for z in y:
+                        if isinstance(z, Column):
+                            _column_kinds(z, out)
+    return out
+
+
+def _forbid_contextual(c: Column, where: str):
+    """Analysis-time guard: task-context expressions are valid only where
+    the evaluating operator threads an EvalContext (select / filter)."""
+    bad = _column_kinds(c, set()) & _CONTEXTUAL_KINDS
+    if bad:
+        raise ResolutionError(
+            f"nondeterministic/task-context expression(s) {sorted(bad)} are "
+            f"only supported in select/filter/with_column, not in {where} "
+            "(evaluate them into a column first)")
 
 
 def _port_reason(reasons: List[str], port_reasons: List[str], why: str):
@@ -225,9 +268,10 @@ class NodeMeta:
         return out
 
 
-_NODES = (L.InMemoryScan, L.LogicalFilter, L.LogicalProject,
-          L.LogicalAggregate, L.LogicalSort, L.LogicalLimit, L.LogicalJoin,
-          L.LogicalWindow, L.LogicalRepartition)
+_NODES = (L.InMemoryScan, L.LogicalRange, L.LogicalFilter,
+          L.LogicalProject, L.LogicalAggregate, L.LogicalSort,
+          L.LogicalLimit, L.LogicalJoin, L.LogicalWindow,
+          L.LogicalRepartition, L.LogicalUnion)
 
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
@@ -249,8 +293,10 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
             tag_column(c, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalAggregate):
         for _, c in plan.group_by:
+            _forbid_contextual(c, "group_by")
             tag_column(c, conf, reasons, ours, child_schema)
         for _, c in plan.aggregates:
+            _forbid_contextual(c, "aggregates")
             ac = _unalias(c)
             if ac.node[0] not in ("agg", "aggd"):
                 continue
@@ -266,8 +312,9 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
                              f"aggregate {ac.node[1]} is not ported")
     elif isinstance(plan, L.LogicalSort):
         for o in plan.orders:
-            tag_column(o.node[1] if o.node[0] == "sortorder" else o, conf,
-                       reasons, ours, child_schema)
+            inner = o.node[1] if o.node[0] == "sortorder" else o
+            _forbid_contextual(inner, "order_by")
+            tag_column(inner, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalJoin):
         if plan.strategy == "shuffle" and plan.left_keys and \
                 not conf.get(C.REPLACE_SORT_MERGE_JOIN):
@@ -277,10 +324,13 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
         ls = child_schema
         rs = _schema_or_none(plan.children[1])
         for k in plan.left_keys:
+            _forbid_contextual(k, "join keys")
             tag_column(k, conf, reasons, ours, ls)
         for k in plan.right_keys:
+            _forbid_contextual(k, "join keys")
             tag_column(k, conf, reasons, ours, rs)
         if plan.condition is not None:
+            _forbid_contextual(plan.condition, "join condition")
             tag_column(plan.condition, conf, reasons, ours,
                        None if ls is None or rs is None
                        else tuple(ls) + tuple(rs))
@@ -293,19 +343,22 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
                          "references are not ported")
     elif isinstance(plan, L.LogicalRepartition):
         for k in (plan.keys or []):
+            _forbid_contextual(k, "repartition keys")
             tag_column(k, conf, reasons, ours, child_schema)
     elif isinstance(plan, L.LogicalWindow):
         for c in plan.window.partition_cols:
+            _forbid_contextual(c, "window partition keys")
             tag_column(c, conf, reasons, ours, child_schema)
         for o in plan.window.order_cols:
             inner = o.node[1] if o.node[0] == "sortorder" else o
+            _forbid_contextual(inner, "window order keys")
             tag_column(inner, conf, reasons, ours, child_schema)
         for _, fn_col in plan.exprs:
             node = fn_col.node
             if len(node) > 2 and isinstance(node[2], Column):
                 tag_column(node[2], conf, reasons, ours, child_schema)
             known = _WINDOW_FNS if node[0] == "winfn" else \
-                set(_AGGS) if node[0] == "agg" else set()
+                _WINDOW_AGGS if node[0] == "agg" else set()
             if node[1] not in known:
                 _port_reason(reasons, ours, f"window function {node[0]} "
                              f"{node[1]} is not ported")
@@ -365,6 +418,8 @@ def resolve_agg(c: Column, schema):
         raise ResolutionError(f"{kind}(DISTINCT) is not meaningful")
     if kind == "count" and child is None:
         fn = CountStar(None)
+    elif kind in ("first", "last"):
+        fn = _AGGS[kind](child, c.node[3] if len(c.node) > 3 else True)
     elif kind in _AGGS:
         fn = _AGGS[kind](child)
     else:
@@ -529,8 +584,17 @@ class Planner:
         if isinstance(plan, L.InMemoryScan):
             return InMemorySourceExec(plan.schema, plan.partitions,
                                       device=self.device), want_dev
+        if isinstance(plan, L.LogicalRange):
+            return RangeExec(plan.start, plan.end, plan.step,
+                             plan.num_partitions,
+                             batch_rows=int(self.conf.get(
+                                 C.BATCH_SIZE_ROWS)),
+                             device=self.device), want_dev
         if isinstance(plan, L.LogicalJoin):
             return self._convert_join(plan, meta, kids, want_dev), want_dev
+        if isinstance(plan, L.LogicalUnion):
+            return UnionExec(*[self._bridge(ch, cdev, want_dev)
+                               for ch, cdev in kids]), want_dev
         child = self._bridge(*kids[0], want_dev)
         if isinstance(plan, L.LogicalFilter):
             return FilterExec(child, resolve(plan.condition,

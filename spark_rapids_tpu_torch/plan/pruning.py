@@ -76,11 +76,15 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
                     else:
                         total += c.num_rows * max(c.dtype.itemsize, 8)
         return total
+    if isinstance(plan, L.LogicalRange):
+        rows = max(0, -(-(plan.end - plan.start) // plan.step)) \
+            if plan.step else 0
+        return 8 * rows
     if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit,
                          L.LogicalAggregate, L.LogicalProject,
                          L.LogicalWindow)):
         return estimate_bytes(plan.child)
-    if isinstance(plan, L.LogicalJoin):
+    if isinstance(plan, (L.LogicalUnion, L.LogicalJoin)):
         sizes = [estimate_bytes(c) for c in plan.children]
         if any(s is None for s in sizes):
             return None
@@ -90,8 +94,12 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
 
 def _prune(plan: LogicalPlan, required: Optional[Set[str]]) -> LogicalPlan:
     # required == None means "every column of this subtree's schema".
-    if isinstance(plan, L.InMemoryScan):
+    if isinstance(plan, (L.InMemoryScan, L.LogicalRange)):
         return plan
+    if isinstance(plan, L.LogicalUnion):
+        # Union children line up by position: pruning them on their own
+        # could leave siblings with different schemas. Keep every column.
+        return L.LogicalUnion(*[_prune(c, None) for c in plan.children])
     if isinstance(plan, L.LogicalFilter):
         child_req = None if required is None else \
             refs_of(plan.condition, set(required))

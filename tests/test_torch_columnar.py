@@ -6,6 +6,7 @@ one (bit views, so -0.0 and NaN payloads count), host rows compare as
 python values.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ DayOfMonth and Quarter, against the JAX package's, on the CPU.
   -0.0 against 0.0 and a value longer than the column's matrix.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

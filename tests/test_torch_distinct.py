@@ -37,6 +37,7 @@ merge and mixed_final modes) against the JAX package, on the CPU.
   chip_smoke.py's oracle of it.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

@@ -25,6 +25,7 @@ The reference runs its exchanges at the partition counts each test pins
 planner).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 from collections import Counter
 
 import numpy as np

@@ -6,6 +6,7 @@ Both engines get the same numpy columns; results compare buffer for
 buffer (data under dead rows zeroed, validity).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

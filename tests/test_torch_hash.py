@@ -7,6 +7,7 @@ Inputs are numpy arrays handed to both engines as device columns. The JAX
 package's u32 results are compared as int64, the port's u32 carrier.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ the same host batches, bit for bit.
   give back the rows they were given.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import types
 
 import numpy as np

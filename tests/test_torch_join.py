@@ -14,6 +14,7 @@
   NaN / -0.0 / subnormal float keys and a residual condition.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import math
 import struct
 

@@ -22,6 +22,7 @@ against the JAX package's, on the same seeded inputs.
   "out of memory" status recognised by its message.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ kernel) where its default path and the kernel differ: subnormals, see
 none, so the execs run on its default path.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import math
 
 import numpy as np

@@ -14,6 +14,7 @@ published and looked back over in a random interleaving of tiles) is
 checked by an emulation in Python against ``torch.sort(stable=True)``.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import subprocess
 import sys

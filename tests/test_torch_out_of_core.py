@@ -26,6 +26,7 @@ Integer, string and order compare exactly; float sums by the harness's
 ``approx_float`` (the window's prefix sums run over other row sets).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 

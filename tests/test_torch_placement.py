@@ -28,6 +28,7 @@ host-side exchange on the device in a mixed plan, which its
 ``DeviceToHostExec`` refuses.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import math
 import struct
 

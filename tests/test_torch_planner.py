@@ -32,6 +32,7 @@ api.dataframe against the JAX package's, on the CPU.
   and a session with no card raising.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import copy
 
 import numpy as np
@@ -43,7 +44,7 @@ from spark_rapids_tpu.plan import logical as JL
 from spark_rapids_tpu.plan import planner as JPL
 
 from spark_rapids_tpu_torch import config as C
-from spark_rapids_tpu_torch.api import DataFrame, TpuSession
+from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.benchmarks import tpch
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.ops import ShuffledHashJoinExec
@@ -212,8 +213,8 @@ def _host_cases(M, session):
 
 def _lifted_cases(M, session):
     """Plans the port refused before it had the exchange, the shuffled
-    and nested-loop joins and full outer joins, in either package's DSL:
-    case -> (DataFrame, conf updates)."""
+    and nested-loop joins, full outer joins and First, in either
+    package's DSL: case -> (DataFrame, conf updates)."""
     df = _scan_df(session)
     other = _scan_df(session).select(M.col("a").alias("b"),
                                      M.col("s").alias("t"))
@@ -230,6 +231,10 @@ def _lifted_cases(M, session):
                 other.filter(M.col("b") < 4), ["a"], ["b"], how="full"),
             {}),
         "keyless_join": (df.join_on(other, [], []), {}),
+        # Grouping sets are planned (ExpandExec); first() under one was
+        # refused until the port had First.
+        "grouping_sets": (
+            df.rollup("s").agg(M.agg_first(M.col("a")).alias("n")), {}),
         "multi_partition_window": (
             df.with_column("r", M.rank().over(
                 M.Window.partition_by("s").order_by("a"))),
@@ -252,14 +257,6 @@ def _refusals(session):
         "unported_expression": (
             df.select(md5.alias("r"), "a").filter(c("a") > 1),
             {}, [("LogicalProject", "expression md5 is not ported")]),
-        # Grouping sets are planned (ExpandExec); an aggregate the port
-        # has no class for under one is still refused.
-        "grouping_sets": (
-            DataFrame(session, L.LogicalAggregate(
-                df._plan, [("s", c("s"))],
-                [("n", L.Column(("agg", "first", c("a"), True)))],
-                grouping="rollup")), {},
-            [("LogicalAggregate", "aggregate first is not ported")]),
         "unported_window_function": (
             df.with_column("x", L.Column(("agg", "first", c("a"), True))
                            .over(L.Window.partition_by("s"))), {},

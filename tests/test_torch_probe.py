@@ -13,6 +13,7 @@ build, runs longer than a pivot spacing and the probes 0, 2^63 and
 block windows.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ take their prefix sums in different orders (JAX's CPU cumsum vs torch's):
 q1 plan, as the ROADMAP's float-sum rule allows.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

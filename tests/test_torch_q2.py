@@ -10,6 +10,7 @@ JAX package, on the CPU.
 - chip_smoke.py's numpy oracle for q2 agrees with the port.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

@@ -11,6 +11,7 @@ against the JAX package, on the CPU.
 - chip_smoke.py's numpy oracles for q3 and q4 agree with the port.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

@@ -15,6 +15,7 @@ interleaving) is checked by an emulation in Python against the plain
 version, at tiny tile sizes that exercise every branch.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

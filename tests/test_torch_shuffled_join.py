@@ -21,6 +21,7 @@
   partitions is refused, as the reference's asserts.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import math
 import struct
 from collections import Counter

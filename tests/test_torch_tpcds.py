@@ -19,6 +19,7 @@ data_dir)`` over its parquet, on the CPU.
   wrong answer.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

@@ -12,6 +12,7 @@ package over the same in-memory partitions (scale 0.003), on the CPU.
   numbers).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import pytest
 
 from spark_rapids_tpu import config as JC

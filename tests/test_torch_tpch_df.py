@@ -16,6 +16,7 @@ text, planned by the port's planner) against the JAX package's own
   bit for bit; chip_smoke.py's numpy oracles agree with q1-q6.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

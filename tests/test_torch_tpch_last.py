@@ -31,6 +31,7 @@ fixed-width ``Cast`` against the reference's expressions.
   narrowing) evaluate as the reference's on both engines, bit for bit.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 

@@ -31,6 +31,7 @@ CPU.
 - chip_smoke.py's numpy oracles agree with the port's rows.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import hashlib
 import os
 import sys

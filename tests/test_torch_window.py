@@ -23,6 +23,7 @@ same seeded numpy batches, bit for bit; ``ExpandExec``'s two halves; and
   window's NULL partition, and the sort puts NULLs first.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ version against the JAX package, on the CPU.
 - The codec conf key and env, and import hygiene (no jax, no pandas).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import subprocess
 import sys

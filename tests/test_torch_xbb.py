@@ -21,6 +21,7 @@ text, planned by the port's planner) against the JAX package's own
 - chip_smoke.py's numpy oracle agrees with the port's rows.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
 import os
 import sys
 from collections import Counter
