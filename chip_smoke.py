@@ -219,27 +219,27 @@ Phases (each raises on failure; any failure exits non-zero):
 19. The numeric, date-time and row-source surface (runs after phase 18),
    through ``TpuSession`` and ``benchmarks/rowsource.py``, each run once
    under ``variableFloatAgg`` + ``improvedFloatOps`` (every node on the
-   card) and once under the default conf: (a) ``session.range(0, 2^26,
-   num_partitions=8)`` (16 batches of 4,194,304 built on the card) with
-   ``rand(7)``, ``monotonically_increasing_id()``,
+   card) and once under the default conf: (a) ``session.range(0, 2^24,
+   num_partitions=8)`` (a batch of 2,097,152 built on the card in each
+   partition) with ``rand(7)``, ``monotonically_increasing_id()``,
    ``spark_partition_id()`` and the hour, minute and second of
    ``from_unixtime(id * 37)``, grouped by ``pmod(id, 4096)`` (count,
    sums, min / max of rand and of the id), every column bit for bit
    against a numpy oracle that recomputes the SplitMix64 stream in
-   uint64; (b) LINEITEM at SF1 (5,997,887 rows) through a 25-column
-   projection (datediff, dayofweek, weekday, dayofyear, quarter,
+   uint64; (b) LINEITEM at SF1, its first 1,048,576 lines, through a
+   25-column projection (datediff, dayofweek, weekday, dayofyear, quarter,
    last_day, trunc MM, add_months, date_add, round, bround, floor, ceil,
    log, sqrt, exp, pow, least, greatest, abs, signum, isnan, nanvl,
    at_least_n_non_nulls), grouped by (month, day of week) with integer
    sums, min / max of every projected column and first / last of
    ``l_orderkey`` at one partition (floats to rtol 1e-9, the rest
-   exact), and the projection's first 1,048,576 rows downloaded: dates,
+   exact), and the projection's 1,048,576 rows downloaded: dates,
    integers, round, bround, floor and ceil bit for bit, each
    transcendental (and sqrt) within 4 ulp of numpy, its largest distance
-   printed (the head query projects those rows only); (c) ship and
-   receipt dates as one column (UNION ALL, 11,995,774
-   rows) by year and quarter, and range(0, 2^25) UNION ALL range(2^25,
-   2^26) at 8 + 8 partitions counted by partition id. Under the default
+   printed; (c) ship and receipt dates of those lines as one column
+   (UNION ALL, 2,097,152 rows) by year and quarter, and range(0, 2^25)
+   UNION ALL range(2^25, 2^26) at 8 + 8 partitions counted by partition
+   id. Under the default
    conf the projection (log / exp / pow) and union_dates' float sum run on
    the host engine. For each run: host nodes and bridges (checked), rows
    downloaded, the first run (counters around it alone, every K1-K4
@@ -247,13 +247,45 @@ Phases (each raises on failure; any failure exits non-zero):
    warm runs. K1 must launch in every run, K2 in (a) and (b) (Min/Max and
    the first / last picks); each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit, and the
-   largest new K1 shape (the groups' 6,291,456-row sort) is timed against
-   its plain version and ``torch.sort``. The phase's time is printed.
+   largest new K1 shape is timed against its plain version and
+   ``torch.sort``. The phase's time is printed.
+20. The string surface and generate (runs after phase 19), through
+   ``TpuSession`` and ``benchmarks/stringsource.py`` over the SF1 tables,
+   each run once under ``stringsource.ALL_DEVICE`` (variableFloatAgg,
+   incompatibleOps, castFloatToString, castStringToFloat: every node on
+   the card, the reference's host roundtrips inside it) and once under
+   the default conf (the case maps, the float <-> string casts and the
+   float sum on the host engine): (a) ORDERS (1,500,000 rows) through
+   ``orders_etl`` (upper, lower, initcap, length, reverse, repeat, trims,
+   substring_index, split, locate, instr, concat, concat_ws with a NULL
+   first argument on a seventh of the rows, md5, the key, date and price
+   cast to strings and back), its first 262,144 rows by key downloaded
+   and compared byte for byte with a Python oracle here (``str``,
+   ``hashlib.md5`` and the reference's format and parse rules; every
+   round trip gives its value back, the price bit for bit), and
+   ``comment_groups`` (by first word and priority: count, integer and
+   string Min/Max); (b) CUSTOMER (150,000 rows) through regexp_replace,
+   regexp_extract, replace, lpad and a key parsed from the name, PART
+   (200,000) through translate and rpad, each ordered by key and checked
+   against ``re`` / ``str``, and ORDERS joined to CUSTOMER on the parsed
+   key by country code (count, revenue to rtol 1e-9); (c) LINEITEM
+   (5,997,887 rows) through posexplode of its three dates by (position,
+   year), explode of ship mode and instruction by label, and
+   explode_outer of two conditional labels (the NULL group included),
+   exact against numpy. For each run: host nodes and bridges (checked),
+   rows downloaded, the rows and bytes through each host roundtrip, the
+   first run (counters around it alone, every K1-K4 launch recorded),
+   the torch ops of ``_greedy_matches`` and of MD5, two warm walls and
+   the peak device memory of the warm runs. K1 must launch in every run,
+   K2 in comment_groups; each K1-K4 launch of a shape no earlier phase
+   checked must equal the kernel's plain version bit for bit. The
+   phase's time is printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
-   nineteen, phase 18's eleven and phase 19's ten), its error against the
+   nineteen, phase 18's eleven, phase 19's ten and phase 20's sixteen),
+   its error against the
    plain version,
    its
    time, the plain version's, its bound, and one PyTorch call's time for
@@ -428,26 +460,30 @@ def kernel_phase(native) -> dict:
     return results
 
 
-def device_ms(fn, iters: int):
+def device_ms(fn, iters: int, attempts: int = 3):
     """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
     sum of the CUDA kernel and memset events over ``iters`` calls, or None
-    when the profiler records no device time."""
+    when the profiler records no device time in any of ``attempts``
+    profiles (a profile now and then comes back without device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-    return total / 1e3 / iters if total > 0 else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+        if total > 0:
+            return total / 1e3 / iters
+    return None
 
 
 def sort_profile_phase(native, k1: dict) -> dict:
@@ -1256,14 +1292,18 @@ DF_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
 DF_WARM_RUNS = 3
 
 
-def df_oracles(cols: dict, E) -> dict:
-    return {
-        "q1": (check_q1, q1_oracle(cols["lineitem"], E.Q1_SHIPDATE_CUTOFF)),
-        "q6": (check_q6, q6_oracle(cols, E)),
-        "q3": (check_q3, q3_oracle(cols, E)),
-        "q5": (check_q5, q5_oracle(cols, E)),
-        "q2": (check_q2, q2_oracle(cols, E)),
-        "q4": (check_q4, q4_oracle(cols, E))}
+def df_oracles(cols: dict, E, queries=DF_QUERIES) -> dict:
+    """(check, expected rows) of each of ``queries`` among q1-q6."""
+    oracles = {
+        "q1": (check_q1, lambda: q1_oracle(cols["lineitem"],
+                                           E.Q1_SHIPDATE_CUTOFF)),
+        "q6": (check_q6, lambda: q6_oracle(cols, E)),
+        "q3": (check_q3, lambda: q3_oracle(cols, E)),
+        "q5": (check_q5, lambda: q5_oracle(cols, E)),
+        "q2": (check_q2, lambda: q2_oracle(cols, E)),
+        "q4": (check_q4, lambda: q4_oracle(cols, E))}
+    return {q: (check, oracle()) for q, (check, oracle) in oracles.items()
+            if q in queries}
 
 
 def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
@@ -1870,7 +1910,7 @@ def more_queries_phase(native, cols: dict, known_seen: list,
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.ops.base import ExecContext
     t_phase = time.perf_counter()
-    xcols = S.suite_columns(1.0, seed=0)
+    xcols = suite_columns_sf1(S)
     oracles = more_oracles(cols, xcols, E, S)
     log(f"phase 13: TPCxBB scale 1 "
         f"({len(xcols['web_clickstreams']['wcs_item_sk'])} clickstream "
@@ -2115,10 +2155,24 @@ DS_MUST_LAUNCH = dict({q: ("radix_sort",) for q in DS_QUERIES},
 DS_WARM_RUNS = {("q67", "default"): 1}
 
 
-def ds_oracles(cols: dict, S) -> dict:
-    """chip_smoke.py's (check, expected rows) of each phase-14 query."""
+_SUITE_SF1: dict = {}
+
+
+def suite_columns_sf1(S) -> dict:
+    """The suites' scale-1 columns (seed 0), generated once for the
+    phases that read them (13, 14, 15, 16 and 18)."""
+    if "cols" not in _SUITE_SF1:
+        _SUITE_SF1["cols"] = S.suite_columns(1.0, seed=0)
+    return _SUITE_SF1["cols"]
+
+
+def ds_oracles(cols: dict, S, queries=DS_QUERIES) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-14 query (of
+    ``queries``)."""
     out = {}
     for q in DS_QUERIES:
+        if q not in queries:
+            continue
         oracle = globals()[f"{q}_oracle"]
         out[q] = ((lambda q: lambda rows, want: check_rows(
             q, rows, want, exact=q in DS_EXACT))(q), oracle(cols, S))
@@ -2163,7 +2217,7 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
     from spark_rapids_tpu_torch.benchmarks import suites as S
     from spark_rapids_tpu_torch.ops.base import ExecContext
     t_phase = time.perf_counter()
-    cols = S.suite_columns(1.0, seed=0)
+    cols = suite_columns_sf1(S)
     oracles = ds_oracles(cols, S)
     log(f"phase 14: TPC-DS scale 1 "
         f"({len(cols['store_sales']['ss_item_sk'])} store_sales rows) and "
@@ -2400,12 +2454,17 @@ DISTINCT_MUST_LAUNCH = {
 DISTINCT_WARM_RUNS = 2
 
 
-def distinct_oracles(cols: dict, xcols: dict, E, S) -> dict:
-    """chip_smoke.py's (check, expected rows) of each phase-15 query; q10
-    as a set of rows."""
-    out = {"xbb_q12": ((lambda rows, want: check_rows(
-        "xbb_q12", rows, want)), xbb_q12_oracle(xcols, S))}
+def distinct_oracles(cols: dict, xcols: dict, E, S,
+                     queries=DISTINCT_QUERIES) -> dict:
+    """chip_smoke.py's (check, expected rows) of each phase-15 query (of
+    ``queries``); q10 as a set of rows."""
+    out = {}
+    if "xbb_q12" in queries:
+        out["xbb_q12"] = ((lambda rows, want: check_rows(
+            "xbb_q12", rows, want)), xbb_q12_oracle(xcols, S))
     for q in DISTINCT_TPCH:
+        if q not in queries:
+            continue
         out[q] = ((lambda q: lambda rows, want: check_rows(
             q, rows, want, multiset=q == "q10"))(q),
             globals()[f"{q}_oracle"](cols, E))
@@ -2431,7 +2490,7 @@ def distinct_queries_phase(native, cols: dict, known_seen: list,
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.ops.base import ExecContext
     t_phase = time.perf_counter()
-    xcols = S.suite_columns(1.0, seed=0)
+    xcols = suite_columns_sf1(S)
     oracles = distinct_oracles(cols, xcols, E, S)
     log(f"phase 15: oracles in {time.perf_counter() - t_phase:.2f} s")
     known_seen = list(known_seen)
@@ -2759,14 +2818,12 @@ def exchange_phase(native, cols: dict, known_seen: list,
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.plan import logical as L
     t_phase = time.perf_counter()
-    xcols = S.suite_columns(1.0, seed=0)
+    xcols = suite_columns_sf1(S)
     n_clicks = len(xcols["web_clickstreams"]["wcs_item_sk"])
     oracles = last_oracles(cols, xcols, E, S)
-    oracles.update({q: v for q, v in df_oracles(cols, E).items()
-                    if q in SHUFFLED})
-    oracles.update({q: v for q, v in distinct_oracles(
-        cols, xcols, E, S).items() if q in SHUFFLED})
-    oracles["ds_q89"] = ds_oracles(xcols, S)["ds_q89"]
+    oracles.update(df_oracles(cols, E, SHUFFLED))
+    oracles.update(distinct_oracles(cols, xcols, E, S, SHUFFLED))
+    oracles.update(ds_oracles(xcols, S, ("ds_q89",)))
     fj_want = full_join_oracle(cols)
     oracles["full_join"] = ((lambda rows, want: check_rows(
         "full_join", rows, want)), fj_want)
@@ -3037,7 +3094,7 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
     if not isinstance(compression.get_codec("lz4"), compression.Lz4Codec):
         raise AssertionError("the lz4 codec is not the native one")
     oom.reset_degradation()
-    xcols = S.suite_columns(1.0, seed=0)
+    xcols = suite_columns_sf1(S)
     known_seen = list(known_seen)
     known_k1 = set(known_k1)
     vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
@@ -3096,7 +3153,7 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
          extra=sort_extra)
 
     # (b) q67 with its window range-split on i_category.
-    q67_check, q67_want = ds_oracles(xcols, S)["q67"]
+    q67_check, q67_want = ds_oracles(xcols, S, ("q67",))["q67"]
 
     def make_q67(conf):
         session = TpuSession(conf)
@@ -3122,7 +3179,7 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
     # (c) q21 and q4 at one partition with grace joins.
     oracles = {"q21": ((lambda rows, want: check_rows("q21", rows, want)),
                        q21_oracle(cols, E)),
-               "q4": df_oracles(cols, E)["q4"]}
+               "q4": df_oracles(cols, E, ("q4",))["q4"]}
     for q in ("q21", "q4"):
         check, want = oracles[q]
 
@@ -3417,10 +3474,12 @@ def rle_phase(native) -> dict:
 # Phase 19: the numeric, date-time and row-source surface
 # ---------------------------------------------------------------------------
 
-RANGE_N = 1 << 26               # 16 batches of batchSizeRows at 8 partitions
+RANGE_N = 1 << 24               # one batch of 2,097,152 ids a partition
 RANGE_PARTITIONS = 8
 RANGE_UNION_N = 1 << 25         # each side of range_union
 HEAD_ROWS = 1 << 20
+# LINEITEM's first lines that (b) and (c) read (of SF1's 5,997,887).
+ROWSOURCE_LINES = 1 << 20
 ROWSOURCE_WARM_RUNS = 2
 TRANSCENDENTAL_ULPS = 4
 ALL_DEVICE = {"spark.rapids.sql.variableFloatAgg.enabled": True,
@@ -3713,12 +3772,13 @@ def _warm_batches(phys, check, runs: int) -> tuple:
 
 def rowsource_phase(native, cols: dict, known_seen: list,
                     known_k1: set) -> dict:
-    """(a) ``range`` (67,108,864 ids in 8 partitions) with rand,
+    """(a) ``range`` (16,777,216 ids in 8 partitions) with rand,
     monotonically_increasing_id, spark_partition_id and the time parts of
-    from_unixtime, grouped by id % 4096; (b) LINEITEM at SF1 through the
-    math and date-time projection, grouped by month and day of week with first /
-    last, and the projection's first 1,048,576 rows downloaded; (c) ship
-    and receipt dates as one UNION ALL column by year and quarter, and
+    from_unixtime, grouped by id % 4096; (b) LINEITEM's first 1,048,576
+    lines at SF1 through the math and date-time projection, grouped by
+    month and day of week with first / last, and the projection's rows
+    downloaded; (c) their ship and receipt dates as one UNION ALL column
+    by year and quarter, and
     range UNION ALL range at 8 + 8 partitions by partition id. Each under
     ``variableFloatAgg`` + ``improvedFloatOps`` (every node on the card)
     and under the default conf, against numpy oracles; for each run host
@@ -3729,7 +3789,7 @@ def rowsource_phase(native, cols: dict, known_seen: list,
     from spark_rapids_tpu_torch.benchmarks import rowsource as R
     from spark_rapids_tpu_torch.plan import logical as L
     t_phase = time.perf_counter()
-    li = cols["lineitem"]
+    li = {k: v[:ROWSOURCE_LINES] for k, v in cols["lineitem"].items()}
     proj = projection_oracle(li)
     want = {"range": range_oracle(RANGE_N, RANGE_PARTITIONS),
             "groups": groups_oracle(li, proj),
@@ -3774,7 +3834,7 @@ def rowsource_phase(native, cols: dict, known_seen: list,
 
     for conf_name, conf in (("device", ALL_DEVICE), ("default", {})):
         session = TpuSession(conf)
-        ldf = R.lineitem(session, cols)
+        ldf = R.lineitem(session, cols, rows=ROWSOURCE_LINES)
         run(f"range ({conf_name})", R.range_query(
             L, session, RANGE_N, RANGE_PARTITIONS)._physical(), "range",
             conf_name)
@@ -3784,7 +3844,7 @@ def rowsource_phase(native, cols: dict, known_seen: list,
                 R.lineitem_groups(L, ldf)._physical(), "groups", conf_name)
         if conf_name == "device" and seen_k1:
             # The phase's largest new K1 shape: the groups' fingerprint
-            # sort of the whole LINEITEM batch, through a permutation.
+            # sort of the whole LINEITEM batch.
             keys, perm = max(seen_k1, key=lambda a: a[0].numel())
             out["k1"] = k1_time(native, keys, perm, "phase 19 largest new")
             del seen_k1
@@ -3812,6 +3872,567 @@ def rowsource_phase(native, cols: dict, known_seen: list,
             "range_union", conf_name)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the string surface and generate
+# ---------------------------------------------------------------------------
+
+ETL_HEAD_ROWS = 1 << 18
+STRING_WARM_RUNS = 2
+# The logical nodes the default conf places on the host engine, by run:
+# orders_etl's case-map and float-format projection and its float-parse
+# projection, country_revenue's float sum. The all-device conf places
+# none.
+STRING_DEFAULT_HOST = {"etl": ["LogicalProject", "LogicalProject"],
+                       "revenue": ["LogicalAggregate"]}
+STRING_MUST_LAUNCH = {"etl": ("radix_sort",),
+                      "groups": ("radix_sort", "seg_reduce")}
+
+
+def _java_float(f: float) -> bytes:
+    """The reference's float -> string format: ``repr`` with a Java-style
+    ``E`` exponent (1.0E16) and ``.0`` on an integral mantissa."""
+    if f != f:
+        return b"NaN"
+    if f in (float("inf"), float("-inf")):
+        return b"Infinity" if f > 0 else b"-Infinity"
+    s = repr(f)
+    if "e" in s:
+        mant, ex = s.split("e")
+        if "." not in mant:
+            mant += ".0"
+        s = f"{mant}E{int(ex)}"
+    elif "." not in s:
+        s += ".0"
+    return s.encode()
+
+
+def _initcap(s: str) -> str:
+    """ASCII initcap: a letter after a space (or first) upper, the rest
+    lower."""
+    out, prev = [], " "
+    for ch in s:
+        out.append(ch.upper() if prev == " " else ch.lower())
+        prev = ch
+    return "".join(out)
+
+
+def _ssi(s: str, d: str, c: int) -> str:
+    parts = s.split(d)
+    if c > 0:
+        return d.join(parts[:c]) if len(parts) > c else s
+    return d.join(parts[c:]) if len(parts) > -c else s
+
+
+def _as_matrix(vals: list) -> tuple:
+    """A list of bytes (None: NULL) as a zero-padded matrix, lengths and
+    validity."""
+    n = len(vals)
+    valid = np.array([v is not None for v in vals], bool)
+    vals = [v or b"" for v in vals]
+    lens = np.fromiter(map(len, vals), np.int64, n)
+    w = max(int(lens.max()) if n else 1, 1)
+    m = np.zeros((n, w), np.uint8)
+    total = int(lens.sum())
+    if total:
+        rows = np.repeat(np.arange(n), lens)
+        pos = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        m[rows, pos] = np.frombuffer(b"".join(vals), np.uint8)
+    return m, lens, valid
+
+
+def _column_matrix(hc) -> tuple:
+    """A downloaded string column as (matrix, lengths, validity)."""
+    valid = np.asarray(hc.validity, bool)
+    if hc.str_matrix is not None:
+        m, lens = np.asarray(hc.str_matrix), np.asarray(hc.str_lengths)
+    else:
+        m, lens, _ = _as_matrix([bytes(b) for b in hc.data])
+    return m, np.where(valid, lens, 0), valid
+
+
+def _same_strings(name: str, hc, want) -> None:
+    """A string column equal, byte for byte, to ``want`` (a list of bytes,
+    None for NULL, or its ``_as_matrix``): validity, lengths and every
+    byte inside each length."""
+    m, lens, valid = _column_matrix(hc)
+    em, elens, evalid = _as_matrix(want) if isinstance(want, list) \
+        else want
+    if len(valid) != len(evalid) or not np.array_equal(valid, evalid):
+        raise AssertionError(f"{name}: validity differs from the oracle")
+    if not np.array_equal(lens, np.where(evalid, elens, 0)):
+        i = int(np.flatnonzero(lens != np.where(evalid, elens, 0))[0])
+        raise AssertionError(f"{name}: row {i} length {lens[i]}, oracle "
+                             f"{em[i, :elens[i]].tobytes()!r}")
+    w = max(m.shape[1], em.shape[1])
+    a = np.zeros((len(lens), w), np.uint8)
+    b = np.zeros((len(lens), w), np.uint8)
+    a[:, :m.shape[1]] = m
+    b[:, :em.shape[1]] = em
+    inside = np.arange(w)[None, :] < lens[:, None]
+    bad = np.flatnonzero(((a != b) & inside).any(axis=1))
+    if len(bad):
+        i = int(bad[0])
+        raise AssertionError(f"{name}: row {i} is "
+                             f"{a[i, :lens[i]].tobytes()!r}, oracle "
+                             f"{b[i, :lens[i]].tobytes()!r}")
+
+
+def etl_expected(cols: dict, n: int) -> dict:
+    """orders_etl's first ``n`` rows (ORDERS' first orders: the keys ascend)
+    column by column, from the generator's pools with Python's ``str``,
+    ``hashlib.md5`` and the reference's format and parse rules."""
+    import hashlib
+    from spark_rapids_tpu_torch import entry as E
+    o = cols["orders"]
+    code = o["o_comment"][:n]
+    pcode = o["o_orderpriority"][:n]
+    status = [chr(c) for c in o["o_orderstatus"][:n].tolist()]
+    key = o["o_orderkey"][:n]
+    pool = list(E.O_COMMENTS)
+    prios = list(E.PRIORITIES)
+
+    def per_comment(fn):
+        vals = [None if v is None else v.encode() for v in map(fn, pool)]
+        return [vals[c] for c in code.tolist()]
+
+    def word(s, i):
+        parts = s.split(" ")
+        return parts[i] if i < len(parts) else None
+    prio = [prios[c] for c in pcode.tolist()]
+    comment = [pool[c] for c in code.tolist()]
+    dates = np.datetime_as_string(o["o_orderdate"][:n].astype(
+        np.int64).astype("datetime64[D]"), unit="D")
+    padded = lambda s: "  " + s + "  "                          # noqa: E731
+    want = {
+        "upper": per_comment(str.upper),
+        "lower": [p.lower().encode() for p in prio],
+        "initcap": per_comment(_initcap),
+        "length": np.array([len(s) for s in comment], np.int32),
+        "reverse": per_comment(lambda s: s[::-1]),
+        "repeat": [(s * 3).encode() for s in status],
+        "trim": per_comment(lambda s: padded(s).strip(" ")),
+        "ltrim": per_comment(lambda s: padded(s).lstrip(" ")),
+        "rtrim": per_comment(lambda s: padded(s).rstrip(" ")),
+        "before2": per_comment(lambda s: _ssi(s, " ", 2)),
+        "after1": per_comment(lambda s: _ssi(s, " ", -1)),
+        "word1": per_comment(lambda s: word(s, 1)),
+        "locate_the": np.array([s.find("the") + 1 for s in comment],
+                               np.int32),
+        "instr_ly": np.array([s.find("ly") + 1 for s in comment], np.int32),
+        "prio_status": [f"{p}|{s}".encode() for p, s in zip(prio, status)],
+        "dashed": [("-".join(([st] if k % 7 == 0 else []) + [p, c])).encode()
+                   for k, st, p, c in zip(key.tolist(), status, prio,
+                                          comment)],
+        "md5": per_comment(lambda s: hashlib.md5(s.encode()).hexdigest()),
+        "key_s": [str(k).encode() for k in key.tolist()],
+        "date_s": [d.encode() for d in dates.tolist()],
+        "price_s": [_java_float(f) for f in o["o_totalprice"][:n].tolist()],
+        "key_back": key, "date_back": o["o_orderdate"][:n],
+        "price_back": o["o_totalprice"][:n]}
+    return {k: _as_matrix(v) if isinstance(v, list) else v
+            for k, v in want.items()}
+
+
+def check_etl(hbs: list, cols: dict, n: int, want: dict = None) -> None:
+    """orders_etl's first ``n`` rows, byte for byte: every string column,
+    the integer columns exact, and each round trip giving back its value
+    (the price bit for bit)."""
+    from spark_rapids_tpu_torch.benchmarks import stringsource as S
+    want = want or etl_expected(cols, n)
+    if len(hbs) != 1:
+        hbs = [_concat_host(hbs)]
+    hb = hbs[0]
+    if hb.num_rows != n:
+        raise AssertionError(f"etl head: {hb.num_rows} rows, expected {n}")
+    for name, hc in zip(S.ETL_COLUMNS, hb.columns):
+        if name == "o_orderkey":
+            exp = cols["orders"]["o_orderkey"][:n]
+        else:
+            exp = want[name]
+        if hc.dtype.is_string:
+            _same_strings(f"etl {name}", hc, exp)
+            continue
+        got, exp = np.asarray(hc.data), np.asarray(exp)
+        if not np.asarray(hc.validity, bool).all() or \
+                got.dtype != exp.dtype or got.tobytes() != exp.tobytes():
+            raise AssertionError(f"etl {name} differs from the oracle")
+
+
+def _concat_host(hbs: list):
+    from spark_rapids_tpu_torch.columnar.host import concat_host_batches
+    return concat_host_batches([hb for hb in hbs if hb.num_rows])
+
+
+def comment_groups_oracle(cols: dict) -> list:
+    """comment_groups over every order: by (first word, priority), the
+    count, the longest comment, the least position of 'the', the least
+    MD5 and the greatest reversed comment."""
+    import hashlib
+    from spark_rapids_tpu_torch import entry as E
+    o = cols["orders"]
+    pool, prios = list(E.O_COMMENTS), list(E.PRIORITIES)
+    combo = np.bincount(o["o_comment"].astype(np.int64) * len(prios)
+                        + o["o_orderpriority"], minlength=len(pool) *
+                        len(prios)).reshape(len(pool), len(prios))
+    groups: dict = {}
+    for ci, s in enumerate(pool):
+        for pi, p in enumerate(prios):
+            if combo[ci, pi]:
+                g = groups.setdefault((s.split(" ")[0], p), [])
+                g.append((int(combo[ci, pi]), s))
+    out = []
+    for (w0, p), members in sorted(groups.items()):
+        texts = [s for _, s in members]
+        out.append((w0, p, sum(n for n, _ in members),
+                    max(len(s) for s in texts),
+                    min(s.find("the") + 1 for s in texts),
+                    min(hashlib.md5(s.encode()).hexdigest() for s in texts),
+                    max(s[::-1] for s in texts)))
+    return out
+
+
+def revenue_oracle(cols: dict) -> list:
+    """country_revenue: each order's customer (the key parsed back from
+    its name is the customer key), by the phone's country code: count and
+    the sum of the prices."""
+    o, c = cols["orders"], cols["customer"]
+    names = c["c_name"]
+    ck = np.array([int(bytes(r).rstrip(b"\0").split(b"#")[-1])
+                   for r in names], np.int64)
+    country = [bytes(r).rstrip(b"\0").split(b"-")[0].decode()
+               for r in c["c_phone"]]
+    codes = {k: i for i, k in enumerate(sorted(set(country)))}
+    cust_code = np.full(int(ck.max()) + 1, -1, np.int64)
+    cust_code[ck] = [codes[k] for k in country]
+    oc = cust_code[o["o_custkey"]]
+    hit = oc >= 0
+    n = np.bincount(oc[hit], minlength=len(codes))
+    rev = np.bincount(oc[hit], weights=o["o_totalprice"][hit],
+                      minlength=len(codes))
+    return [(k, int(n[i]), float(rev[i])) for k, i in codes.items()
+            if n[i]]
+
+
+def _sorted_by_key(hbs: list):
+    hb = _concat_host(hbs)
+    order = np.argsort(np.asarray(hb.columns[0].data), kind="stable")
+    return hb.take(order)
+
+
+def customer_expected(cols: dict) -> dict:
+    """customer_keys' string columns (by key) from Python's ``re`` and
+    ``str`` over the generator's CUSTOMER rows, as ``_as_matrix``."""
+    import re
+    from spark_rapids_tpu_torch import entry as E
+    c = cols["customer"]
+    phone = [bytes(r).rstrip(b"\0") for r in c["c_phone"]]
+    name = [bytes(r).rstrip(b"\0").decode() for r in c["c_name"]]
+    seg = [E.SEGMENTS[i] for i in c["c_mktsegment"].tolist()]
+    country = re.compile(r"^(\d+)-")
+    want = {
+        "phone_digits": [p.replace(b"-", b"") for p in phone],
+        "country": [(m.group(1) if m else "").encode() for m in
+                    (country.search(p.decode()) for p in phone)],
+        "segment": [s.replace("AUTO", "auto").encode() for s in seg],
+        "name20": [(s[:20] if len(s) >= 20 else
+                    ("*" * 20)[:20 - len(s)] + s).encode() for s in name],
+        "name8": [s[:8].encode() for s in name]}
+    return {k: _as_matrix(v) for k, v in want.items()}
+
+
+def check_customer_keys(hbs: list, cols: dict, want: dict = None) -> None:
+    """customer_keys, ordered by key, against ``customer_expected``; the
+    key parsed back from the name equals the customer key."""
+    c = cols["customer"]
+    want = want or customer_expected(cols)
+    hb = _sorted_by_key(hbs)
+    if not np.array_equal(np.asarray(hb.columns[0].data), c["c_custkey"]):
+        raise AssertionError("customer_keys: keys differ")
+    for i, name in enumerate(("phone_digits", "country", "segment",
+                              "name20", "name8"), 1):
+        _same_strings(name, hb.columns[i], want[name])
+    ck = np.asarray(hb.columns[6].data)
+    if not np.asarray(hb.columns[6].validity, bool).all() or \
+            not np.array_equal(ck, c["c_custkey"]):
+        raise AssertionError("customer_keys: the parsed key differs")
+
+
+def part_expected(cols: dict) -> dict:
+    """part_labels' string columns (by key): ``str.translate`` of the
+    vowels and ``ljust`` to 12, as ``_as_matrix``."""
+    p = cols["part"]
+    vowels = str.maketrans("aeiou", "AEIOU")
+    return {"name_uc": _as_matrix([
+        bytes(r).rstrip(b"\0").decode().translate(vowels).encode()
+        for r in p["p_name"]]), "brand12": _as_matrix([
+            bytes(r).rstrip(b"\0").decode().ljust(12, ".")[:12].encode()
+            for r in p["p_brand"]])}
+
+
+def check_part_labels(hbs: list, cols: dict, want: dict = None) -> None:
+    """part_labels, ordered by key, against ``part_expected``."""
+    want = want or part_expected(cols)
+    hb = _sorted_by_key(hbs)
+    if not np.array_equal(np.asarray(hb.columns[0].data),
+                          cols["part"]["p_partkey"]):
+        raise AssertionError("part_labels: keys differ")
+    _same_strings("name_uc", hb.columns[1], want["name_uc"])
+    _same_strings("brand12", hb.columns[2], want["brand12"])
+
+
+def positions_oracle(li: dict) -> list:
+    """date_positions: (position, year, lines) of the three dates."""
+    out = []
+    for pos, name in enumerate(("l_shipdate", "l_commitdate",
+                                "l_receiptdate")):
+        y = _years(li[name])
+        ys, n = np.unique(y, return_counts=True)
+        out += [(pos, int(a), int(b)) for a, b in zip(ys, n)]
+    return out
+
+
+def _label_counts(pools_and_codes) -> dict:
+    counts: dict = {}
+    for pool, codes in pools_and_codes:
+        n = np.bincount(codes, minlength=len(pool))
+        for v, k in zip(pool, n.tolist()):
+            if k:
+                counts[v] = counts.get(v, 0) + k
+    return counts
+
+
+def labels_oracle(li: dict) -> list:
+    """ship_labels: each ship mode and instruction of every line, by
+    label."""
+    from spark_rapids_tpu_torch import entry as E
+    counts = _label_counts([(E.SHIPMODES, li["l_shipmode"]),
+                            (E.SHIPINSTRUCT, li["l_shipinstruct"])])
+    return sorted(counts.items())
+
+
+def outer_oracle(li: dict) -> list:
+    """outer_labels: the ship mode of lines over 45 units and the
+    instruction of lines discounted over 0.09; a line with neither gives
+    one NULL row (first in the order)."""
+    from spark_rapids_tpu_torch import entry as E
+    big = li["l_quantity"] > 45
+    disc = li["l_discount"] > 0.09
+    counts = _label_counts([(E.SHIPMODES, li["l_shipmode"][big]),
+                            (E.SHIPINSTRUCT, li["l_shipinstruct"][disc])])
+    return [(None, int((~big & ~disc).sum()))] + sorted(counts.items())
+
+
+@contextlib.contextmanager
+def counting_ops(module, fn_name: str, counts: dict):
+    """While the block runs, count the torch ops each call of
+    ``module.fn_name`` dispatches (view ops excluded: each counted op is
+    at most one kernel launch) into ``counts[fn_name]``, and its calls
+    into ``counts[fn_name + ' calls']``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    views = {"view", "_unsafe_view", "slice", "select", "expand",
+             "unsqueeze", "permute", "t", "alias", "as_strided",
+             "reshape", "squeeze", "detach", "lift_fresh"}
+    launch = getattr(module, fn_name)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in views:
+                counts[fn_name] = counts.get(fn_name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    def counted(*args, **kwargs):
+        counts[fn_name + " calls"] = counts.get(fn_name + " calls", 0) + 1
+        with Count():
+            return launch(*args, **kwargs)
+    setattr(module, fn_name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(module, fn_name, launch)
+
+
+def island_counts(ctx) -> dict:
+    """Rows and bytes through each host roundtrip of a run, summed over
+    its operators' metrics (``island.<kind>.rows / bytesDown /
+    bytesUp``)."""
+    out: dict = {}
+    for m in ctx.metrics.values():
+        for k, v in m.values.items():
+            if k.startswith("island."):
+                out[k[len("island."):]] = out.get(k[len("island."):], 0) + \
+                    int(v)
+    return out
+
+
+def greedy_check(cols: dict, device: str = "cuda") -> dict:
+    """substring_index and split with two- and three-byte delimiters over
+    ORDERS' first 262,144 comments on the card: the device half (its
+    greedy occurrence scan, ``_greedy_matches``, a loop over the width)
+    against the host half and Python's ``str``, with the scan's torch ops
+    counted."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch import exprs as X
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import (
+        DeviceBatch, DeviceColumn)
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    from spark_rapids_tpu_torch.exprs import strings as ST
+    n = ETL_HEAD_ROWS
+    code = cols["orders"]["o_comment"][:n]
+    pool = [s.encode() for s in E.O_COMMENTS]
+    m, lens, valid = _as_matrix([pool[c] for c in code.tolist()])
+    w = 64
+    m = np.pad(m, ((0, 0), (0, w - m.shape[1])))
+    dev = torch.device(device)
+    batch = DeviceBatch((DeviceColumn(
+        dt.STRING, torch.from_numpy(m).to(dev),
+        torch.from_numpy(valid).to(dev),
+        torch.from_numpy(lens.astype(np.int32)).to(dev)),),
+        torch.tensor(n, dtype=torch.int32, device=dev))
+    hb = HostBatch(("c",), [HostColumn(dt.STRING, None, valid, str_matrix=m,
+                                       str_lengths=lens.astype(np.int32))])
+    ref = X.BoundReference(0, dt.STRING)
+    cases = {"substring_index(c, 'ly ', 1)": (
+        X.SubstringIndex(ref, "ly ", 1), lambda s: _ssi(s, "ly ", 1)),
+        "substring_index(c, 'ea', -1)": (
+        X.SubstringIndex(ref, "ea", -1), lambda s: _ssi(s, "ea", -1)),
+        "split(c, 'es', 1)": (X.StringSplit(ref, "es", 1), lambda s: (
+            s.split("es")[1] if len(s.split("es")) > 1 else None))}
+    ops: dict = {}
+    for name, (e, oracle) in cases.items():
+        with counting_ops(ST, "_greedy_matches", ops):
+            col = e.eval(batch)
+            torch.cuda.synchronize()
+        got = HostColumn(dt.STRING, None, col.validity.cpu().numpy()[:n],
+                         str_matrix=col.data.cpu().numpy()[:n],
+                         str_lengths=col.lengths.cpu().numpy()[:n])
+        want = [None if v is None else v.encode() for v in
+                (oracle(s.decode()) for s in pool)]
+        want = [want[c] for c in code.tolist()]
+        _same_strings(f"{name} (device)", got, want)
+        _same_strings(f"{name} (host)", e.eval_host(hb), want)
+    log(f"greedy occurrence scan on the card: {list(cases)} over {n} "
+        f"comments (width {w}) equal the host half and str; torch ops "
+        f"{ops}")
+    return ops
+
+
+def string_phase(native, cols: dict, known_seen: list,
+                 known_k1: set) -> dict:
+    """(a) ORDERS at SF1 through orders_etl (its first 262,144 rows by key
+    downloaded and checked byte for byte) and comment_groups; (b)
+    CUSTOMER and PART through the host-roundtrip kinds (ordered by key)
+    and ORDERS joined to CUSTOMER on the parsed key by country; (c)
+    posexplode / explode / explode_outer over LINEITEM, grouped. Each
+    under ``stringsource.ALL_DEVICE`` (every node on the card) and under
+    the default conf, against oracles in this file; for each run host
+    nodes and bridges, rows downloaded, the rows and bytes through each
+    host roundtrip, the first run with every K1-K4 launch recorded (new
+    shapes against the plain versions) and the torch ops of
+    ``_greedy_matches`` and of MD5 counted, two warm walls and the peak
+    device memory of the warm runs."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import stringsource as S
+    from spark_rapids_tpu_torch.exprs import hash as H
+    from spark_rapids_tpu_torch.exprs import strings as ST
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    li = cols["lineitem"]
+    want = {"etl": etl_expected(cols, ETL_HEAD_ROWS),
+            "customer": customer_expected(cols), "part": part_expected(cols),
+            "groups": comment_groups_oracle(cols),
+            "revenue": revenue_oracle(cols),
+            "positions": positions_oracle(li),
+            "labels": labels_oracle(li), "outer": outer_oracle(li)}
+    log(f"phase 20: oracles in {time.perf_counter() - t_phase:.2f} s")
+    out_ops = greedy_check(cols)
+    checks = {
+        "etl": lambda hbs, w: check_etl(hbs, cols, ETL_HEAD_ROWS, w),
+        "groups": lambda rows, w: check_rows("groups", rows, w, exact=True),
+        "customer": lambda hbs, w: check_customer_keys(hbs, cols, w),
+        "part": lambda hbs, w: check_part_labels(hbs, cols, w),
+        "revenue": lambda rows, w: check_rows("revenue", rows, w),
+        "positions": lambda rows, w: check_rows("positions", rows, w,
+                                                exact=True),
+        "labels": lambda rows, w: check_rows("labels", rows, w, exact=True),
+        "outer": lambda rows, w: check_rows("outer", rows, w, exact=True)}
+    batches = {"etl", "customer", "part"}
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": [], "runs": [], "greedy_ops": out_ops}
+
+    def run(label, phys, q, conf_name):
+        hosted = STRING_DEFAULT_HOST.get(q, []) \
+            if conf_name == "default" else []
+        check = checks[q]
+        ops: dict = {}
+        collect = (lambda p, ctx: p.collect_batches(ctx)) \
+            if q in batches else None
+        with counting_ops(ST, "_greedy_matches", ops), \
+                counting_ops(H, "md5_hex_matrix", ops):
+            r = run_checked(native, label, phys, check, want.get(q), hosted,
+                            STRING_MUST_LAUNCH.get(q, ("radix_sort",)),
+                            known_seen, known_k1, collect=collect)
+        known_seen.append(r["seen"])
+        known_k1.update(c["shape"] for c in r["checks"]
+                        if c["kernel"] == "radix_sort")
+        out["kernel_checks"] += r["checks"]
+        islands = island_counts(r["ctx"])
+        if q in batches:
+            walls, peak, held = _warm_batches(
+                phys, lambda hbs, _w: check(hbs, want.get(q)),
+                STRING_WARM_RUNS)
+        else:
+            walls, peak, held = _warm(phys, check, want.get(q),
+                                      STRING_WARM_RUNS)
+        log(f"{label} matches the oracle: first run {r['first_s']:.3f} s, "
+            f"warm {[round(w, 4) for w in walls]} s, peak device memory in "
+            f"the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+            f"held before them); launches {r['launches']}; host roundtrips "
+            f"{islands or 'none'}; torch ops of _greedy_matches / MD5 "
+            f"{ops or 'none'}")
+        out[label] = dict(first_s=r["first_s"], warm_s=walls,
+                          launches=r["launches"], moved=r["moved"],
+                          hosted=r["hosted"], peak_bytes=peak,
+                          held_bytes=held, islands=islands, ops=ops)
+        out["runs"].append(r["launches"])
+
+    for conf_name, conf in (("device", S.ALL_DEVICE), ("default", {})):
+        session = TpuSession(conf)
+        t = S.tables(session, cols)
+        run(f"etl head ({conf_name})", S.etl_head(
+            L, t["orders"], ETL_HEAD_ROWS)._physical(), "etl", conf_name)
+        run(f"comment groups ({conf_name})", S.comment_groups(
+            L, t["orders"])._physical(), "groups", conf_name)
+        run(f"customer keys ({conf_name})", S.customer_keys(
+            L, t["customer"]).order_by("c_custkey")._physical(), "customer",
+            conf_name)
+        run(f"part labels ({conf_name})", S.part_labels(
+            L, t["part"]).order_by("p_partkey")._physical(), "part",
+            conf_name)
+        run(f"country revenue ({conf_name})", S.country_revenue(
+            L, t["orders"], t["customer"])._physical(), "revenue",
+            conf_name)
+        seen_k1: list = []
+        with recording_k1(native, seen_k1):
+            run(f"date positions ({conf_name})", S.date_positions(
+                L, t["lineitem"])._physical(), "positions", conf_name)
+        if conf_name == "device" and seen_k1:
+            # The phase's largest K1 launch: a generate's output batch
+            # (3 x 786,432 slots) sorted by its group fingerprint.
+            keys, perm = max(seen_k1, key=lambda a: a[0].numel())
+            out["k1"] = k1_time(native, keys, perm, "phase 20 largest")
+        del seen_k1
+        run(f"ship labels ({conf_name})", S.ship_labels(
+            L, t["lineitem"])._physical(), "labels", conf_name)
+        run(f"outer labels ({conf_name})", S.outer_labels(
+            L, t["lineitem"])._physical(), "outer", conf_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3995,6 +4616,13 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
         if c["kernel"] == "radix_sort"})
 
+    # Phase 20: the string surface and generate
+    st = string_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+        c["shape"] for ph in (more, ds, dq, ex, rs)
+        for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -4003,7 +4631,7 @@ def main() -> int:
         dq[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
-        rs["runs"])
+        rs["runs"]) + tuple(st["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -4050,7 +4678,8 @@ def main() -> int:
         + ", ".join(f"{k} {ex[k]['launches']}" for k in ex_runs)
         + "; phase 18 " + ", ".join(str(r) for r in ooc["runs"])
         + f"; phase 18 recovery {ooc['recovery']}"
-        + "; phase 19 " + ", ".join(str(r) for r in rs["runs"]))
+        + "; phase 19 " + ", ".join(str(r) for r in rs["runs"])
+        + "; phase 20 " + ", ".join(str(r) for r in st["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

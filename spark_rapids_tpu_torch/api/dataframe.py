@@ -162,7 +162,9 @@ class DataFrame:
 
     def _project(self, projections) -> "DataFrame":
         """Build a projection, extracting window expressions into a chain
-        of LogicalWindow nodes first (Spark's ExtractWindowExpressions)."""
+        of LogicalWindow nodes first (Spark's ExtractWindowExpressions),
+        and generate expressions (``explode(...)``) into LogicalGenerate
+        nodes whose element (and ``{name}__pos``) columns it reads."""
         plan = self._plan
         out = []
         for i, (name, c) in enumerate(projections):
@@ -174,6 +176,16 @@ class DataFrame:
                 tmp = f"__window_{i}_{name}"
                 plan = L.LogicalWindow(plan, [(tmp, fn_col)], windef)
                 out.append((name, col(tmp)))
+            elif L.is_generate_column(c):
+                node = c.node
+                while node[0] == "alias":
+                    node = node[1].node
+                _, elements, position, outer = node
+                plan = L.LogicalGenerate(plan, name, list(elements),
+                                         position, outer)
+                if position:
+                    out.append((f"{name}__pos", col(f"{name}__pos")))
+                out.append((name, col(name)))
             else:
                 out.append((name, c))
         return DataFrame(self._session, L.LogicalProject(plan, out))

@@ -108,7 +108,8 @@ class DeviceColumn:
         data = zero_dead(self.data.index_select(0, idx), validity)
         if self.dtype.is_string:
             lengths = torch.where(validity, self.lengths.index_select(0, idx),
-                                  torch.zeros_like(self.lengths))
+                                  torch.zeros((), dtype=self.lengths.dtype,
+                                              device=idx.device))
             return DeviceColumn(self.dtype, data, validity, lengths)
         return DeviceColumn(self.dtype, data, validity)
 

@@ -91,6 +91,16 @@ VARIABLE_FLOAT_AGG = _entry(
     "evaluation order (parallel reductions on the device).", "boolean",
     False)
 
+CAST_FLOAT_TO_STRING = _entry(
+    "spark.rapids.sql.castFloatToString.enabled",
+    "Allow float->string casts that may format differently from Spark.",
+    "boolean", False)
+
+CAST_STRING_TO_FLOAT = _entry(
+    "spark.rapids.sql.castStringToFloat.enabled",
+    "Allow string->float casts that may differ in corner cases.",
+    "boolean", False)
+
 IMPROVED_FLOAT_OPS = _entry(
     "spark.rapids.sql.improvedFloatOps.enabled",
     "Use fused float paths that can round differently from the JVM.",

@@ -14,7 +14,7 @@ from spark_rapids_tpu_torch.exprs.datetime import (
     AddMonths, DateAdd, DateDiff, DateSub, DayOfMonth, DayOfWeek, DayOfYear,
     FromUnixTime, Hour, LastDay, Minute, Month, Quarter, Second, TimeAdd,
     TimeSub, ToUnixTimestamp, TruncDate, UnixTimestamp, WeekDay, Year)
-from spark_rapids_tpu_torch.exprs.hash import Murmur3Hash
+from spark_rapids_tpu_torch.exprs.hash import Md5, Murmur3Hash
 from spark_rapids_tpu_torch.exprs.math import (
     Acos, Acosh, Asin, Asinh, Atan, Atan2, Atanh, BRound, Cbrt, Ceil, Cos,
     Cosh, Exp, Expm1, Floor, Log, Log10, Log1p, Log2, Logarithm, Pow, Rint,
@@ -27,27 +27,39 @@ from spark_rapids_tpu_torch.exprs.predicates import (
     GreaterThanOrEqual, InSet, IsNan, IsNotNull, IsNull, LessThan,
     LessThanOrEqual, Not, Or)
 from spark_rapids_tpu_torch.exprs.strings import (
-    Contains, EndsWith, Like, StartsWith, Substring)
+    ConcatStrings, ConcatWs, Contains, EndsWith, InitCap, Length, Like,
+    Lower, RegExpExtract, RegExpReplace, StartsWith, StringLocate,
+    StringLPad, StringRepeat, StringReplace, StringReverse, StringRPad,
+    StringSplit, StringTrim, StringTrimLeft, StringTrimRight, Substring,
+    SubstringIndex, Translate, Upper)
 
 __all__ = [
     "Abs", "Acos", "Acosh", "Add", "AddMonths", "And", "Asin", "Asinh",
     "AtLeastNNonNulls", "Atan", "Atan2", "Atanh", "BRound", "BitwiseAnd",
     "BitwiseNot", "BitwiseOr", "BitwiseXor", "BoundReference", "CaseWhen",
-    "Cast", "Cbrt", "Ceil", "Coalesce", "Contains", "Cos", "Cosh",
+    "Cast", "Cbrt", "Ceil", "Coalesce", "ConcatStrings", "ConcatWs",
+    "Contains", "Cos", "Cosh",
     "DateAdd", "DateDiff", "DateSub", "DayOfMonth", "DayOfWeek",
     "DayOfYear", "Divide", "EndsWith", "EqualNullSafe", "EqualTo",
     "EvalContext", "Exp", "Expm1", "Expression", "Floor", "FromUnixTime",
     "GreaterThan", "GreaterThanOrEqual", "Greatest", "Hour", "If", "InSet",
+    "InitCap",
     "InputFileName", "IntegralDivide", "IsNan", "IsNotNull", "IsNull",
     "KnownFloatingPointNormalized", "LastDay", "Least", "LessThan",
-    "LessThanOrEqual", "Like", "Literal", "Log", "Log10", "Log1p", "Log2",
-    "Logarithm", "Minute", "MonotonicallyIncreasingID", "Month",
+    "Length", "LessThanOrEqual", "Like", "Literal", "Log", "Log10", "Log1p",
+    "Log2", "Logarithm", "Lower", "Md5", "Minute",
+    "MonotonicallyIncreasingID", "Month",
     "Multiply", "Murmur3Hash", "NaNvl", "NormalizeNaNAndZero", "Not",
-    "Nvl", "Or", "Pmod", "Pow", "Quarter", "Rand", "Remainder", "Rint",
+    "Nvl", "Or", "Pmod", "Pow", "Quarter", "Rand", "RegExpExtract",
+    "RegExpReplace", "Remainder", "Rint",
     "Round", "Scalar", "Second", "ShiftLeft", "ShiftRight",
     "ShiftRightUnsigned", "Signum", "Sin", "Sinh", "SparkPartitionID",
-    "Sqrt", "StartsWith", "Substring", "Subtract", "Tan", "Tanh",
+    "Sqrt", "StartsWith", "StringLPad", "StringLocate", "StringRPad",
+    "StringRepeat", "StringReplace", "StringReverse", "StringSplit",
+    "StringTrim", "StringTrimLeft", "StringTrimRight", "Substring",
+    "SubstringIndex", "Subtract", "Tan", "Tanh",
     "TimeAdd", "TimeSub", "ToDegrees", "ToRadians", "ToUnixTimestamp",
-    "TruncDate", "UnaryMinus", "UnaryPositive", "UnixTimestamp", "WeekDay",
+    "Translate", "TruncDate", "UnaryMinus", "UnaryPositive",
+    "UnixTimestamp", "Upper", "WeekDay",
     "Year", "eval_context", "lit",
 ]

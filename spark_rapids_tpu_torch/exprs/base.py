@@ -15,10 +15,20 @@ The unary and binary templates take a torch ``do_columnar`` and a numpy
 two). Null semantics are SQL three-valued: a row's output validity is the
 AND of the input validities unless an expression overrides it. Data under
 dead (or null) rows is zeroed so padding stays deterministic.
+
+A few expressions run on the host inside a device plan, as the reference
+draws that line (regular expressions, translate, pad, replace, the
+string side of casts, LIKE with ``_``): ``host_roundtrip`` downloads the
+column, computes on the host and uploads the result. It is the
+expression's own step, never a fallback for a device step that failed,
+and it counts its rows and bytes (``island.<kind>.rows`` /
+``.bytesDown`` / ``.bytesUp``) into the metrics of the operator whose
+step is running (``island_sink``, set by ``ops.base.timed``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple, Union
 
@@ -30,7 +40,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, torch_dtype, zero_dead)
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import (
-    HostBatch, HostColumn, all_valid)
+    HostBatch, HostColumn, all_valid, download_batches, host_to_device,
+    strings_to_matrix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,3 +317,42 @@ def eval_exprs_host(exprs: Sequence[Expression], batch: HostBatch,
     if names is None:
         names = tuple(f"c{i}" for i in range(len(cols)))
     return HostBatch(tuple(names), cols)
+
+
+# ---------------------------------------------------------------------------
+# Host roundtrips inside a device plan
+# ---------------------------------------------------------------------------
+
+# The metrics (``ops.base.Metrics``) of the operator step that is running,
+# or None: host roundtrips count their rows and bytes there.
+island_sink: contextvars.ContextVar = contextvars.ContextVar(
+    "island_sink", default=None)
+
+
+def host_column_bytes(hc: HostColumn) -> int:
+    """The bytes a host column hands to an upload: its values (a string
+    column's byte matrix and lengths) and its validity."""
+    if hc.dtype.is_string:
+        m, lens = strings_to_matrix(hc)
+        return int(m.nbytes + lens.nbytes + hc.num_rows)
+    return int(np.asarray(hc.data).nbytes + hc.num_rows)
+
+
+def host_roundtrip(kind: str, col: DeviceColumn, batch: DeviceBatch,
+                   fn) -> DeviceColumn:
+    """``fn(host column) -> host column`` over the first ``num_rows`` rows
+    of ``col`` (the reference's island: the selection vector is not
+    applied, as in the reference), uploaded back at the batch's capacity
+    and device."""
+    moved: dict = {}
+    hcol = download_batches([DeviceBatch((col,), batch.num_rows)],
+                            moved=moved)[0].columns[0]
+    out = fn(hcol)
+    dev = host_to_device(HostBatch(("c",), [out]), capacity=batch.capacity,
+                         device=batch.device, mode="plain")
+    sink = island_sink.get()
+    if sink is not None:
+        sink.add(f"island.{kind}.rows", moved.get("rows", 0))
+        sink.add(f"island.{kind}.bytesDown", moved.get("bytes", 0))
+        sink.add(f"island.{kind}.bytesUp", host_column_bytes(out))
+    return dev.columns[0]

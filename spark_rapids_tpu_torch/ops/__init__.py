@@ -10,6 +10,7 @@ from spark_rapids_tpu_torch.ops.base import (
 from spark_rapids_tpu_torch.ops.basic import (
     CoalescePartitionsExec, ExpandExec, FilterExec, GlobalLimitExec,
     LocalLimitExec, ProjectExec, RangeExec, UnionExec)
+from spark_rapids_tpu_torch.ops.generate import GenerateExec
 from spark_rapids_tpu_torch.ops.join import (
     BroadcastHashJoinExec, BroadcastNestedLoopJoinExec, ShuffledHashJoinExec)
 from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
@@ -19,7 +20,7 @@ __all__ = [
     "AggSpec", "Average", "BroadcastHashJoinExec",
     "BroadcastNestedLoopJoinExec", "CoalescePartitionsExec",
     "Count", "CountStar", "DeviceToHostExec", "Exec", "ExecContext",
-    "ExpandExec", "FilterExec", "First", "GlobalLimitExec",
+    "ExpandExec", "FilterExec", "First", "GenerateExec", "GlobalLimitExec",
     "HashAggregateExec", "HostToDeviceExec", "InMemorySourceExec", "Last",
     "LocalLimitExec", "Max", "Min", "ProjectExec", "RangeExec",
     "ShuffledHashJoinExec", "SortExec", "SortOrder", "Sum", "UnionExec",

@@ -32,6 +32,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import (
     HostBatch, download_batches, host_to_device)
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.exprs.base import island_sink
 from spark_rapids_tpu_torch.memory import oom
 
 Schema = Tuple[Tuple[str, DataType], ...]
@@ -146,18 +147,21 @@ def _visible_device_bytes() -> int:
 class timed:
     """Context manager adding elapsed host-clock ns to a metric. Kernels
     are asynchronous on the card, so on CUDA this measures dispatch, not
-    device time."""
+    device time. Inside it, host roundtrips of expressions
+    (``exprs.base.host_roundtrip``) count into ``metrics``."""
 
     def __init__(self, metrics: Metrics, name: str = "totalTime"):
         self.metrics = metrics
         self.name = name
 
     def __enter__(self):
+        self.token = island_sink.set(self.metrics)
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         self.metrics.add(self.name, time.perf_counter_ns() - self.t0)
+        island_sink.reset(self.token)
         return False
 
 

@@ -3,7 +3,10 @@
 TPCxBB q5 and q12, ``repart`` and the TPC-DS-like q67, q3, q42, q55, q89
 and q98 use, plus the numeric, date-time and row-source surface: the
 math, date-time and nondeterministic functions, ``least`` / ``greatest``,
-``agg_first`` / ``agg_last``, ``LogicalRange`` and ``LogicalUnion``).
+``agg_first`` / ``agg_last``, ``LogicalRange`` and ``LogicalUnion``; and
+the string surface: the string functions, ``md5``, casts to and from
+strings, and ``explode`` / ``explode_outer`` / ``posexplode`` with
+``LogicalGenerate``).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -14,10 +17,10 @@ Catalyst analysis feeding GpuOverrides.
 raises ``NotPortedError`` (a ``ResolutionError``) naming it. Window
 expressions (``Column.over`` a ``Window`` spec) never resolve: the
 DataFrame layer extracts them into ``LogicalWindow`` nodes, as the
-reference does. A cast to or from a string raises ``NotPortedError`` too.
-The reference's other DSL functions and nodes (the string functions,
-generate, file scans, pandas) come with the slices that port their
-operators.
+reference does, and so are generate expressions (``explode(...)``: the
+DataFrame layer extracts them into ``LogicalGenerate`` nodes). The
+reference's other DSL functions and nodes (file scans, pandas, Python
+UDFs) come with the slices that port their operators.
 """
 
 from __future__ import annotations
@@ -135,6 +138,9 @@ class Column:
     def like(self, pattern: str) -> "Column":
         return Column(("like", self, pattern))
 
+    def rlike_replace(self, pattern: str, repl: str) -> "Column":
+        return Column(("regexp_replace", self, pattern, repl))
+
     def substr(self, pos, length) -> "Column":
         return Column(("substr", self, _as_col(pos), _as_col(length)))
 
@@ -189,6 +195,100 @@ def _as_col(v) -> Column:
 
 def coalesce_cols(*cs) -> Column:
     return Column(("coalesce", tuple(_as_col(c) for c in cs)))
+
+
+# String functions, as pyspark.sql.functions.
+def upper(c: Column) -> Column:
+    return Column(("upper", _as_col(c)))
+
+
+def lower(c: Column) -> Column:
+    return Column(("lower", _as_col(c)))
+
+
+def length(c: Column) -> Column:
+    return Column(("length", _as_col(c)))
+
+
+def concat(*cs) -> Column:
+    return Column(("concat", tuple(_as_col(c) for c in cs)))
+
+
+def md5(c) -> Column:
+    """MD5 of a string column's UTF-8 bytes as a 32-character lowercase
+    hex string (Spark Md5; NULL in, NULL out)."""
+    return Column(("md5", _as_col(c)))
+
+
+def concat_ws(sep: str, *cs) -> Column:
+    return Column(("concat_ws", sep, tuple(_as_col(c) for c in cs)))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    return Column(("regexp_extract", _as_col(c), pattern, idx))
+
+
+def translate(c, src: str, to: str) -> Column:
+    return Column(("translate", _as_col(c), src, to))
+
+
+def split(c, delim: str, index: int) -> Column:
+    """split(str, delim)[index]: the ``index``-th (0-based) element of the
+    literal-delimiter split, Spark's split(...).getItem(i) (arrays are
+    not a device type; the element access is the expression).
+    Out-of-range indices are NULL; trailing empty elements are kept
+    (limit = -1)."""
+    return Column(("split", _as_col(c), delim, int(index)))
+
+
+def substring_index(c, delim: str, count: int) -> Column:
+    """substring_index(str, delim, count), Spark / Hive semantics over a
+    literal delimiter."""
+    return Column(("substring_index", _as_col(c), delim, int(count)))
+
+
+def repeat(c, n: int) -> Column:
+    return Column(("repeat", _as_col(c), n))
+
+
+def reverse(c) -> Column:
+    return Column(("reverse", _as_col(c)))
+
+
+def initcap(c) -> Column:
+    return Column(("initcap", _as_col(c)))
+
+
+def lpad(c, length: int, pad: str = " ") -> Column:
+    return Column(("lpad", _as_col(c), length, pad))
+
+
+def rpad(c, length: int, pad: str = " ") -> Column:
+    return Column(("rpad", _as_col(c), length, pad))
+
+
+def trim(c) -> Column:
+    return Column(("trim", _as_col(c)))
+
+
+def ltrim(c) -> Column:
+    return Column(("ltrim", _as_col(c)))
+
+
+def rtrim(c) -> Column:
+    return Column(("rtrim", _as_col(c)))
+
+
+def locate(needle: str, c, pos: int = 1) -> Column:
+    return Column(("locate", _as_col(c), needle, pos))
+
+
+def instr(c, needle: str) -> Column:
+    return Column(("locate", _as_col(c), needle, 1))
+
+
+def replace_str(c, search: str, repl: str) -> Column:
+    return Column(("replace", _as_col(c), search, repl))
 
 
 def when(cond: Column, value) -> "WhenBuilder":
@@ -516,6 +616,35 @@ def is_window_column(c: Column) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Generate DSL (explode of inline arrays; ref GpuGenerateExec.scala)
+# ---------------------------------------------------------------------------
+
+def explode(*elements) -> Column:
+    """explode(array(e1, .., ek)): one output row per element. The type
+    envelope is scalar-only (the reference's isSupportedType gate), so the
+    array is inline: K element expressions per row."""
+    return Column(("explode", tuple(_as_col(e) for e in elements),
+                   False, False))
+
+
+def explode_outer(*elements) -> Column:
+    return Column(("explode", tuple(_as_col(e) for e in elements),
+                   False, True))
+
+
+def posexplode(*elements) -> Column:
+    return Column(("explode", tuple(_as_col(e) for e in elements),
+                   True, False))
+
+
+def is_generate_column(c: Column) -> bool:
+    node = c.node
+    while node[0] == "alias":
+        node = node[1].node
+    return node[0] == "explode"
+
+
+# ---------------------------------------------------------------------------
 # Expression resolution (name -> ordinal, untyped -> typed)
 # ---------------------------------------------------------------------------
 
@@ -561,6 +690,17 @@ _BINARY_FNS = {
     "date_add": E.DateAdd, "date_sub": E.DateSub, "datediff": E.DateDiff,
     "add_months": E.AddMonths,
 }
+# One-string functions.
+_STRING_UNARY = {"upper": E.Upper, "lower": E.Lower, "length": E.Length,
+                 "md5": E.Md5, "reverse": E.StringReverse,
+                 "initcap": E.InitCap, "trim": E.StringTrim,
+                 "ltrim": E.StringTrimLeft, "rtrim": E.StringTrimRight}
+# A string and literal arguments (the reference's argument order).
+_STRING_LITERAL_ARGS = {
+    "regexp_replace": E.RegExpReplace, "regexp_extract": E.RegExpExtract,
+    "translate": E.Translate, "split": E.StringSplit,
+    "substring_index": E.SubstringIndex, "repeat": E.StringRepeat,
+    "lpad": E.StringLPad, "rpad": E.StringRPad, "replace": E.StringReplace}
 # Task-context functions of no argument but the seed.
 _CONTEXT_FNS = {"spark_partition_id": E.SparkPartitionID,
                 "monotonically_increasing_id": E.MonotonicallyIncreasingID,
@@ -569,13 +709,18 @@ _CONTEXT_FNS = {"spark_partition_id": E.SparkPartitionID,
 PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
                           "like", "cast", "substr", "hash", "pmod", "round",
                           "bround", "least", "greatest",
-                          "at_least_n_non_nulls", "trunc", "rand"}
+                          "at_least_n_non_nulls", "trunc", "rand", "concat",
+                          "concat_ws", "locate"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
                          | set(_DATE_PART) | set(_UNARY_FNS)
-                         | set(_BINARY_FNS) | set(_CONTEXT_FNS))
+                         | set(_BINARY_FNS) | set(_CONTEXT_FNS)
+                         | set(_STRING_UNARY) | set(_STRING_LITERAL_ARGS))
 # The window kinds: ported, but never resolved as expressions (the
 # DataFrame layer extracts them into ``LogicalWindow`` nodes).
 WINDOW_KINDS = frozenset({"window", "winfn"})
+# The generate kind: ported, but never resolved as an expression (the
+# DataFrame layer extracts it into ``LogicalGenerate`` nodes).
+GENERATE_KINDS = frozenset({"explode"})
 
 
 def resolve(c: Column, schema: Schema) -> Expression:
@@ -602,12 +747,7 @@ def resolve(c: Column, schema: Schema) -> Expression:
     if kind == "alias":
         return rec(node[1])
     if kind == "cast":
-        child = rec(node[1])
-        src, to = child.data_type(), node[2]
-        if src != to and (src.is_string or to.is_string):
-            side = "to" if to.is_string else "from"
-            raise NotPortedError(f"cast {side} string is not ported")
-        return E.Cast(child, to)
+        return E.Cast(rec(node[1]), node[2])
     if kind in _UNARY:
         return _UNARY[kind](rec(node[1]))
     if kind in _BINARY:
@@ -654,6 +794,19 @@ def resolve(c: Column, schema: Schema) -> Expression:
         return E.Rand(node[1])
     if kind in _CONTEXT_FNS:
         return _CONTEXT_FNS[kind]()
+    if kind in _STRING_UNARY:
+        return _STRING_UNARY[kind](rec(node[1]))
+    if kind in _STRING_LITERAL_ARGS:
+        return _STRING_LITERAL_ARGS[kind](rec(node[1]), *node[2:])
+    if kind == "concat":
+        return E.ConcatStrings(*[rec(x) for x in node[1]])
+    if kind == "concat_ws":
+        return E.ConcatWs(node[1], *[rec(x) for x in node[2]])
+    if kind == "locate":
+        return E.StringLocate(E.lit(node[2]), rec(node[1]),
+                              E.lit(int(node[3])))
+    if kind in GENERATE_KINDS:
+        raise ResolutionError("explode is only valid in select/with_column")
     if kind == "sortorder":
         raise ResolutionError("sort order only valid in orderBy")
     if kind in WINDOW_KINDS:
@@ -837,6 +990,31 @@ class LogicalWindow(_Unary):
     def schema(self) -> Schema:
         return tuple(self.child.schema) + tuple(
             (n, self.result_type(c)) for n, c in self.exprs)
+
+
+class LogicalGenerate(_Unary):
+    """explode / posexplode of an inline array (GpuGenerateExec.scala):
+    appends [``{out_name}__pos``?, element] columns, one output row per
+    (row, element)."""
+
+    def __init__(self, child, out_name: str, elements: Sequence[Column],
+                 position: bool = False, outer: bool = False):
+        super().__init__(child)
+        self.out_name = out_name
+        self.elements = list(elements)
+        self.position = position
+        self.outer = outer
+
+    def element_type(self) -> DataType:
+        return resolve(self.elements[0], self.child.schema).data_type()
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        out = list(self.child.schema)
+        if self.position:
+            out.append((f"{self.out_name}__pos", dt.INT32))
+        out.append((self.out_name, self.element_type()))
+        return tuple(out)
 
 
 class LogicalSort(_Unary):

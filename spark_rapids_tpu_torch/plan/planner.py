@@ -10,10 +10,10 @@
   engine, as the reference does.
 - The port's own reasons (``NodeMeta.port_reasons``, also listed among
   the reasons) name what it cannot run on either engine: a kind or node
-  it has no class for ("... is not ported"), a cast to or from a string,
-  a window function it has no class for, join keys that are not column
-  references. ``Planner.plan`` refuses such a plan with
-  ``NotImplementedError`` listing every such node.
+  it has no class for ("... is not ported"), a window function it has
+  no class for, join keys that are not column references.
+  ``Planner.plan`` refuses such a plan with ``NotImplementedError``
+  listing every such node.
 - Conversion emits the port's execs, each on its node's engine, with
   ``DeviceToHostExec`` / ``HostToDeviceExec`` bridging a child on the
   other engine where the reference bridges (``_bridge``). Every exchange
@@ -30,13 +30,22 @@
   ``shuffle`` is a ``ShuffledHashJoinExec`` over two hash exchanges, a
   ``broadcast`` one a ``BroadcastHashJoinExec``, and a join without keys
   a ``BroadcastNestedLoopJoinExec``.
+- The six kinds the reference computes on the host inside a device plan
+  (``_HOST_ROUNDTRIP_EXPRS``) carry its note "expression {kind} runs via
+  a host roundtrip"; casts to and from strings make the same roundtrip,
+  behind the reference's float gates (``castFloatToString``,
+  ``castStringToFloat``), which place a float <-> string cast on the
+  host engine.
+- ``explode`` / ``posexplode`` / ``explode_outer`` is a ``GenerateExec``
+  (``ops/generate.py``) over its child, bridged to its engine.
 - ``range`` is a ``RangeExec`` source (batches of ``batchSizeRows``
   built on the card), ``union`` a ``UnionExec`` over its children, each
   bridged to the union's engine.
 - Task-context expressions (``rand``, ``spark_partition_id``,
   ``monotonically_increasing_id``, ``input_file_name``) are an analysis
   error anywhere but in a projection or a filter, whose operators thread
-  the partition and row base (``_forbid_contextual``).
+  the partition and row base (``_forbid_contextual``; explode elements
+  included).
 - ROLLUP and CUBE lower to ``ExpandExec`` under the two-stage aggregate
   keyed by the grouping id; DISTINCT aggregates lower to the partial /
   merge / mixed_final pipeline (``_convert_distinct_aggregate``);
@@ -64,10 +73,10 @@ from spark_rapids_tpu_torch.exprs.base import BoundReference, Literal
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
     Count, CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec,
-    FilterExec, First, GlobalLimitExec, HashAggregateExec, HostToDeviceExec,
-    InMemorySourceExec, Last, LocalLimitExec, Max, Min, ProjectExec,
-    RangeExec, ShuffledHashJoinExec, SortExec, SortOrder, Sum, UnionExec,
-    WindowExec)
+    FilterExec, First, GenerateExec, GlobalLimitExec, HashAggregateExec,
+    HostToDeviceExec, InMemorySourceExec, Last, LocalLimitExec, Max, Min,
+    ProjectExec, RangeExec, ShuffledHashJoinExec, SortExec, SortOrder, Sum,
+    UnionExec, WindowExec)
 from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
@@ -86,14 +95,18 @@ from spark_rapids_tpu_torch.plan.pruning import (
 # ---------------------------------------------------------------------------
 
 # Kinds whose device implementation can differ from the JVM in corner
-# cases, and transcendentals whose rounding can differ from
-# java.lang.Math: the reference's gates, kept so an AST holding one is
-# tagged with the reference's reasons (none of these kinds is ported).
+# cases (ASCII-only case mapping), and transcendentals whose rounding can
+# differ from java.lang.Math: the reference's gates and reasons, which
+# place such a node on the host engine unless the conf allows them.
 _INCOMPAT_EXPRS = {
     "upper": "locale-sensitive case mapping is ASCII-only on TPU",
     "lower": "locale-sensitive case mapping is ASCII-only on TPU",
     "initcap": "locale-sensitive case mapping is ASCII-only on TPU",
 }
+# Kinds that execute on the host even inside the device plan (regular
+# expressions and friends), as in the reference: a note, not a reason.
+_HOST_ROUNDTRIP_EXPRS = {"regexp_replace", "regexp_extract", "translate",
+                         "lpad", "rpad", "replace"}
 _IMPROVED_FLOAT_EXPRS = {
     "exp", "expm1", "log", "log10", "log2", "log1p", "sin", "cos", "tan",
     "asin", "acos", "atan", "sinh", "cosh", "tanh", "cbrt", "pow", "atan2",
@@ -123,27 +136,13 @@ def _exec_conf_key(name: str) -> str:
 
 
 def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
-               port_reasons: List[str], schema=None):
+               port_reasons: List[str], schema=None,
+               notes: Optional[List[str]] = None):
     """Walk an untyped Column AST, collecting fallback reasons (the port's
-    own also into ``port_reasons``). ``schema`` (when known) types a
-    cast's input: a cast to or from a string is not ported (the
-    reference's float/string cast gates serve those casts only). The
-    reference's host-roundtrip notes serve kinds the port has not ported;
-    their "not ported" reason refuses them here."""
+    own also into ``port_reasons``) and notes (the host roundtrips).
+    ``schema`` (when known) types a cast's input for the reference's
+    float <-> string cast gates (GpuCast meta tagging)."""
     kind = c.node[0]
-    if kind == "cast":
-        src = None
-        if schema is not None:
-            try:
-                src = resolve(c.node[1], schema).data_type()
-            except Exception:
-                pass
-        if c.node[2].is_string and src != c.node[2]:
-            _port_reason(reasons, port_reasons,
-                         "cast to string is not ported")
-        elif src is not None and src.is_string and src != c.node[2]:
-            _port_reason(reasons, port_reasons,
-                         "cast from string is not ported")
     if not conf.is_op_enabled(_expr_conf_key(kind)):
         reasons.append(f"expression {kind} disabled by "
                        f"{_expr_conf_key(kind)}")
@@ -156,22 +155,41 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
         reasons.append(
             f"expression {kind} can round differently from java.lang.Math "
             "on TPU; enable spark.rapids.sql.improvedFloatOps.enabled")
+    if kind == "cast" and schema is not None:
+        try:
+            src = resolve(c.node[1], schema).data_type()
+        except Exception:
+            src = None
+        dst = c.node[2]
+        if src is not None and src.is_floating and dst.is_string and \
+                not conf.get(C.CAST_FLOAT_TO_STRING):
+            reasons.append(
+                "casting floats to string formats differently from Spark; "
+                "enable spark.rapids.sql.castFloatToString.enabled")
+        if src is not None and src.is_string and dst.is_floating and \
+                not conf.get(C.CAST_STRING_TO_FLOAT):
+            reasons.append(
+                "casting strings to float differs in corner cases; "
+                "enable spark.rapids.sql.castStringToFloat.enabled")
+    if kind in _HOST_ROUNDTRIP_EXPRS and notes is not None:
+        notes.append(f"expression {kind} runs via a host roundtrip")
     if kind not in L.PORTED_KINDS and kind not in L.WINDOW_KINDS and \
-            kind != "sortorder":
+            kind not in L.GENERATE_KINDS and kind != "sortorder":
         _port_reason(reasons, port_reasons,
                      f"expression {kind} is not ported")
     for x in c.node[1:]:
         if isinstance(x, Column):
-            tag_column(x, conf, reasons, port_reasons, schema)
+            tag_column(x, conf, reasons, port_reasons, schema, notes)
         elif isinstance(x, tuple):
             for y in x:
                 if isinstance(y, Column):
-                    tag_column(y, conf, reasons, port_reasons, schema)
+                    tag_column(y, conf, reasons, port_reasons, schema,
+                               notes)
                 elif isinstance(y, tuple):
                     for z in y:
                         if isinstance(z, Column):
                             tag_column(z, conf, reasons, port_reasons,
-                                       schema)
+                                       schema, notes)
 
 
 def _column_kinds(c: Column, out: set) -> set:
@@ -271,12 +289,12 @@ class NodeMeta:
 _NODES = (L.InMemoryScan, L.LogicalRange, L.LogicalFilter,
           L.LogicalProject, L.LogicalAggregate, L.LogicalSort,
           L.LogicalLimit, L.LogicalJoin, L.LogicalWindow,
-          L.LogicalRepartition, L.LogicalUnion)
+          L.LogicalRepartition, L.LogicalUnion, L.LogicalGenerate)
 
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
     meta = NodeMeta(plan, [wrap_and_tag(c, conf) for c in plan.children])
-    reasons, ours = meta.reasons, meta.port_reasons
+    reasons, ours, notes = meta.reasons, meta.port_reasons, meta.notes
     if not conf.sql_enabled:
         reasons.append("spark.rapids.sql.enabled is false")
     if not conf.is_op_enabled(_exec_conf_key(plan.name)):
@@ -287,21 +305,23 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
     child_schema = _schema_or_none(plan.children[0]) \
         if plan.children else None
     if isinstance(plan, L.LogicalFilter):
-        tag_column(plan.condition, conf, reasons, ours, child_schema)
+        tag_column(plan.condition, conf, reasons, ours, child_schema,
+                   notes)
     elif isinstance(plan, L.LogicalProject):
         for _, c in plan.projections:
-            tag_column(c, conf, reasons, ours, child_schema)
+            tag_column(c, conf, reasons, ours, child_schema, notes)
     elif isinstance(plan, L.LogicalAggregate):
         for _, c in plan.group_by:
             _forbid_contextual(c, "group_by")
-            tag_column(c, conf, reasons, ours, child_schema)
+            tag_column(c, conf, reasons, ours, child_schema, notes)
         for _, c in plan.aggregates:
             _forbid_contextual(c, "aggregates")
             ac = _unalias(c)
             if ac.node[0] not in ("agg", "aggd"):
                 continue
             if ac.node[2] is not None:
-                tag_column(ac.node[2], conf, reasons, ours, child_schema)
+                tag_column(ac.node[2], conf, reasons, ours, child_schema,
+                           notes)
             _float_agg_reasons(ac, child_schema, conf, reasons)
             if ac.node[0] == "aggd" and ac.node[1] in ("first", "last"):
                 # The reference's conversion error, before any refusal.
@@ -314,7 +334,7 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
         for o in plan.orders:
             inner = o.node[1] if o.node[0] == "sortorder" else o
             _forbid_contextual(inner, "order_by")
-            tag_column(inner, conf, reasons, ours, child_schema)
+            tag_column(inner, conf, reasons, ours, child_schema, notes)
     elif isinstance(plan, L.LogicalJoin):
         if plan.strategy == "shuffle" and plan.left_keys and \
                 not conf.get(C.REPLACE_SORT_MERGE_JOIN):
@@ -325,15 +345,15 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
         rs = _schema_or_none(plan.children[1])
         for k in plan.left_keys:
             _forbid_contextual(k, "join keys")
-            tag_column(k, conf, reasons, ours, ls)
+            tag_column(k, conf, reasons, ours, ls, notes)
         for k in plan.right_keys:
             _forbid_contextual(k, "join keys")
-            tag_column(k, conf, reasons, ours, rs)
+            tag_column(k, conf, reasons, ours, rs, notes)
         if plan.condition is not None:
             _forbid_contextual(plan.condition, "join condition")
             tag_column(plan.condition, conf, reasons, ours,
                        None if ls is None or rs is None
-                       else tuple(ls) + tuple(rs))
+                       else tuple(ls) + tuple(rs), notes)
         if plan.join_type not in JOIN_TYPES:
             _port_reason(reasons, ours,
                          f"join type {plan.join_type} is not ported")
@@ -341,22 +361,27 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
                for k in plan.left_keys + plan.right_keys):
             _port_reason(reasons, ours, "join keys that are not column "
                          "references are not ported")
+    elif isinstance(plan, L.LogicalGenerate):
+        for c in plan.elements:
+            _forbid_contextual(c, "explode elements")
+            tag_column(c, conf, reasons, ours, child_schema, notes)
     elif isinstance(plan, L.LogicalRepartition):
         for k in (plan.keys or []):
             _forbid_contextual(k, "repartition keys")
-            tag_column(k, conf, reasons, ours, child_schema)
+            tag_column(k, conf, reasons, ours, child_schema, notes)
     elif isinstance(plan, L.LogicalWindow):
         for c in plan.window.partition_cols:
             _forbid_contextual(c, "window partition keys")
-            tag_column(c, conf, reasons, ours, child_schema)
+            tag_column(c, conf, reasons, ours, child_schema, notes)
         for o in plan.window.order_cols:
             inner = o.node[1] if o.node[0] == "sortorder" else o
             _forbid_contextual(inner, "window order keys")
-            tag_column(inner, conf, reasons, ours, child_schema)
+            tag_column(inner, conf, reasons, ours, child_schema, notes)
         for _, fn_col in plan.exprs:
             node = fn_col.node
             if len(node) > 2 and isinstance(node[2], Column):
-                tag_column(node[2], conf, reasons, ours, child_schema)
+                tag_column(node[2], conf, reasons, ours, child_schema,
+                           notes)
             known = _WINDOW_FNS if node[0] == "winfn" else \
                 _WINDOW_AGGS if node[0] == "agg" else set()
             if node[1] not in known:
@@ -627,6 +652,13 @@ class Planner:
             return self._convert_aggregate(plan, child, want_dev), want_dev
         if isinstance(plan, L.LogicalWindow):
             return self._convert_window(plan, child, want_dev), want_dev
+        if isinstance(plan, L.LogicalGenerate):
+            return GenerateExec(
+                child, [resolve(c, plan.child.schema)
+                        for c in plan.elements],
+                position=plan.position, outer=plan.outer,
+                element_name=plan.out_name,
+                skip_nulls=plan.outer), want_dev
         raise NotImplementedError(f"cannot convert {plan.name}")
 
     def _convert_window(self, plan: L.LogicalWindow, child: Exec,

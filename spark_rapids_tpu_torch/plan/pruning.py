@@ -10,7 +10,9 @@ in-memory scan keeps its whole width, as in the reference.
 no-op here; it is kept so the pass order matches the reference's.
 
 ``estimate_bytes`` is the size estimate behind ``autoBroadcastJoinThreshold``:
-it picks every join's strategy, so it equals the reference's to the byte.
+it picks every join's strategy, so it equals the reference's to the byte,
+except above a generate: the port counts K times its child (K output
+rows a row) where the reference knows no size (and never broadcasts).
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
                          L.LogicalAggregate, L.LogicalProject,
                          L.LogicalWindow)):
         return estimate_bytes(plan.child)
+    if isinstance(plan, L.LogicalGenerate):
+        child = estimate_bytes(plan.child)
+        return None if child is None else child * len(plan.elements)
     if isinstance(plan, (L.LogicalUnion, L.LogicalJoin)):
         sizes = [estimate_bytes(c) for c in plan.children]
         if any(s is None for s in sizes):
@@ -143,6 +148,16 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]]) -> LogicalPlan:
                     refs_of(node[2], child_req)
         return L.LogicalWindow(_prune(plan.child, child_req),
                                plan.exprs, plan.window)
+    if isinstance(plan, L.LogicalGenerate):
+        child_req = None
+        if required is not None:
+            child_req = set(required) - {plan.out_name,
+                                         f"{plan.out_name}__pos"}
+            for c in plan.elements:
+                refs_of(c, child_req)
+        return L.LogicalGenerate(_prune(plan.child, child_req),
+                                 plan.out_name, plan.elements,
+                                 plan.position, plan.outer)
     if isinstance(plan, L.LogicalSort):
         child_req = None
         if required is not None:

@@ -178,6 +178,24 @@ ASTS = {
     "spark_partition_id": lambda M: M.spark_partition_id(),
     "monotonically_increasing_id": lambda M: M.monotonically_increasing_id(),
     "input_file_name": lambda M: M.input_file_name(),
+    # The string kinds and casts to and from strings.
+    **{k: (lambda M, k=k: getattr(M, k)(M.col("s"))) for k in (
+        "upper", "lower", "length", "md5", "reverse", "initcap", "trim",
+        "ltrim", "rtrim")},
+    "regexp_replace": lambda M: M.col("s").rlike_replace(r"\d", "#"),
+    "regexp_extract": lambda M: M.regexp_extract(M.col("s"), "(a+)", 1),
+    "translate": lambda M: M.translate(M.col("s"), "ab", "A"),
+    "split": lambda M: M.split(M.col("s"), ",", 1),
+    "substring_index": lambda M: M.substring_index(M.col("s"), ".", -1),
+    "repeat": lambda M: M.repeat(M.col("s"), 2),
+    "lpad": lambda M: M.lpad(M.col("s"), 9, "*"),
+    "rpad": lambda M: M.rpad(M.col("s"), 3),
+    "replace": lambda M: M.replace_str(M.col("s"), "a", "b"),
+    "concat": lambda M: M.concat(M.col("s"), "-", M.col("s")),
+    "concat_ws": lambda M: M.concat_ws("|", M.col("s"), M.col("s")),
+    "locate": lambda M: M.locate("a", M.col("s"), 2),
+    "cast_to_string": lambda M: M.col("d").cast("string"),
+    "cast_from_string": lambda M: M.col("s").cast("double"),
 }
 
 
@@ -220,17 +238,12 @@ def test_resolution_errors_match_reference(name):
     assert str(got.value) == str(want.value)
 
 
-# kind -> (AST, what the port's refusal names): a cast to a string is
-# refused, a fixed-width one resolves (ASTS). ``abs`` and ``neg`` were
-# refused until the port had their classes; the string functions still
-# are.
+# kind -> (AST, what the port's refusal names). The string functions and
+# casts to and from strings (refused here until the port had their
+# classes) resolve (ASTS); a hoisted plan-cache literal does not.
 UNPORTED = {
-    "upper": (lambda M: M.Column(("upper", M.col("s"))),
-              "expression upper is not ported"),
-    "md5": (lambda M: M.Column(("md5", M.col("s"))),
-            "expression md5 is not ported"),
-    "cast": (lambda M: M.col("i32").cast("string"),
-             "cast to string is not ported"),
+    "bindslot": (lambda M: M.Column(("bindslot", 0, jdt.INT64)),
+                 "expression bindslot is not ported"),
 }
 
 

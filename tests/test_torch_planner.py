@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from spark_rapids_tpu import config as JC
+from spark_rapids_tpu.columnar import dtypes as jdt
 from spark_rapids_tpu.plan import logical as JL
 from spark_rapids_tpu.plan import planner as JPL
 
@@ -133,8 +134,8 @@ def _gated_plans(M, df_scan):
                                     ("y", M.agg_sum(c("a"))),
                                     ("z", M.agg_avg(c("a")))]),
         "unported_under_filter": M.LogicalFilter(M.LogicalProject(
-            scan, [("r", M.Column(("md5", c("s")))), ("a", c("a"))]),
-            c("a") > 1),
+            scan, [("r", M.Column(("bindslot", 0, jdt.INT64))),
+                   ("a", c("a"))]), c("a") > 1),
         "shuffle_join": M.LogicalJoin(scan, scan, [c("a")], [c("a")],
                                       "inner", strategy="shuffle"),
     }
@@ -145,7 +146,7 @@ def _gated_plans(M, df_scan):
 @pytest.mark.parametrize("raw", [
     {}, {VFA: True},
     {"spark.rapids.sql.replaceSortMergeJoin.enabled": False, VFA: True},
-    {"spark.rapids.sql.expression.md5": False}])
+    {"spark.rapids.sql.expression.bindslot": False}])
 def test_gates_match_reference_apart_from_not_ported(plan, raw):
     from spark_rapids_tpu.api import TpuSession as JSession
     pconf, jconf = _confs(raw)
@@ -156,7 +157,7 @@ def test_gates_match_reference_apart_from_not_ported(plan, raw):
     assert _tags(_without_not_ported(got)) == _tags(want)
     extra = [r for _n, reasons, _ in _tags(got) for r in reasons
              if "is not ported" in r]
-    assert extra == (["expression md5 is not ported"]
+    assert extra == (["expression bindslot is not ported"]
                      if plan == "unported_under_filter" else [])
 
 
@@ -247,7 +248,7 @@ def _refusals(session):
     other = _scan_df(session).select(L.col("a").alias("b"),
                                      L.col("s").alias("t"))
     c = L.col
-    md5 = L.Column(("md5", c("s")))
+    slot = L.Column(("bindslot", 0, dt.INT64))
     return {
         # case -> (DataFrame, conf updates, [(node, reason), ...]); a
         # lifted case refuses nothing and runs.
@@ -255,8 +256,8 @@ def _refusals(session):
         **{k: (d, conf, []) for k, (d, conf) in
            _lifted_cases(L, session).items()},
         "unported_expression": (
-            df.select(md5.alias("r"), "a").filter(c("a") > 1),
-            {}, [("LogicalProject", "expression md5 is not ported")]),
+            df.select(slot.alias("r"), "a").filter(c("a") > 1),
+            {}, [("LogicalProject", "expression bindslot is not ported")]),
         "unported_window_function": (
             df.with_column("x", L.Column(("agg", "first", c("a"), True))
                            .over(L.Window.partition_by("s"))), {},
@@ -266,12 +267,12 @@ def _refusals(session):
             [("LogicalJoin", "join keys that are not column references are "
               "not ported")]),
         # The disabled filter alone would run on the host; the unported
-        # md5 refuses the plan, naming its node only.
+        # bind slot refuses the plan, naming its node only.
         "two_nodes": (
-            df.filter(c("a") > 1).select(md5.alias("m"), "s")
+            df.filter(c("a") > 1).select(slot.alias("m"), "s")
             .group_by("s").agg(L.agg_count(c("m"))),
             {"spark.rapids.sql.expression.gt": False},
-            [("LogicalProject", "expression md5 is not ported")]),
+            [("LogicalProject", "expression bindslot is not ported")]),
     }
 
 

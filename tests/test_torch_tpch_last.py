@@ -411,12 +411,3 @@ def test_cast_matches_reference_on_both_engines(src, to):
     np.testing.assert_array_equal(_bits(th.data), _bits(jh.data))
 
 
-def test_string_casts_are_refused():
-    from spark_rapids_tpu_torch.plan import logical as L
-    session = TpuSession(device="cpu")
-    df = session.create_dataframe({"a": [1, 2], "s": ["x", "y"]},
-                                  (("a", tdt.INT32), ("s", tdt.STRING)))
-    for c, why in ((L.col("a").cast("string"), "cast to string"),
-                   (L.col("s").cast("int"), "cast from string")):
-        with pytest.raises(NotImplementedError, match=why):
-            df.select(c.alias("c")).collect()
