@@ -123,7 +123,8 @@ Phases (each raises on failure; any failure exits non-zero):
    xbb_q5's integer sums on the card). For each run: the plan's host
    nodes and bridges (checked), the rows and bytes each
    ``DeviceToHostExec`` downloads, the first run (counters around it
-   alone, every K1-K4 launch recorded) and two warm runs, each checked
+   alone, every K1-K4 launch recorded) and one warm run (two until
+   phase 21 needed the time), each checked
    against a numpy oracle in this file (keys, counts and order exact,
    floats to rtol 1e-9; xbb_q5 as a multiset, the query has no order).
    K1 must launch in xbb_q5, q7, q8, q9 and q12 under both confs. Each
@@ -155,7 +156,8 @@ Phases (each raises on failure; any failure exits non-zero):
    q18 on the host engine; COUNT, COUNT DISTINCT and the joins on the
    card). For each run: host nodes and bridges (checked), rows and bytes
    downloaded, the first run (counters around it alone, every K1-K4
-   launch recorded) and two warm runs, each checked against a numpy
+   launch recorded) and one warm run (two until phase 21), each checked
+   against a numpy
    oracle in this file (keys, counts and order exact, floats to rtol
    1e-9; q10 as a set, as the reference compares it; the LIKE patterns
    of q13 and q16 evaluated by Python's ``re`` over the comment pools),
@@ -181,8 +183,9 @@ Phases (each raises on failure; any failure exits non-zero):
    the customer key at 1 and 8 partitions, its matched, left-only and
    right-only row counts against numpy. For each run: host nodes and
    bridges, rows downloaded, the first run (counters around it alone,
-   every K1-K4 launch recorded), two warm walls and the peak device
-   memory of the warm runs. K1 must launch in every run, K3 in the
+   every K1-K4 launch recorded), one warm wall (two until phase 21) and
+   the peak device memory of the warm run. K1 must launch in every run,
+   K3 in the
    shuffled joins of (c) (q4, q13, q21) and (d), whose builds repeat keys,
    K2 in ds_q89. Each K1-K4 launch of a shape no earlier phase checked
    must equal the kernel's plain version bit for bit; the largest new
@@ -243,8 +246,9 @@ Phases (each raises on failure; any failure exits non-zero):
    conf the projection (log / exp / pow) and union_dates' float sum run on
    the host engine. For each run: host nodes and bridges (checked), rows
    downloaded, the first run (counters around it alone, every K1-K4
-   launch recorded), two warm walls and the peak device memory of the
-   warm runs. K1 must launch in every run, K2 in (a) and (b) (Min/Max and
+   launch recorded), one warm wall (two until phase 21) and the peak
+   device memory of the warm run. K1 must launch in every run, K2 in (a)
+   and (b) (Min/Max and
    the first / last picks); each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit, and the
    largest new K1 shape is timed against its plain version and
@@ -272,20 +276,46 @@ Phases (each raises on failure; any failure exits non-zero):
    (5,997,887 rows) through posexplode of its three dates by (position,
    year), explode of ship mode and instruction by label, and
    explode_outer of two conditional labels (the NULL group included),
-   exact against numpy. For each run: host nodes and bridges (checked),
+   exact against numpy, run under the all-device conf (the default conf
+   must plan the same exec trees, with no host node; until phase 21
+   needed the time they also ran under it). For each run: host nodes and bridges (checked),
    rows downloaded, the rows and bytes through each host roundtrip, the
    first run (counters around it alone, every K1-K4 launch recorded),
-   the torch ops of ``_greedy_matches`` and of MD5, two warm walls and
-   the peak device memory of the warm runs. K1 must launch in every run,
+   the torch ops of ``_greedy_matches`` and of MD5, one warm wall (two
+   until phase 21 needed the time) and the peak device memory of the
+   warm run. K1 must launch in every run,
    K2 in comment_groups; each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit. The
    phase's time is printed.
+21. The UDF tier (runs after phase 20), through ``TpuSession`` and
+   ``benchmarks/udfsource.py`` over the SF1 tables: (a) TPC-H q1 with
+   its ship-date filter and derived columns written as ``udf`` lambdas
+   and a quantity band summed beside its aggregates (every UDF must
+   compile; under the all-device conf and the default conf the plan's
+   host nodes must be q1's text's, with no host roundtrip), run beside
+   q1's text under the all-device conf (rows equal q1's to rtol 1e-9,
+   the band exact against numpy, K1 launches equal) and once under the
+   default conf; (b) ORDERS before 1995-04-17 (about 750,000 rows, a
+   selection vector on each batch) through two UDFs that do not compile
+   (a dict lookup of the priority's rank, a loop counting the comment's
+   vowels), grouped by the rank: count, revenue (rtol 1e-9), the largest
+   price and the vowels exact against a Python and numpy oracle; explain
+   must carry each compile error, no node may be on the host,
+   ``island.pyudf.rows`` must be the filtered rows times two, K2 must
+   launch (the float Max), and a ``PythonUDF`` evaluated on a card batch
+   must return its column on that batch's device; (c) where pandas is
+   installed, ``map_in_pandas``, ``apply_in_pandas``, ``agg_in_pandas``
+   and a cogroup at ``shuffle.partitions=8`` against numpy oracles;
+   where it is not (the check comes before the phase runs them), one
+   line says so. Each run's first run with every K1-K4 launch recorded
+   (new shapes against the plain versions), warm walls, peak device
+   memory and host roundtrips are printed, and the phase's time.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
-   nineteen, phase 18's eleven, phase 19's ten and phase 20's sixteen),
-   its error against the
+   nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen and
+   phase 21's eight, four without pandas), its error against the
    plain version,
    its
    time, the plain version's, its bound, and one PyTorch call's time for
@@ -1875,7 +1905,7 @@ MORE_DEFAULT_HOST = {"xbb_q5": [], "q7": ["LogicalAggregate"],
                        "q19": ["LogicalAggregate"]}
 MORE_MUST_LAUNCH = {q: ("radix_sort",) for q in (
     "xbb_q5", "q7", "q8", "q9", "q12")}
-MORE_WARM_RUNS = 2
+MORE_WARM_RUNS = 1
 
 
 def more_oracles(cols: dict, xcols: dict, E, S) -> dict:
@@ -2451,7 +2481,7 @@ DISTINCT_MUST_LAUNCH = {
     (q, c): () if (q, c) == ("q17", "default") else
     ("radix_sort", "join_probe") if q in ("q13", "q21") else ("radix_sort",)
     for q in DISTINCT_QUERIES for c in ("vfa", "default")}
-DISTINCT_WARM_RUNS = 2
+DISTINCT_WARM_RUNS = 1
 
 
 def distinct_oracles(cols: dict, xcols: dict, E, S,
@@ -2703,7 +2733,7 @@ SHUFFLED_MUST_LAUNCH = dict(
     q4=("radix_sort", "join_probe"), q13=("radix_sort", "join_probe"),
     q21=("radix_sort", "join_probe"), ds_q89=("radix_sort", "seg_reduce"))
 SHUFFLE_PARTITIONS = 8
-LAST_WARM_RUNS = 2
+LAST_WARM_RUNS = 1
 
 
 def last_oracles(cols: dict, xcols: dict, E, S) -> dict:
@@ -2811,7 +2841,8 @@ def exchange_phase(native, cols: dict, known_seen: list,
     ORDERS at one and eight partitions against numpy counts. For each
     run: host nodes and bridges, rows downloaded, the first run with
     every K1-K4 launch recorded (new shapes against the plain versions),
-    two warm walls and the peak device memory of the warm runs."""
+    ``LAST_WARM_RUNS`` warm walls and the peak device memory of the warm
+    runs."""
     from spark_rapids_tpu_torch import entry as E
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks import suites as S
@@ -3480,7 +3511,7 @@ RANGE_UNION_N = 1 << 25         # each side of range_union
 HEAD_ROWS = 1 << 20
 # LINEITEM's first lines that (b) and (c) read (of SF1's 5,997,887).
 ROWSOURCE_LINES = 1 << 20
-ROWSOURCE_WARM_RUNS = 2
+ROWSOURCE_WARM_RUNS = 1
 TRANSCENDENTAL_ULPS = 4
 ALL_DEVICE = {"spark.rapids.sql.variableFloatAgg.enabled": True,
               "spark.rapids.sql.improvedFloatOps.enabled": True}
@@ -3783,8 +3814,9 @@ def rowsource_phase(native, cols: dict, known_seen: list,
     ``variableFloatAgg`` + ``improvedFloatOps`` (every node on the card)
     and under the default conf, against numpy oracles; for each run host
     nodes and bridges, rows downloaded, the first run with every K1-K4
-    launch recorded (new shapes against the plain versions), two warm
-    walls and the peak device memory of the warm runs."""
+    launch recorded (new shapes against the plain versions),
+    ``ROWSOURCE_WARM_RUNS`` warm walls and the peak device memory of the
+    warm runs."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks import rowsource as R
     from spark_rapids_tpu_torch.plan import logical as L
@@ -3880,7 +3912,7 @@ def rowsource_phase(native, cols: dict, known_seen: list,
 # ---------------------------------------------------------------------------
 
 ETL_HEAD_ROWS = 1 << 18
-STRING_WARM_RUNS = 2
+STRING_WARM_RUNS = 1
 # The logical nodes the default conf places on the host engine, by run:
 # orders_etl's case-map and float-format projection and its float-parse
 # projection, country_revenue's float sum. The all-device conf places
@@ -4333,8 +4365,10 @@ def string_phase(native, cols: dict, known_seen: list,
     nodes and bridges, rows downloaded, the rows and bytes through each
     host roundtrip, the first run with every K1-K4 launch recorded (new
     shapes against the plain versions) and the torch ops of
-    ``_greedy_matches`` and of MD5 counted, two warm walls and the peak
-    device memory of the warm runs."""
+    ``_greedy_matches`` and of MD5 counted, ``STRING_WARM_RUNS`` warm
+    walls and the peak device memory of the warm runs. The explode
+    queries run once, under the all-device conf: the default conf must
+    plan them to the same exec tree, with no host node."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks import stringsource as S
     from spark_rapids_tpu_torch.exprs import hash as H
@@ -4417,22 +4451,349 @@ def string_phase(native, cols: dict, known_seen: list,
         run(f"country revenue ({conf_name})", S.country_revenue(
             L, t["orders"], t["customer"])._physical(), "revenue",
             conf_name)
+        explode = {"date positions": ("positions", S.date_positions(
+            L, t["lineitem"])._physical()), "ship labels": (
+            "labels", S.ship_labels(L, t["lineitem"])._physical()),
+            "outer labels": ("outer", S.outer_labels(
+                L, t["lineitem"])._physical())}
+        if conf_name == "default":
+            # The same exec trees as under the all-device conf, all on
+            # the card: their runs there stand for both confs.
+            for name, (_q, phys) in explode.items():
+                if phys.host_fallback_nodes() or \
+                        phys.tree() != trees[name]:
+                    raise AssertionError(
+                        f"{name} (default) plans otherwise than under the "
+                        f"all-device conf: {phys.host_fallback_nodes()}\n"
+                        f"{phys.tree()}")
+            log(f"{sorted(explode)} (default): the all-device conf's exec "
+                "trees, no host node; not run again")
+            continue
+        trees = {name: phys.tree() for name, (_q, phys) in explode.items()}
         seen_k1: list = []
         with recording_k1(native, seen_k1):
-            run(f"date positions ({conf_name})", S.date_positions(
-                L, t["lineitem"])._physical(), "positions", conf_name)
-        if conf_name == "device" and seen_k1:
+            run(f"date positions ({conf_name})",
+                explode["date positions"][1], "positions", conf_name)
+        if seen_k1:
             # The phase's largest K1 launch: a generate's output batch
             # (3 x 786,432 slots) sorted by its group fingerprint.
             keys, perm = max(seen_k1, key=lambda a: a[0].numel())
             out["k1"] = k1_time(native, keys, perm, "phase 20 largest")
         del seen_k1
-        run(f"ship labels ({conf_name})", S.ship_labels(
-            L, t["lineitem"])._physical(), "labels", conf_name)
-        run(f"outer labels ({conf_name})", S.outer_labels(
-            L, t["lineitem"])._physical(), "outer", conf_name)
+        for name in ("ship labels", "outer labels"):
+            run(f"{name} ({conf_name})", explode[name][1], explode[name][0],
+                conf_name)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the UDF tier (compiled UDFs, the Python-UDF fallback, pandas)
+# ---------------------------------------------------------------------------
+
+UDF_WARM_RUNS = 2
+# The kernels each run of phase 21 must launch.
+UDF_MUST_LAUNCH = {"q1": ("radix_sort",), "q1_udf": ("radix_sort",),
+                   "ranks": ("radix_sort", "seg_reduce"),
+                   "pandas_map": (), "pandas_apply": ("radix_sort",),
+                   "pandas_agg": ("radix_sort",),
+                   "pandas_cogroup": ("radix_sort",)}
+UDF_ALL_DEVICE = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+UDF_PARTITIONS = 8
+
+
+def q1_band_oracle(li: dict, cutoff: int) -> list:
+    """q1's oracle rows with ``sum_band`` (lines of more than 25 units)
+    appended to each group."""
+    keep = li["l_shipdate"] <= cutoff
+    key = li["l_returnflag"][keep].astype(np.int64) * 256 + \
+        li["l_linestatus"][keep].astype(np.int64)
+    big = li["l_quantity"][keep] > 25.0
+    uniq, inv = np.unique(key, return_inverse=True)
+    band = np.bincount(inv, weights=big).astype(np.int64)
+    rows = q1_oracle(li, cutoff)
+    if [(r[0], r[1]) for r in rows] != [
+            (chr(k // 256), chr(k % 256)) for k in uniq.tolist()]:
+        raise AssertionError("q1 band oracle: groups differ from q1's")
+    return [r + (int(b),) for r, b in zip(rows, band.tolist())]
+
+
+def check_q1_band(rows: list, want: list) -> None:
+    check_q1([r[:-1] for r in rows], [w[:-1] for w in want])
+    got = [(r[0], r[1], r[-1]) for r in rows]
+    exp = [(w[0], w[1], w[-1]) for w in want]
+    if got != exp:
+        raise AssertionError(f"q1_udf sum_band differs: {got} vs {exp}")
+
+
+def ranks_oracle(cols: dict, U, E) -> list:
+    """(b)'s rows in Python and numpy: per priority rank of the orders
+    before the cutoff, count, revenue, largest price, vowels."""
+    o = cols["orders"]
+    keep = o["o_orderdate"] < U.RANK_CUTOFF
+    rank = np.array([U.PRIORITY_RANK[p] for p in E.PRIORITIES])[
+        o["o_orderpriority"][keep]]
+    vowels = np.array([U.vowels(c) for c in E.O_COMMENTS])[
+        o["o_comment"][keep]]
+    price = o["o_totalprice"][keep]
+    return [(int(r), int((rank == r).sum()), float(price[rank == r].sum()),
+             float(price[rank == r].max()), int(vowels[rank == r].sum()))
+            for r in np.unique(rank).tolist()]
+
+
+def check_ranks(rows: list, want: list) -> None:
+    """Ranks, counts, the largest price and the vowels exact; revenue to
+    rtol 1e-9."""
+    exact = [(r[0], r[1], r[3], r[4]) for r in rows]
+    if exact != [(w[0], w[1], w[3], w[4]) for w in want]:
+        raise AssertionError(f"ranks differ: {rows} vs {want}")
+    check_rows("ranks revenue", [(r[2],) for r in rows],
+               [(w[2],) for w in want])
+
+
+def pandas_oracles(cols: dict, U, E) -> dict:
+    """(c)'s rows: each order's key and price in thousands (arrays); sorted,
+    per priority
+    the count, largest and smallest price; per status the count, least
+    and largest price; per priority of either side of the cogroup the
+    count and the count times its weight."""
+    o = cols["orders"]
+    price = o["o_totalprice"]
+    prio = o["o_orderpriority"]
+    status = o["o_orderstatus"]
+    out = {"pandas_map": (o["o_orderkey"], price / 1000.0)}
+    out["pandas_apply"] = sorted(
+        (p, int((prio == i).sum()), float(price[prio == i].max()),
+         float(price[prio == i].min()))
+        for i, p in enumerate(E.PRIORITIES) if (prio == i).any())
+    out["pandas_agg"] = sorted(
+        (chr(s), int((status == s).sum()), float(price[status == s].min()),
+         float(price[status == s].max())) for s in np.unique(status).tolist())
+    weight = dict(zip(U.WEIGHTS["w_priority"], U.WEIGHTS["w"]))
+    counts = {p: int((prio == i).sum()) for i, p in enumerate(E.PRIORITIES)}
+    out["pandas_cogroup"] = sorted(
+        (p, counts.get(p, 0), weight.get(p, 0.0) * counts.get(p, 0))
+        for p in set(counts) | set(weight))
+    return out
+
+
+def check_price_k(rows: list, want: tuple) -> None:
+    """(c)'s map: one row an order, its price in thousands exact, in any
+    order."""
+    keys, price_k = want
+    got = np.array([r[0] for r in rows], np.int64)
+    order = np.argsort(got, kind="stable")
+    exp = np.argsort(keys, kind="stable")
+    vals = np.array([r[1] for r in rows], np.float64)
+    if not (np.array_equal(got[order], keys[exp]) and
+            np.array_equal(vals[order], price_k[exp])):
+        raise AssertionError("pandas_map: rows differ from the oracle")
+
+
+def pyudf_device_check(U, udf, device) -> dict:
+    """``PythonUDF`` on a batch on the card with a selection vector: the
+    column comes back on the batch's device, NULL under the rows the
+    selection drops, the rank of each kept row's priority."""
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch import exprs as X
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.host import (
+        HostBatch, host_to_device)
+    n = 4096
+    prios = [E.PRIORITIES[i % 5] for i in range(n)]
+    hb = HostBatch.from_pydict([("p", dt.STRING)], {"p": prios})
+    batch = host_to_device(hb, device=device)
+    keep = torch.arange(batch.capacity, device=batch.device) % 3 != 0
+    batch = batch.with_sel(keep)
+    rank = U.rank_udfs(udf)["rank"]
+    e = X.PythonUDF(rank.func, dt.INT32, [X.BoundReference(0, dt.STRING)])
+    col = e.eval(batch)
+    if col.data.device != batch.device or \
+            col.validity.device != batch.device:
+        raise AssertionError(f"PythonUDF returned a column on "
+                             f"{col.data.device}, the batch is on "
+                             f"{batch.device}")
+    live = (np.arange(batch.capacity) < n) & \
+        (np.arange(batch.capacity) % 3 != 0)
+    valid = col.validity.cpu().numpy()
+    data = col.data.cpu().numpy()
+    want = np.array([U.PRIORITY_RANK[p] for p in prios])
+    if not np.array_equal(valid, live) or not np.array_equal(
+            data[:n][live[:n]], want[live[:n]]):
+        raise AssertionError("PythonUDF on the card: wrong rows")
+    log(f"PythonUDF on a {batch.device} batch of {n} rows (capacity "
+        f"{batch.capacity}, selection vector): result on {col.data.device}, "
+        f"{int(live.sum())} ranks, NULL under the dropped rows")
+    return dict(device=str(col.data.device), rows=int(live.sum()))
+
+
+def udf_phase(native, cols: dict, known_seen: list, known_k1: set) -> dict:
+    """(a) TPC-H q1 through ``udfsource.q1_udf`` (its filter and derived
+    columns compiled UDFs, plus a quantity band) beside q1's text under
+    the all-device conf, and once under the default conf; (b) ORDERS
+    before 1995-04-17 through two Python UDFs that do not compile (a dict
+    lookup, a loop), grouped by the rank, under the all-device conf; (c)
+    the four pandas execs at 8 partitions where pandas is installed. Each
+    run against oracles in this file, its first run with every K1-K4
+    launch recorded (new shapes against the plain versions), the host
+    roundtrips' rows and bytes, warm walls and peak device memory."""
+    import importlib.util
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import DataFrame, TpuSession
+    from spark_rapids_tpu_torch.benchmarks import stringsource as S
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.benchmarks import udfsource as U
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.udf import udf
+    t_phase = time.perf_counter()
+    li = cols["lineitem"]
+    want = {"q1": q1_oracle(li, U.Q1_CUTOFF),
+            "q1_udf": q1_band_oracle(li, U.Q1_CUTOFF),
+            "ranks": ranks_oracle(cols, U, E)}
+    filtered = int((cols["orders"]["o_orderdate"] < U.RANK_CUTOFF).sum())
+    log(f"phase 21: oracles in {time.perf_counter() - t_phase:.2f} s "
+        f"({filtered} orders before the rank cutoff)")
+    checks = {"q1": check_q1, "q1_udf": check_q1_band, "ranks": check_ranks}
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    out = {"kernel_checks": [], "runs": []}
+
+    def run(label, phys, q, hosted=(), warm=UDF_WARM_RUNS):
+        r = run_checked(native, label, phys, checks[q], want[q], list(hosted),
+                        UDF_MUST_LAUNCH[q], known_seen, known_k1)
+        known_seen.append(r["seen"])
+        known_k1.update(c["shape"] for c in r["checks"]
+                        if c["kernel"] == "radix_sort")
+        out["kernel_checks"] += r["checks"]
+        islands = island_counts(r["ctx"])
+        walls, peak, held = _warm(phys, checks[q], want[q], warm) \
+            if warm else ([], 0, 0)
+        warm_text = (f"warm {[round(w, 4) for w in walls]} s, peak device "
+                     f"memory in the warm runs {peak / 2**30:.3f} GiB "
+                     f"({held / 2**30:.3f} GiB held before them)") \
+            if warm else "no warm run"
+        log(f"{label} matches the oracle: first run {r['first_s']:.3f} s, "
+            f"{warm_text}; launches {r['launches']}; host roundtrips "
+            f"{islands or 'none'}")
+        out[label] = dict(first_s=r["first_s"], warm_s=walls,
+                          launches=r["launches"], hosted=r["hosted"],
+                          peak_bytes=peak, held_bytes=held, islands=islands,
+                          rows=r["rows"])
+        out["runs"].append(r["launches"])
+        return out[label]
+
+    # (a) q1 written with compiled UDFs, beside q1's text.
+    compiled = {k: u.compiled for k, u in U.q1_udfs(udf).items()}
+    if not all(compiled.values()):
+        raise AssertionError(f"q1's UDFs did not all compile: {compiled}")
+    plans = {}
+    for conf_name, conf in (("vfa", UDF_ALL_DEVICE), ("default", {})):
+        session = TpuSession(conf)
+        t = tpch.tpch_tables(session, cols, ("q1",))["q1"]
+        plans[conf_name] = (tpch.q1(session, t)._physical(),
+                            U.q1_udf(L, udf, t["lineitem"])._physical())
+        text_hosted = plans[conf_name][0].host_fallback_nodes()
+        if plans[conf_name][1].host_fallback_nodes() != text_hosted:
+            raise AssertionError(
+                f"q1_udf ({conf_name}) placed "
+                f"{plans[conf_name][1].host_fallback_nodes()} on the host, "
+                f"q1's text {text_hosted}")
+        report = plans[conf_name][1].explain()
+        if "roundtrip" in report:
+            raise AssertionError(f"q1_udf ({conf_name}) has a host "
+                                 f"roundtrip: {report}")
+    log(f"q1_udf: UDFs compiled {compiled}; host nodes as q1's text "
+        f"(vfa {plans['vfa'][0].host_fallback_nodes()}, default "
+        f"{plans['default'][0].host_fallback_nodes()}); no roundtrip")
+    text = run("q1 text (vfa)", plans["vfa"][0], "q1")
+    with_udf = run("q1_udf (vfa)", plans["vfa"][1], "q1_udf")
+    if not rows_close([r[:-1] for r in with_udf["rows"]], text["rows"]):
+        raise AssertionError("q1_udf's rows differ from q1's text")
+    same = [r[:-1] for r in with_udf["rows"]] == text["rows"]
+    if with_udf["launches"]["radix_sort"] != text["launches"]["radix_sort"]:
+        raise AssertionError(f"q1_udf launched K1 "
+                             f"{with_udf['launches']['radix_sort']} times, "
+                             f"q1's text {text['launches']['radix_sort']}")
+    for label in ("q1 text (vfa)", "q1_udf (vfa)"):
+        if out[label]["islands"]:
+            raise AssertionError(f"{label}: host roundtrips "
+                                 f"{out[label]['islands']}")
+    how = "bit for bit" if same else "floats within rtol 1e-9"
+    log(f"q1_udf rows equal q1's text ({how}); K1 "
+        f"{text['launches']['radix_sort']} launches in both")
+    run("q1_udf (default)", plans["default"][1], "q1_udf",
+        hosted=plans["default"][0].host_fallback_nodes(), warm=0)
+    out["q1_bit_identical"] = same
+
+    # (b) two Python UDFs that do not compile, after a filter.
+    u = U.rank_udfs(udf)
+    errors = {k: v.compile_error for k, v in u.items()}
+    if any(v.compiled for v in u.values()):
+        raise AssertionError(f"(b)'s UDFs compiled: {errors}")
+    out["pyudf_device"] = pyudf_device_check(U, udf, TpuSession(
+        UDF_ALL_DEVICE).device)
+    phys_by_conf = {}
+    for conf_name, conf in (("vfa", UDF_ALL_DEVICE), ("default", {})):
+        session = TpuSession(conf)
+        orders = DataFrame(session, L.InMemoryScan(
+            S.ORDERS, E.table_partitions(
+                {n: cols["orders"][n] for n, _ in S.ORDERS}, S.ORDERS,
+                E.TABLE_PARTITIONS["orders"])))
+        phys_by_conf[conf_name] = U.order_ranks(L, udf, orders)._physical()
+    report = phys_by_conf["vfa"].explain()
+    for name, key in (("<lambda>", "rank"), ("vowels", "vowels")):
+        note = (f"python UDF {name!r} could not be compiled to native "
+                f"expressions ({errors[key]})")
+        if note not in report:
+            raise AssertionError(f"explain lacks {note!r}: {report}")
+    log(f"order ranks: compile errors {errors} in explain; default conf "
+        f"host nodes {phys_by_conf['default'].host_fallback_nodes()}")
+    ranks = run("order ranks (vfa)", phys_by_conf["vfa"], "ranks")
+    calls = len(u) * filtered
+    if ranks["islands"].get("pyudf.rows") != calls:
+        raise AssertionError(f"island.pyudf.rows "
+                             f"{ranks['islands'].get('pyudf.rows')}, "
+                             f"expected {calls}")
+    log(f"order ranks: {calls} Python UDF calls a run ({filtered} rows x "
+        f"{len(u)} UDFs); K1 {ranks['launches']['radix_sort']}, K2 "
+        f"{ranks['launches']['seg_reduce']} launches")
+
+    # (c) the pandas execs, where pandas is installed.
+    if importlib.util.find_spec("pandas") is None:
+        log("pandas is absent on this machine: map_in_pandas, "
+            "apply_in_pandas, agg_in_pandas and cogroup were not run on "
+            "the card")
+        out["pandas"] = "absent"
+    else:
+        import pandas
+        log(f"pandas {pandas.__version__} is installed: the four pandas "
+            f"execs run at {UDF_PARTITIONS} partitions")
+        want.update(pandas_oracles(cols, U, E))
+        session = TpuSession(dict(UDF_ALL_DEVICE, **{
+            "spark.rapids.sql.shuffle.partitions": UDF_PARTITIONS}))
+        narrow = tuple((n, t) for n, t in S.ORDERS if n in (
+            "o_orderkey", "o_totalprice", "o_orderstatus", "o_orderpriority"))
+        orders = DataFrame(session, L.InMemoryScan(
+            narrow, E.table_partitions(
+                {n: cols["orders"][n] for n, _ in narrow}, narrow,
+                E.TABLE_PARTITIONS["orders"])))
+        flavors = {"pandas_map": U.pandas_map(L, orders),
+                   "pandas_apply": U.pandas_apply(L, orders),
+                   "pandas_agg": U.pandas_agg(L, orders),
+                   "pandas_cogroup": U.pandas_cogroup(
+                       L, orders, U.weights(session, L))}
+        checks["pandas_map"] = check_price_k
+        for q in ("pandas_apply", "pandas_agg", "pandas_cogroup"):
+            checks[q] = (lambda name: lambda rows, w: check_rows(
+                name, rows, w, multiset=True, exact=True))(q)
+        for q, df in flavors.items():
+            run(f"{q} ({UDF_PARTITIONS} partitions)", df._physical(), q,
+                warm=0)
+        out["pandas"] = "ran"
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 21 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4623,6 +4984,13 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex, rs)
         for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
 
+    # Phase 21: the UDF tier
+    ud = udf_phase(native, cols, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+        c["shape"] for ph in (more, ds, dq, ex, rs, st)
+        for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -4631,7 +4999,7 @@ def main() -> int:
         dq[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
-        rs["runs"]) + tuple(st["runs"])
+        rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -4679,7 +5047,8 @@ def main() -> int:
         + "; phase 18 " + ", ".join(str(r) for r in ooc["runs"])
         + f"; phase 18 recovery {ooc['recovery']}"
         + "; phase 19 " + ", ".join(str(r) for r in rs["runs"])
-        + "; phase 20 " + ", ".join(str(r) for r in st["runs"]))
+        + "; phase 20 " + ", ".join(str(r) for r in st["runs"])
+        + "; phase 21 " + ", ".join(str(r) for r in ud["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

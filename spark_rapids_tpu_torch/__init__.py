@@ -18,6 +18,8 @@ from typing import Union
 
 import torch
 
+from spark_rapids_tpu_torch.version import __version__  # noqa: F401
+
 DeviceLike = Union[str, torch.device, None]
 
 

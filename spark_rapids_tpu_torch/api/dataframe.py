@@ -11,6 +11,11 @@ whole plan on the host engine, the CPU oracle; ``DataFrame.explain``
 prints the will/will-not-run report. A query holding something the port
 has not ported is refused when it is planned (``NotImplementedError``).
 
+Python UDFs (``udf``, spark_rapids_tpu_torch.udf) are Columns like any
+other. ``map_in_pandas``, ``group_by(...).apply_in_pandas`` /
+``agg_in_pandas`` / ``cogroup(...).apply_in_pandas`` and ``to_pandas``
+need pandas, imported when they run (the port imports without it).
+
 ``TpuSession(device=None)`` runs on the CUDA card and raises when there is
 none; ``device="cpu"`` runs the plain-PyTorch path. ``read`` (file scans)
 is not ported.
@@ -134,6 +139,58 @@ class GroupedData:
     def count(self) -> "DataFrame":
         return self.agg(L.agg_count().alias("count"))
 
+    # -- pandas-UDF flavors (GpuFlatMapGroupsInPandasExec family) ---------
+    def _key_names(self) -> List[str]:
+        names = []
+        for hint, c in self._keys:
+            if c.node[0] != "ref":
+                raise ValueError(
+                    "pandas group flavors need plain column-name keys")
+            names.append(c.node[1])
+        return names
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """fn(group: pandas.DataFrame) -> pandas.DataFrame, one call per
+        group (Spark applyInPandas; GpuFlatMapGroupsInPandasExec)."""
+        plan = L.LogicalGroupedMapInPandas(
+            self._df._plan, self._key_names(), fn, tuple(schema))
+        return DataFrame(self._df._session, plan)
+
+    applyInPandas = apply_in_pandas
+
+    def agg_in_pandas(self, **named) -> "DataFrame":
+        """GROUPED_AGG pandas UDFs: each kwarg is
+        ``out_name=(input_column, series_fn, result_type)`` where
+        series_fn(pandas.Series) -> scalar (GpuAggregateInPandasExec)."""
+        aggs = [(out, colname, fn, t)
+                for out, (colname, fn, t) in named.items()]
+        plan = L.LogicalAggInPandas(self._df._plan, self._key_names(),
+                                    aggs)
+        return DataFrame(self._df._session, plan)
+
+    def cogroup(self, other: "GroupedData") -> "CoGroupedData":
+        return CoGroupedData(self, other)
+
+
+class CoGroupedData:
+    """Pair of grouped frames for cogrouped pandas application
+    (Spark's PandasCogroupedOps; GpuCoGroupedMapInPandasExec)."""
+
+    def __init__(self, left: GroupedData, right: GroupedData):
+        self._left = left
+        self._right = right
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """fn(left_group: pdf, right_group: pdf) -> pdf per key in the
+        union of both sides' key sets (absent side = empty frame)."""
+        plan = L.LogicalCoGroupedMapInPandas(
+            self._left._df._plan, self._right._df._plan,
+            self._left._key_names(), self._right._key_names(),
+            fn, tuple(schema))
+        return DataFrame(self._left._df._session, plan)
+
+    applyInPandas = apply_in_pandas
+
 
 class DataFrame:
     """A logical plan bound to a session. ``DataFrame(session,
@@ -210,6 +267,14 @@ class DataFrame:
         return self._project(projections)
 
     withColumn = with_column
+
+    def map_in_pandas(self, fn, schema) -> "DataFrame":
+        """fn(iterator of pandas DataFrames) -> iterator of DataFrames
+        (Spark mapInPandas; GpuMapInPandasExec analog)."""
+        plan = L.LogicalMapInPandas(self._plan, fn, tuple(schema))
+        return DataFrame(self._session, plan)
+
+    mapInPandas = map_in_pandas
 
     def group_by(self, *keys: Union[str, Column]) -> GroupedData:
         return GroupedData(self, keys)
@@ -307,6 +372,13 @@ class DataFrame:
 
     def count_rows(self) -> int:
         return len(self.collect())
+
+    def to_pandas(self):
+        """``collect``'s rows as a pandas DataFrame (pandas must be
+        installed)."""
+        import pandas as pd
+        rows = self.collect()
+        return pd.DataFrame(rows, columns=self.columns)
 
     def explain(self, mode: str = "ALL") -> str:
         report = self._physical().explain(mode)

@@ -255,6 +255,18 @@ JOIN_GRACE_MAX_PARTITIONS = _entry(
     "(graceJoinPartitions counts the buckets used).", "long", 64)
 
 
+CONCURRENT_PYTHON_WORKERS = _entry(
+    "spark.rapids.python.concurrentPythonWorkers",
+    "Max pandas-UDF group functions evaluated concurrently "
+    "(PythonWorkerSemaphore analog; 0 or 1 = serial).", "long", 4)
+
+UDF_COMPILER_ENABLED = _entry(
+    "spark.rapids.sql.udfCompiler.enabled",
+    "Registered as in the reference, which documents it as the switch "
+    "of the python-UDF compiler; nothing in either package reads it, "
+    "and ``udf`` compiles whatever it can.", "boolean", True)
+
+
 class TpuConf:
     """Resolved view over a raw key->value dict."""
 

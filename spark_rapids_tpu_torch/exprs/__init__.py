@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch.exprs.predicates import (
     And, AtLeastNNonNulls, EqualNullSafe, EqualTo, GreaterThan,
     GreaterThanOrEqual, InSet, IsNan, IsNotNull, IsNull, LessThan,
     LessThanOrEqual, Not, Or)
+from spark_rapids_tpu_torch.exprs.pyudf import PythonUDF
 from spark_rapids_tpu_torch.exprs.strings import (
     ConcatStrings, ConcatWs, Contains, EndsWith, InitCap, Length, Like,
     Lower, RegExpExtract, RegExpReplace, StartsWith, StringLocate,
@@ -50,7 +51,8 @@ __all__ = [
     "Log2", "Logarithm", "Lower", "Md5", "Minute",
     "MonotonicallyIncreasingID", "Month",
     "Multiply", "Murmur3Hash", "NaNvl", "NormalizeNaNAndZero", "Not",
-    "Nvl", "Or", "Pmod", "Pow", "Quarter", "Rand", "RegExpExtract",
+    "Nvl", "Or", "Pmod", "Pow", "PythonUDF", "Quarter", "Rand",
+    "RegExpExtract",
     "RegExpReplace", "Remainder", "Rint",
     "Round", "Scalar", "Second", "ShiftLeft", "ShiftRight",
     "ShiftRightUnsigned", "Signum", "Sin", "Sinh", "SparkPartitionID",

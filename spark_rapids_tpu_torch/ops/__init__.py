@@ -13,16 +13,22 @@ from spark_rapids_tpu_torch.ops.basic import (
 from spark_rapids_tpu_torch.ops.generate import GenerateExec
 from spark_rapids_tpu_torch.ops.join import (
     BroadcastHashJoinExec, BroadcastNestedLoopJoinExec, ShuffledHashJoinExec)
+from spark_rapids_tpu_torch.ops.pandas_exec import (
+    AggregateInPandasExec, CoGroupedMapInPandasExec,
+    FlatMapGroupsInPandasExec, MapInPandasExec)
 from spark_rapids_tpu_torch.ops.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.ops.window import WindowExec
 
 __all__ = [
-    "AggSpec", "Average", "BroadcastHashJoinExec",
-    "BroadcastNestedLoopJoinExec", "CoalescePartitionsExec",
+    "AggSpec", "AggregateInPandasExec", "Average", "BroadcastHashJoinExec",
+    "BroadcastNestedLoopJoinExec", "CoGroupedMapInPandasExec",
+    "CoalescePartitionsExec",
     "Count", "CountStar", "DeviceToHostExec", "Exec", "ExecContext",
-    "ExpandExec", "FilterExec", "First", "GenerateExec", "GlobalLimitExec",
+    "ExpandExec", "FilterExec", "First", "FlatMapGroupsInPandasExec",
+    "GenerateExec", "GlobalLimitExec",
     "HashAggregateExec", "HostToDeviceExec", "InMemorySourceExec", "Last",
-    "LocalLimitExec", "Max", "Min", "ProjectExec", "RangeExec",
+    "LocalLimitExec", "MapInPandasExec", "Max", "Min", "ProjectExec",
+    "RangeExec",
     "ShuffledHashJoinExec", "SortExec", "SortOrder", "Sum", "UnionExec",
     "WindowExec",
 ]

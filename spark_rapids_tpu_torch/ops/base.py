@@ -54,12 +54,16 @@ class Metrics:
         return f"Metrics({self.values})"
 
 
-def record_batch(m: Metrics, batch: DeviceBatch) -> None:
+def record_batch(m: Metrics, batch) -> None:
     """Count one output batch, and its rows where they are known on the
-    host (never forces a device sync)."""
+    host: a device batch's ``rows_hint``, a host batch's ``num_rows``
+    (never forces a device sync)."""
     m.add("numOutputBatches", 1)
-    if batch.rows_hint is not None:
-        m.add("numOutputRows", int(batch.rows_hint))
+    rows = getattr(batch, "rows_hint", None)
+    if rows is None and isinstance(batch, HostBatch):
+        rows = batch.num_rows
+    if rows is not None:
+        m.add("numOutputRows", int(rows))
 
 
 @dataclasses.dataclass

@@ -6,7 +6,8 @@ math, date-time and nondeterministic functions, ``least`` / ``greatest``,
 ``agg_first`` / ``agg_last``, ``LogicalRange`` and ``LogicalUnion``; and
 the string surface: the string functions, ``md5``, casts to and from
 strings, and ``explode`` / ``explode_outer`` / ``posexplode`` with
-``LogicalGenerate``).
+``LogicalGenerate``; and the UDF tier: the ``pyudf`` kind of
+``udf/compiler.py`` and the four pandas-UDF nodes).
 
 The DataFrame API (api/dataframe.py) builds this logical plan with
 unresolved, name-based expressions. ``resolve`` binds names to ordinals
@@ -19,8 +20,8 @@ expressions (``Column.over`` a ``Window`` spec) never resolve: the
 DataFrame layer extracts them into ``LogicalWindow`` nodes, as the
 reference does, and so are generate expressions (``explode(...)``: the
 DataFrame layer extracts them into ``LogicalGenerate`` nodes). The
-reference's other DSL functions and nodes (file scans, pandas, Python
-UDFs) come with the slices that port their operators.
+reference's other DSL functions and nodes (file scans, the plan cache's
+bind slots) come with the slices that port their operators.
 """
 
 from __future__ import annotations
@@ -710,7 +711,7 @@ PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
                           "like", "cast", "substr", "hash", "pmod", "round",
                           "bround", "least", "greatest",
                           "at_least_n_non_nulls", "trunc", "rand", "concat",
-                          "concat_ws", "locate"}
+                          "concat_ws", "locate", "pyudf"}
                          | set(_BINARY) | set(_UNARY) | set(_NEEDLE)
                          | set(_DATE_PART) | set(_UNARY_FNS)
                          | set(_BINARY_FNS) | set(_CONTEXT_FNS)
@@ -805,6 +806,12 @@ def resolve(c: Column, schema: Schema) -> Expression:
     if kind == "locate":
         return E.StringLocate(E.lit(node[2]), rec(node[1]),
                               E.lit(int(node[3])))
+    if kind == "pyudf":
+        from spark_rapids_tpu_torch.exprs.pyudf import PythonUDF
+        _, func, rt, arg_cols, reason = node
+        return PythonUDF(func, rt,
+                         [resolve(a, schema) for a in arg_cols],
+                         reason or "")
     if kind in GENERATE_KINDS:
         raise ResolutionError("explode is only valid in select/with_column")
     if kind == "sortorder":
@@ -1080,3 +1087,65 @@ class LogicalUnion(LogicalPlan):
     @_cached_schema
     def schema(self) -> Schema:
         return self.children[0].schema
+
+
+class LogicalMapInPandas(_Unary):
+    """mapInPandas (GpuMapInPandasExec analog)."""
+
+    def __init__(self, child, fn, out_schema: Schema):
+        super().__init__(child)
+        self.fn = fn
+        self.out_schema = tuple(out_schema)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+
+class LogicalGroupedMapInPandas(_Unary):
+    """groupBy().applyInPandas (GpuFlatMapGroupsInPandasExec analog)."""
+
+    def __init__(self, child, key_names: Sequence[str], fn,
+                 out_schema: Schema):
+        super().__init__(child)
+        self.key_names = list(key_names)
+        self.fn = fn
+        self.out_schema = tuple(out_schema)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+
+class LogicalCoGroupedMapInPandas(LogicalPlan):
+    """cogroup().applyInPandas (GpuCoGroupedMapInPandasExec analog)."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[str], right_keys: Sequence[str],
+                 fn, out_schema: Schema):
+        self.children = (left, right)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.fn = fn
+        self.out_schema = tuple(out_schema)
+
+    @property
+    def schema(self) -> Schema:
+        return self.out_schema
+
+
+class LogicalAggInPandas(_Unary):
+    """groupBy().agg of GROUPED_AGG pandas UDFs
+    (GpuAggregateInPandasExec analog). ``aggs`` entries are
+    (out_name, input_column_name, series_fn, result_type)."""
+
+    def __init__(self, child, key_names: Sequence[str], aggs):
+        super().__init__(child)
+        self.key_names = list(key_names)
+        self.aggs = list(aggs)
+
+    @_cached_schema
+    def schema(self) -> Schema:
+        key_types = dict(self.child.schema)
+        return tuple([(k, key_types[k]) for k in self.key_names]
+                     + [(n, t) for n, _, _, t in self.aggs])

@@ -38,6 +38,12 @@
   host engine.
 - ``explode`` / ``posexplode`` / ``explode_outer`` is a ``GenerateExec``
   (``ops/generate.py``) over its child, bridged to its engine.
+- A ``pyudf`` (a ``udf`` that did not compile) carries the reference's
+  note naming the compile error; it runs on its node's engine, the
+  device half a roundtrip through the host (``exprs/pyudf.py``). The
+  four pandas-UDF nodes convert to ``ops/pandas_exec.py``'s execs over
+  their bridged children; a grouped or cogrouped one on the device sits
+  over a hash exchange on its keys (``_pandas_group_exchange``).
 - ``range`` is a ``RangeExec`` source (batches of ``batchSizeRows``
   built on the card), ``union`` a ``UnionExec`` over its children, each
   bridged to the union's engine.
@@ -78,6 +84,9 @@ from spark_rapids_tpu_torch.ops import (
     ProjectExec, RangeExec, ShuffledHashJoinExec, SortExec, SortOrder, Sum,
     UnionExec, WindowExec)
 from spark_rapids_tpu_torch.ops import window as W
+from spark_rapids_tpu_torch.ops.pandas_exec import (
+    AggregateInPandasExec, CoGroupedMapInPandasExec,
+    FlatMapGroupsInPandasExec, MapInPandasExec)
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
 from spark_rapids_tpu_torch.parallel.partitioning import (
@@ -173,6 +182,12 @@ def tag_column(c: Column, conf: C.TpuConf, reasons: List[str],
                 "enable spark.rapids.sql.castStringToFloat.enabled")
     if kind in _HOST_ROUNDTRIP_EXPRS and notes is not None:
         notes.append(f"expression {kind} runs via a host roundtrip")
+    if kind == "pyudf" and notes is not None:
+        fname = getattr(c.node[1], "__name__", "udf")
+        notes.append(
+            f"python UDF {fname!r} could not be compiled to native "
+            f"expressions ({c.node[4]}); runs via host roundtrip "
+            "(GpuArrowEvalPythonExec-style fallback)")
     if kind not in L.PORTED_KINDS and kind not in L.WINDOW_KINDS and \
             kind not in L.GENERATE_KINDS and kind != "sortorder":
         _port_reason(reasons, port_reasons,
@@ -289,7 +304,9 @@ class NodeMeta:
 _NODES = (L.InMemoryScan, L.LogicalRange, L.LogicalFilter,
           L.LogicalProject, L.LogicalAggregate, L.LogicalSort,
           L.LogicalLimit, L.LogicalJoin, L.LogicalWindow,
-          L.LogicalRepartition, L.LogicalUnion, L.LogicalGenerate)
+          L.LogicalRepartition, L.LogicalUnion, L.LogicalGenerate,
+          L.LogicalMapInPandas, L.LogicalGroupedMapInPandas,
+          L.LogicalCoGroupedMapInPandas, L.LogicalAggInPandas)
 
 
 def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
@@ -620,6 +637,15 @@ class Planner:
         if isinstance(plan, L.LogicalUnion):
             return UnionExec(*[self._bridge(ch, cdev, want_dev)
                                for ch, cdev in kids]), want_dev
+        if isinstance(plan, L.LogicalCoGroupedMapInPandas):
+            lch, rch = (self._bridge(k, kdev, want_dev) for k, kdev in kids)
+            lch = self._pandas_group_exchange(
+                lch, plan.children[0].schema, plan.left_keys, want_dev)
+            rch = self._pandas_group_exchange(
+                rch, plan.children[1].schema, plan.right_keys, want_dev)
+            return CoGroupedMapInPandasExec(
+                lch, rch, plan.left_keys, plan.right_keys, plan.fn,
+                plan.out_schema), want_dev
         child = self._bridge(*kids[0], want_dev)
         if isinstance(plan, L.LogicalFilter):
             return FilterExec(child, resolve(plan.condition,
@@ -659,7 +685,36 @@ class Planner:
                 position=plan.position, outer=plan.outer,
                 element_name=plan.out_name,
                 skip_nulls=plan.outer), want_dev
+        if isinstance(plan, L.LogicalMapInPandas):
+            return MapInPandasExec(child, plan.fn, plan.out_schema), want_dev
+        if isinstance(plan, L.LogicalGroupedMapInPandas):
+            child = self._pandas_group_exchange(child, plan.child.schema,
+                                                plan.key_names, want_dev)
+            return FlatMapGroupsInPandasExec(
+                child, plan.key_names, plan.fn, plan.out_schema), want_dev
+        if isinstance(plan, L.LogicalAggInPandas):
+            child = self._pandas_group_exchange(child, plan.child.schema,
+                                                plan.key_names, want_dev)
+            return AggregateInPandasExec(child, plan.key_names,
+                                         plan.aggs), want_dev
         raise NotImplementedError(f"cannot convert {plan.name}")
+
+    def _pandas_group_exchange(self, child: Exec, schema, key_names,
+                               want_dev: bool) -> Exec:
+        """Co-partition a pandas-UDF child by its grouping keys so each
+        partition holds whole groups (requiredChildDistribution of the
+        grouped python execs). Host-engine children skip the exchange:
+        their host halves read every partition and emit from the first."""
+        if not want_dev:
+            return child
+        names = [n for n, _ in schema]
+        keys = []
+        for k in key_names:
+            if k not in names:
+                raise ResolutionError(f"unknown grouping key {k!r}")
+            i = names.index(k)
+            keys.append(BoundReference(i, schema[i][1]))
+        return self._hash_exchange(child, keys, self._shuffle_partitions())
 
     def _convert_window(self, plan: L.LogicalWindow, child: Exec,
                         want_dev: bool) -> Exec:

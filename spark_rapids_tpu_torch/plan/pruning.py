@@ -9,6 +9,10 @@ in-memory scan keeps its whole width, as in the reference.
 ``pushdown_filters`` copies filter conjuncts onto file scans, so it is a
 no-op here; it is kept so the pass order matches the reference's.
 
+The four pandas-UDF nodes pass through unpruned, as in the reference: a
+pandas function sees its child's whole frame, so nothing below one is
+pruned, and its size is unknown (``estimate_bytes`` gives None).
+
 ``estimate_bytes`` is the size estimate behind ``autoBroadcastJoinThreshold``:
 it picks every join's strategy, so it equals the reference's to the byte,
 except above a generate: the port counts K times its child (K output

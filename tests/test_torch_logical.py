@@ -196,6 +196,10 @@ ASTS = {
     "locate": lambda M: M.locate("a", M.col("s"), 2),
     "cast_to_string": lambda M: M.col("d").cast("string"),
     "cast_from_string": lambda M: M.col("s").cast("double"),
+    # A Python UDF that did not compile (``udf``'s fallback node).
+    "pyudf": lambda M: M.Column(("pyudf", max, M.dt.FLOAT64,
+                                 (M.col("f64"), M.col("i32")),
+                                 "call to 'max'")),
 }
 
 
