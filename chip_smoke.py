@@ -139,11 +139,12 @@ Phases (each raises on failure; any failure exits non-zero):
    ROLLUP ``ExpandExec`` with it; the windows and sorts on the card).
    For each run: host nodes and bridges (checked), rows and bytes
    downloaded, the first run (counters around it alone, every K1-K4
-   launch recorded) and warm runs (one for q67 under the default conf,
-   two for the rest), each checked against a numpy oracle in this file
-   (q67, ds_q3, ds_q42 and ds_q55 exactly, their sums being of whole
-   numbers; ds_q89's averages and ds_q98's ratios to rtol 1e-9), and the
-   peak device memory of the warm runs. K1 must launch in every run, K2
+   launch recorded) and one warm run (none for q67 under the default
+   conf; two, and one for q67 under it, until phase 22), each checked
+   against a numpy oracle in this file (q67, ds_q3, ds_q42 and ds_q55
+   exactly, their sums being of whole numbers; ds_q89's averages and
+   ds_q98's ratios to rtol 1e-9), and the peak device memory of the warm
+   run. K1 must launch in every run, K2
    in ds_q89 and ds_q98 (the window's valid-row counts). Each K1-K4 launch
    of a shape no earlier phase checked must equal the kernel's plain
    version bit for bit; the largest new K1 shape is timed against its
@@ -211,7 +212,8 @@ Phases (each raises on failure; any failure exits non-zero):
    a share of its in-core peak: a real ``torch.OutOfMemoryError`` inside
    a retry site must be recovered on the card by the ladder (the rungs
    printed), rows equal, the fraction restored. For each run: rows
-   checked, first and two warm walls beside the in-core run's, the peak
+   checked, first and one warm wall (two until phase 22) beside the
+   in-core run's, the peak
    device memory of the warm runs beside the in-core peak,
    ``outOfCoreBuckets``, ``graceJoinPartitions``, the catalog's spill
    and restore counts and LZ4 bytes, the ladder, and K1-K4 launches;
@@ -282,8 +284,9 @@ Phases (each raises on failure; any failure exits non-zero):
    rows downloaded, the rows and bytes through each host roundtrip, the
    first run (counters around it alone, every K1-K4 launch recorded),
    the torch ops of ``_greedy_matches`` and of MD5, one warm wall (two
-   until phase 21 needed the time) and the peak device memory of the
-   warm run. K1 must launch in every run,
+   until phase 21 needed the time; none for etl head since phase 22)
+   and the peak device memory of the warm run. K1 must launch in every
+   run,
    K2 in comment_groups; each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit. The
    phase's time is printed.
@@ -308,14 +311,49 @@ Phases (each raises on failure; any failure exits non-zero):
    and a cogroup at ``shuffle.partitions=8`` against numpy oracles;
    where it is not (the check comes before the phase runs them), one
    line says so. Each run's first run with every K1-K4 launch recorded
-   (new shapes against the plain versions), warm walls, peak device
+   (new shapes against the plain versions), one warm wall (two until
+   phase 22), peak device
    memory and host roundtrips are printed, and the phase's time.
+22. File I/O and plan-text ingest (runs after phase 21; pyarrow is
+   required, and its and pandas' versions are printed): (a) the SF1
+   tables q1, q3, q4 and q6 read (LINEITEM's ten columns in 8
+   partitions, ORDERS' five, CUSTOMER's two) written by
+   ``DataFrame.write.parquet`` from in-memory scans on the card (each
+   batch downloaded and written), with each table's ``last_stats`` and
+   write wall; (b) q1, q3, q4 and q6 through ``benchmarks/tpch.py``
+   ``qN(session, data_dir)``, the reference's text reading the parquet
+   files under ``variableFloatAgg``: exec tree and join strategies beside
+   phase 11's, a first run (launch counters around it alone, every K1-K4
+   launch recorded and each new shape held to its plain version bit for
+   bit; the scan's ``bufferTime``, ``decodeTime``, ``numOutputRows`` and
+   the pipeline's ``hostPrefetchMs``, ``consumerWaitMs``,
+   ``overlapRatio``) and a warm run whose ``scanCacheHits`` must be
+   above 0, each against phase 11's numpy oracles; K1 must launch in q1,
+   q3 and q4 and K3 in q4, and K4's launches are printed (q3's
+   ``o_shippriority`` ships as runs); (c) q6 under PERFILE,
+   MULTITHREADED and COALESCING and with the pipeline off (scan cache
+   off): the same rows; ``l_orderkey <=`` the first file's largest key
+   below the second file's smallest must skip at least 7 of LINEITEM's 8
+   row groups and count as numpy does; (d) ``input_file_name()`` over
+   LINEITEM: rows per path equal each file's parquet row count; (e) ORC
+   and CSV round trips of ORDERS' four q3 columns (200,000 rows in two
+   files) give the written rows, and a pushed predicate skips one ORC
+   stripe; (f) the captured Spark plans
+   ``tests/fixtures/spark_plans/q6.txt`` and ``q3.txt`` ingested against
+   the written files give the query text's rows; (g) with the scan cache
+   still full, q18 (in memory, one partition) under a capped allocator,
+   as phase 18's (e): a real OOM whose ladder must start with
+   ``drop-scan-cache`` (the spill catalog does not hold the cache), leave
+   no cache entry on the card and give the oracle's rows. The scan cache
+   is cleared and the directory deleted at the end; the phase's time is
+   printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
-   nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen and
-   phase 21's eight, four without pandas), its error against the
+   nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
+   phase 21's eight (four without pandas) and phase 22's sixteen), its
+   error against the
    plain version,
    its
    time, the plain version's, its bound, and one PyTorch call's time for
@@ -389,6 +427,12 @@ def turns_ms(fns: dict, iters: int, rounds: int = 5) -> dict:
         for k in (order if r % 2 == 0 else order[::-1]):
             times[k].append(cuda_ms(fns[k], iters))
     return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def bound_text(ms: float) -> str:
+    """A bound in ms: four decimals, or three significant digits below
+    0.001 ms (where four decimals would print 0.0000)."""
+    return f"{ms:.4f}" if ms >= 1e-3 else f"{ms:.3g}"
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -483,7 +527,8 @@ def kernel_phase(native) -> dict:
             log(f"K1 stable_argsort_u32 cap={cap} keys={kind}: bit-identical"
                 f" to plain and torch.sort, one C call; kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {lib_name} "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"{r['library_ms']:.4f} ms, bound "
+                f"{bound_text(r['bound_ms'])} ms "
                 f"({r['fn_bytes_per_row']:.0f} B/row), passes' bound "
                 f"{r['pass_bound_ms']:.4f} ms ({r['pass_bytes_per_row']:.0f} "
                 f"B/row)")
@@ -751,8 +796,8 @@ def probe_check(native, build, probe, label: str, profiled: bool = False,
     log(f"K3 searchsorted_u64_pair {label} build={cap_b} probe={cap_p} "
         f"({r['design']}): bit-identical to plain; kernel {r['ms']:.4f} ms, "
         f"two torch.searchsorted {r['library_ms']:.4f} ms (medians of 5 "
-        f"turns), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-        f"ms ({r['bound_by']}){note}")
+        f"turns), plain {r['plain_ms']:.4f} ms, bound "
+        f"{bound_text(r['bound_ms'])} ms ({r['bound_by']}){note}")
     return r
 
 
@@ -1170,7 +1215,8 @@ def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
     log(f"K2 seg_reduce {label} {kind}{r['key_bits']} n={n} "
         f"capacity={capacity}: bit-identical to plain over {repeats} "
         f"launch(es); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"scatter_reduce {lib_ms}, bound {r['bound_ms']:.4f} ms "
+        f"scatter_reduce {lib_ms}, bound {bound_text(r['bound_ms'])} "
+        f"ms "
         f"({r['bound_by']}){note}")
     return r
 
@@ -1319,7 +1365,7 @@ DF_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
     "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
     "radix_sort", "seg_reduce", "join_probe"), "q4": (
     "radix_sort", "join_probe")}
-DF_WARM_RUNS = 3
+DF_WARM_RUNS = 2
 
 
 def df_oracles(cols: dict, E, queries=DF_QUERIES) -> dict:
@@ -1368,9 +1414,10 @@ def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
             f"exec tree):")
         for line in phys.tree().splitlines():
             log(f"  {line}")
-        for line in phys.explain().splitlines():
-            if "join strategy" in line:
-                log(f"  note: {line.strip()}")
+        notes = [line.strip() for line in phys.explain().splitlines()
+                 if "join strategy" in line]
+        for line in notes:
+            log(f"  note: {line}")
         native.reset_counters()
         wire.reset_counters()
         seen = {}
@@ -1409,7 +1456,9 @@ def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
             f"rows): plan {plan_ms:.2f} ms, first run {first_s:.3f} s, warm "
             f"{[round(w, 4) for w in warm]} s; launches {launches}{note}")
         out[q] = dict(plan_ms=plan_ms, first_s=first_s, warm_s=warm,
-                      launches=launches, seen=first_run(seen, launches))
+                      launches=launches, seen=first_run(seen, launches),
+                      notes=notes, tree=phys.tree())
+    out["oracles"] = oracles
     out["kernel_checks"] = df_kernel_checks(
         native, {q: out[q]["seen"] for q in DF_QUERIES}, hand_seen)
     return out
@@ -2182,7 +2231,7 @@ DS_DEFAULT_HOST = {q: ["LogicalAggregate"] for q in DS_QUERIES}
 DS_MUST_LAUNCH = dict({q: ("radix_sort",) for q in DS_QUERIES},
                       ds_q89=("radix_sort", "seg_reduce"),
                       ds_q98=("radix_sort", "seg_reduce"))
-DS_WARM_RUNS = {("q67", "default"): 1}
+DS_WARM_RUNS = {("q67", "default"): 0}
 
 
 _SUITE_SF1: dict = {}
@@ -2227,7 +2276,8 @@ def k1_time(native, keys, perm, label: str) -> dict:
     r["device_ms"] = device_ms(fns["ms"], 5)
     log(f"{label} K1 {k1_shape(keys, perm)}: kernel {r['ms']:.4f} ms "
         f"(device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, "
-        f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+        f"library {r['library_ms']:.4f} ms, bound "
+        f"{bound_text(r['bound_ms'])} ms")
     return r
 
 
@@ -2284,18 +2334,21 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
             warm = []
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
-            for _ in range(DS_WARM_RUNS.get((q, conf_name), 2)):
+            for _ in range(DS_WARM_RUNS.get((q, conf_name), 1)):
                 t0 = time.perf_counter()
                 rows = phys.collect(ExecContext(phys.conf))
                 torch.cuda.synchronize()
                 warm.append(time.perf_counter() - t0)
                 check(rows, want)
-            peak = torch.cuda.max_memory_allocated()
-            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
-                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
-                f"warm {[round(w, 4) for w in warm]} s, peak device memory "
-                f"in the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f}"
-                f" GiB held before them); launches {r['launches']}")
+            peak = torch.cuda.max_memory_allocated() if warm else None
+            peak_text = (f"peak device memory in the warm run "
+                         f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+                         f"held before it)") if warm else \
+                "no warm run (cut for time)"
+            log(f"{label} matches the numpy oracle ({len(r['rows'])} rows):"
+                f" plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
+                f"warm {[round(w, 4) for w in warm]} s, {peak_text}; "
+                f"launches {r['launches']}")
             out[(q, conf_name)] = dict(
                 plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
                 launches=r["launches"], moved=r["moved"],
@@ -2943,7 +2996,7 @@ def exchange_phase(native, cols: dict, known_seen: list,
 # Phase 18: the memory tier and out-of-core execution
 # ---------------------------------------------------------------------------
 
-OOC_WARM_RUNS = 2
+OOC_WARM_RUNS = 1
 # (a): a device budget far below the sort's staged bytes (so at least four
 # range buckets) and a host tier below them too (so entries reach disk).
 SORT_BUDGET = 128 << 20
@@ -3282,7 +3335,7 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
     return out
 
 
-def real_oom(phys, check, want) -> dict:
+def real_oom(phys, check, want, label: str = "(e)") -> dict:
     """Measure the reserved memory (the caching allocator's, which its
     cap counts) of one uncapped run, then cap the allocator
     (``set_per_process_memory_fraction``) at what it reserves now plus a
@@ -3324,20 +3377,20 @@ def real_oom(phys, check, want) -> dict:
             torch.cuda.set_per_process_memory_fraction(1.0)
         launches = native.counters()
         check(rows, want)
-        c = check_teardown("(e) q18 under a memory cap", ctx)
+        c = check_teardown(f"{label} q18 under a memory cap", ctx)
         rec = c["recovery"]
-        log(f"(e) q18 (1 partition) capped at {limit / 2**30:.3f} GiB "
+        log(f"{label} q18 (1 partition) capped at {limit / 2**30:.3f} GiB "
             f"({share:.2f} of the {span / 2**30:.3f} GiB its uncapped run "
             f"reserved above {base / 2**30:.3f} GiB): {wall:.3f} s, rows "
             f"match; ladder {list(oom.last_ladder)}, recovery {rec}, "
             f"catalog {c['catalog']}")
         if rec.get("retriesAttempted", 0) > 0:
             if not oom.last_ladder:
-                raise AssertionError("(e) a retry with no rung")
+                raise AssertionError(f"{label} a retry with no rung")
             return dict(share=share, limit=limit, span=span, wall_s=wall,
                         ladder=list(oom.last_ladder), recovery=rec,
                         launches=launches)
-    raise AssertionError(f"(e) no share of {OOM_SHARES} raised an OOM")
+    raise AssertionError(f"{label} no share of {OOM_SHARES} raised an OOM")
 
 
 # ---------------------------------------------------------------------------
@@ -3478,7 +3531,7 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
         f"cap={cap} num_rows={nrows} ({staging}): bit-identical to plain; "
         f"kernel {r['ms']:.4f} ms, repeat_interleave {lib_ms} (medians of "
         f"5 turns), plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms (bytes){dev_note}")
+        f"{bound_text(r['bound_ms'])} ms (bytes){dev_note}")
     return r
 
 
@@ -3913,6 +3966,8 @@ def rowsource_phase(native, cols: dict, known_seen: list,
 
 ETL_HEAD_ROWS = 1 << 18
 STRING_WARM_RUNS = 1
+# Queries whose warm run was cut for time (etl head: 3-5 s a run).
+STRING_NO_WARM = ("etl",)
 # The logical nodes the default conf places on the host engine, by run:
 # orders_etl's case-map and float-format projection and its float-parse
 # projection, country_revenue's float sum. The all-device conf places
@@ -4416,19 +4471,20 @@ def string_phase(native, cols: dict, known_seen: list,
                         if c["kernel"] == "radix_sort")
         out["kernel_checks"] += r["checks"]
         islands = island_counts(r["ctx"])
+        runs = 0 if q in STRING_NO_WARM else STRING_WARM_RUNS
         if q in batches:
             walls, peak, held = _warm_batches(
-                phys, lambda hbs, _w: check(hbs, want.get(q)),
-                STRING_WARM_RUNS)
+                phys, lambda hbs, _w: check(hbs, want.get(q)), runs)
         else:
-            walls, peak, held = _warm(phys, check, want.get(q),
-                                      STRING_WARM_RUNS)
+            walls, peak, held = _warm(phys, check, want.get(q), runs)
+        peak_text = (f"peak device memory in the warm run "
+                     f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held "
+                     f"before it)") if walls else "no warm run (cut for time)"
         log(f"{label} matches the oracle: first run {r['first_s']:.3f} s, "
-            f"warm {[round(w, 4) for w in walls]} s, peak device memory in "
-            f"the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
-            f"held before them); launches {r['launches']}; host roundtrips "
-            f"{islands or 'none'}; torch ops of _greedy_matches / MD5 "
-            f"{ops or 'none'}")
+            f"warm {[round(w, 4) for w in walls]} s, {peak_text}; launches "
+            f"{r['launches']}; host roundtrips {islands or 'none'}; torch "
+            f"ops of _greedy_matches / MD5 {ops or 'none'}")
+        peak = peak if walls else None
         out[label] = dict(first_s=r["first_s"], warm_s=walls,
                           launches=r["launches"], moved=r["moved"],
                           hosted=r["hosted"], peak_bytes=peak,
@@ -4492,7 +4548,7 @@ def string_phase(native, cols: dict, known_seen: list,
 # Phase 21: the UDF tier (compiled UDFs, the Python-UDF fallback, pandas)
 # ---------------------------------------------------------------------------
 
-UDF_WARM_RUNS = 2
+UDF_WARM_RUNS = 1
 # The kernels each run of phase 21 must launch.
 UDF_MUST_LAUNCH = {"q1": ("radix_sort",), "q1_udf": ("radix_sort",),
                    "ranks": ("radix_sort", "seg_reduce"),
@@ -4798,6 +4854,315 @@ def udf_phase(native, cols: dict, known_seen: list, known_k1: set) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 22: file I/O (the writer, parquet / ORC / CSV scans, pushdown, the
+# scan cache, the partition pipeline, input_file_name, plan-text ingest)
+# ---------------------------------------------------------------------------
+
+FILE_QUERIES = ("q1", "q3", "q4", "q6")
+FILE_MUST_LAUNCH = {"q1": ("radix_sort",), "q3": ("radix_sort",),
+                    "q4": ("radix_sort", "join_probe"), "q6": ()}
+FILE_VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+READER_TYPES = ("PERFILE", "MULTITHREADED", "COALESCING")
+SMALL_ORDERS = 200_000
+_NO_SCAN_CACHE = {"spark.rapids.sql.format.scanCache.maxBytes": 0}
+
+
+def file_schemas(tpch, cols: dict) -> dict:
+    """table -> the schema phase 22 writes: every column q1, q3, q4 and
+    q6 read of it, in the generator's order."""
+    types = {}
+    for q in FILE_QUERIES:
+        for t, schema in tpch.SCANS[q].items():
+            types.setdefault(t, {}).update(schema)
+    return {t: tuple((n, have[n]) for n in cols[t] if n in have)
+            for t, have in types.items()}
+
+
+def scan_metrics(ctx) -> dict:
+    """The file scans' metrics of one query, summed over its scans."""
+    out = {}
+    for key, m in ctx.metrics.items():
+        if key.startswith("FileScanExec["):
+            for k, v in m.values.items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def pipeline_metrics(ctx) -> dict:
+    m = ctx.metrics.get("Pipeline@query")
+    return {} if m is None else {
+        k: (round(v, 4) if isinstance(v, float) else v)
+        for k, v in sorted(m.values.items())}
+
+
+def scan_text(sm: dict) -> str:
+    return (f"bufferTime {sm.get('bufferTime', 0) / 1e6:.2f} ms, decodeTime "
+            f"{sm.get('decodeTime', 0) / 1e6:.2f} ms, numOutputRows "
+            f"{int(sm.get('numOutputRows', 0))}, numOutputBatches "
+            f"{int(sm.get('numOutputBatches', 0))}, numSkippedRowGroups "
+            f"{int(sm.get('numSkippedRowGroups', 0))}, scanCacheHits "
+            f"{int(sm.get('scanCacheHits', 0))}")
+
+
+def _files(path: str, suffix: str) -> list:
+    return sorted(os.path.join(path, f) for f in os.listdir(path)
+                  if f.endswith(suffix))
+
+
+def file_phase(native, cols: dict, df_out: dict, known_seen: list,
+               known_k1: set) -> dict:
+    """(a) the SF1 tables q1, q3, q4 and q6 read, written to parquet by
+    ``DataFrame.write.parquet`` from in-memory scans on the card; (b)
+    q1, q3, q4 and q6 through ``benchmarks/tpch.py`` ``qN(session,
+    data_dir)``, the reference's text reading the files: a first run
+    (every K1-K4 launch recorded, new shapes against the plain versions,
+    the scan's and the pipeline's counters) and a warm run that must hit
+    the scan cache, each against phase 11's oracles; (c) q6 under each
+    reader type and with the pipeline off, and a pushed predicate that
+    must skip 7 of LINEITEM's 8 row groups; (d) input_file_name() over
+    LINEITEM; (e) an ORC and a CSV round trip of ORDERS' four columns,
+    with one ORC stripe skipped; (f) the captured Spark plans of q6 and
+    q3 ingested against the written files; (g) q18 under a capped
+    allocator with the scan cache full: the OOM ladder must drop the
+    cache first. pyarrow is required."""
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import DataFrame, TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import wire
+    from spark_rapids_tpu_torch.io.scan import DEVICE_SCAN_CACHE
+    from spark_rapids_tpu_torch.memory import oom
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    try:
+        import pyarrow
+        import pyarrow.parquet as papq
+    except ImportError as e:
+        raise AssertionError(f"phase 22 needs pyarrow: {e}")
+    try:
+        import pandas
+        pandas_version = pandas.__version__
+    except ImportError:
+        pandas_version = "absent"
+    log(f"phase 22: pyarrow {pyarrow.__version__}, pandas {pandas_version}")
+    known_seen = list(known_seen)
+    known_k1 = set(known_k1)
+    oracles = df_out["oracles"]
+    out = {"kernel_checks": [], "runs": []}
+    root = tempfile.mkdtemp(prefix="srt_phase22_")
+
+    def run(label, phys, check, want, must=()):
+        wire.reset_counters()
+        r = run_checked(native, label, phys, check, want, [], must,
+                        known_seen, known_k1)
+        known_seen.append(r["seen"])
+        known_k1.update(c["shape"] for c in r["checks"]
+                        if c["kernel"] == "radix_sort")
+        out["kernel_checks"] += r["checks"]
+        out["runs"].append(r["launches"])
+        r["codec"] = wire.counters()
+        r["scan"] = scan_metrics(r["ctx"])
+        return r
+
+    try:
+        # (a) write the tables from in-memory scans on the card.
+        session = TpuSession(FILE_VFA)
+        schemas = file_schemas(tpch, cols)
+        data_dir = os.path.join(root, "tpch")
+        out["write"] = {}
+        for t, schema in schemas.items():
+            df = DataFrame(session, L.InMemoryScan(schema, E.table_partitions(
+                cols[t], schema, E.TABLE_PARTITIONS[t])))
+            writer = df.write
+            t0 = time.perf_counter()
+            stats = writer.parquet(os.path.join(data_dir, t))
+            wall = time.perf_counter() - t0
+            groups = [papq.ParquetFile(p).metadata.num_row_groups
+                      for p in tpch._paths(data_dir, t)]
+            log(f"phase 22 write {t} ({len(schema)} columns): last_stats "
+                f"{stats}; {wall:.3f} s; row groups a file {groups}")
+            if stats["numOutputRows"] != len(cols[t][schema[0][0]]):
+                raise AssertionError(f"{t}: wrote {stats} rows")
+            out["write"][t] = dict(stats=stats, wall_s=wall)
+
+        # (b) q1, q3, q4 and q6 from the files.
+        for q in FILE_QUERIES:
+            check, want = oracles[q]
+            t0 = time.perf_counter()
+            phys = tpch.QUERIES[q](session, data_dir)._physical()
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            log(f"{q} from parquet: plan ({plan_ms:.2f} ms host):")
+            for line in phys.tree().splitlines():
+                log(f"  {line}")
+            notes = [line.strip() for line in phys.explain().splitlines()
+                     if "join strategy" in line]
+            log(f"  join strategies over the files: {notes or 'none'}; "
+                f"phase 11 in memory: {df_out[q]['notes'] or 'none'}")
+            r = run(f"{q} from parquet", phys, check, want,
+                    FILE_MUST_LAUNCH[q])
+            rle_cols = int(r["codec"].get("codecCols.rle", 0))
+            log(f"{q} from parquet matches the oracle ({len(r['rows'])} "
+                f"rows): first run {r['first_s']:.3f} s (phase 11 in "
+                f"memory {df_out[q]['first_s']:.3f} s); launches "
+                f"{r['launches']}; K4 {r['launches']['rle_decode']} "
+                f"launch(es), {rle_cols} column(s) shipped as runs; scan "
+                f"{scan_text(r['scan'])}; pipeline "
+                f"{pipeline_metrics(r['ctx'])}")
+            if q == "q3" and not r["launches"]["rle_decode"]:
+                shipped = {k: v for k, v in r["codec"].items()
+                           if k.startswith("codecCols.")}
+                log(f"q3 from parquet launched no K4: codec columns "
+                    f"{shipped}")
+            ctx = ExecContext(phys.conf)
+            t0 = time.perf_counter()
+            rows = phys.collect(ctx)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            check(rows, want)
+            sm = scan_metrics(ctx)
+            if not sm.get("scanCacheHits", 0):
+                raise AssertionError(f"{q}: the warm run hit no scan cache "
+                                     f"entry: {sm}")
+            log(f"{q} from parquet warm run {warm_s:.4f} s (phase 11 in "
+                f"memory warm {[round(w, 4) for w in df_out[q]['warm_s']]}"
+                f" s); scan {scan_text(sm)}")
+            out[q] = dict(first_s=r["first_s"], warm_s=warm_s,
+                          launches=r["launches"], rows=r["rows"],
+                          scan=r["scan"], pipeline=pipeline_metrics(
+                              r["ctx"]), cache_hits=sm["scanCacheHits"])
+
+        # (c) q6 under each reader type and with the pipeline off (the
+        # scan cache off, so each reader reads), then a pushed predicate.
+        check, want = oracles["q6"]
+        for label, conf in [(rt, {
+                "spark.rapids.sql.format.parquet.reader.type": rt})
+                for rt in READER_TYPES] + [("pipeline off", {
+                    "spark.rapids.sql.pipeline.enabled": False})]:
+            s = TpuSession(dict(FILE_VFA, **_NO_SCAN_CACHE, **conf))
+            r = run(f"q6 from parquet ({label})",
+                    tpch.q6(s, data_dir)._physical(), check, want)
+            same = "bit for bit" if r["rows"] == out["q6"]["rows"] else \
+                "within rtol 1e-9"
+            if not rows_close(r["rows"], out["q6"]["rows"]):
+                raise AssertionError(f"q6 ({label}) rows differ: "
+                                     f"{r['rows']} vs {out['q6']['rows']}")
+            log(f"q6 ({label}): rows equal (b)'s {same}; {r['first_s']:.3f}"
+                f" s; scan {scan_text(r['scan'])}; pipeline "
+                f"{pipeline_metrics(r['ctx']) or 'none (serial)'}")
+        keys = cols["lineitem"]["l_orderkey"]
+        per = -(-len(keys) // E.TABLE_PARTITIONS["lineitem"])
+        first = keys[:per]
+        bound = int(first[first < keys[per]].max())
+        li_paths = tpch._paths(data_dir, "lineitem")
+        pushed = session.read.parquet(*li_paths).filter(
+            L.col("l_orderkey") <= L.lit_col(bound)).agg(
+            L.agg_count().alias("n"))
+        phys = pushed._physical()
+        count_want = [(int((keys <= bound).sum()),)]
+        r = run("pushdown over LINEITEM", phys,
+                lambda rows, w: check_rows("pushdown", rows, w), count_want)
+        skipped = int(r["scan"].get("numSkippedRowGroups", 0))
+        log(f"pushdown l_orderkey <= {bound} (the first file's largest key "
+            f"below the second's smallest): {r['rows'][0][0]} rows as the "
+            f"oracle; {skipped} of {len(li_paths)} row groups skipped; "
+            f"scan {scan_text(r['scan'])}")
+        if skipped < 7:
+            raise AssertionError(f"pushdown skipped {skipped} row groups")
+        out["skipped"] = skipped
+
+        # (d) input_file_name() over LINEITEM: rows per path.
+        per_file = session.read.parquet(*li_paths).select(
+            L.input_file_name().alias("file"), L.col("l_orderkey")) \
+            .group_by("file").agg(L.agg_count().alias("n"))
+        file_want = sorted((p, papq.ParquetFile(p).metadata.num_rows)
+                           for p in li_paths)
+        r = run("input_file_name over LINEITEM", per_file._physical(),
+                lambda rows, w: check_rows("input_file_name", sorted(rows),
+                                           w), file_want)
+        log(f"input_file_name: rows per path equal each file's parquet row "
+            f"count ({[n for _, n in file_want]}); {r['first_s']:.3f} s")
+
+        # (e) ORC and CSV round trips of ORDERS' four columns.
+        o = cols["orders"]
+        four = E.Q3_ORDERS
+        sub = {n: o[n][:SMALL_ORDERS] for n, _ in four}
+        small = DataFrame(session, L.InMemoryScan(four, E.table_partitions(
+            sub, four, 2)))
+        rows_want = [tuple(int(v) for v in row)
+                     for row in zip(*(sub[n] for n, _ in four))]
+        for fmt in ("orc", "csv"):
+            path = os.path.join(root, f"orders_{fmt}")
+            stats = getattr(small.write, fmt)(path)
+            paths = _files(path, "." + fmt)
+            reader = getattr(session.read, fmt)
+            r = run(f"{fmt} round trip", reader(*paths)._physical(),
+                    lambda rows, w: check_rows(
+                        "round trip", [tuple(int(v) for v in row)
+                                       for row in rows], w), rows_want)
+            log(f"{fmt} round trip of {SMALL_ORDERS} orders, four columns: "
+                f"last_stats {stats}; rows equal; read {r['first_s']:.3f} s")
+            if fmt == "orc":
+                last = int(sub["o_orderkey"][-(-SMALL_ORDERS // 2) - 1])
+                r = run("orc pushdown", reader(*paths).filter(
+                    L.col("o_orderkey") <= L.lit_col(last)).agg(
+                    L.agg_count().alias("n"))._physical(),
+                    lambda rows, w: check_rows("orc pushdown", rows, w),
+                    [(int((sub["o_orderkey"] <= last).sum()),)])
+                skipped = int(r["scan"].get("numSkippedRowGroups", 0))
+                log(f"orc pushdown o_orderkey <= {last}: {skipped} stripe(s) "
+                    f"of {len(paths)} skipped")
+                if skipped != 1:
+                    raise AssertionError(f"orc pushdown skipped {skipped}")
+
+        # (f) plan-text ingest against the written files.
+        tables = {t: tpch._paths(data_dir, t)
+                  for t in ("lineitem", "orders", "customer")}
+        fixtures = os.path.join(HERE, "tests", "fixtures", "spark_plans")
+        for q in ("q6", "q3"):
+            with open(os.path.join(fixtures, f"{q}.txt")) as f:
+                text = f.read()
+            df = session.ingest_spark_plan(text, tables)
+            check, want = oracles[q]
+            r = run(f"ingested {q}", df._physical(), check, want)
+            if not rows_close(r["rows"], out[q]["rows"]):
+                raise AssertionError(f"ingested {q} differs from the query "
+                                     f"text's rows")
+            same = "bit for bit" if r["rows"] == out[q]["rows"] else \
+                "within rtol 1e-9"
+            log(f"ingested {q}: rows equal the query text's ({same}); "
+                f"{r['first_s']:.3f} s; launches {r['launches']}")
+
+        # (g) a real OOM with the scan cache full: the ladder's first rung
+        # drops it, as the spill catalog does not hold it.
+        cached = DEVICE_SCAN_CACHE.nbytes
+        if not cached:
+            raise AssertionError("(g) the scan cache holds nothing")
+        s18 = TpuSession(dict(FILE_VFA, **{
+            "spark.rapids.sql.shuffle.partitions": 1}))
+        q18 = tpch.QUERIES["q18"](s18, tpch.tpch_tables(
+            s18, cols, ("q18",))["q18"])._physical()
+        g = real_oom(q18, lambda rows, w: check_rows("q18", rows, w),
+                     q18_oracle(cols, E), "(g)")
+        if g["ladder"][0] != oom.RUNG_DROP_SCAN_CACHE or \
+                DEVICE_SCAN_CACHE.nbytes:
+            raise AssertionError(f"(g) ladder {g['ladder']}; the scan cache "
+                                 f"holds {DEVICE_SCAN_CACHE.nbytes} B")
+        log(f"(g) q18 with {cached} B in the scan cache: a real OOM under "
+            f"the cap, ladder {g['ladder']}, the cache emptied, rows match")
+        out["oom"] = dict(g, cached_bytes=cached)
+        out["runs"].append(g["launches"])
+    finally:
+        DEVICE_SCAN_CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the wire codec, v2 against plain
 # ---------------------------------------------------------------------------
 
@@ -4991,6 +5356,13 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex, rs, st)
         for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
 
+    # Phase 22: file I/O and plan-text ingest
+    fi = file_phase(native, cols, df, joins["seen"] + [q2["seen"]] + [
+        df[q]["seen"] for q in DF_QUERIES] + [
+        mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+        c["shape"] for ph in (more, ds, dq, ex, rs, st, ud)
+        for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -4999,7 +5371,8 @@ def main() -> int:
         dq[(q, c)]["launches"] for c in ("vfa", "default")
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
-        rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"])
+        rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
+        fi["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -5048,7 +5421,8 @@ def main() -> int:
         + f"; phase 18 recovery {ooc['recovery']}"
         + "; phase 19 " + ", ".join(str(r) for r in rs["runs"])
         + "; phase 20 " + ", ".join(str(r) for r in st["runs"])
-        + "; phase 21 " + ", ".join(str(r) for r in ud["runs"]))
+        + "; phase 21 " + ", ".join(str(r) for r in ud["runs"])
+        + "; phase 22 " + ", ".join(str(r) for r in fi["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -16,9 +16,14 @@ other. ``map_in_pandas``, ``group_by(...).apply_in_pandas`` /
 ``agg_in_pandas`` / ``cogroup(...).apply_in_pandas`` and ``to_pandas``
 need pandas, imported when they run (the port imports without it).
 
+``TpuSession.read`` (``DataFrameReader``: ``option``, ``parquet``, ``orc``,
+``csv``) scans files (``io/scan.py``) and ``DataFrame.write``
+(``io/writer.py`` ``DataFrameWriter``) writes them; pyarrow is imported
+when they run. ``TpuSession.ingest_spark_plan`` runs a captured Spark
+physical plan's text against local files (``plan/spark_ingest.py``).
+
 ``TpuSession(device=None)`` runs on the CUDA card and raises when there is
-none; ``device="cpu"`` runs the plain-PyTorch path. ``read`` (file scans)
-is not ported.
+none; ``device="cpu"`` runs the plain-PyTorch path.
 """
 
 from __future__ import annotations
@@ -85,6 +90,51 @@ class TpuSession:
             start, end = 0, start
         return DataFrame(self, L.LogicalRange(start, end, step,
                                               num_partitions))
+
+    def ingest_spark_plan(self, plan_text: str, table_paths):
+        """Plugin mode: parse a captured Spark physical plan (the text of
+        ``df.explain()`` on a cluster) and run it here. ``table_paths``
+        maps table names (matched against the captured scan locations)
+        to local data paths. See plan/spark_ingest.py."""
+        from spark_rapids_tpu_torch.plan.spark_ingest import \
+            ingest_spark_plan
+        return ingest_spark_plan(plan_text, self, table_paths)
+
+    @property
+    def read(self) -> "DataFrameReader":
+        return DataFrameReader(self)
+
+
+class DataFrameReader:
+    """``session.read``: file scans with reader options (CSV ``sep`` /
+    ``header``). The schema comes from the first file's footer or
+    header."""
+
+    def __init__(self, session: TpuSession):
+        self._session = session
+        self._options: Dict = {}
+
+    def option(self, key: str, value) -> "DataFrameReader":
+        self._options[key] = value
+        return self
+
+    def _scan(self, fmt: str, paths) -> "DataFrame":
+        from spark_rapids_tpu_torch.io.scan import infer_schema
+        if isinstance(paths, str):
+            paths = [paths]
+        schema = infer_schema(fmt, paths, self._options)
+        return DataFrame(self._session,
+                         L.FileScan(fmt, list(paths), schema,
+                                    dict(self._options)))
+
+    def parquet(self, *paths) -> "DataFrame":
+        return self._scan("parquet", list(paths))
+
+    def csv(self, *paths) -> "DataFrame":
+        return self._scan("csv", list(paths))
+
+    def orc(self, *paths) -> "DataFrame":
+        return self._scan("orc", list(paths))
 
 
 def _numpy_partitions(data: Dict[str, np.ndarray], schema,
@@ -365,10 +415,7 @@ class DataFrame:
         """Run entirely on the host engine (the CPU oracle): the plan
         re-planned with ``spark.rapids.sql.enabled`` false, so every node
         is on the host and there is no bridge."""
-        host_conf = C.TpuConf(dict(self._session.conf.raw))
-        host_conf.set("spark.rapids.sql.enabled", False)
-        return Planner(host_conf, self._session.device).plan(
-            self._plan).collect()
+        return self._host_physical().collect()
 
     def count_rows(self) -> int:
         return len(self.collect())
@@ -379,6 +426,19 @@ class DataFrame:
         import pandas as pd
         rows = self.collect()
         return pd.DataFrame(rows, columns=self.columns)
+
+    @property
+    def write(self):
+        """A ``DataFrameWriter`` (io/writer.py) over this DataFrame."""
+        from spark_rapids_tpu_torch.io.writer import DataFrameWriter
+        return DataFrameWriter(self)
+
+    def _host_physical(self):
+        """The plan with ``spark.rapids.sql.enabled`` false: every node on
+        the host engine (what a write whose gate is off runs)."""
+        host_conf = C.TpuConf(dict(self._session.conf.raw))
+        host_conf.set("spark.rapids.sql.enabled", False)
+        return Planner(host_conf, self._session.device).plan(self._plan)
 
     def explain(self, mode: str = "ALL") -> str:
         report = self._physical().explain(mode)

@@ -3,18 +3,20 @@ package's ``benchmarks/tpch.py`` query bodies).
 
 The query bodies ``q1`` to ``q22`` are the reference's, line for line
 (q11, q15 and q22 take their scalar subqueries as cross joins, q20 casts
-``ps_availqty`` to double, q22 slices ``c_phone`` with ``substr``). Only
-``_read`` differs: the reference reads parquet (through pyarrow, which
-the port does not use); here a query reads its tables from a ``tables``
-dict of DataFrames. ``tpch_tables`` builds
-those from ``entry.tpch_columns`` (the reference generator's rows, draw
-for draw) as in-memory scans, one per table a query reads, holding exactly
-the columns the query reads (the columns the reference's scan pruning
-keeps), in ``entry.TABLE_PARTITIONS`` partitions.
+``ps_availqty`` to double, q22 slices ``c_phone`` with ``substr``). Their
+second argument is the reference's ``data_dir``: a directory of the
+reference generator's parquet tables (one subdirectory a table), which
+``_read`` scans with ``session.read.parquet(*_paths(data_dir, table))``
+as the reference does, or a ``tables`` dict of DataFrames. ``tpch_tables``
+builds those from ``entry.tpch_columns`` (the reference generator's rows,
+draw for draw) as in-memory scans, one per table a query reads, holding
+exactly the columns the query reads (the columns the reference's scan
+pruning keeps), in ``entry.TABLE_PARTITIONS`` partitions.
 
     session = TpuSession()
+    rows = q1(session, "/data/tpch").collect()           # parquet files
     tables = tpch_tables(session, entry.tpch_columns(1.0))
-    rows = q1(session, tables["q1"]).collect()
+    rows = q1(session, tables["q1"]).collect()           # in memory
 
 Under the default conf (``variableFloatAgg.enabled=false``) every float
 Sum/Avg aggregate (in q1, q3, q5-q11, q14, q15, q17-q19 and q22) is
@@ -26,6 +28,9 @@ reference's bench sets it, the whole query stays on the card.
 """
 
 from __future__ import annotations
+
+import os
+from typing import List
 
 from spark_rapids_tpu_torch import entry as E
 from spark_rapids_tpu_torch.api.dataframe import DataFrame
@@ -88,7 +93,18 @@ def tpch_tables(session, cols: dict, queries=None) -> dict:
         for t, schema in SCANS[q].items()} for q in (queries or SCANS)}
 
 
-def _read(session, tables: dict, table: str):
+def _paths(data_dir: str, table: str) -> List[str]:
+    """The parquet files of ``table`` under ``data_dir``, sorted."""
+    d = os.path.join(data_dir, table)
+    return sorted(os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".parquet"))
+
+
+def _read(session, tables, table: str):
+    """``table`` of a data directory (a ``str``: its parquet files) or of
+    a dict of DataFrames."""
+    if isinstance(tables, str):
+        return session.read.parquet(*_paths(tables, table))
     return tables[table]
 
 

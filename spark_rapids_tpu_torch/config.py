@@ -255,6 +255,104 @@ JOIN_GRACE_MAX_PARTITIONS = _entry(
     "(graceJoinPartitions counts the buckets used).", "long", 64)
 
 
+# -- file I/O (io/scan.py, io/writer.py) and the partition pipeline ----------
+
+MAX_READER_BATCH_SIZE_ROWS = _entry(
+    "spark.rapids.sql.reader.batchSizeRows",
+    "Soft cap on rows per batch produced by file readers.", "long", 1 << 20)
+
+MAX_READER_BATCH_SIZE_BYTES = _entry(
+    "spark.rapids.sql.reader.batchSizeBytes",
+    "Soft cap on bytes per batch produced by file readers. Registered as "
+    "in the reference, where no reader reads it either.", "long",
+    512 * 1024 * 1024)
+
+PARQUET_READER_TYPE = _entry(
+    "spark.rapids.sql.format.parquet.reader.type",
+    "Parquet reader strategy: PERFILE, COALESCING, MULTITHREADED, or AUTO "
+    "(= MULTITHREADED; ref: GpuParquetScan.scala reader selection).",
+    "string", "AUTO")
+
+PARQUET_MULTITHREADED_READ_NUM_THREADS = _entry(
+    "spark.rapids.sql.format.parquet.multiThreadedRead.numThreads",
+    "Host threads used to read scan units in parallel (the MULTITHREADED "
+    "reader of every format).", "long", 20)
+
+ENABLE_PARQUET = _entry(
+    "spark.rapids.sql.format.parquet.enabled",
+    "Enable parquet scan/write on the device path.", "boolean", True)
+
+ENABLE_CSV = _entry(
+    "spark.rapids.sql.format.csv.enabled",
+    "Enable CSV scan on the device path.", "boolean", True)
+
+ENABLE_ORC = _entry(
+    "spark.rapids.sql.format.orc.enabled",
+    "Enable ORC scan/write on the device path.", "boolean", True)
+
+ENABLE_PARQUET_READ = _entry(
+    "spark.rapids.sql.format.parquet.read.enabled",
+    "Enable parquet reads on the device path (the scan runs on the host "
+    "engine when off; finer grain than format.parquet.enabled).",
+    "boolean", True)
+
+ENABLE_PARQUET_WRITE = _entry(
+    "spark.rapids.sql.format.parquet.write.enabled",
+    "Enable the device plan feeding parquet writes (off = the write job "
+    "runs through the host engine).", "boolean", True)
+
+ENABLE_ORC_READ = _entry(
+    "spark.rapids.sql.format.orc.read.enabled",
+    "Enable ORC reads on the device path.", "boolean", True)
+
+ENABLE_ORC_WRITE = _entry(
+    "spark.rapids.sql.format.orc.write.enabled",
+    "Enable the device plan feeding ORC writes.", "boolean", True)
+
+ENABLE_CSV_READ = _entry(
+    "spark.rapids.sql.format.csv.read.enabled",
+    "Enable CSV reads on the device path.", "boolean", True)
+
+ORC_READER_TYPE = _entry(
+    "spark.rapids.sql.format.orc.reader.type",
+    "ORC reader strategy: PERFILE, COALESCING, MULTITHREADED, or AUTO "
+    "(GpuOrcScan multi-file reader selection analog).", "string", "AUTO")
+
+CSV_READER_TYPE = _entry(
+    "spark.rapids.sql.format.csv.reader.type",
+    "CSV reader strategy: PERFILE, COALESCING, MULTITHREADED, or AUTO.",
+    "string", "AUTO")
+
+SCAN_CACHE_BYTES = _entry(
+    "spark.rapids.sql.format.scanCache.maxBytes",
+    "Device budget for the transparent scan-unit cache: decoded batches "
+    "of recently scanned parquet/orc/csv units stay on the device they "
+    "were uploaded to and are served without re-decoding or re-crossing "
+    "the host->device link. 0 disables.", "long",
+    4 * 1024 * 1024 * 1024)
+
+PIPELINE_ENABLED = _entry(
+    "spark.rapids.sql.pipeline.enabled",
+    "Pipelined partition execution (parallel/pipeline.py): a host thread "
+    "pool runs the separable host half of each partition (scan-unit "
+    "decode, filter-stat pruning, wire encode and pack) "
+    "prefetchPartitions ahead while the consumer does every upload and "
+    "launch in strict partition order. Off (or SRT_PIPELINE=0) restores "
+    "the serial per-partition dispatch exactly.", "boolean", True)
+
+PIPELINE_PREFETCH_PARTITIONS = _entry(
+    "spark.rapids.sql.pipeline.prefetchPartitions",
+    "How many partitions ahead of the ordered consumer the host half may "
+    "run. 1 keeps exactly one partition in flight beyond the one being "
+    "consumed; larger values smooth uneven partition decode times at the "
+    "cost of host memory for the buffered encodes.", "long", 2)
+
+PIPELINE_HOST_THREADS = _entry(
+    "spark.rapids.sql.pipeline.hostThreads",
+    "Host threads shared by the pipeline's partition prefetchers (decode "
+    "+ wire encode are pure CPU work).", "long", 4)
+
+
 CONCURRENT_PYTHON_WORKERS = _entry(
     "spark.rapids.python.concurrentPythonWorkers",
     "Max pandas-UDF group functions evaluated concurrently "

@@ -11,6 +11,9 @@ dispatch sites: each operator's per-batch device step runs through
 Recovery is a bounded escalation ladder; the step is retried after every
 rung that changed something:
 
+0. ``drop-scan-cache``: drop the file scan's decoded units on the card
+   (``io/scan.py`` ``DEVICE_SCAN_CACHE``), which the catalog does not
+   hold: a later scan reads them from the files again;
 1. ``spill-some``: spill the lowest-priority catalog buffers until about
    half the registered device bytes are freed;
 2. ``spill-all``: spill every spillable device buffer;
@@ -103,6 +106,7 @@ _MIN_TARGET_ROWS = 1 << 12
 _degrade_lock = threading.Lock()
 _degrade_factor = 1
 
+RUNG_DROP_SCAN_CACHE = "drop-scan-cache"
 RUNG_SPILL_SOME = "spill-some"
 RUNG_SPILL_ALL = "spill-all"
 RUNG_SHRINK = "shrink"
@@ -144,8 +148,8 @@ def reset_degradation() -> None:
 # -- the ladder -----------------------------------------------------------------
 
 def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
-    """Run ``fn``; on a device OOM walk the spill-some -> spill-all ->
-    shrink ladder, retrying after each rung that changed something.
+    """Run ``fn``; on a device OOM walk the drop-scan-cache -> spill-some
+    -> spill-all -> shrink ladder, retrying after each rung that changed something.
     Anything else propagates; a ladder that changed nothing re-raises the
     original error."""
     try:
@@ -160,8 +164,12 @@ def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
     catalog = get_active_catalog()
     rungs: List[str] = []
     last: BaseException = first
-    for rung in (RUNG_SPILL_SOME, RUNG_SPILL_ALL, RUNG_SHRINK):
-        if rung == RUNG_SPILL_SOME:
+    for rung in (RUNG_DROP_SCAN_CACHE, RUNG_SPILL_SOME, RUNG_SPILL_ALL,
+                 RUNG_SHRINK):
+        if rung == RUNG_DROP_SCAN_CACHE:
+            from spark_rapids_tpu_torch.io.scan import DEVICE_SCAN_CACHE
+            acted = DEVICE_SCAN_CACHE.drop_device_entries() > 0
+        elif rung == RUNG_SPILL_SOME:
             acted = catalog is not None and catalog.spill_some() > 0
         elif rung == RUNG_SPILL_ALL:
             acted = catalog is not None and catalog.handle_oom() > 0

@@ -15,14 +15,21 @@ ladder (``memory/oom.py``) and closes the context when it is done. The
 funnels that pull child streams (``collect`` and the exchange's map side)
 go through ``Exec.execute_device_recovering``: an exhausted ladder there
 tries the operator's on-device degraded mode (``_grace_retry``) and
-otherwise raises; device work never moves to the host engine. The
-pipeline, watchdog, scheduler and fault layers are not ported.
+otherwise raises; device work never moves to the host engine.
+
+The same two funnels run their partition loop through the partition
+pipeline (``parallel/pipeline.py``): a subtree with a file scan below it
+(``host_prefetchable``) has its host half (``prefetch_host``: decode,
+stats pruning, wire encode and pack) run on host threads ahead of the
+ordered consumer, which makes every upload and launch. The watchdog,
+scheduler and fault layers are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -41,14 +48,17 @@ _LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 class Metrics:
-    """Per-operator metric registry (host-clock nanoseconds, counts)."""
+    """Per-operator metric registry (host-clock nanoseconds, counts).
+    ``add`` is safe from the pipeline's prefetch threads."""
 
     def __init__(self, owner: str = ""):
         self.owner = owner
         self.values: Dict[str, float] = {}
+        self.lock = threading.Lock()
 
     def add(self, name: str, amount: float):
-        self.values[name] = self.values.get(name, 0) + amount
+        with self.lock:
+            self.values[name] = self.values.get(name, 0) + amount
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"Metrics({self.values})"
@@ -91,7 +101,9 @@ class ExecContext:
         key = f"{op.name}@{id(op):x}"
         m = self.metrics.get(key)
         if m is None:
-            m = self.metrics[key] = Metrics(owner=op.name)
+            # setdefault: a prefetch thread and the consumer may ask at
+            # once, and both must get the one entry.
+            m = self.metrics.setdefault(key, Metrics(owner=op.name))
         return m
 
     @property
@@ -135,8 +147,13 @@ class ExecContext:
 
 def query_metrics_entry(ctx: ExecContext, owner: str) -> Metrics:
     """The per-query ``<owner>@query`` metrics entry (``Recovery`` holds
-    retriesAttempted, spillEscalations and the grace join's counts)."""
-    return ctx.metrics.setdefault(f"{owner}@query", Metrics(owner=owner))
+    retriesAttempted, spillEscalations and the grace join's counts;
+    ``Pipeline`` the partition pipeline's counters)."""
+    key = f"{owner}@query"
+    m = ctx.metrics.get(key)
+    if m is None:
+        m = ctx.metrics.setdefault(key, Metrics(owner=owner))
+    return m
 
 
 def _visible_device_bytes() -> int:
@@ -193,6 +210,40 @@ class Exec:
     def execute_host(self, ctx: ExecContext,
                      partition: int) -> Iterator[HostBatch]:
         raise NotImplementedError
+
+    def host_prefetchable(self) -> bool:
+        """True when this subtree has a separable host half worth
+        prefetching: a file scan below, with no exchange between (an
+        exchange pipelines its own map-side loop)."""
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        return any(c.host_prefetchable() for c in self.children
+                   if not is_stage_boundary(c))
+
+    def prefetch_host(self, ctx: ExecContext, partition: int) -> None:
+        """Run the host half of ``partition`` ahead of its device half
+        (decode, stats pruning, wire encode and pack: everything before
+        the upload), on a pipeline prefetch thread. Results land in
+        ``ctx.cache`` keyed by (node, partition) and the ordered
+        consumer's ``execute_device`` pops them, so a prefetch that is
+        never consumed costs CPU only, never rows. Recursion stops at
+        exchanges: partition numbering changes there."""
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        for c in self.children:
+            if not is_stage_boundary(c):
+                c.prefetch_host(ctx, partition)
+
+    def drop_prefetch(self, ctx: ExecContext) -> None:
+        """Drop the prefetched payloads in ``ctx.cache`` that no consumer
+        took (a partition loop that stopped early or failed), so none
+        stays pinned in the context. Reaches what ``prefetch_host``
+        reaches."""
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        for c in self.children:
+            if not is_stage_boundary(c):
+                c.drop_prefetch(ctx)
 
     def _grace_retry(self, ctx: ExecContext, partition: int):
         """The operator's on-device OOM rung above the ladder: a
@@ -269,9 +320,19 @@ class Exec:
             if not device:
                 return [hb for p in range(self.num_partitions(ctx))
                         for hb in self.execute_host(ctx, p)]
+            from spark_rapids_tpu_torch.parallel import pipeline as PL
             batches: List[DeviceBatch] = []
-            for p in range(self.num_partitions(ctx)):
-                batches.extend(self.execute_device_recovering(ctx, p))
+            nparts = self.num_partitions(ctx)
+            # consume() waits for p's host half, then returns the device
+            # stream verbatim; the serial pipeline just streams.
+            pipe = PL.open_pipeline(ctx, self, nparts)
+            try:
+                for p in range(nparts):
+                    batches.extend(pipe.consume(
+                        p, lambda p=p: self.execute_device_recovering(
+                            ctx, p)))
+            finally:
+                pipe.close()
             names = tuple(n for n, _ in self.schema)
             return oom.retry_on_oom(download_batches, batches, names)
         finally:
@@ -391,6 +452,14 @@ class HostToDeviceExec(Exec):
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
+
+    def host_prefetchable(self) -> bool:
+        # The subtree below runs on the host engine, which reads no
+        # prefetched payload: prefetching it would decode twice.
+        return False
+
+    def prefetch_host(self, ctx, partition):
+        return None
 
     def execute_device(self, ctx, partition):
         m = ctx.metrics_for(self)

@@ -9,15 +9,16 @@ evaluate their expressions directly on every batch.
 A projection or filter holding a task-context expression (``rand``,
 ``monotonically_increasing_id``, ``spark_partition_id``,
 ``input_file_name``) runs each batch inside an ``EvalContext`` of its
-partition and row base (``_contextual_device_loop`` /
-``_contextual_host_loop``). On the device the row base is an int64
-tensor on the card advanced by each batch's row count, so a partition
-pays no host sync a batch; it counts the batch's row-count prefix, as the
-reference's does, and the host half counts rows."""
+partition, row base and input file (``_contextual_device_loop`` /
+``_contextual_host_loop``; the file is the one the unique file scan
+below published, ``_input_file_key``). On the device the row base is an
+int64 tensor on the card advanced by each batch's row count, so a
+partition pays no host sync a batch; it counts the batch's row-count
+prefix, as the reference's does, and the host half counts rows."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,15 +39,47 @@ from spark_rapids_tpu_torch.ops.base import (
     Exec, LeafExec, Schema, record_batch, timed)
 
 
+def _input_file_key(op: Exec, partition: int, host: bool = False
+                    ) -> Optional[str]:
+    """The cache key under which this operator's unique descendant file
+    scan publishes the current file's path (scans scope their keys by
+    instance, so two scans of one partition never clobber each other).
+    With no scan below, or two, there is no current input file and
+    input_file_name() gives "" (GpuInputFileBlock.scala)."""
+    scans = []
+
+    def walk(node):
+        if type(node).__name__ == "FileScanExec":
+            scans.append(node)
+            return
+        # An exchange breaks the batch <-> file association: a
+        # post-shuffle batch mixes every map partition's files, so
+        # input_file_name() above one is "" (Spark's behavior).
+        if "Exchange" in type(node).__name__:
+            return
+        for ch in getattr(node, "children", ()):
+            walk(ch)
+
+    walk(op)
+    if len(scans) != 1:
+        return None
+    prefix = "input_file_host" if host else "input_file"
+    return f"{prefix}:{id(scans[0])}:{partition}"
+
+
 def _contextual_device_loop(op: Exec, kernel, ctx, partition: int):
     """Drive ``kernel(batch)`` over the child's device batches, each inside
-    an ``EvalContext`` of this partition and the row base so far."""
+    an ``EvalContext`` of this partition, the row base so far and the
+    file the batch was scanned from (read after the scan yields it)."""
     m = ctx.metrics_for(op)
     base = None
+    key = _input_file_key(op, partition)
     for batch in op.children[0].execute_device(ctx, partition):
         if base is None:
             base = torch.zeros((), dtype=torch.int64, device=batch.device)
-        with timed(m), eval_context(EvalContext(partition, base)):
+        ec = EvalContext(partition, base,
+                         ctx.cache.get(key) if key else None)
+        with timed(m), eval_context(ec):
             out = retry_on_oom(kernel, batch)
         base = base + batch.num_rows.to(torch.int64)
         record_batch(m, out)
@@ -55,8 +88,11 @@ def _contextual_device_loop(op: Exec, kernel, ctx, partition: int):
 
 def _contextual_host_loop(op: Exec, kernel, ctx, partition: int):
     base = 0
+    key = _input_file_key(op, partition, host=True)
     for hb in op.children[0].execute_host(ctx, partition):
-        with eval_context(EvalContext(partition, base)):
+        ec = EvalContext(partition, base,
+                         ctx.cache.get(key) if key else None)
+        with eval_context(ec):
             out = kernel(hb)
         yield out
         base += hb.num_rows
@@ -181,6 +217,24 @@ class UnionExec(Exec):
     def execute_host(self, ctx, partition):
         child, p = self._locate(ctx, partition)
         yield from child.execute_host(ctx, p)
+
+    def prefetch_host(self, ctx, partition):
+        # The union concatenates its children's partition spaces, so the
+        # prefetch translates the partition before descending. A child
+        # holding an exchange is skipped whole: _locate's num_partitions
+        # could otherwise materialize it (AQE sizing) on a prefetch
+        # thread.
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+
+        def boundary_free(op):
+            return not is_stage_boundary(op) and \
+                all(boundary_free(c) for c in op.children)
+
+        if not all(boundary_free(c) for c in self.children):
+            return
+        child, p = self._locate(ctx, partition)
+        child.prefetch_host(ctx, p)
 
 
 class CoalescePartitionsExec(Exec):

@@ -570,6 +570,22 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
     def num_partitions(self, ctx) -> int:
         return self.children[0].num_partitions(ctx)
 
+    def host_prefetchable(self) -> bool:
+        # Only the probe side streams by this node's partition numbering;
+        # a broadcast build materializes once, and prefetching it per
+        # probe partition would re-encode the whole build table N times.
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        probe = self._sides()[2]
+        return not is_stage_boundary(probe) and probe.host_prefetchable()
+
+    def prefetch_host(self, ctx, partition):
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        probe = self._sides()[2]
+        if not is_stage_boundary(probe):
+            probe.prefetch_host(ctx, partition)
+
     def _empty_build(self, probe_iter, build_schema, build_right: bool):
         """Every probe row is unmatched: anti keeps it, an outer join
         null-extends it, the rest emit nothing."""
@@ -776,6 +792,20 @@ class BroadcastNestedLoopJoinExec(Exec, _JoinKernelMixin):
 
     def num_partitions(self, ctx) -> int:
         return self.children[0].num_partitions(ctx)
+
+    def host_prefetchable(self) -> bool:
+        # The probe (left) side only: the build side is pulled whole for
+        # every partition, not by this node's partition numbering.
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        return not is_stage_boundary(self.children[0]) and \
+            self.children[0].host_prefetchable()
+
+    def prefetch_host(self, ctx, partition):
+        from spark_rapids_tpu_torch.parallel.pipeline import \
+            is_stage_boundary
+        if not is_stage_boundary(self.children[0]):
+            self.children[0].prefetch_host(ctx, partition)
 
     def execute_device(self, ctx, partition):
         jt = self.join_type

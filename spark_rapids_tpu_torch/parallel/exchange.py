@@ -285,16 +285,29 @@ class ShuffleExchangeExec(Exec):
                                    ctx.catalog.device_budget) // 4, 1 << 20)
         window: List[DeviceBatch] = []
         window_bytes = 0
+        # The map-side partition loop runs through the partition
+        # pipeline: the child's host half (scan decode, wire encode and
+        # pack) runs prefetchPartitions ahead on host threads while this
+        # one ordered consumer uploads and splits (parallel/pipeline.py;
+        # the serial pipeline streams exactly as before).
+        from spark_rapids_tpu_torch.parallel import pipeline as PL
         try:
             with timed(m, "materializeTime"):
-                for cp in range(child.num_partitions(ctx)):
-                    for b in child.execute_device_recovering(ctx, cp):
-                        window.append(b)
-                        window_bytes += b.device_size_bytes()
-                        if len(window) >= _WINDOW or \
-                                window_bytes >= max_window_bytes:
-                            flush_window(window)
-                            window, window_bytes = [], 0
+                nchild = child.num_partitions(ctx)
+                pipe = PL.open_pipeline(ctx, child, nchild)
+                try:
+                    for cp in range(nchild):
+                        for b in pipe.consume(
+                                cp, lambda cp=cp:
+                                child.execute_device_recovering(ctx, cp)):
+                            window.append(b)
+                            window_bytes += b.device_size_bytes()
+                            if len(window) >= _WINDOW or \
+                                    window_bytes >= max_window_bytes:
+                                flush_window(window)
+                                window, window_bytes = [], 0
+                finally:
+                    pipe.close()
                 if window:
                     flush_window(window)
         except BaseException:

@@ -883,6 +883,27 @@ class InMemoryScan(LogicalPlan):
 
 
 @dataclasses.dataclass
+class FileScan(LogicalPlan):
+    """A parquet / csv / orc scan of ``paths`` (``source_schema``: the
+    columns it reads, pruned by plan/pruning.py)."""
+
+    fmt: str                    # parquet | csv | orc
+    paths: list
+    source_schema: Schema
+    options: dict
+    # Pushed-down filter conjuncts: (column_name, op, value) with op in
+    # eq/lt/le/gt/ge/isnotnull, checked against row-group / stripe
+    # min/max stats to skip whole units (GpuParquetScan predicate
+    # pushdown analog; the full filter still runs above the scan).
+    predicates: tuple = ()
+    children = ()
+
+    @property
+    def schema(self) -> Schema:
+        return self.source_schema
+
+
+@dataclasses.dataclass
 class LogicalRange(LogicalPlan):
     """range(start, end, step) in ``num_partitions`` row ranges: one
     INT64 column ``id``."""

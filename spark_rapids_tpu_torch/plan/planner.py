@@ -44,6 +44,11 @@
   four pandas-UDF nodes convert to ``ops/pandas_exec.py``'s execs over
   their bridged children; a grouped or cogrouped one on the device sits
   over a hash exchange on its keys (``_pandas_group_exchange``).
+- A file scan (``read.parquet`` / ``orc`` / ``csv``) is an
+  ``io/scan.py`` ``FileScanExec`` on the plan's device; a format gate
+  that is off (``spark.rapids.sql.format.<fmt>.enabled`` /
+  ``.read.enabled``) tags it for the host engine. A plan that reads
+  ``input_file_name()`` scans file by file (``force_perfile``).
 - ``range`` is a ``RangeExec`` source (batches of ``batchSizeRows``
   built on the card), ``union`` a ``UnionExec`` over its children, each
   bridged to the union's engine.
@@ -76,6 +81,7 @@ from typing import List, Optional, Tuple
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.exprs.base import BoundReference, Literal
+from spark_rapids_tpu_torch.io.scan import FileScanExec, make_scan_exec
 from spark_rapids_tpu_torch.ops import (
     AggSpec, Average, BroadcastHashJoinExec, BroadcastNestedLoopJoinExec,
     Count, CountStar, DeviceToHostExec, Exec, ExecContext, ExpandExec,
@@ -223,6 +229,22 @@ def _column_kinds(c: Column, out: set) -> set:
     return out
 
 
+def _uses_input_file(plan: LogicalPlan) -> bool:
+    """True when a projection or filter reads input_file_name(): scans
+    must then stay per file (the reference's disableCoalesceUntilInput
+    fence, GpuExpressions.scala:64-74), so the published path is
+    exact."""
+    cols: List[Column] = []
+    if isinstance(plan, L.LogicalProject):
+        cols = [c for _, c in plan.projections]
+    elif isinstance(plan, L.LogicalFilter):
+        cols = [plan.condition]
+    for c in cols:
+        if "input_file_name" in _column_kinds(c, set()):
+            return True
+    return any(_uses_input_file(ch) for ch in plan.children)
+
+
 def _forbid_contextual(c: Column, where: str):
     """Analysis-time guard: task-context expressions are valid only where
     the evaluating operator threads an EvalContext (select / filter)."""
@@ -301,7 +323,7 @@ class NodeMeta:
         return out
 
 
-_NODES = (L.InMemoryScan, L.LogicalRange, L.LogicalFilter,
+_NODES = (L.InMemoryScan, L.FileScan, L.LogicalRange, L.LogicalFilter,
           L.LogicalProject, L.LogicalAggregate, L.LogicalSort,
           L.LogicalLimit, L.LogicalJoin, L.LogicalWindow,
           L.LogicalRepartition, L.LogicalUnion, L.LogicalGenerate,
@@ -321,7 +343,16 @@ def wrap_and_tag(plan: LogicalPlan, conf: C.TpuConf) -> NodeMeta:
 
     child_schema = _schema_or_none(plan.children[0]) \
         if plan.children else None
-    if isinstance(plan, L.LogicalFilter):
+    if isinstance(plan, L.FileScan):
+        fmt_gates = {
+            "parquet": (C.ENABLE_PARQUET, C.ENABLE_PARQUET_READ),
+            "orc": (C.ENABLE_ORC, C.ENABLE_ORC_READ),
+            "csv": (C.ENABLE_CSV, C.ENABLE_CSV_READ),
+        }
+        for entry in fmt_gates.get(plan.fmt, ()):
+            if not bool(conf.get(entry)):
+                reasons.append(f"{plan.fmt} scan disabled by {entry.key}")
+    elif isinstance(plan, L.LogicalFilter):
         tag_column(plan.condition, conf, reasons, ours, child_schema,
                    notes)
     elif isinstance(plan, L.LogicalProject):
@@ -523,6 +554,8 @@ def _exec_lines(e: Exec, depth: int) -> List[str]:
         detail = f" {e.mode} by {list(e.group_names)}"
     elif isinstance(e, InMemorySourceExec):
         detail = f" [{', '.join(n for n, _ in e.schema)}]"
+    elif isinstance(e, FileScanExec):
+        detail = f" {e.fmt} [{', '.join(n for n, _ in e.schema)}]"
     elif isinstance(e, (LocalLimitExec, GlobalLimitExec)):
         detail = f" {e.limit}"
     out = ["  " * depth + type(e).__name__ + detail]
@@ -556,6 +589,7 @@ class Planner:
             # Pruning reads join sides' schemas; a plan holding a kind the
             # port cannot resolve is refused by the tagging below.
             pass
+        self._force_perfile = _uses_input_file(logical)
         meta = wrap_and_tag(logical, self.conf)
         if self.conf.explain in ("ALL", "NOT_ON_GPU"):
             print("\n".join(meta.explain_lines(
@@ -626,6 +660,11 @@ class Planner:
         if isinstance(plan, L.InMemoryScan):
             return InMemorySourceExec(plan.schema, plan.partitions,
                                       device=self.device), want_dev
+        if isinstance(plan, L.FileScan):
+            return make_scan_exec(
+                plan, self.conf,
+                force_perfile=getattr(self, "_force_perfile", False),
+                device=self.device), want_dev
         if isinstance(plan, L.LogicalRange):
             return RangeExec(plan.start, plan.end, plan.step,
                              plan.num_partitions,

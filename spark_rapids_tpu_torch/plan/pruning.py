@@ -1,26 +1,36 @@
-"""Column pruning and the join-size estimate (port of the JAX package's
-``plan/pruning.py``, cut to the nodes of plan/logical.py).
+"""Column pruning, filter pushdown and the join-size estimate (port of the
+JAX package's ``plan/pruning.py``, cut to the nodes of plan/logical.py).
 
 The planner runs ``prune_columns`` before tagging: it walks the logical
-tree computing which column names each subtree must produce and drops
-projections nothing above reads. In the reference it also narrows file
-scans to the required fields; the port has no file scan yet, and an
-in-memory scan keeps its whole width, as in the reference.
-``pushdown_filters`` copies filter conjuncts onto file scans, so it is a
-no-op here; it is kept so the pass order matches the reference's.
+tree computing which column names each subtree must produce, drops
+projections nothing above reads, and narrows each file scan's
+``source_schema`` to the fields read (file order kept), so the scan
+decodes only those columns (GpuParquetScan.scala:84 ``readDataSchema``).
+An in-memory scan keeps its whole width, as in the reference.
+
+``pushdown_filters`` then copies the simple conjuncts of a filter
+directly above a file scan onto the scan (``(column, op, literal)``,
+op in eq / lt / le / gt / ge / isnotnull), where they skip row groups
+and stripes whose statistics prove no row matches; the filter itself
+stays. The reference also pushes plan-cache bind slots, which the port
+does not have.
 
 The four pandas-UDF nodes pass through unpruned, as in the reference: a
 pandas function sees its child's whole frame, so nothing below one is
 pruned, and its size is unknown (``estimate_bytes`` gives None).
 
 ``estimate_bytes`` is the size estimate behind ``autoBroadcastJoinThreshold``:
-it picks every join's strategy, so it equals the reference's to the byte,
-except above a generate: the port counts K times its child (K output
-rows a row) where the reference knows no size (and never broadcasts).
+it picks every join's strategy, so it equals the reference's to the byte
+(a parquet scan: the exact uncompressed bytes of its pruned columns from
+the footers), except above a generate: the port counts K times its child
+(K output rows a row) where the reference knows no size (and never
+broadcasts).
 """
 
 from __future__ import annotations
 
+import copy
+import os
 from typing import Optional, Set
 
 from spark_rapids_tpu_torch.plan import logical as L
@@ -52,20 +62,99 @@ def prune_columns(plan: LogicalPlan) -> LogicalPlan:
     return _prune(plan, None)
 
 
+_PUSH_OPS = {"eq": "eq", "lt": "lt", "le": "le", "gt": "gt", "ge": "ge"}
+_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
+
+
+def _conjuncts(c: Column, out: list):
+    if c.node[0] == "and":
+        _conjuncts(c.node[1], out)
+        _conjuncts(c.node[2], out)
+    else:
+        out.append(c)
+    return out
+
+
+def _as_predicate(c: Column):
+    """(name, op, value) for a supported conjunct, else None."""
+    node = c.node
+    kind = node[0]
+    if kind == "isnotnull" and node[1].node[0] == "ref":
+        return (node[1].node[1], "isnotnull", None)
+    if kind in _PUSH_OPS:
+        left, right = node[1], node[2]
+        if left.node[0] == "ref" and right.node[0] == "lit":
+            return (left.node[1], kind, right.node[1])
+        if left.node[0] == "lit" and right.node[0] == "ref":
+            return (right.node[1], _FLIP[kind], left.node[1])
+    return None
+
+
 def pushdown_filters(plan: LogicalPlan) -> LogicalPlan:
     """Entry point: copy filter conjuncts onto the file scans they sit
-    above. The port has no file scan, so every plan comes back as is."""
-    return plan
+    directly above."""
+    if isinstance(plan, L.LogicalFilter) and \
+            isinstance(plan.child, L.FileScan):
+        preds = []
+        for cj in _conjuncts(plan.condition, []):
+            p = _as_predicate(cj)
+            if p is not None:
+                preds.append(p)
+        if preds:
+            scan = plan.child
+            new_scan = L.FileScan(scan.fmt, scan.paths, scan.source_schema,
+                                  scan.options,
+                                  tuple(scan.predicates) + tuple(preds))
+            return L.LogicalFilter(new_scan, plan.condition)
+        return plan
+    rebuilt = [pushdown_filters(c) for c in plan.children]
+    if all(a is b for a, b in zip(rebuilt, plan.children)):
+        return plan
+    cp = copy.copy(plan)
+    cp.children = tuple(rebuilt)
+    return cp
+
+
+def _file_scan_bytes(plan: L.FileScan) -> Optional[int]:
+    """A parquet scan: the exact uncompressed bytes of its pruned columns
+    from the footers (memoized); ORC and CSV: the files' sizes, times 3
+    for ORC's typical compression."""
+    if plan.fmt == "parquet":
+        from spark_rapids_tpu_torch.io.scan import _parquet_metadata
+        names = {n for n, _ in plan.source_schema}
+        total = 0
+        try:
+            for path in plan.paths:
+                md = _parquet_metadata(path)
+                for rg in range(md.num_row_groups):
+                    g = md.row_group(rg)
+                    for ci in range(g.num_columns):
+                        c = g.column(ci)
+                        if c.path_in_schema.split(".")[0] in names:
+                            total += c.total_uncompressed_size
+        except OSError:
+            return None
+        return total
+    if plan.fmt in ("orc", "csv"):
+        try:
+            raw = sum(os.path.getsize(p) for p in plan.paths)
+        except OSError:
+            return None
+        return raw * (3 if plan.fmt == "orc" else 1)
+    return None
 
 
 def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
     """Size-in-bytes estimate for join-strategy planning (the
     SizeInBytesOnlyStatsPlanVisitor analog feeding
-    autoBroadcastJoinThreshold). An in-memory scan counts every value of
+    autoBroadcastJoinThreshold). A file scan reads its footers
+    (``_file_scan_bytes``); an in-memory scan counts every value of
     every column it holds: at least 8 bytes a fixed-width value, a
     string's bytes plus 4 a row. Other nodes propagate conservatively
     (filters/aggregates keep their child's size, matching Spark's non-CBO
     stats). None = unknown (never broadcast on unknown)."""
+    if isinstance(plan, L.FileScan):
+        return _file_scan_bytes(plan)
     if isinstance(plan, L.InMemoryScan):
         total = 0
         for part in plan.partitions:
@@ -87,8 +176,8 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
             if plan.step else 0
         return 8 * rows
     if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit,
-                         L.LogicalAggregate, L.LogicalProject,
-                         L.LogicalWindow)):
+                         L.LogicalRepartition, L.LogicalAggregate,
+                         L.LogicalProject, L.LogicalWindow)):
         return estimate_bytes(plan.child)
     if isinstance(plan, L.LogicalGenerate):
         child = estimate_bytes(plan.child)
@@ -103,6 +192,14 @@ def estimate_bytes(plan: LogicalPlan) -> Optional[int]:
 
 def _prune(plan: LogicalPlan, required: Optional[Set[str]]) -> LogicalPlan:
     # required == None means "every column of this subtree's schema".
+    if isinstance(plan, L.FileScan):
+        if required is None:
+            return plan
+        kept = tuple(f for f in plan.source_schema if f[0] in required)
+        if not kept or len(kept) == len(plan.source_schema):
+            return plan
+        return L.FileScan(plan.fmt, plan.paths, kept, plan.options,
+                          plan.predicates)
     if isinstance(plan, (L.InMemoryScan, L.LogicalRange)):
         return plan
     if isinstance(plan, L.LogicalUnion):
@@ -172,6 +269,14 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]]) -> LogicalPlan:
         return L.LogicalSort(_prune(plan.child, child_req), plan.orders)
     if isinstance(plan, L.LogicalLimit):
         return L.LogicalLimit(_prune(plan.child, required), plan.n)
+    if isinstance(plan, L.LogicalRepartition):
+        child_req = None
+        if required is not None:
+            child_req = set(required)
+            for k in (plan.keys or []):
+                refs_of(k, child_req)
+        return L.LogicalRepartition(_prune(plan.child, child_req),
+                                    plan.num_partitions, plan.keys)
     if isinstance(plan, L.LogicalJoin):
         left, right = plan.children
         if required is None:

@@ -405,7 +405,8 @@ def test_group_ids_parity(names, live):
 def test_port_imports_no_jax():
     """A fresh interpreter importing the port, every one of its modules
     and chip_smoke.py loads neither jax nor the JAX package, nor pyarrow
-    or pandas (the card's machine has neither)."""
+    or pandas: the port imports those two only inside the functions that
+    read, write or call pandas (the card's machine has both)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import spark_rapids_tpu_torch as p\n"
