@@ -5,7 +5,13 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; any failure exits non-zero):
+Phases (each raises on failure; any failure exits non-zero). Before
+phase 1 the script exits non-zero unless every
+``spark.rapids.sql.native.*`` gate is live (``native.master_enabled()``
+and each ``kernel_enabled``), so no env key can make a run pass without
+the kernels. After each phase from 3 on, the plan cache is cleared (its
+templates pin their sources and packed encodings; a later phase's first
+run stays a first run) and the peak and current host RSS are printed.
 
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
@@ -16,10 +22,13 @@ Phases (each raises on failure; any failure exits non-zero):
 3. Kernel: ``stable_argsort_u32`` (kernel K1, one C call a sort) on
    random, duplicate-heavy and 0/1 (three digits of one bucket) u32 keys,
    and on random keys through a row permutation, at capacities 512,
-   786 432 and 4 194 304 must equal its plain-PyTorch version and
-   ``torch.sort(stable=True)`` (gather, sort, gather with the
-   permutation) bit for bit; kernel, plain and torch.sort times (CUDA
-   events) beside the function's byte bound and the passes' byte bound.
+   786 432 and 4 194 304 must equal its plain-PyTorch version and its
+   library route (``native.stable_argsort_u32_library``: a stable
+   ``torch.sort`` of the keys widened to int64, what
+   ``native.radixSort=false`` runs) bit for bit; kernel, plain,
+   ``torch.sort`` (gather, sort, gather with the permutation) and
+   library-route times (CUDA events) beside the function's byte bound and
+   the passes' byte bound.
    The profiler's device time of one 786 432-row sort is printed beside
    its CUDA-event time.
 4. Path: TPC-H Q1 at scale factor 1 (8 partitions, seed 0) through
@@ -35,8 +44,9 @@ Phases (each raises on failure; any failure exits non-zero):
    150 000 (16, 8, 1 and 1 lanes) and 4 194 304 x 4 194 304 (1 lane, with
    its profiled device time);
    kernel and two-``torch.searchsorted`` times in turns (medians of 5),
-   the plain version's time and the bound, with the lane count and
-   search steps of each launch.
+   the plain version's time (also K3's library route, what
+   ``native.joinProbe=false`` runs) and the bound, with the lane count
+   and search steps of each launch.
 6. Paths: TPC-H Q3 and Q4 at scale factor 1 (seed 0; ORDERS and LINEITEM
    in 8 partitions, CUSTOMER in 4) through ``tpch_q3_plan`` /
    ``tpch_q4_plan``, checked against numpy oracles in this file (keys,
@@ -53,9 +63,12 @@ Phases (each raises on failure; any failure exits non-zero):
    spanning many tiles, must equal its plain version (running scan +
    finish) bit for bit, 20 launches in a row at the largest size, also
    with the whole column one segment and with a capacity below the
-   largest id; and one ``scatter_reduce_`` into an identity-filled output
-   bit for bit. Times of K2, the plain version and the scatter_reduce
-   beside the byte bound.
+   largest id; against one ``scatter_reduce_`` into an identity-filled
+   output bit for bit where every id fits, and against its library route
+   (``native.segment_reduce_library``, the same scatter over sign-flipped
+   keys with a slot for ids past the capacity, what
+   ``native.segmentReduce=false`` runs). Times of K2, the plain version,
+   the scatter_reduce and the library route beside the byte bound.
 8. Path: TPC-H Q2 at scale factor 1 (PART and PARTSUPP in 4 partitions,
    SUPPLIER, NATION and REGION in 1) through ``tpch_q2_plan``, checked
    against a numpy oracle in this file: rows and their order exact. K2
@@ -68,13 +81,18 @@ Phases (each raises on failure; any failure exits non-zero):
    float32 and float64 run tables (-0.0 and NaN-payload runs among the
    values) with 1, 8, 2 048, 2 049, 4 096 and rows/4 runs and
    ``num_rows < cap``, full tables included, and a table of one run per
-   row, must equal its plain version bit for bit; kernel and one
-   ``torch.repeat_interleave`` times in turns (medians of 5), the plain
-   version's time and the byte bound, and at 4 194 304 rows with rows/4
-   runs the kernel's profiled device time. A table of at
-   most ``native.RLE_SMEM_RUNS`` entries is staged whole by every block,
-   a larger one is cut into block windows by searches; each log line
-   names which.
+   row, must equal its plain version (searchsorted + gather, also K4's
+   library route, what ``native.rleDecode=false`` runs) bit for bit;
+   kernel and ``torch.repeat_interleave`` times in turns (medians of 5,
+   the latter where the table is not full), the plain version's time
+   and the byte bound, and at 4 194 304 rows with rows/4 runs the
+   kernel's profiled device time. A table of at most
+   ``native.RLE_SMEM_RUNS`` entries is staged whole by every block, a
+   larger one is cut into block windows by searches; each log line names
+   which. Then a 2 097 152-row int64 column in runs of 4 (524 288 runs,
+   the most the encoder run-codes, far above the JAX package's 4 096-run
+   ``rleDecode.maxRuns``) through the wire codec's upload must launch K4
+   once, call no library route and give the column back.
 10. Codec: the walls of q1, q3, q4 and q2 under the default ``v2`` wire
    codec and under ``plain`` (``ExecContext(conf)``): plain's first run
    (the sources pack their batches once per codec and keep them), then
@@ -89,7 +107,8 @@ Phases (each raises on failure; any failure exits non-zero):
    on) and the port's ``benchmarks/tpch.py``, the reference's query text,
    over in-memory scans of the same SF1 columns: each query's planning
    time (host ms) and exec tree, its first run (launch counters around it
-   alone) and warm runs, every run checked against its numpy oracle (q5
+   alone) and a warm run (two until phase 23), every run checked against
+   its numpy oracle (q5
    and q6 have theirs here); q1-q4's rows must equal the hand-built
    trees' (floats to rtol 1e-9) in this process. K1 must launch in every
    query but q6, K2 in q2, K3 in q4 and q2, K4 in q3. The inputs of
@@ -107,8 +126,9 @@ Phases (each raises on failure; any failure exits non-zero):
    (counters around it alone, every K1-K4 launch recorded) must match the
    numpy oracle and launch K1 in q1, q3, q5, q2 and q4, K2 in q2, K3 in
    q2 and q4, K4 in q3; each launch of a shape no earlier phase checked
-   must equal the kernel's plain version bit for bit. Warm walls in turns
-   beside the same query with ``variableFloatAgg`` on (phase 11's
+   must equal the kernel's plain version bit for bit. Warm walls in two
+   turns (three until phase 23) beside the same query with
+   ``variableFloatAgg`` on (phase 11's
    all-device tree), each run checked, with the host engine's share of
    each default-conf wall (host clock inside the host subtrees less the
    device subtrees and downloads below them).
@@ -139,8 +159,9 @@ Phases (each raises on failure; any failure exits non-zero):
    ROLLUP ``ExpandExec`` with it; the windows and sorts on the card).
    For each run: host nodes and bridges (checked), rows and bytes
    downloaded, the first run (counters around it alone, every K1-K4
-   launch recorded) and one warm run (none for q67 under the default
-   conf; two, and one for q67 under it, until phase 22), each checked
+   launch recorded) and one warm run under ``variableFloatAgg`` (none
+   under the default conf, for the script's time budget; two, and one
+   for q67 under it, until phase 22), each checked
    against a numpy oracle in this file (q67, ds_q3, ds_q42 and ds_q55
    exactly, their sums being of whole numbers; ds_q89's averages and
    ds_q98's ratios to rtol 1e-9), and the peak device memory of the warm
@@ -157,8 +178,9 @@ Phases (each raises on failure; any failure exits non-zero):
    q18 on the host engine; COUNT, COUNT DISTINCT and the joins on the
    card). For each run: host nodes and bridges (checked), rows and bytes
    downloaded, the first run (counters around it alone, every K1-K4
-   launch recorded) and one warm run (two until phase 21), each checked
-   against a numpy
+   launch recorded) and one warm run under ``variableFloatAgg`` (two
+   until phase 21; none under the default conf, for the script's time
+   budget), each checked against a numpy
    oracle in this file (keys, counts and order exact, floats to rtol
    1e-9; q10 as a set, as the reference compares it; the LIKE patterns
    of q13 and q16 evaluated by Python's ``re`` over the comment pools),
@@ -212,9 +234,9 @@ Phases (each raises on failure; any failure exits non-zero):
    a share of its in-core peak: a real ``torch.OutOfMemoryError`` inside
    a retry site must be recovered on the card by the ladder (the rungs
    printed), rows equal, the fraction restored. For each run: rows
-   checked, first and one warm wall (two until phase 22) beside the
-   in-core run's, the peak
-   device memory of the warm runs beside the in-core peak,
+   checked, the first wall (no warm wall, for the script's time budget)
+   beside the in-core run's, the first run's peak device memory beside
+   the in-core peak,
    ``outOfCoreBuckets``, ``graceJoinPartitions``, the catalog's spill
    and restore counts and LZ4 bytes, the ladder, and K1-K4 launches;
    every K1-K4 launch of a shape no earlier phase checked must equal the
@@ -284,8 +306,9 @@ Phases (each raises on failure; any failure exits non-zero):
    rows downloaded, the rows and bytes through each host roundtrip, the
    first run (counters around it alone, every K1-K4 launch recorded),
    the torch ops of ``_greedy_matches`` and of MD5, one warm wall (two
-   until phase 21 needed the time; none for etl head since phase 22)
-   and the peak device memory of the warm run. K1 must launch in every
+   until phase 21 needed the time; none for etl head since phase 22,
+   none under the default conf, for the script's time budget) and the peak
+   device memory of the warm run. K1 must launch in every
    run,
    K2 in comment_groups; each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit. The
@@ -345,21 +368,48 @@ Phases (each raises on failure; any failure exits non-zero):
    as phase 18's (e): a real OOM whose ladder must start with
    ``drop-scan-cache`` (the spill catalog does not hold the cache), leave
    no cache entry on the card and give the oracle's rows. The scan cache
-   is cleared and the directory deleted at the end; the phase's time is
+   is cleared at the end, and the directory deleted after phase 23, which
+   reads the files again; the phase's time is
    printed.
+23. The native gates, the plan cache with bind slots and stage fusion
+   (runs after phase 22), under ``variableFloatAgg``, every run against
+   phase 11's numpy oracles (or its own, with its literals): (a) q1, q2,
+   q3 and q4 on phase 11's templates, run in turns with the gates on,
+   with ``native.enabled=false`` (zero K1-K4 launches, a library call
+   where each kernel ran, rows bit for bit) and with only the query's own
+   kernel's gate off (K1 in q1, K2 in q2, K4 in q3, K3 in q4: that kernel
+   0 launches, the others as in phase 11), warm walls printed; every
+   plain version is patched to raise, except K3's and K4's where their
+   gate is off, as their plain versions are their library routes; (b) q1
+   (ship-date cutoff) and q6 (date band, discount band, quantity bound)
+   through ``prepare()`` at two bindings each over phase 11's tables, the
+   plan cache cleared first: the second binding a hit adding one to
+   ``planCacheHits`` and running the first binding's template, each
+   binding's rows against numpy, a DataFrame rebuilt with the first
+   binding's literals a hit on that template too;
+   plan-or-bind host ms, ``packTime`` and first-run walls; (c) q1, q6
+   and q67 (phase 14's template) fused and with
+   ``stageFusion.enabled=false``: the same rows and K1-K4 launches, each
+   plan's ``Fused stages`` lines and ``numFusedOps``; (d) q6 from phase
+   22's parquet files at two ``l_shipdate`` bands of one template:
+   ``numSkippedRowGroups`` as numpy's ship-date ranges of the files say,
+   rows against numpy. Then the device memory that clearing the cached
+   templates frees (none expected), and the phase's time.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
    nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
-   phase 21's eight (four without pandas) and phase 22's sixteen), its
-   error against the
-   plain version,
-   its
-   time, the plain version's, its bound, and one PyTorch call's time for
-   the same function (K1: the whole sort at 786 432 rows against
-   ``torch.sort``; K2: the per-group function on q2's largest launch
-   against the scatter_reduce).
+   phase 21's eight (four without pandas), phase 22's sixteen and phase
+   23's fifteen), its error against the plain version, its time, the
+   plain version's, its bound, one PyTorch call's time for the same
+   function (K1: the whole sort at 786 432 rows against ``torch.sort``;
+   K2: the per-group function on q2's largest launch against the
+   scatter_reduce; K3: two ``torch.searchsorted``; K4:
+   ``torch.repeat_interleave``), the time of its library route, what its
+   gate off runs (``library_route_ms``; K3's and K4's are their plain
+   versions), and its library route's calls in phase 23 (a)
+   (``library_calls``).
 
 Every query runs under the default ``v2`` wire codec unless a phase says
 otherwise. The total time of the script is printed before the last line,
@@ -494,10 +544,7 @@ def kernel_phase(native) -> dict:
             torch.cuda.synchronize()
             launches = native.counters()["radix_sort"]
             plain = native.stable_argsort_u32_plain(keys, perm)
-            if perm is None:
-                lib = torch.sort(keys, stable=True).indices.to(torch.int32)
-            else:
-                lib = perm[torch.sort(keys[perm], stable=True).indices]
+            lib = native.stable_argsort_u32_library(keys, perm)
             if launches != 1:
                 raise AssertionError(f"K1 made {launches} C calls for one "
                                      f"sort at cap={cap} {kind}")
@@ -511,9 +558,12 @@ def kernel_phase(native) -> dict:
                      max_abs_err=err, cap=cap, kind=kind)
             r["ms"] = cuda_ms(lambda: native.stable_argsort_u32(keys, perm),
                               iters)
+            # One timed call at the largest cap (0.44 s a call), for the
+            # script's time budget; three elsewhere.
+            big = cap >= 4_000_000
             r["plain_ms"] = cuda_ms(
-                lambda: native.stable_argsort_u32_plain(keys, perm), 3,
-                warmup=1)
+                lambda: native.stable_argsort_u32_plain(keys, perm),
+                1 if big else 3, warmup=0 if big else 1)
             if perm is None:
                 r["library_ms"] = cuda_ms(
                     lambda: torch.sort(keys, stable=True), iters)
@@ -521,13 +571,17 @@ def kernel_phase(native) -> dict:
                 r["library_ms"] = cuda_ms(lambda: perm.index_select(
                     0, torch.sort(keys.index_select(0, perm),
                                   stable=True).indices), iters)
+            # The library route: what native.radixSort=false runs.
+            r["library_route_ms"] = cuda_ms(
+                lambda: native.stable_argsort_u32_library(keys, perm), iters)
             results[(cap, kind)] = r
             lib_name = "torch.sort" if perm is None \
                 else "gather + torch.sort + gather"
             log(f"K1 stable_argsort_u32 cap={cap} keys={kind}: bit-identical"
                 f" to plain and torch.sort, one C call; kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {lib_name} "
-                f"{r['library_ms']:.4f} ms, bound "
+                f"{r['library_ms']:.4f} ms, library route "
+                f"{r['library_route_ms']:.4f} ms, bound "
                 f"{bound_text(r['bound_ms'])} ms "
                 f"({r['fn_bytes_per_row']:.0f} B/row), passes' bound "
                 f"{r['pass_bound_ms']:.4f} ms ({r['pass_bytes_per_row']:.0f} "
@@ -753,8 +807,9 @@ def probe_check(native, build, probe, label: str, profiled: bool = False,
                 cold: bool = False, timed: bool = True) -> dict:
     """K3 against its plain version (bit for bit); with ``timed``, then
     kernel and two-``torch.searchsorted`` times on the same inputs, in
-    turns, and the plain version's; with ``profiled``, the kernel's device
-    time; with ``cold``, also its time with a cold L2."""
+    turns, and the plain version's (which is also K3's library route,
+    what ``native.joinProbe=false`` runs); with ``profiled``, the kernel's
+    device time; with ``cold``, also its time with a cold L2."""
     import torch
     cap_b, cap_p = build.numel(), probe.numel()
     lo, hi = native.searchsorted_u64_pair(build, probe)
@@ -779,6 +834,7 @@ def probe_check(native, build, probe, label: str, profiled: bool = False,
     r = dict(t, plain_ms=cuda_ms(lambda: native.searchsorted_u64_pair_plain(
         build, probe), iters), max_abs_err=float(err), cap_b=cap_b,
         cap_p=cap_p, design=probe_design(native, cap_b, cap_p, probe.device))
+    r["library_route_ms"] = r["plain_ms"]
     r["bound_ms"], r["bound_by"] = probe_bound(cap_b, cap_p)
     note = ""
     if profiled:
@@ -1186,12 +1242,19 @@ def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
                           device=keys.device).scatter_reduce_(
                               0, gid, lib_in, reduce)
 
+    def route():
+        # The library route: what native.segmentReduce=false runs.
+        return native.segment_reduce_library(gid, keys, kind, capacity,
+                                             identity)
+
     r = dict(max_abs_err=err, n=n, capacity=capacity, kind=kind,
              key_bits=8 * keys.element_size(), library_ms=None)
     if top < capacity:
         lib = library() if kind == "sum" else library() ^ sign
         if not torch.equal(got, lib):
             raise AssertionError(f"K2 != scatter_reduce at {label} {kind}")
+    if not torch.equal(got, route()):
+        raise AssertionError(f"K2 != its library route at {label} {kind}")
     if not timed:
         return r
     iters = 20 if n >= 1_000_000 else 50
@@ -1201,6 +1264,7 @@ def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
         gid, keys, kind, capacity, identity), 3, warmup=1)
     if top < capacity:
         r["library_ms"] = cuda_ms(library, iters)
+    r["library_route_ms"] = cuda_ms(route, iters)
     r["bound_ms"], r["bound_by"] = seg_bound(n, keys.element_size(),
                                              capacity)
     lib_ms = "n/a (ids past capacity)" if r["library_ms"] is None \
@@ -1215,9 +1279,9 @@ def seg_check(native, gid, keys, kind: str, capacity: int, identity: int,
     log(f"K2 seg_reduce {label} {kind}{r['key_bits']} n={n} "
         f"capacity={capacity}: bit-identical to plain over {repeats} "
         f"launch(es); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"scatter_reduce {lib_ms}, bound {bound_text(r['bound_ms'])} "
-        f"ms "
-        f"({r['bound_by']}){note}")
+        f"scatter_reduce {lib_ms}, library route "
+        f"{r['library_route_ms']:.4f} ms, bound {bound_text(r['bound_ms'])} "
+        f"ms ({r['bound_by']}){note}")
     return r
 
 
@@ -1365,7 +1429,7 @@ DF_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
     "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
     "radix_sort", "seg_reduce", "join_probe"), "q4": (
     "radix_sort", "join_probe")}
-DF_WARM_RUNS = 2
+DF_WARM_RUNS = 1      # 2 until phase 23 needed the time
 
 
 def df_oracles(cols: dict, E, queries=DF_QUERIES) -> dict:
@@ -1457,8 +1521,9 @@ def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
             f"{[round(w, 4) for w in warm]} s; launches {launches}{note}")
         out[q] = dict(plan_ms=plan_ms, first_s=first_s, warm_s=warm,
                       launches=launches, seen=first_run(seen, launches),
-                      notes=notes, tree=phys.tree())
+                      notes=notes, tree=phys.tree(), frame=df)
     out["oracles"] = oracles
+    out["tables"] = tables
     out["kernel_checks"] = df_kernel_checks(
         native, {q: out[q]["seen"] for q in DF_QUERIES}, hand_seen)
     return out
@@ -1520,7 +1585,7 @@ DEFAULT_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
     "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
     "radix_sort", "seg_reduce", "join_probe"), "q4": (
     "radix_sort", "join_probe")}
-DEFAULT_TURNS = 3
+DEFAULT_TURNS = 2     # 3 until phase 23 needed the time
 # Phase 3's K1 shapes: (rows, key dtype, with a permutation).
 K1_CHECKED = {(cap, "int64", perm) for cap in CAPS for perm in (False, True)}
 
@@ -2231,7 +2296,9 @@ DS_DEFAULT_HOST = {q: ["LogicalAggregate"] for q in DS_QUERIES}
 DS_MUST_LAUNCH = dict({q: ("radix_sort",) for q in DS_QUERIES},
                       ds_q89=("radix_sort", "seg_reduce"),
                       ds_q98=("radix_sort", "seg_reduce"))
-DS_WARM_RUNS = {("q67", "default"): 0}
+# Warm runs by conf: none under the default conf, for the script's time
+# budget.
+DS_WARM_RUNS = {"vfa": 1, "default": 0}
 
 
 _SUITE_SF1: dict = {}
@@ -2264,7 +2331,9 @@ def k1_time(native, keys, perm, label: str) -> dict:
     ``perm`` when there is one) in turns, beside the byte bound."""
     import torch
     r = dict(sort_bound(keys.numel(), keys.element_size(), perm is not None))
-    fns = {"ms": lambda: native.stable_argsort_u32(keys, perm)}
+    fns = {"ms": lambda: native.stable_argsort_u32(keys, perm),
+           "library_route_ms": lambda: native.stable_argsort_u32_library(
+               keys, perm)}
     if perm is None:
         fns["library_ms"] = lambda: torch.sort(keys, stable=True)
     else:
@@ -2276,7 +2345,8 @@ def k1_time(native, keys, perm, label: str) -> dict:
     r["device_ms"] = device_ms(fns["ms"], 5)
     log(f"{label} K1 {k1_shape(keys, perm)}: kernel {r['ms']:.4f} ms "
         f"(device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, "
-        f"library {r['library_ms']:.4f} ms, bound "
+        f"library {r['library_ms']:.4f} ms, library route "
+        f"{r['library_route_ms']:.4f} ms, bound "
         f"{bound_text(r['bound_ms'])} ms")
     return r
 
@@ -2334,7 +2404,7 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
             warm = []
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
-            for _ in range(DS_WARM_RUNS.get((q, conf_name), 1)):
+            for _ in range(DS_WARM_RUNS[conf_name]):
                 t0 = time.perf_counter()
                 rows = phys.collect(ExecContext(phys.conf))
                 torch.cuda.synchronize()
@@ -2353,6 +2423,11 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
                 plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
                 launches=r["launches"], moved=r["moved"],
                 hosted=r["hosted"], peak_bytes=peak, held_bytes=held)
+            if (q, conf_name) == ("q67", "vfa"):
+                # Phase 23 (c) runs it again, fused and unfused.
+                out["q67"] = dict(phys=phys, plan=S.QUERIES[q](
+                    session, tables[q])._plan, check=check, want=want,
+                    launches=r["launches"])
     if new_k1:
         keys, perm = new_k1[max(new_k1)]
         out["k1"] = k1_time(native, keys, perm, "phase 14 largest new")
@@ -2534,7 +2609,9 @@ DISTINCT_MUST_LAUNCH = {
     (q, c): () if (q, c) == ("q17", "default") else
     ("radix_sort", "join_probe") if q in ("q13", "q21") else ("radix_sort",)
     for q in DISTINCT_QUERIES for c in ("vfa", "default")}
-DISTINCT_WARM_RUNS = 1
+# Warm runs by conf: none under the default conf, for the script's time
+# budget.
+DISTINCT_WARM_RUNS = {"vfa": 1, "default": 0}
 
 
 def distinct_oracles(cols: dict, xcols: dict, E, S,
@@ -2604,18 +2681,21 @@ def distinct_queries_phase(native, cols: dict, known_seen: list,
             warm = []
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
-            for _ in range(DISTINCT_WARM_RUNS):
+            for _ in range(DISTINCT_WARM_RUNS[conf_name]):
                 t0 = time.perf_counter()
                 rows = phys.collect(ExecContext(phys.conf))
                 torch.cuda.synchronize()
                 warm.append(time.perf_counter() - t0)
                 check(rows, want)
-            peak = torch.cuda.max_memory_allocated()
-            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
-                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
-                f"warm {[round(w, 4) for w in warm]} s, peak device memory "
-                f"in the warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f}"
-                f" GiB held before them); launches {r['launches']}")
+            peak = torch.cuda.max_memory_allocated() if warm else None
+            peak_text = (f"peak device memory in the warm runs "
+                         f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+                         f"held before them)") if warm else \
+                "no warm run (cut for time)"
+            log(f"{label} matches the numpy oracle ({len(r['rows'])} rows):"
+                f" plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
+                f"warm {[round(w, 4) for w in warm]} s, {peak_text}; "
+                f"launches {r['launches']}")
             out[(q, conf_name)] = dict(
                 plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
                 launches=r["launches"], moved=r["moved"],
@@ -2996,7 +3076,9 @@ def exchange_phase(native, cols: dict, known_seen: list,
 # Phase 18: the memory tier and out-of-core execution
 # ---------------------------------------------------------------------------
 
-OOC_WARM_RUNS = 1
+# No warm runs, for the script's time budget (they took ~13 s, the sort's
+# ~6 s of it); each peak is then the first run's.
+OOC_WARM_RUNS = 0
 # (a): a device budget far below the sort's staged bytes (so at least four
 # range buckets) and a host tier below them too (so entries reach disk).
 SORT_BUDGET = 128 << 20
@@ -3102,11 +3184,14 @@ def ooc_runs(native, label: str, phys, check, want, must, known_seen: list,
              known_k1: set, collect=None) -> dict:
     """A checked first run (every K1-K4 launch recorded, new shapes held
     to the plain versions) and ``OOC_WARM_RUNS`` checked warm runs, with
-    the peak device memory of the warm runs and each run's teardown
-    checked."""
+    the peak device memory of the warm runs (of the first run where there
+    is none) and each run's teardown checked."""
     import torch
     from spark_rapids_tpu_torch.ops.base import ExecContext
     collect = collect or type(phys).collect
+    warm_runs = OOC_WARM_RUNS
+    if not warm_runs:
+        torch.cuda.reset_peak_memory_stats()
     r = run_checked(native, label, phys, check, want, [], must, known_seen,
                     known_k1, collect=collect)
     known_seen.append(r["seen"])
@@ -3115,9 +3200,10 @@ def ooc_runs(native, label: str, phys, check, want, must, known_seen: list,
     counts = check_teardown(label, r["ctx"])
     recovery = dict(counts["recovery"])
     warm = []
-    torch.cuda.reset_peak_memory_stats()
+    if warm_runs:
+        torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    for _ in range(OOC_WARM_RUNS):
+    for _ in range(warm_runs):
         ctx = ExecContext(phys.conf)
         t0 = time.perf_counter()
         rows = collect(phys, ctx)
@@ -3476,7 +3562,8 @@ def max_abs_err(got, plain, unsigned: bool = False) -> float:
 def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
               timed: bool, profiled: bool = False) -> dict:
     """K4 against its plain version, bit for bit; with ``timed``, kernel,
-    plain and one ``torch.repeat_interleave`` times beside the bound; with
+    plain (also K4's library route, what ``native.rleDecode=false`` runs)
+    and one ``torch.repeat_interleave`` times beside the bound; with
     ``profiled``, also the kernel's device time."""
     import torch
     got = native.rle_decode(vals, ends, cap, nrows)
@@ -3504,6 +3591,7 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
     iters = 20 if cap >= 1_000_000 else 50
     r["plain_ms"] = cuda_ms(
         lambda: native.rle_decode_plain(vals, ends, cap, nrows), iters)
+    r["library_route_ms"] = r["plain_ms"]
     fns = {"ms": lambda: native.rle_decode(vals, ends, cap, nrows)}
     # One PyTorch call for the expansion: repeat each run by its length.
     # The padding runs cover [num_rows, cap) with zeros, so the counts sum
@@ -3530,7 +3618,8 @@ def rle_check(native, vals, ends, cap: int, nrows: int, label: str,
     log(f"K4 rle_decode {label} {r['dtype']} run_cap={r['run_cap']} "
         f"cap={cap} num_rows={nrows} ({staging}): bit-identical to plain; "
         f"kernel {r['ms']:.4f} ms, repeat_interleave {lib_ms} (medians of "
-        f"5 turns), plain {r['plain_ms']:.4f} ms, bound "
+        f"5 turns), plain and library route (searchsorted + gather) "
+        f"{r['plain_ms']:.4f} ms, bound "
         f"{bound_text(r['bound_ms'])} ms (bytes){dev_note}")
     return r
 
@@ -3551,7 +3640,45 @@ def rle_phase(native) -> dict:
                 checked += 1
     log(f"K4 rle_decode: {checked} tables bit-identical to the plain version "
         f"(caps {CAPS}, six types, runs {RLE_RUNS})")
+    out["wire"] = rle_wire_check(native)
     return out
+
+
+# The wire check's column: the most runs the encoder run-codes (rows/4).
+RLE_WIRE_ROWS = 1 << 21
+RLE_WIRE_RUN = 4
+
+
+def rle_wire_check(native) -> dict:
+    """A run table far above the JAX package's 4,096-run
+    ``rleDecode.maxRuns`` through the wire codec's upload: K4 under its
+    live gate, once, and no library route."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import wire
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    rng = np.random.default_rng(9)
+    runs = RLE_WIRE_ROWS // RLE_WIRE_RUN
+    col = np.repeat(rng.integers(-2 ** 62, 2 ** 62, runs, dtype=np.int64),
+                    RLE_WIRE_RUN)
+    hb = HostBatch(("v",), [HostColumn(dt.INT64, col,
+                                       np.ones(col.size, np.bool_))])
+    enc = wire.pack_batch(hb, mode="v2")
+    spec = next(sp for sp in enc.specs if sp[0] == "rle")
+    native.reset_counters()
+    got = wire.upload_packed(enc, device="cuda").columns[0].data
+    torch.cuda.synchronize()
+    launches = native.counters()["rle_decode"]
+    library = native.library_counters()["rle_decode"]
+    if launches != 1 or library:
+        raise AssertionError(f"K4 wire decode of {spec[3]} runs: "
+                             f"{launches} launches, {library} library calls")
+    if not np.array_equal(got[:col.size].cpu().numpy(), col):
+        raise AssertionError("K4 wire decode: the column differs")
+    log(f"K4 through the wire codec: {RLE_WIRE_ROWS} int64 rows in runs of "
+        f"{RLE_WIRE_RUN} ({runs} runs, run_cap {spec[3]}): 1 launch, 0 "
+        f"library calls, the column back bit for bit")
+    return dict(runs=runs, run_cap=spec[3], launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3966,7 +4093,8 @@ def rowsource_phase(native, cols: dict, known_seen: list,
 
 ETL_HEAD_ROWS = 1 << 18
 STRING_WARM_RUNS = 1
-# Queries whose warm run was cut for time (etl head: 3-5 s a run).
+# Queries whose warm run was cut for time (etl head: 3-5 s a run); no
+# query has one under the default conf, for the script's time budget.
 STRING_NO_WARM = ("etl",)
 # The logical nodes the default conf places on the host engine, by run:
 # orders_etl's case-map and float-format projection and its float-parse
@@ -4471,7 +4599,8 @@ def string_phase(native, cols: dict, known_seen: list,
                         if c["kernel"] == "radix_sort")
         out["kernel_checks"] += r["checks"]
         islands = island_counts(r["ctx"])
-        runs = 0 if q in STRING_NO_WARM else STRING_WARM_RUNS
+        runs = 0 if q in STRING_NO_WARM or conf_name == "default" \
+            else STRING_WARM_RUNS
         if q in batches:
             walls, peak, held = _warm_batches(
                 phys, lambda hbs, _w: check(hbs, want.get(q)), runs)
@@ -4951,8 +5080,9 @@ def file_phase(native, cols: dict, df_out: dict, known_seen: list,
     known_seen = list(known_seen)
     known_k1 = set(known_k1)
     oracles = df_out["oracles"]
-    out = {"kernel_checks": [], "runs": []}
     root = tempfile.mkdtemp(prefix="srt_phase22_")
+    # The written files stay for phase 23 (d), which deletes ``root``.
+    out = {"kernel_checks": [], "runs": [], "root": root}
 
     def run(label, phys, check, want, must=()):
         wire.reset_counters()
@@ -4967,11 +5097,13 @@ def file_phase(native, cols: dict, df_out: dict, known_seen: list,
         r["scan"] = scan_metrics(r["ctx"])
         return r
 
+    done = False
     try:
         # (a) write the tables from in-memory scans on the card.
         session = TpuSession(FILE_VFA)
         schemas = file_schemas(tpch, cols)
         data_dir = os.path.join(root, "tpch")
+        out["data_dir"] = data_dir
         out["write"] = {}
         for t, schema in schemas.items():
             df = DataFrame(session, L.InMemoryScan(schema, E.table_partitions(
@@ -5154,12 +5286,405 @@ def file_phase(native, cols: dict, df_out: dict, known_seen: list,
             f"the cap, ladder {g['ladder']}, the cache emptied, rows match")
         out["oom"] = dict(g, cached_bytes=cached)
         out["runs"].append(g["launches"])
+        done = True
     finally:
         DEVICE_SCAN_CACHE.clear()
-        shutil.rmtree(root, ignore_errors=True)
+        if not done:
+            shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 22 took {out['seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the native gates, the plan cache with bind slots, stage fusion
+# ---------------------------------------------------------------------------
+
+GATE_QUERIES = ("q1", "q2", "q3", "q4")
+# The kernel each gate-query launches that the others' runs may not.
+OWN_GATE = {"q1": "radixSort", "q2": "segmentReduce", "q3": "rleDecode",
+            "q4": "joinProbe"}
+PLAIN_VERSIONS = ("stable_argsort_u32_plain", "seg_reduce_plain",
+                  "searchsorted_u64_pair_plain", "rle_decode_plain")
+Q1_CUTOFFS = ("1998-09-02", "1995-06-17")
+# (date lo, date hi, discount lo, discount hi, quantity below)
+Q6_BINDINGS = (("1994-01-01", "1995-01-01", 0.05, 0.07, 24.0),
+               ("1995-01-01", "1996-06-01", 0.02, 0.09, 40.0))
+# Ship-date bands for (d): TPC-H's, and one after every shipped line.
+PUSHDOWN_BANDS = (("1994-01-01", "1995-01-01"), ("1999-01-01",
+                                                 "2000-01-01"))
+KERNEL_OF = {"radixSort": "radix_sort", "segmentReduce": "seg_reduce",
+             "rleDecode": "rle_decode", "joinProbe": "join_probe"}
+# Whether the plan holds a fused stage: q6's lone filter under its
+# aggregate has nothing to fuse with.
+FUSES = {"q1": True, "q6": False, "q67": True}
+
+
+# K3's and K4's library routes are their plain versions.
+PLAIN_ROUTE = {"joinProbe": "searchsorted_u64_pair_plain",
+               "rleDecode": "rle_decode_plain"}
+
+
+@contextlib.contextmanager
+def plain_versions_raise(native, off=()):
+    """Every plain version raises while the block runs, but K3's and
+    K4's where their gate is in ``off``: on the card a K1-K4 call
+    launches its kernel or takes its library route, never a plain
+    version that is not that route."""
+    allowed = {PLAIN_ROUTE[g] for g in off if g in PLAIN_ROUTE}
+    saved = {n: getattr(native, n) for n in PLAIN_VERSIONS
+             if n not in allowed}
+
+    def boom(name):
+        def raiser(*args, **kwargs):
+            raise AssertionError(f"phase 23: {name} ran for a tensor on "
+                                 f"the card")
+        return raiser
+    for n in saved:
+        setattr(native, n, boom(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+
+
+def q1_at(L, li, cutoff: int):
+    """TPC-H q1's text (``benchmarks/tpch.py``) with its ship-date cutoff
+    a parameter."""
+    disc = li.filter(L.col("l_shipdate") <= L.lit_col(cutoff)) \
+        .with_column("disc_price",
+                     L.col("l_extendedprice") * (1.0 - L.col("l_discount"))) \
+        .with_column("charge",
+                     L.col("l_extendedprice") * (1.0 - L.col("l_discount"))
+                     * (1.0 + L.col("l_tax")))
+    return disc.group_by("l_returnflag", "l_linestatus").agg(
+        L.agg_sum(L.col("l_quantity")).alias("sum_qty"),
+        L.agg_sum(L.col("l_extendedprice")).alias("sum_base_price"),
+        L.agg_sum(L.col("disc_price")).alias("sum_disc_price"),
+        L.agg_sum(L.col("charge")).alias("sum_charge"),
+        L.agg_avg(L.col("l_quantity")).alias("avg_qty"),
+        L.agg_avg(L.col("l_extendedprice")).alias("avg_price"),
+        L.agg_avg(L.col("l_discount")).alias("avg_disc"),
+        L.agg_count().alias("count_order"),
+    ).order_by("l_returnflag", "l_linestatus")
+
+
+def q6_at(L, li, lo: int, hi: int, dlo: float, dhi: float, qty: float):
+    """TPC-H q6's text with its date band, discount band and quantity
+    bound parameters."""
+    f = li.filter((L.col("l_shipdate") >= L.lit_col(lo))
+                  & (L.col("l_shipdate") < L.lit_col(hi))
+                  & (L.col("l_discount") >= dlo)
+                  & (L.col("l_discount") <= dhi)
+                  & (L.col("l_quantity") < qty))
+    return f.agg(L.agg_sum(L.col("l_extendedprice") * L.col("l_discount"))
+                 .alias("revenue"))
+
+
+def q6_binding(E, lo: str, hi: str, dlo: float, dhi: float, qty: float):
+    """The literals of one q6 binding, as ``q6_oracle`` reads them."""
+    import types
+    return types.SimpleNamespace(
+        Q6_DATE_LO=E.days(lo), Q6_DATE_HI=E.days(hi), Q6_DISCOUNT_LO=dlo,
+        Q6_DISCOUNT_HI=dhi, Q6_QUANTITY_BELOW=qty)
+
+
+def _metric_sum(ctx, name: str, prefix: str = "") -> float:
+    return sum(m.values.get(name, 0) for k, m in ctx.metrics.items()
+               if k.startswith(prefix))
+
+
+def _timed_collect(phys, ctx):
+    import torch
+    t0 = time.perf_counter()
+    rows = phys.collect(ctx)
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def gates_runs(native, df_out: dict, smi: str) -> dict:
+    """(a) q1-q4, phase 11's templates, run on the card with the gates on,
+    with ``native.enabled=false`` and with only the query's own kernel's
+    gate off, in turns (on, off, own off), every plain version
+    raising but those that are the run's library routes."""
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    out = {"library": {}}
+    for q in GATE_QUERIES:
+        check, want = df_out["oracles"][q]
+        phys = df_out[q]["frame"]._physical()
+        raw = dict(phys.conf.raw)
+        confs = {"on": raw,
+                 "off": dict(raw, **{"spark.rapids.sql.native.enabled":
+                                     False}),
+                 "own": dict(raw, **{f"spark.rapids.sql.native."
+                                     f"{OWN_GATE[q]}.enabled": False})}
+        runs = []
+        gates_off = {"on": (), "off": native.KERNELS, "own": (OWN_GATE[q],)}
+        for label in ("on", "off", "own"):
+            native.reset_counters()
+            with plain_versions_raise(native, gates_off[label]):
+                rows, wall = _timed_collect(
+                    phys, ExecContext(TpuConf(confs[label])))
+                check(rows, want)
+                runs.append((label, rows, wall, native.counters(),
+                             native.library_counters()))
+        native.maybe_configure(TpuConf())
+        on_rows, on_l = runs[0][1], runs[0][3]
+        if on_l != df_out[q]["launches"]:
+            raise AssertionError(f"{q} gates on launched {on_l}, phase 11 "
+                                 f"{df_out[q]['launches']}")
+        for label, rows, _wall, launches, lib in runs[1:]:
+            if rows != on_rows:
+                raise AssertionError(f"{q} ({label}) rows differ from the "
+                                     f"gates-on run's")
+            if label == "off":
+                if any(launches.values()):
+                    raise AssertionError(f"{q} gates off launched "
+                                         f"{launches}")
+                missed = [k for k, n in on_l.items() if n and not lib[k]]
+                if missed:
+                    raise AssertionError(f"{q} gates off: no library call "
+                                         f"for {missed} ({lib})")
+                out["library"][q] = lib
+            if label == "own":
+                k = KERNEL_OF[OWN_GATE[q]]
+                want_l = dict(on_l, **{k: 0})
+                if launches != want_l or not lib[k]:
+                    raise AssertionError(f"{q} with {OWN_GATE[q]} off "
+                                         f"launched {launches}, library "
+                                         f"{lib}; expected {want_l}")
+        walls = {label: [round(w, 4) for lb, _r, w, _l, _b in runs
+                         if lb == label] for label in ("on", "off", "own")}
+        log(f"phase 23 (a) {q}: rows bit for bit under every gate setting; "
+            f"gates on launches {on_l}; native.enabled=false launches 0, "
+            f"library calls {runs[1][4]}; {OWN_GATE[q]} off launches "
+            f"{runs[2][3]}, library calls {runs[2][4]}; warm walls in turns "
+            f"(on, off, own off): on {walls['on']} s, off "
+            f"{walls['off']} s, own off {walls['own']} s; {smi}")
+        out[q] = dict(walls=walls, runs=[r[3] for r in runs],
+                      library=[r[4] for r in runs])
+    return out
+
+
+def plan_cache_runs(native, cols: dict, df_out: dict, smi: str) -> dict:
+    """(b) q1 and q6 through ``prepare()`` at two bindings each over phase
+    11's tables, the plan cache cleared first (a miss is a first run):
+    the second binding a hit on the first's template, each binding's rows
+    against numpy, and a DataFrame rebuilt with the first binding's
+    literals a hit that reuses the template's packed sources."""
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.plan import plan_cache as PC
+    PC.cache().clear()
+    tables = df_out["tables"]
+    out = {}
+    # The first bindings are the query texts' literals: phase 11's
+    # oracles serve them.
+    first_q6 = vars(q6_binding(E, *Q6_BINDINGS[0]))
+    if E.days(Q1_CUTOFFS[0]) != E.Q1_SHIPDATE_CUTOFF or \
+            any(getattr(E, k) != v for k, v in first_q6.items()):
+        raise AssertionError("phase 23 (b): the first bindings must be the "
+                             "query texts' literals")
+    memo = {("q1", Q1_CUTOFFS[0]): df_out["oracles"]["q1"],
+            ("q6", Q6_BINDINGS[0][0]): df_out["oracles"]["q6"]}
+
+    def oracle_of(q, name, compute):
+        return lambda: memo.setdefault((q, name), compute())
+    cases = {
+        "q1": [(c, lambda li, c=c: q1_at(L, li, E.days(c)),
+                oracle_of("q1", c, lambda c=c: (check_q1, q1_oracle(
+                    cols["lineitem"], E.days(c)))))
+               for c in Q1_CUTOFFS],
+        "q6": [(b[0], lambda li, b=b: q6_at(L, li, E.days(b[0]),
+                                            E.days(b[1]), *b[2:]),
+                oracle_of("q6", b[0], lambda b=b: (check_q6, q6_oracle(
+                    cols, q6_binding(E, *b)))))
+               for b in Q6_BINDINGS]}
+    for q, bindings in cases.items():
+        li = tables[q]["lineitem"]
+        runs = []
+        for name, build, oracle in bindings + [bindings[0]]:
+            hits0 = PC.counters().get("planCacheHits", 0)
+            t0 = time.perf_counter()
+            bound = build(li).prepare()
+            bind_ms = (time.perf_counter() - t0) * 1e3
+            ctx = ExecContext(bound.conf)
+            rows, wall = _timed_collect(bound, ctx)
+            check, want = oracle()
+            check(rows, want)
+            runs.append(dict(
+                binding=name, hit=bound.cache_hit, bind_ms=bind_ms,
+                first_s=wall, values=bound.bind_values,
+                hits=PC.counters().get("planCacheHits", 0) - hits0,
+                template=bound.template,
+                pack_ms=_metric_sum(ctx, "packTime",
+                                    "InMemorySourceExec") / 1e6))
+        miss, hit, rebuilt = runs
+        if miss["hit"] or not hit["hit"] or not rebuilt["hit"] \
+                or hit["hits"] != 1 or rebuilt["hits"] != 1:
+            raise AssertionError(f"{q} plan cache: {runs}")
+        if hit["template"] is not miss["template"] \
+                or rebuilt["template"] is not miss["template"]:
+            raise AssertionError(f"{q}: a hit planned a template of its own")
+        log(f"phase 23 (b) {q}: miss (binding {miss['binding']}, slots "
+            f"{miss['values']}) plan-or-bind {miss['bind_ms']:.3f} ms, first "
+            f"run {miss['first_s']:.3f} s, packTime {miss['pack_ms']:.1f} "
+            f"ms; hit (binding {hit['binding']}, the miss's template) "
+            f"plan-or-bind {hit['bind_ms']:.3f} ms, {hit['first_s']:.3f} s; "
+            f"rebuilt DataFrame (binding "
+            f"{rebuilt['binding']}) plan-or-bind {rebuilt['bind_ms']:.3f} "
+            f"ms, first run {rebuilt['first_s']:.3f} s, packTime "
+            f"{rebuilt['pack_ms']:.1f} ms; every binding's rows match "
+            f"numpy; {smi}")
+        for r in runs:
+            del r["template"]       # no template outlives the phase
+        out[q] = runs
+    out["counters"] = PC.counters()
+    return out
+
+
+def fusion_runs(native, df_out: dict, ds_out: dict, smi: str) -> dict:
+    """(c) q1, q6 (phase 11's templates) and q67 (phase 14's) fused, then
+    planned with ``stageFusion.enabled=false``: the same rows and the
+    same K1-K4 launches; the fused stages and their member counts."""
+    from spark_rapids_tpu_torch.api import DataFrame, TpuSession
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    out = {}
+    cases = {q: (df_out[q]["frame"]._physical(), df_out[q]["frame"]._plan,
+                 *df_out["oracles"][q]) for q in ("q1", "q6")}
+    q67 = ds_out["q67"]
+    cases["q67"] = (q67["phys"], q67["plan"], q67["check"], q67["want"])
+    for q, (fused, plan, check, want) in cases.items():
+        unfused = DataFrame(TpuSession(dict(
+            fused.conf.raw, **{"spark.rapids.sql.stageFusion.enabled":
+                               False})), plan)._physical()
+        got = {}
+        for label, phys in (("fused", fused), ("unfused", unfused)):
+            native.reset_counters()
+            ctx = ExecContext(phys.conf)
+            rows, wall = _timed_collect(phys, ctx)
+            check(rows, want)
+            got[label] = dict(rows=rows, wall=wall,
+                              launches=native.counters(),
+                              ops=_metric_sum(ctx, "numFusedOps",
+                                              "FusedStageExec"),
+                              stages=phys.num_fused_stages)
+        f, u = got["fused"], got["unfused"]
+        if f["rows"] != u["rows"] or f["launches"] != u["launches"]:
+            raise AssertionError(f"{q}: fused {f['launches']} vs unfused "
+                                 f"{u['launches']}, rows equal: "
+                                 f"{f['rows'] == u['rows']}")
+        if u["stages"] or bool(f["stages"]) != FUSES[q]:
+            raise AssertionError(f"{q}: {f['stages']} fused stages, "
+                                 f"{u['stages']} with fusion off")
+        lines = [line for line in fused.explain().splitlines()
+                 if "Fused stages" in line or "*Stage #" in line]
+        log(f"phase 23 (c) {q}: fused and unfused rows bit for bit, "
+            f"launches {f['launches']} both; {f['stages']} fused stage(s), "
+            f"numFusedOps {int(f['ops'])}; walls fused {f['wall']:.4f} s "
+            f"(warm), unfused {u['wall']:.4f} s (its first run); {smi}")
+        for line in lines:
+            log(f"  {line.strip()}")
+        out[q] = dict(stages=f["stages"], ops=f["ops"],
+                      launches=f["launches"], fused_s=f["wall"],
+                      unfused_s=u["wall"], lines=lines)
+    return out
+
+
+def pushdown_runs(native, cols: dict, fi_out: dict, smi: str) -> dict:
+    """(d) q6 over phase 22's LINEITEM files at two ``l_shipdate``
+    bindings of one template: the row groups skipped must be those whose
+    ship dates (read back with numpy) miss each band."""
+    import pyarrow.parquet as papq
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    from spark_rapids_tpu_torch.plan import logical as L
+    paths = tpch._paths(fi_out["data_dir"], "lineitem")
+    dates = []
+    for p in paths:
+        d = papq.read_table(p, columns=["l_shipdate"]).column(0).to_numpy()
+        if d.dtype.kind == "M":          # written as a parquet DATE
+            d = d.astype("datetime64[D]")
+        dates.append(d.astype(np.int64))
+    session = TpuSession(FILE_VFA)
+    out = {"runs": []}
+    for lo, hi in PUSHDOWN_BANDS:
+        b = (lo, hi, E.Q6_DISCOUNT_LO, E.Q6_DISCOUNT_HI,
+             E.Q6_QUANTITY_BELOW)
+        bound = q6_at(L, session.read.parquet(*paths), E.days(lo),
+                      E.days(hi), *b[2:]).prepare()
+        ctx = ExecContext(bound.conf)
+        rows, wall = _timed_collect(bound, ctx)
+        check_q6(rows, q6_oracle(cols, q6_binding(E, *b)))
+        skipped = int(_metric_sum(ctx, "numSkippedRowGroups"))
+        want = sum(1 for d in dates
+                   if d.max() < E.days(lo) or d.min() >= E.days(hi))
+        if skipped != want:
+            raise AssertionError(f"q6 [{lo}, {hi}) skipped {skipped} row "
+                                 f"groups, numpy says {want}")
+        log(f"phase 23 (d) q6 from parquet, l_shipdate in [{lo}, {hi}): "
+            f"plan cache {'hit' if bound.cache_hit else 'miss'}; "
+            f"{skipped} of {len(paths)} row groups skipped, as numpy's "
+            f"ship-date ranges say; rows match ({rows}); {wall:.3f} s; "
+            f"{smi}")
+        out["runs"].append(dict(band=(lo, hi), hit=bound.cache_hit,
+                                skipped=skipped, wall=wall))
+    if [r["hit"] for r in out["runs"]] != [False, True] or len(
+            {r["skipped"] for r in out["runs"]}) != 2:
+        raise AssertionError(f"(d) {out['runs']}")
+    return out
+
+
+def prepared_phase(native, cols: dict, df_out: dict, ds_out: dict,
+                   fi_out: dict, smi: str) -> dict:
+    """Phase 23: (a) the gates, (b) the plan cache, (c) fusion, (d)
+    pushdown by binding; then whether the cached templates held device
+    memory."""
+    import gc
+    import torch
+    from spark_rapids_tpu_torch.plan import plan_cache as PC
+    t_phase = time.perf_counter()
+    out = dict(gates=gates_runs(native, df_out, smi),
+               cache=plan_cache_runs(native, cols, df_out, smi),
+               fusion=fusion_runs(native, df_out, ds_out, smi),
+               pushdown=pushdown_runs(native, cols, fi_out, smi))
+    # Tensors free by reference count; a cycle left uncollected here
+    # would only show as more freed below, never as less.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    entries = PC.cache().stats()["entries"]
+    PC.cache().clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    log(f"phase 23: clearing {entries} cached template(s) freed {freed} B "
+        f"of device memory ({before} B allocated before)")
+    out["template_device_bytes"] = freed
+    out["runs"] = [r for q in GATE_QUERIES
+                   for r in out["gates"][q]["runs"]] + [
+        out["fusion"][q]["launches"] for q in out["fusion"]]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 23 took {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def end_phase(name: str) -> None:
+    """Clear the plan cache (its templates pin their sources and packed
+    encodings) and print the process's peak and current host RSS."""
+    import resource
+    from spark_rapids_tpu_torch.plan import plan_cache as PC
+    n = PC.cache().stats()["entries"]
+    PC.cache().clear()
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    log(f"{name}: plan cache cleared ({n} template(s)); host RSS "
+        f"{rss / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -5243,6 +5768,15 @@ def main() -> int:
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.ops import cuda_build, native
 
+    # Every kernel gate must be live: no env key may make a run pass
+    # without the kernels.
+    gates = native.gate_counters()
+    if not native.master_enabled() or \
+            gates["nativeKernels"] != list(native.KERNELS):
+        print(f"chip_smoke: a spark.rapids.sql.native gate is off "
+              f"({gates}); every kernel must run", file=sys.stderr)
+        return 2
+
     # Phase 1: device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -5265,11 +5799,17 @@ def main() -> int:
     k1 = kernel_phase(native)
     sort_profile_phase(native, k1)
 
+    end_phase("phase 3")
+
     # Phase 4: TPC-H q1
     path = path_phase(entry, native)
 
+    end_phase("phase 4")
+
     # Phase 5: kernel K3
     probe_phase(native)
+
+    end_phase("phase 5")
 
     # Phase 6: TPC-H q3 and q4
     t0 = time.perf_counter()
@@ -5277,19 +5817,29 @@ def main() -> int:
     log(f"TPC-H SF1 columns generated in {time.perf_counter() - t0:.2f} s")
     joins = join_paths_phase(entry, native, cols)
 
+    end_phase("phase 6")
+
     # Phase 7: kernel K2
     seg_phase(native)
+
+    end_phase("phase 7")
 
     # Phase 8: TPC-H q2
     q2 = q2_phase(entry, native, cols)
 
+    end_phase("phase 8")
+
     # Phase 9: kernel K4
     rle_phase(native)
+
+    end_phase("phase 9")
 
     # Phase 10: the wire codec, v2 against plain
     codec_walls({"q1": path["plan"], "q3": joins["plans"]["q3"],
                  "q4": joins["plans"]["q4"], "q2": q2["plan"]})
     encode_split(path["plan"], path["parts"])
+
+    end_phase("phase 10")
 
     # Phase 11: TPC-H q1-q6 through the DataFrame front end
     df = dataframe_phase(native, cols, {
@@ -5298,9 +5848,13 @@ def main() -> int:
         "q4": (joins["plans"]["q4"], joins["q4"]["launches"]),
         "q2": (q2["plan"], q2["launches"])}, joins["seen"] + [q2["seen"]])
 
+    end_phase("phase 11")
+
     # Phase 12: TPC-H q1-q6 under the default conf
     mixed = default_conf_phase(native, cols, joins["seen"] + [q2["seen"]]
                                + [df[q]["seen"] for q in DF_QUERIES])
+
+    end_phase("phase 12")
 
     # Phase 13: TPCxBB q5 and TPC-H q7, q8, q9, q12, q14, q19, both confs
     known_k1 = set(K1_CHECKED) | {r["shape"] for r in mixed["kernel_checks"]
@@ -5309,17 +5863,23 @@ def main() -> int:
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
 
+    end_phase("phase 13")
+
     # Phase 14: TPC-DS q67, ds_q3, ds_q42, ds_q55, ds_q89, ds_q98, both
     # confs
     ds = ds_queries_phase(native, joins["seen"] + [q2["seen"]] + [
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
 
+    end_phase("phase 14")
+
     # Phase 15: TPCxBB xbb_q12 and TPC-H q10, q13, q16, q17, q18, q21,
     # both confs
     dq = distinct_queries_phase(native, cols, joins["seen"] + [q2["seen"]]
                                 + [df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
+
+    end_phase("phase 15")
 
     # Phase 16: the exchange, the shuffled and nested-loop joins, repart,
     # q11, q15, q20 and q22, and every query at 8 partitions
@@ -5328,12 +5888,16 @@ def main() -> int:
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
     ex_runs = [k for k in ex if k not in ("kernel_checks", "seconds")]
 
+    end_phase("phase 16")
+
     # Phase 18: the memory tier and out-of-core execution
     ooc = out_of_core_phase(native, cols, joins["seen"] + [q2["seen"]] + [
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
         c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
         if c["kernel"] == "radix_sort"})
+
+    end_phase("phase 18")
 
     # Phase 19: the numeric, date-time and row-source surface
     rs = rowsource_phase(native, cols, joins["seen"] + [q2["seen"]] + [
@@ -5342,12 +5906,16 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex) for c in ph["kernel_checks"]
         if c["kernel"] == "radix_sort"})
 
+    end_phase("phase 19")
+
     # Phase 20: the string surface and generate
     st = string_phase(native, cols, joins["seen"] + [q2["seen"]] + [
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
         c["shape"] for ph in (more, ds, dq, ex, rs)
         for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
+
+    end_phase("phase 20")
 
     # Phase 21: the UDF tier
     ud = udf_phase(native, cols, joins["seen"] + [q2["seen"]] + [
@@ -5356,12 +5924,23 @@ def main() -> int:
         c["shape"] for ph in (more, ds, dq, ex, rs, st)
         for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
 
+    end_phase("phase 21")
+
     # Phase 22: file I/O and plan-text ingest
     fi = file_phase(native, cols, df, joins["seen"] + [q2["seen"]] + [
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
         c["shape"] for ph in (more, ds, dq, ex, rs, st, ud)
         for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"})
+    end_phase("phase 22")
+
+    # Phase 23: the gates, the plan cache with bind slots, stage fusion
+    import shutil
+    try:
+        pp = prepared_phase(native, cols, df, ds, fi, smi)
+    finally:
+        shutil.rmtree(fi["root"], ignore_errors=True)
+    end_phase("phase 23")
 
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
@@ -5372,7 +5951,7 @@ def main() -> int:
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
-        fi["runs"])
+        fi["runs"]) + tuple(pp["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -5390,6 +5969,9 @@ def main() -> int:
     timed = dict(radix_sort=k1[(PATH_CAP, "random")],
                  join_probe=joins["q4_probe"], seg_reduce=q2["k2"],
                  rle_decode=joins["q3_rle"])
+    library = {k: sum(lib[k] for q in GATE_QUERIES
+                      for lib in pp["gates"][q]["library"])
+               for k in KERNEL_OF.values()}
     kernels = []
     for name in ("radix_sort", "join_probe", "seg_reduce", "rle_decode"):
         r = timed[name]
@@ -5400,7 +5982,13 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            # The time of what the kernel's gate off runs (for K3 and K4
+            # their plain versions).
+            "library_route_ms": r["library_route_ms"],
+            # Phase 23 (a): calls of the kernel's library route under
+            # native.enabled=false and under its own gate off.
+            "library_calls": int(library[name])})
     log(f"launches per path: q1 {runs[0]}, q3 {runs[1]}, q4 {runs[2]}, "
         f"q2 {runs[3]}; DataFrame path "
         + ", ".join(f"{q} {df[q]['launches']}" for q in DF_QUERIES)
@@ -5422,7 +6010,9 @@ def main() -> int:
         + "; phase 19 " + ", ".join(str(r) for r in rs["runs"])
         + "; phase 20 " + ", ".join(str(r) for r in st["runs"])
         + "; phase 21 " + ", ".join(str(r) for r in ud["runs"])
-        + "; phase 22 " + ", ".join(str(r) for r in fi["runs"]))
+        + "; phase 22 " + ", ".join(str(r) for r in fi["runs"])
+        + "; phase 23 " + ", ".join(str(r) for r in pp["runs"])
+        + f"; phase 23 library calls {library}")
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

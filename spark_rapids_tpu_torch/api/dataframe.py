@@ -397,16 +397,29 @@ class DataFrame:
     crossJoin = cross_join
 
     def _physical(self):
-        """Plan once per conf version (no plan cache: the reference's
-        parameterized plan cache is not ported)."""
+        """Plan once per conf version, through the process-global
+        parameterized plan cache (``plan/plan_cache.py``), which also
+        shares planned templates ACROSS DataFrames of the same shape: a
+        repeated query with new literals binds them against the cached
+        template instead of re-planning (a ``BoundPlan``; a plain
+        ``PhysicalPlan`` where the cache is off or the shape
+        uncacheable)."""
         key = self._session.conf.version
         cached = getattr(self, "_phys_cache", None)
         if cached is not None and cached[0] == key:
             return cached[1]
-        phys = Planner(self._session.conf, self._session.device).plan(
-            self._plan)
+        from spark_rapids_tpu_torch.plan.plan_cache import plan_or_bind
+        phys = plan_or_bind(self._session.conf, self._plan,
+                            self._session.device)
         self._phys_cache = (key, phys)
         return phys
+
+    def prepare(self):
+        """The prepared-statement handle: plan now (or bind against the
+        plan cache) and return the bound plan, whose ``collect()`` and
+        ``explain()`` skip all planning and whose ``cache_hit`` and
+        ``bind_values`` show the plan-cache provenance."""
+        return self._physical()
 
     def collect(self) -> List[tuple]:
         return self._physical().collect()

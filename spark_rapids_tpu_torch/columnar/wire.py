@@ -859,9 +859,14 @@ def _decode(arrays: List[torch.Tensor], num_rows: torch.Tensor, n: int,
             run_vals = next(it)
             run_ends = next(it)
             # Expanded in the wire dtype (padding rows zeroed), then the
-            # same pure cast as a typed column.
-            data = _widen(native.rle_decode(run_vals, run_ends, cap, n),
-                          logical)
+            # same pure cast as a typed column. K4 under its gate, at any
+            # run count; its library route (the plain version) otherwise.
+            if native.kernel_enabled("rleDecode"):
+                decode = native.rle_decode
+            else:
+                native.count_library("rle_decode")
+                decode = native.rle_decode_plain
+            data = _widen(decode(run_vals, run_ends, cap, n), logical)
             cols.append(DeviceColumn(logical, data, valid_of(vmode)))
         elif kind in ("delta", "for"):
             _, logical_name, nname, vmode = spec

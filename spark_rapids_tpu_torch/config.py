@@ -365,6 +365,88 @@ UDF_COMPILER_ENABLED = _entry(
     "and ``udf`` compiles whatever it can.", "boolean", True)
 
 
+STAGE_FUSION_ENABLED = _entry(
+    "spark.rapids.sql.stageFusion.enabled",
+    "Collapse maximal runs of contiguous row-local device operators "
+    "(Project, Filter, LocalLimit, Expand) whose expressions need no host "
+    "roundtrip and no task context into one FusedStageExec per stage "
+    "(plan/fusion.py, ops/fused.py): one composed step per batch, with no "
+    "batch between the members (the WholeStageCodegen analog). A stage "
+    "breaks at exchanges, aggregates, sorts, joins, host-roundtrip "
+    "expressions and task-context expressions (rand, input_file_name...). "
+    "Off restores the one-Exec-one-step plan shape.", "boolean", True)
+
+NATIVE_ENABLED = _entry(
+    "spark.rapids.sql.native.enabled",
+    "The hand-written kernel layer (ops/native.py): the stable u32 radix "
+    "sort (K1), the sorted-segment reduce (K2), the hash-join probe (K3) "
+    "and the wire codec's RLE decode (K4). Off sends every one of them to "
+    "its PyTorch library route (torch.sort, scatter_reduce_, and for K3 "
+    "and K4 their plain versions: two torch.searchsorted, searchsorted + "
+    "gather), on either device; each "
+    "kernel is also gated by its spark.rapids.sql.native.<kernel>.enabled "
+    "key. The SRT_NATIVE env (0/1) overrides the default for a whole "
+    "process.", "boolean", True)
+
+NATIVE_RADIX_SORT = _entry(
+    "spark.rapids.sql.native.radixSort.enabled",
+    "Per-kernel gate: K1, the stable u32 radix sort behind every sort word "
+    "(ops/kernels.py _radix_perm) and the exchange's pid sort; off, a "
+    "stable torch.sort of the keys widened to int64. The permutation is "
+    "unique, so bit-identical.", "boolean", True)
+
+NATIVE_JOIN_PROBE = _entry(
+    "spark.rapids.sql.native.joinProbe.enabled",
+    "Per-kernel gate: K3, the hash-join probe (ops/join.py probe_ranges), "
+    "both insertion points of each probe fingerprint in one walk; off, two "
+    "torch.searchsorted over sign-flipped int64 fingerprints (K3's plain "
+    "version).",
+    "boolean", True)
+
+NATIVE_RLE_DECODE = _entry(
+    "spark.rapids.sql.native.rleDecode.enabled",
+    "Per-kernel gate: K4, the wire codec's RLE decode (columnar/wire.py), "
+    "at any run count; off, searchsorted of the row index in the run ends "
+    "and a gather (K4's plain version). Values "
+    "move as bit patterns, so -0.0 and NaN payloads survive.",
+    "boolean", True)
+
+NATIVE_RLE_MAX_RUNS = _entry(
+    "spark.rapids.sql.native.rleDecode.maxRuns",
+    "Registered as in the reference, where it bounds the run tables its "
+    "RLE kernel takes (a TPU VMEM limit); nothing in the port reads it: "
+    "K4 cuts a larger table into block windows and takes any run count.",
+    "long", 4096)
+
+NATIVE_SEGMENT_REDUCE = _entry(
+    "spark.rapids.sql.native.segmentReduce.enabled",
+    "Per-kernel gate: K2, the sorted-segment reduce (ops/kernels.py "
+    "segment_reduce) for integer sums (exact two's-complement) and every "
+    "min/max in the total-order bit domain; off, an identity-filled "
+    "scatter_reduce_ over the same encoded keys. Float sums take neither "
+    "(reduction order changes their rounding).", "boolean", True)
+
+PLAN_CACHE_ENABLED = _entry(
+    "spark.rapids.sql.planCache.enabled",
+    "Parameterized plan cache (plan/plan_cache.py): keep fully planned "
+    "and fused physical plan templates in a process-global LRU keyed by "
+    "the logical plan's structural fingerprint (literal VALUES hoisted "
+    "into bind slots), its input schemas and sources, the conf snapshot "
+    "and the session's device. A repeat execution with the same shape and "
+    "new literals (filter constants, date ranges, limits) skips planning "
+    "and binds its literals as 0-d tensors the kernels read. Any conf "
+    "change, and a scanned file rewritten in place, misses it. The "
+    "SRT_PLAN_CACHE env (0/1) overrides the default for a whole process.",
+    "boolean", True)
+
+PLAN_CACHE_MAX_ENTRIES = _entry(
+    "spark.rapids.sql.planCache.maxEntries",
+    "LRU bound on the parameterized plan cache. Each entry pins one "
+    "physical plan template (exec tree and tagged meta) and, for "
+    "in-memory sources, the source batches its key identifies and their "
+    "packed encodings.", "long", 256)
+
+
 class TpuConf:
     """Resolved view over a raw key->value dict."""
 

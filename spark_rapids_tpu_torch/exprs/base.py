@@ -81,6 +81,20 @@ class Expression:
     def eval_host(self, batch: HostBatch) -> HostColumnLike:
         raise NotImplementedError
 
+    @property
+    def self_jittable(self) -> bool:
+        """False when this node's device eval does a host roundtrip (the
+        JAX package's name: such a node stays out of compiled programs
+        there, and out of fused stages here)."""
+        return True
+
+    @property
+    def jittable(self) -> bool:
+        """True when no node of the subtree makes a host roundtrip: the
+        expression-level CPU islands stay out of fused stages
+        (plan/fusion.py)."""
+        return self.self_jittable and all(c.jittable for c in self.children)
+
 
 # ---------------------------------------------------------------------------
 # Scalar <-> column broadcasting

@@ -70,6 +70,12 @@ class Cast(UnaryExpression):
     def data_type(self) -> DataType:
         return self.to
 
+    @property
+    def self_jittable(self) -> bool:
+        # The string side parses or formats on the host (a CPU island).
+        return not (self.child.data_type().is_string or self.to.is_string) \
+            or self.child.data_type() == self.to
+
     def eval(self, batch):
         col = as_device_column(self.child.eval(batch), batch)
         src = self.child.data_type()

@@ -224,6 +224,11 @@ class InputFileName(ContextualExpression):
     def data_type(self) -> DataType:
         return dt.STRING
 
+    @property
+    def self_jittable(self) -> bool:
+        # A per-batch host string.
+        return False
+
     def _scalar(self) -> Scalar:
         return Scalar(dt.STRING, current_eval_context().input_file or "")
 

@@ -42,6 +42,10 @@ class PythonUDF(Expression):
     def children(self) -> Tuple[Expression, ...]:
         return self._children
 
+    @property
+    def self_jittable(self) -> bool:
+        return False
+
     def data_type(self) -> DataType:
         return self._rt
 

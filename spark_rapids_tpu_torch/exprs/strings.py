@@ -299,6 +299,11 @@ class Like(Expression):
     def data_type(self) -> DataType:
         return dt.BOOL
 
+    @property
+    def self_jittable(self) -> bool:
+        # A pattern with ``_`` matches on the host.
+        return self._segments() is not None
+
     def _segments(self) -> Optional[List[str]]:
         """The pattern split on unescaped ``%``, or None when it holds an
         unescaped ``_``."""
@@ -985,6 +990,10 @@ class _HostStringOp(Expression):
 
     def data_type(self) -> DataType:
         return dt.STRING
+
+    @property
+    def self_jittable(self) -> bool:
+        return False
 
     @property
     def children(self):

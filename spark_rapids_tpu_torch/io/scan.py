@@ -28,10 +28,14 @@ prove empty is skipped without reading its data
 (``numSkippedRowGroups``). The filter itself still runs above the scan.
 A ``>`` or ``>=`` on a float column never skips: NaN ranks above every
 float, and neither format's statistics see NaN (the reference skips
-there and loses the NaN rows).
-The pushed values are literals: the reference's plan-cache bind slots
-(``exprs/bindslots.py``) and its ``faults.fault_point("scan")`` calls are
-not ported.
+there and loses the NaN rows). A date column's statistics compare as day
+numbers against a pushed date literal (the reference keeps every unit
+there: its date statistics and day numbers do not compare).
+A pushed value is a literal or a plan-cache ``BindValue`` slot
+(``exprs/bindslots.py``), resolved against each execution's binding
+vector (``_resolved_predicates``) wherever units are listed: the host
+engine, the pipeline's prefetch threads and the device half. The
+reference's ``faults.fault_point("scan")`` calls are not ported.
 
 The device half takes the plan's ``device`` as ``InMemorySourceExec``
 does: every decoded batch is packed by the wire codec
@@ -53,11 +57,14 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import datetime
 import os
 import threading
 import time
 from collections import OrderedDict
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
 from spark_rapids_tpu_torch.columnar.host import HostBatch
@@ -252,6 +259,21 @@ def _unit_survives(fmt: str, unit: ScanUnit,
     return _stats_survive(stats_by_name, rg.num_rows, predicates)
 
 
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def _as_days(x):
+    """A DATE statistic (``datetime.date``, ``numpy.datetime64``) as the
+    day number a pushed date literal carries; anything else as is. The
+    JAX package compares the two and keeps the unit on the TypeError, so
+    a date predicate never skips there; the port's stats skip it."""
+    if isinstance(x, datetime.date) and not isinstance(x, datetime.datetime):
+        return (x - _EPOCH).days
+    if isinstance(x, np.datetime64):
+        return int(x.astype("datetime64[D]").astype(np.int64))
+    return x
+
+
 def _stats_survive(stats_by_name, num_rows,
                    predicates: Sequence[Tuple[str, str, Any]]) -> bool:
     for name, op, value in predicates:
@@ -280,6 +302,8 @@ def _stats_survive(stats_by_name, num_rows,
             v = value.decode() if isinstance(value, bytes) else value
             mn = mn.decode() if isinstance(mn, bytes) else mn
             mx = mx.decode() if isinstance(mx, bytes) else mx
+            if isinstance(v, int):
+                mn, mx = _as_days(mn), _as_days(mx)
             if op == "eq" and (v < mn or v > mx):
                 return False
             if op == "lt" and mn >= v:
@@ -444,14 +468,34 @@ class FileScanExec(LeafExec):
     def num_partitions(self, ctx) -> int:
         return self._parts
 
-    def _units_of(self, partition: int, m=None) -> List[ScanUnit]:
-        """This partition's units, minus the stats-skipped ones."""
+    def _resolved_predicates(self, ctx) -> Tuple:
+        """The pushed conjuncts with plan-cache bind slots resolved against
+        THIS execution's binding vector (``ctx.cache['plan_binds']``). A
+        slot predicate with no binding in scope is dropped: stats skipping
+        is an optimization, and the filter above still runs."""
+        from spark_rapids_tpu_torch.exprs.bindslots import BindValue
+        if not any(isinstance(v, BindValue) for _, _, v in self.predicates):
+            return self.predicates
+        binds = None if ctx is None else ctx.cache.get("plan_binds")
+        out = []
+        for name, op, value in self.predicates:
+            if isinstance(value, BindValue):
+                if binds is None or value.slot >= len(binds):
+                    continue
+                value = binds[value.slot]
+            out.append((name, op, value))
+        return tuple(out)
+
+    def _units_of(self, partition: int, ctx=None,
+                  m=None) -> List[ScanUnit]:
+        """This partition's units, minus the ones the stats skip under
+        this execution's predicates."""
         mine = [u for i, u in enumerate(self._units)
                 if i % self._parts == partition]
-        if not self.predicates:
+        predicates = self._resolved_predicates(ctx)
+        if not predicates:
             return mine
-        kept = [u for u in mine
-                if _unit_survives(self.fmt, u, self.predicates)]
+        kept = [u for u in mine if _unit_survives(self.fmt, u, predicates)]
         if m is not None and len(kept) < len(mine):
             m.add("numSkippedRowGroups", len(mine) - len(kept))
         return kept
@@ -480,7 +524,7 @@ class FileScanExec(LeafExec):
     # -- host engine ---------------------------------------------------------
     def execute_host(self, ctx, partition):
         rows = self._batch_rows(ctx)
-        for unit in self._units_of(partition):
+        for unit in self._units_of(partition, ctx):
             self._publish_input_file(ctx, partition, unit.path, host=True)
             yield from _read_unit_batches(self.fmt, unit, self.options,
                                           rows, self._columns)
@@ -508,7 +552,7 @@ class FileScanExec(LeafExec):
         m = ctx.metrics_for(self)
         rt = self._reader_type(ctx)
         rows = self._batch_rows(ctx)
-        units = self._units_of(partition, m)
+        units = self._units_of(partition, ctx, m)
         budget = int(ctx.conf.get(C.SCAN_CACHE_BYTES))
         use_cache = budget > 0 and rt != "COALESCING"
         if rt == "COALESCING":
@@ -619,7 +663,7 @@ class FileScanExec(LeafExec):
             yield from self._device_prefetched(ctx, m, pre, rows, partition,
                                                budget)
             return
-        units = self._units_of(partition, m)
+        units = self._units_of(partition, ctx, m)
         # COALESCING merges units into one upload, so its outputs have no
         # unit identity to cache under; the per-unit strategies cache.
         use_cache = budget > 0 and rt != "COALESCING"

@@ -152,6 +152,7 @@ class DataFrameWriter:
         from spark_rapids_tpu_torch import config as C
         from spark_rapids_tpu_torch.columnar import wire
         from spark_rapids_tpu_torch.memory import oom
+        from spark_rapids_tpu_torch.ops import native
         from spark_rapids_tpu_torch.ops.base import (
             ExecContext, query_metrics_entry)
         self._prepare_dir(path)
@@ -165,7 +166,12 @@ class DataFrameWriter:
             phys = self._df._physical()
         ctx = ExecContext(phys.conf)
         ctx.cache["engine"] = "device" if phys.root_on_device else "host"
+        install = getattr(phys, "install", None)
+        if install is not None:
+            # A plan-cache bound plan: this job's literal bindings.
+            install(ctx)
         wire.maybe_configure(ctx.conf)
+        native.maybe_configure(ctx.conf)
         oom.reset_degradation()
         oom.set_active_catalog(ctx.catalog,
                                query_metrics_entry(ctx, "Recovery"))

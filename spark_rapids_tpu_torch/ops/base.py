@@ -311,7 +311,10 @@ class Exec:
         # Adopt this query's wire codec (process-global,
         # spark.rapids.sql.wire.codec) before any upload happens.
         from spark_rapids_tpu_torch.columnar import wire
+        from spark_rapids_tpu_torch.ops import native
         wire.maybe_configure(ctx.conf)
+        # ... and its spark.rapids.sql.native.* gates.
+        native.maybe_configure(ctx.conf)
         oom.reset_degradation()
         # Device subtrees under a host root register into the catalog too.
         oom.set_active_catalog(ctx.catalog,

@@ -3,8 +3,14 @@
 ``RangeExec``, ``LocalLimitExec``, ``GlobalLimitExec``, ``ExpandExec``),
 each with its device half and its numpy host half. A project's or
 filter's per-batch device step is an OOM retry site (``memory/oom.py``).
-The reference's host closure cache is not ported: the host halves
-evaluate their expressions directly on every batch.
+
+Plan-cache bind slots (``exprs/bindslots.py``) reach a project's or
+filter's steps through the context: the device step reads this
+execution's binding vector as 0-d tensors (``device_bind_args``), the
+host half as python values, and the limits resolve a ``BindValue`` budget
+per execution (``resolve_bound``). The JAX package takes those steps from
+its kernel and host closure caches; the port builds them where they run,
+as an eager closure costs nothing to build (``ops/kernel_cache.py``).
 
 A projection or filter holding a task-context expression (``rand``,
 ``monotonically_increasing_id``, ``spark_partition_id``,
@@ -32,11 +38,71 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column, eval_exprs,
     eval_exprs_host)
+from spark_rapids_tpu_torch.exprs.bindslots import (
+    BindValue, bound_literals, device_bind_args, has_bind_slots,
+    host_bind_args, resolve_bound)
 from spark_rapids_tpu_torch.exprs.nondeterministic import (
     EvalContext, eval_context, needs_eval_context)
 from spark_rapids_tpu_torch.memory.oom import retry_on_oom
 from spark_rapids_tpu_torch.ops.base import (
     Exec, LeafExec, Schema, record_batch, timed)
+
+
+def _project_step(exprs):
+    """A projection's per-batch device step, ``step(batch, binds) ->
+    batch`` with the bound literals in scope; the row count is unchanged,
+    so the host-known hint carries over."""
+    def step(b: DeviceBatch, binds=()) -> DeviceBatch:
+        with bound_literals(binds):
+            out = eval_exprs(exprs, b)
+        out.rows_hint = b.rows_hint
+        return out
+    return step
+
+
+def _filter_step(condition):
+    """A filter's per-batch device step: the condition ANDs into the
+    selection vector."""
+    def step(b: DeviceBatch, binds=()) -> DeviceBatch:
+        with bound_literals(binds):
+            cond = as_device_column(condition.eval(b), b)
+        return b.with_sel(cond.data & cond.validity)
+    return step
+
+
+def _project_host_closure(exprs, names):
+    """A projection's host closure: one numpy pass per batch, the bound
+    literals riding as an argument."""
+    def closure(hb: HostBatch, binds) -> HostBatch:
+        with bound_literals(binds or ()):
+            return eval_exprs_host(exprs, hb, names)
+    return closure
+
+
+def _filter_host_closure(condition):
+    """A filter's host closure: evaluate the condition once and gather
+    every column through the matrix-preserving ``HostColumn.take``."""
+    def closure(hb: HostBatch, binds) -> HostBatch:
+        with bound_literals(binds or ()):
+            cond = as_host_column(condition.eval_host(hb), hb)
+        return hb.filter(np.asarray(cond.data, np.bool_)
+                         & np.asarray(cond.validity, np.bool_))
+    return closure
+
+
+def _device_loop(op: Exec, step, exprs, ctx, partition):
+    """Drive ``step(batch, binds)`` over the child's device batches, each
+    call an OOM retry site."""
+    m = ctx.metrics_for(op)
+    binds = None
+    for batch in op.children[0].execute_device(ctx, partition):
+        if binds is None:
+            binds = device_bind_args(ctx, batch.device) \
+                if has_bind_slots(exprs) else ()
+        with timed(m):
+            out = retry_on_oom(step, batch, binds)
+        record_batch(m, out)
+        yield out
 
 
 def _input_file_key(op: Exec, partition: int, host: bool = False
@@ -67,32 +133,36 @@ def _input_file_key(op: Exec, partition: int, host: bool = False
     return f"{prefix}:{id(scans[0])}:{partition}"
 
 
-def _contextual_device_loop(op: Exec, kernel, ctx, partition: int):
-    """Drive ``kernel(batch)`` over the child's device batches, each inside
-    an ``EvalContext`` of this partition, the row base so far and the
-    file the batch was scanned from (read after the scan yields it)."""
+def _contextual_device_loop(op: Exec, exprs, step, ctx, partition: int):
+    """Drive ``step(batch, binds)`` over the child's device batches, each
+    inside an ``EvalContext`` of this partition, the row base so far and
+    the file the batch was scanned from (read after the scan yields it),
+    each call an OOM retry site."""
     m = ctx.metrics_for(op)
-    base = None
+    base = binds = None
     key = _input_file_key(op, partition)
     for batch in op.children[0].execute_device(ctx, partition):
         if base is None:
             base = torch.zeros((), dtype=torch.int64, device=batch.device)
+            binds = device_bind_args(ctx, batch.device) \
+                if has_bind_slots(exprs) else ()
         ec = EvalContext(partition, base,
                          ctx.cache.get(key) if key else None)
         with timed(m), eval_context(ec):
-            out = retry_on_oom(kernel, batch)
+            out = retry_on_oom(step, batch, binds)
         base = base + batch.num_rows.to(torch.int64)
         record_batch(m, out)
         yield out
 
 
-def _contextual_host_loop(op: Exec, kernel, ctx, partition: int):
+def _contextual_host_loop(op: Exec, kernel, ctx, partition: int, exprs=()):
     base = 0
     key = _input_file_key(op, partition, host=True)
+    binds = host_bind_args(ctx) if has_bind_slots(exprs) else ()
     for hb in op.children[0].execute_host(ctx, partition):
         ec = EvalContext(partition, base,
                          ctx.cache.get(key) if key else None)
-        with eval_context(ec):
+        with eval_context(ec), bound_literals(binds):
             out = kernel(hb)
         yield out
         base += hb.num_rows
@@ -112,34 +182,27 @@ class ProjectExec(Exec):
         return tuple((n, e.data_type())
                      for n, e in zip(self.names, self.exprs))
 
-    def _kernel(self, batch: DeviceBatch) -> DeviceBatch:
-        out = eval_exprs(self.exprs, batch)
-        # Projection preserves row count: keep the host-known hint.
-        out.rows_hint = batch.rows_hint
-        return out
-
     def _host_kernel(self, hb: HostBatch) -> HostBatch:
         return eval_exprs_host(self.exprs, hb, self.names)
 
     def execute_device(self, ctx, partition):
-        if needs_eval_context(self.exprs):
-            yield from _contextual_device_loop(self, self._kernel, ctx,
+        exprs = list(self.exprs)
+        step = _project_step(exprs)
+        if needs_eval_context(exprs):
+            yield from _contextual_device_loop(self, exprs, step, ctx,
                                                partition)
             return
-        m = ctx.metrics_for(self)
-        for batch in self.children[0].execute_device(ctx, partition):
-            with timed(m):
-                out = retry_on_oom(self._kernel, batch)
-            record_batch(m, out)
-            yield out
+        yield from _device_loop(self, step, exprs, ctx, partition)
 
     def execute_host(self, ctx, partition):
         if needs_eval_context(self.exprs):
             yield from _contextual_host_loop(self, self._host_kernel, ctx,
-                                             partition)
+                                             partition, self.exprs)
             return
+        binds = host_bind_args(ctx) if has_bind_slots(self.exprs) else None
+        fn = _project_host_closure(list(self.exprs), tuple(self.names))
         for hb in self.children[0].execute_host(ctx, partition):
-            yield self._host_kernel(hb)
+            yield fn(hb, binds)
 
 
 class FilterExec(Exec):
@@ -156,35 +219,27 @@ class FilterExec(Exec):
         return self.children[0].schema
 
     def execute_device(self, ctx, partition):
-        if needs_eval_context([self.condition]):
-            yield from _contextual_device_loop(self, self._device_kernel,
-                                               ctx, partition)
+        exprs = [self.condition]
+        step = _filter_step(self.condition)
+        if needs_eval_context(exprs):
+            yield from _contextual_device_loop(self, exprs, step, ctx,
+                                               partition)
             return
-        m = ctx.metrics_for(self)
-        for batch in self.children[0].execute_device(ctx, partition):
-            with timed(m):
-                out = retry_on_oom(self._device_kernel, batch)
-            record_batch(m, out)
-            yield out
-
-    def _device_kernel(self, batch):
-        cond = as_device_column(self.condition.eval(batch), batch)
-        return batch.with_sel(cond.data & cond.validity)
+        yield from _device_loop(self, step, exprs, ctx, partition)
 
     def _host_kernel(self, hb: HostBatch) -> HostBatch:
-        """Evaluate the condition once and gather every column through
-        the matrix-preserving ``HostColumn.take``."""
-        cond = as_host_column(self.condition.eval_host(hb), hb)
-        return hb.filter(np.asarray(cond.data, np.bool_)
-                         & np.asarray(cond.validity, np.bool_))
+        return _filter_host_closure(self.condition)(hb, None)
 
     def execute_host(self, ctx, partition):
-        if needs_eval_context([self.condition]):
+        exprs = [self.condition]
+        if needs_eval_context(exprs):
             yield from _contextual_host_loop(self, self._host_kernel, ctx,
-                                             partition)
+                                             partition, exprs)
             return
+        binds = host_bind_args(ctx) if has_bind_slots(exprs) else None
+        fn = _filter_host_closure(self.condition)
         for hb in self.children[0].execute_host(ctx, partition):
-            yield self._host_kernel(hb)
+            yield fn(hb, binds)
 
 
 class UnionExec(Exec):
@@ -332,18 +387,19 @@ class RangeExec(LeafExec):
 
 class LocalLimitExec(Exec):
     """Per-partition head(n): the first ``limit`` live rows, by selection
-    vector."""
+    vector. ``limit`` is an int or a plan-cache ``BindValue`` slot,
+    resolved per execution."""
 
-    def __init__(self, child: Exec, limit: int):
+    def __init__(self, child: Exec, limit):
         super().__init__(child)
-        self.limit = int(limit)
+        self.limit = limit if isinstance(limit, BindValue) else int(limit)
 
     @property
     def schema(self) -> Schema:
         return self.children[0].schema
 
     def execute_device(self, ctx, partition):
-        remaining = self.limit
+        remaining = int(resolve_bound(self.limit, ctx))
         for batch in self.children[0].execute_device(ctx, partition):
             if remaining <= 0:
                 break
@@ -358,7 +414,7 @@ class LocalLimitExec(Exec):
             yield out
 
     def execute_host(self, ctx, partition):
-        remaining = self.limit
+        remaining = int(resolve_bound(self.limit, ctx))
         for hb in self.children[0].execute_host(ctx, partition):
             if remaining <= 0:
                 break
@@ -372,9 +428,9 @@ class LocalLimitExec(Exec):
 class GlobalLimitExec(Exec):
     """Global limit over a single-partition child."""
 
-    def __init__(self, child: Exec, limit: int):
+    def __init__(self, child: Exec, limit):
         super().__init__(child)
-        self.limit = int(limit)
+        self.limit = limit if isinstance(limit, BindValue) else int(limit)
 
     @property
     def schema(self) -> Schema:

@@ -281,13 +281,19 @@ def _pair_keys_equal(built: BuiltSide, b_idx: torch.Tensor,
 def probe_ranges(built: BuiltSide, probe: DeviceBatch,
                  key_ordinals: Sequence[int]):
     """Per-probe-row match range [lo, lo + count) in the sorted build side:
-    ``native.searchsorted_u64_pair`` (kernel K3 on the card). Rows that
-    are dead or have a null key get count 0."""
+    ``native.searchsorted_u64_pair`` (kernel K3 on the card), or with
+    ``native.joinProbe`` off its library route, two ``torch.searchsorted``
+    (K3's plain version). Rows that are dead or have a null key get count
+    0."""
     fp = _fingerprint64(probe, key_ordinals)
     plive = probe.row_mask()
     for i in key_ordinals:
         plive = plive & probe.columns[i].validity
-    lo, hi = native.searchsorted_u64_pair(built.fp, fp)
+    if native.kernel_enabled("joinProbe"):
+        lo, hi = native.searchsorted_u64_pair(built.fp, fp)
+    else:
+        native.count_library("join_probe")
+        lo, hi = native.searchsorted_u64_pair_plain(built.fp, fp)
     counts = torch.where(plive, hi - lo, 0)
     return lo, counts, plive
 

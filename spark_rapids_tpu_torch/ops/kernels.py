@@ -118,17 +118,20 @@ def _radix_perm(passes: List[torch.Tensor], capacity: int,
     first); returns the int64 row permutation ordering rows by the
     lexicographic pass tuple.
 
-    Every word is one ``native.stable_argsort_u32`` call: the least
+    Every word is one ``native.stable_argsort_u32`` call (its library
+    route with ``native.radixSort`` off): the least
     significant word sorts alone, every later one through the
     permutation so far (its gather, sort and gather in one call).
     ``unstable_first`` (stableSort.enabled off) allows any tie order on
     the least significant pass; the stable kernel is one such order, so
     it runs there too."""
     del unstable_first, capacity
+    sort = native.stable_argsort_u32 if native.kernel_enabled("radixSort") \
+        else native.stable_argsort_u32_library
     words = [w.contiguous() for w in reversed(passes)]
-    perm = native.stable_argsort_u32(words[0]).to(torch.int64)
+    perm = sort(words[0]).to(torch.int64)
     for w in words[1:]:
-        perm = native.stable_argsort_u32(w, perm)
+        perm = sort(w, perm)
     return perm
 
 
@@ -250,16 +253,21 @@ def _seg_sum(values: torch.Tensor, gid: torch.Tensor,
     segment reduce (K2 on the card); floats a scatter-add, whose order of
     addition is not the JAX package's (float sums are compared within a
     tolerance)."""
-    out = native.segment_sum_sorted(values, gid, capacity)
+    out = native.segment_sum_sorted(
+        values, gid, capacity,
+        library=not native.kernel_enabled("segmentReduce"))
     return _scatter_sum(values, gid, capacity) if out is None else out
 
 
 def _seg_minmax(values: torch.Tensor, gid: torch.Tensor, capacity: int,
                 kind: str) -> torch.Tensor:
     """Per-group min or max in the total-order bit domain (K2 on the
-    card): -0.0 below 0.0, subnormals kept, as the JAX package's Pallas
-    kernel orders them."""
-    return native.segment_minmax_sorted(values, gid, capacity, kind)
+    card, its library route with ``native.segmentReduce`` off): -0.0
+    below 0.0, subnormals kept, as the JAX package's Pallas kernel orders
+    them."""
+    return native.segment_minmax_sorted(
+        values, gid, capacity, kind,
+        library=not native.kernel_enabled("segmentReduce"))
 
 
 def _full_like0(v: torch.Tensor, value) -> torch.Tensor:

@@ -16,14 +16,39 @@ CUDA sources built for Hopper by ``ops/cuda_build.py``:
 - K4, the wire codec's RLE decode (``columnar/wire.py``): a run table
   expanded to the batch's rows, ``csrc/rle_decode.cu``.
 
-Routing is by the tensor's device and nothing else: a CUDA tensor launches
-the kernel (or the call raises), a CPU tensor takes the plain version. No
-env variable or conf key sends a CUDA tensor to the plain version; the
-JAX package's ``spark.rapids.sql.native.*`` gates come in a later slice.
+Each wrapper routes by the tensor's device: a CUDA tensor launches the
+kernel (or the call raises), a CPU tensor takes the plain version.
+
+The gates (the JAX package's ``spark.rapids.sql.native.*`` keys, conf
+``config.py`` ``NATIVE_*``, env ``SRT_NATIVE`` / ``SRT_NATIVE_<KERNEL>``)
+are read at the call sites (``ops/kernels.py`` ``_radix_perm`` /
+``_seg_sum`` / ``_seg_minmax``, ``ops/join.py`` ``probe_ranges``,
+``parallel/exchange.py`` ``_split``, ``columnar/wire.py``'s RLE arm), as
+in the JAX package. A live gate calls the wrapper above; a gate that is
+off calls the kernel's PyTorch library route, on either device:
+
+- K1: a stable ``torch.sort`` of the keys widened to int64
+  (:func:`stable_argsort_u32_library`);
+- K2: an identity-filled ``scatter_reduce_`` over the encoded keys
+  (:func:`segment_reduce_library`);
+- K3: two ``torch.searchsorted`` over sign-flipped int64 fingerprints,
+  which is K3's plain version (:func:`searchsorted_u64_pair_plain`);
+- K4: ``searchsorted`` of the row index in the run ends, then a gather,
+  which is K4's plain version (:func:`rle_decode_plain`).
+
+So for K3 and K4 the gate-off route on the card is the plain version;
+for K1 and K2 it is a library call the plain versions do not make. A
+live gate sends a CUDA tensor to the kernel only, at any size (the JAX
+package's ``rleDecode.maxRuns`` bound was a TPU VMEM limit; K4 cuts a
+larger run table into block windows). The gates are adopted
+process-globally per collect (:func:`maybe_configure`, next to the wire
+codec's); :func:`fingerprint` is the set of live kernels.
 
 Every call into a kernel's C entry adds one to its counter
-(:func:`counters`), so a run can show that the main path went through the
-kernel.
+(:func:`counters`), and every library route call to its own
+(:func:`library_counters`; K1 and K2 count in their routes, K3 and K4 at
+their gated call sites through :func:`count_library`), so a run shows
+kernel launches and library calls apart.
 """
 
 from __future__ import annotations
@@ -31,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import os
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -48,11 +74,18 @@ _INT64_MIN = -(1 << 63)
 _LOCK = threading.Lock()
 _COUNTERS: Dict[str, int] = {"radix_sort": 0, "join_probe": 0,
                              "seg_reduce": 0, "rle_decode": 0}
+_LIBRARY: Dict[str, int] = dict.fromkeys(_COUNTERS, 0)
 
 
 def _count(name: str) -> None:
     with _LOCK:
         _COUNTERS[name] += 1
+
+
+def count_library(name: str) -> None:
+    """One call of a kernel's library route, under its counter name."""
+    with _LOCK:
+        _LIBRARY[name] += 1
 
 
 def counters() -> Dict[str, int]:
@@ -61,10 +94,123 @@ def counters() -> Dict[str, int]:
         return dict(_COUNTERS)
 
 
+def library_counters() -> Dict[str, int]:
+    """Calls of each kernel's library route since the last reset, under the
+    kernel's counter name."""
+    with _LOCK:
+        return dict(_LIBRARY)
+
+
 def reset_counters() -> None:
     with _LOCK:
         for k in _COUNTERS:
             _COUNTERS[k] = 0
+            _LIBRARY[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Gates (the JAX package's ``spark.rapids.sql.native.*``)
+# ---------------------------------------------------------------------------
+
+KERNELS = ("radixSort", "joinProbe", "rleDecode", "segmentReduce")
+# The counter each gate's kernel and library route count under.
+COUNTER_OF = {"radixSort": "radix_sort", "joinProbe": "join_probe",
+              "rleDecode": "rle_decode", "segmentReduce": "seg_reduce"}
+
+# Conf-adopted overrides: None falls through to the env, then the default.
+_OVERRIDE: Dict[str, Optional[bool]] = dict.fromkeys(("master",) + KERNELS)
+_FORCED: Optional[Dict[str, bool]] = None     # tests: the forced() scope
+
+
+def _env_true(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip() not in ("0", "false", "no", "")
+
+
+def available() -> bool:
+    """A live gate always has a route: the kernel for a CUDA tensor (built
+    from the checkout at its first call), the plain version for a CPU one.
+    So True; no routing decision reads it."""
+    return True
+
+
+def maybe_configure(conf) -> None:
+    """Adopt the explicitly set ``spark.rapids.sql.native.*`` keys for the
+    process (unset keys fall back to env / default), as the wire codec
+    adopts its key."""
+    from spark_rapids_tpu_torch import config as C
+    entries = {"master": C.NATIVE_ENABLED, "radixSort": C.NATIVE_RADIX_SORT,
+               "joinProbe": C.NATIVE_JOIN_PROBE,
+               "rleDecode": C.NATIVE_RLE_DECODE,
+               "segmentReduce": C.NATIVE_SEGMENT_REDUCE}
+    with _LOCK:
+        for name, entry in entries.items():
+            raw = conf.raw.get(entry.key)
+            _OVERRIDE[name] = None if raw is None else bool(entry.get(conf))
+
+
+def master_enabled() -> bool:
+    if _FORCED is not None:
+        return bool(_FORCED.get("master", True))
+    with _LOCK:
+        ov = _OVERRIDE["master"]
+    if ov is not None:
+        return ov
+    return _env_true("SRT_NATIVE", True)
+
+
+def kernel_enabled(name: str) -> bool:
+    """Is one kernel's gate live (the master gate and its own)? Conf
+    beats env (``SRT_NATIVE_<KERNEL>``), env beats the default (on)."""
+    assert name in KERNELS, name
+    if _FORCED is not None:
+        return bool(_FORCED.get("master", True)) and \
+            bool(_FORCED.get(name, True)) and available()
+    if not master_enabled() or not available():
+        return False
+    with _LOCK:
+        ov = _OVERRIDE[name]
+    if ov is not None:
+        return ov
+    return _env_true(f"SRT_NATIVE_{name.upper()}", True)
+
+
+def fingerprint() -> Tuple:
+    """The live kernels: what a cache of composed steps must fold into its
+    keys, so that toggling a gate never serves a step composed under the
+    other setting (the JAX package's kernel-cache contract)."""
+    live = tuple(k for k in KERNELS if kernel_enabled(k))
+    return ("native", live) if live else ()
+
+
+def gate_counters() -> Dict[str, object]:
+    """The JAX package's ``counters()`` gate keys: ``nativeEnabled`` and
+    ``nativeKernels`` (the port's :func:`counters` holds launch counts)."""
+    return {"nativeEnabled": bool(master_enabled() and available()),
+            "nativeKernels": [k for k in KERNELS if kernel_enabled(k)]}
+
+
+class forced:
+    """Test hook: force the gate state for a ``with`` scope.
+    ``forced(radixSort=False)`` keeps the master gate on with one kernel
+    off; ``forced(master=False)`` turns every kernel off."""
+
+    def __init__(self, **kw: bool):
+        self._kw = dict(kw)
+        self._prev = None
+
+    def __enter__(self):
+        global _FORCED
+        self._prev = _FORCED
+        _FORCED = self._kw
+        return self
+
+    def __exit__(self, *exc):
+        global _FORCED
+        _FORCED = self._prev
+        return False
 
 
 def _ntiles(n: int, tile: int = TILE_ROWS) -> int:
@@ -302,6 +448,20 @@ def stable_argsort_u32(keys: torch.Tensor,
     return _stable_argsort_u32_cuda(keys, perm)
 
 
+def stable_argsort_u32_library(keys: torch.Tensor,
+                               perm: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """K1's library route (its gate off): :func:`stable_argsort_u32`'s
+    function as one stable ``torch.sort`` of the keys widened to int64
+    (torch sorts no uint32 on the card), on either device."""
+    _check_sort_args(keys, perm)
+    src = keys if perm is None else keys.index_select(0, perm)
+    order = torch.sort(src.to(torch.int64) & _M32, stable=True).indices
+    count_library("radix_sort")
+    return order.to(torch.int32) if perm is None \
+        else perm.index_select(0, order)
+
+
 # ---------------------------------------------------------------------------
 # Kernel K3: the hash-join probe (csrc/join_probe.cu)
 # ---------------------------------------------------------------------------
@@ -315,9 +475,11 @@ def searchsorted_u64_pair_plain(built_fp: torch.Tensor,
                                 probe_fp: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(lo, hi)``: the left and right insertion points of each probe
-    fingerprint in the sorted build fingerprints, as int32. Flipping the
-    top bit maps unsigned order onto int64's signed order, where
-    ``torch.searchsorted`` works."""
+    fingerprint in the sorted build fingerprints, as int32, by two
+    ``torch.searchsorted``: flipping the top bit maps unsigned order onto
+    int64's signed order, where ``torch.searchsorted`` works (it takes no
+    uint64). K3's plain version, and its library route (its gate off),
+    on either device."""
     b = built_fp ^ _INT64_MIN
     q = probe_fp ^ _INT64_MIN
     lo = torch.searchsorted(b, q, side="left").to(torch.int32)
@@ -637,6 +799,28 @@ def _segment_reduce(gid: torch.Tensor, keys: torch.Tensor, kind: str,
         return seg_reduce(gid, keys, kind, capacity, identity)
 
 
+def segment_reduce_library(gid: torch.Tensor, keys: torch.Tensor, kind: str,
+                           capacity: int, identity: int) -> torch.Tensor:
+    """K2's library route (its gate off): :func:`_segment_reduce`'s
+    function as one ``scatter_reduce_`` into an identity-filled output, on
+    either device. Min/max keys compare unsigned, so their top bit is
+    flipped into signed order and back; ids at or past ``capacity`` land in
+    one extra slot that is sliced off. Integer scatters are exact in any
+    order (float sums never come here)."""
+    if kind not in _SEG_KIND_CODES:
+        raise ValueError(f"seg_reduce: unknown kind {kind!r}")
+    sign = 0 if kind == "sum" else (
+        _INT32_MIN if keys.dtype == torch.int32 else _INT64_MIN)
+    # Both are signed bit patterns of the keys' width, so is their xor.
+    out = torch.full((capacity + 1,), identity ^ sign, dtype=keys.dtype,
+                     device=keys.device)
+    out.scatter_reduce_(0, gid.clamp(max=capacity), keys ^ sign,
+                        {"sum": "sum", "min": "amin", "max": "amax"}[kind])
+    count_library("seg_reduce")
+    out = out[:capacity]
+    return out ^ sign if sign else out
+
+
 def _signed(u: int, bits: int) -> int:
     return u - (1 << bits) if u >> (bits - 1) else u
 
@@ -695,32 +879,35 @@ def _minmax_encode(values: torch.Tensor
 
 
 def segment_sum_sorted(values: torch.Tensor, gid: torch.Tensor,
-                       capacity: int) -> Optional[torch.Tensor]:
+                       capacity: int, library: bool = False
+                       ) -> Optional[torch.Tensor]:
     """Per-group wrap-around sums of integer ``values`` for nondecreasing
     ``gid`` (``jax.ops.segment_sum``'s function), through the segment
-    reduce. None for floats and bools: their sums stay off the exact
-    path."""
+    reduce, or with ``library`` (the gate off) its library route. None for
+    floats and bools: their sums stay off the exact path."""
     if values.is_floating_point() or values.dtype == torch.bool:
         return None
+    reduce = segment_reduce_library if library else _segment_reduce
     if values.element_size() <= 4:
         keys = values.to(torch.int32).contiguous()
-        return _segment_reduce(gid, keys, "sum", capacity, 0) \
-            .to(values.dtype)
-    return _segment_reduce(gid, values.contiguous(), "sum", capacity, 0)
+        return reduce(gid, keys, "sum", capacity, 0).to(values.dtype)
+    return reduce(gid, values.contiguous(), "sum", capacity, 0)
 
 
 def segment_minmax_sorted(values: torch.Tensor, gid: torch.Tensor,
-                          capacity: int, kind: str) -> torch.Tensor:
+                          capacity: int, kind: str,
+                          library: bool = False) -> torch.Tensor:
     """Per-group min or max of ``values`` for nondecreasing ``gid``
     (``jax.ops.segment_min``/``segment_max``'s function, empty groups
-    filled with the dtype's extreme), in the total-order bit domain. Every
+    filled with the dtype's extreme), in the total-order bit domain, by
+    the segment reduce or with ``library`` its library route. Every
     numeric dtype encodes, f64 included."""
     if kind not in ("min", "max"):
         raise ValueError(f"segment_minmax_sorted: unknown kind {kind!r}")
     keys, dec = _minmax_encode(values)
     identity = _encoded_identity(values.dtype, kind)
-    return dec(_segment_reduce(gid, keys.contiguous(), kind, capacity,
-                               identity))
+    reduce = segment_reduce_library if library else _segment_reduce
+    return dec(reduce(gid, keys.contiguous(), kind, capacity, identity))
 
 
 # ---------------------------------------------------------------------------
@@ -738,7 +925,9 @@ def rle_decode_plain(run_vals: torch.Tensor, run_ends: torch.Tensor,
                      cap: int, num_rows: int) -> torch.Tensor:
     """(cap,) expanded values in the wire dtype: ``searchsorted`` of each
     row over the run ends, a clipped gather, and padding rows zeroed (the
-    JAX package's non-native branch, ``columnar/wire.py:638-648``)."""
+    JAX package's non-native branch, ``columnar/wire.py:638-648``). K4's
+    plain version, and its library route (its gate off), on either
+    device."""
     rows = torch.arange(cap, dtype=run_ends.dtype, device=run_ends.device)
     ridx = torch.searchsorted(run_ends, rows, right=True)
     data = run_vals[ridx.clamp(max=run_vals.numel() - 1)]

@@ -209,7 +209,10 @@ class ShuffleExchangeExec(Exec):
         skey = torch.where(b.row_mask(), pids.to(torch.int64),
                            torch.full((), n, dtype=torch.int64,
                                       device=b.device))
-        perm = native.stable_argsort_u32(skey).to(torch.int64)
+        sort = native.stable_argsort_u32 \
+            if native.kernel_enabled("radixSort") \
+            else native.stable_argsort_u32_library
+        perm = sort(skey).to(torch.int64)
         zero_row = b.capacity
 
         def padded(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

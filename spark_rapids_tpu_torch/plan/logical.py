@@ -707,7 +707,8 @@ _CONTEXT_FNS = {"spark_partition_id": E.SparkPartitionID,
                 "monotonically_increasing_id": E.MonotonicallyIncreasingID,
                 "input_file_name": E.InputFileName}
 # Every kind ``resolve`` maps onto a port expression.
-PORTED_KINDS = frozenset({"ref", "lit", "alias", "isin", "when", "coalesce",
+PORTED_KINDS = frozenset({"ref", "lit", "bindslot", "alias", "isin", "when",
+                          "coalesce",
                           "like", "cast", "substr", "hash", "pmod", "round",
                           "bround", "least", "greatest",
                           "at_least_n_non_nulls", "trunc", "rand", "concat",
@@ -745,6 +746,11 @@ def resolve(c: Column, schema: Schema) -> Expression:
         if v is None:
             raise ResolutionError("untyped NULL literal; use typed lit")
         return E.lit(v)
+    if kind == "bindslot":
+        # A hoisted literal (plan/plan_cache.py): a value-free leaf whose
+        # binding arrives at execution time.
+        from spark_rapids_tpu_torch.exprs.bindslots import BindSlotExpr
+        return BindSlotExpr(node[1], node[2])
     if kind == "alias":
         return rec(node[1])
     if kind == "cast":

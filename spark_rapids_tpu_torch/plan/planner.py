@@ -66,10 +66,14 @@
   reasons: a failing device operator raises, and is never rerun there
   (an exhausted OOM ladder tries the grace join on the device first,
   ``Exec.execute_device_recovering``).
+- After conversion, ``Planner.plan``, under
+  ``spark.rapids.sql.stageFusion.enabled``, collapses each maximal run of
+  fusible device operators into a ``FusedStageExec`` (``plan/fusion.py``).
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
-  (RapidsMeta.explain:291); ``collect`` runs the root on its engine (the
-  reference's scheduler, QoS, transient retry, re-plan and fault layers
-  are not ported).
+  (RapidsMeta.explain:291) and the fused stages; ``collect`` runs the root
+  on its engine, with a plan-cache binding vector installed in every
+  context it makes (the reference's scheduler, QoS, transient retry,
+  re-plan and fault layers are not ported).
 """
 
 from __future__ import annotations
@@ -90,6 +94,7 @@ from spark_rapids_tpu_torch.ops import (
     ProjectExec, RangeExec, ShuffledHashJoinExec, SortExec, SortOrder, Sum,
     UnionExec, WindowExec)
 from spark_rapids_tpu_torch.ops import window as W
+from spark_rapids_tpu_torch.ops.fused import FusedStageExec
 from spark_rapids_tpu_torch.ops.pandas_exec import (
     AggregateInPandasExec, CoGroupedMapInPandasExec,
     FlatMapGroupsInPandasExec, MapInPandasExec)
@@ -99,6 +104,7 @@ from spark_rapids_tpu_torch.parallel.partitioning import (
     HashPartitioning, RangePartitioning, RoundRobinPartitioning,
     SinglePartitioning)
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.fusion import collect_fused, fuse_stages
 from spark_rapids_tpu_torch.plan.logical import (
     Column, LogicalPlan, NotPortedError, ResolutionError, resolve)
 from spark_rapids_tpu_torch.plan.pruning import (
@@ -517,20 +523,43 @@ class PhysicalPlan:
     root_on_device: bool
     meta: NodeMeta
     conf: C.TpuConf = dataclasses.field(default_factory=C.TpuConf)
+    num_fused_stages: int = 0
 
     def explain(self, mode: str = "ALL") -> str:
-        return "\n".join(self.meta.explain_lines(
-            not_on_device_only=(mode.upper() == "NOT_ON_GPU")))
+        lines = self.meta.explain_lines(
+            not_on_device_only=(mode.upper() == "NOT_ON_GPU"))
+        fused = collect_fused(self.root)
+        if fused:
+            # Each fused stage with its members, so the physical shape
+            # (and each stage's metrics owner) reads beside the report.
+            lines.append(f"Fused stages: {len(fused)}")
+            for i, f in enumerate(fused):
+                members = ", ".join(type(o).__name__ for o in f.ops)
+                lines.append(f"  *Stage #{i} <{f.name}> fuses [{members}]")
+        return "\n".join(lines)
 
-    def collect(self, ctx: Optional[ExecContext] = None) -> List[tuple]:
+    def _context(self, ctx: Optional[ExecContext], bindings) -> ExecContext:
+        """``ctx`` (or a new one on the plan's conf) with the plan cache's
+        ``(values, dtypes)`` binding vector installed, where there is
+        one."""
+        ctx = ctx or ExecContext(self.conf)
+        if bindings is not None:
+            ctx.cache["plan_binds"] = tuple(bindings[0])
+            ctx.cache["plan_bind_dtypes"] = tuple(bindings[1])
+        return ctx
+
+    def collect(self, ctx: Optional[ExecContext] = None,
+                bindings=None) -> List[tuple]:
         """Run the root's partitions on the root's engine and return the
-        rows (downloaded once, when the root is on the device)."""
-        return self.root.collect(ctx or ExecContext(self.conf),
+        rows (downloaded once, when the root is on the device).
+        ``bindings`` is a bound plan's ``(values, dtypes)``."""
+        return self.root.collect(self._context(ctx, bindings),
                                  device=self.root_on_device)
 
-    def collect_batches(self, ctx: Optional[ExecContext] = None) -> list:
+    def collect_batches(self, ctx: Optional[ExecContext] = None,
+                        bindings=None) -> list:
         """``collect`` as host batches (numpy columns)."""
-        return self.root.collect_batches(ctx or ExecContext(self.conf),
+        return self.root.collect_batches(self._context(ctx, bindings),
                                          device=self.root_on_device)
 
     def host_fallback_nodes(self) -> List[str]:
@@ -558,6 +587,8 @@ def _exec_lines(e: Exec, depth: int) -> List[str]:
         detail = f" {e.fmt} [{', '.join(n for n, _ in e.schema)}]"
     elif isinstance(e, (LocalLimitExec, GlobalLimitExec)):
         detail = f" {e.limit}"
+    elif isinstance(e, FusedStageExec):
+        detail = " [" + ", ".join(type(o).__name__ for o in e.ops) + "]"
     out = ["  " * depth + type(e).__name__ + detail]
     for c in e.children:
         out.extend(_exec_lines(c, depth + 1))
@@ -598,7 +629,10 @@ class Planner:
         if refused:
             raise NotImplementedError(_refusal(refused))
         root, on_device = self._convert(meta)
-        phys = PhysicalPlan(root, on_device, meta, self.conf)
+        num_fused = 0
+        if bool(self.conf.get(C.STAGE_FUSION_ENABLED)):
+            root, num_fused = fuse_stages(root, on_device)
+        phys = PhysicalPlan(root, on_device, meta, self.conf, num_fused)
         if self.conf.test_enabled:
             allowed = {s for s in str(self.conf.get(
                 C.TEST_ALLOWED_NONTPU)).split(",") if s}

@@ -76,7 +76,11 @@ def _conjuncts(c: Column, out: list):
 
 
 def _as_predicate(c: Column):
-    """(name, op, value) for a supported conjunct, else None."""
+    """(name, op, value) for a supported conjunct, else None. A plan-cache
+    bind slot pushes as a ``BindValue`` marker the scan resolves against
+    the execution's binding vector: stats skipping must see this call's
+    literal, never the one the template was planned with."""
+    from spark_rapids_tpu_torch.exprs.bindslots import BindValue
     node = c.node
     kind = node[0]
     if kind == "isnotnull" and node[1].node[0] == "ref":
@@ -87,6 +91,10 @@ def _as_predicate(c: Column):
             return (left.node[1], kind, right.node[1])
         if left.node[0] == "lit" and right.node[0] == "ref":
             return (right.node[1], _FLIP[kind], left.node[1])
+        if left.node[0] == "ref" and right.node[0] == "bindslot":
+            return (left.node[1], kind, BindValue(right.node[1]))
+        if left.node[0] == "bindslot" and right.node[0] == "ref":
+            return (right.node[1], _FLIP[kind], BindValue(left.node[1]))
     return None
 
 

@@ -477,9 +477,13 @@ def test_float_range_pushdown_keeps_nan_rows(fmt, op, tmp_path):
 
     session = TpuSession(device="cpu")
     df = getattr(session.read, fmt)(*paths).filter(cmp(L, L.col("x")))
-    scans = [e for e in _walk(df._physical().root)
-             if isinstance(e, S.FileScanExec)]
-    assert [s.predicates for s in scans] == [(("x", op, 5.0),)]
+    bound = df._physical()
+    scans = [e for e in _walk(bound.root) if isinstance(e, S.FileScanExec)]
+    # The plan cache pushes the literal as a bind slot, resolved per run.
+    ctx = ExecContext(bound.conf)
+    bound.install(ctx)
+    assert [s._resolved_predicates(ctx) for s in scans] == \
+        [(("x", op, 5.0),)]
     memory = session.create_dataframe(
         {"x": table.column("x").to_numpy(), "k": np.arange(4)},
         df.schema).filter(cmp(L, L.col("x")))

@@ -200,6 +200,9 @@ ASTS = {
     "pyudf": lambda M: M.Column(("pyudf", max, M.dt.FLOAT64,
                                  (M.col("f64"), M.col("i32")),
                                  "call to 'max'")),
+    # A plan-cache bind slot (plan/plan_cache.py hoists a literal into
+    # one); refused here until the port had the plan cache.
+    "bindslot": lambda M: M.Column(("bindslot", 0, M.dt.INT64)),
 }
 
 
@@ -242,22 +245,12 @@ def test_resolution_errors_match_reference(name):
     assert str(got.value) == str(want.value)
 
 
-# kind -> (AST, what the port's refusal names). The string functions and
-# casts to and from strings (refused here until the port had their
-# classes) resolve (ASTS); a hoisted plan-cache literal does not.
-UNPORTED = {
-    "bindslot": (lambda M: M.Column(("bindslot", 0, jdt.INT64)),
-                 "expression bindslot is not ported"),
-}
-
-
-@pytest.mark.parametrize("kind", sorted(UNPORTED))
-def test_unported_kinds_raise_naming_the_kind(kind):
-    # The reference resolves them; the port names what it lacks.
-    build, why = UNPORTED[kind]
-    JL.resolve(build(JL), jschema(SCHEMA))
-    with pytest.raises(L.ResolutionError, match=why):
-        L.resolve(build(L), SCHEMA)
+def test_unported_kinds_raise_naming_the_kind():
+    # Every kind the reference resolves is in ASTS now (the last, the
+    # plan cache's bind slot, came with the plan cache); a kind neither
+    # package has is refused naming it.
+    with pytest.raises(L.ResolutionError, match="frobnicate"):
+        L.resolve(L.Column(("frobnicate", L.col("i32"))), SCHEMA)
 
 
 def test_ported_kinds_are_the_resolvable_ones():

@@ -41,16 +41,17 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import ops as TO
 from spark_rapids_tpu_torch.api import DataFrame, TpuSession
 from spark_rapids_tpu_torch.benchmarks import tpch
+from spark_rapids_tpu_torch.ops.fused import FusedStageExec
 from spark_rapids_tpu_torch.plan import planner as PL
 
 from harness import assert_rows_equal
 from test_torch_logical import (  # noqa: F401  (small_tables: a fixture)
     QUERIES, jax_query, small_tables)
 
-# Reference layers the port has not ported, off for the comparison.
+# Reference layers the port has not ported, off for the comparison (stage
+# fusion, ported with the plan cache, stays on in both).
 REF_OFF = {"spark.rapids.sql.cost.enabled": False,
-           "spark.rapids.sql.pipeline.enabled": False,
-           "spark.rapids.sql.stageFusion.enabled": False}
+           "spark.rapids.sql.pipeline.enabled": False}
 
 CONFS = {
     "default": {},
@@ -197,7 +198,7 @@ def test_q1_tree_under_the_default_conf(small_tables, monkeypatch):
     assert names[:8] == [
         "SortExec", "ShuffleExchangeExec", "HostToDeviceExec",
         "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
-        "DeviceToHostExec", "ProjectExec"]
+        "DeviceToHostExec", "FusedStageExec"]
 
 
 def _host_halves():
@@ -240,6 +241,8 @@ def test_a_failing_device_exec_is_not_rerun_on_the_host(small_tables,
             return orig(self, *a, **k)
         return wrapped
     monkeypatch.setattr(TO.FilterExec, "execute_device", boom)
+    # The filter runs inside the fused stage below the bridge.
+    monkeypatch.setattr(FusedStageExec, "execute_device", boom)
     for name in ("_host_exec_vectorized", "_execute_host_rows",
                  "_execute_host_final"):
         monkeypatch.setattr(TO.HashAggregateExec, name,
@@ -267,4 +270,5 @@ def test_root_on_host_collects_on_the_host(small_tables):
     d2h = [m for k, m in ctx.metrics.items()
            if k.startswith("DeviceToHostExec")]
     assert len(d2h) == 1 and d2h[0].values["downloadRows"] > 0
-    assert isinstance(phys, PL.PhysicalPlan)
+    # A plan-cache bound plan over its template.
+    assert isinstance(phys.template, PL.PhysicalPlan)
