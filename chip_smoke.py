@@ -116,7 +116,10 @@ run stays a first run) and the peak and current host RSS are printed.
    of a shape no hand-built path gave (q4's one probe of its whole
    coalesced ORDERS side) must equal the kernel's plain version bit for
    bit, and the largest such launch of a query is timed against its
-   plain version and library call, with its device time.
+   plain version and library call, with its device time. Then q1's
+   device launches (``torch.profiler`` device events) in one warm run
+   with the arithmetic's subnormal flush and in one with it patched out
+   (as before the repair), both runs against the oracle.
 12. Default conf: q1-q6 through ``TpuSession()`` with no conf, whose
    float Sum/Avg aggregates the planner places on the host engine (numpy)
    between device subtrees, bridged by ``DeviceToHostExec`` and
@@ -126,8 +129,9 @@ run stays a first run) and the peak and current host RSS are printed.
    (counters around it alone, every K1-K4 launch recorded) must match the
    numpy oracle and launch K1 in q1, q3, q5, q2 and q4, K2 in q2, K3 in
    q2 and q4, K4 in q3; each launch of a shape no earlier phase checked
-   must equal the kernel's plain version bit for bit. Warm walls in two
-   turns (three until phase 23) beside the same query with
+   must equal the kernel's plain version bit for bit. Warm walls in one
+   turn (three until phase 23, two until phase 24) beside the same query
+   with
    ``variableFloatAgg`` on (phase 11's
    all-device tree), each run checked, with the host engine's share of
    each default-conf wall (host clock inside the host subtrees less the
@@ -143,8 +147,8 @@ run stays a first run) and the peak and current host RSS are printed.
    xbb_q5's integer sums on the card). For each run: the plan's host
    nodes and bridges (checked), the rows and bytes each
    ``DeviceToHostExec`` downloads, the first run (counters around it
-   alone, every K1-K4 launch recorded) and one warm run (two until
-   phase 21 needed the time), each checked
+   alone, every K1-K4 launch recorded; no warm run since phase 24
+   needed the time, two until phase 21), checked
    against a numpy oracle in this file (keys, counts and order exact,
    floats to rtol 1e-9; xbb_q5 as a multiset, the query has no order).
    K1 must launch in xbb_q5, q7, q8, q9 and q12 under both confs. Each
@@ -395,13 +399,40 @@ run stays a first run) and the peak and current host RSS are printed.
    ``numSkippedRowGroups`` as numpy's ship-date ranges of the files say,
    rows against numpy. Then the device memory that clearing the cached
    templates frees (none expected), and the phase's time.
+24. The observability layer and the fault-injection registry (runs after
+   phase 23, over phase 11's tables and oracles, under
+   ``variableFloatAgg``; telemetry and the event log on for the whole
+   phase through ``SRT_METRICS`` / ``SRT_EVENT_LOG``, every run against
+   its numpy oracle): (a) q1, q2, q3 and q4 traced at ``operator`` level
+   (plans of their own) beside an untraced run of phase 11's: rows bit
+   for bit and K1-K4 launches equal, every span closed and inside the
+   query's one ``collect`` span, every event under its minted id; each
+   query's span-category ms; q3's ``trace_export`` written and loaded
+   back; ``explain_analyze`` of q1 and q3; q1's ``metrics()`` at
+   ESSENTIAL, MODERATE and ALL; (b) q1 warm with tracing off, at
+   ``operator`` and at ``kernel`` (``syncs.install()``), in two turns,
+   its ``timed`` calls a run, and one ``timed`` call's host cost off and
+   on beside an unguarded ``record_function``; (c) q1 and q3 at
+   ``kernel`` level under ``torch.cuda.set_sync_debug_mode("warn")``:
+   sync spans and seconds, the top five ``sync_stats`` sites, torch's
+   sync-debug warnings; (e) q1, q3 and q6 under
+   ``oom@upload:1,oom@kernel:1,oom@concat:1`` and q1 under
+   ``corrupt@wire:1,oom@upload:1`` with a 2 KiB device budget and no host
+   tier (its exchange pieces on disk): rows bit for bit the fault-free
+   device rows, ``faultsInjected`` and ``spillEscalations`` in
+   ``Recovery@query`` (and one ``corruptionsDetected`` after a disk
+   read), ``fault-injected`` and ``oom-rung`` instants in the trace, no
+   leak; (d) ``srt_collects`` and ``srt_query_latency_ms`` count the
+   phase's runs, every ``render_text`` line parses, the event log holds
+   one record a run, q1's ``render_report``. The schedule is disarmed
+   after the phase; its time is printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
    nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
-   phase 21's eight (four without pandas), phase 22's sixteen and phase
-   23's fifteen), its error against the plain version, its time, the
+   phase 21's eight (four without pandas), phase 22's sixteen, phase
+   23's fifteen and phase 24's twenty-three), its error against the plain version, its time, the
    plain version's, its bound, one PyTorch call's time for the same
    function (K1: the whole sort at 786 432 rows against ``torch.sort``;
    K2: the per-group function on q2's largest launch against the
@@ -607,7 +638,8 @@ def device_ms(fn, iters: int, attempts: int = 3):
             torch.cuda.synchronize()
         total = 0.0
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and \
+                    not getattr(e, "is_user_annotation", False):
                 total += getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
         if total > 0:
@@ -1522,11 +1554,54 @@ def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
         out[q] = dict(plan_ms=plan_ms, first_s=first_s, warm_s=warm,
                       launches=launches, seen=first_run(seen, launches),
                       notes=notes, tree=phys.tree(), frame=df)
+    out["flush_launches"] = flush_launches(out["q1"]["frame"],
+                                           *oracles["q1"])
     out["oracles"] = oracles
     out["tables"] = tables
     out["kernel_checks"] = df_kernel_checks(
         native, {q: out[q]["seen"] for q in DF_QUERIES}, hand_seen)
     return out
+
+
+def device_launches(fn) -> int:
+    """CUDA kernels (and memsets) the device ran during one ``fn()``, from
+    ``torch.profiler``'s device events; 0 when the profile holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def flush_launches(df, check, want) -> dict:
+    """q1's device launches in one warm run with the arithmetic's
+    subnormal flush (denormals-are-zero operands, flush-to-zero results
+    of float +, -, *: the reference engine's rule) and with it patched
+    out, as before the repair; both runs checked against the oracle."""
+    import torch
+    from spark_rapids_tpu_torch.exprs import arithmetic as A
+    got = {}
+    t0 = time.perf_counter()
+    for label in ("with the flush", "without (before the repair)"):
+        if label.startswith("without"):
+            saved = A._daz, A._ftz
+            A._daz, A._ftz = (lambda a, b: (a, b)), (lambda x: x)
+        try:
+            rows = []
+            got[label] = device_launches(lambda: rows.append(df.collect()))
+            torch.cuda.synchronize()
+            check(rows[0], want)
+        finally:
+            if label.startswith("without"):
+                A._daz, A._ftz = saved
+    log(f"q1 device launches in one warm run (torch.profiler device "
+        f"events): {got}; both profiled runs {time.perf_counter() - t0:.1f} "
+        f"s")
+    return got
 
 
 def df_kernel_checks(native, df_seen: dict, hand_seen: list) -> list:
@@ -1585,7 +1660,7 @@ DEFAULT_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
     "radix_sort", "rle_decode"), "q5": ("radix_sort",), "q2": (
     "radix_sort", "seg_reduce", "join_probe"), "q4": (
     "radix_sort", "join_probe")}
-DEFAULT_TURNS = 2     # 3 until phase 23 needed the time
+DEFAULT_TURNS = 1     # 3 until phase 23, 2 until phase 24 needed the time
 # Phase 3's K1 shapes: (rows, key dtype, with a permutation).
 K1_CHECKED = {(cap, "int64", perm) for cap in CAPS for perm in (False, True)}
 
@@ -2019,7 +2094,7 @@ MORE_DEFAULT_HOST = {"xbb_q5": [], "q7": ["LogicalAggregate"],
                        "q19": ["LogicalAggregate"]}
 MORE_MUST_LAUNCH = {q: ("radix_sort",) for q in (
     "xbb_q5", "q7", "q8", "q9", "q12")}
-MORE_WARM_RUNS = 1
+MORE_WARM_RUNS = 0    # 1 until phase 24 needed the time
 
 
 def more_oracles(cols: dict, xcols: dict, E, S) -> dict:
@@ -2089,9 +2164,10 @@ def more_queries_phase(native, cols: dict, known_seen: list,
                 torch.cuda.synchronize()
                 warm.append(time.perf_counter() - t0)
                 check(rows, want)
-            log(f"{label} matches the numpy oracle ({len(rows)} rows): "
-                f"plan {plan_ms:.2f} ms, first run {r['first_s']:.3f} s, "
-                f"warm {[round(w, 4) for w in warm]} s; launches "
+            log(f"{label} matches the numpy oracle ({len(r['rows'])} "
+                f"rows): plan {plan_ms:.2f} ms, first run "
+                f"{r['first_s']:.3f} s, warm {[round(w, 4) for w in warm]} "
+                f"s; launches "
                 f"{r['launches']}")
             out[(q, conf_name)] = dict(
                 plan_ms=plan_ms, first_s=r["first_s"], warm_s=warm,
@@ -5673,6 +5749,357 @@ def prepared_phase(native, cols: dict, df_out: dict, ds_out: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the observability layer and the fault-injection registry
+# ---------------------------------------------------------------------------
+
+OBS_QUERIES = ("q1", "q2", "q3", "q4")
+CHAOS_QUERIES = ("q1", "q3", "q6")
+CHAOS_OOM = "oom@upload:1,oom@kernel:1,oom@concat:1"
+# One flip per frame: the CRC re-read recovers it. The reference's
+# corrupt@wire:2 flips a frame's read and its re-read too, which only its
+# stage recompute (not ported) recovers; the port then fails loudly.
+CHAOS_CORRUPT = "corrupt@wire:1,oom@upload:1"
+# A device budget and host tier small enough that q1's exchange pieces
+# spill to disk (frames the corruption site reads back).
+CHAOS_DEVICE_BUDGET = 2048
+CHAOS_HOST_BUDGET = 0
+OBS_TURNS = 2
+TIMED_CALLS = 20_000
+
+
+def _rebound(session, tables: dict) -> dict:
+    """Phase 11's in-memory tables (the same host batches) as DataFrames
+    of ``session``, whose conf the plans then carry."""
+    from spark_rapids_tpu_torch.api import DataFrame
+    return {t: DataFrame(session, d._plan) for t, d in tables.items()}
+
+
+def _span_check(monitoring, qid: int, evs: list, label: str) -> None:
+    """Every span closed, one ``collect`` span holding every span of the
+    query, every event under the query's minted id."""
+    if monitoring.open_span_count() != 0:
+        raise AssertionError(f"{label}: {monitoring.open_span_count()} "
+                             f"unclosed span(s)")
+    if qid < 1 or {e[6] for e in evs} != {qid}:
+        raise AssertionError(f"{label}: events outside query {qid}: "
+                             f"{sorted({e[6] for e in evs})}")
+    spans = [e for e in evs if e[0] == "X"]
+    collects = [e for e in spans if e[1] == "collect" and e[2] == "query"]
+    if len(collects) != 1:
+        raise AssertionError(f"{label}: {len(collects)} collect spans")
+    c0, c1 = collects[0][3], collects[0][3] + collects[0][4]
+    outside = [e[1] for e in spans if e[3] < c0 or e[3] + e[4] > c1]
+    if outside:
+        raise AssertionError(f"{label}: spans outside the collect span: "
+                             f"{outside[:5]}")
+
+
+def _categories(evs: list) -> dict:
+    cats = {}
+    for e in evs:
+        if e[0] == "X":
+            cats[e[2]] = cats.get(e[2], 0.0) + e[4] / 1e6
+    return {c: round(ms, 3) for c, ms in sorted(cats.items())}
+
+
+def _median(xs: list) -> float:
+    return float(np.median(np.asarray(xs)))
+
+
+def observability_phase(native, df_out: dict, smi: str) -> dict:
+    """Phase 24 (runs after phase 23, over phase 11's tables and oracles):
+    (a) traced q1-q4, (b) the tracing's cost, (c) sync attribution, (d)
+    telemetry and the event log, (e) chaos under seeded fault schedules.
+    Telemetry and the event log are on for the whole phase through their
+    env keys (``SRT_METRICS``, ``SRT_EVENT_LOG``), so every query of the
+    phase counts, whatever its conf."""
+    import re
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    from spark_rapids_tpu_torch import faults, monitoring
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.monitoring import history, syncs, telemetry
+    from spark_rapids_tpu_torch.ops import base as B
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="srt-obs-")
+    oracles, tables = df_out["oracles"], df_out["tables"]
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    ev_dir = os.path.join(tmp, "events")
+    env_before = {k: os.environ.get(k) for k in ("SRT_METRICS",
+                                                 "SRT_EVENT_LOG")}
+    os.environ["SRT_METRICS"] = "1"
+    os.environ["SRT_EVENT_LOG"] = ev_dir
+    telemetry.reset()
+    monitoring.reset()
+    out = {"runs": []}
+    queries = device_collects = 0
+
+    def run(df, q: str):
+        nonlocal queries, device_collects
+        native.reset_counters()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = native.counters()
+        out["runs"].append(launches)
+        queries += 1
+        device_collects += 1
+        check, want = oracles[q]
+        check(rows, want)
+        return rows, launches, wall
+
+    try:
+        # (a) traced q1-q4 against their untraced runs
+        sess_op = TpuSession(dict(vfa, **{
+            "spark.rapids.sql.trace.enabled": True,
+            "spark.rapids.sql.trace.level": "operator"}))
+        frames, bases = {}, {}
+        for q in OBS_QUERIES:
+            rows0, launches0, _ = run(df_out[q]["frame"], q)
+            bases[q] = rows0
+            df = tpch.QUERIES[q](sess_op, _rebound(sess_op, tables[q]))
+            rows, launches, wall = run(df, q)
+            if rows != rows0:
+                raise AssertionError(f"(a) traced {q}: rows differ from "
+                                     f"the untraced run's")
+            if launches != launches0:
+                raise AssertionError(f"(a) traced {q}: launches {launches} "
+                                     f"against untraced {launches0}")
+            qid = df._physical().last_ctx.cache["trace_query"]
+            evs = monitoring.events(qid)
+            _span_check(monitoring, qid, evs, f"(a) {q}")
+            log(f"phase 24 (a) {q} traced (operator level, its first run "
+                f"{wall:.3f} s): rows and K1-K4 launches {launches} equal "
+                f"the untraced run's; query {qid}, {len(evs)} events, spans "
+                f"well formed; category ms {_categories(evs)}; {smi}")
+            frames[q] = df
+        path = os.path.join(tmp, "q3_trace.json")
+        doc = frames["q3"].trace_export(path)
+        with open(path) as f:
+            loaded = json.load(f)
+        if loaded != doc or not loaded["traceEvents"]:
+            raise AssertionError("(a) q3's trace export did not load back")
+        log(f"phase 24 (a) q3 trace_export: {len(loaded['traceEvents'])} "
+            f"trace events, {os.path.getsize(path)} B, loaded back equal")
+        for q in ("q1", "q3"):
+            log(f"phase 24 (a) {q} explain_analyze:")
+            frames[q].explain_analyze()
+        for level in ("ESSENTIAL", "MODERATE", "ALL"):
+            # Set in the raw conf, not through set(): a new conf version
+            # would plan the DataFrame anew, without its last collect.
+            sess_op.conf.raw["spark.rapids.sql.metrics.level"] = level
+            m = frames["q1"].metrics()
+            log(f"phase 24 (a) q1 metrics() at {level}: "
+                + "; ".join(f"{k.split('@')[0]} {sorted(v)}"
+                            for k, v in m.items()))
+        sess_op.conf.raw.pop("spark.rapids.sql.metrics.level")
+
+        # (b) the cost: q1 warm, trace off / operator / kernel, in turns
+        syncs.install()
+        sess_k = TpuSession(dict(vfa, **{
+            "spark.rapids.sql.trace.enabled": True,
+            "spark.rapids.sql.trace.level": "kernel"}))
+        kframes = {q: tpch.QUERIES[q](sess_k, _rebound(sess_k, tables[q]))
+                   for q in ("q1", "q3")}
+        run(kframes["q1"], "q1")                  # its first run: packs
+        walls = {"off": [], "operator": [], "kernel": []}
+        entered = [0]
+        enter = B.timed.__enter__
+
+        def counting_enter(self):
+            entered[0] += 1
+            return enter(self)
+        for i in range(OBS_TURNS):
+            for label, df in (("off", df_out["q1"]["frame"]),
+                              ("operator", frames["q1"]),
+                              ("kernel", kframes["q1"])):
+                if i == 0 and label == "off":
+                    B.timed.__enter__ = counting_enter
+                try:
+                    walls[label].append(run(df, "q1")[2])
+                finally:
+                    B.timed.__enter__ = enter
+        timed_calls = entered[0]
+        m = B.Metrics("Probe")
+        costs = {}
+        for label, conf_on, level in (
+                ("off", False, monitoring.LEVEL_OPERATOR),
+                ("operator", True, monitoring.LEVEL_OPERATOR)):
+            monitoring.configure(conf_on, level, max_events=256)
+            t0 = time.perf_counter()
+            for _ in range(TIMED_CALLS):
+                with B.timed(m):
+                    pass
+            costs[label] = (time.perf_counter() - t0) / TIMED_CALLS * 1e6
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CALLS):
+            with torch.profiler.record_function("Probe:totalTime"):
+                pass
+        costs["record_function"] = \
+            (time.perf_counter() - t0) / TIMED_CALLS * 1e6
+        monitoring.configure(False)
+        monitoring.reset()
+        out["walls"] = walls
+        out["timed"] = dict(calls=timed_calls, us=costs)
+        log(f"phase 24 (b) q1 warm walls in {OBS_TURNS} turns, s: "
+            + ", ".join(f"{k} {[round(w, 4) for w in v]} (median "
+                        f"{_median(v):.4f})" for k, v in walls.items())
+            + f"; {timed_calls} timed() calls a q1 run; one timed() call "
+            f"{costs['off']:.3f} us with tracing off, "
+            f"{costs['operator']:.3f} us at operator level (a span), an "
+            f"unguarded record_function {costs['record_function']:.3f} us "
+            f"(host clock, {TIMED_CALLS} calls); {smi}")
+
+        # (c) sync attribution at kernel level: q1 and q3
+        out["syncs"] = {}
+        run(kframes["q3"], "q3")                  # its first run: packs
+        for q in ("q1", "q3"):
+            monitoring.reset()
+            prev = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    run(kframes[q], q)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            debug = sum(1 for w in caught
+                        if "synchroniz" in str(w.message))
+            qid = kframes[q]._physical().last_ctx.cache["trace_query"]
+            stats = syncs.sync_stats(qid)
+            n = sum(c for c, _ in stats.values())
+            secs = sum(t for _, t in stats.values())
+            top = sorted(stats.items(), key=lambda kv: -kv[1][0])[:5]
+            out["syncs"][q] = dict(spans=n, seconds=secs, debug=debug)
+            log(f"phase 24 (c) {q} at kernel level: {n} sync spans, "
+                f"{secs:.4f} s; torch's sync-debug warnings {debug}; top "
+                f"sites: " + "; ".join(f"{k} x{c} ({t * 1e3:.2f} ms)"
+                                       for k, (c, t) in top) + f"; {smi}")
+
+        # (e) chaos: q1, q3, q6 under seeded schedules
+        out["chaos"] = {}
+        for q in CHAOS_QUERIES:
+            if q not in bases:
+                bases[q] = run(df_out[q]["frame"], q)[0]
+            out["chaos"][q] = _chaos_run(q, CHAOS_OOM, tables, bases[q],
+                                         run, tmp, smi)
+        out["chaos"]["corrupt"] = _chaos_run(
+            "q1", CHAOS_CORRUPT, tables, bases["q1"], run, tmp, smi,
+            budget=(CHAOS_DEVICE_BUDGET, CHAOS_HOST_BUDGET))
+        faults.configure("")
+
+        # (d) telemetry and the event log over the whole phase
+        snap = telemetry.snapshot()["metrics"]
+        collects = sum(x["value"] for x in snap["srt_collects"]["series"])
+        lat = sum(x["count"] for x in
+                  snap["srt_query_latency_ms"]["series"])
+        if collects != device_collects or lat != queries:
+            raise AssertionError(
+                f"(d) srt_collects {collects} / srt_query_latency_ms "
+                f"{lat} against the phase's {device_collects} device "
+                f"collects / {queries} queries")
+        text = telemetry.render_text()
+        sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                            r'(-?[0-9.e+-]+|NaN|[+-]Inf)$')
+        bad = [ln for ln in text.splitlines()
+               if not ln.startswith("#") and not sample.match(ln)]
+        if bad or not text.endswith("# EOF\n"):
+            raise AssertionError(f"(d) render_text lines do not parse: "
+                                 f"{bad[:3]}")
+        recs = history.read_events(ev_dir)
+        if len(recs) != queries:
+            raise AssertionError(f"(d) {len(recs)} event-log records for "
+                                 f"{queries} queries")
+        lines = text.count("\n")
+        log(f"phase 24 (d) telemetry: srt_collects {collects:.0f}, "
+            f"srt_query_latency_ms count {lat} (the phase's queries), "
+            f"render_text {lines} lines all parse; event log {len(recs)} "
+            f"records; q1's (operator level) report:")
+        q1_qid = frames["q1"]._physical().last_ctx.cache["trace_query"]
+        rec = next(r for r in recs if r["query_id"] == q1_qid)
+        for line in history.render_report(rec).splitlines():
+            log(f"  {line}")
+    finally:
+        faults.configure("")
+        monitoring.configure(False)
+        monitoring.reset()
+        telemetry.configure(False)
+        telemetry.reset()
+        history.set_dir("")
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 24 took {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def _chaos_run(q: str, spec: str, tables: dict, base: list, run, tmp: str,
+               smi: str, budget=None) -> dict:
+    """``q`` under the fault schedule ``spec`` (seed 7; a plan of its own:
+    an armed schedule bypasses the plan cache): rows bit for bit the
+    fault-free device rows ``base``, the injections and ladder rungs
+    counted in ``Recovery@query`` and present as instants in the query's
+    trace."""
+    from spark_rapids_tpu_torch import faults, monitoring
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    spill = os.path.join(tmp, f"spill-{q}-{len(spec)}")
+    os.makedirs(spill, exist_ok=True)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.sql.trace.enabled": True,
+            "spark.rapids.sql.trace.level": "query",
+            "spark.rapids.sql.test.faults": spec,
+            "spark.rapids.sql.test.faults.seed": 7,
+            "spark.rapids.memory.spill.dir": spill}
+    if budget is not None:
+        conf["spark.rapids.memory.tpu.budgetBytes"] = budget[0]
+        conf["spark.rapids.memory.host.spillStorageSize"] = budget[1]
+    faults.configure("")
+    faults.reset_counters()
+    session = TpuSession(conf)
+    df = tpch.QUERIES[q](session, _rebound(session, tables[q]))
+    rows, launches, wall = run(df, q)
+    if rows != base:
+        raise AssertionError(f"(e) {q} under {spec!r}: rows differ from "
+                             f"the fault-free device rows")
+    ctx = df._physical().last_ctx
+    rec = dict(ctx.metrics["Recovery@query"].values)
+    qid = ctx.cache["trace_query"]
+    inst = [(e[1], e[7]) for e in monitoring.events(qid) if e[0] == "i"]
+    names = {n for n, _ in inst}
+    if rec.get("faultsInjected", 0) < 1 or \
+            rec.get("spillEscalations", 0) < 1 or \
+            not {"fault-injected", "oom-rung"} <= names:
+        raise AssertionError(f"(e) {q} under {spec!r}: recovery "
+                             f"{rec}, instants {inst}")
+    spill_m = ctx.last_spill_metrics or {}
+    if budget is not None and (
+            rec.get("corruptionsDetected", 0) != 1
+            or spill_m.get("restore_from_disk", 0) < 1):
+        raise AssertionError(f"(e) {q} under {spec!r}: no frame read back "
+                             f"from disk was corrupted and re-read "
+                             f"({rec}, {spill_m})")
+    if ctx.last_leak_report:
+        raise AssertionError(f"(e) {q}: leaked {ctx.last_leak_report}")
+    log(f"phase 24 (e) {q} under {spec!r}"
+        + (f" (budgetBytes {budget[0]}, host tier {budget[1]})"
+           if budget else "")
+        + f": rows bit for bit the fault-free device rows, {wall:.3f} s; "
+        f"Recovery@query {rec}; instants {inst}; spill "
+        f"{ {k: v for k, v in spill_m.items() if v} }; launches "
+        f"{launches}; {smi}")
+    return dict(recovery=rec, instants=inst, wall=wall, launches=launches)
+
+
 def end_phase(name: str) -> None:
     """Clear the plan cache (its templates pin their sources and packed
     encodings) and print the process's peak and current host RSS."""
@@ -5942,6 +6369,10 @@ def main() -> int:
         shutil.rmtree(fi["root"], ignore_errors=True)
     end_phase("phase 23")
 
+    # Phase 24: the observability layer and the fault-injection registry
+    ob = observability_phase(native, df, smi)
+    end_phase("phase 24")
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -5951,7 +6382,7 @@ def main() -> int:
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
-        fi["runs"]) + tuple(pp["runs"])
+        fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -6012,7 +6443,8 @@ def main() -> int:
         + "; phase 21 " + ", ".join(str(r) for r in ud["runs"])
         + "; phase 22 " + ", ".join(str(r) for r in fi["runs"])
         + "; phase 23 " + ", ".join(str(r) for r in pp["runs"])
-        + f"; phase 23 library calls {library}")
+        + f"; phase 23 library calls {library}"
+        + "; phase 24 " + ", ".join(str(r) for r in ob["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

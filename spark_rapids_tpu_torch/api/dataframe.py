@@ -457,3 +457,58 @@ class DataFrame:
         report = self._physical().explain(mode)
         print(report)
         return report
+
+    def explain_analyze(self) -> str:
+        """The plan tree annotated with OBSERVED per-operator rows, bytes,
+        wall-ms and batches, with the audit entries and (when tracing was
+        on) the span-category breakdown in the footer
+        (``monitoring/analyze.py``). Reads the LAST collect of this
+        DataFrame's plan; collects once if none ran yet."""
+        phys = self._physical()
+        if getattr(phys, "last_ctx", None) is None:
+            self.collect()
+        from spark_rapids_tpu_torch.monitoring.analyze import render
+        report = render(phys, getattr(phys, "last_ctx", None))
+        # Plan provenance: a cache-hit (bind-only) execution must not
+        # silently look identical to a freshly planned one.
+        prov = getattr(phys, "provenance", None)
+        if prov:
+            report = f"[{prov}]\n{report}"
+        print(report)
+        return report
+
+    def trace_export(self, path: Optional[str] = None) -> dict:
+        """Export the flight recorder's Chrome trace-event JSON (loads in
+        Perfetto / chrome://tracing): one track per query, this
+        DataFrame's last collect and whatever else ran, and one per
+        thread. Needs ``spark.rapids.sql.trace.enabled`` (or SRT_TRACE=1)
+        during the collect; returns the trace document and writes it to
+        ``path`` when given."""
+        from spark_rapids_tpu_torch import monitoring
+        return monitoring.export_chrome(path)
+
+    _METRIC_LEVELS = {
+        "ESSENTIAL": {"numOutputRows", "totalTime"},
+        "MODERATE": {"numOutputRows", "totalTime", "numOutputBatches",
+                     "shuffleTime", "bufferTime"},
+    }
+
+    def metrics(self):
+        """Per-operator metrics of the LAST collect of this DataFrame's
+        plan (GpuExec.scala:27-56 registry; empty before any action).
+        ``spark.rapids.sql.metrics.level`` filters verbosity; the audit
+        entries (``ops/base.py`` ``audit_metric_groups``: Recovery@query,
+        Pipeline@query) keep every counter. A plan-cache template's
+        DataFrames share it: each shows whichever collected last."""
+        phys = self._physical()
+        ctx = getattr(phys, "last_ctx", None)
+        if ctx is None:
+            return {}
+        level = str(self._session.conf.get(C.METRICS_LEVEL)).upper()
+        keep = self._METRIC_LEVELS.get(level)
+        from spark_rapids_tpu_torch.ops.base import audit_metric_groups
+        exempt = audit_metric_groups()
+        return {k: {name: v for name, v in m.values.items()
+                    if keep is None or name in keep
+                    or m.owner in exempt}
+                for k, m in ctx.metrics.items()}

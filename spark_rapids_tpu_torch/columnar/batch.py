@@ -209,13 +209,22 @@ class DeviceBatch:
 def concat_batches(batches: Sequence[DeviceBatch],
                    capacity: int) -> DeviceBatch:
     """Concatenate the live rows of ``batches`` into one dense batch of
-    ``capacity`` rows (selection vectors compact away here)."""
+    ``capacity`` rows (selection vectors compact away here). Runs under
+    the OOM ladder with the ``concat`` fault site inside the retried
+    call."""
     assert batches, "concat of zero batches"
     total_cap = sum(b.capacity for b in batches)
     assert total_cap <= capacity, (
         f"concat overflow: member capacities sum to {total_cap} > {capacity}")
+    from spark_rapids_tpu_torch import faults
     from spark_rapids_tpu_torch.columnar.rowmove import concat_compact
-    return concat_compact(batches, capacity)
+    from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+
+    def dispatch(bs):
+        faults.fault_point("concat")
+        return concat_compact(bs, capacity)
+
+    return retry_on_oom(dispatch, list(batches))
 
 
 # Below this device size a shrink cannot repay its row-count sync.

@@ -632,7 +632,11 @@ def download_batches(batches: Sequence[DeviceBatch],
     shrink to their live bucket (one batched row-count pull), then every
     remaining buffer is copied to the host in one pass and synchronized
     once; selection vectors filter on the host. ``moved``, when given,
-    gains the bytes copied (``bytes``) and the live rows (``rows``)."""
+    gains the bytes copied (``bytes``) and the live rows (``rows``). The
+    copy runs under the OOM ladder with the ``download`` fault site inside
+    the retried call."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.memory.oom import retry_on_oom
     batches, _ = shrink_all(batches, min_bytes=MIN_SHRINK_BYTES)
     leaves: List[torch.Tensor] = []
     for b in batches:
@@ -644,9 +648,14 @@ def download_batches(batches: Sequence[DeviceBatch],
             leaves.append(c.validity)
             if c.dtype.is_string:
                 leaves.append(c.lengths)
-    fetched = [t.to("cpu", non_blocking=True) for t in leaves]
-    if any(t.is_cuda for t in leaves):
-        torch.cuda.synchronize()
+    def _fetch():
+        faults.fault_point("download")
+        out = [t.to("cpu", non_blocking=True) for t in leaves]
+        if any(t.is_cuda for t in leaves):
+            torch.cuda.synchronize()
+        return out
+
+    fetched = retry_on_oom(_fetch)
     if moved is not None:
         moved["bytes"] = moved.get("bytes", 0) + sum(
             t.numel() * t.element_size() for t in leaves)

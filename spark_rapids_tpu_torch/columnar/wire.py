@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import DeviceLike, resolve_device
+from spark_rapids_tpu_torch import DeviceLike, faults, resolve_device
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, torch_dtype)
@@ -778,9 +778,14 @@ def pack_encoded(arrays, specs, n: int, cap: int) -> EncodedBatch:
 def pack_batch(batch, capacity: Optional[int] = None,
                string_widths: Optional[dict] = None,
                mode: Optional[str] = None) -> EncodedBatch:
-    """encode + pack: the complete host half of an upload."""
-    return pack_encoded(*encode_batch(batch, capacity, string_widths,
-                                      mode))
+    """encode + pack: the complete host half of an upload (what pipeline
+    prefetch threads stage ahead of the ordered consumer); a
+    ``wire-pack`` span at ``kernel`` trace level."""
+    from spark_rapids_tpu_torch import monitoring
+    with monitoring.span("wire-pack", "host-prefetch",
+                         level=monitoring.LEVEL_KERNEL):
+        return pack_encoded(*encode_batch(batch, capacity, string_widths,
+                                          mode))
 
 
 # ---------------------------------------------------------------------------
@@ -909,12 +914,24 @@ def upload_packed(enc: EncodedBatch, device: DeviceLike = None
                   ) -> DeviceBatch:
     """Device half: ONE host->device copy of the staging buffer, then the
     eager unpack-and-decode on ``device`` (``None`` = the CUDA card,
-    raising when there is none)."""
+    raising when there is none). The largest single allocations happen
+    here, so the copy and decode run under the OOM ladder
+    (``memory/oom.py``), with the ``upload`` fault site inside the
+    retried call, in an ``upload`` span."""
+    from spark_rapids_tpu_torch import monitoring
+    from spark_rapids_tpu_torch.memory.oom import retry_on_oom
     dev = resolve_device(device)
-    # A copy on the CPU too: the decoded columns view the staged bytes,
-    # and a source keeps its EncodedBatches across collects.
-    staged = torch.from_numpy(enc.staging).to(dev, copy=True)
-    out = _decode_staged(staged, enc)
+
+    def put_and_decode():
+        faults.fault_point("upload")
+        # A copy on the CPU too: the decoded columns view the staged
+        # bytes, and a source keeps its EncodedBatches across collects.
+        staged = torch.from_numpy(enc.staging).to(dev, copy=True)
+        return _decode_staged(staged, enc)
+
+    with monitoring.span("upload", "upload",
+                         args={"bytes": int(enc.nbytes), "rows": enc.n}):
+        out = retry_on_oom(put_and_decode)
     _wrecord("uploadTransfers")
     _wrecord("uploadedBatches")
     return out
@@ -932,16 +949,27 @@ def upload_packed_group(encs: Sequence[EncodedBatch],
         return []
     if len(encs) == 1:
         return [upload_packed(encs[0], device)]
+    from spark_rapids_tpu_torch import monitoring
+    from spark_rapids_tpu_torch.memory.oom import retry_on_oom
     dev = resolve_device(device)
     combined = np.concatenate([e.staging for e in encs])
-    staged_all = torch.from_numpy(combined).to(dev)
+
+    def put_all():
+        faults.fault_point("upload")
+        return torch.from_numpy(combined).to(dev)
+
+    with monitoring.span("upload-group", "upload",
+                         args={"bytes": int(combined.nbytes),
+                               "batches": len(encs)}):
+        staged_all = retry_on_oom(put_all)
     _wrecord("uploadTransfers")
     _wrecord("uploadedBatches", len(encs))
     _wrecord("groupedUploads")
     outs: List[DeviceBatch] = []
     off = 0
     for enc in encs:
-        outs.append(_decode_staged(staged_all[off:off + enc.nbytes], enc))
+        outs.append(retry_on_oom(_decode_staged,
+                                 staged_all[off:off + enc.nbytes], enc))
         off += enc.nbytes
     return outs
 

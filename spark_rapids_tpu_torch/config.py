@@ -447,6 +447,91 @@ PLAN_CACHE_MAX_ENTRIES = _entry(
     "packed encodings.", "long", 256)
 
 
+METRICS_LEVEL = _entry(
+    "spark.rapids.sql.metrics.level",
+    "Operator metric verbosity reported by DataFrame.metrics(): "
+    "ESSENTIAL (rows/time), MODERATE (+batches/shuffle), or DEBUG "
+    "(everything the execs record). Audit groups registered in "
+    "ops/base.py (Recovery/Pipeline @query) are never filtered.",
+    "string", "DEBUG")
+
+TRACE_ENABLED = _entry(
+    "spark.rapids.sql.trace.enabled",
+    "Query flight recorder (spark_rapids_tpu_torch/monitoring/): record "
+    "structured trace spans (host prefetch, wire pack/upload, "
+    "per-operator dispatch, shuffle materialize/serve, download, host "
+    "syncs) and instant events (fault injected, OOM rung, grace join, "
+    "plan-cache hit/miss) into a bounded per-query ring buffer. Consumed "
+    "by DataFrame.trace_export (Chrome/Perfetto JSON), "
+    "DataFrame.explain_analyze and monitoring.snapshot(). Off = a no-op "
+    "recorder with near-zero per-call overhead. The SRT_TRACE env (0/1) "
+    "overrides the default for a whole process.", "boolean", False)
+
+TRACE_MAX_EVENTS = _entry(
+    "spark.rapids.sql.trace.maxEvents",
+    "Per-query ring-buffer bound for the flight recorder: once a "
+    "query's ring is full the oldest events drop (droppedEvents in "
+    "monitoring.snapshot() counts them), so tracing can stay on under "
+    "sustained load without unbounded memory.", "long", 65536)
+
+TRACE_LEVEL = _entry(
+    "spark.rapids.sql.trace.level",
+    "Flight-recorder verbosity: 'query' (query lifecycle spans + every "
+    "instant event), 'operator' (+ per-partition, per-operator, upload, "
+    "shuffle spans), or 'kernel' (+ per-batch wire pack and host-sync "
+    "attribution spans).", "string", "operator")
+
+METRICS_ENABLED = _entry(
+    "spark.rapids.sql.metrics.enabled",
+    "Live telemetry plane (spark_rapids_tpu_torch/monitoring/"
+    "telemetry.py): a process-global typed metric registry (monotonic "
+    "counters, gauges, sliding-window log-bucket histograms with "
+    "p50/p95/p99) bridged from the existing counter funnels (pipeline, "
+    "wire codec, native kernels, plan cache, recovery). Consumed by "
+    "telemetry.snapshot()/render_text() and the OpenMetrics exporter "
+    "(metrics.port). Off = a no-op registry whose per-call cost is one "
+    "global load. The SRT_METRICS env (0/1) overrides the default for a "
+    "whole process.", "boolean", False)
+
+METRICS_PORT = _entry(
+    "spark.rapids.sql.metrics.port",
+    "OpenMetrics/Prometheus exporter port (monitoring/exporter.py): "
+    "with metrics.enabled, serve the text exposition on "
+    "127.0.0.1:<port>/metrics from a daemon thread. 0 (default) = no "
+    "socket; the registry stays readable in-process via "
+    "telemetry.snapshot()/render_text().", "long", 0)
+
+EVENT_LOG_DIR = _entry(
+    "spark.rapids.sql.eventLog.dir",
+    "Persistent per-query event log (monitoring/history.py): append one "
+    "JSONL record per query at teardown (plan fingerprint, bind slots, "
+    "per-node observed rows, span-category breakdown, recovery instants, "
+    "final metrics) under this directory, one events-<pid>.jsonl per "
+    "process. Empty (default) = off. The SRT_EVENT_LOG env overrides the "
+    "default for a whole process.", "string", "")
+
+TEST_FAULTS = _entry(
+    "spark.rapids.sql.test.faults",
+    "Deterministic fault-injection schedule for chaos testing: "
+    "comma-separated kind@site[/query=N][:arg] entries (arg = fire-count "
+    "or probability), e.g. 'oom@upload:0.05,oom@kernel:1,corrupt@wire:1'. "
+    "Empty disarms. The SRT_FAULTS env var seeds the process-global "
+    "schedule when this key is unset. See spark_rapids_tpu_torch/"
+    "faults.py.", "string", "")
+
+TEST_FAULTS_SEED = _entry(
+    "spark.rapids.sql.test.faults.seed",
+    "Seed for the per-site fault-injection PRNGs: the same schedule + "
+    "seed reproduces the same failures (SRT_FAULTS_SEED env analog).",
+    "long", 0)
+
+TEST_FAULTS_QUERY_TAG = _entry(
+    "spark.rapids.sql.test.faults.queryTag",
+    "Explicit fault tag for query-scoped chaos (kind@site/query=N "
+    "entries fire only on the query whose tag is N). -1 = untagged: the "
+    "query's minted id is the tag.", "long", -1)
+
+
 class TpuConf:
     """Resolved view over a raw key->value dict."""
 

@@ -10,10 +10,16 @@ is always FLOAT64 (Spark casts both operands to double) and a divisor of
 0.0 or -0.0 gives NULL, not an infinity; NaN propagates. The device half
 runs torch, the host half numpy (whose arrays wrap on overflow too).
 
-Subnormals in ``Divide``: the JAX package's device engine (XLA:CPU) reads
-a subnormal operand as a zero of its sign and flushes a subnormal
-quotient, so there a subnormal divisor gives NULL; its host engine
-(numpy) does neither. Each half here follows its engine.
+Subnormals: the JAX package's device engine (XLA:CPU) runs float
+arithmetic with denormals-are-zero and flush-to-zero, so ``+``, ``-``,
+``*`` and ``/`` read a subnormal operand as a zero of its sign and flush a
+subnormal result (a float32 subnormal widening to double becomes a zero
+too), and a subnormal divisor gives NULL; its ``fmod`` is the C library's
+and flushes nothing, and unary minus is a sign flip. Its host engine
+(numpy) flushes nothing. Each half here follows its engine: the device
+half flushes the operands and results of ``Add``, ``Subtract``,
+``Multiply`` and ``Divide`` and the inner addition of ``Pmod``, through
+``flush_subnormal``.
 
 ``Remainder`` (Spark ``%``) truncates as Java does, so the result takes
 the dividend's sign; ``Pmod`` is ``((a % b) + b) % b`` with the
@@ -47,6 +53,18 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.exprs.cast import _TORCH
 
 
+def _daz(a: torch.Tensor, b: torch.Tensor):
+    """Float operands with subnormals read as zeros of their sign."""
+    if not a.is_floating_point():
+        return a, b
+    return flush_subnormal(a), flush_subnormal(b)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """A float result with subnormals flushed to zeros of their sign."""
+    return flush_subnormal(x) if x.is_floating_point() else x
+
+
 class _Arith(BinaryExpression):
     """Common-type widening binary arithmetic."""
 
@@ -56,7 +74,7 @@ class _Arith(BinaryExpression):
 
     def _prep(self, l_data, r_data):
         t = torch_dtype(self.data_type())
-        return l_data.to(t), r_data.to(t)
+        return convert(l_data, t), convert(r_data, t)
 
     def _prep_host(self, l_data, r_data):
         t = self.data_type().np_dtype
@@ -65,8 +83,8 @@ class _Arith(BinaryExpression):
 
 class Add(_Arith):
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
-        a, b = self._prep(l_data, r_data)
-        return a + b, l_valid & r_valid
+        a, b = _daz(*self._prep(l_data, r_data))
+        return _ftz(a + b), l_valid & r_valid
 
     def do_host(self, l_data, l_valid, r_data, r_valid):
         a, b = self._prep_host(l_data, r_data)
@@ -75,8 +93,8 @@ class Add(_Arith):
 
 class Subtract(_Arith):
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
-        a, b = self._prep(l_data, r_data)
-        return a - b, l_valid & r_valid
+        a, b = _daz(*self._prep(l_data, r_data))
+        return _ftz(a - b), l_valid & r_valid
 
     def do_host(self, l_data, l_valid, r_data, r_valid):
         a, b = self._prep_host(l_data, r_data)
@@ -85,8 +103,8 @@ class Subtract(_Arith):
 
 class Multiply(_Arith):
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
-        a, b = self._prep(l_data, r_data)
-        return a * b, l_valid & r_valid
+        a, b = _daz(*self._prep(l_data, r_data))
+        return _ftz(a * b), l_valid & r_valid
 
     def do_host(self, l_data, l_valid, r_data, r_valid):
         a, b = self._prep_host(l_data, r_data)
@@ -100,8 +118,8 @@ class Divide(BinaryExpression):
         return dt.FLOAT64
 
     def do_columnar(self, l_data, l_valid, r_data, r_valid):
-        a = flush_subnormal(l_data.to(torch.float64))
-        b = flush_subnormal(r_data.to(torch.float64))
+        a = flush_subnormal(convert(l_data, torch.float64))
+        b = flush_subnormal(convert(r_data, torch.float64))
         zero = b == 0.0
         safe = torch.where(zero, torch.ones((), dtype=torch.float64,
                                             device=b.device), b)
@@ -129,7 +147,16 @@ def _safe_divisor(b, floating: bool, xp):
 
 
 def _fmod(xp, a, b):
-    return torch.fmod(a, b) if xp is torch else np.fmod(a, b)
+    """C ``fmod``, exact. torch's vectorized CPU fmod computes
+    ``a - trunc(a / b) * b``, which is NaN once ``a / b`` overflows (1e308
+    by the least normal double); the card's is the C library's, as
+    numpy's is, so a CPU tensor takes numpy's."""
+    if xp is np:
+        return np.fmod(a, b)
+    if a.is_cuda:
+        return torch.fmod(a, b)
+    with np.errstate(all="ignore"):
+        return torch.from_numpy(np.asarray(np.fmod(a.numpy(), b.numpy())))
 
 
 class Remainder(_Arith):
@@ -165,7 +192,14 @@ class Pmod(_Arith):
         floating = self.data_type().is_floating
         safe, zero = _safe_divisor(b, floating, xp)
         if floating:
-            r = _fmod(xp, _fmod(xp, a, safe) + safe, safe)
+            inner = _fmod(xp, a, safe)
+            if xp is torch:
+                # The engine's addition: operands and sum flushed.
+                x, y = _daz(inner, safe)
+                inner = _ftz(x + y)
+            else:
+                inner = inner + safe
+            r = _fmod(xp, inner, safe)
         else:
             r = xp.remainder(xp.remainder(a, safe) + safe, safe)
             fix = (r != 0) & ((r < 0) != (safe < 0))

@@ -34,8 +34,12 @@ there: its date statistics and day numbers do not compare).
 A pushed value is a literal or a plan-cache ``BindValue`` slot
 (``exprs/bindslots.py``), resolved against each execution's binding
 vector (``_resolved_predicates``) wherever units are listed: the host
-engine, the pipeline's prefetch threads and the device half. The
-reference's ``faults.fault_point("scan")`` calls are not ported.
+engine, the pipeline's prefetch threads and the device half. Each unit's
+host decode is a ``scan`` fault site (``faults.py``), on whichever thread
+decodes it: the consumer, a pipeline prefetch thread or a MULTITHREADED
+reader thread, the last two under the consumer's query token, recovery
+sink and active catalog; a fault there re-raises where the consumer takes
+the unit.
 
 The device half takes the plan's ``device`` as ``InMemorySourceExec``
 does: every decoded batch is packed by the wire codec
@@ -66,7 +70,8 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
+from spark_rapids_tpu_torch import (
+    DeviceLike, config as C, faults, resolve_device)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.io.arrow_convert import (
     arrow_to_host_batch, schema_from_arrow)
@@ -565,6 +570,7 @@ class FileScanExec(LeafExec):
                         self._unit_cache_key(unit, rows)) is not None:
                     payload.append((unit, "cached"))
                     continue
+                faults.fault_point("scan")
                 payload.append((unit, _pack_unit(
                     self.fmt, unit, self.options, rows, self._columns, m)))
         staged = sum(e.nbytes for _, item in payload
@@ -701,6 +707,7 @@ class FileScanExec(LeafExec):
 
     def _device_perfile(self, ctx, m, units, rows, partition, budget):
         for unit in units:
+            faults.fault_point("scan")
             encs = _pack_unit(self.fmt, unit, self.options, rows,
                               self._columns, m)
             yield from self._upload_run(ctx, m, [(unit, encs)], rows,
@@ -718,10 +725,22 @@ class FileScanExec(LeafExec):
         if not units:
             return
         window = max(1, min(nthreads, len(units)))
+        # Reader threads take over this thread's query token, recovery
+        # sink and active catalog (thread-locals do not cross threads).
+        token = faults.get_query_token()
+        sink = faults.get_recovery_sink()
+        catalog = oom.get_active_catalog()
 
         def read_unit(u):
-            return _pack_unit(self.fmt, u, self.options, rows,
-                              self._columns, m)
+            faults.set_query_token(token)
+            oom.set_active_catalog(catalog, sink)
+            try:
+                faults.fault_point("scan")
+                return _pack_unit(self.fmt, u, self.options, rows,
+                                  self._columns, m)
+            finally:
+                oom.set_active_catalog(None)
+                faults.set_query_token(None)
 
         with concurrent.futures.ThreadPoolExecutor(
                 max_workers=window,
@@ -752,6 +771,7 @@ class FileScanExec(LeafExec):
         pending_rows = 0
         t0 = time.perf_counter_ns()
         for unit in units:
+            faults.fault_point("scan")
             for hb in _read_unit_batches(self.fmt, unit, self.options,
                                          rows, self._columns):
                 pending.append(hb)

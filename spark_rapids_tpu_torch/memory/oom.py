@@ -31,10 +31,14 @@ tries the operator's on-device degraded mode (the grace hash join); where
 that fails too the error reaches the caller. Work never moves to the host.
 
 The wrapped steps are pure batch -> batch, so a retry is safe. The active
-catalog and the query's ``Recovery@query`` metrics are set per collect
-(thread-local), so dispatch sites deep in the operators need no context.
-Every rung counts ``spillEscalations`` and every retry
-``retriesAttempted`` in those metrics.
+catalog and the query's ``Recovery@query`` metrics (the recovery sink of
+``faults.py``) are set per collect (thread-local), so dispatch sites deep
+in the operators need no context. Every rung counts ``spillEscalations``
+and every retry ``retriesAttempted`` through ``faults.record`` (the
+process-global recovery counters and that sink), and every rung taken is
+an ``oom-rung`` instant on the flight recorder. An injected OOM
+(``faults.InjectedOomError``, raised at a dispatch funnel's fault site
+inside the retried call) walks the same ladder as a real one.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from typing import Callable, List, TypeVar
 
 import torch
 
+from spark_rapids_tpu_torch import faults
+
 _LOG = logging.getLogger("spark_rapids_tpu_torch.memory")
 
 T = TypeVar("T")
@@ -54,22 +60,15 @@ _local = threading.local()
 
 
 def set_active_catalog(catalog, metrics=None) -> None:
-    """The catalog (and the query's recovery ``Metrics``) the dispatch
-    sites of this thread spill into; None clears both."""
+    """The catalog the dispatch sites of this thread spill into, and the
+    query's recovery ``Metrics`` (``faults.set_recovery_sink``); None
+    clears both."""
     _local.catalog = catalog
-    _local.metrics = metrics if catalog is not None else None
+    faults.set_recovery_sink(metrics if catalog is not None else None)
 
 
 def get_active_catalog():
     return getattr(_local, "catalog", None)
-
-
-def record(name: str, amount: int = 1) -> None:
-    """Count one recovery event in the active query's ``Recovery@query``
-    metrics (nowhere when no query is active)."""
-    m = getattr(_local, "metrics", None)
-    if m is not None:
-        m.add(name, amount)
 
 
 class OomRetryExhausted(RuntimeError):
@@ -181,11 +180,13 @@ def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
             continue
         rungs.append(rung)
         last_ladder[:] = rungs
-        record("spillEscalations")
+        faults.record("spillEscalations")
+        from spark_rapids_tpu_torch import monitoring
+        monitoring.instant("oom-rung", "recovery", args={"rung": rung})
         _LOG.warning("device OOM: escalation rung %r (of %r), retrying "
                      "dispatch: %s", rung, rungs, last)
         try:
-            record("retriesAttempted")
+            faults.record("retriesAttempted")
             return fn(*args, **kwargs)
         except Exception as e2:
             if not is_oom_error(e2):

@@ -15,7 +15,10 @@ numpy buffer (host tier) and, past the host budget, serialized into one
 blob, compressed by the codec and written as a CRC frame into the native
 spill file (disk tier). The entry then holds no device tensor. A restore
 rebuilds the batch bit for bit: data, validity, string lengths and byte
-matrices, the selection vector, ``num_rows`` and ``rows_hint``.
+matrices, the selection vector, ``num_rows`` and ``rows_hint``. The disk
+write and read are the ``spill.write`` / ``spill.read`` fault sites, and
+a read passes its frame through the ``wire`` corruption site before the
+CRC check, which then re-reads once (``faults.py``).
 
 Spill priorities follow SpillPriorities.scala: shuffle outputs spill
 first, actively read inputs never.
@@ -34,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import faults
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, DeviceColumn
 
@@ -289,11 +293,14 @@ class BufferCatalog:
             WireCorruptionError, unframe_blob)
         last: Optional[WireCorruptionError] = None
         for _ in range(2):
+            faults.fault_point("spill.read")
             framed = self._file().read(e.disk_block)
+            framed = faults.corrupt_blob("wire", framed)
             try:
                 return unframe_blob(framed)
             except WireCorruptionError as err:
                 last = err
+                faults.record("corruptionsDetected")
                 self.metrics["corruption_detected"] = \
                     self.metrics.get("corruption_detected", 0) + 1
                 _LOG.warning("spill frame checksum mismatch (buffer %d), "
@@ -375,6 +382,7 @@ class BufferCatalog:
 
     def _spill_host_to_disk(self, e: BufferEntry):
         from spark_rapids_tpu_torch.columnar.wire import frame_blob
+        faults.fault_point("spill.write")
         blob, directory = _serialize_bufs(e.host_bufs)
         raw_len = len(blob)
         if self.codec is not None:

@@ -73,8 +73,8 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column, project_batch)
-from spark_rapids_tpu_torch.memory.oom import (
-    effective_batch_target, retry_on_oom)
+from spark_rapids_tpu_torch.memory.oom import effective_batch_target
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
@@ -1016,7 +1016,7 @@ class HashAggregateExec(Exec):
         for batch in child_iter:
             if update_stage:
                 with timed(m):
-                    partial = retry_on_oom(self._update_batch, batch, offset)
+                    partial = kc.call(self._update_batch, batch, offset)
                 offset += batch.capacity
                 if self.mode == "partial":
                     record_batch(m, partial)
@@ -1038,7 +1038,7 @@ class HashAggregateExec(Exec):
                 yield self._empty_result(self.plan_device())
             return
         with timed(m):
-            acc = retry_on_oom(self._consolidate, pending, final_stage=True)
+            acc = kc.call(self._consolidate, pending, final_stage=True)
         record_batch(m, acc)
         yield acc
 

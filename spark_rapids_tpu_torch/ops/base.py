@@ -21,8 +21,16 @@ The same two funnels run their partition loop through the partition
 pipeline (``parallel/pipeline.py``): a subtree with a file scan below it
 (``host_prefetchable``) has its host half (``prefetch_host``: decode,
 stats pruning, wire encode and pack) run on host threads ahead of the
-ordered consumer, which makes every upload and launch. The watchdog,
-scheduler and fault layers are not ported.
+ordered consumer, which makes every upload and launch. The watchdog and
+scheduler layers are not ported.
+
+Every ``timed`` interval is also a flight-recorder span
+(``monitoring/recorder.py``) and, while a torch profiler is recording,
+a ``torch.profiler.record_function`` range named ``<Op>:<metric>``, so
+a profiler capture attributes the kernels to their operators. The
+collect funnel files its spans under the query's token
+(``faults.QueryToken``) and counts ``srt_collects`` /
+``srt_collect_ms`` into the telemetry registry.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-from spark_rapids_tpu_torch import DeviceLike, resolve_device
+import torch
+
+from spark_rapids_tpu_torch import DeviceLike, faults, resolve_device
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.columnar.host import (
@@ -41,6 +51,9 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.exprs.base import island_sink
 from spark_rapids_tpu_torch.memory import oom
+from spark_rapids_tpu_torch.monitoring import recorder as _rec
+
+_PROFILER = torch.autograd.profiler
 
 Schema = Tuple[Tuple[str, DataType], ...]
 
@@ -64,6 +77,27 @@ class Metrics:
         return f"Metrics({self.values})"
 
 
+# -- audit metric groups ------------------------------------------------------
+# The registry of per-query audit entries (<Owner>@query) that the metrics
+# verbosity filter (spark.rapids.sql.metrics.level) never drops: they are
+# recovery and pipeline audit trails, not operator telemetry. Every
+# subsystem creates its entry through query_metrics_entry(), which
+# registers the owner here.
+_AUDIT_METRIC_GROUPS = {"Recovery", "Pipeline"}
+_AUDIT_LOCK = threading.Lock()
+
+
+def register_audit_metric_group(owner: str) -> None:
+    """Mark ``owner`` as a level-filter-exempt audit group (idempotent)."""
+    with _AUDIT_LOCK:
+        _AUDIT_METRIC_GROUPS.add(owner)
+
+
+def audit_metric_groups() -> frozenset:
+    with _AUDIT_LOCK:
+        return frozenset(_AUDIT_METRIC_GROUPS)
+
+
 def record_batch(m: Metrics, batch) -> None:
     """Count one output batch, and its rows where they are known on the
     host: a device batch's ``rows_hint``, a host batch's ``num_rows``
@@ -74,6 +108,10 @@ def record_batch(m: Metrics, batch) -> None:
         rows = batch.num_rows
     if rows is not None:
         m.add("numOutputRows", int(rows))
+
+
+# ExecContext.cache entries that outlive close(): the query's identity.
+_KEPT_ON_CLOSE = ("trace_query", "plan_binds", "plan_bind_dtypes")
 
 
 @dataclasses.dataclass
@@ -87,7 +125,10 @@ class ExecContext:
     ``on_close`` hooks (each exchange closes the pieces it kept), records
     the catalog's leak report in ``last_leak_report`` (``[]``: the query
     freed all it registered) and its counters in ``last_spill_metrics``,
-    and empties the cache."""
+    and empties the cache but for the query's identity: ``trace_query``
+    (the flight-recorder ring its events went to) and the plan cache's
+    binding vector, which ``explain_analyze`` and the event log read
+    after the collect."""
 
     conf: TpuConf = dataclasses.field(default_factory=TpuConf)
     metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
@@ -137,7 +178,9 @@ class ExecContext:
         hooks, self.on_close = self.on_close, []
         for hook in hooks:
             hook()
+        kept = {k: self.cache[k] for k in _KEPT_ON_CLOSE if k in self.cache}
         self.cache.clear()
+        self.cache.update(kept)
         if self._catalog is not None:
             self.last_leak_report = self._catalog.leak_report()
             self.last_spill_metrics = dict(self._catalog.metrics)
@@ -146,9 +189,11 @@ class ExecContext:
 
 
 def query_metrics_entry(ctx: ExecContext, owner: str) -> Metrics:
-    """The per-query ``<owner>@query`` metrics entry (``Recovery`` holds
-    retriesAttempted, spillEscalations and the grace join's counts;
+    """The per-query ``<owner>@query`` audit metrics entry, registered as
+    level-filter exempt (``Recovery`` holds retriesAttempted,
+    spillEscalations, faultsInjected and the grace join's counts;
     ``Pipeline`` the partition pipeline's counters)."""
+    register_audit_metric_group(owner)
     key = f"{owner}@query"
     m = ctx.metrics.get(key)
     if m is None:
@@ -165,11 +210,25 @@ def _visible_device_bytes() -> int:
     return 8 << 30
 
 
+# Flight-recorder category per timed() metric: operator dispatch is
+# device-compute; scan decode/buffer work is host-side; shuffle and
+# sizes-pull syncs label themselves.
+_TIMED_CATS = {"bufferTime": "host-prefetch", "shuffleTime": "shuffle",
+               "sizesPullTime": "sync"}
+
+
 class timed:
     """Context manager adding elapsed host-clock ns to a metric. Kernels
     are asynchronous on the card, so on CUDA this measures dispatch, not
-    device time. Inside it, host roundtrips of expressions
+    device time. The same interval records as a flight-recorder span
+    (category by metric, ``_TIMED_CATS``) and, while a torch profiler is
+    recording, as a ``record_function`` range ``<Op>:<metric>`` (the
+    NvtxWithMetrics.scala:21-44 analog; outside a capture the range is
+    skipped, as a JAX TraceAnnotation costs nothing outside a trace).
+    Inside it, host roundtrips of expressions
     (``exprs.base.host_roundtrip``) count into ``metrics``."""
+
+    __slots__ = ("metrics", "name", "token", "t0", "_ann", "_span")
 
     def __init__(self, metrics: Metrics, name: str = "totalTime"):
         self.metrics = metrics
@@ -177,11 +236,25 @@ class timed:
 
     def __enter__(self):
         self.token = island_sink.set(self.metrics)
+        owner = self.metrics.owner or "op"
+        self._ann = None
+        if _PROFILER._is_profiler_enabled:
+            self._ann = torch.profiler.record_function(
+                f"{owner}:{self.name}")
+            self._ann.__enter__()
+        self._span = _rec.span(
+            owner, _TIMED_CATS.get(self.name, "device-compute"),
+            _rec.LEVEL_OPERATOR,
+            args=None if self.name == "totalTime" else {"metric": self.name})
+        self._span.__enter__()
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         self.metrics.add(self.name, time.perf_counter_ns() - self.t0)
+        self._span.__exit__(None, None, None)
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
         island_sink.reset(self.token)
         return False
 
@@ -272,6 +345,10 @@ class Exec:
             _LOG.warning("OOM ladder exhausted in %s partition %d; "
                          "retrying on the device through the grace path: "
                          "%s", self.name, partition, e)
+            from spark_rapids_tpu_torch import monitoring
+            monitoring.instant("grace-join-engaged", "recovery",
+                               args={"op": self.name,
+                                     "partition": partition})
             yield from grace_it
             return
         yield first
@@ -302,27 +379,49 @@ class Exec:
                         device: bool = True) -> List[HostBatch]:
         """``collect`` as host batches (numpy columns), before the rows
         are made. The query's catalog is the ladder's active catalog while
-        it runs, and the context is closed when it ends; a batch target
-        degraded by an earlier query's OOM ladder is restored first."""
+        it runs (and its ``Recovery@query`` entry the recovery sink), and
+        the context is closed when it ends; a batch target degraded by an
+        earlier query's OOM ladder is restored first. The whole call is
+        the query's ``collect`` span, each partition a ``partition`` span
+        and the device engine's result copy a ``download`` span."""
         ctx = ctx or ExecContext()
         # The engine the query's root runs on: exchanges coalesce their
         # partitions only under the device engine.
         ctx.cache.setdefault("engine", "device" if device else "host")
         # Adopt this query's wire codec (process-global,
-        # spark.rapids.sql.wire.codec) before any upload happens.
+        # spark.rapids.sql.wire.codec) before any upload happens, its
+        # flight-recorder and telemetry configuration before any span
+        # site runs (spark.rapids.sql.trace.* / metrics.*), and its
+        # spark.rapids.sql.native.* gates.
+        from spark_rapids_tpu_torch import monitoring
         from spark_rapids_tpu_torch.columnar import wire
+        from spark_rapids_tpu_torch.monitoring import telemetry
         from spark_rapids_tpu_torch.ops import native
         wire.maybe_configure(ctx.conf)
-        # ... and its spark.rapids.sql.native.* gates.
+        monitoring.maybe_configure(ctx.conf)
+        telemetry.maybe_configure(ctx.conf)
         native.maybe_configure(ctx.conf)
         oom.reset_degradation()
-        # Device subtrees under a host root register into the catalog too.
-        oom.set_active_catalog(ctx.catalog,
-                               query_metrics_entry(ctx, "Recovery"))
+        t0 = time.perf_counter()
+        collect_span = monitoring.span(
+            "collect", "query", level=monitoring.LEVEL_QUERY,
+            args={"op": self.name} if device
+            else {"op": self.name, "engine": "host"})
+        collect_span.__enter__()
         try:
+            # Device subtrees under a host root register into the catalog
+            # too; the recovery sink mirrors ladder and injection counters
+            # into this query's Recovery@query entry.
+            oom.set_active_catalog(ctx.catalog,
+                                   query_metrics_entry(ctx, "Recovery"))
             if not device:
-                return [hb for p in range(self.num_partitions(ctx))
-                        for hb in self.execute_host(ctx, p)]
+                out: List[HostBatch] = []
+                for p in range(self.num_partitions(ctx)):
+                    with monitoring.span("partition", "host-compute",
+                                         args={"partition": p,
+                                               "op": self.name}):
+                        out.extend(self.execute_host(ctx, p))
+                return out
             from spark_rapids_tpu_torch.parallel import pipeline as PL
             batches: List[DeviceBatch] = []
             nparts = self.num_partitions(ctx)
@@ -331,15 +430,43 @@ class Exec:
             pipe = PL.open_pipeline(ctx, self, nparts)
             try:
                 for p in range(nparts):
-                    batches.extend(pipe.consume(
-                        p, lambda p=p: self.execute_device_recovering(
-                            ctx, p)))
+                    # Per-partition cancellation checkpoint (the deep
+                    # funnels check too, through fault_point).
+                    faults.check_cancelled()
+                    with monitoring.span("partition", "device-compute",
+                                         args={"partition": p,
+                                               "op": self.name}):
+                        batches.extend(pipe.consume(
+                            p, lambda p=p: self.execute_device_recovering(
+                                ctx, p)))
             finally:
                 pipe.close()
             names = tuple(n for n, _ in self.schema)
-            return oom.retry_on_oom(download_batches, batches, names)
+            with monitoring.span("download", "device-compute",
+                                 args={"batches": len(batches)}):
+                return oom.retry_on_oom(download_batches, batches, names)
         finally:
             oom.set_active_catalog(None)
+            collect_span.__exit__(None, None, None)
+            # Live telemetry of a device collect: one counter inc + one
+            # histogram observe, and the spill catalog's tier occupancy
+            # and device high watermark, read before the context closes.
+            cat = ctx._catalog if device else None
+            if device:
+                telemetry.inc("srt_collects")
+                telemetry.observe("srt_collect_ms",
+                                  (time.perf_counter() - t0) * 1e3)
+            if cat is not None and telemetry.enabled():
+                telemetry.set_gauge("srt_memory_bytes", cat.device_bytes,
+                                    tier="device")
+                telemetry.set_gauge("srt_memory_bytes", cat.host_bytes,
+                                    tier="host")
+                telemetry.set_gauge("srt_memory_bytes", cat.disk_bytes,
+                                    tier="disk")
+                telemetry.set_gauge("srt_device_budget_bytes",
+                                    cat.device_budget)
+                telemetry.max_gauge("srt_device_watermark_bytes",
+                                    cat.device_bytes)
             ctx.close()
 
 

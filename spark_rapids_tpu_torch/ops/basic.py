@@ -2,7 +2,8 @@
 ``ProjectExec``, ``FilterExec``, ``UnionExec``, ``CoalescePartitionsExec``,
 ``RangeExec``, ``LocalLimitExec``, ``GlobalLimitExec``, ``ExpandExec``),
 each with its device half and its numpy host half. A project's or
-filter's per-batch device step is an OOM retry site (``memory/oom.py``).
+filter's per-batch device step is an OOM retry site (``memory/oom.py``)
+with the ``kernel`` fault site (``kernel_cache.call``).
 
 Plan-cache bind slots (``exprs/bindslots.py``) reach a project's or
 filter's steps through the context: the device step reads this
@@ -43,7 +44,7 @@ from spark_rapids_tpu_torch.exprs.bindslots import (
     host_bind_args, resolve_bound)
 from spark_rapids_tpu_torch.exprs.nondeterministic import (
     EvalContext, eval_context, needs_eval_context)
-from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops.base import (
     Exec, LeafExec, Schema, record_batch, timed)
 
@@ -100,7 +101,7 @@ def _device_loop(op: Exec, step, exprs, ctx, partition):
             binds = device_bind_args(ctx, batch.device) \
                 if has_bind_slots(exprs) else ()
         with timed(m):
-            out = retry_on_oom(step, batch, binds)
+            out = kc.call(step, batch, binds)
         record_batch(m, out)
         yield out
 
@@ -149,7 +150,7 @@ def _contextual_device_loop(op: Exec, exprs, step, ctx, partition: int):
         ec = EvalContext(partition, base,
                          ctx.cache.get(key) if key else None)
         with timed(m), eval_context(ec):
-            out = retry_on_oom(step, batch, binds)
+            out = kc.call(step, batch, binds)
         base = base + batch.num_rows.to(torch.int64)
         record_batch(m, out)
         yield out

@@ -22,8 +22,8 @@ pulls no further batch. Expand is 1 -> K: the step flat-maps, so a stage
 holding an Expand returns K output batches per input batch. The stage's
 rows (and batches) are those of the unfused chain, bit for bit.
 
-The call is an OOM retry site (``retry_on_oom``), as each member's step
-is. The member execs keep their original child links: the host
+The call is an OOM retry site with the ``kernel`` fault site
+(``kernel_cache.call``), as each member's step is. The member execs keep their original child links: the host
 engine runs the outermost member's ``execute_host`` over the unfused
 chain, and ``spark.rapids.sql.stageFusion.enabled`` off restores the
 unfused plan shape exactly.
@@ -37,7 +37,7 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.exprs.base import as_device_column, eval_exprs
 from spark_rapids_tpu_torch.exprs.bindslots import (
     bound_literals, device_bind_args, has_bind_slots, resolve_bound)
-from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops.base import (
     Exec, ExecContext, Schema, record_batch, timed)
 
@@ -177,7 +177,7 @@ class FusedStageExec(Exec):
                 binds = device_bind_args(ctx, batch.device) \
                     if self._has_binds else ()
             with timed(m):
-                outs, rems = retry_on_oom(self._fused, batch, rems, binds)
+                outs, rems = kc.call(self._fused, batch, rems, binds)
             for out in outs:
                 record_batch(m, out)
                 yield out

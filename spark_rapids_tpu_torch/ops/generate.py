@@ -32,7 +32,7 @@ from spark_rapids_tpu_torch.columnar.host import (
     HostBatch, HostColumn, all_valid, strings_to_matrix)
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column)
-from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 
 
@@ -123,7 +123,7 @@ class GenerateExec(Exec):
         m = ctx.metrics_for(self)
         for batch in self.children[0].execute_device(ctx, partition):
             with timed(m):
-                out = retry_on_oom(self._kernel, batch)
+                out = kc.call(self._kernel, batch)
             record_batch(m, out)
             yield out
 

@@ -75,7 +75,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import config as C, faults
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, coalesce_iter,
     concat_batches, flush_subnormal, string_repad)
@@ -85,7 +85,7 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference, Expression, as_device_column, as_host_column)
-from spark_rapids_tpu_torch.memory import oom
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops import kernels, native
 from spark_rapids_tpu_torch.ops.base import (
     Exec, Schema, record_batch, timed)
@@ -411,8 +411,8 @@ class _JoinKernelMixin:
             _maybe_build_dense(built)
         if built.table is not None:
             for pbatch in probe_iter:
-                yield oom.retry_on_oom(self._dense_step, built, pbatch,
-                                       probe_keys, build_is_right)
+                yield kc.call(self._dense_step, built, pbatch, probe_keys,
+                              build_is_right)
             return
         fast = mr is not None and 0 < mr <= _FAST_PATH_MAX_RUN
 
@@ -429,7 +429,7 @@ class _JoinKernelMixin:
                                        build_is_right, probe_keys)
 
         for pbatch in probe_iter:
-            out, covered = oom.retry_on_oom(probe_step, pbatch)
+            out, covered = kc.call(probe_step, pbatch)
             if covered_acc is not None:
                 covered_acc = covered_acc | covered
             yield out
@@ -606,7 +606,7 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
     def _build(self, ctx, batches, build_keys) -> BuiltSide:
         m = ctx.metrics_for(self)
         with timed(m, "buildTime"):
-            built = oom.retry_on_oom(
+            built = kc.call(
                 lambda: build_side(coalesce_to_single_batch(batches),
                                    build_keys))
         m.add("buildSideBuilds", 1)
@@ -665,7 +665,7 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
         if ctx.cache.get(key):
             return None
         ctx.cache[key] = True
-        oom.record("graceJoinEngaged")
+        faults.record("graceJoinEngaged")
         ctx.metrics_for(self).add("graceJoinEngaged", 1)
         return self.execute_device(ctx, partition)
 
@@ -685,7 +685,7 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
         nb = max(2, -(-total_bytes // bucket_budget))
         nb = min(nb, max(int(ctx.conf.get(C.JOIN_GRACE_MAX_PARTITIONS)), 2))
         m.add("graceJoinPartitions", nb)
-        oom.record("graceJoinPartitions", nb)
+        faults.record("graceJoinPartitions", nb)
         bspill: list = []
         pspill: list = []
         exchanges = []

@@ -19,6 +19,15 @@ something worth keeping per key.
   one dtype fingerprint alike, the value being a 0-d tensor argument.
 - :func:`schema_fingerprint` keys an exec's output schema (the plan
   cache's in-memory source arm uses it).
+- :func:`call` is the reference's ``kernel_cache.call`` dispatch funnel
+  without the cache: one operator step under the OOM escalation ladder
+  (``memory/oom.py``) with the ``kernel`` fault-injection site inside
+  the retried call. Every per-batch step of Project, Filter, the fused
+  stage, sort and window, aggregate, join, generate and the exchange
+  split calls it. The reference's aggregate, join and exchange split
+  look their programs up in its cache but dispatch them without
+  ``call``, so they carry no ``kernel`` site there; the first step a
+  query dispatches, which ``oom@kernel:1`` hits, is the same in both.
 
 The JAX package's persistent (on-disk) compilation cache
 (``configure_persistent``, ``kernelCache.persistentDir``) wraps XLA's and
@@ -115,3 +124,21 @@ def _fp(v: Any, depth: int) -> Any:
 def schema_fingerprint(schema) -> Tuple:
     """Fingerprint of an exec output schema ((name, DataType), ...)."""
     return tuple((n, t.name) for n, t in schema)
+
+
+# ---------------------------------------------------------------------------
+# The dispatch funnel
+# ---------------------------------------------------------------------------
+
+def call(fn, *args, **kwargs):
+    """Run one operator step ``fn(*args, **kwargs)`` under the OOM ladder,
+    the ``kernel`` fault site inside the retried call. Steps are pure
+    batch -> batch, so a retry is safe."""
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+
+    def dispatch():
+        faults.fault_point("kernel")
+        return fn(*args, **kwargs)
+
+    return retry_on_oom(dispatch)

@@ -31,7 +31,7 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column)
 from spark_rapids_tpu_torch.ops import kernels
-from spark_rapids_tpu_torch.memory.oom import retry_on_oom
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.memory.stores import (
     PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
@@ -156,7 +156,7 @@ def out_of_core_partition(ctx, metrics, child_iter, schema,
             for sb in spillables:
                 sb.close()
         with timed(m):
-            out = retry_on_oom(batch_fn, single)
+            out = kc.call(batch_fn, single)
         del single
         record_batch(m, out)
         yield out
@@ -174,7 +174,7 @@ def out_of_core_partition(ctx, metrics, child_iter, schema,
             del bucket
             ex.release(ctx, p)
             with timed(m):
-                out = retry_on_oom(batch_fn, single)
+                out = kc.call(batch_fn, single)
             del single
             record_batch(m, out)
             yield out

@@ -43,6 +43,12 @@ AQE-lite reader, GpuCustomShuffleReaderExec.scala:132). The reference
 compares the shard bytes its transport observed; here the kept pieces'
 registered device bytes stand in for them.
 
+Traced (``monitoring/recorder.py``): the map side is an
+``exchange-materialize`` span and each served batch an ``exchange-serve``
+span, both ``shuffle``; ``exchange.flush`` (each map-side window) and
+``exchange.serve`` (each served batch) are fault sites tagged with the
+exchange's id (``faults.py``).
+
 The host half (``execute_host``) splits each host batch with
 ``split_host_batch`` and serves a partition's pieces as they are; under
 the device engine (a host-tagged exchange in a device-rooted plan) a
@@ -56,7 +62,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import config as C, faults
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, DeviceColumn, bucket_capacity, concat_batches, sample_rows,
     shrink_all, shrink_to_capacity)
@@ -65,6 +71,7 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.exprs.base import BoundReference, as_host_column
 from spark_rapids_tpu_torch.memory.oom import (
     effective_batch_target, retry_on_oom)
+from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.memory.stores import (
     PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
 from spark_rapids_tpu_torch.ops import native
@@ -248,6 +255,15 @@ class ShuffleExchangeExec(Exec):
         key = self._cache_key(True)
         if key in ctx.cache:
             return ctx.cache[key]
+        from spark_rapids_tpu_torch import monitoring
+        with monitoring.span("exchange-materialize", "shuffle",
+                             args={"op": self.name,
+                                   "partitions":
+                                   self.partitioning.num_partitions}):
+            return self._materialize_device_traced(ctx, key)
+
+    def _materialize_device_traced(self, ctx, key
+                                   ) -> List[List[SpillableBatch]]:
         m = ctx.metrics_for(self)
         self._ensure_bounds(ctx, device=True)
         n = self.partitioning.num_partitions
@@ -258,6 +274,7 @@ class ShuffleExchangeExec(Exec):
                                              PRIORITY_SHUFFLE_OUTPUT))
 
         def flush_window(window: List[DeviceBatch]):
+            faults.fault_point("exchange.flush", owner=id(self))
             if n == 1:
                 pieces, counts1 = retry_on_oom(shrink_all, window)
                 for piece, cnt in zip(pieces, counts1):
@@ -278,7 +295,7 @@ class ShuffleExchangeExec(Exec):
                     batch = shrink_to_capacity(batch, small)
                     pids, _ = self._pids_counts(batch)
                 with timed(m, "splitTime"):
-                    pieces = retry_on_oom(self._split, batch, pids, counts)
+                    pieces = kc.call(self._split, batch, pids, counts)
                 for p, piece in enumerate(pieces):
                     if piece is not None:
                         keep(p, piece)
@@ -362,6 +379,7 @@ class ShuffleExchangeExec(Exec):
         concatenated up to the batch target of capacity; the pieces'
         exact counts make each output's ``rows_hint``. A piece served
         alone stays pinned (un-spillable) until the consumer resumes."""
+        from spark_rapids_tpu_torch import monitoring
         buckets = self._materialize_device(ctx)
         m = ctx.metrics_for(self)
         target = effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS)))
@@ -380,15 +398,20 @@ class ShuffleExchangeExec(Exec):
             return out
 
         def serve(group: List[SpillableBatch]):
+            faults.fault_point("exchange.serve", owner=id(self))
+            span = monitoring.span("exchange-serve", "shuffle",
+                                   args={"partition": partition,
+                                         "shards": len(group)})
             if len(group) == 1:
                 try:
-                    out = group[0].get()
+                    with span:
+                        out = group[0].get()
                     record_batch(m, out)
                     yield out
                 finally:
                     group[0].release(PRIORITY_SHUFFLE_OUTPUT)
                 return
-            with timed(m, "concatTime"):
+            with span, timed(m, "concatTime"):
                 out = retry_on_oom(concat, group)
             record_batch(m, out)
             yield out

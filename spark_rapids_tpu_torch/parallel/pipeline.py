@@ -10,8 +10,11 @@ upload and every launch. Prefetch threads touch no CUDA API and no tensor
 on the card: a torch call made there would run on that thread's default
 stream, outside the consumer's order. Results therefore come in the
 serial order, the upload of partition p+1 overlaps the device work of p,
-and an error raised in a prefetch is re-raised where the consumer takes
-that partition, where the serial path would have raised it.
+and an error raised in a prefetch (a ``scan`` fault, ``faults.py``) is
+re-raised where the consumer takes that partition, where the serial path
+would have raised it. Each prefetch task runs under the consumer's query
+token, recovery sink and active catalog, in a ``prefetch`` span; a
+consumer that waits for one does so in a ``pipeline-wait`` span.
 
 The pipeline runs at the two partition loops that pull a subtree's
 partitions: ``Exec.collect`` and the exchange's map side
@@ -146,6 +149,14 @@ class PartitionPipeline:
     path's."""
 
     def __init__(self, ctx, source, nparts: int, params: PipelineParams):
+        from spark_rapids_tpu_torch import faults
+        from spark_rapids_tpu_torch.memory import oom
+        # Thread-locals do not cross threads: each prefetch task takes
+        # over the consumer's query token (its ring and fault tag), its
+        # recovery sink and its active catalog.
+        self._token = faults.get_query_token()
+        self._sink = faults.get_recovery_sink()
+        self._catalog = oom.get_active_catalog()
         self._ctx = ctx
         self._source = source
         self._nparts = nparts
@@ -159,11 +170,19 @@ class PartitionPipeline:
         self._closed = False
 
     def _prefetch_task(self, partition: int) -> None:
+        from spark_rapids_tpu_torch import faults, monitoring
+        from spark_rapids_tpu_torch.memory import oom
+        faults.set_query_token(self._token)
+        oom.set_active_catalog(self._catalog, self._sink)
         t0 = time.perf_counter()
         try:
             if not self._closed:
-                self._source.prefetch_host(self._ctx, partition)
+                with monitoring.span("prefetch", "host-prefetch",
+                                     args={"partition": partition}):
+                    self._source.prefetch_host(self._ctx, partition)
         finally:
+            oom.set_active_catalog(None)
+            faults.set_query_token(None)
             _record(self._ctx, "hostPrefetchMs",
                     (time.perf_counter() - t0) * 1000.0)
             _record(self._ctx, "prefetchedPartitions", 1)
@@ -183,8 +202,15 @@ class PartitionPipeline:
         if fut is None or partition in self._consumed:
             return
         self._consumed.add(partition)
+        wait_span = None
         if not fut.done():
             _record(self._ctx, "pipelineStalls", 1)
+            # The ordered consumer blocks on this partition's host half:
+            # that wait is queue time, on the trace timeline.
+            from spark_rapids_tpu_torch import monitoring
+            wait_span = monitoring.span("pipeline-wait", "queued",
+                                        args={"partition": partition})
+            wait_span.__enter__()
         t0 = time.perf_counter()
         try:
             fut.result()
@@ -192,6 +218,8 @@ class PartitionPipeline:
             waited = (time.perf_counter() - t0) * 1000.0
             if waited > 0:
                 _record(self._ctx, "consumerWaitMs", waited)
+            if wait_span is not None:
+                wait_span.__exit__(None, None, None)
 
     def consume(self, partition: int, fn):
         """Wait for the partition's prefetch, then run ``fn`` (the device

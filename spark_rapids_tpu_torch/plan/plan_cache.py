@@ -41,9 +41,12 @@ Correctness lines:
   :class:`Uncacheable` and plan fresh.
 
 ``SRT_PLAN_CACHE=0`` (env) or ``spark.rapids.sql.planCache.enabled``
-=false plans every DataFrame anew, as before the cache. The JAX package's
-fault-schedule bypass is not ported (its fault layer is not), nor its
-``plan-bind`` span (its flight recorder is not); ``planBindNs`` is.
+=false plans every DataFrame anew, as before the cache. So does an armed
+fault schedule (``faults.py``; counted as ``planCacheBypasses``): chaos
+schedules target per-plan state, and a shared template would couple
+independently armed queries. With the flight recorder on, each bind is a
+``plan-bind`` span (``planning``, query level) and a ``plan-cache-hit`` /
+``plan-cache-miss`` instant; ``planBindNs`` counts its time either way.
 """
 
 from __future__ import annotations
@@ -316,6 +319,15 @@ def _conf_key(conf) -> Tuple:
     return tuple(sorted((k, repr(v)) for k, v in conf.raw.items()))
 
 
+def _faults_armed(conf) -> bool:
+    from spark_rapids_tpu_torch import faults
+    if str(conf.get(C.TEST_FAULTS) or "").strip():
+        return True
+    if os.environ.get("SRT_FAULTS", "").strip():
+        return True
+    return faults.injector() is not None
+
+
 # ---------------------------------------------------------------------------
 # The cache
 # ---------------------------------------------------------------------------
@@ -453,11 +465,14 @@ def plan_or_bind(conf, logical: LogicalPlan, device=None):
     """THE planning funnel behind ``DataFrame._physical``: parameterize,
     fingerprint, and either bind against a cached template (hit) or plan
     one on ``device`` and cache it (miss). Returns a :class:`BoundPlan`,
-    or a plain ``PhysicalPlan`` when the cache is disabled or the shape
-    is uncacheable."""
-    from spark_rapids_tpu_torch import resolve_device
+    or a plain ``PhysicalPlan`` when the cache is disabled, bypassed
+    (armed faults), or the shape is uncacheable."""
+    from spark_rapids_tpu_torch import monitoring, resolve_device
     from spark_rapids_tpu_torch.plan.planner import Planner
     if not plan_cache_enabled(conf):
+        return Planner(conf, device).plan(logical)
+    if _faults_armed(conf):
+        _record("planCacheBypasses")
         return Planner(conf, device).plan(logical)
     t0 = time.perf_counter_ns()
     try:
@@ -474,5 +489,14 @@ def plan_or_bind(conf, logical: LogicalPlan, device=None):
     if not hit:
         entry = _CACHE.insert(
             key, PlanCacheEntry(Planner(conf, device).plan(param), dtypes))
-    _record("planBindNs", time.perf_counter_ns() - t0)
+    dur = time.perf_counter_ns() - t0
+    _record("planBindNs", dur)
+    if monitoring.enabled():
+        monitoring.record_span(
+            "plan-bind", "planning", monitoring.now_ns() - dur, dur,
+            args={"planCacheHit": hit, "bindSlots": len(values)},
+            level=monitoring.LEVEL_QUERY)
+        monitoring.instant(
+            "plan-cache-hit" if hit else "plan-cache-miss", "planning",
+            args={"bindSlots": len(values)})
     return BoundPlan(entry.template, values, dtypes, hit)

@@ -80,6 +80,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
@@ -524,6 +525,10 @@ class PhysicalPlan:
     meta: NodeMeta
     conf: C.TpuConf = dataclasses.field(default_factory=C.TpuConf)
     num_fused_stages: int = 0
+    # The context of the last collect (its metrics and trace ring); a
+    # plan-cache template shares it between every DataFrame bound to it.
+    last_ctx: Optional[ExecContext] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def explain(self, mode: str = "ALL") -> str:
         lines = self.meta.explain_lines(
@@ -553,14 +558,59 @@ class PhysicalPlan:
         """Run the root's partitions on the root's engine and return the
         rows (downloaded once, when the root is on the device).
         ``bindings`` is a bound plan's ``(values, dtypes)``."""
-        return self.root.collect(self._context(ctx, bindings),
-                                 device=self.root_on_device)
+        return self._execute(ctx, bindings, self.root.collect)
 
     def collect_batches(self, ctx: Optional[ExecContext] = None,
                         bindings=None) -> list:
         """``collect`` as host batches (numpy columns)."""
-        return self.root.collect_batches(self._context(ctx, bindings),
-                                         device=self.root_on_device)
+        return self._execute(ctx, bindings, self.root.collect_batches)
+
+    def _execute(self, ctx: Optional[ExecContext], bindings, run):
+        """One query: adopt the trace and telemetry configuration, give an
+        owned top-level collect (no caller context, no token on this
+        thread) its query token, arm the fault schedule once, run, and at
+        the end count ``srt_queries`` / ``srt_query_latency_ms``, append
+        the event-log record and keep the context as ``last_ctx`` (its
+        metrics survive for ``DataFrame.metrics()``). A nested collect
+        rides the token already on its thread."""
+        from spark_rapids_tpu_torch import faults, monitoring
+        owned = ctx is None
+        monitoring.maybe_configure(self.conf)
+        monitoring.telemetry.maybe_configure(self.conf)
+        token = None
+        if owned and faults.get_query_token() is None:
+            tag = int(self.conf.get(C.TEST_FAULTS_QUERY_TAG))
+            token = faults.new_query_token(tag if tag >= 0 else None)
+            faults.set_query_token(token)
+        ctx = self._context(ctx, bindings)
+        # The ring the flight recorder files this query's events under
+        # (trace_export / explain_analyze read it off last_ctx).
+        tok = token or faults.get_query_token()
+        trace_qid = tok.query_id if tok is not None else 0
+        ctx.cache["trace_query"] = trace_qid
+        # Armed once per query: a repeated collect runs against the
+        # remaining schedule.
+        faults.maybe_configure(self.conf)
+        t0 = time.perf_counter()
+        status, err_text = "ok", None
+        try:
+            return run(ctx, device=self.root_on_device)
+        except BaseException as e:
+            status, err_text = "error", f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            if token is not None:
+                faults.set_query_token(None)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            lbls = {"class": "-", "tenant": "-"}
+            monitoring.telemetry.inc("srt_queries", status=status, **lbls)
+            monitoring.telemetry.observe("srt_query_latency_ms", dur_ms,
+                                         **lbls)
+            monitoring.history.log_query(
+                self, ctx, query_id=trace_qid, status=status,
+                qos_class=None, tenant=None, duration_ms=dur_ms,
+                error=err_text)
+            self.last_ctx = ctx
 
     def host_fallback_nodes(self) -> List[str]:
         """The logical nodes tagged for the host engine, in tree order."""

@@ -3,6 +3,7 @@
     python3 -m spark_rapids_tpu_torch.profile_query [--query q1|q2|...]
         [--codec v2|v1|plain] [--scale 1.0] [--partitions N]
         [--dataframe] [--trace q1_trace.json]
+        [--trace-level query|operator|kernel]
 
 Runs ``tpch_q1_plan`` (or ``tpch_q2_plan`` / ``tpch_q3_plan`` /
 ``tpch_q4_plan``, over the generator's partitions) ``.collect()``, or with
@@ -18,7 +19,13 @@ warm runs, then one run under ``torch.profiler`` (CPU + CUDA activity).
 Prints the
 host time per operator (the plan's own ``timed`` metrics), the top ops by
 self device time and by self host time, and the device busy share (sum
-of kernel time over the profiled wall time). ``--partitions`` sets the
+of kernel time over the profiled wall time). With ``--trace-level``, one
+more warm run goes through the flight recorder at that level
+(``spark.rapids.sql.trace.*``; at ``kernel`` the sync funnels are wrapped,
+``monitoring.syncs.install()``) and its span-category breakdown and top
+sync sites print before the profiled run, which is untraced; the
+profiler's capture names each operator's ranges ``<Op>:<metric>``
+(``ops/base.py`` ``timed``). ``--partitions`` sets the
 hand-built q1's generator partitions (default 8) and, with
 ``--dataframe``, ``spark.rapids.sql.shuffle.partitions`` (default the
 conf's). Needs a CUDA device.
@@ -65,6 +72,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--dataframe", action="store_true")
     ap.add_argument("--trace", default="")
+    ap.add_argument("--trace-level", choices=("query", "operator",
+                                              "kernel"), default=None)
     args = ap.parse_args()
     if args.query in dataframe_only and not args.dataframe:
         ap.error(f"{args.query} has no hand-built tree: add --dataframe")
@@ -74,6 +83,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    install = None
     if args.dataframe:
         from spark_rapids_tpu_torch.api import TpuSession
         from spark_rapids_tpu_torch.plan import logical as L
@@ -94,6 +104,8 @@ def main() -> int:
         phys = query(session, dfs)._physical()
         print(phys.tree())
         plan = phys.root
+        # A plan-cache template's bind slots read this binding vector.
+        install = phys.install if hasattr(phys, "install") else None
     elif args.query == "q1":
         tables = {"lineitem": entry.tpch_q1_host_batches(
             args.scale, args.partitions or 8, seed=0)}
@@ -103,10 +115,17 @@ def main() -> int:
         tables = getattr(entry, f"tpch_{args.query}_tables")(cols)
         plan = getattr(entry, f"tpch_{args.query}_plan")(tables,
                                                           device="cuda")
+
+    def context(c):
+        ctx = ExecContext(c)
+        if install is not None:
+            install(ctx)
+        return ctx
+
     batches = [hb for parts in tables.values() for p in parts for hb in p]
     n_rows = sum(hb.num_rows for hb in batches)
     conf = TpuConf({"spark.rapids.sql.wire.codec": args.codec})
-    plan.collect(ExecContext(conf))                  # warm-up (builds)
+    plan.collect(context(conf))                  # warm-up (builds)
     torch.cuda.synchronize()
 
     wire.reset_counters()
@@ -123,7 +142,7 @@ def main() -> int:
     walls = []
     ctx = None
     for _ in range(args.runs):
-        ctx = ExecContext(conf)
+        ctx = context(conf)
         t0 = time.perf_counter()
         plan.collect(ctx)
         torch.cuda.synchronize()
@@ -160,17 +179,45 @@ def main() -> int:
             print(f"f64 cumsum over the {label}, cap={cap} k={k}: "
                   f"{start.elapsed_time(end) / 5:.4f} ms")
 
+    if args.trace_level:
+        from spark_rapids_tpu_torch import monitoring
+        from spark_rapids_tpu_torch.monitoring import syncs
+        if args.trace_level == "kernel":
+            syncs.install()
+        monitoring.reset()
+        tconf = TpuConf(dict(conf.raw, **{
+            "spark.rapids.sql.trace.enabled": True,
+            "spark.rapids.sql.trace.level": args.trace_level}))
+        t0 = time.perf_counter()
+        plan.collect(context(tconf))
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+        cats = monitoring.category_breakdown()
+        stats = syncs.sync_stats()
+        print(f"traced run ({args.trace_level} level): wall "
+              f"{traced_wall:.4f} s; span-category ms (host clock; nested "
+              f"spans each count) {json.dumps(cats, sort_keys=True)}; sync "
+              f"spans {sum(c for c, _ in stats.values())}")
+        for site, (n, secs) in sorted(stats.items(),
+                                      key=lambda kv: -kv[1][1])[:8]:
+            print(f"  sync {site}: {n} x, {secs * 1e3:.3f} ms")
+        monitoring.reset()
+
     native.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.collect(ExecContext(conf))
+        plan.collect(context(conf))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
+    # Device time of kernels and copies only: the timed() ranges'
+    # device-side annotations span those kernels and would count them
+    # twice.
     kernel_us = sum(_dev_time(e) for e in events
                     if getattr(e, "device_type", None) is not None
-                    and "CUDA" in str(e.device_type))
+                    and "CUDA" in str(e.device_type)
+                    and not getattr(e, "is_user_annotation", False))
     print(f"profiled run: wall {prof_wall:.4f} s; device kernel time "
           f"{kernel_us / 1e3:.3f} ms; device busy share "
           f"{kernel_us / 1e6 / prof_wall:.4f}; kernel launches "

@@ -513,20 +513,68 @@ def test_bind_slot_promotes_as_the_literal(name, engine):
     assert_rows_equal(got, ref, msg=name)
 
 
-def test_subnormal_arithmetic_divergence_pinned():
-    """ROADMAP queue C: the port's device add keeps a subnormal result
-    (1e-310 + 1e-310 = 2e-310) where the JAX package's XLA:CPU flushes it
-    to 0.0; a bind slot and an inline literal give the port's result
-    alike."""
+def test_subnormal_arithmetic_matches_reference():
+    """The port's device add flushes a subnormal result as the JAX
+    package's XLA:CPU does (1e-310 + 1e-310 = 0.0 there, denormals are
+    zero and results flush to zero); a bind slot and an inline literal
+    give the same rows as the reference."""
     def frame(session, M, dtmod):
         df = session.create_dataframe({"x": [1e-310, 1.0]},
                                       [("x", dtmod.FLOAT64)])
         return df.select((M.col("x") + M.lit_col(1e-310)).alias("y"))
     slot = frame(TpuSession(VFA, device="cpu"), L, dt)
     inline = frame(TpuSession(dict(VFA, **OFF), device="cpu"), L, dt)
-    assert slot.collect() == inline.collect() == [(2e-310,), (1.0,)]
+    ref = frame(JSession(REF), JL, jdt).collect()
+    assert ref == [(0.0,), (1.0,)]
+    assert slot.collect() == inline.collect() == ref
     assert slot._physical().bind_values == (1e-310,)
-    assert frame(JSession(REF), JL, jdt).collect() == [(0.0,), (1.0,)]
+
+
+_TINY64 = float(np.finfo(np.float64).tiny)
+_TINY32 = float(np.finfo(np.float32).tiny)
+# Subnormal, least-normal, normal, signed-zero, NaN and infinite operands
+# (float32 ones exactly representable in float32).
+_GRID = {
+    "FLOAT64": [1e-310, -1e-310, 5e-324, _TINY64, -_TINY64, 1.5 * _TINY64,
+                1.0, -2.5, 0.0, -0.0, float("nan"), float("inf"),
+                float("-inf"), 1e308],
+    "FLOAT32": [float(np.float32(1e-40)), float(np.float32(-1e-40)),
+                _TINY32, -_TINY32, 1.5 * _TINY32, 1.0, -2.5, 0.0, -0.0,
+                float("nan"), float("inf"), float("-inf"), 3e38],
+}
+_GRID_OPS = {
+    "add": lambda M, a, b: a + b,
+    "sub": lambda M, a, b: a - b,
+    "mul": lambda M, a, b: a * b,
+    "div": lambda M, a, b: a / b,
+    "rem": lambda M, a, b: a % b,
+    "pmod": lambda M, a, b: M.pmod(a, b),
+    "neg": lambda M, a, b: -a,
+}
+
+
+@pytest.mark.parametrize("op", sorted(_GRID_OPS))
+@pytest.mark.parametrize("tname", sorted(_GRID))
+def test_subnormal_arithmetic_grid(tname, op):
+    """Every pair of the grid through each arithmetic operator of the
+    port's device half gives the JAX package's device rows, bit for bit
+    (compared by ``repr``, so -0.0 and NaN count): denormals are zero and
+    subnormal results flush for + - * / and pmod's inner addition; fmod
+    and unary minus flush nothing."""
+    vals = _GRID[tname]
+    a = [x for x in vals for _ in vals]
+    b = [y for _ in vals for y in vals]
+
+    def frame(session, M, dtmod):
+        t = getattr(dtmod, tname)
+        df = session.create_dataframe(
+            {"i": list(range(len(a))), "a": a, "b": b},
+            [("i", dtmod.INT64), ("a", t), ("b", t)])
+        return df.select(M.col("i"), _GRID_OPS[op](
+            M, M.col("a"), M.col("b")).alias("r"))
+    got = sorted(frame(TpuSession(VFA, device="cpu"), L, dt).collect())
+    want = sorted(frame(JSession(REF), JL, jdt).collect())
+    assert [repr(r) for r in got] == [repr(r) for r in want]
 
 
 def test_pushdown_by_date_binding(tmp_path):
