@@ -11,7 +11,9 @@ phase 1 the script exits non-zero unless every
 and each ``kernel_enabled``), so no env key can make a run pass without
 the kernels. After each phase from 3 on, the plan cache is cleared (its
 templates pin their sources and packed encodings; a later phase's first
-run stays a first run) and the peak and current host RSS are printed.
+run stays a first run) and the peak and current host RSS and the
+seconds since the script started are printed. An oracle is computed
+once a run and shared by the phases that check the query.
 
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
@@ -120,7 +122,8 @@ run stays a first run) and the peak and current host RSS are printed.
    device launches (``torch.profiler`` device events) in one warm run
    with the arithmetic's subnormal flush and in one with it patched out
    (as before the repair), both runs against the oracle.
-12. Default conf: q1-q6 through ``TpuSession()`` with no conf, whose
+12. Default conf: q1-q6 through ``TpuSession()`` with no conf (over
+   phase 11's tables and oracles), whose
    float Sum/Avg aggregates the planner places on the host engine (numpy)
    between device subtrees, bridged by ``DeviceToHostExec`` and
    ``HostToDeviceExec``. Each query's host-tagged nodes must be the
@@ -205,14 +208,18 @@ run stays a first run) and the peak and current host RSS are printed.
    exchanges), q4 (a shuffled semi join), q13 (a shuffled left join),
    q18, q21 (shuffled semi and anti joins with a residual), xbb_q12 (the
    distinct pipeline) and ds_q89 (a partitioned window), each against its
-   oracle and its own one-partition run in this process (floats to rtol
-   1e-9); (d) a full outer join of CUSTOMER (c_acctbal > 0) and ORDERS on
+   oracle and its one-partition run in this process (phase 11's, 14's or
+   15's first run under the same conf; floats to rtol
+   1e-9; the runtime re-plan, on by default, demotes each shuffled join
+   whose observed build fits 64 MiB to a broadcast join: phase 25
+   prints which); (d) a full outer join of CUSTOMER (c_acctbal > 0) and
+   ORDERS on
    the customer key at 1 and 8 partitions, its matched, left-only and
    right-only row counts against numpy. For each run: host nodes and
    bridges, rows downloaded, the first run (counters around it alone,
-   every K1-K4 launch recorded), one warm wall (two until phase 21) and
-   the peak device memory of the warm run. K1 must launch in every run,
-   K3 in the
+   every K1-K4 launch recorded; no warm wall since phase 25 needed the
+   time, one until then, two until phase 21). K1 must launch in every
+   run, K3 in the
    shuffled joins of (c) (q4, q13, q21) and (d), whose builds repeat keys,
    K2 in ds_q89. Each K1-K4 launch of a shape no earlier phase checked
    must equal the kernel's plain version bit for bit; the largest new
@@ -230,14 +237,19 @@ run stays a first run) and the peak and current host RSS are printed.
    equal to the in-core run's; (c) q21 and q4 at one partition under a
    third of their smallest LINEITEM build (grace joins of at least two
    buckets, K3 at least once per non-empty build bucket), against their
-   numpy oracles; (d) q18 at 8 partitions under a quarter of the
+   numpy oracles (the default conf: at one partition the runtime re-plan
+   has no candidate); (d) q18 at 8 partitions under a quarter of the
    catalog's in-core high-water mark and a host tier of an eighth
    (exchange pieces spill device -> host -> disk), equal to its
    one-partition run; (e) q18 at one partition with the caching
    allocator capped (``torch.cuda.set_per_process_memory_fraction``) at
-   a share of its in-core peak: a real ``torch.OutOfMemoryError`` inside
+   a share of its in-core peak, then (f) q18 at 8 partitions with the
+   runtime re-plan on (its ``Cost@query`` printed: an OOM that exhausts
+   the ladder inside the re-plan's build keeps the static plan): a real
+   ``torch.OutOfMemoryError`` inside
    a retry site must be recovered on the card by the ladder (the rungs
-   printed), rows equal, the fraction restored. For each run: rows
+   printed; where they leave a join's probe step short, by splitting its
+   batch, ``splitRetries``), rows equal, the fraction restored. For each run: rows
    checked, the first wall (no warm wall, for the script's time budget)
    beside the in-core run's, the first run's peak device memory beside
    the in-core peak,
@@ -309,10 +321,9 @@ run stays a first run) and the peak and current host RSS are printed.
    needed the time they also ran under it). For each run: host nodes and bridges (checked),
    rows downloaded, the rows and bytes through each host roundtrip, the
    first run (counters around it alone, every K1-K4 launch recorded),
-   the torch ops of ``_greedy_matches`` and of MD5, one warm wall (two
-   until phase 21 needed the time; none for etl head since phase 22,
-   none under the default conf, for the script's time budget) and the peak
-   device memory of the warm run. K1 must launch in every
+   the torch ops of ``_greedy_matches`` and of MD5 (no warm wall since
+   phase 25 needed the time; one until then but for etl head and the
+   default conf, two until phase 21). K1 must launch in every
    run,
    K2 in comment_groups; each K1-K4 launch of a shape no earlier phase
    checked must equal the kernel's plain version bit for bit. The
@@ -338,9 +349,9 @@ run stays a first run) and the peak and current host RSS are printed.
    and a cogroup at ``shuffle.partitions=8`` against numpy oracles;
    where it is not (the check comes before the phase runs them), one
    line says so. Each run's first run with every K1-K4 launch recorded
-   (new shapes against the plain versions), one warm wall (two until
-   phase 22), peak device
-   memory and host roundtrips are printed, and the phase's time.
+   (new shapes against the plain versions), its peak device memory and
+   host roundtrips are printed (no warm wall since phase 25 needed the
+   time, one until then, two until phase 22), and the phase's time.
 22. File I/O and plan-text ingest (runs after phase 21; pyarrow is
    required, and its and pandas' versions are printed): (a) the SF1
    tables q1, q3, q4 and q6 read (LINEITEM's ten columns in 8
@@ -426,13 +437,50 @@ run stays a first run) and the peak and current host RSS are printed.
    phase's runs, every ``render_text`` line parses, the event log holds
    one record a run, q1's ``render_report``. The schedule is disarmed
    after the phase; its time is printed.
+25. The recovery ladder, the runtime re-plan, concurrent stages and the
+   partial skip (runs after phase 24, over phase 11's tables, phase 11's
+   and 16's oracles, under ``variableFloatAgg``; every run against its
+   oracle, none leaking): (a) q4, q13 and q21 at
+   ``shuffle.partitions=8`` with ``aqe.replan.enabled`` on and off, in
+   turns (on, off, off, on; q21, which demotes nothing, on, off): rows
+   equal, ``replanChecks``,
+   ``joinDemotions``, ``replanObservedBytes`` against the 64 MiB
+   threshold, ``estimateErrorPct``, each checked join's type and
+   whether its probe exchange materialized (a demoted join's never
+   does: checked against ``joinDemotions``), K1 / K3 launches and the
+   walls; q17 at 8 partitions with ``autoBroadcastJoinThreshold`` 1 MiB
+   (``Q17_THRESHOLD``: PART's estimate, ~6.3 MB, above it, the filtered
+   parts below), which must demote a join; (b) rows bit for bit the
+   fault-free rows, with each run's ``Recovery@query`` and instants: q3
+   at 8 partitions with auto-broadcast off under
+   ``lostoutput@exchange.serve:1`` (``stageRecomputes`` 1; exactly one
+   in-memory source runs twice, every sibling stage's once), q3 under
+   ``transient@exchange.serve:1`` (``retriesAttempted`` 1 beside
+   ``faultsInjected`` 1: the same context), q1 under
+   ``corrupt@wire:2,oom@upload:1`` with phase 24's 2 KiB device budget
+   and no host tier (``corruptionsDetected`` >= 1, ``stageRecomputes``
+   1) and q6 under ``stall@kernel:1`` with the watchdog on at 1,000 ms
+   (``watchdogKills`` 1, ``partitionRetries`` 1); (c) q3 at 8 partitions
+   with auto-broadcast off, the pipeline on (the default: (b)'s
+   fault-free plan) and off in turns: ``concurrentStages`` >= 2, rows
+   equal bit for bit, both walls; (d) at 8 partitions, ``skipAggPassReductionRatio`` 0.85 and 1.0
+   (off), in turns (0.85, 1.0, 1.0, 0.85 for ORDERS; 0.85, 1.0 for q18):
+   ORDERS grouped by ``o_orderkey`` (count, sum of
+   ``o_totalprice``; downloaded as numpy, held to numpy: counts exact,
+   sums within ORACLE_RTOL or 4 ulp of the column's total, the rounding
+   of group sums taken as differences of a running sum), whose partial
+   must skip, and q18, whose ``l_orderkey`` partial must keep its
+   grouping; each partial's decision, K1 launches and walls. The
+   schedule and the trace are off after the phase; its time is
+   printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
    nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
    phase 21's eight (four without pandas), phase 22's sixteen, phase
-   23's fifteen and phase 24's twenty-three), its error against the plain version, its time, the
+   23's fifteen, phase 24's twenty-three and phase 25's thirty-one), its
+   error against the plain version, its time, the
    plain version's, its bound, one PyTorch call's time for the same
    function (K1: the whole sort at 786 432 rows against ``torch.sort``;
    K2: the per-group function on q2's largest launch against the
@@ -1464,6 +1512,25 @@ DF_MUST_LAUNCH = {"q1": ("radix_sort",), "q6": (), "q3": (
 DF_WARM_RUNS = 1      # 2 until phase 23 needed the time
 
 
+# Expected rows, computed once a run: phases 11-25 hold their runs to the
+# same oracles over the same generated columns. Keyed by the query and the
+# columns' identity; the columns stay referenced, so an id is never reused.
+_ORACLE_MEMO: dict = {}
+
+
+# The checked rows of each query's first run at one partition under
+# ``variableFloatAgg`` (phases 11, 14 and 15), against which phases 16 and
+# 18 hold the query's runs at 8 partitions instead of running it again.
+ONE_PARTITION_ROWS: dict = {}
+
+
+def memo_oracle(q: str, cols: dict, compute):
+    key = (q, id(cols))
+    if key not in _ORACLE_MEMO:
+        _ORACLE_MEMO[key] = (cols, compute())
+    return _ORACLE_MEMO[key][1]
+
+
 def df_oracles(cols: dict, E, queries=DF_QUERIES) -> dict:
     """(check, expected rows) of each of ``queries`` among q1-q6."""
     oracles = {
@@ -1474,8 +1541,8 @@ def df_oracles(cols: dict, E, queries=DF_QUERIES) -> dict:
         "q5": (check_q5, lambda: q5_oracle(cols, E)),
         "q2": (check_q2, lambda: q2_oracle(cols, E)),
         "q4": (check_q4, lambda: q4_oracle(cols, E))}
-    return {q: (check, oracle()) for q, (check, oracle) in oracles.items()
-            if q in queries}
+    return {q: (check, memo_oracle(q, cols, oracle))
+            for q, (check, oracle) in oracles.items() if q in queries}
 
 
 def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
@@ -1524,6 +1591,7 @@ def dataframe_phase(native, cols: dict, hand: dict, hand_seen: list) -> dict:
             first_s = time.perf_counter() - t0
         launches = native.counters()
         check(rows, want)
+        ONE_PARTITION_ROWS[q] = rows
         missing = [k for k in DF_MUST_LAUNCH[q] if launches[k] <= 0]
         if missing:
             raise AssertionError(f"{q} on the DataFrame path launched no "
@@ -1788,7 +1856,8 @@ def run_checked(native, label: str, phys, check, want, expect_hosted: list,
                 hosted=hosted, seen=first, checks=checks, ctx=ctx)
 
 
-def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
+def default_conf_phase(native, cols: dict, known_seen: list,
+                       df_out: dict) -> dict:
     """q1-q6 through ``TpuSession()`` with no conf: float Sum/Avg
     aggregates run on the host engine between device subtrees. Each
     query's placement (host-tagged nodes, bridges, rows and bytes each
@@ -1804,12 +1873,14 @@ def default_conf_phase(native, cols: dict, known_seen: list) -> dict:
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.ops.base import ExecContext
     t0 = time.perf_counter()
+    # Phase 11's tables (the same host batches) and oracles.
     session = TpuSession()
-    tables = tpch.tpch_tables(session, cols)
+    tables = {q: _rebound(session, df_out["tables"][q]) for q in DF_QUERIES}
     vsession = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": True})
-    vtables = tpch.tpch_tables(vsession, cols)
-    oracles = df_oracles(cols, E)
-    log(f"default-conf phase: tables and oracles in "
+    vtables = {q: _rebound(vsession, df_out["tables"][q])
+               for q in DF_QUERIES}
+    oracles = df_out["oracles"]
+    log(f"default-conf phase: phase 11's tables and oracles rebound in "
         f"{time.perf_counter() - t0:.2f} s")
     out = {"kernel_checks": []}
     for q in DF_QUERIES:
@@ -1884,12 +1955,43 @@ def _matrix_contains(m: np.ndarray, value: str) -> np.ndarray:
     return hit
 
 
+def _packed_radixes(a: np.ndarray):
+    """Each column's radix (its max + 1) when the 2-D integer array ``a``
+    is non-empty and non-negative and the radixes' product fits an int64
+    key, else None."""
+    if a.dtype.kind not in "iu" or a.size == 0 or a.min() < 0:
+        return None
+    radixes = [int(c.max()) + 1 for c in a.T]
+    total = 1
+    for r in radixes:
+        total *= r
+    return radixes if total < 2 ** 63 else None
+
+
+def _pack_rows(a: np.ndarray, radixes: list) -> np.ndarray:
+    key = np.zeros(len(a), np.int64)
+    for j, radix in enumerate(radixes):
+        key = key * radix + a[:, j].astype(np.int64)
+    return key
+
+
+def _unique_rows(a: np.ndarray) -> tuple:
+    """``np.unique(a, axis=0, return_inverse=True)`` of a 2-D integer
+    array (rows in lexicographic order), through one packed int64 key a
+    row where the columns allow it: the same rows and inverse, faster."""
+    radixes = _packed_radixes(a)
+    if radixes is None:
+        uniq, inv = np.unique(a, axis=0, return_inverse=True)
+        return uniq, inv.reshape(-1)
+    ukey, inv = np.unique(_pack_rows(a, radixes), return_inverse=True)
+    uniq = np.stack(_decode_key(ukey, radixes), axis=1).astype(a.dtype)
+    return uniq.reshape(len(ukey), a.shape[1]), inv.reshape(-1)
+
+
 def _group_sums(keys: list, *values) -> tuple:
     """(unique key rows, the sum of each value per key row): ``keys`` is a
     list of int arrays grouped together."""
-    uniq, inv = np.unique(np.stack(keys, axis=1), axis=0,
-                          return_inverse=True)
-    inv = inv.reshape(-1)
+    uniq, inv = _unique_rows(np.stack(keys, axis=1))
     return uniq, [np.bincount(inv, weights=v, minlength=len(uniq))
                   for v in values]
 
@@ -2332,9 +2434,7 @@ def ds_q89_oracle(cols: dict, S) -> list:
     (cat, cls, moy), s = _ds_group(
         [it["i_category"][i], it["i_class"][i], dd["d_moy"][d]],
         ss["ss_sales_price"][m])
-    cc, inv = np.unique(np.stack([cat, cls], axis=1), axis=0,
-                        return_inverse=True)
-    inv = inv.reshape(-1)
+    cc, inv = _unique_rows(np.stack([cat, cls], axis=1))
     avg = (np.bincount(inv, weights=s) / np.bincount(inv))[inv]
     keep = (s - avg) / avg > 0.1
     name = np.array(S.CATEGORIES)[cat]
@@ -2397,7 +2497,8 @@ def ds_oracles(cols: dict, S, queries=DS_QUERIES) -> dict:
             continue
         oracle = globals()[f"{q}_oracle"]
         out[q] = ((lambda q: lambda rows, want: check_rows(
-            q, rows, want, exact=q in DS_EXACT))(q), oracle(cols, S))
+            q, rows, want, exact=q in DS_EXACT))(q),
+            memo_oracle(q, cols, lambda oracle=oracle: oracle(cols, S)))
     return out
 
 
@@ -2469,6 +2570,8 @@ def ds_queries_phase(native, known_seen: list, known_k1: set) -> dict:
                                 DS_DEFAULT_HOST[q] if conf_name == "default"
                                 else [], DS_MUST_LAUNCH[q], known_seen,
                                 known_k1)
+            if conf_name == "vfa":
+                ONE_PARTITION_ROWS[q] = r["rows"]
             for a in k1_calls:
                 if k1_shape(*a) not in known_k1:
                     new_k1.setdefault(k1_shape(*a), a)
@@ -2660,8 +2763,8 @@ def xbb_q12_oracle(cols: dict, S) -> list:
     user = w["wcs_user_sk"]
     ok = ~np.ma.getmaskarray(user)
     cat = it["i_category"][w["wcs_item_sk"][ok] - 1]
-    pairs = np.unique(np.stack([cat, np.ma.getdata(user)[ok]], axis=1),
-                      axis=0)
+    pairs, _inv = _unique_rows(np.stack([cat, np.ma.getdata(user)[ok]],
+                                        axis=1))
     counts = np.bincount(pairs[:, 0], minlength=len(S.CATEGORIES))
     return sorted((S.CATEGORIES[i], int(n)) for i, n in enumerate(counts)
                   if n)
@@ -2697,13 +2800,15 @@ def distinct_oracles(cols: dict, xcols: dict, E, S,
     out = {}
     if "xbb_q12" in queries:
         out["xbb_q12"] = ((lambda rows, want: check_rows(
-            "xbb_q12", rows, want)), xbb_q12_oracle(xcols, S))
+            "xbb_q12", rows, want)), memo_oracle(
+                "xbb_q12", xcols, lambda: xbb_q12_oracle(xcols, S)))
     for q in DISTINCT_TPCH:
         if q not in queries:
             continue
         out[q] = ((lambda q: lambda rows, want: check_rows(
             q, rows, want, multiset=q == "q10"))(q),
-            globals()[f"{q}_oracle"](cols, E))
+            memo_oracle(q, cols, lambda q=q: globals()[f"{q}_oracle"](
+                cols, E)))
     return out
 
 
@@ -2750,6 +2855,8 @@ def distinct_queries_phase(native, cols: dict, known_seen: list,
                             if conf_name == "default" else [],
                             DISTINCT_MUST_LAUNCH[q, conf_name], known_seen,
                             known_k1)
+            if conf_name == "vfa":
+                ONE_PARTITION_ROWS[q] = r["rows"]
             known_seen.append(r["seen"])
             known_k1 |= {c["shape"] for c in r["checks"]
                          if c["kernel"] == "radix_sort"}
@@ -2942,7 +3049,7 @@ SHUFFLED_MUST_LAUNCH = dict(
     q4=("radix_sort", "join_probe"), q13=("radix_sort", "join_probe"),
     q21=("radix_sort", "join_probe"), ds_q89=("radix_sort", "seg_reduce"))
 SHUFFLE_PARTITIONS = 8
-LAST_WARM_RUNS = 1
+LAST_WARM_RUNS = 0    # 1 until phase 25 needed the time
 
 
 def last_oracles(cols: dict, xcols: dict, E, S) -> dict:
@@ -3081,11 +3188,13 @@ def exchange_phase(native, cols: dict, known_seen: list,
                         if c["kernel"] == "radix_sort")
         out["kernel_checks"] += r["checks"]
         warm, peak, held = _warm(phys, check, want, warm_runs)
+        peak_text = (f"warm {[round(w, 4) for w in warm]} s, peak device "
+                     f"memory in the warm runs {peak / 2**30:.3f} GiB "
+                     f"({held / 2**30:.3f} GiB held before them)") \
+            if warm else "no warm run (cut for time)"
         log(f"{label} matches the numpy oracle ({len(r['rows'])} rows): "
-            f"first run {r['first_s']:.3f} s, warm "
-            f"{[round(w, 4) for w in warm]} s, peak device memory in the "
-            f"warm runs {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
-            f"held before them); launches {r['launches']}")
+            f"first run {r['first_s']:.3f} s, {peak_text}; launches "
+            f"{r['launches']}")
         out[label] = dict(first_s=r["first_s"], warm_s=warm,
                           launches=r["launches"], moved=r["moved"],
                           hosted=r["hosted"], peak_bytes=peak,
@@ -3123,10 +3232,12 @@ def exchange_phase(native, cols: dict, known_seen: list,
             **S.suite_tables(session, xcols, ("xbb_q12", "ds_q89")))
         for q in SHUFFLED:
             fn = S.QUERIES[q] if q in S.QUERIES else tpch.QUERIES[q]
-            phys = fn(session, tables[q])._physical()
             if n == 1:
-                by_n[q] = phys.collect()
+                by_n[q] = ONE_PARTITION_ROWS.get(q)
+                if by_n[q] is None:
+                    by_n[q] = fn(session, tables[q])._physical().collect()
                 continue
+            phys = fn(session, tables[q])._physical()
             rows = run(f"{q} ({n} partitions)", phys, q, [],
                        SHUFFLED_MUST_LAUNCH[q])
             if not rows_close(rows, by_n[q]):
@@ -3144,6 +3255,7 @@ def exchange_phase(native, cols: dict, known_seen: list,
         run(f"full outer join ({n} partitions)", phys, "full_join", [],
             ("radix_sort", "join_probe"))
     out["seconds"] = time.perf_counter() - t_phase
+    out["oracles"] = oracles
     log(f"phase 16 took {out['seconds']:.1f} s")
     return out
 
@@ -3160,12 +3272,14 @@ OOC_WARM_RUNS = 0
 SORT_BUDGET = 128 << 20
 SORT_HOST_BYTES = 160 << 20
 SORT_KEYS = ("l_suppkey", "l_partkey", "l_orderkey", "l_linenumber")
-# (e): shares of the memory q18's uncapped one-partition run reserves
-# above its start that the process may reserve, tried in turn until one
-# raises a real OOM. Near the peak the overshoot is small, so spilling the
-# catalog's exchange pieces covers it; far below it (0.6 and under, on an
-# H100 80GB HBM3) the ladder can run out, and the run then fails.
-OOM_SHARES = (0.9, 0.8, 0.7)
+# (e), (f) and phase 22 (g): shares of the memory q18's uncapped run
+# reserves above its start that the process may reserve, tried in turn
+# until one raises a real OOM. The uncapped peak holds cached blocks a
+# capped allocator frees first, so the first share that raises moves with
+# the allocator's state from run to run. Near the peak the overshoot is
+# small and spilling the catalog covers it; further below, a join's probe
+# step that every spill left short splits its batch (splitRetries).
+OOM_SHARES = (0.9, 0.8, 0.7, 0.6, 0.5)
 _BUDGET_KEY = "spark.rapids.memory.tpu.budgetBytes"
 _HOST_KEY = "spark.rapids.memory.host.spillStorageSize"
 
@@ -3200,12 +3314,17 @@ def lineitem_sort_frame(session, tcols: dict, E, L):
 
 
 def sort_oracle(tcols: dict) -> dict:
-    """The sorted columns by ``np.lexsort``, after a check that the sort
-    key is unique (so the order is fully determined)."""
+    """The sorted columns by ``np.lexsort`` (by one packed int64 key where
+    the keys allow it: the same order), after a check that the sort key
+    is unique (so the order is fully determined)."""
     pk = tcols["l_orderkey"] * 8 + tcols["l_linenumber"]
     if len(np.unique(pk)) != len(pk):
         raise AssertionError("(l_orderkey, l_linenumber) is not unique")
-    order = np.lexsort(tuple(tcols[k] for k in reversed(SORT_KEYS)))
+    keys = np.stack([tcols[k] for k in SORT_KEYS], axis=1)
+    radixes = _packed_radixes(keys)
+    order = np.lexsort(tuple(tcols[k] for k in reversed(SORT_KEYS))) \
+        if radixes is None else np.argsort(_pack_rows(keys, radixes),
+                                           kind="stable")
     return {k: v[order] for k, v in tcols.items()}
 
 
@@ -3424,12 +3543,14 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
 
     # (c) q21 and q4 at one partition with grace joins.
     oracles = {"q21": ((lambda rows, want: check_rows("q21", rows, want)),
-                       q21_oracle(cols, E)),
+                       memo_oracle("q21", cols, lambda: q21_oracle(cols, E))),
                "q4": df_oracles(cols, E, ("q4",))["q4"]}
     for q in ("q21", "q4"):
         check, want = oracles[q]
 
         def make_q(conf, q=q):
+            # The default conf: at one partition the runtime re-plan has
+            # no candidate, so the grace path splits the shuffled joins.
             session = TpuSession(conf)
             return tpch.QUERIES[q](session, tpch.tpch_tables(
                 session, cols, (q,))[q])
@@ -3455,7 +3576,8 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
 
     # (d) q18 at eight partitions with its exchange pieces spilled.
     q18_check, q18_want = ((lambda rows, want: check_rows("q18", rows, want)),
-                           q18_oracle(cols, E))
+                           memo_oracle("q18", cols,
+                                       lambda: q18_oracle(cols, E)))
 
     def make_q18(conf, n=SHUFFLE_PARTITIONS):
         session = TpuSession(dict(conf, **{
@@ -3463,8 +3585,9 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
         return tpch.QUERIES["q18"](session, tpch.tpch_tables(
             session, cols, ("q18",))["q18"])
 
-    one_phys = make_q18(vfa, 1)._physical()
-    by_one = one_phys.collect()
+    by_one = ONE_PARTITION_ROWS.get("q18")
+    if by_one is None:
+        by_one = make_q18(vfa, 1)._physical().collect()
     q18_check(by_one, q18_want)
 
     def q18_budget(inc):
@@ -3488,20 +3611,33 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
          ("radix_sort",), q18_budget, extra=q18_extra)
 
     # (e) A real OOM: the process may reserve only part of q18's in-core
-    # peak; the ladder must recover on the card.
-    out["oom"] = real_oom(one_phys, q18_check, q18_want)
+    # peak; the ladder must recover on the card. The default layout (one
+    # partition, where the runtime re-plan has no candidate), then (f) 8
+    # partitions with the re-plan on: it materializes the semi join's
+    # build before the stage pass, and an exhausted ladder there keeps
+    # the static plan (replanOomKeeps).
+    oom_phys = make_q18(vfa, 1)._physical()
+    out["oom"] = real_oom(oom_phys, q18_check, q18_want)
     out["runs"].append(out["oom"]["launches"])
     add_counts(out["recovery"], out["oom"]["recovery"])
+    oom8_phys = make_q18(vfa)._physical()
+    out["oom8"] = real_oom(oom8_phys, q18_check, q18_want, "(f)",
+                           layout=f"{SHUFFLE_PARTITIONS} partitions")
+    out["runs"].append(out["oom8"]["launches"])
+    add_counts(out["recovery"], out["oom8"]["recovery"])
+    log(f"(f) q18 at {SHUFFLE_PARTITIONS} partitions, re-plan on: "
+        f"Cost@query of the recovered run {out['oom8']['cost']}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 18 took {out['seconds']:.1f} s")
     return out
 
 
-def real_oom(phys, check, want, label: str = "(e)") -> dict:
+def real_oom(phys, check, want, label: str = "(e)",
+             layout: str = "1 partition") -> dict:
     """Measure the reserved memory (the caching allocator's, which its
     cap counts) of one uncapped run, then cap the allocator
     (``set_per_process_memory_fraction``) at what it reserves now plus a
-    share of that run's reserved peak above its start, for each share of
+    share of that run's reserved peak above its start, for each of
     ``OOM_SHARES`` in turn, until a run raises a real
     ``torch.OutOfMemoryError`` inside a retry site. That run must recover
     on the card (a rung fired) and match its oracle.
@@ -3541,7 +3677,7 @@ def real_oom(phys, check, want, label: str = "(e)") -> dict:
         check(rows, want)
         c = check_teardown(f"{label} q18 under a memory cap", ctx)
         rec = c["recovery"]
-        log(f"{label} q18 (1 partition) capped at {limit / 2**30:.3f} GiB "
+        log(f"{label} q18 ({layout}) capped at {limit / 2**30:.3f} GiB "
             f"({share:.2f} of the {span / 2**30:.3f} GiB its uncapped run "
             f"reserved above {base / 2**30:.3f} GiB): {wall:.3f} s, rows "
             f"match; ladder {list(oom.last_ladder)}, recovery {rec}, "
@@ -3549,9 +3685,11 @@ def real_oom(phys, check, want, label: str = "(e)") -> dict:
         if rec.get("retriesAttempted", 0) > 0:
             if not oom.last_ladder:
                 raise AssertionError(f"{label} a retry with no rung")
+            cost = dict(ctx.metrics["Cost@query"].values) \
+                if "Cost@query" in ctx.metrics else {}
             return dict(share=share, limit=limit, span=span, wall_s=wall,
                         ladder=list(oom.last_ladder), recovery=rec,
-                        launches=launches)
+                        launches=launches, cost=cost)
     raise AssertionError(f"{label} no share of {OOM_SHARES} raised an OOM")
 
 
@@ -4168,7 +4306,7 @@ def rowsource_phase(native, cols: dict, known_seen: list,
 # ---------------------------------------------------------------------------
 
 ETL_HEAD_ROWS = 1 << 18
-STRING_WARM_RUNS = 1
+STRING_WARM_RUNS = 0  # 1 until phase 25 needed the time
 # Queries whose warm run was cut for time (etl head: 3-5 s a run); no
 # query has one under the default conf, for the script's time budget.
 STRING_NO_WARM = ("etl",)
@@ -4753,7 +4891,7 @@ def string_phase(native, cols: dict, known_seen: list,
 # Phase 21: the UDF tier (compiled UDFs, the Python-UDF fallback, pandas)
 # ---------------------------------------------------------------------------
 
-UDF_WARM_RUNS = 1
+UDF_WARM_RUNS = 0     # 1 until phase 25 needed the time
 # The kernels each run of phase 21 must launch.
 UDF_MUST_LAUNCH = {"q1": ("radix_sort",), "q1_udf": ("radix_sort",),
                    "ranks": ("radix_sort", "seg_reduce"),
@@ -5353,7 +5491,8 @@ def file_phase(native, cols: dict, df_out: dict, known_seen: list,
         q18 = tpch.QUERIES["q18"](s18, tpch.tpch_tables(
             s18, cols, ("q18",))["q18"])._physical()
         g = real_oom(q18, lambda rows, w: check_rows("q18", rows, w),
-                     q18_oracle(cols, E), "(g)")
+                     memo_oracle("q18", cols, lambda: q18_oracle(cols, E)),
+                     "(g)")
         if g["ladder"][0] != oom.RUNG_DROP_SCAN_CACHE or \
                 DEVICE_SCAN_CACHE.nbytes:
             raise AssertionError(f"(g) ladder {g['ladder']}; the scan cache "
@@ -6100,6 +6239,414 @@ def _chaos_run(q: str, spec: str, tables: dict, base: list, run, tmp: str,
     return dict(recovery=rec, instants=inst, wall=wall, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the runtime re-plan, the recovery ladder, concurrent stages and
+# the partial skip
+# ---------------------------------------------------------------------------
+
+REPLAN_QUERIES = ("q4", "q13", "q21")
+# q17's PART build: its estimate (every PART row: ~6.3 MB at SF1) above
+# this threshold, the 200-odd parts its filter keeps (a few KB) below, so
+# the planner shuffles the join and the re-plan demotes it.
+Q17_THRESHOLD = 1 << 20
+ADAPTIVE_PARTITIONS = 8
+Q3_SHUFFLED = {"spark.rapids.sql.autoBroadcastJoinThreshold": -1}
+SKIP_ON, SKIP_OFF = 0.85, 1.0
+_RATIO_KEY = "spark.rapids.sql.agg.skipAggPassReductionRatio"
+
+
+def _replan_joins(root) -> list:
+    """(join, build exchange, probe exchange) of every join the re-plan
+    checks: a shuffled hash join (not full outer) over two exchanges."""
+    out = []
+
+    def walk(op):
+        for c in op.children:
+            walk(c)
+        if type(op).__name__ == "ShuffledHashJoinExec" and \
+                op.join_type != "full" and all(
+                    type(c).__name__ == "ShuffleExchangeExec"
+                    for c in op.children):
+            build_right = op.join_type != "right"
+            b, p = (1, 0) if build_right else (0, 1)
+            out.append((op, op.children[b], op.children[p]))
+
+    walk(root)
+    return out
+
+
+def _materialized(ctx, ex) -> bool:
+    m = ctx.metrics.get(f"{ex.name}@{id(ex):x}")
+    return m is not None and "materializeTime" in m.values
+
+
+def _partials(root) -> list:
+    out = []
+
+    def walk(op):
+        if type(op).__name__ == "HashAggregateExec" and \
+                op.mode == "partial":
+            out.append(op)
+        for c in op.children:
+            walk(c)
+
+    walk(root)
+    return out
+
+
+def _skip_decisions(phys) -> list:
+    """(group keys, decision or None) of each partial aggregate of the
+    last run."""
+    ctx = phys.last_ctx
+    out = []
+    for a in _partials(phys.root):
+        m = ctx.metrics_for(a).values
+        out.append((a.group_names, None if "partialSkip" not in m
+                    else bool(m["partialSkip"])))
+    return out
+
+
+def _source_batches(phys) -> dict:
+    """numOutputBatches of each in-memory source of the last run, by its
+    column names."""
+    ctx = phys.last_ctx
+    out = {}
+
+    def walk(op):
+        if type(op).__name__ == "InMemorySourceExec":
+            m = ctx.metrics.get(f"{op.name}@{id(op):x}")
+            out[tuple(n for n, _ in op.schema)] = \
+                int(m.values.get("numOutputBatches", 0)) if m else 0
+        for c in op.children:
+            walk(c)
+
+    walk(phys.root)
+    return out
+
+
+def check_orders_groups(hbs: list, orders: dict) -> float:
+    """ORDERS grouped by o_orderkey (count, sum of o_totalprice) against
+    numpy: every key once, counts exact, each sum its order's price within
+    ORACLE_RTOL or the rounding of the aggregate's group sums, which are
+    differences of a running sum over a batch (``_segment_sums``): a few
+    ulp of that total, at most 4 ulp of the whole column's. Returns the
+    largest absolute difference."""
+    keys = np.concatenate([hb.columns[0].data for hb in hbs])
+    counts = np.concatenate([hb.columns[1].data for hb in hbs])
+    sums = np.concatenate([hb.columns[2].data for hb in hbs])
+    order = np.argsort(keys, kind="stable")
+    want_keys = np.sort(orders["o_orderkey"])
+    if not np.array_equal(keys[order], want_keys):
+        raise AssertionError("(d) ORDERS group-by keys differ from numpy")
+    if not (counts == 1).all():
+        raise AssertionError("(d) ORDERS group-by counts are not all 1")
+    price = orders["o_totalprice"][np.argsort(orders["o_orderkey"],
+                                              kind="stable")]
+    diff = np.abs(sums[order] - price)
+    atol = 4 * np.finfo(np.float64).eps * float(np.abs(price).sum())
+    if not (diff <= ORACLE_RTOL * np.abs(price) + atol).all():
+        raise AssertionError(f"(d) ORDERS group-by sums differ from numpy "
+                             f"by up to {diff.max()} (atol {atol})")
+    return float(diff.max())
+
+
+def adaptive_phase(native, cols: dict, df_out: dict, ex_out: dict,
+                   smi: str) -> dict:
+    """Phase 25 (runs after phase 24, over phase 11's tables; oracles of
+    phases 11 and 16): (a) the runtime re-plan, (b) the recovery ladder,
+    (c) concurrent stages, (d) the partial skip. See the module doc."""
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch import faults, monitoring
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.plan import logical as L
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="srt-adaptive-")
+    tables = df_out["tables"]
+    oracles = dict(df_out["oracles"])
+    oracles.update({q: ex_out["oracles"][q] for q in ("q13", "q18", "q21")})
+    oracles["q17"] = distinct_oracles(cols, None, E, None, ("q17",))["q17"]
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    eight = dict(vfa, **{"spark.rapids.sql.shuffle.partitions":
+                         ADAPTIVE_PARTITIONS})
+    out = {"runs": []}
+
+    def frame(conf, q):
+        session = TpuSession(conf)
+        return tpch.QUERIES[q](session, _rebound(session, tables[q]))
+
+    def run(df, q=None, batches=False):
+        """One run: launches around it alone, the wall, the rows checked
+        against the query's oracle, no leak."""
+        native.reset_counters()
+        t0 = time.perf_counter()
+        phys = df._physical()
+        rows = phys.collect_batches() if batches else df.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = native.counters()
+        out["runs"].append(launches)
+        if q is not None:
+            check, want = oracles[q]
+            check(rows, want)
+        ctx = phys.last_ctx
+        if ctx.last_leak_report:
+            raise AssertionError(f"phase 25 {q}: leaked "
+                                 f"{ctx.last_leak_report}")
+        return rows, launches, wall, ctx
+
+    try:
+        # (a) The runtime re-plan at 8 partitions, on and off in turns.
+        out["replan"] = {}
+        for q in REPLAN_QUERIES:
+            frames = {c: frame(dict(eight, **{
+                "spark.rapids.sql.aqe.replan.enabled": c == "on"}), q)
+                for c in ("on", "off")}
+            res = {c: dict(walls=[]) for c in frames}
+            # q21 demotes nothing (its ORDERS join is broadcast statically):
+            # one turn, for the script's time budget.
+            turns = (("on", "off"), ("off", "on"))[:1 if q == "q21" else 2]
+            for order in turns:
+                for c in order:
+                    rows, launches, wall, ctx = run(frames[c], q)
+                    r = res[c]
+                    r["walls"].append(wall)
+                    r.setdefault("rows", rows)
+                    r.setdefault("launches", launches)
+                    r["ctx"] = ctx
+            if not rows_close(res["on"]["rows"], res["off"]["rows"]):
+                raise AssertionError(f"(a) {q}: rows with the re-plan on "
+                                     f"differ from its rows off")
+            phys, ctx = frames["on"]._physical(), res["on"]["ctx"]
+            cost = dict(ctx.metrics["Cost@query"].values) \
+                if "Cost@query" in ctx.metrics else {}
+            joins = [(j.join_type, _materialized(ctx, p))
+                     for j, _b, p in _replan_joins(phys.root)]
+            demoted = sum(1 for _t, m in joins if not m)
+            if cost.get("replanChecks", 0) != len(joins) or \
+                    cost.get("joinDemotions", 0) != demoted:
+                raise AssertionError(f"(a) {q}: Cost@query {cost} against "
+                                     f"the joins {joins}")
+            off_ctx = res["off"]["ctx"]
+            if "Cost@query" in off_ctx.metrics or not all(
+                    _materialized(off_ctx, p) for _j, _b, p in
+                    _replan_joins(frames["off"]._physical().root)):
+                raise AssertionError(f"(a) {q}: the re-plan ran while off")
+            out["replan"][q] = dict(
+                cost=cost, joins=joins,
+                walls={c: res[c]["walls"] for c in res},
+                launches={c: res[c]["launches"] for c in res})
+            log(f"phase 25 (a) {q} at {ADAPTIVE_PARTITIONS} partitions, "
+                f"re-plan on: replanChecks {cost.get('replanChecks', 0)}, "
+                f"joinDemotions {cost.get('joinDemotions', 0)}, "
+                f"replanObservedBytes {cost.get('replanObservedBytes', 0)} "
+                f"(threshold {64 << 20}), estimateErrorPct "
+                f"{cost.get('estimateErrorPct', 0):.1f}; joins (type, probe "
+                f"exchange materialized) {joins}; K1 / K3 launches on "
+                f"{res['on']['launches']['radix_sort']} / "
+                f"{res['on']['launches']['join_probe']}, off "
+                f"{res['off']['launches']['radix_sort']} / "
+                f"{res['off']['launches']['join_probe']}; walls on "
+                f"{[round(w, 4) for w in res['on']['walls']]} s, off "
+                f"{[round(w, 4) for w in res['off']['walls']]} s (first, "
+                f"warm; in turns {[c for o in turns for c in o]}); rows "
+                f"equal; {smi}")
+
+        df17 = frame(dict(eight, **{
+            "spark.rapids.sql.autoBroadcastJoinThreshold": Q17_THRESHOLD}),
+            "q17")
+        phys17 = df17._physical()
+        notes = [line.strip() for line in phys17.explain().splitlines()
+                 if "join strategy" in line]
+        walls17 = []
+        for _ in range(2):
+            _rows, launches17, wall, ctx = run(df17, "q17")
+            walls17.append(wall)
+        cost = dict(ctx.metrics["Cost@query"].values)
+        joins = [(j.join_type, getattr(j, "est_build_bytes", None),
+                  _materialized(ctx, p))
+                 for j, _b, p in _replan_joins(phys17.root)]
+        demoted = sum(1 for _t, _e, m in joins if not m)
+        if cost.get("joinDemotions", 0) < 1 or \
+                cost["joinDemotions"] != demoted:
+            raise AssertionError(f"(a) q17: no demotion with its probe "
+                                 f"exchange unmaterialized: {cost}, {joins}")
+        out["replan"]["q17"] = dict(cost=cost, joins=joins, walls=walls17,
+                                    launches=launches17)
+        log(f"phase 25 (a) q17 at {ADAPTIVE_PARTITIONS} partitions, "
+            f"autoBroadcastJoinThreshold {Q17_THRESHOLD}: planner notes "
+            f"{notes}; Cost@query {cost}; joins (type, estimate, probe "
+            f"exchange materialized) {joins}: {demoted} demoted, its probe "
+            f"never shuffled; launches {launches17}; walls "
+            f"{[round(w, 4) for w in walls17]} s; {smi}")
+
+        # (b) The recovery ladder: rows bit for bit the fault-free rows.
+        out["recovery"] = {}
+        q3conf = dict(eight, **Q3_SHUFFLED)
+        free3 = frame(q3conf, "q3")
+        base3, _, _, _ = run(free3, "q3")
+        free_src = _source_batches(free3._physical())
+        base1 = run(df_out["q1"]["frame"], "q1")[0]
+        base6 = run(df_out["q6"]["frame"], "q6")[0]
+
+        def chaos(label, q, conf, spec, base, expect):
+            faults.configure("")
+            faults.reset_counters()
+            spill = os.path.join(tmp, f"spill-{len(out['recovery'])}")
+            os.makedirs(spill, exist_ok=True)
+            conf = dict(conf, **{
+                "spark.rapids.sql.test.faults": spec,
+                "spark.rapids.sql.test.faults.seed": 7,
+                "spark.rapids.sql.retry.backoffMs": 1,
+                "spark.rapids.sql.trace.enabled": True,
+                "spark.rapids.sql.trace.level": "query",
+                "spark.rapids.memory.spill.dir": spill})
+            df = frame(conf, q)
+            rows, launches, wall, ctx = run(df, q)
+            if rows != base:
+                raise AssertionError(f"(b) {label}: rows differ from the "
+                                     f"fault-free rows")
+            rec = {k: v for k, v in ctx.metrics["Recovery@query"]
+                   .values.items()}
+            qid = ctx.cache["trace_query"]
+            inst = [(e[1], e[7]) for e in monitoring.events(qid)
+                    if e[0] == "i"]
+            bad = {k: (rec.get(k, 0), v) for k, v in expect.items()
+                   if not (rec.get(k, 0) >= v[1] if isinstance(v, tuple)
+                           else rec.get(k, 0) == v)}
+            if bad:
+                raise AssertionError(f"(b) {label}: Recovery@query {rec}; "
+                                     f"expected {expect}")
+            out["recovery"][label] = dict(recovery=rec, instants=inst,
+                                          wall=wall, launches=launches)
+            log(f"phase 25 (b) {label} under {spec!r}: rows bit for bit "
+                f"the fault-free rows, {wall:.3f} s; Recovery@query {rec}; "
+                f"instants {inst}; no leak; launches {launches}; {smi}")
+            faults.configure("")
+            return df
+
+        lost = chaos("q3 lostoutput", "q3", q3conf,
+                     "lostoutput@exchange.serve:1", base3,
+                     {"stageRecomputes": 1, "faultsInjected": 1})
+        lost_src = _source_batches(lost._physical())
+        doubled = [k for k in free_src
+                   if lost_src.get(k) == 2 * free_src[k] > 0]
+        same = [k for k in free_src if lost_src.get(k) == free_src[k]]
+        if len(doubled) != 1 or len(same) != len(free_src) - 1:
+            raise AssertionError(f"(b) q3 lostoutput: sources ran "
+                                 f"{lost_src} against {free_src}")
+        log(f"phase 25 (b) q3 lostoutput: source batches {lost_src} "
+            f"against the fault-free {free_src}: only {doubled[0]} ran "
+            f"again, every sibling stage's source uploaded once")
+        chaos("q3 transient", "q3", q3conf, "transient@exchange.serve:1",
+              base3, {"retriesAttempted": 1, "faultsInjected": 1})
+        chaos("q1 corrupt", "q1", dict(vfa, **{
+            "spark.rapids.memory.tpu.budgetBytes": CHAOS_DEVICE_BUDGET,
+            "spark.rapids.memory.host.spillStorageSize": CHAOS_HOST_BUDGET}),
+            "corrupt@wire:2,oom@upload:1", base1,
+            {"corruptionsDetected": (">=", 1), "stageRecomputes": 1})
+        chaos("q6 stall", "q6", dict(vfa, **{
+            "spark.rapids.sql.watchdog.enabled": True,
+            "spark.rapids.sql.watchdog.taskTimeoutMs": 1000}),
+            "stall@kernel:1", base6,
+            {"watchdogKills": 1, "partitionRetries": 1})
+        monitoring.configure(False)
+        monitoring.reset()
+
+        # (c) Concurrent stages: q3, the pipeline on and off in turns.
+        # The pipeline's default (on) is (b)'s fault-free q3, warm; the off
+        # plan's first run packs its sources.
+        frames = {"on": free3, "off": frame(dict(q3conf, **{
+            "spark.rapids.sql.pipeline.enabled": False}), "q3")}
+        walls, rows_by, stages = {"on": [], "off": []}, {}, None
+        for order in (("on", "off"), ("off", "on")):
+            for c in order:
+                rows, _launches, wall, ctx = run(frames[c], "q3")
+                walls[c].append(wall)
+                rows_by[c] = rows
+                if c == "on":
+                    stages = ctx.metrics["Pipeline@query"].values.get(
+                        "concurrentStages", 0)
+        if stages < 2 or rows_by["on"] != rows_by["off"]:
+            raise AssertionError(f"(c) q3: concurrentStages {stages}, rows "
+                                 f"equal {rows_by['on'] == rows_by['off']}")
+        out["concurrent"] = dict(stages=stages, walls=walls)
+        log(f"phase 25 (c) q3 at {ADAPTIVE_PARTITIONS} partitions, "
+            f"auto-broadcast off: concurrentStages {stages} with the "
+            f"pipeline on; rows equal bit for bit; walls on "
+            f"{[round(w, 4) for w in walls['on']]} s, off "
+            f"{[round(w, 4) for w in walls['off']]} s (in turns on, off, "
+            f"off, on; the off plan's first run packs its sources); {smi}")
+
+        # (d) The partial skip: ORDERS by o_orderkey and q18, at the
+        # default ratio and off, in turns.
+        orders = cols["orders"]
+        out["skip"] = {}
+
+        def orders_frame(ratio):
+            session = TpuSession(dict(eight, **{_RATIO_KEY: ratio}))
+            o = _rebound(session, tables["q18"])["orders"]
+            return o.group_by("o_orderkey").agg(
+                L.agg_count().alias("n"),
+                L.agg_sum(L.col("o_totalprice")).alias("s"))
+
+        for name, make, q, turns in (
+                ("orders", orders_frame, None,
+                 ((SKIP_ON, SKIP_OFF), (SKIP_OFF, SKIP_ON))),
+                ("q18", lambda r: frame(dict(eight, **{_RATIO_KEY: r}),
+                                        "q18"), "q18",
+                 ((SKIP_ON, SKIP_OFF),))):
+            frames = {r: make(r) for r in (SKIP_ON, SKIP_OFF)}
+            res = {r: dict(walls=[]) for r in frames}
+            for order in turns:
+                for r in order:
+                    rows, launches, wall, _ctx = run(frames[r], q,
+                                                     batches=q is None)
+                    if q is None:
+                        res[r]["err"] = check_orders_groups(rows, orders)
+                    res[r]["walls"].append(wall)
+                    res[r].setdefault("launches", launches)
+            dec = {r: _skip_decisions(frames[r]._physical()) for r in frames}
+            if any(d is not None for _k, d in dec[SKIP_OFF]):
+                raise AssertionError(f"(d) {name}: decided at ratio 1.0: "
+                                     f"{dec[SKIP_OFF]}")
+            if name == "orders" and dec[SKIP_ON] != [(("o_orderkey",),
+                                                      True)]:
+                raise AssertionError(f"(d) orders: {dec[SKIP_ON]}")
+            if name == "q18" and (("l_orderkey",), False) not in \
+                    dec[SKIP_ON]:
+                raise AssertionError(f"(d) q18: {dec[SKIP_ON]}")
+            out["skip"][name] = dict(decisions=dec[SKIP_ON], walls={
+                str(r): res[r]["walls"] for r in res}, launches={
+                str(r): res[r]["launches"] for r in res})
+            log(f"phase 25 (d) {name} at {ADAPTIVE_PARTITIONS} partitions: "
+                f"partial decisions (keys, skip) at {SKIP_ON} "
+                f"{dec[SKIP_ON]}; K1 launches at {SKIP_ON} "
+                f"{res[SKIP_ON]['launches']['radix_sort']}, at {SKIP_OFF} "
+                f"{res[SKIP_OFF]['launches']['radix_sort']}; walls at "
+                f"{SKIP_ON} {[round(w, 4) for w in res[SKIP_ON]['walls']]} "
+                f"s, at {SKIP_OFF} "
+                f"{[round(w, 4) for w in res[SKIP_OFF]['walls']]} s (in "
+                f"turns {turns}); rows against numpy"
+                + (f" (largest sum difference {res[SKIP_ON]['err']} / "
+                   f"{res[SKIP_OFF]['err']})" if q is None else "")
+                + f"; {smi}")
+    finally:
+        faults.configure("")
+        monitoring.configure(False)
+        monitoring.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 25 took {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+_T_START = [time.perf_counter()]
+
+
 def end_phase(name: str) -> None:
     """Clear the plan cache (its templates pin their sources and packed
     encodings) and print the process's peak and current host RSS."""
@@ -6111,7 +6658,8 @@ def end_phase(name: str) -> None:
     with open("/proc/self/statm") as f:
         rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
     log(f"{name}: plan cache cleared ({n} template(s)); host RSS "
-        f"{rss / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB")
+        f"{rss / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - _T_START[0]:.1f} s into the script")
 
 
 # ---------------------------------------------------------------------------
@@ -6190,7 +6738,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (the "
               "spark_rapids_tpu_torch package is missing)", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    t_start = _T_START[0] = time.perf_counter()
     sys.path.insert(0, HERE)
     from spark_rapids_tpu_torch import entry
     from spark_rapids_tpu_torch.ops import cuda_build, native
@@ -6279,7 +6827,7 @@ def main() -> int:
 
     # Phase 12: TPC-H q1-q6 under the default conf
     mixed = default_conf_phase(native, cols, joins["seen"] + [q2["seen"]]
-                               + [df[q]["seen"] for q in DF_QUERIES])
+                               + [df[q]["seen"] for q in DF_QUERIES], df)
 
     end_phase("phase 12")
 
@@ -6313,7 +6861,8 @@ def main() -> int:
     ex = exchange_phase(native, cols, joins["seen"] + [q2["seen"]] + [
         df[q]["seen"] for q in DF_QUERIES] + [
         mixed[q]["seen"] for q in DF_QUERIES], known_k1)
-    ex_runs = [k for k in ex if k not in ("kernel_checks", "seconds")]
+    ex_runs = [k for k in ex if k not in ("kernel_checks", "seconds",
+                                          "oracles")]
 
     end_phase("phase 16")
 
@@ -6373,6 +6922,11 @@ def main() -> int:
     ob = observability_phase(native, df, smi)
     end_phase("phase 24")
 
+    # Phase 25: the runtime re-plan, the recovery ladder, concurrent stages
+    # and the partial skip
+    ad = adaptive_phase(native, cols, df, ex, smi)
+    end_phase("phase 25")
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -6382,7 +6936,8 @@ def main() -> int:
         for q in DISTINCT_QUERIES) + tuple(
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
-        fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"])
+        fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"]) + tuple(
+        ad["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -6444,7 +6999,8 @@ def main() -> int:
         + "; phase 22 " + ", ".join(str(r) for r in fi["runs"])
         + "; phase 23 " + ", ".join(str(r) for r in pp["runs"])
         + f"; phase 23 library calls {library}"
-        + "; phase 24 " + ", ".join(str(r) for r in ob["runs"]))
+        + "; phase 24 " + ", ".join(str(r) for r in ob["runs"])
+        + "; phase 25 " + ", ".join(str(r) for r in ad["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

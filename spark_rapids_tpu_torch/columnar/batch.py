@@ -205,6 +205,26 @@ class DeviceBatch:
             total += self.sel.numel()
         return total
 
+    def halves(self) -> Tuple["DeviceBatch", "DeviceBatch"]:
+        """Rows [0, cap/2) and [cap/2, cap) as two batches of half the
+        capacity: views of the columns, no copy and no sync. The live rows
+        of the first precede those of the second."""
+        h = self.capacity // 2
+
+        def part(sl):
+            return tuple(dataclasses.replace(
+                c, data=c.data[sl], validity=c.validity[sl],
+                lengths=None if c.lengths is None else c.lengths[sl])
+                for c in self.columns)
+
+        lo, hi = slice(0, h), slice(h, None)
+        sel = (None, None) if self.sel is None else (self.sel[lo],
+                                                     self.sel[hi])
+        return (DeviceBatch(part(lo), torch.clamp(self.num_rows, max=h),
+                            sel=sel[0]),
+                DeviceBatch(part(hi), torch.clamp(self.num_rows - h, min=0),
+                            sel=sel[1]))
+
 
 def concat_batches(batches: Sequence[DeviceBatch],
                    capacity: int) -> DeviceBatch:

@@ -147,6 +147,26 @@ AQE_COALESCE_TARGET_BYTES = _entry(
     "while both the row and the byte target hold.", "long",
     64 * 1024 * 1024)
 
+AQE_REPLAN = _entry(
+    "spark.rapids.sql.aqe.replan.enabled",
+    "Runtime adaptive re-planning (parallel/replan.py): before stage "
+    "prematerialization, materialize each shuffled hash join's "
+    "build-side exchange, read the OBSERVED bytes of the pieces it kept, "
+    "and when the build side fits autoBroadcastJoinThreshold demote the "
+    "join to a broadcast hash join: the probe side then skips its "
+    "shuffle entirely and the fusion pass re-runs over the rewritten "
+    "subtree (GpuCustomShuffleReaderExec.scala:132 analog driven by the "
+    "stage DAG). Off keeps the statically planned joins.", "boolean",
+    True)
+
+AGG_SKIP_PARTIAL_RATIO = _entry(
+    "spark.rapids.sql.agg.skipAggPassReductionRatio",
+    "When the first partial-aggregation batch reduces its input by less "
+    "than this ratio (groups/rows above the threshold), remaining "
+    "batches skip pre-shuffle grouping and project rows straight into "
+    "the buffer layout; all grouping then happens once, after the "
+    "exchange. 1.0 disables skipping.", "double", 0.85)
+
 BATCH_SIZE_BYTES = _entry(
     "spark.rapids.sql.batchSizeBytes",
     "Target size in bytes for coalesced device batches.", "long",
@@ -247,7 +267,8 @@ JOIN_GRACE_BUILD_FRACTION = _entry(
     "spark.rapids.sql.join.grace.buildFraction",
     "Fraction of the device budget a hash-join build side may occupy as "
     "one batch before the grace path engages; also the per-bucket byte "
-    "budget the grace partitioner targets.", "double", 0.5)
+    "budget the grace partitioner targets, and the share above which the "
+    "runtime re-plan keeps a join shuffled.", "double", 0.5)
 
 JOIN_GRACE_MAX_PARTITIONS = _entry(
     "spark.rapids.sql.join.grace.maxPartitions",
@@ -351,6 +372,13 @@ PIPELINE_HOST_THREADS = _entry(
     "spark.rapids.sql.pipeline.hostThreads",
     "Host threads shared by the pipeline's partition prefetchers (decode "
     "+ wire encode are pure CPU work).", "long", 4)
+
+PIPELINE_MAX_CONCURRENT_STAGES = _entry(
+    "spark.rapids.sql.pipeline.maxConcurrentStages",
+    "Upper bound on plan stages (parallel/stages.py DAG nodes) whose "
+    "exchange outputs materialize concurrently, e.g. the build and probe "
+    "side scans of a join. 1 disables concurrent stage "
+    "materialization.", "long", 2)
 
 
 CONCURRENT_PYTHON_WORKERS = _entry(
@@ -530,6 +558,65 @@ TEST_FAULTS_QUERY_TAG = _entry(
     "Explicit fault tag for query-scoped chaos (kind@site/query=N "
     "entries fire only on the query whose tag is N). -1 = untagged: the "
     "query's minted id is the tag.", "long", -1)
+
+
+RETRY_TRANSIENT_MAX = _entry(
+    "spark.rapids.sql.retry.transientMaxRetries",
+    "Per-query retry budget for transient backend failures "
+    "(UNAVAILABLE, DEADLINE_EXCEEDED, connection resets): the query "
+    "re-runs up to this many times, with exponential backoff between "
+    "attempts (plan/planner.py's recovery ladder). 0 disables the "
+    "retry.", "long", 2)
+
+RETRY_BACKOFF_MS = _entry(
+    "spark.rapids.sql.retry.backoffMs",
+    "Base backoff before transient-retry attempt i: "
+    "min(backoffMs * 2^i, maxBackoffMs) scaled by deterministic jitter "
+    "in [0.5, 1.0) seeded from spark.rapids.sql.test.faults.seed.",
+    "long", 50)
+
+RETRY_MAX_BACKOFF_MS = _entry(
+    "spark.rapids.sql.retry.maxBackoffMs",
+    "Ceiling on the exponential transient-retry backoff.", "long", 2000)
+
+WATCHDOG_ENABLED = _entry(
+    "spark.rapids.sql.watchdog.enabled",
+    "Execution watchdog (ops/base.py): run each partition's device "
+    "execution under a deadline (taskTimeoutMs) with bounded "
+    "re-dispatch (maxAttempts), the speculative re-execution analog of "
+    "Spark's task-level straggler handling, with deterministic "
+    "first-winner semantics so chaos runs stay bit-identical. Off by "
+    "default: the per-partition worker thread is pure overhead on a "
+    "healthy single-tenant card.", "boolean", False)
+
+WATCHDOG_TASK_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.watchdog.taskTimeoutMs",
+    "Deadline per watchdog partition attempt. An attempt still running "
+    "at the deadline is killed (cooperative cancel; a wedged device call "
+    "is abandoned to its daemon thread) and re-dispatched.", "long",
+    600000)
+
+WATCHDOG_MAX_ATTEMPTS = _entry(
+    "spark.rapids.sql.watchdog.maxAttempts",
+    "Total watchdog attempts per partition (first dispatch + "
+    "re-dispatches). Exhausting them raises DEADLINE_EXCEEDED, handing "
+    "recovery to the transient retry rung.", "long", 2)
+
+STAGE_RECOVERY_ENABLED = _entry(
+    "spark.rapids.sql.recovery.stageRecompute.enabled",
+    "Lineage-scoped recovery (parallel/stages.py): split the physical "
+    "plan into a stage DAG at exchange boundaries and, when a durable "
+    "stage output is lost or fails its checksum, invalidate and "
+    "recompute ONLY that stage on the same query context; sibling "
+    "stages serve their still-materialized outputs. Off = every "
+    "recoverable failure falls back to the whole-query retry.",
+    "boolean", True)
+
+RECOVERY_MAX_STAGE_RECOMPUTES = _entry(
+    "spark.rapids.sql.recovery.maxStageRecomputes",
+    "Per-query budget of lineage-scoped stage recomputes before recovery "
+    "demotes to the whole-query retry (a stage that keeps losing its "
+    "output is a sick backend, not a transient blip).", "long", 4)
 
 
 class TpuConf:

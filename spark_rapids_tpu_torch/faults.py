@@ -14,11 +14,14 @@ env)::
 - ``kind``: ``oom`` (a synthetic device allocation failure, recovered by
   the OOM escalation ladder, ``memory/oom.py``), ``corrupt`` (flips one
   byte of a serialized spill frame; detected by the CRC32 frame checksum
-  and re-read), and the kinds whose recovery is not ported yet, which
-  parse, fire, and propagate out of ``collect``: ``transient``,
-  ``lostoutput``, ``stall`` (a bounded hang, then
-  :class:`InjectedStallError`), ``lostshard``, ``workerdeath``,
-  ``slowput`` and ``unavailable``.
+  and re-read), ``transient`` (a synthetic UNAVAILABLE, recovered by the
+  planner's retry ladder), ``lostoutput`` (a lost stage output at an
+  exchange site, recovered by the stage recompute,
+  ``parallel/stages.py``), ``stall`` (a bounded hang, then
+  :class:`InjectedStallError`, killed and re-dispatched by the
+  execution watchdog, ``ops/base.py``), and the kinds whose recovery is
+  not ported yet, which parse, fire, and propagate out of ``collect``:
+  ``lostshard``, ``workerdeath``, ``slowput`` and ``unavailable``.
 - ``site``: a named injection point in a dispatch funnel: ``upload``
   (the wire codec's host->device copy), ``download`` (the result copy),
   ``concat`` (batch coalescing), ``kernel`` (each operator's retried
@@ -77,8 +80,8 @@ class InjectedOomError(RuntimeError):
 
 
 class InjectedTransientError(RuntimeError):
-    """Synthetic backend failure (UNAVAILABLE marker). The port has no
-    transient retry yet: it propagates out of ``collect``."""
+    """Synthetic backend failure (UNAVAILABLE marker), retried by the
+    planner's recovery ladder (``memory/oom.py`` ``is_transient_error``)."""
 
     def __init__(self, site: str):
         super().__init__(

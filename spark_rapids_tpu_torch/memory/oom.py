@@ -26,9 +26,12 @@ The JAX package has a cross-query ``evict-neighbors`` rung between 2 and
 
 An exhausted ladder raises :class:`OomRetryExhausted`, whose message
 carries no OOM marker, so enclosing ``retry_on_oom`` frames pass it on.
-The operator layer (``ops/base.py`` ``execute_device_recovering``) then
-tries the operator's on-device degraded mode (the grace hash join); where
-that fails too the error reaches the caller. Work never moves to the host.
+A row-wise step (a join's probe, an exchange's map side, a partial
+aggregate) first splits the batch in hand (:func:`split_on_oom`,
+port-only: the shrink rung sizes only later batches). The operator layer
+(``ops/base.py`` ``execute_device_recovering``) then tries the
+operator's on-device degraded mode (the grace hash join); where that
+fails too the error reaches the caller. Work never moves to the host.
 
 The wrapped steps are pure batch -> batch, so a retry is safe. The active
 catalog and the query's ``Recovery@query`` metrics (the recovery sink of
@@ -39,14 +42,20 @@ process-global recovery counters and that sink), and every rung taken is
 an ``oom-rung`` instant on the flight recorder. An injected OOM
 (``faults.InjectedOomError``, raised at a dispatch funnel's fault site
 inside the retried call) walks the same ladder as a real one.
+
+The transient helpers at the end (:func:`is_transient_error`,
+:func:`backoff_delay_ms`) serve the planner's recovery ladder
+(``plan/planner.py``): which errors a query may be retried for, and how
+long it waits before each retry.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import threading
 import traceback
-from typing import Callable, List, TypeVar
+from typing import Callable, Iterator, List, TypeVar
 
 import torch
 
@@ -197,3 +206,67 @@ def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
     if not rungs:
         raise last
     raise OomRetryExhausted(last, rungs)
+
+
+def is_unmet_oom(e: BaseException) -> bool:
+    """A device OOM the ladder left unmet: an exhausted ladder, or a raw
+    OOM where no rung could act."""
+    return isinstance(e, OomRetryExhausted) or is_oom_error(e)
+
+
+def split_on_oom(step: Callable, batch, offset: int = 0) -> Iterator:
+    """Yield ``step(batch, offset)``, a device step whose dispatches run
+    under :func:`retry_on_oom`; ``offset`` is the batch's first row
+    within the one first passed. Where the OOM is left unmet, the batch in
+    hand needs more than every spill freed, and the shrink rung only
+    sizes later batches: halve this one (``DeviceBatch.halves``) and run
+    ``step`` on each half, in order, recursively down to
+    ``_MIN_TARGET_ROWS`` of capacity, below which the error propagates.
+    A step must keep nothing of a call that raises. A row-wise step (a
+    join's probe, an exchange's map side, a partial aggregate) then gives
+    the same rows in the same order, in more batches. Each split counts
+    ``splitRetries`` and is an ``oom-split`` instant."""
+    try:
+        out = step(batch, offset)
+    except Exception as e:
+        if not is_unmet_oom(e) or batch.capacity < 2 * _MIN_TARGET_ROWS:
+            raise
+        traceback.clear_frames(e.__traceback__)
+        _LOG.warning("device OOM left unmet on a %d-row batch; splitting "
+                     "it in half: %s", batch.capacity, e)
+    else:
+        yield out
+        return
+    faults.record("splitRetries")
+    from spark_rapids_tpu_torch import monitoring
+    monitoring.instant("oom-split", "recovery",
+                       args={"capacity": batch.capacity})
+    lo, hi = batch.halves()
+    yield from split_on_oom(step, lo, offset)
+    yield from split_on_oom(step, hi, offset + lo.capacity)
+
+
+# -- transient failures -------------------------------------------------------
+
+def is_transient_error(e: BaseException) -> bool:
+    """Backend failures worth retrying the query for (the planner's
+    recovery ladder), by the reference's markers. Deliberately narrow:
+    a deterministic error must not run twice. No CUDA error string is a
+    marker: a sticky CUDA error (an illegal memory access, a device-side
+    assert) poisons the context, and retrying it would hide a kernel
+    bug."""
+    s = f"{type(e).__name__}: {e}"
+    return any(marker in s for marker in (
+        "UNAVAILABLE", "DEADLINE_EXCEEDED", "connection reset",
+        "Connection reset", "Socket closed", "ABORTED",
+        "failed to connect", "stream terminated"))
+
+
+def backoff_delay_ms(attempt: int, base_ms: int, max_ms: int,
+                     seed: int = 0) -> float:
+    """Exponential backoff with deterministic jitter: attempt ``i``
+    sleeps ``min(base * 2^i, max) * U(0.5, 1.0)``, U from a PRNG seeded
+    by (seed, attempt), so a seeded chaos run repeats its sleeps too."""
+    d = min(float(base_ms) * (2 ** int(attempt)), float(max_ms))
+    jitter = random.Random(f"{seed}:backoff:{attempt}").uniform(0.5, 1.0)
+    return d * jitter

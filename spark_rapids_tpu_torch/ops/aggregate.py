@@ -19,8 +19,19 @@ Zero-key aggregates skip the sort: whole-batch masked reductions
 (``_global_stage``), except a string Min/Max and the mixed_final stage,
 which group their single group through the sorted path. Each batch's
 update and the final consolidation are OOM retry sites
-(``memory/oom.py``), and the input coalesces toward
-``effective_batch_target``. The partial-skip decision is not ported.
+(``memory/oom.py``); an update whose OOM the ladder leaves unmet splits
+its batch (``split_on_oom``: a partial a half). The input coalesces
+toward ``effective_batch_target``.
+
+The adaptive partial skip (``spark.rapids.sql.agg.skipAggPassReductionRatio``,
+default 0.85): a keyed partial stage whose every function has
+``update_row`` reads its first batch's groups and live rows in one sync;
+when groups reach the ratio of the rows, the decision (kept as
+``aggskip:<id>`` in the context, counted as ``partialSkip``) sends every
+later batch of the query through ``_passthrough_batch``, which projects
+each row into the buffer layout without a sort, and the final stage
+groups once. The planner keeps the partial pass of a grouping-set plan
+(``allow_partial_skip``).
 
 First/Last pick by arrival: their buffers are (value, arrival index). The
 update stage numbers each row of a partition's stream (the batch's
@@ -73,7 +84,8 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     Expression, as_device_column, as_host_column, project_batch)
-from spark_rapids_tpu_torch.memory.oom import effective_batch_target
+from spark_rapids_tpu_torch.memory.oom import (
+    effective_batch_target, split_on_oom)
 from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
@@ -164,6 +176,15 @@ class AggFunction:
     def merge_global(self, bufs: List[SortedCol]) -> List[Tuple]:
         raise NotImplementedError
 
+    # -- partial-skip passthrough ----------------------------------------
+    # Each input ROW becomes its own one-row group buffer: an elementwise
+    # projection into the buffer layout, for a partial stage whose first
+    # batch barely reduced (skipAggPassReductionRatio); grouping then
+    # happens once, after the exchange. None: not supported.
+    def update_row(self, col: SortedCol,
+                   row_index: torch.Tensor) -> Optional[List[Buf]]:
+        return None
+
     # -- host python-row path ---------------------------------------------
     def host_update(self, values: list) -> tuple:
         """A group's python values (None = null) -> buffer value tuple."""
@@ -214,6 +235,10 @@ class Count(AggFunction):
         return [(torch.where(b.validity, b.data,
                              torch.zeros_like(b.data)).sum(), True, None)]
 
+    def update_row(self, col, row_index):
+        return [(col.validity.to(torch.int64),
+                 torch.ones_like(col.validity), None)]
+
     def host_update(self, values):
         return (sum(1 for v in values if v is not None),)
 
@@ -225,6 +250,10 @@ class Count(AggFunction):
 
 
 class CountStar(Count):
+    def update_row(self, col, row_index):
+        ones = torch.ones_like(col.validity)
+        return [(ones.to(torch.int64), ones, None)]
+
     def host_update(self, values):
         return (len(values),)
 
@@ -308,6 +337,10 @@ class Sum(AggFunction):
     def merge_global(self, bufs):
         return self._global(bufs[0].data, bufs[0].validity)
 
+    def update_row(self, col, row_index):
+        return [(col.data.to(torch_dtype(self.result_type)), col.validity,
+                 None)]
+
     def host_update(self, values):
         vs = [v for v in values if v is not None]
         if not vs:
@@ -386,6 +419,11 @@ class Average(AggFunction):
         c = torch.where(cb.validity, cb.data, torch.zeros_like(cb.data)).sum()
         return [(s, c > 0, None), (c, True, None)]
 
+    def update_row(self, col, row_index):
+        return [(col.data.to(torch.float64), col.validity, None),
+                (col.validity.to(torch.int64),
+                 torch.ones_like(col.validity), None)]
+
     def host_update(self, values):
         vs = [v for v in values if v is not None]
         if not vs:
@@ -454,6 +492,9 @@ class Min(AggFunction):
 
     def merge_global(self, bufs):
         return self._global(bufs[0])
+
+    def update_row(self, col, row_index):
+        return [(col.data, col.validity, col.lengths)]
 
     def host_update(self, values):
         vs = [v for v in values if v is not None]
@@ -577,6 +618,15 @@ class First(AggFunction):
                 (torch.where(ok, gidx, torch.full_like(gidx, self._bad)),
                  ok, None)]
 
+    def update_row(self, col, row_index):
+        eligible = col.validity if self.ignore_nulls \
+            else torch.ones_like(col.validity)
+        idx = torch.where(eligible, row_index.to(torch.int64),
+                          torch.full((), self._bad, dtype=torch.int64,
+                                     device=eligible.device))
+        return [(col.data, col.validity, col.lengths),
+                (idx, eligible, None)]
+
     def merge_global(self, bufs):
         vcol, icol = bufs
         cap = icol.validity.shape[0]
@@ -641,6 +691,10 @@ class HashAggregateExec(Exec):
     """
 
     _has_nans = True      # set from conf.hasNans in execute_device
+    # The planner's grouping-set path keeps the partial pass: its expand
+    # multiplies the rows, and the coarse levels reduce even where the
+    # finest does not.
+    allow_partial_skip = True
     # Max batches concatenated per merge step (bounds a consolidation's
     # transient device memory).
     _CONSOLIDATE_CHUNK = 12
@@ -874,6 +928,37 @@ class HashAggregateExec(Exec):
                                row_index=g.perm)
         return self._assemble(batch, g, bufs)
 
+    def _passthrough_batch(self, batch: DeviceBatch, offset: int = 0
+                           ) -> DeviceBatch:
+        """The partial skip: project each ROW into the buffer layout with
+        no grouping (an elementwise step, no sort: the measured reduction
+        said grouping here would not pay for itself). The batch keeps its
+        liveness; ``offset`` numbers the rows' arrival as
+        ``_update_batch`` does."""
+        work, ords = self._project_inputs(batch)
+        cap = work.capacity
+        live = work.row_mask()
+        row_index = torch.arange(cap, dtype=torch.int64,
+                                 device=live.device) + offset
+        out_cols = list(work.columns[:self._nkeys])
+        for spec, ord_ in zip(self.aggs, ords):
+            if ord_ is None:
+                col = SortedCol(torch.zeros(cap, dtype=torch.int64,
+                                            device=live.device), live)
+            else:
+                c = work.columns[ord_]
+                col = SortedCol(c.data, c.validity & live, c.lengths)
+            for buf, bt in zip(spec.fn.update_row(col, row_index),
+                               spec.fn.buffer_types):
+                out_cols.append(self._buf_column(buf, bt, live))
+        return DeviceBatch(tuple(out_cols), work.num_rows, sel=work.sel)
+
+    @property
+    def _rowskip_capable(self) -> bool:
+        return self._nkeys > 0 and all(
+            type(s.fn).update_row is not AggFunction.update_row
+            for s in self.aggs)
+
     # -- zero-key path --------------------------------------------------------
     @property
     def _global_ok(self) -> bool:
@@ -1012,17 +1097,41 @@ class HashAggregateExec(Exec):
                 child_iter,
                 effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS))),
                 int(ctx.conf.get(C.BATCH_SIZE_BYTES)))
+        # The adaptive partial skip (skipAggPassReductionRatio): the first
+        # partial batch's reduction, read in one sync, decides for the
+        # whole query (kept in the context); when grouping barely reduced
+        # it, later batches project their rows straight into the buffer
+        # layout and the final stage groups once.
+        skip_key = f"aggskip:{id(self):x}"
+        skip_ratio = float(ctx.conf.get(C.AGG_SKIP_PARTIAL_RATIO))
+        can_skip = (self.mode == "partial" and skip_ratio < 1.0
+                    and self.allow_partial_skip and self._rowskip_capable)
         offset = 0
         for batch in child_iter:
             if update_stage:
+                skipping = can_skip and ctx.cache.get(skip_key, False)
+                step = self._passthrough_batch if skipping \
+                    else self._update_batch
                 with timed(m):
-                    partial = kc.call(self._update_batch, batch, offset)
+                    # One partial a batch; one a half where the batch's
+                    # OOM is left unmet (split_on_oom).
+                    partials = list(split_on_oom(
+                        lambda b, off: kc.call(step, b, offset + off),
+                        batch))
+                if can_skip and skip_key not in ctx.cache:
+                    groups, live = torch.stack([
+                        sum(p.num_rows.to(torch.int64) for p in partials),
+                        batch.live_count().to(torch.int64)]).cpu().tolist()
+                    skip = groups >= skip_ratio * max(live, 1)
+                    ctx.cache[skip_key] = skip
+                    m.add("partialSkip", int(skip))
                 offset += batch.capacity
                 if self.mode == "partial":
-                    record_batch(m, partial)
-                    yield partial
+                    for partial in partials:
+                        record_batch(m, partial)
+                        yield partial
                     continue
-                pending.append(partial)
+                pending.extend(partials)
             else:
                 pending.append(batch)
         if self.mode == "partial":

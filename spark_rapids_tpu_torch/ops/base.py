@@ -10,8 +10,12 @@ it then downloads all result batches in one batched pass.
 
 Each query's ``ExecContext`` owns a spill catalog (``memory/stores.py``)
 that holds the exchanges' map-side pieces and the out-of-core operators'
-staged batches; ``collect`` sets it as the active catalog of the OOM
-ladder (``memory/oom.py``) and closes the context when it is done. The
+staged batches; ``run_batches`` sets it as the active catalog of the OOM
+ladder (``memory/oom.py``) and leaves the context open, so the planner's
+recovery ladder (``plan/planner.py``) can re-run a query on it with its
+still-materialized stage outputs; the owner of the context closes it
+(``PhysicalPlan`` when its ladder ends, a standalone ``collect`` when it
+is done). The
 funnels that pull child streams (``collect`` and the exchange's map side)
 go through ``Exec.execute_device_recovering``: an exhausted ladder there
 tries the operator's on-device degraded mode (``_grace_retry``) and
@@ -21,8 +25,14 @@ The same two funnels run their partition loop through the partition
 pipeline (``parallel/pipeline.py``): a subtree with a file scan below it
 (``host_prefetchable``) has its host half (``prefetch_host``: decode,
 stats pruning, wire encode and pack) run on host threads ahead of the
-ordered consumer, which makes every upload and launch. The watchdog and
-scheduler layers are not ported.
+ordered consumer, which makes every upload and launch. Before its
+partition loop a device collect re-plans shuffled joins from observed
+sizes (``parallel/replan.py``) and materializes independent stages at
+once (``parallel/pipeline.py`` ``prematerialize_stages``). With
+``spark.rapids.sql.watchdog.enabled`` each partition (and the partition
+count) runs under the execution watchdog (``Exec._watchdog_run``): an
+attempt past its deadline is killed and re-dispatched. The scheduler
+layer is not ported.
 
 Every ``timed`` interval is also a flight-recorder span
 (``monitoring/recorder.py``) and, while a torch profiler is recording,
@@ -121,8 +131,10 @@ class ExecContext:
     probe partitions; an exchange's map-side pieces, as spillable
     handles) and the query's spill catalog.
 
-    ``close`` (``collect`` calls it when it is done) runs the
-    ``on_close`` hooks (each exchange closes the pieces it kept), records
+    ``close`` (the context's owner calls it when the query ends: the
+    planner after its recovery ladder, a standalone ``Exec.collect``)
+    runs the ``on_close`` hooks (each exchange closes the pieces it
+    kept), records
     the catalog's leak report in ``last_leak_report`` (``[]``: the query
     freed all it registered) and its counters in ``last_spill_metrics``,
     and empties the cache but for the query's identity: ``trace_query``
@@ -259,6 +271,35 @@ class timed:
         return False
 
 
+class WatchdogTimeoutError(RuntimeError):
+    """Every watchdog attempt at a unit of work exceeded its deadline.
+    The message carries the DEADLINE_EXCEEDED marker, so the planner's
+    transient retry is the next rung of the recovery ladder."""
+
+    def __init__(self, op: str, label: str, timeout_ms: int,
+                 attempts: int):
+        super().__init__(
+            f"DEADLINE_EXCEEDED: watchdog killed {op} {label} on all "
+            f"{attempts} attempt(s) of {timeout_ms}ms "
+            "(spark.rapids.sql.watchdog.*)")
+        self.label = label
+
+
+@dataclasses.dataclass
+class _WatchdogParams:
+    timeout_ms: int
+    max_attempts: int
+
+
+def _watchdog_params(conf: TpuConf) -> Optional[_WatchdogParams]:
+    from spark_rapids_tpu_torch import config as C
+    if not bool(conf.get(C.WATCHDOG_ENABLED)):
+        return None
+    return _WatchdogParams(
+        timeout_ms=max(int(conf.get(C.WATCHDOG_TASK_TIMEOUT_MS)), 1),
+        max_attempts=max(int(conf.get(C.WATCHDOG_MAX_ATTEMPTS)), 1))
+
+
 class Exec:
     """A physical operator. ``schema`` is the output schema."""
 
@@ -288,7 +329,7 @@ class Exec:
         """True when this subtree has a separable host half worth
         prefetching: a file scan below, with no exchange between (an
         exchange pipelines its own map-side loop)."""
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         return any(c.host_prefetchable() for c in self.children
                    if not is_stage_boundary(c))
@@ -301,7 +342,7 @@ class Exec:
         consumer's ``execute_device`` pops them, so a prefetch that is
         never consumed costs CPU only, never rows. Recursion stops at
         exchanges: partition numbering changes there."""
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         for c in self.children:
             if not is_stage_boundary(c):
@@ -312,7 +353,7 @@ class Exec:
         took (a partition loop that stopped early or failed), so none
         stays pinned in the context. Reaches what ``prefetch_host``
         reaches."""
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         for c in self.children:
             if not is_stage_boundary(c):
@@ -354,6 +395,78 @@ class Exec:
         yield first
         yield from it
 
+    def _watchdog_run(self, ctx: ExecContext, wd: _WatchdogParams,
+                      label: str, fn):
+        """Run one unit of device work (a partition's stream, the
+        partition count, a stage's materialization) under the execution
+        watchdog: a deadline with bounded re-dispatch, the speculative
+        re-execution half of the fault story (Dean & Ghemawat, MapReduce,
+        OSDI 2004), scoped to a partition.
+
+        Attempts run one after another, each on its own
+        ``srt-watchdog-*`` thread carrying the query's catalog, recovery
+        sink, token and the attempt's cancel event, on the plan's device.
+        The first attempt to complete within its deadline wins; a killed
+        attempt's output is dropped whole (the work is pure batch ->
+        batch, so any winner gives the same rows). Kills are cooperative:
+        an injected stall, and a consumer waiting on a prefetch, unwind
+        on the cancel event; kernels the killed attempt already queued
+        still run, and its tensors are freed when its thread unwinds."""
+        from spark_rapids_tpu_torch import monitoring
+        from spark_rapids_tpu_torch.parallel.pipeline import device_scope
+        timeout_s = wd.timeout_ms / 1000.0
+        catalog = oom.get_active_catalog()
+        sink = faults.get_recovery_sink()
+        token = faults.get_query_token()
+        device = self.plan_device()
+        for attempt in range(wd.max_attempts):
+            cancel = threading.Event()
+            box: Dict[str, Any] = {}
+
+            def work():
+                # Thread-locals do not cross threads.
+                oom.set_active_catalog(catalog, sink)
+                faults.set_query_token(token)
+                faults.set_cancel_event(cancel)
+                try:
+                    with device_scope(device):
+                        box["out"] = fn()
+                except BaseException as e:
+                    box["err"] = e
+                finally:
+                    faults.set_cancel_event(None)
+                    faults.set_query_token(None)
+                    oom.set_active_catalog(None)
+
+            t = threading.Thread(
+                target=work, daemon=True,
+                name=f"srt-watchdog-{label}-a{attempt}")
+            t.start()
+            t.join(timeout_s)
+            if not t.is_alive():
+                err = box.get("err")
+                if err is not None:
+                    raise err
+                return box["out"]
+            cancel.set()
+            faults.record("watchdogKills")
+            ctx.metrics_for(self).add("watchdogKills", 1)
+            monitoring.instant("watchdog-kill", "recovery",
+                               args={"op": self.name, "label": label,
+                                     "attempt": attempt + 1})
+            _LOG.warning("watchdog: %s %s exceeded %dms (attempt %d/%d); "
+                         "killing and %s", self.name, label, wd.timeout_ms,
+                         attempt + 1, wd.max_attempts,
+                         "re-dispatching" if attempt + 1 < wd.max_attempts
+                         else "giving up")
+            # A cooperatively cancelled attempt unwinds at once, so the
+            # re-dispatch rarely overlaps the old thread.
+            t.join(0.2)
+            if attempt + 1 < wd.max_attempts:
+                faults.record("partitionRetries")
+        raise WatchdogTimeoutError(self.name, label, wd.timeout_ms,
+                                   wd.max_attempts)
+
     def plan_device(self):
         """The device this plan's source uploads to."""
         dev = getattr(self, "device", None)
@@ -378,13 +491,26 @@ class Exec:
     def collect_batches(self, ctx: Optional[ExecContext] = None,
                         device: bool = True) -> List[HostBatch]:
         """``collect`` as host batches (numpy columns), before the rows
-        are made. The query's catalog is the ladder's active catalog while
-        it runs (and its ``Recovery@query`` entry the recovery sink), and
-        the context is closed when it ends; a batch target degraded by an
-        earlier query's OOM ladder is restored first. The whole call is
-        the query's ``collect`` span, each partition a ``partition`` span
-        and the device engine's result copy a ``download`` span."""
+        are made: one standalone query, which restores a batch target
+        an earlier query's OOM ladder degraded, runs ``run_batches`` and
+        closes the context when it ends."""
         ctx = ctx or ExecContext()
+        oom.reset_degradation()
+        try:
+            return self.run_batches(ctx, device)
+        finally:
+            ctx.close()
+
+    def run_batches(self, ctx: ExecContext,
+                    device: bool = True) -> List[HostBatch]:
+        """One attempt at the query on ``ctx``, which stays open (its
+        owner closes it). The query's catalog is the ladder's active
+        catalog while it runs (and its ``Recovery@query`` entry the
+        recovery sink). On the device engine the runtime re-plan and the
+        concurrent stage pass run first, then the ordered partition loop
+        (under the watchdog when it is on), then one batched download.
+        The whole call is the query's ``collect`` span, each partition a
+        ``partition`` span and the result copy a ``download`` span."""
         # The engine the query's root runs on: exchanges coalesce their
         # partitions only under the device engine.
         ctx.cache.setdefault("engine", "device" if device else "host")
@@ -401,7 +527,6 @@ class Exec:
         monitoring.maybe_configure(ctx.conf)
         telemetry.maybe_configure(ctx.conf)
         native.maybe_configure(ctx.conf)
-        oom.reset_degradation()
         t0 = time.perf_counter()
         collect_span = monitoring.span(
             "collect", "query", level=monitoring.LEVEL_QUERY,
@@ -423,8 +548,27 @@ class Exec:
                         out.extend(self.execute_host(ctx, p))
                 return out
             from spark_rapids_tpu_torch.parallel import pipeline as PL
+            from spark_rapids_tpu_torch.parallel import replan as RP
+            # Runtime re-plan before the stage pass: build-side exchanges
+            # materialize now, observed sizes demote shuffled joins to
+            # broadcast, and the skipped probe exchanges are flagged so
+            # the stage pass does not shuffle them anyway.
+            RP.plan_adaptive(ctx, self)
+            # Independent stages (a join's two sides) materialize their
+            # exchange outputs at once before the ordered partition loop;
+            # a no-op when the pipeline is off or the plan has one stage.
+            PL.prematerialize_stages(ctx, self)
+            wd = _watchdog_params(ctx.conf)
             batches: List[DeviceBatch] = []
-            nparts = self.num_partitions(ctx)
+            if wd is None:
+                nparts = self.num_partitions(ctx)
+            else:
+                # The partition count can itself do device work (the
+                # coalescing exchange materializes to learn its sizes), so
+                # it runs under the watchdog too.
+                nparts = self._watchdog_run(
+                    ctx, wd, "partition-count",
+                    lambda: self.num_partitions(ctx))
             # consume() waits for p's host half, then returns the device
             # stream verbatim; the serial pipeline just streams.
             pipe = PL.open_pipeline(ctx, self, nparts)
@@ -436,9 +580,20 @@ class Exec:
                     with monitoring.span("partition", "device-compute",
                                          args={"partition": p,
                                                "op": self.name}):
-                        batches.extend(pipe.consume(
-                            p, lambda p=p: self.execute_device_recovering(
-                                ctx, p)))
+                        if wd is None:
+                            batches.extend(pipe.consume(
+                                p, lambda p=p:
+                                self.execute_device_recovering(ctx, p)))
+                        else:
+                            # The pipeline's wait for p's host half runs
+                            # inside the deadline: a stalled prefetch is
+                            # killed with its attempt.
+                            batches.extend(self._watchdog_run(
+                                ctx, wd, f"partition {p}",
+                                lambda p=p: pipe.consume(
+                                    p, lambda: list(
+                                        self.execute_device_recovering(
+                                            ctx, p)))))
             finally:
                 pipe.close()
             names = tuple(n for n, _ in self.schema)
@@ -450,7 +605,7 @@ class Exec:
             collect_span.__exit__(None, None, None)
             # Live telemetry of a device collect: one counter inc + one
             # histogram observe, and the spill catalog's tier occupancy
-            # and device high watermark, read before the context closes.
+            # and device high watermark.
             cat = ctx._catalog if device else None
             if device:
                 telemetry.inc("srt_collects")
@@ -467,7 +622,6 @@ class Exec:
                                     cat.device_budget)
                 telemetry.max_gauge("srt_device_watermark_bytes",
                                     cat.device_bytes)
-            ctx.close()
 
 
 class LeafExec(Exec):

@@ -280,7 +280,7 @@ class UnionExec(Exec):
         # holding an exchange is skipped whole: _locate's num_partitions
         # could otherwise materialize it (AQE sizing) on a prefetch
         # thread.
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
 
         def boundary_free(op):

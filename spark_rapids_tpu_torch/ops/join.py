@@ -52,10 +52,19 @@ at a time: a bucket's probe launches K3. An empty build bucket takes the
 empty-build semantics (anti keeps its probe rows, outer joins
 null-extend them). The grace path is also the OOM rung above an
 exhausted spill ladder (``_grace_retry``); a broadcast join has none. Every build and
-probe step is an OOM retry site (``memory/oom.py``).
+probe step is an OOM retry site (``memory/oom.py``); a probe step whose
+OOM the ladder leaves unmet splits its probe batch in half and probes
+each half (``split_on_oom``), so a nested join, which no grace rung
+reaches, recovers too.
 
-The port runs every step eagerly: the JAX package's kernel cache,
-runtime re-plan and jit/eager split have no counterpart here. Join types:
+A runtime re-plan (``parallel/replan.py``) may demote a shuffled join
+for one query: its ``num_partitions`` and ``execute_device`` then stream
+the broadcast delegate the re-plan built, over the materialized build
+exchange and the probe exchange's unshuffled child; its host half never
+sees a decision.
+
+The port runs every step eagerly: the JAX package's kernel cache and
+jit/eager split have no counterpart here. Join types:
 inner, left, right, full, semi (left semi), anti (left anti) and cross,
 each with an optional residual condition.
 
@@ -85,6 +94,7 @@ from spark_rapids_tpu_torch.columnar.host import (
 from spark_rapids_tpu_torch.columnar.rowmove import gather_rows
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference, Expression, as_device_column, as_host_column)
+from spark_rapids_tpu_torch.memory.oom import split_on_oom
 from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.ops import kernels, native
 from spark_rapids_tpu_torch.ops.base import (
@@ -410,9 +420,12 @@ class _JoinKernelMixin:
         if mr is not None and jt != "full":
             _maybe_build_dense(built)
         if built.table is not None:
+            def dense_step(pbatch, _offset):
+                return kc.call(self._dense_step, built, pbatch, probe_keys,
+                               build_is_right)
+
             for pbatch in probe_iter:
-                yield kc.call(self._dense_step, built, pbatch, probe_keys,
-                              build_is_right)
+                yield from split_on_oom(dense_step, pbatch)
             return
         fast = mr is not None and 0 < mr <= _FAST_PATH_MAX_RUN
 
@@ -429,10 +442,11 @@ class _JoinKernelMixin:
                                        build_is_right, probe_keys)
 
         for pbatch in probe_iter:
-            out, covered = kc.call(probe_step, pbatch)
-            if covered_acc is not None:
-                covered_acc = covered_acc | covered
-            yield out
+            for out, covered in split_on_oom(
+                    lambda b, _offset: kc.call(probe_step, b), pbatch):
+                if covered_acc is not None:
+                    covered_acc = covered_acc | covered
+                yield out
         if covered_acc is not None:
             yield self._null_extend_build(
                 built.batch, built.row_live, ~covered_acc,
@@ -574,19 +588,31 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
         return build_right, build[0], probe[0], build[1], probe[1]
 
     def num_partitions(self, ctx) -> int:
+        delegate = self._replan_delegate(ctx)
+        if delegate is not None:
+            return delegate.num_partitions(ctx)
         return self.children[0].num_partitions(ctx)
+
+    def _replan_delegate(self, ctx):
+        """The broadcast join a runtime re-plan put in this join's place
+        for this query (``parallel/replan.py``), or None. Decisions live
+        in the context: the cached plan and the host engine never see
+        them. ``BroadcastHashJoinExec`` overrides every method that asks,
+        so a delegate never consults itself."""
+        from spark_rapids_tpu_torch.parallel import replan as RP
+        return RP.demoted(ctx, self)
 
     def host_prefetchable(self) -> bool:
         # Only the probe side streams by this node's partition numbering;
         # a broadcast build materializes once, and prefetching it per
         # probe partition would re-encode the whole build table N times.
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         probe = self._sides()[2]
         return not is_stage_boundary(probe) and probe.host_prefetchable()
 
     def prefetch_host(self, ctx, partition):
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         probe = self._sides()[2]
         if not is_stage_boundary(probe):
@@ -613,6 +639,13 @@ class ShuffledHashJoinExec(Exec, _JoinKernelMixin):
         return built
 
     def execute_device(self, ctx, partition):
+        delegate = self._replan_delegate(ctx)
+        if delegate is not None:
+            # Demoted at run time: stream the broadcast subtree, whose
+            # build side reads the materialized exchange and whose probe
+            # side reads the probe exchange's child unshuffled.
+            yield from delegate.execute_device(ctx, partition)
+            return
         build_right, build_child, probe_child, build_keys, probe_keys = \
             self._sides()
         m = ctx.metrics_for(self)
@@ -802,13 +835,13 @@ class BroadcastNestedLoopJoinExec(Exec, _JoinKernelMixin):
     def host_prefetchable(self) -> bool:
         # The probe (left) side only: the build side is pulled whole for
         # every partition, not by this node's partition numbering.
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         return not is_stage_boundary(self.children[0]) and \
             self.children[0].host_prefetchable()
 
     def prefetch_host(self, ctx, partition):
-        from spark_rapids_tpu_torch.parallel.pipeline import \
+        from spark_rapids_tpu_torch.parallel.stages import \
             is_stage_boundary
         if not is_stage_boundary(self.children[0]):
             self.children[0].prefetch_host(ctx, partition)

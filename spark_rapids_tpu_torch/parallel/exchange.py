@@ -24,7 +24,10 @@ the catalog's device budget, whichever is smaller):
   orders the rows by destination and one gather a piece copies each
   piece's rows out of the batch. A piece owns its tensors (its dead
   rows zeroed), so spilling it frees its memory; a view of one sorted
-  batch would free nothing.
+  batch would free nothing. Where the OOM ladder leaves a step unmet,
+  the rest of the window goes batch by batch, a batch split in half
+  while it does not fit (``split_on_oom``, port-only): more pieces, the
+  same rows in the same order.
 
 A range exchange samples up to 64 rows of the first batch of each child
 partition, downloads and merges them and picks its bounds on the host
@@ -49,6 +52,24 @@ span, both ``shuffle``; ``exchange.flush`` (each map-side window) and
 ``exchange.serve`` (each served batch) are fault sites tagged with the
 exchange's id (``faults.py``).
 
+Stage hooks (``parallel/stages.py``): the exchange is a stage boundary.
+``stage_invalidate`` closes its kept pieces and forgets them (the next
+execution recomputes the stage from its parents' outputs);
+``stage_prematerialize`` runs the map side ahead of the partition loop
+(``parallel/pipeline.py``), unless a runtime re-plan flagged the exchange
+as a skipped probe side (``replan-skip:``); ``observed_total_bytes`` is
+the sum of the kept pieces' device bytes, which the runtime re-plan
+(``parallel/replan.py``) compares with ``autoBroadcastJoinThreshold``.
+The reference sums each piece's bytes at its split capacity, the largest
+count of its batch's pieces rounded up the capacity ladder, where the
+port gives each piece its own count's rung; so for the same input the
+port's sum is at most the reference's, equal where one destination takes
+every batch. A piece whose re-read fails its checksum
+(``WireCorruptionError`` from a disk frame) is tagged with the
+exchange's id, so the planner recomputes this stage.
+``BroadcastExchangeExec`` collects its child into one batch, kept as a
+spillable catalog handle, with the same hooks.
+
 The host half (``execute_host``) splits each host batch with
 ``split_host_batch`` and serves a partition's pieces as they are; under
 the device engine (a host-tagged exchange in a device-rooted plan) a
@@ -57,6 +78,7 @@ coalesced exchange's partition is its group's buckets, as on the device.
 
 from __future__ import annotations
 
+import traceback
 from typing import List, Optional
 
 import numpy as np
@@ -64,16 +86,17 @@ import torch
 
 from spark_rapids_tpu_torch import config as C, faults
 from spark_rapids_tpu_torch.columnar.batch import (
-    DeviceBatch, DeviceColumn, bucket_capacity, concat_batches, sample_rows,
-    shrink_all, shrink_to_capacity)
+    MIN_SHRINK_BYTES, DeviceBatch, DeviceColumn, bucket_capacity,
+    concat_batches, sample_rows, shrink_all, shrink_to_capacity)
+from spark_rapids_tpu_torch.columnar.wire import WireCorruptionError
 from spark_rapids_tpu_torch.columnar.host import (
-    HostBatch, HostColumn, device_to_host)
+    HostBatch, HostColumn, concat_host_batches, device_to_host)
 from spark_rapids_tpu_torch.exprs.base import BoundReference, as_host_column
 from spark_rapids_tpu_torch.memory.oom import (
-    effective_batch_target, retry_on_oom)
+    effective_batch_target, is_unmet_oom, retry_on_oom, split_on_oom)
 from spark_rapids_tpu_torch.ops import kernel_cache as kc
 from spark_rapids_tpu_torch.memory.stores import (
-    PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
+    PRIORITY_BROADCAST, PRIORITY_SHUFFLE_OUTPUT, SpillableBatch)
 from spark_rapids_tpu_torch.ops import native
 from spark_rapids_tpu_torch.ops.base import Exec, Schema, record_batch, timed
 from spark_rapids_tpu_torch.ops.sort import SortOrder
@@ -204,6 +227,18 @@ class ShuffleExchangeExec(Exec):
                                      device=b.device))
         return pids, torch.bincount(key, minlength=n + 1)[:n]
 
+    def _window_counts(self, window: List[DeviceBatch]):
+        """(batch, pids, counts) of each batch of a window, and every
+        batch's counts pulled to the host in one copy."""
+        metas = [(b,) + self._pids_counts(b) for b in window]
+        pulled = torch.stack([c for _, _, c in metas]).cpu().tolist()
+        return metas, pulled
+
+    def _shrunk(self, b: DeviceBatch, capacity: int):
+        """``b`` shrunk to ``capacity`` rows, and its partition ids."""
+        small = shrink_to_capacity(b, capacity)
+        return small, self._pids_counts(small)[0]
+
     def _split(self, b: DeviceBatch, pids: torch.Tensor,
                counts: List[int]) -> List[Optional[DeviceBatch]]:
         """One pid-stable sort (K1), then each non-empty piece gathered
@@ -273,6 +308,25 @@ class ShuffleExchangeExec(Exec):
             buckets[p].append(SpillableBatch(ctx.catalog, piece,
                                              PRIORITY_SHUFFLE_OUTPUT))
 
+        def flush_counted(batch: DeviceBatch, pids, counts: List[int]):
+            total = sum(counts)
+            if total == 0:
+                return
+            # Mostly-dead batches shrink to their live bucket first, so
+            # the split moves live rows, not capacity.
+            small = bucket_capacity(total)
+            if small < batch.capacity:
+                batch, pids = retry_on_oom(self._shrunk, batch, small)
+            with timed(m, "splitTime"):
+                pieces = kc.call(self._split, batch, pids, counts)
+            for p, piece in enumerate(pieces):
+                if piece is not None:
+                    keep(p, piece)
+
+        def flush_one(batch: DeviceBatch, _offset: int):
+            metas, pulled = retry_on_oom(self._window_counts, [batch])
+            flush_counted(batch, metas[0][1], pulled[0])
+
         def flush_window(window: List[DeviceBatch]):
             faults.fault_point("exchange.flush", owner=id(self))
             if n == 1:
@@ -282,23 +336,27 @@ class ShuffleExchangeExec(Exec):
                         piece.rows_hint = cnt
                         keep(0, piece)
                 return
-            metas = [(b,) + self._pids_counts(b) for b in window]
-            pulled = torch.stack([c for _, _, c in metas]).cpu().tolist()
-            for (batch, pids, _), counts in zip(metas, pulled):
-                total = sum(counts)
-                if total == 0:
-                    continue
-                # Mostly-dead batches shrink to their live bucket first,
-                # so the split moves live rows, not capacity.
-                small = bucket_capacity(total)
-                if small < batch.capacity:
-                    batch = shrink_to_capacity(batch, small)
-                    pids, _ = self._pids_counts(batch)
-                with timed(m, "splitTime"):
-                    pieces = kc.call(self._split, batch, pids, counts)
-                for p, piece in enumerate(pieces):
-                    if piece is not None:
-                        keep(p, piece)
+            # Every device step of the map side runs under the OOM ladder.
+            # Where it leaves an OOM unmet, the rest of the window goes
+            # batch by batch, each split in half while it does not fit
+            # (split_on_oom); a batch keeps its pieces only once all are
+            # cut, so none is kept twice.
+            rest = window
+            try:
+                metas, pulled = retry_on_oom(self._window_counts, window)
+                for i, ((batch, pids, _), counts) in enumerate(
+                        zip(metas, pulled)):
+                    rest = window[i:]
+                    flush_counted(batch, pids, counts)
+                rest = []
+            except Exception as e:
+                if not is_unmet_oom(e):
+                    raise
+                traceback.clear_frames(e.__traceback__)
+            metas = batch = pids = None
+            for b in rest:
+                for _ in split_on_oom(flush_one, b):
+                    pass
 
         child = self.children[0]
         max_window_bytes = max(min(int(ctx.conf.get(C.BATCH_SIZE_BYTES)),
@@ -402,19 +460,26 @@ class ShuffleExchangeExec(Exec):
             span = monitoring.span("exchange-serve", "shuffle",
                                    args={"partition": partition,
                                          "shards": len(group)})
-            if len(group) == 1:
+            single = len(group) == 1
+            try:
                 try:
-                    with span:
-                        out = group[0].get()
-                    record_batch(m, out)
-                    yield out
-                finally:
+                    if single:
+                        with span:
+                            out = group[0].get()
+                    else:
+                        with span, timed(m, "concatTime"):
+                            out = retry_on_oom(concat, group)
+                except WireCorruptionError as err:
+                    # A kept piece failed its checksum even after the
+                    # re-read: the data at rest is gone. Tag the loss with
+                    # this exchange, so the planner recomputes this stage.
+                    err.fault_owner = id(self)
+                    raise
+                record_batch(m, out)
+                yield out
+            finally:
+                if single:
                     group[0].release(PRIORITY_SHUFFLE_OUTPUT)
-                return
-            with span, timed(m, "concatTime"):
-                out = retry_on_oom(concat, group)
-            record_batch(m, out)
-            yield out
 
         group: List[SpillableBatch] = []
         group_cap = 0
@@ -437,3 +502,120 @@ class ShuffleExchangeExec(Exec):
         groups = self._groups(ctx)
         for b in (groups[partition] if groups is not None else [partition]):
             yield from buckets[b]
+
+    # -- runtime re-plan and stage hooks ----------------------------------------
+    def observed_total_bytes(self, ctx) -> int:
+        """Materialize the map side (once a context) and return the device
+        bytes of every piece it kept: what the runtime re-plan
+        (``parallel/replan.py``) compares with the broadcast threshold."""
+        buckets = self._materialize_device(ctx)
+        return sum(sb.size_bytes for bucket in buckets for sb in bucket)
+
+    def stage_prematerialize(self, ctx) -> None:
+        """Materialize this stage's output now (idempotent against the
+        context cache), the hook the concurrent stage pass calls. A probe
+        side whose join the runtime re-plan demoted to a broadcast is
+        never shuffled: the demoted join reads its child unshuffled."""
+        if ctx.cache.get(f"replan-skip:{id(self):x}"):
+            return
+        if ctx.cache.get("engine") == "device":
+            self._materialize_device(ctx)
+
+    def stage_invalidate(self, ctx) -> None:
+        """Drop this exchange's stage output: close the kept pieces and
+        forget them, the coalesced groups and the host buckets, so the
+        next execution recomputes the stage from its parents'
+        still-materialized outputs. The ``on_close`` release finds
+        nothing left to close."""
+        self.release(ctx)
+        ctx.cache.pop(self._cache_key(False), None)
+
+
+class BroadcastExchangeExec(Exec):
+    """Collect the whole child into one batch shared by every consumer
+    (GpuBroadcastExchangeExec). The single is a durable stage output: a
+    spillable catalog handle at ``PRIORITY_BROADCAST``, re-acquired from
+    whatever tier it sits on. The port's planner plans broadcast joins
+    without it (the join collects its build side itself), as the
+    reference's does."""
+
+    def __init__(self, child: Exec):
+        super().__init__(child)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def num_partitions(self, ctx) -> int:
+        return 1
+
+    def _cache_key(self, device: bool) -> str:
+        return f"broadcast:{id(self):x}:{'dev' if device else 'host'}"
+
+    def collect_single_device(self, ctx) -> DeviceBatch:
+        key = self._cache_key(True)
+        handle = ctx.cache.get(key)
+        if handle is not None:
+            batch = handle.get()
+            handle.release(PRIORITY_BROADCAST)
+            return batch
+        from spark_rapids_tpu_torch import monitoring
+        from spark_rapids_tpu_torch.parallel import pipeline as PL
+        child = self.children[0]
+        nchild = child.num_partitions(ctx)
+        pipe = PL.open_pipeline(ctx, child, nchild)
+        batches: List[DeviceBatch] = []
+        try:
+            with monitoring.span("broadcast-collect", "shuffle",
+                                 args={"partitions": nchild}):
+                for cp in range(nchild):
+                    batches.extend(pipe.consume(
+                        cp, lambda cp=cp:
+                        child.execute_device_recovering(ctx, cp)))
+        finally:
+            pipe.close()
+        if not batches:
+            raise ValueError("broadcast of empty child needs a schema batch")
+        # One batched sizes pull shrinks the large members to their live
+        # rows; small ones keep their capacity (the join's kernels take
+        # selection vectors).
+        batches, _ = retry_on_oom(shrink_all, batches, MIN_SHRINK_BYTES)
+        total = sum(b.capacity for b in batches)
+        single = batches[0] if len(batches) == 1 else \
+            retry_on_oom(concat_batches, batches, bucket_capacity(total))
+        ctx.cache[key] = SpillableBatch(ctx.catalog, single,
+                                        PRIORITY_BROADCAST)
+        ctx.on_close.append(lambda: self.stage_invalidate(ctx))
+        return single
+
+    def collect_single_host(self, ctx) -> HostBatch:
+        key = self._cache_key(False)
+        if key in ctx.cache:
+            return ctx.cache[key]
+        hbs = []
+        for cp in range(self.children[0].num_partitions(ctx)):
+            hbs.extend(self.children[0].execute_host(ctx, cp))
+        if not hbs:
+            raise ValueError("broadcast of empty child")
+        merged = concat_host_batches(hbs)
+        ctx.cache[key] = merged
+        return merged
+
+    def stage_prematerialize(self, ctx) -> None:
+        """Build the broadcast single now (idempotent), so sibling stages
+        materialize concurrently (``parallel/pipeline.py``)."""
+        if ctx.cache.get("engine") == "device":
+            self.collect_single_device(ctx)
+
+    def stage_invalidate(self, ctx) -> None:
+        """Drop the broadcast's stage output, device and host copies."""
+        dev = ctx.cache.pop(self._cache_key(True), None)
+        ctx.cache.pop(self._cache_key(False), None)
+        if dev is not None:
+            dev.close()
+
+    def execute_device(self, ctx, partition):
+        yield self.collect_single_device(ctx)
+
+    def execute_host(self, ctx, partition):
+        yield self.collect_single_host(ctx)

@@ -71,15 +71,22 @@
   fusible device operators into a ``FusedStageExec`` (``plan/fusion.py``).
 - ``PhysicalPlan.explain`` renders the will/will-not-run report
   (RapidsMeta.explain:291) and the fused stages; ``collect`` runs the root
-  on its engine, with a plan-cache binding vector installed in every
-  context it makes (the reference's scheduler, QoS, transient retry,
-  re-plan and fault layers are not ported).
+  on its engine through the recovery ladder (stage recompute, transient
+  retry on the same context, whole-query retry on a fresh one;
+  ``PhysicalPlan._execute``), with a plan-cache binding vector installed
+  in every context it makes, and closes the context at the end (the
+  reference's scheduler, QoS and preemption layers are not ported).
+- A shuffled hash join keeps its planning-time build estimate
+  (``est_build_bytes``) for the runtime re-plan's error metric; a
+  grouping-set plan's partial aggregate never skips its grouping
+  (``allow_partial_skip``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 import time
 from typing import List, Optional, Tuple
 
@@ -110,6 +117,8 @@ from spark_rapids_tpu_torch.plan.logical import (
     Column, LogicalPlan, NotPortedError, ResolutionError, resolve)
 from spark_rapids_tpu_torch.plan.pruning import (
     estimate_bytes, prune_columns, pushdown_filters, refs_of)
+
+_LOG = logging.getLogger("spark_rapids_tpu_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -558,22 +567,51 @@ class PhysicalPlan:
         """Run the root's partitions on the root's engine and return the
         rows (downloaded once, when the root is on the device).
         ``bindings`` is a bound plan's ``(values, dtypes)``."""
-        return self._execute(ctx, bindings, self.root.collect)
+        rows: List[tuple] = []
+        for hb in self._execute(ctx, bindings):
+            rows.extend(hb.to_pylist())
+        return rows
 
     def collect_batches(self, ctx: Optional[ExecContext] = None,
                         bindings=None) -> list:
         """``collect`` as host batches (numpy columns)."""
-        return self._execute(ctx, bindings, self.root.collect_batches)
+        return self._execute(ctx, bindings)
 
-    def _execute(self, ctx: Optional[ExecContext], bindings, run):
+    def _execute(self, ctx: Optional[ExecContext], bindings) -> list:
         """One query: adopt the trace and telemetry configuration, give an
         owned top-level collect (no caller context, no token on this
-        thread) its query token, arm the fault schedule once, run, and at
-        the end count ``srt_queries`` / ``srt_query_latency_ms``, append
-        the event-log record and keep the context as ``last_ctx`` (its
-        metrics survive for ``DataFrame.metrics()``). A nested collect
-        rides the token already on its thread."""
+        thread) its query token, arm the fault schedule and restore the
+        batch target once, run the recovery ladder, and at the end count
+        ``srt_queries`` / ``srt_query_latency_ms``, append the event-log
+        record, keep the context as ``last_ctx`` (its metrics survive for
+        ``DataFrame.metrics()``) and close it. A nested collect rides the
+        token already on its thread.
+
+        The recovery ladder (the reference's ``PhysicalPlan.collect``),
+        smallest scope first, on owned contexts only (a caller's context
+        runs once: it may hold state the caller still needs):
+
+        1. stage recompute: a failure attributable to one stage's lost
+           output (a ``lostoutput`` injection, a kept piece that fails
+           its checksum twice) invalidates that stage and re-runs on the
+           SAME context, where every sibling stage serves its
+           materialization; at most ``recovery.maxStageRecomputes``;
+        2. the first transient error (``memory/oom.py``
+           ``is_transient_error``) retries on the same context too, when
+           the plan has a stage graph;
+        3. a later transient error retries the whole query on a fresh
+           context, with its bindings and ``trace_query`` installed again,
+           at most ``retry.transientMaxRetries`` retries in all, each
+           after ``backoff_delay_ms`` seeded by ``test.faults.seed``.
+
+        Each retry counts ``retriesAttempted`` in ``Recovery@query``. A
+        non-transient error is never retried. There is no preemption
+        rung and no host-fallback rung."""
         from spark_rapids_tpu_torch import faults, monitoring
+        from spark_rapids_tpu_torch.memory.oom import (
+            backoff_delay_ms, is_transient_error, reset_degradation)
+        from spark_rapids_tpu_torch.ops.base import query_metrics_entry
+        from spark_rapids_tpu_torch.parallel import stages as S
         owned = ctx is None
         monitoring.maybe_configure(self.conf)
         monitoring.telemetry.maybe_configure(self.conf)
@@ -588,13 +626,72 @@ class PhysicalPlan:
         tok = token or faults.get_query_token()
         trace_qid = tok.query_id if tok is not None else 0
         ctx.cache["trace_query"] = trace_qid
-        # Armed once per query: a repeated collect runs against the
-        # remaining schedule.
+        # Armed once per query, not per attempt: a retried attempt runs
+        # against the remaining schedule. The batch target a previous
+        # query's OOM ladder degraded is restored once, too: an attempt
+        # keeps the shrink an earlier attempt's ladder made.
         faults.maybe_configure(self.conf)
+        reset_degradation()
+        max_retries = max(int(self.conf.get(C.RETRY_TRANSIENT_MAX)), 0)
+        base_ms = int(self.conf.get(C.RETRY_BACKOFF_MS))
+        max_ms = int(self.conf.get(C.RETRY_MAX_BACKOFF_MS))
+        seed = int(self.conf.get(C.TEST_FAULTS_SEED))
+        graph = None
+        if owned and bool(self.conf.get(C.STAGE_RECOVERY_ENABLED)):
+            graph = S.build_stage_graph(self.root)
+        stage_budget = max(
+            int(self.conf.get(C.RECOVERY_MAX_STAGE_RECOMPUTES)), 0)
+        stage_recomputes = 0
+        same_ctx_retry_used = False
+        attempt = 0
         t0 = time.perf_counter()
         status, err_text = "ok", None
         try:
-            return run(ctx, device=self.root_on_device)
+            while True:
+                try:
+                    return self.root.run_batches(
+                        ctx, device=self.root_on_device)
+                except Exception as e:
+                    if not owned:
+                        raise
+                    # Rung 1: lineage-scoped stage recompute.
+                    st = S.stage_for_error(graph, e)
+                    if st is not None and stage_recomputes < stage_budget:
+                        S.invalidate_stage(ctx, st)
+                        S.record_recompute(ctx, st)
+                        stage_recomputes += 1
+                        _LOG.warning(
+                            "lost stage output (%s, recompute %d/%d); "
+                            "recomputing only that stage: %s", st.name,
+                            stage_recomputes, stage_budget, e)
+                        continue
+                    if not is_transient_error(e) or attempt >= max_retries:
+                        raise
+                    delay_ms = backoff_delay_ms(attempt, base_ms, max_ms,
+                                                seed)
+                    faults.record("retriesAttempted")
+                    if graph is not None and not same_ctx_retry_used:
+                        # Rung 2: retry on the same context; completed
+                        # stages serve their outputs.
+                        same_ctx_retry_used = True
+                        _LOG.warning(
+                            "transient error (attempt %d/%d), retrying on "
+                            "the same context in %.0f ms: %s", attempt + 1,
+                            max_retries, delay_ms, e)
+                        time.sleep(delay_ms / 1000.0)
+                    else:
+                        # Rung 3: the whole query on a fresh context.
+                        _LOG.warning(
+                            "transient error (attempt %d/%d), retrying the "
+                            "query on a fresh context in %.0f ms: %s",
+                            attempt + 1, max_retries, delay_ms, e)
+                        time.sleep(delay_ms / 1000.0)
+                        ctx.close()
+                        ctx = self._context(None, bindings)
+                        ctx.cache["trace_query"] = trace_qid
+                    query_metrics_entry(ctx, "Recovery").add(
+                        "retriesAttempted", 1)
+                    attempt += 1
         except BaseException as e:
             status, err_text = "error", f"{type(e).__name__}: {e}"
             raise
@@ -611,6 +708,7 @@ class PhysicalPlan:
                 qos_class=None, tenant=None, duration_ms=dur_ms,
                 error=err_text)
             self.last_ctx = ctx
+            ctx.close()
 
     def host_fallback_nodes(self) -> List[str]:
         """The logical nodes tagged for the host engine, in tree order."""
@@ -967,7 +1065,8 @@ class Planner:
                 continue
             ref = BoundReference(nk + i, s.fn.child.data_type())
             ex_aggs.append(AggSpec(s.name, type(s.fn)(ref)))
-        final = self._two_stage(ex_group, ex_aggs, expand, want_dev)
+        final = self._two_stage(ex_group, ex_aggs, expand, want_dev,
+                                allow_partial_skip=False)
         # Drop the grouping id from the output.
         out = [(n, BoundReference(i, e.data_type()))
                for i, (n, e) in enumerate(ex_group[:nk])]
@@ -975,11 +1074,15 @@ class Planner:
                 for i, s in enumerate(ex_aggs)]
         return ProjectExec(final, out)
 
-    def _two_stage(self, group_by, aggs, child: Exec,
-                   want_dev: bool) -> Exec:
+    def _two_stage(self, group_by, aggs, child: Exec, want_dev: bool,
+                   allow_partial_skip: bool = True) -> Exec:
         """partial -> exchange (hash on the keys, or a single partition
-        for a zero-key aggregate) -> final."""
+        for a zero-key aggregate) -> final. Grouping-set plans keep the
+        partial pass unconditionally: the expand multiplies the rows
+        N-fold, and the coarse levels reduce massively even where the
+        finest does not, so skipping would shuffle the whole expansion."""
         partial = HashAggregateExec(child, group_by, aggs, mode="partial")
+        partial.allow_partial_skip = allow_partial_skip
         final_groups = [
             (n, BoundReference(i, e.data_type()))
             for i, (n, e) in enumerate(group_by)]
@@ -1050,9 +1153,13 @@ class Planner:
             return BroadcastHashJoinExec(lch, rch, lkeys, rkeys,
                                          plan.join_type, cond)
         n = self._shuffle_partitions()
-        return ShuffledHashJoinExec(self._hash_exchange(lch, lkeys, n),
-                                    self._hash_exchange(rch, rkeys, n),
-                                    lkeys, rkeys, plan.join_type, cond)
+        shj = ShuffledHashJoinExec(self._hash_exchange(lch, lkeys, n),
+                                   self._hash_exchange(rch, rkeys, n),
+                                   lkeys, rkeys, plan.join_type, cond)
+        # The planning-time build estimate, for the runtime re-plan's
+        # estimate-against-observed error (parallel/replan.py).
+        shj.est_build_bytes = est
+        return shj
 
 
 def _orders(orders, schema) -> List[SortOrder]:

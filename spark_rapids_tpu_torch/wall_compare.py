@@ -60,6 +60,18 @@ default conf and cannot run this mode.
 ``--partitions N`` (with ``--dataframe``) plans every DataFrame at
 ``spark.rapids.sql.shuffle.partitions=N``; the hand-built trees keep
 their own layout and are left out, so only the DataFrame path is timed.
+``--set KEY=VALUE`` (repeatable, the value read as JSON where it parses)
+adds a conf entry to every DataFrame's session.
+
+With ``--dataframe --toggle KEY[=A,B]`` the two paths are one session
+with ``KEY`` at A and one with it at B (true and false when no values
+are given; values read as JSON; both sessions with ``variableFloatAgg``
+on), timed the same way in turns; their rows must agree, floats to rtol
+1e-9, as with ``--default-conf``. For example, the concurrent stage pass
+against the lazy one (one stage at a time): ``--toggle
+spark.rapids.sql.pipeline.maxConcurrentStages=2,1 --queries q3
+--partitions 8 --set spark.rapids.sql.autoBroadcastJoinThreshold=-1
+--runs 10``.
 """
 
 from __future__ import annotations
@@ -214,9 +226,38 @@ def main() -> int:
     ap.add_argument("--partitions", type=int, default=None,
                     help="with --dataframe: spark.rapids.sql.shuffle."
                     "partitions of every DataFrame")
+    ap.add_argument("--toggle", default=None, metavar="KEY[=A,B]",
+                    help="with --dataframe: a conf key timed at A against "
+                    "B in turns (true against false by default)")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="with --dataframe: a conf entry of every session")
     args = ap.parse_args()
     if args.default_conf and not args.dataframe:
         ap.error("--default-conf goes with --dataframe")
+    if (args.toggle or args.set) and not args.dataframe:
+        ap.error("--toggle and --set go with --dataframe")
+    if args.toggle and args.default_conf:
+        ap.error("--toggle and --default-conf exclude each other")
+    def value(text):
+        try:
+            return json.loads(text)
+        except ValueError:
+            return text
+
+    toggle = None
+    if args.toggle:
+        key, sep, pair = args.toggle.partition("=")
+        vals = [value(v) for v in pair.split(",")] if sep else [True, False]
+        if len(vals) != 2:
+            ap.error(f"--toggle {args.toggle!r}: want KEY or KEY=A,B")
+        toggle = (key, tuple(vals))
+    extra = {}
+    for item in args.set:
+        key, sep, value_text = item.partition("=")
+        if not sep:
+            ap.error(f"--set {item!r}: want KEY=VALUE")
+        extra[key] = value(value_text)
     if args.partitions is not None and not args.dataframe:
         ap.error("--partitions goes with --dataframe")
     queries = tuple(args.queries.split(","))
@@ -254,7 +295,7 @@ def main() -> int:
         print(f"{label}: kernels built in {build_s:.2f} s, SF1 data in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         _dataframe_walls(label, entry, cols, args.runs, args.default_conf,
-                         queries, args.partitions)
+                         queries, args.partitions, toggle, extra)
         _print_device()
         return 0
     plans = {"q1": entry.tpch_q1_plan(
@@ -353,17 +394,25 @@ def _ordered(df) -> bool:
 def _dataframe_walls(label: str, entry, cols: dict, runs: int,
                      default_conf: bool = False,
                      queries=DATAFRAME_QUERIES,
-                     partitions=None) -> None:
+                     partitions=None, toggle=None, extra=None) -> None:
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
-    layout = {} if partitions is None else {
-        "spark.rapids.sql.shuffle.partitions": partitions}
-    session = TpuSession(dict(
-        layout, **{"spark.rapids.sql.variableFloatAgg.enabled": True}))
+    layout = dict(extra or {})
+    if partitions is not None:
+        layout["spark.rapids.sql.shuffle.partitions"] = partitions
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    if toggle:
+        key, (val_a, val_b) = toggle
+    session = TpuSession(dict(layout, **vfa, **(
+        {key: val_a} if toggle else {})))
     funcs, tables = _query_tables(session, cols, queries)
     if default_conf:
         dsession = TpuSession(layout)
         _f, dtables = _query_tables(dsession, cols, queries)
+    elif toggle:
+        dsession = TpuSession(dict(layout, **vfa, **{key: val_b}))
+        _f, dtables = _query_tables(dsession, cols, queries)
+    compare = "close" if default_conf or toggle else "equal"
     hand = {"q1": lambda: entry.tpch_q1_plan(entry.table_partitions(
         cols["lineitem"], entry.Q1_SCHEMA, entry.TABLE_PARTITIONS[
             "lineitem"]), device="cuda")}
@@ -384,11 +433,15 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
         plan_ms = (time.perf_counter() - t0) * 1e3
         paths = {"dataframe": df.collect}
         ordered = _ordered(df)
-        if default_conf:
+        if default_conf or toggle:
             ddf = funcs[q](dsession, dtables[q])
             ddf._physical()
-            paths = {"default_conf": ddf.collect, **paths}
-        elif q in hand and partitions is None:
+            if toggle:
+                paths = {f"{key}={json.dumps(val_a)}": df.collect,
+                         f"{key}={json.dumps(val_b)}": ddf.collect}
+            else:
+                paths = {"default_conf": ddf.collect, **paths}
+        elif q in hand and partitions is None and not extra:
             paths = {"hand": hand[q]().collect, **paths}
         first, warm, want = {}, {p: [] for p in paths}, None
         for p, collect in paths.items():
@@ -397,7 +450,7 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
                 rows = sorted(rows)
             if want is None:
                 want = rows
-            elif not (_rows_close(rows, want) if default_conf
+            elif not (_rows_close(rows, want) if compare == "close"
                       else rows == want):
                 raise AssertionError(f"{q}: {p} rows differ")
         order = list(paths)
@@ -405,8 +458,8 @@ def _dataframe_walls(label: str, entry, cols: dict, runs: int,
             for p in (order if r % 2 == 0 else order[::-1]):
                 warm[p].append(run(paths[p])[0])
         print(json.dumps({"tree": label, "query": q, "plan_ms": plan_ms,
-                          "partitions": partitions, "first_s": first,
-                          "warm_s": warm}), flush=True)
+                          "partitions": partitions, "conf": extra or {},
+                          "first_s": first, "warm_s": warm}), flush=True)
 
 
 def _print_device() -> None:

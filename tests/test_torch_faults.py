@@ -7,21 +7,23 @@ package's.
   bad specs raise); the same schedule and seed fire on the same hits and
   flip the same byte; the injected OOM routes into the port's ladder.
 - TPC-H q1, q3 and q6 (the reference's ``tpch.generate`` at scale 0.003,
-  3 files a table, seed 7) under the ``oom`` schedule and the port's
-  ``corrupt`` schedule (the reference's without its
-  ``transient@exchange.serve`` entry: the transient retry is not ported)
-  give their fault-free rows bit for bit, with ``faultsInjected`` in
-  ``Recovery@query``. With a device budget that puts spill frames on
-  disk, one flipped frame is detected and re-read (``corruptionsDetected``
-  1, rows bit for bit); two flips of the same frame (its read and its
-  re-read) fail loudly, as the reference does without its stage
-  recompute.
+  3 files a table, seed 7) under the reference's three schedules
+  (``oom``, ``transient``, ``corrupt``) give their fault-free rows bit
+  for bit, with ``faultsInjected`` in ``Recovery@query`` (a query the
+  transient schedule retried on a fresh context holds that attempt's
+  counts, and ``retriesAttempted``). With a device budget that puts spill
+  frames on disk, one flipped frame is detected and re-read
+  (``corruptionsDetected`` 1, rows bit for bit); two flips of the same
+  frame (its read and its re-read) recompute the exchange's stage with
+  the defaults, and fail loudly with stage recompute and the transient
+  retry off.
 - ``/query=N`` arming fires only in the query with that minted id (or
   that ``queryTag``); ids increase by one per owned top-level collect.
 - The plan cache is bypassed while a schedule is armed.
 - A ``scan`` fault raised on a pipeline prefetch thread or a MULTITHREADED
-  reader thread re-raises out of ``collect``, filed under the query's
-  ring (the token crossed the thread).
+  reader thread re-raises out of ``collect`` with the transient retry off,
+  filed under the query's ring (the token crossed the thread); with the
+  defaults the retry recovers the query.
 
 Tolerance: everything exact (rows compared with ``==``, floats by value).
 Each test disarms the port's registry and restores its counters.
@@ -47,8 +49,14 @@ VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
 QUERIES = ("q1", "q3", "q6")
 SCHEDULES = {
     "oom": "oom@upload:1,oom@kernel:1,oom@concat:1",
-    "corrupt": "corrupt@wire:2,oom@upload:1",
+    "transient": ("transient@exchange.flush:1,transient@download:1,"
+                  "oom@kernel:1"),
+    "corrupt": "corrupt@wire:2,oom@upload:1,transient@exchange.serve:1",
 }
+# Stage recompute and the transient retry off: the error reaches the
+# caller.
+NO_RECOVERY = {"spark.rapids.sql.recovery.stageRecompute.enabled": False,
+               "spark.rapids.sql.retry.transientMaxRetries": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -84,6 +92,7 @@ def _session(chaos: str = "", spill_dir: str = "",
     conf = dict(VFA)
     conf["spark.rapids.sql.test.faults"] = chaos
     conf["spark.rapids.sql.test.faults.seed"] = 7
+    conf["spark.rapids.sql.retry.backoffMs"] = 1
     if chaos:
         # The reference chaos session's pressure: small spill tiers, no
         # device scan cache (the upload funnel runs every query).
@@ -261,8 +270,15 @@ def test_tpch_bit_identical_under_faults(q, schedule, baselines, data_dir,
     assert c.get("faultsInjected", 0) > 0, c
     assert got == baselines[q]
     rec = df.metrics()["Recovery@query"]
-    assert rec["faultsInjected"] == c["faultsInjected"]
-    assert rec["spillEscalations"] >= 1
+    assert c.get("spillEscalations", 0) >= 1, c
+    if c.get("retriesAttempted", 0) > rec.get("retriesAttempted", 0):
+        # A retry on a fresh context: its Recovery@query holds the last
+        # attempt's counts.
+        assert rec["retriesAttempted"] >= 1
+        assert rec.get("faultsInjected", 0) <= c["faultsInjected"]
+    else:
+        assert rec["faultsInjected"] == c["faultsInjected"]
+        assert rec["spillEscalations"] >= 1
 
 
 def test_disk_frame_corruption_recovered(baselines, data_dir, tmp_path):
@@ -283,13 +299,29 @@ def test_disk_frame_corruption_recovered(baselines, data_dir, tmp_path):
 
 def test_disk_frame_corrupted_twice_fails_loudly(data_dir, tmp_path):
     """``corrupt@wire:2`` flips the first frame's read AND its re-read:
-    the port raises (the reference recovers that by stage recompute,
-    which is not ported) rather than decode wrong bytes."""
+    with stage recompute and the transient retry off the query raises
+    rather than decode wrong bytes."""
+    df = tpch.QUERIES["q1"](_session(
+        "corrupt@wire:2", str(tmp_path), device_budget=2048,
+        host_budget=0, **NO_RECOVERY), data_dir)
+    with pytest.raises(WireCorruptionError):
+        df.collect()
+
+
+def test_disk_frame_corrupted_twice_recomputes_stage(baselines, data_dir,
+                                                     tmp_path):
+    """With the defaults the twice-flipped frame's exchange, which tagged
+    the failed read with its id, recomputes its stage once: rows bit for
+    bit, no leak."""
     df = tpch.QUERIES["q1"](_session(
         "corrupt@wire:2", str(tmp_path), device_budget=2048,
         host_budget=0), data_dir)
-    with pytest.raises(WireCorruptionError):
-        df.collect()
+    assert df.collect() == baselines["q1"]
+    rec = df.metrics()["Recovery@query"]
+    assert rec["corruptionsDetected"] == 2
+    assert rec["stageRecomputes"] == 1
+    assert faults.counters()["stageRecomputes"] == 1
+    assert df._physical().last_ctx.last_leak_report == []
 
 
 # ---------------------------------------------------------------------------
@@ -353,11 +385,12 @@ def test_scan_fault_on_helper_thread_reraises_in_query(reader, data_dir,
                                                        tmp_path):
     """``transient@scan`` fires where a unit decodes: on a pipeline
     prefetch thread (PERFILE, three files) or a reader-pool thread
-    (MULTITHREADED, pipeline off). It propagates out of ``collect`` (the
-    transient retry is not ported), and its instant lands in the query's
+    (MULTITHREADED, pipeline off). With the transient retry off it
+    propagates out of ``collect``, and its instant lands in the query's
     own ring: the token crossed the thread."""
     over = {"spark.rapids.sql.trace.enabled": True,
-            "spark.rapids.sql.format.parquet.reader.type": reader}
+            "spark.rapids.sql.format.parquet.reader.type": reader,
+            "spark.rapids.sql.retry.transientMaxRetries": 0}
     if reader == "MULTITHREADED":
         over["spark.rapids.sql.pipeline.enabled"] = False
     df = tpch.QUERIES["q6"](_session("transient@scan:1", str(tmp_path),
@@ -372,3 +405,20 @@ def test_scan_fault_on_helper_thread_reraises_in_query(reader, data_dir,
     names = monitoring.thread_names()
     assert names[inst[0][5]].startswith(
         "srt-prefetch" if reader == "PERFILE" else "srt-scan-read")
+
+
+@pytest.mark.parametrize("reader", ["PERFILE", "MULTITHREADED"])
+def test_scan_fault_on_helper_thread_retried(reader, baselines, data_dir,
+                                             tmp_path):
+    """With the defaults the same fault is retried (the reference's
+    ``test_prefetch_fault_reraised_at_consumption``): the query gives its
+    fault-free rows and counts one retry."""
+    over = {"spark.rapids.sql.format.parquet.reader.type": reader}
+    if reader == "MULTITHREADED":
+        over["spark.rapids.sql.pipeline.enabled"] = False
+    df = tpch.QUERIES["q6"](_session("transient@scan:1", str(tmp_path),
+                                     **over), data_dir)
+    assert df.collect() == baselines["q6"]
+    c = faults.counters()
+    assert c["faultsInjected"] == 1 and c["retriesAttempted"] == 1
+    assert df.metrics()["Recovery@query"]["retriesAttempted"] == 1

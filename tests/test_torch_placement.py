@@ -48,8 +48,11 @@ from harness import assert_rows_equal
 from test_torch_logical import (  # noqa: F401  (small_tables: a fixture)
     QUERIES, jax_query, small_tables)
 
-# Reference layers the port has not ported, off for the comparison (stage
-# fusion, ported with the plan cache, stays on in both).
+# Reference layers off for the comparison: cost-based placement (not
+# ported), and the stage pipeline, which on the reference's side
+# prematerializes the host-side exchange of a mixed plan on the device,
+# where it fails (the port's materializes device regions only). Stage
+# fusion, ported with the plan cache, stays on in both.
 REF_OFF = {"spark.rapids.sql.cost.enabled": False,
            "spark.rapids.sql.pipeline.enabled": False}
 

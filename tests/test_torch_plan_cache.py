@@ -55,7 +55,6 @@ VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
 OFF = {"spark.rapids.sql.planCache.enabled": False}
 # The reference's layers the port has not ported, off for the comparison.
 REF = dict(VFA, **{"spark.rapids.sql.cost.enabled": False,
-                   "spark.rapids.sql.pipeline.enabled": False,
                    "spark.rapids.sql.shuffle.partitions": 1})
 
 

@@ -59,11 +59,9 @@ from test_torch_logical import (  # noqa: F401  (small_tables: a fixture)
 VFA = "spark.rapids.sql.variableFloatAgg.enabled"
 
 
-# The reference's layers the port has not ported: cost-based placement,
-# and the stage pipeline (which would prematerialize a host-side
-# exchange of a mixed plan on the device).
-REF_OFF = {"spark.rapids.sql.cost.enabled": False,
-           "spark.rapids.sql.pipeline.enabled": False}
+# The reference's layer the port has not ported: cost-based placement.
+# Both packages run their stage pipeline.
+REF_OFF = {"spark.rapids.sql.cost.enabled": False}
 
 
 def _confs(raw: dict):

@@ -13,7 +13,11 @@
   halves by value), and the port's host half gives them in the
   reference's order (floats bit for bit); for a full outer join with a
   residual at four partitions the reference's device half is run too
-  (its runtime re-plan off) and matched partition by partition.
+  (its runtime re-plan off) and matched partition by partition. These
+  run the port's re-plan off; with it on (the default) every join but
+  the full outer one demotes to a broadcast join at four partitions in
+  both packages, and the port's rows equal the reference's demoted
+  device rows.
 - The nested-loop join, for cross and for a condition under every join
   type, with an empty build side, against the reference the same way.
 - The build rows a full outer join emits unmatched carry a NULL probe
@@ -38,6 +42,7 @@ from spark_rapids_tpu.ops import join as jjoin
 from spark_rapids_tpu.parallel import exchange as jex
 from spark_rapids_tpu.parallel import partitioning as jpart
 
+from spark_rapids_tpu_torch import config as TC
 from spark_rapids_tpu_torch import exprs as TE
 from spark_rapids_tpu_torch import ops as TO
 from spark_rapids_tpu_torch.columnar import dtypes as tdt
@@ -49,6 +54,7 @@ from spark_rapids_tpu_torch.parallel import partitioning as tpart
 from test_torch_join import LEFT, PATH_KEYS, RIGHT, _join_case
 
 JOINS = ["inner", "left", "right", "full", "semi", "anti"]
+NO_REPLAN = {"spark.rapids.sql.aqe.replan.enabled": False}
 PATHS = ("synced", "dense", "string", "float")
 
 
@@ -117,7 +123,9 @@ def _check(jplan, tplan):
     want = jplan.collect(device=False)
     got_host = tplan.collect(device=False)
     assert _norm(got_host) == _norm(want)
-    got = tplan.collect()
+    # The shuffled join itself: the runtime re-plan, which may demote it
+    # to a broadcast join, is off (test_demoted_join_matches_reference).
+    got = tplan.collect(TO.ExecContext(TC.TpuConf(NO_REPLAN)))
     assert _multiset(got) == _multiset(want)
     return got
 
@@ -149,6 +157,31 @@ def test_shuffled_join_matches_reference(join_type, path, n):
                  _port_shuffled(case, join_type, False, n))
     if join_type in ("inner", "semi", "full"):
         assert got, "the case must produce matches"
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("join_type", [j for j in JOINS if j != "full"])
+def test_demoted_join_matches_reference(join_type, path):
+    """At four partitions with the runtime re-plan on (the default) the
+    small build side demotes the join to a broadcast join in both
+    packages; the port's rows equal the reference's demoted device rows
+    as a multiset. Over float keys they differ from the shuffled join's:
+    -0.0 and 0.0 hash to different partitions there, so only the
+    broadcast join pairs them (both packages)."""
+    case = _without_subnormals(
+        _case(path, seed=len(path) + JOINS.index(join_type)))
+    jplan = _jax_shuffled(case, join_type, False, 4)
+    tplan = _port_shuffled(case, join_type, False, 4)
+    jctx = jbase.ExecContext(JC.TpuConf({}))
+    want = jplan.collect(jctx, device=True)
+    tctx = TO.ExecContext()
+    got = tplan.run_batches(tctx)
+    got = [r for hb in got for r in hb.to_pylist()]
+    assert tctx.metrics["Cost@query"].values["joinDemotions"] == 1
+    assert jctx.metrics["Cost@query"].values["joinDemotions"] == 1
+    tctx.close()
+    jctx.close()
+    assert _multiset(got) == _multiset(want)
 
 
 @pytest.mark.parametrize("n", (1, 4))

@@ -54,7 +54,6 @@ from spark_rapids_tpu_torch.plan import plan_cache as pc
 
 VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
 REF = dict(VFA, **{"spark.rapids.sql.cost.enabled": False,
-                   "spark.rapids.sql.pipeline.enabled": False,
                    "spark.rapids.sql.shuffle.partitions": 1})
 
 

@@ -57,7 +57,6 @@ from spark_rapids_tpu_torch.plan import plan_cache as pc
 VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
 # The reference's layers the port has not ported, off for the comparison.
 REF = dict(VFA, **{"spark.rapids.sql.cost.enabled": False,
-                   "spark.rapids.sql.pipeline.enabled": False,
                    "spark.rapids.sql.shuffle.partitions": 1})
 QUERIES = ("q1", "q3", "q6")
 SCHEDULES = {
