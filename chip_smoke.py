@@ -417,7 +417,8 @@ once a run and shared by the phases that check the query.
    its numpy oracle): (a) q1, q2, q3 and q4 traced at ``operator`` level
    (plans of their own) beside an untraced run of phase 11's: rows bit
    for bit and K1-K4 launches equal, every span closed and inside the
-   query's one ``collect`` span, every event under its minted id; each
+   query's one ``collect`` span (but the scheduler's admission wait,
+   which ends before it), every event under its minted id; each
    query's span-category ms; q3's ``trace_export`` written and loaded
    back; ``explain_analyze`` of q1 and q3; q1's ``metrics()`` at
    ESSENTIAL, MODERATE and ALL; (b) q1 warm with tracing off, at
@@ -473,13 +474,50 @@ once a run and shared by the phases that check the query.
    grouping; each partial's decision, K1 launches and walls. The
    schedule and the trace are off after the phase; its time is
    printed.
+26. The multi-query scheduler, QoS admission and the device semaphore
+   (runs after phase 25, over phase 11's tables, phase 11's and 16's
+   oracles, under ``variableFloatAgg``; every run against its oracle,
+   none leaking): (a) q1, q3, q4 and q6 once each in turn, then from
+   four threads at once at ``concurrentTpuTasks`` 2 and
+   ``maxConcurrentQueries`` 2, then 4, with the trace on at query level:
+   rows against the oracles, the most permit holders at once at most 2
+   (counted by the semaphore and sampled every millisecond), one
+   ``tpu-semaphore-acquire`` span (category ``queued``) a query with its
+   ms, K1, K3 and K4 launched in each turn, the serial and concurrent
+   walls; at 4 slots at least 3 queries admitted at once, so the permits
+   and not admission bound the card; (b) q3
+   through ``submit()`` under ``stall@kernel`` (its query tag only) and
+   ``cancel()`` once it stalls: ``QueryCancelledError``; q6 through
+   ``collect(timeout_ms=300)`` under the same stall: "deadline
+   exceeded"; for both an empty leak report and, once the caller drops
+   the error and its frames, ``torch.cuda.memory_allocated()`` back at
+   its level before the query; (c) ``queueDepth`` 0 with the one run
+   slot held: ``QueryRejectedError`` (``queue-full``) with a
+   ``retry_after_ms`` hint, then ``collect_with_retry`` with the slot
+   freed 0.3 s later: q6's rows, ``clientRetries`` >= 1; (d) QoS and
+   preemption on, the device semaphore made anew at one permit: a
+   background q18 at 8 partitions holding it, an interactive q6
+   collected meanwhile: q18 yields at a partition boundary (the scenario
+   again, up to three times, where timing gave no window), resumes on
+   its context with ``preemptions`` and ``resumedStages`` >= 1, its rows
+   equal bit for bit to its solo run and both against their oracles;
+   (e) q18 at 8 partitions stalled at ``exchange.serve`` for 2 s (then
+   retried on its context) with its exchange pieces in its catalog, and q6
+   meanwhile under an injected OOM at ``upload`` (both schedules scoped
+   by query tag): q6's ladder reaches ``evict-neighbors``, which spills
+   q18's pieces (``crossQueryEvictions`` >= 1, the catalog bytes and
+   what the caching allocator's count of allocated bytes fell by, which
+   must be above 0), and both queries return their oracle rows. The
+   semaphore is made anew at the default two permits after (d), the
+   schedule disarmed after the phase; its time is printed.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
    nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
    phase 21's eight (four without pandas), phase 22's sixteen, phase
-   23's fifteen, phase 24's twenty-three and phase 25's thirty-one), its
+   23's fifteen, phase 24's twenty-three, phase 25's thirty-one and
+   phase 26's runs), its
    error against the plain version, its time, the
    plain version's, its bound, one PyTorch call's time for the same
    function (K1: the whole sort at 786 432 rows against ``torch.sort``;
@@ -5916,7 +5954,8 @@ def _rebound(session, tables: dict) -> dict:
 
 def _span_check(monitoring, qid: int, evs: list, label: str) -> None:
     """Every span closed, one ``collect`` span holding every span of the
-    query, every event under the query's minted id."""
+    query but the admission wait, which ends before it, every event
+    under the query's minted id."""
     if monitoring.open_span_count() != 0:
         raise AssertionError(f"{label}: {monitoring.open_span_count()} "
                              f"unclosed span(s)")
@@ -5928,7 +5967,11 @@ def _span_check(monitoring, qid: int, evs: list, label: str) -> None:
     if len(collects) != 1:
         raise AssertionError(f"{label}: {len(collects)} collect spans")
     c0, c1 = collects[0][3], collects[0][3] + collects[0][4]
-    outside = [e[1] for e in spans if e[3] < c0 or e[3] + e[4] > c1]
+    # The scheduler's admission wait precedes the collect it admits.
+    outside = [e[1] for e in spans if e[1] != "admission-queue"
+               and (e[3] < c0 or e[3] + e[4] > c1)]
+    outside += [e[1] for e in spans if e[1] == "admission-queue"
+                and e[3] + e[4] > c0]
     if outside:
         raise AssertionError(f"{label}: spans outside the collect span: "
                              f"{outside[:5]}")
@@ -6644,6 +6687,437 @@ def adaptive_phase(native, cols: dict, df_out: dict, ex_out: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the multi-query scheduler, QoS admission and the device
+# semaphore
+# ---------------------------------------------------------------------------
+
+SCHED_QUERIES = ("q1", "q3", "q4", "q6")
+# Query tags of the phase's fault schedules (distinct from minted ids).
+TAG_CANCEL, TAG_DEADLINE, TAG_HOLDER, TAG_OOM = 9001, 9002, 9101, 9102
+STALL_FOUND_S = 30.0
+# (e): how long the holder's injected stall lasts (it then unwinds as a
+# transient error, retried on the same context), and how long after the
+# stall begins the OOM query starts (the holder's other stage threads
+# settle).
+EVICT_STALL_S = 2.0
+EVICT_SETTLE_S = 0.3
+
+
+def _reset_semaphore(stores) -> None:
+    """Drop the process-wide device semaphore: the next collect makes it
+    anew at its conf's ``concurrentTpuTasks`` (it is sized once)."""
+    with stores._GLOBAL_SEM_LOCK:
+        stores._GLOBAL_SEM = None
+
+
+def _cuda_tensor_census() -> dict:
+    """(shape, dtype) -> count of the CUDA tensors the garbage collector
+    can reach (a diagnostic of what holds device memory)."""
+    import gc
+    import torch
+    out: dict = {}
+    for o in gc.get_objects():
+        try:
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                k = (tuple(o.shape), str(o.dtype))
+                out[k] = out.get(k, 0) + 1
+        except Exception:
+            continue
+    return out
+
+
+def _settled_allocated() -> int:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def scheduler_phase(native, df_out: dict, ex_out: dict, smi: str) -> dict:
+    """Phase 26 (runs after phase 25, over phase 11's tables; oracles of
+    phases 11 and 16): (a) concurrency under the semaphore, (b) cancel
+    and deadline, (c) shedding and retries, (d) preemption, (e)
+    cross-query eviction. See the module doc."""
+    import threading
+    import traceback
+    import torch
+    from spark_rapids_tpu_torch import faults, monitoring
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.memory import oom, stores
+    from spark_rapids_tpu_torch.parallel import scheduler as SC
+    t_phase = time.perf_counter()
+    tables = df_out["tables"]
+    oracles = dict(df_out["oracles"])
+    oracles["q18"] = ex_out["oracles"]["q18"]
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+    out = {"runs": []}
+    stall_default = faults.STALL_TIMEOUT_S
+
+    def frame(conf, q):
+        session = TpuSession(conf)
+        return tpch.QUERIES[q](session, _rebound(session, tables[q]))
+
+    def checked(df, q, rows):
+        check, want = oracles[q]
+        check(rows, want)
+        ctx = df._physical().last_ctx
+        if ctx.last_leak_report:
+            raise AssertionError(f"phase 26 {q}: leaked "
+                                 f"{ctx.last_leak_report}")
+        return ctx
+
+    def join_all(threads, label, timeout=120):
+        for t in threads:
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError(f"phase 26 {label}: a query thread "
+                                     f"still runs after {timeout} s")
+
+    try:
+        # (a) Concurrency at maxConcurrentQueries 2, concurrentTpuTasks 2.
+        conf = dict(vfa, **{"spark.rapids.sql.trace.enabled": True,
+                            "spark.rapids.sql.trace.level": "query"})
+        frames = {q: frame(conf, q) for q in SCHED_QUERIES}
+        sem = stores.get_tpu_semaphore(2)
+        if sem.permits != 2:
+            raise AssertionError(f"(a) the device semaphore has "
+                                 f"{sem.permits} permits, not 2")
+        serial = {}
+        native.reset_counters()
+        t0 = time.perf_counter()
+        for q in SCHED_QUERIES:
+            t1 = time.perf_counter()
+            rows = frames[q].collect()
+            torch.cuda.synchronize()
+            serial[q] = time.perf_counter() - t1
+            checked(frames[q], q, rows)
+        serial_wall = time.perf_counter() - t0
+        out["runs"].append(native.counters())
+
+        def concurrent_turn(slots, frames):
+            """The four queries from four threads at once at ``slots``
+            admission slots and the semaphore's 2 permits: rows against
+            the oracles, one ``queued`` acquire span a query, the most
+            permit holders and admitted queries at once (a thread samples
+            both every millisecond), K1, K3 and K4 launched."""
+            mgr = SC.get_query_manager(frames[SCHED_QUERIES[0]]._session.conf)
+            if mgr.max_concurrent != slots:
+                raise AssertionError(f"(a) the query manager has "
+                                     f"{mgr.max_concurrent} slots, not "
+                                     f"{slots}")
+            SC.reset_counters()
+            monitoring.reset()
+            sem.reset_peak()
+            native.reset_counters()
+            results, errors = {}, {}
+            barrier = threading.Barrier(len(SCHED_QUERIES), timeout=60)
+            stop = threading.Event()
+            peak = {"admitted": 0, "holders": 0}
+
+            def run(q):
+                try:
+                    barrier.wait()
+                    results[q] = frames[q].collect()
+                except BaseException as e:
+                    errors[q] = e
+
+            def sample():
+                while not stop.wait(0.001):
+                    peak["admitted"] = max(peak["admitted"],
+                                           mgr.active_count)
+                    peak["holders"] = max(peak["holders"], sem.in_use)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            threads = [threading.Thread(target=run, args=(q,), daemon=True)
+                       for q in SCHED_QUERIES]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            try:
+                join_all(threads, "(a)")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                stop.set()
+                join_all([sampler], "(a) sampler", timeout=5)
+            launches = native.counters()
+            out["runs"].append(launches)
+            if errors:
+                raise AssertionError(f"(a) concurrent collects at {slots} "
+                                     f"slots failed: {errors}")
+            queued = {}
+            for q in SCHED_QUERIES:
+                ctx = checked(frames[q], q, results[q])
+                qid = ctx.cache["trace_query"]
+                spans = [e for e in monitoring.events(qid)
+                         if e[0] == "X" and e[1] == "tpu-semaphore-acquire"]
+                if len(spans) != 1 or spans[0][2] != "queued":
+                    raise AssertionError(f"(a) {q}: semaphore spans {spans}")
+                queued[q] = spans[0][4] / 1e6
+            if not 1 <= sem.max_in_use <= 2 or peak["holders"] > 2:
+                raise AssertionError(f"(a) {sem.max_in_use} permit holders "
+                                     f"at once (sampled {peak['holders']}) "
+                                     f"against 2 permits at {slots} slots")
+            missing = [k for k in ("radix_sort", "join_probe", "rle_decode")
+                       if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"(a) no launch of {missing} in the "
+                                     f"concurrent run at {slots} slots: "
+                                     f"{launches}")
+            sched = SC.counters()
+            turn = dict(wall=wall, max_in_use=sem.max_in_use,
+                        sampled_admitted=peak["admitted"],
+                        sampled_holders=peak["holders"], queued_ms=queued,
+                        admission_queued_ms=sched.get("queuedMs", 0),
+                        launches=launches)
+            log(f"phase 26 (a) {', '.join(SCHED_QUERIES)} from 4 threads "
+                f"at maxConcurrentQueries {slots}, concurrentTpuTasks 2: "
+                f"rows match; concurrent wall {wall:.4f} s; most permit "
+                f"holders at once {sem.max_in_use}; sampled at once: "
+                f"admitted {peak['admitted']}, permit holders "
+                f"{peak['holders']}; semaphore queued ms "
+                f"{ {q: round(v, 3) for q, v in queued.items()} }; "
+                f"admission queued ms {sched.get('queuedMs', 0):.3f}; "
+                f"launches {launches}; {smi}")
+            return turn
+
+        at2 = concurrent_turn(2, frames)
+        # At 4 admission slots, admission no longer keeps the queries on
+        # the card to 2: the semaphore's permits are what bounds them.
+        conf4 = dict(conf, **{
+            "spark.rapids.sql.scheduler.maxConcurrentQueries": 4})
+        at4 = concurrent_turn(4, {q: frame(conf4, q) for q in SCHED_QUERIES})
+        if at4["sampled_admitted"] < 3:
+            raise AssertionError(
+                f"(a) at 4 slots at most {at4['sampled_admitted']} queries "
+                f"were admitted at once: the permits were not contended")
+        out["concurrency"] = dict(serial=serial, serial_wall=serial_wall,
+                                  concurrent_wall=at2["wall"], at2=at2,
+                                  at4=at4)
+        log(f"phase 26 (a) serial walls "
+            f"{ {q: round(w, 4) for q, w in serial.items()} } (sum "
+            f"{serial_wall:.4f} s); concurrent walls {at2['wall']:.4f} s "
+            f"at 2 slots, {at4['wall']:.4f} s at 4 slots; {smi}")
+        monitoring.configure(False)
+        monitoring.reset()
+
+        # (b) Cancel and deadline on a stalled query.
+        def stalled(q, tag):
+            return frame(dict(vfa, **{
+                "spark.rapids.sql.test.faults": f"stall@kernel/query={tag}:1",
+                "spark.rapids.sql.test.faults.seed": 7,
+                "spark.rapids.sql.test.faults.queryTag": tag}), q)
+
+        def back_to(base, label, census):
+            got = _settled_allocated()
+            if got != base:
+                after = _cuda_tensor_census()
+                new = {k: v for k, v in after.items()
+                       if v > census.get(k, 0)}
+                raise AssertionError(f"(b) {label}: {got} B allocated "
+                                     f"against {base} B before the query; "
+                                     f"tensors now alive beyond those "
+                                     f"before (shape, dtype): {new}")
+            return got
+
+        mgr = SC.get_query_manager(frames["q3"]._session.conf)
+        frames["q3"].collect()              # warm: the rows' plan is made
+        base = _settled_allocated()
+        census = _cuda_tensor_census()
+        faults.configure("")
+        faults.reset_counters()
+        df = stalled("q3", TAG_CANCEL)
+        handle = df.submit()
+        deadline = time.monotonic() + STALL_FOUND_S
+        while not faults.counters().get("faultsInjected.stall@kernel") \
+                and time.monotonic() < deadline and not handle.done():
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        handle.cancel()
+        try:
+            handle.result(60)
+            raise AssertionError("(b) the cancelled q3 returned rows")
+        except faults.QueryCancelledError:
+            cancel_s = time.perf_counter() - t0
+        ctx = df._physical().last_ctx
+        if ctx.last_leak_report != [] or \
+                ctx.metrics["Scheduler@query"].values.get("cancelled") != 1:
+            raise AssertionError(f"(b) cancel: leak {ctx.last_leak_report},"
+                                 f" {ctx.metrics['Scheduler@query']}")
+        # The handle's error holds the unwound frames (and their tensors)
+        # until the caller drops it; the plan goes with the DataFrame.
+        del handle, df, ctx
+        back_to(base, "cancel", census)
+        faults.configure("")
+        df = stalled("q6", TAG_DEADLINE)
+        t0 = time.perf_counter()
+        try:
+            df.collect(timeout_ms=300)
+            raise AssertionError("(b) the deadlined q6 returned rows")
+        except faults.QueryCancelledError as e:
+            if "deadline exceeded" not in str(e):
+                raise
+            deadline_s = time.perf_counter() - t0
+            traceback.clear_frames(e.__traceback__)
+        ctx = df._physical().last_ctx
+        if ctx.last_leak_report != [] or mgr.active_count:
+            raise AssertionError(f"(b) deadline: leak "
+                                 f"{ctx.last_leak_report}")
+        del df, ctx
+        back_to(base, "deadline", census)
+        faults.configure("")
+        out["cancel"] = dict(cancel_s=cancel_s, deadline_s=deadline_s,
+                             allocated=base)
+        log(f"phase 26 (b) q3 cancelled mid-stall: QueryCancelledError "
+            f"{cancel_s:.3f} s after cancel(); q6 under timeout_ms=300: "
+            f"deadline exceeded after {deadline_s:.3f} s; leak reports "
+            f"[], {base} B allocated before and after each; {smi}")
+
+        # (c) Shedding and retries.
+        shed_conf = dict(vfa, **{
+            "spark.rapids.sql.scheduler.maxConcurrentQueries": 1,
+            "spark.rapids.sql.scheduler.queueDepth": 0})
+        df = frame(shed_conf, "q6")
+        mgr = SC.get_query_manager(df._session.conf)
+        if (mgr.max_concurrent, mgr.queue_depth) != (1, 0):
+            raise AssertionError("(c) the manager was not resized")
+        SC.reset_counters()
+        hog = mgr.admit()
+        try:
+            df.collect()
+            raise AssertionError("(c) a collect was admitted past a full "
+                                 "queue")
+        except SC.QueryRejectedError as e:
+            if e.kind != "queue-full" or not e.retry_after_ms:
+                raise
+            hint = e.retry_after_ms
+        timer = threading.Timer(0.3, mgr.finish, args=(hog,))
+        timer.start()
+        t0 = time.perf_counter()
+        rows = df.collect_with_retry()
+        retry_s = time.perf_counter() - t0
+        timer.join(10)
+        checked(df, "q6", rows)
+        retries = SC.counters().get("clientRetries", 0)
+        if retries < 1:
+            raise AssertionError("(c) collect_with_retry never retried")
+        out["shed"] = dict(hint_ms=hint, retries=retries, wall=retry_s)
+        log(f"phase 26 (c) queueDepth 0, the slot held: QueryRejectedError "
+            f"queue-full, retry_after_ms {hint}; collect_with_retry "
+            f"finished in {retry_s:.3f} s after {retries:.0f} retries, "
+            f"rows match; {smi}")
+
+        # (d) Preemption: a background q18 at 8 partitions, an interactive
+        # q6, the semaphore at one permit.
+        qos = dict(vfa, **{
+            "spark.rapids.sql.shuffle.partitions": ADAPTIVE_PARTITIONS,
+            "spark.rapids.sql.scheduler.qos.enabled": True,
+            "spark.rapids.sql.scheduler.preemption.enabled": True,
+            "spark.rapids.sql.concurrentTpuTasks": 1})
+        _reset_semaphore(stores)
+        solo = frame(qos, "q18")
+        solo_rows = solo.collect()
+        checked(solo, "q18", solo_rows)
+        sem = stores.get_tpu_semaphore(1)
+        pre = None
+        for attempt in range(3):
+            SC.reset_counters()
+            bg = frame(qos, "q18")
+            handle = bg.submit(priority="background")
+            deadline = time.monotonic() + 30
+            while not sem.holders and not handle.done() \
+                    and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            fg = frame(qos, "q6")
+            t0 = time.perf_counter()
+            fg_rows = fg.collect(priority="interactive")
+            fg_s = time.perf_counter() - t0
+            bg_rows = handle.result(120)
+            checked(fg, "q6", fg_rows)
+            ctx = checked(bg, "q18", bg_rows)
+            m = dict(ctx.metrics["Scheduler@query"].values)
+            if m.get("preemptions", 0) >= 1:
+                pre = dict(attempt=attempt + 1, metrics=m, fg_s=fg_s,
+                           requests=sem.preempt_requests)
+                break
+        if pre is None:
+            raise AssertionError("(d) no preemption in 3 attempts")
+        if pre["metrics"].get("resumedStages", 0) < 1:
+            raise AssertionError(f"(d) resumed no stage: {pre}")
+        if bg_rows != solo_rows:
+            raise AssertionError("(d) the preempted q18's rows differ from "
+                                 "its solo run's")
+        out["preempt"] = pre
+        log(f"phase 26 (d) background q18 at {ADAPTIVE_PARTITIONS} "
+            f"partitions preempted by an interactive q6 (attempt "
+            f"{pre['attempt']}): Scheduler@query "
+            f"{ {k: round(v, 3) for k, v in pre['metrics'].items()} }; "
+            f"q6 {fg_s:.4f} s; rows bit for bit the solo run's; {smi}")
+        _reset_semaphore(stores)
+
+        # (e) Cross-query eviction: q18 stalled holding its pieces, q6
+        # under an injected OOM.
+        spec = (f"stall@exchange.serve/query={TAG_HOLDER}:1,"
+                f"oom@upload/query={TAG_OOM}:2")
+        chaos = dict(vfa, **{"spark.rapids.sql.test.faults": spec,
+                             "spark.rapids.sql.test.faults.seed": 7})
+        holder = frame(dict(chaos, **{
+            "spark.rapids.sql.shuffle.partitions": ADAPTIVE_PARTITIONS,
+            "spark.rapids.sql.test.faults.queryTag": TAG_HOLDER}), "q18")
+        victim_of_oom = frame(dict(chaos, **{
+            "spark.rapids.sql.test.faults.queryTag": TAG_OOM}), "q6")
+        faults.configure("")
+        faults.reset_counters()
+        SC.reset_counters()
+        faults.STALL_TIMEOUT_S = EVICT_STALL_S
+        handle = holder.submit()
+        deadline = time.monotonic() + STALL_FOUND_S
+        while not faults.counters().get(
+                "faultsInjected.stall@exchange.serve") \
+                and time.monotonic() < deadline and not handle.done():
+            time.sleep(0.002)
+        time.sleep(EVICT_SETTLE_S)
+        t0 = time.perf_counter()
+        rows = victim_of_oom.collect()
+        oom_s = time.perf_counter() - t0
+        ladder = list(oom.last_ladder)
+        checked(victim_of_oom, "q6", rows)
+        held = handle.result(120)
+        faults.STALL_TIMEOUT_S = stall_default
+        hctx = checked(holder, "q18", held)
+        c = SC.counters()
+        ev = dict(evictions=c.get("crossQueryEvictions", 0),
+                  catalog_bytes=c.get("crossQueryEvictedBytes", 0),
+                  allocator_bytes=c.get("crossQueryAllocatorBytes", 0),
+                  ladder=ladder, oom_s=oom_s,
+                  holder_recovery=dict(
+                      hctx.metrics["Recovery@query"].values))
+        if ev["evictions"] < 1 or "evict-neighbors" not in ladder \
+                or ev["allocator_bytes"] <= 0:
+            raise AssertionError(f"(e) no eviction freed the card: {ev}")
+        out["evict"] = ev
+        log(f"phase 26 (e) q18 at {ADAPTIVE_PARTITIONS} partitions stalled "
+            f"at exchange.serve, q6 under oom@upload: q6's ladder "
+            f"{ladder}, {oom_s:.3f} s; crossQueryEvictions "
+            f"{ev['evictions']:.0f}, {ev['catalog_bytes']:.0f} catalog B, "
+            f"allocated bytes fell by {ev['allocator_bytes']:.0f} B; q18 "
+            f"Recovery@query {ev['holder_recovery']}; both match their "
+            f"oracles; {smi}")
+    finally:
+        faults.configure("")
+        faults.STALL_TIMEOUT_S = stall_default
+        monitoring.configure(False)
+        monitoring.reset()
+        _reset_semaphore(stores)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 26 took {out['seconds']:.1f} s; {smi}")
+    return out
+
+
 _T_START = [time.perf_counter()]
 
 
@@ -6927,6 +7401,11 @@ def main() -> int:
     ad = adaptive_phase(native, cols, df, ex, smi)
     end_phase("phase 25")
 
+    # Phase 26: the multi-query scheduler, QoS admission and the device
+    # semaphore
+    sc = scheduler_phase(native, df, ex, smi)
+    end_phase("phase 26")
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -6937,7 +7416,7 @@ def main() -> int:
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
         fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"]) + tuple(
-        ad["runs"])
+        ad["runs"]) + tuple(sc["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -7000,7 +7479,8 @@ def main() -> int:
         + "; phase 23 " + ", ".join(str(r) for r in pp["runs"])
         + f"; phase 23 library calls {library}"
         + "; phase 24 " + ", ".join(str(r) for r in ob["runs"])
-        + "; phase 25 " + ", ".join(str(r) for r in ad["runs"]))
+        + "; phase 25 " + ", ".join(str(r) for r in ad["runs"])
+        + "; phase 26 " + ", ".join(str(r) for r in sc["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

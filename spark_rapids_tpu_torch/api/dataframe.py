@@ -421,8 +421,61 @@ class DataFrame:
         ``bind_values`` show the plan-cache provenance."""
         return self._physical()
 
-    def collect(self) -> List[tuple]:
-        return self._physical().collect()
+    def collect(self, timeout_ms: Optional[float] = None,
+                priority: Optional[str] = None,
+                tenant: Optional[str] = None) -> List[tuple]:
+        """Run the query through the multi-query scheduler
+        (``parallel/scheduler.py``) and return its rows. ``timeout_ms``
+        arms a deadline: a query still running when it expires unwinds at
+        its next checkpoint with ``QueryCancelledError`` (reason "deadline
+        exceeded"), releasing its device permit and every buffer it owns.
+        Raises ``QueryRejectedError`` when the run queue is full or the
+        admission wait times out.
+
+        With QoS on (``scheduler.qos.enabled``), ``priority`` picks the
+        query's class ("interactive" / "batch" / "background"), ``tenant``
+        tags it for the per-tenant quotas, and ``timeout_ms`` is also the
+        deadline admission tests the cost estimate against (the port's
+        queries are un-priced, so they pass). Both default from the conf
+        (``qos.priorityClass`` / ``qos.tenant``)."""
+        return self._physical().collect(timeout_ms=timeout_ms,
+                                        priority=priority, tenant=tenant)
+
+    def collect_with_retry(self, timeout_ms: Optional[float] = None,
+                           priority: Optional[str] = None,
+                           tenant: Optional[str] = None,
+                           max_attempts: Optional[int] = None,
+                           max_backoff_ms: Optional[float] = None,
+                           seed: int = 0) -> List[tuple]:
+        """:meth:`collect` behind the client's backpressure loop
+        (``parallel/scheduler.py`` ``collect_with_retry``): a
+        ``QueryRejectedError`` with a ``retry_after_ms`` hint backs off
+        for the hint (deterministic jitter from ``seed``, capped at
+        ``client.retry.maxBackoffMs``) and resubmits, up to
+        ``client.retry.maxAttempts`` attempts; a rejection without a hint
+        re-raises at once."""
+        from spark_rapids_tpu_torch.parallel import scheduler as SC
+        return SC.collect_with_retry(
+            lambda: self.collect(timeout_ms=timeout_ms,
+                                 priority=priority, tenant=tenant),
+            conf=self._session.conf, max_attempts=max_attempts,
+            max_backoff_ms=max_backoff_ms, seed=seed)
+
+    def submit(self, timeout_ms: Optional[float] = None,
+               priority: Optional[str] = None,
+               tenant: Optional[str] = None):
+        """Async collect: a ``QueryHandle`` whose ``cancel()`` stops the
+        query cooperatively, while it is queued or running, and whose
+        ``result()`` returns the rows or re-raises the query's error.
+        ``priority`` / ``tenant`` as in :meth:`collect`."""
+        from spark_rapids_tpu_torch.parallel.scheduler import QueryHandle
+        phys = self._physical()
+
+        def run(cancel_event, tmo):
+            return phys.collect(timeout_ms=tmo, cancel_event=cancel_event,
+                                priority=priority, tenant=tenant)
+
+        return QueryHandle(run, timeout_ms)
 
     def collect_host(self) -> List[tuple]:
         """Run entirely on the host engine (the CPU oracle): the plan

@@ -618,6 +618,181 @@ RECOVERY_MAX_STAGE_RECOMPUTES = _entry(
     "demotes to the whole-query retry (a stage that keeps losing its "
     "output is a sick backend, not a transient blip).", "long", 4)
 
+# -- the multi-query scheduler, QoS and the device semaphore -----------------
+
+CONCURRENT_TPU_TASKS = _entry(
+    "spark.rapids.sql.concurrentTpuTasks",
+    "Number of queries that may issue work to the card at once: the "
+    "device collect holds one permit of a process-wide semaphore, sized "
+    "by the first value seen (ref: spark.rapids.sql.concurrentGpuTasks / "
+    "GpuSemaphore).", "long", 2)
+
+SCHEDULER_MAX_CONCURRENT = _entry(
+    "spark.rapids.sql.scheduler.maxConcurrentQueries",
+    "Multi-query admission control (parallel/scheduler.py): at most this "
+    "many collect()s execute at once; excess queries wait in the bounded "
+    "run queue. 1 = strictly serial queries; the "
+    "SRT_SCHEDULER_MAX_CONCURRENT env overrides for a whole process.",
+    "long", 2)
+
+SCHEDULER_QUEUE_DEPTH = _entry(
+    "spark.rapids.sql.scheduler.queueDepth",
+    "Admission run-queue bound: queries beyond maxConcurrentQueries "
+    "wait here, FIFO. A query arriving with the queue full is SHED with "
+    "QueryRejectedError instead of letting unbounded concurrency run the "
+    "card out of memory.", "long", 16)
+
+SCHEDULER_ADMISSION_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.scheduler.admissionTimeoutMs",
+    "How long a queued query waits for a run slot before it is shed "
+    "with QueryRejectedError (queuedMs reports the wait of admitted "
+    "queries).", "long", 60000)
+
+SCHEDULER_QUERY_MEMORY_FRACTION = _entry(
+    "spark.rapids.sql.scheduler.queryMemoryFraction",
+    "Fair-share fraction of the device budget each admitted query's "
+    "buffer catalog is charged against. 0 = auto "
+    "(1/maxConcurrentQueries); 1.0 = every query sees the full budget "
+    "and isolation relies on admission and cross-query eviction.",
+    "double", 1.0)
+
+QOS_ENABLED = _entry(
+    "spark.rapids.sql.scheduler.qos.enabled",
+    "Serving QoS (parallel/qos/): replaces the FIFO run queue with "
+    "weighted fair queueing across priority classes, shortest-job-first "
+    "ordering by the cost estimate (un-priced in the port: it has no "
+    "cost model yet), per-tenant quotas and deadline-aware admission. "
+    "Off: the FIFO QueryManager. The SRT_QOS env enables it for a whole "
+    "process; the conf key wins when set.", "boolean", False)
+
+QOS_PRIORITY_CLASS = _entry(
+    "spark.rapids.sql.scheduler.qos.priorityClass",
+    "This session's default priority class: 'interactive', 'batch', or "
+    "'background'. The priority= kwarg of DataFrame.collect/submit "
+    "overrides per call. Ignored when qos.enabled is false.", "string",
+    "batch")
+
+QOS_WEIGHTS = _entry(
+    "spark.rapids.sql.scheduler.qos.weights",
+    "WFQ weight vector 'interactive,batch,background': run slots are "
+    "granted in proportion to these weights over any window (stride "
+    "scheduling; parallel/qos/policy.py). All weights must be > 0.",
+    "string", "8,3,1")
+
+QOS_STARVATION_BOUND = _entry(
+    "spark.rapids.sql.scheduler.qos.starvationBound",
+    "Hard starvation bound: the most times a non-empty class may be "
+    "bypassed for a run slot before its head query runs NEXT regardless "
+    "of weights (counter starvationBoundEngagements).", "long", 8)
+
+QOS_TENANT = _entry(
+    "spark.rapids.sql.scheduler.qos.tenant",
+    "Tenant identity for this session's queries (per-tenant quotas, "
+    "plan-cache counters, event-log attribution). The tenant= kwarg of "
+    "DataFrame.collect/submit overrides per call. Empty = 'default' "
+    "under QoS, untagged without it.", "string", "")
+
+QOS_TENANT_MAX_IN_FLIGHT = _entry(
+    "spark.rapids.sql.scheduler.qos.tenantMaxInFlight",
+    "Per-tenant cap on in-flight (running + queued) queries; an "
+    "over-cap tenant is rejected at admission with QueryRejectedError "
+    "(kind 'tenant-quota') carrying a retry-after hint. 0 = unlimited.",
+    "long", 0)
+
+QOS_TENANT_MAX_CATALOG_BYTES = _entry(
+    "spark.rapids.sql.scheduler.qos.tenantMaxCatalogBytes",
+    "Per-tenant cap on owner-tagged catalog bytes "
+    "(BufferCatalog.owned_bytes summed over the tenant's active "
+    "queries), checked at admission. 0 = unlimited.", "long", 0)
+
+QOS_TENANT_MAX_KERNEL_ENTRIES = _entry(
+    "spark.rapids.sql.scheduler.qos.tenantMaxKernelCacheEntries",
+    "Per-tenant compile budget in kernel-cache entries; over it the JAX "
+    "package evicts the tenant's oldest entries. The port compiles no "
+    "kernel at query time and keeps no kernel cache, so a tenant owns "
+    "zero entries and this cap never acts. 0 = unlimited.", "long", 0)
+
+QOS_DEADLINE_ADMISSION = _entry(
+    "spark.rapids.sql.scheduler.qos.deadlineAdmission.enabled",
+    "Deadline-aware admission (qos.enabled only): a query whose cost "
+    "estimate cannot meet its collect(timeout_ms=...) deadline is "
+    "rejected at admit time (kind 'deadline-unmeetable'). Un-priced "
+    "queries, every query of the port until it has a cost model, always "
+    "pass; the in-flight deadline timer remains the backstop.",
+    "boolean", True)
+
+QOS_DEADLINE_SLACK = _entry(
+    "spark.rapids.sql.scheduler.qos.deadlineSlack",
+    "Multiplier applied to the cost estimate before the deadline "
+    "admission test (>1.0 rejects earlier, <1.0 admits optimistically).",
+    "double", 1.0)
+
+PREEMPTION_ENABLED = _entry(
+    "spark.rapids.sql.scheduler.preemption.enabled",
+    "Class-aware device preemption: when a higher-priority query waits "
+    "for the device semaphore behind a running lower-class query, the "
+    "victim suspends at its next partition boundary: it spills its live "
+    "catalog buffers, releases its permit, and resumes on the same "
+    "context after the preemptor drains (materialized stage outputs are "
+    "kept, so only unfinished work re-runs; rows stay byte-identical). "
+    "Off: the flat class-blind semaphore. Counters preemptions, "
+    "preemptedMs, resumedStages.", "boolean", False)
+
+PREEMPTION_MAX_PER_QUERY = _entry(
+    "spark.rapids.sql.scheduler.preemption.maxPerQuery",
+    "Upper bound on how many times one query may be preempted; past it "
+    "the query ignores further requests and runs to completion.",
+    "long", 4)
+
+PREEMPTION_SPILL_ENABLED = _entry(
+    "spark.rapids.sql.scheduler.preemption.spill.enabled",
+    "Whether a preempted query spills its spillable device buffers to "
+    "host while suspended (frees device memory for the preemptor). Off = "
+    "suspending only releases the permit.", "boolean", True)
+
+PRESSURE_ENABLED = _entry(
+    "spark.rapids.sql.scheduler.pressure.enabled",
+    "Memory-pressure shedding: each device collect reports its "
+    "catalog's pressure score (srt_pressure_score) and sustained "
+    "pressure flips admission into brownout (background queries shed "
+    "with a retry hint). Off: no score is consulted.", "boolean", False)
+
+PRESSURE_SHED_SCORE = _entry(
+    "spark.rapids.sql.scheduler.pressure.shedScore",
+    "Pressure score at or above which the JAX package's cluster "
+    "coordinator demotes a worker in placement; read by nothing in the "
+    "port until its cluster layer (the key keeps the reference's "
+    "default).", "double", 0.75)
+
+PRESSURE_BROWNOUT_SCORE = _entry(
+    "spark.rapids.sql.scheduler.pressure.brownout.enterScore",
+    "Device-pressure score at or above which (sustained for "
+    "brownout.sustainMs) admission enters brownout: background queries "
+    "are rejected with kind 'brownout' and a retry-after hint while "
+    "interactive and batch queries admit.", "double", 0.9)
+
+PRESSURE_BROWNOUT_EXIT_SCORE = _entry(
+    "spark.rapids.sql.scheduler.pressure.brownout.exitScore",
+    "Pressure score below which brownout exits (hysteresis: must be "
+    "below brownout.enterScore).", "double", 0.7)
+
+PRESSURE_BROWNOUT_SUSTAIN_MS = _entry(
+    "spark.rapids.sql.scheduler.pressure.brownout.sustainMs",
+    "How long the pressure score must stay at or above "
+    "brownout.enterScore before admission browns out.", "long", 200)
+
+CLIENT_RETRY_MAX_ATTEMPTS = _entry(
+    "spark.rapids.sql.client.retry.maxAttempts",
+    "Attempt budget of DataFrame.collect_with_retry: total admission "
+    "attempts before the last QueryRejectedError propagates. Each retry "
+    "honors the rejection's retry_after_ms hint with capped "
+    "deterministic-jitter backoff (counter clientRetries).", "long", 5)
+
+CLIENT_RETRY_MAX_BACKOFF_MS = _entry(
+    "spark.rapids.sql.client.retry.maxBackoffMs",
+    "Cap on one collect_with_retry backoff sleep, applied after the "
+    "retry_after_ms hint and the jitter.", "long", 10000)
+
 
 class TpuConf:
     """Resolved view over a raw key->value dict."""

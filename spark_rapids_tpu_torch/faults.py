@@ -39,11 +39,13 @@ env)::
   fault tag is ``N`` (``spark.rapids.sql.test.faults.queryTag``, else
   the query's minted id).
 
-This module also carries the per-thread QUERY TOKEN: every owned
-top-level ``collect`` mints one with an increasing id
-(:func:`new_query_token`); the flight recorder files events under it and
-query-scoped entries match its tag. Every :func:`fault_point` is a
-cancellation checkpoint too.
+This module also carries the per-thread QUERY TOKEN: the scheduler's
+admission of every owned top-level ``collect`` mints one with an
+increasing id (:func:`new_query_token`); the flight recorder files events
+under it and query-scoped entries match its tag. Every
+:func:`fault_point` is a cancellation checkpoint too, and
+:func:`check_preempted` is the partition boundary's preemption
+checkpoint.
 
 The registry is process-global and ARMED only while a non-empty spec is
 configured; a disarmed ``fault_point`` is a thread-local load and a
@@ -126,21 +128,60 @@ class QueryCancelledError(RuntimeError):
         self.reason = reason
 
 
+class QueryPreemptedError(RuntimeError):
+    """Control flow only: the query was asked to yield the card to a
+    higher-priority class and unwound at a partition boundary. The
+    planner's ladder catches it, spills the query's catalog, waits for
+    the preemptor to drain and resumes on the SAME context, where
+    materialized stage outputs serve again. Like cancellation, the
+    message carries NO transient or OOM marker: no other retry rung may
+    consume a preemption."""
+
+    def __init__(self, query_id: int, preemptor: Optional[str] = None):
+        super().__init__(
+            f"PREEMPTED: query {query_id} yielded the device to a "
+            f"{preemptor or 'higher-priority'} query "
+            "(spark.rapids.sql.scheduler.preemption.*)")
+        self.query_id = query_id
+        self.preemptor = preemptor
+
+
 class QueryToken:
     """Per-query cooperative cancellation handle and identity, registered
     thread-locally on every thread that works for the query (the collect
-    thread, pipeline prefetchers, scan reader threads). ``cancel`` is a
-    plain Event; ``reason`` is set before it so the unwinding error names
-    why."""
+    thread, watchdog attempts, pipeline prefetchers, scan reader
+    threads). ``cancel`` is a plain Event; ``reason`` is set before it so
+    the unwinding error names why. A deadline
+    (``collect(timeout_ms=...)``) sets the same event from the
+    scheduler's timer.
 
-    __slots__ = ("query_id", "fault_tag", "cancel", "reason")
+    ``tenant`` and ``qos_class`` are the admission's attribution
+    (``parallel/qos/``). ``preempt`` is the gentler second signal
+    (``scheduler.preemption.enabled``): the class-ranked device gate sets
+    it when a higher-priority query waits behind this one. It is honored
+    only at partition boundaries (:func:`check_preempted`) and the query
+    resumes afterwards; ``preempt_enabled`` goes off once the query's
+    preemption budget is spent."""
 
-    def __init__(self, query_id: int, fault_tag: Optional[int] = None):
+    __slots__ = ("query_id", "fault_tag", "cancel", "reason", "tenant",
+                 "qos_class", "preempt", "preemptor_class",
+                 "preempt_enabled")
+
+    def __init__(self, query_id: int, fault_tag: Optional[int] = None,
+                 tenant: Optional[str] = None,
+                 qos_class: Optional[str] = None):
         self.query_id = query_id
         # The tag query-scoped fault entries (kind@site/query=N) match.
         self.fault_tag = fault_tag if fault_tag is not None else query_id
         self.cancel = threading.Event()
         self.reason = "cancelled"
+        self.tenant = tenant
+        # None: FIFO admission (the device gate ranks it as the default
+        # class).
+        self.qos_class = qos_class
+        self.preempt = threading.Event()
+        self.preemptor_class: Optional[str] = None
+        self.preempt_enabled = True
 
     def request_cancel(self, reason: str = "cancelled") -> None:
         self.reason = reason
@@ -152,18 +193,33 @@ class QueryToken:
     def error(self) -> QueryCancelledError:
         return QueryCancelledError(self.query_id, self.reason)
 
+    def request_preempt(self, preemptor_class: Optional[str] = None) -> None:
+        """Ask this query to yield the card at its next partition
+        boundary (the class-ranked gate calls this)."""
+        self.preemptor_class = preemptor_class
+        self.preempt.set()
+
+    def preempt_requested(self) -> bool:
+        return self.preempt_enabled and self.preempt.is_set()
+
+    def clear_preempt(self) -> None:
+        self.preempt.clear()
+        self.preemptor_class = None
+
 
 _IDS = itertools.count(1)
 _ID_LOCK = threading.Lock()
 
 
-def new_query_token(fault_tag: Optional[int] = None) -> QueryToken:
-    """Mint the token of one owned top-level collect: ids start at 1 and
-    increase for the whole process, as the reference's admission mints
-    them. ``fault_tag`` None = the id is the tag."""
+def new_query_token(fault_tag: Optional[int] = None,
+                    tenant: Optional[str] = None,
+                    qos_class: Optional[str] = None) -> QueryToken:
+    """Mint the token of one admitted query (``parallel/scheduler.py``):
+    ids start at 1 and increase for the whole process. ``fault_tag``
+    None = the id is the tag."""
     with _ID_LOCK:
         qid = next(_IDS)
-    return QueryToken(qid, fault_tag)
+    return QueryToken(qid, fault_tag, tenant=tenant, qos_class=qos_class)
 
 
 def set_query_token(token: Optional[QueryToken]) -> None:
@@ -183,6 +239,19 @@ def check_cancelled() -> None:
     tok = getattr(_TL, "query", None)
     if tok is not None and tok.cancel.is_set():
         raise tok.error()
+
+
+def check_preempted() -> None:
+    """Partition-boundary preemption checkpoint: raise
+    :class:`QueryPreemptedError` when the class-ranked device gate asked
+    the calling thread's query to yield. Separate from
+    :func:`check_cancelled` on purpose: preemption is honored only where
+    suspending is safe (between partitions, where every live
+    intermediate is catalog-registered data at rest). A no-op whenever
+    preemption is off (the gate never sets the event)."""
+    tok = getattr(_TL, "query", None)
+    if tok is not None and tok.preempt_enabled and tok.preempt.is_set():
+        raise QueryPreemptedError(tok.query_id, tok.preemptor_class)
 
 
 def current_query_id() -> Optional[int]:

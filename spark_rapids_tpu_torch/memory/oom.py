@@ -17,12 +17,15 @@ rung that changed something:
 1. ``spill-some``: spill the lowest-priority catalog buffers until about
    half the registered device bytes are freed;
 2. ``spill-all``: spill every spillable device buffer;
-3. ``shrink``: halve the process-wide batch target
+3. ``evict-neighbors``: under the multi-query scheduler, spill every
+   OTHER running query's spillable device buffers
+   (``parallel/scheduler.py`` ``QueryManager.evict_neighbors``): the
+   offender's own buffers went first, and a neighbor is touched only
+   when that was not enough. It acts only for a managed query with a
+   neighbor that holds device buffers;
+4. ``shrink``: halve the process-wide batch target
    (:func:`effective_batch_target`), so every later coalesce and exchange
    serve issues smaller batches, then retry once more.
-
-The JAX package has a cross-query ``evict-neighbors`` rung between 2 and
-3; it needs the multi-query scheduler, which the port does not have yet.
 
 An exhausted ladder raises :class:`OomRetryExhausted`, whose message
 carries no OOM marker, so enclosing ``retry_on_oom`` frames pass it on.
@@ -117,6 +120,7 @@ _degrade_factor = 1
 RUNG_DROP_SCAN_CACHE = "drop-scan-cache"
 RUNG_SPILL_SOME = "spill-some"
 RUNG_SPILL_ALL = "spill-all"
+RUNG_EVICT_NEIGHBORS = "evict-neighbors"
 RUNG_SHRINK = "shrink"
 
 # Rung names of the last ladder, in firing order.
@@ -155,9 +159,21 @@ def reset_degradation() -> None:
 
 # -- the ladder -----------------------------------------------------------------
 
+def _evict_neighbor_queries() -> int:
+    """The cross-query rung: ask the query manager to spill the other
+    running queries' catalogs to the host. 0 bytes outside a managed
+    query or without a neighbor holding device buffers."""
+    tok = faults.get_query_token()
+    if tok is None:
+        return 0
+    from spark_rapids_tpu_torch.parallel import scheduler
+    return scheduler.get_query_manager().evict_neighbors(tok.query_id)
+
+
 def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
     """Run ``fn``; on a device OOM walk the drop-scan-cache -> spill-some
-    -> spill-all -> shrink ladder, retrying after each rung that changed something.
+    -> spill-all -> evict-neighbors -> shrink ladder, retrying after each
+    rung that changed something.
     Anything else propagates; a ladder that changed nothing re-raises the
     original error."""
     try:
@@ -173,7 +189,7 @@ def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
     rungs: List[str] = []
     last: BaseException = first
     for rung in (RUNG_DROP_SCAN_CACHE, RUNG_SPILL_SOME, RUNG_SPILL_ALL,
-                 RUNG_SHRINK):
+                 RUNG_EVICT_NEIGHBORS, RUNG_SHRINK):
         if rung == RUNG_DROP_SCAN_CACHE:
             from spark_rapids_tpu_torch.io.scan import DEVICE_SCAN_CACHE
             acted = DEVICE_SCAN_CACHE.drop_device_entries() > 0
@@ -181,6 +197,8 @@ def retry_on_oom(fn: Callable[..., T], *args, **kwargs) -> T:
             acted = catalog is not None and catalog.spill_some() > 0
         elif rung == RUNG_SPILL_ALL:
             acted = catalog is not None and catalog.handle_oom() > 0
+        elif rung == RUNG_EVICT_NEIGHBORS:
+            acted = _evict_neighbor_queries() > 0
         else:
             acted = shrink_batch_target()
         if not acted:

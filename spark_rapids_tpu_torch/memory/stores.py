@@ -32,6 +32,7 @@ import logging
 import os
 import tempfile
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,6 +148,10 @@ class BufferEntry:
     tier: str
     size_bytes: int
     priority: int
+    # Owning query id (RapidsBufferCatalog's owner tagging): per-query
+    # accounting (``owned_bytes``) and the tenant byte quota. None:
+    # unmanaged (a standalone ``Exec.collect``, unit tests).
+    owner: Optional[int] = None
     # Exactly one tier's state is set.
     device_batch: Optional[DeviceBatch] = None
     host_meta: Optional[dict] = None
@@ -165,7 +170,8 @@ class BufferCatalog:
                  host_budget_bytes: int = 1 << 30,
                  spill_dir: str = "",
                  compression_codec: str = "none",
-                 debug: bool = False):
+                 debug: bool = False,
+                 owner: Optional[int] = None):
         from spark_rapids_tpu_torch.memory.compression import CODEC_NAMES
         if (compression_codec or "").lower() not in CODEC_NAMES:
             raise ValueError(
@@ -175,6 +181,9 @@ class BufferCatalog:
         self.spill_dir = spill_dir or default_spill_dir()
         self.codec_name = compression_codec
         self.debug = debug
+        # The owner tag of every buffer this catalog registers: the
+        # admitted query's id (catalogs are per query).
+        self.owner = owner
         self._entries: Dict[int, BufferEntry] = {}
         self._next_id = itertools.count()
         self._device_bytes = 0
@@ -213,7 +222,8 @@ class BufferCatalog:
             self._ensure_device_room(size)
             bid = next(self._next_id)
             self._entries[bid] = BufferEntry(
-                bid, StorageTier.DEVICE, size, priority, device_batch=batch)
+                bid, StorageTier.DEVICE, size, priority, owner=self.owner,
+                device_batch=batch)
             self._device_bytes += size
             self._note_peak()
             if self.debug:
@@ -421,6 +431,15 @@ class BufferCatalog:
         return 0 if self._spill_file is None \
             else self._spill_file.allocated_bytes
 
+    def owned_bytes(self) -> Dict[Optional[int], int]:
+        """Registered bytes per owner tag (any tier): the per-query
+        accounting the tenant byte quota reads."""
+        out: Dict[Optional[int], int] = {}
+        with self._lock:
+            for e in self._entries.values():
+                out[e.owner] = out.get(e.owner, 0) + e.size_bytes
+        return out
+
     def leak_report(self) -> List[Tuple[int, int, str]]:
         """Buffers still registered: (id, bytes, creation stack); stacks
         are recorded in debug mode only."""
@@ -480,3 +499,217 @@ class SpillableBatch:
     def __exit__(self, *exc):
         self.release()
         return False
+
+
+# -- the device semaphore -------------------------------------------------------
+
+_GLOBAL_SEM: Optional["TpuSemaphore"] = None
+_GLOBAL_SEM_LOCK = threading.Lock()
+
+# Class-aware device preemption (spark.rapids.sql.scheduler.preemption.
+# enabled): process-global like the wire codec and the recorder, so the
+# last collect's conf wins. Off keeps the acquire path the flat
+# class-blind semaphore.
+_PREEMPT_ENABLED = False
+
+
+def preemption_configure(conf) -> None:
+    """Adopt this query's preemption setting (the collect funnel calls
+    it before it takes the semaphore)."""
+    global _PREEMPT_ENABLED
+    from spark_rapids_tpu_torch import config as C
+    _PREEMPT_ENABLED = bool(conf.get(C.PREEMPTION_ENABLED))
+
+
+def preemption_enabled() -> bool:
+    return _PREEMPT_ENABLED
+
+
+def _class_rank(token) -> int:
+    """The token's priority rank at the device gate (lower is better).
+    An unclassed (FIFO) query ranks as the default class, so preemption
+    engages only when some query declared a class."""
+    from spark_rapids_tpu_torch.parallel.qos.policy import (CLASS_RANK,
+                                                            DEFAULT_CLASS)
+    cls = getattr(token, "qos_class", None) or DEFAULT_CLASS
+    return CLASS_RANK.get(cls, CLASS_RANK[DEFAULT_CLASS])
+
+
+def pressure_score(catalog: Optional[BufferCatalog]) -> float:
+    """Memory-pressure score of one catalog: its device fraction
+    dominates (that is what runs out), host and disk occupancy add
+    smaller terms so a catalog already spilling reads hotter than one
+    merely full. Range [0, 1.35]; each tier's fraction clamps at 1."""
+    if catalog is None:
+        return 0.0
+    dev = min(catalog.device_bytes / max(catalog.device_budget, 1), 1.0)
+    host = min(catalog.host_bytes / max(catalog.host_budget, 1), 1.0)
+    disk = min(catalog.disk_bytes / max(catalog.host_budget, 1), 1.0)
+    return round(dev + 0.25 * host + 0.1 * disk, 4)
+
+
+def get_tpu_semaphore(permits: int) -> "TpuSemaphore":
+    """THE process-wide device semaphore, sized by the FIRST
+    ``spark.rapids.sql.concurrentTpuTasks`` seen (the reference sizes one
+    GpuSemaphore per executor at startup, GpuSemaphore.scala:63; later
+    confs are ignored, so the bound stays global). The device collect
+    funnel (``ops/base.py`` ``run_batches``) holds one permit around its
+    device work."""
+    global _GLOBAL_SEM
+    with _GLOBAL_SEM_LOCK:
+        if _GLOBAL_SEM is None:
+            _GLOBAL_SEM = TpuSemaphore(permits)
+        return _GLOBAL_SEM
+
+
+class TpuSemaphore:
+    """The task-admission semaphore (GpuSemaphore.scala:101): at most
+    ``spark.rapids.sql.concurrentTpuTasks`` queries issue device work at
+    once; the context manager releases the permit.
+
+    With ``scheduler.preemption.enabled`` the same permits become a
+    CLASS-RANKED gate: acquisitions with a query token queue in (class
+    rank, arrival) order, only the head waiter takes a permit, and a head
+    waiter that outranks a running holder asks the WORST-ranked holder to
+    yield at its next partition boundary (``QueryToken.request_preempt``;
+    cooperative, so the victim's live device state is catalog-registered
+    data at rest when the permit comes back). Victims re-enter through
+    :meth:`wait_resume`, which queues at their own rank. Off (the
+    default), every acquire takes the flat path.
+
+    The acquire is a ``tpu-semaphore-acquire`` span in category
+    ``queued``, and it polls the query's cancel event, so a query
+    cancelled while it waits for the card unwinds. ``in_use`` and
+    ``max_in_use`` (port-only attribution) count the permits held through
+    the context manager on either path, now and at most since
+    :meth:`reset_peak`."""
+
+    def __init__(self, permits: int = 2):
+        self._sem = threading.Semaphore(permits)
+        self.permits = permits
+        # The classed gate's state (used with preemption on only).
+        self._gate_lock = threading.Lock()
+        self._seq = 0
+        self._waiters: List[list] = []        # [rank, seq, token]
+        self._holders: Dict[int, list] = {}   # id(token) -> [tok, rank, n]
+        self.preempt_requests = 0
+        self.in_use = 0
+        self.max_in_use = 0
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch import monitoring
+        with monitoring.span("tpu-semaphore-acquire", "queued",
+                             level=monitoring.LEVEL_QUERY):
+            tok = faults.get_query_token()
+            if tok is None:
+                self._sem.acquire()
+            elif _PREEMPT_ENABLED:
+                self._acquire_classed(tok)
+            else:
+                while not self._sem.acquire(timeout=0.05):
+                    if tok.cancelled():
+                        raise tok.error()
+        with self._gate_lock:
+            self.in_use += 1
+            self.max_in_use = max(self.max_in_use, self.in_use)
+        return self
+
+    def reset_peak(self) -> None:
+        with self._gate_lock:
+            self.max_in_use = self.in_use
+
+    # -- the class-ranked gate (preemption on only) ---------------------------
+    def _enqueue(self, tok) -> list:
+        with self._gate_lock:
+            self._seq += 1
+            w = [_class_rank(tok), self._seq, tok]
+            self._waiters.append(w)
+            return w
+
+    def _head(self, w: list) -> bool:
+        """Whether ``w`` is the best-ranked waiter (class rank, then
+        arrival): only the head takes a permit."""
+        return min(self._waiters, key=lambda x: (x[0], x[1])) is w
+
+    def _request_preempt_locked(self, rank: int) -> None:
+        """A head waiter of rank ``rank`` found every permit held: ask
+        the worst holder of a strictly lower class to yield. Idempotent
+        per victim (the event stays set)."""
+        victim = None
+        for tok, hrank, _n in self._holders.values():
+            if hrank > rank and tok.preempt_enabled \
+                    and not tok.preempt.is_set():
+                if victim is None or hrank > victim[1]:
+                    victim = (tok, hrank)
+        if victim is not None:
+            from spark_rapids_tpu_torch.parallel.qos.policy import CLASSES
+            self.preempt_requests += 1
+            victim[0].request_preempt(CLASSES[rank]
+                                      if 0 <= rank < len(CLASSES)
+                                      else None)
+
+    def _acquire_classed(self, tok) -> None:
+        w = self._enqueue(tok)
+        rank = w[0]
+        try:
+            while True:
+                if tok.cancelled():
+                    raise tok.error()
+                with self._gate_lock:
+                    if self._head(w):
+                        if self._sem.acquire(blocking=False):
+                            self._waiters.remove(w)
+                            h = self._holders.get(id(tok))
+                            if h is None:
+                                self._holders[id(tok)] = [tok, rank, 1]
+                            else:
+                                h[2] += 1
+                            return
+                        self._request_preempt_locked(rank)
+                time.sleep(0.005)
+        except BaseException:
+            with self._gate_lock:
+                if w in self._waiters:
+                    self._waiters.remove(w)
+            raise
+
+    def wait_resume(self, tok) -> None:
+        """Block a preempted query until the gate would grant its class a
+        permit again (the preemptor and every better-ranked waiter have
+        drained), without keeping the permit: the re-collect acquires it
+        as usual. A no-op with preemption off."""
+        if not _PREEMPT_ENABLED:
+            return
+        self._acquire_classed(tok)
+        self.release_classed(tok)
+
+    def release_classed(self, tok) -> None:
+        with self._gate_lock:
+            h = self._holders.get(id(tok))
+            if h is not None:
+                h[2] -= 1
+                if h[2] <= 0:
+                    self._holders.pop(id(tok), None)
+        self._sem.release()
+
+    def __exit__(self, *exc):
+        with self._gate_lock:
+            self.in_use -= 1
+        tok = faults.get_query_token()
+        if tok is not None and _PREEMPT_ENABLED:
+            self.release_classed(tok)
+            return False
+        with self._gate_lock:
+            # A holder registered by the classed gate may release after
+            # the setting flipped (mixed confs): keep the table honest.
+            if tok is not None:
+                self._holders.pop(id(tok), None)
+        self._sem.release()
+        return False
+
+    @property
+    def holders(self) -> List[tuple]:
+        """(query id, class rank) of the classed gate's holders."""
+        with self._gate_lock:
+            return [(t.query_id, r) for t, r, _n in
+                    self._holders.values()]

@@ -325,16 +325,20 @@ def sync_funnels() -> None:
     """Pull every counter funnel of the port into the registry (absolute
     values, idempotent). Runs on every snapshot/render/scrape: the
     funnels stay the single source of truth; this is the exposition
-    bridge. The scheduler's, QoS's, transport's, cost model's and kernel
-    cache's funnels come with their layers."""
+    bridge. The transport's, cost model's and kernel cache's funnels come
+    with their layers."""
     if not _ENABLED:
         return
     from spark_rapids_tpu_torch import faults as _f
     from spark_rapids_tpu_torch.columnar import wire as _w
     from spark_rapids_tpu_torch.ops import native as _n
     from spark_rapids_tpu_torch.parallel import pipeline as _p
+    from spark_rapids_tpu_torch.parallel import qos as _q
+    from spark_rapids_tpu_torch.parallel import scheduler as _sc
     from spark_rapids_tpu_torch.plan import plan_cache as _pc
     sources = [
+        ("scheduler", _sc.counters()),
+        ("qos", _q.counters()),
         ("recovery", _f.counters()),
         ("pipeline", _p.counters()),
         ("wire", _w.counters()),

@@ -31,8 +31,11 @@ sizes (``parallel/replan.py``) and materializes independent stages at
 once (``parallel/pipeline.py`` ``prematerialize_stages``). With
 ``spark.rapids.sql.watchdog.enabled`` each partition (and the partition
 count) runs under the execution watchdog (``Exec._watchdog_run``): an
-attempt past its deadline is killed and re-dispatched. The scheduler
-layer is not ported.
+attempt past its deadline is killed and re-dispatched. The device work
+of a collect (re-plan, stage pass, partition loop, download) holds one
+permit of the process-wide device semaphore
+(``memory/stores.py`` ``TpuSemaphore``, ``concurrentTpuTasks``); the
+query's admission is the planner's (``parallel/scheduler.py``).
 
 Every ``timed`` interval is also a flight-recorder span
 (``monitoring/recorder.py``) and, while a torch profiler is recording,
@@ -140,15 +143,24 @@ class ExecContext:
     and empties the cache but for the query's identity: ``trace_query``
     (the flight-recorder ring its events went to) and the plan cache's
     binding vector, which ``explain_analyze`` and the event log read
-    after the collect."""
+    after the collect.
+
+    ``query`` is the admitting scheduler's ticket
+    (``parallel/scheduler.py``): its query id tags the catalog's buffers,
+    and its manager's fair share scales the catalog's budget. None: an
+    unmanaged context (a standalone ``Exec.collect``, unit tests), with
+    the full budget and no owner."""
 
     conf: TpuConf = dataclasses.field(default_factory=TpuConf)
     metrics: Dict[str, Metrics] = dataclasses.field(default_factory=dict)
     cache: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    query: Optional[Any] = None
     last_leak_report: Optional[list] = None
     last_spill_metrics: Optional[Dict[str, int]] = None
     on_close: List[Any] = dataclasses.field(default_factory=list)
     _catalog: Optional[Any] = None
+    _lock: Any = dataclasses.field(default_factory=threading.Lock,
+                                   repr=False, compare=False)
 
     def metrics_for(self, op: "Exec") -> Metrics:
         key = f"{op.name}@{id(op):x}"
@@ -161,28 +173,51 @@ class ExecContext:
 
     @property
     def catalog(self):
-        """The query's spill catalog, built on first use: its device
-        budget is ``spark.rapids.memory.tpu.budgetBytes`` or, when that
-        is 0, ``allocFraction`` of the visible device memory capped at
-        ``maxAllocFraction`` of it less ``reserve`` (at least 1 MiB)."""
+        """The query's spill catalog, built on first use under the
+        context's lock (stage threads and a neighbor's eviction read it
+        from other threads; two catalogs must never race into being):
+        its device budget is ``spark.rapids.memory.tpu.budgetBytes`` or,
+        when that is 0, ``allocFraction`` of the visible device memory
+        capped at ``maxAllocFraction`` of it less ``reserve`` (at least
+        1 MiB); for an admitted query, times
+        ``scheduler.queryMemoryFraction``, with the query id as the
+        buffers' owner tag."""
         if self._catalog is None:
-            from spark_rapids_tpu_torch import config as C
-            from spark_rapids_tpu_torch.memory.stores import BufferCatalog
-            budget = int(self.conf.get(C.DEVICE_BUDGET_BYTES))
-            if budget <= 0:
-                visible = _visible_device_bytes()
-                budget = int(visible * self.conf.get(C.HBM_POOL_FRACTION))
-                ceiling = int(visible * self.conf.get(C.MAX_ALLOC_FRACTION)) \
-                    - int(self.conf.get(C.RESERVE_BYTES))
-                budget = max(min(budget, ceiling), 1 << 20)
-            self._catalog = BufferCatalog(
-                device_budget_bytes=budget,
-                host_budget_bytes=int(
-                    self.conf.get(C.HOST_SPILL_STORAGE_SIZE)),
-                spill_dir=str(self.conf.get(C.SPILL_DIR)),
-                compression_codec=str(
-                    self.conf.get(C.SHUFFLE_COMPRESSION_CODEC)),
-                debug=bool(self.conf.get(C.MEMORY_DEBUG)))
+            with self._lock:
+                if self._catalog is not None:
+                    return self._catalog
+                from spark_rapids_tpu_torch import config as C
+                from spark_rapids_tpu_torch.memory.stores import \
+                    BufferCatalog
+                budget = int(self.conf.get(C.DEVICE_BUDGET_BYTES))
+                if budget <= 0:
+                    visible = _visible_device_bytes()
+                    budget = int(visible * self.conf.get(C.HBM_POOL_FRACTION))
+                    ceiling = int(visible *
+                                  self.conf.get(C.MAX_ALLOC_FRACTION)) \
+                        - int(self.conf.get(C.RESERVE_BYTES))
+                    budget = max(min(budget, ceiling), 1 << 20)
+                owner = None
+                if self.query is not None:
+                    from spark_rapids_tpu_torch.parallel import \
+                        scheduler as SC
+                    frac = SC.query_memory_fraction(
+                        self.conf, SC.get_query_manager(self.conf))
+                    # The share never raises a budget (port-only: the
+                    # reference floors it at 1 MiB, which lifts an
+                    # explicit budget below that even at 1.0).
+                    budget = max(int(budget * frac),
+                                 min(budget, 1 << 20))
+                    owner = self.query.query_id
+                self._catalog = BufferCatalog(
+                    device_budget_bytes=budget,
+                    host_budget_bytes=int(
+                        self.conf.get(C.HOST_SPILL_STORAGE_SIZE)),
+                    spill_dir=str(self.conf.get(C.SPILL_DIR)),
+                    compression_codec=str(
+                        self.conf.get(C.SHUFFLE_COMPRESSION_CODEC)),
+                    debug=bool(self.conf.get(C.MEMORY_DEBUG)),
+                    owner=owner)
         return self._catalog
 
     def close(self):
@@ -506,10 +541,12 @@ class Exec:
         """One attempt at the query on ``ctx``, which stays open (its
         owner closes it). The query's catalog is the ladder's active
         catalog while it runs (and its ``Recovery@query`` entry the
-        recovery sink). On the device engine the runtime re-plan and the
-        concurrent stage pass run first, then the ordered partition loop
-        (under the watchdog when it is on), then one batched download.
-        The whole call is the query's ``collect`` span, each partition a
+        recovery sink). On the device engine, under one permit of the
+        device semaphore, the runtime re-plan and the concurrent stage
+        pass run first, then the ordered partition loop (under the
+        watchdog when it is on; each partition boundary a cancellation
+        and a preemption checkpoint), then one batched download. The
+        whole call is the query's ``collect`` span, each partition a
         ``partition`` span and the result copy a ``download`` span."""
         # The engine the query's root runs on: exchanges coalesce their
         # partitions only under the device engine.
@@ -517,16 +554,18 @@ class Exec:
         # Adopt this query's wire codec (process-global,
         # spark.rapids.sql.wire.codec) before any upload happens, its
         # flight-recorder and telemetry configuration before any span
-        # site runs (spark.rapids.sql.trace.* / metrics.*), and its
-        # spark.rapids.sql.native.* gates.
+        # site runs (spark.rapids.sql.trace.* / metrics.*), its
+        # spark.rapids.sql.native.* gates and its preemption setting.
         from spark_rapids_tpu_torch import monitoring
         from spark_rapids_tpu_torch.columnar import wire
+        from spark_rapids_tpu_torch.memory import stores
         from spark_rapids_tpu_torch.monitoring import telemetry
         from spark_rapids_tpu_torch.ops import native
         wire.maybe_configure(ctx.conf)
         monitoring.maybe_configure(ctx.conf)
         telemetry.maybe_configure(ctx.conf)
         native.maybe_configure(ctx.conf)
+        stores.preemption_configure(ctx.conf)
         t0 = time.perf_counter()
         collect_span = monitoring.span(
             "collect", "query", level=monitoring.LEVEL_QUERY,
@@ -547,70 +586,34 @@ class Exec:
                                                "op": self.name}):
                         out.extend(self.execute_host(ctx, p))
                 return out
-            from spark_rapids_tpu_torch.parallel import pipeline as PL
-            from spark_rapids_tpu_torch.parallel import replan as RP
-            # Runtime re-plan before the stage pass: build-side exchanges
-            # materialize now, observed sizes demote shuffled joins to
-            # broadcast, and the skipped probe exchanges are flagged so
-            # the stage pass does not shuffle them anyway.
-            RP.plan_adaptive(ctx, self)
-            # Independent stages (a join's two sides) materialize their
-            # exchange outputs at once before the ordered partition loop;
-            # a no-op when the pipeline is off or the plan has one stage.
-            PL.prematerialize_stages(ctx, self)
-            wd = _watchdog_params(ctx.conf)
-            batches: List[DeviceBatch] = []
-            if wd is None:
-                nparts = self.num_partitions(ctx)
-            else:
-                # The partition count can itself do device work (the
-                # coalescing exchange materializes to learn its sizes), so
-                # it runs under the watchdog too.
-                nparts = self._watchdog_run(
-                    ctx, wd, "partition-count",
-                    lambda: self.num_partitions(ctx))
-            # consume() waits for p's host half, then returns the device
-            # stream verbatim; the serial pipeline just streams.
-            pipe = PL.open_pipeline(ctx, self, nparts)
-            try:
-                for p in range(nparts):
-                    # Per-partition cancellation checkpoint (the deep
-                    # funnels check too, through fault_point).
-                    faults.check_cancelled()
-                    with monitoring.span("partition", "device-compute",
-                                         args={"partition": p,
-                                               "op": self.name}):
-                        if wd is None:
-                            batches.extend(pipe.consume(
-                                p, lambda p=p:
-                                self.execute_device_recovering(ctx, p)))
-                        else:
-                            # The pipeline's wait for p's host half runs
-                            # inside the deadline: a stalled prefetch is
-                            # killed with its attempt.
-                            batches.extend(self._watchdog_run(
-                                ctx, wd, f"partition {p}",
-                                lambda p=p: pipe.consume(
-                                    p, lambda: list(
-                                        self.execute_device_recovering(
-                                            ctx, p)))))
-            finally:
-                pipe.close()
-            names = tuple(n for n, _ in self.schema)
-            with monitoring.span("download", "device-compute",
-                                 args={"batches": len(batches)}):
-                return oom.retry_on_oom(download_batches, batches, names)
+            from spark_rapids_tpu_torch import config as C
+            # Task admission (GpuSemaphore.scala:74-87): at most
+            # concurrentTpuTasks queries issue device work at once. The
+            # permit covers the re-plan, the stage pass, the partition
+            # loop and the download; the caller makes the rows from the
+            # host batches outside it.
+            sem = stores.get_tpu_semaphore(
+                max(int(ctx.conf.get(C.CONCURRENT_TPU_TASKS)), 1))
+            with sem:
+                return self._device_batches(ctx)
         finally:
             oom.set_active_catalog(None)
             collect_span.__exit__(None, None, None)
             # Live telemetry of a device collect: one counter inc + one
-            # histogram observe, and the spill catalog's tier occupancy
-            # and device high watermark.
+            # histogram observe, the spill catalog's tier occupancy and
+            # device high watermark, and its pressure score, which feeds
+            # the admission brownout (parallel/scheduler.py).
             cat = ctx._catalog if device else None
             if device:
                 telemetry.inc("srt_collects")
                 telemetry.observe("srt_collect_ms",
                                   (time.perf_counter() - t0) * 1e3)
+            if cat is not None:
+                from spark_rapids_tpu_torch.parallel import scheduler as SC
+                score = stores.pressure_score(cat)
+                if telemetry.enabled():
+                    telemetry.set_gauge("srt_pressure_score", score)
+                SC.note_pressure(score, ctx.conf)
             if cat is not None and telemetry.enabled():
                 telemetry.set_gauge("srt_memory_bytes", cat.device_bytes,
                                     tier="device")
@@ -622,6 +625,65 @@ class Exec:
                                     cat.device_budget)
                 telemetry.max_gauge("srt_device_watermark_bytes",
                                     cat.device_bytes)
+
+    def _device_batches(self, ctx: ExecContext) -> List[HostBatch]:
+        """The device half of ``run_batches``, under the permit."""
+        from spark_rapids_tpu_torch import monitoring
+        from spark_rapids_tpu_torch.parallel import pipeline as PL
+        from spark_rapids_tpu_torch.parallel import replan as RP
+        # Runtime re-plan before the stage pass: build-side exchanges
+        # materialize now, observed sizes demote shuffled joins to
+        # broadcast, and the skipped probe exchanges are flagged so the
+        # stage pass does not shuffle them anyway.
+        RP.plan_adaptive(ctx, self)
+        # Independent stages (a join's two sides) materialize their
+        # exchange outputs at once before the ordered partition loop; a
+        # no-op when the pipeline is off or the plan has one stage.
+        PL.prematerialize_stages(ctx, self)
+        wd = _watchdog_params(ctx.conf)
+        batches: List[DeviceBatch] = []
+        if wd is None:
+            nparts = self.num_partitions(ctx)
+        else:
+            # The partition count can itself do device work (the
+            # coalescing exchange materializes to learn its sizes), so it
+            # runs under the watchdog too.
+            nparts = self._watchdog_run(
+                ctx, wd, "partition-count",
+                lambda: self.num_partitions(ctx))
+        # consume() waits for p's host half, then returns the device
+        # stream verbatim; the serial pipeline just streams.
+        pipe = PL.open_pipeline(ctx, self, nparts)
+        try:
+            for p in range(nparts):
+                # Per-partition cancellation checkpoint (the deep funnels
+                # check too, through fault_point) and the preemption
+                # checkpoint, which fires only at this boundary.
+                faults.check_cancelled()
+                faults.check_preempted()
+                with monitoring.span("partition", "device-compute",
+                                     args={"partition": p,
+                                           "op": self.name}):
+                    if wd is None:
+                        batches.extend(pipe.consume(
+                            p, lambda p=p:
+                            self.execute_device_recovering(ctx, p)))
+                    else:
+                        # The pipeline's wait for p's host half runs
+                        # inside the deadline: a stalled prefetch is
+                        # killed with its attempt.
+                        batches.extend(self._watchdog_run(
+                            ctx, wd, f"partition {p}",
+                            lambda p=p: pipe.consume(
+                                p, lambda: list(
+                                    self.execute_device_recovering(
+                                        ctx, p)))))
+        finally:
+            pipe.close()
+        names = tuple(n for n, _ in self.schema)
+        with monitoring.span("download", "device-compute",
+                             args={"batches": len(batches)}):
+            return oom.retry_on_oom(download_batches, batches, names)
 
 
 class LeafExec(Exec):

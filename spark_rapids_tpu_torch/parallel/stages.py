@@ -191,3 +191,20 @@ def record_recompute(ctx, stage: Stage) -> None:
     query_metrics_entry(ctx, "Recovery").add("stageRecomputes", 1)
     monitoring.instant("stage-recompute", "recovery",
                        args={"stage": stage.name})
+
+
+def materialized_stage_count(ctx, graph: Optional[StageGraph]) -> int:
+    """How many boundary stages hold a materialized output in ``ctx``
+    right now. A preempted query reads it when it resumes
+    (``plan/planner.py``): every stage counted here serves its
+    materialization instead of recomputing (``resumedStages``)."""
+    if graph is None or ctx is None:
+        return 0
+    n = 0
+    for st in graph.stages.values():
+        b = st.boundary
+        if b is None:
+            continue                    # the result stage is never kept
+        if any(b._cache_key(dev) in ctx.cache for dev in (True, False)):
+            n += 1
+    return n

@@ -443,17 +443,28 @@ class BoundPlan:
         ctx.cache["plan_binds"] = self.bind_values
         ctx.cache["plan_bind_dtypes"] = self.bind_dtypes
 
-    def collect(self, ctx=None):
+    def collect(self, ctx=None, timeout_ms=None, cancel_event=None,
+                priority=None, tenant=None):
+        """The template's ``collect`` with this call's bindings; the
+        scheduler's arguments pass through, and the plan-cache outcome
+        lands on the query's ``Scheduler@query`` entry."""
         if self.cache_hit:
             _record("bindOnlyExecutions")
         return self.template.collect(
-            ctx, bindings=(self.bind_values, self.bind_dtypes))
+            ctx, timeout_ms=timeout_ms, cancel_event=cancel_event,
+            bindings=(self.bind_values, self.bind_dtypes),
+            plan_cache_hit=self.cache_hit, priority=priority,
+            tenant=tenant)
 
-    def collect_batches(self, ctx=None):
+    def collect_batches(self, ctx=None, timeout_ms=None, cancel_event=None,
+                        priority=None, tenant=None):
         if self.cache_hit:
             _record("bindOnlyExecutions")
         return self.template.collect_batches(
-            ctx, bindings=(self.bind_values, self.bind_dtypes))
+            ctx, bindings=(self.bind_values, self.bind_dtypes),
+            timeout_ms=timeout_ms, cancel_event=cancel_event,
+            plan_cache_hit=self.cache_hit, priority=priority,
+            tenant=tenant)
 
     def explain(self, mode: str = "ALL") -> str:
         report = self.template.explain(mode)

@@ -552,45 +552,79 @@ class PhysicalPlan:
                 lines.append(f"  *Stage #{i} <{f.name}> fuses [{members}]")
         return "\n".join(lines)
 
-    def _context(self, ctx: Optional[ExecContext], bindings) -> ExecContext:
-        """``ctx`` (or a new one on the plan's conf) with the plan cache's
-        ``(values, dtypes)`` binding vector installed, where there is
-        one."""
-        ctx = ctx or ExecContext(self.conf)
+    def _context(self, ctx: Optional[ExecContext], bindings,
+                 ticket=None) -> ExecContext:
+        """``ctx`` (or a new one on the plan's conf, for the admitted
+        ``ticket``) with the plan cache's ``(values, dtypes)`` binding
+        vector installed, where there is one."""
+        ctx = ctx or ExecContext(self.conf, query=ticket)
         if bindings is not None:
             ctx.cache["plan_binds"] = tuple(bindings[0])
             ctx.cache["plan_bind_dtypes"] = tuple(bindings[1])
         return ctx
 
     def collect(self, ctx: Optional[ExecContext] = None,
-                bindings=None) -> List[tuple]:
+                timeout_ms: Optional[float] = None,
+                cancel_event=None, bindings=None,
+                plan_cache_hit: Optional[bool] = None,
+                priority: Optional[str] = None,
+                tenant: Optional[str] = None) -> List[tuple]:
         """Run the root's partitions on the root's engine and return the
         rows (downloaded once, when the root is on the device).
-        ``bindings`` is a bound plan's ``(values, dtypes)``."""
+        ``bindings`` is a bound plan's ``(values, dtypes)``;
+        ``plan_cache_hit`` (not None) records the plan-cache outcome on
+        the ``Scheduler@query`` entry. ``timeout_ms`` arms a deadline,
+        ``cancel_event`` is a handle's cancel event, and ``priority`` /
+        ``tenant`` feed the QoS scheduler (``parallel/qos/``); with QoS
+        off the tenant is attribution only."""
         rows: List[tuple] = []
-        for hb in self._execute(ctx, bindings):
+        for hb in self._execute(ctx, bindings, timeout_ms, cancel_event,
+                                plan_cache_hit, priority, tenant):
             rows.extend(hb.to_pylist())
         return rows
 
     def collect_batches(self, ctx: Optional[ExecContext] = None,
-                        bindings=None) -> list:
+                        bindings=None, timeout_ms: Optional[float] = None,
+                        cancel_event=None,
+                        plan_cache_hit: Optional[bool] = None,
+                        priority: Optional[str] = None,
+                        tenant: Optional[str] = None) -> list:
         """``collect`` as host batches (numpy columns)."""
-        return self._execute(ctx, bindings)
+        return self._execute(ctx, bindings, timeout_ms, cancel_event,
+                             plan_cache_hit, priority, tenant)
 
-    def _execute(self, ctx: Optional[ExecContext], bindings) -> list:
-        """One query: adopt the trace and telemetry configuration, give an
-        owned top-level collect (no caller context, no token on this
-        thread) its query token, arm the fault schedule and restore the
-        batch target once, run the recovery ladder, and at the end count
-        ``srt_queries`` / ``srt_query_latency_ms``, append the event-log
-        record, keep the context as ``last_ctx`` (its metrics survive for
-        ``DataFrame.metrics()``) and close it. A nested collect rides the
-        token already on its thread.
+    def _execute(self, ctx: Optional[ExecContext], bindings,
+                 timeout_ms=None, cancel_event=None, plan_cache_hit=None,
+                 priority=None, tenant=None) -> list:
+        """One query: adopt the trace and telemetry configuration, admit
+        an owned top-level collect (no caller context, no token on this
+        thread) through the multi-query scheduler (``parallel/
+        scheduler.py``: its ticket's token, deadline and context
+        registration, and the ``Scheduler@query`` entry), arm the fault
+        schedule and restore the batch target once, run the recovery
+        ladder, and at the end count the cancel or deadline kill, release
+        the run slot, count ``srt_queries`` / ``srt_query_latency_ms``,
+        append the event-log record, keep the context as ``last_ctx``
+        (its metrics survive for ``DataFrame.metrics()``) and close it. A
+        nested collect rides the token already on its thread. A rejected
+        admission raises ``QueryRejectedError`` before anything runs.
 
         The recovery ladder (the reference's ``PhysicalPlan.collect``),
         smallest scope first, on owned contexts only (a caller's context
-        runs once: it may hold state the caller still needs):
+        runs once: it may hold state the caller still needs). A cancelled
+        or deadlined query unwinds through every rung, as
+        ``QueryCancelledError``, and is never retried.
 
+        0. preemption: the class-ranked device gate asked the query to
+           yield (``QueryPreemptedError`` at a partition boundary). Its
+           catalog spills through the OOM ladder's spill-all
+           (``preemption.spill.enabled``), it waits for the preemptor to
+           drain (``TpuSemaphore.wait_resume``) and re-collects on the
+           SAME context, where materialized stages serve again; it counts
+           ``preemptions``, ``preemptedMs`` and ``resumedStages``, at most
+           ``preemption.maxPerQuery`` times, after which the query
+           ignores further requests. A fault at the ``preempt.spill`` or
+           ``preempt.resume`` site enters the rungs below;
         1. stage recompute: a failure attributable to one stage's lost
            output (a ``lostoutput`` injection, a kept piece that fails
            its checksum twice) invalidates that stage and re-runs on the
@@ -605,33 +639,25 @@ class PhysicalPlan:
            after ``backoff_delay_ms`` seeded by ``test.faults.seed``.
 
         Each retry counts ``retriesAttempted`` in ``Recovery@query``. A
-        non-transient error is never retried. There is no preemption
-        rung and no host-fallback rung."""
+        non-transient error is never retried. There is no host-fallback
+        rung."""
         from spark_rapids_tpu_torch import faults, monitoring
         from spark_rapids_tpu_torch.memory.oom import (
             backoff_delay_ms, is_transient_error, reset_degradation)
         from spark_rapids_tpu_torch.ops.base import query_metrics_entry
+        from spark_rapids_tpu_torch.parallel import scheduler as SC
         from spark_rapids_tpu_torch.parallel import stages as S
         owned = ctx is None
+        # The trace and telemetry configuration first, so the admission's
+        # span and a rejection's counters record too.
         monitoring.maybe_configure(self.conf)
         monitoring.telemetry.maybe_configure(self.conf)
-        token = None
-        if owned and faults.get_query_token() is None:
-            tag = int(self.conf.get(C.TEST_FAULTS_QUERY_TAG))
-            token = faults.new_query_token(tag if tag >= 0 else None)
-            faults.set_query_token(token)
-        ctx = self._context(ctx, bindings)
-        # The ring the flight recorder files this query's events under
-        # (trace_export / explain_analyze read it off last_ctx).
-        tok = token or faults.get_query_token()
-        trace_qid = tok.query_id if tok is not None else 0
-        ctx.cache["trace_query"] = trace_qid
-        # Armed once per query, not per attempt: a retried attempt runs
-        # against the remaining schedule. The batch target a previous
-        # query's OOM ladder degraded is restored once, too: an attempt
-        # keeps the shrink an earlier attempt's ladder made.
+        # The fault schedule is armed once per query, not per attempt: a
+        # retried attempt runs against the remaining schedule. It and the
+        # ladder's settings are read before admission, so nothing between
+        # the admission and the ladder's ``finally`` can raise and strand
+        # the run slot.
         faults.maybe_configure(self.conf)
-        reset_degradation()
         max_retries = max(int(self.conf.get(C.RETRY_TRANSIENT_MAX)), 0)
         base_ms = int(self.conf.get(C.RETRY_BACKOFF_MS))
         max_ms = int(self.conf.get(C.RETRY_MAX_BACKOFF_MS))
@@ -641,8 +667,41 @@ class PhysicalPlan:
             graph = S.build_stage_graph(self.root)
         stage_budget = max(
             int(self.conf.get(C.RECOVERY_MAX_STAGE_RECOMPUTES)), 0)
+        ticket = None
+        mgr = None
+        if owned and faults.get_query_token() is None:
+            mgr = SC.get_query_manager(self.conf)
+            # Un-priced (cost_ms None): the port has no cost model yet,
+            # as the reference's is for a plan without a file scan.
+            ticket = mgr.admit(self.conf, cancel=cancel_event,
+                               priority=priority, tenant=tenant,
+                               cost_ms=None, deadline_ms=timeout_ms)
+            ticket.arm_deadline(timeout_ms)
+            faults.set_query_token(ticket.token)
+        ctx = self._context(ctx, bindings, ticket)
+        # The ring the flight recorder files this query's events under
+        # (trace_export / explain_analyze read it off last_ctx).
+        tok = faults.get_query_token()
+        trace_qid = tok.query_id if tok is not None else 0
+        ctx.cache["trace_query"] = trace_qid
+        if ticket is not None:
+            mgr.register_context(ticket, ctx)
+            sched = SC.metrics_entry(ctx)
+            sched.add("admitted", 1)
+            sched.add("queuedMs", ticket.queued_ms)
+            if ticket.qos_class is not None:
+                sched.add(f"class.{ticket.qos_class}", 1)
+            if ticket.tenant is not None:
+                sched.add(f"tenant.{ticket.tenant}", 1)
+            if plan_cache_hit is not None:
+                SC.record_plan_cache(ctx, plan_cache_hit)
+        # The batch target a previous query's OOM ladder degraded is
+        # restored once a query: an attempt keeps the shrink an earlier
+        # attempt's ladder made.
+        reset_degradation()
         stage_recomputes = 0
         same_ctx_retry_used = False
+        preempt_count = 0
         attempt = 0
         t0 = time.perf_counter()
         status, err_text = "ok", None
@@ -654,6 +713,37 @@ class PhysicalPlan:
                 except Exception as e:
                     if not owned:
                         raise
+                    # A cancelled or deadlined query is done, whatever
+                    # error the cancel surfaced as (a killed stall, a torn
+                    # stream): no rung may retry it.
+                    if ticket is not None and ticket.token.cancelled():
+                        if not isinstance(e, faults.QueryCancelledError):
+                            raise ticket.token.error() from e
+                        raise
+                    # Rung 0: preemption, not a failure at all.
+                    if isinstance(e, faults.QueryPreemptedError) \
+                            and ticket is not None:
+                        preempt_count += 1
+                        budget = max(int(self.conf.get(
+                            C.PREEMPTION_MAX_PER_QUERY)), 0)
+                        if preempt_count > budget:
+                            # Budget spent: the query never yields again.
+                            ticket.token.preempt_enabled = False
+                            ticket.token.clear_preempt()
+                            continue
+                        try:
+                            self._preempt_and_resume(
+                                ctx, ticket, graph, trace_qid,
+                                preempt_count, budget)
+                            continue
+                        except faults.QueryCancelledError:
+                            raise
+                        except Exception as e2:
+                            # A fault mid-spill or mid-resume: the flag is
+                            # honored; the new error enters the rungs
+                            # below like any execution fault.
+                            ticket.token.clear_preempt()
+                            e = e2
                     # Rung 1: lineage-scoped stage recompute.
                     st = S.stage_for_error(graph, e)
                     if st is not None and stage_recomputes < stage_budget:
@@ -666,7 +756,7 @@ class PhysicalPlan:
                             stage_recomputes, stage_budget, e)
                         continue
                     if not is_transient_error(e) or attempt >= max_retries:
-                        raise
+                        raise e
                     delay_ms = backoff_delay_ms(attempt, base_ms, max_ms,
                                                 seed)
                     faults.record("retriesAttempted")
@@ -687,8 +777,10 @@ class PhysicalPlan:
                             attempt + 1, max_retries, delay_ms, e)
                         time.sleep(delay_ms / 1000.0)
                         ctx.close()
-                        ctx = self._context(None, bindings)
+                        ctx = self._context(None, bindings, ticket)
                         ctx.cache["trace_query"] = trace_qid
+                        if ticket is not None:
+                            mgr.register_context(ticket, ctx)
                     query_metrics_entry(ctx, "Recovery").add(
                         "retriesAttempted", 1)
                     attempt += 1
@@ -696,19 +788,94 @@ class PhysicalPlan:
             status, err_text = "error", f"{type(e).__name__}: {e}"
             raise
         finally:
-            if token is not None:
+            if ticket is not None:
+                # Teardown accounting before the context closes: a cancel
+                # against a deadline kill.
+                if ticket.token.cancelled():
+                    sched = SC.metrics_entry(ctx)
+                    if ticket.token.reason == "deadline exceeded":
+                        status = "deadline"
+                        sched.add("deadlineKills", 1)
+                        SC._record("deadlineKills")
+                        monitoring.instant(
+                            "query-deadline-killed", "recovery",
+                            qid=trace_qid)
+                    else:
+                        status = "cancelled"
+                        sched.add("cancelled", 1)
+                        SC._record("cancelled")
+                        monitoring.instant(
+                            "query-cancelled", "recovery",
+                            args={"reason": ticket.token.reason},
+                            qid=trace_qid)
                 faults.set_query_token(None)
+                mgr.finish(ticket)
+            qos_class = ticket.qos_class if ticket is not None else None
+            q_tenant = ticket.tenant if ticket is not None else None
             dur_ms = (time.perf_counter() - t0) * 1e3
-            lbls = {"class": "-", "tenant": "-"}
+            lbls = {"class": str(qos_class or "-"),
+                    "tenant": str(q_tenant or "-")}
             monitoring.telemetry.inc("srt_queries", status=status, **lbls)
             monitoring.telemetry.observe("srt_query_latency_ms", dur_ms,
                                          **lbls)
             monitoring.history.log_query(
                 self, ctx, query_id=trace_qid, status=status,
-                qos_class=None, tenant=None, duration_ms=dur_ms,
+                qos_class=qos_class, tenant=q_tenant, duration_ms=dur_ms,
                 error=err_text)
             self.last_ctx = ctx
             ctx.close()
+
+    def _preempt_and_resume(self, ctx: ExecContext, ticket, graph,
+                            trace_qid: int, count: int,
+                            budget: int) -> None:
+        """Rung 0's work (see ``_execute``): spill the query's catalog,
+        wait until the device gate would grant its class a permit again,
+        and count the suspension; the caller then re-collects on the same
+        context."""
+        from spark_rapids_tpu_torch import faults, monitoring
+        from spark_rapids_tpu_torch.memory.stores import get_tpu_semaphore
+        from spark_rapids_tpu_torch.parallel import scheduler as SC
+        from spark_rapids_tpu_torch.parallel import stages as S
+        faults.fault_point("preempt.spill")
+        freed = 0
+        if bool(self.conf.get(C.PREEMPTION_SPILL_ENABLED)) \
+                and ctx._catalog is not None:
+            # The victim vacates the card for the preemptor through the
+            # OOM ladder's spill-all; its handles stay owned and page back
+            # in when it resumes.
+            freed = ctx._catalog.handle_oom()
+        sched = SC.metrics_entry(ctx)
+        sched.add("preemptions", 1)
+        SC._record("preemptions")
+        preemptor = ticket.token.preemptor_class
+        monitoring.instant(
+            "query-preempted", "recovery", qid=trace_qid,
+            args={"preemptor": preemptor or "-", "spilledBytes": freed,
+                  "count": count})
+        monitoring.telemetry.inc(
+            "srt_preemptions", **{"class": str(ticket.qos_class or "-")})
+        _LOG.warning("query %d preempted by a %s query (%d/%d, spilled %d "
+                     "bytes); resuming after the preemptor drains",
+                     trace_qid, preemptor or "higher-priority", count,
+                     budget, freed)
+        sem = get_tpu_semaphore(
+            max(int(self.conf.get(C.CONCURRENT_TPU_TASKS)), 1))
+        t0 = time.perf_counter()
+        # Blocks in class order until a permit would be ours again; the
+        # token's cancel aborts the wait.
+        sem.wait_resume(ticket.token)
+        ticket.token.clear_preempt()
+        preempted_ms = (time.perf_counter() - t0) * 1e3
+        resumed = S.materialized_stage_count(ctx, graph)
+        sched.add("preemptedMs", preempted_ms)
+        sched.add("resumedStages", resumed)
+        SC._record("preemptedMs", preempted_ms)
+        SC._record("resumedStages", resumed)
+        monitoring.instant(
+            "query-resumed", "recovery", qid=trace_qid,
+            args={"preemptedMs": round(preempted_ms, 2),
+                  "resumedStages": resumed})
+        faults.fault_point("preempt.resume")
 
     def host_fallback_nodes(self) -> List[str]:
         """The logical nodes tagged for the host engine, in tree order."""

@@ -29,6 +29,13 @@ OOM-failed stages one at a time (``parallel/pipeline.py``
   OOM: that stage runs again alone (``serialStageRetries`` 1) and the
   rows equal the pipeline-off run's and the reference host engine's; a
   non-OOM failure there still reaches the caller.
+- Kept on purpose (ROADMAP queue C): a final aggregate whose device OOM
+  the ladder leaves unmet raises in the port. The reference's
+  host-fallback rung would finish it on the CPU; the port has no such
+  rung and registers no ``oom.hostFallback.enabled`` key. Since the
+  multi-query scheduler, the evict-neighbors rung acts first when a
+  neighbor query holds device memory: it spills the neighbor, and the
+  final aggregate, which cannot split, still raises.
 """
 
 import test_torch_threads  # noqa: F401  (one torch thread a core a worker)
@@ -295,3 +302,50 @@ def test_stage_wave_reraises_other_errors(monkeypatch, data_dir):
     df = tpch.QUERIES["q3"](TpuSession(Q3, device="cpu"), data_dir)
     with pytest.raises(ValueError, match="not an OOM"):
         df.collect()
+
+
+def test_final_aggregate_oom_left_unmet_raises(monkeypatch, tmp_path):
+    from spark_rapids_tpu import config as JC
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.columnar.host import (HostBatch,
+                                                      host_to_device)
+    from spark_rapids_tpu_torch.ops.aggregate import HashAggregateExec
+    from spark_rapids_tpu_torch.parallel import scheduler as SC
+    from spark_rapids_tpu_torch.plan import logical as L
+    session = TpuSession(CONF, device="cpu")
+    probe, _ = _frames(session, dt, True)
+    df = probe.with_column("g", L.col("k") % 7).group_by("g").agg(
+        L.agg_sum(L.col("v")).alias("s"))
+    assert len(df.collect()) == 7
+    pc.cache().clear()
+    orig = HashAggregateExec._consolidate
+
+    def consolidate(self, pending, final_stage=False):
+        if final_stage:
+            raise torch.OutOfMemoryError(
+                "CUDA out of memory. Tried to allocate 2.00 MiB")
+        return orig(self, pending, final_stage)
+
+    monkeypatch.setattr(HashAggregateExec, "_consolidate", consolidate)
+    # A neighbor query holding device buffers in its catalog.
+    mgr = SC.get_query_manager(session.conf)
+    neighbor = mgr.admit(session.conf)
+    nctx = tbase.ExecContext(TpuSession(
+        {"spark.rapids.memory.spill.dir": str(tmp_path)},
+        device="cpu").conf, query=neighbor)
+    mgr.register_context(neighbor, nctx)
+    nctx.catalog.add_batch(host_to_device(HostBatch.from_pydict(
+        [("a", dt.INT64)], {"a": list(range(1000))}), device="cpu"))
+    try:
+        with pytest.raises(oom.OomRetryExhausted):
+            df.collect()
+        assert "evict-neighbors" in oom.last_ladder
+        assert oom.last_ladder[-1] == oom.RUNG_SHRINK
+        assert nctx.catalog.device_bytes == 0
+        assert df._physical().last_ctx.last_leak_report in (None, [])
+    finally:
+        mgr.finish(neighbor)
+        nctx.close()
+        with SC._MANAGER_LOCK:
+            SC._MANAGER = None
+    assert JC.OOM_HOST_FALLBACK.key not in C._REGISTRY

@@ -63,12 +63,6 @@ SCHEDULES = {
     "oom": "oom@upload:1,oom@kernel:1,oom@concat:1",
     "corrupt": "corrupt@wire:2,oom@upload:1",
 }
-# Query-level spans of reference layers the port does not have yet: the
-# scheduler's admission queue and the device semaphore.
-UNPORTED = {("admission-queue", "queued"),
-            ("tpu-semaphore-acquire", "queued")}
-
-
 def _restore_syncs():
     for owner, name, original, own in reversed(syncs._PATCHED):
         if own:
@@ -282,7 +276,11 @@ def test_spans_well_formed(q, data_dir):
     parts = [e for e in _spans(evs) if e[1] == "partition"]
     assert parts
     for e in _spans(evs):
-        assert c0 <= e[3] and e[3] + e[4] <= c1, e
+        if e[1] == "admission-queue":
+            # The admission wait precedes the collect it admits.
+            assert e[3] + e[4] <= c0, e
+        else:
+            assert c0 <= e[3] and e[3] + e[4] <= c1, e
     assert {e[6] for e in evs} == {qid}
     # Nothing of the query leaked into ring 0 (prefetch threads carry
     # the token).
@@ -331,8 +329,11 @@ def test_query_level_multiset_matches_reference(q, data_dir,
     df = tpch.QUERIES[q](_session(level="query"), data_dir)
     df.collect()
     got = sorted((e[1], e[2]) for e in monitoring.events())
-    want = [e for e in reference_events[q] if e not in UNPORTED]
+    want = reference_events[q]
     assert got == want
+    # The scheduler's admission queue and the device semaphore's acquire.
+    assert {("admission-queue", "queued"),
+            ("tpu-semaphore-acquire", "queued")} <= set(got)
     assert {("collect", "query"), ("plan-bind", "planning"),
             ("plan-cache-miss", "planning")} <= set(got)
 
@@ -352,8 +353,14 @@ def test_schedule_instants_match_reference(q, schedule, data_dir,
     assert any(name == "oom-rung" for name, _, _ in got)
 
 
+# The plan-cache outcome of an execution depends on what ran before it,
+# not on tracing (the reference's ``_CACHE_COUNTERS`` leave it out too).
+_CACHE_COUNTERS = {"planCacheMiss", "planCacheBindOnly"}
+
+
 def _metric_shape(metrics: dict):
-    return sorted((k.split("@")[0], tuple(sorted(v)))
+    return sorted((k.split("@")[0],
+                   tuple(sorted(n for n in v if n not in _CACHE_COUNTERS)))
                   for k, v in metrics.items())
 
 
