@@ -510,14 +510,42 @@ once a run and shared by the phases that check the query.
    must be above 0), and both queries return their oracle rows. The
    semaphore is made anew at the default two permits after (d), the
    schedule disarmed after the phase; its time is printed.
+27. Cost-based placement with the card's own constants and the shuffle
+   transport SPI: TPC-H SF1's q1-q6 columns are written to parquet with
+   pyarrow; (a) ``cost_sweep.run`` measures the three constants (the
+   mean ``sync`` span and upload bytes over upload span time of q1 and
+   q6 from the files, traced at kernel level; the host engine's bytes
+   per second on q6), then times q6 over LINEITEM prefixes of SF 0.1,
+   0.3 and 1 on the host engine and on the card in turns and prints the
+   break-evens (measured; the model's at the measured constants without
+   a query floor; the defaults') and the fitted query floor; it fails
+   unless the defaults' break-even lies within 2x of the measured one;
+   (b) q1-q6 from those files under the default conf with placement on
+   and off (the scan cache off in both, the order alternating by
+   query; one run each: ``cost_sweep.py --placement`` compares the
+   walls): each plan's placements and estimates, both runs' launches
+   and walls, rows against the phase-11 oracles; (e)'s workers start
+   here; (c) q3
+   and q18 at 8 partitions through ``inprocess``, ``hostfile`` and
+   ``objectstore`` (the in-process stub): rows bit for bit equal,
+   against the oracles, K1 / K3 / K4 launches and the transport
+   counters printed, the spool and the store empty after each; (d) q3
+   through ``hostfile`` with a shard file deleted after its stage
+   committed: one stage recompute, rows bit for bit ``inprocess``'s;
+   (e) the two ``spawn``-started worker processes, each with its own CUDA
+   context (started before (c)), repartition half of LINEITEM's ``l_orderkey`` /
+   ``l_quantity`` each on the card into the shared spool (one tag,
+   announced over the rendezvous); this process fetches the 8 partitions
+   onto the card and they equal its own in-process repartition of both
+   halves row for row; the spool is empty at the end.
 17. A ``{"kernels": [...]}`` line: each ported kernel's launches on the
    paths (q1 + q3 + q4 + q2 hand-built, then q1-q6 through the DataFrame
    front end, then q1-q6 under the default conf, then phase 13's
    fourteen runs, phase 14's twelve, phase 15's fourteen, phase 16's
    nineteen, phase 18's eleven, phase 19's ten, phase 20's thirteen,
    phase 21's eight (four without pandas), phase 22's sixteen, phase
-   23's fifteen, phase 24's twenty-three, phase 25's thirty-one and
-   phase 26's runs), its
+   23's fifteen, phase 24's twenty-three, phase 25's thirty-one,
+   phase 26's and phase 27's runs), its
    error against the plain version, its time, the
    plain version's, its bound, one PyTorch call's time for the same
    function (K1: the whole sort at 786 432 rows against ``torch.sort``;
@@ -5242,7 +5270,11 @@ def udf_phase(native, cols: dict, known_seen: list, known_k1: set) -> dict:
 FILE_QUERIES = ("q1", "q3", "q4", "q6")
 FILE_MUST_LAUNCH = {"q1": ("radix_sort",), "q3": ("radix_sort",),
                     "q4": ("radix_sort", "join_probe"), "q6": ()}
-FILE_VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+# Cost placement off: this phase asserts K1-K4 launches and device
+# execution of parquet queries, which the card's cost model may put on the
+# host engine (phase 27 checks placement over the same kind of files).
+FILE_VFA = {"spark.rapids.sql.variableFloatAgg.enabled": True,
+            "spark.rapids.sql.cost.enabled": False}
 READER_TYPES = ("PERFILE", "MULTITHREADED", "COALESCING")
 SMALL_ORDERS = 200_000
 _NO_SCAN_CACHE = {"spark.rapids.sql.format.scanCache.maxBytes": 0}
@@ -7121,6 +7153,445 @@ def scheduler_phase(native, df_out: dict, ex_out: dict, smi: str) -> dict:
 _T_START = [time.perf_counter()]
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: cost-based placement with the card's constants, and the shuffle
+# transport SPI (inprocess, hostfile with its rendezvous, objectstore)
+# ---------------------------------------------------------------------------
+
+COST_SWEEP = (0.1, 0.3, 1.0)
+COST_ROUNDS = 2
+TRANSPORT_QUERIES = ("q3", "q18")
+TRANSPORT_PARTS = 8
+REPART_SCHEMA_NAMES = ("l_orderkey", "l_quantity")
+
+
+def _repart_exchange(schema, parts, n_parts: int):
+    """A hash repartition of ``parts`` (host batches) on column 0 into
+    ``n_parts``, as its own exchange over an in-memory source on the
+    card."""
+    from spark_rapids_tpu_torch.exprs.base import BoundReference
+    from spark_rapids_tpu_torch.ops.base import InMemorySourceExec
+    from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.parallel.partitioning import \
+        HashPartitioning
+    return ShuffleExchangeExec(
+        InMemorySourceExec(schema, parts),
+        HashPartitioning([BoundReference(0, schema[0][1])], n_parts))
+
+
+def _repart_parts(keys, vals, n_parts: int) -> list:
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    schema = ((REPART_SCHEMA_NAMES[0], dt.INT64),
+              (REPART_SCHEMA_NAMES[1], dt.FLOAT64))
+    return schema, E.table_partitions(
+        {REPART_SCHEMA_NAMES[0]: keys, REPART_SCHEMA_NAMES[1]: vals},
+        schema, n_parts)
+
+
+def _repart_worker(spool, tag, worker, rv, keys, vals, n_parts, go, done,
+                   results):
+    """Phase 27 (e)'s worker process (started with ``spawn``, its own
+    CUDA context): once ``go`` is set, its half of LINEITEM's two
+    columns, repartitioned on the card by the exchange's map side into
+    the shared hostfile spool under ``tag``; the commit is announced over
+    the rendezvous. Starts its CUDA context before ``go``, so its start
+    overlaps the parent's earlier work. Waits for ``done`` before its
+    teardown removes what it wrote."""
+    sys.path.insert(0, HERE)
+    try:
+        import torch
+        torch.zeros(1, device="cuda")
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.ops import native
+        from spark_rapids_tpu_torch.ops.base import ExecContext
+        from spark_rapids_tpu_torch.parallel.transport.hostfile import \
+            HostFileTransport
+        schema, parts = _repart_parts(keys, vals, 4)
+        ex = _repart_exchange(schema, parts, n_parts)
+        conf = C.TpuConf({
+            C.SHUFFLE_TRANSPORT.key: "hostfile",
+            C.SHUFFLE_TRANSPORT_HOSTFILE_DIR.key: spool,
+            C.SHUFFLE_TRANSPORT_HOSTFILE_WORKER_ID.key: worker,
+            C.SHUFFLE_TRANSPORT_HOSTFILE_RENDEZVOUS.key: rv})
+        ctx = ExecContext(conf)
+        # One tag for both workers' sessions (an exchange's own tag names
+        # its process), so the parent fetches their union.
+        ex._open_session = lambda c: HostFileTransport().open(
+            conf, tag, n_parts, owner=id(ex), catalog=c.catalog,
+            device=ex.plan_device())
+        if not go.wait(300):
+            raise TimeoutError("no go from the parent in 300 s")
+        native.reset_counters()
+        t0 = time.perf_counter()
+        sess = ex._materialize_device(ctx)
+        torch.cuda.synchronize()
+        results.put((worker, dict(
+            ok=True, write_s=time.perf_counter() - t0,
+            launches=native.counters(), shards=sum(
+                len(v) for v in sess._written.values()),
+            bytes=sess.observed_bytes(),
+            device=torch.cuda.get_device_name(0))))
+        done.wait(300)
+        ctx.close()
+    except BaseException as e:      # reported to the parent, which fails
+        import traceback
+        results.put((worker, dict(ok=False, error="".join(
+            traceback.format_exception(e)))))
+
+
+def _partition_arrays(batches) -> tuple:
+    """The live rows of one partition's served batches, as (keys, vals)
+    numpy arrays in serve order."""
+    from spark_rapids_tpu_torch.columnar.host import device_to_host
+    ks, vs = [], []
+    for b in batches:
+        hb = device_to_host(b)
+        ks.append(hb.columns[0].data)
+        vs.append(hb.columns[1].data)
+    return (np.concatenate(ks) if ks else np.zeros(0, np.int64),
+            np.concatenate(vs) if vs else np.zeros(0, np.float64))
+
+
+def transport_phase(native, cols: dict, df_out: dict, ex_out: dict,
+                    smi: str) -> dict:
+    """Phase 27: (a) the cost model's three constants measured on the
+    card, the host-against-device break-even sweep of a q6-shaped
+    aggregate and the fitted query floor (``cost_sweep.py``), the
+    defaults' break-even within 2x of the measured one; (b) q1-q6 from
+    parquet at SF1 under the default conf, placement on and off: each
+    query's placements, rows against phase 11's oracles; (c) q3 and q18 at 8 partitions through ``hostfile`` and
+    through ``objectstore`` against the stub, rows bit for bit those of
+    ``inprocess``, with K1 / K3 / K4 launches; (d) a spool file deleted
+    mid-query, recovered by a stage recompute with the same rows; (e)
+    two worker processes on the card write a LINEITEM repartition (two
+    columns) that this process fetches, equal to its own in-process
+    result; the spool empty afterwards."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import cost_sweep as CS
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.base import ExecContext
+    from spark_rapids_tpu_torch.parallel import transport as T
+    from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.parallel.transport import rendezvous as RV
+    from spark_rapids_tpu_torch.parallel.transport.hostfile import \
+        HostFileTransport
+    from spark_rapids_tpu_torch.parallel.transport.objectstore import \
+        ObjectStoreStub
+    from spark_rapids_tpu_torch.plan import cost as COST
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="srt_phase27_")
+    out = {"runs": []}
+    oracles = dict(df_out["oracles"])
+    oracles["q18"] = ex_out["oracles"]["q18"]
+    vfa = {"spark.rapids.sql.variableFloatAgg.enabled": True}
+
+    def spool_files(d):
+        return [os.path.join(a, f) for a, _, fs in os.walk(d) for f in fs]
+
+    procs, srv = [], None
+    try:
+        # (b)'s tables, written once: (a) reads LINEITEM at SF1 there.
+        t0 = time.perf_counter()
+        data_dir = os.path.join(root, "tpch")
+        CS.write_tables(cols, data_dir, DF_QUERIES)
+        log(f"phase 27 q1-q6 tables written with pyarrow in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) The constants and the break-even sweep.
+        t0 = time.perf_counter()
+        COST.reset_calibration()
+        cs = CS.run(cols, 1.0, COST_SWEEP, COST_ROUNDS, None, root,
+                    data_dir=data_dir)
+        m = cs["constants"]
+        log(f"phase 27 (a) constants on {smi}: sync span mean "
+            f"{m['sync_mean_ms']} ms over {m['syncs']} syncs (q1, q6 from "
+            f"parquet, SF1, traced); upload {m['upload_bytes']:.0f} B at "
+            f"{m['device_gbps']} GB/s; host engine q6 {m['host_q6_ms']:.2f} "
+            f"ms over {m['model_bytes']:.0f} model bytes, {m['model_nodes']} "
+            f"nodes: {m['host_gbps']} GB/s; per query {m['per_query']}")
+        for pt in cs["sweep"]["points"]:
+            hw = [round(w, 3) for w in pt["host_walls_ms"]]
+            dw = [round(w, 3) for w in pt["device_walls_ms"]]
+            log(f"phase 27 (a) sweep sf {pt['sf']}: {pt['rows']} rows, "
+                f"{pt['bytes']} model bytes, {pt['syncs']} syncs; host "
+                f"{pt['host_ms']:.3f} ms {hw}, device "
+                f"{pt['device_ms']:.3f} ms {dw}; model "
+                f"host {pt['model_host_ms']:.3f}, device "
+                f"{pt['model_device_ms']:.3f} ms")
+        meas = cs["sweep"]["measured_break_even_sf"]
+        dflt = cs["sweep"]["default_break_even_sf"]
+        log(f"phase 27 (a) break-even: measured sf {meas}, model sf "
+            f"{cs['sweep']['model_break_even_sf']} at "
+            f"{cs['model_constants']} without a query floor; fitted query "
+            f"floor {cs.get('fitted_query_floor_ms')} ms; at the defaults "
+            f"(sync {C.COST_SYNC_FLOOR_MS.default} ms, query "
+            f"{C.COST_QUERY_FLOOR_MS.default} ms, "
+            f"{C.COST_DEVICE_GBPS.default} GB/s, "
+            f"{C.COST_HOST_GBPS.default} GB/s) sf {dflt} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        # The defaults must still put q6's break-even within 2x of where
+        # this card's walls cross.
+        if meas is None or dflt is None or \
+                max(meas, dflt) / min(meas, dflt) > 2.0:
+            raise AssertionError(
+                f"phase 27 (a): the defaults' break-even sf {dflt} is not "
+                f"within 2x of the measured sf {meas}")
+        out["cost"] = cs
+        COST.reset_calibration()
+
+        # (b) q1-q6 from parquet at SF1 under the default conf.
+        t0 = time.perf_counter()
+        out["placements"] = {}
+        # The scan cache off in both runs (each reads the files) and the
+        # order alternating by query; single runs: the placement walls
+        # are compared by ``cost_sweep.py --placement``.
+        confs = {"on": dict(_NO_SCAN_CACHE),
+                 "off": dict(_NO_SCAN_CACHE,
+                             **{"spark.rapids.sql.cost.enabled": False})}
+        for i, q in enumerate(DF_QUERIES):
+            check, want = oracles[q]
+            runs = {}
+            for label in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                phys = tpch.QUERIES[q](TpuSession(confs[label]),
+                                       data_dir)._physical()
+                native.reset_counters()
+                t1 = time.perf_counter()
+                rows = phys.collect()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches = native.counters()
+                out["runs"].append(launches)
+                check(rows, want)
+                runs[label] = dict(phys=phys, wall=wall, launches=launches,
+                                   rows=len(rows))
+            rep = runs["on"]["phys"].cost_report
+            out["placements"][q] = dict(
+                placements=rep.placements, nodes=rep.nodes_host_placed,
+                est_device_ms=rep.est_device_ms,
+                est_host_ms=rep.est_host_ms, syncs=rep.est_syncs,
+                root_on_device=runs["on"]["phys"].root_on_device,
+                host_nodes=runs["on"]["phys"].host_fallback_nodes(),
+                **{f"{k}_{m}": runs[k][m] for k in runs
+                   for m in ("wall", "launches")})
+            log(f"phase 27 (b) {q} from parquet, default conf: "
+                f"{rep.placements} host placement(s) ({rep.nodes_host_placed}"
+                f" nodes: host nodes "
+                f"{runs['on']['phys'].host_fallback_nodes()}), est device "
+                f"{rep.est_device_ms:.2f} ms ({rep.est_syncs} syncs) vs host "
+                f"{rep.est_host_ms:.2f} ms, root on the "
+                f"{'device' if runs['on']['phys'].root_on_device else 'host'}"
+                f"; both runs match the oracle ({runs['on']['rows']} rows); "
+                f"scan cache off, one run each: placement on "
+                f"{runs['on']['wall']:.3f} s, launches "
+                f"{runs['on']['launches']}; placement off "
+                f"{runs['off']['wall']:.3f} s, launches "
+                f"{runs['off']['launches']}")
+
+        # (e)'s two worker processes start here, so their CUDA contexts
+        # come up while (c) and (d) run; they write once ``go`` is set.
+        spool = os.path.join(root, "spool")
+        li = cols["lineitem"]
+        keys = np.ascontiguousarray(li["l_orderkey"])
+        vals = np.ascontiguousarray(li["l_quantity"], dtype=np.float64)
+        half = len(keys) // 2
+        n_parts = TRANSPORT_PARTS
+        tag = "lineitem-repart"
+        srv = RV.RendezvousServer()
+        rv = f"{srv.addr[0]}:{srv.addr[1]}"
+        mp = multiprocessing.get_context("spawn")
+        go, done, results = mp.Event(), mp.Event(), mp.Queue()
+        procs = [mp.Process(target=_repart_worker, args=(
+            spool, tag, w, rv, keys[lo:hi], vals[lo:hi], n_parts, go, done,
+            results)) for w, lo, hi in (("w0", 0, half),
+                                        ("w1", half, len(keys)))]
+        for pr in procs:
+            pr.start()
+
+        # (c) q3 and q18 at 8 partitions through the three transports.
+        t0 = time.perf_counter()
+        stub = ObjectStoreStub()
+        base_tables = tpch.tpch_tables(TpuSession(vfa), cols,
+                                       TRANSPORT_QUERIES)
+        inprocess_rows = {}
+        try:
+            out["transports"] = {}
+            for q in TRANSPORT_QUERIES:
+                check, want = oracles[q]
+                base = None
+                for name in ("inprocess", "hostfile", "objectstore"):
+                    conf = dict(vfa, **{
+                        "spark.rapids.sql.shuffle.partitions":
+                            TRANSPORT_PARTS,
+                        C.SHUFFLE_TRANSPORT.key: name,
+                        C.SHUFFLE_TRANSPORT_HOSTFILE_DIR.key: spool,
+                        C.SHUFFLE_TRANSPORT_OBJECTSTORE_ENDPOINT.key:
+                            stub.endpoint})
+                    session = TpuSession(conf)
+                    df = tpch.QUERIES[q](session, _rebound(
+                        session, base_tables[q]))
+                    T.reset_counters()
+                    native.reset_counters()
+                    t1 = time.perf_counter()
+                    rows = df.collect()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+                    launches = native.counters()
+                    out["runs"].append(launches)
+                    check(rows, want)
+                    if base is None:
+                        base = inprocess_rows[q] = rows
+                    elif rows != base:
+                        raise AssertionError(
+                            f"phase 27 (c) {q} through {name} differs from "
+                            f"inprocess: {rows[:3]} vs {base[:3]}")
+                    tc = T.counters()
+                    left = spool_files(spool) + stub.keys()
+                    if left:
+                        raise AssertionError(f"phase 27 (c) {q} {name} "
+                                             f"left {left[:5]}")
+                    out["transports"][(q, name)] = dict(
+                        wall_s=wall, launches=launches, transport=tc)
+                    log(f"phase 27 (c) {q} x{TRANSPORT_PARTS} through "
+                        f"{name}: rows bit for bit inprocess's "
+                        f"({len(rows)}), {wall:.3f} s; K1 "
+                        f"{launches['radix_sort']}, K3 "
+                        f"{launches['join_probe']}, K4 "
+                        f"{launches['rle_decode']}; transport {tc}")
+        finally:
+            stub.close()
+        log(f"phase 27 (c) {time.perf_counter() - t0:.1f} s")
+
+        # (d) A spool file deleted under a running query.
+        t0 = time.perf_counter()
+        deleted = []
+        orig = ShuffleExchangeExec._materialize_device_traced
+
+        def materialize_then_lose(self, ctx, key):
+            sess = orig(self, ctx, key)
+            if not deleted:
+                victims = sorted(f for f in spool_files(sess.root)
+                                 if f.endswith(".shard"))
+                if victims:
+                    os.remove(victims[0])
+                    deleted.append(victims[0])
+            return sess
+
+        conf = dict(vfa, **{
+            "spark.rapids.sql.shuffle.partitions": TRANSPORT_PARTS,
+            C.SHUFFLE_TRANSPORT.key: "hostfile",
+            C.SHUFFLE_TRANSPORT_HOSTFILE_DIR.key: spool})
+        session = TpuSession(conf)
+        df = tpch.QUERIES["q3"](session, _rebound(session,
+                                                  base_tables["q3"]))
+        ShuffleExchangeExec._materialize_device_traced = \
+            materialize_then_lose
+        faults.reset_counters()
+        try:
+            native.reset_counters()
+            rows = df.collect()
+            torch.cuda.synchronize()
+        finally:
+            ShuffleExchangeExec._materialize_device_traced = orig
+        out["runs"].append(native.counters())
+        rec = df.metrics().get("Recovery@query", {})
+        if rows != inprocess_rows["q3"]:
+            raise AssertionError(f"phase 27 (d) rows differ from "
+                                 f"inprocess: {rows[:3]}")
+        if len(deleted) != 1 or rec.get("stageRecomputes") != 1:
+            raise AssertionError(f"phase 27 (d): deleted {deleted}, "
+                                 f"recovery {rec}")
+        if spool_files(spool):
+            raise AssertionError(f"phase 27 (d) left {spool_files(spool)}")
+        log(f"phase 27 (d) q3 through hostfile with "
+            f"{os.path.basename(deleted[0])} deleted after its stage "
+            f"committed: one stage recompute ({rec}), rows bit for bit "
+            f"inprocess's, spool empty ({time.perf_counter() - t0:.1f} s)")
+
+        # (e) Two worker processes write a LINEITEM repartition.
+        t0 = time.perf_counter()
+        try:
+            go.set()
+            # Its own in-process result meanwhile: the same exchange over
+            # both halves in the workers' order.
+            schema, p0 = _repart_parts(keys[:half], vals[:half], 4)
+            _, p1 = _repart_parts(keys[half:], vals[half:], 4)
+            ex = _repart_exchange(schema, p0 + p1, n_parts)
+            ctx = ExecContext(C.TpuConf())
+            native.reset_counters()
+            mine = [_partition_arrays(list(ex.execute_device(ctx, p)))
+                    for p in range(n_parts)]
+            out["runs"].append(native.counters())
+            ctx.close()
+            workers = {}
+            for _ in procs:
+                w, r = results.get(timeout=240)
+                if not r["ok"]:
+                    raise AssertionError(f"phase 27 (e) worker {w}: "
+                                         f"{r['error']}")
+                workers[w] = r
+            conf = C.TpuConf({
+                C.SHUFFLE_TRANSPORT_HOSTFILE_DIR.key: spool,
+                C.SHUFFLE_TRANSPORT_HOSTFILE_EXPECTED_WORKERS.key: 2,
+                C.SHUFFLE_TRANSPORT_HOSTFILE_RENDEZVOUS.key: rv})
+            fctx = ExecContext(conf)
+            sess = HostFileTransport().open(conf, tag, n_parts,
+                                            catalog=fctx.catalog)
+            t1 = time.perf_counter()
+            for p in range(n_parts):
+                got = _partition_arrays([h.get() for h in
+                                         sess.fetch_shards(p)])
+                for h in sess.fetch_shards(p):
+                    h.release()
+                if not (np.array_equal(got[0], mine[p][0]) and
+                        np.array_equal(got[1], mine[p][1])):
+                    raise AssertionError(
+                        f"phase 27 (e) partition {p}: fetched "
+                        f"{len(got[0])} rows differ from the in-process "
+                        f"{len(mine[p][0])}")
+            fetch_s = time.perf_counter() - t1
+            sess.close()
+            fctx.close()
+        finally:
+            done.set()
+            for pr in procs:
+                pr.join(60)
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join(10)
+            procs = []
+            srv.close()
+            srv = None
+        left = spool_files(spool)
+        if left:
+            raise AssertionError(f"phase 27 (e) left {left[:5]}")
+        out["workers"] = workers
+        log(f"phase 27 (e) two spawned workers ({workers['w0']['device']}) "
+            f"wrote {[workers[w]['shards'] for w in ('w0', 'w1')]} shards "
+            f"({[workers[w]['bytes'] for w in ('w0', 'w1')]} B) in "
+            f"{[round(workers[w]['write_s'], 3) for w in ('w0', 'w1')]} s "
+            f"(launches {[workers[w]['launches'] for w in ('w0', 'w1')]}); "
+            f"this process fetched all {n_parts} partitions in "
+            f"{fetch_s:.3f} s, equal to its in-process result "
+            f"({len(keys)} rows); spool empty "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        for pr in procs:            # a failure before (e) ended
+            pr.kill()
+            pr.join(10)
+        if srv is not None:
+            srv.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def end_phase(name: str) -> None:
     """Clear the plan cache (its templates pin their sources and packed
     encodings) and print the process's peak and current host RSS."""
@@ -7406,6 +7877,11 @@ def main() -> int:
     sc = scheduler_phase(native, df, ex, smi)
     end_phase("phase 26")
 
+    # Phase 27: cost-based placement with the card's constants and the
+    # shuffle transports
+    tp = transport_phase(native, cols, df, ex, smi)
+    end_phase("phase 27")
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -7416,7 +7892,7 @@ def main() -> int:
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
         fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"]) + tuple(
-        ad["runs"]) + tuple(sc["runs"])
+        ad["runs"]) + tuple(sc["runs"]) + tuple(tp["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -7480,7 +7956,8 @@ def main() -> int:
         + f"; phase 23 library calls {library}"
         + "; phase 24 " + ", ".join(str(r) for r in ob["runs"])
         + "; phase 25 " + ", ".join(str(r) for r in ad["runs"])
-        + "; phase 26 " + ", ".join(str(r) for r in sc["runs"]))
+        + "; phase 26 " + ", ".join(str(r) for r in sc["runs"])
+        + "; phase 27 " + ", ".join(str(r) for r in tp["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

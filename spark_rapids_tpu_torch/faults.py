@@ -19,9 +19,13 @@ env)::
   exchange site, recovered by the stage recompute,
   ``parallel/stages.py``), ``stall`` (a bounded hang, then
   :class:`InjectedStallError`, killed and re-dispatched by the
-  execution watchdog, ``ops/base.py``), and the kinds whose recovery is
-  not ported yet, which parse, fire, and propagate out of ``collect``:
-  ``lostshard``, ``workerdeath``, ``slowput`` and ``unavailable``.
+  execution watchdog, ``ops/base.py``), the shuffle transports' kinds
+  (``lostshard`` at ``transport``: a fetched shard deleted at rest and an
+  owner-tagged loss, recovered by the stage recompute; ``slowput`` at
+  ``transport``: a delayed object-store write; ``unavailable`` at
+  ``objectstore``: one failed backend request, absorbed by its bounded
+  retry; ``parallel/transport/``), and ``workerdeath``, whose cluster
+  layer is not ported: it parses and never fires.
 - ``site``: a named injection point in a dispatch funnel: ``upload``
   (the wire codec's host->device copy), ``download`` (the result copy),
   ``concat`` (batch coalescing), ``kernel`` (each operator's retried
@@ -29,7 +33,10 @@ env)::
   prefetch and reader threads and is re-raised at the ordered
   consumption point), ``exchange.flush`` / ``exchange.serve`` (shuffle
   map and reduce sides), ``spill.write`` / ``spill.read`` (disk tier
-  I/O) and ``wire`` (serialized spill frames, ``corrupt`` only). The
+  I/O), ``wire`` (serialized spill frames, ``corrupt`` only),
+  ``transport.write`` (a shard written through a transport session),
+  ``transport`` (a fetched shard: ``lostshard``, ``oom``, ``transient``,
+  ``corrupt``, ``slowput``) and ``objectstore`` (a backend request). The
   grammar accepts any site name, so every spec of the reference parses.
 - ``arg``: an integer N fires on the first N hits of the site (default
   1); a float p in (0, 1] fires per hit with probability p from a

@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import faults
+from spark_rapids_tpu_torch import DeviceLike, faults
 from spark_rapids_tpu_torch.columnar import dtypes as dt
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, DeviceColumn
 
@@ -88,9 +88,11 @@ def _batch_to_numpy(batch: DeviceBatch) -> Tuple[dict, list]:
     return meta, bufs
 
 
-def _numpy_to_batch(meta: dict, bufs: list) -> DeviceBatch:
-    """Inverse of :func:`_batch_to_numpy`, onto the device it came from."""
-    device = torch.device(meta["device"])
+def _numpy_to_batch(meta: dict, bufs: list,
+                    device: DeviceLike = None) -> DeviceBatch:
+    """Inverse of :func:`_batch_to_numpy`, onto ``device`` (None: the
+    device it came from)."""
+    device = torch.device(meta["device"] if device is None else device)
 
     def up(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
@@ -140,6 +142,51 @@ def _deserialize_bufs(blob: bytes, directory: list) -> list:
         out.append(arr)
         off += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# The shard wire format (the shuffle transport SPI's at-rest form,
+# parallel/transport/): ONE CRC-framed blob a shard, the meta and a buffer
+# directory as a JSON header, then the contiguous buffer bytes. The
+# format is the JAX package's byte for byte (the header carries no
+# device), so a blob written by either package decodes in the other. The
+# numpy round trip is exact, so a transport that moves these blobs keeps
+# the rows bit for bit.
+# ---------------------------------------------------------------------------
+
+def batch_to_shard_blob(batch: DeviceBatch) -> bytes:
+    """DeviceBatch -> one CRC-framed, self-describing byte blob
+    (``wire.frame_blob`` outside, so a fetch detects corruption at the
+    frame)."""
+    import json
+    import struct
+
+    from spark_rapids_tpu_torch.columnar.wire import frame_blob
+    meta, bufs = _batch_to_numpy(batch)
+    meta.pop("device", None)
+    blob, directory = _serialize_bufs(bufs)
+    header = json.dumps(
+        {"meta": meta,
+         "directory": [{"dtype": d["dtype"], "shape": list(d["shape"]),
+                        "nbytes": d["nbytes"]} for d in directory]},
+    ).encode("utf-8")
+    return frame_blob(struct.pack("<I", len(header)) + header + blob)
+
+
+def shard_blob_to_batch(framed: bytes, device: DeviceLike) -> DeviceBatch:
+    """Inverse of :func:`batch_to_shard_blob`, onto ``device`` (the
+    reading session's device, whichever device wrote the blob). Raises
+    ``WireCorruptionError`` on any frame or CRC mismatch: wrong bytes
+    never decode into wrong rows."""
+    import json
+    import struct
+
+    from spark_rapids_tpu_torch.columnar.wire import unframe_blob
+    payload = unframe_blob(framed)
+    (hlen,) = struct.unpack_from("<I", payload)
+    header = json.loads(payload[4:4 + hlen].decode("utf-8"))
+    bufs = _deserialize_bufs(payload[4 + hlen:], header["directory"])
+    return _numpy_to_batch(header["meta"], bufs, device)
 
 
 @dataclasses.dataclass
@@ -261,8 +308,17 @@ class BufferCatalog:
                 bufs = _deserialize_bufs(blob, e.disk_directory)
                 self._file().free(e.disk_block)
                 e.disk_meta = e.disk_directory = e.disk_block = None
-            self._ensure_device_room(e.size_bytes)
-            batch = _numpy_to_batch(meta, bufs)
+            try:
+                self._ensure_device_room(e.size_bytes)
+                batch = _numpy_to_batch(meta, bufs)
+            except BaseException:
+                # A failed restore (a device OOM the caller's ladder may
+                # retry) leaves the bytes in host memory: the entry is a
+                # host entry again, whichever tier it came from.
+                e.host_meta, e.host_bufs = meta, bufs
+                e.tier = StorageTier.HOST
+                self._host_bytes += e.size_bytes
+                raise
             e.tier = StorageTier.DEVICE
             e.device_batch = batch
             self._device_bytes += e.size_bytes

@@ -1,22 +1,27 @@
 """``DataFrame.explain_analyze``: the plan tree annotated with OBSERVED
-per-operator numbers (port of the JAX package's ``monitoring/analyze.py``).
+per-operator numbers beside the cost model's ESTIMATES (port of the JAX
+package's ``monitoring/analyze.py``).
 
 ``explain`` answers "what will run where"; this answers "what actually
-happened". Per physical node: rows (where a host-known row count exists:
-scans, projections, exchange serves; ``?`` where counting would cost a
-device sync), bytes, wall-ms (the operator's ``totalTime`` plus a scan's
-``bufferTime``), batches. The reference adds the cost model's per-node
-estimates beside them; the port renders observed-only, as the reference
-does when the cost model gives no estimate, until the cost model is
-ported.
+happened, and how wrong was the model". Per physical node:
+
+- observed: rows (where a host-known row count exists: scans,
+  projections, exchange serves; ``?`` where counting would cost a device
+  sync), bytes, wall-ms (the operator's ``totalTime`` plus a scan's
+  ``bufferTime``), batches;
+- estimated: the cost model's subtree device estimate (ms, sync count,
+  bytes; ``plan/cost.py``) for the logical node the physical node was
+  converted from (``_logical_id``), with the subtree's observed wall and
+  the signed error percentage. A plan the model cannot estimate renders
+  observed-only.
 
 On the card the walls are host time: an operator's ``totalTime`` is its
 dispatch, and the device work it queued is waited for where the next
 sync happens (the download, or an operator's own sizes pull).
 
-The footer aggregates the audit entries (Recovery@query,
-Pipeline@query) and, when the flight recorder is on, the span-category
-time breakdown of the query's ring.
+The footer aggregates the audit entries (Recovery@query, Cost@query,
+Pipeline@query, Transport@query) and, when the flight recorder is on,
+the span-category time breakdown of the query's ring.
 """
 
 from __future__ import annotations
@@ -45,8 +50,20 @@ def _wall_ns(vals: dict) -> float:
     return vals.get("totalTime", 0.0) + vals.get("bufferTime", 0.0)
 
 
+def _subtree_wall_ns(ctx, op) -> float:
+    total = _wall_ns(_node_metrics(ctx, op))
+    return total + sum(_subtree_wall_ns(ctx, c) for c in op.children)
+
+
 def render(phys, ctx) -> str:
     """Render the analyzed plan tree for one executed PhysicalPlan."""
+    from spark_rapids_tpu_torch.plan import cost as COST
+    from spark_rapids_tpu_torch.plan.logical import NotPortedError
+    try:
+        ests = COST.estimate_plan(phys.meta.plan, phys.conf,
+                                  device=getattr(phys, "device", None))
+    except (NotPortedError, OSError, ValueError):
+        ests = {}   # no footer stats or an unresolvable node: observed-only
     lines: List[str] = []
 
     def walk(op, depth: int):
@@ -61,6 +78,16 @@ def render(phys, ctx) -> str:
         batches = vals.get("numOutputBatches")
         if batches:
             parts.append(f"batches={int(batches)}")
+        est = ests.get(getattr(op, "_logical_id", -1))
+        if est is not None:
+            obs_ms = _subtree_wall_ns(ctx, op) / 1e6
+            est_ms = est.device_ms
+            err = ""
+            if est_ms > 0:
+                err = f" err={100.0 * (obs_ms - est_ms) / est_ms:+.0f}%"
+            parts.append(
+                f"| est {est_ms:.0f}ms/{est.syncs} syncs "
+                f"~{_fmt_bytes(est.bytes_out)} obs {obs_ms:.1f}ms{err}")
         lines.append("  " * depth + f"{op.name}  " + " ".join(parts))
         for c in op.children:
             walk(c, depth + 1)

@@ -8,8 +8,8 @@ This module is the *serving* counterpart: monotonic counters, gauges and
 sliding-window log-bucket histograms (p50/p95/p99) with labeled series,
 scrapeable while queries are in flight. Its sources are the port's
 counter funnels (the partition pipeline, the wire codec, the native
-kernels' launches and library-route calls, the plan cache, the recovery
-counters of faults.py) plus direct instrumentation on the query
+kernels' launches and library-route calls, the plan cache, the shuffle
+transport, the cost model, the recovery counters of faults.py) plus direct instrumentation on the query
 lifecycle (``srt_collects``, ``srt_collect_ms``, ``srt_queries``,
 ``srt_query_latency_ms``, the spill catalog's memory gauges).
 
@@ -325,8 +325,7 @@ def sync_funnels() -> None:
     """Pull every counter funnel of the port into the registry (absolute
     values, idempotent). Runs on every snapshot/render/scrape: the
     funnels stay the single source of truth; this is the exposition
-    bridge. The transport's, cost model's and kernel cache's funnels come
-    with their layers."""
+    bridge. The kernel cache's funnel comes with its layer."""
     if not _ENABLED:
         return
     from spark_rapids_tpu_torch import faults as _f
@@ -335,15 +334,19 @@ def sync_funnels() -> None:
     from spark_rapids_tpu_torch.parallel import pipeline as _p
     from spark_rapids_tpu_torch.parallel import qos as _q
     from spark_rapids_tpu_torch.parallel import scheduler as _sc
+    from spark_rapids_tpu_torch.parallel import transport as _t
+    from spark_rapids_tpu_torch.plan import cost as _c
     from spark_rapids_tpu_torch.plan import plan_cache as _pc
     sources = [
         ("scheduler", _sc.counters()),
         ("qos", _q.counters()),
         ("recovery", _f.counters()),
+        ("transport", _t.counters()),
         ("pipeline", _p.counters()),
         ("wire", _w.counters()),
         ("native", _n.counters()),
         ("native_library", _n.library_counters()),
+        ("cost", _c.counters()),
         ("plan_cache", _pc.counters()),
         ("plan_cache", {k: v for k, v in _pc.cache().stats().items()
                         if isinstance(v, (int, float))}),

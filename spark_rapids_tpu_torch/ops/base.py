@@ -136,8 +136,9 @@ class ExecContext:
 
     ``close`` (the context's owner calls it when the query ends: the
     planner after its recovery ladder, a standalone ``Exec.collect``)
-    runs the ``on_close`` hooks (each exchange closes the pieces it
-    kept), records
+    runs the ``on_close`` hooks (a broadcast drops its single), closes
+    every shuffle transport session the cache holds (each exchange's
+    shards), records
     the catalog's leak report in ``last_leak_report`` (``[]``: the query
     freed all it registered) and its counters in ``last_spill_metrics``,
     and empties the cache but for the query's identity: ``trace_query``
@@ -225,6 +226,15 @@ class ExecContext:
         hooks, self.on_close = self.on_close, []
         for hook in hooks:
             hook()
+        # Shuffle transport sessions (parallel/transport/) own their
+        # shards (catalog handles, spool files, objects): teardown closes
+        # every session the cache still holds, whether the query
+        # succeeded, failed or was cancelled.
+        from spark_rapids_tpu_torch.parallel.transport.base import \
+            ShuffleSession
+        for v in list(self.cache.values()):
+            if isinstance(v, ShuffleSession):
+                v.close()
         kept = {k: self.cache[k] for k in _KEPT_ON_CLOSE if k in self.cache}
         self.cache.clear()
         self.cache.update(kept)
@@ -625,6 +635,17 @@ class Exec:
                                     cat.device_budget)
                 telemetry.max_gauge("srt_device_watermark_bytes",
                                     cat.device_bytes)
+            if device:
+                # Cost-model self-calibration: this query's observed sync
+                # span mean and upload throughput (and its Cost@query
+                # estimateErrorPct as a damper) fold into the placement
+                # model's effective constants (plan/cost.py). A no-op
+                # with tracing off or calibration disabled.
+                from spark_rapids_tpu_torch.plan import cost as COST
+                try:
+                    COST.observe_query(ctx)
+                except Exception:   # calibration never fails a query
+                    _LOG.warning("cost calibration skipped", exc_info=True)
 
     def _device_batches(self, ctx: ExecContext) -> List[HostBatch]:
         """The device half of ``run_batches``, under the permit."""

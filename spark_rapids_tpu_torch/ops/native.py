@@ -254,22 +254,46 @@ def digit_hist_plain(dig: torch.Tensor, tile: int = TILE_ROWS
 def tile_rank_plain(dig: torch.Tensor, tile: int = TILE_ROWS
                     ) -> torch.Tensor:
     """Stable rank of each row within its tile: the number of earlier
-    rows of the same tile with the same digit (exclusive one-hot
-    prefix, in chunks of tiles to bound memory)."""
+    rows of the same tile with the same digit. The kernel counts it with
+    a per-tile one-hot prefix over the 256 digits; here the digit is
+    split into two 4-bit halves, so each step's one-hot is 16 wide (no
+    sort, a sixteenth of the one-hot's memory): (1) each row's rank among
+    the earlier rows of its tile with the same high half places the
+    tile's rows stably by that half; (2) in that order the rows of one
+    (tile, high half) are contiguous and in row order, and a row's rank
+    is the count of the earlier rows of its run with the same low
+    half."""
     n = dig.numel()
-    ntiles = _ntiles(n, tile)
-    padded = torch.zeros(ntiles * tile, dtype=torch.int64, device=dig.device)
-    padded[:n] = dig
-    d2 = padded.view(ntiles, tile)
-    out = torch.empty((ntiles, tile), dtype=torch.int64, device=dig.device)
-    buckets = torch.arange(RADIX, dtype=torch.int64, device=dig.device)
-    step = max(1, (1 << 24) // (tile * RADIX))
-    for t0 in range(0, ntiles, step):
-        d = d2[t0:t0 + step]
-        onehot = (d[:, :, None] == buckets).to(torch.int32)
-        prefix = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
-        out[t0:t0 + step] = prefix.gather(2, d[:, :, None])[:, :, 0]
-    return out.view(-1)[:n]
+    dev = dig.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    tile_idx = rows // tile
+    hi, lo = (dig >> 4).long(), (dig & 15).long()
+    seg = torch.bincount(tile_idx * 16 + hi,
+                         minlength=_ntiles(n, tile) * 16).view(-1, 16)
+    seg_start = tile_idx * tile + \
+        (torch.cumsum(seg, 1) - seg)[tile_idx, hi]
+    pos = seg_start + _run_rank16(hi, tile_idx * tile)
+    lo_sorted = torch.empty_like(lo)
+    lo_sorted[pos] = lo
+    start_sorted = torch.empty_like(seg_start)
+    start_sorted[pos] = seg_start
+    return _run_rank16(lo_sorted, start_sorted)[pos]
+
+
+def _run_rank16(h: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """For values ``h`` in [0, 16): each row's count of the rows in
+    ``[start[i], i)`` with its value (an exclusive one-hot prefix). The
+    one-hot is (16, n), so the prefix runs along the inner dimension,
+    which a device scans in parallel (along the outer one, torch's scan
+    runs each of the 16 columns serially)."""
+    n = h.numel()
+    vals = torch.arange(16, dtype=h.dtype, device=h.device)
+    onehot = (h[None, :] == vals[:, None]).to(torch.int32)
+    before = torch.cumsum(onehot, 1, dtype=torch.int32) - onehot
+    rows = torch.arange(n, dtype=torch.int64, device=h.device)
+    return (before[h, rows] - before[h, start]).to(torch.int64)
 
 
 def digit_bases_plain(keys: torch.Tensor) -> List[torch.Tensor]:

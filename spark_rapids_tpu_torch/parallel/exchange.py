@@ -3,13 +3,18 @@
 GpuShuffleExchangeExec.scala, ShuffledBatchRDD.scala).
 
 The exchange materializes its child once per query context (the map
-side), bucketing every batch by partition id, and keeps the pieces in the
-query's ``ExecContext`` cache as ``SpillableBatch`` handles of the query's
-catalog at ``PRIORITY_SHUFFLE_OUTPUT``, as the reference's ``inprocess``
-transport keeps them (the transport SPI, cluster and mesh exchange are
-not ported). Pieces spill first under the device budget, device -> host
--> disk, and are restored when served. Reduce tasks then stream their
-bucket. The child is pulled through ``execute_device_recovering``.
+side), bucketing every batch by partition id, and writes the pieces
+through its shuffle transport session (``parallel/transport/``, chosen
+by ``spark.rapids.sql.shuffle.transport``): ``inprocess`` keeps them as
+``SpillableBatch`` handles of the query's catalog at
+``PRIORITY_SHUFFLE_OUTPUT`` (they spill first under the device budget,
+device -> host -> disk, and are restored when served); ``hostfile``
+spools CRC-framed shard files to a shared directory and ``objectstore``
+puts them into an object store, so other processes can fetch them. The
+session's tag is ``x<pid>-<exchange id>``, its owner the exchange's id;
+it is parked in ``ctx.cache`` and the context's teardown closes it.
+Reduce tasks then stream their bucket. The child is pulled through
+``execute_device_recovering``.
 
 Map side, per window of child batches (two-phase sizes-then-data; a
 window holds at most 32 batches and a quarter of ``batchSizeBytes`` or of
@@ -35,16 +40,16 @@ partition, downloads and merges them and picks its bounds on the host
 sample and again for the data, as the reference's does. One partition
 needs no bounds, so it samples nothing.
 
-Reduce side: a partition's pieces concatenate into batches of up to
+Reduce side: a partition's shards (``fetch_shards``, a
+``fetch-shards`` span) concatenate into batches of up to
 ``batchSizeRows`` capacity (``effective_batch_target``: smaller after the
 OOM ladder's shrink rung), carrying the summed ``rows_hint``; a served
 piece stays pinned until the consumer asks for the next batch. With
 ``allow_coalesce`` (aggregate, window and sort exchanges; never a join's
 co-partitioned inputs) adjacent undersized partitions merge under the
-``spark.rapids.sql.aqe.coalescePartitions.*`` row and byte targets (the
-AQE-lite reader, GpuCustomShuffleReaderExec.scala:132). The reference
-compares the shard bytes its transport observed; here the kept pieces'
-registered device bytes stand in for them.
+``spark.rapids.sql.aqe.coalescePartitions.*`` row target (exact map-side
+counts) and byte target (the bytes the session observed), as the
+AQE-lite reader does (GpuCustomShuffleReaderExec.scala:132).
 
 Traced (``monitoring/recorder.py``): the map side is an
 ``exchange-materialize`` span and each served batch an ``exchange-serve``
@@ -53,20 +58,21 @@ span, both ``shuffle``; ``exchange.flush`` (each map-side window) and
 exchange's id (``faults.py``).
 
 Stage hooks (``parallel/stages.py``): the exchange is a stage boundary.
-``stage_invalidate`` closes its kept pieces and forgets them (the next
-execution recomputes the stage from its parents' outputs);
+``stage_invalidate`` makes the session drop its output and forgets it
+(the next execution recomputes the stage from its parents' outputs);
 ``stage_prematerialize`` runs the map side ahead of the partition loop
 (``parallel/pipeline.py``), unless a runtime re-plan flagged the exchange
 as a skipped probe side (``replan-skip:``); ``observed_total_bytes`` is
-the sum of the kept pieces' device bytes, which the runtime re-plan
-(``parallel/replan.py``) compares with ``autoBroadcastJoinThreshold``.
-The reference sums each piece's bytes at its split capacity, the largest
-count of its batch's pieces rounded up the capacity ladder, where the
-port gives each piece its own count's rung; so for the same input the
-port's sum is at most the reference's, equal where one destination takes
-every batch. A piece whose re-read fails its checksum
-(``WireCorruptionError`` from a disk frame) is tagged with the
-exchange's id, so the planner recomputes this stage.
+the session's ``observed_bytes()`` (in process: the kept pieces' device
+bytes), which the runtime re-plan (``parallel/replan.py``) compares with
+``autoBroadcastJoinThreshold``. The reference sums each piece's bytes at
+its split capacity, the largest count of its batch's pieces rounded up
+the capacity ladder, where the port gives each piece its own count's
+rung; so for the same input the port's sum is at most the reference's,
+equal where one destination takes every batch. A served piece that
+fails its checksum twice (``WireCorruptionError``), and a fetched shard
+that is lost (``ShardLostError``), carry the exchange's id, so the
+planner recomputes this stage.
 ``BroadcastExchangeExec`` collects its child into one batch, kept as a
 spillable catalog handle, with the same hooks.
 
@@ -78,6 +84,7 @@ coalesced exchange's partition is its group's buckets, as on the device.
 
 from __future__ import annotations
 
+import os
 import traceback
 from typing import List, Optional
 
@@ -140,15 +147,18 @@ class ShuffleExchangeExec(Exec):
         gkey = f"shuffle-groups:{id(self):x}"
         groups = ctx.cache.get(gkey)
         if groups is None:
-            buckets = self._materialize_device(ctx)
+            sess = self._materialize_device(ctx)
+            rows = ctx.cache[self._cache_key(True) + ":rows"]
             target = int(ctx.conf.get(C.AQE_COALESCE_TARGET_ROWS))
             tbytes = int(ctx.conf.get(C.AQE_COALESCE_TARGET_BYTES))
             groups = []
             cur: List[int] = []
             cur_rows = cur_bytes = 0
             for b in range(n):
-                b_rows = sum(p.rows_hint for p in buckets[b])
-                b_bytes = sum(p.size_bytes for p in buckets[b])
+                # Exact row counts from the map side, and the bytes the
+                # transport session observed.
+                b_rows = rows[b]
+                b_bytes = sess.observed_bytes(b)
                 if cur and (cur_rows + b_rows > target or
                             cur_bytes + b_bytes > tbytes):
                     groups.append(cur)
@@ -286,7 +296,22 @@ class ShuffleExchangeExec(Exec):
             out.append(piece)
         return out
 
-    def _materialize_device(self, ctx) -> List[List[SpillableBatch]]:
+    def _open_session(self, ctx):
+        """This exchange's transport session (``parallel/transport/``):
+        the configured transport decides where map-side shards live
+        (catalog handles ``inprocess``, spool files ``hostfile``, objects
+        ``objectstore``). The session is the durable stage output; it is
+        parked in ``ctx.cache``, so a re-execution serves the committed
+        materialization, and the context's teardown closes it."""
+        from spark_rapids_tpu_torch.parallel import transport as T
+        transport = T.materialization_transport(ctx.conf)
+        return transport.open(
+            ctx.conf, f"x{os.getpid():x}-{id(self):x}",
+            self.partitioning.num_partitions, owner=id(self),
+            catalog=ctx.catalog, metrics=T.metrics_entry(ctx),
+            device=self.plan_device())
+
+    def _materialize_device(self, ctx):
         key = self._cache_key(True)
         if key in ctx.cache:
             return ctx.cache[key]
@@ -297,16 +322,16 @@ class ShuffleExchangeExec(Exec):
                                    self.partitioning.num_partitions}):
             return self._materialize_device_traced(ctx, key)
 
-    def _materialize_device_traced(self, ctx, key
-                                   ) -> List[List[SpillableBatch]]:
+    def _materialize_device_traced(self, ctx, key):
         m = ctx.metrics_for(self)
         self._ensure_bounds(ctx, device=True)
         n = self.partitioning.num_partitions
-        buckets: List[List[SpillableBatch]] = [[] for _ in range(n)]
+        sess = self._open_session(ctx)
+        bucket_rows = [0] * n           # exact counts (AQE coalescing)
 
         def keep(p: int, piece: DeviceBatch):
-            buckets[p].append(SpillableBatch(ctx.catalog, piece,
-                                             PRIORITY_SHUFFLE_OUTPUT))
+            bucket_rows[p] += piece.rows_hint
+            sess.write_shard(p, piece)
 
         def flush_counted(batch: DeviceBatch, pids, counts: List[int]):
             total = sum(counts)
@@ -389,31 +414,37 @@ class ShuffleExchangeExec(Exec):
                 if window:
                     flush_window(window)
         except BaseException:
-            # A partial materialization must not leave catalog entries.
-            for bucket in buckets:
-                for sb in bucket:
-                    sb.close()
+            # A partial materialization must leave no catalog entries,
+            # spool files or objects: the recovery ladder runs it again
+            # from scratch.
+            sess.abort()
             raise
-        ctx.cache[key] = buckets
-        ctx.on_close.append(lambda: self.release(ctx))
-        return buckets
+        sess.commit()
+        ctx.cache[key] = sess
+        ctx.cache[key + ":rows"] = bucket_rows
+        return sess
+
+    def _forget(self, ctx):
+        """Drop this exchange's device materialization from the context
+        and return its session (None when there is none)."""
+        key = self._cache_key(True)
+        ctx.cache.pop(key + ":rows", None)
+        ctx.cache.pop(f"shuffle-groups:{id(self):x}", None)
+        return ctx.cache.pop(key, None)
 
     def release(self, ctx, partition: Optional[int] = None):
-        """Close the kept pieces of one reduce partition (all of them
-        when ``partition`` is None, and then forget the materialization):
-        an exchange built for one operator's out-of-core pass frees its
-        buckets as it finishes them."""
-        key = self._cache_key(True)
-        buckets = ctx.cache.get(key)
-        if buckets is None:
+        """Release one reduce partition's served pieces, or close the
+        whole session and forget the materialization (``partition``
+        None): an exchange built for one operator's out-of-core pass
+        frees its buckets as it finishes them."""
+        if partition is not None:
+            sess = ctx.cache.get(self._cache_key(True))
+            if sess is not None:
+                sess.release_partition(partition)
             return
-        for p in (range(len(buckets)) if partition is None else [partition]):
-            for sb in buckets[p]:
-                sb.close()
-            buckets[p] = []
-        if partition is None:
-            del ctx.cache[key]
-            ctx.cache.pop(f"shuffle-groups:{id(self):x}", None)
+        sess = self._forget(ctx)
+        if sess is not None:
+            sess.close()
 
     def _materialize_host(self, ctx) -> List[List[HostBatch]]:
         key = self._cache_key(False)
@@ -438,13 +469,13 @@ class ShuffleExchangeExec(Exec):
         exact counts make each output's ``rows_hint``. A piece served
         alone stays pinned (un-spillable) until the consumer resumes."""
         from spark_rapids_tpu_torch import monitoring
-        buckets = self._materialize_device(ctx)
+        sess = self._materialize_device(ctx)
         m = ctx.metrics_for(self)
         target = effective_batch_target(int(ctx.conf.get(C.BATCH_SIZE_ROWS)))
         groups = self._groups(ctx)
         mine = groups[partition] if groups is not None else [partition]
 
-        def concat(group: List[SpillableBatch]) -> DeviceBatch:
+        def concat(group: list) -> DeviceBatch:
             members = [sb.get() for sb in group]
             try:
                 out = concat_batches(members, bucket_capacity(
@@ -455,7 +486,7 @@ class ShuffleExchangeExec(Exec):
             out.rows_hint = sum(sb.rows_hint for sb in group)
             return out
 
-        def serve(group: List[SpillableBatch]):
+        def serve(group: list):
             faults.fault_point("exchange.serve", owner=id(self))
             span = monitoring.span("exchange-serve", "shuffle",
                                    args={"partition": partition,
@@ -481,10 +512,14 @@ class ShuffleExchangeExec(Exec):
                 if single:
                     group[0].release(PRIORITY_SHUFFLE_OUTPUT)
 
-        group: List[SpillableBatch] = []
+        group: list = []
         group_cap = 0
         for b in mine:
-            for sb in buckets[b]:
+            with monitoring.span("fetch-shards", "shuffle",
+                                 level=monitoring.LEVEL_KERNEL,
+                                 args={"bucket": b}):
+                fetched = sess.fetch_shards(b)
+            for sb in fetched:
                 if group and group_cap + sb.capacity > target:
                     yield from serve(group)
                     group, group_cap = [], 0
@@ -505,11 +540,11 @@ class ShuffleExchangeExec(Exec):
 
     # -- runtime re-plan and stage hooks ----------------------------------------
     def observed_total_bytes(self, ctx) -> int:
-        """Materialize the map side (once a context) and return the device
-        bytes of every piece it kept: what the runtime re-plan
-        (``parallel/replan.py``) compares with the broadcast threshold."""
-        buckets = self._materialize_device(ctx)
-        return sum(sb.size_bytes for bucket in buckets for sb in bucket)
+        """Materialize the map side (once a context) and return the bytes
+        its session observed (in process, the kept pieces' device
+        bytes): what the runtime re-plan (``parallel/replan.py``)
+        compares with the broadcast threshold."""
+        return self._materialize_device(ctx).observed_bytes()
 
     def stage_prematerialize(self, ctx) -> None:
         """Materialize this stage's output now (idempotent against the
@@ -522,13 +557,17 @@ class ShuffleExchangeExec(Exec):
             self._materialize_device(ctx)
 
     def stage_invalidate(self, ctx) -> None:
-        """Drop this exchange's stage output: close the kept pieces and
-        forget them, the coalesced groups and the host buckets, so the
-        next execution recomputes the stage from its parents'
-        still-materialized outputs. The ``on_close`` release finds
-        nothing left to close."""
-        self.release(ctx)
+        """Drop this exchange's stage output: the session drops every
+        shard it holds (catalog handles, spool files, objects) and the
+        coalesced groups and host buckets are forgotten, so the next
+        execution recomputes the stage from its parents'
+        still-materialized outputs. A lost or persistently corrupt
+        fetched shard lands here too (the fetch raises tagged with this
+        exchange's id), and the recompute rewrites it."""
+        sess = self._forget(ctx)
         ctx.cache.pop(self._cache_key(False), None)
+        if sess is not None:
+            sess.invalidate()
 
 
 class BroadcastExchangeExec(Exec):

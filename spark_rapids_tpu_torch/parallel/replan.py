@@ -51,9 +51,9 @@ Counters land in the query's ``Cost@query`` entry: ``replanChecks``,
 ``joinDemotions``, ``replanObservedBytes``, ``estimateErrorPct`` and
 ``replanRefusions``, which holds, as the reference's does, the second
 value ``fuse_stages`` returns: the number of stages fused over the
-delegate, not of refusals. The reference also counts them into its
-process-global cost counters (``plan/cost.py``), which the port does not
-have yet.
+delegate, not of refusals. ``replanChecks`` and ``joinDemotions`` also
+count into the process-global cost counters (``plan/cost.py``
+``counters()``), as the reference's do.
 """
 
 from __future__ import annotations
@@ -64,6 +64,7 @@ from typing import List
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.memory import oom
+from spark_rapids_tpu_torch.plan import cost as COST
 
 _LOG = logging.getLogger("spark_rapids_tpu_torch.replan")
 
@@ -107,6 +108,7 @@ def plan_adaptive(ctx, root) -> None:
             continue
         m = _metrics(ctx)
         m.add("replanChecks", 1)
+        COST._record("replanChecks")
         build_right = join.join_type != "right"
         build_ex = join.children[1] if build_right else join.children[0]
         probe_ex = join.children[0] if build_right else join.children[1]
@@ -143,6 +145,7 @@ def plan_adaptive(ctx, root) -> None:
         ctx.cache[key] = delegate
         ctx.cache[f"replan-skip:{id(probe_ex):x}"] = True
         m.add("joinDemotions", 1)
+        COST._record("joinDemotions")
         from spark_rapids_tpu_torch import monitoring
         monitoring.instant(
             "join-demotion", "replan",

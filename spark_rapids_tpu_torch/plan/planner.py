@@ -62,10 +62,16 @@
   merge / mixed_final pipeline (``_convert_distinct_aggregate``);
   adjacent windows of one spec merge before conversion
   (``merge_windows``).
+- After tagging, cost-based placement (``plan/cost.py``
+  ``apply_placement``) flips each maximal subtree whose footer-stats
+  estimate is cheaper on the host to the host engine
+  (``NodeMeta.cost_host``); ``PhysicalPlan.cost_report`` keeps the
+  decision, ``explain`` prints its estimates, and its device + host
+  estimate prices the query's admission (``cost_ms``).
 - The host engine runs only the nodes tagged for the reference's
-  reasons: a failing device operator raises, and is never rerun there
-  (an exhausted OOM ladder tries the grace join on the device first,
-  ``Exec.execute_device_recovering``).
+  reasons or placed there by the cost model: a failing device operator
+  raises, and is never rerun there (an exhausted OOM ladder tries the
+  grace join on the device first, ``Exec.execute_device_recovering``).
 - After conversion, ``Planner.plan``, under
   ``spark.rapids.sql.stageFusion.enabled``, collapses each maximal run of
   fusible device operators into a ``FusedStageExec`` (``plan/fusion.py``).
@@ -74,8 +80,8 @@
   on its engine through the recovery ladder (stage recompute, transient
   retry on the same context, whole-query retry on a fresh one;
   ``PhysicalPlan._execute``), with a plan-cache binding vector installed
-  in every context it makes, and closes the context at the end (the
-  reference's scheduler, QoS and preemption layers are not ported).
+  in every context it makes, and closes the context at the end, under
+  the multi-query scheduler's admission (``parallel/scheduler.py``).
 - A shuffled hash join keeps its planning-time build estimate
   (``est_build_bytes``) for the runtime re-plan's error metric; a
   grouping-set plan's partial aggregate never skips its grouping
@@ -89,6 +95,8 @@ import dataclasses
 import logging
 import time
 from typing import List, Optional, Tuple
+
+import torch
 
 from spark_rapids_tpu_torch import DeviceLike, config as C, resolve_device
 from spark_rapids_tpu_torch.columnar import dtypes as dt
@@ -111,7 +119,7 @@ from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
 from spark_rapids_tpu_torch.parallel.partitioning import (
     HashPartitioning, RangePartitioning, RoundRobinPartitioning,
     SinglePartitioning)
-from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan import cost as COST, logical as L
 from spark_rapids_tpu_torch.plan.fusion import collect_fused, fuse_stages
 from spark_rapids_tpu_torch.plan.logical import (
     Column, LogicalPlan, NotPortedError, ResolutionError, resolve)
@@ -320,10 +328,15 @@ class NodeMeta:
     reasons: List[str] = dataclasses.field(default_factory=list)
     notes: List[str] = dataclasses.field(default_factory=list)
     port_reasons: List[str] = dataclasses.field(default_factory=list)
+    # Cost-based placement (plan/cost.py): True puts this node on the
+    # host engine as a PLACEMENT choice, not a capability fallback, so
+    # it stays apart from ``reasons`` (explain reasons and test-mode
+    # allowlists keep their capability meaning).
+    cost_host: bool = False
 
     @property
     def on_device(self) -> bool:
-        return not self.reasons
+        return not self.reasons and not self.cost_host
 
     def explain_lines(self, depth: int = 0, not_on_device_only=False):
         mark = "*" if self.on_device else "!"
@@ -538,6 +551,10 @@ class PhysicalPlan:
     # plan-cache template shares it between every DataFrame bound to it.
     last_ctx: Optional[ExecContext] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # What the cost model decided (plan/cost.py), and the device the
+    # plan was placed for (its estimates depend on it).
+    cost_report: Optional[COST.CostReport] = None
+    device: Optional[torch.device] = None
 
     def explain(self, mode: str = "ALL") -> str:
         lines = self.meta.explain_lines(
@@ -550,7 +567,20 @@ class PhysicalPlan:
             for i, f in enumerate(fused):
                 members = ", ".join(type(o).__name__ for o in f.ops)
                 lines.append(f"  *Stage #{i} <{f.name}> fuses [{members}]")
+        report = self.cost_report
+        if report is not None and (report.placements or report.lines or
+                                   bool(self.conf.get(C.COST_EXPLAIN))):
+            lines.extend(report.explain_lines())
         return "\n".join(lines)
+
+    def cost_ms(self) -> Optional[float]:
+        """The admission cost estimate: the plan's device + host
+        projection (plan/cost.py), or None when placement was skipped
+        (an un-priced plan: no file scan, or a gate off)."""
+        report = self.cost_report
+        if report is None or report.skipped is not None:
+            return None
+        return float(report.est_device_ms) + float(report.est_host_ms)
 
     def _context(self, ctx: Optional[ExecContext], bindings,
                  ticket=None) -> ExecContext:
@@ -671,14 +701,26 @@ class PhysicalPlan:
         mgr = None
         if owned and faults.get_query_token() is None:
             mgr = SC.get_query_manager(self.conf)
-            # Un-priced (cost_ms None): the port has no cost model yet,
-            # as the reference's is for a plan without a file scan.
+            # The admission cost estimate prices deadline admission and
+            # the shortest-job-first order; a plan-cache hit reuses the
+            # template's CostReport.
             ticket = mgr.admit(self.conf, cancel=cancel_event,
                                priority=priority, tenant=tenant,
-                               cost_ms=None, deadline_ms=timeout_ms)
+                               cost_ms=self.cost_ms(),
+                               deadline_ms=timeout_ms)
             ticket.arm_deadline(timeout_ms)
             faults.set_query_token(ticket.token)
         ctx = self._context(ctx, bindings, ticket)
+        # The Cost@query audit entry: the static placement at admission;
+        # the runtime re-plan (parallel/replan.py) adds its counters.
+        report = self.cost_report
+        if report is not None and report.skipped is None:
+            cm = query_metrics_entry(ctx, "Cost")
+            cm.add("placements", report.placements)
+            cm.add("hostPlacedNodes", report.nodes_host_placed)
+            cm.add("estDeviceMs", report.est_device_ms)
+            cm.add("estHostMs", report.est_host_ms)
+            cm.add("estSyncs", report.est_syncs)
         # The ring the flight recorder files this query's events under
         # (trace_export / explain_analyze read it off last_ctx).
         tok = faults.get_query_token()
@@ -937,6 +979,11 @@ class Planner:
             pass
         self._force_perfile = _uses_input_file(logical)
         meta = wrap_and_tag(logical, self.conf)
+        # Cost-based placement (plan/cost.py): flip whole maximal
+        # subtrees to the host engine where the footer-stats estimate
+        # says the device's round trips cannot pay off. After tagging, so
+        # capability fallbacks already shaped ``on_device``.
+        cost_report = COST.apply_placement(meta, self.conf, self.device)
         if self.conf.explain in ("ALL", "NOT_ON_GPU"):
             print("\n".join(meta.explain_lines(
                 not_on_device_only=self.conf.explain == "NOT_ON_GPU")))
@@ -947,7 +994,8 @@ class Planner:
         num_fused = 0
         if bool(self.conf.get(C.STAGE_FUSION_ENABLED)):
             root, num_fused = fuse_stages(root, on_device)
-        phys = PhysicalPlan(root, on_device, meta, self.conf, num_fused)
+        phys = PhysicalPlan(root, on_device, meta, self.conf, num_fused,
+                            cost_report=cost_report, device=self.device)
         if self.conf.test_enabled:
             allowed = {s for s in str(self.conf.get(
                 C.TEST_ALLOWED_NONTPU)).split(",") if s}
@@ -1002,7 +1050,14 @@ class Planner:
 
     def _convert(self, meta: NodeMeta) -> Tuple[Exec, bool]:
         """(exec, runs on the device) for one tagged node; each child is
-        bridged to this node's engine where the reference bridges."""
+        bridged to this node's engine where the reference bridges. The
+        exec carries its logical node's identity (``_logical_id``), which
+        ``explain_analyze`` joins to the cost model's estimates."""
+        exec_, dev = self._convert_node(meta)
+        exec_._logical_id = id(meta.plan)
+        return exec_, dev
+
+    def _convert_node(self, meta: NodeMeta) -> Tuple[Exec, bool]:
         plan = meta.plan
         want_dev = meta.on_device
         kids = [self._convert(c) for c in meta.children]

@@ -194,6 +194,48 @@ def test_round_trip_every_tier(tmp_path, codec, with_sel):
     cat.close()
 
 
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_failed_restore_keeps_the_entry(tmp_path, monkeypatch, tier):
+    """A restore whose upload fails (a device OOM the ladder retries)
+    leaves the entry whole in host memory, and the retry gets the batch
+    back bit for bit (on the card, an OOM inside the restore of an
+    exchange piece left an entry with no bytes in any tier)."""
+    tb, _ = _pair(3)
+    cat = BufferCatalog(device_budget_bytes=1 << 30, host_budget_bytes=1 << 30,
+                        spill_dir=str(tmp_path), compression_codec="lz4")
+    bid = cat.add_batch(tb)
+    if tier == "disk":
+        cat.host_budget = 0
+        assert cat.handle_oom() > 0
+        assert cat.tier_of(bid) == StorageTier.DISK
+        cat.host_budget = 1 << 30
+    else:
+        assert cat.spill_some() > 0
+    size = cat.entry(bid).size_bytes
+    host_before = cat.host_bytes
+    real = tstores._numpy_to_batch
+    calls = []
+
+    def fail_once(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("CUDA out of memory (injected)")
+        return real(*a, **k)
+
+    monkeypatch.setattr(tstores, "_numpy_to_batch", fail_once)
+    with pytest.raises(RuntimeError, match="out of memory"):
+        cat.acquire_batch(bid)
+    assert cat.tier_of(bid) == StorageTier.HOST
+    assert cat.host_bytes == (host_before if tier == "host"
+                              else host_before + size)
+    _assert_same_batch(cat.acquire_batch(bid), tb)
+    assert cat.tier_of(bid) == StorageTier.DEVICE
+    cat.remove(bid)
+    assert cat.leak_report() == []
+    assert cat.host_bytes == 0
+    cat.close()
+
+
 # ---------------------------------------------------------------------------
 # The catalog (tests/test_memory.py's TestCatalogSpill)
 # ---------------------------------------------------------------------------

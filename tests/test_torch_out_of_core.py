@@ -400,7 +400,8 @@ def test_groupby_spills_and_stays_correct(tmp_path):
     assert got == want == q.collect_host()
     assert port(None)[1][0] == want
 
-    # Mid-query, the cache holds spillable handles, never raw batches.
+    # Mid-query, the cache holds spillable handles, never raw batches
+    # (the exchange's in-process transport session keeps them).
     phys = q._physical()
     ctx = ExecContext(phys.conf)
     toom.set_active_catalog(ctx.catalog)
@@ -411,7 +412,7 @@ def test_groupby_spills_and_stays_correct(tmp_path):
         for key, val in ctx.cache.items():
             if key.startswith("shuffle:") and key.endswith(":dev"):
                 seen += 1
-                for bucket in val:
+                for bucket in val.buckets:
                     for item in bucket:
                         assert isinstance(item, SpillableBatch), key
         assert seen >= 1
@@ -488,7 +489,8 @@ def test_exchange_pieces_spill_and_serve_the_same_rows(tmp_path):
         for p in range(4):
             out.append([r for b in ex.execute_device(ctx, p)
                         for r in thost.device_to_host(b).to_pylist()])
-        sizes = [sb.size_bytes for bucket in ctx.cache[ex._cache_key(True)]
+        sizes = [sb.size_bytes
+                 for bucket in ctx.cache[ex._cache_key(True)].buckets
                  for sb in bucket]
         ctx.close()
         assert ctx.last_leak_report == []

@@ -144,7 +144,7 @@ def _contend(sem, holder, waiter, settle=0.0):
     granted = got.wait(5)
     sem.release_classed(waiter)
     t.join(5)
-    assert not t.is_alive()
+    assert not t.is_alive(), "the waiter still waits after 5 s"
     return seen, granted, sem.holders
 
 
@@ -192,11 +192,12 @@ def test_gate_picks_the_worst_ranked_holder(pkg, monkeypatch):
     assert (bg.preempt_requested(), batch.preempt_requested()) == \
         (True, False)
     sem.release_classed(bg)
-    assert got.wait(5)
+    assert got.wait(5), "the interactive waiter got no permit in 5 s"
     for tk in (batch, it):
         sem.release_classed(tk)
     t.join(5)
-    assert not t.is_alive() and sem.holders == []
+    assert not t.is_alive(), "the interactive waiter still waits after 5 s"
+    assert sem.holders == []
 
 
 @pytest.mark.parametrize("pkg", ["port", "ref"])

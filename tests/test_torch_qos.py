@@ -12,10 +12,12 @@
   hints, grant the same order (QoS: class and SJF; FIFO: arrival), count
   the same per-class admissions and reject at the same tenant caps and
   deadline tests.
-- Divergences pinned (ROADMAP queue C): the port's queries are
-  un-priced (it has no cost model yet), so deadline admission passes
-  them and the in-flight timer kills them; ``tenantMaxKernelCacheEntries``
-  counts zero entries (the port keeps no kernel cache).
+- A query over files is priced by the cost model (``plan/cost.py``) as
+  the reference's is, and an absurd deadline sheds it at admission; a
+  plan without a file scan stays un-priced, so deadline admission passes
+  it and the in-flight timer kills it. Divergence pinned (ROADMAP queue
+  C): ``tenantMaxKernelCacheEntries`` counts zero entries (the port keeps
+  no kernel cache).
 - End to end on the port (the reference's data at scale 0.003, 3 files a
   table, seed 11): per-tenant plan-cache counters; three tenants of three
   classes in flight with chaos scoped to one, every tenant's rows equal
@@ -43,6 +45,7 @@ from spark_rapids_tpu.parallel import qos as JQ
 from spark_rapids_tpu.parallel import scheduler as JSC
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import entry as E
 from spark_rapids_tpu_torch import faults
 from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.benchmarks import tpch
@@ -325,7 +328,7 @@ def _grant_order(mgr, submissions):
     mgr.finish(hog)
     for th in threads:
         th.join(10)
-        assert not th.is_alive()
+        assert not th.is_alive(), f"{th.name} still waits after 10 s"
     return order
 
 
@@ -417,12 +420,16 @@ def test_deadline_slack_and_gate_conf():
     assert port[0][1] == "deadline-unmeetable" and port[1] == "admitted"
 
 
-def test_port_queries_are_unpriced_and_pass_deadline_admission(data_dir):
-    """Pinned divergence (queue C): the port has no cost model yet, so
-    its collect admits un-priced (as the reference does for a plan
-    without a file scan) and even an absurd deadline is enforced only by
+def test_port_queries_are_unpriced_and_pass_deadline_admission():
+    """A plan without a file scan stays un-priced (plan/cost.py skips
+    it: no footer stats), as the reference's does, so its collect passes
+    deadline admission and even an absurd deadline is enforced only by
     the in-flight timer: QueryCancelledError, never a rejection."""
-    df = tpch.QUERIES["q6"](_session(), data_dir)
+    s = _session()
+    df = tpch.q6(s, tpch.tpch_tables(s, E.tpch_columns(0.001, seed=1))["q6"])
+    assert df._physical().cost_ms() is None
+    assert df._physical().cost_report.skipped == \
+        "no footer-stats-backed scan in the plan"
     with pytest.raises(faults.QueryCancelledError, match="deadline"):
         df.collect(timeout_ms=0.0001)
     c = Q.counters()
@@ -430,6 +437,33 @@ def test_port_queries_are_unpriced_and_pass_deadline_admission(data_dir):
     assert c.get("admitted.batch") == 1
     assert SC.get_query_manager().active_count == 0
     assert df._physical().last_ctx.last_leak_report in (None, [])
+
+
+def test_port_file_queries_are_priced_as_the_reference(data_dir):
+    """A query over files is priced by the cost model: at the same
+    explicit constants its admission estimate (device + host ms) is the
+    reference's, and an absurd deadline sheds it at admission with the
+    reference's kind, before anything runs."""
+    consts = {"spark.rapids.sql.cost.deviceSyncFloorMs": 5.0,
+              "spark.rapids.sql.cost.deviceThroughputGBps": 3.0,
+              "spark.rapids.sql.cost.hostThroughputGBps": 1.5}
+    df = tpch.QUERIES["q6"](_session(**consts), data_dir)
+    jdf = jtpch.QUERIES["q6"](JSession({
+        "spark.rapids.sql.variableFloatAgg.enabled": True,
+        "spark.rapids.sql.scheduler.qos.enabled": True, **consts}),
+        data_dir)
+    jrep = jdf._physical().cost_report
+    assert jrep.skipped is None
+    assert df._physical().cost_ms() == pytest.approx(
+        jrep.est_device_ms + jrep.est_host_ms, rel=1e-12)
+    kinds = []
+    for d in (df, jdf):
+        with pytest.raises(Exception) as ei:
+            d.collect(timeout_ms=0.0001)
+        kinds.append((type(ei.value).__name__, ei.value.kind))
+    assert kinds[0] == kinds[1] == ("QueryRejectedError",
+                                    "deadline-unmeetable")
+    assert Q.counters().get("rejected.deadline-unmeetable") == 1
 
 
 def test_deadline_kill_in_flight_matches_reference(data_dir):
@@ -612,7 +646,7 @@ def test_per_tenant_chaos_invisible_to_other_tenants(data_dir):
         try:
             df = tpch.QUERIES["q6"](_session(tag=tag, chaos=chaos), data_dir)
             dfs[name] = df
-            barrier.wait()
+            barrier.wait(timeout=30)
             results[name] = df.collect(priority=prio,
                                        tenant=f"tenant-{name}")
         except BaseException as e:       # pragma: no cover - diagnostics
@@ -624,7 +658,7 @@ def test_per_tenant_chaos_invisible_to_other_tenants(data_dir):
         t.start()
     for t in threads:
         t.join(60)
-        assert not t.is_alive()
+        assert not t.is_alive(), f"{t.name} still running after 60 s"
     assert not errors, errors
     for name, _tag, _p in plan:
         expect(results[name], "q6", name)

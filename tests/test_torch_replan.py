@@ -51,9 +51,12 @@ from spark_rapids_tpu_torch.plan import plan_cache as pc
 
 from harness import assert_rows_equal
 
+# Cost placement off in both packages (the reference side always set it):
+# the re-plan's Cost@query counters are checked alone.
 BASE = {"spark.rapids.sql.variableFloatAgg.enabled": True,
         "spark.rapids.sql.autoBroadcastJoinThreshold": 20_000,
-        "spark.rapids.sql.shuffle.partitions": 4}
+        "spark.rapids.sql.shuffle.partitions": 4,
+        "spark.rapids.sql.cost.enabled": False}
 # One exchange over a skewed batch (SKEW_ROWS int64 keys, SKEW_HOT of
 # them equal) at 4 partitions: the kept pieces' device bytes, the port's
 # and the reference transport's.

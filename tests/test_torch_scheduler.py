@@ -113,12 +113,16 @@ QUERIES = ("q1", "q3", "q6")
 
 def reference_rows(data_dir, queries):
     """The reference's rows of ``queries`` on ``data_dir``, its fault
-    schedule cleared while they run."""
+    schedule cleared while they run. Its host engine computes them
+    (``collect_host``): the same rows as its device engine within the
+    float tolerance the checks use, without the XLA compiles of its
+    device plans (q1 and q3 took 36 s of a test worker's time on a
+    CPU)."""
     state = jfaults.snapshot()
     jfaults.configure("")
     try:
         return {qn: jtpch.QUERIES[qn](JSession(dict(VFA)),
-                                      data_dir).collect()
+                                      data_dir).collect_host()
                 for qn in queries}
     finally:
         jfaults.restore(state)
@@ -129,9 +133,8 @@ def reference_rows(data_dir, queries):
 def row_check(solo, data_dir):
     """``check(rows, qn)``: ``rows`` equal the reference's rows of ``qn``
     on ``data_dir`` and, exactly, the port's solo run ``solo[qn]``. The
-    reference runs a query at its first check, so a test worker pays its
-    compile (about 25 s for q3's joins on a CPU) only for the queries its
-    tests compare."""
+    reference runs a query at its first check, so a test worker pays for
+    it only for the queries its tests compare."""
     ref = {}
 
     def check(rows, qn, label=None):
@@ -168,7 +171,7 @@ def _threads(targets, timeout=60):
         t.start()
     for t in threads:
         t.join(timeout)
-        assert not t.is_alive()
+        assert not t.is_alive(), f"{t.name} still running after {timeout} s"
 
 
 def _reject(mgr, *args, **kw):
@@ -199,14 +202,14 @@ def test_queue_full_rejects_immediately():
 
         t = threading.Thread(target=queued_waiter, daemon=True)
         t.start()
-        assert started.wait(5)
+        assert started.wait(5), "the waiter thread never started"
         deadline = time.monotonic() + 5
         while mgr.queued_count < 1 and time.monotonic() < deadline:
             time.sleep(0.005)
         shed = _reject(mgr)
         mgr.finish(first)
         t.join(10)
-        assert not t.is_alive()
+        assert not t.is_alive(), "the queued admit still waits after 10 s"
         mgr.finish(box["t"])
         c = sc.counters()
         return shed, mgr.active_count, c["rejected"], c["admitted"]
@@ -541,6 +544,7 @@ def test_queue_full_rejection_e2e_then_collect_with_retry(data_dir, expect):
     timer.start()
     expect(df.collect_with_retry(max_backoff_ms=50), "q6")
     timer.join(5)
+    assert not timer.is_alive(), "the finishing timer still runs after 5 s"
     assert SC.counters().get("clientRetries", 0) >= 1
     jdf = jtpch.QUERIES["q6"](JSession(dict(VFA, **raw)), data_dir)
     jmgr = JSC.get_query_manager(jdf._session.conf)
@@ -632,7 +636,7 @@ def test_cross_query_fault_containment(data_dir, expect):
             try:
                 s = _session(tag=tag, chaos=chaos)
                 df = dfs[name] = tpch.QUERIES[qn](s, data_dir)
-                barrier.wait()
+                barrier.wait(timeout=30)
                 results[name] = df.collect()
             except BaseException as e:   # pragma: no cover - diagnostics
                 errors[name] = e
@@ -765,13 +769,18 @@ def test_catalog_built_once_under_concurrent_first_use(monkeypatch,
     ctx = ExecContext(TpuSession({"spark.rapids.memory.spill.dir":
                                   str(tmp_path)}, device="cpu").conf)
     barrier = threading.Barrier(8, timeout=10)
-    got = []
+    got, errors = [], []
 
     def ask():
-        barrier.wait()
+        try:
+            barrier.wait(timeout=10)
+        except threading.BrokenBarrierError as e:
+            errors.append(f"the 8 askers never met within 10 s: {e!r}")
+            return
         got.append(ctx.catalog)
 
     _threads([ask] * 8, timeout=10)
+    assert not errors, errors
     assert len(got) == 8 and len({id(c) for c in got}) == 1
     assert len(built) == 1
     ctx.close()
