@@ -3339,13 +3339,21 @@ SORT_BUDGET = 128 << 20
 SORT_HOST_BYTES = 160 << 20
 SORT_KEYS = ("l_suppkey", "l_partkey", "l_orderkey", "l_linenumber")
 # (e), (f) and phase 22 (g): shares of the memory q18's uncapped run
-# reserves above its start that the process may reserve, tried in turn
-# until one raises a real OOM. The uncapped peak holds cached blocks a
-# capped allocator frees first, so the first share that raises moves with
-# the allocator's state from run to run. Near the peak the overshoot is
-# small and spilling the catalog covers it; further below, a join's probe
-# step that every spill left short splits its batch (splitRetries).
-OOM_SHARES = (0.9, 0.8, 0.7, 0.6, 0.5)
+# allocates above its start that the process may allocate on top of what
+# it holds, tried in turn until one raises a real OOM. The span is of
+# allocated bytes, and so is the cap (``real_oom``): before each run the
+# free blocks inside the segments earlier phases left are taken by
+# ballast tensors, so the run's headroom is the share of the span and
+# not what fragmentation left free (on an H100 after the earlier phases,
+# 0.403 GiB lay free inside reserved segments against q18's 0.304 GiB
+# span at 8 partitions). The sweep starts above the whole span, since a
+# run also fragments what it allocates (at 8 partitions the whole span
+# raised in the final aggregate with 54 MiB of its segments free in
+# pieces), and steps by 0.025 of the span (7.8 MiB at 8 partitions),
+# well below what the catalog holds there to spill (27 MiB): the first
+# share that raises overshoots by less than a spill can free. Below about
+# half of the span no rung acts.
+OOM_SHARES = tuple(round(1.3 - 0.025 * i, 3) for i in range(33))
 _BUDGET_KEY = "spark.rapids.memory.tpu.budgetBytes"
 _HOST_KEY = "spark.rapids.memory.host.spillStorageSize"
 
@@ -3698,16 +3706,59 @@ def out_of_core_phase(native, cols: dict, known_seen: list,
     return out
 
 
+def fill_free_blocks(total: int) -> list:
+    """Ballast tensors over the free blocks inside the segments the
+    caching allocator holds, on each block's stream, largest first, with
+    the allocator capped at what it reserves (so none reserves a new
+    segment: a request that finds no free block raises and is skipped).
+    While they live, what the process may still allocate is what its cap
+    allows above what it reserves. Pool blocks over 1 MiB are asked for
+    in 1 MiB pieces, the small pool's largest request."""
+    import torch
+    small = 1 << 20
+    asks = []
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] != "inactive":
+                continue
+            size = b["size"]
+            if seg["segment_type"] == "small":
+                while size > 0:
+                    asks.append((min(size, small), seg["stream"]))
+                    size -= small
+            else:
+                asks.append((size, seg["stream"]))
+    held = []
+    torch.cuda.set_per_process_memory_fraction(
+        torch.cuda.memory_reserved() / total)
+    try:
+        for size, stream in sorted(asks, reverse=True):
+            try:
+                with torch.cuda.stream(torch.cuda.ExternalStream(stream)) \
+                        if stream else contextlib.nullcontext():
+                    held.append(torch.empty(size, dtype=torch.uint8,
+                                            device="cuda"))
+            except torch.OutOfMemoryError:
+                pass
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    return held
+
+
 def real_oom(phys, check, want, label: str = "(e)",
              layout: str = "1 partition") -> dict:
-    """Measure the reserved memory (the caching allocator's, which its
-    cap counts) of one uncapped run, then cap the allocator
-    (``set_per_process_memory_fraction``) at what it reserves now plus a
-    share of that run's reserved peak above its start, for each of
-    ``OOM_SHARES`` in turn, until a run raises a real
-    ``torch.OutOfMemoryError`` inside a retry site. That run must recover
-    on the card (a rung fired) and match its oracle.
-    The fraction is restored after every run."""
+    """Measure the ALLOCATED memory of one uncapped run (its peak above
+    what is allocated at its start: the bytes the query needs), then, for
+    each of ``OOM_SHARES`` in turn, fill the free blocks inside the
+    allocator's segments with ballast (``fill_free_blocks``) and cap the
+    allocator (``set_per_process_memory_fraction``, which counts reserved
+    bytes) at what is allocated plus the share of that span, never below
+    what it reserves, until a run raises a real ``torch.OutOfMemoryError``
+    inside a retry site. Both sides of the cap are allocated bytes, so
+    free space that earlier phases left inside segments cannot add to the
+    run's headroom. That run must recover on the card (a rung fired) and
+    match its oracle. The cap, the peak it came from, the share and the
+    ballast are printed; the fraction is restored after every run."""
     import gc
     import torch
     from spark_rapids_tpu_torch.memory import oom
@@ -3721,13 +3772,20 @@ def real_oom(phys, check, want, label: str = "(e)",
         torch.cuda.empty_cache()
         return torch.cuda.memory_reserved()
 
-    base = settle()
+    settle()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     check(phys.collect(), want)
     torch.cuda.synchronize()
-    span = torch.cuda.max_memory_reserved() - base
+    peak = torch.cuda.max_memory_allocated()
+    span = peak - base
     for share in OOM_SHARES:
-        limit = settle() + int(share * span)
+        settle()
+        ballast = fill_free_blocks(total)
+        reserved = torch.cuda.memory_reserved()
+        allocated = torch.cuda.memory_allocated()
+        held = sum(t.numel() for t in ballast)
+        limit = max(allocated + int(share * span), reserved + 1)
         native.reset_counters()
         oom.last_ladder[:] = []
         ctx = ExecContext(phys.conf)
@@ -3739,21 +3797,28 @@ def real_oom(phys, check, want, label: str = "(e)",
             wall = time.perf_counter() - t0
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
+            del ballast
         launches = native.counters()
         check(rows, want)
         c = check_teardown(f"{label} q18 under a memory cap", ctx)
         rec = c["recovery"]
         log(f"{label} q18 ({layout}) capped at {limit / 2**30:.3f} GiB "
-            f"({share:.2f} of the {span / 2**30:.3f} GiB its uncapped run "
-            f"reserved above {base / 2**30:.3f} GiB): {wall:.3f} s, rows "
-            f"match; ladder {list(oom.last_ladder)}, recovery {rec}, "
-            f"catalog {c['catalog']}")
+            f"(allocated {allocated / 2**30:.3f} GiB, {held / 2**30:.3f} "
+            f"GiB of it ballast in free blocks, reserved "
+            f"{reserved / 2**30:.3f} GiB, + {share:.3f} of the "
+            f"{span / 2**30:.3f} GiB its uncapped run allocated above "
+            f"{base / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB "
+            f"allocated): {wall:.3f} s, rows match; ladder "
+            f"{list(oom.last_ladder)}, recovery {rec}, catalog "
+            f"{c['catalog']}")
         if rec.get("retriesAttempted", 0) > 0:
             if not oom.last_ladder:
                 raise AssertionError(f"{label} a retry with no rung")
             cost = dict(ctx.metrics["Cost@query"].values) \
                 if "Cost@query" in ctx.metrics else {}
-            return dict(share=share, limit=limit, span=span, wall_s=wall,
+            return dict(share=share, limit=limit, span=span, peak=peak,
+                        base=base, reserved=reserved, allocated=allocated,
+                        ballast=held, wall_s=wall,
                         ladder=list(oom.last_ladder), recovery=rec,
                         launches=launches, cost=cost)
     raise AssertionError(f"{label} no share of {OOM_SHARES} raised an OOM")
@@ -7266,7 +7331,9 @@ def transport_phase(native, cols: dict, df_out: dict, ex_out: dict,
     mid-query, recovered by a stage recompute with the same rows; (e)
     two worker processes on the card write a LINEITEM repartition (two
     columns) that this process fetches, equal to its own in-process
-    result; the spool empty afterwards."""
+    result; the spool empty afterwards. The SF1 parquet tables (q18's
+    columns too) stay at ``out["data_dir"]`` for phase 28; the caller
+    removes them."""
     import multiprocessing
     import shutil
     import tempfile
@@ -7295,12 +7362,12 @@ def transport_phase(native, cols: dict, df_out: dict, ex_out: dict,
     def spool_files(d):
         return [os.path.join(a, f) for a, _, fs in os.walk(d) for f in fs]
 
-    procs, srv = [], None
+    procs, srv, data_dir, passed = [], None, None, False
     try:
         # (b)'s tables, written once: (a) reads LINEITEM at SF1 there.
         t0 = time.perf_counter()
-        data_dir = os.path.join(root, "tpch")
-        CS.write_tables(cols, data_dir, DF_QUERIES)
+        data_dir = out["data_dir"] = tempfile.mkdtemp(prefix="srt_tpch_sf1_")
+        CS.write_tables(cols, data_dir, DF_QUERIES + ("q18",))
         log(f"phase 27 q1-q6 tables written with pyarrow in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -7581,6 +7648,7 @@ def transport_phase(native, cols: dict, df_out: dict, ex_out: dict,
             f"{fetch_s:.3f} s, equal to its in-process result "
             f"({len(keys)} rows); spool empty "
             f"({time.perf_counter() - t0:.1f} s)")
+        passed = True
     finally:
         for pr in procs:            # a failure before (e) ended
             pr.kill()
@@ -7588,7 +7656,475 @@ def transport_phase(native, cols: dict, df_out: dict, ex_out: dict,
         if srv is not None:
             srv.close()
         shutil.rmtree(root, ignore_errors=True)
+        if data_dir is not None and not passed:
+            shutil.rmtree(data_dir, ignore_errors=True)
     log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the collective mesh exchange, the multichip dry run over NCCL,
+# and the cluster runtime's worker processes
+# ---------------------------------------------------------------------------
+
+MESH_QUERIES = ("q3", "q4", "q18")
+MESH_SLOTS = 8
+MESH_FOLD_PARTS = 5
+CLUSTER_QUERIES = ("q3", "q4", "q18")
+CLUSTER_HB_TIMEOUT_MS = 3000
+# The exchange's own batches are compared bit for bit, so the inprocess
+# runs beside the mesh keep their partitions as planned: no AQE-lite
+# merge, no run-time re-plan (the mesh exchange has neither).
+MESH_SAME_BATCHES = {"spark.rapids.sql.aqe.coalescePartitions.enabled": False,
+                     "spark.rapids.sql.aqe.replan.enabled": False}
+
+
+def known_shapes(known_seen: list) -> dict:
+    """Launch function -> the K2-K4 shapes the earlier phases checked."""
+    known = {fn: set() for fn in LAUNCHES}
+    for seen in known_seen:
+        for fn, calls in seen.items():
+            known[fn].update(launch_shapes(fn, calls))
+    return known
+
+
+@contextlib.contextmanager
+def new_shape_recording(native, known: dict, known_k1: set, kept: dict):
+    """While the block runs, keep the arguments of the first K1-K4 launch
+    of every shape not in ``known`` / ``known_k1`` in ``kept`` (function
+    -> shape -> arguments); the launches and their counts are
+    unchanged."""
+    saved = {fn: getattr(native, fn) for fn in LAUNCHES}
+    saved_k1 = native.radix_sort
+
+    def keeper(fn, launch):
+        def recorder(*args):
+            shape = LAUNCHES[fn][1](*args)
+            if shape not in known[fn]:
+                kept.setdefault(fn, {}).setdefault(shape, args)
+            return launch(*args)
+        return recorder
+
+    def k1_recorder(keys, perm, out):
+        shape = k1_shape(keys, perm)
+        if shape not in known_k1:
+            kept.setdefault("radix_sort", {}).setdefault(shape,
+                                                         (keys, perm))
+        return saved_k1(keys, perm, out)
+    for fn, launch in saved.items():
+        setattr(native, fn, keeper(fn, launch))
+    native.radix_sort = k1_recorder
+    try:
+        yield kept
+    finally:
+        for fn, launch in saved.items():
+            setattr(native, fn, launch)
+        native.radix_sort = saved_k1
+
+
+def check_new_shapes(native, label: str, kept: dict) -> list:
+    """Each kept launch again through its wrapper, held to the kernel's
+    plain version bit for bit."""
+    import torch
+    out = []
+    for fn, shapes in sorted(kept.items()):
+        for shape, args in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+            if fn == "radix_sort":
+                keys, perm = args
+                got = native.stable_argsort_u32(keys, perm)
+                plain = native.stable_argsort_u32_plain(keys, perm)
+                torch.cuda.synchronize()
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"{label}: K1 != plain at {shape}")
+                r = dict(max_abs_err=max_abs_err(got, plain))
+            elif fn == "join_probe":
+                r = probe_check(native, *args[:2], label=label, timed=False)
+            elif fn == "seg_reduce":
+                r = seg_check(native, *args, label, timed=False)
+            else:
+                vals, ends, nrows, out_t = args
+                r = rle_check(native, vals, ends, out_t.numel(), nrows, label,
+                              timed=False)
+            out.append(dict(r, query=label, kernel=fn, shape=shape))
+    log(f"{label}: new K1-K4 shapes {[(c['kernel'], c['shape']) for c in out]}"
+        f" bit-identical to the plain versions" if out else
+        f"{label}: no K1-K4 shape that earlier phases had not checked")
+    return out
+
+
+def _cluster_worker(addr: str, wid: str, env: dict, go, known: dict,
+                    known_k1: set, results) -> None:
+    """Phase 28 (c)'s worker process (started with ``spawn``, its own CUDA
+    context, the kernels the parent built): once ``go`` is set, a
+    cluster worker on the card until the coordinator retires it, every
+    K1-K4 launch of a shape the earlier phases did not check kept, then
+    held to its plain version; its launch counters and checks go to the
+    parent."""
+    sys.path.insert(0, HERE)
+    try:
+        os.environ.update(env)
+        import torch
+        torch.zeros(1, device="cuda")
+        from spark_rapids_tpu_torch.ops import native
+        from spark_rapids_tpu_torch.parallel.cluster import worker as W
+        if not go.wait(300):
+            raise TimeoutError("no go from the parent in 300 s")
+        native.reset_counters()
+        kept: dict = {}
+        with new_shape_recording(native, known, known_k1, kept):
+            rc = W.run_worker(addr, wid, heartbeat_ms=500, poll_ms=5)
+        launches = native.counters()
+        checks = check_new_shapes(native, f"phase 28 (c) worker {wid}",
+                                  kept)
+        results.put((wid, dict(ok=rc == 0, rc=rc, launches=launches,
+                               checks=[dict(kernel=c["kernel"],
+                                            shape=c["shape"])
+                                       for c in checks],
+                               device=torch.cuda.get_device_name(0))))
+    except BaseException as e:      # reported to the parent, which fails
+        import traceback
+        results.put((wid, dict(ok=False, error="".join(
+            traceback.format_exception(e)))))
+
+
+def _mesh_exchanges(e, cls, out=None) -> list:
+    out = [] if out is None else out
+    if isinstance(e, cls):
+        out.append(e)
+    for c in e.children:
+        _mesh_exchanges(c, cls, out)
+    return out
+
+
+def mesh_cluster_phase(native, cols: dict, df_out: dict, ex_out: dict,
+                       data_dir, known_seen: list, known_k1: set,
+                       smi: str) -> dict:
+    """Phase 28: (a) q3, q4 and q18 at SF1 over phase 11's in-memory
+    tables with ``shuffle.transport=mesh`` at 1 slot, at 8 slots (all on
+    this card) and at 8 slots with ``shuffle.partitions=5`` (a fold),
+    each beside ``inprocess`` at the same partitions (AQE-lite merging
+    and the re-plan off, so the exchanges serve the same batches): rows
+    bit for bit equal and against the oracles; the fold counter, the
+    two-phase piece capacity, K1 / K3 / K4 launches and walls; then one
+    8-slot q3 with the ``mesh.exchange`` fault armed: ``meshDegrades`` 1,
+    the same rows. (b) ``entry.dryrun_multichip(1)`` over an NCCL group
+    of world size 1 on the card, equal to the local group's dry run at 1
+    slot. (c) two ``spawn``-started worker processes on the card (a
+    third, armed with ``workerdeath@cluster.stage:1``, waits), started
+    before (a); q3, q4 and q18 from the SF1 parquet files in ``data_dir``
+    (phase 27's, which the caller removes) with the cluster on and placement
+    off: rows bit for bit the single-process runs', stages dispatched,
+    each worker completing at least one, broadcast-cache hits and
+    publishes; then q3 with the first worker retired, the second demoted
+    and the armed one released: its SIGKILL costs exactly one stage
+    recompute and no retry, the rows unchanged; the spool empty and
+    every worker exited. Every K1-K4 launch of a shape no earlier phase
+    checked, here and in the workers, is held to its plain version."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import entry as E
+    from spark_rapids_tpu_torch import faults
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar.host import device_to_host
+    from spark_rapids_tpu_torch.parallel import cluster as CL
+    from spark_rapids_tpu_torch.parallel import mesh as M
+    from spark_rapids_tpu_torch.parallel import transport as T
+    from spark_rapids_tpu_torch.parallel.mesh_exchange import \
+        MeshExchangeExec
+    t_phase = time.perf_counter()
+    out = {"runs": [], "checks": []}
+    oracles = dict(df_out["oracles"])
+    oracles["q18"] = ex_out["oracles"]["q18"]
+    known = known_shapes(known_seen)
+    kept: dict = {}
+    root = tempfile.mkdtemp(prefix="srt_phase28_")
+    no_faults = {"spark.rapids.sql.test.faults": ""}
+    vfa = dict(no_faults, **{
+        "spark.rapids.sql.variableFloatAgg.enabled": True})
+    cluster_conf = {C.CLUSTER_DIR.key: os.path.join(root, "cluster"),
+                    C.CLUSTER_HEARTBEAT_TIMEOUT_MS.key:
+                        CLUSTER_HB_TIMEOUT_MS}
+    prev_slots = os.environ.get(M.SLOTS_ENV)
+    procs, co = [], None
+    try:
+        # (c)'s coordinator and workers first: their CUDA contexts come
+        # up while (a) and (b) run.
+        co = CL.get_coordinator(C.TpuConf(cluster_conf))
+        addr = f"{co.addr[0]}:{co.addr[1]}"
+        mp = multiprocessing.get_context("spawn")
+        go, go_armed, results = mp.Event(), mp.Event(), mp.Queue()
+        for wid, ev, env in (
+                ("w0", go, {}), ("w1", go, {}),
+                ("w2", go_armed,
+                 {"SRT_FAULTS": "workerdeath@cluster.stage:1"})):
+            procs.append((wid, mp.Process(
+                target=_cluster_worker,
+                args=(addr, wid, env, ev, known, known_k1, results))))
+        for _, pr in procs:
+            pr.start()
+
+        # (a) The mesh exchange at SF1.
+        t0 = time.perf_counter()
+        tables = tpch.tpch_tables(TpuSession(vfa), cols, MESH_QUERIES)
+        out["mesh"] = {}
+        layouts = (("1 slot", 1, None), ("8 slots", MESH_SLOTS, None),
+                   (f"8 slots, {MESH_FOLD_PARTS} partitions", MESH_SLOTS,
+                    MESH_FOLD_PARTS))
+        for q in MESH_QUERIES:
+            check, want = oracles[q]
+            for label, slots, parts in layouts:
+                os.environ[M.SLOTS_ENV] = str(slots)
+                got = {}
+                for name in ("inprocess", "mesh"):
+                    conf = dict(vfa, **MESH_SAME_BATCHES,
+                                **{C.SHUFFLE_TRANSPORT.key: name})
+                    if name == "inprocess":
+                        conf["spark.rapids.sql.shuffle.partitions"] = \
+                            parts or slots
+                    elif parts is not None:
+                        conf["spark.rapids.sql.shuffle.partitions"] = parts
+                    session = TpuSession(conf)
+                    df = tpch.QUERIES[q](session, _rebound(session,
+                                                           tables[q]))
+                    phys = df._physical()
+                    meshx = _mesh_exchanges(phys.root, MeshExchangeExec)
+                    # At one partition an aggregate plans no hash
+                    # exchange, so a 1-slot plan may hold none.
+                    if (meshx and name != "mesh") or (
+                            not meshx and name == "mesh" and slots > 1):
+                        raise AssertionError(
+                            f"phase 28 (a) {q} {name}: {len(meshx)} mesh "
+                            f"exchanges planned")
+                    faults.reset_counters()
+                    native.reset_counters()
+                    with new_shape_recording(native, known, known_k1, kept):
+                        t1 = time.perf_counter()
+                        rows = df.collect()
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t1
+                    launches = native.counters()
+                    out["runs"].append(launches)
+                    check(rows, want)
+                    fc = faults.counters()
+                    if fc.get("meshDegrades") or \
+                            fc.get("meshCollectiveSkipped"):
+                        raise AssertionError(f"phase 28 (a) {q} {label}: "
+                                             f"the collective fell back {fc}")
+                    m = df.metrics()
+                    pieces = sorted({int(v["meshPieceCapacity"])
+                                     for v in m.values()
+                                     if "meshPieceCapacity" in v})
+                    got[name] = dict(rows=rows, wall=wall,
+                                     launches=launches, pieces=pieces,
+                                     folds=int(fc.get(
+                                         "meshPartitionFolds", 0)),
+                                     exchanges=len(meshx))
+                if got["mesh"]["rows"] != got["inprocess"]["rows"]:
+                    raise AssertionError(
+                        f"phase 28 (a) {q} {label}: mesh rows differ from "
+                        f"inprocess: {got['mesh']['rows'][:3]} vs "
+                        f"{got['inprocess']['rows'][:3]}")
+                g = got["mesh"]
+                if parts is not None and g["folds"] < 1:
+                    raise AssertionError(f"phase 28 (a) {q} {label}: no "
+                                         "meshPartitionFolds")
+                out["mesh"][(q, label)] = dict(
+                    mesh_wall_s=g["wall"],
+                    inprocess_wall_s=got["inprocess"]["wall"],
+                    launches=g["launches"],
+                    inprocess_launches=got["inprocess"]["launches"],
+                    folds=g["folds"], piece_capacity=g["pieces"])
+                log(f"phase 28 (a) {q} mesh at {label} ({g['exchanges']} "
+                    f"mesh exchanges): rows bit for bit inprocess's "
+                    f"({len(g['rows'])}) and the oracle's; "
+                    f"meshPartitionFolds {g['folds']}, two-phase piece "
+                    f"capacity {g['pieces'] or 'none'}; K1 "
+                    f"{g['launches']['radix_sort']}, K3 "
+                    f"{g['launches']['join_probe']}, K4 "
+                    f"{g['launches']['rle_decode']}; mesh {g['wall']:.3f} "
+                    f"s, inprocess {got['inprocess']['wall']:.3f} s "
+                    f"(launches {got['inprocess']['launches']})")
+        # The collective failing once: the query's exchanges degrade to
+        # the single-process path.
+        os.environ[M.SLOTS_ENV] = str(MESH_SLOTS)
+        base = next(v for k, v in out["mesh"].items()
+                    if k == ("q3", "8 slots"))
+        session = TpuSession(dict(vfa, **MESH_SAME_BATCHES, **{
+            C.SHUFFLE_TRANSPORT.key: "mesh",
+            "spark.rapids.sql.test.faults": "transient@mesh.exchange:1"}))
+        df = tpch.QUERIES["q3"](session, _rebound(session, tables["q3"]))
+        faults.reset_counters()
+        native.reset_counters()
+        rows = df.collect()
+        out["runs"].append(native.counters())
+        fc = faults.counters()
+        if fc.get("meshDegrades") != 1:
+            raise AssertionError(f"phase 28 (a) degrade: counters {fc}")
+        ref_session = TpuSession(dict(vfa, **MESH_SAME_BATCHES, **{
+            "spark.rapids.sql.shuffle.partitions": MESH_SLOTS}))
+        ref_rows = tpch.QUERIES["q3"](ref_session, _rebound(
+            ref_session, tables["q3"])).collect()
+        if rows != ref_rows:
+            raise AssertionError("phase 28 (a) degrade: rows differ from "
+                                 "inprocess at 8 partitions")
+        oracles["q3"][0](rows, oracles["q3"][1])
+        log(f"phase 28 (a) q3 at 8 slots with transient@mesh.exchange:1: "
+            f"meshDegrades {fc.get('meshDegrades')}, rows unchanged "
+            f"(mesh run {base['mesh_wall_s']:.3f} s)")
+        os.environ[M.SLOTS_ENV] = "1"
+        TpuSession(no_faults)       # the schedule disarmed by the next run
+        log(f"phase 28 (a) {time.perf_counter() - t0:.1f} s; one card "
+            f"cannot show an interconnect: at 8 slots every piece stays on "
+            f"cuda:0 ({smi})")
+
+        # (b) The dry run over an NCCL group of world size 1.
+        t0 = time.perf_counter()
+        nccl = E.dryrun_multichip(1)
+        local = M.make_mesh(1)
+        step = E.dryrun_step(local)
+        outs, over = step(
+            M.shard_batches(local, [E._dryrun_shard(0, local.devices[0])]),
+            M.shard_batches(local, [E._dryrun_shard(100,
+                                                    local.devices[0])]))
+        if bool(over[0]) or device_to_host(outs[0]).to_pylist() != nccl[0]:
+            raise AssertionError(f"phase 28 (b): NCCL rank 0 {nccl[0]} vs "
+                                 f"the local group "
+                                 f"{device_to_host(outs[0]).to_pylist()}")
+        out["dryrun"] = nccl
+        log(f"phase 28 (b) dryrun_multichip(1) over NCCL: {len(nccl[0])} "
+            f"groups, equal to the local group's at 1 slot "
+            f"({time.perf_counter() - t0:.2f} s; one rank: no "
+            f"interconnect)")
+
+        # (c) Two worker processes run the stages of q3, q4 and q18.
+        t0 = time.perf_counter()
+        single = {}
+        for q in CLUSTER_QUERIES:
+            check, want = oracles[q]
+            native.reset_counters()
+            with new_shape_recording(native, known, known_k1, kept):
+                t1 = time.perf_counter()
+                rows = tpch.QUERIES[q](TpuSession(dict(FILE_VFA, **vfa)),
+                                       data_dir).collect()
+                torch.cuda.synchronize()
+            out["runs"].append(native.counters())
+            check(rows, want)
+            single[q] = dict(rows=rows, wall=time.perf_counter() - t1)
+        go.set()
+        ccl = dict(FILE_VFA, **vfa, **cluster_conf,
+                   **{C.CLUSTER_ENABLED.key: True})
+        out["cluster"] = {}
+        T.reset_counters()
+        for q in CLUSTER_QUERIES:
+            df = tpch.QUERIES[q](TpuSession(ccl), data_dir)
+            native.reset_counters()
+            with new_shape_recording(native, known, known_k1, kept):
+                t1 = time.perf_counter()
+                rows = df.collect()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            launches = native.counters()
+            out["runs"].append(launches)
+            cm = df.metrics().get("Cluster@query", {})
+            if rows != single[q]["rows"]:
+                raise AssertionError(f"phase 28 (c) {q}: cluster rows "
+                                     f"differ from the single-process run")
+            if cm.get("stagesDispatched", 0) < 1:
+                raise AssertionError(f"phase 28 (c) {q}: nothing "
+                                     f"dispatched ({cm})")
+            out["cluster"][q] = dict(wall_s=wall, driver_launches=launches,
+                                     metrics=cm,
+                                     single_wall_s=single[q]["wall"])
+            log(f"phase 28 (c) {q} from parquet, driver + 2 workers: rows "
+                f"bit for bit the single-process run's ({len(rows)}); "
+                f"{cm}; driver launches {launches}; {wall:.3f} s against "
+                f"{single[q]['wall']:.3f} s in one process")
+        st = co.stats()["workers"]
+        done = {w: st.get(w, {}).get("completed", 0) for w in ("w0", "w1")}
+        if min(done.values()) < 1:
+            raise AssertionError(f"phase 28 (c): stages completed {done}")
+        bc = {k: v for k, v in T.counters().items()
+              if k.startswith("broadcastCache")}
+        out["broadcast_cache"] = bc
+        log(f"phase 28 (c) stages completed by worker {done}; broadcast "
+            f"cache {bc or 'unused (no broadcast stage)'}")
+
+        # One worker death: w0 retires, w1 is demoted below the armed w2,
+        # which takes the first stage and is SIGKILLed at it.
+        co.dispatch(["CDRAIN", "w0"])
+        dict(procs)["w0"].join(60)
+        co.dispatch(["CDEMO", "w1", "1"])
+        go_armed.set()
+        deadline = time.monotonic() + 120
+        while "w2" not in co.stats()["workers"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 28 (c): w2 never registered")
+            time.sleep(0.05)
+        c0 = dict(faults.counters())
+        df = tpch.QUERIES["q3"](TpuSession(ccl), data_dir)
+        native.reset_counters()
+        t1 = time.perf_counter()
+        rows = df.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        out["runs"].append(native.counters())
+        c1 = faults.counters()
+        delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+            "clusterWorkerDeaths", "stageRecomputes", "retriesAttempted")}
+        dict(procs)["w2"].join(30)
+        code = dict(procs)["w2"].exitcode
+        if rows != single["q3"]["rows"] or delta != {
+                "clusterWorkerDeaths": 1, "stageRecomputes": 1,
+                "retriesAttempted": 0} or code != -9:
+            raise AssertionError(f"phase 28 (c) worker death: {delta}, w2 "
+                                 f"exit {code}, rows equal "
+                                 f"{rows == single['q3']['rows']}")
+        out["death"] = dict(delta, wall_s=wall,
+                            metrics=df.metrics().get("Cluster@query", {}))
+        log(f"phase 28 (c) q3 with w2 SIGKILLed at its first stage "
+            f"(workerdeath@cluster.stage:1): {delta}, exit {code}, rows "
+            f"unchanged, {wall:.3f} s ({out['death']['metrics']})")
+        co.dispatch(["CDEMO", "w1", "0"])
+        co.dispatch(["CDRAIN", "w1"])
+        dict(procs)["w1"].join(60)
+        workers = {}
+        for _ in range(2):
+            w, r = results.get(timeout=60)
+            if not r["ok"]:
+                raise AssertionError(f"phase 28 (c) worker {w}: "
+                                     f"{r.get('error') or r}")
+            workers[w] = r
+            out["runs"].append(r["launches"])
+        alive = [w for w, pr in procs if pr.is_alive()]
+        spool = [os.path.join(a, f) for a, _, fs in os.walk(co.base_dir)
+                 for f in fs if "journal" not in a]
+        if alive or spool:
+            raise AssertionError(f"phase 28 (c): workers alive {alive}, "
+                                 f"spool left {spool[:5]}")
+        out["workers"] = workers
+        log(f"phase 28 (c) workers ({workers['w0']['device']}): launches "
+            f"{ {w: r['launches'] for w, r in workers.items()} }, new shapes "
+            f"checked {[c for r in workers.values() for c in r['checks']]}; "
+            f"all three exited, spool empty "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out["checks"] = check_new_shapes(native, "phase 28", kept)
+    finally:
+        if prev_slots is None:
+            os.environ.pop(M.SLOTS_ENV, None)
+        else:
+            os.environ[M.SLOTS_ENV] = prev_slots
+        for _, pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join(10)
+        CL.shutdown_coordinator()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 28: {out['seconds']:.1f} s")
     return out
 
 
@@ -7882,6 +8418,21 @@ def main() -> int:
     tp = transport_phase(native, cols, df, ex, smi)
     end_phase("phase 27")
 
+    # Phase 28: the collective mesh exchange, the NCCL dry run and the
+    # cluster runtime's worker processes, over phase 27's tables
+    try:
+        mc = mesh_cluster_phase(
+            native, cols, df, ex, tp["data_dir"],
+            joins["seen"] + [q2["seen"]] + [df[q]["seen"]
+                                            for q in DF_QUERIES]
+            + [mixed[q]["seen"] for q in DF_QUERIES], known_k1 | {
+                c["shape"] for ph in (more, ds, dq, ex, rs, st, ud, fi)
+                for c in ph["kernel_checks"] if c["kernel"] == "radix_sort"},
+            smi)
+    finally:
+        shutil.rmtree(tp["data_dir"], ignore_errors=True)
+    end_phase("phase 28")
+
     # Phase 17: the kernels line
     more_runs = tuple(more[(q, c)]["launches"] for c in ("vfa", "default")
                       for q in MORE_QUERIES) + tuple(
@@ -7892,7 +8443,8 @@ def main() -> int:
         ex[k]["launches"] for k in ex_runs) + tuple(ooc["runs"]) + tuple(
         rs["runs"]) + tuple(st["runs"]) + tuple(ud["runs"]) + tuple(
         fi["runs"]) + tuple(pp["runs"]) + tuple(ob["runs"]) + tuple(
-        ad["runs"]) + tuple(sc["runs"]) + tuple(tp["runs"])
+        ad["runs"]) + tuple(sc["runs"]) + tuple(tp["runs"]) + tuple(
+        mc["runs"])
     runs = (path["launches"], joins["q3"]["launches"],
             joins["q4"]["launches"], q2["launches"]) + tuple(
                 df[q]["launches"] for q in DF_QUERIES) + tuple(
@@ -7957,7 +8509,8 @@ def main() -> int:
         + "; phase 24 " + ", ".join(str(r) for r in ob["runs"])
         + "; phase 25 " + ", ".join(str(r) for r in ad["runs"])
         + "; phase 26 " + ", ".join(str(r) for r in sc["runs"])
-        + "; phase 27 " + ", ".join(str(r) for r in tp["runs"]))
+        + "; phase 27 " + ", ".join(str(r) for r in tp["runs"])
+        + "; phase 28 " + ", ".join(str(r) for r in mc["runs"]))
     log(f"nvidia-smi: {smi}")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -892,9 +892,9 @@ COST_CALIBRATION_ALPHA = _entry(
 
 MESH_ENABLED = _entry(
     "spark.rapids.sql.mesh.enabled",
-    "Legacy selector of the mesh shuffle transport. The mesh exchange "
-    "is not ported: selecting it raises a TransportError.", "boolean",
-    False)
+    "Legacy selector of the mesh shuffle transport: when explicitly "
+    "true (and shuffle.transport is unset) hash shuffles plan as the "
+    "collective MeshExchangeExec.", "boolean", False)
 
 SHUFFLE_TRANSPORT = _entry(
     "spark.rapids.sql.shuffle.transport",
@@ -904,7 +904,9 @@ SHUFFLE_TRANSPORT = _entry(
     "with a manifest and socket rendezvous, so independent worker "
     "processes map-write and reduce-fetch each other's shards), "
     "'objectstore' (the same contract over put/get/list/delete of an "
-    "object store) or 'mesh' (not ported: raises). Empty = inprocess "
+    "object store) or 'mesh' (hash shuffles plan as the collective "
+    "MeshExchangeExec over the slot mesh, parallel/mesh.py; its "
+    "shards are catalog handles, as inprocess's). Empty = inprocess "
     "unless SRT_SHUFFLE_TRANSPORT or mesh.enabled says otherwise.",
     "string", "")
 
@@ -1019,6 +1021,116 @@ SHUFFLE_TRANSPORT_OBJECTSTORE_TIMEOUT_MS = _entry(
     "spark.rapids.sql.shuffle.transport.objectstore.timeoutMs",
     "Socket connect/read timeout for one HTTP request to the object "
     "store backend.", "long", 5000)
+
+# -- the mesh exchange (parallel/mesh_exchange.py) ---------------------------
+
+MESH_DEGRADE_ENABLED = _entry(
+    "spark.rapids.sql.mesh.degrade.enabled",
+    "Graceful mesh degrade: when a mesh collective exchange fails, "
+    "demote this query's exchanges to the single-process "
+    "ShuffleExchangeExec path (counter meshDegrades) instead of killing "
+    "the query. Off = collective failures propagate.", "boolean", True)
+
+# -- the cluster runtime (parallel/cluster/) ---------------------------------
+
+CLUSTER_ENABLED = _entry(
+    "spark.rapids.sql.cluster.enabled",
+    "Distributed worker runtime (parallel/cluster/): the driver "
+    "partitions each query's stage DAG into stage tasks and dispatches "
+    "them to registered worker processes, which publish stage outputs "
+    "as owner-tagged shards through the hostfile shuffle transport. "
+    "false (the default) leaves every single-process code path "
+    "unchanged. Queries ineligible for dispatch (host nodes, mesh "
+    "transport, no dispatchable stage, caller-provided context) stand "
+    "down to local execution even when enabled.", "boolean", False)
+
+CLUSTER_COORDINATOR = _entry(
+    "spark.rapids.sql.cluster.coordinator",
+    "host:port the driver-side coordinator binds its control-plane "
+    "socket on (the rendezvous protocol extended with stage-task "
+    "verbs). Workers register against this address. Empty = "
+    "127.0.0.1 with an OS-assigned port (read the bound address off "
+    "the coordinator object).", "string", "")
+
+CLUSTER_COORDINATOR_REMOTE = _entry(
+    "spark.rapids.sql.cluster.coordinator.remote",
+    "Treat cluster.coordinator as an already-running standalone "
+    "coordinator process instead of hosting one in the driver. Not "
+    "ported yet: true raises NotPortedError.", "boolean", False)
+
+CLUSTER_DIR = _entry(
+    "spark.rapids.sql.cluster.dir",
+    "Shared spool directory for cluster stage outputs. All workers and "
+    "the driver must see the same path. Empty = a per-process "
+    "directory under the system temp dir (single-machine clusters "
+    "only).", "string", "")
+
+CLUSTER_DISPATCH_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.cluster.dispatchTimeoutMs",
+    "How long the driver waits for the full stage-task set of one "
+    "query (requeues after worker deaths included) before failing the "
+    "dispatch with a typed UNAVAILABLE error that enters the recovery "
+    "ladder.", "long", 300000)
+
+CLUSTER_HEARTBEAT_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.cluster.heartbeatTimeoutMs",
+    "A worker whose last heartbeat (or any control-plane traffic) is "
+    "older than this is declared dead: its running stage task requeues "
+    "onto a survivor (one stage recompute, its partial spool cleared "
+    "first).", "long", 10000)
+
+CLUSTER_JOURNAL_ENABLED = _entry(
+    "spark.rapids.sql.cluster.journal.enabled",
+    "Write-ahead journal of the coordinator's scheduling state "
+    "(registrations; submit / dispatch / done / requeue with stage "
+    "generations) as torn-line-tolerant JSONL under "
+    "<cluster.dir>/journal/; a coordinator made over the same directory "
+    "replays it, re-adopts stage outputs whose manifests are still "
+    "committed and requeues only what was in flight.", "boolean", True)
+
+CLUSTER_JOURNAL_FSYNC = _entry(
+    "spark.rapids.sql.cluster.journal.fsync",
+    "fsync the journal after every append. Off by default: a torn tail "
+    "costs at most the one recompute the crash already budgeted.",
+    "boolean", False)
+
+CLUSTER_MAX_TASK_RETRIES = _entry(
+    "spark.rapids.sql.cluster.maxTaskRetries",
+    "Per-stage-task requeue budget (worker deaths and reported stage "
+    "failures). A task exhausting it fails the query's dispatch.",
+    "long", 3)
+
+CLUSTER_MIN_WORKERS = _entry(
+    "spark.rapids.sql.cluster.minWorkers",
+    "Dispatch gate: stage tasks are held until this many workers have "
+    "registered (a worker joining later picks up queued tasks at "
+    "once).", "long", 1)
+
+CLUSTER_POLL_MS = _entry(
+    "spark.rapids.sql.cluster.pollMs",
+    "Worker task-poll interval and the driver's dispatch-loop tick.",
+    "long", 25)
+
+CLUSTER_STEAL_DELAY_MS = _entry(
+    "spark.rapids.sql.cluster.stealDelayMs",
+    "Delay scheduling: how long a ready stage task is reserved for its "
+    "preferred worker (most input-shard bytes, then rendezvous-hash "
+    "owner) before any polling worker may take it. 0 disables the "
+    "reservation.", "long", 200)
+
+BROADCAST_CACHE_ENABLED = _entry(
+    "spark.rapids.sql.broadcast.cache.enabled",
+    "Cluster-wide broadcast artifact cache: the first process to build "
+    "a broadcast single publishes it through the cluster's store "
+    "(keyed by plan fingerprint and upstream stage generations) and "
+    "the query's other processes fetch it instead of rebuilding. Only "
+    "active under the cluster runtime; a miss or a corrupt entry "
+    "builds locally.", "boolean", True)
+
+BROADCAST_CACHE_FETCH_TIMEOUT_MS = _entry(
+    "spark.rapids.sql.broadcast.cache.fetchTimeoutMs",
+    "How long a broadcast-cache probe waits for a published manifest "
+    "before declaring a miss and building locally.", "long", 50)
 
 
 class TpuConf:

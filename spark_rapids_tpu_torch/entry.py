@@ -105,6 +105,164 @@ def entry(device: DeviceLike = None):
 
 
 # ---------------------------------------------------------------------------
+# The multichip dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ROWS = 32        # tiny shapes: this checks the collectives, not speed
+_KV = (("k", dt.INT64), ("v", dt.INT64))
+
+
+def _dryrun_shard(seed: int, device) -> "DeviceBatch":
+    """One rank's side of the dry run: the JAX package's
+    ``dryrun_multichip`` shard for ``seed`` (same generator calls)."""
+    rng = np.random.default_rng(seed)
+    hb = HostBatch.from_pydict(
+        _KV, {"k": rng.integers(0, 7, DRYRUN_ROWS).tolist(),
+              "v": rng.integers(0, 100, DRYRUN_ROWS).tolist()})
+    return host_to_device(hb, capacity=DRYRUN_ROWS, device=device)
+
+
+def dryrun_step(mesh):
+    """The dry run's distributed join + aggregate over ``mesh``: both
+    tables shuffled by ``k``, an inner join, then by the left key the sum
+    of both value columns and the count."""
+    from spark_rapids_tpu_torch.ops.join import ShuffledHashJoinExec
+    from spark_rapids_tpu_torch.parallel import mesh as M
+    from spark_rapids_tpu_torch.parallel.partitioning import \
+        HashPartitioning
+    src = InMemorySourceExec(_KV, [[]], device="cpu")
+    join = ShuffledHashJoinExec(src, src, [Ref(0, dt.INT64)],
+                                [Ref(0, dt.INT64)], "inner")
+    # The pair schema is [k, v, k2, v2]: group by the left key.
+    agg = HashAggregateExec(
+        src, [("k", Ref(0, dt.INT64))],
+        [AggSpec("sv", Sum(Ref(1, dt.INT64))),
+         AggSpec("sw", Sum(Ref(3, dt.INT64))),
+         AggSpec("n", CountStar(None))])
+    part = HashPartitioning([Ref(0, dt.INT64)], mesh.size)
+    return M.distributed_join_agg_step(mesh, join, agg, part, part, part)
+
+
+def dryrun_rank(device) -> List[tuple]:
+    """This rank's groups of the dry run, over the default process group
+    (already initialized), with its tensors on ``device``."""
+    from spark_rapids_tpu_torch.columnar.host import device_to_host
+    from spark_rapids_tpu_torch.parallel import mesh as M
+    mesh = M.make_process_mesh(device)
+    step = dryrun_step(mesh)
+    left = M.shard_batches(mesh, [_dryrun_shard(mesh.rank, mesh.device)])
+    right = M.shard_batches(mesh, [_dryrun_shard(100 + mesh.rank,
+                                                 mesh.device)])
+    outs, overflow = step(left, right)
+    if bool(overflow[0]):
+        raise AssertionError(
+            f"rank {mesh.rank}: join expansion overflowed its capacity")
+    return device_to_host(outs[0]).to_pylist()
+
+
+def _dryrun_worker(rank: int, n: int, init: str, device: str,
+                   results) -> None:
+    """A spawned rank: join the group, run its shard, report its groups
+    (or the error) to the parent."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.set_num_threads(1)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=init, world_size=n, rank=rank)
+        try:
+            results.put((rank, dryrun_rank(dev), None))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+
+
+def dryrun_multichip(n_devices: int, device: DeviceLike = None,
+                     timeout_s: float = 300.0) -> List[List[tuple]]:
+    """The counterpart of the JAX package's
+    ``__graft_entry__.dryrun_multichip``: the same distributed join +
+    aggregate over ``n_devices`` ranks of a ``torch.distributed`` group,
+    one rank a process, each holding one shard of both tables. On the
+    card (``device`` None or CUDA) the ranks are NCCL ranks on cards 0..n-1
+    (world size 1 runs in this process); with ``device="cpu"`` they are
+    gloo ranks in ``spawn``-started processes. Asserts no rank's join
+    overflowed and that no group landed on two ranks; prints one line
+    and returns each rank's groups (rows ``(k, sv, sw, n)``)."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    n = int(n_devices)
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"dryrun_multichip({n}) on the card needs {n} "
+                         f"CUDA devices; {torch.cuda.device_count()} "
+                         "visible")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    tmp = tempfile.mkdtemp(prefix="srt_dryrun_")
+    init = "file://" + os.path.join(tmp, "pg")
+    try:
+        if dev.type == "cuda" and n == 1:
+            if dist.is_initialized():
+                raise RuntimeError("dryrun_multichip(1) needs this "
+                                   "process free of a process group")
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", init_method=init, world_size=1,
+                                    rank=0)
+            try:
+                per_rank = [dryrun_rank(dev)]
+            finally:
+                dist.destroy_process_group()
+        else:
+            mp = multiprocessing.get_context("spawn")
+            results = mp.Queue()
+            devs = [f"cuda:{r}" if dev.type == "cuda" else "cpu"
+                    for r in range(n)]
+            procs = [mp.Process(target=_dryrun_worker,
+                                args=(r, n, init, devs[r], results))
+                     for r in range(n)]
+            try:
+                for p in procs:
+                    p.start()
+                per_rank = [None] * n
+                for _ in range(n):
+                    rank, rows, err = results.get(timeout=timeout_s)
+                    if err is not None:
+                        raise RuntimeError(f"dryrun rank {rank} failed:\n"
+                                           f"{err}")
+                    per_rank[rank] = rows
+                for p in procs:
+                    p.join(timeout_s)
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join(10)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seen = set()
+    for rows in per_rank:
+        for row in rows:
+            if row[0] in seen:
+                raise AssertionError(f"group {row[0]} split across ranks")
+            seen.add(row[0])
+    if not seen:
+        raise AssertionError("dryrun_multichip: no group came out")
+    print(f"dryrun_multichip({n}): OK, {len(seen)} groups via "
+          f"all_to_all join+agg over {n} {backend} rank(s)", flush=True)
+    return per_rank
+
+
+# ---------------------------------------------------------------------------
 # TPC-H Q1
 # ---------------------------------------------------------------------------
 

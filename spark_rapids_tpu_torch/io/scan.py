@@ -462,6 +462,18 @@ class FileScanExec(LeafExec):
         self.force_perfile = force_perfile
         self.device = resolve_device(device)
 
+    def __setstate__(self, state) -> None:
+        # An unpickled scan (a cluster worker's stage) parsed its footers
+        # in another process, so its first arrow allocation would come
+        # from a short-lived prefetch thread: under pyarrow's default
+        # mimalloc pool, a pool first made on a thread that then exits
+        # left later reader threads segfaulting in ``ParquetFile``. Make
+        # the pool on the unpickling thread, as a scan built here makes
+        # it on the building thread.
+        import pyarrow as pa
+        pa.default_memory_pool()
+        self.__dict__.update(state)
+
     @property
     def schema(self) -> Schema:
         return self._schema

@@ -155,6 +155,17 @@ class FusedStageExec(Exec):
         self._fused = _build_fused(self._specs)
         self._has_binds = has_bind_slots(_spec_exprs(self._specs))
 
+    def __getstate__(self):
+        # The fused closure is rebuilt from the specs: a plan shipped to
+        # a cluster worker pickles without it.
+        state = dict(self.__dict__)
+        state.pop("_fused", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._fused = _build_fused(self._specs)
+
     @property
     def schema(self) -> Schema:
         return self.ops[-1].schema

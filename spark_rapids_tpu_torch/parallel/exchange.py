@@ -76,6 +76,14 @@ planner recomputes this stage.
 ``BroadcastExchangeExec`` collects its child into one batch, kept as a
 spillable catalog handle, with the same hooks.
 
+Cluster hooks (``parallel/cluster/``, a ``ctx.cache["cluster"]`` marker;
+nothing without it): a dispatchable stage's session is the cluster's
+exclusive-manifest session at its cross-process tag; a stage another
+process produced is adopted from its committed manifest
+(``exchange-adopt`` span) instead of running the map side; a broadcast
+single is fetched from, or published to, the cluster's broadcast cache
+(``parallel/broadcast_cache.py``).
+
 The host half (``execute_host``) splits each host batch with
 ``split_host_batch`` and serves a partition's pieces as they are; under
 the device engine (a host-tagged exchange in a device-rooted plan) a
@@ -302,8 +310,16 @@ class ShuffleExchangeExec(Exec):
         (catalog handles ``inprocess``, spool files ``hostfile``, objects
         ``objectstore``). The session is the durable stage output; it is
         parked in ``ctx.cache``, so a re-execution serves the committed
-        materialization, and the context's teardown closes it."""
+        materialization, and the context's teardown closes it. Under the
+        cluster runtime (``parallel/cluster/``) a dispatchable stage's
+        output lives at its cross-process tag in the query's store,
+        shared by every process of the query."""
         from spark_rapids_tpu_torch.parallel import transport as T
+        info = ctx.cache.get("cluster")
+        if info is not None:
+            sess = info.session_for(ctx, self)
+            if sess is not None:
+                return sess
         transport = T.materialization_transport(ctx.conf)
         return transport.open(
             ctx.conf, f"x{os.getpid():x}-{id(self):x}",
@@ -316,6 +332,21 @@ class ShuffleExchangeExec(Exec):
         if key in ctx.cache:
             return ctx.cache[key]
         from spark_rapids_tpu_torch import monitoring
+        info = ctx.cache.get("cluster")
+        if info is not None and info.is_remote(self):
+            # Another process of this query produced this stage (the
+            # dispatch barrier and the coordinator's dep gating commit its
+            # manifest first): adopt its spool instead of running the map
+            # side, with the producer's exact bucket rows and bytes.
+            with monitoring.span("exchange-adopt", "shuffle",
+                                 args={"op": self.name,
+                                       "stage": info.sid_of(self)}):
+                sess = info.session_for(ctx, self)
+                rows = type(info).adopt_manifest(
+                    sess, self.partitioning.num_partitions)
+                ctx.cache[key] = sess
+                ctx.cache[key + ":rows"] = rows
+                return sess
         with monitoring.span("exchange-materialize", "shuffle",
                              args={"op": self.name,
                                    "partitions":
@@ -598,6 +629,15 @@ class BroadcastExchangeExec(Exec):
             batch = handle.get()
             handle.release(PRIORITY_BROADCAST)
             return batch
+        # The cluster's broadcast cache (parallel/broadcast_cache.py):
+        # another process of this query may have published this single
+        # already; its handle has the SpillableBatch get/release protocol.
+        from spark_rapids_tpu_torch.parallel import broadcast_cache as BC
+        hit = BC.maybe_fetch(ctx, self)
+        if hit is not None:
+            ctx.cache[key] = hit[0]
+            ctx.on_close.append(lambda: self.stage_invalidate(ctx))
+            return hit[1]
         from spark_rapids_tpu_torch import monitoring
         from spark_rapids_tpu_torch.parallel import pipeline as PL
         child = self.children[0]
@@ -625,6 +665,9 @@ class BroadcastExchangeExec(Exec):
         ctx.cache[key] = SpillableBatch(ctx.catalog, single,
                                         PRIORITY_BROADCAST)
         ctx.on_close.append(lambda: self.stage_invalidate(ctx))
+        # Published for the query's other processes (best effort; nothing
+        # outside the cluster runtime).
+        BC.maybe_publish(ctx, self, single)
         return single
 
     def collect_single_host(self, ctx) -> HostBatch:

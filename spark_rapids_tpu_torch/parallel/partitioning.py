@@ -52,9 +52,12 @@ from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_host_batch
 
 
 class Partitioning:
-    """Maps each row to a partition id in [0, num_partitions)."""
+    """Maps each row to a partition id in [0, num_partitions).
+    ``collective``: ``MeshExchangeExec`` can run it as a collective (its
+    ids come from the rows alone)."""
 
     num_partitions: int
+    collective = True
 
     def partition_ids(self, batch: DeviceBatch) -> torch.Tensor:
         raise NotImplementedError
@@ -118,7 +121,10 @@ class RangePartitioning(Partitioning):
     (GpuRangePartitioning.scala: a host sample picks the bounds, the
     device compares every row against them). ``bounds`` is a HostBatch
     of the key columns, positionally, with at most num_partitions - 1
-    ascending rows."""
+    ascending rows. Not ``collective``: the mesh exchange takes no host
+    sample for the bounds."""
+
+    collective = False
 
     def __init__(self, orders: Sequence[SortOrder], num_partitions: int,
                  bounds: Optional[HostBatch] = None):

@@ -12,8 +12,11 @@ Built-in transports, one SPI (``base.py``):
   behind a pluggable put/get/list/delete backend (an HTTP stub ships),
   with bounded retry and deterministic-jitter backoff on transient
   backend errors.
-- ``mesh``: registered, not ported (the collective exchange is ROADMAP
-  A10): selecting it raises :class:`TransportError`.
+- ``mesh``: the collective path's durable half (``mesh.py``): the
+  planner lowers hash shuffles to ``MeshExchangeExec``
+  (``parallel/mesh_exchange.py``), whose per-partition shards are catalog
+  handles; every other exchange (single, round robin, range) of a mesh
+  query materializes ``inprocess``.
 
 Selection: ``spark.rapids.sql.shuffle.transport``, then an explicitly
 set ``spark.rapids.sql.mesh.enabled`` true, then the
@@ -80,11 +83,9 @@ def _make_hostfile() -> ShuffleTransport:
 
 
 def _make_mesh() -> ShuffleTransport:
-    raise TransportError(
-        "the mesh shuffle transport is not ported: the collective mesh "
-        "exchange (ROADMAP A10) has no counterpart in "
-        "spark_rapids_tpu_torch yet; use 'inprocess', 'hostfile' or "
-        "'objectstore'")
+    from spark_rapids_tpu_torch.parallel.transport.mesh import \
+        MeshTransport
+    return MeshTransport()
 
 
 def _make_objectstore() -> ShuffleTransport:
@@ -150,7 +151,8 @@ def get_transport(name: str) -> ShuffleTransport:
 
 def materialization_transport(conf) -> ShuffleTransport:
     """The transport a materialized ``ShuffleExchangeExec`` spools
-    through. Where the reference's 'mesh' falls back to 'inprocess'
-    here (its mesh exchange is a separate exec), the port has no mesh
-    exchange, so 'mesh' raises rather than run 'inprocess' quietly."""
-    return get_transport(transport_name(conf))
+    through: 'mesh' resolves to 'inprocess' (the collective exchange is
+    its own exec, ``MeshExchangeExec``; the exchanges it does not take,
+    single, round robin and range, materialize in process)."""
+    name = transport_name(conf)
+    return get_transport("inprocess" if name == "mesh" else name)

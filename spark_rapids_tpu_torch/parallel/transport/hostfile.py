@@ -223,6 +223,14 @@ class HostFileSession(ShuffleSession):
         self._rv_addr = RV.parse_addr(str(conf.get(
             C.SHUFFLE_TRANSPORT_HOSTFILE_RENDEZVOUS) or ""))
         self._rv_params = RV.client_params(conf)
+        # Cluster session roles (parallel/cluster/): a fetch-only session
+        # consumes another process's stage output, so its invalidate and
+        # close never delete the producer's spool data; keep_on_close
+        # also keeps THIS session's published output past the context's
+        # teardown (the coordinator removes the query's spool at its
+        # end).
+        self.fetch_only = False
+        self.keep_on_close = False
         self.root = os.path.join(base, tag)
         self._my_dir = os.path.join(self.root, self.worker)
         self._seq: Dict[int, int] = {}
@@ -409,8 +417,12 @@ class HostFileSession(ShuffleSession):
 
     def invalidate(self) -> None:
         """Drop the WHOLE durable output (the stage recompute contract):
-        the recompute rewrites every worker's shards under the tag."""
+        the recompute rewrites every worker's shards under the tag. A
+        fetch-only session drops only its own handles and manifest
+        cache: the producer's data is the coordinator's to delete."""
         self._close_handles()
+        if self.fetch_only:
+            return
         shutil.rmtree(self.root, ignore_errors=True)
         self._written = {}
         self._seq = {}
@@ -419,8 +431,12 @@ class HostFileSession(ShuffleSession):
     def close(self) -> None:
         """Query teardown: release fetched handles and remove what THIS
         worker wrote. Other workers' spool data survives: their sessions
-        own it (their fetches may still be running)."""
+        own it (their fetches may still be running). A fetch-only or
+        keep_on_close session (a cluster stage output) releases its
+        handles only."""
         self._close_handles()
+        if self.fetch_only or self.keep_on_close:
+            return
         shutil.rmtree(self._my_dir, ignore_errors=True)
         if self._committed or not self.exclusive:
             # Only a committed manifest is ours to retract: in exclusive

@@ -449,6 +449,9 @@ class ObjectStoreSession(ShuffleSession):
         self.endpoint = resolve_endpoint(conf)
         self.backend = make_backend(self.endpoint, timeout_s=timeout_s)
         # The key namespace root of this exchange's durable output.
+        # Cluster session roles, as a hostfile session's.
+        self.fetch_only = False
+        self.keep_on_close = False
         self.root = f"{prefix}/{tag}" if prefix else tag
         self._seq: Dict[int, int] = {}
         self._written: Dict[int, List[dict]] = {}
@@ -632,8 +635,10 @@ class ObjectStoreSession(ShuffleSession):
 
     def invalidate(self) -> None:
         """The stage recompute contract: drop the WHOLE durable output
-        under the tag."""
+        under the tag (a fetch-only session: its own caches only)."""
         self._close_handles()
+        if self.fetch_only:
+            return
         self._delete_prefix(f"{self.root}/")
         self._written = {}
         self._seq = {}
@@ -641,8 +646,11 @@ class ObjectStoreSession(ShuffleSession):
 
     def close(self) -> None:
         """Query teardown: release fetched handles and delete what THIS
-        worker wrote, and its manifest once committed."""
+        worker wrote, and its manifest once committed (a fetch-only or
+        keep_on_close session: its handles only)."""
         self._close_handles()
+        if self.fetch_only or self.keep_on_close:
+            return
         self._delete_prefix(f"{self.root}/{self.worker}/")
         if self._committed or not self.exclusive:
             self._drop_at_rest(self._manifest_key())

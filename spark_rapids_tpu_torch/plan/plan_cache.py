@@ -316,7 +316,18 @@ def plan_key(plan: LogicalPlan) -> Tuple:
 
 
 def _conf_key(conf) -> Tuple:
-    return tuple(sorted((k, repr(v)) for k, v in conf.raw.items()))
+    """The conf's keys and values, and the planning inputs outside the
+    conf: the shuffle transport it resolves to (``SRT_SHUFFLE_TRANSPORT``
+    may pick it) and, under the mesh transport, the slot count
+    (``SRT_MESH_SLOTS``), which sets the default partition count."""
+    from spark_rapids_tpu_torch.parallel import transport as T
+    name = T.transport_name(conf)
+    slots = 0
+    if name == "mesh":
+        from spark_rapids_tpu_torch.parallel.mesh import default_slots
+        slots = default_slots()
+    return tuple(sorted((k, repr(v)) for k, v in conf.raw.items())) + (
+        ("transport", name, slots),)
 
 
 def _faults_armed(conf) -> bool:

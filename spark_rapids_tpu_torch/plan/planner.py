@@ -116,6 +116,8 @@ from spark_rapids_tpu_torch.ops.pandas_exec import (
     FlatMapGroupsInPandasExec, MapInPandasExec)
 from spark_rapids_tpu_torch.ops.join import JOIN_TYPES
 from spark_rapids_tpu_torch.parallel.exchange import ShuffleExchangeExec
+from spark_rapids_tpu_torch.parallel.mesh_exchange import (
+    MeshExchangeExec, mesh_size)
 from spark_rapids_tpu_torch.parallel.partitioning import (
     HashPartitioning, RangePartitioning, RoundRobinPartitioning,
     SinglePartitioning)
@@ -670,7 +672,15 @@ class PhysicalPlan:
 
         Each retry counts ``retriesAttempted`` in ``Recovery@query``. A
         non-transient error is never retried. There is no host-fallback
-        rung."""
+        rung.
+
+        Under ``spark.rapids.sql.cluster.enabled`` an owned collect first
+        prepares a cluster run (``parallel/cluster/``: the plan pickled
+        to the spool, its dispatchable stages submitted); every attempt
+        then waits at its dispatch barrier before the local collect,
+        rung 1 requeues the lost stage's task too, rung 3 resets every
+        task and installs the run on the fresh context, and the run
+        finishes (its spool removed) before the context closes."""
         from spark_rapids_tpu_torch import faults, monitoring
         from spark_rapids_tpu_torch.memory.oom import (
             backoff_delay_ms, is_transient_error, reset_degradation)
@@ -747,9 +757,21 @@ class PhysicalPlan:
         attempt = 0
         t0 = time.perf_counter()
         status, err_text = "ok", None
+        qrun = None
         try:
+            if owned and bool(self.conf.get(C.CLUSTER_ENABLED)):
+                # The cluster runtime (parallel/cluster/): dispatch the
+                # stage DAG to the registered workers; None (no
+                # dispatchable stage, an unpicklable plan, host nodes, the
+                # mesh transport) runs the query here as before.
+                from spark_rapids_tpu_torch.parallel import cluster as CL
+                qrun = CL.maybe_prepare(self, ctx, graph)
             while True:
                 try:
+                    if qrun is not None:
+                        # The dispatch barrier: every remote stage is
+                        # committed before the local collect fetches.
+                        qrun.run(ctx)
                     return self.root.run_batches(
                         ctx, device=self.root_on_device)
                 except Exception as e:
@@ -791,6 +813,10 @@ class PhysicalPlan:
                     if st is not None and stage_recomputes < stage_budget:
                         S.invalidate_stage(ctx, st)
                         S.record_recompute(ctx, st)
+                        if qrun is not None:
+                            # A remote stage's spool: its task requeues,
+                            # so a worker rewrites it before the barrier.
+                            qrun.recompute(st.stage_id)
                         stage_recomputes += 1
                         _LOG.warning(
                             "lost stage output (%s, recompute %d/%d); "
@@ -818,11 +844,15 @@ class PhysicalPlan:
                             "query on a fresh context in %.0f ms: %s",
                             attempt + 1, max_retries, delay_ms, e)
                         time.sleep(delay_ms / 1000.0)
+                        if qrun is not None:
+                            qrun.reset()
                         ctx.close()
                         ctx = self._context(None, bindings, ticket)
                         ctx.cache["trace_query"] = trace_qid
                         if ticket is not None:
                             mgr.register_context(ticket, ctx)
+                        if qrun is not None:
+                            qrun.install(ctx)
                     query_metrics_entry(ctx, "Recovery").add(
                         "retriesAttempted", 1)
                     attempt += 1
@@ -852,6 +882,10 @@ class PhysicalPlan:
                             qid=trace_qid)
                 faults.set_query_token(None)
                 mgr.finish(ticket)
+            if qrun is not None:
+                # The dispatch state and the query's spool go before the
+                # context closes: its cluster sessions are keep_on_close.
+                qrun.finish()
             qos_class = ticket.qos_class if ticket is not None else None
             q_tenant = ticket.tenant if ticket is not None else None
             dur_ms = (time.perf_counter() - t0) * 1e3
@@ -933,7 +967,7 @@ def _exec_lines(e: Exec, depth: int) -> List[str]:
     detail = ""
     if isinstance(e, (ShuffledHashJoinExec, BroadcastNestedLoopJoinExec)):
         detail = f" {e.join_type}"
-    elif isinstance(e, ShuffleExchangeExec):
+    elif isinstance(e, (ShuffleExchangeExec, MeshExchangeExec)):
         part = e.partitioning
         detail = f" {type(part).__name__}({part.num_partitions})"
     elif isinstance(e, HashAggregateExec):
@@ -1017,18 +1051,34 @@ class Planner:
             else DeviceToHostExec(child)
 
     def _shuffle_partitions(self) -> int:
-        """One partition on one device unless the conf sets the count (the
-        reference's single-device rule; its mesh is not ported)."""
-        if self.conf.raw.get(C.SHUFFLE_PARTITIONS.key) is None:
-            return 1
-        return int(self.conf.get(C.SHUFFLE_PARTITIONS))
+        """The conf's count where it sets one. Unset: with the mesh
+        transport, the mesh's slot count (``mesh_exchange.mesh_size``),
+        else one partition (the reference's single-device rule: on one
+        device extra partitions only add per-partition round trips)."""
+        if self.conf.raw.get(C.SHUFFLE_PARTITIONS.key) is not None:
+            return int(self.conf.get(C.SHUFFLE_PARTITIONS))
+        if self._mesh_enabled():
+            return mesh_size()
+        return 1
+
+    def _mesh_enabled(self) -> bool:
+        """The 'mesh' transport lowers hash shuffles to
+        ``MeshExchangeExec``; every other transport plans the materialized
+        exchange, which spools through it at run time."""
+        from spark_rapids_tpu_torch.parallel import transport as T
+        return T.transport_name(self.conf) == "mesh"
 
     def _hash_exchange(self, child: Exec, keys, n: int,
                        allow_coalesce: bool = False) -> Exec:
-        """A hash shuffle; ``allow_coalesce`` opts into AQE-lite partition
-        merging, safe for aggregate and window exchanges, never for
-        co-partitioned join inputs."""
-        return ShuffleExchangeExec(child, HashPartitioning(keys, n),
+        """A hash shuffle: the collective mesh exchange under the mesh
+        transport, else the materialized exchange; ``allow_coalesce``
+        opts the latter into AQE-lite partition merging, safe for
+        aggregate and window exchanges, never for co-partitioned join
+        inputs."""
+        part = HashPartitioning(keys, n)
+        if self._mesh_enabled():
+            return MeshExchangeExec(child, part)
+        return ShuffleExchangeExec(child, part,
                                    allow_coalesce=allow_coalesce)
 
     def _join_strategy(self, plan: L.LogicalJoin):
@@ -1106,6 +1156,10 @@ class Planner:
                 part = HashPartitioning(
                     [resolve(k, plan.child.schema) for k in plan.keys],
                     plan.num_partitions)
+                if self._mesh_enabled():
+                    # The mesh exchange folds the requested count onto
+                    # the mesh, so the fan-out is honored as asked.
+                    return MeshExchangeExec(child, part), want_dev
             else:
                 part = RoundRobinPartitioning(plan.num_partitions)
             return ShuffleExchangeExec(child, part), want_dev

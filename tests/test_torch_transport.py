@@ -1,12 +1,13 @@
 """Port parity: the shuffle transport SPI (``parallel/transport/``), as
 ``tests/test_transport.py`` and ``tests/test_objectstore.py`` pin the JAX
-package's (its broadcast-cache and cluster cases excepted: the port has
-no cluster layer yet).
+package's (its broadcast-cache and cluster cases are in
+``tests/test_torch_cluster.py``).
 
-- Selection: conf key, env, the legacy mesh key; ``mesh`` is registered
-  and raises ``TransportError`` (not ported), also from a query; a third
-  party registers; every transport key has the reference's name and
-  default.
+- Selection: conf key, env, the legacy mesh key; ``mesh`` makes the
+  collective path's durable half and materializes the other exchanges
+  ``inprocess``, and a mesh query plans its hash repartition as
+  ``MeshExchangeExec``; a third party registers; every transport key has
+  the reference's name and default.
 - The shard wire format: a bit-exact round trip, a CRC mismatch raises,
   a blob written by either package decodes in the other to the same
   rows, onto the reading session's device.
@@ -19,7 +20,7 @@ no cluster layer yet).
   the admin surface, the manifest barrier, bounded retry through 5xx
   bursts, exhaustion, loss at rest, refetch, and the injected kinds.
 - End to end: a shuffled join + aggregate at 4 partitions through
-  ``inprocess``, ``hostfile`` and ``objectstore`` returns the
+  ``inprocess``, ``hostfile``, ``objectstore`` and ``mesh`` returns the
   reference's rows; a lost shard (``lostshard@transport``) and a shard
   file deleted under a running query are recomputed by their owner
   stage with the same rows; a corrupt shard is refetched; the spool and
@@ -148,22 +149,37 @@ def test_transport_selection_conf_env_legacy(monkeypatch):
 
 
 def test_mesh_is_registered_and_raises_not_ported():
+    """The mesh transport is ported (the name is older): ``mesh`` makes
+    the collective path's durable half, and the exchanges the collective
+    does not take materialize ``inprocess``, as in the reference."""
+    from spark_rapids_tpu_torch.parallel.transport.mesh import \
+        MeshTransport
     conf = C.TpuConf({C.SHUFFLE_TRANSPORT.key: "mesh"})
     assert T.transport_name(conf) == "mesh"
-    with pytest.raises(T.TransportError, match="not ported"):
-        T.materialization_transport(conf)
+    assert isinstance(T.get_transport("mesh"), MeshTransport)
+    assert T.materialization_transport(conf).name == "inprocess"
+    with pytest.raises(ValueError, match="catalog"):
+        T.get_transport("mesh").open(conf, "t", 2)
 
 
 @pytest.mark.parametrize("how", ["transport", "legacy"])
 def test_mesh_query_raises_instead_of_running_inprocess(how):
+    """A mesh query runs its hash repartition as the collective
+    ``MeshExchangeExec`` (the name is older: the transport used to
+    raise); its round robin repartition materializes in process."""
+    from spark_rapids_tpu_torch.parallel.mesh_exchange import \
+        MeshExchangeExec
     key = {"transport": (C.SHUFFLE_TRANSPORT.key, "mesh"),
            "legacy": (C.MESH_ENABLED.key, True)}[how]
     s = TpuSession({key[0]: key[1],
                     "spark.rapids.sql.shuffle.partitions": 2}, device="cpu")
-    df = s.create_dataframe({"a": [1, 2, 3]}, [("a", dt.INT64)]) \
-        .repartition(2)
-    with pytest.raises(T.TransportError, match="A10"):
-        df.collect()
+    base = s.create_dataframe({"a": [1, 2, 3]}, [("a", dt.INT64)])
+    hashed = base.repartition(2, "a")
+    assert isinstance(hashed._physical().root, MeshExchangeExec)
+    assert sorted(hashed.collect()) == [(1,), (2,), (3,)]
+    rr = base.repartition(2)
+    assert isinstance(rr._physical().root, ShuffleExchangeExec)
+    assert sorted(rr.collect()) == [(1,), (2,), (3,)]
 
 
 def test_register_third_party_transport():
@@ -722,13 +738,22 @@ def _spool_files(tmp_path):
         if root.exists() else []
 
 
-@pytest.mark.parametrize("name", ["inprocess", "hostfile", "objectstore"])
+@pytest.mark.parametrize("name", ["inprocess", "hostfile", "objectstore",
+                                  "mesh"])
 def test_join_agg_rows_match_reference_across_transports(
         name, parity_dir, reference_rows, stub, tmp_path):
     df = _parity_query(_port_session(name, tmp_path, stub), parity_dir, L)
     assert df.collect() == reference_rows
     m = df.metrics()
-    if name == "inprocess":
+    if name == "mesh":
+        from spark_rapids_tpu_torch.parallel.mesh_exchange import \
+            MeshExchangeExec
+        # The hash shuffles run as collectives; their shards are catalog
+        # handles, counted as inprocess's are not, and nothing spools.
+        assert any(k.startswith(MeshExchangeExec.__name__) for k in m)
+        assert m.get("Transport@query", {}) == {}
+        assert not faults.counters().get("meshDegrades")
+    elif name == "inprocess":
         assert m.get("Transport@query", {}) == {}
     else:
         t = m["Transport@query"]
